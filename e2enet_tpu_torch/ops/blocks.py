@@ -1,0 +1,246 @@
+"""Network building blocks in channels-last (N, D, H, W, C) torch ops: the
+inference subset of e2enet_tpu/ops/blocks.py.
+
+Every conv of the model has a (1,3,3) kernel, so a 3D conv is a batched 2D
+conv with D folded into the batch; a depth stride is a slice of D before
+the fold. Transposed convs have kernel == stride and are one matmul followed
+by a depth-to-space reshape.
+
+Parameter layouts are PyTorch's: conv kernels (Cout, Cin, kh, kw), transposed
+conv kernels (Cin, Cout, sd, sh, sw), seg-head kernels (K, Cin). Parameters
+are stored in float32 and cast to the compute dtype at use, as the reference
+casts its float32 params.
+"""
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, SHIFT_SIZE,
+                          fused_shift_conv_block, norm_affine_from_stats,
+                          slope_in)
+from .shift import depth_shift_groups, group_shifts, restrict_groups
+
+
+def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float = INSTNORM_EPS) -> torch.Tensor:
+    """Per-(sample, channel) normalization over D, H, W with float32
+    statistics. bfloat16 input: one-pass E[x^2] - E[x]^2 and the affine
+    applied with bfloat16-rounded scalars; float32 input: two-pass variance
+    and a float32 apply (reference blocks.py:47-71)."""
+    dtype = x.dtype
+    axes = tuple(range(1, x.dim() - 1))
+    xf = x.float()
+    if dtype == torch.bfloat16:
+        n = float(math.prod(x.shape[a] for a in axes))
+        s1 = xf.sum(axes, keepdim=True)
+        s2 = (xf * xf).sum(axes, keepdim=True)
+        mean = s1 / n
+        var = s2 / n - mean * mean
+        mult = torch.rsqrt(var + eps) * scale.float()
+        off = bias.float() - mean * mult
+        return x * mult.to(dtype) + off.to(dtype)
+    mean = xf.mean(axes, keepdim=True)
+    var = (xf - mean).square().mean(axes, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, slope_in(x.dtype))
+
+
+def conv3d_as_2d(x: torch.Tensor, kernel: torch.Tensor,
+                 bias: Optional[torch.Tensor], stride: Tuple[int, int, int],
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    """(1, kh, kw) conv of x (N, D, H, W, Cin) with kernel (Cout, Cin, kh,
+    kw); padding kh//2, kw//2; the depth stride slices D."""
+    sd, sh, sw = stride
+    if sd > 1:
+        x = x[:, ::sd]
+    N, D, H, W, C = x.shape
+    cout, _, kh, kw = kernel.shape
+    x2 = x.reshape(N * D, H, W, C).permute(0, 3, 1, 2).to(compute_dtype)
+    y = F.conv2d(x2, kernel.to(compute_dtype), None, stride=(sh, sw),
+                 padding=(kh // 2, kw // 2))
+    Ho, Wo = y.shape[2], y.shape[3]
+    y = y.permute(0, 2, 3, 1).reshape(N, D, Ho, Wo, cout)
+    if bias is not None:
+        y = y + bias.to(compute_dtype)
+    return y
+
+
+def transp_conv_matmul(x: torch.Tensor, kernel: torch.Tensor,
+                       stride: Tuple[int, int, int],
+                       compute_dtype: torch.dtype) -> torch.Tensor:
+    """Transposed conv with kernel == stride: x (N, D, H, W, Cin), kernel
+    (Cin, Cout, sd, sh, sw) -> (N, D*sd, H*sh, W*sw, Cout)."""
+    sd, sh, sw = stride
+    N, D, H, W, C = x.shape
+    cin, cout = kernel.shape[:2]
+    assert tuple(kernel.shape[2:]) == (sd, sh, sw), \
+        "transposed conv requires kernel == stride"
+    w2 = kernel.permute(0, 2, 3, 4, 1).reshape(cin, sd * sh * sw * cout)
+    y = x.to(compute_dtype) @ w2.to(compute_dtype)
+    y = y.reshape(N, D, H, W, sd, sh, sw, cout)
+    y = y.permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return y.reshape(N, D * sd, H * sh, W * sw, cout)
+
+
+def max_pool(x: torch.Tensor, window: Tuple[int, int, int]) -> torch.Tensor:
+    """Max pool with window == stride over (N, D, H, W, C)."""
+    wd, wh, ww = window
+    N, D, H, W, C = x.shape
+    assert D % wd == 0 and H % wh == 0 and W % ww == 0, (x.shape, window)
+    x = x.reshape(N, D // wd, wd, H // wh, wh, W // ww, ww, C)
+    return x.amax(dim=(2, 4, 6))
+
+
+def _he_normal_(t: torch.Tensor, fan_in: int,
+                generator: torch.Generator) -> None:
+    """Kaiming normal, fan_in, leaky-relu gain (reference he_normal_leaky)."""
+    std = math.sqrt(2.0 / (1.0 + LRELU_SLOPE ** 2) / fan_in)
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+class ShiftConvBlock(nn.Module):
+    """shift -> conv(1,3,3) -> instance norm -> leaky relu (reference
+    ShiftConvBlock, (1,3,3) list-of-parts branch).
+
+    forward(parts): plain torch; x may be a tensor or a list of parts of an
+    implicit channel concat, conv(shift(cat)) == sum_p conv(shift_p(part_p))
+    with each part's shift groups cut from the groups of the whole concat.
+
+    forward_fused(parts, affines): stride 1 only; runs the fused block op
+    and returns (raw, stats, norm_scale, norm_bias) with the norm pending.
+    """
+
+    def __init__(self, in_channels: int, features: int,
+                 stride: Tuple[int, int, int] = (1, 1, 1),
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.in_channels = in_channels
+        self.features = features
+        self.stride = tuple(stride)
+        self.compute_dtype = compute_dtype
+        f32 = dict(dtype=torch.float32, device=device)
+        self.kernel = nn.Parameter(
+            torch.empty(features, in_channels, 3, 3, **f32))
+        self.bias = nn.Parameter(torch.zeros(features, **f32))
+        self.norm_scale = nn.Parameter(torch.ones(features, **f32))
+        self.norm_bias = nn.Parameter(torch.zeros(features, **f32))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _he_normal_(self.kernel, 9 * self.in_channels, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+            self.norm_scale.fill_(1.0)
+            self.norm_bias.zero_()
+
+    def forward(self, x) -> torch.Tensor:
+        parts = list(x) if isinstance(x, (list, tuple)) else [x]
+        cin = sum(int(p.shape[-1]) for p in parts)
+        assert cin == self.in_channels, (cin, self.in_channels)
+        groups = group_shifts(cin, SHIFT_SIZE)
+        y = None
+        off = 0
+        for part in parts:
+            pc = int(part.shape[-1])
+            part = depth_shift_groups(part,
+                                      restrict_groups(groups, off, off + pc))
+            contrib = conv3d_as_2d(part, self.kernel[:, off:off + pc],
+                                   self.bias if y is None else None,
+                                   self.stride, self.compute_dtype)
+            y = contrib if y is None else y + contrib
+            off += pc
+        return leaky_relu(instance_norm(y, self.norm_scale, self.norm_bias))
+
+    def forward_fused(self, parts: Sequence[torch.Tensor], affines):
+        assert self.stride == (1, 1, 1)
+        cd = self.compute_dtype
+        y, stats = fused_shift_conv_block(parts, self.kernel.to(cd),
+                                          self.bias.to(cd), affines)
+        return y, stats, self.norm_scale, self.norm_bias
+
+
+class StackedConvBlocks(nn.Module):
+    """num_convs ShiftConvBlocks named block0..; the stride applies to the
+    first only (convolutional pooling)."""
+
+    def __init__(self, in_channels: int, features: int, num_convs: int,
+                 first_stride: Tuple[int, int, int] = (1, 1, 1),
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.num_convs = num_convs
+        for i in range(num_convs):
+            self.add_module(f"block{i}", ShiftConvBlock(
+                in_channels if i == 0 else features, features,
+                stride=first_stride if i == 0 else (1, 1, 1),
+                compute_dtype=compute_dtype, device=device))
+
+    def blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.num_convs)]
+
+    def forward(self, x):
+        for blk in self.blocks():
+            x = blk(x)
+        return x
+
+    def forward_fused(self, parts, affines, n_vox: int):
+        """Blocks chained through their instance-norm statistics: block i's
+        norm + lrelu is applied on load by block i+1. Returns the last
+        block's (raw, stats, norm_scale, norm_bias)."""
+        out = None
+        for blk in self.blocks():
+            if out is not None:
+                raw, stats, scale, nbias = out
+                parts = [raw]
+                affines = [norm_affine_from_stats(stats, n_vox, scale, nbias)]
+            out = blk.forward_fused(parts, affines)
+        return out
+
+
+class TranspConv(nn.Module):
+    """Transposed conv, kernel == stride, no bias."""
+
+    def __init__(self, in_channels: int, features: int,
+                 stride: Tuple[int, int, int],
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.compute_dtype = compute_dtype
+        self.kernel = nn.Parameter(torch.empty(
+            in_channels, features, *self.stride, dtype=torch.float32,
+            device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fan_in = math.prod(self.stride) * self.kernel.shape[0]
+        _he_normal_(self.kernel, fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return transp_conv_matmul(x, self.kernel, self.stride,
+                                  self.compute_dtype)
+
+
+class SegHead(nn.Module):
+    """1x1x1 conv without bias; float32 logits from compute-dtype operands
+    (products exact, float32 sums, as the reference's
+    preferred_element_type=float32)."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.kernel = nn.Parameter(torch.empty(
+            num_classes, in_channels, dtype=torch.float32, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _he_normal_(self.kernel, self.kernel.shape[1], generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return x.to(cd).float() @ self.kernel.to(cd).float().t()

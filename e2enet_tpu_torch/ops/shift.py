@@ -1,0 +1,70 @@
+"""Restricted depth shift of shiftConvPP: channel-grouped shift along depth
+with zero fill. Counterpart of e2enet_tpu/ops/shift.py.
+
+Channels are split into `shift_size` groups with torch.chunk semantics
+(group size ceil(C/n), possibly fewer than n groups); group g moves along
+depth by (g - shift_size//2) voxels: out[d] = x[d - s], zero where d - s
+falls outside [0, D). C=1 gives one group with shift -2; C=3 gives -2,-1,0.
+"""
+from typing import List, Sequence, Tuple
+
+import torch
+
+
+def chunk_sizes(num_channels: int, num_chunks: int) -> List[int]:
+    """torch.chunk sizing: chunks of ceil(C/n), the last one the remainder."""
+    if num_chunks <= 0:
+        raise ValueError("num_chunks must be positive")
+    k = -(-num_channels // num_chunks)
+    sizes = []
+    rem = num_channels
+    while rem > 0:
+        take = min(k, rem)
+        sizes.append(take)
+        rem -= take
+    return sizes
+
+
+def group_shifts(num_channels: int,
+                 shift_size: int) -> List[Tuple[int, int, int]]:
+    """[(c_start, c_end, shift)] per channel group; group i shifts by
+    i - shift_size//2."""
+    pad = shift_size // 2
+    out = []
+    start = 0
+    for i, s in enumerate(chunk_sizes(num_channels, shift_size)):
+        out.append((start, start + s, i - pad))
+        start += s
+    return out
+
+
+def restrict_groups(groups: Sequence[Tuple[int, int, int]], lo: int,
+                    hi: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The groups of channels [lo, hi) of a concatenation, re-based to the
+    slice: shift(cat)[..., lo:hi] == depth_shift_groups(cat[..., lo:hi],
+    restrict_groups(groups, lo, hi))."""
+    return tuple((max(c0, lo) - lo, min(c1, hi) - lo, s)
+                 for (c0, c1, s) in groups if c0 < hi and c1 > lo)
+
+
+def depth_shift_groups(x: torch.Tensor, groups, axis: int = 1
+                       ) -> torch.Tensor:
+    """Shift channel ranges of a channels-last tensor along `axis` with zero
+    fill; groups = ((c0, c1, shift), ...) relative to x's channels."""
+    D = x.shape[axis]
+    out = torch.zeros_like(x)
+    for c0, c1, s in groups:
+        lo, hi = max(0, s), min(D, D + s)       # destination depth range
+        if lo >= hi:
+            continue
+        dst = out.narrow(axis, lo, hi - lo)[..., c0:c1]
+        dst.copy_(x.narrow(axis, lo - s, hi - lo)[..., c0:c1])
+    return out
+
+
+def depth_shift(x: torch.Tensor, shift_size: int, axis: int = 1
+                ) -> torch.Tensor:
+    """Channel-grouped depth shift of x (N, D, H, W, C)."""
+    if shift_size // 2 == 0:
+        return x
+    return depth_shift_groups(x, group_shifts(x.shape[-1], shift_size), axis)

@@ -1,0 +1,130 @@
+"""Gaussian-weighted sliding-window inference with data-flip mirror TTA.
+Counterpart of e2enet_tpu/ops/sliding.py (step grid, Gaussian map, the
+data-flip branch of _tiled_accumulate and predict_volume_tiled), as a
+Python loop over tiles and mirror passes on the device.
+"""
+import functools
+from typing import Callable, List, Sequence, Tuple
+
+import numpy as np
+import torch
+from scipy.ndimage import gaussian_filter
+
+
+def compute_steps_for_sliding_window(patch_size: Sequence[int],
+                                     image_size: Sequence[int],
+                                     step_size: float) -> List[List[int]]:
+    """Tile starts per axis: ceil-spaced, first at 0, last flush with the
+    end, stride at most patch_size * step_size."""
+    assert all(i >= j for i, j in zip(image_size, patch_size)), \
+        "image size must be as large or larger than patch_size"
+    assert 0 < step_size <= 1, "step_size must be in (0, 1]"
+    target = [i * step_size for i in patch_size]
+    num_steps = [int(np.ceil((i - k) / j)) + 1
+                 for i, j, k in zip(image_size, target, patch_size)]
+    steps = []
+    for dim in range(len(patch_size)):
+        max_step_value = image_size[dim] - patch_size[dim]
+        actual = (max_step_value / (num_steps[dim] - 1)
+                  if num_steps[dim] > 1 else 99999999999)
+        steps.append([int(np.round(actual * i))
+                      for i in range(num_steps[dim])])
+    return steps
+
+
+@functools.lru_cache(maxsize=8)
+def gaussian_importance_map(patch_size: Tuple[int, ...],
+                            sigma_scale: float = 1.0 / 8) -> np.ndarray:
+    """Tile-blending weights: sigma = patch/8, peak 1, zeros floored to the
+    smallest positive value. Callers must not write to the result."""
+    tmp = np.zeros(patch_size)
+    tmp[tuple(i // 2 for i in patch_size)] = 1
+    g = gaussian_filter(tmp, [i * sigma_scale for i in patch_size], 0,
+                        mode="constant", cval=0)
+    g = (g / np.max(g)).astype(np.float32)
+    g[g == 0] = np.min(g[g != 0])
+    return g
+
+
+def flip_combinations(mirror_axes: Sequence[int]) -> List[Tuple[int, ...]]:
+    """All subsets of the mirror axes, identity first: the 2**n passes."""
+    combos = [()]
+    for a in sorted(mirror_axes):
+        combos = combos + [c + (a,) for c in combos]
+    return combos
+
+
+def pad_volume_to_patch(data: np.ndarray, patch_size: Sequence[int]):
+    """Pad (C, X, Y, Z) with centred zeros so every spatial dim >= patch.
+    Returns (padded, slicer that undoes it)."""
+    shape = data.shape[1:]
+    diff = [max(s, p) - s for s, p in zip(shape, patch_size)]
+    lo = [d // 2 for d in diff]
+    pad = [(0, 0)] + [(l, d - l) for l, d in zip(lo, diff)]
+    padded = np.pad(data, pad, mode="constant")
+    slicer = tuple([slice(None)] + [slice(l, l + s)
+                                    for l, s in zip(lo, shape)])
+    return padded, slicer
+
+
+def bucket_num_tiles(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512,
+                                      1024, 2048, 4096)) -> int:
+    """Tile count rounded up to a bucket (the reference pads its tile list
+    to one so a compiled program serves many shapes)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return int(2 ** np.ceil(np.log2(n)))
+
+
+def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
+                         data: np.ndarray, patch_size: Sequence[int],
+                         num_classes: int, *, device,
+                         step_size: float = 0.5,
+                         mirror_axes: Tuple[int, ...] = (0, 1, 2),
+                         do_mirroring: bool = True,
+                         accum_dtype: torch.dtype = torch.float32
+                         ) -> np.ndarray:
+    """data: (C, X, Y, Z) float32 -> class probabilities (num_classes, X,
+    Y, Z) as numpy in accum_dtype.
+
+    apply_fn(x (1, pd, ph, pw, C) on `device`) -> logits (1, pd, ph, pw,
+    num_classes). Per tile: every mirror pass flips the patch, softmaxes the
+    logits in float32 and unflips them; the float32 mean over passes is
+    weighted by the Gaussian, cast to accum_dtype and added to the
+    accumulators, as are the weights. The result is acc / weights computed
+    in accum_dtype."""
+    padded, slicer = pad_volume_to_patch(data, patch_size)
+    vol = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(padded, 0, -1), dtype=np.float32)).to(device)
+    X, Y, Z, _ = vol.shape
+    pd, ph, pw = patch_size
+    steps = compute_steps_for_sliding_window(patch_size, (X, Y, Z),
+                                             step_size)
+    combos = flip_combinations(mirror_axes) if do_mirroring else [()]
+    gmap = torch.from_numpy(
+        gaussian_importance_map(tuple(patch_size))).to(device)
+    gmap_acc = gmap.to(accum_dtype)
+    acc = torch.zeros((X, Y, Z, num_classes), dtype=accum_dtype,
+                      device=device)
+    wacc = torch.zeros((X, Y, Z), dtype=accum_dtype, device=device)
+    for x0 in steps[0]:
+        for y0 in steps[1]:
+            for z0 in steps[2]:
+                sl = (slice(x0, x0 + pd), slice(y0, y0 + ph),
+                      slice(z0, z0 + pw))
+                patch = vol[sl]
+                prob_sum = torch.zeros((pd, ph, pw, num_classes),
+                                       dtype=torch.float32, device=device)
+                for combo in combos:
+                    xin = patch.flip(combo) if combo else patch
+                    logits = apply_fn(xin[None])[0].float()
+                    p = torch.softmax(logits, dim=-1)
+                    prob_sum += p.flip(combo) if combo else p
+                mean = prob_sum / len(combos)
+                acc[sl] += (mean * gmap[..., None]).to(accum_dtype)
+                wacc[sl] += gmap_acc
+    wacc = torch.where(wacc == 0, torch.ones_like(wacc), wacc)
+    probs = (acc / wacc[..., None]).cpu().numpy()
+    probs = np.moveaxis(probs, -1, 0)
+    return probs[(slice(None),) + slicer[1:]]

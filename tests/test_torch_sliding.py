@@ -1,0 +1,105 @@
+"""e2enet_tpu_torch.ops.sliding against e2enet_tpu.ops.sliding: step grid,
+Gaussian map and host helpers exactly; predict_volume_tiled with 8 mirror
+passes on a 24x20x20 volume and 16^3 patches through the same
+position-dependent toy model (so a missing unflip would show). float32
+accumulators: 1e-4. float16 accumulators: both add the same float16 values in
+the same order; float32 softmax differences of a few ulps can move a float16
+rounding, so 2e-3 (two float16 steps near 1)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from e2enet_tpu.ops import sliding as js  # noqa: E402
+from e2enet_tpu_torch.ops import sliding as ts  # noqa: E402
+
+PATCH = (16, 16, 16)
+K = 3
+
+
+@pytest.mark.parametrize("image,step", [((24, 20, 20), 0.5),
+                                        ((16, 40, 33), 0.5),
+                                        ((128, 192, 150), 0.25)])
+def test_steps_match(image, step):
+    assert ts.compute_steps_for_sliding_window(PATCH, image, step) == \
+        js.compute_steps_for_sliding_window(PATCH, image, step)
+
+
+@pytest.mark.parametrize("patch", [(16, 16, 16), (8, 12, 10)])
+def test_gaussian_matches(patch):
+    np.testing.assert_array_equal(ts.gaussian_importance_map(patch),
+                                  js.gaussian_importance_map(patch))
+
+
+def test_host_helpers_match():
+    assert ts.flip_combinations((0, 1, 2)) == js.flip_combinations((0, 1, 2))
+    assert ts.flip_combinations((2, 0)) == js.flip_combinations((2, 0))
+    for n in (1, 3, 8, 9, 5000):
+        assert ts.bucket_num_tiles(n) == js.bucket_num_tiles(n)
+    data = np.random.RandomState(0).randn(2, 10, 17, 16).astype(np.float32)
+    a, sa = ts.pad_volume_to_patch(data, PATCH)
+    b, sb = js.pad_volume_to_patch(data, PATCH)
+    np.testing.assert_array_equal(a, b)
+    assert sa == sb
+
+
+def _toy_models():
+    """logits = x * a_k + B[d, h, w, k]: not flip-equivariant."""
+    rng = np.random.RandomState(5)
+    a = rng.randn(K).astype(np.float32)
+    B = rng.randn(*PATCH, K).astype(np.float32)
+
+    def jax_apply(params, x):
+        return x[..., :1] * jnp.asarray(a) + jnp.asarray(B)[None]
+
+    ta, tB = torch.from_numpy(a), torch.from_numpy(B)
+
+    def torch_apply(x):
+        return x[..., :1] * ta + tB[None]
+
+    return jax_apply, torch_apply
+
+
+@pytest.mark.parametrize("accum,tol", [("f32", 1e-4), ("f16", 2e-3)])
+def test_predict_volume_tiled_matches(accum, tol):
+    data = np.random.RandomState(1).randn(1, 24, 20, 20).astype(np.float32)
+    jax_apply, torch_apply = _toy_models()
+    jdt = {"f32": jnp.float32, "f16": jnp.float16}[accum]
+    tdt = {"f32": torch.float32, "f16": torch.float16}[accum]
+    pred = js.make_tiled_predictor(jax_apply, PATCH, K, accum_dtype=jdt)
+    ref = js.predict_volume_tiled(jax_apply, {}, data, PATCH, K,
+                                  predictor=pred)
+    out = ts.predict_volume_tiled(torch_apply, data, PATCH, K, device="cpu",
+                                  accum_dtype=tdt)
+    assert out.shape == ref.shape == (K, 24, 20, 20)
+    assert out.dtype == ref.dtype
+    np.testing.assert_allclose(out.astype(np.float32),
+                               ref.astype(np.float32), rtol=0, atol=tol)
+    # sums to 1 where the accumulated weight is a normal number of the
+    # accumulator's type; float16 loses the Gaussian's tails near tile
+    # corners (subnormal or zero weight) exactly as the reference does
+    w = np.zeros(data.shape[1:], ref.dtype)
+    g = ts.gaussian_importance_map(PATCH).astype(ref.dtype)
+    steps = ts.compute_steps_for_sliding_window(PATCH, data.shape[1:], 0.5)
+    for a in steps[0]:
+        for b in steps[1]:
+            for c in steps[2]:
+                w[a:a + 16, b:b + 16, c:c + 16] += g
+    normal = w >= np.finfo(ref.dtype).tiny
+    assert accum == "f16" or normal.all()
+    np.testing.assert_allclose(out.astype(np.float32).sum(0)[normal], 1.0,
+                               atol=5 * tol)
+
+
+def test_mirroring_off_and_padding():
+    """A volume smaller than the patch is padded and cropped back."""
+    data = np.random.RandomState(2).randn(1, 12, 20, 16).astype(np.float32)
+    jax_apply, torch_apply = _toy_models()
+    ref = js.predict_volume_tiled(jax_apply, {}, data, PATCH, K,
+                                  do_mirroring=False)
+    out = ts.predict_volume_tiled(torch_apply, data, PATCH, K, device="cpu",
+                                  do_mirroring=False)
+    assert out.shape == (K, 12, 20, 16)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
