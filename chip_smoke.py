@@ -5,20 +5,29 @@
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
-  2. build    compile csrc/fused_block.cu for sm_90a into build/
-  3. kernel   the fused shift-conv kernel against its plain torch version
-              in bfloat16 at the five main-path shapes, one with every part
-              pending, and four ragged ones (W=13, D=3, two CO tiles,
-              W=200 in three W tiles)
+  2. build    compile every csrc/*.cu for sm_90a into build/ (one nvcc each,
+              all at once); registers and spills per kernel
+  3. kernels  each CUDA kernel against its plain torch version in bfloat16,
+              at the main-path shapes and at ragged ones (odd D, W not a
+              multiple of 8, 8-channel parts); the fused block and the
+              strided transition at all 8 mirror combinations. Per call:
+              kernel ms, plain ms, the bound (bytes or operations over the
+              card's peak) and the share of it reached, and the time of one
+              PyTorch call computing the core op, for context
   4. slice    ShiftUNet++ at the bench width (48 base features, 5 x (2,2,2)
-              pools, 16 classes, bf16, random seeded weights): sliding-window
-              inference of two seeded random 192^3 volumes with 128^3
-              patches, step 0.5, 8 mirror passes and f16 accumulators;
-              kernel launch count, normalised finite probabilities, one patch
-              through the kernel path and the plain path against a float32
-              run of the same weights, ms/volume of both paths
-  5. report   one JSON line with the kernel's launches, error and times,
-              the nvidia-smi line, and last {"ok": true, "device": {...}}
+              pools, 16 classes, bf16, random seeded weights), the fast mode:
+              flip-free mirror TTA (8 statically mirrored forwards per tile)
+              and the bf16 probs head, sliding-window inference of two
+              seeded random 192^3 volumes with 128^3 patches, step 0.5,
+              float16 accumulators. Kernel launch counts, normalised finite
+              probabilities; one patch through the kernel path and the plain
+              path against a float32 run of the same weights; on one tile the
+              flip-free 8-pass mean against the data-flip one; ms/volume of
+              the kernel path and the plain path
+  5. data-flip the data-flip TTA path with the float32 logits head
+              (the seg-head kernel's logits mode), one volume
+  6. report   one JSON line with every kernel's launches, error, times and
+              bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
 """
@@ -33,22 +42,35 @@ PATCH = (128, 128, 128)
 VOLUME = (192, 192, 192)
 NUM_CLASSES = 16
 TTA = 8
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): device memory
+# bytes/s, bf16 tensor-core and float32 CUDA-core operations/s
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
 # kernel vs plain: both sum exact bf16 products in float32 from identical
 # bf16 operands and differ only in summation order (~1e-6 relative), so a
 # stored bf16 value differs by at most one rounding step; allow 2 bf16 ulps
 # of the channel's largest |y|. Stats: float32 sums whose order changes with
-# the atomics, relative to sum|y| (for the sum) and sum y^2.
+# the atomics, relative to sum|y| (for the sum) and sum y^2. The down-link
+# is exact but for the rounding of its affine: one bf16 step. Probabilities:
+# one bf16 step at the largest probability (2^-8), sums to 1 within 1e-2.
+# Logits: float32 sums in another order, 1e-4 of the largest |logit|.
 Y_ULPS = 2.0
 STATS_RTOL = 1e-3
+PROB_ATOL = 2.0 ** -8
+LOGIT_RTOL = 1e-4
 # whole model on one patch: the kernel path and the plain path (both bf16)
 # against the same weights run in float32. Last-bit bf16 differences grow
 # through ~25 layers of a random-weight net, so the two bf16 paths need not
 # agree closely with each other; the kernel path must be as close to the
 # float32 model as the plain path is: mean |dlogit| within 1.25x, argmax
-# agreement within 0.5 points.
+# agreement within 0.5 points. The same rule holds the flip-free 8-pass mean
+# probabilities to the data-flip ones, both against a float32 data-flip run.
 ERR_RATIO = 1.25
 AGREE_SLACK = 0.005
 PROB_SUM_ATOL = 1e-2
+FLIPS = [(fd, fh, fw) for fd in (False, True) for fh in (False, True)
+         for fw in (False, True)]
 
 
 def fail(msg: str) -> None:
@@ -82,6 +104,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(n_bytes: float, n_ops: float, peak_ops: float):
+    """(least ms on the card, what bounds it)"""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak_ops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def f16_weights():
     """(the float16 Gaussian weight sum per voxel, tile count), as the
     predictor accumulates it. The Gaussian's tails fall below float16's
@@ -106,58 +139,227 @@ def bf16_ulp(v):
     return torch.exp2(e - 7)
 
 
-def kernel_case(name, N, D, H, W, part_c, affine, CO, gen, reps):
-    """Kernel vs plain on random bf16 inputs; returns a result dict."""
+def y_err(y, y_ref, ulps):
+    """(within `ulps` bf16 steps of each channel's largest |y|, max abs)"""
     import torch
+    yk, yp = y.float(), y_ref.float()
+    check(bool(torch.isfinite(yk).all()), "non-finite kernel output")
+    dims = tuple(range(yk.dim() - 1))
+    err = (yk - yp).abs()
+    tol = ulps * bf16_ulp(yp.abs().amax(dim=dims))
+    return bool((err.amax(dim=dims) <= tol).all()), float(err.max())
+
+
+def stats_err(s_k, s_p, y_ref):
+    abs_sum = y_ref.float().abs().sum(dim=(1, 2, 3))
+    d1 = (s_k[..., 0] - s_p[..., 0]).abs() / abs_sum.clamp_min(1e-30)
+    d2 = (s_k[..., 1] - s_p[..., 1]).abs() / s_p[..., 1].abs().clamp_min(
+        1e-30)
+    return float(max(d1.max(), d2.max()))
+
+
+class Rnd:
+    """Seeded random tensors on the card."""
+
+    def __init__(self, seed):
+        import torch
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def __call__(self, *shape, scale=1.0, shift=0.0):
+        import torch
+        return (torch.randn(shape, generator=self.gen, device="cuda")
+                * scale + shift)
+
+    def affine(self, N, C):
+        return self(N, C, scale=0.3, shift=1.0), self(N, C, scale=0.2)
+
+
+def report(name, shape, res, extra=""):
+    print(f"  {name} {shape}: max abs err {res['max_abs_err']:.3e}{extra}  "
+          f"kernel {res['ms']:.4f} ms  plain {res['plain_ms']:.4f} ms  "
+          f"bound {res['bound_ms']:.4f} ms by {res['bound_by']} "
+          f"({100 * res['bound_ms'] / res['ms']:.1f} % of it)  library "
+          f"{res['library_ms']:.4f} ms", flush=True)
+
+
+def fused_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
+               flips=(False, False, False)):
+    """Kernel #1 vs plain on random bf16 inputs."""
+    import torch
+    import torch.nn.functional as F
     from e2enet_tpu_torch.ops import fused_block as fb
-    dev = torch.device("cuda")
-
-    def rnd(*shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale
-                + shift)
-
     parts = [rnd(N, D, H, W, c).to(torch.bfloat16) for c in part_c]
-    affines = [(rnd(N, c, scale=0.3, shift=1.0), rnd(N, c, scale=0.2))
-               if a else None for c, a in zip(part_c, affine)]
+    affines = [rnd.affine(N, c) if a else None
+               for c, a in zip(part_c, affine)]
     C = sum(part_c)
     kernel = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
     bias = rnd(CO, scale=0.1)
-    y_k, s_k = fb.fused_shift_conv_block(parts, kernel, bias, affines)
-    y_p, s_p = fb.fused_shift_conv_block_ref(parts, kernel, bias, affines)
+    y_k, s_k = fb.fused_shift_conv_block(parts, kernel, bias, affines, flips)
+    y_p, s_p = fb.fused_shift_conv_block_ref(parts, kernel, bias, affines,
+                                             flips)
     torch.cuda.synchronize()
-    yk, yp = y_k.float(), y_p.float()
-    check(bool(torch.isfinite(yk).all()), f"{name}: non-finite kernel output")
-    err = (yk - yp).abs()
-    ch_max = yp.abs().amax(dim=(0, 1, 2, 3))
-    tol = Y_ULPS * bf16_ulp(ch_max)
-    y_ok = bool((err.amax(dim=(0, 1, 2, 3)) <= tol).all())
-    abs_sum = yp.abs().sum(dim=(1, 2, 3))
-    d1 = ((s_k[..., 0] - s_p[..., 0]).abs() / abs_sum.clamp_min(1e-30))
-    d2 = ((s_k[..., 1] - s_p[..., 1]).abs()
-          / s_p[..., 1].abs().clamp_min(1e-30))
-    stats_rel = float(torch.maximum(d1, d2).max())
+    ok, err = y_err(y_k, y_p, Y_ULPS)
+    srel = stats_err(s_k, s_p, y_p)
+    check(ok, f"{name}: y differs by more than {Y_ULPS} bf16 ulps")
+    check(srel <= STATS_RTOL, f"{name}: stats rel err {srel}")
+    if reps == 0:
+        return dict(max_abs_err=err)
     # the library's bf16 conv of the already shifted, normalised operand:
     # context for the kernel's time, not a replacement for it
     x2 = torch.cat(parts, -1).reshape(N * D, H, W, C).permute(0, 3, 1, 2)
     w2 = kernel.to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
-    cudnn_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x2, w2, padding=1),
-                       reps)
-    res = dict(name=name, y_max_abs=float(err.max()),
-               y_max_rel=float((err / yp.abs().clamp_min(1e-3)).max()),
-               stats_max_rel=stats_rel,
+    b_ms, b_by = bound(nbytes(*parts, y_k) + 9 * C * CO * 2,
+                       2.0 * N * D * H * W * 9 * C * CO, PEAK_BF16)
+    res = dict(max_abs_err=err, stats_rel=srel,
                ms=cuda_ms(lambda: fb.fused_shift_conv_block(
                    parts, kernel, bias, affines), reps),
                plain_ms=cuda_ms(lambda: fb.fused_shift_conv_block_ref(
-                   parts, kernel, bias, affines), reps))
-    print(f"  {name}: N={N} D={D} H={H} W={W} C={part_c} "
-          f"affine={affine} CO={CO}  y max abs {res['y_max_abs']:.3e} "
-          f"(max rel {res['y_max_rel']:.3e})  stats max rel "
-          f"{stats_rel:.3e}  kernel {res['ms']:.3f} ms  plain "
-          f"{res['plain_ms']:.3f} ms  (cuDNN bf16 conv alone "
-          f"{cudnn_ms:.3f} ms)", flush=True)
-    check(y_ok, f"{name}: y differs by more than {Y_ULPS} bf16 ulps")
-    check(stats_rel <= STATS_RTOL, f"{name}: stats rel err {stats_rel}")
+                   parts, kernel, bias, affines), reps),
+               library_ms=cuda_ms(lambda: F.conv2d(x2, w2, padding=1), reps),
+               bound_ms=b_ms, bound_by=b_by)
+    report(name, f"N={N} D={D} H={H} W={W} C={list(part_c)} "
+           f"affine={list(affine)} CO={CO}", res,
+           f" (stats rel {srel:.2e})")
+    return res
+
+
+def strided_case(name, N, D, H, W, C, CO, rnd, reps, flips=(False,) * 3):
+    """Kernel #5 vs plain."""
+    import torch
+    import torch.nn.functional as F
+    from e2enet_tpu_torch.ops import qstride
+    x = rnd(N, D, H, W, C).to(torch.bfloat16)
+    m, o = rnd.affine(N, C)
+    k = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    b = rnd(CO, scale=0.1)
+    args = (x, m, o, k, b, (2, 2, 2), flips)
+    y_k, s_k = qstride.strided_fused(*args)
+    y_p, s_p = qstride.strided_fused_ref(*args)
+    torch.cuda.synchronize()
+    check(y_k.shape == y_p.shape, f"{name}: shape {tuple(y_k.shape)}")
+    ok, err = y_err(y_k, y_p, Y_ULPS)
+    srel = stats_err(s_k, s_p, y_p)
+    check(ok, f"{name} flips={flips}: y differs by more than {Y_ULPS} "
+              f"bf16 ulps")
+    check(srel <= STATS_RTOL, f"{name} flips={flips}: stats rel err {srel}")
+    if reps == 0:
+        return dict(max_abs_err=err)
+    x2 = x.reshape(N * D, H, W, C).permute(0, 3, 1, 2)
+    w2 = k.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    _, Do, Ho, Wo, _ = y_k.shape
+    b_ms, b_by = bound(nbytes(x, y_k) + 9 * C * CO * 2,
+                       2.0 * N * Do * Ho * Wo * 9 * C * CO, PEAK_BF16)
+    res = dict(max_abs_err=err, stats_rel=srel,
+               ms=cuda_ms(lambda: qstride.strided_fused(*args), reps),
+               plain_ms=cuda_ms(lambda: qstride.strided_fused_ref(*args),
+                                reps),
+               library_ms=cuda_ms(lambda: F.conv2d(x2[::2], w2, stride=2,
+                                                   padding=1), reps),
+               bound_ms=b_ms, bound_by=b_by)
+    report(name, f"N={N} D={D} H={H} W={W} C={C} CO={CO}", res,
+           f" (stats rel {srel:.2e})")
+    return res
+
+
+def uplink_case(name, N, D, H, W, C, cout, rnd, reps):
+    """Kernel #6 vs plain."""
+    import torch
+    import torch.nn.functional as F
+    from e2enet_tpu_torch.ops import qlink
+    x = rnd(N, D, H, W, C).to(torch.bfloat16)
+    m, o = rnd.affine(N, C)
+    k = rnd(C, cout, 2, 2, 2, scale=(1.0 / C) ** 0.5)
+    y_k = qlink.uplink(x, m, o, k)
+    y_p = qlink.uplink_ref(x, m, o, k)
+    torch.cuda.synchronize()
+    check(y_k.shape == y_p.shape, f"{name}: shape {tuple(y_k.shape)}")
+    ok, err = y_err(y_k, y_p, Y_ULPS)
+    check(ok, f"{name}: y differs by more than {Y_ULPS} bf16 ulps")
+    if reps == 0:
+        return dict(max_abs_err=err)
+    # the library's transposed conv of the normalised input, channels-last
+    x3 = x.permute(0, 4, 1, 2, 3)
+    k3 = k.to(torch.bfloat16)
+    b_ms, b_by = bound(nbytes(x, y_k) + C * 8 * cout * 2,
+                       2.0 * N * D * H * W * C * 8 * cout, PEAK_BF16)
+    res = dict(max_abs_err=err,
+               ms=cuda_ms(lambda: qlink.uplink(x, m, o, k), reps),
+               plain_ms=cuda_ms(lambda: qlink.uplink_ref(x, m, o, k), reps),
+               library_ms=cuda_ms(lambda: F.conv_transpose3d(x3, k3,
+                                                             stride=2), reps),
+               bound_ms=b_ms, bound_by=b_by)
+    report(name, f"N={N} D={D} H={H} W={W} Cin={C} Cout={cout}", res)
+    return res
+
+
+def downlink_case(name, N, D, H, W, C, rnd, reps):
+    """Kernel #7 vs plain."""
+    import torch
+    import torch.nn.functional as F
+    from e2enet_tpu_torch.ops import qlink
+    x = rnd(N, D, H, W, C).to(torch.bfloat16)
+    m, o = rnd(N, C), rnd(N, C, scale=0.2)          # both signs of mult
+    y_k = qlink.downlink(x, m, o)
+    y_p = qlink.downlink_ref(x, m, o)
+    torch.cuda.synchronize()
+    check(y_k.shape == y_p.shape, f"{name}: shape {tuple(y_k.shape)}")
+    ok, err = y_err(y_k, y_p, 1.0)
+    check(ok, f"{name}: y differs by more than one bf16 ulp")
+    if reps == 0:
+        return dict(max_abs_err=err)
+    x3 = x.permute(0, 4, 1, 2, 3)
+    # two compares per input value, the affine and lrelu per output
+    b_ms, b_by = bound(nbytes(x, y_k, m, o),
+                       2.0 * x.numel() + 4.0 * y_k.numel(), PEAK_F32)
+    res = dict(max_abs_err=err,
+               ms=cuda_ms(lambda: qlink.downlink(x, m, o), reps),
+               plain_ms=cuda_ms(lambda: qlink.downlink_ref(x, m, o), reps),
+               library_ms=cuda_ms(lambda: F.max_pool3d(x3, 2), reps),
+               bound_ms=b_ms, bound_by=b_by)
+    report(name, f"N={N} D={D} H={H} W={W} C={C}", res)
+    return res
+
+
+def seghead_case(name, N, D, H, W, C, K, probs, rnd, reps):
+    """Kernel #10 (probs) or its logits mode #9 vs plain."""
+    import torch
+    import torch.nn.functional as F
+    from e2enet_tpu_torch.ops import qlink
+    x = rnd(N, D, H, W, C).to(torch.bfloat16)
+    m, o = rnd.affine(N, C)
+    w = rnd(K, C, scale=(2.0 / C) ** 0.5)
+    pd = torch.bfloat16 if probs else None
+    y_k = qlink.seghead(x, m, o, w, pd)
+    y_p = qlink.seghead_ref(x, m, o, w, pd)
+    torch.cuda.synchronize()
+    check(y_k.shape == y_p.shape and y_k.dtype == y_p.dtype,
+          f"{name}: {tuple(y_k.shape)} {y_k.dtype}")
+    check(bool(torch.isfinite(y_k.float()).all()), f"{name}: non-finite")
+    err = float((y_k.float() - y_p.float()).abs().max())
+    if probs:
+        s_dev = float((y_k.float().sum(-1) - 1.0).abs().max())
+        check(err <= PROB_ATOL, f"{name}: probs differ by {err}")
+        check(s_dev <= PROB_SUM_ATOL, f"{name}: probs sum off by {s_dev}")
+        extra = f" (max |sum p - 1| {s_dev:.2e})"
+    else:
+        tol = LOGIT_RTOL * float(y_p.abs().max())
+        check(err <= tol, f"{name}: logits differ by {err} > {tol}")
+        extra = ""
+    if reps == 0:
+        return dict(max_abs_err=err)
+    wb = w.to(torch.bfloat16)
+    n_vox = N * D * H * W
+    # 1x1 products and sums, plus the softmax's ~4 operations per class
+    b_ms, b_by = bound(nbytes(x, y_k, m, o, wb),
+                       n_vox * (2.0 * C * K + 4.0 * K), PEAK_F32)
+    res = dict(max_abs_err=err,
+               ms=cuda_ms(lambda: qlink.seghead(x, m, o, w, pd), reps),
+               plain_ms=cuda_ms(lambda: qlink.seghead_ref(x, m, o, w, pd),
+                                reps),
+               library_ms=cuda_ms(lambda: F.linear(x, wb), reps),
+               bound_ms=b_ms, bound_by=b_by)
+    report(name, f"N={N} D={D} H={H} W={W} C={C} K={K}", res, extra)
     return res
 
 
@@ -166,15 +368,25 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the card only")
     try:
-        from e2enet_tpu_torch.models.unetpp import (ShiftUNetPlusPlus,
-                                                    fused_launches_per_forward)
+        from e2enet_tpu_torch.inference.predictor import mirror_apply_fns_for
+        from e2enet_tpu_torch.models.unetpp import (
+            ShiftUNetPlusPlus, kernel_launches_per_forward)
         from e2enet_tpu_torch.ops import _native, blocks
-        from e2enet_tpu_torch.ops import fused_block as fb
-        from e2enet_tpu_torch.ops.sliding import predict_volume_tiled
+        from e2enet_tpu_torch.ops.sliding import (flip_combinations,
+                                                  head_probs,
+                                                  predict_volume_tiled)
     except ImportError as e:
         fail(f"e2enet_tpu_torch not importable ({e}); run from the "
              f"repository root")
     check("jax" not in sys.modules, "the port imported jax")
+    ops = {name: op for name, (op, _) in blocks.KERNEL_OPS.items()}
+
+    def reset_counts():
+        for op in ops.values():
+            op.launches = 0
+
+    def counts():
+        return {name: op.launches for name, op in ops.items()}
 
     # ---- 1. device
     smi = nvidia_smi_line()
@@ -186,130 +398,194 @@ def main() -> None:
 
     # ---- 2. build
     t0 = time.time()
-    lib_path = _native.library_path()
-    _native.library()
-    print(f"[build] {lib_path.name} ready in {time.time() - t0:.1f} s",
-          flush=True)
-    log = lib_path.with_name(lib_path.name + ".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {line.strip()}", flush=True)
+    libs = _native.build_all()
+    print(f"[build] {', '.join(p.name for p in libs.values())} ready in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    for path in libs.values():
+        log = path.with_name(path.name + ".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if ("Compiling entry" in line or "registers" in line
+                        or "spill" in line):
+                    print(f"[build] {line.strip()}", flush=True)
+    for name in libs:
+        _native.library(name)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # ---- 3. kernel vs plain
-    print("[kernel] fused_shift_conv_block vs fused_shift_conv_block_ref "
-          "(bf16)", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [
-        # the five main-path shapes, with the main path's pending affines
-        ("l0_c1_to48", 1, 128, 128, 128, [1], [False], 48),
-        ("l0_48_to48", 1, 128, 128, 128, [48], [True], 48),
-        ("l0_48+48_to48", 1, 128, 128, 128, [48, 48], [True, False], 48),
-        ("l1_96+96+48_to96", 1, 64, 64, 64, [96, 96, 48],
-         [True, False, False], 96),
-        ("l1_96_to96", 1, 64, 64, 64, [96], [True], 96),
-        # every part pending, and the ragged edges
-        ("l1_all_affine", 1, 64, 64, 64, [96, 96, 48], [True, True, True],
-         96),
-        ("ragged_w13", 2, 6, 8, 13, [5, 3], [True, False], 7),
-        ("ragged_d3", 1, 3, 16, 16, [8], [True], 16),
-        ("two_co_tiles", 1, 4, 8, 32, [16, 20], [False, True], 112),
-        ("w_tiles_w200", 1, 4, 8, 200, [96, 96, 48], [True, False, False],
-         96),
-    ]
+    # ---- 3. kernels vs plain
+    rnd = Rnd(0)
+    R = 20                     # timed calls per kernel, after one warm-up
+    res = {}
     with torch.inference_mode():
-        results = [kernel_case(*c, gen=gen, reps=5) for c in cases]
-    max_abs_err = max(r["y_max_abs"] for r in results)
-    headline = next(r for r in results if r["name"] == "l0_48+48_to48")
+        print("[kernel] fused_shift_conv_block (#1) vs plain, bf16; "
+              "'library' is cuDNN's bf16 conv of the prepared operand",
+              flush=True)
+        fused = [
+            # the five main-path shapes, with the main path's pending affines
+            ("l0_c1_to48", 1, 128, 128, 128, [1], [False], 48),
+            ("l0_48_to48", 1, 128, 128, 128, [48], [True], 48),
+            ("l0_48+48_to48", 1, 128, 128, 128, [48, 48], [True, False], 48),
+            ("l1_96+96+48_to96", 1, 64, 64, 64, [96, 96, 48],
+             [True, False, False], 96),
+            ("l1_96_to96", 1, 64, 64, 64, [96], [True], 96),
+            # every part pending, and the ragged edges
+            ("l1_all_affine", 1, 64, 64, 64, [96, 96, 48], [True, True, True],
+             96),
+            ("ragged_w13", 2, 6, 8, 13, [5, 3], [True, False], 7),
+            ("ragged_d3", 1, 3, 16, 16, [8], [True], 16),
+            ("two_co_tiles", 1, 4, 8, 32, [16, 20], [False, True], 112),
+            ("w_tiles_w200", 1, 4, 8, 200, [96, 96, 48], [True, False, False],
+             96),
+        ]
+        r1 = {c[0]: fused_case(*c, rnd=rnd, reps=R) for c in fused}
+        for f in FLIPS:
+            fused_case("flips", 1, 7, 16, 24, [40, 8], [True, False], 24,
+                       rnd=rnd, reps=0, flips=f)
+        print("[kernel] fused block: all 8 mirror combinations within "
+              "tolerance", flush=True)
+        res["fused_shift_conv_block"] = dict(
+            r1["l0_48+48_to48"],
+            max_abs_err=max(r["max_abs_err"] for r in r1.values()))
 
-    # ---- 4. slice
+        print("[kernel] strided_fused (#5) vs plain; 'library' is cuDNN's "
+              "bf16 strided conv of the unnormalised input", flush=True)
+        main5 = strided_case("l0_to_l1_48_to96", 1, 128, 128, 128, 48, 96,
+                             rnd, R)
+        rag5 = strided_case("ragged_d7_w26_c8", 2, 7, 9, 26, 8, 24, rnd, 0)
+        errs = [strided_case("flips", 1, 8, 16, 32, 48, 96, rnd, 0, f)[
+            "max_abs_err"] for f in FLIPS]
+        errs += [strided_case("flips_ragged", 2, 7, 9, 26, 8, 24, rnd, 0,
+                              f)["max_abs_err"] for f in FLIPS]
+        print(f"[kernel] strided: ragged and all 8 mirror combinations "
+              f"within tolerance (max abs err {max(errs):.3e})", flush=True)
+        res["strided_fused"] = dict(main5, max_abs_err=max(
+            [main5["max_abs_err"], rag5["max_abs_err"]] + errs))
+
+        print("[kernel] uplink (#6) vs plain; 'library' is cuDNN's bf16 "
+              "transposed conv of the unnormalised input", flush=True)
+        main6 = uplink_case("l1_to_l0_96_to48", 1, 64, 64, 64, 96, 48, rnd, R)
+        rag6 = uplink_case("ragged_d3_w13_c8", 2, 3, 5, 13, 8, 12, rnd, 0)
+        res["uplink"] = dict(main6, max_abs_err=max(main6["max_abs_err"],
+                                                    rag6["max_abs_err"]))
+
+        print("[kernel] downlink (#7) vs plain; 'library' is max_pool3d of "
+              "the unnormalised input", flush=True)
+        main7 = downlink_case("l0_to_l1_48", 1, 128, 128, 128, 48, rnd, R)
+        rag7 = downlink_case("ragged_d7_w26_c8", 2, 7, 6, 26, 8, rnd, 0)
+        res["downlink"] = dict(main7, max_abs_err=max(main7["max_abs_err"],
+                                                      rag7["max_abs_err"]))
+
+        print("[kernel] seghead (#10 probs, #9 logits) vs plain; 'library' "
+              "is the bf16 1x1 product alone (F.linear)", flush=True)
+        main10 = seghead_case("l0_probs_48_to16", 1, 128, 128, 128, 48, 16,
+                              True, rnd, R)
+        log9 = seghead_case("l0_logits_48_to16", 1, 128, 128, 128, 48, 16,
+                            False, rnd, R)
+        rag10 = [seghead_case("ragged_d3_w13_c8", 2, 3, 5, 13, 8, 3, p, rnd,
+                              0)["max_abs_err"] for p in (True, False)]
+        res["seghead"] = dict(main10, max_abs_err=max(
+            [main10["max_abs_err"]] + rag10))
+        res["seghead"]["logits_mode_ms"] = log9["ms"]
+
+    # ---- 4. slice: flip-free mirror TTA, bf16 probs head
     model = ShiftUNetPlusPlus(
         input_channels=1, num_classes=NUM_CLASSES,
         pool_op_kernel_sizes=((2, 2, 2),) * 5, base_num_features=48,
-        compute_dtype=torch.bfloat16, device="cuda")
+        compute_dtype=torch.bfloat16, head_probs_dtype=torch.bfloat16,
+        device="cuda")
     model.reset_parameters(seed=0)
     model.eval()
-    per_pass = fused_launches_per_forward(model)
+    per_pass = kernel_launches_per_forward(model)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[slice] ShiftUNet++ {n_params / 1e6:.2f}M params, "
-          f"{per_pass} fused-block launches per forward", flush=True)
-    apply_fn = lambda x: model(x, do_ds=False)  # noqa: E731
+    print(f"[slice] ShiftUNet++ {n_params / 1e6:.2f}M params; kernel "
+          f"launches per forward {per_pass}", flush=True)
+    fns = mirror_apply_fns_for(model)
     vols = [np.random.RandomState(s).randn(1, *VOLUME).astype(np.float32)
             for s in (1, 2, 3)]
+    w16, n_tiles = f16_weights()
+    # weights >= 2^-10: a class share of 1/16 or more is still a normal
+    # float16, so the sum over classes is good to ~1e-3
+    normal, zero = w16 >= 2.0 ** -10, w16 == 0
 
-    def predict(vol):
+    def unused_apply_fn(x):
+        fail("apply_fn called under flip-free TTA")
+
+    def predict(vol, apply_fn=unused_apply_fn, mirror_fns=fns):
         return predict_volume_tiled(apply_fn, vol, PATCH, NUM_CLASSES,
                                     device="cuda", step_size=0.5,
                                     mirror_axes=(0, 1, 2),
-                                    accum_dtype=torch.float16)
+                                    accum_dtype=torch.float16,
+                                    mirror_apply_fns=mirror_fns)
 
-    def timed(vol):
+    def timed(fn, *a, **k):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
         start.record()
-        probs = predict(vol)
+        out = fn(*a, **k)
         end.record()
         torch.cuda.synchronize()
-        return probs, start.elapsed_time(end)
+        return out, start.elapsed_time(end)
+
+    def check_probs(tag, probs, ms):
+        p = np.asarray(probs, dtype=np.float32)
+        check(p.shape == (NUM_CLASSES, *VOLUME), f"shape {p.shape}")
+        check(bool(np.isfinite(p).all()), "non-finite probabilities")
+        s = p.sum(0)
+        dev = float(np.abs(s[normal] - 1.0).max())
+        tail = ~normal & ~zero
+        print(f"[{tag}] volume: {ms:.1f} ms, "
+              f"{n_tiles * TTA / (ms / 1e3):.2f} patches/s, probs "
+              f"{probs.dtype}; max |sum_k p - 1| {dev:.2e} over the "
+              f"{int(normal.sum())} voxels of weight >= 2^-10; "
+              f"{int(tail.sum())} voxels of smaller weight reach "
+              f"{float(np.abs(s[tail] - 1.0).max()):.2e}; "
+              f"{int(zero.sum())} voxels of zero weight hold p = 0",
+              flush=True)
+        check(dev <= PROB_SUM_ATOL, f"probs sum off by {dev}")
+        check(bool((s[zero] == 0).all()),
+              "zero-weight voxels hold probabilities")
+
+    def check_counts(tag, got, n_vols, per):
+        want = {k: n_vols * n_tiles * TTA * v for k, v in per.items()}
+        print(f"[{tag}] kernel launches {got} over {n_vols} volume(s) "
+              f"(expected {n_vols} x {n_tiles} tiles x {TTA} passes x "
+              f"{per})", flush=True)
+        check(got == want, f"launch counts {got} != {want}")
 
     with torch.inference_mode():
         t0 = time.time()
         predict(vols[0])                               # warm-up volume
         print(f"[slice] warm-up volume {time.time() - t0:.1f} s", flush=True)
-        fb.fused_shift_conv_block.launches = 0
-        outs = [timed(v) for v in vols[1:]]
-        launches = fb.fused_shift_conv_block.launches
-        w16, n_tiles = f16_weights()
-        # weights >= 2^-10: a class share of 1/16 or more is still a normal
-        # float16, so the sum over classes is good to ~1e-3
-        normal, zero = w16 >= 2.0 ** -10, w16 == 0
-        want = len(outs) * n_tiles * TTA * per_pass
-        print(f"[slice] fused-block launches {launches} over {len(outs)} "
-              f"volumes (expected {want} = {len(outs)} x {n_tiles} tiles x "
-              f"{TTA} passes x {per_pass})", flush=True)
-        check(launches == want, f"launch count {launches} != {want}")
-        for k, (probs, ms) in enumerate(outs):
-            p = np.asarray(probs, dtype=np.float32)
-            check(p.shape == (NUM_CLASSES, *VOLUME), f"shape {p.shape}")
-            check(bool(np.isfinite(p).all()), "non-finite probabilities")
-            s = p.sum(0)
-            dev = float(np.abs(s[normal] - 1.0).max())
-            tail = ~normal & ~zero
-            print(f"[slice] volume {k + 1}: {ms:.1f} ms, "
-                  f"{n_tiles * TTA / (ms / 1e3):.2f} patches/s, probs "
-                  f"{probs.dtype}; max |sum_k p - 1| {dev:.2e} over the "
-                  f"{int(normal.sum())} voxels of weight >= 2^-10; "
-                  f"{int(tail.sum())} voxels of smaller weight reach "
-                  f"{float(np.abs(s[tail] - 1.0).max()):.2e}; "
-                  f"{int(zero.sum())} voxels of zero weight hold p = 0",
-                  flush=True)
-            check(dev <= PROB_SUM_ATOL, f"probs sum off by {dev}")
-            check(bool((s[zero] == 0).all()),
-                  "zero-weight voxels hold probabilities")
+        reset_counts()
+        outs = [timed(predict, v) for v in vols[1:]]
+        launches = counts()
+        check_counts("slice", launches, len(outs), per_pass)
+        for probs, ms in outs:
+            check_probs("slice", probs, ms)
         ms_kernel = float(np.mean([ms for _, ms in outs]))
 
-        # one patch: kernel path, plain path, float32 plain model. The plain
-        # path swaps the plain version in for the fused op at its call site.
+        # plain path: every kernel site swapped for its plain version
+        with blocks.plain_ops():
+            before = counts()
+            _, ms_plain = timed(predict, vols[1])
+            check(counts() == before, "the plain path launched a kernel")
+
+        # one patch: kernel path, plain path, float32 plain model (logits)
         x = torch.from_numpy(vols[1][0, :128, :128, :128, None]).cuda()[None]
-        logits_k = apply_fn(x).float()
-        launches_before_plain = fb.fused_shift_conv_block.launches
         model32 = ShiftUNetPlusPlus(
             input_channels=1, num_classes=NUM_CLASSES,
             pool_op_kernel_sizes=((2, 2, 2),) * 5, base_num_features=48,
             compute_dtype=torch.float32, device="cuda")
         model32.load_state_dict(model.state_dict())
-        blocks.fused_shift_conv_block = fb.fused_shift_conv_block_ref
+        model.head_probs_dtype = None
         try:
-            logits_p = apply_fn(x).float()
-            _, ms_plain = timed(vols[1])
-            logits_32 = model32(x, do_ds=False)
+            logits_k = model(x, do_ds=False).float()
+            with blocks.plain_ops():
+                logits_p = model(x, do_ds=False).float()
+                logits_32 = model32(x, do_ds=False)
         finally:
-            blocks.fused_shift_conv_block = fb.fused_shift_conv_block
-        del model32
-        check(fb.fused_shift_conv_block.launches == launches_before_plain,
-              "the plain path launched the kernel")
+            model.head_probs_dtype = torch.bfloat16
         check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
         d = (logits_k - logits_p).abs()
         agree = float((logits_k.argmax(-1) == logits_p.argmax(-1))
@@ -333,20 +609,75 @@ def main() -> None:
         check(errs["kernel"][1] >= errs["plain"][1] - AGREE_SLACK,
               "kernel path argmax agreement with float32 below the plain "
               "path's")
+
+        # one tile: flip-free 8-pass mean vs data-flip 8-pass mean (both
+        # kernel path, probs head), each against a float32 data-flip run
+        def data_flip_mean(net):
+            acc = None
+            for combo in flip_combinations((0, 1, 2)):
+                ax = tuple(a + 1 for a in combo)
+                p = head_probs(net(x.flip(ax) if ax else x, do_ds=False))
+                p = p.flip(ax) if ax else p
+                acc = p if acc is None else acc + p
+            return acc / TTA
+
+        p_ff = sum(head_probs(fn(x)) for fn in fns) / TTA
+        p_df = data_flip_mean(model)
+        with blocks.plain_ops():
+            p_32 = data_flip_mean(model32)
+        del model32
+        d = (p_ff - p_df).abs()
+        e_ff = float((p_ff - p_32).abs().mean())
+        e_df = float((p_df - p_32).abs().mean())
+        a_ff = float((p_ff.argmax(-1) == p_32.argmax(-1)).float().mean())
+        a_df = float((p_df.argmax(-1) == p_32.argmax(-1)).float().mean())
+        print(f"[slice] one tile, 8-pass mean probs, flip-free vs data-flip: "
+              f"max |dp| {float(d.max()):.4e}, mean {float(d.mean()):.3e}; "
+              f"against float32 data-flip: mean |dp| {e_ff:.4e} vs "
+              f"{e_df:.4e}, argmax agreement {a_ff:.6f} vs {a_df:.6f}",
+              flush=True)
+        check(e_ff <= ERR_RATIO * e_df, "flip-free TTA further from float32 "
+              "than data-flip TTA")
+        check(a_ff >= a_df - AGREE_SLACK, "flip-free TTA argmax agreement "
+              "below data-flip TTA's")
+
     print(f"[slice] ms/volume: kernel path {ms_kernel:.1f} "
           f"({n_tiles * TTA / (ms_kernel / 1e3):.2f} patches/s), plain path "
           f"{ms_plain:.1f} ({n_tiles * TTA / (ms_plain / 1e3):.2f} "
           f"patches/s)  [{smi}]", flush=True)
-    print(f"[report] kernel ms/plain_ms are per call at the l0_48+48_to48 "
-          f"shape", flush=True)
 
-    # ---- 5. report
+    # ---- 5. the data-flip TTA path, float32 logits head
+    model.head_probs_dtype = None
+    per_df = kernel_launches_per_forward(model)
+    apply_fn = lambda v: model(v, do_ds=False)  # noqa: E731
+    with torch.inference_mode():
+        reset_counts()
+        probs, ms_df = timed(predict, vols[1], apply_fn, None)
+        check_counts("data-flip", counts(), 1, per_df)
+        check_probs("data-flip", probs, ms_df)
+    print(f"[data-flip] ms/volume: kernel path {ms_df:.1f} "
+          f"({n_tiles * TTA / (ms_df / 1e3):.2f} patches/s)  [{smi}]",
+          flush=True)
+
+    # ---- 6. report
+    sources = {"fused_shift_conv_block": ("fused_block.cu",
+                                          "e2enet_tpu/ops/fused_block.py:85"),
+               "strided_fused": ("qstride.cu", "e2enet_tpu/ops/qstride.py:158"),
+               "uplink": ("qlink.cu", "e2enet_tpu/ops/qlink.py:104"),
+               "downlink": ("qlink.cu", "e2enet_tpu/ops/qlink.py:188"),
+               "seghead": ("qlink.cu", "e2enet_tpu/ops/qlink.py:445")}
+    print("[report] ms, plain_ms, bound_ms and library_ms are per call at "
+          "the main-path shape (fused block: l0_48+48_to48; seg head: probs "
+          "mode); max_abs_err over every case", flush=True)
     print(json.dumps({"kernels": [{
-        "name": "fused_shift_conv_block", "route": "cuda",
-        "source": "e2enet_tpu_torch/csrc/fused_block.cu",
-        "replaces": "e2enet_tpu/ops/fused_block.py:85",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": headline["ms"], "plain_ms": headline["plain_ms"]}]}))
+        "name": name, "route": "cuda",
+        "source": f"e2enet_tpu_torch/csrc/{src}", "replaces": rep,
+        "launches": launches[name], "max_abs_err": res[name]["max_abs_err"],
+        "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
+        "bound_ms": res[name]["bound_ms"],
+        "bound_by": res[name]["bound_by"],
+        "library_ms": res[name]["library_ms"]}
+        for name, (src, rep) in sources.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,9 +2,10 @@
 inference for NVIDIA Hopper.
 
 The JAX package `e2enet_tpu` is the reference; this package imports torch
-and never jax. Layout at the public edges follows the reference
-(channels-last (N, D, H, W, C) activations). The stride-1 (1,3,3) shift-conv
-blocks of levels 0 and 1 run through a hand-written CUDA kernel
-(`csrc/fused_block.cu`, see `ops/fused_block.py`); everything else is plain
-torch.
+and never jax. It computes channels-last (N, D, H, W, C) throughout, with
+no quadrant or padded layout. The reference's TPU kernels on the serving
+path are hand-written CUDA kernels here (`csrc/`, bound in `ops/_native.py`):
+the fused shift-conv block (`ops/fused_block.py`), the strided transition
+(`ops/qstride.py`), and the level links and seg head (`ops/qlink.py`);
+everything else is plain torch.
 """

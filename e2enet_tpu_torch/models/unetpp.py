@@ -1,5 +1,6 @@
-"""ShiftUNetPlusPlus (E2ENet) forward in torch: the dense, non-quadrant
-path of e2enet_tpu/models/unetpp.py.
+"""ShiftUNetPlusPlus (E2ENet) forward in torch: the reference model of
+e2enet_tpu/models/unetpp.py computed channels-last (N, D, H, W, C), with no
+quadrant or padded layout.
 
 UNet++ dense nest of shifted (1,3,3) conv stacks; encoder pooling is a
 strided first conv, nest up-links are k == s transposed convs and nest
@@ -8,14 +9,28 @@ concat[x(i, j-1), up(x(i+1, j-1)), maxpool(x(i-1, j-1))] (the pooled part
 only for i > 0); reference names x(i, j) = loc{P-i-j}_{j-1}, with a
 `_final` stack on the diagonal nodes (z == 0).
 
-Stride-1 stacks at levels <= FUSED_MAX_LEVEL run the fused block op
-(ops/fused_block.py): their outputs stay Pending, raw conv output plus
-instance-norm statistics, and consumers apply norm + leaky relu on load.
-With 5 pools one forward launches the fused block 13 times: context0 (2),
-the five level-0 nest nodes and the final of x(0, 5) (6), the four level-1
-nest nodes and the final of x(1, 4) (5). Everything else is plain torch.
-The launches go through the name `fused_shift_conv_block` of ops/blocks.py,
-so a caller can swap in the plain version there.
+Levels <= FUSED_MAX_LEVEL keep their outputs Pending (raw conv output plus
+instance-norm statistics; consumers apply norm + leaky relu on load), as
+the reference's quadrant path does (models/unetpp.py, quadrant=True):
+  * every stride-1 stack there runs the fused block op (ops/fused_block);
+  * context1's strided first block is the strided transition
+    (ops/qstride) on context0's pending output, its other blocks fused;
+  * a level-0 node's up-link reads the pending level-1 node through the
+    up-link op, a level-1 node's pooled part reads the pending level-0 node
+    through the down-link op, and a pending node's seg head is the seg-head
+    op (ops/qlink).
+With 5 pools and do_ds=False one forward makes 14 fused-block calls
+(context0 2, context1 1, the five level-0 nest nodes and the final of
+x(0, 5) 6, the four level-1 nest nodes and the final of x(1, 4) 5), one
+strided transition, 5 up-links, 4 down-links and one seg head
+(kernel_launches_per_forward). Everything else is plain torch. The kernel
+sites go through the names of ops/blocks.py, so ops.blocks.plain_ops()
+swaps in the plain versions.
+
+forward(x, do_ds, flips) with flips (fd, fh, fw) computes the mirrored
+model, flip_c(net(flip_c(x))), with the same parameters (the reference's
+net.clone(flips=c)); the sliding-window predictor runs one mirrored forward
+per mirror pass instead of flipping data.
 
 Parameter names follow the reference's flax tree (`context{d}.block{b}`,
 `context{P}a/b`, `up{z}_{k}`, `loc{z}_{k}`, `loc{z}_{k}_final`,
@@ -23,14 +38,15 @@ Parameter names follow the reference's flax tree (`context{d}.block{b}`,
 models/weights.py for the layouts.
 """
 import math
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..ops import blocks
 from ..ops.blocks import SegHead, StackedConvBlocks, TranspConv, max_pool
-from ..ops.fused_block import (apply_norm_lrelu, norm_affine_from_stats,
-                               pooled_part)
+from ..ops.fused_block import (NO_FLIPS, Flips, apply_norm_lrelu,
+                               norm_affine_from_stats, pooled_part)
 
 MAX_NUM_FILTERS_3D = 320
 # deepest level whose stride-1 stacks run the fused block: the reference's
@@ -55,8 +71,11 @@ def encoder_channels(base: int, num_pool: int, max_features: int,
 
 
 class ShiftUNetPlusPlus(nn.Module):
-    """forward(x (N, D, H, W, Cin), do_ds) -> float32 logits (N, D, H, W, K),
-    or the list of deep-supervision logits (finest first) when do_ds."""
+    """forward(x (N, D, H, W, Cin), do_ds, flips) -> float32 logits
+    (N, D, H, W, K), or the list of deep-supervision logits (finest first)
+    when do_ds. head_probs_dtype (the reference's): with do_ds=False the
+    level-0 head returns its class softmax in that dtype instead of
+    logits."""
 
     def __init__(self, input_channels: int, num_classes: int,
                  pool_op_kernel_sizes: Sequence[Tuple[int, int, int]],
@@ -64,6 +83,7 @@ class ShiftUNetPlusPlus(nn.Module):
                  max_num_features: int = MAX_NUM_FILTERS_3D,
                  num_conv_per_stage: int = 2,
                  compute_dtype: torch.dtype = torch.bfloat16,
+                 head_probs_dtype: Optional[torch.dtype] = None,
                  device=None):
         super().__init__()
         if device is None:
@@ -73,6 +93,7 @@ class ShiftUNetPlusPlus(nn.Module):
         self.num_classes = num_classes
         self.num_conv_per_stage = num_conv_per_stage
         self.compute_dtype = compute_dtype
+        self.head_probs_dtype = head_probs_dtype
         enc = self.enc = encoder_channels(base_num_features, P,
                                           max_num_features)
         kw = dict(compute_dtype=compute_dtype, device=device)
@@ -116,9 +137,11 @@ class ShiftUNetPlusPlus(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
 
-    def forward(self, x: torch.Tensor, do_ds: bool = True):
+    def forward(self, x: torch.Tensor, do_ds: bool = True,
+                flips: Flips = NO_FLIPS):
         P = self.num_pool
         pools, enc = self.pools, self.enc
+        flips = tuple(bool(f) for f in flips)
         div = [math.prod(p[a] for p in pools) for a in range(3)]
         if any(int(s) % d for s, d in zip(x.shape[1:4], div)):
             raise ValueError(f"input spatial shape {tuple(x.shape[1:4])} "
@@ -148,23 +171,25 @@ class ShiftUNetPlusPlus(nn.Module):
                 return apply_norm_lrelu(v.raw, *affine_of(v, i))
             return v
 
-        def fused(stack, part_list, i):
+        def fused(stack, part_list):
             parts = [p for p, _ in part_list]
             affines = [a for _, a in part_list]
-            return stack.forward_fused(parts, affines, n_vox(i))
+            return Pending(*stack.forward_fused(parts, affines, flips))
 
         # ---- encoder
         nodes: Dict[Tuple[int, int], object] = {}
         h = x
         for d in range(P):
             stack = getattr(self, f"context{d}")
-            if d == 0:
-                h = Pending(*fused(stack, [as_part(h, 0)], 0))
+            if d <= FUSED_MAX_LEVEL:
+                # context0 from the input; context1's strided first block
+                # reads context0's pending output
+                h = fused(stack, [as_part(h, max(d - 1, 0))])
             else:
-                h = stack(as_cl(h, max(d - 1, 0)))
+                h = stack(as_cl(h, d - 1), flips)
             nodes[(d, 0)] = h
-        h = getattr(self, f"context{P}a")(as_cl(h, P - 1))
-        nodes[(P, 0)] = getattr(self, f"context{P}b")(h)
+        h = getattr(self, f"context{P}a")(as_cl(h, P - 1), flips)
+        nodes[(P, 0)] = getattr(self, f"context{P}b")(h, flips)
 
         # ---- dense nest
         for j in range(1, P + 1):
@@ -173,13 +198,19 @@ class ShiftUNetPlusPlus(nn.Module):
                 below = nodes[(i + 1, j - 1)]
                 same = nodes[(i, j - 1)]
                 above = nodes[(i - 1, j - 1)] if i > 0 else None
-                up = getattr(self, f"up{z}_{k}")(as_cl(below, i + 1))
+                up_mod = getattr(self, f"up{z}_{k}")
+                if isinstance(below, Pending):
+                    up = up_mod.forward_pending(
+                        below.raw, *affine_of(below, i + 1), flips)
+                else:
+                    up = up_mod(below, flips)
                 # pooled down-link: maxpool(lrelu(norm(x(i-1, j-1))))
                 if above is None:
                     down = None
                 elif isinstance(above, Pending):
-                    down = pooled_part(above.raw, *affine_of(above, i - 1),
-                                       pools[i - 1])
+                    link = blocks.downlink if i == 1 else pooled_part
+                    down = link(above.raw, *affine_of(above, i - 1),
+                                pools[i - 1])
                 else:
                     down = max_pool(above, pools[i - 1])
                 loc = getattr(self, f"loc{z}_{k}")
@@ -187,34 +218,61 @@ class ShiftUNetPlusPlus(nn.Module):
                     part_list = [as_part(same, i), (up, None)]
                     if down is not None:
                         part_list.append((down, None))
-                    out = Pending(*fused(loc, part_list, i))
+                    out = fused(loc, part_list)
                     if z == 0:
                         final = getattr(self, f"loc{z}_{k}_final")
-                        out = Pending(*fused(final, [as_part(out, i)], i))
+                        out = fused(final, [as_part(out, i)])
                 else:
                     cat = [as_cl(same, i), up]
                     if down is not None:
                         cat.append(down)
-                    out = loc(cat)
+                    out = loc(cat, flips)
                     if z == 0:
-                        out = getattr(self, f"loc{z}_{k}_final")(out)
+                        out = getattr(self, f"loc{z}_{k}_final")(out, flips)
                 nodes[(i, j)] = out
 
-        # ---- deep-supervision heads
-        outputs = [getattr(self, f"seg_head{i}")(as_cl(nodes[(i, P - i)], i))
-                   for i in range(self.num_ds_outputs())]
-        return outputs if do_ds else outputs[0]
+        # ---- seg heads: only the ones returned
+        def head(i, probs_dtype=None):
+            v, mod = nodes[(i, P - i)], getattr(self, f"seg_head{i}")
+            if isinstance(v, Pending):
+                return mod.forward_pending(v.raw, *affine_of(v, i),
+                                           probs_dtype)
+            return mod(v, probs_dtype)
+
+        if not do_ds:
+            return head(0, self.head_probs_dtype)
+        return [head(i) for i in range(self.num_ds_outputs())]
 
 
 def fused_launches_per_forward(model: ShiftUNetPlusPlus) -> int:
-    """Fused block calls in one forward: the stride-1 context0 stack, every
-    nest stack at a fused level and the finals of the fused diagonal
-    nodes."""
+    """Fused block calls in one forward: the stride-1 blocks of the
+    encoder stacks at fused levels (context1's first block is the strided
+    transition), every nest stack at a fused level and the finals of the
+    fused diagonal nodes."""
     P = model.num_pool
-    n = model.num_conv_per_stage
+    n = sum(model.num_conv_per_stage - (1 if d > 0 else 0)
+            for d in range(min(P, FUSED_MAX_LEVEL + 1)))
     for j in range(1, P + 1):
         for i in range(P - j, -1, -1):
             if i <= FUSED_MAX_LEVEL:
                 n += model.num_conv_per_stage - 1 + (1 if P - i - j == 0
                                                      else 0)
     return n
+
+
+def kernel_launches_per_forward(model: ShiftUNetPlusPlus,
+                                do_ds: bool = False) -> Dict[str, int]:
+    """Calls per forward of each kernel site (ops/blocks.KERNEL_OPS): the
+    fused block, the strided transition (context1), the up-links into
+    level 0 (one per level-0 nest node), the level-0 -> 1 down-links (one
+    per level-1 nest node) and the seg heads of pending nodes."""
+    P = model.num_pool
+    fused_levels = min(P, FUSED_MAX_LEVEL + 1)
+    n_heads = model.num_ds_outputs() if do_ds else 1
+    return {
+        "fused_shift_conv_block": fused_launches_per_forward(model),
+        "strided_fused": 1 if fused_levels > 1 else 0,
+        "uplink": P if fused_levels > 1 else 0,
+        "downlink": P - 1 if fused_levels > 1 else 0,
+        "seghead": min(n_heads, fused_levels),
+    }

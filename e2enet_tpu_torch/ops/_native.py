@@ -1,11 +1,14 @@
 """Build and bind the CUDA kernels of csrc/.
 
-The sources are compiled with nvcc into a shared library with a plain C
-interface at first use, into `build/` at the root of the checkout (named by
-a hash of source and flags, so an edited source rebuilds), and bound with
-ctypes. The compiler's report (`-Xptxas -v`: registers, shared memory,
-spills) is kept beside the library as `<library>.log`. Nothing here runs at
-import time: this module is imported on machines without nvcc or a card.
+Every csrc/*.cu is compiled with nvcc into its own shared library with a
+plain C interface, into `build/` at the root of the checkout, at first use:
+all sources at once, one nvcc process each, started together. A library's
+name carries a hash of every source and the flags, so an edited source
+rebuilds them all. Each is loaded with ctypes; the compiler's report
+(`-Xptxas -v`: registers, shared memory, spills) is kept beside it as
+`<library>.log`. Nothing here runs at import time: this module is imported
+on machines without nvcc or a card. Every launcher raises on a non-zero
+return (a refused launch); there is no fallback.
 """
 import ctypes
 import functools
@@ -14,14 +17,36 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCE = CSRC / "fused_block.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+vp, i32 = ctypes.c_void_p, ctypes.c_int
+PI = ctypes.POINTER(ctypes.c_int)
+# the C entry points of each source and their argument types
+SIGNATURES = {
+    "fused_block": {
+        "fused_block_launch": [ctypes.POINTER(vp)] * 3 + [PI, PI, i32, PI,
+                                                          i32] + [vp] * 4
+        + [i32] * 5 + [vp]},
+    "qstride": {
+        # x, mult, off, groups, ngroups, w9, b, y, stats, N, D, H, W, C, CO,
+        # Do, Ho, Wo, sd, sh, sw, parity, origin_h, origin_w, stream
+        "qstride_launch": [vp] * 3 + [PI, i32] + [vp] * 4 + [i32] * 15
+        + [vp]},
+    "qlink": {
+        # x, mult, off, wt, y, N, D, H, W, Cin, Cout, sd, sh, sw, stream
+        "uplink_launch": [vp] * 5 + [i32] * 9 + [vp],
+        # x, mult, off, y, N, D, H, W, C, wd, wh, ww, stream
+        "downlink_launch": [vp] * 4 + [i32] * 8 + [vp],
+        # x, mult, off, w, y, N, voxels per sample, C, K, probs, stream
+        "seghead_launch": [vp] * 5 + [i32] * 5 + [vp]},
+}
 
 
 def _nvcc() -> str:
@@ -35,36 +60,66 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """build/libfused_block_<hash of source and flags>.so"""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libfused_block_{tag}.so"
+def sources() -> Dict[str, Path]:
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+
+
+def library_path(name: str) -> Path:
+    """build/lib<name>_<hash of all sources and the flags>.so"""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources().values():
+        h.update(p.name.encode() + p.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """Compile csrc/fused_block.cu if no library for this source exists,
-    load it and declare the C signature."""
-    so = library_path()
-    if not so.exists():
+def build_all() -> Dict[str, Path]:
+    """Compile every source whose library is missing, in parallel, and
+    return {name: library path}. Raises with the compiler's errors."""
+    srcs = sources()
+    todo = {n: library_path(n) for n in srcs}
+    todo = {n: so for n, so in todo.items() if not so.exists()}
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        Path(f"{so}.log").write_text(r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    vp, ip, i = ctypes.c_void_p, ctypes.c_int, ctypes.c_int
-    fn = lib.fused_block_launch
-    fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp),
-                   ctypes.POINTER(vp), ctypes.POINTER(ip), ctypes.POINTER(ip),
-                   i, ctypes.POINTER(ip), i, vp, vp, vp, vp, i, i, i, i, i,
-                   vp]
-    fn.restype = ctypes.c_int
+        nvcc = _nvcc()
+        procs = {}
+        for n, so in todo.items():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            procs[n] = (so, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        errors = []
+        for n, (so, tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            Path(f"{so}.log").write_text(out)
+            if proc.returncode != 0:
+                errors.append(f"{srcs[n].name}: nvcc exit {proc.returncode}"
+                              f"\n{out}")
+            else:
+                os.replace(tmp, so)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    return {n: library_path(n) for n in srcs}
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, with its C signatures."""
+    lib = ctypes.CDLL(str(build_all()[name]))
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel refused: cudaError {err}")
 
 
 def _row_alignment(x) -> int:
@@ -76,6 +131,11 @@ def _row_alignment(x) -> int:
     return 2
 
 
+def _groups_arr(groups):
+    flat = [int(v) for g in groups for v in g]
+    return (ctypes.c_int * len(flat))(*flat), len(groups)
+
+
 def launch_fused_block(parts, affines, groups, w9, b, y, stats) -> None:
     """Launch csrc/fused_block.cu on the current stream. parts: contiguous
     bf16 (N, D, H, W, Ci); affines: per part None or contiguous float32
@@ -84,7 +144,7 @@ def launch_fused_block(parts, affines, groups, w9, b, y, stats) -> None:
     float32 (zeroed). Raises on a refused launch."""
     if w9.data_ptr() % 16 or not w9.is_contiguous():
         raise ValueError("weights must be contiguous and 16-byte aligned")
-    fn = library().fused_block_launch
+    fn = library("fused_block").fused_block_launch
     P = len(parts)
     arr = ctypes.c_void_p * P
     xs = arr(*[p.data_ptr() for p in parts])
@@ -93,14 +153,69 @@ def launch_fused_block(parts, affines, groups, w9, b, y, stats) -> None:
     pc = (ctypes.c_int * P)(*[int(p.shape[-1]) for p in parts])
     # the widest copy every pixel row of a part is aligned for
     vec = (ctypes.c_int * P)(*[_row_alignment(p) for p in parts])
-    flat = [int(v) for g in groups for v in g]
-    gr = (ctypes.c_int * len(flat))(*flat)
+    gr, ng = _groups_arr(groups)
     N, D, H, W, CO = (int(s) for s in y.shape)
     with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = fn(xs, ms, os_, pc, vec, P, gr, len(groups), w9.data_ptr(),
+        err = fn(xs, ms, os_, pc, vec, P, gr, ng, w9.data_ptr(),
                  b.data_ptr(), y.data_ptr(), stats.data_ptr(), N, D, H, W,
-                 CO, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_block kernel refused: cudaError {err} "
-                           f"(N={N} D={D} H={H} W={W} C={sum(pc)} CO={CO})")
+                 CO, _stream(y))
+    _check(err, f"fused_block (N={N} D={D} H={H} W={W} C={sum(pc)} "
+                f"CO={CO})")
+
+
+def launch_strided(x, mult, off, groups, w9, b, y, stats, stride, parity,
+                   origins) -> None:
+    """Launch csrc/qstride.cu: x contiguous bf16 (N, D, H, W, C); mult/off
+    float32 (N, C); groups [(c0, c1, shift)] of C with the input depth row
+    stride_d * do + parity - shift; w9 (9, CO, C) bf16 with the taps
+    already mirrored; b (CO,) float32; origins (H, W) position of tap 0
+    relative to stride * o; outputs y (N, Do, Ho, Wo, CO) bf16 and stats
+    (N, CO, 2) float32 (zeroed)."""
+    fn = library("qstride").qstride_launch
+    gr, ng = _groups_arr(groups)
+    N, D, H, W, C = (int(s) for s in x.shape)
+    _, Do, Ho, Wo, CO = (int(s) for s in y.shape)
+    with torch.cuda.device(y.device):
+        err = fn(x.data_ptr(), mult.data_ptr(), off.data_ptr(), gr, ng,
+                 w9.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 stats.data_ptr(), N, D, H, W, C, CO, Do, Ho, Wo,
+                 *stride, parity, *origins, _stream(y))
+    _check(err, f"qstride (N={N} D={D} H={H} W={W} C={C} CO={CO})")
+
+
+def launch_uplink(x, mult, off, wt, y, stride) -> None:
+    """Launch csrc/qlink.cu's up-link: x contiguous bf16 (N, D, H, W, Cin);
+    mult/off float32 (N, Cin); wt (sd*sh, sw*Cout, Cin) bf16; output y
+    (N, D*sd, H*sh, W*sw, Cout) bf16."""
+    fn = library("qlink").uplink_launch
+    N, D, H, W, C = (int(s) for s in x.shape)
+    cout = int(y.shape[-1])
+    with torch.cuda.device(y.device):
+        err = fn(x.data_ptr(), mult.data_ptr(), off.data_ptr(),
+                 wt.data_ptr(), y.data_ptr(), N, D, H, W, C, cout, *stride,
+                 _stream(y))
+    _check(err, f"uplink (N={N} D={D} H={H} W={W} Cin={C} Cout={cout})")
+
+
+def launch_downlink(x, mult, off, y, window) -> None:
+    """Launch csrc/qlink.cu's down-link: x contiguous bf16 (N, D, H, W, C);
+    mult/off float32 (N, C); output y (N, D//wd, H//wh, W//ww, C) bf16."""
+    fn = library("qlink").downlink_launch
+    N, D, H, W, C = (int(s) for s in x.shape)
+    with torch.cuda.device(y.device):
+        err = fn(x.data_ptr(), mult.data_ptr(), off.data_ptr(),
+                 y.data_ptr(), N, D, H, W, C, *window, _stream(y))
+    _check(err, f"downlink (N={N} D={D} H={H} W={W} C={C})")
+
+
+def launch_seghead(x, mult, off, w, y, probs: bool) -> None:
+    """Launch csrc/qlink.cu's seg head: x contiguous bf16 (N, D, H, W, C);
+    mult/off float32 (N, C); w (K, C) bf16; output y (N, D, H, W, K): bf16
+    probs when `probs`, else float32 logits."""
+    fn = library("qlink").seghead_launch
+    N, D, H, W, C = (int(s) for s in x.shape)
+    K = int(w.shape[0])
+    with torch.cuda.device(y.device):
+        err = fn(x.data_ptr(), mult.data_ptr(), off.data_ptr(), w.data_ptr(),
+                 y.data_ptr(), N, D * H * W, C, K, int(probs), _stream(y))
+    _check(err, f"seghead (N={N} D={D} H={H} W={W} C={C} K={K})")

@@ -1,5 +1,6 @@
 """Network building blocks in channels-last (N, D, H, W, C) torch ops: the
-inference subset of e2enet_tpu/ops/blocks.py.
+inference subset of e2enet_tpu/ops/blocks.py. The port has no quadrant or
+padded channels-first layout.
 
 Every conv of the model has a (1,3,3) kernel, so a 3D conv is a batched 2D
 conv with D folded into the batch; a depth stride is a slice of D before
@@ -10,7 +11,18 @@ Parameter layouts are PyTorch's: conv kernels (Cout, Cin, kh, kw), transposed
 conv kernels (Cin, Cout, sd, sh, sw), seg-head kernels (K, Cin). Parameters
 are stored in float32 and cast to the compute dtype at use, as the reference
 casts its float32 params.
+
+Every op takes `flips` (fd, fh, fw) and then computes its mirrored variant,
+op(x, flips=c) == flip_c(op(flip_c(x))), with the same parameters
+(flip-free mirror TTA, reference `flips`): mirrored conv kernels, strided
+windows re-anchored, negated shift groups. Norms, nonlinearities, max pools
+with window == stride and 1x1 heads are flip-equivariant as they are.
+
+The kernel sites of the model go through this module's names
+`fused_shift_conv_block`, `strided_fused`, `uplink`, `downlink` and
+`seghead`; `plain_ops()` swaps their plain torch versions in.
 """
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -18,10 +30,38 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, SHIFT_SIZE,
-                          fused_shift_conv_block, norm_affine_from_stats,
-                          slope_in)
-from .shift import depth_shift_groups, group_shifts, restrict_groups
+from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, NO_FLIPS, Flips,
+                          block_groups, fused_shift_conv_block,
+                          fused_shift_conv_block_ref, mirror_conv_kernel,
+                          norm_affine_from_stats, slope_in)
+from .qlink import (downlink, downlink_ref, flip_transp_kernel, seghead,
+                    seghead_ref, uplink, uplink_ref)
+from .qstride import strided_fused, strided_fused_ref
+from .shift import depth_shift_groups, restrict_groups
+
+# kernel site name -> (kernel wrapper, plain version)
+KERNEL_OPS = {
+    "fused_shift_conv_block": (fused_shift_conv_block,
+                               fused_shift_conv_block_ref),
+    "strided_fused": (strided_fused, strided_fused_ref),
+    "uplink": (uplink, uplink_ref),
+    "downlink": (downlink, downlink_ref),
+    "seghead": (seghead, seghead_ref),
+}
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Inside the block, every kernel site of the model runs the kernel's
+    plain torch version, on any device (the comparison path)."""
+    g = globals()
+    try:
+        for name, (_, ref) in KERNEL_OPS.items():
+            g[name] = ref
+        yield
+    finally:
+        for name, (op, _) in KERNEL_OPS.items():
+            g[name] = op
 
 
 def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -54,17 +94,30 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
 
 def conv3d_as_2d(x: torch.Tensor, kernel: torch.Tensor,
                  bias: Optional[torch.Tensor], stride: Tuple[int, int, int],
-                 compute_dtype: torch.dtype) -> torch.Tensor:
+                 compute_dtype: torch.dtype,
+                 flips: Flips = NO_FLIPS) -> torch.Tensor:
     """(1, kh, kw) conv of x (N, D, H, W, Cin) with kernel (Cout, Cin, kh,
-    kw); padding kh//2, kw//2; the depth stride slices D."""
+    kw); padding kh//2, kw//2; the depth stride slices D.
+
+    flips: the mirrored conv. A mirrored H/W axis reverses the kernel along
+    it; a mirrored stride-s axis re-anchors the window grid: padding
+    (k//2, k//2) -> (k - s - k//2, k//2), and the depth slice starts at
+    sd - 1 (reference conv3d_as_2d)."""
     sd, sh, sw = stride
     if sd > 1:
-        x = x[:, ::sd]
+        x = x[:, sd - 1::sd] if flips[0] else x[:, ::sd]
     N, D, H, W, C = x.shape
     cout, _, kh, kw = kernel.shape
+    pads = []
+    for k, s, f in ((kw, sw, flips[2]), (kh, sh, flips[1])):
+        pads += [k - s - k // 2, k // 2] if f else [k // 2, k // 2]
     x2 = x.reshape(N * D, H, W, C).permute(0, 3, 1, 2).to(compute_dtype)
-    y = F.conv2d(x2, kernel.to(compute_dtype), None, stride=(sh, sw),
-                 padding=(kh // 2, kw // 2))
+    k2 = mirror_conv_kernel(kernel, flips).to(compute_dtype)
+    if pads[0] == pads[1] and pads[2] == pads[3]:
+        y = F.conv2d(x2, k2, None, stride=(sh, sw),
+                     padding=(pads[2], pads[0]))
+    else:                           # re-anchored: an uneven halo
+        y = F.conv2d(F.pad(x2, pads), k2, None, stride=(sh, sw))
     Ho, Wo = y.shape[2], y.shape[3]
     y = y.permute(0, 2, 3, 1).reshape(N, D, Ho, Wo, cout)
     if bias is not None:
@@ -110,12 +163,14 @@ class ShiftConvBlock(nn.Module):
     """shift -> conv(1,3,3) -> instance norm -> leaky relu (reference
     ShiftConvBlock, (1,3,3) list-of-parts branch).
 
-    forward(parts): plain torch; x may be a tensor or a list of parts of an
-    implicit channel concat, conv(shift(cat)) == sum_p conv(shift_p(part_p))
-    with each part's shift groups cut from the groups of the whole concat.
+    forward(parts, flips): plain torch; x may be a tensor or a list of parts
+    of an implicit channel concat, conv(shift(cat)) == sum_p
+    conv(shift_p(part_p)) with each part's shift groups cut from the groups
+    of the whole concat.
 
-    forward_fused(parts, affines): stride 1 only; runs the fused block op
-    and returns (raw, stats, norm_scale, norm_bias) with the norm pending.
+    forward_fused(parts, affines, flips): runs the fused block op (stride
+    1) or the strided transition (one part with a pending affine) and
+    returns (raw, stats, norm_scale, norm_bias) with the norm pending.
     """
 
     def __init__(self, in_channels: int, features: int,
@@ -141,11 +196,13 @@ class ShiftConvBlock(nn.Module):
             self.norm_scale.fill_(1.0)
             self.norm_bias.zero_()
 
-    def forward(self, x) -> torch.Tensor:
+    def forward(self, x, flips: Flips = NO_FLIPS) -> torch.Tensor:
         parts = list(x) if isinstance(x, (list, tuple)) else [x]
         cin = sum(int(p.shape[-1]) for p in parts)
         assert cin == self.in_channels, (cin, self.in_channels)
-        groups = group_shifts(cin, SHIFT_SIZE)
+        # a mirrored depth negates the shifts; conv3d_as_2d re-anchors the
+        # depth stride
+        groups = block_groups(cin, flips)
         y = None
         off = 0
         for part in parts:
@@ -154,16 +211,23 @@ class ShiftConvBlock(nn.Module):
                                       restrict_groups(groups, off, off + pc))
             contrib = conv3d_as_2d(part, self.kernel[:, off:off + pc],
                                    self.bias if y is None else None,
-                                   self.stride, self.compute_dtype)
+                                   self.stride, self.compute_dtype, flips)
             y = contrib if y is None else y + contrib
             off += pc
         return leaky_relu(instance_norm(y, self.norm_scale, self.norm_bias))
 
-    def forward_fused(self, parts: Sequence[torch.Tensor], affines):
-        assert self.stride == (1, 1, 1)
+    def forward_fused(self, parts: Sequence[torch.Tensor], affines,
+                      flips: Flips = NO_FLIPS):
         cd = self.compute_dtype
-        y, stats = fused_shift_conv_block(parts, self.kernel.to(cd),
-                                          self.bias.to(cd), affines)
+        if self.stride == (1, 1, 1):
+            y, stats = fused_shift_conv_block(parts, self.kernel.to(cd),
+                                              self.bias.to(cd), affines,
+                                              flips)
+        else:
+            (x,), ((mult, off),) = parts, affines
+            # the strided transition adds its bias in float32
+            y, stats = strided_fused(x, mult, off, self.kernel.to(cd),
+                                     self.bias, self.stride, flips)
         return y, stats, self.norm_scale, self.norm_bias
 
 
@@ -185,22 +249,24 @@ class StackedConvBlocks(nn.Module):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.num_convs)]
 
-    def forward(self, x):
+    def forward(self, x, flips: Flips = NO_FLIPS):
         for blk in self.blocks():
-            x = blk(x)
+            x = blk(x, flips)
         return x
 
-    def forward_fused(self, parts, affines, n_vox: int):
+    def forward_fused(self, parts, affines, flips: Flips = NO_FLIPS):
         """Blocks chained through their instance-norm statistics: block i's
-        norm + lrelu is applied on load by block i+1. Returns the last
-        block's (raw, stats, norm_scale, norm_bias)."""
+        norm + lrelu is applied on load by block i+1. A strided first block
+        runs the strided transition on its one pending part. Returns the
+        last block's (raw, stats, norm_scale, norm_bias)."""
         out = None
         for blk in self.blocks():
             if out is not None:
                 raw, stats, scale, nbias = out
+                n_vox = math.prod(raw.shape[1:4])
                 parts = [raw]
                 affines = [norm_affine_from_stats(stats, n_vox, scale, nbias)]
-            out = blk.forward_fused(parts, affines)
+            out = blk.forward_fused(parts, affines, flips)
         return out
 
 
@@ -221,15 +287,26 @@ class TranspConv(nn.Module):
         fan_in = math.prod(self.stride) * self.kernel.shape[0]
         _he_normal_(self.kernel, fan_in, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return transp_conv_matmul(x, self.kernel, self.stride,
-                                  self.compute_dtype)
+    def forward(self, x: torch.Tensor,
+                flips: Flips = NO_FLIPS) -> torch.Tensor:
+        return transp_conv_matmul(x, flip_transp_kernel(self.kernel, flips),
+                                  self.stride, self.compute_dtype)
+
+    def forward_pending(self, raw: torch.Tensor, mult: torch.Tensor,
+                        off: torch.Tensor,
+                        flips: Flips = NO_FLIPS) -> torch.Tensor:
+        """The up-link from a pending input: its norm on load, straight to
+        the finer level (the up-link op)."""
+        return uplink(raw, mult, off, self.kernel.to(self.compute_dtype),
+                      flips)
 
 
 class SegHead(nn.Module):
     """1x1x1 conv without bias; float32 logits from compute-dtype operands
     (products exact, float32 sums, as the reference's
-    preferred_element_type=float32)."""
+    preferred_element_type=float32). With probs_dtype, the float32 class
+    softmax of the logits stored in that dtype instead (the probs head).
+    forward_pending reads a pending input through the seg-head op."""
 
     def __init__(self, in_channels: int, num_classes: int,
                  compute_dtype: torch.dtype = torch.bfloat16, device=None):
@@ -241,6 +318,17 @@ class SegHead(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         _he_normal_(self.kernel, self.kernel.shape[1], generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                probs_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         cd = self.compute_dtype
-        return x.to(cd).float() @ self.kernel.to(cd).float().t()
+        logits = x.to(cd).float() @ self.kernel.to(cd).float().t()
+        if probs_dtype is None:
+            return logits
+        return torch.softmax(logits, dim=-1).to(probs_dtype)
+
+    def forward_pending(self, raw: torch.Tensor, mult: torch.Tensor,
+                        off: torch.Tensor,
+                        probs_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+        return seghead(raw.to(self.compute_dtype), mult, off,
+                       self.kernel.to(self.compute_dtype), probs_dtype)

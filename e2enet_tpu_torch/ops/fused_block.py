@@ -18,6 +18,14 @@ outside [0, D). Consumers turn stats into the next (mult, off) with
 norm_affine_from_stats, so a normalised tensor is never materialised between
 chained blocks.
 
+flips (fd, fh, fw) give the mirrored block, block(x, flips=c) ==
+flip_c(block(flip_c(x))) (flip-free mirror TTA): the kernel's taps are
+reversed along a mirrored H/W axis and a mirrored depth negates the group
+shifts. Both are host-side changes of the kernel's arguments.
+
+The port is channels-last (N, D, H, W, C) throughout; it has no quadrant or
+padded channels-first layout.
+
 `fused_shift_conv_block` runs the CUDA kernel (csrc/fused_block.cu) for CUDA
 tensors and its plain torch version for CPU tensors. Inference only.
 """
@@ -26,23 +34,40 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .shift import depth_shift_groups, group_shifts
+from .shift import depth_shift_groups, group_shifts, mirror_groups
 
 LRELU_SLOPE = 0.01
 INSTNORM_EPS = 1e-5
 SHIFT_SIZE = 5          # shift groups of shiftConvPP
+NO_FLIPS = (False, False, False)
 
 Affine = Optional[Tuple[torch.Tensor, torch.Tensor]]
+Flips = Tuple[bool, bool, bool]
 
 
-def _affine_nc(a: torch.Tensor, N: int, ci: int) -> torch.Tensor:
+def mirror_conv_kernel(kernel: torch.Tensor, flips: Flips) -> torch.Tensor:
+    """A (CO, C, kh, kw) kernel with its taps reversed along the mirrored H
+    and W axes (flips[1], flips[2]); depth has no taps."""
+    dims = [d for d, f in ((2, flips[1]), (3, flips[2])) if f]
+    return kernel.flip(dims) if dims else kernel
+
+
+def block_groups(C: int, flips: Flips):
+    """Shift groups of a stride-1 block over C concat channels, mirrored
+    when the depth axis is."""
+    groups = group_shifts(C, SHIFT_SIZE)
+    return mirror_groups(groups) if flips[0] else tuple(groups)
+
+
+def affine_nc(a: torch.Tensor, N: int, ci: int) -> torch.Tensor:
     """mult/off given as (Ci,) or (N, Ci) -> contiguous float32 (N, Ci)."""
     return a.float().reshape(-1, ci).expand(N, ci).contiguous()
 
 
 def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
                                kernel: torch.Tensor, bias: torch.Tensor,
-                               affines: Sequence[Affine]):
+                               affines: Sequence[Affine],
+                               flips: Flips = NO_FLIPS):
     """Plain torch version. kernel (CO, C, 3, 3), bias (CO,); returns
     (y (N, D, H, W, CO) in the parts' dtype, stats (N, CO, 2) float32)."""
     dtype = parts[0].dtype
@@ -51,17 +76,18 @@ def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
     for x, a in zip(parts, affines):
         if a is not None:
             ci = x.shape[-1]
-            m = _affine_nc(a[0], N, ci)[:, None, None, None, :]
-            o = _affine_nc(a[1], N, ci)[:, None, None, None, :]
+            m = affine_nc(a[0], N, ci)[:, None, None, None, :]
+            o = affine_nc(a[1], N, ci)[:, None, None, None, :]
             x = F.leaky_relu(x.float() * m + o, LRELU_SLOPE).to(dtype)
         normed.append(x)
     x = torch.cat(normed, dim=-1)
     N, D, H, W, C = x.shape
     CO = kernel.shape[0]
-    s = depth_shift_groups(x, group_shifts(C, SHIFT_SIZE))
+    s = depth_shift_groups(x, block_groups(C, flips))
     # operands rounded to the compute dtype, products and sums in float32
     x2 = s.reshape(N * D, H, W, C).permute(0, 3, 1, 2).float()
-    acc = F.conv2d(x2, kernel.to(dtype).float(), None, padding=1)
+    acc = F.conv2d(x2, mirror_conv_kernel(kernel.to(dtype), flips).float(),
+                   None, padding=1)
     acc = acc + bias.to(dtype).float()[None, :, None, None]
     acc = acc.permute(0, 2, 3, 1).reshape(N, D, H, W, CO)
     stats = torch.stack([acc.sum(dim=(1, 2, 3)),
@@ -71,13 +97,15 @@ def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
 
 def fused_shift_conv_block(parts: Sequence[torch.Tensor],
                            kernel: torch.Tensor, bias: torch.Tensor,
-                           affines: Sequence[Affine]):
+                           affines: Sequence[Affine],
+                           flips: Flips = NO_FLIPS):
     """The fused block: plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (bfloat16 only; raises on what the kernel does not take).
     Same arguments and results as fused_shift_conv_block_ref."""
     dev = parts[0].device
     if dev.type == "cpu":
-        return fused_shift_conv_block_ref(parts, kernel, bias, affines)
+        return fused_shift_conv_block_ref(parts, kernel, bias, affines,
+                                          flips)
     if dev.type != "cuda":
         raise ValueError(f"fused_shift_conv_block: unsupported device {dev}")
     tensors = list(parts) + [kernel, bias] + [t for a in affines
@@ -103,16 +131,18 @@ def fused_shift_conv_block(parts: Sequence[torch.Tensor],
                          f"{tuple(bias.shape)} do not fit C={C}")
     from . import _native
     parts = [p.contiguous() for p in parts]
-    # (9 taps, CO, C): each output channel's K row contiguous
-    w9 = kernel.to(dtype).permute(2, 3, 0, 1).reshape(9, CO, C).contiguous()
+    # (9 taps, CO, C): each output channel's K row contiguous; a mirrored
+    # H/W axis reverses the taps, a mirrored depth negates the shifts
+    w9 = mirror_conv_kernel(kernel.to(dtype), flips).permute(2, 3, 0, 1) \
+        .reshape(9, CO, C).contiguous()
     b = bias.to(dtype).contiguous()
-    aff = [None if a is None else (_affine_nc(a[0], N, ci),
-                                   _affine_nc(a[1], N, ci))
+    aff = [None if a is None else (affine_nc(a[0], N, ci),
+                                   affine_nc(a[1], N, ci))
            for a, ci in zip(affines, part_c)]
     y = torch.empty((N, D, H, W, CO), dtype=dtype, device=dev)
     stats = torch.zeros((N, CO, 2), dtype=torch.float32, device=dev)
-    _native.launch_fused_block(parts, aff, group_shifts(C, SHIFT_SIZE), w9, b,
-                               y, stats)
+    _native.launch_fused_block(parts, aff, block_groups(C, flips), w9, b, y,
+                               stats)
     fused_shift_conv_block.launches += 1
     return y, stats
 

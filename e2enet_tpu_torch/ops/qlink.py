@@ -1,0 +1,203 @@
+"""The links between level 0 and level 1, and the seg head, each reading a
+pending raw tensor (a fused block's output with its instance norm not yet
+applied) once. Counterpart of e2enet_tpu/ops/qlink.py, whose Pallas
+kernels work on the quadrant layout; the port is channels-last
+(N, D, H, W, C) with no quadrant or padded layout. Each op rounds where its
+reference kernel does, which differs per op:
+
+  uplink    (_uplink_kernel)   u = lrelu(x * m + o) in the compute dtype,
+                               m and o rounded to it first (reference
+                               qlink.py:106-113); then the k == s transposed
+                               conv, float32 sums, stored in x's dtype
+                               straight to the finer level's channels-last
+                               positions (no depth-to-space copy)
+  downlink  (_downlink_kernel) max and min of the raw over each window, the
+                               max where mult > 0 and the min elsewhere,
+                               then lrelu(pick * mult + off) in float32,
+                               stored in x's dtype (exactly the max pool of
+                               the normalised tensor: the apply is monotone)
+  seghead   (_seghead_probs_kernel, and _seghead_kernel as its logits mode)
+                               u = lrelu(x * mult + off) in float32, rounded
+                               to x's dtype; 1x1 conv with float32 sums;
+                               then either float32 logits or a max-subtracted
+                               float32 class softmax stored as probs_dtype
+
+flips: the down-link and the seg head are flip-equivariant as they are;
+the up-link's mirrored op reverses its kernel along the mirrored axes
+(reference blocks.flip_transp_kernel).
+
+Each op runs its CUDA kernel (csrc/qlink.cu) for CUDA tensors and its plain
+torch version (`*_ref`) for CPU tensors. Inference only.
+"""
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .fused_block import LRELU_SLOPE, NO_FLIPS, Flips, affine_nc, slope_in
+
+
+def flip_transp_kernel(kernel: torch.Tensor, flips: Flips) -> torch.Tensor:
+    """A (Cin, Cout, sd, sh, sw) transposed-conv kernel (kernel == stride)
+    of the mirrored op: y[s*j + r] = x[j] * k[r], so mirroring an axis
+    reverses the kernel's entries along it (r <-> s-1-r)."""
+    dims = [2 + a for a in range(3) if flips[a]]
+    return kernel.flip(dims) if dims else kernel
+
+
+def _check_cuda(name, tensors, dtype=torch.bfloat16):
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors on several devices")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward kernel; run it under "
+                           f"torch.no_grad()/inference_mode()")
+    x = tensors[0]
+    if x.dtype != dtype or x.dim() != 5:
+        raise TypeError(f"the CUDA {name} takes a bfloat16 (N, D, H, W, C) "
+                        f"tensor")
+    return dev
+
+
+# --------------------------------------------------------------------------
+# up-link: pending raw -> compute-dtype norm + lrelu -> k == s transposed conv
+
+def uplink_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
+               kernel: torch.Tensor, flips: Flips = NO_FLIPS) -> torch.Tensor:
+    """Plain torch version. x (N, D, H, W, Cin), mult/off (Cin,) or
+    (N, Cin), kernel (Cin, Cout, sd, sh, sw) -> (N, D*sd, H*sh, W*sw, Cout)
+    in x's dtype. A float32 x computes its norm in float32."""
+    dtype = x.dtype
+    N, D, H, W, C = x.shape
+    shape = (N, 1, 1, 1, C)
+    m = affine_nc(mult, N, C).to(dtype).reshape(shape)
+    o = affine_nc(off, N, C).to(dtype).reshape(shape)
+    u = F.leaky_relu(x * m + o, slope_in(dtype))
+    k = flip_transp_kernel(kernel, flips).to(dtype).float()
+    cout, (sd, sh, sw) = k.shape[1], k.shape[2:]
+    w2 = k.permute(0, 2, 3, 4, 1).reshape(C, sd * sh * sw * cout)
+    y = (u.float() @ w2).to(dtype)
+    y = y.reshape(N, D, H, W, sd, sh, sw, cout).permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return y.reshape(N, D * sd, H * sh, W * sw, cout)
+
+
+def uplink(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
+           kernel: torch.Tensor, flips: Flips = NO_FLIPS) -> torch.Tensor:
+    """The up-link: plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors (bfloat16). Same arguments and result as uplink_ref."""
+    if x.device.type == "cpu":
+        return uplink_ref(x, mult, off, kernel, flips)
+    dev = _check_cuda("uplink", (x, mult, off, kernel))
+    N, D, H, W, C = (int(v) for v in x.shape)
+    if kernel.dim() != 5 or int(kernel.shape[0]) != C:
+        raise ValueError(f"kernel {tuple(kernel.shape)} does not fit Cin={C}")
+    cout = int(kernel.shape[1])
+    sd, sh, sw = (int(v) for v in kernel.shape[2:])
+    from . import _native
+    # (sd*sh chunks, sw*Cout columns, Cin): chunk (bd, bh) is one finer row
+    # of sw*Cout contiguous values per coarse voxel
+    k = flip_transp_kernel(kernel, flips).to(x.dtype)
+    wt = k.permute(2, 3, 4, 1, 0).reshape(sd * sh, sw * cout, C).contiguous()
+    y = torch.empty((N, D * sd, H * sh, W * sw, cout), dtype=x.dtype,
+                    device=dev)
+    _native.launch_uplink(x.contiguous(), affine_nc(mult, N, C),
+                          affine_nc(off, N, C), wt, y, (sd, sh, sw))
+    uplink.launches += 1
+    return y
+
+
+uplink.launches = 0
+
+
+# --------------------------------------------------------------------------
+# down-link: pending raw -> window max/min -> float32 norm + lrelu
+
+def downlink_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
+                 window: Tuple[int, int, int] = (2, 2, 2)) -> torch.Tensor:
+    """Plain torch version. x (N, D, H, W, C), mult/off (C,) or (N, C) ->
+    (N, D//wd, H//wh, W//ww, C) in x's dtype (a ragged edge is dropped)."""
+    wd, wh, ww = window
+    N, D, H, W, C = x.shape
+    Do, Ho, Wo = D // wd, H // wh, W // ww
+    xw = x[:, :Do * wd, :Ho * wh, :Wo * ww].reshape(N, Do, wd, Ho, wh, Wo,
+                                                    ww, C)
+    m = affine_nc(mult, N, C)
+    o = affine_nc(off, N, C)
+    pick = torch.where((m > 0).reshape(N, 1, 1, 1, C),
+                       xw.amax(dim=(2, 4, 6)), xw.amin(dim=(2, 4, 6)))
+    shape = (N, 1, 1, 1, C)
+    a = pick.float() * m.reshape(shape) + o.reshape(shape)
+    return F.leaky_relu(a, LRELU_SLOPE).to(x.dtype)
+
+
+def downlink(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
+             window: Tuple[int, int, int] = (2, 2, 2)) -> torch.Tensor:
+    """The down-link: plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors (bfloat16). Same arguments and result as downlink_ref."""
+    if x.device.type == "cpu":
+        return downlink_ref(x, mult, off, window)
+    dev = _check_cuda("downlink", (x, mult, off))
+    N, D, H, W, C = (int(v) for v in x.shape)
+    wd, wh, ww = (int(v) for v in window)
+    from . import _native
+    y = torch.empty((N, D // wd, H // wh, W // ww, C), dtype=x.dtype,
+                    device=dev)
+    _native.launch_downlink(x.contiguous(), affine_nc(mult, N, C),
+                            affine_nc(off, N, C), y, (wd, wh, ww))
+    downlink.launches += 1
+    return y
+
+
+downlink.launches = 0
+
+
+# --------------------------------------------------------------------------
+# seg head: pending raw -> float32 norm + lrelu -> 1x1 -> logits or probs
+
+def seghead_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
+                weight: torch.Tensor,
+                probs_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain torch version. x (N, D, H, W, C), mult/off (C,) or (N, C),
+    weight (K, C) -> float32 logits (N, D, H, W, K), or with probs_dtype
+    the class softmax (float32, max-subtracted) stored in probs_dtype."""
+    N, C = x.shape[0], x.shape[-1]
+    shape = (N, 1, 1, 1, C)
+    a = (x.float() * affine_nc(mult, N, C).reshape(shape)
+         + affine_nc(off, N, C).reshape(shape))
+    u = F.leaky_relu(a, LRELU_SLOPE).to(x.dtype)
+    logits = u.float() @ weight.to(x.dtype).float().t()
+    if probs_dtype is None:
+        return logits
+    return torch.softmax(logits, dim=-1).to(probs_dtype)
+
+
+def seghead(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
+            weight: torch.Tensor,
+            probs_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The seg head: plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors (bfloat16 in; bfloat16 probs or float32 logits out). Same
+    arguments and result as seghead_ref."""
+    if x.device.type == "cpu":
+        return seghead_ref(x, mult, off, weight, probs_dtype)
+    dev = _check_cuda("seghead", (x, mult, off, weight))
+    if probs_dtype not in (None, torch.bfloat16):
+        raise TypeError("the CUDA seg head stores bfloat16 probs or float32 "
+                        "logits")
+    N, D, H, W, C = (int(v) for v in x.shape)
+    if weight.dim() != 2 or int(weight.shape[1]) != C:
+        raise ValueError(f"weight {tuple(weight.shape)} does not fit C={C}")
+    K = int(weight.shape[0])
+    from . import _native
+    y = torch.empty((N, D, H, W, K), device=dev,
+                    dtype=probs_dtype or torch.float32)
+    _native.launch_seghead(x.contiguous(), affine_nc(mult, N, C),
+                           affine_nc(off, N, C),
+                           weight.to(x.dtype).contiguous(), y,
+                           probs_dtype is not None)
+    seghead.launches += 1
+    return y
+
+
+seghead.launches = 0

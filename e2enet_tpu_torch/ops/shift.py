@@ -47,10 +47,31 @@ def restrict_groups(groups: Sequence[Tuple[int, int, int]], lo: int,
                  for (c0, c1, s) in groups if c0 < hi and c1 > lo)
 
 
+def mirror_groups(groups: Sequence[Tuple[int, int, int]]
+                  ) -> Tuple[Tuple[int, int, int], ...]:
+    """Groups of the depth-mirrored shift: flip_d(shift(flip_d(x))) shifts
+    every group by -s (reference blocks.py ShiftConvBlock, fd branch)."""
+    return tuple((c0, c1, -s) for (c0, c1, s) in groups)
+
+
+def strided_depth_source(groups: Sequence[Tuple[int, int, int]],
+                         stride_d: int, flip_d: bool):
+    """(groups, parity) of a depth-strided shift-conv: output row `do` of
+    channel group (c0, c1, s) reads input row stride_d * do + parity - s.
+    Unmirrored: parity 0. Mirrored, the shifts are negated and the kept
+    rows move to the other end of each window, parity stride_d - 1 (at
+    stride 2 the shift s -> -(s+1) at even rows of reference
+    qstride._groups; reference conv3d_as_2d slices D from sd - 1)."""
+    if not flip_d:
+        return tuple(groups), 0
+    return mirror_groups(groups), stride_d - 1
+
+
 def depth_shift_groups(x: torch.Tensor, groups, axis: int = 1
                        ) -> torch.Tensor:
     """Shift channel ranges of a channels-last tensor along `axis` with zero
-    fill; groups = ((c0, c1, shift), ...) relative to x's channels."""
+    fill; groups = ((c0, c1, shift), ...) relative to x's channels. The
+    depth-mirrored shift is depth_shift_groups(x, mirror_groups(groups))."""
     D = x.shape[axis]
     out = torch.zeros_like(x)
     for c0, c1, s in groups:

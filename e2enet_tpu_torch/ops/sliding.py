@@ -1,10 +1,13 @@
-"""Gaussian-weighted sliding-window inference with data-flip mirror TTA.
+"""Gaussian-weighted sliding-window inference with mirror TTA.
 Counterpart of e2enet_tpu/ops/sliding.py (step grid, Gaussian map, the
-data-flip branch of _tiled_accumulate and predict_volume_tiled), as a
-Python loop over tiles and mirror passes on the device.
+plain channels-last branches of _tiled_accumulate and
+predict_volume_tiled), as a Python loop over tiles and mirror passes on
+the device. Two kinds of mirror TTA: data flips (flip the tile, unflip the
+probabilities) and flip-free (one statically mirrored forward per pass on
+the unflipped tile, inference/predictor.mirror_apply_fns_for).
 """
 import functools
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +57,18 @@ def flip_combinations(mirror_axes: Sequence[int]) -> List[Tuple[int, ...]]:
     return combos
 
 
+def head_probs(out: torch.Tensor) -> torch.Tensor:
+    """Class probabilities of a head's output, in float32: float32 logits
+    are softmaxed, bfloat16 probabilities (a probs head) taken as they are.
+    Anything else is refused, so no head's output is softmaxed twice."""
+    if out.dtype == torch.float32:
+        return torch.softmax(out, dim=-1)
+    if out.dtype == torch.bfloat16:
+        return out.float()
+    raise TypeError(f"head output of dtype {out.dtype}: expected float32 "
+                    f"logits or bfloat16 probabilities")
+
+
 def pad_volume_to_patch(data: np.ndarray, patch_size: Sequence[int]):
     """Pad (C, X, Y, Z) with centred zeros so every spatial dim >= patch.
     Returns (padded, slicer that undoes it)."""
@@ -83,17 +98,23 @@ def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                          step_size: float = 0.5,
                          mirror_axes: Tuple[int, ...] = (0, 1, 2),
                          do_mirroring: bool = True,
-                         accum_dtype: torch.dtype = torch.float32
+                         accum_dtype: torch.dtype = torch.float32,
+                         mirror_apply_fns: Optional[
+                             Sequence[Callable[[torch.Tensor],
+                                               torch.Tensor]]] = None
                          ) -> np.ndarray:
     """data: (C, X, Y, Z) float32 -> class probabilities (num_classes, X,
     Y, Z) as numpy in accum_dtype.
 
-    apply_fn(x (1, pd, ph, pw, C) on `device`) -> logits (1, pd, ph, pw,
-    num_classes). Per tile: every mirror pass flips the patch, softmaxes the
-    logits in float32 and unflips them; the float32 mean over passes is
-    weighted by the Gaussian, cast to accum_dtype and added to the
-    accumulators, as are the weights. The result is acc / weights computed
-    in accum_dtype."""
+    apply_fn(x (1, pd, ph, pw, C) on `device`) -> float32 logits or
+    bfloat16 probabilities (1, pd, ph, pw, num_classes) (head_probs). Per
+    tile: every mirror pass flips the patch, takes the head's probabilities
+    in float32 and unflips them. With mirror_apply_fns (one per
+    flip_combinations pass, fns[m](x) == flip_m(net(flip_m(x)))) pass m
+    runs fns[m] on the unflipped patch instead, and apply_fn is not used.
+    The float32 mean over passes is weighted by the Gaussian, cast to
+    accum_dtype and added to the accumulators, as are the weights. The
+    result is acc / weights computed in accum_dtype."""
     padded, slicer = pad_volume_to_patch(data, patch_size)
     vol = torch.from_numpy(np.ascontiguousarray(
         np.moveaxis(padded, 0, -1), dtype=np.float32)).to(device)
@@ -102,6 +123,9 @@ def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
     steps = compute_steps_for_sliding_window(patch_size, (X, Y, Z),
                                              step_size)
     combos = flip_combinations(mirror_axes) if do_mirroring else [()]
+    if mirror_apply_fns is not None and len(mirror_apply_fns) != len(combos):
+        raise ValueError(f"{len(mirror_apply_fns)} mirror_apply_fns for "
+                         f"{len(combos)} mirror passes")
     gmap = torch.from_numpy(
         gaussian_importance_map(tuple(patch_size))).to(device)
     gmap_acc = gmap.to(accum_dtype)
@@ -116,11 +140,14 @@ def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                 patch = vol[sl]
                 prob_sum = torch.zeros((pd, ph, pw, num_classes),
                                        dtype=torch.float32, device=device)
-                for combo in combos:
-                    xin = patch.flip(combo) if combo else patch
-                    logits = apply_fn(xin[None])[0].float()
-                    p = torch.softmax(logits, dim=-1)
-                    prob_sum += p.flip(combo) if combo else p
+                if mirror_apply_fns is not None:
+                    for fn in mirror_apply_fns:
+                        prob_sum += head_probs(fn(patch[None])[0])
+                else:
+                    for combo in combos:
+                        xin = patch.flip(combo) if combo else patch
+                        p = head_probs(apply_fn(xin[None])[0])
+                        prob_sum += p.flip(combo) if combo else p
                 mean = prob_sum / len(combos)
                 acc[sl] += (mean * gmap[..., None]).to(accum_dtype)
                 wacc[sl] += gmap_acc

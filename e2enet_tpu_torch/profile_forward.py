@@ -1,0 +1,106 @@
+"""Where the time of one tile goes: the 8 mirror passes of the fast mode
+(flip-free TTA, bf16 probs head) on one 128^3 patch at the bench width
+(48 base features, 5 x (2,2,2) pools, 16 classes, bf16, weights from
+seed 0), on one CUDA card.
+
+    python -m e2enet_tpu_torch.profile_forward [--tiles-timed 3]
+
+Prints: host enqueue time and wall time per forward, device busy time per
+forward (the sum of the kernels' device times under torch.profiler) and
+the idle share, then device time per forward by kernel, the port's CUDA
+kernels first, the rest in groups by name. Needs a card; refuses without.
+"""
+import argparse
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from .inference.predictor import mirror_apply_fns_for
+from .models.unetpp import ShiftUNetPlusPlus
+
+PORT_KERNELS = ("fused_block_kernel", "qstride_kernel", "uplink_kernel",
+                "downlink_kernel", "seghead_kernel")
+GROUPS = (("copy / layout", ("copy", "cat", "flip", "permute", "transpose")),
+          ("reduction", ("reduce", "sum", "amax", "amin", "max", "norm")),
+          ("conv / gemm", ("conv", "gemm", "cutlass", "sm90", "xmma", "cudnn",
+                           "matmul", "implicit")),
+          ("elementwise", ("elementwise", "vectorized", "unrolled",
+                           "leaky", "where", "fill")))
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for k in PORT_KERNELS:
+        if k in low:
+            return k
+    for g, keys in GROUPS:
+        if any(k in low for k in keys):
+            return g
+    return "other"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tiles-timed", type=int, default=3,
+                    help="tiles (8 forwards each) per measurement")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the profile runs on the card only")
+    dev = torch.device("cuda")
+    model = ShiftUNetPlusPlus(1, 16, ((2, 2, 2),) * 5, base_num_features=48,
+                              compute_dtype=torch.bfloat16,
+                              head_probs_dtype=torch.bfloat16, device=dev)
+    model.reset_parameters(seed=0)
+    fns = mirror_apply_fns_for(model)
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        1, 128, 128, 128, 1).astype(np.float32)).to(dev)
+    n_fwd = args.tiles_timed * len(fns)
+
+    def tiles():
+        for _ in range(args.tiles_timed):
+            for fn in fns:
+                fn(x)
+
+    with torch.inference_mode():
+        tiles()                                     # warm-up, build
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tiles()
+        t_enq = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter() - t0
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            tiles()
+            torch.cuda.synchronize()
+    per = defaultdict(lambda: [0.0, 0])
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            per[ev.key][0] += t / 1e3 / n_fwd       # ms per forward
+            per[ev.key][1] += ev.count / n_fwd
+    busy = sum(v[0] for v in per.values())
+    wall = 1e3 * t_wall / n_fwd
+    print(f"device {torch.cuda.get_device_name(0)}; {n_fwd} forwards "
+          f"({args.tiles_timed} tiles x {len(fns)} mirror passes)")
+    print(f"per forward: host enqueue {1e3 * t_enq / n_fwd:.2f} ms, wall "
+          f"{wall:.2f} ms, device busy {busy:.2f} ms (profiler), idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}")
+    groups = defaultdict(lambda: [0.0, 0.0])
+    for k, (ms, n) in per.items():
+        groups[group_of(k)][0] += ms
+        groups[group_of(k)][1] += n
+    print("device ms per forward by group (calls per forward):")
+    for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {g:24s} {ms:8.3f} ms  {n:6.1f}")
+    print("top kernels, device ms per forward (calls per forward):")
+    for k, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:25]:
+        print(f"  {ms:8.3f} ms  {n:5.1f}  {k[:110]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""The CUDA fused-block kernel on the card, against its plain torch
-version. Imports no jax (the machine with the card has none); run there
+"""The CUDA kernels on the card, against their plain torch versions: the
+fused block (also mirrored), the strided transition, the up-link, the
+down-link and the seg head. Imports no jax (the machine with the card has none); run there
 with
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
@@ -7,7 +8,9 @@ with
 (tests/conftest.py imports jax, hence --noconftest). Without a card every
 test skips. bfloat16: y within 2 bf16 ulps of each output channel's max |y|
 (both sum exact bf16 products in float32 from identical operands; only the
-order differs), stats within 1e-3 (float32 atomics in a varying order).
+order differs), stats within 1e-3 (float32 atomics in a varying order);
+down-link within one bf16 step (max/min are exact, the affine may round
+once more); probs within one bf16 step at the largest probability.
 """
 import numpy as np
 import pytest
@@ -94,3 +97,209 @@ def test_wrapper_launches_or_raises():
             [wide], torch.randn(4, 8, 3, 3, device=dev), b, [None])
     assert tfb.fused_shift_conv_block.launches == before + 1
     assert tuple(y.shape) == (1, 2, 4, 144, 4)
+
+
+def _rand(rng, dev, *shape, scale=1.0, shift=0.0):
+    return torch.from_numpy((rng.randn(*shape) * scale + shift).astype(
+        np.float32)).to(dev)
+
+
+def _within_ulps(y, y_ref, ulps=2.0):
+    """y within `ulps` bf16 steps of each output channel's largest |y|."""
+    y, y_ref = y.float(), y_ref.float()
+    dims = tuple(range(y.dim() - 1))
+    ch_max = y_ref.abs().amax(dim=dims)
+    ulp = torch.exp2(torch.floor(torch.log2(ch_max.clamp_min(1e-30))) - 7)
+    return bool(((y - y_ref).abs().amax(dim=dims) <= ulps * ulp).all())
+
+
+FLIPS = [(fd, fh, fw) for fd in (False, True) for fh in (False, True)
+         for fw in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flips", FLIPS)
+def test_fused_block_flips_match_plain(flips):
+    dev = _card()
+    parts, affs, kernel, bias = _make(3, 1, 6, 8, 24, (40, 8), (True, False),
+                                      24, dev)
+    with torch.no_grad():
+        y, s = tfb.fused_shift_conv_block(parts, kernel, bias, affs, flips)
+        y_p, s_p = tfb.fused_shift_conv_block_ref(parts, kernel, bias, affs,
+                                                  flips)
+    torch.cuda.synchronize()
+    assert _within_ulps(y, y_p)
+    torch.testing.assert_close(s, s_p, rtol=1e-3,
+                               atol=1e-3 * float(y_p.float().abs().sum()))
+
+
+# (N, D, H, W, C, CO, stride)
+STRIDED = {
+    "even": (1, 8, 16, 32, 48, 96, (2, 2, 2)),
+    # odd D, odd H, output W 13 (not a multiple of 8), C = 8
+    "ragged": (2, 7, 9, 26, 8, 24, (2, 2, 2)),
+    "stride_122": (1, 5, 8, 20, 16, 40, (1, 2, 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,flips",
+                         [(c, (False,) * 3) for c in sorted(STRIDED)]
+                         + [("even", f) for f in FLIPS[1:]]
+                         + [("ragged", (True, True, True))])
+def test_strided_matches_plain(case, flips):
+    from e2enet_tpu_torch.ops import qstride
+    dev = _card()
+    N, D, H, W, C, CO, stride = STRIDED[case]
+    rng = np.random.RandomState(D + C)
+    x = _rand(rng, dev, N, D, H, W, C).bfloat16()
+    m, o = _rand(rng, dev, N, C, scale=0.3, shift=1.0), _rand(rng, dev, N, C,
+                                                              scale=0.2)
+    k = _rand(rng, dev, CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    b = _rand(rng, dev, CO, scale=0.1)
+    before = qstride.strided_fused.launches
+    with torch.no_grad():
+        y, s = qstride.strided_fused(x, m, o, k, b, stride, flips)
+        y_p, s_p = qstride.strided_fused_ref(x, m, o, k, b, stride, flips)
+    torch.cuda.synchronize()
+    assert qstride.strided_fused.launches == before + 1
+    assert y.shape == y_p.shape
+    assert _within_ulps(y, y_p)
+    torch.testing.assert_close(s, s_p, rtol=1e-3,
+                               atol=1e-3 * float(y_p.float().abs().sum()))
+
+
+# (N, D, H, W, Cin, Cout, stride)
+UPLINKS = {
+    "bench_width": (1, 4, 8, 64, 96, 48, (2, 2, 2)),
+    # odd D, W = 13, a part of width 8, a tile past W = 64
+    "ragged": (2, 3, 5, 13, 8, 12, (2, 2, 2)),
+    "wide": (1, 2, 2, 70, 24, 16, (1, 2, 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(UPLINKS))
+@pytest.mark.parametrize("flips", [(False,) * 3, (True, False, True)])
+def test_uplink_matches_plain(case, flips):
+    from e2enet_tpu_torch.ops import qlink
+    dev = _card()
+    N, D, H, W, C, cout, stride = UPLINKS[case]
+    rng = np.random.RandomState(W + C)
+    x = _rand(rng, dev, N, D, H, W, C).bfloat16()
+    m, o = _rand(rng, dev, N, C, scale=0.3, shift=1.0), _rand(rng, dev, N, C,
+                                                              scale=0.2)
+    k = _rand(rng, dev, C, cout, *stride, scale=(1.0 / C) ** 0.5)
+    before = qlink.uplink.launches
+    with torch.no_grad():
+        y = qlink.uplink(x, m, o, k, flips)
+        y_p = qlink.uplink_ref(x, m, o, k, flips)
+    torch.cuda.synchronize()
+    assert qlink.uplink.launches == before + 1
+    assert y.shape == y_p.shape
+    assert _within_ulps(y, y_p)
+
+
+# (N, D, H, W, C, window)
+DOWNLINKS = {
+    "bench_width": (1, 8, 16, 64, 48, (2, 2, 2)),
+    # odd D (a ragged edge), W = 26, C = 8 and C = 5 (channel by channel)
+    "ragged": (2, 7, 6, 26, 8, (2, 2, 2)),
+    "c5": (1, 4, 4, 6, 5, (2, 2, 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DOWNLINKS))
+def test_downlink_matches_plain(case):
+    from e2enet_tpu_torch.ops import qlink
+    dev = _card()
+    N, D, H, W, C, window = DOWNLINKS[case]
+    rng = np.random.RandomState(W + C)
+    x = _rand(rng, dev, N, D, H, W, C).bfloat16()
+    m, o = _rand(rng, dev, N, C), _rand(rng, dev, N, C, scale=0.2)
+    before = qlink.downlink.launches
+    with torch.no_grad():
+        y = qlink.downlink(x, m, o, window)
+        y_p = qlink.downlink_ref(x, m, o, window)
+    torch.cuda.synchronize()
+    assert qlink.downlink.launches == before + 1
+    assert y.shape == y_p.shape
+    assert _within_ulps(y, y_p, ulps=1.0)
+
+
+# (N, D, H, W, C, K)
+HEADS = {
+    "bench_width": (1, 4, 16, 64, 48, 16),
+    "ragged": (2, 3, 5, 13, 8, 3),
+    "c6": (1, 2, 3, 7, 6, 5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HEADS))
+@pytest.mark.parametrize("probs", [True, False])
+def test_seghead_matches_plain(case, probs):
+    from e2enet_tpu_torch.ops import qlink
+    dev = _card()
+    N, D, H, W, C, K = HEADS[case]
+    rng = np.random.RandomState(W + C)
+    x = _rand(rng, dev, N, D, H, W, C).bfloat16()
+    m, o = _rand(rng, dev, N, C, scale=0.3, shift=1.0), _rand(rng, dev, N, C,
+                                                              scale=0.2)
+    w = _rand(rng, dev, K, C, scale=(2.0 / C) ** 0.5)
+    pd = torch.bfloat16 if probs else None
+    before = qlink.seghead.launches
+    with torch.no_grad():
+        y = qlink.seghead(x, m, o, w, pd)
+        y_p = qlink.seghead_ref(x, m, o, w, pd)
+    torch.cuda.synchronize()
+    assert qlink.seghead.launches == before + 1
+    assert y.shape == y_p.shape and y.dtype == y_p.dtype
+    if probs:
+        # one bf16 step at the largest probability, sums to 1
+        assert float((y.float() - y_p.float()).abs().max()) <= 2.0 ** -8
+        torch.testing.assert_close(y.float().sum(-1),
+                                   torch.ones(y.shape[:-1], device=dev),
+                                   rtol=0, atol=1e-2)
+    else:
+        torch.testing.assert_close(y, y_p, rtol=1e-4,
+                                   atol=1e-4 * float(y_p.abs().max()))
+
+
+@pytest.mark.cuda
+def test_link_wrappers_launch_or_raise():
+    """The new wrappers never fall back to the plain version on a card:
+    they raise on what their kernel does not take."""
+    from e2enet_tpu_torch.ops import qlink, qstride
+    dev = _card()
+    x = torch.randn(1, 4, 8, 8, 8, device=dev)
+    m, o = torch.ones(8, device=dev), torch.zeros(8, device=dev)
+    with torch.no_grad():
+        with pytest.raises(TypeError):              # float32 input
+            qstride.strided_fused(x, m, o, torch.randn(8, 8, 3, 3,
+                                                       device=dev),
+                                  torch.zeros(8, device=dev))
+        with pytest.raises(ValueError):             # stride 3
+            qstride.strided_fused(x.bfloat16(), m, o,
+                                  torch.randn(8, 8, 3, 3, device=dev),
+                                  torch.zeros(8, device=dev), (3, 3, 3))
+        with pytest.raises(RuntimeError):           # CO = 200 > 128
+            qstride.strided_fused(x.bfloat16(), m, o,
+                                  torch.randn(200, 8, 3, 3, device=dev),
+                                  torch.zeros(200, device=dev))
+        with pytest.raises(TypeError):
+            qlink.uplink(x, m, o, torch.randn(8, 4, 2, 2, 2, device=dev))
+        with pytest.raises(RuntimeError):           # sw * Cout = 256 > 128
+            qlink.uplink(x.bfloat16(), m, o,
+                         torch.randn(8, 128, 2, 2, 2, device=dev))
+        with pytest.raises(TypeError):
+            qlink.downlink(x, m, o)
+        with pytest.raises(TypeError):              # float16 probs
+            qlink.seghead(x.bfloat16(), m, o, torch.randn(3, 8, device=dev),
+                          torch.float16)
+        with pytest.raises(RuntimeError):           # K = 40 > 32
+            qlink.seghead(x.bfloat16(), m, o, torch.randn(40, 8, device=dev))
+    w = torch.randn(4, 8, 2, 2, 2, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError):               # needs a backward
+        qlink.uplink(x.bfloat16(), m, o, w)

@@ -47,3 +47,21 @@ def test_restricted_groups_match_slice_of_concat(lo, hi):
     np.testing.assert_array_equal(part.numpy(), full.numpy())
     assert tshift.restrict_groups(groups, lo, hi) == \
         jshift.group_shifts_for_range(13, 5, lo, hi)
+
+
+@pytest.mark.parametrize("C", [1, 3, 48, 96])
+@pytest.mark.parametrize("stride_d", [1, 2])
+def test_mirrored_depth_source_matches_reference(C, stride_d):
+    """strided_depth_source reads the input depth row the reference's
+    mirrored strided transition reads (qstride._groups: s -> -(s+1) at
+    stride 2, -s at stride 1, source row stride_d*do - s)."""
+    from e2enet_tpu.ops.qstride import _groups
+    groups = tshift.group_shifts(C, 5)
+    for flip in (False, True):
+        ours, parity = tshift.strided_depth_source(groups, stride_d, flip)
+        ref = _groups(C, 5, True, qd=stride_d, flip_d=flip)
+        assert [g[:2] for g in ours] == [g[:2] for g in ref]
+        for (_, _, s), (_, _, s_ref) in zip(ours, ref):
+            for do in range(3):
+                assert stride_d * do + parity - s == stride_d * do - s_ref
+    assert tshift.mirror_groups(groups) == tuple((a, b, -s) for a, b, s in groups)

@@ -103,3 +103,98 @@ def test_mirroring_off_and_padding():
                                   do_mirroring=False)
     assert out.shape == (K, 12, 20, 16)
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+
+
+def _mirror_fns(jax_apply, torch_apply, probs_dtype=None):
+    """One mirrored toy model per flip_combinations pass: fns[m](x) ==
+    flip_m(toy(flip_m(x))). With probs_dtype the port's passes return the
+    toy's class softmax in that dtype (a probs head)."""
+    combos = ts.flip_combinations((0, 1, 2))
+    jfns, tfns = [], []
+    for c in combos:
+        ax = tuple(a + 1 for a in c)
+
+        def jf(params, x, _ax=ax):
+            y = jax_apply(params, jnp.flip(x, _ax) if _ax else x)
+            return jnp.flip(y, _ax) if _ax else y
+
+        def tf(x, _ax=ax):
+            y = torch_apply(x.flip(_ax) if _ax else x)
+            y = y.flip(_ax) if _ax else y
+            if probs_dtype is not None:
+                y = torch.softmax(y, dim=-1).to(probs_dtype)
+            return y
+
+        jfns.append(jf)
+        tfns.append(tf)
+    return jfns, tfns
+
+
+@pytest.mark.parametrize("probs_dtype,tol", [(None, 1e-4),
+                                             (torch.bfloat16, 2 ** -8)])
+def test_flip_free_predictor_matches(probs_dtype, tol):
+    """Flip-free mirror TTA: the port's mirror_apply_fns branch against
+    the reference's (float32 accumulators); with a bf16 probs head the
+    predictor takes the probabilities as they are (one bf16 step)."""
+    data = np.random.RandomState(4).randn(1, 24, 20, 20).astype(np.float32)
+    jax_apply, torch_apply = _toy_models()
+    jfns, tfns = _mirror_fns(jax_apply, torch_apply, probs_dtype)
+    pred = js.make_tiled_predictor(jax_apply, PATCH, K,
+                                   mirror_apply_fns=jfns)
+    ref = js.predict_volume_tiled(jax_apply, {}, data, PATCH, K,
+                                  predictor=pred)
+
+    def refuse(x):
+        raise AssertionError("apply_fn is not used under flip-free TTA")
+
+    out = ts.predict_volume_tiled(refuse, data, PATCH, K, device="cpu",
+                                  mirror_apply_fns=tfns)
+    assert out.shape == ref.shape == (K, 24, 20, 20)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
+    # the data-flip branch computes the same
+    flip = ts.predict_volume_tiled(torch_apply, data, PATCH, K, device="cpu")
+    np.testing.assert_allclose(out, flip, rtol=0, atol=tol)
+
+
+def test_predictor_checks_head_output_kind():
+    """float32 logits are softmaxed, bf16 probabilities taken as they are,
+    anything else refused (no second softmax on a probs head)."""
+    logits = torch.randn(2, 3, 4, 5)
+    torch.testing.assert_close(ts.head_probs(logits),
+                               torch.softmax(logits, -1))
+    probs = torch.softmax(logits, -1).bfloat16()
+    assert torch.equal(ts.head_probs(probs), probs.float())
+    data = np.zeros((1, 16, 16, 16), np.float32)
+    for dt in (torch.float16, torch.float64, torch.int64):
+        def apply(x, _dt=dt):
+            return torch.zeros((*x.shape[:4], K), dtype=_dt)
+        with pytest.raises(TypeError):
+            ts.predict_volume_tiled(apply, data, PATCH, K, device="cpu",
+                                    do_mirroring=False)
+        with pytest.raises(TypeError):
+            ts.predict_volume_tiled(apply, data, PATCH, K, device="cpu",
+                                    mirror_apply_fns=[apply] * 8)
+    with pytest.raises(ValueError):
+        ts.predict_volume_tiled(apply, data, PATCH, K, device="cpu",
+                                mirror_apply_fns=[apply] * 3)
+
+
+def test_mirror_apply_fns_for_the_model():
+    """inference.predictor.mirror_apply_fns_for: pass m is the model's
+    mirrored forward, equal to flip_m(model(flip_m(x)))."""
+    from e2enet_tpu_torch.inference.predictor import mirror_apply_fns_for
+    from e2enet_tpu_torch.models.unetpp import ShiftUNetPlusPlus
+    net = ShiftUNetPlusPlus(1, 3, ((2, 2, 2),) * 2, base_num_features=4,
+                            compute_dtype=torch.float32, device="cpu")
+    net.reset_parameters(seed=1)
+    fns = mirror_apply_fns_for(net)
+    x = torch.from_numpy(np.random.RandomState(6).randn(1, 8, 8, 8, 1)
+                         .astype(np.float32))
+    assert len(fns) == 8
+    with torch.no_grad():
+        for fn, c in zip(fns, ts.flip_combinations((0, 1, 2))):
+            ax = tuple(a + 1 for a in c)
+            want = net(x.flip(ax) if ax else x, do_ds=False)
+            want = want.flip(ax) if ax else want
+            np.testing.assert_allclose(fn(x).numpy(), want.numpy(),
+                                       rtol=1e-4, atol=1e-4)

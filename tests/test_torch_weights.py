@@ -49,6 +49,36 @@ def test_every_leaf_maps_once_and_loads_strict(pools):
     assert set(dict(net.named_parameters())) == set(sd)
 
 
+def test_quadrant_model_tree_loads_strict():
+    """The reference's quadrant kernel model (the serving path whose flip
+    variants and probs head share one parameter tree) has the port's
+    parameter tree: filled from numpy, it loads with strict=True and every
+    leaf lands where the dense model's would."""
+    kw = dict(input_channels=1, num_classes=3,
+              pool_op_kernel_sizes=((2, 2, 2),) * 3, base_num_features=4)
+    shape = (1, 16, 16, 16, 1)
+    qnet = JaxNet(**kw, compute_dtype=jnp.float32, quadrant=True, fused=True,
+                  fused_interpret=True, remat=False)
+    qshapes = jax.eval_shape(qnet.init, jax.random.PRNGKey(0),
+                             jnp.zeros(shape))
+    dshapes = jax.eval_shape(
+        JaxNet(**kw, compute_dtype=jnp.float32, quadrant=False).init,
+        jax.random.PRNGKey(0), jnp.zeros(shape))
+    rng = np.random.RandomState(11)
+    params = jax.tree_util.tree_map(
+        lambda s: rng.randn(*s.shape).astype(np.float32), qshapes)
+    assert jax.tree_util.tree_structure(qshapes) == \
+        jax.tree_util.tree_structure(dshapes)
+    sd = from_jax_params(params)
+    net = ShiftUNetPlusPlus(**kw, compute_dtype=torch.float32,
+                            head_probs_dtype=torch.bfloat16, device="cpu")
+    net.load_state_dict(sd, strict=True)
+    for (path, q), (_, d) in zip(
+            jax.tree_util.tree_leaves_with_path(qshapes),
+            jax.tree_util.tree_leaves_with_path(dshapes)):
+        assert q.shape == d.shape, path
+
+
 def test_unknown_leaf_is_refused():
     with pytest.raises(ValueError):
         from_jax_params({"params": {"x": {"scale": np.zeros(3)}}})
@@ -58,7 +88,9 @@ def test_import_does_not_load_jax():
     """tests/conftest.py imports jax in-process, so check in a child."""
     code = ("import sys, e2enet_tpu_torch.models.unetpp, "
             "e2enet_tpu_torch.models.weights, e2enet_tpu_torch.ops.sliding, "
-            "e2enet_tpu_torch.ops._native; "
+            "e2enet_tpu_torch.ops._native, e2enet_tpu_torch.ops.qstride, "
+            "e2enet_tpu_torch.ops.qlink, "
+            "e2enet_tpu_torch.inference.predictor; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'e2enet_tpu', 'triton')]; "
             "assert not bad, bad")
