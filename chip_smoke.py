@@ -9,24 +9,35 @@ Phases (any failure ends the run with a non-zero exit):
               all at once); registers and spills per kernel
   3. kernels  each CUDA kernel against its plain torch version in bfloat16,
               at the main-path shapes and at ragged ones (odd D, W not a
-              multiple of 8, 8-channel parts); the fused block and the
-              strided transition at all 8 mirror combinations. Per call:
-              kernel ms, plain ms, the bound (bytes or operations over the
-              card's peak) and the share of it reached, and the time of one
-              PyTorch call computing the core op, for context
-  4. slice    ShiftUNet++ at the bench width (48 base features, 5 x (2,2,2)
-              pools, 16 classes, bf16, random seeded weights), the fast mode:
-              flip-free mirror TTA (8 statically mirrored forwards per tile)
-              and the bf16 probs head, sliding-window inference of two
-              seeded random 192^3 volumes with 128^3 patches, step 0.5,
-              float16 accumulators. Kernel launch counts, normalised finite
-              probabilities; one patch through the kernel path and the plain
-              path against a float32 run of the same weights; on one tile the
-              flip-free 8-pass mean against the data-flip one; ms/volume of
-              the kernel path and the plain path
-  5. data-flip the data-flip TTA path with the float32 logits head
-              (the seg-head kernel's logits mode), one volume
-  6. report   one JSON line with every kernel's launches, error, times and
+              multiple of 8, 8-channel parts); the fused block, the strided
+              transition and the lazy up-link block at all 8 mirror
+              combinations. Per call: kernel ms, plain ms, the bound (bytes
+              or operations over the card's peak) and the share of it
+              reached, and the time of one PyTorch call computing the core
+              op, for context; for the lazy block also the materialised
+              route (up-link kernel, then fused-block kernel)
+  4. sparse   the bench's default serving path: ShiftUNet++ at the bench
+              width (48 base features, 5 x (2,2,2) pools, 16 classes, bf16,
+              random weights from seed 0) with the trained DSFF row masks
+              (experiments/logs/bench_masks_trained.npz) baked in and the
+              row-sparse plan attached; fast mode (flip-free mirror TTA, 8
+              statically mirrored forwards per tile, bf16 probs head,
+              level-0 up-links computed lazily), sliding-window inference of
+              two seeded random 192^3 volumes with 128^3 patches, step 0.5,
+              float16 accumulators. Launch counts, normalised finite
+              probabilities, plan and mask densities; on one patch the
+              kernel path and the plain path against a float32 run of the
+              dense masked model, and the float32 sparse and dense masked
+              models against each other; the lazy block against its plain
+              version at the plan's level-0 shapes
+  5. dense    the same model without masks (the bench's --dense path), fast
+              mode, lazy up-links: two volumes, launch counts, the plain
+              path's volume, one patch against float32, the flip-free
+              8-pass mean against the data-flip one on one tile
+  6. data-flip the data-flip TTA path with the float32 logits head (the
+              seg-head kernel's logits mode) and the materialised up-link
+              route (the up-link kernel), one volume
+  7. report   one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -224,6 +235,76 @@ def fused_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
     return res
 
 
+def lazy_check(name, parts, up, kernel, bias, affines, flips, groups,
+               reps):
+    """Kernel #3 (the fused block with a lazy up-link part) vs plain on the
+    given inputs; with reps, also the materialised route (#6, then #1) and
+    cuDNN's conv of the materialised operand."""
+    import torch
+    import torch.nn.functional as F
+    from e2enet_tpu_torch.ops import fused_block as fb
+    from e2enet_tpu_torch.ops import qfused, qlink
+    args = (parts, up, kernel, bias, affines, flips, groups)
+    y_k, s_k = qfused.lazy_up_fused_block(*args)
+    y_p, s_p = qfused.lazy_up_fused_block_ref(*args)
+    torch.cuda.synchronize()
+    ok, err = y_err(y_k, y_p, Y_ULPS)
+    srel = stats_err(s_k, s_p, y_p)
+    check(ok, f"{name} flips={flips}: y differs by more than {Y_ULPS} bf16 "
+              f"ulps")
+    check(srel <= STATS_RTOL, f"{name} flips={flips}: stats rel err {srel}")
+    if reps == 0:
+        return dict(max_abs_err=err)
+    N, D, H, W, CO = y_k.shape
+    cin, cout = up.kernel.shape[:2]
+    C = kernel.shape[1]
+
+    def materialised():
+        return fb.fused_shift_conv_block(
+            list(parts) + [qlink.uplink(*up)], kernel, bias,
+            list(affines) + [None], flips, groups)
+
+    x2 = torch.cat(list(parts) + [qlink.uplink_ref(*up)], -1).reshape(
+        N * D, H, W, C).permute(0, 3, 1, 2)
+    w2 = kernel.to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    # the conv's and the up-link's products; each input read once
+    b_ms, b_by = bound(nbytes(*parts, up.raw, y_k) + (9 * C * CO
+                                                      + 8 * cin * cout) * 2,
+                       2.0 * N * D * H * W * (9 * C * CO + cin * cout),
+                       PEAK_BF16)
+    res = dict(max_abs_err=err, stats_rel=srel,
+               ms=cuda_ms(lambda: qfused.lazy_up_fused_block(*args), reps),
+               plain_ms=cuda_ms(lambda: qfused.lazy_up_fused_block_ref(*args),
+                                reps),
+               materialised_ms=cuda_ms(materialised, reps),
+               library_ms=cuda_ms(lambda: F.conv2d(x2, w2, padding=1), reps),
+               bound_ms=b_ms, bound_by=b_by)
+    report(name, f"N={N} D={D} H={H} W={W} C={[p.shape[-1] for p in parts]}"
+           f"+up {cin}->{cout} CO={CO}", res,
+           f" (stats rel {srel:.2e}; materialised #6 + #1 "
+           f"{res['materialised_ms']:.4f} ms)")
+    return res
+
+
+def lazy_case(name, N, Dc, Hc, Wc, part_c, affine, cin, cout, CO, rnd, reps,
+              flips=(False, False, False), groups=None):
+    """Kernel #3 vs plain on random bf16 inputs: parts at (2Dc, 2Hc, 2Wc),
+    the level-below pending raw at (Dc, Hc, Wc)."""
+    import torch
+    from e2enet_tpu_torch.ops import qfused
+    bf = torch.bfloat16
+    parts = [rnd(N, 2 * Dc, 2 * Hc, 2 * Wc, c).to(bf) for c in part_c]
+    affines = [rnd.affine(N, c) if a else None
+               for c, a in zip(part_c, affine)]
+    up = qfused.LazyUp(rnd(N, Dc, Hc, Wc, cin).to(bf), *rnd.affine(N, cin),
+                       rnd(cin, cout, 2, 2, 2, scale=(1.0 / cin) ** 0.5))
+    C = sum(part_c) + cout
+    kernel = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    return lazy_check(name, parts, up, kernel, rnd(CO, scale=0.1), affines,
+                      flips, groups, reps)
+
+
 def strided_case(name, N, D, H, W, C, CO, rnd, reps, flips=(False,) * 3):
     """Kernel #5 vs plain."""
     import torch
@@ -369,6 +450,8 @@ def main() -> None:
         fail("no CUDA device: this smoke test runs on the card only")
     try:
         from e2enet_tpu_torch.inference.predictor import mirror_apply_fns_for
+        from e2enet_tpu_torch.models.masks import attach_masks, masks_density
+        from e2enet_tpu_torch.models.sparse_plan import plan_density
         from e2enet_tpu_torch.models.unetpp import (
             ShiftUNetPlusPlus, kernel_launches_per_forward)
         from e2enet_tpu_torch.ops import _native, blocks
@@ -422,7 +505,7 @@ def main() -> None:
               "'library' is cuDNN's bf16 conv of the prepared operand",
               flush=True)
         fused = [
-            # the five main-path shapes, with the main path's pending affines
+            # the main-path shapes, with the main path's pending affines
             ("l0_c1_to48", 1, 128, 128, 128, [1], [False], 48),
             ("l0_48_to48", 1, 128, 128, 128, [48], [True], 48),
             ("l0_48+48_to48", 1, 128, 128, 128, [48, 48], [True, False], 48),
@@ -447,6 +530,27 @@ def main() -> None:
         res["fused_shift_conv_block"] = dict(
             r1["l0_48+48_to48"],
             max_abs_err=max(r["max_abs_err"] for r in r1.values()))
+
+        print("[kernel] lazy_up_fused_block (#3, lazy up-link) vs plain, "
+              "bf16; 'library' is cuDNN's bf16 conv of the already "
+              "materialised operand", flush=True)
+        main3 = lazy_case("l0_48+up96to48_to48", 1, 64, 64, 64, [48], [True],
+                          96, 48, 48, rnd, R)
+        errs = [main3["max_abs_err"]]
+        # odd coarse depth, W not a multiple of 16, 8-channel parts, CO 8
+        # and 24; compact groups that start mid-unit at all 8 mirrors
+        errs.append(lazy_case("ragged_dc3_w26_c8_co8", 2, 3, 5, 13, [8],
+                              [True], 8, 8, 8, rnd, 0)["max_abs_err"])
+        errs.append(lazy_case("ragged_w14_co24", 1, 3, 4, 7, [8, 8],
+                              [True, False], 16, 8, 24, rnd, 0)["max_abs_err"])
+        groups = ((0, 7, -2), (7, 13, -1), (13, 22, 0), (22, 24, 1))
+        errs += [lazy_case("flips_compact", 1, 3, 8, 12, [16], [True], 24, 8,
+                           16, rnd, 0, f, groups)["max_abs_err"]
+                 for f in FLIPS]
+        print(f"[kernel] lazy block: ragged, compact groups and all 8 mirror "
+              f"combinations within tolerance (max abs err {max(errs):.3e})",
+              flush=True)
+        res["lazy_up_fused_block"] = dict(main3, max_abs_err=max(errs))
 
         print("[kernel] strided_fused (#5) vs plain; 'library' is cuDNN's "
               "bf16 strided conv of the unnormalised input", flush=True)
@@ -488,30 +592,28 @@ def main() -> None:
             [main10["max_abs_err"]] + rag10))
         res["seghead"]["logits_mode_ms"] = log9["ms"]
 
-    # ---- 4. slice: flip-free mirror TTA, bf16 probs head
-    model = ShiftUNetPlusPlus(
-        input_channels=1, num_classes=NUM_CLASSES,
-        pool_op_kernel_sizes=((2, 2, 2),) * 5, base_num_features=48,
-        compute_dtype=torch.bfloat16, head_probs_dtype=torch.bfloat16,
-        device="cuda")
-    model.reset_parameters(seed=0)
-    model.eval()
-    per_pass = kernel_launches_per_forward(model)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"[slice] ShiftUNet++ {n_params / 1e6:.2f}M params; kernel "
-          f"launches per forward {per_pass}", flush=True)
-    fns = mirror_apply_fns_for(model)
+    # ---- the paths' shared parts
+    def bench_model(dtype=torch.bfloat16, probs=torch.bfloat16):
+        m = ShiftUNetPlusPlus(
+            input_channels=1, num_classes=NUM_CLASSES,
+            pool_op_kernel_sizes=((2, 2, 2),) * 5, base_num_features=48,
+            compute_dtype=dtype, head_probs_dtype=probs, device="cuda")
+        m.reset_parameters(seed=0)
+        return m.eval()
+
     vols = [np.random.RandomState(s).randn(1, *VOLUME).astype(np.float32)
             for s in (1, 2, 3)]
     w16, n_tiles = f16_weights()
     # weights >= 2^-10: a class share of 1/16 or more is still a normal
     # float16, so the sum over classes is good to ~1e-3
     normal, zero = w16 >= 2.0 ** -10, w16 == 0
+    # one 128^3 patch of the first timed volume
+    x = torch.from_numpy(vols[1][0, :128, :128, :128, None]).cuda()[None]
 
-    def unused_apply_fn(x):
+    def unused_apply_fn(v):
         fail("apply_fn called under flip-free TTA")
 
-    def predict(vol, apply_fn=unused_apply_fn, mirror_fns=fns):
+    def predict(vol, apply_fn=unused_apply_fn, mirror_fns=None):
         return predict_volume_tiled(apply_fn, vol, PATCH, NUM_CLASSES,
                                     device="cuda", step_size=0.5,
                                     mirror_axes=(0, 1, 2),
@@ -552,45 +654,43 @@ def main() -> None:
               f"(expected {n_vols} x {n_tiles} tiles x {TTA} passes x "
               f"{per})", flush=True)
         check(got == want, f"launch counts {got} != {want}")
+        for name, n in per.items():
+            if n:
+                check(got[name] > 0, f"{tag}: {name} never launched")
 
-    with torch.inference_mode():
+    def fast_volumes(tag, model):
+        """Warm-up volume, then the two timed volumes with the launch
+        counts read around them. Returns (launches, mean ms/volume)."""
+        fns = mirror_apply_fns_for(model)
         t0 = time.time()
-        predict(vols[0])                               # warm-up volume
-        print(f"[slice] warm-up volume {time.time() - t0:.1f} s", flush=True)
+        predict(vols[0], mirror_fns=fns)
+        print(f"[{tag}] warm-up volume {time.time() - t0:.1f} s", flush=True)
         reset_counts()
-        outs = [timed(predict, v) for v in vols[1:]]
-        launches = counts()
-        check_counts("slice", launches, len(outs), per_pass)
+        outs = [timed(predict, v, mirror_fns=fns) for v in vols[1:]]
+        got = counts()
+        check_counts(tag, got, len(outs), kernel_launches_per_forward(model))
         for probs, ms in outs:
-            check_probs("slice", probs, ms)
-        ms_kernel = float(np.mean([ms for _, ms in outs]))
+            check_probs(tag, probs, ms)
+        return got, float(np.mean([ms for _, ms in outs]))
 
-        # plain path: every kernel site swapped for its plain version
-        with blocks.plain_ops():
-            before = counts()
-            _, ms_plain = timed(predict, vols[1])
-            check(counts() == before, "the plain path launched a kernel")
-
-        # one patch: kernel path, plain path, float32 plain model (logits)
-        x = torch.from_numpy(vols[1][0, :128, :128, :128, None]).cuda()[None]
-        model32 = ShiftUNetPlusPlus(
-            input_channels=1, num_classes=NUM_CLASSES,
-            pool_op_kernel_sizes=((2, 2, 2),) * 5, base_num_features=48,
-            compute_dtype=torch.float32, device="cuda")
-        model32.load_state_dict(model.state_dict())
+    def patch_logits(model):
+        """One patch's float32 logits through the kernel path and the plain
+        path."""
         model.head_probs_dtype = None
         try:
-            logits_k = model(x, do_ds=False).float()
+            k = model(x, do_ds=False).float()
             with blocks.plain_ops():
-                logits_p = model(x, do_ds=False).float()
-                logits_32 = model32(x, do_ds=False)
+                p = model(x, do_ds=False).float()
         finally:
             model.head_probs_dtype = torch.bfloat16
-        check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
+        check(bool(torch.isfinite(k).all()), "non-finite logits")
+        return k, p
+
+    def against_float32(tag, logits_k, logits_p, logits_32):
         d = (logits_k - logits_p).abs()
         agree = float((logits_k.argmax(-1) == logits_p.argmax(-1))
                       .float().mean())
-        print(f"[slice] one 128^3 patch, kernel vs plain path: max "
+        print(f"[{tag}] one 128^3 patch, kernel vs plain path: max "
               f"|dlogit| {float(d.max()):.4e} (mean {float(d.mean()):.3e}, "
               f"max |logit| {float(logits_p.abs().max()):.3f}), argmax "
               f"agreement {agree:.6f}", flush=True)
@@ -600,15 +700,87 @@ def main() -> None:
             a32 = float((lg.argmax(-1) == logits_32.argmax(-1))
                         .float().mean())
             errs[name] = (float(e.mean()), a32)
-            print(f"[slice]   {name} path vs float32 model: max |dlogit| "
+            print(f"[{tag}]   {name} path vs float32 model: max |dlogit| "
                   f"{float(e.max()):.4e}, mean {float(e.mean()):.4e}, argmax "
                   f"agreement {a32:.6f}", flush=True)
         check(errs["kernel"][0] <= ERR_RATIO * errs["plain"][0],
-              "kernel path further from the float32 model than the plain "
-              "path")
+              f"{tag}: kernel path further from the float32 model than the "
+              f"plain path")
         check(errs["kernel"][1] >= errs["plain"][1] - AGREE_SLACK,
-              "kernel path argmax agreement with float32 below the plain "
-              "path's")
+              f"{tag}: kernel path argmax agreement with float32 below the "
+              f"plain path's")
+
+    launches = {}
+
+    # ---- 4. sparse: the bench's default serving path
+    model = bench_model()
+    masks, plan = attach_masks(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[sparse] ShiftUNet++ {n_params / 1e6:.2f}M params; trained row "
+          f"masks: {len(masks)} masks, overall density "
+          f"{masks_density(masks, model):.4f}; plan: {len(plan)} convs, row "
+          f"density {plan_density(plan, masks):.4f}; kernel launches per "
+          f"forward {kernel_launches_per_forward(model)}", flush=True)
+    with torch.inference_mode():
+        launches["sparse"], ms_sparse = fast_volumes("sparse", model)
+        # one patch: the lazy calls captured on the way, kernel and plain
+        # path against the float32 dense masked model (same masked weights,
+        # no plan, plain ops)
+        calls = []
+        real = blocks.lazy_up_fused_block
+
+        def spy(*a):
+            calls.append(a)
+            return real(*a)
+        blocks.lazy_up_fused_block = spy
+        try:
+            logits_k, logits_p = patch_logits(model)
+        finally:
+            blocks.lazy_up_fused_block = real
+        model32 = bench_model(torch.float32, None)
+        model32.load_state_dict(model.state_dict())
+        with blocks.plain_ops():
+            logits_32 = model32(x, do_ds=False)
+            model32.set_sparse_plan(plan)
+            logits_32s = model32(x, do_ds=False)
+        del model32
+        against_float32("sparse", logits_k, logits_p, logits_32)
+        gap = float((logits_32s - logits_32).abs().max())
+        big = float(logits_32.abs().max())
+        print(f"[sparse] float32: sparse plain path vs dense masked model "
+              f"max |dlogit| {gap:.3e} (max |logit| {big:.3f})", flush=True)
+        check(gap <= LOGIT_RTOL * big, "the float32 sparse path differs from "
+              "the dense masked model")
+        print("[kernel] lazy_up_fused_block at the sparse plan's level-0 "
+              "shapes (the patch's own inputs, no mirror)", flush=True)
+        check(len(calls) == 5, f"{len(calls)} lazy calls per forward")
+        sparse3 = [lazy_check(f"sparse_l0_node{i + 1}", *c, R if i == 0
+                              else 0) for i, c in enumerate(calls)]
+        res["lazy_up_fused_block"]["max_abs_err"] = max(
+            [res["lazy_up_fused_block"]["max_abs_err"]]
+            + [r["max_abs_err"] for r in sparse3])
+        del calls
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- 5. dense: the bench's --dense path, lazy up-links
+    model = bench_model()
+    print(f"[dense] kernel launches per forward "
+          f"{kernel_launches_per_forward(model)}", flush=True)
+    fns = mirror_apply_fns_for(model)
+    with torch.inference_mode():
+        launches["dense"], ms_dense = fast_volumes("dense", model)
+        # plain path: every kernel site swapped for its plain version
+        with blocks.plain_ops():
+            before = counts()
+            _, ms_plain = timed(predict, vols[1], mirror_fns=fns)
+            check(counts() == before, "the plain path launched a kernel")
+        logits_k, logits_p = patch_logits(model)
+        model32 = bench_model(torch.float32, None)
+        model32.load_state_dict(model.state_dict())
+        with blocks.plain_ops():
+            logits_32 = model32(x, do_ds=False)
+        against_float32("dense", logits_k, logits_p, logits_32)
 
         # one tile: flip-free 8-pass mean vs data-flip 8-pass mean (both
         # kernel path, probs head), each against a float32 data-flip run
@@ -631,7 +803,7 @@ def main() -> None:
         e_df = float((p_df - p_32).abs().mean())
         a_ff = float((p_ff.argmax(-1) == p_32.argmax(-1)).float().mean())
         a_df = float((p_df.argmax(-1) == p_32.argmax(-1)).float().mean())
-        print(f"[slice] one tile, 8-pass mean probs, flip-free vs data-flip: "
+        print(f"[dense] one tile, 8-pass mean probs, flip-free vs data-flip: "
               f"max |dp| {float(d.max()):.4e}, mean {float(d.mean()):.3e}; "
               f"against float32 data-flip: mean |dp| {e_ff:.4e} vs "
               f"{e_df:.4e}, argmax agreement {a_ff:.6f} vs {a_df:.6f}",
@@ -641,43 +813,58 @@ def main() -> None:
         check(a_ff >= a_df - AGREE_SLACK, "flip-free TTA argmax agreement "
               "below data-flip TTA's")
 
-    print(f"[slice] ms/volume: kernel path {ms_kernel:.1f} "
-          f"({n_tiles * TTA / (ms_kernel / 1e3):.2f} patches/s), plain path "
-          f"{ms_plain:.1f} ({n_tiles * TTA / (ms_plain / 1e3):.2f} "
-          f"patches/s)  [{smi}]", flush=True)
-
-    # ---- 5. the data-flip TTA path, float32 logits head
+    # ---- 6. data-flip TTA, float32 logits head, materialised up-links
     model.head_probs_dtype = None
+    model.lazy_up = False
     per_df = kernel_launches_per_forward(model)
     apply_fn = lambda v: model(v, do_ds=False)  # noqa: E731
     with torch.inference_mode():
         reset_counts()
         probs, ms_df = timed(predict, vols[1], apply_fn, None)
-        check_counts("data-flip", counts(), 1, per_df)
+        launches["data-flip"] = counts()
+        check_counts("data-flip", launches["data-flip"], 1, per_df)
         check_probs("data-flip", probs, ms_df)
-    print(f"[data-flip] ms/volume: kernel path {ms_df:.1f} "
-          f"({n_tiles * TTA / (ms_df / 1e3):.2f} patches/s)  [{smi}]",
-          flush=True)
 
-    # ---- 6. report
+    def rate(ms):
+        return f"{ms:.1f} ms/volume ({n_tiles * TTA / (ms / 1e3):.2f} " \
+               f"patches/s)"
+    print(f"[paths] sparse fast mode {rate(ms_sparse)}; dense fast mode "
+          f"{rate(ms_dense)}; dense plain path {rate(ms_plain)}; data-flip "
+          f"{rate(ms_df)}  [{smi}]", flush=True)
+
+    # ---- 7. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
-               "strided_fused": ("qstride.cu", "e2enet_tpu/ops/qstride.py:158"),
+               "lazy_up_fused_block": ("qfused.cu",
+                                       "e2enet_tpu/ops/qfused.py:505"),
+               "strided_fused": ("qstride.cu",
+                                 "e2enet_tpu/ops/qstride.py:158"),
                "uplink": ("qlink.cu", "e2enet_tpu/ops/qlink.py:104"),
                "downlink": ("qlink.cu", "e2enet_tpu/ops/qlink.py:188"),
                "seghead": ("qlink.cu", "e2enet_tpu/ops/qlink.py:445")}
     print("[report] ms, plain_ms, bound_ms and library_ms are per call at "
-          "the main-path shape (fused block: l0_48+48_to48; seg head: probs "
-          "mode); max_abs_err over every case", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": f"e2enet_tpu_torch/csrc/{src}", "replaces": rep,
-        "launches": launches[name], "max_abs_err": res[name]["max_abs_err"],
-        "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
-        "bound_ms": res[name]["bound_ms"],
-        "bound_by": res[name]["bound_by"],
-        "library_ms": res[name]["library_ms"]}
-        for name, (src, rep) in sources.items()]}))
+          "the dense main-path shape (fused block: l0_48+48_to48; lazy "
+          "block: l0_48+up96to48_to48, its first sparse level-0 shape under "
+          "'sparse_shape'; seg head: probs mode); max_abs_err over every "
+          "case; launches from the sparse path's two volumes, the up-link's "
+          "from the data-flip path's volume (launches_by_path: all three)",
+          flush=True)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    lines = []
+    for name, (src, rep) in sources.items():
+        path = "sparse" if launches["sparse"][name] else "data-flip"
+        line = {"name": name, "route": "cuda",
+                "source": f"e2enet_tpu_torch/csrc/{src}", "replaces": rep,
+                "launches": launches[path][name],
+                "max_abs_err": res[name]["max_abs_err"],
+                **{k: res[name][k] for k in keys},
+                "launches_by_path": {k: v[name] for k, v in launches.items()}}
+        if name == "lazy_up_fused_block":
+            line["materialised_ms"] = res[name]["materialised_ms"]
+            line["sparse_shape"] = {k: sparse3[0][k] for k in
+                                    keys + ("materialised_ms",)}
+        lines.append(line)
+    print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

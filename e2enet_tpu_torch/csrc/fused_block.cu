@@ -52,553 +52,15 @@
 //    three). TH is the largest that fits shared memory. The accumulators
 //    pass through shared memory for the bias, the bf16 store and the
 //    per-channel statistics.
-// wgmma, TMA and warp specialisation are later work.
+// wgmma, TMA and warp specialisation are later work. The block machinery is
+// in shift_conv_block.cuh, shared with the lazy up-link kernel (qfused.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <initializer_list>
-
-typedef __nv_bfloat16 bf16;
-
-#define MAX_PARTS 4
-#define MAX_GROUPS 8
-#define NWARPS 16
-#define NTHREADS (NWARPS * 32)
-#define SMEM_LIMIT (227 * 1024)
-
-// how an 8-channel unit is staged; bit 2: a channel carries a pending norm
-#define UNIT_SCALAR 0
-#define UNIT_16 1
-#define UNIT_PAIRS 2
-#define UNIT_ZERO 3
-#define UNIT_AFF 4
-
-struct Params {
-  const bf16* x[MAX_PARTS];           // (N, D, H, W, pc) each
-  const float* mult[MAX_PARTS];       // (N, pc) or null: no pending norm
-  const float* off[MAX_PARTS];
-  int pc[MAX_PARTS];                  // channels of each part
-  int pc0[MAX_PARTS];                 // first concat channel of each part
-  int vec[MAX_PARTS];                 // widest aligned copy of a part's
-                                      // pixel rows: 16, 4 or 2 bytes
-  int nparts;
-  int g0[MAX_GROUPS], g1[MAX_GROUPS], gs[MAX_GROUPS];  // shift groups
-  int ngroups;
-  const bf16* w;                      // (9, CO, C), tap = 3*(dh+1) + (dw+1)
-  const bf16* b;                      // (CO)
-  bf16* y;                            // (N, D, H, W, CO)
-  float* stats;                       // (N, CO, 2), zeroed by the caller
-  int N, D, H, W, C, CO;
-  int Cs;                             // C rounded up to 16
-  int Cp;                             // shared row stride, >= Cs
-  int WF;                             // 16-pixel fragments per W tile
-  int n_wt;                           // W tiles per image row
-  int TH;                             // image rows per block
-  int Ws;                             // staged tile width: 16*WF + 2
-  int off_w, off_tab;                 // shared-memory offsets (bytes)
-};
-
-__device__ __forceinline__ float norm_lrelu(float x, float m, float o) {
-  // no fma contraction: the plain torch version rounds the product
-  const float a = __fadd_rn(__fmul_rn(x, m), o);
-  return fmaxf(a, __fmul_rn(a, 0.01f));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-// 4 bytes from gmem, or zeros when !valid (gmem then not read)
-__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
-                                                bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_16816(float d[4], const unsigned a[4],
-                                          unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// stage tap t's weights, output channels co0 .. co0+ncol, all C, into
-// s_w[j * Cp + k]
-__device__ __forceinline__ void stage_weights(const Params& p, bf16* s_w,
-                                              int t, int co0, int ncol,
-                                              bool vec, int tid) {
-  const bf16* src = p.w + ((size_t)t * p.CO + co0) * p.C;
-  if (vec) {
-    const int per_row = p.C / 8;
-    for (int i = tid; i < ncol * per_row; i += NTHREADS) {
-      const int j = i / per_row, k = (i % per_row) * 8;
-      cp_async16(s_w + j * p.Cp + k, src + (size_t)j * p.C + k);
-    }
-    cp_async_commit();
-  } else {
-    for (int i = tid; i < ncol * p.C; i += NTHREADS) {
-      const int j = i / p.C, k = i % p.C;
-      s_w[j * p.Cp + k] = src[(size_t)j * p.C + k];
-    }
-  }
-}
-
-// visits the staged units (cell, 8-channel chunk k) of this thread in
-// order, stepping (k, col, row) without divisions
-struct UnitWalk {
-  int k, col, row, step_k, step_cell;
-  __device__ UnitWalk(int tid, int KC8, int Ws) {
-    k = tid % KC8;
-    const int cell = tid / KC8;
-    col = cell % Ws;
-    row = cell / Ws;
-    step_k = NTHREADS % KC8;
-    step_cell = NTHREADS / KC8;
-  }
-  __device__ void next(int KC8, int Ws) {
-    k += step_k;
-    col += step_cell;
-    if (k >= KC8) { k -= KC8; ++col; }
-    while (col >= Ws) { col -= Ws; ++row; }
-  }
-};
+#include "shift_conv_block.cuh"
 
 template <int NG, int NFW, int MPW>
 __global__ void __launch_bounds__(NTHREADS)
-fused_block_kernel(const Params p) {
-  constexpr int WPM = NWARPS / NG;     // warps along M
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-
-  const int n_ht = (p.H + p.TH - 1) / p.TH;
-  int bid = blockIdx.x;
-  const int wt = bid % p.n_wt;
-  bid /= p.n_wt;
-  const int ht = bid % n_ht;
-  bid /= n_ht;
-  const int d = bid % p.D;
-  const int n = bid / p.D;
-  const int h0 = ht * p.TH;
-  const int w0 = wt * p.WF * 16;
-  const int co0 = blockIdx.y * NG * NFW * 16;
-  const int nf = min(NG * NFW, (p.CO - co0 + 15) / 16);  // CO fragments
-  const int BN = nf * 16;
-  const int ncol = min(BN, p.CO - co0);  // real columns of this tile
-  const int Cs = p.Cs, Cp = p.Cp, Ws = p.Ws;
-  const int KC8 = Cs / 8;
-  const int HW = p.H * p.W;
-
-  bf16* s_in = reinterpret_cast<bf16*>(smem);
-  bf16* s_w0 = reinterpret_cast<bf16*>(smem + p.off_w);
-  bf16* s_w1 = s_w0 + BN * Cp;
-  const bf16** s_src = reinterpret_cast<const bf16**>(smem + p.off_tab);
-  int* s_info = reinterpret_cast<int*>(s_src + Cs);
-  float* s_m = reinterpret_cast<float*>(s_info + Cs);
-  float* s_o = s_m + Cs;
-  int* s_unit = reinterpret_cast<int*>(s_o + Cs);
-  int* s_affk = s_unit + KC8;          // copied units with a pending norm
-  int* s_naff = s_affk + KC8;
-
-  // ---- weights: zero the padding of both buffers once, start tap 0
-  const bool vec_w = (p.C % 8 == 0);
-  const int kpad = Cp - p.C;           // columns C .. Cp of every row
-  for (int i = tid; i < 2 * BN * kpad; i += NTHREADS)
-    s_w0[(i / kpad) * Cp + p.C + i % kpad] = __float2bfloat16(0.0f);
-  for (int i = tid; i < 2 * (BN - ncol) * p.C; i += NTHREADS) {
-    const int r = i / p.C;             // rows ncol .. BN of both buffers
-    s_w0[((r / (BN - ncol)) * BN + ncol + r % (BN - ncol)) * Cp + i % p.C] =
-        __float2bfloat16(0.0f);
-  }
-  stage_weights(p, s_w0, 0, co0, ncol, vec_w, tid);
-
-  // ---- per-channel table for this (n, d). info: -1 when the channel is
-  // zero (beyond C, or its shift reads outside [0, D)); else bit 0 no
-  // 16-byte copy, bit 1 no 4-byte copy, bit 2 pending norm, bits 3-4 part,
-  // bits 5.. channels of the part (the pixel stride); s_src: the channel's
-  // element at pixel (0, 0) of depth d - shift
-  for (int c = tid; c < Cs; c += NTHREADS) {
-    int info = -1;
-    float m = 1.0f, o = 0.0f;
-    const bf16* src = p.x[0];
-    if (c < p.C) {
-      int q = 0;
-      for (int k = 1; k < p.nparts; ++k)
-        if (c >= p.pc0[k]) q = k;
-      int s = 0;
-      for (int g = 0; g < p.ngroups; ++g)
-        if (c >= p.g0[g] && c < p.g1[g]) s = p.gs[g];
-      const int ds = d - s;
-      if (ds >= 0 && ds < p.D) {
-        const int cl = c - p.pc0[q];
-        const int ci = p.pc[q];
-        const bool aff = p.mult[q] != nullptr;
-        if (aff) {
-          m = p.mult[q][n * ci + cl];
-          o = p.off[q][n * ci + cl];
-        }
-        src = p.x[q] + (size_t)(n * p.D + ds) * HW * ci + cl;
-        info = ((int)aff << 2) | (q << 3) | (ci << 5);
-        if (p.vec[q] < 16 || cl % 8) info |= 1;
-        if (p.vec[q] < 4 || cl % 2) info |= 2;
-      }
-    }
-    s_src[c] = src;
-    s_info[c] = info;
-    s_m[c] = m;
-    s_o[c] = o;
-  }
-  __syncthreads();
-  for (int k = tid; k < KC8; k += NTHREADS) {
-    const int c0 = k * 8;
-    const int i0 = s_info[c0];
-    bool zero = true, one = i0 >= 0 && !(i0 & 1), pairs = true, aff = false;
-    for (int e = 0; e < 8; ++e) {
-      const int ie = s_info[c0 + e];
-      zero = zero && ie < 0;
-      aff = aff || (ie >= 0 && (ie & 4));
-      // one copy: consecutive elements of one source row
-      one = one && ie >= 0 && (ie >> 3) == (i0 >> 3) &&
-            s_src[c0 + e] == s_src[c0] + e;
-      if (e % 2 == 0) {
-        const int in = s_info[c0 + e + 1];
-        pairs = pairs && ((ie < 0 && in < 0) ||
-                          (ie >= 0 && in >= 0 && !(ie & 2) &&
-                           (in >> 3) == (ie >> 3) &&
-                           s_src[c0 + e + 1] == s_src[c0 + e] + 1));
-      }
-    }
-    s_unit[k] = (zero ? UNIT_ZERO : one ? UNIT_16
-                 : pairs ? UNIT_PAIRS : UNIT_SCALAR) | (aff ? UNIT_AFF : 0);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int naff = 0;
-    for (int k = 0; k < KC8; ++k) {
-      const int kind = s_unit[k] & 3;
-      if ((s_unit[k] & UNIT_AFF) && (kind == UNIT_16 || kind == UNIT_PAIRS))
-        s_affk[naff++] = k;
-    }
-    *s_naff = naff;
-  }
-
-  // ---- stage the operand: rows h0-1 .. h0+TH, columns w0-1 .. w0+16*WF
-  const int rows = p.TH + 2;
-  UnitWalk it(tid, KC8, Ws);
-  for (; it.row < rows; it.next(KC8, Ws)) {
-    const int hh = h0 - 1 + it.row;
-    const int ww = w0 - 1 + it.col;
-    const int c0 = it.k * 8;
-    const bool pix_ok = hh >= 0 && hh < p.H && ww >= 0 && ww < p.W;
-    const int pix = pix_ok ? hh * p.W + ww : 0;
-    bf16* dst = s_in + (size_t)(it.row * Ws + it.col) * Cp + c0;
-    const int unit = s_unit[it.k];
-    const int kind = unit & 3;
-    if (kind == UNIT_ZERO || !pix_ok) {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      continue;
-    }
-    if (kind == UNIT_16) {
-      cp_async16(dst, s_src[c0] + (size_t)pix * (s_info[c0] >> 5));
-    } else if (kind == UNIT_PAIRS) {
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        const int info = s_info[c0 + e];
-        const bool ok = info >= 0;
-        cp_async4_zfill(dst + e,
-                        s_src[c0 + e] + (ok ? (size_t)pix * (info >> 5) : 0),
-                        ok);
-      }
-    } else {
-      // channel by channel: eight independent loads, norms applied here
-      bf16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int info = s_info[c0 + e];
-        v[e] = s_src[c0 + e][info >= 0 ? (size_t)pix * (info >> 5) : 0];
-      }
-      uint4 out;
-      bf16* vals = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int info = s_info[c0 + e];
-        const float a =
-            norm_lrelu(__bfloat162float(v[e]), s_m[c0 + e], s_o[c0 + e]);
-        vals[e] = info < 0 ? __float2bfloat16(0.0f)
-                           : (info & 4) ? __float2bfloat16(a) : v[e];
-      }
-      *reinterpret_cast<uint4*>(dst) = out;
-    }
-  }
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  // pending norms of the copied units, in place; zero fill stays zero.
-  // Walks (cell, unit with a norm) pairs only.
-  const int naff = *s_naff;
-  if (naff > 0) {
-    UnitWalk iw(tid, naff, Ws);
-    for (; iw.row < rows; iw.next(naff, Ws)) {
-      const int hh = h0 - 1 + iw.row;
-      const int ww = w0 - 1 + iw.col;
-      if (hh < 0 || hh >= p.H || ww < 0 || ww >= p.W) continue;
-      const int k = s_affk[iw.k];
-      const int c0 = k * 8;
-      uint4* ptr = reinterpret_cast<uint4*>(
-          s_in + (size_t)(iw.row * Ws + iw.col) * Cp + c0);
-      uint4 val = *ptr;
-      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
-      const float4 m0 = *reinterpret_cast<const float4*>(s_m + c0);
-      const float4 m1 = *reinterpret_cast<const float4*>(s_m + c0 + 4);
-      const float4 o0 = *reinterpret_cast<const float4*>(s_o + c0);
-      const float4 o1 = *reinterpret_cast<const float4*>(s_o + c0 + 4);
-      const float m[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
-      const float o[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
-      // a 16-byte unit is one part and one shift: all 8 carry the norm
-      const bool all = (s_unit[k] & 3) == UNIT_16;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        const __nv_bfloat162 n2 = __floats2bfloat162_rn(
-            norm_lrelu(f.x, m[2 * e], o[2 * e]),
-            norm_lrelu(f.y, m[2 * e + 1], o[2 * e + 1]));
-        const int i0 = s_info[c0 + 2 * e], i1 = s_info[c0 + 2 * e + 1];
-        const bool on0 = all || (i0 >= 0 && (i0 & 4));
-        const bool on1 = all || (i1 >= 0 && (i1 & 4));
-        h2[e] = __halves2bfloat162(on0 ? __low2bfloat16(n2) : __low2bfloat16(h2[e]),
-                                   on1 ? __high2bfloat16(n2) : __high2bfloat16(h2[e]));
-      }
-      *ptr = val;
-    }
-  }
-  __syncthreads();
-
-  // ---- 9 taps x Cs/16 K-steps of m16n8k16 MMAs
-  const int MF = p.TH * p.WF;          // 16-pixel fragments in this block
-  const int ng = warp % NG;            // this warp's CO fragments: ng*NFW..
-  const int wm = warp / NG;
-  const int lane = tid % 32;
-  int fr_th[MPW], fr_w[MPW];
-  bool fr_on[MPW];
-#pragma unroll
-  for (int f = 0; f < MPW; ++f) {
-    const int mf = wm + f * WPM;
-    fr_on[f] = mf < MF;
-    fr_th[f] = mf / p.WF;
-    fr_w[f] = (mf % p.WF) * 16;
-  }
-  bool nf_on[NFW];
-#pragma unroll
-  for (int j = 0; j < NFW; ++j) nf_on[j] = ng * NFW + j < nf;
-  const bool active = fr_on[0] && nf_on[0];
-  // per 16-wide CO fragment j, two n8 accumulators of 4 floats
-  float acc[MPW][NFW][2][4];
-#pragma unroll
-  for (int f = 0; f < MPW; ++f)
-#pragma unroll
-    for (int j = 0; j < NFW; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[f][j][h][e] = 0.0f;
-  // ldmatrix row addresses of this lane: A, row lane%16 of the fragment,
-  // k half lane/16; B, output channel (lane%8) + 8*(lane/16), k half
-  // (lane/8)%2
-  const int a_row = lane % 16, a_k = (lane / 16) * 8;
-  const int b_row = lane % 8 + (lane / 16) * 8, b_k = ((lane / 8) % 2) * 8;
-
-  for (int t = 0; t < 9; ++t) {
-    const int dh = t / 3 - 1;
-    const int dw = t % 3 - 1;
-    const bf16* s_w = (t & 1) ? s_w1 : s_w0;
-    if (t + 1 < 9)                     // next tap's buffer was freed at t-1
-      stage_weights(p, (t & 1) ? s_w0 : s_w1, t + 1, co0, ncol, vec_w, tid);
-    if (active) {
-      unsigned a_addr[MPW];
-#pragma unroll
-      for (int f = 0; f < MPW; ++f)
-        a_addr[f] = (unsigned)__cvta_generic_to_shared(
-            s_in + ((size_t)(fr_th[f] + 1 + dh) * Ws + fr_w[f] + 1 + dw +
-                    a_row) * Cp + a_k);
-      const unsigned b_addr = (unsigned)__cvta_generic_to_shared(
-          s_w + (size_t)(ng * NFW * 16 + b_row) * Cp + b_k);
-      for (int kc = 0; kc < Cs; kc += 16) {
-        unsigned a[MPW][4], b[NFW][4];
-#pragma unroll
-        for (int f = 0; f < MPW; ++f)
-          if (fr_on[f]) ldmatrix_x4(a[f], a_addr[f] + kc * 2);
-#pragma unroll
-        for (int j = 0; j < NFW; ++j)
-          if (nf_on[j]) ldmatrix_x4(b[j], b_addr + (j * 16 * Cp + kc) * 2);
-#pragma unroll
-        for (int j = 0; j < NFW; ++j)
-#pragma unroll
-          for (int f = 0; f < MPW; ++f)
-            if (nf_on[j] && fr_on[f]) {
-              mma_16816(acc[f][j][0], a[f], b[j][0], b[j][1]);
-              mma_16816(acc[f][j][1], a[f], b[j][2], b[j][3]);
-            }
-      }
-    }
-    if (vec_w) cp_async_wait_all();
-    __syncthreads();                   // next buffer landed, this one free
-  }
-
-  // ---- epilogue through shared memory (aliases the operand region); an
-  // n8 accumulator holds rows lane/4 and lane/4 + 8, columns 2*(lane%4)+0,1
-  float* s_acc = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int f = 0; f < MPW; ++f) {
-    const int mf = wm + f * WPM;
-#pragma unroll
-    for (int j = 0; j < NFW; ++j)
-      if (fr_on[f] && nf_on[j]) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float* o = s_acc + (size_t)(mf * 16 + lane / 4) * BN +
-                     (ng * NFW + j) * 16 + h * 8 + (lane % 4) * 2;
-          *reinterpret_cast<float2*>(o) =
-              make_float2(acc[f][j][h][0], acc[f][j][h][1]);
-          *reinterpret_cast<float2*>(o + 8 * BN) =
-              make_float2(acc[f][j][h][2], acc[f][j][h][3]);
-        }
-      }
-  }
-  __syncthreads();
-
-  const int BM = MF * 16;
-  const int tile_w = p.WF * 16;
-  // tile pixel lp -> pixel h*W + w of the (n, d) slice, or -1 outside it;
-  // a tile that is the whole row needs no division
-  const bool full_w = p.n_wt == 1 && p.W == tile_w;
-  const int n_valid = (p.H - h0) * p.W;
-  auto pixel = [&](int lp) -> int {
-    if (full_w) return lp < n_valid ? h0 * p.W + lp : -1;
-    const int h = h0 + lp / tile_w, w = w0 + lp % tile_w;
-    return (h < p.H && w < p.W) ? h * p.W + w : -1;
-  };
-  bf16* y_slice = p.y + (size_t)(n * p.D + d) * p.H * p.W * p.CO + co0;
-  if (p.CO % 8 == 0) {
-    const int per_row = ncol / 8;
-    for (UnitWalk iy(tid, per_row, BM); iy.row == 0; iy.next(per_row, BM)) {
-      const int px = pixel(iy.col);
-      if (px < 0) continue;
-      const int j = iy.k * 8;
-      uint4 o;
-      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&o);
-      const float* a = s_acc + (size_t)iy.col * BN + j;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        h2[e] = __floats2bfloat162_rn(
-            a[2 * e] + __bfloat162float(p.b[co0 + j + 2 * e]),
-            a[2 * e + 1] + __bfloat162float(p.b[co0 + j + 2 * e + 1]));
-      *reinterpret_cast<uint4*>(y_slice + (size_t)px * p.CO + j) = o;
-    }
-  } else {
-    for (int idx = tid; idx < BM * BN; idx += NTHREADS) {
-      const int j = idx % BN;
-      const int px = pixel(idx / BN);
-      if (px >= 0 && j < ncol)
-        y_slice[(size_t)px * p.CO + j] =
-            __float2bfloat16(s_acc[idx] + __bfloat162float(p.b[co0 + j]));
-    }
-  }
-
-  const int G = NTHREADS / BN;          // threads per output channel
-  if (tid < G * BN) {
-    const int j = tid % BN;
-    if (j < ncol) {
-      const int co = co0 + j;
-      const float bias = __bfloat162float(p.b[co]);
-      float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll 4
-      for (int lp = tid / BN; lp < BM; lp += G) {
-        if (pixel(lp) >= 0) {
-          const float v = s_acc[lp * BN + j] + bias;
-          s1 += v;
-          s2 += v * v;
-        }
-      }
-      atomicAdd(&p.stats[((size_t)n * p.CO + co) * 2], s1);
-      atomicAdd(&p.stats[((size_t)n * p.CO + co) * 2 + 1], s2);
-    }
-  }
-}
-
-static size_t smem_bytes(const Params& p, int TH, int bn_max, int* off_w,
-                         int* off_tab) {
-  const size_t in_bytes = (size_t)(TH + 2) * p.Ws * p.Cp * sizeof(bf16);
-  const size_t ep_bytes = (size_t)TH * p.WF * 16 * bn_max * sizeof(float);
-  size_t region0 = in_bytes > ep_bytes ? in_bytes : ep_bytes;
-  region0 = (region0 + 127) / 128 * 128;
-  const size_t w_bytes = ((size_t)2 * bn_max * p.Cp * sizeof(bf16) + 127) /
-                         128 * 128;
-  *off_w = (int)region0;
-  *off_tab = (int)(region0 + w_bytes);
-  // table: pointer, info, mult, off per channel; two ints per unit, a count
-  return region0 + w_bytes + (size_t)p.Cs * (sizeof(void*) + 12) +
-         (size_t)(p.Cs / 8) * 8 + 4;
-}
-
-// block tile: the widest W tile (fewest tiles of equal width) and then the
-// most rows that fit shared memory, at most MPW row fragments per warp
-template <int NG, int NFW, int MPW>
-static int launch(Params& p, cudaStream_t stream) {
-  const int tile = NG * NFW * 16;
-  const int bn_max = min(tile, (p.CO + 15) / 16 * 16);
-  const int max_frags = NWARPS / NG * MPW;
-  const int wf_all = (p.W + 15) / 16;
-  size_t smem = 0;
-  p.TH = 0;
-  for (int wf = min(wf_all, max_frags); wf >= 1 && !p.TH; --wf) {
-    p.n_wt = (wf_all + wf - 1) / wf;
-    if ((wf_all + p.n_wt - 1) / p.n_wt != wf) continue;  // tiles unequal
-    p.WF = wf;
-    p.Ws = wf * 16 + 2;
-    for (int th = min(p.H, max_frags / wf); th >= 1 && !p.TH; --th) {
-      // a row stride of an odd number of 16-byte units puts the eight rows
-      // of an ldmatrix in eight distinct bank groups; where that does not
-      // fit, the unpadded stride (two-way conflicts)
-      for (int cp : {p.Cs + 8, p.Cs}) {
-        p.Cp = cp;
-        smem = smem_bytes(p, th, bn_max, &p.off_w, &p.off_tab);
-        if (smem <= SMEM_LIMIT) {
-          p.TH = th;
-          break;
-        }
-      }
-    }
-  }
-  if (p.TH == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_block_kernel<NG, NFW, MPW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_blocks =
-      (long long)p.N * p.D * ((p.H + p.TH - 1) / p.TH) * p.n_wt;
-  if (n_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)n_blocks, (p.CO + tile - 1) / tile);
-  fused_block_kernel<NG, NFW, MPW><<<grid, NTHREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+fused_block_kernel(const Params p, const NoHook hook) {
+  shift_conv_block_body<NG, NFW, MPW>(p, hook);
 }
 
 // Plain C entry point (bound with ctypes). Arrays hold one entry per part;
@@ -615,35 +77,14 @@ extern "C" int fused_block_launch(const void* const* xs,
                                   const void* w, const void* b, void* y,
                                   void* stats, int N, int D, int H, int W,
                                   int CO, void* stream) {
-  if (nparts < 1 || nparts > MAX_PARTS || ngroups < 1 ||
-      ngroups > MAX_GROUPS || N < 1 || D < 1 || H < 1 || W < 1 || CO < 1)
-    return (int)cudaErrorInvalidValue;
   Params p;
-  int C = 0;
-  for (int i = 0; i < MAX_PARTS; ++i) {
-    const bool on = i < nparts;
-    p.x[i] = on ? static_cast<const bf16*>(xs[i]) : nullptr;
-    p.mult[i] = on ? static_cast<const float*>(mults[i]) : nullptr;
-    p.off[i] = on ? static_cast<const float*>(offs[i]) : nullptr;
-    p.pc[i] = on ? part_c[i] : 0;
-    p.vec[i] = on ? part_vec[i] : 0;
-    p.pc0[i] = C;
-    C += p.pc[i];
-  }
-  p.nparts = nparts;
-  for (int g = 0; g < MAX_GROUPS; ++g) {
-    const bool on = g < ngroups;
-    p.g0[g] = on ? groups[3 * g] : 0;
-    p.g1[g] = on ? groups[3 * g + 1] : 0;
-    p.gs[g] = on ? groups[3 * g + 2] : 0;
-  }
-  p.ngroups = ngroups;
-  p.w = static_cast<const bf16*>(w);
-  p.b = static_cast<const bf16*>(b);
-  p.y = static_cast<bf16*>(y);
-  p.stats = static_cast<float*>(stats);
-  p.N = N; p.D = D; p.H = H; p.W = W; p.C = C; p.CO = CO;
-  p.Cs = (C + 15) / 16 * 16;
+  if (!make_params(p, xs, mults, offs, part_c, part_vec, nparts, groups,
+                   ngroups, w, b, y, stats, N, D, H, W, CO))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < nparts; ++i)
+    if (p.x[i] == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return CO <= 48 ? launch<1, 3, 2>(p, s) : launch<2, 3, 1>(p, s);
+  const NoHook hook;
+  return CO <= 48 ? launch<1, 3, 2>(p, hook, fused_block_kernel<1, 3, 2>, s)
+                  : launch<2, 3, 1>(p, hook, fused_block_kernel<2, 3, 1>, s);
 }

@@ -1,0 +1,126 @@
+"""DSFF masks at inference: which parameters carry one, baking them into
+the weights (w * mask), loading a masks-only artifact, and the overall
+density. Counterpart of the inference subset of e2enet_tpu/training/dsff.py
+(is_masked_path, apply_masks, masks_density) and of bench.py's artifact
+load, in the port's layouts. numpy and torch only.
+
+A mask is stored (in, out), as the reference stores it, and broadcast over
+the spatial kernel dims:
+  conv kernel        (CO, C, kh, kw)           * mask.T[:, :, None, None]
+  transp-conv kernel (Cin, Cout, sd, sh, sw)   * mask[:, :, None, None, None]
+
+The artifact (experiments/logs/bench_masks_trained.npz) keys its masks by
+the flax path joined with '|' ('loc0_0|block0|kernel'); the port's name is
+the same path joined with '.'.
+"""
+from pathlib import Path
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+MASKED_TOKENS = ("loc", "up")
+EXCLUDED_TOKENS = ("context",)
+
+
+def is_masked_path(path: Tuple[str, ...], leaf_name: str) -> bool:
+    """The reference's targeting (core_channel.py:320-336): kernels whose
+    path holds 'loc' or 'up' and not 'context'."""
+    if leaf_name != "kernel":
+        return False
+    joined = "/".join(path)
+    if any(t in joined for t in EXCLUDED_TOKENS):
+        return False
+    return any(t in joined for t in MASKED_TOKENS)
+
+
+def masked_params(model: nn.Module) -> Dict[str, torch.nn.Parameter]:
+    """{port name: parameter} of every kernel that carries a mask."""
+    out = {}
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        if is_masked_path(tuple(path), leaf):
+            out[name] = p
+    return out
+
+
+def mask_shape(param: torch.Tensor) -> Tuple[int, int]:
+    """(in, out) of a conv (CO, C, kh, kw) or transp-conv (Cin, Cout, ...)
+    kernel."""
+    if param.dim() == 4:
+        return int(param.shape[1]), int(param.shape[0])
+    if param.dim() == 5:
+        return int(param.shape[0]), int(param.shape[1])
+    raise ValueError(f"no mask layout for a kernel of rank {param.dim()}")
+
+
+def _broadcast(mask: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    if param.dim() == 4:
+        return mask.t()[:, :, None, None]
+    return mask[:, :, None, None, None]
+
+
+def apply_masks(model: nn.Module, masks: Dict[str, np.ndarray]) -> None:
+    """w *= mask on every masked kernel, in place (reference apply_masks:
+    the reference's inference semantics). Each mask must have its
+    kernel's (in, out) shape."""
+    params = masked_params(model)
+    with torch.no_grad():
+        for name, m in masks.items():
+            p = params[name]
+            if tuple(np.shape(m)) != mask_shape(p):
+                raise ValueError(f"{name}: mask {tuple(np.shape(m))} for a "
+                                 f"kernel of (in, out) {mask_shape(p)}")
+            mt = torch.tensor(np.asarray(m, np.float32), device=p.device)
+            p.mul_(_broadcast(mt, p).to(p.dtype))
+
+
+def load_mask_artifact(path, model: nn.Module) -> Dict[str, np.ndarray]:
+    """The masks of a masks-only .npz keyed by '|'-joined flax paths, as
+    {port name: (in, out) float32}. Refuses a missing or an extra key and a
+    mask whose shape is not its kernel's (in, out)."""
+    params = masked_params(model)
+    with np.load(path) as z:
+        masks = {k.replace("|", "."): np.asarray(z[k], np.float32)
+                 for k in z.files}
+    missing = sorted(set(params) - set(masks))
+    extra = sorted(set(masks) - set(params))
+    if missing or extra:
+        raise ValueError(f"mask artifact does not fit the model: missing "
+                         f"{missing[:4]}, extra {extra[:4]}")
+    for name, m in masks.items():
+        if m.shape != mask_shape(params[name]):
+            raise ValueError(f"{name}: mask {m.shape} for a kernel of "
+                             f"(in, out) {mask_shape(params[name])}")
+    return masks
+
+
+def masks_density(masks: Dict[str, np.ndarray], model: nn.Module) -> float:
+    """Element density over the masked kernels (reference masks_density):
+    each (in, out) entry counts its kernel's spatial taps."""
+    params = masked_params(model)
+    nz = tot = 0.0
+    for name, m in masks.items():
+        taps = int(np.prod(params[name].shape[2:]))
+        nz += float(np.sum(m)) * taps
+        tot += np.size(m) * taps
+    return nz / tot
+
+
+BENCH_MASKS = (Path(__file__).resolve().parents[2] / "experiments" / "logs"
+               / "bench_masks_trained.npz")
+
+
+def attach_masks(model: nn.Module, path=BENCH_MASKS):
+    """The bench's sparse serving configuration on `model` (weights already
+    loaded): the artifact's masks baked into the weights (w * mask) and the
+    row-sparse plan built from them and attached. Returns (masks, plan)."""
+    from .sparse_plan import build_sparse_plan
+    masks = load_mask_artifact(path, model)
+    apply_masks(model, masks)
+    plan = build_sparse_plan(masks)
+    if plan is None:
+        raise ValueError(f"{path}: the masks are not row-structured")
+    model.set_sparse_plan(plan)
+    return masks, plan

@@ -22,10 +22,24 @@ the reference's quadrant path does (models/unetpp.py, quadrant=True):
 With 5 pools and do_ds=False one forward makes 14 fused-block calls
 (context0 2, context1 1, the five level-0 nest nodes and the final of
 x(0, 5) 6, the four level-1 nest nodes and the final of x(1, 4) 5), one
-strided transition, 5 up-links, 4 down-links and one seg head
-(kernel_launches_per_forward). Everything else is plain torch. The kernel
+strided transition, 5 up-links, 4 down-links and one seg head. In bfloat16
+(the lazy route, lazy_up_route()) every level-0 nest node reads its up-link
+lazily, as the reference routes it (models/unetpp.py:382-405): its first
+block is the lazy up-link op (ops/qfused), which computes the up-link on
+load, so the forward makes 5 lazy calls, 9 fused-block calls and no
+up-link call. lazy_up=False keeps the materialised route (up-link op, then
+the fused block), which the reference takes only where it refuses the lazy
+one. The choice is made up front from the dtype and the pool. Counts:
+kernel_launches_per_forward. Everything else is plain torch. The kernel
 sites go through the names of ops/blocks.py, so ops.blocks.plain_ops()
 swaps in the plain versions.
+
+set_sparse_plan(plan) wires the DSFF row-sparse plan (models/sparse_plan,
+the reference's `sparse_plan` field and unetpp.py:434-575): nest convs
+contract only their alive rows, up-links emit only the columns their
+consumer reads, and every nest node emits only the union of what its
+consumers read. The masks must be baked into the weights first
+(models/masks.apply_masks); the plan is then exact up to summation order.
 
 forward(x, do_ds, flips) with flips (fd, fh, fw) computes the mirrored
 model, flip_c(net(flip_c(x))), with the same parameters (the reference's
@@ -47,6 +61,8 @@ from ..ops import blocks
 from ..ops.blocks import SegHead, StackedConvBlocks, TranspConv, max_pool
 from ..ops.fused_block import (NO_FLIPS, Flips, apply_norm_lrelu,
                                norm_affine_from_stats, pooled_part)
+from ..ops.qfused import LAZY_STRIDE
+from .sparse_plan import Plan
 
 MAX_NUM_FILTERS_3D = 320
 # deepest level whose stride-1 stacks run the fused block: the reference's
@@ -75,7 +91,9 @@ class ShiftUNetPlusPlus(nn.Module):
     (N, D, H, W, K), or the list of deep-supervision logits (finest first)
     when do_ds. head_probs_dtype (the reference's): with do_ds=False the
     level-0 head returns its class softmax in that dtype instead of
-    logits."""
+    logits. lazy_up: level-0 nest nodes read their up-link lazily where the
+    lazy route applies (lazy_up_route); False keeps the materialised
+    route."""
 
     def __init__(self, input_channels: int, num_classes: int,
                  pool_op_kernel_sizes: Sequence[Tuple[int, int, int]],
@@ -84,7 +102,7 @@ class ShiftUNetPlusPlus(nn.Module):
                  num_conv_per_stage: int = 2,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  head_probs_dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 lazy_up: bool = True, device=None):
         super().__init__()
         if device is None:
             raise ValueError("pass the device explicitly")
@@ -94,6 +112,7 @@ class ShiftUNetPlusPlus(nn.Module):
         self.num_conv_per_stage = num_conv_per_stage
         self.compute_dtype = compute_dtype
         self.head_probs_dtype = head_probs_dtype
+        self.lazy_up = lazy_up
         enc = self.enc = encoder_channels(base_num_features, P,
                                           max_num_features)
         kw = dict(compute_dtype=compute_dtype, device=device)
@@ -128,6 +147,41 @@ class ShiftUNetPlusPlus(nn.Module):
 
     def num_ds_outputs(self) -> int:
         return min(4, self.num_pool)
+
+    def lazy_up_route(self) -> bool:
+        """Whether the level-0 nest nodes read their up-link lazily: the
+        lazy kernel computes bfloat16 stride-(2, 2, 2) up-links from a
+        pending level 1."""
+        return (self.lazy_up and self.compute_dtype == torch.bfloat16
+                and self.num_pool > 1 and self.pools[0] == LAZY_STRIDE)
+
+    def set_sparse_plan(self, plan: Optional[Plan]) -> None:
+        """Wire the row-sparse plan (None: dense) into every nest stack and
+        up-link, and derive the gathered weights. Bake the masks into the
+        weights first; later weight changes re-derive them."""
+        P, enc = self.num_pool, self.enc
+        lookup = dict(plan or ())
+        emits = {}
+        for j in range(1, P + 1):
+            for i in range(P - j, -1, -1):
+                emits[(i, j)] = _emit_union(lookup, enc, P, i, j,
+                                            self.num_ds_outputs())
+        for j in range(1, P + 1):
+            for i in range(P - j, -1, -1):
+                z, k = P - i - j, j - 1
+                parts = (enc[i], enc[i]) + ((enc[i - 1],) if i > 0 else ())
+                stack_kw, up_kw, fin, out_union = _node_sparse(
+                    lookup, emits, enc, P, self.num_conv_per_stage, z, k, i,
+                    parts)
+                getattr(self, f"up{z}_{k}").set_sparse(**up_kw)
+                getattr(self, f"loc{z}_{k}").set_sparse(**stack_kw)
+                if z == 0:
+                    fin_kw = {} if fin is None else dict(
+                        sparse_in=(fin,), sparse_in_full=(enc[i],),
+                        sparse_compact=(True,))
+                    if out_union is not None:
+                        fin_kw["sparse_out"] = out_union
+                    getattr(self, f"loc{z}_{k}_final").set_sparse(**fin_kw)
 
     def reset_parameters(self, seed: int) -> None:
         """He-normal kernels, zero biases, unit norm scales, drawn in module
@@ -177,6 +231,7 @@ class ShiftUNetPlusPlus(nn.Module):
             return Pending(*stack.forward_fused(parts, affines, flips))
 
         # ---- encoder
+        lazy = self.lazy_up_route()
         nodes: Dict[Tuple[int, int], object] = {}
         h = x
         for d in range(P):
@@ -201,7 +256,8 @@ class ShiftUNetPlusPlus(nn.Module):
                 up_mod = getattr(self, f"up{z}_{k}")
                 if isinstance(below, Pending):
                     up = up_mod.forward_pending(
-                        below.raw, *affine_of(below, i + 1), flips)
+                        below.raw, *affine_of(below, i + 1), flips,
+                        lazy=lazy and i == 0)
                 else:
                     up = up_mod(below, flips)
                 # pooled down-link: maxpool(lrelu(norm(x(i-1, j-1))))
@@ -244,11 +300,18 @@ class ShiftUNetPlusPlus(nn.Module):
         return [head(i) for i in range(self.num_ds_outputs())]
 
 
+def _lazy_calls(model: ShiftUNetPlusPlus) -> int:
+    """Lazy up-link calls per forward: one per level-0 nest node on the
+    lazy route."""
+    return model.num_pool if model.lazy_up_route() else 0
+
+
 def fused_launches_per_forward(model: ShiftUNetPlusPlus) -> int:
     """Fused block calls in one forward: the stride-1 blocks of the
     encoder stacks at fused levels (context1's first block is the strided
     transition), every nest stack at a fused level and the finals of the
-    fused diagonal nodes."""
+    fused diagonal nodes, less the level-0 nest stacks' first blocks on the
+    lazy route."""
     P = model.num_pool
     n = sum(model.num_conv_per_stage - (1 if d > 0 else 0)
             for d in range(min(P, FUSED_MAX_LEVEL + 1)))
@@ -257,22 +320,139 @@ def fused_launches_per_forward(model: ShiftUNetPlusPlus) -> int:
             if i <= FUSED_MAX_LEVEL:
                 n += model.num_conv_per_stage - 1 + (1 if P - i - j == 0
                                                      else 0)
-    return n
+    return n - _lazy_calls(model)
 
 
 def kernel_launches_per_forward(model: ShiftUNetPlusPlus,
                                 do_ds: bool = False) -> Dict[str, int]:
     """Calls per forward of each kernel site (ops/blocks.KERNEL_OPS): the
-    fused block, the strided transition (context1), the up-links into
-    level 0 (one per level-0 nest node), the level-0 -> 1 down-links (one
-    per level-1 nest node) and the seg heads of pending nodes."""
+    fused block, the lazy up-link block (level-0 nest nodes on the lazy
+    route), the strided transition (context1), the materialised up-links
+    into level 0 (the other route), the level-0 -> 1 down-links (one per
+    level-1 nest node) and the seg heads of pending nodes. The sparse plan
+    changes no count."""
     P = model.num_pool
     fused_levels = min(P, FUSED_MAX_LEVEL + 1)
     n_heads = model.num_ds_outputs() if do_ds else 1
+    lazy = _lazy_calls(model)
     return {
         "fused_shift_conv_block": fused_launches_per_forward(model),
+        "lazy_up_fused_block": lazy,
         "strided_fused": 1 if fused_levels > 1 else 0,
-        "uplink": P if fused_levels > 1 else 0,
+        "uplink": P - lazy if fused_levels > 1 else 0,
         "downlink": P - 1 if fused_levels > 1 else 0,
         "seghead": min(n_heads, fused_levels),
     }
+
+
+# --------------------------------------------------------------------------
+# the sparse plan's wiring: reference models/unetpp.py:437-575, as it is
+
+def pad8(alive, full: int) -> Tuple[int, ...]:
+    """An alive set padded with dead channels (zero weights: exact) to a
+    multiple of 8, at least 8, at most `full`."""
+    alive = sorted(int(c) for c in alive)
+    want = min(max(-(-len(alive) // 8) * 8, 8), full)
+    have = set(alive)
+    dead = (c for c in range(full) if c not in have)
+    while len(alive) < want:
+        alive.append(next(dead))
+    return tuple(sorted(alive))
+
+
+def _emit_union(plan, enc, P, i, j, n_heads):
+    """The union (pad8) of the channels x(i, j)'s consumers read, or None
+    when it emits dense (an unmasked consumer, a seg head reads it, or
+    everything is alive)."""
+    if not plan or j == 0:
+        return None
+    if j == P - i and i < n_heads:
+        return None                     # a seg head reads every channel
+    needs = set()
+    if j + 1 <= P - i:                  # the same-level consumer
+        a = plan.get(f"loc{P - i - (j + 1)}_{j}/block0")
+        if a is None:
+            return None
+        needs.update(c for c in a if c < enc[i])
+    if i > 0 and j + 1 <= P - (i - 1):  # the up-link consumer
+        a = plan.get(f"up{P - (i - 1) - (j + 1)}_{j}")
+        if a is None:
+            return None
+        needs.update(a)
+    if j + 1 <= P - (i + 1):            # the down-link consumer
+        a = plan.get(f"loc{P - (i + 1) - (j + 1)}_{j}/block0")
+        if a is None:
+            return None
+        off2 = 2 * enc[i + 1]
+        needs.update(c - off2 for c in a if c >= off2)
+    u = pad8(needs or {0}, enc[i])
+    return None if len(u) >= enc[i] else u
+
+
+def _node_sparse(plan, emits, enc, P, num_conv_per_stage, z, k, i,
+                 part_channels):
+    """(loc stack kwargs, up-link kwargs, final stack's alive rows or None,
+    this node's emit union or None) of nest node x(i, k + 1)."""
+    j = k + 1
+    alive = plan.get(f"loc{z}_{k}/block0")
+    out_union = emits.get((i, j))
+    same_u = emits.get((i, j - 1))
+    below_u = emits.get((i + 1, j - 1))
+    above_u = emits.get((i - 1, j - 1))
+    up_kw = {}
+    if below_u is not None:
+        # below emitted compact: contract its whole union (rows outside the
+        # up mask have zero kernel rows), gather kernel rows only
+        up_kw.update(sparse_in=below_u, sparse_in_compact=True,
+                     sparse_in_full=enc[i + 1])
+    elif plan.get(f"up{z}_{k}") is not None:
+        up_kw["sparse_in"] = pad8(plan[f"up{z}_{k}"], enc[i + 1])
+    fin0 = plan.get(f"loc{z}_{k}_final/block0")
+    fin = pad8(fin0, enc[i]) if fin0 is not None else None
+    if alive is None:
+        assert same_u is None and above_u is None, \
+            "pruned producer feeding an unmasked consumer"
+        stack_kw = {} if fin is None else dict(sparse_out=fin)
+        return stack_kw, up_kw, fin, out_union
+    off = [sum(part_channels[:p]) for p in range(len(part_channels) + 1)]
+    producer_u = (same_u, None, above_u)
+    per_part, compact = [], []
+    for p in range(len(part_channels)):
+        own = tuple(int(c - off[p]) for c in alive
+                    if off[p] <= c < off[p + 1])
+        if p == 1:
+            # the up part: emitted compact by the up-link's column prune
+            ua = pad8(own, part_channels[p])
+            if len(ua) < part_channels[p]:
+                up_kw["sparse_out"] = ua
+            per_part.append(ua)
+            compact.append(len(ua) < part_channels[p])
+        elif producer_u[p] is not None:
+            # the producer emitted its consumers' union: take it as it is
+            assert set(own) <= set(producer_u[p])
+            per_part.append(producer_u[p])
+            compact.append(True)
+        elif i <= FUSED_MAX_LEVEL:
+            # a dense producer feeding a fused level: keep the full part and
+            # contract its dead rows (zero kernel rows) instead of gathering
+            # the activations (reference unetpp.py:543-556)
+            per_part.append(tuple(range(part_channels[p])))
+            compact.append(False)
+        else:
+            per_part.append(pad8(own, part_channels[p]))
+            compact.append(False)
+    stack_kw = dict(sparse_in=tuple(per_part),
+                    sparse_in_full=tuple(part_channels),
+                    sparse_compact=tuple(compact))
+    chain = tuple(
+        (pad8(plan[f"loc{z}_{k}/block{b}"], enc[i])
+         if plan.get(f"loc{z}_{k}/block{b}") is not None else None)
+        for b in range(num_conv_per_stage - 1))
+    if any(c is not None for c in chain[1:]):
+        stack_kw["sparse_chain"] = chain
+    if fin is not None:
+        stack_kw["sparse_out"] = fin
+    elif out_union is not None:
+        # no final stack follows: the stack emits the consumers' union
+        stack_kw["sparse_out"] = out_union
+    return stack_kw, up_kw, fin, out_union

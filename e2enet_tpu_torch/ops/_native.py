@@ -3,12 +3,13 @@
 Every csrc/*.cu is compiled with nvcc into its own shared library with a
 plain C interface, into `build/` at the root of the checkout, at first use:
 all sources at once, one nvcc process each, started together. A library's
-name carries a hash of every source and the flags, so an edited source
-rebuilds them all. Each is loaded with ctypes; the compiler's report
-(`-Xptxas -v`: registers, shared memory, spills) is kept beside it as
-`<library>.log`. Nothing here runs at import time: this module is imported
-on machines without nvcc or a card. Every launcher raises on a non-zero
-return (a refused launch); there is no fallback.
+name carries a hash of every source, the shared headers (csrc/*.cuh) and
+the flags, so an edited source rebuilds them all. Each is loaded with
+ctypes; the compiler's report (`-Xptxas -v`: registers, shared memory,
+spills) is kept beside it as `<library>.log`. Nothing here runs at import
+time: this module is imported on machines without nvcc or a card. Every
+launcher raises on a non-zero return (a refused launch); there is no
+fallback.
 """
 import ctypes
 import functools
@@ -34,6 +35,12 @@ SIGNATURES = {
         "fused_block_launch": [ctypes.POINTER(vp)] * 3 + [PI, PI, i32, PI,
                                                           i32] + [vp] * 4
         + [i32] * 5 + [vp]},
+    "qfused": {
+        # the fused block's arguments, then up_raw, up_mult, up_off, up_w,
+        # cin, stream
+        "qfused_lazy_launch": [ctypes.POINTER(vp)] * 3 + [PI, PI, i32, PI,
+                                                          i32] + [vp] * 4
+        + [i32] * 5 + [vp] * 4 + [i32, vp]},
     "qstride": {
         # x, mult, off, groups, ngroups, w9, b, y, stats, N, D, H, W, C, CO,
         # Do, Ho, Wo, sd, sh, sw, parity, origin_h, origin_w, stream
@@ -65,9 +72,9 @@ def sources() -> Dict[str, Path]:
 
 
 def library_path(name: str) -> Path:
-    """build/lib<name>_<hash of all sources and the flags>.so"""
+    """build/lib<name>_<hash of all sources, headers and the flags>.so"""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources().values():
+    for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode() + p.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -136,31 +143,58 @@ def _groups_arr(groups):
     return (ctypes.c_int * len(flat))(*flat), len(groups)
 
 
+def _block_args(parts, affines, groups, w9, b, y, stats, up_channels=None):
+    """The fused block's C arguments up to the stream; with up_channels, a
+    last part of that many channels and null pointers (the lazy up-link)."""
+    if w9.data_ptr() % 16 or not w9.is_contiguous():
+        raise ValueError("weights must be contiguous and 16-byte aligned")
+    ptrs = [p.data_ptr() for p in parts]
+    mults = [None if a is None else a[0].data_ptr() for a in affines]
+    offs = [None if a is None else a[1].data_ptr() for a in affines]
+    chans = [int(p.shape[-1]) for p in parts]
+    # the widest copy every pixel row of a part is aligned for
+    vecs = [_row_alignment(p) for p in parts]
+    if up_channels is not None:
+        ptrs, mults, offs = ptrs + [None], mults + [None], offs + [None]
+        chans, vecs = chans + [int(up_channels)], vecs + [2]
+    P = len(ptrs)
+    arr = ctypes.c_void_p * P
+    gr, ng = _groups_arr(groups)
+    N, D, H, W, CO = (int(s) for s in y.shape)
+    return (arr(*ptrs), arr(*mults), arr(*offs), (ctypes.c_int * P)(*chans),
+            (ctypes.c_int * P)(*vecs), P, gr, ng, w9.data_ptr(), b.data_ptr(),
+            y.data_ptr(), stats.data_ptr(), N, D, H, W, CO)
+
+
 def launch_fused_block(parts, affines, groups, w9, b, y, stats) -> None:
     """Launch csrc/fused_block.cu on the current stream. parts: contiguous
     bf16 (N, D, H, W, Ci); affines: per part None or contiguous float32
     (mult, off) of shape (N, Ci); groups: [(c0, c1, shift)]; w9 (9, CO, C)
     bf16; b (CO,) bf16; outputs y (N, D, H, W, CO) bf16 and stats (N, CO, 2)
     float32 (zeroed). Raises on a refused launch."""
-    if w9.data_ptr() % 16 or not w9.is_contiguous():
-        raise ValueError("weights must be contiguous and 16-byte aligned")
     fn = library("fused_block").fused_block_launch
-    P = len(parts)
-    arr = ctypes.c_void_p * P
-    xs = arr(*[p.data_ptr() for p in parts])
-    ms = arr(*[None if a is None else a[0].data_ptr() for a in affines])
-    os_ = arr(*[None if a is None else a[1].data_ptr() for a in affines])
-    pc = (ctypes.c_int * P)(*[int(p.shape[-1]) for p in parts])
-    # the widest copy every pixel row of a part is aligned for
-    vec = (ctypes.c_int * P)(*[_row_alignment(p) for p in parts])
-    gr, ng = _groups_arr(groups)
-    N, D, H, W, CO = (int(s) for s in y.shape)
+    args = _block_args(parts, affines, groups, w9, b, y, stats)
     with torch.cuda.device(y.device):
-        err = fn(xs, ms, os_, pc, vec, P, gr, ng, w9.data_ptr(),
-                 b.data_ptr(), y.data_ptr(), stats.data_ptr(), N, D, H, W,
-                 CO, _stream(y))
-    _check(err, f"fused_block (N={N} D={D} H={H} W={W} C={sum(pc)} "
-                f"CO={CO})")
+        err = fn(*args, _stream(y))
+    _check(err, f"fused_block (shape {tuple(y.shape)}, C={sum(args[3])})")
+
+
+def launch_lazy_up(parts, affines, groups, w9, b, raw, umult, uoff, wu, y,
+                   stats) -> None:
+    """Launch csrc/qfused.cu: the fused block of launch_fused_block on the
+    concat of `parts` and a last up-link part computed on load from raw, the
+    level-below pending raw (N, D/2, H/2, W/2, cin) contiguous bf16, with
+    umult/uoff float32 (N, cin) and wu (8, C_up, cin) bf16 (parity
+    bd*4 + bh*2 + bw, flips applied). Raises on a refused launch."""
+    fn = library("qfused").qfused_lazy_launch
+    args = _block_args(parts, affines, groups, w9, b, y, stats,
+                       up_channels=int(wu.shape[1]))
+    cin = int(raw.shape[-1])
+    with torch.cuda.device(y.device):
+        err = fn(*args, raw.data_ptr(), umult.data_ptr(), uoff.data_ptr(),
+                 wu.data_ptr(), cin, _stream(y))
+    _check(err, f"qfused lazy (shape {tuple(y.shape)}, C={sum(args[3])}, "
+                f"cin={cin})")
 
 
 def launch_strided(x, mult, off, groups, w9, b, y, stats, stride, parity,

@@ -19,8 +19,16 @@ windows re-anchored, negated shift groups. Norms, nonlinearities, max pools
 with window == stride and 1x1 heads are flip-equivariant as they are.
 
 The kernel sites of the model go through this module's names
-`fused_shift_conv_block`, `strided_fused`, `uplink`, `downlink` and
-`seghead`; `plain_ops()` swaps their plain torch versions in.
+`fused_shift_conv_block`, `lazy_up_fused_block`, `strided_fused`, `uplink`,
+`downlink` and `seghead`; `plain_ops()` swaps their plain torch versions in.
+
+DSFF row-sparse inference (models/sparse_plan.py): `set_sparse` gives a
+block, stack or transposed conv the static wiring of the reference's
+sparse fields (e2enet_tpu/ops/blocks.py: sparse_in, sparse_in_full,
+sparse_compact, sparse_out, sparse_chain, sparse_in_compact). Kernel rows
+are gathered over the full concat, output columns pruned, and the compact
+shift groups computed once there; the gathered weights are derived again
+only when a source parameter changes.
 """
 import contextlib
 import math
@@ -30,19 +38,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, NO_FLIPS, Flips,
-                          block_groups, fused_shift_conv_block,
+from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, NO_FLIPS, SHIFT_SIZE,
+                          Flips, block_groups, fused_shift_conv_block,
                           fused_shift_conv_block_ref, mirror_conv_kernel,
                           norm_affine_from_stats, slope_in)
+from .qfused import LazyUp, lazy_up_fused_block, lazy_up_fused_block_ref
 from .qlink import (downlink, downlink_ref, flip_transp_kernel, seghead,
                     seghead_ref, uplink, uplink_ref)
 from .qstride import strided_fused, strided_fused_ref
-from .shift import depth_shift_groups, restrict_groups
+from .shift import (compact_groups, depth_shift_groups, group_shifts,
+                    restrict_groups)
 
 # kernel site name -> (kernel wrapper, plain version)
 KERNEL_OPS = {
     "fused_shift_conv_block": (fused_shift_conv_block,
                                fused_shift_conv_block_ref),
+    "lazy_up_fused_block": (lazy_up_fused_block, lazy_up_fused_block_ref),
     "strided_fused": (strided_fused, strided_fused_ref),
     "uplink": (uplink, uplink_ref),
     "downlink": (downlink, downlink_ref),
@@ -159,6 +170,38 @@ def _he_normal_(t: torch.Tensor, fan_in: int,
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
 
+class _Derived:
+    """Tensors derived from parameters (gathered, pruned, cast), derived
+    again only when a source parameter changes (its version counter;
+    parameters made under inference_mode have none and are derived once)."""
+
+    def __init__(self, fn, params):
+        self.fn, self.params = fn, list(params)
+        self.key, self.value = None, None
+
+    def get(self):
+        key = tuple(-1 if p.is_inference() else p._version
+                    for p in self.params)
+        if self.value is None or key != self.key:
+            with torch.no_grad():
+                self.value = self.fn()
+            self.key = key
+        return self.value
+
+
+def _index(channels, device) -> Optional[torch.Tensor]:
+    return None if channels is None else torch.tensor(
+        [int(c) for c in channels], dtype=torch.long, device=device)
+
+
+def _gather_index(alive, full: int, compact: bool, device):
+    """The gather of a part's alive channels, or None when the part tensor
+    is taken as it is (already compact, or every channel in order)."""
+    if compact or tuple(alive) == tuple(range(full)):
+        return None
+    return _index(alive, device)
+
+
 class ShiftConvBlock(nn.Module):
     """shift -> conv(1,3,3) -> instance norm -> leaky relu (reference
     ShiftConvBlock, (1,3,3) list-of-parts branch).
@@ -169,8 +212,9 @@ class ShiftConvBlock(nn.Module):
     of the whole concat.
 
     forward_fused(parts, affines, flips): runs the fused block op (stride
-    1) or the strided transition (one part with a pending affine) and
-    returns (raw, stats, norm_scale, norm_bias) with the norm pending.
+    1; the lazy up-link op when the last part is a LazyUp) or the strided
+    transition (one part with a pending affine) and returns (raw, stats,
+    norm_scale, norm_bias) with the norm pending.
     """
 
     def __init__(self, in_channels: int, features: int,
@@ -188,6 +232,7 @@ class ShiftConvBlock(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, **f32))
         self.norm_scale = nn.Parameter(torch.ones(features, **f32))
         self.norm_bias = nn.Parameter(torch.zeros(features, **f32))
+        self.set_sparse()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _he_normal_(self.kernel, 9 * self.in_channels, generator)
@@ -196,39 +241,109 @@ class ShiftConvBlock(nn.Module):
             self.norm_scale.fill_(1.0)
             self.norm_bias.zero_()
 
+    def set_sparse(self, sparse_in=None, sparse_in_full=None,
+                   sparse_compact=None, sparse_out=None) -> None:
+        """The static sparse wiring (None everywhere: dense). sparse_in: per
+        input part, its alive channels within the part's full range
+        (sparse_in_full); sparse_compact: the part tensor already holds
+        exactly those channels; sparse_out: emit only these output
+        channels. The kernel rows of the full concat are gathered to the
+        alive channels, whose shifts follow their original positions."""
+        dev = self.kernel.device
+        rows, self._groups, self._gathers = None, None, None
+        if sparse_in is not None:
+            full = tuple(int(f) for f in sparse_in_full)
+            compact = tuple(sparse_compact or (False,) * len(full))
+            off = [sum(full[:p]) for p in range(len(full))]
+            galive = [off[p] + int(c) for p, a in enumerate(sparse_in)
+                      for c in a]
+            rows = _index(galive, dev)
+            self._groups = compact_groups(group_shifts(sum(full), SHIFT_SIZE),
+                                          galive)
+            self._gathers = [_gather_index(a, f, c, dev) for a, f, c
+                             in zip(sparse_in, full, compact)]
+        cols = _index(sparse_out, dev)
+        self._derived = None
+        if rows is not None or cols is not None:
+            def derive():
+                k, b = self.kernel, self.bias
+                sc, nb = self.norm_scale, self.norm_bias
+                if rows is not None:
+                    k = k.index_select(1, rows)
+                if cols is not None:
+                    k, b, sc, nb = (t.index_select(0, cols)
+                                    for t in (k, b, sc, nb))
+                return k.to(self.compute_dtype).contiguous(), b, sc, nb
+            self._derived = _Derived(derive, (self.kernel, self.bias,
+                                              self.norm_scale,
+                                              self.norm_bias))
+
+    def weights(self):
+        """(kernel, bias, norm_scale, norm_bias) with the sparse wiring's
+        rows gathered and outputs pruned (the kernel then already in the
+        compute dtype), else the parameters."""
+        if self._derived is None:
+            return self.kernel, self.bias, self.norm_scale, self.norm_bias
+        return self._derived.get()
+
+    def _gather_parts(self, parts, affines=None):
+        """Each part (and its pending affine) gathered to its alive
+        channels, unless compact already."""
+        affines = affines or [None] * len(parts)
+        if self._gathers is None:
+            return list(parts), affines
+        out, affs = [], []
+        for x, a, idx in zip(parts, affines, self._gathers):
+            if idx is not None:
+                x = x.index_select(-1, idx)
+                if a is not None:
+                    a = tuple(t.index_select(-1, idx) for t in a)
+            out.append(x)
+            affs.append(a)
+        return out, affs
+
     def forward(self, x, flips: Flips = NO_FLIPS) -> torch.Tensor:
         parts = list(x) if isinstance(x, (list, tuple)) else [x]
+        kernel, bias, scale, nbias = self.weights()
+        parts, _ = self._gather_parts(parts)
         cin = sum(int(p.shape[-1]) for p in parts)
-        assert cin == self.in_channels, (cin, self.in_channels)
+        assert cin == kernel.shape[1], (cin, tuple(kernel.shape))
         # a mirrored depth negates the shifts; conv3d_as_2d re-anchors the
         # depth stride
-        groups = block_groups(cin, flips)
+        groups = block_groups(cin, flips, self._groups)
         y = None
         off = 0
         for part in parts:
             pc = int(part.shape[-1])
             part = depth_shift_groups(part,
                                       restrict_groups(groups, off, off + pc))
-            contrib = conv3d_as_2d(part, self.kernel[:, off:off + pc],
-                                   self.bias if y is None else None,
+            contrib = conv3d_as_2d(part, kernel[:, off:off + pc],
+                                   bias if y is None else None,
                                    self.stride, self.compute_dtype, flips)
             y = contrib if y is None else y + contrib
             off += pc
-        return leaky_relu(instance_norm(y, self.norm_scale, self.norm_bias))
+        return leaky_relu(instance_norm(y, scale, nbias))
 
-    def forward_fused(self, parts: Sequence[torch.Tensor], affines,
+    def forward_fused(self, parts: Sequence, affines,
                       flips: Flips = NO_FLIPS):
         cd = self.compute_dtype
+        kernel, bias, scale, nbias = self.weights()
         if self.stride == (1, 1, 1):
-            y, stats = fused_shift_conv_block(parts, self.kernel.to(cd),
-                                              self.bias.to(cd), affines,
-                                              flips)
+            parts, affines = self._gather_parts(parts, affines)
+            if isinstance(parts[-1], LazyUp):
+                y, stats = lazy_up_fused_block(
+                    parts[:-1], parts[-1], kernel.to(cd), bias.to(cd),
+                    affines[:-1], flips, self._groups)
+            else:
+                y, stats = fused_shift_conv_block(
+                    parts, kernel.to(cd), bias.to(cd), affines, flips,
+                    self._groups)
         else:
             (x,), ((mult, off),) = parts, affines
             # the strided transition adds its bias in float32
-            y, stats = strided_fused(x, mult, off, self.kernel.to(cd),
-                                     self.bias, self.stride, flips)
-        return y, stats, self.norm_scale, self.norm_bias
+            y, stats = strided_fused(x, mult, off, kernel.to(cd), bias,
+                                     self.stride, flips)
+        return y, stats, scale, nbias
 
 
 class StackedConvBlocks(nn.Module):
@@ -240,6 +355,7 @@ class StackedConvBlocks(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
         self.num_convs = num_convs
+        self.features = features
         for i in range(num_convs):
             self.add_module(f"block{i}", ShiftConvBlock(
                 in_channels if i == 0 else features, features,
@@ -248,6 +364,27 @@ class StackedConvBlocks(nn.Module):
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.num_convs)]
+
+    def set_sparse(self, sparse_in=None, sparse_in_full=None,
+                   sparse_compact=None, sparse_chain=None,
+                   sparse_out=None) -> None:
+        """Block0 takes sparse_in/sparse_in_full/sparse_compact; block i >= 1
+        contracts only sparse_chain[i] (not None), which block i-1 then
+        emits; sparse_out prunes the last block's outputs (reference
+        StackedConvBlocks._block_sparse)."""
+        chain = sparse_chain or (None,) * self.num_convs
+        for i, blk in enumerate(self.blocks()):
+            if i == 0:
+                sin, sfull, scomp = sparse_in, sparse_in_full, sparse_compact
+            elif chain[i] is not None:
+                sin, sfull, scomp = (tuple(chain[i]),), (self.features,), \
+                    (True,)
+            else:
+                sin = sfull = scomp = None
+            nxt = chain[i + 1] if i + 1 < self.num_convs else None
+            sout = (tuple(nxt) if nxt is not None
+                    else (sparse_out if i == self.num_convs - 1 else None))
+            blk.set_sparse(sin, sfull, scomp, sout)
 
     def forward(self, x, flips: Flips = NO_FLIPS):
         for blk in self.blocks():
@@ -282,23 +419,60 @@ class TranspConv(nn.Module):
         self.kernel = nn.Parameter(torch.empty(
             in_channels, features, *self.stride, dtype=torch.float32,
             device=device))
+        self.set_sparse()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         fan_in = math.prod(self.stride) * self.kernel.shape[0]
         _he_normal_(self.kernel, fan_in, generator)
 
+    def set_sparse(self, sparse_in=None, sparse_in_compact: bool = False,
+                   sparse_in_full: Optional[int] = None,
+                   sparse_out=None) -> None:
+        """The static sparse wiring: contract only the input channels
+        sparse_in (of the full input range; gathered from the input unless
+        sparse_in_compact, the input holding exactly those already) and
+        emit only the output channels sparse_out (reference TranspConv)."""
+        dev = self.kernel.device
+        rows, cols = _index(sparse_in, dev), _index(sparse_out, dev)
+        self._in_gather = None if sparse_in_compact else rows
+        self._derived = None
+        if rows is not None or cols is not None:
+            def derive():
+                k = self.kernel
+                if rows is not None:
+                    k = k.index_select(0, rows)
+                if cols is not None:
+                    k = k.index_select(1, cols)
+                return k.to(self.compute_dtype).contiguous()
+            self._derived = _Derived(derive, (self.kernel,))
+
+    def weight(self) -> torch.Tensor:
+        """The kernel in the compute dtype, gathered and pruned."""
+        if self._derived is None:
+            return self.kernel.to(self.compute_dtype)
+        return self._derived.get()
+
     def forward(self, x: torch.Tensor,
                 flips: Flips = NO_FLIPS) -> torch.Tensor:
-        return transp_conv_matmul(x, flip_transp_kernel(self.kernel, flips),
+        if self._in_gather is not None:
+            x = x.index_select(-1, self._in_gather)
+        return transp_conv_matmul(x, flip_transp_kernel(self.weight(), flips),
                                   self.stride, self.compute_dtype)
 
     def forward_pending(self, raw: torch.Tensor, mult: torch.Tensor,
-                        off: torch.Tensor,
-                        flips: Flips = NO_FLIPS) -> torch.Tensor:
+                        off: torch.Tensor, flips: Flips = NO_FLIPS,
+                        lazy: bool = False):
         """The up-link from a pending input: its norm on load, straight to
-        the finer level (the up-link op)."""
-        return uplink(raw, mult, off, self.kernel.to(self.compute_dtype),
-                      flips)
+        the finer level (the up-link op), or with `lazy` a LazyUp for the
+        consuming block to compute on load."""
+        if self._in_gather is not None:
+            g = self._in_gather
+            raw = raw.index_select(-1, g)
+            mult, off = mult.index_select(-1, g), off.index_select(-1, g)
+        if lazy:
+            return LazyUp(raw, mult, off,
+                          flip_transp_kernel(self.weight(), flips))
+        return uplink(raw, mult, off, self.weight(), flips)
 
 
 class SegHead(nn.Module):

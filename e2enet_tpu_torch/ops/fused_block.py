@@ -52,10 +52,17 @@ def mirror_conv_kernel(kernel: torch.Tensor, flips: Flips) -> torch.Tensor:
     return kernel.flip(dims) if dims else kernel
 
 
-def block_groups(C: int, flips: Flips):
+def block_groups(C: int, flips: Flips, groups_override=None):
     """Shift groups of a stride-1 block over C concat channels, mirrored
-    when the depth axis is."""
-    groups = group_shifts(C, SHIFT_SIZE)
+    when the depth axis is. groups_override: explicit groups over the
+    (compact) channel space instead (the sparse plan's gathered channels
+    keep the shifts of their original positions, shift.compact_groups)."""
+    if groups_override is None:
+        groups = group_shifts(C, SHIFT_SIZE)
+    else:
+        groups = tuple(groups_override)
+        if groups[0][0] != 0 or groups[-1][1] != C:
+            raise ValueError(f"groups {groups} do not cover {C} channels")
     return mirror_groups(groups) if flips[0] else tuple(groups)
 
 
@@ -67,7 +74,8 @@ def affine_nc(a: torch.Tensor, N: int, ci: int) -> torch.Tensor:
 def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
                                kernel: torch.Tensor, bias: torch.Tensor,
                                affines: Sequence[Affine],
-                               flips: Flips = NO_FLIPS):
+                               flips: Flips = NO_FLIPS,
+                               groups_override=None):
     """Plain torch version. kernel (CO, C, 3, 3), bias (CO,); returns
     (y (N, D, H, W, CO) in the parts' dtype, stats (N, CO, 2) float32)."""
     dtype = parts[0].dtype
@@ -83,7 +91,7 @@ def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
     x = torch.cat(normed, dim=-1)
     N, D, H, W, C = x.shape
     CO = kernel.shape[0]
-    s = depth_shift_groups(x, block_groups(C, flips))
+    s = depth_shift_groups(x, block_groups(C, flips, groups_override))
     # operands rounded to the compute dtype, products and sums in float32
     x2 = s.reshape(N * D, H, W, C).permute(0, 3, 1, 2).float()
     acc = F.conv2d(x2, mirror_conv_kernel(kernel.to(dtype), flips).float(),
@@ -98,14 +106,14 @@ def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
 def fused_shift_conv_block(parts: Sequence[torch.Tensor],
                            kernel: torch.Tensor, bias: torch.Tensor,
                            affines: Sequence[Affine],
-                           flips: Flips = NO_FLIPS):
+                           flips: Flips = NO_FLIPS, groups_override=None):
     """The fused block: plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (bfloat16 only; raises on what the kernel does not take).
     Same arguments and results as fused_shift_conv_block_ref."""
     dev = parts[0].device
     if dev.type == "cpu":
         return fused_shift_conv_block_ref(parts, kernel, bias, affines,
-                                          flips)
+                                          flips, groups_override)
     if dev.type != "cuda":
         raise ValueError(f"fused_shift_conv_block: unsupported device {dev}")
     tensors = list(parts) + [kernel, bias] + [t for a in affines
@@ -141,8 +149,9 @@ def fused_shift_conv_block(parts: Sequence[torch.Tensor],
            for a, ci in zip(affines, part_c)]
     y = torch.empty((N, D, H, W, CO), dtype=dtype, device=dev)
     stats = torch.zeros((N, CO, 2), dtype=torch.float32, device=dev)
-    _native.launch_fused_block(parts, aff, block_groups(C, flips), w9, b, y,
-                               stats)
+    _native.launch_fused_block(parts, aff,
+                               block_groups(C, flips, groups_override), w9,
+                               b, y, stats)
     fused_shift_conv_block.launches += 1
     return y, stats
 

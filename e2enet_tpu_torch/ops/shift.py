@@ -47,6 +47,25 @@ def restrict_groups(groups: Sequence[Tuple[int, int, int]], lo: int,
                  for (c0, c1, s) in groups if c0 < hi and c1 > lo)
 
 
+def compact_groups(groups: Sequence[Tuple[int, int, int]], alive
+                   ) -> Tuple[Tuple[int, int, int], ...]:
+    """Shift groups of a gathered channel set (reference
+    ops/shift.compact_groups): compact channel j is original channel
+    alive[j] and keeps the shift of the original group holding it;
+    consecutive compact channels of equal shift merge.
+    depth_shift_groups(x[..., alive], compact_groups(groups, alive)) ==
+    depth_shift_groups(x, groups)[..., alive]."""
+    shift_of = {c: s for c0, c1, s in groups for c in range(c0, c1)}
+    out = []
+    for j, c in enumerate(alive):
+        s = shift_of[int(c)]
+        if out and out[-1][2] == s and out[-1][1] == j:
+            out[-1] = (out[-1][0], j + 1, s)
+        else:
+            out.append((j, j + 1, s))
+    return tuple(out)
+
+
 def mirror_groups(groups: Sequence[Tuple[int, int, int]]
                   ) -> Tuple[Tuple[int, int, int], ...]:
     """Groups of the depth-mirrored shift: flip_d(shift(flip_d(x))) shifts

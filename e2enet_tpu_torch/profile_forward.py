@@ -1,27 +1,35 @@
 """Where the time of one tile goes: the 8 mirror passes of the fast mode
-(flip-free TTA, bf16 probs head) on one 128^3 patch at the bench width
-(48 base features, 5 x (2,2,2) pools, 16 classes, bf16, weights from
-seed 0), on one CUDA card.
+(flip-free TTA, bf16 probs head, lazy level-0 up-links) on one 128^3 patch
+at the bench width (48 base features, 5 x (2,2,2) pools, 16 classes, bf16,
+weights from seed 0), on one CUDA card.
 
-    python -m e2enet_tpu_torch.profile_forward [--tiles-timed 3]
+    python -m e2enet_tpu_torch.profile_forward [--sparse] [--materialised]
+                                               [--tiles-timed 3]
 
-Prints: host enqueue time and wall time per forward, device busy time per
-forward (the sum of the kernels' device times under torch.profiler) and
-the idle share, then device time per forward by kernel, the port's CUDA
-kernels first, the rest in groups by name. Needs a card; refuses without.
+--sparse profiles the bench's default configuration: the trained DSFF row
+masks baked in and the row-sparse plan attached (models/masks.attach_masks).
+--materialised takes the materialised up-link route (lazy_up=False).
+
+Prints: the torch ops one forward enqueues, host enqueue time and wall time
+per forward, device busy time per forward (the sum of the kernels' device
+times under torch.profiler) and the idle share, then device time per
+forward by kernel, the port's CUDA kernels first, the rest in groups by
+name. Needs a card; refuses without.
 """
 import argparse
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .inference.predictor import mirror_apply_fns_for
+from .models.masks import attach_masks
 from .models.unetpp import ShiftUNetPlusPlus
 
-PORT_KERNELS = ("fused_block_kernel", "qstride_kernel", "uplink_kernel",
-                "downlink_kernel", "seghead_kernel")
+PORT_KERNELS = ("fused_block_kernel", "qfused_lazy_kernel", "qstride_kernel",
+                "uplink_kernel", "downlink_kernel", "seghead_kernel")
 GROUPS = (("copy / layout", ("copy", "cat", "flip", "permute", "transpose")),
           ("reduction", ("reduce", "sum", "amax", "amin", "max", "norm")),
           ("conv / gemm", ("conv", "gemm", "cutlass", "sm90", "xmma", "cudnn",
@@ -41,18 +49,37 @@ def group_of(name: str) -> str:
     return "other"
 
 
+class OpCounter(TorchDispatchMode):
+    """Counts the torch (aten) ops dispatched inside the block."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func.overloadpacket)] += 1
+        return func(*args, **(kwargs or {}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tiles-timed", type=int, default=3,
                     help="tiles (8 forwards each) per measurement")
+    ap.add_argument("--sparse", action="store_true",
+                    help="trained row masks and the row-sparse plan")
+    ap.add_argument("--materialised", action="store_true",
+                    help="materialised level-0 up-links (lazy_up=False)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the profile runs on the card only")
     dev = torch.device("cuda")
     model = ShiftUNetPlusPlus(1, 16, ((2, 2, 2),) * 5, base_num_features=48,
                               compute_dtype=torch.bfloat16,
-                              head_probs_dtype=torch.bfloat16, device=dev)
+                              head_probs_dtype=torch.bfloat16,
+                              lazy_up=not args.materialised, device=dev)
     model.reset_parameters(seed=0)
+    if args.sparse:
+        attach_masks(model)
     fns = mirror_apply_fns_for(model)
     x = torch.from_numpy(np.random.RandomState(1).randn(
         1, 128, 128, 128, 1).astype(np.float32)).to(dev)
@@ -66,6 +93,8 @@ def main() -> None:
     with torch.inference_mode():
         tiles()                                     # warm-up, build
         torch.cuda.synchronize()
+        with OpCounter() as ops:
+            fns[0](x)
         t0 = time.perf_counter()
         tiles()
         t_enq = time.perf_counter() - t0
@@ -85,8 +114,13 @@ def main() -> None:
             per[ev.key][1] += ev.count / n_fwd
     busy = sum(v[0] for v in per.values())
     wall = 1e3 * t_wall / n_fwd
-    print(f"device {torch.cuda.get_device_name(0)}; {n_fwd} forwards "
-          f"({args.tiles_timed} tiles x {len(fns)} mirror passes)")
+    print(f"device {torch.cuda.get_device_name(0)}; "
+          f"{'sparse' if args.sparse else 'dense'}, "
+          f"{'materialised' if args.materialised else 'lazy'} up-links; "
+          f"{n_fwd} forwards ({args.tiles_timed} tiles x {len(fns)} mirror "
+          f"passes)")
+    print(f"torch ops per forward: {sum(ops.ops.values())} (top: "
+          f"{', '.join(f'{k} {n}' for k, n in ops.ops.most_common(6))})")
     print(f"per forward: host enqueue {1e3 * t_enq / n_fwd:.2f} ms, wall "
           f"{wall:.2f} ms, device busy {busy:.2f} ms (profiler), idle share "
           f"{max(0.0, 1 - busy / wall):.3f}")

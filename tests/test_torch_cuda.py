@@ -1,6 +1,7 @@
 """The CUDA kernels on the card, against their plain torch versions: the
-fused block (also mirrored), the strided transition, the up-link, the
-down-link and the seg head. Imports no jax (the machine with the card has none); run there
+fused block (also mirrored), the fused block with a lazy up-link part
+(ragged, compact groups, all mirrors), the strided transition, the
+up-link, the down-link and the seg head. Imports no jax (the machine with the card has none); run there
 with
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
@@ -303,3 +304,78 @@ def test_link_wrappers_launch_or_raise():
     w = torch.randn(4, 8, 2, 2, 2, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError):               # needs a backward
         qlink.uplink(x.bfloat16(), m, o, w)
+
+
+# (N, Dc, Hc, Wc, materialised part channels, pending affine per part, cin,
+# C_up, CO, compact groups or None); the level-0 volume is 2x the coarse one
+LAZY = {
+    "bench_width": (1, 2, 8, 32, (48,), (True,), 96, 48, 48, None),
+    # odd coarse depth, W = 26 (not a multiple of 16), 8-channel parts, CO 8
+    "ragged": (2, 3, 5, 13, (8,), (True,), 8, 8, 8, None),
+    "co24": (1, 3, 4, 7, (16,), (False,), 24, 16, 24, None),
+    # part boundary and up channels mid-unit: C = 5 + 11
+    "odd_parts": (1, 2, 3, 9, (5,), (True,), 7, 11, 12, None),
+    # compact groups of a sparse plan, starting mid-unit
+    "compact_groups": (1, 2, 4, 20, (24,), (True,), 24, 16, 40,
+                       ((0, 5, -2), (5, 19, -1), (19, 27, 0), (27, 33, 1),
+                        (33, 40, 2))),
+    "co96": (1, 2, 4, 16, (48, 8), (True, False), 24, 48, 96, None),
+}
+
+
+def _lazy_inputs(case, dev):
+    from e2enet_tpu_torch.ops import qfused
+    N, Dc, Hc, Wc, part_c, affine, cin, cout, CO, groups = LAZY[case]
+    rng = np.random.RandomState(cin + cout + CO)
+    D, H, W = 2 * Dc, 2 * Hc, 2 * Wc
+    parts = [_rand(rng, dev, N, D, H, W, c).bfloat16() for c in part_c]
+    affs = [(_rand(rng, dev, N, c, scale=0.3, shift=1.0),
+             _rand(rng, dev, N, c, scale=0.2)) if a else None
+            for c, a in zip(part_c, affine)]
+    up = qfused.LazyUp(_rand(rng, dev, N, Dc, Hc, Wc, cin).bfloat16(),
+                       _rand(rng, dev, N, cin, scale=0.3, shift=1.0),
+                       _rand(rng, dev, N, cin, scale=0.2),
+                       _rand(rng, dev, cin, cout, 2, 2, 2,
+                             scale=(1.0 / cin) ** 0.5))
+    C = sum(part_c) + cout
+    kernel = _rand(rng, dev, CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    return parts, up, kernel, _rand(rng, dev, CO, scale=0.1), affs, groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,flips",
+                         [(c, (False,) * 3) for c in sorted(LAZY)]
+                         + [("ragged", f) for f in FLIPS[1:]]
+                         + [("compact_groups", (True, True, True))])
+def test_lazy_block_matches_plain(case, flips):
+    from e2enet_tpu_torch.ops import qfused
+    dev = _card()
+    parts, up, kernel, bias, affs, groups = _lazy_inputs(case, dev)
+    before = qfused.lazy_up_fused_block.launches
+    with torch.no_grad():
+        y, s = qfused.lazy_up_fused_block(parts, up, kernel, bias, affs,
+                                          flips, groups)
+        y_p, s_p = qfused.lazy_up_fused_block_ref(parts, up, kernel, bias,
+                                                  affs, flips, groups)
+    torch.cuda.synchronize()
+    assert qfused.lazy_up_fused_block.launches == before + 1
+    assert y.shape == y_p.shape
+    assert _within_ulps(y, y_p)
+    torch.testing.assert_close(s, s_p, rtol=1e-3,
+                               atol=1e-3 * float(y_p.float().abs().sum()))
+
+
+@pytest.mark.cuda
+def test_lazy_wrapper_raises():
+    """float32 inputs and a second LazyUp part are refused, never run
+    through the plain version or the materialised route."""
+    from e2enet_tpu_torch.ops import qfused
+    dev = _card()
+    parts, up, kernel, bias, affs, _ = _lazy_inputs("ragged", dev)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            qfused.lazy_up_fused_block([p.float() for p in parts], up,
+                                       kernel, bias, affs)
+        with pytest.raises(TypeError):
+            qfused.lazy_up_fused_block(parts + [up], up, kernel, bias,
+                                       affs + [None])

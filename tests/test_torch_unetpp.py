@@ -133,14 +133,25 @@ def test_plain_path_equals_kernel_path_on_cpu(monkeypatch):
 
 def test_bench_geometry_launch_count():
     """5 pools, fused levels 0-1: 14 fused blocks, one strided transition,
-    5 up-links, 4 down-links and one seg head per forward."""
+    5 up-links, 4 down-links and one seg head per forward on the
+    materialised route (float32, or lazy_up=False); in bfloat16 the five
+    level-0 nest nodes take the lazy up-link block instead of an up-link and
+    a fused block."""
     net = tunetpp.ShiftUNetPlusPlus(
         1, 16, ((2, 2, 2),) * 5, base_num_features=2,
         compute_dtype=torch.float32, device="cpu")
     assert tunetpp.fused_launches_per_forward(net) == 14
     assert tunetpp.kernel_launches_per_forward(net) == {
-        "fused_shift_conv_block": 14, "strided_fused": 1, "uplink": 5,
-        "downlink": 4, "seghead": 1}
+        "fused_shift_conv_block": 14, "lazy_up_fused_block": 0,
+        "strided_fused": 1, "uplink": 5, "downlink": 4, "seghead": 1}
+    net16 = tunetpp.ShiftUNetPlusPlus(
+        1, 16, ((2, 2, 2),) * 5, base_num_features=2, device="cpu")
+    assert tunetpp.kernel_launches_per_forward(net16) == {
+        "fused_shift_conv_block": 9, "lazy_up_fused_block": 5,
+        "strided_fused": 1, "uplink": 0, "downlink": 4, "seghead": 1}
+    net16.lazy_up = False
+    assert tunetpp.kernel_launches_per_forward(net16) == \
+        tunetpp.kernel_launches_per_forward(net)
 
 
 def test_kernel_sites_counted_per_forward(monkeypatch):

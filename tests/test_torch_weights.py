@@ -89,7 +89,9 @@ def test_import_does_not_load_jax():
     code = ("import sys, e2enet_tpu_torch.models.unetpp, "
             "e2enet_tpu_torch.models.weights, e2enet_tpu_torch.ops.sliding, "
             "e2enet_tpu_torch.ops._native, e2enet_tpu_torch.ops.qstride, "
-            "e2enet_tpu_torch.ops.qlink, "
+            "e2enet_tpu_torch.ops.qlink, e2enet_tpu_torch.ops.qfused, "
+            "e2enet_tpu_torch.models.sparse_plan, "
+            "e2enet_tpu_torch.models.masks, "
             "e2enet_tpu_torch.inference.predictor; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'e2enet_tpu', 'triton')]; "
