@@ -37,7 +37,22 @@ Phases (any failure ends the run with a non-zero exit):
   6. data-flip the data-flip TTA path with the float32 logits head (the
               seg-head kernel's logits mode) and the materialised up-link
               route (the up-link kernel), one volume
-  7. report   one JSON line with every kernel's launches, error, times and
+  7. train    the backward kernels (the block backward, serving TPU kernels
+              #2 and #4, and the down-link backward #8) against their plain
+              versions at the train step's shapes (batch 2) and ragged ones,
+              with times, bounds and cuDNN's / max_pool3d's backward for
+              context; every forward kernel at its main-path shape with
+              batch 2; then the row-masked DSFF trainer of
+              training/train_bench_masks.py at the bench width (batch 2 of
+              128^3, 16 classes, density 0.2, seed 0): 8 steps on one
+              synthetic batch with a mask update after steps 4 and 8. Per
+              step: launches equal kernel_launches_per_train_step, a finite
+              loss, dead rows zero in the parameters and the momentum; the
+              row counts hold over each update; the loss falls; ms per step
+              (CUDA events) and the peak memory. On a 2 x 64^3 batch, one
+              step's gradients through the kernels, through the bf16 plain
+              path and through a float32 plain run
+  8. report   one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -79,6 +94,15 @@ LOGIT_RTOL = 1e-4
 # probabilities to the data-flip ones, both against a float32 data-flip run.
 ERR_RATIO = 1.25
 AGREE_SLACK = 0.005
+# backward kernels vs plain: gx as y (ct is rounded to bf16 after float32
+# sums in another order); gW, gb and g(affine) are float32 sums over up to
+# 4.2M pixels (2 x 128^3) in another order and with atomics: within 2e-3 of
+# the tensor's largest |value|
+BWD_RTOL = 2e-3
+# the train phase
+TRAIN_STEPS = 8
+TRAIN_UPDATE_EVERY = 4
+GRAD_PATCH = (64, 64, 64)
 PROB_SUM_ATOL = 1e-2
 FLIPS = [(fd, fh, fw) for fd in (False, True) for fh in (False, True)
          for fw in (False, True)]
@@ -444,6 +468,274 @@ def seghead_case(name, N, D, H, W, C, K, probs, rnd, reps):
     return res
 
 
+def close_max(a, b):
+    """max |a - b| over max |b|"""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def block_bwd_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
+    """The block backward kernel (#2 / #4) vs its plain version on random
+    bf16 inputs, y from the forward kernel."""
+    import torch
+    from e2enet_tpu_torch.ops import fused_block as fb
+    bf = torch.bfloat16
+    parts = [rnd(N, D, H, W, c).to(bf) for c in part_c]
+    affines = [rnd.affine(N, c) if a else None
+               for c, a in zip(part_c, affine)]
+    C = sum(part_c)
+    kernel = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    bias = rnd(CO, scale=0.1)
+    y, _ = fb.fused_shift_conv_block(parts, kernel, bias, affines)
+    gy = rnd(N, D, H, W, CO, scale=1e-3).to(bf)
+    gstats = rnd(N, CO, 2, scale=1e-4)
+    args = (parts, kernel, bias, affines, y, gy, gstats)
+    gp, gk, gb, ga = fb.fused_shift_conv_block_bwd(*args)
+    rp, rk, rb, ra = fb.fused_shift_conv_block_bwd_ref(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, r in zip(gp, rp):
+        ok, e = y_err(g, r, Y_ULPS)
+        check(ok, f"{name}: gx differs by more than {Y_ULPS} bf16 ulps")
+        err = max(err, e)
+    rel = max([close_max(gk, rk), close_max(gb, rb)]
+              + [close_max(g[i], r[i]) for g, r in zip(ga, ra)
+                 if g is not None for i in (0, 1)])
+    check(rel <= BWD_RTOL, f"{name}: gW/gb/g(affine) rel err {rel}")
+    if reps == 0:
+        return dict(max_abs_err=err, rel_err=rel)
+    # cuDNN's dgrad + wgrad of the bf16 conv on the already shifted,
+    # normalised operand, one call
+    x2 = torch.cat(parts, -1).reshape(N * D, H, W, C).permute(0, 3, 1, 2)
+    w2 = kernel.to(bf)
+    g2 = gy.reshape(N * D, H, W, CO).permute(0, 3, 1, 2)
+
+    def library():
+        return torch.ops.aten.convolution_backward(
+            g2, x2, w2, None, (1, 1), (1, 1), (1, 1), False, (0, 0), 1,
+            (True, True, False))
+    # read parts, y and gy, write gx, gW and gb; dgrad and wgrad GEMMs
+    b_ms, b_by = bound(2 * nbytes(*parts) + nbytes(y, gy)
+                       + 9 * C * CO * (2 + 4) + CO * 4,
+                       2 * 2.0 * N * D * H * W * 9 * C * CO, PEAK_BF16)
+    res = dict(max_abs_err=err, rel_err=rel,
+               ms=cuda_ms(lambda: fb.fused_shift_conv_block_bwd(*args), reps),
+               plain_ms=cuda_ms(lambda: fb.fused_shift_conv_block_bwd_ref(
+                   *args), max(1, reps // 4)),
+               library_ms=cuda_ms(library, reps),
+               bound_ms=b_ms, bound_by=b_by)
+    report(name, f"N={N} D={D} H={H} W={W} C={list(part_c)} "
+           f"affine={list(affine)} CO={CO}", res,
+           f" (gW/gb/g(affine) rel {rel:.2e})")
+    return res
+
+
+def downlink_bwd_case(name, N, D, H, W, C, rnd, reps, ties=False):
+    """The down-link backward kernel (#8) vs its plain version."""
+    import torch
+    import torch.nn.functional as F
+    from e2enet_tpu_torch.ops import qlink
+    x = rnd(N, D, H, W, C)
+    if ties:
+        x = torch.round(2 * x)
+    x = x.to(torch.bfloat16)
+    m, o = rnd(N, C), rnd(N, C, scale=0.2)
+    gy = rnd(N, D // 2, H // 2, W // 2, C).to(torch.bfloat16)
+    gx, gm, go = qlink.downlink_bwd(x, m, o, gy)
+    rx, rm, ro = qlink.downlink_bwd_ref(x, m, o, gy)
+    torch.cuda.synchronize()
+    err = float((gx.float() - rx.float()).abs().max())
+    check(err == 0.0, f"{name}: gx differs from the plain version by {err}")
+    rel = max(close_max(gm, rm), close_max(go, ro))
+    check(rel <= 1e-4, f"{name}: g(mult)/g(off) rel err {rel}")
+    if reps == 0:
+        return dict(max_abs_err=err, rel_err=rel)
+    x3 = x.permute(0, 4, 1, 2, 3)
+    y3, idx = F.max_pool3d(x3, 2, return_indices=True)
+    g3 = gy.permute(0, 4, 1, 2, 3)
+    # read x and gy, write gx; 8 compares and the routing per input value
+    b_ms, b_by = bound(2 * nbytes(x) + nbytes(gy, m, o),
+                       4.0 * x.numel(), PEAK_F32)
+    res = dict(max_abs_err=err, rel_err=rel,
+               ms=cuda_ms(lambda: qlink.downlink_bwd(x, m, o, gy), reps),
+               plain_ms=cuda_ms(lambda: qlink.downlink_bwd_ref(x, m, o, gy),
+                                max(1, reps // 4)),
+               library_ms=cuda_ms(
+                   lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                       g3, x3, [2, 2, 2], [2, 2, 2], [0, 0, 0], [1, 1, 1],
+                       False, idx), reps),
+               bound_ms=b_ms, bound_by=b_by)
+    report(name, f"N={N} D={D} H={H} W={W} C={C}", res)
+    return res
+
+
+def train_phase(rnd, R, ops, reset_counts, counts, smi):
+    """Phase 7: the backward kernels against their plain versions, the
+    forward kernels at batch 2, then the row-masked DSFF trainer at the
+    bench width. Returns {"launches": per kernel over the trainer's steps,
+    "kernels": result entries of the backward kernels}."""
+    import torch
+    from e2enet_tpu_torch.models.masks import broadcast_mask
+    from e2enet_tpu_torch.models.masks import masked_params, masks_density
+    from e2enet_tpu_torch.models.unetpp import (
+        ShiftUNetPlusPlus, kernel_launches_per_train_step)
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.ops.losses import deep_supervision_loss
+    from e2enet_tpu_torch.training import train_bench_masks as tbm
+    out = {}
+    print("[kernel] fused_shift_conv_block_bwd (#2 and #4) vs plain, bf16; "
+          "'library' is cuDNN's bf16 convolution_backward (dgrad + wgrad) "
+          "of the prepared operand", flush=True)
+    shapes = [
+        # the train step's shapes, batch 2: the level-0 lazy node (pending
+        # + materialised u), a level-0 block, the level-1 nest node and
+        # block
+        ("l0_48+u48_to48", 2, 128, 128, 128, [48, 48], [True, False], 48),
+        ("l0_48_to48", 2, 128, 128, 128, [48], [True], 48),
+        ("l1_96+96+48_to96", 2, 64, 64, 64, [96, 96, 48],
+         [True, False, False], 96),
+        ("l1_96_to96", 2, 64, 64, 64, [96], [True], 96),
+    ]
+    main_bwd = {c[0]: block_bwd_case(*c, rnd=rnd, reps=R) for c in shapes}
+    errs = [r["max_abs_err"] for r in main_bwd.values()]
+    for c in [("ragged_w13", 2, 5, 6, 13, [8, 5], [True, True], 7),
+              ("d2_c1", 2, 2, 8, 16, [1], [False], 48),
+              ("co112", 1, 3, 4, 32, [16, 24], [False, True], 112),
+              ("context0_c1", 2, 16, 32, 32, [1], [False], 48)]:
+        errs.append(block_bwd_case(*c, rnd=rnd, reps=0)["max_abs_err"])
+    first = main_bwd["l0_48+u48_to48"]
+    out["fused_shift_conv_block_bwd"] = dict(
+        first, max_abs_err=max(errs),
+        shapes={k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+                for k, v in main_bwd.items()})
+    print("[kernel] downlink_bwd (#8) vs plain; 'library' is max_pool3d's "
+          "backward", flush=True)
+    main8 = downlink_bwd_case("l0_to_l1_48", 2, 128, 128, 128, 48, rnd, R)
+    errs = [downlink_bwd_case(n, *a, rnd=rnd, reps=0, ties=t)["max_abs_err"]
+            for n, a, t in (("ties", (2, 8, 16, 32, 48), True),
+                            ("ragged_d7_w26_c8", (2, 7, 6, 26, 8), True))]
+    out["downlink_bwd"] = dict(main8, max_abs_err=max(
+        [main8["max_abs_err"]] + errs))
+
+    # every forward kernel at its main-path shape with batch 2 (the train
+    # step's per-sample statistics, affines and offsets)
+    with torch.inference_mode():
+        for c in [("l0_48+48_to48_n2", 2, 128, 128, 128, [48, 48],
+                   [True, False], 48),
+                  ("l1_96+96+48_to96_n2", 2, 64, 64, 64, [96, 96, 48],
+                   [True, False, False], 96)]:
+            fused_case(*c, rnd=rnd, reps=0)
+        lazy_case("l0_lazy_n2", 2, 64, 64, 64, [48], [True], 96, 48, 48,
+                  rnd, 0)
+        strided_case("l0_to_l1_n2", 2, 128, 128, 128, 48, 96, rnd, 0)
+        uplink_case("l1_to_l0_n2", 2, 64, 64, 64, 96, 48, rnd, 0)
+        downlink_case("l0_to_l1_n2", 2, 128, 128, 128, 48, rnd, 0)
+        seghead_case("l0_logits_n2", 2, 128, 128, 128, 48, 16, False, rnd, 0)
+        seghead_case("l1_logits_n2", 2, 64, 64, 64, 96, 16, False, rnd, 0)
+    print("[kernel] every forward kernel within tolerance at its main-path "
+          "shape with batch 2", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- the trainer
+    model, state, step_fn, mask_update, weights = tbm.build("cuda")
+    per_step = kernel_launches_per_train_step(model)
+    want = {k: per_step["forward"].get(k, 0) + per_step["backward"].get(k, 0)
+            for k in ops}
+    print(f"[train] ShiftUNet++ bench width, batch 2 x 128^3, row masks "
+          f"density {masks_density(state.masks, model):.4f}; kernel launches "
+          f"per step {per_step}", flush=True)
+    batch = tbm.device_batches(np.random.RandomState(3), 1, 2, PATCH,
+                               model.num_ds_outputs(), "cuda")
+    params = masked_params(model)
+    names = list(params)
+
+    def rows_alive(masks):
+        return {n: int(m[:, 0].sum()) for n, m in masks.items()}
+
+    log = dict(losses=[], ms=[], launches={k: 0 for k in ops}, updates=0)
+    alive_before = [rows_alive(state.masks)]
+
+    def on_step(i, st, metrics, ms, updated):
+        got = counts()
+        check(got == want, f"step {i + 1}: launches {got} != {want}")
+        for k, v in got.items():
+            log["launches"][k] += v
+        loss = float(metrics["loss"])
+        check(np.isfinite(loss) and np.isfinite(float(
+            metrics["grad_norm"])), f"step {i + 1}: loss {loss}")
+        for n in names:
+            dead = (st.masks[n] == 0).float()
+            for t in (st.params[n], st.momentum[n]):
+                check(bool((t.detach() * broadcast_mask(dead, t) == 0).all()),
+                      f"step {i + 1}: {n} has nonzero dead rows")
+        if updated:
+            log["updates"] += 1
+            now = rows_alive(st.masks)
+            check(now == alive_before[0], f"step {i + 1}: the update moved "
+                  f"the row counts")
+        log["losses"].append(loss)
+        log["ms"].append(ms)
+        print(f"[train] step {i + 1}: loss {loss:.5f} grad_norm "
+              f"{float(metrics['grad_norm']):.4f} {ms:.1f} ms"
+              f"{' + DSFF update' if updated else ''}", flush=True)
+        reset_counts()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tbm.train(model, state, step_fn, mask_update, batch, TRAIN_STEPS,
+              TRAIN_STEPS, TRAIN_UPDATE_EVERY, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, ms = log["losses"], log["ms"][1:]
+    check(log["updates"] >= 1, "no DSFF update in the run")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    print(f"[train] {TRAIN_STEPS} steps: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; {float(np.mean(ms)):.1f} ms per step (steps "
+          f"2..{TRAIN_STEPS}, min {min(ms):.1f}, max {max(ms):.1f}); peak "
+          f"memory allocated {peak:.2f} GiB; density "
+          f"{masks_density(state.masks, model):.4f} after "
+          f"{log['updates']} updates  [{smi}]", flush=True)
+    for k, n in want.items():
+        if n:
+            check(log["launches"][k] > 0, f"train: {k} never launched")
+
+    # ---- one step's gradients: kernel path, bf16 plain path, float32
+    # plain run, on a 2 x 64^3 batch (float32 autograd through the plain
+    # ops at 128^3 would not fit the card)
+    data, targets = tbm.device_batches(np.random.RandomState(5), 1, 2,
+                                       GRAD_PATCH, model.num_ds_outputs(),
+                                       "cuda")[0]
+
+    def grads(net):
+        loss = deep_supervision_loss(net(data, do_ds=True), targets, weights)
+        g = torch.autograd.grad(loss, list(net.parameters()),
+                                allow_unused=True)
+        return torch.cat([(torch.zeros_like(p) if x is None else x).float()
+                          .flatten() for x, p in zip(g, net.parameters())])
+    g_k = grads(model)
+    with blocks.plain_ops():
+        g_p = grads(model)
+        model32 = ShiftUNetPlusPlus(1, tbm.NUM_CLASSES, tbm.POOLS,
+                                    compute_dtype=torch.float32,
+                                    device="cuda")
+        model32.load_state_dict(model.state_dict())
+        g_32 = grads(model32)
+    del model32
+    e_k = float((g_k - g_32).norm() / g_32.norm())
+    e_p = float((g_p - g_32).norm() / g_32.norm())
+    print(f"[train] one step's gradients on 2 x 64^3, against a float32 "
+          f"plain run: kernel path rel L2 err {e_k:.4e}, bf16 plain path "
+          f"{e_p:.4e} (cos {float(torch.nn.functional.cosine_similarity(g_k, g_32, dim=0)):.6f} vs "
+          f"{float(torch.nn.functional.cosine_similarity(g_p, g_32, dim=0)):.6f})",
+          flush=True)
+    check(e_k <= ERR_RATIO * e_p, "train: kernel-path gradients further from "
+          "the float32 run than the bf16 plain path's")
+    reset_counts()
+    return {"launches": log["launches"], "kernels": out,
+            "ms_per_step": float(np.mean(ms)), "peak_gib": peak}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -462,7 +754,8 @@ def main() -> None:
         fail(f"e2enet_tpu_torch not importable ({e}); run from the "
              f"repository root")
     check("jax" not in sys.modules, "the port imported jax")
-    ops = {name: op for name, (op, _) in blocks.KERNEL_OPS.items()}
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
 
     def reset_counts():
         for op in ops.values():
@@ -649,6 +942,9 @@ def main() -> None:
               "zero-weight voxels hold probabilities")
 
     def check_counts(tag, got, n_vols, per):
+        check(all(got[k] == 0 for k in got if k not in per),
+              f"{tag}: a backward kernel launched")
+        got = {k: got[k] for k in per}
         want = {k: n_vols * n_tiles * TTA * v for k, v in per.items()}
         print(f"[{tag}] kernel launches {got} over {n_vols} volume(s) "
               f"(expected {n_vols} x {n_tiles} tiles x {TTA} passes x "
@@ -831,10 +1127,20 @@ def main() -> None:
     print(f"[paths] sparse fast mode {rate(ms_sparse)}; dense fast mode "
           f"{rate(ms_dense)}; dense plain path {rate(ms_plain)}; data-flip "
           f"{rate(ms_df)}  [{smi}]", flush=True)
+    del model, fns
+    torch.cuda.empty_cache()
 
-    # ---- 7. report
+    # ---- 7. train: the backward kernels, then the row-masked trainer
+    train = train_phase(rnd, R, ops, reset_counts, counts, smi)
+    launches["train"] = train["launches"]
+    res.update(train["kernels"])
+
+    # ---- 8. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
+               "fused_shift_conv_block_bwd": (
+                   "fused_block_bwd.cu", "e2enet_tpu/ops/fused_block.py:349"),
+               "downlink_bwd": ("qlink.cu", "e2enet_tpu/ops/qlink.py:278"),
                "lazy_up_fused_block": ("qfused.cu",
                                        "e2enet_tpu/ops/qfused.py:505"),
                "strided_fused": ("qstride.cu",
@@ -845,14 +1151,17 @@ def main() -> None:
     print("[report] ms, plain_ms, bound_ms and library_ms are per call at "
           "the dense main-path shape (fused block: l0_48+48_to48; lazy "
           "block: l0_48+up96to48_to48, its first sparse level-0 shape under "
-          "'sparse_shape'; seg head: probs mode); max_abs_err over every "
-          "case; launches from the sparse path's two volumes, the up-link's "
-          "from the data-flip path's volume (launches_by_path: all three)",
-          flush=True)
+          "'sparse_shape'; seg head: probs mode; block backward: the level-0 "
+          "lazy node's, batch 2, other shapes under 'shapes'; down-link "
+          "backward: batch 2 at 128^3); max_abs_err over every case; "
+          "launches from the sparse path's two volumes, the up-link's from "
+          "the data-flip path's volume, the backward kernels' from the "
+          "train path's steps (launches_by_path: all four)", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
     for name, (src, rep) in sources.items():
-        path = "sparse" if launches["sparse"][name] else "data-flip"
+        path = ("sparse" if launches["sparse"][name] else
+                "data-flip" if launches["data-flip"][name] else "train")
         line = {"name": name, "route": "cuda",
                 "source": f"e2enet_tpu_torch/csrc/{src}", "replaces": rep,
                 "launches": launches[path][name],
@@ -863,6 +1172,9 @@ def main() -> None:
             line["materialised_ms"] = res[name]["materialised_ms"]
             line["sparse_shape"] = {k: sparse3[0][k] for k in
                                     keys + ("materialised_ms",)}
+        if name == "fused_shift_conv_block_bwd":
+            line["also_replaces"] = "e2enet_tpu/ops/qfused.py:796"
+            line["shapes"] = res[name]["shapes"]
         lines.append(line)
     print(json.dumps({"kernels": lines}))
     print(smi)

@@ -1,11 +1,12 @@
-"""PyTorch/CUDA port of e2enet_tpu's dense ShiftUNet++ sliding-window
-inference for NVIDIA Hopper.
+"""PyTorch/CUDA port of e2enet_tpu's ShiftUNet++ sliding-window inference
+and its row-masked DSFF training step, for NVIDIA Hopper.
 
 The JAX package `e2enet_tpu` is the reference; this package imports torch
 and never jax. It computes channels-last (N, D, H, W, C) throughout, with
 no quadrant or padded layout. The reference's TPU kernels on the serving
-path are hand-written CUDA kernels here (`csrc/`, bound in `ops/_native.py`):
-the fused shift-conv block (`ops/fused_block.py`), the strided transition
-(`ops/qstride.py`), and the level links and seg head (`ops/qlink.py`);
-everything else is plain torch.
+and training paths are hand-written CUDA kernels here (`csrc/`, bound in
+`ops/_native.py`): the fused shift-conv block and its backward
+(`ops/fused_block.py`), the lazy up-link block (`ops/qfused.py`), the
+strided transition (`ops/qstride.py`), and the level links, the down-link's
+backward and the seg head (`ops/qlink.py`); everything else is plain torch.
 """

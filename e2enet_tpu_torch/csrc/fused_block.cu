@@ -53,7 +53,8 @@
 //    pass through shared memory for the bias, the bf16 store and the
 //    per-channel statistics.
 // wgmma, TMA and warp specialisation are later work. The block machinery is
-// in shift_conv_block.cuh, shared with the lazy up-link kernel (qfused.cu).
+// in shift_conv_block.cuh, shared with the lazy up-link kernel (qfused.cu)
+// and the block's backward (fused_block_bwd.cu).
 
 #include "shift_conv_block.cuh"
 

@@ -14,6 +14,14 @@
 //  * downlink <- _downlink_kernel: max and min of the raw over each window,
 //    the max where mult > 0 and the min elsewhere, lrelu(pick*m + o) in f32,
 //    stored bf16. Reads 201 MB, writes 25 MB: bound by memory (~0.068 ms).
+//  * downlink_bwd <- _downlink_bwd_kernel: the backward of the down-link.
+//    The raw running max (mult > 0) or min chain over the window is
+//    recomputed; ga = gy, times 0.01 where pick*m + o < 0, gives
+//    g(mult) += ga*pick and g(off) += ga in f32, and ga*m walks the chain
+//    backward, element k taking 1 where it beats the running value before
+//    it, 0.5 where it ties, and passing the rest on; gx stored bf16. Reads
+//    403 MB and writes 403 MB at 2 x 128^3 x 48: bound by memory
+//    (~0.26 ms).
 //  * seghead  <- _seghead_probs_kernel, and _seghead_kernel as its logits
 //    mode: u = lrelu(x*m + o) in f32, rounded to bf16; the 1x1 conv with f32
 //    sums; then a max-subtracted f32 softmax over the classes stored bf16,
@@ -30,6 +38,8 @@
 //    through shared memory and leave in 16-byte stores.
 //  * downlink: one thread per output voxel and 8 channels (16-byte loads of
 //    every window position), or per channel where rows are not aligned.
+//  * downlink_bwd: one thread per output voxel and channel, each keeping
+//    one channel's g(mult), g(off) sums; scalar loads (simple first).
 //  * seghead: blocks of 256 voxels; the normalised tile is staged in shared
 //    memory (16-byte loads), then one thread per voxel computes its K
 //    logits on the CUDA cores from shared-memory weights (transposed, four
@@ -398,6 +408,113 @@ extern "C" int downlink_launch(const void* x, const void* mult,
   if (blocks > cap) blocks = cap;
   downlink_kernel<<<(unsigned)blocks, NTHREADS, 0,
                     static_cast<cudaStream_t>(stream)>>>(p, n_items);
+  return (int)cudaGetLastError();
+}
+
+// ===========================================================================
+// down-link backward
+
+#define DB_QMAX 8          // window elements the backward takes
+
+struct DownBwdParams {
+  const bf16* x;           // (N, D, H, W, C) the forward's pending raw
+  const bf16* gy;          // (N, Do, Ho, Wo, C)
+  const float* mult;       // (N, C)
+  const float* off;
+  bf16* gx;                // (N, D, H, W, C); the ragged edge is the
+                           // caller's (zeroed)
+  float* gaff;             // (N, C, 2) zeroed: (g mult, g off)
+  int D, H, W, C, wd, wh, ww, Do, Ho, Wo, vox_per_block;
+};
+
+// block (chunk, n); thread t keeps channel t % C over output voxels
+// t / C + k * (NTHREADS / C), so its g(mult), g(off) sums are one
+// channel's. The window's elements are taken in the reference's block
+// order, (a * wh + b) * ww + c.
+__global__ void __launch_bounds__(NTHREADS)
+downlink_bwd_kernel(const DownBwdParams p) {
+  const int tid = threadIdx.x;
+  const int n = blockIdx.y;
+  const int vpi = NTHREADS / p.C;         // voxels per iteration
+  if (tid >= vpi * p.C) return;
+  const int c = tid % p.C;
+  const int Q = p.wd * p.wh * p.ww;
+  const float m = p.mult[(size_t)n * p.C + c];
+  const float o = p.off[(size_t)n * p.C + c];
+  const bool use_max = m > 0.0f;
+  const long long nvox = (long long)p.Do * p.Ho * p.Wo;
+  const long long v0 = (long long)blockIdx.x * p.vox_per_block;
+  long long v1 = v0 + p.vox_per_block;
+  if (v1 > nvox) v1 = nvox;
+  float sm = 0.0f, so = 0.0f;
+  for (long long v = v0 + tid / p.C; v < v1; v += vpi) {
+    const int wo = (int)(v % p.Wo);
+    const int ho = (int)((v / p.Wo) % p.Ho);
+    const int dout = (int)(v / ((long long)p.Wo * p.Ho));
+    size_t idx[DB_QMAX];
+    float xs[DB_QMAX], run[DB_QMAX];
+    int k = 0;
+    for (int a = 0; a < p.wd; ++a)
+      for (int b = 0; b < p.wh; ++b)
+        for (int cc = 0; cc < p.ww; ++cc, ++k) {
+          idx[k] = ((((size_t)n * p.D + dout * p.wd + a) * p.H + ho * p.wh +
+                     b) * p.W + wo * p.ww + cc) * p.C + c;
+          xs[k] = __bfloat162float(p.x[idx[k]]);
+          // the running max (or min) of the chain up to element k
+          run[k] = k == 0 ? xs[0]
+                          : (use_max ? fmaxf(run[k - 1], xs[k])
+                                     : fminf(run[k - 1], xs[k]));
+        }
+    const float pick = run[Q - 1];
+    const float a = __fadd_rn(__fmul_rn(pick, m), o);
+    float ga = __bfloat162float(
+        p.gy[((((size_t)n * p.Do + dout) * p.Ho + ho) * p.Wo + wo) * p.C + c]);
+    if (!(a >= 0.0f)) ga = __fmul_rn(ga, 0.01f);
+    sm += ga * pick;
+    so += ga;
+    // walk the chain backward: element k takes the share w of what reached
+    // step k, 1 where it beats the running value before it, 0.5 where it
+    // ties (maximum's subgradient), and passes 1 - w on
+    float g = __fmul_rn(ga, m);
+    for (int j = Q - 1; j >= 1; --j) {
+      const float prev = run[j - 1];
+      const bool beats = use_max ? xs[j] > prev : xs[j] < prev;
+      const float w = beats ? 1.0f : (xs[j] == prev ? 0.5f : 0.0f);
+      p.gx[idx[j]] = __float2bfloat16(g * w);
+      g = g * (1.0f - w);
+    }
+    p.gx[idx[0]] = __float2bfloat16(g);
+  }
+  atomicAdd(&p.gaff[((size_t)n * p.C + c) * 2], sm);
+  atomicAdd(&p.gaff[((size_t)n * p.C + c) * 2 + 1], so);
+}
+
+extern "C" int downlink_bwd_launch(const void* x, const void* gy,
+                                   const void* mult, const void* off,
+                                   void* gx, void* gaff, int N, int D, int H,
+                                   int W, int C, int wd, int wh, int ww,
+                                   void* stream) {
+  if (N < 1 || C < 1 || C > NTHREADS || wd < 1 || wh < 1 || ww < 1 ||
+      wd * wh * ww > DB_QMAX || D < wd || H < wh || W < ww)
+    return (int)cudaErrorInvalidValue;
+  DownBwdParams p;
+  p.x = static_cast<const bf16*>(x);
+  p.gy = static_cast<const bf16*>(gy);
+  p.mult = static_cast<const float*>(mult);
+  p.off = static_cast<const float*>(off);
+  p.gx = static_cast<bf16*>(gx);
+  p.gaff = static_cast<float*>(gaff);
+  p.D = D; p.H = H; p.W = W; p.C = C;
+  p.wd = wd; p.wh = wh; p.ww = ww;
+  p.Do = D / wd; p.Ho = H / wh; p.Wo = W / ww;
+  const long long nvox = (long long)p.Do * p.Ho * p.Wo;
+  const long long per_n = (8LL * num_sms() + N - 1) / N;
+  long long vpb = (nvox + per_n - 1) / per_n;
+  if (vpb < 1) vpb = 1;
+  p.vox_per_block = (int)vpb;
+  dim3 grid((unsigned)((nvox + vpb - 1) / vpb), (unsigned)N);
+  downlink_bwd_kernel<<<grid, NTHREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

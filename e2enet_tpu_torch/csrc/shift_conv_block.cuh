@@ -1,7 +1,9 @@
 // The shiftConvPP block machinery shared by the fused block (#1,
-// fused_block.cu) and the fused block with a lazy up-link part (#3,
-// qfused.cu), for NVIDIA Hopper (sm_90a), bfloat16. The design is
-// described in fused_block.cu. A kernel is
+// fused_block.cu), the fused block with a lazy up-link part (#3,
+// qfused.cu) and the block's backward (fused_block_bwd.cu: its dgrad runs
+// the whole body, its wgrad stage_operand alone), for NVIDIA Hopper
+// (sm_90a), bfloat16. The design is described in fused_block.cu. A kernel
+// is
 //
 //   template <...> __global__ void k(const Params p, const Hook hook)
 //   { shift_conv_block_body<NG, NFW, MPW>(p, hook); }
@@ -95,6 +97,25 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned r[4], unsigned addr) {
       : "r"(addr)
       : "memory");
 }
+// the same, each 8x8 matrix transposed on the way (rows in shared memory
+// are the fragment's columns)
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4],
+                                                  unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned r[2],
+                                                  unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
 // d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_16816(float d[4], const unsigned a[4],
                                           unsigned b0, unsigned b1) {
@@ -152,35 +173,22 @@ struct UnitWalk {
   }
 };
 
-template <int NG, int NFW, int MPW, class Hook>
-__device__ __forceinline__ void shift_conv_block_body(const Params& p,
-                                                      const Hook& hook) {
-  constexpr int WPM = NWARPS / NG;     // warps along M
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-
-  const int n_ht = (p.H + p.TH - 1) / p.TH;
-  int bid = blockIdx.x;
-  const int wt = bid % p.n_wt;
-  bid /= p.n_wt;
-  const int ht = bid % n_ht;
-  bid /= n_ht;
-  const int d = bid % p.D;
-  const int n = bid / p.D;
-  const int h0 = ht * p.TH;
-  const int w0 = wt * p.WF * 16;
-  const int co0 = blockIdx.y * NG * NFW * 16;
-  const int nf = min(NG * NFW, (p.CO - co0 + 15) / 16);  // CO fragments
-  const int BN = nf * 16;
-  const int ncol = min(BN, p.CO - co0);  // real columns of this tile
+// Stage the shifted, normalised, zero-haloed operand of one block's rows
+// into shared memory: rows h0-1 .. h0+TH, columns w0-1 .. w0+16*WF, p.Cs
+// channels, the staged channel c being concat channel cb + c (channels at
+// or beyond p.C are zero), at smem[0..] with row stride p.Cp; the
+// per-channel table lives at p.off_tab. Ends with every copy landed (the
+// caller's cp.async groups included) and the block synchronised.
+template <class Hook>
+__device__ __forceinline__ void stage_operand(const Params& p,
+                                              const Hook& hook,
+                                              unsigned char* smem, int cb,
+                                              int n, int d, int h0, int w0,
+                                              int tid) {
   const int Cs = p.Cs, Cp = p.Cp, Ws = p.Ws;
   const int KC8 = Cs / 8;
   const int HW = p.H * p.W;
-
   bf16* s_in = reinterpret_cast<bf16*>(smem);
-  bf16* s_w0 = reinterpret_cast<bf16*>(smem + p.off_w);
-  bf16* s_w1 = s_w0 + BN * Cp;
   const bf16** s_src = reinterpret_cast<const bf16**>(smem + p.off_tab);
   int* s_info = reinterpret_cast<int*>(s_src + Cs);
   float* s_m = reinterpret_cast<float*>(s_info + Cs);
@@ -188,18 +196,6 @@ __device__ __forceinline__ void shift_conv_block_body(const Params& p,
   int* s_unit = reinterpret_cast<int*>(s_o + Cs);
   int* s_affk = s_unit + KC8;          // copied units with a pending norm
   int* s_naff = s_affk + KC8;
-
-  // ---- weights: zero the padding of both buffers once, start tap 0
-  const bool vec_w = (p.C % 8 == 0);
-  const int kpad = Cp - p.C;           // columns C .. Cp of every row
-  for (int i = tid; i < 2 * BN * kpad; i += NTHREADS)
-    s_w0[(i / kpad) * Cp + p.C + i % kpad] = __float2bfloat16(0.0f);
-  for (int i = tid; i < 2 * (BN - ncol) * p.C; i += NTHREADS) {
-    const int r = i / p.C;             // rows ncol .. BN of both buffers
-    s_w0[((r / (BN - ncol)) * BN + ncol + r % (BN - ncol)) * Cp + i % p.C] =
-        __float2bfloat16(0.0f);
-  }
-  stage_weights(p, s_w0, 0, co0, ncol, vec_w, tid);
 
   // ---- per-channel table for this (n, d). info: -1 when the channel is
   // zero (beyond C, its shift reads outside [0, D), or its part is the
@@ -210,16 +206,17 @@ __device__ __forceinline__ void shift_conv_block_body(const Params& p,
     int info = -1;
     float m = 1.0f, o = 0.0f;
     const bf16* src = p.x[0];
-    if (c < p.C) {
+    const int cc = cb + c;             // concat channel
+    if (cc < p.C) {
       int q = 0;
       for (int k = 1; k < p.nparts; ++k)
-        if (c >= p.pc0[k]) q = k;
+        if (cc >= p.pc0[k]) q = k;
       int s = 0;
       for (int g = 0; g < p.ngroups; ++g)
-        if (c >= p.g0[g] && c < p.g1[g]) s = p.gs[g];
+        if (cc >= p.g0[g] && cc < p.g1[g]) s = p.gs[g];
       const int ds = d - s;
       if (ds >= 0 && ds < p.D && p.x[q] != nullptr) {
-        const int cl = c - p.pc0[q];
+        const int cl = cc - p.pc0[q];
         const int ci = p.pc[q];
         const bool aff = p.mult[q] != nullptr;
         if (aff) {
@@ -365,6 +362,50 @@ __device__ __forceinline__ void shift_conv_block_body(const Params& p,
     hook.stage(p, s_in, smem + p.off_hook, n, d, h0, w0, tid);
     __syncthreads();
   }
+}
+
+template <int NG, int NFW, int MPW, class Hook>
+__device__ __forceinline__ void shift_conv_block_body(const Params& p,
+                                                      const Hook& hook) {
+  constexpr int WPM = NWARPS / NG;     // warps along M
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+
+  const int n_ht = (p.H + p.TH - 1) / p.TH;
+  int bid = blockIdx.x;
+  const int wt = bid % p.n_wt;
+  bid /= p.n_wt;
+  const int ht = bid % n_ht;
+  bid /= n_ht;
+  const int d = bid % p.D;
+  const int n = bid / p.D;
+  const int h0 = ht * p.TH;
+  const int w0 = wt * p.WF * 16;
+  const int co0 = blockIdx.y * NG * NFW * 16;
+  const int nf = min(NG * NFW, (p.CO - co0 + 15) / 16);  // CO fragments
+  const int BN = nf * 16;
+  const int ncol = min(BN, p.CO - co0);  // real columns of this tile
+  const int Cs = p.Cs, Cp = p.Cp, Ws = p.Ws;
+
+  bf16* s_in = reinterpret_cast<bf16*>(smem);
+  bf16* s_w0 = reinterpret_cast<bf16*>(smem + p.off_w);
+  bf16* s_w1 = s_w0 + BN * Cp;
+
+  // ---- weights: zero the padding of both buffers once, start tap 0
+  const bool vec_w = (p.C % 8 == 0);
+  const int kpad = Cp - p.C;           // columns C .. Cp of every row
+  for (int i = tid; i < 2 * BN * kpad; i += NTHREADS)
+    s_w0[(i / kpad) * Cp + p.C + i % kpad] = __float2bfloat16(0.0f);
+  for (int i = tid; i < 2 * (BN - ncol) * p.C; i += NTHREADS) {
+    const int r = i / p.C;             // rows ncol .. BN of both buffers
+    s_w0[((r / (BN - ncol)) * BN + ncol + r % (BN - ncol)) * Cp + i % p.C] =
+        __float2bfloat16(0.0f);
+  }
+  stage_weights(p, s_w0, 0, co0, ncol, vec_w, tid);
+
+  // ---- the operand (its copies wait for the weights' copy too)
+  stage_operand(p, hook, smem, 0, n, d, h0, w0, tid);
 
   // ---- 9 taps x Cs/16 K-steps of m16n8k16 MMAs
   const int MF = p.TH * p.WF;          // 16-pixel fragments in this block

@@ -55,25 +55,32 @@ def mask_shape(param: torch.Tensor) -> Tuple[int, int]:
     raise ValueError(f"no mask layout for a kernel of rank {param.dim()}")
 
 
-def _broadcast(mask: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+def broadcast_mask(mask: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """An (in, out) mask shaped to broadcast over the kernel's layout."""
     if param.dim() == 4:
         return mask.t()[:, :, None, None]
     return mask[:, :, None, None, None]
 
 
-def apply_masks(model: nn.Module, masks: Dict[str, np.ndarray]) -> None:
+def apply_masks_to(tensors: Dict[str, torch.Tensor], masks) -> None:
+    """t *= mask in place for every named tensor with a mask (a kernel or
+    its optimizer state, in the kernel's layout); masks are (in, out)
+    numpy arrays or tensors, checked against each tensor's (in, out)."""
+    with torch.no_grad():
+        for name, m in masks.items():
+            t = tensors[name]
+            if tuple(m.shape) != mask_shape(t):
+                raise ValueError(f"{name}: mask {tuple(m.shape)} for a "
+                                 f"kernel of (in, out) {mask_shape(t)}")
+            mt = torch.as_tensor(m, dtype=t.dtype, device=t.device)
+            t.mul_(broadcast_mask(mt, t))
+
+
+def apply_masks(model: nn.Module, masks) -> None:
     """w *= mask on every masked kernel, in place (reference apply_masks:
     the reference's inference semantics). Each mask must have its
     kernel's (in, out) shape."""
-    params = masked_params(model)
-    with torch.no_grad():
-        for name, m in masks.items():
-            p = params[name]
-            if tuple(np.shape(m)) != mask_shape(p):
-                raise ValueError(f"{name}: mask {tuple(np.shape(m))} for a "
-                                 f"kernel of (in, out) {mask_shape(p)}")
-            mt = torch.tensor(np.asarray(m, np.float32), device=p.device)
-            p.mul_(_broadcast(mt, p).to(p.dtype))
+    apply_masks_to(masked_params(model), masks)
 
 
 def load_mask_artifact(path, model: nn.Module) -> Dict[str, np.ndarray]:
@@ -96,15 +103,15 @@ def load_mask_artifact(path, model: nn.Module) -> Dict[str, np.ndarray]:
     return masks
 
 
-def masks_density(masks: Dict[str, np.ndarray], model: nn.Module) -> float:
+def masks_density(masks, model: nn.Module) -> float:
     """Element density over the masked kernels (reference masks_density):
     each (in, out) entry counts its kernel's spatial taps."""
     params = masked_params(model)
     nz = tot = 0.0
     for name, m in masks.items():
         taps = int(np.prod(params[name].shape[2:]))
-        nz += float(np.sum(m)) * taps
-        tot += np.size(m) * taps
+        nz += float(m.sum()) * taps
+        tot += int(np.prod(m.shape)) * taps
     return nz / tot
 
 

@@ -46,6 +46,13 @@ model, flip_c(net(flip_c(x))), with the same parameters (the reference's
 net.clone(flips=c)); the sliding-window predictor runs one mirrored forward
 per mirror pass instead of flipping data.
 
+Training: with a gradient wanted every kernel site is an autograd op
+(ops/blocks.py), so forward(x, do_ds=True) under autograd is the
+reference's differentiable model; kernel_launches_per_train_step counts
+the kernels of one step, ds_loss_weights and deep_supervision_scales give
+the deep-supervision loss its weights and target scales. A model with a
+sparse plan attached refuses a gradient (training is dense-masked).
+
 Parameter names follow the reference's flax tree (`context{d}.block{b}`,
 `context{P}a/b`, `up{z}_{k}`, `loc{z}_{k}`, `loc{z}_{k}_final`,
 `seg_head{i}`; leaves `kernel`, `bias`, `norm_scale`, `norm_bias`); see
@@ -54,11 +61,13 @@ models/weights.py for the layouts.
 import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..ops import blocks
 from ..ops.blocks import SegHead, StackedConvBlocks, TranspConv, max_pool
+from ..ops.autograd import needs_grad
 from ..ops.fused_block import (NO_FLIPS, Flips, apply_norm_lrelu,
                                norm_affine_from_stats, pooled_part)
 from ..ops.qfused import LAZY_STRIDE
@@ -113,6 +122,7 @@ class ShiftUNetPlusPlus(nn.Module):
         self.compute_dtype = compute_dtype
         self.head_probs_dtype = head_probs_dtype
         self.lazy_up = lazy_up
+        self.sparse_plan: Optional[Plan] = None
         enc = self.enc = encoder_channels(base_num_features, P,
                                           max_num_features)
         kw = dict(compute_dtype=compute_dtype, device=device)
@@ -160,6 +170,7 @@ class ShiftUNetPlusPlus(nn.Module):
         up-link, and derive the gathered weights. Bake the masks into the
         weights first; later weight changes re-derive them."""
         P, enc = self.num_pool, self.enc
+        self.sparse_plan = plan
         lookup = dict(plan or ())
         emits = {}
         for j in range(1, P + 1):
@@ -196,6 +207,10 @@ class ShiftUNetPlusPlus(nn.Module):
         P = self.num_pool
         pools, enc = self.pools, self.enc
         flips = tuple(bool(f) for f in flips)
+        if self.sparse_plan and needs_grad(self.parameters()):
+            raise RuntimeError("a model with a sparse plan attached takes no "
+                               "gradient: training is dense-masked "
+                               "(set_sparse_plan(None))")
         div = [math.prod(p[a] for p in pools) for a in range(3)]
         if any(int(s) % d for s, d in zip(x.shape[1:4], div)):
             raise ValueError(f"input spatial shape {tuple(x.shape[1:4])} "
@@ -343,6 +358,45 @@ def kernel_launches_per_forward(model: ShiftUNetPlusPlus,
         "downlink": P - 1 if fused_levels > 1 else 0,
         "seghead": min(n_heads, fused_levels),
     }
+
+
+def kernel_launches_per_train_step(model: ShiftUNetPlusPlus
+                                   ) -> Dict[str, Dict[str, int]]:
+    """Kernel calls of one train step (a forward with do_ds=True and its
+    backward): {"forward": kernel_launches_per_forward(model, True),
+    "backward": ...}. The backward launches the block backward once per
+    fused or lazy block call, the down-link backward once per down-link
+    call, and the up-link kernel once per lazy call (the lazy block's
+    backward materialises u); the strided transition, the materialised
+    up-links and the seg heads differentiate their plain versions."""
+    fwd = kernel_launches_per_forward(model, do_ds=True)
+    bwd = {name: 0 for name in fwd}
+    bwd["fused_shift_conv_block_bwd"] = (fwd["fused_shift_conv_block"]
+                                         + fwd["lazy_up_fused_block"])
+    bwd["downlink_bwd"] = fwd["downlink"]
+    bwd["uplink"] = fwd["lazy_up_fused_block"]
+    return {"forward": fwd, "backward": bwd}
+
+
+def deep_supervision_scales(pools: Sequence[Tuple[int, int, int]],
+                            num_outputs: int) -> List[List[float]]:
+    """Relative resolution of each deep-supervision output (reference
+    models/unetpp.py:737-745)."""
+    scales = [[1.0, 1.0, 1.0]] + list(
+        (1.0 / np.cumprod(np.vstack(pools), axis=0)).tolist())
+    return [list(map(float, s)) for s in scales[:num_outputs]]
+
+
+def ds_loss_weights(num_pool: int, num_outputs: int) -> np.ndarray:
+    """Deep-supervision loss weights 1/2^i with the lowest level zeroed,
+    normalised over the first num_pool entries, truncated to the output
+    count (reference models/unetpp.py:748-757)."""
+    weights = np.array([1.0 / (2 ** i) for i in range(num_pool)])
+    mask = np.array([True] + [i < num_pool - 1
+                              for i in range(1, num_pool)])
+    weights[~mask] = 0.0
+    weights = weights / weights.sum()
+    return weights[:num_outputs]
 
 
 # --------------------------------------------------------------------------

@@ -41,6 +41,13 @@ SIGNATURES = {
         "qfused_lazy_launch": [ctypes.POINTER(vp)] * 3 + [PI, PI, i32, PI,
                                                           i32] + [vp] * 4
         + [i32] * 5 + [vp] * 4 + [i32, vp]},
+    "fused_block_bwd": {
+        # the forward's parts, affines, part_c, part_vec, nparts, groups,
+        # ngroups; gxs, gaffs; y, gy, gstats, geff, ct, ct_stats, w9t,
+        # zero_b, gw, gb; N, D, H, W, CO, stream
+        "fused_block_bwd_launch": [ctypes.POINTER(vp)] * 3
+        + [PI, PI, i32, PI, i32] + [ctypes.POINTER(vp)] * 2 + [vp] * 10
+        + [i32] * 5 + [vp]},
     "qstride": {
         # x, mult, off, groups, ngroups, w9, b, y, stats, N, D, H, W, C, CO,
         # Do, Ho, Wo, sd, sh, sw, parity, origin_h, origin_w, stream
@@ -51,6 +58,8 @@ SIGNATURES = {
         "uplink_launch": [vp] * 5 + [i32] * 9 + [vp],
         # x, mult, off, y, N, D, H, W, C, wd, wh, ww, stream
         "downlink_launch": [vp] * 4 + [i32] * 8 + [vp],
+        # x, gy, mult, off, gx, gaff, N, D, H, W, C, wd, wh, ww, stream
+        "downlink_bwd_launch": [vp] * 6 + [i32] * 8 + [vp],
         # x, mult, off, w, y, N, voxels per sample, C, K, probs, stream
         "seghead_launch": [vp] * 5 + [i32] * 5 + [vp]},
 }
@@ -195,6 +204,48 @@ def launch_lazy_up(parts, affines, groups, w9, b, raw, umult, uoff, wu, y,
                  wu.data_ptr(), cin, _stream(y))
     _check(err, f"qfused lazy (shape {tuple(y.shape)}, C={sum(args[3])}, "
                 f"cin={cin})")
+
+
+def launch_fused_block_bwd(parts, affines, groups, gxs, gaffs, y, gy, gstats,
+                           geff, ct, ct_stats, w9t, zero_b, gw, gb) -> None:
+    """Launch csrc/fused_block_bwd.cu: the fused block's backward. parts,
+    affines, groups as for launch_fused_block (the forward's, groups with
+    the mirror applied); gxs / gaffs: per part a bf16 (N, D, H, W, Ci)
+    output / a zeroed float32 (N, Ci, 2) output, or None where not wanted;
+    y, gy bf16 (N, D, H, W, CO); gstats float32 (N, CO, 2); geff scratch
+    like y; ct scratch bf16 (N, D, H, W, C) and ct_stats float32 (N, C, 2)
+    (None when no part is wanted); w9t (9, C, CO) bf16 (taps reversed,
+    transposed); zero_b (C,) bf16 zeros; outputs gw float32 (9, CO, C) and
+    gb float32 (CO,), zeroed. Raises on a refused launch."""
+    fn = library("fused_block_bwd").fused_block_bwd_launch
+    args = _block_args(parts, affines, groups, w9t, zero_b, y, gstats)
+    P = len(parts)
+    arr = ctypes.c_void_p * P
+    gx_ptrs = arr(*[None if g is None else g.data_ptr() for g in gxs])
+    ga_ptrs = arr(*[None if g is None else g.data_ptr() for g in gaffs])
+    opt = [None if t is None else t.data_ptr() for t in (ct, ct_stats)]
+    N, D, H, W, CO = (int(s) for s in y.shape)
+    with torch.cuda.device(y.device):
+        err = fn(*args[:8], gx_ptrs, ga_ptrs, y.data_ptr(), gy.data_ptr(),
+                 gstats.data_ptr(), geff.data_ptr(), *opt, w9t.data_ptr(),
+                 zero_b.data_ptr(), gw.data_ptr(), gb.data_ptr(), N, D, H, W,
+                 CO, _stream(y))
+    _check(err, f"fused_block_bwd (shape {tuple(y.shape)}, "
+                f"C={sum(args[3])})")
+
+
+def launch_downlink_bwd(x, gy, mult, off, gx, gaff, window) -> None:
+    """Launch csrc/qlink.cu's down-link backward: x contiguous bf16
+    (N, D, H, W, C), the forward's input; gy bf16 (N, D//wd, H//wh, W//ww,
+    C); mult/off float32 (N, C); outputs gx bf16 like x (the ragged edge
+    zeroed by the caller) and gaff float32 (N, C, 2) zeroed."""
+    fn = library("qlink").downlink_bwd_launch
+    N, D, H, W, C = (int(s) for s in x.shape)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), gy.data_ptr(), mult.data_ptr(), off.data_ptr(),
+                 gx.data_ptr(), gaff.data_ptr(), N, D, H, W, C, *window,
+                 _stream(x))
+    _check(err, f"downlink_bwd (N={N} D={D} H={H} W={W} C={C})")
 
 
 def launch_strided(x, mult, off, groups, w9, b, y, stats, stride, parity,

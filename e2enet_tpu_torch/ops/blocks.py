@@ -1,5 +1,6 @@
 """Network building blocks in channels-last (N, D, H, W, C) torch ops: the
-inference subset of e2enet_tpu/ops/blocks.py. The port has no quadrant or
+subset of e2enet_tpu/ops/blocks.py the ShiftUNet++ forward and its
+gradient take. The port has no quadrant or
 padded channels-first layout.
 
 Every conv of the model has a (1,3,3) kernel, so a 3D conv is a batched 2D
@@ -21,6 +22,13 @@ with window == stride and 1x1 heads are flip-equivariant as they are.
 The kernel sites of the model go through this module's names
 `fused_shift_conv_block`, `lazy_up_fused_block`, `strided_fused`, `uplink`,
 `downlink` and `seghead`; `plain_ops()` swaps their plain torch versions in.
+Each is differentiable: the fused block's and the lazy block's backward is
+the block backward kernel, the down-link's its own kernel (BACKWARD_OPS),
+the rest take torch's autograd of their plain versions. The plain ops here
+differentiate as the reference's do: the leaky relu of a block is
+jnp.where(x >= 0, ...) (derivative 1 at 0), a max pool splits a tie in a
+window evenly, the depth shift's adjoint is the shift by the negated
+offsets (copies into a zero tensor).
 
 DSFF row-sparse inference (models/sparse_plan.py): `set_sparse` gives a
 block, stack or transposed conv the static wiring of the reference's
@@ -38,13 +46,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .autograd import needs_grad
 from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, NO_FLIPS, SHIFT_SIZE,
                           Flips, block_groups, fused_shift_conv_block,
-                          fused_shift_conv_block_ref, mirror_conv_kernel,
-                          norm_affine_from_stats, slope_in)
+                          fused_shift_conv_block_bwd,
+                          fused_shift_conv_block_bwd_ref,
+                          fused_shift_conv_block_ref, lrelu_where,
+                          mirror_conv_kernel, norm_affine_from_stats)
 from .qfused import LazyUp, lazy_up_fused_block, lazy_up_fused_block_ref
-from .qlink import (downlink, downlink_ref, flip_transp_kernel, seghead,
-                    seghead_ref, uplink, uplink_ref)
+from .qlink import (downlink, downlink_bwd, downlink_bwd_ref, downlink_ref,
+                    flip_transp_kernel, seghead, seghead_ref, uplink,
+                    uplink_ref)
 from .qstride import strided_fused, strided_fused_ref
 from .shift import (compact_groups, depth_shift_groups, group_shifts,
                     restrict_groups)
@@ -58,6 +70,13 @@ KERNEL_OPS = {
     "uplink": (uplink, uplink_ref),
     "downlink": (downlink, downlink_ref),
     "seghead": (seghead, seghead_ref),
+}
+# backward kernels (wrapper, plain version), launched by the autograd ops
+# of the fused block, the lazy block and the down-link
+BACKWARD_OPS = {
+    "fused_shift_conv_block_bwd": (fused_shift_conv_block_bwd,
+                                   fused_shift_conv_block_bwd_ref),
+    "downlink_bwd": (downlink_bwd, downlink_bwd_ref),
 }
 
 
@@ -100,7 +119,7 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, slope_in(x.dtype))
+    return lrelu_where(x)
 
 
 def conv3d_as_2d(x: torch.Tensor, kernel: torch.Tensor,
@@ -180,6 +199,10 @@ class _Derived:
         self.key, self.value = None, None
 
     def get(self):
+        if needs_grad(self.params):
+            raise RuntimeError("derived (gathered, pruned) weights carry no "
+                               "gradient: detach the sparse plan "
+                               "(set_sparse_plan(None)) to train")
         key = tuple(-1 if p.is_inference() else p._version
                     for p in self.params)
         if self.value is None or key != self.key:

@@ -27,13 +27,35 @@ The port is channels-last (N, D, H, W, C) throughout; it has no quadrant or
 padded channels-first layout.
 
 `fused_shift_conv_block` runs the CUDA kernel (csrc/fused_block.cu) for CUDA
-tensors and its plain torch version for CPU tensors. Inference only.
+tensors and its plain torch version for CPU tensors. Where a gradient is
+wanted it is a torch.autograd.Function whose backward is
+`fused_shift_conv_block_bwd`: the CUDA kernel of csrc/fused_block_bwd.cu
+for CUDA tensors (TPU kernels e2enet_tpu/ops/fused_block.py:_bwd_kernel and
+qfused.py:_bwd_kernel) and `fused_shift_conv_block_bwd_ref` for CPU
+tensors. Given (y, gy, gstats) it returns
+
+    geff = gy + gs1 + 2 y gs2             in the parts' dtype, step by step
+    gb   = sum geff                       float32
+    ct   = conv_T(geff)                   float32 sums, rounded to the dtype
+    gU   = ct[d + s_g]                    the shift's adjoint, zero fill
+    gx_p = gU lrelu'(a) m, g(m), g(o)     parts with a pending affine
+                                          (lrelu'(a) = 1 where a >= 0, else
+                                          the slope), float32 sums
+    gx_p = gU                             other parts
+    gW   = sum S (x) geff                 float32, S the forward's operand
+
+(reference fused_block.py:331-346 and `_fused_bwd_xla`). The plain forward
+writes its leaky relu with the same derivative, so torch's autograd of it
+(the comparison path, ops.blocks.plain_ops) agrees with this backward.
 """
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from .autograd import (affine_grads, affine_tensors, block_cotangents,
+                       check_device, grad_like, needs_grad, unflatten_affines,
+                       wanted_parts)
 from .shift import depth_shift_groups, group_shifts, mirror_groups
 
 LRELU_SLOPE = 0.01
@@ -86,7 +108,7 @@ def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
             ci = x.shape[-1]
             m = affine_nc(a[0], N, ci)[:, None, None, None, :]
             o = affine_nc(a[1], N, ci)[:, None, None, None, :]
-            x = F.leaky_relu(x.float() * m + o, LRELU_SLOPE).to(dtype)
+            x = lrelu_where(x.float() * m + o).to(dtype)
         normed.append(x)
     x = torch.cat(normed, dim=-1)
     N, D, H, W, C = x.shape
@@ -109,22 +131,23 @@ def fused_shift_conv_block(parts: Sequence[torch.Tensor],
                            flips: Flips = NO_FLIPS, groups_override=None):
     """The fused block: plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (bfloat16 only; raises on what the kernel does not take).
-    Same arguments and results as fused_shift_conv_block_ref."""
-    dev = parts[0].device
-    if dev.type == "cpu":
-        return fused_shift_conv_block_ref(parts, kernel, bias, affines,
-                                          flips, groups_override)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_shift_conv_block: unsupported device {dev}")
-    tensors = list(parts) + [kernel, bias] + [t for a in affines
-                                              if a is not None for t in a]
-    if any(t.device != dev for t in tensors):
-        raise ValueError("fused_shift_conv_block: tensors on several devices")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("fused_shift_conv_block has no backward kernel; "
-                           "run it under torch.no_grad()/inference_mode()")
+    Same arguments and results as fused_shift_conv_block_ref. With a
+    gradient wanted, an autograd op whose backward is
+    fused_shift_conv_block_bwd."""
     if len(parts) != len(affines):
         raise ValueError("one affine (or None) per part")
+    if needs_grad(list(parts) + [kernel, bias] + affine_tensors(affines)):
+        return _FusedBlockFn.apply(
+            (tuple(flips), groups_override, len(parts),
+             tuple(a is not None for a in affines)),
+            *parts, kernel, bias, *affine_tensors(affines))
+    return _fused_forward(parts, kernel, bias, affines, flips,
+                          groups_override)
+
+
+def _check_block(parts, kernel, bias):
+    """(part channels, C, CO) of a CUDA block call; raises on what the
+    kernels do not take."""
     N, D, H, W = parts[0].shape[:4]
     if any(tuple(p.shape[:4]) != (N, D, H, W) for p in parts):
         raise ValueError("parts differ in (N, D, H, W)")
@@ -137,6 +160,20 @@ def fused_shift_conv_block(parts: Sequence[torch.Tensor],
     if tuple(kernel.shape) != (CO, C, 3, 3) or tuple(bias.shape) != (CO,):
         raise ValueError(f"kernel {tuple(kernel.shape)} / bias "
                          f"{tuple(bias.shape)} do not fit C={C}")
+    return part_c, C, CO
+
+
+def _fused_forward(parts, kernel, bias, affines, flips, groups_override):
+    dev = parts[0].device
+    if dev.type == "cpu":
+        return fused_shift_conv_block_ref(parts, kernel, bias, affines,
+                                          flips, groups_override)
+    check_device("fused_shift_conv_block", list(parts) + [kernel, bias]
+                  + affine_tensors(affines))
+    N = parts[0].shape[0]
+    dtype = parts[0].dtype
+    part_c, C, CO = _check_block(parts, kernel, bias)
+    D, H, W = parts[0].shape[1:4]
     from . import _native
     parts = [p.contiguous() for p in parts]
     # (9 taps, CO, C): each output channel's K row contiguous; a mirrored
@@ -157,6 +194,164 @@ def fused_shift_conv_block(parts: Sequence[torch.Tensor],
 
 
 fused_shift_conv_block.launches = 0
+
+
+def fused_shift_conv_block_bwd_ref(parts: Sequence[torch.Tensor],
+                                   kernel: torch.Tensor, bias: torch.Tensor,
+                                   affines: Sequence[Affine],
+                                   y: torch.Tensor, gy: torch.Tensor,
+                                   gstats: torch.Tensor,
+                                   flips: Flips = NO_FLIPS,
+                                   groups_override=None):
+    """Plain torch version of the block's backward (reference
+    `_fused_bwd_xla`, rounding where the kernels round): y the forward's
+    output, gy its cotangent, gstats (N, CO, 2) the statistics' cotangent.
+    Returns (gparts in the parts' dtype, gkernel (CO, C, 3, 3) float32,
+    gbias (CO,) float32, per part None or (g mult, g off) each (N, Ci)
+    float32)."""
+    dtype = parts[0].dtype
+    N, D, H, W = parts[0].shape[:4]
+    CO = kernel.shape[0]
+    bshape = (N, 1, 1, 1, CO)
+    # the kernels' bf16 steps (reference fused_block.py:482-487)
+    gs1 = gstats[..., 0].to(dtype).reshape(bshape)
+    gs2 = (2.0 * gstats[..., 1]).to(dtype).reshape(bshape)
+    geff = (gy.to(dtype) + gs1) + y.to(dtype) * gs2
+    gb = geff.float().sum(dim=(0, 1, 2, 3))
+    normed = []
+    for x, a in zip(parts, affines):
+        if a is not None:
+            ci = x.shape[-1]
+            m = affine_nc(a[0], N, ci)[:, None, None, None, :]
+            o = affine_nc(a[1], N, ci)[:, None, None, None, :]
+            x = lrelu_where(x.float() * m + o).to(dtype)
+        normed.append(x)
+    xcat = torch.cat(normed, dim=-1)
+    C = xcat.shape[-1]
+    groups = block_groups(C, flips, groups_override)
+    s2 = depth_shift_groups(xcat, groups).reshape(N * D, H, W, C) \
+        .permute(0, 3, 1, 2).float()
+    k = mirror_conv_kernel(kernel.to(dtype), flips).float()
+    g2 = geff.reshape(N * D, H, W, CO).permute(0, 3, 1, 2).float()
+    # dgrad rounded to the dtype before the shift's adjoint (:525), wgrad
+    # from the same bf16 operands, both with float32 sums
+    ct = torch.nn.grad.conv2d_input(s2.shape, k, g2, padding=1).to(dtype)
+    gw = torch.nn.grad.conv2d_weight(s2, k.shape, g2, padding=1)
+    ct = ct.permute(0, 2, 3, 1).reshape(N, D, H, W, C)
+    gu_all = depth_shift_groups(ct, mirror_groups(groups))
+    gparts, gaffs = [], []
+    off = 0
+    for x, a in zip(parts, affines):
+        ci = x.shape[-1]
+        gu = gu_all[..., off:off + ci]
+        off += ci
+        if a is None:
+            gparts.append(gu)
+            gaffs.append(None)
+            continue
+        m = affine_nc(a[0], N, ci)[:, None, None, None, :]
+        o = affine_nc(a[1], N, ci)[:, None, None, None, :]
+        xf = x.float()
+        sel = torch.where(xf * m + o >= 0, 1.0, LRELU_SLOPE)
+        guf = gu.float() * sel
+        gparts.append((guf * m).to(dtype))
+        gaffs.append(((guf * xf).sum(dim=(1, 2, 3)),
+                      guf.sum(dim=(1, 2, 3))))
+    return gparts, mirror_conv_kernel(gw, flips), gb, gaffs
+
+
+def fused_shift_conv_block_bwd(parts: Sequence[torch.Tensor],
+                               kernel: torch.Tensor, bias: torch.Tensor,
+                               affines: Sequence[Affine], y: torch.Tensor,
+                               gy: torch.Tensor, gstats: torch.Tensor,
+                               flips: Flips = NO_FLIPS, groups_override=None,
+                               want=None):
+    """The block's backward: plain version for CPU tensors, the CUDA kernel
+    (csrc/fused_block_bwd.cu) for CUDA tensors (bfloat16; raises on what
+    the kernel does not take). Same arguments and results as
+    fused_shift_conv_block_bwd_ref; want: per part whether its gradient
+    and its affine's are wanted (default all), None where not."""
+    want = [True] * len(parts) if want is None else list(want)
+    dev = parts[0].device
+    if dev.type == "cpu":
+        gp, gk, gb, ga = fused_shift_conv_block_bwd_ref(
+            parts, kernel, bias, affines, y, gy, gstats, flips,
+            groups_override)
+        return ([g if w else None for g, w in zip(gp, want)], gk, gb,
+                [g if w else None for g, w in zip(ga, want)])
+    check_device("fused_shift_conv_block_bwd",
+                  list(parts) + [kernel, bias, y, gy, gstats]
+                  + affine_tensors(affines))
+    part_c, C, CO = _check_block(parts, kernel, bias)
+    N, D, H, W = (int(v) for v in parts[0].shape[:4])
+    dtype = torch.bfloat16
+    if y.dtype != dtype or tuple(y.shape) != (N, D, H, W, CO) or \
+            tuple(gy.shape) != (N, D, H, W, CO) or \
+            tuple(gstats.shape) != (N, CO, 2):
+        raise ValueError(f"y {tuple(y.shape)} {y.dtype}, gy "
+                         f"{tuple(gy.shape)}, gstats {tuple(gstats.shape)} "
+                         f"do not fit the block's output")
+    from . import _native
+    parts = [p.contiguous() for p in parts]
+    aff = [None if a is None else (affine_nc(a[0], N, ci),
+                                   affine_nc(a[1], N, ci))
+           for a, ci in zip(affines, part_c)]
+    # the dgrad's taps: the forward's reversed and transposed, (9, C, CO)
+    k = mirror_conv_kernel(kernel.to(dtype), flips)
+    w9t = k.flip(2, 3).permute(2, 3, 1, 0).reshape(9, C, CO).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    gxs = [torch.empty_like(p) if w else None for p, w in zip(parts, want)]
+    gaffs = [torch.zeros((N, ci, 2), **f32) if w and a is not None else None
+             for ci, w, a in zip(part_c, want, aff)]
+    any_wanted = any(want)
+    ct = (torch.empty((N, D, H, W, C), dtype=dtype, device=dev)
+          if any_wanted else None)
+    ct_stats = torch.zeros((N, C, 2), **f32) if any_wanted else None
+    gw = torch.zeros((9, CO, C), **f32)
+    gb = torch.zeros((CO,), **f32)
+    _native.launch_fused_block_bwd(
+        parts, aff, block_groups(C, flips, groups_override), gxs, gaffs,
+        y.contiguous(), gy.to(dtype).contiguous(),
+        gstats.float().contiguous(), torch.empty_like(y), ct, ct_stats, w9t,
+        torch.zeros((C,), dtype=dtype, device=dev), gw, gb)
+    fused_shift_conv_block_bwd.launches += 1
+    gk = mirror_conv_kernel(gw.reshape(3, 3, CO, C).permute(2, 3, 0, 1),
+                            flips)
+    return gxs, gk, gb, [None if g is None else (g[..., 0], g[..., 1])
+                         for g in gaffs]
+
+
+fused_shift_conv_block_bwd.launches = 0
+
+
+class _FusedBlockFn(torch.autograd.Function):
+    """The fused block as an autograd op: forward the kernel (or its plain
+    version on the CPU), backward fused_shift_conv_block_bwd. Saves the
+    parts, weights, affines and y, as the reference's _fused_fwd does."""
+
+    @staticmethod
+    def forward(ctx, meta, *tensors):
+        flips, groups, P, has_affine = meta
+        parts, (kernel, bias) = list(tensors[:P]), tensors[P:P + 2]
+        affines = unflatten_affines(has_affine, tensors[P + 2:])
+        y, stats = _fused_forward(parts, kernel, bias, affines, flips, groups)
+        ctx.meta = meta
+        ctx.save_for_backward(*tensors, y)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, gy, gstats):
+        flips, groups, P, has_affine = ctx.meta
+        *tensors, y = ctx.saved_tensors
+        parts, (kernel, bias) = list(tensors[:P]), tensors[P:P + 2]
+        affines = unflatten_affines(has_affine, tensors[P + 2:])
+        gy, gstats = block_cotangents(y, gy, gstats)
+        want = wanted_parts(ctx.needs_input_grad[1:], P, has_affine)
+        gp, gk, gb, ga = fused_shift_conv_block_bwd(
+            parts, kernel, bias, affines, y, gy, gstats, flips, groups, want)
+        grads = [grad_like(g, t) for g, t in zip(gp, parts)]
+        grads += [grad_like(gk, kernel), grad_like(gb, bias)]
+        return (None, *grads, *affine_grads(affines, ga))
 
 
 def norm_affine_from_stats(stats: torch.Tensor, n_vox: int,
@@ -180,7 +375,7 @@ def apply_norm_lrelu(x: torch.Tensor, mult: torch.Tensor,
     ct = torch.float32 if x.dtype == torch.float32 else x.dtype
     shape = (x.shape[0], 1, 1, 1, x.shape[-1])
     a = x.to(ct) * mult.to(ct).reshape(shape) + off.to(ct).reshape(shape)
-    return F.leaky_relu(a, slope_in(ct)).to(x.dtype)
+    return lrelu_max(a).to(x.dtype)
 
 
 def pooled_part(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
@@ -189,9 +384,18 @@ def pooled_part(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
     the normalised tensor (the reference's pooled_part_cf): the apply,
     rounding included, is non-decreasing in x where mult >= 0 and
     non-increasing where mult < 0, so the window's largest normalised value
-    is the apply of the raw maximum or minimum. Exact."""
+    is the apply of the raw maximum or minimum. Exact.
+
+    With a gradient wanted it pools the materialised apply instead (the
+    same values), so that the gradient is the reference's: a tie within a
+    window of normalised bf16 values splits evenly (jnp.max) and the leaky
+    relu's derivative at 0 is (1 + slope) / 2 (jnp.maximum)."""
     wd, wh, ww = window
     N, D, H, W, C = x.shape
+    if needs_grad((x, mult, off)):
+        u = apply_norm_lrelu(x, mult, off)
+        return u.reshape(N, D // wd, wd, H // wh, wh, W // ww, ww, C).amax(
+            dim=(2, 4, 6))
     xw = x.reshape(N, D // wd, wd, H // wh, wh, W // ww, ww, C)
     pick = torch.where((mult >= 0).reshape(N, 1, 1, 1, C),
                        xw.amax(dim=(2, 4, 6)), xw.amin(dim=(2, 4, 6)))
@@ -202,3 +406,16 @@ def slope_in(dtype: torch.dtype) -> float:
     """The leaky-relu slope rounded to `dtype`, as the reference multiplies
     by a constant of the operand's dtype."""
     return float(torch.tensor(LRELU_SLOPE, dtype=dtype))
+
+
+def lrelu_where(a: torch.Tensor) -> torch.Tensor:
+    """Leaky relu as the reference's kernels and blocks.leaky_relu write it,
+    jnp.where(a >= 0, a, a * slope): derivative 1 at a == 0."""
+    return torch.where(a >= 0, a, a * slope_in(a.dtype))
+
+
+def lrelu_max(a: torch.Tensor) -> torch.Tensor:
+    """Leaky relu as the reference's XLA twins write it,
+    jnp.maximum(a, a * slope): the same values, derivative (1 + slope) / 2
+    at a == 0 (maximum splits a tie)."""
+    return torch.maximum(a, a * slope_in(a.dtype))

@@ -26,15 +26,24 @@ as for the fused block. `groups_override` gives compact-space shift groups
 (the sparse plan).
 
 `lazy_up_fused_block` runs the CUDA kernel (csrc/qfused.cu) for CUDA
-tensors and `lazy_up_fused_block_ref` for CPU tensors. Inference only.
+tensors and `lazy_up_fused_block_ref` for CPU tensors. Where a gradient is
+wanted it is an autograd op whose backward is the reference's
+`_qfused_op_lazy` VJP (qfused.py:1342-1360): u is materialised once
+through the up-link op (the up-link kernel on CUDA tensors), the block's
+backward (ops.fused_block.fused_shift_conv_block_bwd) runs with u as a
+plain last part, and u's gradient goes through the up-link's backward,
+torch's autograd of its plain version.
 """
 from typing import NamedTuple, Sequence
 
 import torch
 
+from .autograd import (affine_grads, affine_tensors, block_cotangents,
+                       grad_like, needs_grad, unflatten_affines, wanted_parts)
 from .fused_block import (NO_FLIPS, Affine, Flips, affine_nc, block_groups,
+                          fused_shift_conv_block_bwd,
                           fused_shift_conv_block_ref, mirror_conv_kernel)
-from .qlink import _check_cuda, uplink_ref
+from .qlink import _check_cuda, uplink, uplink_ref
 
 LAZY_STRIDE = (2, 2, 2)     # the up-link strides the CUDA kernel computes
 
@@ -68,19 +77,31 @@ def lazy_up_fused_block(parts: Sequence[torch.Tensor], lazy_up: LazyUp,
     """The fused block with a lazy up-link last part: plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (bfloat16, up-link stride
     (2, 2, 2); raises on what the kernel does not take). Same arguments and
-    results as lazy_up_fused_block_ref."""
+    results as lazy_up_fused_block_ref; with a gradient wanted, an autograd
+    op (the reference's lazy VJP)."""
+    if len(parts) != len(affines):
+        raise ValueError("one affine (or None) per materialised part")
+    tensors = (list(parts) + list(lazy_up) + [kernel, bias]
+               + affine_tensors(affines))
+    if needs_grad(tensors):
+        return _LazyBlockFn.apply(
+            (tuple(flips), groups_override, len(parts),
+             tuple(a is not None for a in affines)), *tensors)
+    return _lazy_forward(parts, lazy_up, kernel, bias, affines, flips,
+                         groups_override)
+
+
+def _lazy_forward(parts, lazy_up, kernel, bias, affines, flips,
+                  groups_override):
     if parts[0].device.type == "cpu":
         return lazy_up_fused_block_ref(parts, lazy_up, kernel, bias, affines,
                                        flips, groups_override)
     if not isinstance(lazy_up, LazyUp) or any(isinstance(p, LazyUp)
                                               for p in parts):
         raise TypeError("one LazyUp, after the materialised parts")
-    affine_ts = [t for a in affines if a is not None for t in a]
     dev = _check_cuda("lazy_up_fused_block",
                       list(parts) + list(lazy_up) + [kernel, bias]
-                      + affine_ts)
-    if len(parts) != len(affines):
-        raise ValueError("one affine (or None) per materialised part")
+                      + affine_tensors(affines))
     raw, umult, uoff, ukern = lazy_up
     if any(p.dtype != torch.bfloat16 or p.dim() != 5
            for p in list(parts) + [raw]):
@@ -122,3 +143,52 @@ def lazy_up_fused_block(parts: Sequence[torch.Tensor], lazy_up: LazyUp,
 
 
 lazy_up_fused_block.launches = 0
+
+
+class _LazyBlockFn(torch.autograd.Function):
+    """The lazy block as an autograd op; tensors laid out (parts..., raw,
+    up mult, up off, up kernel, kernel, bias, affines...)."""
+
+    @staticmethod
+    def forward(ctx, meta, *tensors):
+        flips, groups, P, has_affine = meta
+        parts = list(tensors[:P])
+        up = LazyUp(*tensors[P:P + 4])
+        kernel, bias = tensors[P + 4:P + 6]
+        affines = unflatten_affines(has_affine, tensors[P + 6:])
+        y, stats = _lazy_forward(parts, up, kernel, bias, affines, flips,
+                                 groups)
+        ctx.meta = meta
+        ctx.save_for_backward(*tensors, y)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, gy, gstats):
+        flips, groups, P, has_affine = ctx.meta
+        *tensors, y = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        parts = list(tensors[:P])
+        up = LazyUp(*tensors[P:P + 4])
+        kernel, bias = tensors[P + 4:P + 6]
+        affines = unflatten_affines(has_affine, tensors[P + 6:])
+        gy, gstats = block_cotangents(y, gy, gstats)
+        # the block's layout (parts..., u, kernel, bias, affines...)
+        block_need = list(need[:P]) + list(need[P + 4:])
+        want = wanted_parts(block_need, P, has_affine)
+        want_up = any(need[P:P + 4])
+        u = uplink(*up)
+        gp, gk, gb, ga = fused_shift_conv_block_bwd(
+            parts + [u], kernel, bias, list(affines) + [None], y, gy, gstats,
+            flips, groups, want + [want_up])
+        g_up = [None] * 4
+        if want_up:
+            with torch.enable_grad():
+                inputs = [t.detach().requires_grad_(n)
+                          for t, n in zip(up, need[P:P + 4])]
+                u_ref = uplink_ref(*inputs)
+                wrt = [t for t in inputs if t.requires_grad]
+                gi = iter(torch.autograd.grad(u_ref, wrt, gp[-1]))
+            g_up = [next(gi) if n else None for n in need[P:P + 4]]
+        grads = [grad_like(g, t) for g, t in zip(gp[:P], parts)] + g_up
+        grads += [grad_like(gk, kernel), grad_like(gb, bias)]
+        return (None, *grads, *affine_grads(affines, ga[:P]))

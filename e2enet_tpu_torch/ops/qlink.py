@@ -27,14 +27,23 @@ the up-link's mirrored op reverses its kernel along the mirrored axes
 (reference blocks.flip_transp_kernel).
 
 Each op runs its CUDA kernel (csrc/qlink.cu) for CUDA tensors and its plain
-torch version (`*_ref`) for CPU tensors. Inference only.
+torch version (`*_ref`) for CPU tensors. Where a gradient is wanted each is
+an autograd op. The down-link's backward is TPU kernel #8
+(e2enet_tpu/ops/qlink.py:_downlink_bwd_kernel), `downlink_bwd`: the CUDA
+kernel for CUDA tensors, `downlink_bwd_ref` for CPU tensors; it recomputes
+the raw running max/min chains over each window and routes the gradient
+along the chain with maximum's subgradient, a tie splitting 0.5 at every
+pairwise step. The up-link's and the seg head's backward is torch's
+autograd of their plain versions, as the reference delegates to jax.vjp of
+its XLA twins; those write the leaky relu as jnp.maximum(a, a * slope)
+does (ops.fused_block.lrelu_max).
 """
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from .fused_block import LRELU_SLOPE, NO_FLIPS, Flips, affine_nc, slope_in
+from .autograd import check_device, grad_like, needs_grad, plain_vjp
+from .fused_block import LRELU_SLOPE, NO_FLIPS, Flips, affine_nc, lrelu_max
 
 
 def flip_transp_kernel(kernel: torch.Tensor, flips: Flips) -> torch.Tensor:
@@ -46,14 +55,7 @@ def flip_transp_kernel(kernel: torch.Tensor, flips: Flips) -> torch.Tensor:
 
 
 def _check_cuda(name, tensors, dtype=torch.bfloat16):
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: tensors on several devices")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no backward kernel; run it under "
-                           f"torch.no_grad()/inference_mode()")
+    dev = check_device(name, tensors)
     x = tensors[0]
     if x.dtype != dtype or x.dim() != 5:
         raise TypeError(f"the CUDA {name} takes a bfloat16 (N, D, H, W, C) "
@@ -74,7 +76,7 @@ def uplink_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
     shape = (N, 1, 1, 1, C)
     m = affine_nc(mult, N, C).to(dtype).reshape(shape)
     o = affine_nc(off, N, C).to(dtype).reshape(shape)
-    u = F.leaky_relu(x * m + o, slope_in(dtype))
+    u = lrelu_max(x * m + o)
     k = flip_transp_kernel(kernel, flips).to(dtype).float()
     cout, (sd, sh, sw) = k.shape[1], k.shape[2:]
     w2 = k.permute(0, 2, 3, 4, 1).reshape(C, sd * sh * sw * cout)
@@ -86,7 +88,16 @@ def uplink_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
 def uplink(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
            kernel: torch.Tensor, flips: Flips = NO_FLIPS) -> torch.Tensor:
     """The up-link: plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors (bfloat16). Same arguments and result as uplink_ref."""
+    tensors (bfloat16). Same arguments and result as uplink_ref; with a
+    gradient wanted, an autograd op whose backward is uplink_ref's."""
+    if needs_grad((x, mult, off, kernel)):
+        return plain_vjp(lambda *t: _uplink_forward(*t, flips),
+                         lambda *t: uplink_ref(*t, flips),
+                         (x, mult, off, kernel))
+    return _uplink_forward(x, mult, off, kernel, flips)
+
+
+def _uplink_forward(x, mult, off, kernel, flips):
     if x.device.type == "cpu":
         return uplink_ref(x, mult, off, kernel, flips)
     dev = _check_cuda("uplink", (x, mult, off, kernel))
@@ -129,13 +140,21 @@ def downlink_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
                        xw.amax(dim=(2, 4, 6)), xw.amin(dim=(2, 4, 6)))
     shape = (N, 1, 1, 1, C)
     a = pick.float() * m.reshape(shape) + o.reshape(shape)
-    return F.leaky_relu(a, LRELU_SLOPE).to(x.dtype)
+    return lrelu_max(a).to(x.dtype)
 
 
 def downlink(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
              window: Tuple[int, int, int] = (2, 2, 2)) -> torch.Tensor:
     """The down-link: plain version for CPU tensors, the CUDA kernel for
-    CUDA tensors (bfloat16). Same arguments and result as downlink_ref."""
+    CUDA tensors (bfloat16). Same arguments and result as downlink_ref;
+    with a gradient wanted, an autograd op whose backward is
+    downlink_bwd."""
+    if needs_grad((x, mult, off)):
+        return _DownlinkFn.apply(tuple(int(v) for v in window), x, mult, off)
+    return _downlink_forward(x, mult, off, window)
+
+
+def _downlink_forward(x, mult, off, window):
     if x.device.type == "cpu":
         return downlink_ref(x, mult, off, window)
     dev = _check_cuda("downlink", (x, mult, off))
@@ -153,6 +172,99 @@ def downlink(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
 downlink.launches = 0
 
 
+def downlink_bwd_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
+                     gy: torch.Tensor, window: Tuple[int, int, int] = (2, 2, 2)):
+    """Plain torch version of the down-link's backward (TPU kernel #8): x
+    the forward's input, gy the cotangent of its output. The window's
+    elements are taken in the reference's block order (bd, bh, bw); along
+    the running max (mult > 0) or min chain, element k takes 1 of what
+    reaches it where it beats the running value before it, 0.5 where it
+    ties, and passes the rest on. Returns (gx in x's dtype, zero on a
+    ragged edge; g mult, g off (N, C) float32)."""
+    wd, wh, ww = window
+    N, D, H, W, C = x.shape
+    Do, Ho, Wo = D // wd, H // wh, W // ww
+    Q = wd * wh * ww
+    xw = x[:, :Do * wd, :Ho * wh, :Wo * ww].reshape(
+        N, Do, wd, Ho, wh, Wo, ww, C).permute(0, 1, 3, 5, 2, 4, 6, 7) \
+        .reshape(N, Do, Ho, Wo, Q, C).float()
+    shape = (N, 1, 1, 1, C)
+    m = affine_nc(mult, N, C).reshape(shape)
+    o = affine_nc(off, N, C).reshape(shape)
+    use_max = m > 0
+    run = [xw[..., 0, :]]
+    for k in range(1, Q):
+        xk = xw[..., k, :]
+        run.append(torch.where(use_max, torch.maximum(run[-1], xk),
+                               torch.minimum(run[-1], xk)))
+    pick = run[-1]
+    ga = gy.float()
+    ga = torch.where(pick * m + o >= 0, ga, ga * LRELU_SLOPE)
+    gmult = (ga * pick).sum(dim=(1, 2, 3))
+    goff = ga.sum(dim=(1, 2, 3))
+    g = ga * m
+    gxs = [None] * Q
+    for k in range(Q - 1, 0, -1):
+        xk, prev = xw[..., k, :], run[k - 1]
+        beats = torch.where(use_max, xk > prev, xk < prev)
+        w = beats.float() + 0.5 * (xk == prev).float()
+        gxs[k] = g * w
+        g = g * (1.0 - w)
+    gxs[0] = g
+    gxw = torch.stack(gxs, dim=4).reshape(N, Do, Ho, Wo, wd, wh, ww, C) \
+        .permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(N, Do * wd, Ho * wh,
+                                                 Wo * ww, C)
+    gx = torch.zeros_like(x)
+    gx[:, :Do * wd, :Ho * wh, :Wo * ww] = gxw.to(x.dtype)
+    return gx, gmult, goff
+
+
+def downlink_bwd(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
+                 gy: torch.Tensor, window: Tuple[int, int, int] = (2, 2, 2)):
+    """The down-link's backward: plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors (bfloat16, windows of at most 8 elements, at
+    most 256 channels; raises on what the kernel does not take). Same
+    arguments and results as downlink_bwd_ref."""
+    if x.device.type == "cpu":
+        return downlink_bwd_ref(x, mult, off, gy, window)
+    dev = _check_cuda("downlink_bwd", (x, mult, off, gy))
+    N, D, H, W, C = (int(v) for v in x.shape)
+    wd, wh, ww = (int(v) for v in window)
+    if tuple(gy.shape) != (N, D // wd, H // wh, W // ww, C):
+        raise ValueError(f"gy {tuple(gy.shape)} does not fit x "
+                         f"{tuple(x.shape)} and window {tuple(window)}")
+    from . import _native
+    ragged = D % wd or H % wh or W % ww
+    gx = torch.zeros_like(x) if ragged else torch.empty_like(x)
+    gaff = torch.zeros((N, C, 2), dtype=torch.float32, device=dev)
+    _native.launch_downlink_bwd(x.contiguous(), gy.to(x.dtype).contiguous(),
+                                affine_nc(mult, N, C), affine_nc(off, N, C),
+                                gx, gaff, (wd, wh, ww))
+    downlink_bwd.launches += 1
+    return gx, gaff[..., 0], gaff[..., 1]
+
+
+downlink_bwd.launches = 0
+
+
+class _DownlinkFn(torch.autograd.Function):
+    """The down-link as an autograd op: forward the kernel (or its plain
+    version), backward downlink_bwd (kernel #8's port)."""
+
+    @staticmethod
+    def forward(ctx, window, x, mult, off):
+        ctx.window = window
+        ctx.save_for_backward(x, mult, off)
+        return _downlink_forward(x, mult, off, window)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, mult, off = ctx.saved_tensors
+        gx, gm, go = downlink_bwd(x, mult, off, gy, ctx.window)
+        return (None, grad_like(gx, x), grad_like(gm, mult),
+                grad_like(go, off))
+
+
 # --------------------------------------------------------------------------
 # seg head: pending raw -> float32 norm + lrelu -> 1x1 -> logits or probs
 
@@ -166,7 +278,7 @@ def seghead_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
     shape = (N, 1, 1, 1, C)
     a = (x.float() * affine_nc(mult, N, C).reshape(shape)
          + affine_nc(off, N, C).reshape(shape))
-    u = F.leaky_relu(a, LRELU_SLOPE).to(x.dtype)
+    u = lrelu_max(a).to(x.dtype)
     logits = u.float() @ weight.to(x.dtype).float().t()
     if probs_dtype is None:
         return logits
@@ -178,7 +290,16 @@ def seghead(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
             probs_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The seg head: plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (bfloat16 in; bfloat16 probs or float32 logits out). Same
-    arguments and result as seghead_ref."""
+    arguments and result as seghead_ref; with a gradient wanted, an
+    autograd op whose backward is seghead_ref's."""
+    if needs_grad((x, mult, off, weight)):
+        return plain_vjp(lambda *t: _seghead_forward(*t, probs_dtype),
+                         lambda *t: seghead_ref(*t, probs_dtype),
+                         (x, mult, off, weight))
+    return _seghead_forward(x, mult, off, weight, probs_dtype)
+
+
+def _seghead_forward(x, mult, off, weight, probs_dtype):
     if x.device.type == "cpu":
         return seghead_ref(x, mult, off, weight, probs_dtype)
     dev = _check_cuda("seghead", (x, mult, off, weight))

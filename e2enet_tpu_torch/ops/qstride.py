@@ -28,15 +28,20 @@ Output extent per axis: (L - parity + s - 1) // s, parity s - 1 on a
 mirrored axis.
 
 `strided_fused` runs the CUDA kernel (csrc/qstride.cu) for CUDA tensors
-and its plain torch version for CPU tensors. Inference only.
+and its plain torch version for CPU tensors. Where a gradient is wanted it
+is an autograd op whose backward is torch's autograd of the plain version,
+as the reference's `_bwd` (qstride.py:354-356) takes jax.vjp of its XLA
+composition; the plain version writes the leaky relu as that composition
+does, jnp.maximum(a, a * slope) (ops.fused_block.lrelu_max).
 """
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .fused_block import (LRELU_SLOPE, NO_FLIPS, SHIFT_SIZE, Flips,
-                          affine_nc, mirror_conv_kernel)
+from .autograd import needs_grad, plain_vjp
+from .fused_block import (NO_FLIPS, SHIFT_SIZE, Flips, affine_nc, lrelu_max,
+                          mirror_conv_kernel)
 from .shift import depth_shift_groups, group_shifts, strided_depth_source
 
 
@@ -64,7 +69,7 @@ def strided_fused_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
     sd, sh, sw = stride
     m = affine_nc(mult, N, C)[:, None, None, None, :]
     o = affine_nc(off, N, C)[:, None, None, None, :]
-    u = F.leaky_relu(x.float() * m + o, LRELU_SLOPE).to(dtype)
+    u = lrelu_max(x.float() * m + o).to(dtype)
     groups, parity = strided_depth_source(group_shifts(C, SHIFT_SIZE), sd,
                                           flips[0])
     s = depth_shift_groups(u, groups)[:, parity::sd]
@@ -93,7 +98,16 @@ def strided_fused(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
     """The strided transition: plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (bfloat16, strides of 1 or 2; raises on what the
     kernel does not take). Same arguments and results as
-    strided_fused_ref."""
+    strided_fused_ref; with a gradient wanted, an autograd op whose
+    backward is strided_fused_ref's."""
+    if needs_grad((x, mult, off, kernel, bias)):
+        return plain_vjp(lambda *t: _strided_forward(*t, stride, flips),
+                         lambda *t: strided_fused_ref(*t, stride, flips),
+                         (x, mult, off, kernel, bias))
+    return _strided_forward(x, mult, off, kernel, bias, stride, flips)
+
+
+def _strided_forward(x, mult, off, kernel, bias, stride, flips):
     dev = x.device
     if dev.type == "cpu":
         return strided_fused_ref(x, mult, off, kernel, bias, stride, flips)
@@ -102,9 +116,6 @@ def strided_fused(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
     tensors = (x, mult, off, kernel, bias)
     if any(t.device != dev for t in tensors):
         raise ValueError("strided_fused: tensors on several devices")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("strided_fused has no backward kernel; run it "
-                           "under torch.no_grad()/inference_mode()")
     if x.dtype != torch.bfloat16 or x.dim() != 5:
         raise TypeError("the CUDA strided transition takes a bfloat16 "
                         "(N, D, H, W, C) tensor")

@@ -1,7 +1,9 @@
 """The CUDA kernels on the card, against their plain torch versions: the
 fused block (also mirrored), the fused block with a lazy up-link part
 (ragged, compact groups, all mirrors), the strided transition, the
-up-link, the down-link and the seg head. Imports no jax (the machine with the card has none); run there
+up-link, the down-link and the seg head; the block backward and the
+down-link backward (main-path, ragged and N = 2 shapes, ties), and a
+small train step's launches. Imports no jax (the machine with the card has none); run there
 with
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
@@ -88,9 +90,16 @@ def test_wrapper_launches_or_raises():
     b = torch.zeros(4, device=dev)
     with pytest.raises(TypeError):                  # float32 parts
         tfb.fused_shift_conv_block([x], k, b, [None])
-    with pytest.raises(RuntimeError):               # needs a backward
-        tfb.fused_shift_conv_block([x.bfloat16()], k.requires_grad_(), b,
-                                   [None])
+    # with a gradient wanted: the forward kernel, then the backward kernel
+    before = (tfb.fused_shift_conv_block.launches,
+              tfb.fused_shift_conv_block_bwd.launches)
+    y, s = tfb.fused_shift_conv_block([x.bfloat16()], k.requires_grad_(), b,
+                                      [None])
+    (y.float().sum() + s.sum()).backward()
+    assert (tfb.fused_shift_conv_block.launches,
+            tfb.fused_shift_conv_block_bwd.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert k.grad is not None and bool(torch.isfinite(k.grad).all())
     wide = torch.randn(1, 2, 4, 144, 8, device=dev).bfloat16()
     before = tfb.fused_shift_conv_block.launches
     with torch.no_grad():
@@ -301,9 +310,13 @@ def test_link_wrappers_launch_or_raise():
                           torch.float16)
         with pytest.raises(RuntimeError):           # K = 40 > 32
             qlink.seghead(x.bfloat16(), m, o, torch.randn(40, 8, device=dev))
-    w = torch.randn(4, 8, 2, 2, 2, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError):               # needs a backward
-        qlink.uplink(x.bfloat16(), m, o, w)
+    # with a gradient wanted: the kernel forward, the plain version's
+    # autograd backward
+    w = torch.randn(8, 4, 2, 2, 2, device=dev, requires_grad=True)
+    before = qlink.uplink.launches
+    qlink.uplink(x.bfloat16(), m, o, w).float().sum().backward()
+    assert qlink.uplink.launches == before + 1
+    assert w.grad is not None and bool(torch.isfinite(w.grad).all())
 
 
 # (N, Dc, Hc, Wc, materialised part channels, pending affine per part, cin,
@@ -379,3 +392,144 @@ def test_lazy_wrapper_raises():
         with pytest.raises(TypeError):
             qfused.lazy_up_fused_block(parts + [up], up, kernel, bias,
                                        affs + [None])
+
+
+# ---------------------------------------------------------------------------
+# backward kernels
+
+def _bwd_inputs(seed, N, D, H, W, part_c, affine, CO, dev):
+    """The forward's inputs and output and random cotangents."""
+    parts, affs, kernel, bias = _make(seed, N, D, H, W, part_c, affine, CO,
+                                      dev)
+    with torch.no_grad():
+        y, _ = tfb.fused_shift_conv_block_ref(parts, kernel, bias, affs)
+    rng = np.random.RandomState(seed + 7)
+    gy = _rand(rng, dev, *y.shape, scale=0.1).bfloat16()
+    gstats = _rand(rng, dev, N, CO, 2, scale=1e-4)
+    return parts, kernel, bias, affs, y, gy, gstats
+
+
+def _close_max(a, b, rtol):
+    """max |a - b| within rtol of max |b| (float32 sums in another order,
+    with atomics)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) <= rtol * float(b.abs().max()) + 1e-30
+
+
+# (N, D, H, W, part channels, pending affine per part, CO): level-0 and
+# level-1 widths at small extents, N = 2, ragged W, D below the shift
+# window, a part with no affine, two CO tiles
+BWD = {
+    "l0_lazy_width": (2, 6, 8, 64, (48, 48), (True, False), 48),
+    "l1_width": (2, 4, 8, 32, (96, 96, 48), (True, False, False), 96),
+    "l1_one_part": (1, 4, 8, 32, (96,), (True,), 96),
+    "ragged_w13": (2, 5, 6, 13, (8, 5), (True, True), 7),
+    "d2": (1, 2, 8, 16, (6, 2), (True, False), 4),
+    "co112": (1, 3, 4, 32, (16, 24), (False, True), 112),
+    "c1": (2, 4, 8, 16, (1,), (False,), 48),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BWD))
+def test_block_bwd_matches_plain(case):
+    """The block backward kernel against its plain version on the same
+    bf16 inputs: gx within two bf16 steps of each channel's largest |gx|
+    (ct is rounded to bf16 after float32 sums in another order); gW, gb
+    and g(affine) within 2e-3 of the largest |value| (float32 sums in
+    another order, atomics)."""
+    dev = _card()
+    args = _bwd_inputs(len(case), *BWD[case], dev)
+    before = tfb.fused_shift_conv_block_bwd.launches
+    gp, gk, gb, ga = tfb.fused_shift_conv_block_bwd(*args)
+    rp, rk, rb, ra = tfb.fused_shift_conv_block_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert tfb.fused_shift_conv_block_bwd.launches == before + 1
+    for g, r in zip(gp, rp):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert _within_ulps(g, r)
+    assert _close_max(gk, rk, 2e-3) and _close_max(gb, rb, 2e-3)
+    for g, r in zip(ga, ra):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert _close_max(g[0], r[0], 2e-3)
+            assert _close_max(g[1], r[1], 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flips", [(True, False, True), (False, True, False)])
+def test_block_bwd_flips_match_plain(flips):
+    dev = _card()
+    parts, kernel, bias, affs, y, gy, gstats = _bwd_inputs(
+        5, 1, 5, 8, 24, (40, 8), (True, False), 24, dev)
+    gp, gk, gb, ga = tfb.fused_shift_conv_block_bwd(
+        parts, kernel, bias, affs, y, gy, gstats, flips)
+    rp, rk, rb, ra = tfb.fused_shift_conv_block_bwd_ref(
+        parts, kernel, bias, affs, y, gy, gstats, flips)
+    torch.cuda.synchronize()
+    assert all(_within_ulps(g, r) for g, r in zip(gp, rp))
+    assert _close_max(gk, rk, 2e-3) and _close_max(gb, rb, 2e-3)
+    assert _close_max(ga[0][0], ra[0][0], 2e-3)
+
+
+# (N, D, H, W, C, window, integer-valued input: exact ties)
+DOWN_BWD = {
+    "bench_width": (2, 8, 16, 64, 48, (2, 2, 2), False),
+    "ties": (2, 6, 8, 32, 48, (2, 2, 2), True),
+    "ragged": (2, 7, 6, 26, 8, (2, 2, 2), True),
+    "c5": (1, 4, 4, 6, 5, (2, 2, 2), False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DOWN_BWD))
+def test_downlink_bwd_matches_plain(case):
+    """Kernel #8's port against its plain version: the same float32 steps,
+    so gx agrees to the bit; g(mult), g(off) within 1e-4 of the largest
+    (float32 sums in another order)."""
+    from e2enet_tpu_torch.ops import qlink
+    dev = _card()
+    N, D, H, W, C, window, ties = DOWN_BWD[case]
+    rng = np.random.RandomState(D + W + C)
+    x = _rand(rng, dev, N, D, H, W, C)
+    if ties:
+        x = torch.round(2 * x)              # few distinct values: ties
+    x = x.bfloat16()
+    m, o = _rand(rng, dev, N, C), _rand(rng, dev, N, C, scale=0.2)
+    m[:, 0] = 0.0                           # the min chain at mult == 0
+    o[:, 1] = 0.0
+    gy = _rand(rng, dev, N, D // 2, H // 2, W // 2, C).bfloat16()
+    before = qlink.downlink_bwd.launches
+    gx, gm, go = qlink.downlink_bwd(x, m, o, gy, window)
+    rx, rm, ro = qlink.downlink_bwd_ref(x, m, o, gy, window)
+    torch.cuda.synchronize()
+    assert qlink.downlink_bwd.launches == before + 1
+    assert gx.dtype == torch.bfloat16 and torch.equal(gx, rx)
+    assert _close_max(gm, rm, 1e-4) and _close_max(go, ro, 1e-4)
+
+
+@pytest.mark.cuda
+def test_train_step_launches():
+    """One train step of a small bf16 model on the card launches each
+    kernel as kernel_launches_per_train_step counts, and its loss and
+    gradient norm are finite."""
+    from e2enet_tpu_torch.models.unetpp import kernel_launches_per_train_step
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.training import train_bench_masks as tb
+    dev = _card()
+    model, state, step_fn, _, _ = tb.build(dev, base_features=8)
+    batches = tb.device_batches(np.random.RandomState(0), 1, 2, (32, 32, 32),
+                                model.num_ds_outputs(), dev)
+    ops = {**{k: v[0] for k, v in blocks.KERNEL_OPS.items()},
+           **{k: v[0] for k, v in blocks.BACKWARD_OPS.items()}}
+    for op in ops.values():
+        op.launches = 0
+    _, metrics = step_fn(state, *batches[0], 0.01)
+    torch.cuda.synchronize()
+    want = kernel_launches_per_train_step(model)
+    total = {k: want["forward"].get(k, 0) + want["backward"].get(k, 0)
+             for k in ops}
+    assert {k: op.launches for k, op in ops.items()} == total
+    assert bool(torch.isfinite(metrics["loss"])) and bool(
+        torch.isfinite(metrics["grad_norm"]))
