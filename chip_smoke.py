@@ -52,7 +52,19 @@ Phases (any failure ends the run with a non-zero exit):
               (CUDA events) and the peak memory. On a 2 x 64^3 batch, one
               step's gradients through the kernels, through the bf16 plain
               path and through a float32 plain run
-  8. report   one JSON line with every kernel's launches, error, times and
+  8. experiments  the experiment kernels (TPU kernels #11-#14) against
+              their plain versions at the experiments' main shapes (1 x 128^3
+              x 48 -> 48 bf16; the pipelined block at l0_48+48_to48 with both
+              affines, also against kernel #1 itself; the products at 4096^3)
+              and at ragged ones (D = 3, W = 13, C in {1, 8, 24}, N = 2; M, N,
+              K off the tile), the channels-first block with the affine and
+              the statistics each on and off, the ring shift's backward; times,
+              bounds and the library call (cuDNN's conv of the pre-shifted
+              operand, #1 beside the pipelined block, torch.matmul /
+              torch._int_mm; none for the shift and the relayout's copy);
+              then each experiment's `main` once with few repetitions, its
+              launches counted as the "experiments" path
+  9. report   one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -99,6 +111,12 @@ AGREE_SLACK = 0.005
 # 4.2M pixels (2 x 128^3) in another order and with atomics: within 2e-3 of
 # the tensor's largest |value|
 BWD_RTOL = 2e-3
+# the experiment kernels: statistics within 1e-4 of their largest value;
+# the bf16 product (float32 out) within 1e-3 of its largest |value| (sums
+# over K = 4096 in another order); the rest as above or equal to the bit
+EXP_STATS_RTOL = 1e-4
+GEMM_RTOL = 1e-3
+PEAK_INT8 = 1979e12
 # the train phase
 TRAIN_STEPS = 8
 TRAIN_UPDATE_EVERY = 4
@@ -736,11 +754,319 @@ def train_phase(rnd, R, ops, reset_counts, counts, smi):
             "ms_per_step": float(np.mean(ms)), "peak_gib": peak}
 
 
+def exp_result(name, shape, err, kernel, plain, library, b_ms, b_by, reps,
+               extra=""):
+    """Time kernel, plain and library (None: no such call) and report."""
+    res = dict(max_abs_err=err, ms=cuda_ms(kernel, reps),
+               plain_ms=cuda_ms(plain, max(1, reps // 4)),
+               library_ms=None if library is None else cuda_ms(library, reps),
+               bound_ms=b_ms, bound_by=b_by)
+    lib = "none" if library is None else f"{res['library_ms']:.4f} ms"
+    print(f"  {name} {shape}: max abs err {err:.3e}{extra}  kernel "
+          f"{res['ms']:.4f} ms  plain {res['plain_ms']:.4f} ms  bound "
+          f"{b_ms:.4f} ms by {b_by} ({100 * b_ms / res['ms']:.1f} % of it)  "
+          f"library {lib}", flush=True)
+    return res
+
+
+def ring_case(name, N, D, H, W, C, CO, rnd, reps):
+    """#11: the ring shift + conv and the ring shift alone vs plain; the
+    shift's backward (the ring kernel, shifts negated) vs the plain shift
+    with the shifts negated."""
+    import torch
+    import torch.nn.functional as F
+    from e2enet_tpu_torch.experiments import shift_conv as sc
+    from e2enet_tpu_torch.ops import fused_block as fb
+    from e2enet_tpu_torch.ops.shift import depth_shift_groups, mirror_groups
+    x = rnd(N, D, H, W, C).to(torch.bfloat16)
+    k = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    b = rnd(CO, scale=0.1)
+    with torch.inference_mode():
+        y_k, s_k = sc.fused_shift_conv(x, k, b), sc.depth_shift_ring(x)
+        y_p, s_p = sc.fused_shift_conv_ref(x, k, b), sc.depth_shift_ring_ref(x)
+    torch.cuda.synchronize()
+    ok, err = y_err(y_k, y_p, Y_ULPS)
+    check(ok, f"{name}: ring shift + conv differs by more than {Y_ULPS} bf16 "
+              f"ulps")
+    check(torch.equal(s_k, s_p), f"{name}: ring shift not equal to the plain "
+                                 f"shift")
+    xg = x.clone().requires_grad_()
+    g = rnd(N, D, H, W, C).to(torch.bfloat16)
+    sc.depth_shift_ring(xg).backward(g)
+    torch.cuda.synchronize()
+    check(torch.equal(xg.grad, depth_shift_groups(
+        g, mirror_groups(sc.ring_groups(C, 5)))),
+        f"{name}: the ring shift's backward differs from the plain one")
+    if reps == 0:
+        return dict(max_abs_err=err), dict(max_abs_err=0.0)
+    s2 = s_p.reshape(N * D, H, W, C).permute(0, 3, 1, 2)
+    w2 = k.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    shape = f"N={N} D={D} H={H} W={W} C={C} CO={CO}"
+    with torch.inference_mode():
+        fused = exp_result(
+            "fused_shift_conv", shape, err, lambda: sc.fused_shift_conv(x, k, b),
+            lambda: sc.fused_shift_conv_ref(x, k, b),
+            lambda: F.conv2d(s2, w2, padding=1),
+            *bound(nbytes(x, y_k) + 9 * C * CO * 2,
+                   2.0 * N * D * H * W * 9 * C * CO, PEAK_BF16), reps)
+        shift = exp_result(
+            "depth_shift_ring", f"N={N} D={D} H={H} W={W} C={C}", 0.0,
+            lambda: sc.depth_shift_ring(x), lambda: sc.depth_shift_ring_ref(x),
+            None, *bound(nbytes(x, s_k), 0.0, PEAK_BF16), reps)
+        # the question of the ring: against #1, which restages the operand
+        # from device memory for every depth, on the same input
+        fused["kernel1_ms"] = cuda_ms(
+            lambda: fb.fused_shift_conv_block([x], k, b, [None]), reps)
+    print(f"  kernel #1 (restaging) on the same input: "
+          f"{fused['kernel1_ms']:.4f} ms", flush=True)
+    return fused, shift
+
+
+def cf_case(name, N, D, H, W, C, CO, rnd, reps):
+    """#12: the channels-first block, the affine and the statistics each on
+    and off, vs plain; with reps the times without and with both."""
+    import torch
+    import torch.nn.functional as F
+    from e2enet_tpu_torch.experiments import exp_cf_fused as cf
+    from e2enet_tpu_torch.ops.shift import depth_shift
+    x = rnd(N, D, C, H * W).to(torch.bfloat16)
+    k = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    b = rnd(CO, scale=0.1)
+    m, o = rnd(C, scale=0.3, shift=1.0), rnd(C, scale=0.2)
+    err = 0.0
+    with torch.inference_mode():
+        for aff in (False, True):
+            for st in (False, True):
+                a = (m, o) if aff else (None, None)
+                y_k, s_k = cf.cf_fused_shift_conv(x, k, b, H, W, *a, st)
+                y_p, s_p = cf.cf_fused_shift_conv_ref(x, k, b, H, W, *a, st)
+                torch.cuda.synchronize()
+                ok, e = y_err(y_k.transpose(2, 3), y_p.transpose(2, 3),
+                              Y_ULPS)
+                check(ok, f"{name} affine={aff} stats={st}: y differs by "
+                          f"more than {Y_ULPS} bf16 ulps")
+                if st:
+                    rel = close_max(s_k, s_p)
+                    check(rel <= EXP_STATS_RTOL, f"{name} affine={aff}: "
+                          f"stats rel err {rel}")
+                err = max(err, e)
+        if reps == 0:
+            return dict(max_abs_err=err)
+        x_cl = x.reshape(N, D, C, H, W).permute(0, 1, 3, 4, 2).contiguous()
+        s2 = depth_shift(x_cl, 5).reshape(N * D, H, W, C).permute(0, 3, 1, 2)
+        w2 = k.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        res = exp_result(
+            "cf_fused_shift_conv", f"N={N} D={D} H={H} W={W} C={C} CO={CO}",
+            err, lambda: cf.cf_fused_shift_conv(x, k, b, H, W),
+            lambda: cf.cf_fused_shift_conv_ref(x, k, b, H, W),
+            lambda: F.conv2d(s2, w2, padding=1),
+            *bound(nbytes(x, y_k) + 9 * C * CO * 2,
+                   2.0 * N * D * H * W * 9 * C * CO, PEAK_BF16), reps)
+        res["affine_stats_ms"] = cuda_ms(lambda: cf.cf_fused_shift_conv(
+            x, k, b, H, W, m, o, True), reps)
+    print(f"  cf_fused_shift_conv with the affine and the statistics on: "
+          f"{res['affine_stats_ms']:.4f} ms", flush=True)
+    return res
+
+
+def reshape_case(name, H, W, C, dtype, rnd, reps):
+    """#12's relayout probe vs plain (equal to the bit)."""
+    import torch
+    from e2enet_tpu_torch.experiments import exp_cf_fused as cf
+    x = rnd(H, W * C).to(dtype)
+    with torch.inference_mode():
+        y = cf.reshape_hwc(x, C)
+        torch.cuda.synchronize()
+        check(torch.equal(y, cf.reshape_hwc_ref(x, C)),
+              f"{name}: reshape_hwc not equal to the reshape")
+        if reps == 0:
+            return dict(max_abs_err=0.0)
+        # the plain version is itself one PyTorch call, the copy
+        return exp_result(
+            "reshape_hwc", f"H={H} W={W} C={C} {dtype}", 0.0,
+            lambda: cf.reshape_hwc(x, C), lambda: cf.reshape_hwc_ref(x, C),
+            lambda: x.reshape(-1, C).clone(),
+            *bound(2 * nbytes(x), 0.0, PEAK_BF16), reps)
+
+
+def pipe_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
+    """#13 vs plain and vs kernel #1 (y equal to the bit)."""
+    import torch
+    import torch.nn.functional as F
+    from e2enet_tpu_torch.experiments import exp_pipeline_fwd as pf
+    from e2enet_tpu_torch.ops import fused_block as fb
+    parts = [rnd(N, D, H, W, c).to(torch.bfloat16) for c in part_c]
+    affines = [rnd.affine(N, c) if a else None
+               for c, a in zip(part_c, affine)]
+    C = sum(part_c)
+    kernel = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    bias = rnd(CO, scale=0.1)
+    args = (parts, kernel, bias, affines)
+    with torch.inference_mode():
+        y_k, s_k = pf.pipelined_fused_block(*args)
+        y_p, s_p = pf.pipelined_fused_block_ref(*args)
+        y_1, s_1 = fb.fused_shift_conv_block(*args)
+        torch.cuda.synchronize()
+        ok, err = y_err(y_k, y_p, Y_ULPS)
+        check(ok, f"{name}: y differs by more than {Y_ULPS} bf16 ulps")
+        srel = stats_err(s_k, s_p, y_p)
+        check(srel <= STATS_RTOL, f"{name}: stats rel err {srel}")
+        check(torch.equal(y_k, y_1), f"{name}: y not equal to kernel #1's")
+        y_s, _ = pf.pipelined_fused_block(*args, overlap=False)
+        check(torch.equal(y_s, y_1), f"{name}: y without the overlap not "
+                                     f"equal to kernel #1's")
+        rel1 = close_max(s_k, s_1)
+        check(rel1 <= EXP_STATS_RTOL, f"{name}: stats vs #1 rel err {rel1}")
+        if reps == 0:
+            return dict(max_abs_err=err)
+        x2 = torch.cat(parts, -1).reshape(N * D, H, W, C).permute(0, 3, 1, 2)
+        w2 = kernel.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        res = exp_result(
+            "pipelined_fused_block", f"N={N} D={D} H={H} W={W} "
+            f"C={list(part_c)} affine={list(affine)} CO={CO}", err,
+            lambda: pf.pipelined_fused_block(*args),
+            lambda: pf.pipelined_fused_block_ref(*args),
+            lambda: F.conv2d(x2, w2, padding=1),
+            *bound(nbytes(*parts, y_k) + 9 * C * CO * 2,
+                   2.0 * N * D * H * W * 9 * C * CO, PEAK_BF16), reps,
+            f" (y equal to #1's; stats vs #1 rel {rel1:.2e})")
+        # #1, the pipelined kernel and the same kernel without the overlap
+        # (the experiment's control), in turns on the same inputs
+        runs = {"kernel1": lambda: fb.fused_shift_conv_block(*args),
+                "pipelined": lambda: pf.pipelined_fused_block(*args),
+                "serial": lambda: pf.pipelined_fused_block(*args,
+                                                           overlap=False)}
+        turns = {k: [] for k in runs}
+        for k in ("kernel1", "pipelined", "serial", "serial", "pipelined",
+                  "kernel1"):
+            turns[k].append(cuda_ms(runs[k], reps))
+    res["kernel1_ms"] = sum(turns["kernel1"]) / 2
+    res["serial_ms"] = sum(turns["serial"]) / 2
+    res["turns_ms"] = turns
+    print(f"  in turns (#1, pipelined, serial, serial, pipelined, #1): "
+          f"{turns}", flush=True)
+    return res
+
+
+def gemm_case(name, M, N, K, dtype, rnd, reps):
+    """#14 vs plain: int8 equal to the bit, bf16 within GEMM_RTOL."""
+    import torch
+    from e2enet_tpu_torch.experiments import exp_int8_mma as im
+    if dtype == torch.int8:
+        a = torch.randint(-128, 128, (M, K), generator=rnd.gen,
+                          device="cuda", dtype=dtype)
+        b = torch.randint(-128, 128, (K, N), generator=rnd.gen,
+                          device="cuda", dtype=dtype)
+    else:
+        a, b = rnd(M, K).to(dtype), rnd(K, N).to(dtype)
+    with torch.inference_mode():
+        c = im.mma_gemm(a, b)
+        ref = im.mma_gemm_ref(a, b)
+        torch.cuda.synchronize()
+        err = float((c.double() - ref.double()).abs().max())
+        if dtype == torch.int8:
+            check(torch.equal(c, ref), f"{name}: int8 product not exact "
+                                       f"(max abs err {err})")
+        else:
+            rel = close_max(c, ref)
+            check(rel <= GEMM_RTOL, f"{name}: bf16 product rel err {rel}")
+        if reps == 0:
+            return dict(max_abs_err=err)
+        lib = ((lambda: torch._int_mm(a, b)) if dtype == torch.int8
+               else (lambda: torch.matmul(a, b)))
+        return exp_result(
+            "mma_gemm", f"M={M} N={N} K={K} {dtype}", err,
+            lambda: im.mma_gemm(a, b), lambda: im.mma_gemm_ref(a, b), lib,
+            *bound(nbytes(a, b, c), 2.0 * M * N * K,
+                   PEAK_INT8 if dtype == torch.int8 else PEAK_BF16), reps)
+
+
+def experiments_phase(rnd, R, reset_counts, counts, smi):
+    """Phase 8: the experiment kernels against their plain versions, then
+    each experiment's main once. Returns {"launches": per kernel over the
+    mains, "kernels": result entries}."""
+    import torch
+    from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
+                                              exp_pipeline_fwd, shift_conv)
+    out = {}
+    print(f"[experiments] the experiment kernels (#11-#14) vs their plain "
+          f"versions  [{smi}]", flush=True)
+    print("[kernel] fused_shift_conv / depth_shift_ring (#11) vs plain; "
+          "'library' is cuDNN's bf16 conv of the pre-shifted operand; the "
+          "shift has no library call", flush=True)
+    fused, shift = ring_case("l0_48_to48", 1, 128, 128, 128, 48, 48, rnd, R)
+    errs = [ring_case(f"ragged_{c}", 2, 3, 6, 13, c, co, rnd, 0)[0][
+        "max_abs_err"] for c, co in ((1, 8), (8, 8), (24, 40))]
+    out["fused_shift_conv"] = dict(fused, max_abs_err=max(
+        [fused["max_abs_err"]] + errs))
+    out["depth_shift_ring"] = shift
+    print("[kernel] cf_fused_shift_conv (#12) vs plain, affine and stats "
+          "each on and off; 'library' is cuDNN's bf16 conv of the "
+          "pre-shifted channels-last operand", flush=True)
+    main12 = cf_case("l0_48_to48", 1, 128, 128, 128, 48, 48, rnd, R)
+    errs = [cf_case(f"ragged_{c}", 2, 3, 6, 13, c, co, rnd, 0)[
+        "max_abs_err"] for c, co in ((1, 8), (8, 8), (24, 40))]
+    out["cf_fused_shift_conv"] = dict(main12, max_abs_err=max(
+        [main12["max_abs_err"]] + errs))
+    print("[kernel] reshape_hwc (#12, E1) vs plain; 'library' is the copy "
+          "x.reshape(-1, C).clone()", flush=True)
+    reshape_case("e1_probe", 8, 16, 48, torch.float32, rnd, 0)
+    reshape_case("ragged", 5, 13, 3, torch.bfloat16, rnd, 0)
+    out["reshape_hwc"] = reshape_case("l0_volume", 128 * 128, 128, 48,
+                                      torch.bfloat16, rnd, R)
+    print("[kernel] pipelined_fused_block (#13) vs plain and vs kernel #1; "
+          "'library' is cuDNN's bf16 conv of the prepared operand", flush=True)
+    main13 = pipe_case("l0_48+48_to48", 1, 128, 128, 128, [48, 48],
+                       [True, True], 48, rnd, R)
+    errs = [pipe_case(*c, rnd=rnd, reps=0)["max_abs_err"] for c in (
+        ("ragged_w13_c8+24", 2, 3, 6, 13, [8, 24], [True, False], 16),
+        ("d3_c1", 2, 3, 8, 16, [1], [False], 48),
+        ("c24_co112", 2, 3, 4, 32, [24], [True], 112))]
+    out["pipelined_fused_block"] = dict(main13, max_abs_err=max(
+        [main13["max_abs_err"]] + errs))
+    print("[kernel] mma_gemm (#14) vs plain; 'library' is torch.matmul "
+          "(bf16) / torch._int_mm (int8)", flush=True)
+    r14 = {dt: gemm_case("4096^3", 4096, 4096, 4096, dt, rnd, R)
+           for dt in (torch.bfloat16, torch.int8)}
+    for dt in (torch.bfloat16, torch.int8):
+        errs = [gemm_case(f"ragged_{m}x{n}x{k}", m, n, k, dt, rnd, 0)[
+            "max_abs_err"] for m, n, k in ((200, 136, 272), (33, 50, 100),
+                                           (1000, 999, 77))]
+        r14[dt]["max_abs_err"] = max([r14[dt]["max_abs_err"]] + errs)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
+    out["mma_gemm"] = dict(r14[torch.bfloat16],
+                           int8={k: r14[torch.int8][k] for k in keys})
+    torch.cuda.empty_cache()
+
+    # ---- the experiments' entry points, few repetitions each
+    print("[experiments] each experiment's main, --reps 2", flush=True)
+    reset_counts()
+    shift_conv.main(["--reps", "2"])
+    exp_cf_fused.main(["--reps", "2"])
+    exp_cf_fused.main(["--v2", "--reps", "2"])
+    exp_pipeline_fwd.main(["--reps", "2"])
+    exp_int8_mma.main(["--reps", "2"])
+    got = counts()
+    reset_counts()
+    for name in out:
+        check(got[name] > 0, f"experiments: {name} never launched by the "
+                             f"mains")
+    print(f"[experiments] launches over the mains "
+          f"{ {k: got[k] for k in out} }", flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": got, "kernels": out}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the card only")
     try:
+        from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
+                                                  exp_pipeline_fwd,
+                                                  shift_conv)
         from e2enet_tpu_torch.inference.predictor import mirror_apply_fns_for
         from e2enet_tpu_torch.models.masks import attach_masks, masks_density
         from e2enet_tpu_torch.models.sparse_plan import plan_density
@@ -756,6 +1082,13 @@ def main() -> None:
     check("jax" not in sys.modules, "the port imported jax")
     ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
            + list(blocks.BACKWARD_OPS.items())}
+    # the experiment kernels: on no serving or train path
+    ops.update(fused_shift_conv=shift_conv.fused_shift_conv,
+               depth_shift_ring=shift_conv.depth_shift_ring,
+               reshape_hwc=exp_cf_fused.reshape_hwc,
+               cf_fused_shift_conv=exp_cf_fused.cf_fused_shift_conv,
+               pipelined_fused_block=exp_pipeline_fwd.pipelined_fused_block,
+               mma_gemm=exp_int8_mma.mma_gemm)
 
     def reset_counts():
         for op in ops.values():
@@ -1135,7 +1468,12 @@ def main() -> None:
     launches["train"] = train["launches"]
     res.update(train["kernels"])
 
-    # ---- 8. report
+    # ---- 8. experiments: the experiment kernels, then their mains
+    exp = experiments_phase(rnd, R, reset_counts, counts, smi)
+    launches["experiments"] = exp["launches"]
+    res.update(exp["kernels"])
+
+    # ---- 9. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -1147,21 +1485,41 @@ def main() -> None:
                                  "e2enet_tpu/ops/qstride.py:158"),
                "uplink": ("qlink.cu", "e2enet_tpu/ops/qlink.py:104"),
                "downlink": ("qlink.cu", "e2enet_tpu/ops/qlink.py:188"),
-               "seghead": ("qlink.cu", "e2enet_tpu/ops/qlink.py:445")}
+               "seghead": ("qlink.cu", "e2enet_tpu/ops/qlink.py:445"),
+               "fused_shift_conv": ("shift_conv_ring.cu",
+                                    "experiments/shift_conv_pallas.py:61"),
+               "depth_shift_ring": ("shift_conv_ring.cu",
+                                    "experiments/shift_conv_pallas.py:328"),
+               "reshape_hwc": ("cf_fused.cu",
+                               "experiments/exp_cf_fused.py:55"),
+               "cf_fused_shift_conv": ("cf_fused.cu",
+                                       "experiments/exp_cf_fused.py:218"),
+               "pipelined_fused_block": (
+                   "fused_block_pipe.cu",
+                   "experiments/exp_pipeline_fwd.py:37"),
+               "mma_gemm": ("mma_gemm.cu", "experiments/exp_int8_mxu.py:69")}
+    also = {"fused_shift_conv_block_bwd": "e2enet_tpu/ops/qfused.py:796",
+            "fused_shift_conv": "experiments/shift_conv_pallas.py:189",
+            "cf_fused_shift_conv": "experiments/exp_cf_fused.py:82"}
     print("[report] ms, plain_ms, bound_ms and library_ms are per call at "
           "the dense main-path shape (fused block: l0_48+48_to48; lazy "
           "block: l0_48+up96to48_to48, its first sparse level-0 shape under "
           "'sparse_shape'; seg head: probs mode; block backward: the level-0 "
           "lazy node's, batch 2, other shapes under 'shapes'; down-link "
-          "backward: batch 2 at 128^3); max_abs_err over every case; "
-          "launches from the sparse path's two volumes, the up-link's from "
-          "the data-flip path's volume, the backward kernels' from the "
-          "train path's steps (launches_by_path: all four)", flush=True)
+          "backward: batch 2 at 128^3; experiment kernels: 1 x 128^3 x 48 "
+          "-> 48 bf16, the pipelined block at l0_48+48_to48 with both "
+          "affines, the product at 4096^3 in bf16, int8 under 'int8'); "
+          "max_abs_err over every case; launches from the sparse path's two "
+          "volumes, the up-link's from the data-flip path's volume, the "
+          "backward kernels' from the train path's steps, the experiment "
+          "kernels' from the experiments' mains (launches_by_path: all "
+          "five)", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
     for name, (src, rep) in sources.items():
         path = ("sparse" if launches["sparse"][name] else
-                "data-flip" if launches["data-flip"][name] else "train")
+                "data-flip" if launches["data-flip"][name] else
+                "train" if launches["train"][name] else "experiments")
         line = {"name": name, "route": "cuda",
                 "source": f"e2enet_tpu_torch/csrc/{src}", "replaces": rep,
                 "launches": launches[path][name],
@@ -1172,9 +1530,12 @@ def main() -> None:
             line["materialised_ms"] = res[name]["materialised_ms"]
             line["sparse_shape"] = {k: sparse3[0][k] for k in
                                     keys + ("materialised_ms",)}
-        if name == "fused_shift_conv_block_bwd":
-            line["also_replaces"] = "e2enet_tpu/ops/qfused.py:796"
-            line["shapes"] = res[name]["shapes"]
+        if name in also:
+            line["also_replaces"] = also[name]
+        for extra in ("shapes", "int8", "kernel1_ms", "serial_ms",
+                      "turns_ms", "affine_stats_ms"):
+            if extra in res[name]:
+                line[extra] = res[name][extra]
         lines.append(line)
     print(json.dumps({"kernels": lines}))
     print(smi)

@@ -1,7 +1,9 @@
 // The shiftConvPP block machinery shared by the fused block (#1,
 // fused_block.cu), the fused block with a lazy up-link part (#3,
-// qfused.cu) and the block's backward (fused_block_bwd.cu: its dgrad runs
-// the whole body, its wgrad stage_operand alone), for NVIDIA Hopper
+// qfused.cu), the block's backward (fused_block_bwd.cu: its dgrad runs
+// the whole body, its wgrad stage_operand alone) and the software-pipelined
+// block (fused_block_pipe.cu: stage_operand_issue / stage_operand_finish,
+// mma_tap and store_tile around its own depth loop), for NVIDIA Hopper
 // (sm_90a), bfloat16. The design is described in fused_block.cu. A kernel
 // is
 //
@@ -173,29 +175,46 @@ struct UnitWalk {
   }
 };
 
-// Stage the shifted, normalised, zero-haloed operand of one block's rows
-// into shared memory: rows h0-1 .. h0+TH, columns w0-1 .. w0+16*WF, p.Cs
-// channels, the staged channel c being concat channel cb + c (channels at
-// or beyond p.C are zero), at smem[0..] with row stride p.Cp; the
-// per-channel table lives at p.off_tab. Ends with every copy landed (the
-// caller's cp.async groups included) and the block synchronised.
-template <class Hook>
-__device__ __forceinline__ void stage_operand(const Params& p,
-                                              const Hook& hook,
-                                              unsigned char* smem, int cb,
-                                              int n, int d, int h0, int w0,
-                                              int tid) {
+// The per-channel table of stage_operand, laid out at `tab`
+struct StageTable {
+  const bf16** src;
+  int* info;
+  float* m;
+  float* o;
+  int* unit;
+  int* affk;
+  int* naff;
+  __device__ StageTable(unsigned char* tab, int Cs) {
+    src = reinterpret_cast<const bf16**>(tab);
+    info = reinterpret_cast<int*>(src + Cs);
+    m = reinterpret_cast<float*>(info + Cs);
+    o = m + Cs;
+    unit = reinterpret_cast<int*>(o + Cs);
+    affk = unit + Cs / 8;              // copied units with a pending norm
+    naff = affk + Cs / 8;
+  }
+};
+
+// First half of stage_operand: builds the per-channel table at `tab` and
+// issues the staging of the operand into s_in as one committed cp.async
+// group (units staged channel by channel, and zeros, are stored at once).
+// Does not wait for the copies: stage_operand_finish does.
+__device__ __forceinline__ void stage_operand_issue(const Params& p,
+                                                    bf16* s_in,
+                                                    unsigned char* tab,
+                                                    int cb, int n, int d,
+                                                    int h0, int w0, int tid) {
   const int Cs = p.Cs, Cp = p.Cp, Ws = p.Ws;
   const int KC8 = Cs / 8;
   const int HW = p.H * p.W;
-  bf16* s_in = reinterpret_cast<bf16*>(smem);
-  const bf16** s_src = reinterpret_cast<const bf16**>(smem + p.off_tab);
-  int* s_info = reinterpret_cast<int*>(s_src + Cs);
-  float* s_m = reinterpret_cast<float*>(s_info + Cs);
-  float* s_o = s_m + Cs;
-  int* s_unit = reinterpret_cast<int*>(s_o + Cs);
-  int* s_affk = s_unit + KC8;          // copied units with a pending norm
-  int* s_naff = s_affk + KC8;
+  const StageTable t(tab, Cs);
+  const bf16** s_src = t.src;
+  int* s_info = t.info;
+  float* s_m = t.m;
+  float* s_o = t.o;
+  int* s_unit = t.unit;
+  int* s_affk = t.affk;
+  int* s_naff = t.naff;
 
   // ---- per-channel table for this (n, d). info: -1 when the channel is
   // zero (beyond C, its shift reads outside [0, D), or its part is the
@@ -317,11 +336,32 @@ __device__ __forceinline__ void stage_operand(const Params& p,
     }
   }
   cp_async_commit();
+}
+
+// Second half of stage_operand: waits for every copy (the caller's cp.async
+// groups included), applies the pending norms in place and runs the hook's
+// staging pass; ends with the block synchronised.
+template <class Hook>
+__device__ __forceinline__ void stage_operand_finish(const Params& p,
+                                                     const Hook& hook,
+                                                     unsigned char* smem,
+                                                     bf16* s_in,
+                                                     unsigned char* tab,
+                                                     int n, int d, int h0,
+                                                     int w0, int tid) {
+  const int Cp = p.Cp, Ws = p.Ws;
+  const StageTable t(tab, p.Cs);
+  const int* s_info = t.info;
+  const float* s_m = t.m;
+  const float* s_o = t.o;
+  const int* s_unit = t.unit;
+  const int* s_affk = t.affk;
+  const int rows = p.TH + 2;
   cp_async_wait_all();
   __syncthreads();
   // pending norms of the copied units, in place; zero fill stays zero.
   // Walks (cell, unit with a norm) pairs only.
-  const int naff = *s_naff;
+  const int naff = *t.naff;
   if (naff > 0) {
     UnitWalk iw(tid, naff, Ws);
     for (; iw.row < rows; iw.next(naff, Ws)) {
@@ -364,133 +404,136 @@ __device__ __forceinline__ void stage_operand(const Params& p,
   }
 }
 
-template <int NG, int NFW, int MPW, class Hook>
-__device__ __forceinline__ void shift_conv_block_body(const Params& p,
-                                                      const Hook& hook) {
-  constexpr int WPM = NWARPS / NG;     // warps along M
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-
-  const int n_ht = (p.H + p.TH - 1) / p.TH;
-  int bid = blockIdx.x;
-  const int wt = bid % p.n_wt;
-  bid /= p.n_wt;
-  const int ht = bid % n_ht;
-  bid /= n_ht;
-  const int d = bid % p.D;
-  const int n = bid / p.D;
-  const int h0 = ht * p.TH;
-  const int w0 = wt * p.WF * 16;
-  const int co0 = blockIdx.y * NG * NFW * 16;
-  const int nf = min(NG * NFW, (p.CO - co0 + 15) / 16);  // CO fragments
-  const int BN = nf * 16;
-  const int ncol = min(BN, p.CO - co0);  // real columns of this tile
-  const int Cs = p.Cs, Cp = p.Cp, Ws = p.Ws;
-
+// Stage the shifted, normalised, zero-haloed operand of one block's rows
+// into shared memory: rows h0-1 .. h0+TH, columns w0-1 .. w0+16*WF, p.Cs
+// channels, the staged channel c being concat channel cb + c (channels at
+// or beyond p.C are zero), at smem[0..] with row stride p.Cp; the
+// per-channel table lives at p.off_tab. Ends with every copy landed (the
+// caller's cp.async groups included) and the block synchronised.
+template <class Hook>
+__device__ __forceinline__ void stage_operand(const Params& p,
+                                              const Hook& hook,
+                                              unsigned char* smem, int cb,
+                                              int n, int d, int h0, int w0,
+                                              int tid) {
   bf16* s_in = reinterpret_cast<bf16*>(smem);
-  bf16* s_w0 = reinterpret_cast<bf16*>(smem + p.off_w);
-  bf16* s_w1 = s_w0 + BN * Cp;
+  stage_operand_issue(p, s_in, smem + p.off_tab, cb, n, d, h0, w0, tid);
+  stage_operand_finish(p, hook, smem, s_in, smem + p.off_tab, n, d, h0, w0,
+                       tid);
+}
 
-  // ---- weights: zero the padding of both buffers once, start tap 0
-  const bool vec_w = (p.C % 8 == 0);
-  const int kpad = Cp - p.C;           // columns C .. Cp of every row
-  for (int i = tid; i < 2 * BN * kpad; i += NTHREADS)
-    s_w0[(i / kpad) * Cp + p.C + i % kpad] = __float2bfloat16(0.0f);
-  for (int i = tid; i < 2 * (BN - ncol) * p.C; i += NTHREADS) {
-    const int r = i / p.C;             // rows ncol .. BN of both buffers
-    s_w0[((r / (BN - ncol)) * BN + ncol + r % (BN - ncol)) * Cp + i % p.C] =
+// The warp's share of a block tile: row fragments wm + f*WPM (f < MPW) of
+// the TH x WF grid of 16-pixel fragments, CO fragments ng*NFW + j (j < NFW)
+// of the nf in the tile
+template <int NG, int NFW, int MPW>
+struct WarpTile {
+  static constexpr int WPM = NWARPS / NG;  // warps along M
+  int ng, wm, lane;
+  int th[MPW], w[MPW];
+  bool on[MPW], nf_on[NFW], active;
+  __device__ WarpTile(const Params& p, int tid, int nf) {
+    const int warp = tid / 32;
+    const int MF = p.TH * p.WF;          // 16-pixel fragments in this block
+    ng = warp % NG;
+    wm = warp / NG;
+    lane = tid % 32;
+#pragma unroll
+    for (int f = 0; f < MPW; ++f) {
+      const int mf = wm + f * WPM;
+      on[f] = mf < MF;
+      th[f] = mf / p.WF;
+      w[f] = (mf % p.WF) * 16;
+    }
+#pragma unroll
+    for (int j = 0; j < NFW; ++j) nf_on[j] = ng * NFW + j < nf;
+    active = on[0] && nf_on[0];
+  }
+};
+
+// zero the padding of `nbuf` consecutive weight buffers of BN rows x Cp:
+// columns C .. Cp of every row and rows ncol .. BN
+__device__ __forceinline__ void zero_weight_padding(const Params& p,
+                                                    bf16* s_w, int nbuf,
+                                                    int BN, int ncol,
+                                                    int tid) {
+  const int kpad = p.Cp - p.C;         // columns C .. Cp of every row
+  for (int i = tid; i < nbuf * BN * kpad; i += NTHREADS)
+    s_w[(i / kpad) * p.Cp + p.C + i % kpad] = __float2bfloat16(0.0f);
+  for (int i = tid; i < nbuf * (BN - ncol) * p.C; i += NTHREADS) {
+    const int r = i / p.C;             // rows ncol .. BN of every buffer
+    s_w[((r / (BN - ncol)) * BN + ncol + r % (BN - ncol)) * p.Cp + i % p.C] =
         __float2bfloat16(0.0f);
   }
-  stage_weights(p, s_w0, 0, co0, ncol, vec_w, tid);
+}
 
-  // ---- the operand (its copies wait for the weights' copy too)
-  stage_operand(p, hook, smem, 0, n, d, h0, w0, tid);
-
-  // ---- 9 taps x Cs/16 K-steps of m16n8k16 MMAs
-  const int MF = p.TH * p.WF;          // 16-pixel fragments in this block
-  const int ng = warp % NG;            // this warp's CO fragments: ng*NFW..
-  const int wm = warp / NG;
-  const int lane = tid % 32;
-  int fr_th[MPW], fr_w[MPW];
-  bool fr_on[MPW];
-#pragma unroll
-  for (int f = 0; f < MPW; ++f) {
-    const int mf = wm + f * WPM;
-    fr_on[f] = mf < MF;
-    fr_th[f] = mf / p.WF;
-    fr_w[f] = (mf % p.WF) * 16;
-  }
-  bool nf_on[NFW];
-#pragma unroll
-  for (int j = 0; j < NFW; ++j) nf_on[j] = ng * NFW + j < nf;
-  const bool active = fr_on[0] && nf_on[0];
-  // per 16-wide CO fragment j, two n8 accumulators of 4 floats
-  float acc[MPW][NFW][2][4];
-#pragma unroll
-  for (int f = 0; f < MPW; ++f)
-#pragma unroll
-    for (int j = 0; j < NFW; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[f][j][h][e] = 0.0f;
+// acc += tap t's products over all Cs channels: the operand at s_in as
+// stage_operand stages it, the tap's weights at s_w (BN rows x Cp)
+template <int NG, int NFW, int MPW>
+__device__ __forceinline__ void mma_tap(const Params& p,
+                                        const WarpTile<NG, NFW, MPW>& wt,
+                                        float acc[MPW][NFW][2][4],
+                                        const bf16* s_in, const bf16* s_w,
+                                        int t) {
+  if (!wt.active) return;
+  const int Cs = p.Cs, Cp = p.Cp, Ws = p.Ws;
+  const int dh = t / 3 - 1;
+  const int dw = t % 3 - 1;
   // ldmatrix row addresses of this lane: A, row lane%16 of the fragment,
   // k half lane/16; B, output channel (lane%8) + 8*(lane/16), k half
   // (lane/8)%2
+  const int lane = wt.lane;
   const int a_row = lane % 16, a_k = (lane / 16) * 8;
   const int b_row = lane % 8 + (lane / 16) * 8, b_k = ((lane / 8) % 2) * 8;
-
-  for (int t = 0; t < 9; ++t) {
-    const int dh = t / 3 - 1;
-    const int dw = t % 3 - 1;
-    const bf16* s_w = (t & 1) ? s_w1 : s_w0;
-    if (t + 1 < 9)                     // next tap's buffer was freed at t-1
-      stage_weights(p, (t & 1) ? s_w0 : s_w1, t + 1, co0, ncol, vec_w, tid);
-    if (active) {
-      unsigned a_addr[MPW];
+  unsigned a_addr[MPW];
 #pragma unroll
-      for (int f = 0; f < MPW; ++f)
-        a_addr[f] = (unsigned)__cvta_generic_to_shared(
-            s_in + ((size_t)(fr_th[f] + 1 + dh) * Ws + fr_w[f] + 1 + dw +
-                    a_row) * Cp + a_k);
-      const unsigned b_addr = (unsigned)__cvta_generic_to_shared(
-          s_w + (size_t)(ng * NFW * 16 + b_row) * Cp + b_k);
-      for (int kc = 0; kc < Cs; kc += 16) {
-        unsigned a[MPW][4], b[NFW][4];
+  for (int f = 0; f < MPW; ++f)
+    a_addr[f] = (unsigned)__cvta_generic_to_shared(
+        s_in + ((size_t)(wt.th[f] + 1 + dh) * Ws + wt.w[f] + 1 + dw +
+                a_row) * Cp + a_k);
+  const unsigned b_addr = (unsigned)__cvta_generic_to_shared(
+      s_w + (size_t)(wt.ng * NFW * 16 + b_row) * Cp + b_k);
+  for (int kc = 0; kc < Cs; kc += 16) {
+    unsigned a[MPW][4], b[NFW][4];
 #pragma unroll
-        for (int f = 0; f < MPW; ++f)
-          if (fr_on[f]) ldmatrix_x4(a[f], a_addr[f] + kc * 2);
-#pragma unroll
-        for (int j = 0; j < NFW; ++j)
-          if (nf_on[j]) ldmatrix_x4(b[j], b_addr + (j * 16 * Cp + kc) * 2);
-#pragma unroll
-        for (int j = 0; j < NFW; ++j)
-#pragma unroll
-          for (int f = 0; f < MPW; ++f)
-            if (nf_on[j] && fr_on[f]) {
-              mma_16816(acc[f][j][0], a[f], b[j][0], b[j][1]);
-              mma_16816(acc[f][j][1], a[f], b[j][2], b[j][3]);
-            }
-      }
-    }
-    if (vec_w) cp_async_wait_all();
-    __syncthreads();                   // next buffer landed, this one free
-  }
-
-  // ---- epilogue through shared memory (aliases the operand region); an
-  // n8 accumulator holds rows lane/4 and lane/4 + 8, columns 2*(lane%4)+0,1
-  float* s_acc = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int f = 0; f < MPW; ++f) {
-    const int mf = wm + f * WPM;
+    for (int f = 0; f < MPW; ++f)
+      if (wt.on[f]) ldmatrix_x4(a[f], a_addr[f] + kc * 2);
 #pragma unroll
     for (int j = 0; j < NFW; ++j)
-      if (fr_on[f] && nf_on[j]) {
+      if (wt.nf_on[j]) ldmatrix_x4(b[j], b_addr + (j * 16 * Cp + kc) * 2);
+#pragma unroll
+    for (int j = 0; j < NFW; ++j)
+#pragma unroll
+      for (int f = 0; f < MPW; ++f)
+        if (wt.nf_on[j] && wt.on[f]) {
+          mma_16816(acc[f][j][0], a[f], b[j][0], b[j][1]);
+          mma_16816(acc[f][j][1], a[f], b[j][2], b[j][3]);
+        }
+  }
+}
+
+// The epilogue of one block tile through shared memory at s_acc (TH*WF*16
+// x BN floats; the caller has synchronised the block since the last read of
+// what it aliases): bias, the bf16 store of y and the per-channel
+// statistics (atomics). An n8 accumulator holds rows lane/4 and lane/4 + 8,
+// columns 2*(lane%4)+0,1.
+template <int NG, int NFW, int MPW>
+__device__ __forceinline__ void store_tile(const Params& p,
+                                           const WarpTile<NG, NFW, MPW>& wt,
+                                           float acc[MPW][NFW][2][4],
+                                           float* s_acc, int n, int d,
+                                           int h0, int w0, int co0, int BN,
+                                           int ncol, int tid) {
+  const int lane = wt.lane;
+#pragma unroll
+  for (int f = 0; f < MPW; ++f) {
+    const int mf = wt.wm + f * WarpTile<NG, NFW, MPW>::WPM;
+#pragma unroll
+    for (int j = 0; j < NFW; ++j)
+      if (wt.on[f] && wt.nf_on[j]) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float* o = s_acc + (size_t)(mf * 16 + lane / 4) * BN +
-                     (ng * NFW + j) * 16 + h * 8 + (lane % 4) * 2;
+                     (wt.ng * NFW + j) * 16 + h * 8 + (lane % 4) * 2;
           *reinterpret_cast<float2*>(o) =
               make_float2(acc[f][j][h][0], acc[f][j][h][1]);
           *reinterpret_cast<float2*>(o + 8 * BN) =
@@ -500,7 +543,7 @@ __device__ __forceinline__ void shift_conv_block_body(const Params& p,
   }
   __syncthreads();
 
-  const int BM = MF * 16;
+  const int BM = p.TH * p.WF * 16;
   const int tile_w = p.WF * 16;
   // tile pixel lp -> pixel h*W + w of the (n, d) slice, or -1 outside it;
   // a tile that is the whole row needs no division
@@ -557,6 +600,67 @@ __device__ __forceinline__ void shift_conv_block_body(const Params& p,
       atomicAdd(&p.stats[((size_t)n * p.CO + co) * 2 + 1], s2);
     }
   }
+}
+
+template <int NG, int NFW, int MPW, class Hook>
+__device__ __forceinline__ void shift_conv_block_body(const Params& p,
+                                                      const Hook& hook) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+
+  const int n_ht = (p.H + p.TH - 1) / p.TH;
+  int bid = blockIdx.x;
+  const int wt = bid % p.n_wt;
+  bid /= p.n_wt;
+  const int ht = bid % n_ht;
+  bid /= n_ht;
+  const int d = bid % p.D;
+  const int n = bid / p.D;
+  const int h0 = ht * p.TH;
+  const int w0 = wt * p.WF * 16;
+  const int co0 = blockIdx.y * NG * NFW * 16;
+  const int nf = min(NG * NFW, (p.CO - co0 + 15) / 16);  // CO fragments
+  const int BN = nf * 16;
+  const int ncol = min(BN, p.CO - co0);  // real columns of this tile
+  const int Cp = p.Cp;
+
+  bf16* s_in = reinterpret_cast<bf16*>(smem);
+  bf16* s_w0 = reinterpret_cast<bf16*>(smem + p.off_w);
+  bf16* s_w1 = s_w0 + BN * Cp;
+
+  // ---- weights: zero the padding of both buffers once, start tap 0
+  const bool vec_w = (p.C % 8 == 0);
+  zero_weight_padding(p, s_w0, 2, BN, ncol, tid);
+  stage_weights(p, s_w0, 0, co0, ncol, vec_w, tid);
+
+  // ---- the operand (its copies wait for the weights' copy too)
+  stage_operand(p, hook, smem, 0, n, d, h0, w0, tid);
+
+  // ---- 9 taps x Cs/16 K-steps of m16n8k16 MMAs
+  const WarpTile<NG, NFW, MPW> wtile(p, tid, nf);
+  // per 16-wide CO fragment j, two n8 accumulators of 4 floats
+  float acc[MPW][NFW][2][4];
+#pragma unroll
+  for (int f = 0; f < MPW; ++f)
+#pragma unroll
+    for (int j = 0; j < NFW; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[f][j][h][e] = 0.0f;
+
+  for (int t = 0; t < 9; ++t) {
+    const bf16* s_w = (t & 1) ? s_w1 : s_w0;
+    if (t + 1 < 9)                     // next tap's buffer was freed at t-1
+      stage_weights(p, (t & 1) ? s_w0 : s_w1, t + 1, co0, ncol, vec_w, tid);
+    mma_tap(p, wtile, acc, s_in, s_w, t);
+    if (vec_w) cp_async_wait_all();
+    __syncthreads();                   // next buffer landed, this one free
+  }
+
+  // ---- epilogue through shared memory (aliases the operand region)
+  store_tile(p, wtile, acc, reinterpret_cast<float*>(smem), n, d, h0, w0,
+             co0, BN, ncol, tid);
 }
 
 template <class Hook>

@@ -62,6 +62,25 @@ SIGNATURES = {
         "downlink_bwd_launch": [vp] * 6 + [i32] * 8 + [vp],
         # x, mult, off, w, y, N, voxels per sample, C, K, probs, stream
         "seghead_launch": [vp] * 5 + [i32] * 5 + [vp]},
+    # the experiment kernels (e2enet_tpu_torch/experiments)
+    "fused_block_pipe": {
+        # the fused block's arguments up to the stream, overlap, stream
+        "fused_block_pipe_launch": [ctypes.POINTER(vp)] * 3
+        + [PI, PI, i32, PI, i32] + [vp] * 4 + [i32] * 6 + [vp]},
+    "shift_conv_ring": {
+        # x, w, b, y, groups, ngroups, N, D, H, W, C, CO, stream
+        "shift_conv_ring_launch": [vp] * 4 + [PI, i32] + [i32] * 6 + [vp],
+        # x, y, groups, ngroups, N, D, H, W, C, stream
+        "depth_shift_ring_launch": [vp] * 2 + [PI, i32] + [i32] * 5 + [vp]},
+    "cf_fused": {
+        # x, y, H, W, C, element size, stream
+        "reshape_hwc_launch": [vp] * 2 + [i32] * 4 + [vp],
+        # x, w, b, mult, off, y, stats, groups, ngroups, N, D, H, W, C, CO,
+        # stream
+        "cf_fused_launch": [vp] * 7 + [PI, i32] + [i32] * 6 + [vp]},
+    "mma_gemm": {
+        # a, b, c, M, N, K, int8, stream
+        "mma_gemm_launch": [vp] * 3 + [i32] * 4 + [vp]},
 }
 
 
@@ -304,3 +323,83 @@ def launch_seghead(x, mult, off, w, y, probs: bool) -> None:
         err = fn(x.data_ptr(), mult.data_ptr(), off.data_ptr(), w.data_ptr(),
                  y.data_ptr(), N, D * H * W, C, K, int(probs), _stream(y))
     _check(err, f"seghead (N={N} D={D} H={H} W={W} C={C} K={K})")
+
+
+def launch_fused_block_pipe(parts, affines, groups, w9, b, y, stats,
+                            overlap: bool = True) -> None:
+    """Launch csrc/fused_block_pipe.cu, the software-pipelined fused block:
+    the arguments and outputs of launch_fused_block; overlap False issues
+    the next depth's staging after this depth's products. Raises on a
+    refused launch."""
+    fn = library("fused_block_pipe").fused_block_pipe_launch
+    args = _block_args(parts, affines, groups, w9, b, y, stats)
+    with torch.cuda.device(y.device):
+        err = fn(*args, int(overlap), _stream(y))
+    _check(err, f"fused_block_pipe (shape {tuple(y.shape)}, "
+                f"C={sum(args[3])})")
+
+
+def launch_shift_conv_ring(x, w9, b, y, groups) -> None:
+    """Launch csrc/shift_conv_ring.cu's fused kernel: x contiguous bf16
+    (N, D, H, W, C); groups [(c0, c1, shift)], shifts in [-2, 2]; w9
+    (9, CO, C) bf16; b (CO,) bf16; output y (N, D, H, W, CO) bf16."""
+    fn = library("shift_conv_ring").shift_conv_ring_launch
+    gr, ng = _groups_arr(groups)
+    N, D, H, W, C = (int(s) for s in x.shape)
+    CO = int(y.shape[-1])
+    with torch.cuda.device(y.device):
+        err = fn(x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(), gr,
+                 ng, N, D, H, W, C, CO, _stream(y))
+    _check(err, f"shift_conv_ring (N={N} D={D} H={H} W={W} C={C} CO={CO})")
+
+
+def launch_depth_shift_ring(x, y, groups) -> None:
+    """Launch csrc/shift_conv_ring.cu's shift: x contiguous bf16
+    (N, D, H, W, C); groups [(c0, c1, shift)], shifts in [-2, 2]; output y
+    like x."""
+    fn = library("shift_conv_ring").depth_shift_ring_launch
+    gr, ng = _groups_arr(groups)
+    N, D, H, W, C = (int(s) for s in x.shape)
+    with torch.cuda.device(y.device):
+        err = fn(x.data_ptr(), y.data_ptr(), gr, ng, N, D, H, W, C,
+                 _stream(y))
+    _check(err, f"depth_shift_ring (N={N} D={D} H={H} W={W} C={C})")
+
+
+def launch_reshape_hwc(x, y, H, W, C) -> None:
+    """Launch csrc/cf_fused.cu's relayout probe: x contiguous (H, W*C), y
+    contiguous (H*W, C) of the same dtype."""
+    fn = library("cf_fused").reshape_hwc_launch
+    with torch.cuda.device(y.device):
+        err = fn(x.data_ptr(), y.data_ptr(), H, W, C, x.element_size(),
+                 _stream(y))
+    _check(err, f"reshape_hwc (H={H} W={W} C={C})")
+
+
+def launch_cf_fused(x, w2, b, mult, off, y, stats, groups, H, W) -> None:
+    """Launch csrc/cf_fused.cu's channels-first block: x contiguous bf16
+    (N, D, C, H*W); w2 (CO, 9*C) bf16 (k = tap * C + channel); b (CO,)
+    bf16; mult/off float32 (C,) or both None; y (N, D, CO, H*W) bf16;
+    stats float32 (N, CO, 2) zeroed, or None."""
+    fn = library("cf_fused").cf_fused_launch
+    gr, ng = _groups_arr(groups)
+    N, D, C = (int(s) for s in x.shape[:3])
+    CO = int(y.shape[2])
+    opt = [None if t is None else t.data_ptr() for t in (mult, off, stats)]
+    with torch.cuda.device(y.device):
+        err = fn(x.data_ptr(), w2.data_ptr(), b.data_ptr(), opt[0], opt[1],
+                 y.data_ptr(), opt[2], gr, ng, N, D, H, W, C, CO, _stream(y))
+    _check(err, f"cf_fused (N={N} D={D} H={H} W={W} C={C} CO={CO})")
+
+
+def launch_mma_gemm(a, b, c) -> None:
+    """Launch csrc/mma_gemm.cu: c (M, N) = a (M, K) @ b (K, N), all
+    contiguous; bf16 inputs and a float32 c, or int8 inputs and an int32
+    c."""
+    fn = library("mma_gemm").mma_gemm_launch
+    M, K = (int(s) for s in a.shape)
+    N = int(b.shape[1])
+    with torch.cuda.device(c.device):
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
+                 int(a.dtype == torch.int8), _stream(c))
+    _check(err, f"mma_gemm (M={M} N={N} K={K} {a.dtype})")

@@ -3,7 +3,10 @@ fused block (also mirrored), the fused block with a lazy up-link part
 (ragged, compact groups, all mirrors), the strided transition, the
 up-link, the down-link and the seg head; the block backward and the
 down-link backward (main-path, ragged and N = 2 shapes, ties), and a
-small train step's launches. Imports no jax (the machine with the card has none); run there
+small train step's launches; the experiment kernels (#11 the ring shift +
+conv and the ring shift with its backward, #12 the relayout probe and the
+channels-first block with and without affine and statistics, #13 the
+pipelined block against #1, #14 the bf16 and int8 products). Imports no jax (the machine with the card has none); run there
 with
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
@@ -533,3 +536,163 @@ def test_train_step_launches():
     assert {k: op.launches for k, op in ops.items()} == total
     assert bool(torch.isfinite(metrics["loss"])) and bool(
         torch.isfinite(metrics["grad_norm"]))
+
+
+# ------------------------------------------------- the experiment kernels
+from e2enet_tpu_torch.experiments import exp_cf_fused as tcf  # noqa: E402
+from e2enet_tpu_torch.experiments import exp_int8_mma as tim  # noqa: E402
+from e2enet_tpu_torch.experiments import exp_pipeline_fwd as tpf  # noqa: E402
+from e2enet_tpu_torch.experiments import shift_conv as tsc  # noqa: E402
+
+# (N, D, H, W, C, CO): the ring's and the channels-first block's cases
+RING = {
+    "c48": (1, 9, 16, 32, 48, 48),
+    "d3_w13_c8": (2, 3, 5, 13, 8, 8),
+    "c1": (2, 4, 8, 16, 1, 5),
+    "c24_co56": (1, 5, 9, 20, 24, 56),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RING))
+def test_ring_shift_conv_matches_plain(case):
+    dev = _card()
+    N, D, H, W, C, CO = RING[case]
+    rng = np.random.RandomState(11)
+    x = _rand(rng, dev, N, D, H, W, C).bfloat16()
+    k = _rand(rng, dev, CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    b = _rand(rng, dev, CO, scale=0.1)
+    before = (tsc.fused_shift_conv.launches, tsc.depth_shift_ring.launches)
+    with torch.no_grad():
+        y = tsc.fused_shift_conv(x, k, b)
+        s = tsc.depth_shift_ring(x)
+    torch.cuda.synchronize()
+    assert (tsc.fused_shift_conv.launches,
+            tsc.depth_shift_ring.launches) == (before[0] + 1, before[1] + 1)
+    assert _within_ulps(y, tsc.fused_shift_conv_ref(x, k, b))
+    assert torch.equal(s, tsc.depth_shift_ring_ref(x))
+    # the shift's backward: the ring kernel with the shifts negated
+    xg = x.clone().requires_grad_()
+    g = _rand(rng, dev, N, D, H, W, C).bfloat16()
+    tsc.depth_shift_ring(xg).backward(g)
+    assert tsc.depth_shift_ring.launches == before[1] + 3
+    from e2enet_tpu_torch.ops.shift import depth_shift_groups, mirror_groups
+    assert torch.equal(xg.grad, depth_shift_groups(
+        g, mirror_groups(tsc.ring_groups(C, 5))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RING))
+@pytest.mark.parametrize("affine,stats", [(False, False), (True, True),
+                                          (True, False), (False, True)])
+def test_cf_fused_matches_plain(case, affine, stats):
+    dev = _card()
+    N, D, H, W, C, CO = RING[case]
+    rng = np.random.RandomState(12)
+    x = _rand(rng, dev, N, D, C, H * W).bfloat16()
+    k = _rand(rng, dev, CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    b = _rand(rng, dev, CO, scale=0.1)
+    m, o = ((_rand(rng, dev, C, scale=0.5, shift=1.0),
+             _rand(rng, dev, C, scale=0.1)) if affine else (None, None))
+    before = tcf.cf_fused_shift_conv.launches
+    with torch.no_grad():
+        y, st = tcf.cf_fused_shift_conv(x, k, b, H, W, m, o, stats)
+        y_p, st_p = tcf.cf_fused_shift_conv_ref(x, k, b, H, W, m, o, stats)
+    torch.cuda.synchronize()
+    assert tcf.cf_fused_shift_conv.launches == before + 1
+    assert _within_ulps(y.transpose(2, 3), y_p.transpose(2, 3))
+    if stats:
+        torch.testing.assert_close(st, st_p, rtol=0,
+                                   atol=1e-4 * float(st_p.abs().max()))
+    else:
+        assert st is None and st_p is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((8, 16, 48), torch.float32),
+                                         ((5, 13, 3), torch.bfloat16)])
+def test_reshape_hwc_matches_plain(shape, dtype):
+    dev = _card()
+    H, W, C = shape
+    x = torch.arange(H * W * C, device=dev).reshape(H, W * C).to(dtype)
+    before = tcf.reshape_hwc.launches
+    y = tcf.reshape_hwc(x, C)
+    torch.cuda.synchronize()
+    assert tcf.reshape_hwc.launches == before + 1
+    assert torch.equal(y, tcf.reshape_hwc_ref(x, C))
+
+
+# (N, D, H, W, part channels, pending affine per part, CO)
+PIPE = {
+    "l0_48+48": (1, 6, 16, 64, (48, 48), (True, True), 48),
+    "ragged_w13": (2, 3, 6, 13, (5, 3), (True, False), 7),
+    "d2_c1": (2, 2, 8, 16, (1,), (False,), 48),
+    "co112": (1, 3, 4, 32, (16, 24), (False, True), 112),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PIPE))
+def test_pipelined_block_matches_kernel1(case):
+    dev = _card()
+    parts, affs, kernel, bias = _make(13, *PIPE[case], dev)
+    before = tpf.pipelined_fused_block.launches
+    with torch.no_grad():
+        y, s = tpf.pipelined_fused_block(parts, kernel, bias, affs)
+        y1, s1 = tfb.fused_shift_conv_block(parts, kernel, bias, affs)
+    torch.cuda.synchronize()
+    assert tpf.pipelined_fused_block.launches == before + 1
+    assert torch.equal(y, y1)                       # #1's order of sums
+    torch.testing.assert_close(s, s1, rtol=1e-4,
+                               atol=1e-4 * float(s1.abs().max()))
+    with torch.no_grad():                           # the control: no overlap
+        y_s, s_s = tpf.pipelined_fused_block(parts, kernel, bias, affs,
+                                             overlap=False)
+    torch.cuda.synchronize()
+    assert torch.equal(y_s, y1)
+    torch.testing.assert_close(s_s, s1, rtol=1e-4,
+                               atol=1e-4 * float(s1.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mnk", [(256, 128, 64), (200, 136, 272),
+                                 (33, 50, 100), (7, 9, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_mma_gemm_matches_plain(mnk, dtype):
+    dev = _card()
+    M, N, K = mnk
+    gen = torch.Generator(device=dev).manual_seed(M + N + K)
+    if dtype == torch.int8:
+        a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+    else:
+        a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+        b = torch.randn((K, N), generator=gen, device=dev).to(dtype)
+    before = tim.mma_gemm.launches
+    c = tim.mma_gemm(a, b)
+    ref = tim.mma_gemm_ref(a, b)
+    torch.cuda.synchronize()
+    assert tim.mma_gemm.launches == before + 1
+    if dtype == torch.int8:
+        assert c.dtype == torch.int32 and torch.equal(c, ref)
+    else:
+        assert c.dtype == torch.float32
+        assert float((c - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_experiment_wrappers_raise():
+    dev = _card()
+    x = torch.randn(1, 3, 4, 16, 8, device=dev)
+    with pytest.raises(TypeError):                  # float32 on the card
+        tsc.fused_shift_conv(x, torch.randn(8, 8, 3, 3, device=dev),
+                             torch.zeros(8, device=dev))
+    with pytest.raises(TypeError):
+        tsc.depth_shift_ring(x)
+    with pytest.raises(ValueError):                 # shifts beyond the ring
+        tsc.depth_shift_ring(x.bfloat16(), 7)
+    with pytest.raises(TypeError):
+        tim.mma_gemm(torch.randn(4, 4, device=dev),
+                     torch.randn(4, 4, device=dev))
