@@ -39,10 +39,13 @@ Phases (any failure ends the run with a non-zero exit):
               route (the up-link kernel), one volume
   7. train    the backward kernels (the block backward, serving TPU kernels
               #2 and #4, and the down-link backward #8) against their plain
-              versions at the train step's shapes (batch 2) and ragged ones,
-              with times, bounds and cuDNN's / max_pool3d's backward for
-              context; every forward kernel at its main-path shape with
-              batch 2; then the row-masked DSFF trainer of
+              versions at the train step's shapes (batch 2) and ragged ones
+              (the block backward also at D = 1, with no part wanted and
+              with one of two), with times, bounds and cuDNN's /
+              max_pool3d's backward for context (the block backward also
+              beside the four-launch design's times); every forward kernel
+              at its main-path shape with batch 2; then the row-masked DSFF
+              trainer of
               training/train_bench_masks.py at the bench width (batch 2 of
               128^3, 16 classes, density 0.2, seed 0): 8 steps on one
               synthetic batch with a mask update after steps 4 and 8. Per
@@ -111,6 +114,11 @@ AGREE_SLACK = 0.005
 # 4.2M pixels (2 x 128^3) in another order and with atomics: within 2e-3 of
 # the tensor's largest |value|
 BWD_RTOL = 2e-3
+# the four-launch block backward's ms per call at the train step's shapes
+# (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W), printed beside this
+# run's
+BWD_FOUR_LAUNCH_MS = {"l0_48+u48_to48": 13.620, "l0_48_to48": 7.903,
+              "l1_96+96+48_to96": 5.233, "l1_96_to96": 2.430}
 # the experiment kernels: statistics within 1e-4 of their largest value;
 # the bf16 product (float32 out) within 1e-3 of its largest |value| (sums
 # over K = 4096 in another order); the rest as above or equal to the bit
@@ -492,9 +500,11 @@ def close_max(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-def block_bwd_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
-    """The block backward kernel (#2 / #4) vs its plain version on random
-    bf16 inputs, y from the forward kernel."""
+def block_bwd_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
+                   want=None):
+    """The block backward kernels (#2 / #4) vs their plain version on random
+    bf16 inputs, y from the forward kernel; want: per part whether its
+    gradient is wanted (default all)."""
     import torch
     from e2enet_tpu_torch.ops import fused_block as fb
     bf = torch.bfloat16
@@ -508,11 +518,15 @@ def block_bwd_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
     gy = rnd(N, D, H, W, CO, scale=1e-3).to(bf)
     gstats = rnd(N, CO, 2, scale=1e-4)
     args = (parts, kernel, bias, affines, y, gy, gstats)
-    gp, gk, gb, ga = fb.fused_shift_conv_block_bwd(*args)
+    want = [True] * len(parts) if want is None else list(want)
+    gp, gk, gb, ga = fb.fused_shift_conv_block_bwd(*args, want=want)
     rp, rk, rb, ra = fb.fused_shift_conv_block_bwd_ref(*args)
     torch.cuda.synchronize()
     err = 0.0
-    for g, r in zip(gp, rp):
+    for w, g, r in zip(want, gp, rp):
+        check((g is None) == (not w), f"{name}: gx wanted {w}, got {g}")
+        if g is None:
+            continue
         ok, e = y_err(g, r, Y_ULPS)
         check(ok, f"{name}: gx differs by more than {Y_ULPS} bf16 ulps")
         err = max(err, e)
@@ -545,6 +559,10 @@ def block_bwd_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
     report(name, f"N={N} D={D} H={H} W={W} C={list(part_c)} "
            f"affine={list(affine)} CO={CO}", res,
            f" (gW/gb/g(affine) rel {rel:.2e})")
+    if name in BWD_FOUR_LAUNCH_MS:
+        print(f"    {name}: kernel {res['ms']:.4f} ms against the four-launch "
+              f"backward's {BWD_FOUR_LAUNCH_MS[name]} ms (PERF.md), bound "
+              f"{b_ms:.4f} ms, cuDNN {res['library_ms']:.4f} ms", flush=True)
     return res
 
 
@@ -618,9 +636,16 @@ def train_phase(rnd, R, ops, reset_counts, counts, smi):
     errs = [r["max_abs_err"] for r in main_bwd.values()]
     for c in [("ragged_w13", 2, 5, 6, 13, [8, 5], [True, True], 7),
               ("d2_c1", 2, 2, 8, 16, [1], [False], 48),
+              ("d1", 2, 1, 8, 32, [16, 8], [True, False], 24),
               ("co112", 1, 3, 4, 32, [16, 24], [False, True], 112),
               ("context0_c1", 2, 16, 32, 32, [1], [False], 48)]:
         errs.append(block_bwd_case(*c, rnd=rnd, reps=0)["max_abs_err"])
+    # the wgrad alone (no part wanted: the first block's image input) and
+    # one part of two wanted, at the level-0 lazy node's shape
+    for want in ([False, False], [False, True]):
+        errs.append(block_bwd_case(
+            f"l0_48+u48_to48_want{want}", 2, 128, 128, 128, [48, 48],
+            [True, False], 48, rnd=rnd, reps=0, want=want)["max_abs_err"])
     first = main_bwd["l0_48+u48_to48"]
     out["fused_shift_conv_block_bwd"] = dict(
         first, max_abs_err=max(errs),

@@ -1,11 +1,11 @@
 // The shiftConvPP block machinery shared by the fused block (#1,
 // fused_block.cu), the fused block with a lazy up-link part (#3,
 // qfused.cu), the block's backward (fused_block_bwd.cu: its dgrad runs
-// the whole body, its wgrad stage_operand alone) and the software-pipelined
-// block (fused_block_pipe.cu: stage_operand_issue / stage_operand_finish,
-// mma_tap and store_tile around its own depth loop), for NVIDIA Hopper
-// (sm_90a), bfloat16. The design is described in fused_block.cu. A kernel
-// is
+// the whole body with its own hook and epilogue, its wgrad stage_operand
+// alone) and the software-pipelined block (fused_block_pipe.cu:
+// stage_operand_issue / stage_operand_finish, mma_tap and store_tile around
+// its own depth loop), for NVIDIA Hopper (sm_90a), bfloat16. The design is
+// described in fused_block.cu. A kernel is
 //
 //   template <...> __global__ void k(const Params p, const Hook hook)
 //   { shift_conv_block_body<NG, NFW, MPW>(p, hook); }
@@ -14,7 +14,9 @@
 // pending norms are applied, hook.stage() may write more channels into it
 // (in shared memory at p.off_hook: hook.smem_bytes(p) bytes, grown by
 // hook.fit(p, spare) into what the block tile leaves spare). A part whose
-// source pointer is null is staged as zeros for the hook to fill.
+// source pointer is null is staged as zeros for the hook to fill. A third
+// argument, an epilogue type (default StoreTile: bias, the y store and the
+// statistics), replaces what is done with the block tile's sums.
 
 #pragma once
 
@@ -511,18 +513,14 @@ __device__ __forceinline__ void mma_tap(const Params& p,
   }
 }
 
-// The epilogue of one block tile through shared memory at s_acc (TH*WF*16
-// x BN floats; the caller has synchronised the block since the last read of
-// what it aliases): bias, the bf16 store of y and the per-channel
-// statistics (atomics). An n8 accumulator holds rows lane/4 and lane/4 + 8,
-// columns 2*(lane%4)+0,1.
+// The accumulators of one block tile into shared memory at s_acc (TH*WF*16
+// x BN floats, pixel-major; the caller has synchronised the block since the
+// last read of what it aliases), then a block barrier. An n8 accumulator
+// holds rows lane/4 and lane/4 + 8, columns 2*(lane%4)+0,1.
 template <int NG, int NFW, int MPW>
-__device__ __forceinline__ void store_tile(const Params& p,
-                                           const WarpTile<NG, NFW, MPW>& wt,
-                                           float acc[MPW][NFW][2][4],
-                                           float* s_acc, int n, int d,
-                                           int h0, int w0, int co0, int BN,
-                                           int ncol, int tid) {
+__device__ __forceinline__ void acc_to_smem(const WarpTile<NG, NFW, MPW>& wt,
+                                            float acc[MPW][NFW][2][4],
+                                            float* s_acc, int BN) {
   const int lane = wt.lane;
 #pragma unroll
   for (int f = 0; f < MPW; ++f) {
@@ -542,18 +540,38 @@ __device__ __forceinline__ void store_tile(const Params& p,
       }
   }
   __syncthreads();
+}
 
-  const int BM = p.TH * p.WF * 16;
-  const int tile_w = p.WF * 16;
-  // tile pixel lp -> pixel h*W + w of the (n, d) slice, or -1 outside it;
-  // a tile that is the whole row needs no division
-  const bool full_w = p.n_wt == 1 && p.W == tile_w;
-  const int n_valid = (p.H - h0) * p.W;
-  auto pixel = [&](int lp) -> int {
-    if (full_w) return lp < n_valid ? h0 * p.W + lp : -1;
+// tile pixel lp -> pixel h*W + w of the (n, d) slice, or -1 outside it; a
+// tile that is the whole row needs no division
+struct TilePixel {
+  int h0, w0, W, H, tile_w, n_valid;
+  bool full_w;
+  __device__ TilePixel(const Params& p, int h0_, int w0_)
+      : h0(h0_), w0(w0_), W(p.W), H(p.H), tile_w(p.WF * 16),
+        n_valid((p.H - h0_) * p.W),
+        full_w(p.n_wt == 1 && p.W == p.WF * 16) {}
+  __device__ int operator()(int lp) const {
+    if (full_w) return lp < n_valid ? h0 * W + lp : -1;
     const int h = h0 + lp / tile_w, w = w0 + lp % tile_w;
-    return (h < p.H && w < p.W) ? h * p.W + w : -1;
-  };
+    return (h < H && w < W) ? h * W + w : -1;
+  }
+};
+
+// The epilogue of one block tile through shared memory at s_acc (TH*WF*16
+// x BN floats; the caller has synchronised the block since the last read of
+// what it aliases): bias, the bf16 store of y and the per-channel
+// statistics (atomics).
+template <int NG, int NFW, int MPW>
+__device__ __forceinline__ void store_tile(const Params& p,
+                                           const WarpTile<NG, NFW, MPW>& wt,
+                                           float acc[MPW][NFW][2][4],
+                                           float* s_acc, int n, int d,
+                                           int h0, int w0, int co0, int BN,
+                                           int ncol, int tid) {
+  acc_to_smem(wt, acc, s_acc, BN);
+  const int BM = p.TH * p.WF * 16;
+  const TilePixel pixel(p, h0, w0);
   bf16* y_slice = p.y + (size_t)(n * p.D + d) * p.H * p.W * p.CO + co0;
   if (p.CO % 8 == 0) {
     const int per_row = ncol / 8;
@@ -602,9 +620,22 @@ __device__ __forceinline__ void store_tile(const Params& p,
   }
 }
 
-template <int NG, int NFW, int MPW, class Hook>
-__device__ __forceinline__ void shift_conv_block_body(const Params& p,
-                                                      const Hook& hook) {
+// The epilogue of a plain fused block: store_tile. Another epilogue type
+// has the same member; it may use the hook's shared memory at `region`.
+struct StoreTile {
+  template <int NG, int NFW, int MPW>
+  __device__ __forceinline__ void epilogue(
+      const Params& p, const WarpTile<NG, NFW, MPW>& wt,
+      float acc[MPW][NFW][2][4], float* s_acc, unsigned char* /*region*/,
+      int n, int d, int h0, int w0, int co0, int BN, int ncol,
+      int tid) const {
+    store_tile(p, wt, acc, s_acc, n, d, h0, w0, co0, BN, ncol, tid);
+  }
+};
+
+template <int NG, int NFW, int MPW, class Hook, class Epilogue = StoreTile>
+__device__ __forceinline__ void shift_conv_block_body(
+    const Params& p, const Hook& hook, const Epilogue& epi = Epilogue()) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
 
@@ -659,8 +690,8 @@ __device__ __forceinline__ void shift_conv_block_body(const Params& p,
   }
 
   // ---- epilogue through shared memory (aliases the operand region)
-  store_tile(p, wtile, acc, reinterpret_cast<float*>(smem), n, d, h0, w0,
-             co0, BN, ncol, tid);
+  epi.epilogue(p, wtile, acc, reinterpret_cast<float*>(smem),
+               smem + p.off_hook, n, d, h0, w0, co0, BN, ncol, tid);
 }
 
 template <class Hook>

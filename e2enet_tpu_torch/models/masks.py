@@ -103,6 +103,16 @@ def load_mask_artifact(path, model: nn.Module) -> Dict[str, np.ndarray]:
     return masks
 
 
+def save_mask_artifact(path, masks) -> None:
+    """Write {port name: (in, out) mask} as the masks-only .npz that
+    load_mask_artifact reads: keys the '|'-joined paths, values float32."""
+    arrays = {name.replace(".", "|"): np.asarray(
+        m.detach().cpu() if isinstance(m, torch.Tensor) else m, np.float32)
+        for name, m in masks.items()}
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **arrays)
+
+
 def masks_density(masks, model: nn.Module) -> float:
     """Element density over the masked kernels (reference masks_density):
     each (in, out) entry counts its kernel's spatial taps."""

@@ -43,10 +43,10 @@ SIGNATURES = {
         + [i32] * 5 + [vp] * 4 + [i32, vp]},
     "fused_block_bwd": {
         # the forward's parts, affines, part_c, part_vec, nparts, groups,
-        # ngroups; gxs, gaffs; y, gy, gstats, geff, ct, ct_stats, w9t,
-        # zero_b, gw, gb; N, D, H, W, CO, stream
+        # ngroups; gxs, gaffs; y, gy, gstats, w9t, gw, gb; N, D, H, W, CO,
+        # stream
         "fused_block_bwd_launch": [ctypes.POINTER(vp)] * 3
-        + [PI, PI, i32, PI, i32] + [ctypes.POINTER(vp)] * 2 + [vp] * 10
+        + [PI, PI, i32, PI, i32] + [ctypes.POINTER(vp)] * 2 + [vp] * 6
         + [i32] * 5 + [vp]},
     "qstride": {
         # x, mult, off, groups, ngroups, w9, b, y, stats, N, D, H, W, C, CO,
@@ -171,11 +171,10 @@ def _groups_arr(groups):
     return (ctypes.c_int * len(flat))(*flat), len(groups)
 
 
-def _block_args(parts, affines, groups, w9, b, y, stats, up_channels=None):
-    """The fused block's C arguments up to the stream; with up_channels, a
-    last part of that many channels and null pointers (the lazy up-link)."""
-    if w9.data_ptr() % 16 or not w9.is_contiguous():
-        raise ValueError("weights must be contiguous and 16-byte aligned")
+def _part_args(parts, affines, groups, up_channels=None):
+    """The parts' C arguments (pointers, affines, channels, row alignment,
+    count, groups, group count); with up_channels, a last part of that many
+    channels and null pointers (the lazy up-link)."""
     ptrs = [p.data_ptr() for p in parts]
     mults = [None if a is None else a[0].data_ptr() for a in affines]
     offs = [None if a is None else a[1].data_ptr() for a in affines]
@@ -188,10 +187,19 @@ def _block_args(parts, affines, groups, w9, b, y, stats, up_channels=None):
     P = len(ptrs)
     arr = ctypes.c_void_p * P
     gr, ng = _groups_arr(groups)
-    N, D, H, W, CO = (int(s) for s in y.shape)
     return (arr(*ptrs), arr(*mults), arr(*offs), (ctypes.c_int * P)(*chans),
-            (ctypes.c_int * P)(*vecs), P, gr, ng, w9.data_ptr(), b.data_ptr(),
-            y.data_ptr(), stats.data_ptr(), N, D, H, W, CO)
+            (ctypes.c_int * P)(*vecs), P, gr, ng)
+
+
+def _block_args(parts, affines, groups, w9, b, y, stats, up_channels=None):
+    """The fused block's C arguments up to the stream (_part_args, then the
+    weights, bias, outputs and sizes)."""
+    if w9.data_ptr() % 16 or not w9.is_contiguous():
+        raise ValueError("weights must be contiguous and 16-byte aligned")
+    N, D, H, W, CO = (int(s) for s in y.shape)
+    return _part_args(parts, affines, groups, up_channels) + (
+        w9.data_ptr(), b.data_ptr(), y.data_ptr(), stats.data_ptr(), N, D, H,
+        W, CO)
 
 
 def launch_fused_block(parts, affines, groups, w9, b, y, stats) -> None:
@@ -226,29 +234,29 @@ def launch_lazy_up(parts, affines, groups, w9, b, raw, umult, uoff, wu, y,
 
 
 def launch_fused_block_bwd(parts, affines, groups, gxs, gaffs, y, gy, gstats,
-                           geff, ct, ct_stats, w9t, zero_b, gw, gb) -> None:
-    """Launch csrc/fused_block_bwd.cu: the fused block's backward. parts,
-    affines, groups as for launch_fused_block (the forward's, groups with
-    the mirror applied); gxs / gaffs: per part a bf16 (N, D, H, W, Ci)
-    output / a zeroed float32 (N, Ci, 2) output, or None where not wanted;
-    y, gy bf16 (N, D, H, W, CO); gstats float32 (N, CO, 2); geff scratch
-    like y; ct scratch bf16 (N, D, H, W, C) and ct_stats float32 (N, C, 2)
-    (None when no part is wanted); w9t (9, C, CO) bf16 (taps reversed,
-    transposed); zero_b (C,) bf16 zeros; outputs gw float32 (9, CO, C) and
-    gb float32 (CO,), zeroed. Raises on a refused launch."""
+                           w9t, gw, gb) -> None:
+    """Launch csrc/fused_block_bwd.cu: the fused block's backward, two
+    kernels (the dgrad with the shift's adjoint, only when some part is
+    wanted; the wgrad with gb). parts, affines, groups as for
+    launch_fused_block (the forward's, groups with the mirror applied);
+    gxs / gaffs: per part a bf16 (N, D, H, W, Ci) output (every element
+    written) / a zeroed float32 (N, Ci, 2) output, or None where not
+    wanted; y, gy bf16 (N, D, H, W, CO); gstats float32 (N, CO, 2); w9t
+    (9, C, CO) bf16 (taps reversed, transposed); outputs gw float32
+    (9, CO, C) and gb float32 (CO,), zeroed. Raises on a refused launch."""
+    if w9t.data_ptr() % 16 or not w9t.is_contiguous():
+        raise ValueError("weights must be contiguous and 16-byte aligned")
     fn = library("fused_block_bwd").fused_block_bwd_launch
-    args = _block_args(parts, affines, groups, w9t, zero_b, y, gstats)
+    args = _part_args(parts, affines, groups)
     P = len(parts)
     arr = ctypes.c_void_p * P
     gx_ptrs = arr(*[None if g is None else g.data_ptr() for g in gxs])
     ga_ptrs = arr(*[None if g is None else g.data_ptr() for g in gaffs])
-    opt = [None if t is None else t.data_ptr() for t in (ct, ct_stats)]
     N, D, H, W, CO = (int(s) for s in y.shape)
     with torch.cuda.device(y.device):
-        err = fn(*args[:8], gx_ptrs, ga_ptrs, y.data_ptr(), gy.data_ptr(),
-                 gstats.data_ptr(), geff.data_ptr(), *opt, w9t.data_ptr(),
-                 zero_b.data_ptr(), gw.data_ptr(), gb.data_ptr(), N, D, H, W,
-                 CO, _stream(y))
+        err = fn(*args, gx_ptrs, ga_ptrs, y.data_ptr(), gy.data_ptr(),
+                 gstats.data_ptr(), w9t.data_ptr(), gw.data_ptr(),
+                 gb.data_ptr(), N, D, H, W, CO, _stream(y))
     _check(err, f"fused_block_bwd (shape {tuple(y.shape)}, "
                 f"C={sum(args[3])})")
 

@@ -303,17 +303,12 @@ def fused_shift_conv_block_bwd(parts: Sequence[torch.Tensor],
     gxs = [torch.empty_like(p) if w else None for p, w in zip(parts, want)]
     gaffs = [torch.zeros((N, ci, 2), **f32) if w and a is not None else None
              for ci, w, a in zip(part_c, want, aff)]
-    any_wanted = any(want)
-    ct = (torch.empty((N, D, H, W, C), dtype=dtype, device=dev)
-          if any_wanted else None)
-    ct_stats = torch.zeros((N, C, 2), **f32) if any_wanted else None
     gw = torch.zeros((9, CO, C), **f32)
     gb = torch.zeros((CO,), **f32)
     _native.launch_fused_block_bwd(
         parts, aff, block_groups(C, flips, groups_override), gxs, gaffs,
         y.contiguous(), gy.to(dtype).contiguous(),
-        gstats.float().contiguous(), torch.empty_like(y), ct, ct_stats, w9t,
-        torch.zeros((C,), dtype=dtype, device=dev), gw, gb)
+        gstats.float().contiguous(), w9t, gw, gb)
     fused_shift_conv_block_bwd.launches += 1
     gk = mirror_conv_kernel(gw.reshape(3, 3, CO, C).permute(2, 3, 0, 1),
                             flips)

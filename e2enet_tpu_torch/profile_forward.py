@@ -34,10 +34,10 @@ from .models.unetpp import ShiftUNetPlusPlus
 
 PORT_KERNELS = ("fused_block_kernel", "qfused_lazy_kernel", "qstride_kernel",
                 "uplink_kernel", "downlink_kernel", "seghead_kernel",
-                # the block backward (csrc/fused_block_bwd.cu) and the
-                # down-link backward
-                "geff_kernel", "dgrad_kernel", "adjoint_kernel",
-                "wgrad_kernel", "downlink_bwd_kernel")
+                # the block backward (csrc/fused_block_bwd.cu: the dgrad
+                # with the shift's adjoint, the wgrad with geff and gb) and
+                # the down-link backward
+                "dgrad_kernel", "wgrad_kernel", "downlink_bwd_kernel")
 GROUPS = (("copy / layout", ("copy", "cat", "flip", "permute", "transpose")),
           ("reduction", ("reduce", "sum", "amax", "amin", "max", "norm")),
           ("conv / gemm", ("conv", "gemm", "cutlass", "sm90", "xmma", "cudnn",

@@ -13,21 +13,30 @@ and random regrowth at the cosine-decayed death rate.
     python -m e2enet_tpu_torch.training.train_bench_masks [--steps 600]
         [--density 0.2] [--update-frequency 30] [--death-rate 0.5]
         [--batch 2] [--n-batches 8] [--patch 128 128 128]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--out $TMPDIR/bench_masks.npz]
 
 Runs on the card unless --device cpu is given, and refuses to start when
 there is no card. Weights and masks come from seed 0. The width is the
 bench's 48 base features on the card and 8 on the CPU, as the reference
 cuts it off its accelerator. Prints the loss, the masks' density and ms
-per step (CUDA events on the card).
+per step (CUDA events on the card), then the trained masks' row-sparse
+plan (its convs, row density and alive rows per conv), and writes the
+trained masks to --out as the masks-only .npz that the sparse path loads
+(models/masks.load_mask_artifact; `attach_masks(model, path)`). The
+default --out is in the temporary directory; the committed
+experiments/logs/bench_masks_trained.npz is never overwritten.
 """
 import argparse
+import os
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..models.masks import masks_density
+from ..models.masks import BENCH_MASKS, masks_density, save_mask_artifact
+from ..models.sparse_plan import build_sparse_plan, plan_density
 from ..models.unetpp import (ShiftUNetPlusPlus, deep_supervision_scales,
                              ds_loss_weights)
 from .dsff import cosine_death_rate, init_masks_row
@@ -132,7 +141,20 @@ def train(model, state, step_fn, mask_update, batches, steps, t_max,
     return metrics
 
 
-def main() -> None:
+def report_plan(masks) -> None:
+    """Print the row-sparse plan of trained masks as the reference does:
+    its convs, row density and alive rows per conv."""
+    host = {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                          else v) for k, v in masks.items()}
+    plan = build_sparse_plan(host)
+    print(f"trained plan: {len(plan) if plan else 0} convs, plan row "
+          f"density {plan_density(plan, host):.4f}", flush=True)
+    for key, alive in sorted(plan or ()):
+        print(f"  {key}: {len(alive)} alive rows", flush=True)
+
+
+def main(argv=None):
+    """The command line; returns (model, the trained state)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=600)
     ap.add_argument("--density", type=float, default=0.2)
@@ -142,7 +164,13 @@ def main() -> None:
     ap.add_argument("--n-batches", type=int, default=8)
     ap.add_argument("--patch", type=int, nargs=3, default=[128, 128, 128])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    args = ap.parse_args()
+    ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
+                                                  "bench_masks.npz"),
+                    help="the trained masks, a masks-only .npz")
+    args = ap.parse_args(argv)
+    if Path(args.out).resolve() == BENCH_MASKS.resolve():
+        raise SystemExit(f"--out {args.out} is the committed artifact; "
+                         f"write elsewhere and copy it over by hand")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train on the "
                          "CPU")
@@ -170,6 +198,10 @@ def main() -> None:
     train(model, state, step_fn, mask_update, batches, args.steps,
           args.steps, args.update_frequency, args.death_rate,
           on_step=report)
+    report_plan(state.masks)
+    save_mask_artifact(args.out, state.masks)
+    print(f"saved the trained masks -> {args.out}", flush=True)
+    return model, state
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@ fused block (also mirrored), the fused block with a lazy up-link part
 (ragged, compact groups, all mirrors), the strided transition, the
 up-link, the down-link and the seg head; the block backward and the
 down-link backward (main-path, ragged and N = 2 shapes, ties), and a
-small train step's launches; the experiment kernels (#11 the ring shift +
+small train step's launches; the block backward's parts wanted or not and
+its two device kernels per call; the experiment kernels (#11 the ring shift +
 conv and the ring shift with its backward, #12 the relayout probe and the
 channels-first block with and without affine and statistics, #13 the
 pipelined block against #1, #14 the bf16 and int8 products). Imports no jax (the machine with the card has none); run there
@@ -421,15 +422,19 @@ def _close_max(a, b, rtol):
 
 # (N, D, H, W, part channels, pending affine per part, CO): level-0 and
 # level-1 widths at small extents, N = 2, ragged W, D below the shift
-# window, a part with no affine, two CO tiles
+# window (D = 2, and D = 1 where every depth is an edge), a part with no
+# affine, two CO tiles, shift groups of C = 48 that straddle 8-channel
+# units (10, 10, 10, 10, 8)
 BWD = {
     "l0_lazy_width": (2, 6, 8, 64, (48, 48), (True, False), 48),
     "l1_width": (2, 4, 8, 32, (96, 96, 48), (True, False, False), 96),
     "l1_one_part": (1, 4, 8, 32, (96,), (True,), 96),
     "ragged_w13": (2, 5, 6, 13, (8, 5), (True, True), 7),
     "d2": (1, 2, 8, 16, (6, 2), (True, False), 4),
+    "d1": (2, 1, 8, 16, (16, 8), (True, False), 24),
     "co112": (1, 3, 4, 32, (16, 24), (False, True), 112),
     "c1": (2, 4, 8, 16, (1,), (False,), 48),
+    "c48_straddle": (2, 5, 8, 32, (48,), (True,), 48),
 }
 
 
@@ -474,6 +479,57 @@ def test_block_bwd_flips_match_plain(flips):
     assert all(_within_ulps(g, r) for g, r in zip(gp, rp))
     assert _close_max(gk, rk, 2e-3) and _close_max(gb, rb, 2e-3)
     assert _close_max(ga[0][0], ra[0][0], 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want", [(False, False), (True, False),
+                                  (False, True)])
+def test_block_bwd_parts_wanted_match_plain(want):
+    """Only the wanted parts get a gradient; gW and gb are right with no
+    part wanted (the dgrad does not run), and the wanted part's gx and
+    g(affine) are right beside an unwanted one."""
+    dev = _card()
+    args = _bwd_inputs(9, 2, 5, 8, 32, (48, 48), (True, True), 48, dev)
+    gp, gk, gb, ga = tfb.fused_shift_conv_block_bwd(*args, want=want)
+    rp, rk, rb, ra = tfb.fused_shift_conv_block_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert _close_max(gk, rk, 2e-3) and _close_max(gb, rb, 2e-3)
+    for w, g, r, a, b in zip(want, gp, rp, ga, ra):
+        assert (g is None) == (not w) and (a is None) == (not w)
+        if w:
+            assert _within_ulps(g, r)
+            assert _close_max(a[0], b[0], 2e-3)
+            assert _close_max(a[1], b[1], 2e-3)
+
+
+def _device_kernels(fn):
+    """Names of the device kernels fn() launches that are not torch's own
+    (the wrapper's allocations, fills and layout copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "at::" not in e.name and not e.name.startswith("Mem")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_wanted", [True, False])
+def test_block_bwd_two_kernels(any_wanted):
+    """The block backward is two device kernels per call, the dgrad (with
+    geff on load and the shift's adjoint) and the wgrad (with geff and gb);
+    the wgrad alone when no part is wanted."""
+    dev = _card()
+    args = _bwd_inputs(4, 2, 4, 8, 32, (48, 48), (True, False), 48, dev)
+    want = (any_wanted, False)
+    tfb.fused_shift_conv_block_bwd(*args, want=want)    # builds, warms up
+    names = _device_kernels(
+        lambda: tfb.fused_shift_conv_block_bwd(*args, want=want))
+    kinds = sorted(n.split("<")[0].split()[-1] for n in names)
+    assert kinds == (["dgrad_kernel", "wgrad_kernel"] if any_wanted
+                     else ["wgrad_kernel"]), names
 
 
 # (N, D, H, W, C, window, integer-valued input: exact ties)
