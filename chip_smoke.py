@@ -15,7 +15,14 @@ Phases (any failure ends the run with a non-zero exit):
               or operations over the card's peak) and the share of it
               reached, and the time of one PyTorch call computing the core
               op, for context; for the lazy block also the materialised
-              route (up-link kernel, then fused-block kernel)
+              route (up-link kernel, then fused-block kernel), the fused
+              block alone on the materialised concat (kernel1_ms: the
+              conv without the up-link), the same kernel with its taps on
+              mma.sync (mma_ms: the control for its wgmma loop), one
+              launch per call, and the edges of its tile (H not a
+              multiple of its rows, D = 2, output widths 10 and 40, three
+              pending parts, W = 144 and 600, compact groups reading both
+              depth parities, up parts wider than one K chunk)
   4. sparse   the bench's default serving path: ShiftUNet++ at the bench
               width (48 base features, 5 x (2,2,2) pools, 16 classes, bf16,
               random weights from seed 0) with the trained DSFF row masks
@@ -288,14 +295,20 @@ def fused_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
 def lazy_check(name, parts, up, kernel, bias, affines, flips, groups,
                reps):
     """Kernel #3 (the fused block with a lazy up-link part) vs plain on the
-    given inputs; with reps, also the materialised route (#6, then #1) and
-    cuDNN's conv of the materialised operand."""
+    given inputs, one launch per call; with reps, also the same kernel with
+    its taps on mma.sync (the control for its wgmma loop: mma_ms), the
+    materialised route (#6, then #1), #1 alone on the materialised concat
+    (the conv without the up-link: kernel1_ms) and cuDNN's conv of the
+    materialised operand."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.ops import fused_block as fb
     from e2enet_tpu_torch.ops import qfused, qlink
     args = (parts, up, kernel, bias, affines, flips, groups)
+    before = qfused.lazy_up_fused_block.launches
     y_k, s_k = qfused.lazy_up_fused_block(*args)
+    check(qfused.lazy_up_fused_block.launches == before + 1,
+          f"{name}: not one lazy launch per call")
     y_p, s_p = qfused.lazy_up_fused_block_ref(*args)
     torch.cuda.synchronize()
     ok, err = y_err(y_k, y_p, Y_ULPS)
@@ -305,6 +318,9 @@ def lazy_check(name, parts, up, kernel, bias, affines, flips, groups,
     check(srel <= STATS_RTOL, f"{name} flips={flips}: stats rel err {srel}")
     if reps == 0:
         return dict(max_abs_err=err)
+    y_m, _ = qfused.lazy_up_fused_block(*args, wgmma=False)
+    check(y_err(y_m, y_p, Y_ULPS)[0], f"{name}: the mma.sync control's y "
+                                      f"differs by more than {Y_ULPS} ulps")
     N, D, H, W, CO = y_k.shape
     cin, cout = up.kernel.shape[:2]
     C = kernel.shape[1]
@@ -313,6 +329,8 @@ def lazy_check(name, parts, up, kernel, bias, affines, flips, groups,
         return fb.fused_shift_conv_block(
             list(parts) + [qlink.uplink(*up)], kernel, bias,
             list(affines) + [None], flips, groups)
+
+    concat = list(parts) + [qlink.uplink(*up)]
 
     x2 = torch.cat(list(parts) + [qlink.uplink_ref(*up)], -1).reshape(
         N * D, H, W, C).permute(0, 3, 1, 2)
@@ -325,15 +343,22 @@ def lazy_check(name, parts, up, kernel, bias, affines, flips, groups,
                        PEAK_BF16)
     res = dict(max_abs_err=err, stats_rel=srel,
                ms=cuda_ms(lambda: qfused.lazy_up_fused_block(*args), reps),
+               mma_ms=cuda_ms(lambda: qfused.lazy_up_fused_block(
+                   *args, wgmma=False), reps),
                plain_ms=cuda_ms(lambda: qfused.lazy_up_fused_block_ref(*args),
                                 reps),
                materialised_ms=cuda_ms(materialised, reps),
+               kernel1_ms=cuda_ms(lambda: fb.fused_shift_conv_block(
+                   concat, kernel, bias, list(affines) + [None], flips,
+                   groups), reps),
                library_ms=cuda_ms(lambda: F.conv2d(x2, w2, padding=1), reps),
                bound_ms=b_ms, bound_by=b_by)
     report(name, f"N={N} D={D} H={H} W={W} C={[p.shape[-1] for p in parts]}"
            f"+up {cin}->{cout} CO={CO}", res,
-           f" (stats rel {srel:.2e}; materialised #6 + #1 "
-           f"{res['materialised_ms']:.4f} ms)")
+           f" (stats rel {srel:.2e}; taps on mma.sync "
+           f"{res['mma_ms']:.4f} ms; materialised #6 + #1 "
+           f"{res['materialised_ms']:.4f} ms, #1 alone on its concat "
+           f"{res['kernel1_ms']:.4f} ms)")
     return res
 
 
@@ -1198,9 +1223,30 @@ def main() -> None:
         errs += [lazy_case("flips_compact", 1, 3, 8, 12, [16], [True], 24, 8,
                            16, rnd, 0, f, groups)["max_abs_err"]
                  for f in FLIPS]
-        print(f"[kernel] lazy block: ragged, compact groups and all 8 mirror "
-              f"combinations within tolerance (max abs err {max(errs):.3e})",
-              flush=True)
+        # the tile's edges: H not a multiple of its 16 rows, one coarse
+        # depth (D = 2), sparse output widths 10 and 40, three pending parts
+        # beside the up-link (MAX_PARTS), W = 144 and 600, up parts wider
+        # than one K chunk
+        edges = [("h18_tile_ragged", 1, 2, 9, 16, [48], [True], 96, 48, 48),
+                 ("dc1_d2", 2, 1, 4, 8, [16], [True], 24, 16, 24),
+                 ("co10", 1, 3, 8, 16, [12], [True], 24, 10, 10),
+                 ("co40", 1, 3, 8, 16, [24], [True], 48, 24, 40),
+                 ("three_parts", 1, 2, 5, 20, [8, 16, 8], [True, False, True],
+                  24, 16, 40),
+                 ("w144", 1, 2, 3, 72, [48], [True], 96, 48, 48),
+                 ("w600", 1, 1, 2, 300, [8], [True], 16, 8, 16),
+                 # up parts of more than one staged chunk beside a part
+                 ("wide_up64", 1, 2, 4, 16, [64], [True], 128, 64, 48),
+                 ("wide_up56", 1, 3, 4, 9, [8], [False], 24, 56, 24)]
+        errs += [lazy_case(*c, rnd, 0)["max_abs_err"] for c in edges]
+        # compact groups whose up columns read both depth parities at one
+        # output depth (shifts 1, -1, 2, 0 side by side)
+        both = ((0, 3, -2), (3, 9, 1), (9, 12, -1), (12, 16, 2), (16, 20, 0))
+        errs += [lazy_case("both_parities", 1, 3, 6, 16, [8], [True], 24, 12,
+                           10, rnd, 0, f, both)["max_abs_err"] for f in FLIPS]
+        print(f"[kernel] lazy block: ragged, compact groups, the tile's edges "
+              f"and all 8 mirror combinations within tolerance (max abs err "
+              f"{max(errs):.3e})", flush=True)
         res["lazy_up_fused_block"] = dict(main3, max_abs_err=max(errs))
 
         print("[kernel] strided_fused (#5) vs plain; 'library' is cuDNN's "
@@ -1554,10 +1600,11 @@ def main() -> None:
         if name == "lazy_up_fused_block":
             line["materialised_ms"] = res[name]["materialised_ms"]
             line["sparse_shape"] = {k: sparse3[0][k] for k in
-                                    keys + ("materialised_ms",)}
+                                    keys + ("materialised_ms", "kernel1_ms",
+                                            "mma_ms")}
         if name in also:
             line["also_replaces"] = also[name]
-        for extra in ("shapes", "int8", "kernel1_ms", "serial_ms",
+        for extra in ("shapes", "int8", "kernel1_ms", "mma_ms", "serial_ms",
                       "turns_ms", "affine_stats_ms"):
             if extra in res[name]:
                 line[extra] = res[name][extra]

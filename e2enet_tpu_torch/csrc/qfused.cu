@@ -2,7 +2,7 @@
 // (sm_90a), bfloat16.
 //
 // Replaces the lazy mode of the Pallas TPU kernel
-// e2enet_tpu/ops/qfused.py:_fwd_kernel (LazyUp, qfused.py:590-623): the
+// e2enet_tpu/ops/qfused.py:_fwd_kernel (LazyUp, qfused.py:585-623): the
 // k == s transposed-conv up-link of the level below is computed on load,
 // inside the conv kernel, so the finer level's (N, D, H, W, C_up) up tensor
 // never reaches device memory. For an implicit concat of parts whose last
@@ -22,271 +22,594 @@
 // conv2d_3x3(S) + b (bias rounded to bf16), f32 statistics by atomics. The
 // up weight Wu (8 parities, C_up, cin) carries the mirror flips already,
 // the conv taps and negated groups carry the rest, so one kernel serves
-// all 8 mirror passes. The tap parity follows the SHIFTED source depth
-// d - s: each shift group of the up part reads its own coarse depth and
-// depth parity.
+// all 8 mirror passes and the sparse plan's compact groups. The depth
+// parity follows the SHIFTED source depth d - s: each up column reads its
+// own coarse depth and depth parity, which the kernel derives from the
+// shift groups it stages the operand by (source_depth).
 //
 // What bounds it: at the dense level-0 shape (128^3; 48 pending + up 96 ->
 // 48; CO 48) 174 GFLOP of conv plus 19.3 GFLOP of up GEMM against ~450 MB
-// of traffic: the bf16 tensor cores (~0.196 ms at 989 TFLOP/s).
+// of traffic: the bf16 tensor cores (~0.195 ms at 989 TFLOP/s). In
+// practice a block runs alone on its SM (~200 KB of shared memory, 16 warps
+// at up to 128 registers), so its phases (staging, up-link, products,
+// epilogue) follow one another between barriers, each bound by latency
+// rather than by a unit's throughput; the design keeps the phases few and
+// overlaps copies with products where a buffer is free.
 //
-// Design (simple and right first): the block machinery of #1
-// (shift_conv_block.cuh) with a staging hook. The main staging pass stages
-// the materialised parts and zeros for the up part; then, per coarse depth
-// that the up part's shift groups read inside the volume (at most three):
-//  1. stage the normalised coarse rows of the tile's window (TH/2 + 2
-//     rows; as many at once as shared memory holds, 16-byte loads, four in
-//     flight per thread, bf16 norm);
-//  2. per shift group of that depth, stage its up weights for its depth
-//     parity (the four (h, w) parity classes x its columns x cin, K
-//     contiguous) and run the (coarse pixels x cin) x (cin x columns)
-//     product on ldmatrix + mma.sync.m16n8k16, a warp taking one 16-pixel
-//     fragment of one coarse row for all four parity classes (one A
-//     fragment, four B, eight independent accumulators), and round each
-//     value to bf16 into its fine pixel of the staged tile (zero outside
-//     the volume).
-// Each up value is computed once per consuming block plus its halo. The
-// conv's MMAs and the epilogue are #1's.
+// Design. One block of 16 warps per (n, d, TH image rows, W tile of at most
+// 32 columns) and 48-wide CO tile, 32 row fragments of 16 pixels (TH = 16
+// at W >= 32): a tall, narrow tile, whose halo is 1.2x the output's pixels
+// and whose window of coarse pixels is 1.4x those the output needs. The
+// operand is staged in K chunks (one for a concat of at most 48 channels,
+// else 48-channel chunks from 0 up to the up part and the up part's own
+// 48-column chunks), each chunk's 9 taps accumulating into the same
+// registers: half the operand per pass at the bench's shape, so the tile is
+// twice as tall as a whole-operand tile could be. The up part's chunks come
+// first (the bench's has one; a wider one runs in a second instantiation,
+// which computes each further chunk's up-link after the previous taps):
+//  1. cp.async of the chunk's weights for all 9 taps (no barrier between
+//     taps), of the up weights (each up column's depth parity at this
+//     output depth, all four (h, w) parity classes) and of the first coarse
+//     depth's raw pixels; zeros for the up channels of the operand;
+//  2. the up-link, per coarse depth that the up columns read (two at the
+//     bench's shape, at most three): the window's coarse pixels, rows and
+//     columns flattened, normalised in bf16x2 arithmetic (16-byte units), a
+//     barrier, ONE product over every up column that reads this depth
+//     (ldmatrix + mma.sync, a warp per 16 coarse pixels x 16 columns, the
+//     four parity classes from one A fragment; the next depth's loads in
+//     flight meanwhile), each value rounded to bf16 into its fine pixel of
+//     the staged chunk (only inside the volume), a barrier;
+//  3. the first materialised chunk's copies issued into the up-link's
+//     buffers, now free, then the chunk's 9 taps on wgmma
+//     (shift_conv_block.cuh: wgmma_taps, straight-line code per chunk
+//     width and output tile): A from registers by ldmatrix at each tap's
+//     offset, B the tap's weights by descriptor, two m64 tiles per
+//     warpgroup, one commit group in flight;
+// then each materialised chunk's weights, pending norms and taps, the next
+// chunk's copies in flight during them. The epilogue is #1's with the
+// statistics summed over the block from the accumulators before one
+// atomic pair per output channel. Each up value is computed once per
+// consuming block plus its halo; each coarse pixel is normalised once per
+// output depth and up chunk that reads it. Output channels come in tiles of
+// 48 on the grid's y; each tile stages the operand and computes the up-link
+// again (2x the up-link's products at CO 96; the bench's lazy nodes have
+// CO 48 at most). The same kernel with its taps on mma.sync
+// (mma_taps_packed, the same packed weights) is the control that measures
+// the wgmma loop.
 
 #include "shift_conv_block.cuh"
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// the up-link's norm in bf16 arithmetic: each op computed in f32 from bf16
-// operands and rounded to bf16, as a bf16 tensor op rounds; m, o and the
-// slope are bf16 values
-__device__ __forceinline__ float norm_lrelu_bf16(float x, float m, float o) {
-  const float a = round_bf16(__fadd_rn(round_bf16(__fmul_rn(x, m)), o));
-  // bf16(0.01) = 0.010009765625
-  return fmaxf(a, round_bf16(__fmul_rn(a, 0.010009765625f)));
-}
+#define KC_MAX 48          // channels of one staged K chunk
+#define MPW_LAZY 2         // row fragments per warp: 32 per block
+#define WF_MAX 2           // row fragments per W tile: 32 columns
+#define A_UPT 5            // coarse units per thread held in registers
 
 // floor(x / 2) for any sign
 __device__ __forceinline__ int floor_half(int x) { return (x - (x < 0)) / 2; }
 
-// coarse pixels of a staged row of Ws fine columns, rounded up to whole
-// 16-row fragments
-__host__ __device__ inline int coarse_row_cap(int Ws) {
-  return (Ws / 2 + 1 + 15) / 16 * 16;
+// the up-link's norm of 8 channels in bf16x2 arithmetic: each op rounded
+// once to bf16, which is the f32 op rounded to bf16 for bf16 operands (see
+// fused_block_bwd.cu: geff_unit); m, o and the slope are bf16 values
+__device__ __forceinline__ uint4 norm_unit_bf16(uint4 v, uint4 m, uint4 o) {
+  __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&v);
+  const __nv_bfloat162* m2 = reinterpret_cast<const __nv_bfloat162*>(&m);
+  const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+  const __nv_bfloat162 slope = __float2bfloat162_rn(0.01f);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 a = __hadd2_rn(__hmul2_rn(x2[e], m2[e]), o2[e]);
+    x2[e] = __hmax2(a, __hmul2_rn(a, slope));
+  }
+  return v;
 }
 
-struct LazyUpStage {
-  static constexpr bool active = true;
+// the source depth d - s of concat channel c at output depth d, s the
+// shift of its group (0 outside every group, as stage_operand_issue reads
+// it), or -1 where d - s leaves [0, D)
+__device__ __forceinline__ int source_depth(const Params& p, int d, int c) {
+  int s = 0;
+  for (int g = 0; g < p.ngroups; ++g)
+    if (c >= p.g0[g] && c < p.g1[g]) s = p.gs[g];
+  const int ds = d - s;
+  return ds >= 0 && ds < p.D ? ds : -1;
+}
+
+struct LazyUp {
   const bf16* raw;        // (N, Dc, Hc, Wc, cin)
   const float* mult;      // (N, cin)
   const float* off;
   const bf16* w;          // (8 parities bd*4 + bh*2 + bw, C_up, cin)
-  int Dc, Hc, Wc, cin;
+  int Dc, Hc, Wc, cin, cout;
   int cins;               // cin rounded up to 16
   int cpa;                // shared row stride of the A and B stages
-  int nf_max;             // 16-column fragments of the widest group
-  int vec16, wvec16;      // 16-byte loads of raw rows / weight rows
-  int ra = 1;             // coarse rows staged at once
+  int vec16;              // raw rows copy in 16-byte units
+  int cb_up;              // first concat channel of the up part's first
+                          // chunk: 0 (one chunk holds all) or its first
+  int nup;                // chunks of the up part, KC_MAX columns each
+  int nmat;               // chunks of p.Cs channels from 0 before them
+  // within the hook region: column codes, norm pairs, B, A
+  int off_mo, off_b, off_a;
 
-  size_t smem_bytes(const Params& p) const {
-    return (size_t)(ra * coarse_row_cap(p.Ws) + 4 * nf_max * 16) * cpa *
-               sizeof(bf16) +
-           2 * cins * sizeof(float);
+  // up columns j0 .. j0 + cols(j0) form one chunk
+  __device__ __forceinline__ int cols(int j0) const {
+    return min(KC_MAX, cout - j0);
   }
 
-  // stage as many of the window's coarse rows at once (at most TH/2 + 2)
-  // as the spare shared memory holds
-  size_t fit(const Params& p, size_t spare) {
-    const size_t per_row = (size_t)coarse_row_cap(p.Ws) * cpa * sizeof(bf16);
-    size_t more = spare / per_row;
-    if (more > (size_t)(p.TH / 2 + 1)) more = p.TH / 2 + 1;
-    ra = 1 + (int)more;
-    return more * per_row;
-  }
-
-  __device__ void stage(const Params& p, bf16* s_in, unsigned char* region,
-                        int n, int d, int h0, int w0, int tid) const {
-    const int up = p.nparts - 1;
-    const int c_lo = p.pc0[up], cout = p.pc[up];
-    const int ar = coarse_row_cap(p.Ws);
-    const int KC8 = cins / 8;
-    bf16* s_a = reinterpret_cast<bf16*>(region);
-    bf16* s_b = s_a + (size_t)ra * ar * cpa;
-    float* s_m = reinterpret_cast<float*>(s_b + (size_t)4 * nf_max * 16 * cpa);
-    float* s_o = s_m + cins;
+  // Issue the up stage of columns j0 ..: their codes at depth d (the source
+  // depth d - s, -1 outside [0, D) and past the chunk), the bf16 norm, and
+  // by cp.async the columns' up weights, rows (parity class, column) with K
+  // contiguous, of each column's depth parity; zero rows for columns
+  // outside [0, D) or past the chunk
+  __device__ __forceinline__ void issue(const Params& p, unsigned char* region,
+                                        int n, int d, int j0, int tid) const {
+    const int nc = cols(j0), NC = (nc + 15) / 16 * 16;
+    const int c_up = p.pc0[p.nparts - 1] + j0;   // concat channel of j0
+    int* s_code = reinterpret_cast<int*>(region);
+    bf16* s_mo = reinterpret_cast<bf16*>(region + off_mo);
+    bf16* s_b = reinterpret_cast<bf16*>(region + off_b);
+    for (int j = tid; j < NC; j += NTHREADS)
+      s_code[j] = j < nc ? source_depth(p, d, c_up + j) : -1;
     for (int c = tid; c < cins; c += NTHREADS) {
       const bool on = c < cin;
-      s_m[c] = on ? round_bf16(mult[(size_t)n * cin + c]) : 0.0f;
-      s_o[c] = on ? round_bf16(off[(size_t)n * cin + c]) : 0.0f;
+      s_mo[c] = __float2bfloat16(on ? mult[(size_t)n * cin + c] : 0.0f);
+      s_mo[cins + c] = __float2bfloat16(on ? off[(size_t)n * cin + c] : 0.0f);
     }
+    const int KC8 = cins / 8;
+    const bool vec = cin % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    for (int u = tid; u < 4 * NC * KC8; u += NTHREADS) {
+      const int k8 = u % KC8, r = u / KC8;
+      const int j = r % NC, cls = r / NC, k0 = k8 * 8;
+      const int code = j < nc ? source_depth(p, d, c_up + j) : -1;
+      bf16* dst = s_b + (size_t)r * cpa + k0;
+      const bf16* src =
+          w + ((size_t)((code & 1) * 4 + cls) * cout + j0 + j) * cin + k0;
+      if (code >= 0 && vec && k0 < cin) {
+        cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = code >= 0 && k0 + e < cin ? src[e]
+                                             : __float2bfloat16(0.0f);
+      }
+    }
+  }
+
+  // the tile's window of coarse pixels (rows hc0 .., columns wc0 ..),
+  // flattened: the coarse pixels under the staged rows and columns
+  struct Window {
+    int hc0, wc0, AW, npix, MFa;
+    __device__ Window(const Params& p, int h0, int w0) {
+      hc0 = floor_half(h0 - 1);
+      wc0 = floor_half(w0 - 1);
+      AW = floor_half(w0 + 16 * p.WF) - wc0 + 1;
+      npix = (floor_half(h0 + p.TH) - hc0 + 1) * AW;
+      MFa = (npix + 15) / 16;
+    }
+  };
+
+  // coarse depths lo .. hi holding every one that up columns j0 .. read at
+  // output depth d: those of the shift groups over the chunk's columns,
+  // and shift 0's where the groups leave a column out
+  __device__ __forceinline__ void depths(const Params& p, int d, int j0,
+                                         int& lo, int& hi) const {
+    const int c0 = p.pc0[p.nparts - 1] + j0, c1 = c0 + cols(j0);
+    lo = Dc;
+    hi = -1;
+    int covered = 0;
+    for (int g = 0; g <= p.ngroups; ++g) {
+      int s = 0;
+      if (g < p.ngroups) {
+        const int o = min(c1, p.g1[g]) - max(c0, p.g0[g]);
+        if (o <= 0) continue;
+        covered += o;
+        s = p.gs[g];
+      } else if (covered >= c1 - c0) {
+        break;
+      }
+      const int ds = d - s;
+      if (ds >= 0 && ds < p.D) {
+        lo = min(lo, ds >> 1);
+        hi = max(hi, ds >> 1);
+      }
+    }
+  }
+
+  // 16-byte unit u (pixel, 8 channels) of the window at depth dc: its
+  // source, or null outside the coarse volume
+  __device__ __forceinline__ const bf16* unit_src(const Window& wd, int n,
+                                                  int dc, int u) const {
+    const int KC8 = cins / 8;
+    const int pix = u / KC8, k0 = (u - pix * KC8) * 8;
+    const int row = pix / wd.AW;
+    const int hc = wd.hc0 + row, wc = wd.wc0 + pix - row * wd.AW;
+    if (pix >= wd.npix || hc < 0 || hc >= Hc || wc < 0 || wc >= Wc ||
+        k0 >= cin)
+      return nullptr;
+    return raw + ((((size_t)n * Dc + dc) * Hc + hc) * Wc + wc) * cin + k0;
+  }
+  __device__ __forceinline__ uint4 load_unit(const bf16* src) const {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (src == nullptr) return v;
+    if (vec16) return __ldg(reinterpret_cast<const uint4*>(src));
+    bf16* e = reinterpret_cast<bf16*>(&v);
+    const int k0 = (int)((src - raw) % cin);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      e[i] = k0 + i < cin ? src[i] : __float2bfloat16(0.0f);
+    return v;
+  }
+  // cp.async of depth dc's window of raw coarse pixels into A (zeros
+  // outside the coarse volume), for norm_a; raw rows of 16-byte units only
+  __device__ __forceinline__ void issue_a(const Window& wd, bf16* s_a, int n,
+                                          int dc, int tid) const {
+    const int KC8 = cins / 8, units = wd.MFa * 16 * KC8;
+    for (int u = tid; u < units; u += NTHREADS) {
+      const int pix = u / KC8, k0 = (u - pix * KC8) * 8;
+      bf16* dst = s_a + (size_t)pix * cpa + k0;
+      const bf16* src = unit_src(wd, n, dc, u);
+      if (src != nullptr)
+        cp_async16(dst, src);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // the norm in place on the raw window issue_a copied (landed)
+  __device__ __forceinline__ void norm_a(const Window& wd, bf16* s_a,
+                                         const bf16* s_mo, int n, int dc,
+                                         int tid) const {
+    const int KC8 = cins / 8, units = wd.MFa * 16 * KC8;
+    for (int u = tid; u < units; u += NTHREADS) {
+      if (unit_src(wd, n, dc, u) == nullptr) continue;
+      const int pix = u / KC8, k0 = (u - pix * KC8) * 8;
+      uint4* ptr = reinterpret_cast<uint4*>(s_a + (size_t)pix * cpa + k0);
+      *ptr = norm_unit_bf16(*ptr, *reinterpret_cast<const uint4*>(s_mo + k0),
+                            *reinterpret_cast<const uint4*>(s_mo + cins + k0));
+    }
+  }
+  // the normalised unit u into A; zero outside the coarse volume
+  __device__ __forceinline__ void store_unit(bf16* s_a, const bf16* s_mo,
+                                             int u, uint4 v, bool ok) const {
+    const int KC8 = cins / 8;
+    const int pix = u / KC8, k0 = (u - pix * KC8) * 8;
+    *reinterpret_cast<uint4*>(s_a + (size_t)pix * cpa + k0) =
+        ok ? norm_unit_bf16(v, *reinterpret_cast<const uint4*>(s_mo + k0),
+                            *reinterpret_cast<const uint4*>(s_mo + cins + k0))
+           : make_uint4(0u, 0u, 0u, 0u);
+  }
+  // loads this thread's first A_UPT units of depth dc's window into
+  // registers; returns which lie inside the coarse volume
+  __device__ __forceinline__ unsigned load_a(const Window& wd, int n, int dc,
+                                             uint4 v[A_UPT], int tid) const {
+    const int units = wd.MFa * 16 * (cins / 8);
+    unsigned ok = 0;
+#pragma unroll
+    for (int e = 0; e < A_UPT; ++e) {
+      const int u = tid + e * NTHREADS;
+      const bf16* src = u < units ? unit_src(wd, n, dc, u) : nullptr;
+      v[e] = load_unit(src);
+      ok |= (unsigned)(src != nullptr) << e;
+    }
+    return ok;
+  }
+  // A of depth dc: the units load_a holds, then any beyond them (loaded
+  // here, one at a time)
+  __device__ __forceinline__ void store_a(const Window& wd, bf16* s_a,
+                                          const bf16* s_mo, int n, int dc,
+                                          const uint4 v[A_UPT], unsigned ok,
+                                          int tid) const {
+    const int units = wd.MFa * 16 * (cins / 8);
+#pragma unroll
+    for (int e = 0; e < A_UPT; ++e) {
+      const int u = tid + e * NTHREADS;
+      if (u < units) store_unit(s_a, s_mo, u, v[e], (ok >> e) & 1);
+    }
+    for (int u = A_UPT * NTHREADS + tid; u < units; u += NTHREADS) {
+      const bf16* src = unit_src(wd, n, dc, u);
+      store_unit(s_a, s_mo, u, load_unit(src), src != nullptr);
+    }
+  }
+
+  // Up columns j0 .. of the staged chunk (concat channels cb .., issued
+  // and landed), per coarse depth dc_lo .. dc_hi that they read; with
+  // vec16, depth dc_lo's raw window is in A already (issue_a). Ends with
+  // the block synchronised.
+  __device__ __forceinline__ void compute(const Params& p, bf16* s_in,
+                                          unsigned char* region, int cb,
+                                          int j0, int n, int h0, int w0,
+                                          int dc_lo, int dc_hi,
+                                          int tid) const {
+    const int NF = (cols(j0) + 15) / 16;
+    const int* s_code = reinterpret_cast<const int*>(region);
+    const bf16* s_mo = reinterpret_cast<const bf16*>(region + off_mo);
+    const bf16* s_b = reinterpret_cast<const bf16*>(region + off_b);
+    bf16* s_a = reinterpret_cast<bf16*>(region + off_a);
+    const Window wd(p, h0, w0);
+    const int ch0 = p.pc0[p.nparts - 1] + j0 - cb;  // staged channel of j0
+    const bool pairs = ch0 % 2 == 0;
     const int warp = tid / 32, lane = tid % 32;
     const int a_row = lane % 16, a_k = (lane / 16) * 8;
     const int b_row = lane % 8 + (lane / 16) * 8, b_k = ((lane / 8) % 2) * 8;
-    const int hc0 = floor_half(h0 - 1), hc1 = floor_half(h0 + p.TH);
-    const int wc0 = floor_half(w0 - 1);
-    const int MFc = ar / 16;
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    // the coarse depths the up part's shift groups read: the groups of one
-    // coarse depth share its staged rows
-    int dc_lo = Dc, dc_hi = -1;
-    for (int g = 0; g < p.ngroups; ++g) {
-      const int ds = d - p.gs[g];
-      if (max(p.g0[g], c_lo) < min(p.g1[g], c_lo + cout) && ds >= 0 &&
-          ds < p.D) {
-        dc_lo = min(dc_lo, ds >> 1);
-        dc_hi = max(dc_hi, ds >> 1);
-      }
-    }
-    __syncthreads();                   // s_m, s_o
+    const unsigned b_cls = NF * 16 * cpa * 2;        // bytes per class
+    const int hc0 = wd.hc0, wc0 = wd.wc0, AW = wd.AW, npix = wd.npix;
+    const int MFa = wd.MFa;
+    uint4 av[A_UPT];
+    unsigned aok = 0;
+    if (!vec16 && dc_lo <= dc_hi) aok = load_a(wd, n, dc_lo, av, tid);
     for (int dc = dc_lo; dc <= dc_hi; ++dc) {
-      const bf16* xdep = raw + ((size_t)n * Dc + dc) * Hc * Wc * cin;
-      for (int hs = hc0; hs <= hc1; hs += ra) {
-        const int nr = min(ra, hc1 - hs + 1);
-        // ---- A: the normalised coarse rows hs .. hs+nr-1 of depth dc,
-        // columns wc0 .. wc0+ar; four units per thread in flight
-        const int units = nr * ar * KC8;
-        for (int u0 = tid; u0 < units; u0 += 4 * NTHREADS) {
-          uint4 rv[4];
-          const bf16* src[4];
+      if (dc == dc_lo && vec16)
+        norm_a(wd, s_a, s_mo, n, dc, tid);
+      else
+        store_a(wd, s_a, s_mo, n, dc, av, aok, tid);
+      __syncthreads();                 // A staged
+      // the next depth's loads in flight during this product
+      if (dc < dc_hi) aok = load_a(wd, n, dc + 1, av, tid);
+      // ---- one product over the up columns that read dc: a warp per 16
+      // coarse pixels x 16 columns, the four parity classes together
+      for (int task = warp; task < MFa * NF; task += NWARPS) {
+        const int mf = task / NF, nf = task - mf * NF;
+        const int mine = s_code[nf * 16 + lane % 16];
+        if (!__any_sync(0xffffffffu, mine >= 0 && (mine >> 1) == dc))
+          continue;
+        float acc[4][2][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int u = u0 + e * NTHREADS;
-            const int k8 = u % KC8, r = (u / KC8) % ar;
-            const int hc = hs + u / (KC8 * ar), wc = wc0 + r;
-            const bool ok = u < units && hc >= 0 && hc < Hc && wc >= 0 &&
-                            wc < Wc && k8 * 8 < cin;
-            src[e] = ok ? xdep + ((size_t)hc * Wc + wc) * cin + k8 * 8
-                        : nullptr;
-            rv[e] = zero;
-            if (ok && vec16)
-              rv[e] = __ldg(reinterpret_cast<const uint4*>(src[e]));
-          }
+        for (int c = 0; c < 4; ++c)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int u = u0 + e * NTHREADS;
-            if (u >= units) break;
-            const int c0 = (u % KC8) * 8;
-            uint4 out = zero;
-            if (src[e] != nullptr) {
-              const bf16* rb = reinterpret_cast<const bf16*>(&rv[e]);
-              bf16* vals = reinterpret_cast<bf16*>(&out);
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-              for (int i = 0; i < 8; ++i) {
-                const float v = vec16 ? __bfloat162float(rb[i])
-                                : c0 + i < cin ? __bfloat162float(src[e][i])
-                                               : 0.0f;
-                vals[i] = __float2bfloat16(
-                    c0 + i < cin ? norm_lrelu_bf16(v, s_m[c0 + i],
-                                                   s_o[c0 + i])
-                                 : 0.0f);
-              }
-            }
-            *reinterpret_cast<uint4*>(s_a + (size_t)(u / KC8) * cpa + c0) =
-                out;
+            for (int e = 0; e < 4; ++e) acc[c][h][e] = 0.0f;
+        const unsigned a_addr = (unsigned)__cvta_generic_to_shared(
+            s_a + (size_t)(mf * 16 + a_row) * cpa + a_k);
+        const unsigned b_addr = (unsigned)__cvta_generic_to_shared(
+            s_b + (size_t)(nf * 16 + b_row) * cpa + b_k);
+        for (int kc = 0; kc < cins; kc += 16) {
+          unsigned a[4];
+          ldmatrix_x4(a, a_addr + kc * 2);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            unsigned b[4];
+            ldmatrix_x4(b, b_addr + c * b_cls + kc * 2);
+            mma_16816(acc[c][0], a, b[0], b[1]);
+            mma_16816(acc[c][1], a, b[2], b[3]);
           }
         }
-        for (int g = 0; g < p.ngroups; ++g) {
-          const int j0 = max(p.g0[g], c_lo) - c_lo;
-          const int j1 = min(p.g1[g], c_lo + cout) - c_lo;
-          const int ds = d - p.gs[g];
-          if (j0 >= j1 || ds < 0 || ds >= p.D || (ds >> 1) != dc) continue;
-          const int NF = (j1 - j0 + 15) / 16;
-          // ---- B: the group's weights of its depth parity, rows (parity
-          // class, column), K contiguous; zero past its columns and cin
-          for (int u = tid; u < 4 * NF * 16 * KC8; u += NTHREADS) {
-            const int k8 = u % KC8, r = u / KC8;
-            const int col = r % (NF * 16), cls = r / (NF * 16);
-            const int j = j0 + col, k0 = k8 * 8;
-            const bf16* src =
-                w + ((size_t)((ds & 1) * 4 + cls) * cout + j) * cin + k0;
-            uint4 v = zero;
-            if (j < j1 && k0 < cin) {
-              if (wvec16) {
-                v = __ldg(reinterpret_cast<const uint4*>(src));
+        // this lane's columns nf*16 + h*8 + 2*(lane%4) + {0, 1}
+        bool on[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int code = s_code[nf * 16 + h * 8 + (lane % 4) * 2 + e];
+            on[h][e] = code >= 0 && (code >> 1) == dc;
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // pixels lane/4 and lane/4 + 8
+          const int pix = mf * 16 + lane / 4 + 8 * i;
+          if (pix >= npix) continue;
+          const int row = pix / AW;
+          const int hc = hc0 + row, wc = wc0 + pix - row * AW;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int hh = 2 * hc + (c >> 1), ww = 2 * wc + (c & 1);
+            const int r = hh - (h0 - 1), q = ww - (w0 - 1);
+            if (hh < 0 || hh >= p.H || ww < 0 || ww >= p.W || r < 0 ||
+                r > p.TH + 1 || q < 0 || q >= p.Ws)
+              continue;
+            bf16* dst = s_in + ((size_t)r * p.Ws + q) * p.Cp + ch0 +
+                        nf * 16 + (lane % 4) * 2;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float v0 = acc[c][h][2 * i], v1 = acc[c][h][2 * i + 1];
+              if (pairs && on[h][0] && on[h][1]) {
+                *reinterpret_cast<__nv_bfloat162*>(dst + h * 8) =
+                    __floats2bfloat162_rn(v0, v1);
               } else {
-                bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-                  e[i] = k0 + i < cin ? src[i] : __float2bfloat16(0.0f);
-              }
-            }
-            *reinterpret_cast<uint4*>(s_b + (size_t)r * cpa + k0) = v;
-          }
-          __syncthreads();             // A and B staged
-          // ---- per (coarse row, row fragment, 16 columns): one warp, the
-          // four parity classes together (one A fragment, four B)
-          for (int task = warp; task < nr * MFc * NF; task += NWARPS) {
-            const int nf = task % NF, mf = (task / NF) % MFc;
-            const int row = task / (NF * MFc);
-            const int r0 = 2 * (hs + row) - (h0 - 1);  // tile row of ph = 0
-            const bool ph_on[2] = {r0 >= 0 && r0 < p.TH + 2,
-                                   r0 + 1 >= 0 && r0 + 1 < p.TH + 2};
-            if (!ph_on[0] && !ph_on[1]) continue;
-            float acc[4][2][4];
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[c][h][e] = 0.0f;
-            const unsigned a_addr = (unsigned)__cvta_generic_to_shared(
-                s_a + (size_t)(row * ar + mf * 16 + a_row) * cpa + a_k);
-            const unsigned b_addr = (unsigned)__cvta_generic_to_shared(
-                s_b + (size_t)(nf * 16 + b_row) * cpa + b_k);
-            const unsigned b_cls = NF * 16 * cpa * 2;  // bytes per class
-            for (int kc = 0; kc < cins; kc += 16) {
-              unsigned a[4];
-              ldmatrix_x4(a, a_addr + kc * 2);
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                if (ph_on[c >> 1]) {
-                  unsigned b[4];
-                  ldmatrix_x4(b, b_addr + c * b_cls + kc * 2);
-                  mma_16816(acc[c][0], a, b[0], b[1]);
-                  mma_16816(acc[c][1], a, b[2], b[3]);
-                }
-            }
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              if (!ph_on[c >> 1]) continue;
-              const int r = r0 + (c >> 1), hh = r + h0 - 1;
-              const bool h_in = hh >= 0 && hh < p.H;
-              bf16* dst = s_in + (size_t)r * p.Ws * p.Cp + c_lo + j0;
-#pragma unroll
-              for (int half = 0; half < 2; ++half) {
-                const int ww = 2 * (wc0 + mf * 16 + lane / 4 + half * 8) +
-                               (c & 1);
-                const int q = ww - (w0 - 1);
-                if (q < 0 || q >= p.Ws) continue;
-                const bool in = h_in && ww >= 0 && ww < p.W;
-#pragma unroll
-                for (int h = 0; h < 2; ++h)
-#pragma unroll
-                  for (int e = 0; e < 2; ++e) {
-                    const int col = nf * 16 + h * 8 + (lane % 4) * 2 + e;
-                    if (j0 + col < j1)
-                      dst[(size_t)q * p.Cp + col] = __float2bfloat16(
-                          in ? acc[c][h][2 * half + e] : 0.0f);
-                  }
+                if (on[h][0]) dst[h * 8] = __float2bfloat16(v0);
+                if (on[h][1]) dst[h * 8 + 1] = __float2bfloat16(v1);
               }
             }
           }
-          __syncthreads();             // B (and after the last group A) free
         }
       }
+      __syncthreads();                 // A free; the chunk's up part staged
     }
   }
 };
 
-template <int NG, int NFW, int MPW>
+// cp.async of the chunk's weights (concat channels cb .. cb + p.Cs) for
+// all 9 taps and the tile's output channels co0 .. co0 + ncol, packed for
+// wgmma (wgmma_b_index, N8 groups of 8 output channels); zero past ncol
+// and past C
+__device__ __forceinline__ void stage_chunk_weights(const Params& p,
+                                                    bf16* s_w, int cb,
+                                                    int co0, int ncol,
+                                                    int N8, int tid) {
+  const int KC8 = p.Cs / 8, KS = p.Cs / 16, rows = N8 * 8;
+  const bool vec = p.C % 8 == 0 && cb % 8 == 0;
+  for (int u = tid; u < 9 * rows * KC8; u += NTHREADS) {
+    const int k8 = u % KC8, r = u / KC8;
+    const int n = r % rows, t = r / rows;
+    const int k = cb + k8 * 8;
+    bf16* dst = s_w + wgmma_b_index(t, n, k8 * 8, KS, N8);
+    const bf16* src = p.w + ((size_t)t * p.CO + co0 + n) * p.C + k;
+    if (n < ncol && k < p.C && vec) {
+      cp_async16(dst, src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = n < ncol && k + e < p.C ? src[e] : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// the 9 taps over the staged chunk at s_op on wgmma, straight-line code
+// for the chunk's KS 16-channel steps and the tile's N8 groups of 8 output
+// channels
+template <int KS>
+__device__ __forceinline__ void lazy_wgmma_taps(
+    const Params& p, const WarpTile<1, 3, MPW_LAZY>& wt,
+    float acc[MPW_LAZY][3][2][4], const bf16* s_op, const bf16* s_w,
+    int N8) {
+  switch (N8) {
+    case 1: wgmma_taps<MPW_LAZY, 1, KS>(p, wt, acc, s_op, s_w); break;
+    case 2: wgmma_taps<MPW_LAZY, 2, KS>(p, wt, acc, s_op, s_w); break;
+    case 3: wgmma_taps<MPW_LAZY, 3, KS>(p, wt, acc, s_op, s_w); break;
+    case 4: wgmma_taps<MPW_LAZY, 4, KS>(p, wt, acc, s_op, s_w); break;
+    case 5: wgmma_taps<MPW_LAZY, 5, KS>(p, wt, acc, s_op, s_w); break;
+    default: wgmma_taps<MPW_LAZY, 6, KS>(p, wt, acc, s_op, s_w);
+  }
+}
+
+// WGMMA: the taps on wgmma_taps, else on mma_taps_packed (the control that
+// measures it). WIDE: the up part in up.nup chunks, the up-link of each
+// after the previous chunk's taps; otherwise one chunk, computed before
+// any product (no up-link beside live accumulators, which ptxas answers by
+// serialising the wgmmas)
+template <bool WGMMA, bool WIDE>
 __global__ void __launch_bounds__(NTHREADS)
-qfused_lazy_kernel(const Params p, const LazyUpStage up) {
-  shift_conv_block_body<NG, NFW, MPW>(p, up);
+qfused_lazy_kernel(const Params p, const LazyUp up) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int n_ht = (p.H + p.TH - 1) / p.TH;
+  int bid = blockIdx.x;
+  const int wt = bid % p.n_wt;
+  bid /= p.n_wt;
+  const int ht = bid % n_ht;
+  bid /= n_ht;
+  const int d = bid % p.D;
+  const int n = bid / p.D;
+  const int h0 = ht * p.TH;
+  const int w0 = wt * p.WF * 16;
+  const int co0 = blockIdx.y * 48;
+  const int nf = min(3, (p.CO - co0 + 15) / 16);  // CO fragments
+  const int BN = nf * 16;
+  const int ncol = min(BN, p.CO - co0);
+  const int N8 = (ncol + 7) / 8;
+  const int KS = p.Cs / 16;
+
+  bf16* s_in = reinterpret_cast<bf16*>(smem);
+  bf16* s_w = reinterpret_cast<bf16*>(smem + p.off_w);
+  unsigned char* tab = smem + p.off_tab;
+  unsigned char* region = smem + p.off_hook;
+
+  const WarpTile<1, 3, MPW_LAZY> wtile(p, tid, nf);
+  float acc[MPW_LAZY][3][2][4];
+#pragma unroll
+  for (int f = 0; f < MPW_LAZY; ++f)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[f][j][h][e] = 0.0f;
+
+  auto taps = [&](const bf16* s_op) {
+    if constexpr (WGMMA) {
+      if (KS == 1)
+        lazy_wgmma_taps<1>(p, wtile, acc, s_op, s_w, N8);
+      else if (KS == 2)
+        lazy_wgmma_taps<2>(p, wtile, acc, s_op, s_w, N8);
+      else
+        lazy_wgmma_taps<3>(p, wtile, acc, s_op, s_w, N8);
+    } else {
+      mma_taps_packed<MPW_LAZY>(p, wtile, acc, s_op, s_w, KS, N8);
+    }
+  };
+  // the second operand buffer: the hook's up weights and coarse pixels
+  // until its up-link is computed
+  bf16* s_op2 = reinterpret_cast<bf16*>(region + up.off_b);
+
+  // ---- the chunks of the up part first: the first one's up-link is
+  // computed before any product, while the accumulators hold nothing.
+  // Each chunk's first coarse depth's raw pixels are copied with it.
+  const int nup = WIDE ? up.nup : 1;
+  for (int u = 0; u < nup; ++u) {
+    const int j0 = u * KC_MAX, cb = up.cb_up + j0;
+    if (u > 0) __syncthreads();        // the last taps done: s_in, s_w free
+    int dc_lo, dc_hi;
+    up.depths(p, d, j0, dc_lo, dc_hi);
+    if (up.vec16 && dc_lo <= dc_hi)
+      up.issue_a(LazyUp::Window(p, h0, w0),
+                 reinterpret_cast<bf16*>(region + up.off_a), n, dc_lo, tid);
+    stage_chunk_weights(p, s_w, cb, co0, ncol, N8, tid);
+    up.issue(p, region, n, d, j0, tid);
+    stage_operand_issue(p, s_in, tab, cb, n, d, h0, w0, tid);
+    cp_async_wait_all();
+    fence_proxy_async();               // the weights, for wgmma
+    stage_operand_finish(p, NoHook(), smem, s_in, tab, n, d, h0, w0, tid);
+    up.compute(p, s_in, region, cb, j0, n, h0, w0, dc_lo, dc_hi, tid);
+    // the first materialised chunk's copies in flight during the last
+    // up chunk's taps
+    if (u == nup - 1 && up.nmat > 0)
+      stage_operand_issue(p, s_op2, tab, 0, n, d, h0, w0, tid);
+    taps(s_in);
+  }
+
+  // ---- the chunks of the materialised parts, in the two buffers in turn,
+  // the next one's copies in flight during this one's taps
+  for (int ch = 0; ch < up.nmat; ++ch) {
+    bf16* s_op = (ch & 1) ? s_in : s_op2;
+    __syncthreads();                   // the last taps done: the weights
+                                       // and the other buffer free
+    stage_chunk_weights(p, s_w, ch * p.Cs, co0, ncol, N8, tid);
+    cp_async_commit();
+    cp_async_wait_all();
+    fence_proxy_async();
+    stage_operand_finish(p, NoHook(), smem, s_op, tab, n, d, h0, w0, tid);
+    if (ch + 1 < up.nmat)
+      stage_operand_issue(p, (ch & 1) ? s_op2 : s_in, tab, (ch + 1) * p.Cs,
+                          n, d, h0, w0, tid);
+    taps(s_op);
+  }
+
+  // ---- epilogue through shared memory (aliases the operand and weights)
+  __syncthreads();
+  store_tile<1, 3, MPW_LAZY, true>(p, wtile, acc,
+                                   reinterpret_cast<float*>(smem), n, d, h0,
+                                   w0, co0, BN, ncol, tid,
+                                   reinterpret_cast<float*>(region));
+}
+
+static size_t align128(size_t v) { return (v + 127) / 128 * 128; }
+
+// shared memory of a TH-row tile (p.WF, p.Ws, p.Cs, p.Cp set): the operand
+// chunk then the weights (the epilogue aliases both), the staging table,
+// the hook region; sets the offsets
+static size_t lazy_smem_bytes(Params& p, LazyUp& up, int TH, int nfu) {
+  const int bn_max = min(48, (p.CO + 15) / 16 * 16);
+  p.TH = TH;
+  p.off_w = (int)align128((size_t)(TH + 2) * p.Ws * p.Cp * sizeof(bf16));
+  const size_t w_bytes = (size_t)9 * (p.Cs / 16) * (bn_max / 8) * 256;
+  const size_t ep_bytes = (size_t)TH * p.WF * 16 * bn_max * sizeof(float);
+  size_t region0 = p.off_w + w_bytes;
+  region0 = align128(region0 > ep_bytes ? region0 : ep_bytes);
+  p.off_tab = (int)region0;
+  // table: pointer, info, mult, off per channel; two ints per unit, a count
+  const size_t tab_bytes = align128((size_t)p.Cs * (sizeof(void*) + 12) +
+                                    (size_t)(p.Cs / 8) * 8 + 4);
+  p.off_hook = p.off_tab + (int)tab_bytes;
+  // the coarse window: TH/2 + 2 rows of 8*WF + 2 pixels at most
+  const int npa = ((TH / 2 + 2) * (8 * p.WF + 2) + 15) / 16 * 16;
+  up.off_mo = nfu * 16 * (int)sizeof(int);
+  up.off_b = (int)align128(up.off_mo + (size_t)2 * up.cins * sizeof(bf16));
+  up.off_a = (int)align128(up.off_b +
+                           (size_t)4 * nfu * 16 * up.cpa * sizeof(bf16));
+  // the up weights and coarse pixels, then the second operand buffer; the
+  // epilogue's partial statistics
+  size_t hook = up.off_a + (size_t)npa * up.cpa * sizeof(bf16);
+  const size_t op2 = up.off_b + (size_t)p.off_w;
+  const size_t red = (size_t)2 * NWARPS * 48 * sizeof(float);
+  hook = hook > op2 ? hook : op2;
+  return (size_t)p.off_hook + (hook > red ? hook : red);
 }
 
 // Plain C entry point (bound with ctypes). The parts are those of
 // fused_block_launch, the LAST of which is the lazy up-link: its pointers
 // are null and part_c[nparts-1] is C_up. up_raw is the level-below pending
 // raw (N, D/2, H/2, W/2, cin) bf16, up_mult/up_off (N, cin) f32, up_w
-// (8, C_up, cin) bf16 with the parity index bd*4 + bh*2 + bw. Returns a
-// cudaError_t; launches on `stream`; does not synchronise.
+// (8, C_up, cin) bf16 with the parity index bd*4 + bh*2 + bw. wgmma: 1 runs
+// the taps on wgmma, 0 on mma.sync (the control). Returns a cudaError_t;
+// launches on `stream`; does not synchronise.
 extern "C" int qfused_lazy_launch(const void* const* xs,
                                   const void* const* mults,
                                   const void* const* offs, const int* part_c,
@@ -296,7 +619,8 @@ extern "C" int qfused_lazy_launch(const void* const* xs,
                                   void* stats, int N, int D, int H, int W,
                                   int CO, const void* up_raw,
                                   const void* up_mult, const void* up_off,
-                                  const void* up_w, int cin, void* stream) {
+                                  const void* up_w, int cin, int wgmma,
+                                  void* stream) {
   Params p;
   if (!make_params(p, xs, mults, offs, part_c, part_vec, nparts, groups,
                    ngroups, w, b, y, stats, N, D, H, W, CO))
@@ -306,24 +630,60 @@ extern "C" int qfused_lazy_launch(const void* const* xs,
   for (int i = 0; i < nparts; ++i)
     if ((p.x[i] == nullptr) != (i == nparts - 1))
       return (int)cudaErrorInvalidValue;
-  LazyUpStage up;
+  LazyUp up;
   up.raw = static_cast<const bf16*>(up_raw);
   up.mult = static_cast<const float*>(up_mult);
   up.off = static_cast<const float*>(up_off);
   up.w = static_cast<const bf16*>(up_w);
   up.Dc = D / 2; up.Hc = H / 2; up.Wc = W / 2; up.cin = cin;
+  up.cout = p.pc[nparts - 1];
   up.cins = (cin + 15) / 16 * 16;
   up.cpa = up.cins + 8;                // an odd number of 16-byte units
-  const int c_lo = p.pc0[nparts - 1], c_hi = c_lo + p.pc[nparts - 1];
-  int widest = 0;
-  for (int g = 0; g < ngroups; ++g) {
-    const int cols = min(p.g1[g], c_hi) - max(p.g0[g], c_lo);
-    widest = cols > widest ? cols : widest;
-  }
-  up.nf_max = (widest + 15) / 16;
   up.vec16 = cin % 8 == 0 && reinterpret_cast<uintptr_t>(up_raw) % 16 == 0;
-  up.wvec16 = cin % 8 == 0 && reinterpret_cast<uintptr_t>(up_w) % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return CO <= 48 ? launch<1, 3, 2>(p, up, qfused_lazy_kernel<1, 3, 2>, s)
-                  : launch<2, 3, 1>(p, up, qfused_lazy_kernel<2, 3, 1>, s);
+  // K chunks of p.Cs channels: one for the whole concat where it has at
+  // most KC_MAX channels, else KC_MAX from 0 up to the up part and the up
+  // part's own chunks of KC_MAX from its first channel
+  const int c_lo = p.pc0[nparts - 1];
+  up.nup = 1;
+  if (p.Cs <= KC_MAX) {
+    up.cb_up = 0;
+    up.nmat = 0;
+  } else {
+    p.Cs = KC_MAX;
+    up.cb_up = c_lo;
+    up.nup = (up.cout + KC_MAX - 1) / KC_MAX;
+    up.nmat = (c_lo + KC_MAX - 1) / KC_MAX;
+  }
+  p.Cp = p.Cs + 8;                     // an odd number of 16-byte units
+  // W tiles of at most WF_MAX row fragments, of equal width; then the most
+  // rows, up to 32 fragments, that fit shared memory
+  const int wf_all = (W + 15) / 16;
+  int wf = min(wf_all, WF_MAX);
+  while ((wf_all + (wf_all + wf - 1) / wf - 1) / ((wf_all + wf - 1) / wf) !=
+         wf)
+    --wf;
+  p.WF = wf;
+  p.n_wt = (wf_all + wf - 1) / wf;
+  p.Ws = wf * 16 + 2;
+  size_t smem = 0;
+  int th = min(H, NWARPS * MPW_LAZY / wf);
+  for (; th >= 1; --th) {
+    smem = lazy_smem_bytes(p, up, th, (min(up.cout, KC_MAX) + 15) / 16);
+    if (smem <= SMEM_LIMIT) break;
+  }
+  if (th < 1) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const Params, const LazyUp) =
+      wgmma ? (up.nup > 1 ? qfused_lazy_kernel<true, true>
+                          : qfused_lazy_kernel<true, false>)
+            : (up.nup > 1 ? qfused_lazy_kernel<false, true>
+                          : qfused_lazy_kernel<false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_blocks =
+      (long long)N * D * ((H + p.TH - 1) / p.TH) * p.n_wt;
+  if (n_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)n_blocks, (CO + 47) / 48);
+  kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p, up);
+  return (int)cudaGetLastError();
 }

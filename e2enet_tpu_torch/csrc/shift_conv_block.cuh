@@ -17,7 +17,16 @@
 // source pointer is null is staged as zeros for the hook to fill. A third
 // argument, an epilogue type (default StoreTile: bias, the y store and the
 // statistics), replaces what is done with the block tile's sums.
-
+//
+// Two tap loops: mma_tap (ldmatrix + mma.sync.m16n8k16, a warp's 16-pixel
+// fragments by its CO fragments, the tap's weights as (CO, K) rows), which
+// #1, the dgrad and #13 run through shift_conv_block_body or their own
+// loops; and wgmma_taps (wgmma.mma_async with A from registers by the same
+// ldmatrix addressing, B by descriptor from weights packed by
+// wgmma_b_index, a warpgroup's two m64 tiles, all 9 taps' weights staged
+// at once), which #3 runs over its K chunks. Both leave the sums in the
+// same registers, so store_tile serves both; its REDUCE form (statistics
+// from the registers, one atomic pair per output channel and block) is #3's.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -116,6 +125,14 @@ __device__ __forceinline__ void ldmatrix_x2_trans(unsigned r[2],
                                                   unsigned addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+// two 8x8 matrices, rows addressed by lanes 0-15
+__device__ __forceinline__ void ldmatrix_x2(unsigned r[2], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
       : "=r"(r[0]), "=r"(r[1])
       : "r"(addr)
       : "memory");
@@ -513,6 +530,295 @@ __device__ __forceinline__ void mma_tap(const Params& p,
   }
 }
 
+// ---- The wgmma tap loop. A warpgroup (four consecutive warps) issues
+// wgmma.mma_async.m64nNk16 with A (64 pixels x 16 channels) from registers
+// and B (16 channels x N output channels) from shared memory through a
+// matrix descriptor. A warp's 16 rows of A have the layout of mma.m16n8k16's
+// A fragment, so mma_tap's ldmatrix at each tap's shifted row addresses
+// feeds it unchanged: the tap's one-pixel offset is an address, which no
+// descriptor could express. B is packed in the canonical K-major layout
+// without swizzle (wgmma_b_index): 8 x 8 core matrices of 8 output channels
+// by 8 channels, 128 contiguous bytes each, the two K halves of a 16-channel
+// step LBO = 128 bytes apart, consecutive groups of 8 output channels
+// SBO = 256 bytes apart. A warp's 16 rows of the accumulator have
+// mma.m16n8's layout per 8 output channels, so they land in mma_tap's
+// acc[f][j][h][e] and the epilogue is the same.
+
+// element offset of (tap t, output channel n, channel k of the staged
+// chunk) in the packed B of KS 16-channel steps and N8 groups of 8 output
+// channels per tap; one core-matrix row (8 channels) is 16 contiguous bytes
+__host__ __device__ inline int wgmma_b_index(int t, int n, int k, int KS,
+                                             int N8) {
+  return ((((t * KS + k / 16) * N8 + n / 8) * 2 + (k % 16) / 8) * 8 + n % 8) *
+             8 + k % 8;
+}
+
+// descriptor of a packed B step at `smem`: start address, LBO 128 bytes,
+// SBO 256 bytes, no swizzle
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem) {
+  const uint64_t addr = (uint64_t)__cvta_generic_to_shared(smem);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// shared memory written by threads (st.shared, cp.async) made visible to
+// wgmma's reads, which go through the async proxy: by every writer after
+// its writes have landed, before the barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// holds A registers that an issued wgmma still reads until this point (the
+// compiler sees the wgmma's use end with the asm statement)
+__device__ __forceinline__ void keep_live(const unsigned a[4]) {
+  asm volatile("" ::"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]));
+}
+
+// d (4 * N8 floats) += a (this warp's 16 rows x 16, registers) * B (16 x
+// 8 * N8, descriptor), one m64 tile of the warpgroup
+template <int N8>
+struct WgmmaRS;
+template <>
+struct WgmmaRS<1> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct WgmmaRS<2> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct WgmmaRS<3> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11}, "
+        "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct WgmmaRS<4> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct WgmmaRS<5> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19}, "
+        "{%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct WgmmaRS<6> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+// pins the accumulators' definitions before and their uses after the
+// wgmma pipeline (no other instruction may define them inside it)
+template <int MPW>
+__device__ __forceinline__ void wgmma_fence_acc(float acc[MPW][3][2][4]) {
+#pragma unroll
+  for (int f = 0; f < MPW; ++f)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          asm volatile("" : "+f"(acc[f][j][h][e])::"memory");
+}
+
+// one (tap, 16-channel step) of wgmma_taps: A of each issued tile by
+// ldmatrix at the tap's offset, then one commit group
+template <int MPW, int N8>
+__device__ __forceinline__ void wgmma_step(float acc[MPW][3][2][4],
+                                           unsigned a[MPW][4],
+                                           const unsigned a_addr[MPW],
+                                           const unsigned char* s_w, int s,
+                                           int KS, int Ws, int Cp) {
+  const int t = s / KS, ks = s - t * KS;
+  const int off = ((t / 3 - 1) * Ws + t % 3 - 1) * Cp + ks * 16;
+#pragma unroll
+  for (int f = 0; f < MPW; ++f) ldmatrix_x4(a[f], a_addr[f] + off * 2);
+  wgmma_fence();
+  const uint64_t desc = wgmma_desc(s_w + (size_t)(t * KS + ks) * N8 * 256);
+#pragma unroll
+  for (int f = 0; f < MPW; ++f)
+    WgmmaRS<N8>::mma(&acc[f][0][0][0], a[f], desc);
+  wgmma_commit();
+}
+
+// acc += the products of all 9 taps over the KS*16 staged channels on
+// wgmma, for a warp tile of one warp column (NG = 1, NFW = 3) and
+// N = 8 * N8 <= 48 output channels: the operand at s_in as stage_operand
+// stages it, the 9 taps' weights at s_w packed by wgmma_b_index. Warpgroup
+// g issues m64 tile f over the row fragments 16f + 4g .. 16f + 4g + 3 (one
+// per warp, WarpTile's); a warp whose own fragment is not in the block
+// reads fragment 0's rows, and its sums are never stored (no branch around
+// a wgmma: ptxas serialises wgmmas on a path it cannot prove uniform). One
+// commit group per (tap, step), the next step's A loaded and its wgmmas
+// issued while it runs: the 9 * KS steps are straight-line code, with no
+// branch or loop edge while a group is in flight, which ptxas would
+// serialise. Returns with every product done.
+template <int MPW, int N8, int KS>
+__device__ __forceinline__ void wgmma_taps(const Params& p,
+                                           const WarpTile<1, 3, MPW>& wt,
+                                           float acc[MPW][3][2][4],
+                                           const bf16* s_in,
+                                           const bf16* s_w) {
+  const int Cp = p.Cp, Ws = p.Ws;
+  const int lane = wt.lane;
+  const int a_row = lane % 16, a_k = (lane / 16) * 8;
+  unsigned a_addr[MPW];
+#pragma unroll
+  for (int f = 0; f < MPW; ++f) {
+    const int th = wt.on[f] ? wt.th[f] : 0, w = wt.on[f] ? wt.w[f] : 0;
+    a_addr[f] = (unsigned)__cvta_generic_to_shared(
+        s_in + ((size_t)(th + 1) * Ws + w + 1 + a_row) * Cp + a_k);
+  }
+  const unsigned char* sw = reinterpret_cast<const unsigned char*>(s_w);
+  unsigned a0[MPW][4], a1[MPW][4];
+#pragma unroll
+  for (int f = 0; f < MPW; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a0[f][e] = a1[f][e] = 0u;
+  wgmma_fence_acc<MPW>(acc);
+#pragma unroll
+  for (int s = 0; s < 9 * KS; ++s) {
+    wgmma_step<MPW, N8>(acc, (s & 1) ? a1 : a0, a_addr, sw, s, KS, Ws, Cp);
+    wgmma_wait<1>();                   // step s - 1 done: its A free
+#pragma unroll
+    for (int f = 0; f < MPW; ++f) keep_live((s & 1) ? a0[f] : a1[f]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int f = 0; f < MPW; ++f) {
+    keep_live(a0[f]);
+    keep_live(a1[f]);
+  }
+  wgmma_fence_acc<MPW>(acc);
+}
+
+// The control that measures wgmma_taps: the same products, operand and
+// packed weights on mma.sync, each warp over its own row fragments. The
+// four 8 x 8 core matrices of two consecutive groups of 8 output channels
+// in a step (both K halves) are 512 contiguous bytes, so one ldmatrix_x4
+// at 16 bytes per lane gives two groups' B fragments.
+template <int MPW>
+__device__ __forceinline__ void mma_taps_packed(const Params& p,
+                                                const WarpTile<1, 3, MPW>& wt,
+                                                float acc[MPW][3][2][4],
+                                                const bf16* s_in,
+                                                const bf16* s_w, int KS,
+                                                int N8) {
+  const int Cp = p.Cp, Ws = p.Ws;
+  const int lane = wt.lane;
+  const int a_row = lane % 16, a_k = (lane / 16) * 8;
+  unsigned a_addr[MPW];
+#pragma unroll
+  for (int f = 0; f < MPW; ++f) {
+    const int th = wt.on[f] ? wt.th[f] : 0, w = wt.on[f] ? wt.w[f] : 0;
+    a_addr[f] = (unsigned)__cvta_generic_to_shared(
+        s_in + ((size_t)(th + 1) * Ws + w + 1 + a_row) * Cp + a_k);
+  }
+  const unsigned b_base = (unsigned)__cvta_generic_to_shared(s_w) + lane * 16;
+  for (int s = 0; s < 9 * KS; ++s) {
+    const int t = s / KS, ks = s - t * KS;
+    const int off = ((t / 3 - 1) * Ws + t % 3 - 1) * Cp + ks * 16;
+    unsigned a[MPW][4];
+#pragma unroll
+    for (int f = 0; f < MPW; ++f) ldmatrix_x4(a[f], a_addr[f] + off * 2);
+    const unsigned b_step = b_base + (t * KS + ks) * N8 * 256;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (2 * j >= N8) continue;
+      unsigned b[4];
+      if (2 * j + 1 < N8)
+        ldmatrix_x4(b, b_step + j * 512);
+      else
+        ldmatrix_x2(b, b_step + j * 512);
+#pragma unroll
+      for (int f = 0; f < MPW; ++f) {
+        mma_16816(acc[f][j][0], a[f], b[0], b[1]);
+        if (2 * j + 1 < N8) mma_16816(acc[f][j][1], a[f], b[2], b[3]);
+      }
+    }
+  }
+}
+
 // The accumulators of one block tile into shared memory at s_acc (TH*WF*16
 // x BN floats, pixel-major; the caller has synchronised the block since the
 // last read of what it aliases), then a block barrier. An n8 accumulator
@@ -561,14 +867,61 @@ struct TilePixel {
 // The epilogue of one block tile through shared memory at s_acc (TH*WF*16
 // x BN floats; the caller has synchronised the block since the last read of
 // what it aliases): bias, the bf16 store of y and the per-channel
-// statistics (atomics).
-template <int NG, int NFW, int MPW>
+// statistics (atomics). With REDUCE, the statistics come from the
+// accumulators in registers instead: summed over each warp's pixels by
+// shuffles, then over the warps in shared memory at `red` (2 * NWARPS * BN
+// floats), so a block adds one pair per output channel (per-thread
+// atomics on the same few addresses serialise in their L2 slices).
+template <int NG, int NFW, int MPW, bool REDUCE = false>
 __device__ __forceinline__ void store_tile(const Params& p,
                                            const WarpTile<NG, NFW, MPW>& wt,
                                            float acc[MPW][NFW][2][4],
                                            float* s_acc, int n, int d,
                                            int h0, int w0, int co0, int BN,
-                                           int ncol, int tid) {
+                                           int ncol, int tid,
+                                           float* red = nullptr) {
+  if constexpr (REDUCE) {
+    // this lane's pixels: rows lane/4 and lane/4 + 8 of its fragments
+    const int lane = wt.lane;
+    bool px_on[MPW][2];
+#pragma unroll
+    for (int f = 0; f < MPW; ++f)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        px_on[f][r] = wt.on[f] && h0 + wt.th[f] < p.H &&
+                      w0 + wt.w[f] + lane / 4 + 8 * r < p.W;
+#pragma unroll
+    for (int j = 0; j < NFW; ++j) {
+      if (!wt.nf_on[j]) continue;      // warp-uniform
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = (wt.ng * NFW + j) * 16 + h * 8 + (lane % 4) * 2 + e;
+          const float bias =
+              col < ncol ? __bfloat162float(p.b[co0 + col]) : 0.0f;
+          float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+          for (int f = 0; f < MPW; ++f)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              if (px_on[f][r]) {
+                const float v = acc[f][j][h][2 * r + e] + bias;
+                s1 += v;
+                s2 += v * v;
+              }
+#pragma unroll
+          for (int m = 4; m < 32; m *= 2) {
+            s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+            s2 += __shfl_xor_sync(0xffffffffu, s2, m);
+          }
+          if (lane < 4) {
+            red[wt.wm * BN + col] = s1;
+            red[(NWARPS + wt.wm) * BN + col] = s2;
+          }
+        }
+    }
+  }
   acc_to_smem(wt, acc, s_acc, BN);
   const int BM = p.TH * p.WF * 16;
   const TilePixel pixel(p, h0, w0);
@@ -599,6 +952,19 @@ __device__ __forceinline__ void store_tile(const Params& p,
     }
   }
 
+  if constexpr (REDUCE) {
+    // the warps' partials (red was written before acc_to_smem's barrier)
+    if (tid < ncol) {
+      float s1 = 0.0f, s2 = 0.0f;
+      for (int m = 0; m < WarpTile<NG, NFW, MPW>::WPM; ++m) {
+        s1 += red[m * BN + tid];
+        s2 += red[(NWARPS + m) * BN + tid];
+      }
+      atomicAdd(&p.stats[((size_t)n * p.CO + co0 + tid) * 2], s1);
+      atomicAdd(&p.stats[((size_t)n * p.CO + co0 + tid) * 2 + 1], s2);
+    }
+    return;
+  }
   const int G = NTHREADS / BN;          // threads per output channel
   if (tid < G * BN) {
     const int j = tid % BN;

@@ -37,10 +37,10 @@ SIGNATURES = {
         + [i32] * 5 + [vp]},
     "qfused": {
         # the fused block's arguments, then up_raw, up_mult, up_off, up_w,
-        # cin, stream
+        # cin, wgmma, stream
         "qfused_lazy_launch": [ctypes.POINTER(vp)] * 3 + [PI, PI, i32, PI,
                                                           i32] + [vp] * 4
-        + [i32] * 5 + [vp] * 4 + [i32, vp]},
+        + [i32] * 5 + [vp] * 4 + [i32, i32, vp]},
     "fused_block_bwd": {
         # the forward's parts, affines, part_c, part_vec, nparts, groups,
         # ngroups; gxs, gaffs; y, gy, gstats, w9t, gw, gb; N, D, H, W, CO,
@@ -216,19 +216,20 @@ def launch_fused_block(parts, affines, groups, w9, b, y, stats) -> None:
 
 
 def launch_lazy_up(parts, affines, groups, w9, b, raw, umult, uoff, wu, y,
-                   stats) -> None:
+                   stats, wgmma: bool = True) -> None:
     """Launch csrc/qfused.cu: the fused block of launch_fused_block on the
     concat of `parts` and a last up-link part computed on load from raw, the
     level-below pending raw (N, D/2, H/2, W/2, cin) contiguous bf16, with
     umult/uoff float32 (N, cin) and wu (8, C_up, cin) bf16 (parity
-    bd*4 + bh*2 + bw, flips applied). Raises on a refused launch."""
+    bd*4 + bh*2 + bw, flips applied); the conv's taps on wgmma, or with
+    wgmma=False on mma.sync (the control). Raises on a refused launch."""
     fn = library("qfused").qfused_lazy_launch
     args = _block_args(parts, affines, groups, w9, b, y, stats,
                        up_channels=int(wu.shape[1]))
     cin = int(raw.shape[-1])
     with torch.cuda.device(y.device):
         err = fn(*args, raw.data_ptr(), umult.data_ptr(), uoff.data_ptr(),
-                 wu.data_ptr(), cin, _stream(y))
+                 wu.data_ptr(), cin, int(wgmma), _stream(y))
     _check(err, f"qfused lazy (shape {tuple(y.shape)}, C={sum(args[3])}, "
                 f"cin={cin})")
 

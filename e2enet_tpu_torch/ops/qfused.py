@@ -73,26 +73,30 @@ def lazy_up_fused_block_ref(parts: Sequence[torch.Tensor], lazy_up: LazyUp,
 def lazy_up_fused_block(parts: Sequence[torch.Tensor], lazy_up: LazyUp,
                         kernel: torch.Tensor, bias: torch.Tensor,
                         affines: Sequence[Affine], flips: Flips = NO_FLIPS,
-                        groups_override=None):
+                        groups_override=None, *, wgmma: bool = True):
     """The fused block with a lazy up-link last part: plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (bfloat16, up-link stride
     (2, 2, 2); raises on what the kernel does not take). Same arguments and
     results as lazy_up_fused_block_ref; with a gradient wanted, an autograd
-    op (the reference's lazy VJP)."""
+    op (the reference's lazy VJP). wgmma=False runs the kernel's taps on
+    mma.sync instead, a control for measuring the wgmma tap loop (forward
+    only)."""
     if len(parts) != len(affines):
         raise ValueError("one affine (or None) per materialised part")
     tensors = (list(parts) + list(lazy_up) + [kernel, bias]
                + affine_tensors(affines))
     if needs_grad(tensors):
+        if not wgmma:
+            raise ValueError("the mma.sync control has no backward")
         return _LazyBlockFn.apply(
             (tuple(flips), groups_override, len(parts),
              tuple(a is not None for a in affines)), *tensors)
     return _lazy_forward(parts, lazy_up, kernel, bias, affines, flips,
-                         groups_override)
+                         groups_override, wgmma)
 
 
 def _lazy_forward(parts, lazy_up, kernel, bias, affines, flips,
-                  groups_override):
+                  groups_override, wgmma=True):
     if parts[0].device.type == "cpu":
         return lazy_up_fused_block_ref(parts, lazy_up, kernel, bias, affines,
                                        flips, groups_override)
@@ -131,13 +135,14 @@ def _lazy_forward(parts, lazy_up, kernel, bias, affines, flips,
     aff = [None if a is None else (affine_nc(a[0], N, ci),
                                    affine_nc(a[1], N, ci))
            for a, ci in zip(affines, part_c)]
+    groups = block_groups(C, flips, groups_override)
     y = torch.empty((N, D, H, W, CO), dtype=dtype, device=dev)
     stats = torch.zeros((N, CO, 2), dtype=torch.float32, device=dev)
     _native.launch_lazy_up(
-        [p.contiguous() for p in parts], aff,
-        block_groups(C, flips, groups_override), w9,
+        [p.contiguous() for p in parts], aff, groups, w9,
         bias.to(dtype).contiguous(), raw.contiguous(),
-        affine_nc(umult, N, cin), affine_nc(uoff, N, cin), wu, y, stats)
+        affine_nc(umult, N, cin), affine_nc(uoff, N, cin), wu, y, stats,
+        wgmma)
     lazy_up_fused_block.launches += 1
     return y, stats
 

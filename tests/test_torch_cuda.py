@@ -1,6 +1,8 @@
 """The CUDA kernels on the card, against their plain torch versions: the
 fused block (also mirrored), the fused block with a lazy up-link part
-(ragged, compact groups, all mirrors), the strided transition, the
+(ragged, compact groups, all mirrors, its tile's edges, up parts wider
+than one K chunk, no read of the up weights past cin, its taps on mma.sync
+as the control), the strided transition, the
 up-link, the down-link and the seg head; the block backward and the
 down-link backward (main-path, ragged and N = 2 shapes, ties), and a
 small train step's launches; the block backward's parts wanted or not and
@@ -337,6 +339,26 @@ LAZY = {
                        ((0, 5, -2), (5, 19, -1), (19, 27, 0), (27, 33, 1),
                         (33, 40, 2))),
     "co96": (1, 2, 4, 16, (48, 8), (True, False), 24, 48, 96, None),
+    # the tile's edges: H = 18, not a multiple of its 16 rows; one coarse
+    # depth (D = 2); sparse output widths 10 and 40; three pending parts
+    # beside the up-link (MAX_PARTS); W = 144 and 600
+    "h_tile_ragged": (1, 2, 9, 16, (48,), (True,), 96, 48, 48, None),
+    "dc1": (2, 1, 4, 8, (16,), (True,), 24, 16, 24, None),
+    "co10": (1, 3, 8, 16, (12,), (True,), 24, 10, 10, None),
+    "co40": (1, 3, 8, 16, (24,), (True,), 48, 24, 40, None),
+    "max_parts": (1, 2, 5, 20, (8, 16, 8), (True, False, True), 24, 16, 40,
+                  None),
+    "w144": (1, 2, 3, 72, (48,), (True,), 96, 48, 48, None),
+    "w600": (1, 1, 2, 300, (8,), (True,), 16, 8, 16, None),
+    # up parts of more than one staged chunk beside a part: 64 + up
+    # 128 -> 64 (a model of 64 base features), 8 + up 24 -> 56
+    "wide_up64": (1, 2, 4, 16, (64,), (True,), 128, 64, 48, None),
+    "wide_up56": (1, 3, 4, 9, (8,), (False,), 24, 56, 24, None),
+    # compact groups whose up columns read both depth parities at one
+    # output depth (shifts 1, -1, 2, 0 side by side)
+    "both_parities": (1, 3, 6, 16, (8,), (True,), 24, 12, 10,
+                      ((0, 3, -2), (3, 9, 1), (9, 12, -1), (12, 16, 2),
+                       (16, 20, 0))),
 }
 
 
@@ -363,7 +385,8 @@ def _lazy_inputs(case, dev):
 @pytest.mark.parametrize("case,flips",
                          [(c, (False,) * 3) for c in sorted(LAZY)]
                          + [("ragged", f) for f in FLIPS[1:]]
-                         + [("compact_groups", (True, True, True))])
+                         + [("compact_groups", (True, True, True)),
+                            ("both_parities", (True, True, True))])
 def test_lazy_block_matches_plain(case, flips):
     from e2enet_tpu_torch.ops import qfused
     dev = _card()
@@ -383,6 +406,54 @@ def test_lazy_block_matches_plain(case, flips):
 
 
 @pytest.mark.cuda
+def test_lazy_reads_no_up_weight_past_cin():
+    """cin = 24 pads to 32 channels: the kernel must not copy the up
+    weights past cin, which for the last row is past the tensor. Launched
+    with up weights followed by NaN (the last up column reads depth parity
+    1, the last row), the result still matches the plain version."""
+    from e2enet_tpu_torch.ops import _native, qfused
+    from e2enet_tpu_torch.ops.fused_block import (affine_nc,
+                                                  mirror_conv_kernel)
+    dev = _card()
+    rng = np.random.RandomState(11)
+    N, Dc, Hc, Wc, c0, cin, cout, CO = 1, 2, 4, 8, 16, 24, 8, 16
+    groups = ((0, 16, 0), (16, 24, -1))   # up columns read d + 1
+    parts = [_rand(rng, dev, N, 2 * Dc, 2 * Hc, 2 * Wc, c0).bfloat16()]
+    affs = [(_rand(rng, dev, N, c0, scale=0.3, shift=1.0),
+             _rand(rng, dev, N, c0, scale=0.2))]
+    up = qfused.LazyUp(_rand(rng, dev, N, Dc, Hc, Wc, cin).bfloat16(),
+                       _rand(rng, dev, N, cin, scale=0.3, shift=1.0),
+                       _rand(rng, dev, N, cin, scale=0.2),
+                       _rand(rng, dev, cin, cout, 2, 2, 2, scale=0.2))
+    C = c0 + cout
+    kernel = _rand(rng, dev, CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    bias = _rand(rng, dev, CO, scale=0.1)
+    bf = torch.bfloat16
+    wu = torch.full((8 * cout * cin + 8,), float("nan"), dtype=bf,
+                    device=dev)
+    wu[:8 * cout * cin] = up.kernel.to(bf).permute(2, 3, 4, 1, 0).reshape(-1)
+    w9 = mirror_conv_kernel(kernel.to(bf), (False,) * 3).permute(
+        2, 3, 0, 1).reshape(9, CO, C).contiguous()
+    D, H, W = 2 * Dc, 2 * Hc, 2 * Wc
+    y = torch.empty((N, D, H, W, CO), dtype=bf, device=dev)
+    stats = torch.zeros((N, CO, 2), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        _native.launch_lazy_up(
+            parts, [(affine_nc(affs[0][0], N, c0),
+                     affine_nc(affs[0][1], N, c0))], groups, w9,
+            bias.to(bf), up.raw, affine_nc(up.mult, N, cin),
+            affine_nc(up.off, N, cin), wu[:8 * cout * cin].view(8, cout, cin),
+            y, stats)
+        y_p, s_p = qfused.lazy_up_fused_block_ref(parts, up, kernel, bias,
+                                                  affs, (False,) * 3, groups)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y.float()).all())
+    assert _within_ulps(y, y_p)
+    torch.testing.assert_close(stats, s_p, rtol=1e-3,
+                               atol=1e-3 * float(y_p.float().abs().sum()))
+
+
+@pytest.mark.cuda
 def test_lazy_wrapper_raises():
     """float32 inputs and a second LazyUp part are refused, never run
     through the plain version or the materialised route."""
@@ -396,6 +467,30 @@ def test_lazy_wrapper_raises():
         with pytest.raises(TypeError):
             qfused.lazy_up_fused_block(parts + [up], up, kernel, bias,
                                        affs + [None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bench_width", "co40", "co96",
+                                  "wide_up64", "both_parities"])
+def test_lazy_mma_control_matches_plain(case):
+    """The kernel with its taps on mma.sync (the control that measures the
+    wgmma loop) computes the same block."""
+    from e2enet_tpu_torch.ops import qfused
+    dev = _card()
+    parts, up, kernel, bias, affs, groups = _lazy_inputs(case, dev)
+    flips = (True, False, True)
+    with torch.no_grad():
+        y, s = qfused.lazy_up_fused_block(parts, up, kernel, bias, affs,
+                                          flips, groups, wgmma=False)
+        y_w, _ = qfused.lazy_up_fused_block(parts, up, kernel, bias, affs,
+                                            flips, groups)
+        y_p, s_p = qfused.lazy_up_fused_block_ref(parts, up, kernel, bias,
+                                                  affs, flips, groups)
+    torch.cuda.synchronize()
+    assert _within_ulps(y, y_p)
+    assert _within_ulps(y, y_w)
+    torch.testing.assert_close(s, s_p, rtol=1e-3,
+                               atol=1e-3 * float(y_p.float().abs().sum()))
 
 
 # ---------------------------------------------------------------------------

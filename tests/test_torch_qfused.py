@@ -26,15 +26,23 @@ from e2enet_tpu_torch.ops import qfused as tqf  # noqa: E402
 from e2enet_tpu_torch.ops import qlink as tql  # noqa: E402
 
 Q = (2, 2, 2)
-N, DQ, HQ, WQ, WQP = 1, 3, 4, 5, 32
-C_SAME, CIN, C_UP, CO = 8, 16, 8, 8
+WQP = 32
+# (N, DQ, HQ, WQ, C_SAME, CIN, C_UP, CO); HQ * WQP a multiple of 128
+SMALL = (1, 3, 4, 5, 8, 16, 8, 8)
+# an up part wider than the CUDA kernel's 48-channel K chunk, beside a part
+WIDE_UP = (1, 2, 4, 5, 8, 16, 56, 8)
+# one coarse depth (D = 2)
+ONE_DEPTH = (2, 1, 4, 5, 8, 16, 8, 8)
+FLIPS = [(fd, fh, fw) for fd in (False, True) for fh in (False, True)
+         for fw in (False, True)]
 
 
 def _bf16(a):
     return np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
 
 
-def _inputs(seed):
+def _inputs(seed, dims):
+    N, DQ, HQ, WQ, C_SAME, CIN, C_UP, CO = dims
     rng = np.random.RandomState(seed)
     x = _bf16(rng.randn(N, 2 * DQ, 2 * HQ, 2 * WQ, C_SAME))
     raw = _bf16(rng.randn(N, DQ, HQ, WQ, CIN))
@@ -48,14 +56,9 @@ def _inputs(seed):
     return x, raw, smult, soff, umult, uoff, ukern, wk, b
 
 
-@pytest.mark.parametrize("flips,groups", [
-    ((False, False, False), None),
-    ((True, False, True), None),
-    # compact groups that start mid-unit, as the sparse plan gives
-    ((True, True, False), ((0, 3, -2), (3, 9, 0), (9, 12, 1), (12, 16, 2))),
-])
-def test_lazy_block_matches_reference_kernel(flips, groups):
-    x, raw, smult, soff, umult, uoff, ukern, wk, b = _inputs(sum(flips))
+def _check_against_reference(seed, dims, flips, groups):
+    N, _, HQ, WQ, _, _, _, CO = dims
+    x, raw, smult, soff, umult, uoff, ukern, wk, b = _inputs(seed, dims)
     bf = jnp.bfloat16
     lz = LazyUp(to_quadrant_cf(jnp.asarray(raw, bf), (1, 1, 1), WQP),
                 jnp.asarray(umult), jnp.asarray(uoff),
@@ -84,6 +87,45 @@ def test_lazy_block_matches_reference_kernel(flips, groups):
     np.testing.assert_allclose(stats.numpy(), ref_stats, rtol=1e-3,
                                atol=1e-3 * float(np.abs(ref).sum()))
     assert tqf.lazy_up_fused_block.launches == 0
+
+
+@pytest.mark.parametrize("flips,groups", [
+    ((False, False, False), None),
+    ((True, False, True), None),
+    # compact groups that start mid-unit, as the sparse plan gives
+    ((True, True, False), ((0, 3, -2), (3, 9, 0), (9, 12, 1), (12, 16, 2))),
+])
+def test_lazy_block_matches_reference_kernel(flips, groups):
+    _check_against_reference(sum(flips), SMALL, flips, groups)
+
+
+@pytest.mark.parametrize("flips", FLIPS)
+def test_wide_up_part_matches_reference_kernel(flips):
+    """An up part of 56 channels beside an 8-channel part: on the card it
+    takes two K chunks of the up part."""
+    _check_against_reference(10 + sum(flips), WIDE_UP, flips, None)
+
+
+@pytest.mark.parametrize("flips,groups", [
+    ((False, False, False), None),
+    ((True, True, True), None),
+    # compact groups whose up columns read both depth parities at one
+    # output depth, across the wide up part's two K chunks
+    ((False, False, False), ((0, 3, -2), (3, 20, 1), (20, 40, -1),
+                             (40, 52, 2), (52, 64, 0))),
+    ((True, False, False), ((0, 3, -2), (3, 20, 1), (20, 40, -1),
+                            (40, 52, 2), (52, 64, 0))),
+])
+def test_wide_up_part_compact_groups_match_reference_kernel(flips, groups):
+    _check_against_reference(20 + sum(flips), WIDE_UP, flips, groups)
+
+
+@pytest.mark.parametrize("flips", [(False, False, False),
+                                   (True, False, True)])
+def test_one_coarse_depth_matches_reference_kernel(flips):
+    """D = 2: every shifted up column but shift 0's reads outside the
+    volume at one of the two depths, or the single coarse depth."""
+    _check_against_reference(30 + sum(flips), ONE_DEPTH, flips, None)
 
 
 def test_plain_version_is_uplink_then_block():
