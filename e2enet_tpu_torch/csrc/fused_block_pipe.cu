@@ -7,9 +7,11 @@
 // assembly of depth d+1 against the matrix products of depth d pays. It
 // computes exactly what #1 computes (parts with per-(N, C) pending affines,
 // the depth shift of the whole concat, the (1,3,3) conv, bias, y in bf16,
-// per-channel (sum y, sum y^2) of the f32 accumulator), with #1's order of
-// sums: y is equal to #1's to the bit, the statistics differ only in the
-// order of their float32 atomics.
+// per-channel (sum y, sum y^2) of the f32 accumulator), on the per-tap
+// mma.sync loop (mma_tap). #1 sums on wgmma over K chunks, in another
+// float32 order: y is within one bf16 step of #1's (equal to the bit to
+// #1's mma.sync control where that stages one K chunk), the statistics
+// differ in the order of their float32 sums.
 //
 // What bounds it: as #1, the bf16 tensor cores at the level-0 shape (two
 // 48-channel parts -> 48, 128^3: 174 GFLOP against 604 MB of traffic, the
@@ -36,7 +38,7 @@
 // card's SMs in the fewest steps. With `overlap` off the same kernel issues
 // the next depth's staging after the products instead of before them: the
 // same tile, the same work, no overlap, so that the two times measure the
-// overlap alone. wgmma and TMA are later work.
+// overlap alone.
 
 #include "shift_conv_block.cuh"
 

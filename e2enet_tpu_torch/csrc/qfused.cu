@@ -66,16 +66,20 @@
 //     offset, B the tap's weights by descriptor, two m64 tiles per
 //     warpgroup, one commit group in flight;
 // then each materialised chunk's weights, pending norms and taps, the next
-// chunk's copies in flight during them. The epilogue is #1's with the
-// statistics summed over the block from the accumulators before one
-// atomic pair per output channel. Each up value is computed once per
-// consuming block plus its halo; each coarse pixel is normalised once per
-// output depth and up chunk that reads it. Output channels come in tiles of
-// 48 on the grid's y; each tile stages the operand and computes the up-link
-// again (2x the up-link's products at CO 96; the bench's lazy nodes have
-// CO 48 at most). The same kernel with its taps on mma.sync
-// (mma_taps_packed, the same packed weights) is the control that measures
-// the wgmma loop.
+// chunk's copies in flight during them. Steps 1-3 and the materialised
+// chunks are the K-chunked body that the fused block (#1, fused_block.cu)
+// runs too (shift_conv_block.cuh: chunk_step, materialised_chunks), here
+// with the up chunks in front, one tile per block and each chunk's weights
+// staged when it is reached. The epilogue is #1's too (store_tile_regs):
+// y stored from the registers, the statistics summed over the block before
+// one atomic pair per output channel. Each up value is
+// computed once per consuming block plus its halo; each coarse pixel is
+// normalised once per output depth and up chunk that reads it. Output
+// channels come in tiles of 48 on the grid's y; each tile stages the
+// operand and computes the up-link again (2x the up-link's products at CO
+// 96; the bench's lazy nodes have CO 48 at most). The same kernel with its
+// taps on mma.sync (mma_taps_packed, the same packed weights) is the
+// control that measures the wgmma loop.
 
 #include "shift_conv_block.cuh"
 
@@ -442,24 +446,6 @@ __device__ __forceinline__ void stage_chunk_weights(const Params& p,
   }
 }
 
-// the 9 taps over the staged chunk at s_op on wgmma, straight-line code
-// for the chunk's KS 16-channel steps and the tile's N8 groups of 8 output
-// channels
-template <int KS>
-__device__ __forceinline__ void lazy_wgmma_taps(
-    const Params& p, const WarpTile<1, 3, MPW_LAZY>& wt,
-    float acc[MPW_LAZY][3][2][4], const bf16* s_op, const bf16* s_w,
-    int N8) {
-  switch (N8) {
-    case 1: wgmma_taps<MPW_LAZY, 1, KS>(p, wt, acc, s_op, s_w); break;
-    case 2: wgmma_taps<MPW_LAZY, 2, KS>(p, wt, acc, s_op, s_w); break;
-    case 3: wgmma_taps<MPW_LAZY, 3, KS>(p, wt, acc, s_op, s_w); break;
-    case 4: wgmma_taps<MPW_LAZY, 4, KS>(p, wt, acc, s_op, s_w); break;
-    case 5: wgmma_taps<MPW_LAZY, 5, KS>(p, wt, acc, s_op, s_w); break;
-    default: wgmma_taps<MPW_LAZY, 6, KS>(p, wt, acc, s_op, s_w);
-  }
-}
-
 // WGMMA: the taps on wgmma_taps, else on mma_taps_packed (the control that
 // measures it). WIDE: the up part in up.nup chunks, the up-link of each
 // after the previous chunk's taps; otherwise one chunk, computed before
@@ -485,7 +471,6 @@ qfused_lazy_kernel(const Params p, const LazyUp up) {
   const int BN = nf * 16;
   const int ncol = min(BN, p.CO - co0);
   const int N8 = (ncol + 7) / 8;
-  const int KS = p.Cs / 16;
 
   bf16* s_in = reinterpret_cast<bf16*>(smem);
   bf16* s_w = reinterpret_cast<bf16*>(smem + p.off_w);
@@ -503,18 +488,6 @@ qfused_lazy_kernel(const Params p, const LazyUp up) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[f][j][h][e] = 0.0f;
 
-  auto taps = [&](const bf16* s_op) {
-    if constexpr (WGMMA) {
-      if (KS == 1)
-        lazy_wgmma_taps<1>(p, wtile, acc, s_op, s_w, N8);
-      else if (KS == 2)
-        lazy_wgmma_taps<2>(p, wtile, acc, s_op, s_w, N8);
-      else
-        lazy_wgmma_taps<3>(p, wtile, acc, s_op, s_w, N8);
-    } else {
-      mma_taps_packed<MPW_LAZY>(p, wtile, acc, s_op, s_w, KS, N8);
-    }
-  };
   // the second operand buffer: the hook's up weights and coarse pixels
   // until its up-link is computed
   bf16* s_op2 = reinterpret_cast<bf16*>(region + up.off_b);
@@ -534,56 +507,56 @@ qfused_lazy_kernel(const Params p, const LazyUp up) {
     stage_chunk_weights(p, s_w, cb, co0, ncol, N8, tid);
     up.issue(p, region, n, d, j0, tid);
     stage_operand_issue(p, s_in, tab, cb, n, d, h0, w0, tid);
-    cp_async_wait_all();
-    fence_proxy_async();               // the weights, for wgmma
-    stage_operand_finish(p, NoHook(), smem, s_in, tab, n, d, h0, w0, tid);
-    up.compute(p, s_in, region, cb, j0, n, h0, w0, dc_lo, dc_hi, tid);
-    // the first materialised chunk's copies in flight during the last
-    // up chunk's taps
-    if (u == nup - 1 && up.nmat > 0)
-      stage_operand_issue(p, s_op2, tab, 0, n, d, h0, w0, tid);
-    taps(s_in);
+    chunk_step<MPW_LAZY, 3, WGMMA>(
+        p, wtile, acc, smem, s_in, s_w, tab, n, d, h0, w0, N8, tid,
+        [&] {
+          up.compute(p, s_in, region, cb, j0, n, h0, w0, dc_lo, dc_hi, tid);
+        },
+        [&] {
+          // the first materialised chunk's copies in flight during the
+          // last up chunk's taps
+          if (u == nup - 1 && up.nmat > 0)
+            stage_operand_issue(p, s_op2, tab, 0, n, d, h0, w0, tid);
+        });
   }
 
   // ---- the chunks of the materialised parts, in the two buffers in turn,
-  // the next one's copies in flight during this one's taps
-  for (int ch = 0; ch < up.nmat; ++ch) {
-    bf16* s_op = (ch & 1) ? s_in : s_op2;
-    __syncthreads();                   // the last taps done: the weights
+  // the next one's copies in flight during this one's taps; each chunk's
+  // weights staged when it is reached
+  int buf = 0;
+  materialised_chunks<MPW_LAZY, 3, WGMMA>(
+      p, wtile, acc, smem, s_op2, s_in, buf, tab, n, d, h0, w0, N8, up.nmat,
+      tid,
+      [&](int ch, int) -> const bf16* {
+        __syncthreads();               // the last taps done: the weights
                                        // and the other buffer free
-    stage_chunk_weights(p, s_w, ch * p.Cs, co0, ncol, N8, tid);
-    cp_async_commit();
-    cp_async_wait_all();
-    fence_proxy_async();
-    stage_operand_finish(p, NoHook(), smem, s_op, tab, n, d, h0, w0, tid);
-    if (ch + 1 < up.nmat)
-      stage_operand_issue(p, (ch & 1) ? s_op2 : s_in, tab, (ch + 1) * p.Cs,
-                          n, d, h0, w0, tid);
-    taps(s_op);
-  }
+        stage_chunk_weights(p, s_w, ch * p.Cs, co0, ncol, N8, tid);
+        cp_async_commit();
+        return s_w;
+      },
+      [&](int ch, bf16* s_op, int) {
+        stage_operand_issue(p, s_op, tab, ch * p.Cs, n, d, h0, w0, tid);
+      },
+      [](bf16*, int) {});
 
-  // ---- epilogue through shared memory (aliases the operand and weights)
+  // ---- epilogue from the registers; its partial statistics in the hook
+  // region, free once the last taps are done
   __syncthreads();
-  store_tile<1, 3, MPW_LAZY, true>(p, wtile, acc,
-                                   reinterpret_cast<float*>(smem), n, d, h0,
-                                   w0, co0, BN, ncol, tid,
-                                   reinterpret_cast<float*>(region));
+  store_tile_regs<MPW_LAZY, 3>(p, wtile, acc, n, d, h0, w0, co0, BN, ncol,
+                               tid, reinterpret_cast<float*>(region));
 }
 
 static size_t align128(size_t v) { return (v + 127) / 128 * 128; }
 
 // shared memory of a TH-row tile (p.WF, p.Ws, p.Cs, p.Cp set): the operand
-// chunk then the weights (the epilogue aliases both), the staging table,
-// the hook region; sets the offsets
+// chunk then the weights, the staging table, the hook region (the
+// epilogue's partial statistics at its start); sets the offsets
 static size_t lazy_smem_bytes(Params& p, LazyUp& up, int TH, int nfu) {
   const int bn_max = min(48, (p.CO + 15) / 16 * 16);
   p.TH = TH;
   p.off_w = (int)align128((size_t)(TH + 2) * p.Ws * p.Cp * sizeof(bf16));
   const size_t w_bytes = (size_t)9 * (p.Cs / 16) * (bn_max / 8) * 256;
-  const size_t ep_bytes = (size_t)TH * p.WF * 16 * bn_max * sizeof(float);
-  size_t region0 = p.off_w + w_bytes;
-  region0 = align128(region0 > ep_bytes ? region0 : ep_bytes);
-  p.off_tab = (int)region0;
+  p.off_tab = (int)align128(p.off_w + w_bytes);
   // table: pointer, info, mult, off per channel; two ints per unit, a count
   const size_t tab_bytes = align128((size_t)p.Cs * (sizeof(void*) + 12) +
                                     (size_t)(p.Cs / 8) * 8 + 4);

@@ -18,32 +18,48 @@
 // (origin -1, or 0 on a mirrored stride-2 axis); the mirrored taps and the
 // parity come from the host, so one kernel serves all eight mirror passes.
 //
-// What bounds it: at the bench geometry (N=1, 128^3 x 48 -> 64^3 x 96) it
-// reads 201 MB and writes 50 MB against 21.7 GFLOP (K = 9*48 = 432): ~86
-// FLOP per byte, below the card's ~295 ridge, so device memory bounds it
-// (~0.075 ms at 3.35 TB/s).
+// What bounds it: at the bench geometry (N=1, 128^3 x 48 -> 64^3 x 96)
+// each output depth reads one source depth per channel, so a pass reads
+// half of x (101 MB) and writes 50 MB against 21.7 GFLOP (K = 9*48 = 432):
+// device memory bounds it (~0.045 ms at 3.35 TB/s). What held the first
+// build back was memory latency: synchronous 16-byte loads into registers
+// between barriers kept ~4 KB in flight per SM.
 //
-// Design (simple and right first): persistent blocks of 8 warps, one per
-// SM, each walking output tiles of TH rows x 16*WF columns of one (n, do).
-//  * All nine taps' weights, (CO, C) per tap with K contiguous, are staged
-//    once per block, zero-padded to 16-multiples in CO and K.
-//  * Per tile, a per-channel table gives each channel's source depth (or
-//    none: outside [0, D), or K padding); 8-channel units are classified as
-//    zero, one 16-byte load, four 4-byte loads, or eight scalar loads. The
-//    normalised, shifted, zero-haloed input rows are staged in shared memory
-//    once, with the columns split by parity at stride 2 (plane = column %
-//    2), so the 16 pixels of an MMA row fragment are consecutive staged rows
-//    Cp = Cs + 8 channels apart: ldmatrix's eight rows fall in distinct
-//    bank groups.
-//  * Warps form a 4 (M) x 2 (N) grid; each tap is an offset into the staged
-//    tile, fragments go through ldmatrix and mma.sync.m16n8k16 bf16 with f32
-//    accumulators. No im2col buffer exists.
+// Design: persistent blocks of 16 warps, one per SM, each walking output
+// tiles of TH rows x 16*WF columns of one (n, do), with the next tile's
+// copies in flight during this tile's products.
+//  * All nine taps' weights are staged once per block, packed without
+//    padding in the layout of wgmma_b_index (8 x 8 core matrices of 128
+//    contiguous bytes): one ldmatrix_x4 at 16 bytes per lane reads two
+//    groups of 8 output channels without bank conflicts.
+//  * Two operand buffers. Per tile, a per-channel table gives each
+//    channel's source depth (or none: outside [0, D), or K padding), and
+//    8-channel units are classified as zero, one 16-byte cp.async, four
+//    4-byte cp.async (channel pairs of one source depth), or eight scalar
+//    loads (normalised at once). The raw, shifted, zero-haloed input rows
+//    land in shared memory with the columns split by parity at stride 2
+//    (plane = column % 2), so the 16 pixels of an MMA row fragment are
+//    consecutive staged rows Cp = Cs + 8 channels apart: ldmatrix's eight
+//    rows fall in distinct bank groups. After the copies land, one pass over
+//    shared memory applies the norm to the copied units that hold data
+//    (f32, one rounding to bf16), so the zero fill stays zero.
+//  * Per tile: wait for its copies, normalise, issue the NEXT tile's copies
+//    into the other buffer, then this tile's 9 taps x Cs/16 K-steps of
+//    ldmatrix + mma.sync.m16n8k16 (bf16, f32 accumulators); warps form an
+//    8 (M) x 2 (N) grid, one 16-pixel row fragment each: 16 warps, not 8,
+//    because every phase of a tile (copies, norm pass, products, stores)
+//    is bound by latency, and 16 warps halve each warp's share. About
+//    one tile of copies (~60 KB at the bench shape) is in flight per SM
+//    while the products run. Where two buffers do not fit, one buffer,
+//    with the copies issued after the products.
+//  * A pair unit's four 4-byte copies go to four adjacent lanes, so the
+//    pairs that share a source depth are adjacent bytes of one request.
 //  * The epilogue adds the f32 bias, stores bf16 pairs and reduces the
 //    statistics over the warp's rows with shuffles into shared memory,
 //    flushed to the (zeroed) output with f32 atomics when the sample
-//    changes.
-// wgmma, TMA and overlapping one tile's staging with another's MMAs are
-// later work.
+//    changes: at the top of the tile that starts the new sample, so the
+//    flush carries the sample of the tiles already finished, not that of
+//    the tile whose copies are in flight.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,12 +68,11 @@
 typedef __nv_bfloat16 bf16;
 
 #define MAX_GROUPS 8
-#define NWARPS 8
+#define NWARPS 16
 #define NTHREADS (NWARPS * 32)
-#define WARPS_M 4
+#define WARPS_M 8
 #define WARPS_N 2
-#define MPW 2        // row fragments per warp
-#define NFW 4        // 16-wide CO fragments per warp: CO <= 128
+#define MPW 1        // row fragments per warp
 #define SMEM_LIMIT (227 * 1024)
 
 #define UNIT_ZERO 0
@@ -77,17 +92,37 @@ struct Params {
   float* stats;                       // (N, CO, 2), zeroed by the caller
   int N, D, H, W, C, CO, Do, Ho, Wo;
   int sd, sh, sw, parity, org_h, org_w;
-  int Cs, Cp, BN;                     // K and CO padded; smem row stride
+  int Cs, Cp, BN, KS, N8;             // K and CO padded; smem row stride
   int WF, TW, TH, n_wt, n_ht, ntiles;
   int SR, PL;                         // staged rows; entries per plane
   int vec16, vec4;                    // widest aligned pixel-row copy
-  int off_in, off_tab, off_st;        // shared-memory offsets (bytes)
+  int nbuf;                           // operand buffers: 2, or 1
+  int off_in, in_stride, off_tab, off_st;  // shared-memory layout (bytes)
 };
 
 __device__ __forceinline__ float norm_lrelu(float x, float m, float o) {
   // no fma contraction: the plain torch version rounds the product
   const float a = __fadd_rn(__fmul_rn(x, m), o);
   return fmaxf(a, __fmul_rn(a, 0.01f));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+// 4 bytes from gmem, or zeros when !valid (gmem then not read)
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned r[4], unsigned addr) {
@@ -108,27 +143,240 @@ __device__ __forceinline__ void mma_16816(float d[4], const unsigned a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(NTHREADS) qstride_kernel(const Params p) {
+// element offset of (tap t, output channel n, channel k) in the packed
+// weights of KS 16-channel steps and N8 groups of 8 output channels per
+// tap (shift_conv_block.cuh's wgmma_b_index): 8 x 8 core matrices of 8
+// output channels by 8 channels, 128 contiguous bytes each
+__device__ __forceinline__ int packed_index(int t, int n, int k, int KS,
+                                            int N8) {
+  return ((((t * KS + k / 16) * N8 + n / 8) * 2 + (k % 16) / 8) * 8 + n % 8) *
+             8 + k % 8;
+}
+
+// the per-tile table at p.off_tab: source depth, norm per channel; unit
+// kinds, the units a norm pass visits and their count
+struct Table {
+  int* dsrc;
+  float* m;
+  float* o;
+  int* unit;
+  int* normk;
+  int* nnorm;
+  __device__ Table(unsigned char* smem, const Params& p) {
+    dsrc = reinterpret_cast<int*>(smem + p.off_tab);
+    m = reinterpret_cast<float*>(dsrc + p.Cs);
+    o = m + p.Cs;
+    unit = reinterpret_cast<int*>(o + p.Cs);
+    normk = unit + p.Cs / 8;
+    nnorm = normk + p.Cs / 8;
+  }
+};
+
+struct Tile {
+  int n, dout, h0, w0;
+  __device__ Tile(const Params& p, int tile) {
+    int rest = tile;
+    const int wt = rest % p.n_wt;
+    rest /= p.n_wt;
+    const int ht = rest % p.n_ht;
+    rest /= p.n_ht;
+    dout = rest % p.Do;
+    n = rest / p.Do;
+    h0 = ht * p.TH;
+    w0 = wt * p.TW;
+  }
+};
+
+// The table of tile `tl`: each thread of a unit computes its 8 channels'
+// source depths (and, when the sample changes, their norm) and the unit's
+// kind; thread 0 lists the units a norm pass visits. Ends synchronised.
+__device__ __forceinline__ void prepare(const Params& p, const Table& tb,
+                                        const Tile& tl, bool new_n, int tid) {
+  const int KC8 = p.Cs / 8;
+  if (tid < KC8) {
+    const int c0 = tid * 8;
+    int ds[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = c0 + e;
+      ds[e] = -1;
+      if (c < p.C) {
+        int s = 0;
+        for (int g = 0; g < p.ngroups; ++g)
+          if (c >= p.g0[g] && c < p.g1[g]) s = p.gs[g];
+        const int d = p.sd * tl.dout + p.parity - s;
+        if (d >= 0 && d < p.D) ds[e] = d;
+      }
+      tb.dsrc[c] = ds[e];
+      if (new_n) {
+        tb.m[c] = c < p.C ? p.mult[(size_t)tl.n * p.C + c] : 0.0f;
+        tb.o[c] = c < p.C ? p.off[(size_t)tl.n * p.C + c] : 0.0f;
+      }
+    }
+    bool zero = true, one = p.vec16 != 0, pairs = p.vec4 != 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      zero = zero && ds[e] < 0;
+      one = one && ds[e] >= 0 && ds[e] == ds[0];
+      if (e % 2 == 0) pairs = pairs && ds[e] == ds[e + 1];
+    }
+    tb.unit[tid] = zero ? UNIT_ZERO : one ? UNIT_16
+                   : pairs ? UNIT_PAIRS : UNIT_SCALAR;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int nn = 0;
+    for (int k = 0; k < KC8; ++k)
+      if (tb.unit[k] == UNIT_16 || tb.unit[k] == UNIT_PAIRS)
+        tb.normk[nn++] = k;
+    *tb.nnorm = nn;
+  }
+}
+
+// Issue the staging of tile `tl` into s_in as one committed cp.async group:
+// rows sh*h0 + org_h .. + SR, columns sw*w0 + org_w + j, j = idx*sw + plane.
+// A warp takes a line (unit k, staged row, plane) at a time, its lanes the
+// line's PL columns, so the unit's kind and source depths are the warp's
+// (no divergence, no division per unit). Zeros and the scalar units
+// (normalised here) are stored at once.
+__device__ __forceinline__ void issue(const Params& p, const Table& tb,
+                                      const Tile& tl, bf16* s_in, int warp,
+                                      int lane) {
+  const int KC8 = p.Cs / 8, Cp = p.Cp;
+  const int lines = p.SR * p.sw;       // (row, plane) pairs
+  const size_t dstride = (size_t)p.H * p.W * p.C;
+  for (int l = warp; l < KC8 * lines; l += NWARPS) {
+    const int k = l / lines, rp = l - k * lines;
+    const int row = rp / p.sw, plane = rp - row * p.sw;
+    const int hi = p.sh * tl.h0 + p.org_h + row;
+    const int c0 = k * 8;
+    const int kind = hi < 0 || hi >= p.H ? UNIT_ZERO : tb.unit[k];
+    bf16* dst0 = s_in + (size_t)rp * p.PL * Cp + c0;
+    const bf16* src0 =
+        p.x + (((size_t)tl.n * p.D * p.H + hi) * p.W) * p.C + c0;
+    const int wf = p.sw * tl.w0 + p.org_w + plane;
+    int de[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) de[e] = tb.dsrc[c0 + e];
+    if (kind == UNIT_PAIRS) {
+      // four lanes per column, a pair each: the pairs of one depth in a
+      // unit are adjacent bytes, whose copies the load unit merges
+      const int e = (lane % 4) * 2;
+      for (int idx = lane / 4; idx < p.PL; idx += 8) {
+        const int wi = wf + idx * p.sw;
+        bf16* dst = dst0 + (size_t)idx * Cp + e;
+        if (wi < 0 || wi >= p.W) {
+          *reinterpret_cast<unsigned*>(dst) = 0u;
+          continue;
+        }
+        const int d = lane % 4 == 0 ? de[0] : lane % 4 == 1 ? de[2]
+                      : lane % 4 == 2 ? de[4] : de[6];
+        cp_async4_zfill(dst,
+                        d >= 0 ? src0 + (size_t)wi * p.C + d * dstride + e
+                               : p.x,
+                        d >= 0);
+      }
+      continue;
+    }
+    for (int idx = lane; idx < p.PL; idx += 32) {
+      const int wi = wf + idx * p.sw;
+      bf16* dst = dst0 + (size_t)idx * Cp;
+      if (kind == UNIT_ZERO || wi < 0 || wi >= p.W) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        continue;
+      }
+      const bf16* src = src0 + (size_t)wi * p.C;
+      if (kind == UNIT_16) {
+        cp_async16(dst, src + de[0] * dstride);
+      } else {
+        uint4 out;
+        bf16* vals = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          vals[e] = de[e] >= 0
+                        ? __float2bfloat16(norm_lrelu(
+                              __bfloat162float(src[de[e] * dstride + e]),
+                              tb.m[c0 + e], tb.o[c0 + e]))
+                        : __float2bfloat16(0.0f);
+        *reinterpret_cast<uint4*>(dst) = out;
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// The norm in place on the landed copies of tile `tl`: the 16-byte and
+// pair units inside the image, channels with a source depth only; a warp
+// per line (listed unit, staged row, plane), its norm in registers
+__device__ __forceinline__ void normalise(const Params& p, const Table& tb,
+                                          const Tile& tl, bf16* s_in,
+                                          int warp, int lane) {
+  const int nn = *tb.nnorm;
+  const int lines = p.SR * p.sw;
+  for (int l = warp; l < nn * lines; l += NWARPS) {
+    const int j = l / lines, rp = l - j * lines;
+    const int row = rp / p.sw, plane = rp - row * p.sw;
+    const int hi = p.sh * tl.h0 + p.org_h + row;
+    if (hi < 0 || hi >= p.H) continue;  // zeros
+    const int c0 = tb.normk[j] * 8;
+    float m[8], o[8];
+    bool on[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      m[e] = tb.m[c0 + e];
+      o[e] = tb.o[c0 + e];
+      on[e] = tb.dsrc[c0 + e] >= 0;
+    }
+    bf16* dst0 = s_in + (size_t)rp * p.PL * p.Cp + c0;
+    const int wf = p.sw * tl.w0 + p.org_w + plane;
+    for (int idx = lane; idx < p.PL; idx += 32) {
+      const int wi = wf + idx * p.sw;
+      if (wi < 0 || wi >= p.W) continue;
+      uint4* ptr = reinterpret_cast<uint4*>(dst0 + (size_t)idx * p.Cp);
+      uint4 val = *ptr;
+      bf16* v = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (on[e])
+          v[e] = __float2bfloat16(norm_lrelu(__bfloat162float(v[e]), m[e],
+                                             o[e]));
+      *ptr = val;
+    }
+  }
+}
+
+template <int NFW>
+__global__ void __launch_bounds__(NTHREADS, 1) qstride_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int Cs = p.Cs, Cp = p.Cp, BN = p.BN, KC8 = Cs / 8;
+  const int KS = p.KS, N8 = p.N8;
 
   bf16* s_w = reinterpret_cast<bf16*>(smem);
-  bf16* s_in = reinterpret_cast<bf16*>(smem + p.off_in);
-  int* s_dsrc = reinterpret_cast<int*>(smem + p.off_tab);
-  float* s_m = reinterpret_cast<float*>(s_dsrc + Cs);
-  float* s_o = s_m + Cs;
-  int* s_unit = reinterpret_cast<int*>(s_o + Cs);
+  // operand buffer b
+  auto s_buf = [&](int b) {
+    return reinterpret_cast<bf16*>(smem + p.off_in + b * p.in_stride);
+  };
   float* s_st = reinterpret_cast<float*>(smem + p.off_st);
+  const Table tb(smem, p);
 
-  // ---- all taps' weights, zero padding in K and CO
-  for (int i = tid; i < 9 * BN * Cs; i += NTHREADS) {
-    const int k = i % Cs, r = i / Cs;
-    const int co = r % BN, t = r / BN;
-    s_w[(size_t)r * Cp + k] = (co < p.CO && k < p.C)
-                                  ? p.w[((size_t)t * p.CO + co) * p.C + k]
-                                  : __float2bfloat16(0.0f);
+  // ---- all taps' weights, packed, zero padding in K and CO (one cp.async
+  // group with the first tile's copies)
+  const bool vec_w =
+      p.C % 8 == 0 && reinterpret_cast<uintptr_t>(p.w) % 16 == 0;
+  for (int u = tid; u < 9 * BN * KC8; u += NTHREADS) {
+    const int k8 = u % KC8, r = u / KC8;
+    const int co = r % BN, t = r / BN, k0 = k8 * 8;
+    bf16* dst = s_w + packed_index(t, co, k0, KS, N8);
+    const bf16* src = p.w + ((size_t)t * p.CO + co) * p.C + k0;
+    if (vec_w && co < p.CO && k0 < p.C) {
+      cp_async16(dst, src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = co < p.CO && k0 + e < p.C ? src[e] : __float2bfloat16(0.0f);
+    }
   }
   for (int i = tid; i < BN * 2; i += NTHREADS) s_st[i] = 0.0f;
 
@@ -136,122 +384,55 @@ __global__ void __launch_bounds__(NTHREADS) qstride_kernel(const Params p) {
   const int wm = warp % WARPS_M, wn = warp / WARPS_M;
   const int MF = p.TH * p.WF, NF = BN / 16;
   const int a_row = lane % 16, a_k = (lane / 16) * 8;
-  const int b_row = lane % 8 + (lane / 16) * 8, b_k = ((lane / 8) % 2) * 8;
   const size_t plane_stride = (size_t)p.PL * Cp;
   const size_t row_stride = plane_stride * p.sw;
+  bool fr_on[MPW], nf_on[NFW];
+  int fr_r[MPW], fr_c[MPW];
+#pragma unroll
+  for (int f = 0; f < MPW; ++f) {
+    const int mf = wm + f * WARPS_M;
+    fr_on[f] = mf < MF;
+    fr_r[f] = mf / p.WF;
+    fr_c[f] = (mf % p.WF) * 16;
+  }
+#pragma unroll
+  for (int j = 0; j < NFW; ++j) nf_on[j] = wn * NFW + j < NF;
+  const unsigned w_base = (unsigned)__cvta_generic_to_shared(s_w) + lane * 16;
 
-  int n_prev = -1;
+  // the first tile's copies (the grid holds no more blocks than tiles)
+  int n_acc = -1;                      // the sample s_st sums
+  int n_tab;                           // the sample of the table's norm
+  {
+    const Tile t0(p, blockIdx.x);
+    prepare(p, tb, t0, true, tid);
+    n_tab = t0.n;
+    issue(p, tb, t0, s_buf(0), warp, lane);
+  }
+  int buf = 0;
   for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
-    int rest = tile;
-    const int wt = rest % p.n_wt;
-    rest /= p.n_wt;
-    const int ht = rest % p.n_ht;
-    rest /= p.n_ht;
-    const int dout = rest % p.Do;
-    const int n = rest / p.Do;
-    const int h0 = ht * p.TH, w0 = wt * p.TW;
-
-    __syncthreads();                  // previous tile's reads are done
-    if (n != n_prev) {
-      if (n_prev >= 0) {              // flush the previous sample's stats
+    const Tile tl(p, tile);
+    bf16* s_in = s_buf(buf);
+    cp_async_wait_all();
+    __syncthreads();                   // this tile's copies landed; the
+                                       // last epilogue's atomics are done
+    if (tl.n != n_acc) {               // flush the finished tiles' sample
+      if (n_acc >= 0)
         for (int i = tid; i < p.CO * 2; i += NTHREADS) {
-          atomicAdd(&p.stats[(size_t)n_prev * p.CO * 2 + i], s_st[i]);
+          atomicAdd(&p.stats[(size_t)n_acc * p.CO * 2 + i], s_st[i]);
           s_st[i] = 0.0f;
         }
-      }
-      n_prev = n;
+      n_acc = tl.n;
     }
-    // ---- per-channel source depth and affine for this (n, dout)
-    for (int c = tid; c < Cs; c += NTHREADS) {
-      int ds = -1;
-      float m = 0.0f, o = 0.0f;
-      if (c < p.C) {
-        int s = 0;
-        for (int g = 0; g < p.ngroups; ++g)
-          if (c >= p.g0[g] && c < p.g1[g]) s = p.gs[g];
-        const int d = p.sd * dout + p.parity - s;
-        if (d >= 0 && d < p.D) ds = d;
-        m = p.mult[(size_t)n * p.C + c];
-        o = p.off[(size_t)n * p.C + c];
-      }
-      s_dsrc[c] = ds;
-      s_m[c] = m;
-      s_o[c] = o;
+    normalise(p, tb, tl, s_in, warp, lane);
+    __syncthreads();                   // normalised; the table is free
+    const int next = tile + gridDim.x;
+    if (p.nbuf == 2 && next < p.ntiles) {
+      // the next tile's copies in flight during this tile's products
+      const Tile tn(p, next);
+      prepare(p, tb, tn, tn.n != n_tab, tid);
+      n_tab = tn.n;
+      issue(p, tb, tn, s_buf(buf ^ 1), warp, lane);
     }
-    __syncthreads();
-    for (int k = tid; k < KC8; k += NTHREADS) {
-      const int c0 = k * 8;
-      bool zero = true, one = p.vec16 != 0, pairs = p.vec4 != 0;
-      for (int e = 0; e < 8; ++e) {
-        const int de = s_dsrc[c0 + e];
-        zero = zero && de < 0;
-        one = one && de >= 0 && de == s_dsrc[c0];
-        if (e % 2 == 0) pairs = pairs && de == s_dsrc[c0 + e + 1];
-      }
-      s_unit[k] = zero ? UNIT_ZERO : one ? UNIT_16
-                  : pairs ? UNIT_PAIRS : UNIT_SCALAR;
-    }
-    __syncthreads();
-
-    // ---- stage rows sh*h0 + org_h .. + SR, columns sw*w0 + org_w + j,
-    // j = idx*sw + plane
-    const int n_units = p.SR * p.sw * p.PL * KC8;
-    for (int u = tid; u < n_units; u += NTHREADS) {
-      const int k = u % KC8;
-      int cell = u / KC8;
-      const int idx = cell % p.PL;
-      cell /= p.PL;
-      const int plane = cell % p.sw;
-      const int row = cell / p.sw;
-      const int hi = p.sh * h0 + p.org_h + row;
-      const int wi = p.sw * w0 + p.org_w + idx * p.sw + plane;
-      const int c0 = k * 8;
-      uint4 out = make_uint4(0u, 0u, 0u, 0u);
-      const int kind = s_unit[k];
-      if (kind != UNIT_ZERO && hi >= 0 && hi < p.H && wi >= 0 && wi < p.W) {
-        bf16* vals = reinterpret_cast<bf16*>(&out);
-        const size_t pix = ((size_t)n * p.D * p.H + hi) * p.W + wi;
-        const size_t dstride = (size_t)p.H * p.W;
-        float v[8];
-        if (kind == UNIT_16) {
-          const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-              p.x + (pix + s_dsrc[c0] * dstride) * p.C + c0));
-          const bf16* rv = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(rv[e]);
-        } else if (kind == UNIT_PAIRS) {
-#pragma unroll
-          for (int e = 0; e < 8; e += 2) {
-            const int de = s_dsrc[c0 + e];
-            __nv_bfloat162 r2 = __floats2bfloat162_rn(0.0f, 0.0f);
-            if (de >= 0)
-              r2 = __ldg(reinterpret_cast<const __nv_bfloat162*>(
-                  p.x + (pix + de * dstride) * p.C + c0 + e));
-            const float2 f = __bfloat1622float2(r2);
-            v[e] = f.x;
-            v[e + 1] = f.y;
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const int de = s_dsrc[c0 + e];
-            v[e] = de >= 0 ? __bfloat162float(
-                                 p.x[(pix + de * dstride) * p.C + c0 + e])
-                           : 0.0f;
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          vals[e] = s_dsrc[c0 + e] >= 0
-                        ? __float2bfloat16(
-                              norm_lrelu(v[e], s_m[c0 + e], s_o[c0 + e]))
-                        : __float2bfloat16(0.0f);
-      }
-      *reinterpret_cast<uint4*>(s_in + row * row_stride +
-                                plane * plane_stride + (size_t)idx * Cp +
-                                c0) = out;
-    }
-    __syncthreads();
 
     // ---- 9 taps x Cs/16 K-steps of m16n8k16 MMAs
     float acc[MPW][NFW][2][4];
@@ -263,17 +444,6 @@ __global__ void __launch_bounds__(NTHREADS) qstride_kernel(const Params p) {
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[f][j][h][e] = 0.0f;
-    bool fr_on[MPW], nf_on[NFW];
-    int fr_r[MPW], fr_c[MPW];
-#pragma unroll
-    for (int f = 0; f < MPW; ++f) {
-      const int mf = wm + f * WARPS_M;
-      fr_on[f] = mf < MF;
-      fr_r[f] = mf / p.WF;
-      fr_c[f] = (mf % p.WF) * 16;
-    }
-#pragma unroll
-    for (int j = 0; j < NFW; ++j) nf_on[j] = wn * NFW + j < NF;
     if (fr_on[0] && nf_on[0]) {
       for (int t = 0; t < 9; ++t) {
         const int th = t / 3, tw = t % 3;
@@ -286,16 +456,17 @@ __global__ void __launch_bounds__(NTHREADS) qstride_kernel(const Params p) {
               s_in + (p.sh * fr_r[f] + th) * row_stride +
               plane * plane_stride +
               (size_t)(fr_c[f] + a_row + dcol) * Cp + a_k);
-        const unsigned b_addr = (unsigned)__cvta_generic_to_shared(
-            s_w + ((size_t)t * BN + wn * NFW * 16 + b_row) * Cp + b_k);
-        for (int kc = 0; kc < Cs; kc += 16) {
+        for (int ks = 0; ks < KS; ++ks) {
           unsigned a[MPW][4], b[NFW][4];
 #pragma unroll
           for (int f = 0; f < MPW; ++f)
-            if (fr_on[f]) ldmatrix_x4(a[f], a_addr[f] + kc * 2);
+            if (fr_on[f]) ldmatrix_x4(a[f], a_addr[f] + ks * 32);
+          // two groups of 8 output channels (both K halves): 512 bytes
+          const unsigned b_step =
+              w_base + ((t * KS + ks) * N8 + wn * NFW * 2) * 256;
 #pragma unroll
           for (int j = 0; j < NFW; ++j)
-            if (nf_on[j]) ldmatrix_x4(b[j], b_addr + (j * 16 * Cp + kc) * 2);
+            if (nf_on[j]) ldmatrix_x4(b[j], b_step + j * 512);
 #pragma unroll
           for (int j = 0; j < NFW; ++j)
 #pragma unroll
@@ -324,12 +495,12 @@ __global__ void __launch_bounds__(NTHREADS) qstride_kernel(const Params p) {
           if (!(fr_on[f] && nf_on[j])) continue;
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
-            const int ho = h0 + fr_r[f];
-            const int wo = w0 + fr_c[f] + lane / 4 + half * 8;
+            const int ho = tl.h0 + fr_r[f];
+            const int wo = tl.w0 + fr_c[f] + lane / 4 + half * 8;
             if (ho >= p.Ho || wo >= p.Wo) continue;
             const float v0 = acc[f][j][h][2 * half] + b0;
             const float v1 = acc[f][j][h][2 * half + 1] + b1;
-            bf16* dst = p.y + ((((size_t)n * p.Do + dout) * p.Ho + ho) *
+            bf16* dst = p.y + ((((size_t)tl.n * p.Do + tl.dout) * p.Ho + ho) *
                                    p.Wo + wo) * p.CO + co;
             if (pair_store && co + 1 < p.CO) {
               *reinterpret_cast<__nv_bfloat162*>(dst) =
@@ -362,11 +533,20 @@ __global__ void __launch_bounds__(NTHREADS) qstride_kernel(const Params p) {
         }
       }
     }
+    if (p.nbuf == 1 && next < p.ntiles) {
+      // one buffer: the next tile's copies after this tile's products
+      __syncthreads();
+      const Tile tn(p, next);
+      prepare(p, tb, tn, tn.n != n_tab, tid);
+      n_tab = tn.n;
+      issue(p, tb, tn, s_in, warp, lane);
+    }
+    buf ^= p.nbuf - 1;
   }
   __syncthreads();
-  if (n_prev >= 0)
+  if (n_acc >= 0)
     for (int i = tid; i < p.CO * 2; i += NTHREADS)
-      atomicAdd(&p.stats[(size_t)n_prev * p.CO * 2 + i], s_st[i]);
+      atomicAdd(&p.stats[(size_t)n_acc * p.CO * 2 + i], s_st[i]);
 }
 
 // Plain C entry point (bound with ctypes). groups holds (c0, c1, shift)
@@ -382,7 +562,7 @@ extern "C" int qstride_launch(const void* x, const void* mult,
                               int sd, int sh, int sw, int parity, int org_h,
                               int org_w, void* stream) {
   if (ngroups < 1 || ngroups > MAX_GROUPS || N < 1 || D < 1 || H < 1 ||
-      W < 1 || C < 1 || CO < 1 || CO > NFW * WARPS_N * 16 || Do < 1 ||
+      W < 1 || C < 1 || CO < 1 || CO > 4 * WARPS_N * 16 || Do < 1 ||
       Ho < 1 || Wo < 1 || sd < 1 || sd > 2 || sh < 1 || sh > 2 || sw < 1 ||
       sw > 2)
     return (int)cudaErrorInvalidValue;
@@ -408,40 +588,56 @@ extern "C" int qstride_launch(const void* x, const void* mult,
   p.Cs = (C + 15) / 16 * 16;
   p.Cp = p.Cs + 8;                   // an odd number of 16-byte units
   p.BN = (CO + 15) / 16 * 16;
+  p.KS = p.Cs / 16;
+  p.N8 = p.BN / 8;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   p.vec16 = (xa % 16 == 0 && C % 8 == 0);
   p.vec4 = (xa % 4 == 0 && C % 2 == 0);
   // output tile: equal W tiles of at most 4 row fragments, then rows up to
-  // WARPS_M * MPW fragments in all
+  // WARPS_M * MPW fragments in all, as many as two operand buffers allow
+  // (else one buffer)
   const int wf_all = (Wo + 15) / 16;
   p.n_wt = (wf_all + 3) / 4;
   p.WF = (wf_all + p.n_wt - 1) / p.n_wt;
   p.TW = 16 * p.WF;
-  p.TH = (WARPS_M * MPW) / p.WF;
-  if (p.TH > Ho) p.TH = Ho;
-  p.n_ht = (Ho + p.TH - 1) / p.TH;
-  p.SR = sh * (p.TH - 1) + 3;
   p.PL = p.TW + 2;
+  const int th_max = min(Ho, (WARPS_M * MPW) / p.WF);
+  const size_t w_bytes = (size_t)9 * p.BN * p.Cs * sizeof(bf16);
+  p.off_in = (int)((w_bytes + 127) / 128 * 128);
+  size_t smem = 0;
+  bool fit = false;
+  for (int nbuf = 2; nbuf >= 1 && !fit; --nbuf) {
+    for (int th = th_max; th >= 1 && !fit; --th) {
+      const int SR = sh * (th - 1) + 3;
+      const size_t in_bytes = (size_t)SR * sw * p.PL * p.Cp * sizeof(bf16);
+      p.in_stride = (int)((in_bytes + 127) / 128 * 128);
+      p.off_tab = p.off_in + nbuf * p.in_stride;
+      // table: source depth, mult, off per channel; kind and norm list per
+      // unit; the list's length
+      p.off_st = (p.off_tab + p.Cs * 12 + (p.Cs / 8) * 8 + 4 + 15) / 16 * 16;
+      smem = (size_t)p.off_st + (size_t)p.BN * 2 * sizeof(float);
+      if (smem <= SMEM_LIMIT) {
+        fit = true;
+        p.nbuf = nbuf;
+        p.TH = th;
+        p.SR = SR;
+      }
+    }
+  }
+  if (!fit) return (int)cudaErrorInvalidValue;
+  p.n_ht = (Ho + p.TH - 1) / p.TH;
   const long long ntiles = (long long)N * Do * p.n_ht * p.n_wt;
   if (ntiles > 2147483647LL) return (int)cudaErrorInvalidValue;
   p.ntiles = (int)ntiles;
-  const size_t w_bytes = (size_t)9 * p.BN * p.Cp * sizeof(bf16);
-  const size_t in_bytes = (size_t)p.SR * sw * p.PL * p.Cp * sizeof(bf16);
-  p.off_in = (int)((w_bytes + 127) / 128 * 128);
-  p.off_tab = (int)((p.off_in + in_bytes + 127) / 128 * 128);
-  p.off_st = p.off_tab + p.Cs * 12 + (p.Cs / 8) * 4;
-  p.off_st = (p.off_st + 15) / 16 * 16;
-  const size_t smem = (size_t)p.off_st + (size_t)p.BN * 2 * sizeof(float);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const Params) =
+      p.BN <= 3 * WARPS_N * 16 ? qstride_kernel<3> : qstride_kernel<4>;
   cudaError_t err = cudaFuncSetAttribute(
-      qstride_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int grid = p.ntiles < sms ? p.ntiles : sms;
-  qstride_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      p);
+  kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -4,29 +4,42 @@
 // the whole body with its own hook and epilogue, its wgrad stage_operand
 // alone) and the software-pipelined block (fused_block_pipe.cu:
 // stage_operand_issue / stage_operand_finish, mma_tap and store_tile around
-// its own depth loop), for NVIDIA Hopper (sm_90a), bfloat16. The design is
-// described in fused_block.cu. A kernel is
+// its own depth loop), for NVIDIA Hopper (sm_90a), bfloat16.
 //
-//   template <...> __global__ void k(const Params p, const Hook hook)
-//   { shift_conv_block_body<NG, NFW, MPW>(p, hook); }
+// Staging (all of them): stage_operand_issue builds a per-channel table
+// (source pointer of the shifted depth, pending norm) and issues the
+// operand tile's copies by cp.async, 16 or 4 bytes per 8-channel unit where
+// its channels share a source row, channel by channel otherwise, zeros
+// where the shift or the halo leaves the volume; stage_operand_finish waits
+// and applies the pending norms in place to the copied units only.
 //
-// and `Hook` adds a staging pass: after the operand tile is staged and its
-// pending norms are applied, hook.stage() may write more channels into it
-// (in shared memory at p.off_hook: hook.smem_bytes(p) bytes, grown by
-// hook.fit(p, spare) into what the block tile leaves spare). A part whose
-// source pointer is null is staged as zeros for the hook to fill. A third
-// argument, an epilogue type (default StoreTile: bias, the y store and the
-// statistics), replaces what is done with the block tile's sums.
-//
-// Two tap loops: mma_tap (ldmatrix + mma.sync.m16n8k16, a warp's 16-pixel
-// fragments by its CO fragments, the tap's weights as (CO, K) rows), which
-// #1, the dgrad and #13 run through shift_conv_block_body or their own
-// loops; and wgmma_taps (wgmma.mma_async with A from registers by the same
-// ldmatrix addressing, B by descriptor from weights packed by
-// wgmma_b_index, a warpgroup's two m64 tiles, all 9 taps' weights staged
-// at once), which #3 runs over its K chunks. Both leave the sums in the
-// same registers, so store_tile serves both; its REDUCE form (statistics
-// from the registers, one atomic pair per output channel and block) is #3's.
+// Two bodies run on it:
+//  * shift_conv_block_body: the first design, kept for the dgrad, whose
+//    hook and epilogue it runs: the whole operand per block, then per tap
+//    mma_tap (ldmatrix + mma.sync.m16n8k16 over the tap's weights as (CO,
+//    K) rows, double-buffered per tap), then the epilogue type's
+//    epilogue() (the accumulators, shared memory that aliases the operand,
+//    the hook's region). A kernel is
+//      template <...> __global__ void k(const Params p, const Ops ops)
+//      { shift_conv_block_body<NG, NFW, MPW>(p, ops, ops); }
+//    and the hook adds a staging pass after the norms (hook.stage(),
+//    shared memory at p.off_hook; a part with a null source pointer is
+//    staged as zeros for the hook to fill). #13 runs the same pieces
+//    (stage_operand_issue / stage_operand_finish, mma_tap, and store_tile
+//    through shared memory) around its own depth loop.
+//  * The K-chunked wgmma body of #1 and #3 (chunk_step,
+//    materialised_chunks): the operand in K chunks of at most 48 channels,
+//    each chunk's 9 taps on wgmma_taps (wgmma.mma_async with A from
+//    registers by mma_tap's ldmatrix addressing, B by descriptor from
+//    weights packed by wgmma_b_index, straight-line code per chunk width
+//    and output width, n <= 48 with two m64 tiles per warpgroup or n <= 96
+//    with one), the next chunk's copies in flight during this chunk's
+//    wgmmas (across tiles too, in #1's persistent blocks), and one epilogue
+//    from the registers (store_tile_regs: y stored as bf16 pairs, the
+//    statistics summed over the block). mma_taps_packed runs the same
+//    products on mma.sync: the control that measures the wgmma loop.
+// Both leave the sums in the same registers (acc[f][j][h][e]: row
+// fragment f, 16 output channels j, 8-channel half h).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -685,15 +698,168 @@ struct WgmmaRS<6> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   }
 };
+template <>
+struct WgmmaRS<7> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27}, "
+        "{%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct WgmmaRS<8> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct WgmmaRS<9> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35}, "
+        "{%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct WgmmaRS<10> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct WgmmaRS<11> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43}, "
+        "{%44, %45, %46, %47}, %48, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <>
+struct WgmmaRS<12> {
+  __device__ __forceinline__ static void mma(float* d, const unsigned a[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
 
 // pins the accumulators' definitions before and their uses after the
 // wgmma pipeline (no other instruction may define them inside it)
-template <int MPW>
-__device__ __forceinline__ void wgmma_fence_acc(float acc[MPW][3][2][4]) {
+template <int MPW, int NFW>
+__device__ __forceinline__ void wgmma_fence_acc(float acc[MPW][NFW][2][4]) {
 #pragma unroll
   for (int f = 0; f < MPW; ++f)
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
+    for (int j = 0; j < NFW; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -703,8 +869,8 @@ __device__ __forceinline__ void wgmma_fence_acc(float acc[MPW][3][2][4]) {
 
 // one (tap, 16-channel step) of wgmma_taps: A of each issued tile by
 // ldmatrix at the tap's offset, then one commit group
-template <int MPW, int N8>
-__device__ __forceinline__ void wgmma_step(float acc[MPW][3][2][4],
+template <int MPW, int NFW, int N8>
+__device__ __forceinline__ void wgmma_step(float acc[MPW][NFW][2][4],
                                            unsigned a[MPW][4],
                                            const unsigned a_addr[MPW],
                                            const unsigned char* s_w, int s,
@@ -722,8 +888,9 @@ __device__ __forceinline__ void wgmma_step(float acc[MPW][3][2][4],
 }
 
 // acc += the products of all 9 taps over the KS*16 staged channels on
-// wgmma, for a warp tile of one warp column (NG = 1, NFW = 3) and
-// N = 8 * N8 <= 48 output channels: the operand at s_in as stage_operand
+// wgmma, for a warp tile of one warp column (NG = 1) and N = 8 * N8 <=
+// 16 * NFW output channels (NFW = 3: n48, two m64 tiles per warpgroup;
+// NFW = 6: n96, one m64 tile): the operand at s_in as stage_operand
 // stages it, the 9 taps' weights at s_w packed by wgmma_b_index. Warpgroup
 // g issues m64 tile f over the row fragments 16f + 4g .. 16f + 4g + 3 (one
 // per warp, WarpTile's); a warp whose own fragment is not in the block
@@ -733,10 +900,10 @@ __device__ __forceinline__ void wgmma_step(float acc[MPW][3][2][4],
 // issued while it runs: the 9 * KS steps are straight-line code, with no
 // branch or loop edge while a group is in flight, which ptxas would
 // serialise. Returns with every product done.
-template <int MPW, int N8, int KS>
+template <int MPW, int NFW, int N8, int KS>
 __device__ __forceinline__ void wgmma_taps(const Params& p,
-                                           const WarpTile<1, 3, MPW>& wt,
-                                           float acc[MPW][3][2][4],
+                                           const WarpTile<1, NFW, MPW>& wt,
+                                           float acc[MPW][NFW][2][4],
                                            const bf16* s_in,
                                            const bf16* s_w) {
   const int Cp = p.Cp, Ws = p.Ws;
@@ -755,10 +922,11 @@ __device__ __forceinline__ void wgmma_taps(const Params& p,
   for (int f = 0; f < MPW; ++f)
 #pragma unroll
     for (int e = 0; e < 4; ++e) a0[f][e] = a1[f][e] = 0u;
-  wgmma_fence_acc<MPW>(acc);
+  wgmma_fence_acc<MPW, NFW>(acc);
 #pragma unroll
   for (int s = 0; s < 9 * KS; ++s) {
-    wgmma_step<MPW, N8>(acc, (s & 1) ? a1 : a0, a_addr, sw, s, KS, Ws, Cp);
+    wgmma_step<MPW, NFW, N8>(acc, (s & 1) ? a1 : a0, a_addr, sw, s, KS, Ws,
+                             Cp);
     wgmma_wait<1>();                   // step s - 1 done: its A free
 #pragma unroll
     for (int f = 0; f < MPW; ++f) keep_live((s & 1) ? a0[f] : a1[f]);
@@ -769,7 +937,7 @@ __device__ __forceinline__ void wgmma_taps(const Params& p,
     keep_live(a0[f]);
     keep_live(a1[f]);
   }
-  wgmma_fence_acc<MPW>(acc);
+  wgmma_fence_acc<MPW, NFW>(acc);
 }
 
 // The control that measures wgmma_taps: the same products, operand and
@@ -777,13 +945,11 @@ __device__ __forceinline__ void wgmma_taps(const Params& p,
 // four 8 x 8 core matrices of two consecutive groups of 8 output channels
 // in a step (both K halves) are 512 contiguous bytes, so one ldmatrix_x4
 // at 16 bytes per lane gives two groups' B fragments.
-template <int MPW>
-__device__ __forceinline__ void mma_taps_packed(const Params& p,
-                                                const WarpTile<1, 3, MPW>& wt,
-                                                float acc[MPW][3][2][4],
-                                                const bf16* s_in,
-                                                const bf16* s_w, int KS,
-                                                int N8) {
+template <int MPW, int NFW>
+__device__ __forceinline__ void mma_taps_packed(
+    const Params& p, const WarpTile<1, NFW, MPW>& wt,
+    float acc[MPW][NFW][2][4], const bf16* s_in, const bf16* s_w, int KS,
+    int N8) {
   const int Cp = p.Cp, Ws = p.Ws;
   const int lane = wt.lane;
   const int a_row = lane % 16, a_k = (lane / 16) * 8;
@@ -803,7 +969,7 @@ __device__ __forceinline__ void mma_taps_packed(const Params& p,
     for (int f = 0; f < MPW; ++f) ldmatrix_x4(a[f], a_addr[f] + off * 2);
     const unsigned b_step = b_base + (t * KS + ks) * N8 * 256;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
+    for (int j = 0; j < NFW; ++j) {
       if (2 * j >= N8) continue;
       unsigned b[4];
       if (2 * j + 1 < N8)
@@ -867,61 +1033,14 @@ struct TilePixel {
 // The epilogue of one block tile through shared memory at s_acc (TH*WF*16
 // x BN floats; the caller has synchronised the block since the last read of
 // what it aliases): bias, the bf16 store of y and the per-channel
-// statistics (atomics). With REDUCE, the statistics come from the
-// accumulators in registers instead: summed over each warp's pixels by
-// shuffles, then over the warps in shared memory at `red` (2 * NWARPS * BN
-// floats), so a block adds one pair per output channel (per-thread
-// atomics on the same few addresses serialise in their L2 slices).
-template <int NG, int NFW, int MPW, bool REDUCE = false>
+// statistics (atomics).
+template <int NG, int NFW, int MPW>
 __device__ __forceinline__ void store_tile(const Params& p,
                                            const WarpTile<NG, NFW, MPW>& wt,
                                            float acc[MPW][NFW][2][4],
                                            float* s_acc, int n, int d,
                                            int h0, int w0, int co0, int BN,
-                                           int ncol, int tid,
-                                           float* red = nullptr) {
-  if constexpr (REDUCE) {
-    // this lane's pixels: rows lane/4 and lane/4 + 8 of its fragments
-    const int lane = wt.lane;
-    bool px_on[MPW][2];
-#pragma unroll
-    for (int f = 0; f < MPW; ++f)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        px_on[f][r] = wt.on[f] && h0 + wt.th[f] < p.H &&
-                      w0 + wt.w[f] + lane / 4 + 8 * r < p.W;
-#pragma unroll
-    for (int j = 0; j < NFW; ++j) {
-      if (!wt.nf_on[j]) continue;      // warp-uniform
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = (wt.ng * NFW + j) * 16 + h * 8 + (lane % 4) * 2 + e;
-          const float bias =
-              col < ncol ? __bfloat162float(p.b[co0 + col]) : 0.0f;
-          float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-          for (int f = 0; f < MPW; ++f)
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              if (px_on[f][r]) {
-                const float v = acc[f][j][h][2 * r + e] + bias;
-                s1 += v;
-                s2 += v * v;
-              }
-#pragma unroll
-          for (int m = 4; m < 32; m *= 2) {
-            s1 += __shfl_xor_sync(0xffffffffu, s1, m);
-            s2 += __shfl_xor_sync(0xffffffffu, s2, m);
-          }
-          if (lane < 4) {
-            red[wt.wm * BN + col] = s1;
-            red[(NWARPS + wt.wm) * BN + col] = s2;
-          }
-        }
-    }
-  }
+                                           int ncol, int tid) {
   acc_to_smem(wt, acc, s_acc, BN);
   const int BM = p.TH * p.WF * 16;
   const TilePixel pixel(p, h0, w0);
@@ -952,19 +1071,6 @@ __device__ __forceinline__ void store_tile(const Params& p,
     }
   }
 
-  if constexpr (REDUCE) {
-    // the warps' partials (red was written before acc_to_smem's barrier)
-    if (tid < ncol) {
-      float s1 = 0.0f, s2 = 0.0f;
-      for (int m = 0; m < WarpTile<NG, NFW, MPW>::WPM; ++m) {
-        s1 += red[m * BN + tid];
-        s2 += red[(NWARPS + m) * BN + tid];
-      }
-      atomicAdd(&p.stats[((size_t)n * p.CO + co0 + tid) * 2], s1);
-      atomicAdd(&p.stats[((size_t)n * p.CO + co0 + tid) * 2 + 1], s2);
-    }
-    return;
-  }
   const int G = NTHREADS / BN;          // threads per output channel
   if (tid < G * BN) {
     const int j = tid % BN;
@@ -986,22 +1092,202 @@ __device__ __forceinline__ void store_tile(const Params& p,
   }
 }
 
-// The epilogue of a plain fused block: store_tile. Another epilogue type
-// has the same member; it may use the hook's shared memory at `region`.
-struct StoreTile {
-  template <int NG, int NFW, int MPW>
-  __device__ __forceinline__ void epilogue(
-      const Params& p, const WarpTile<NG, NFW, MPW>& wt,
-      float acc[MPW][NFW][2][4], float* s_acc, unsigned char* /*region*/,
-      int n, int d, int h0, int w0, int co0, int BN, int ncol,
-      int tid) const {
-    store_tile(p, wt, acc, s_acc, n, d, h0, w0, co0, BN, ncol, tid);
-  }
-};
+// ---- The K-chunked wgmma body of the fused block (#1, fused_block.cu) and
+// the lazy up-link block (#3, qfused.cu). A block tile's operand is staged
+// in K chunks of p.Cs <= 48 channels, each chunk's 9 taps accumulating into
+// the same registers. A chunk step waits for its chunk's copies, applies the
+// pending norms, issues the NEXT chunk's copies into the other operand
+// buffer (and, where they do not stay resident, its weights), and then runs
+// this chunk's taps on wgmma, so the next copies land while the products
+// run. After a tile's last chunk the next copies are those of the first
+// chunk of the block's next tile: #1's blocks are persistent, #3's compute
+// one tile each.
 
-template <int NG, int NFW, int MPW, class Hook, class Epilogue = StoreTile>
+// wgmma_taps for the chunk's KS steps and the tile's n8 groups of 8 output
+// channels (n8 <= 2 * NFW): one straight-line instantiation each
+template <int MPW, int NFW, int KS>
+__device__ __forceinline__ void wgmma_taps_n8(const Params& p,
+                                              const WarpTile<1, NFW, MPW>& wt,
+                                              float acc[MPW][NFW][2][4],
+                                              const bf16* s_op,
+                                              const bf16* s_w, int n8) {
+  switch (n8) {
+    case 1: wgmma_taps<MPW, NFW, 1, KS>(p, wt, acc, s_op, s_w); break;
+    case 2: wgmma_taps<MPW, NFW, 2, KS>(p, wt, acc, s_op, s_w); break;
+    case 3: wgmma_taps<MPW, NFW, 3, KS>(p, wt, acc, s_op, s_w); break;
+    case 4: wgmma_taps<MPW, NFW, 4, KS>(p, wt, acc, s_op, s_w); break;
+    case 5: wgmma_taps<MPW, NFW, 5, KS>(p, wt, acc, s_op, s_w); break;
+    default:
+      if constexpr (NFW == 3) {
+        wgmma_taps<MPW, NFW, 6, KS>(p, wt, acc, s_op, s_w);
+      } else {
+        switch (n8) {
+          case 6: wgmma_taps<MPW, NFW, 6, KS>(p, wt, acc, s_op, s_w); break;
+          case 7: wgmma_taps<MPW, NFW, 7, KS>(p, wt, acc, s_op, s_w); break;
+          case 8: wgmma_taps<MPW, NFW, 8, KS>(p, wt, acc, s_op, s_w); break;
+          case 9: wgmma_taps<MPW, NFW, 9, KS>(p, wt, acc, s_op, s_w); break;
+          case 10: wgmma_taps<MPW, NFW, 10, KS>(p, wt, acc, s_op, s_w); break;
+          case 11: wgmma_taps<MPW, NFW, 11, KS>(p, wt, acc, s_op, s_w); break;
+          default: wgmma_taps<MPW, NFW, 12, KS>(p, wt, acc, s_op, s_w);
+        }
+      }
+  }
+}
+
+// the 9 taps over the staged chunk at s_op: on wgmma (WGMMA), else on
+// mma.sync over the same packed weights (mma_taps_packed, the control)
+template <int MPW, int NFW, bool WGMMA>
+__device__ __forceinline__ void chunk_taps(const Params& p,
+                                           const WarpTile<1, NFW, MPW>& wt,
+                                           float acc[MPW][NFW][2][4],
+                                           const bf16* s_op, const bf16* s_w,
+                                           int N8) {
+  const int KS = p.Cs / 16;
+  if constexpr (WGMMA) {
+    if (KS == 1)
+      wgmma_taps_n8<MPW, NFW, 1>(p, wt, acc, s_op, s_w, N8);
+    else if (KS == 2)
+      wgmma_taps_n8<MPW, NFW, 2>(p, wt, acc, s_op, s_w, N8);
+    else
+      wgmma_taps_n8<MPW, NFW, 3>(p, wt, acc, s_op, s_w, N8);
+  } else {
+    mma_taps_packed<MPW, NFW>(p, wt, acc, s_op, s_w, KS, N8);
+  }
+}
+
+// One chunk step: wait for the chunk's copies (and its weights'), apply its
+// pending norms (stage_operand_finish), staged() (#3: the up-link into the
+// staged chunk), next() (issue the next chunk's copies into the other
+// buffer), then the chunk's taps. Returns with every product done.
+template <int MPW, int NFW, bool WGMMA, class Staged, class Next>
+__device__ __forceinline__ void chunk_step(
+    const Params& p, const WarpTile<1, NFW, MPW>& wt,
+    float acc[MPW][NFW][2][4], unsigned char* smem, bf16* s_op,
+    const bf16* s_w, unsigned char* tab, int n, int d, int h0, int w0,
+    int N8, int tid, const Staged& staged, const Next& next) {
+  cp_async_wait_all();
+  fence_proxy_async();                 // the weights, for wgmma
+  stage_operand_finish(p, NoHook(), smem, s_op, tab, n, d, h0, w0, tid);
+  staged();
+  next();
+  chunk_taps<MPW, NFW, WGMMA>(p, wt, acc, s_op, s_w, N8);
+}
+
+// The materialised chunks ch = 0 .. nch-1 (concat channels ch*p.Cs ..) of
+// one block tile, in the operand buffers op0 (buf 0) and op1 (buf 1) in
+// turn from buf, the first one's copies issued already. Per chunk:
+// stage_w(ch, buf) gives the chunk's packed weights (staging them if need
+// be), a chunk step whose next() issues the next chunk's weights and copies
+// (issue(ch + 1, the other buffer, buf ^ 1)), or after the last chunk
+// next_tile(the other buffer, buf ^ 1). Leaves buf at the buffer of the
+// next copies.
+template <int MPW, int NFW, bool WGMMA, class StageW, class Issue,
+          class NextTile>
+__device__ __forceinline__ void materialised_chunks(
+    const Params& p, const WarpTile<1, NFW, MPW>& wt,
+    float acc[MPW][NFW][2][4], unsigned char* smem, bf16* op0, bf16* op1,
+    int& buf, unsigned char* tab, int n, int d, int h0, int w0, int N8,
+    int nch, int tid, const StageW& stage_w, const Issue& issue,
+    const NextTile& next_tile) {
+  for (int ch = 0; ch < nch; ++ch) {
+    bf16* s_op = buf ? op1 : op0;
+    bf16* s_next = buf ? op0 : op1;
+    const bf16* s_w = stage_w(ch, buf);
+    chunk_step<MPW, NFW, WGMMA>(
+        p, wt, acc, smem, s_op, s_w, tab, n, d, h0, w0, N8, tid, [] {},
+        [&] {
+          if (ch + 1 < nch)
+            issue(ch + 1, s_next, buf ^ 1);
+          else
+            next_tile(s_next, buf ^ 1);
+        });
+    buf ^= 1;
+  }
+}
+
+// The epilogue of one block tile from the registers, with no tile in shared
+// memory (so it runs while the next tile's copies land): the bias (bf16),
+// y stored as bf16 pairs, and the statistics of the f32 values summed
+// over each warp's pixels by shuffles, then over the warps in `red`
+// (2 * NWARPS * BN floats), before one atomic pair per output channel and
+// block.
+template <int MPW, int NFW>
+__device__ __forceinline__ void store_tile_regs(
+    const Params& p, const WarpTile<1, NFW, MPW>& wt,
+    float acc[MPW][NFW][2][4], int n, int d, int h0, int w0, int co0,
+    int BN, int ncol, int tid, float* red) {
+  const int lane = wt.lane;
+  bf16* y_slice = p.y + (size_t)(n * p.D + d) * p.H * p.W * p.CO + co0;
+  const bool pairs = p.CO % 2 == 0;
+  int px[MPW][2];                      // this lane's pixels, or -1
+#pragma unroll
+  for (int f = 0; f < MPW; ++f)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int h = h0 + wt.th[f], w = w0 + wt.w[f] + lane / 4 + 8 * r;
+      px[f][r] = wt.on[f] && h < p.H && w < p.W ? h * p.W + w : -1;
+    }
+#pragma unroll
+  for (int j = 0; j < NFW; ++j) {
+    if (!wt.nf_on[j]) continue;        // warp-uniform
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = j * 16 + h * 8 + (lane % 4) * 2;
+      const float b0 = col < ncol ? __bfloat162float(p.b[co0 + col]) : 0.0f;
+      const float b1 =
+          col + 1 < ncol ? __bfloat162float(p.b[co0 + col + 1]) : 0.0f;
+      float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int f = 0; f < MPW; ++f)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (px[f][r] < 0) continue;
+          const float v0 = acc[f][j][h][2 * r] + b0;
+          const float v1 = acc[f][j][h][2 * r + 1] + b1;
+          bf16* dst = y_slice + (size_t)px[f][r] * p.CO + col;
+          if (pairs && col + 1 < ncol) {
+            *reinterpret_cast<__nv_bfloat162*>(dst) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (col < ncol) dst[0] = __float2bfloat16(v0);
+            if (col + 1 < ncol) dst[1] = __float2bfloat16(v1);
+          }
+          s1[0] += v0;
+          s2[0] += v0 * v0;
+          s1[1] += v1;
+          s2[1] += v1 * v1;
+        }
+#pragma unroll
+      for (int m = 4; m < 32; m *= 2)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], m);
+          s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], m);
+        }
+      if (lane < 4) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          red[wt.wm * BN + col + e] = s1[e];
+          red[(NWARPS + wt.wm) * BN + col + e] = s2[e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < ncol) {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int m = 0; m < WarpTile<1, NFW, MPW>::WPM; ++m) {
+      s1 += red[m * BN + tid];
+      s2 += red[(NWARPS + m) * BN + tid];
+    }
+    atomicAdd(&p.stats[((size_t)n * p.CO + co0 + tid) * 2], s1);
+    atomicAdd(&p.stats[((size_t)n * p.CO + co0 + tid) * 2 + 1], s2);
+  }
+}
+
+template <int NG, int NFW, int MPW, class Hook, class Epilogue>
 __device__ __forceinline__ void shift_conv_block_body(
-    const Params& p, const Hook& hook, const Epilogue& epi = Epilogue()) {
+    const Params& p, const Hook& hook, const Epilogue& epi) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
 
@@ -1055,7 +1341,8 @@ __device__ __forceinline__ void shift_conv_block_body(
     __syncthreads();                   // next buffer landed, this one free
   }
 
-  // ---- epilogue through shared memory (aliases the operand region)
+  // ---- the epilogue: shared memory at s_acc aliases the operand region,
+  // and it may use the hook's region
   epi.epilogue(p, wtile, acc, reinterpret_cast<float*>(smem),
                smem + p.off_hook, n, d, h0, w0, co0, BN, ncol, tid);
 }

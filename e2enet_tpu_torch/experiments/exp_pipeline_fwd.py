@@ -10,8 +10,10 @@ CO) in the parts' dtype, stats (N, CO, 2) float32). It computes #1's
 function (the reference's `_pipe_kernel` is quadrant_fused_block's dense
 mode; the port keeps the computation, not the quadrant layout). On CUDA
 tensors (bfloat16) csrc/fused_block_pipe.cu runs it with the staging of the
-next depth's operand in flight during this depth's matrix products, and #1's
-order of sums: y equals #1's to the bit. overlap=False runs the same kernel
+next depth's operand in flight during this depth's matrix products on
+mma.sync (#1 adds the same products on wgmma over K chunks, in another
+float32 order, so y is within one bf16 step of #1's per channel, not equal
+to the bit). overlap=False runs the same kernel
 with the next depth's staging after this depth's products: the same tile
 and work without the overlap, the control of the experiment. On CPU tensors
 the plain version, fused_shift_conv_block_ref. Forward only, as the
@@ -96,14 +98,19 @@ def main(argv=None) -> None:
     with torch.inference_mode():
         y1, s1 = fused_shift_conv_block(*args_)
         yp, sp = pipelined_fused_block(*args_)
-        err = float((yp.float() - y1.float()).abs().max())
+        diff = (yp.float() - y1.float()).abs().amax(dim=(0, 1, 2, 3))
+        ch_max = y1.float().abs().amax(dim=(0, 1, 2, 3))
+        ulp = torch.exp2(torch.floor(torch.log2(ch_max.clamp_min(1e-30))) - 7)
+        err = float(diff.max())
         srel = float((sp - s1).abs().max() / s1.abs().max())
-        print(f"  parity with kernel #1: y max abs err {err:.3e} (equal to "
-              f"the bit: {torch.equal(yp, y1)}; scale "
+        print(f"  parity with kernel #1: y max abs err {err:.3e} (within one "
+              f"bf16 step of each channel's max: "
+              f"{bool((diff <= ulp).all())}; scale "
               f"{float(y1.float().abs().max()):.3e}), stats max rel err "
               f"{srel:.3e}", flush=True)
         ys, _ = pipelined_fused_block(*args_, overlap=False)
-        if err != 0.0 or srel > 1e-4 or not torch.equal(ys, y1):
+        if (not bool((diff <= ulp).all()) or srel > 1e-4
+                or not torch.equal(ys, yp)):
             raise SystemExit("exp_pipeline_fwd: parity with #1 FAILED")
         runs = {"#1": lambda: fused_shift_conv_block(*args_),
                 "pipelined": lambda: pipelined_fused_block(*args_),

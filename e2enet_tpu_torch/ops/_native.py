@@ -32,9 +32,14 @@ PI = ctypes.POINTER(ctypes.c_int)
 # the C entry points of each source and their argument types
 SIGNATURES = {
     "fused_block": {
+        # parts, affines, part_c, part_vec, nparts, groups, ngroups, w9, b,
+        # y, stats, N, D, H, W, CO, the packed-weights scratch and its
+        # bytes, wgmma, stream
         "fused_block_launch": [ctypes.POINTER(vp)] * 3 + [PI, PI, i32, PI,
                                                           i32] + [vp] * 4
-        + [i32] * 5 + [vp]},
+        + [i32] * 5 + [vp, i32, i32, vp],
+        # C, CO
+        "fused_block_scratch_bytes": [i32, i32]},
     "qfused": {
         # the fused block's arguments, then up_raw, up_mult, up_off, up_w,
         # cin, wgmma, stream
@@ -202,17 +207,25 @@ def _block_args(parts, affines, groups, w9, b, y, stats, up_channels=None):
         W, CO)
 
 
-def launch_fused_block(parts, affines, groups, w9, b, y, stats) -> None:
+def launch_fused_block(parts, affines, groups, w9, b, y, stats,
+                       wgmma: bool = True) -> None:
     """Launch csrc/fused_block.cu on the current stream. parts: contiguous
     bf16 (N, D, H, W, Ci); affines: per part None or contiguous float32
     (mult, off) of shape (N, Ci); groups: [(c0, c1, shift)]; w9 (9, CO, C)
     bf16; b (CO,) bf16; outputs y (N, D, H, W, CO) bf16 and stats (N, CO, 2)
-    float32 (zeroed). Raises on a refused launch."""
-    fn = library("fused_block").fused_block_launch
+    float32 (zeroed). The kernel first packs the weights for its bulk
+    copies into a scratch tensor of the size the library gives
+    (fused_block_scratch_bytes). The conv's taps on wgmma, or with
+    wgmma=False on mma.sync (the control). Raises on a refused launch."""
+    lib = library("fused_block")
     args = _block_args(parts, affines, groups, w9, b, y, stats)
+    C, CO = sum(args[3]), int(y.shape[-1])
+    nbytes = lib.fused_block_scratch_bytes(C, CO)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=y.device)
     with torch.cuda.device(y.device):
-        err = fn(*args, _stream(y))
-    _check(err, f"fused_block (shape {tuple(y.shape)}, C={sum(args[3])})")
+        err = lib.fused_block_launch(*args, scratch.data_ptr(), nbytes,
+                                     int(wgmma), _stream(y))
+    _check(err, f"fused_block (shape {tuple(y.shape)}, C={C})")
 
 
 def launch_lazy_up(parts, affines, groups, w9, b, raw, umult, uoff, wu, y,

@@ -128,21 +128,26 @@ def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
 def fused_shift_conv_block(parts: Sequence[torch.Tensor],
                            kernel: torch.Tensor, bias: torch.Tensor,
                            affines: Sequence[Affine],
-                           flips: Flips = NO_FLIPS, groups_override=None):
+                           flips: Flips = NO_FLIPS, groups_override=None, *,
+                           wgmma: bool = True):
     """The fused block: plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (bfloat16 only; raises on what the kernel does not take).
     Same arguments and results as fused_shift_conv_block_ref. With a
     gradient wanted, an autograd op whose backward is
-    fused_shift_conv_block_bwd."""
+    fused_shift_conv_block_bwd. wgmma=False runs the kernel's taps on
+    mma.sync instead, a control for measuring the wgmma tap loop (forward
+    only)."""
     if len(parts) != len(affines):
         raise ValueError("one affine (or None) per part")
     if needs_grad(list(parts) + [kernel, bias] + affine_tensors(affines)):
+        if not wgmma:
+            raise ValueError("the mma.sync control has no backward")
         return _FusedBlockFn.apply(
             (tuple(flips), groups_override, len(parts),
              tuple(a is not None for a in affines)),
             *parts, kernel, bias, *affine_tensors(affines))
     return _fused_forward(parts, kernel, bias, affines, flips,
-                          groups_override)
+                          groups_override, wgmma)
 
 
 def _check_block(parts, kernel, bias):
@@ -163,7 +168,8 @@ def _check_block(parts, kernel, bias):
     return part_c, C, CO
 
 
-def _fused_forward(parts, kernel, bias, affines, flips, groups_override):
+def _fused_forward(parts, kernel, bias, affines, flips, groups_override,
+                   wgmma=True):
     dev = parts[0].device
     if dev.type == "cpu":
         return fused_shift_conv_block_ref(parts, kernel, bias, affines,
@@ -188,7 +194,7 @@ def _fused_forward(parts, kernel, bias, affines, flips, groups_override):
     stats = torch.zeros((N, CO, 2), dtype=torch.float32, device=dev)
     _native.launch_fused_block(parts, aff,
                                block_groups(C, flips, groups_override), w9,
-                               b, y, stats)
+                               b, y, stats, wgmma)
     fused_shift_conv_block.launches += 1
     return y, stats
 

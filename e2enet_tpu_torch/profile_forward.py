@@ -32,7 +32,8 @@ from .inference.predictor import mirror_apply_fns_for
 from .models.masks import attach_masks
 from .models.unetpp import ShiftUNetPlusPlus
 
-PORT_KERNELS = ("fused_block_kernel", "qfused_lazy_kernel", "qstride_kernel",
+PORT_KERNELS = ("fused_chunked_kernel", "pack_weights_kernel",
+                "qfused_lazy_kernel", "qstride_kernel",
                 "uplink_kernel", "downlink_kernel", "seghead_kernel",
                 # the block backward (csrc/fused_block_bwd.cu: the dgrad
                 # with the shift's adjoint, the wgrad with geff and gb) and

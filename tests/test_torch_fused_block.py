@@ -68,6 +68,10 @@ CASES = {
     "three_parts_affine": (1, 6, 8, 16, (4, 3, 2), (True, False, True), 6),
     "w13": (2, 6, 8, 13, (8,), (True,), 6),
     "d3": (1, 3, 8, 16, (6, 2), (True, False), 4),
+    # the card's K-chunk cases at small sizes: K = 200 with parts and shift
+    # groups meeting mid-unit (CO 40), K = 240 in three parts at CO 96
+    "k200_co40": (1, 3, 4, 8, (100, 100), (True, False), 40),
+    "k240_co96": (1, 2, 4, 8, (96, 96, 48), (True, False, True), 96),
 }
 
 

@@ -103,6 +103,17 @@ def test_depth_stride_one_matches_reference_kernel(flips):
     _check_stats(s.numpy(), ref_s, ref_y, 1e-4)
 
 
+@pytest.mark.parametrize("flips", [(False, False, False), (True, True, True)])
+def test_two_samples_wide_co_matches_reference_kernel(flips):
+    """The card's sample-straddling case at a small size: N = 2, C = 16,
+    CO = 40 (per-sample statistics)."""
+    args = _inputs(5, N=2, D=8, H=8, W=16, C=16, CO=40)
+    ref_y, ref_s = _jax(*args, (2, 2, 2), flips, jnp.float32)
+    y, s = _torch(*args, (2, 2, 2), flips, torch.float32)
+    np.testing.assert_allclose(y.numpy(), ref_y, rtol=1e-4, atol=1e-4)
+    _check_stats(s.numpy(), ref_s, ref_y, 1e-4)
+
+
 @pytest.mark.parametrize("flips", COMBOS)
 def test_flips_mirror_the_op(flips):
     """strided_fused(x, flips=c) == flip_c(strided_fused(flip_c(x)))."""
