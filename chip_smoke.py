@@ -56,11 +56,13 @@ Phases (any failure ends the run with a non-zero exit):
               #2 and #4, and the down-link backward #8) against their plain
               versions at the train step's shapes (batch 2) and ragged ones
               (the block backward also at D = 1, with no part wanted and
-              with one of two), with times, bounds and cuDNN's /
-              max_pool3d's backward for context (the block backward also
-              beside the four-launch design's times); every forward kernel
-              at its main-path shape with batch 2; then the row-masked DSFF
-              trainer of
+              with one of two; the down-link backward also with exact ties
+              on aligned rows, at C = 96 and on its scalar route at C = 5),
+              with times, bounds and cuDNN's / max_pool3d's backward for
+              context (the block backward also beside the four-launch
+              design's times, the down-link backward beside a copy of x);
+              every forward kernel at its main-path shape with batch 2;
+              then the row-masked DSFF trainer of
               training/train_bench_masks.py at the bench width (batch 2 of
               128^3, 16 classes, density 0.2, seed 0): 8 steps on one
               synthetic batch with a mask update after steps 4 and 8. Per
@@ -73,13 +75,16 @@ Phases (any failure ends the run with a non-zero exit):
   8. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the pipelined block at l0_48+48_to48 with both
-              affines, also against kernel #1 itself; the products at 4096^3)
-              and at ragged ones (D = 3, W = 13, C in {1, 8, 24}, N = 2; M, N,
-              K off the tile), the channels-first block with the affine and
-              the statistics each on and off, the ring shift's backward; times,
-              bounds and the library call (cuDNN's conv of the pre-shifted
-              operand, #1 beside the pipelined block, torch.matmul /
-              torch._int_mm; none for the shift and the relayout's copy);
+              affines, also against kernel #1 itself; the products at 4096^3
+              on the wgmma route, checked by its route counter, beside their
+              mma.sync control and the int8 repack of B alone) and at ragged
+              ones (D = 3, W = 13, C in {1, 8, 24}, N = 2; M, N, K off the
+              tile on both routes), the channels-first block with the affine
+              and the statistics each on and off, the ring shift's backward;
+              times, bounds and the library call (cuDNN's conv of the
+              pre-shifted operand, #1 beside the pipelined block,
+              torch.matmul / torch._int_mm; none for the shift and the
+              relayout's copy);
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
   9. report   one JSON line with every kernel's launches, error, times and
@@ -692,8 +697,10 @@ def downlink_bwd_case(name, N, D, H, W, C, rnd, reps, ties=False):
                    lambda: torch.ops.aten.max_pool3d_with_indices_backward(
                        g3, x3, [2, 2, 2], [2, 2, 2], [0, 0, 0], [1, 1, 1],
                        False, idx), reps),
-               bound_ms=b_ms, bound_by=b_by)
-    report(name, f"N={N} D={D} H={H} W={W} C={C}", res)
+               bound_ms=b_ms, bound_by=b_by,
+               copy_ms=cuda_ms(lambda: x.clone(), reps))
+    report(name, f"N={N} D={D} H={H} W={W} C={C}", res,
+           f" (a copy of x, the same bytes: {res['copy_ms']:.4f} ms)")
     return res
 
 
@@ -749,7 +756,10 @@ def train_phase(rnd, R, ops, reset_counts, counts, smi):
     main8 = downlink_bwd_case("l0_to_l1_48", 2, 128, 128, 128, 48, rnd, R)
     errs = [downlink_bwd_case(n, *a, rnd=rnd, reps=0, ties=t)["max_abs_err"]
             for n, a, t in (("ties", (2, 8, 16, 32, 48), True),
-                            ("ragged_d7_w26_c8", (2, 7, 6, 26, 8), True))]
+                            ("ties_aligned", (2, 16, 32, 64, 48), True),
+                            ("c96", (2, 8, 16, 32, 96), False),
+                            ("ragged_d7_w26_c8", (2, 7, 6, 26, 8), True),
+                            ("c5_scalar", (1, 4, 4, 6, 5), False))]
     out["downlink_bwd"] = dict(main8, max_abs_err=max(
         [main8["max_abs_err"]] + errs))
 
@@ -1071,10 +1081,23 @@ def pipe_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
     return res
 
 
+def gemm_route(M, N, K, dtype):
+    """The route #14 takes by shape for contiguous, aligned operands: wgmma
+    fed by TMA where TMA describes them, else mma.sync."""
+    import torch
+    if dtype == torch.int8:
+        return "wgmma" if K % 16 == 0 else "mma_sync"
+    return "wgmma" if K % 8 == 0 and N % 8 == 0 else "mma_sync"
+
+
 def gemm_case(name, M, N, K, dtype, rnd, reps):
-    """#14 vs plain: int8 equal to the bit, bf16 within GEMM_RTOL."""
+    """#14 vs plain on the route its shape takes (checked by the route
+    counters) and its mma.sync control: int8 equal to the bit, bf16 within
+    GEMM_RTOL. With reps, also the control's time (mma_ms) and, for int8 on
+    the wgmma route, the repack of B alone (repack_ms)."""
     import torch
     from e2enet_tpu_torch.experiments import exp_int8_mma as im
+    from e2enet_tpu_torch.ops import _native
     if dtype == torch.int8:
         a = torch.randint(-128, 128, (M, K), generator=rnd.gen,
                           device="cuda", dtype=dtype)
@@ -1082,26 +1105,47 @@ def gemm_case(name, M, N, K, dtype, rnd, reps):
                           device="cuda", dtype=dtype)
     else:
         a, b = rnd(M, K).to(dtype), rnd(K, N).to(dtype)
+    route = gemm_route(M, N, K, dtype)
     with torch.inference_mode():
+        before = dict(im.mma_gemm.routes)
         c = im.mma_gemm(a, b)
+        check(im.mma_gemm.routes[route] == before[route] + 1,
+              f"{name}: {dtype} product did not take the {route} route "
+              f"({before} -> {im.mma_gemm.routes})")
+        c_ctl = im.mma_gemm(a, b, wgmma=False)
         ref = im.mma_gemm_ref(a, b)
         torch.cuda.synchronize()
-        err = float((c.double() - ref.double()).abs().max())
-        if dtype == torch.int8:
-            check(torch.equal(c, ref), f"{name}: int8 product not exact "
-                                       f"(max abs err {err})")
-        else:
-            rel = close_max(c, ref)
-            check(rel <= GEMM_RTOL, f"{name}: bf16 product rel err {rel}")
+        err = 0.0
+        for tag, out in ((route, c), ("mma_sync control", c_ctl)):
+            e = float((out.double() - ref.double()).abs().max())
+            if dtype == torch.int8:
+                check(torch.equal(out, ref), f"{name} ({tag}): int8 product "
+                                             f"not exact (max abs err {e})")
+            else:
+                rel = close_max(out, ref)
+                check(rel <= GEMM_RTOL, f"{name} ({tag}): bf16 product rel "
+                                        f"err {rel}")
+            err = max(err, e)
         if reps == 0:
             return dict(max_abs_err=err)
         lib = ((lambda: torch._int_mm(a, b)) if dtype == torch.int8
                else (lambda: torch.matmul(a, b)))
-        return exp_result(
-            "mma_gemm", f"M={M} N={N} K={K} {dtype}", err,
+        res = exp_result(
+            "mma_gemm", f"M={M} N={N} K={K} {dtype} ({route})", err,
             lambda: im.mma_gemm(a, b), lambda: im.mma_gemm_ref(a, b), lib,
             *bound(nbytes(a, b, c), 2.0 * M * N * K,
                    PEAK_INT8 if dtype == torch.int8 else PEAK_BF16), reps)
+        res["gemm_route"] = route
+        res["mma_ms"] = cuda_ms(lambda: im.mma_gemm(a, b, wgmma=False), reps)
+        extra = ""
+        if dtype == torch.int8 and route == "wgmma":
+            bt = torch.empty((N, K), dtype=dtype, device="cuda")
+            res["repack_ms"] = cuda_ms(
+                lambda: _native.launch_mma_gemm_repack(b, bt), reps)
+            extra = f"; the repack of B alone {res['repack_ms']:.4f} ms"
+        print(f"    the mma.sync control {res['mma_ms']:.4f} ms{extra}",
+              flush=True)
+        return res
 
 
 def experiments_phase(rnd, R, reset_counts, counts, smi):
@@ -1147,24 +1191,32 @@ def experiments_phase(rnd, R, reset_counts, counts, smi):
         ("c24_co112", 2, 3, 4, 32, [24], [True], 112))]
     out["pipelined_fused_block"] = dict(main13, max_abs_err=max(
         [main13["max_abs_err"]] + errs))
-    print("[kernel] mma_gemm (#14) vs plain; 'library' is torch.matmul "
-          "(bf16) / torch._int_mm (int8)", flush=True)
+    print("[kernel] mma_gemm (#14) vs plain, on the route its shape takes "
+          "and on the mma.sync control; 'library' is torch.matmul (bf16) / "
+          "torch._int_mm (int8); the int8 wgmma route's time includes the "
+          "repack of B", flush=True)
     r14 = {dt: gemm_case("4096^3", 4096, 4096, 4096, dt, rnd, R)
            for dt in (torch.bfloat16, torch.int8)}
     for dt in (torch.bfloat16, torch.int8):
+        check(r14[dt]["gemm_route"] == "wgmma", f"4096^3 {dt}: not on "
+                                                 f"the wgmma route")
         errs = [gemm_case(f"ragged_{m}x{n}x{k}", m, n, k, dt, rnd, 0)[
             "max_abs_err"] for m, n, k in ((200, 136, 272), (33, 50, 100),
-                                           (1000, 999, 77))]
+                                           (1000, 999, 77), (512, 1024, 768),
+                                           (300, 264, 208))]
         r14[dt]["max_abs_err"] = max([r14[dt]["max_abs_err"]] + errs)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err")
+            "max_abs_err", "gemm_route", "mma_ms", "repack_ms")
     out["mma_gemm"] = dict(r14[torch.bfloat16],
-                           int8={k: r14[torch.int8][k] for k in keys})
+                           int8={k: r14[torch.int8][k] for k in keys
+                                 if k in r14[torch.int8]})
     torch.cuda.empty_cache()
 
     # ---- the experiments' entry points, few repetitions each
     print("[experiments] each experiment's main, --reps 2", flush=True)
     reset_counts()
+    routes = exp_int8_mma.mma_gemm.routes
+    routes.update(wgmma=0, mma_sync=0)
     shift_conv.main(["--reps", "2"])
     exp_cf_fused.main(["--reps", "2"])
     exp_cf_fused.main(["--v2", "--reps", "2"])
@@ -1175,6 +1227,8 @@ def experiments_phase(rnd, R, reset_counts, counts, smi):
     for name in out:
         check(got[name] > 0, f"experiments: {name} never launched by the "
                              f"mains")
+    check(routes == {"wgmma": got["mma_gemm"], "mma_sync": 0},
+          f"experiments: the 4096^3 products left the wgmma route {routes}")
     print(f"[experiments] launches over the mains "
           f"{ {k: got[k] for k in out} }", flush=True)
     torch.cuda.empty_cache()
@@ -1703,7 +1757,8 @@ def main() -> None:
         if name in also:
             line["also_replaces"] = also[name]
         for extra in ("shapes", "int8", "kernel1_ms", "mma_ms", "serial_ms",
-                      "turns_ms", "affine_stats_ms"):
+                      "turns_ms", "affine_stats_ms", "gemm_route",
+                      "copy_ms"):
             if extra in res[name]:
                 line[extra] = res[name][extra]
         lines.append(line)

@@ -1,4 +1,4 @@
-// Tiled matrix product on the tensor cores for NVIDIA Hopper (sm_90a):
+// Matrix product on the tensor cores for NVIDIA Hopper (sm_90a):
 // C = A @ B for row-major A (M, K) and B (K, N), bf16 x bf16 -> float32 and
 // int8 x int8 -> int32.
 //
@@ -6,30 +6,49 @@
 // `kernel` of `main`: (512, K) x (K, 512) blocks, jnp.dot with f32 or int32
 // accumulation), which measured what int8 products deliver against bf16.
 //
-// What bounds it: at M = N = K = 4096 the tensor cores (137.4 GFLOP; bf16
-// 989 TFLOP/s, int8 1,979 TOP/s dense), far above the bytes (~100 MB).
+// What bounds it on this card: at M = N = K = 4096 the tensor cores (137.4
+// GOP; 0.139 ms at bf16's 989 TFLOP/s, 0.069 ms at int8's 1,979 TOP/s
+// dense), far above the bytes (~100 MB, 0.03 ms). Only wgmma reaches that
+// rate; mma.sync, fed by ldmatrix from tiles that every thread copies in,
+// spends the issue slots on addresses and copies.
 //
-// Design (simple and correct first; wgmma, TMA and warp specialisation are
-// later work): one block of 8 warps per 128 x 128 tile of C, a K loop over
-// 64-byte slices (32 bf16 or 64 int8 values) in a 3-stage shared-memory
-// ring.
-//  * A's slice (128 rows x 64 bytes) is copied with 16-byte cp.async, two
-//    slices ahead of the products; rows are 80 bytes apart, so the eight
-//    16-byte rows of an ldmatrix fall in distinct bank groups.
-//  * bf16 B's slice (32 rows of k x 128 n) is copied the same way and read
-//    with ldmatrix.trans, which hands mma.sync its k-major fragment.
-//  * int8 B has no transposing ldmatrix (it moves 16-bit elements): each
-//    thread loads 4 x 4-byte blocks (4 k x 4 n) into registers before the
-//    products of the current slice, transposes them with byte permutes and
-//    stores them n-major (80-byte rows) after, two slices ahead.
-//  * Warps form a 2 x 4 grid of 64 x 32 sub-tiles: 4 x 4 fragments of
-//    mma.sync.m16n8k16 (bf16, f32 accumulate) or m16n8k32 (s8, s32
-//    accumulate) per 32-byte k step; the accumulators are stored straight
-//    from registers.
-//  * Any M, N, K: edge slices are zero-filled (cp.async with a short source
-//    size). Rows that are not 16-byte aligned (K or N not a multiple of the
-//    16-byte unit, or a pointer off it) take a scalar, synchronous path.
+// Two routes, chosen by shape alone (mma_gemm_wgmma_ok):
+//  * wgmma (the main route): where TMA can describe the operands, that is
+//    16-byte-aligned pointers and row strides (bf16: K and N multiples of
+//    8; int8: K a multiple of 16, since B is repacked). Persistent blocks
+//    of three warpgroups, one per SM, walk the 128 x 256 tiles of C.
+//    Warpgroup 0 is the producer: one thread keeps a 4-stage ring of 48 KB
+//    stages full with TMA loads (cp.async.bulk.tensor into
+//    128-byte-swizzled tiles, completion on a full mbarrier per stage,
+//    reuse gated by an empty mbarrier), and gives its registers away
+//    (setmaxnreg). Warpgroups 1 and 2 each own 64 rows
+//    x 256 columns: per stage 4 wgmma.mma_async.m64n256 (k16 bf16, k32 s8)
+//    with A and B read by descriptor, one wgmma group left in flight while
+//    the previous stage is released. The accumulators (128 per thread) are
+//    stored from the registers, float32 or int32, while the producer
+//    already loads the next tile's stages. bf16 B is read as it is,
+//    (K, N) row-major, through the descriptor's transpose bit (MN-major);
+//    s8 operands must be K-major, so a small kernel first repacks B to
+//    (N, K) in a scratch tensor the wrapper allocates, and its time is part
+//    of every call. The tensor maps are encoded on the host with the
+//    driver's cuTensorMapEncodeTiled, fetched through the runtime
+//    (cudaGetDriverEntryPoint): no driver library is linked. TMA zero-fills
+//    the ragged edges of M, N and K; the epilogue masks its stores.
+//  * mma.sync (other shapes, and the control at any shape): one block of 8
+//    warps per 128 x 128 tile, a K loop over 64-byte slices in a 3-stage
+//    cp.async ring, ldmatrix(.trans) into mma.sync.m16n8k16 / m16n8k32;
+//    int8 B transposed in registers with byte permutes; scalar copies where
+//    rows are not 16-byte aligned.
+//
+// What still holds the wgmma route back (estimates from the shapes, not
+// profiled): every block reads its A and B stages from L2, 48 KB per k
+// step of its tile, about 12 TB/s across the card at the tensor cores'
+// peak; a cluster of two blocks sharing one operand by TMA multicast would
+// halve that. The epilogue's stores from the registers do not overlap the
+// same warpgroups' next products, and the int8 route also pays the repack
+// of B.
 
+#include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -353,16 +372,466 @@ static int launch_gemm(const GemmArgs& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Plain C entry point (bound with ctypes): c (M, N) = a (M, K) @ b (K, N),
-// all row-major and contiguous; int8 != 0: int8 inputs, int32 c; else bf16
-// inputs, float32 c. Returns a cudaError_t: the configuration check,
-// cudaFuncSetAttribute, or cudaGetLastError() after the launch. Launches on
-// `stream`; does not synchronise.
+// ===========================================================================
+// The wgmma route
+
+#define WG_BM 128
+#define WG_BN 256
+#define WG_BK_BYTES 128                  // k per stage: 64 bf16 or 128 s8
+#define WG_STAGES 4
+#define WG_THREADS 384                   // the producer and two consumers
+#define WG_A_BYTES (WG_BM * WG_BK_BYTES)     // 16 KB
+#define WG_B_BYTES (WG_BN * WG_BK_BYTES)     // 32 KB
+#define WG_STAGE_BYTES (WG_A_BYTES + WG_B_BYTES)
+// the stages, 1024-byte aligned for the 128-byte swizzle, then 2 x STAGES
+// mbarriers
+#define WG_SMEM (1024 + WG_STAGES * WG_STAGE_BYTES + 2 * WG_STAGES * 8)
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// the calling thread arrives (count 1 of the full barrier's one) and the
+// barrier then waits for `bytes` more of TMA copies
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// one TMA box (inner coordinate c0, outer c1) into shared memory, counted
+// on the mbarrier
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled tile at shared address
+// `addr` (the swizzle atom, 8 rows of 128 bytes, 1024-byte aligned): LBO
+// and SBO in bytes. K-major (A; s8 B): SBO 1024 from one 8-row group to
+// the next, LBO unused; a k step moves the start by its 32 bytes.
+// MN-major (bf16 B): SBO 1024 from 8 k rows to the next 8, LBO 8192 from
+// one 64-column box to the next; a k16 step moves the start 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(unsigned addr, unsigned lbo,
+                                               unsigned sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+#define WG_REGS                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "    \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "    \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "    \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "    \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "   \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "   \
+  "%127}"
+#define WG_D4(c, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])
+#define WG_D16(c, i) \
+  WG_D4(c, i), WG_D4(c, i + 4), WG_D4(c, i + 8), WG_D4(c, i + 12)
+#define WG_D128(c)                                                      \
+  WG_D16(c, 0), WG_D16(c, 16), WG_D16(c, 32), WG_D16(c, 48),            \
+      WG_D16(c, 64), WG_D16(c, 80), WG_D16(c, 96), WG_D16(c, 112)
+
+// d (64 x 256 of the warpgroup, 128 per thread) += A (64 x 16 k, K-major)
+// * B (16 k x 256, MN-major), both by descriptor
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_REGS
+      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : WG_D128("+f")
+      : "l"(da), "l"(db), "r"(1));
+}
+// d += A (64 x 32 k) * B (32 k x 256), both K-major, s8 -> s32
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " WG_REGS
+      ", %128, %129, p;\n}\n"
+      : WG_D128("+r")
+      : "l"(da), "l"(db), "r"(1));
+}
+
+struct WgArgs {
+  void* c;
+  int M, N, K;
+};
+
+// persistent blocks walk the 128 x 256 tiles of C (n tiles innermost),
+// tile t = blockIdx.x + i * gridDim.x; warpgroup 0 loads, warpgroups 1
+// and 2 compute rows 0-63 and 64-127 of each tile. The ring's stages and
+// phases run on across tiles, so the next tile's loads land while this
+// tile's accumulators are stored.
+template <bool INT8>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const WgArgs g) {
+  typedef typename Elem<INT8>::Acc Acc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + WG_STAGES * WG_STAGE_BYTES);
+  uint64_t* empty = full + WG_STAGES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tiles_n = (g.N + WG_BN - 1) / WG_BN;
+  const int tiles = tiles_n * ((g.M + WG_BM - 1) / WG_BM);
+  const int KT = (g.K * (INT8 ? 1 : 2) + WG_BK_BYTES - 1) / WG_BK_BYTES;
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);           // each consumer warp arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- the producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      int s = 0;
+      unsigned ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / tiles_n) * WG_BM, n0 = (t % tiles_n) * WG_BN;
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(&empty[s], ph ^ 1);  // the stage's last use released
+          unsigned char* st = smem + s * WG_STAGE_BYTES;
+          mbar_expect(&full[s], WG_STAGE_BYTES);
+          const int k0 = kt * (INT8 ? WG_BK_BYTES : WG_BK_BYTES / 2);
+          tma_load(st, &map_a, k0, m0, &full[s]);
+          if constexpr (INT8) {
+            tma_load(st + WG_A_BYTES, &map_b, k0, n0, &full[s]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < WG_BN / 64; ++i)   // four 64-column boxes
+              tma_load(st + WG_A_BYTES + i * 8192, &map_b, n0 + 64 * i, k0,
+                       &full[s]);
+          }
+          if (++s == WG_STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- the consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp / 4 - 1;         // 64-row half of the tile
+    const unsigned base = smem_u32(smem);
+    Acc* c = static_cast<Acc*>(g.c);
+    const bool pairs = g.N % 2 == 0;
+    int s = 0;
+    unsigned ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / tiles_n) * WG_BM, n0 = (t % tiles_n) * WG_BN;
+      Acc d[128];
+#pragma unroll
+      for (int i = 0; i < 128; ++i) d[i] = 0;
+      int prev = 0;
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(&full[s], ph);
+        const unsigned st = base + s * WG_STAGE_BYTES;
+        const uint64_t da = desc_sw128(st + wg * (64 * 128), 16, 1024);
+        wgmma_fence();
+        if constexpr (INT8) {
+          const uint64_t db = desc_sw128(st + WG_A_BYTES, 16, 1024);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)    // k32 steps of 32 bytes
+            wgmma_s8(d, da + 2 * k, db + 2 * k);
+        } else {
+          const uint64_t db = desc_sw128(st + WG_A_BYTES, 8192, 1024);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)    // k16 steps: 32 bytes of A, 16
+            wgmma_bf16(d, da + 2 * k, db + 128 * k);   // rows of B
+        }
+        wgmma_commit();
+        // this stage's products stay in flight; the previous stage's are
+        // done once at most one group is pending, and its stage is
+        // released
+        wgmma_wait<1>();
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == WG_STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+
+      // ---- store from the registers: per 8 columns j, rows r and r + 8,
+      // columns 2 * (lane % 4) + 0, 1
+      const int r = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = r + 8 * h;
+          const int n = n0 + 8 * j + 2 * (lane % 4);
+          if (m >= g.M || n >= g.N) continue;
+          Acc* dst = c + (size_t)m * g.N + n;
+          const Acc v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+          if (pairs) {
+            if constexpr (INT8)
+              *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
+            else
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            dst[0] = v0;
+            if (n + 1 < g.N) dst[1] = v1;
+          }
+        }
+    }
+  }
+}
+
+// s8 B (K, N) -> bt (N, K), 64 x 64 tiles through shared memory: a row
+// of B in 16-byte loads where N and b allow (vec 16), else 4-byte (vec 4)
+// or single bytes; K is a multiple of 16, so each 16-byte unit of a bt row
+// is whole
+#define TP 64
+__global__ void __launch_bounds__(256)
+repack_i8_kernel(const int8_t* __restrict__ b, int8_t* __restrict__ bt,
+                 int K, int N, int vec) {
+  __shared__ __align__(16) unsigned char tile[TP][TP + 4];   // [k][n]
+  const int k0 = blockIdx.y * TP, n0 = blockIdx.x * TP, tid = threadIdx.x;
+  {
+    const int rk = tid / 4, cn = (tid % 4) * 16;   // 16 bytes of a row
+    const int k = k0 + rk, n = n0 + cn;
+    unsigned w[4] = {0u, 0u, 0u, 0u};
+    if (k < K) {
+      const int8_t* src = b + (size_t)k * N + n;
+      if (vec == 16 && n + 15 < N) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+        w[0] = v.x;
+        w[1] = v.y;
+        w[2] = v.z;
+        w[3] = v.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (vec == 4 && n + 4 * q + 3 < N) {
+            w[q] = __ldg(reinterpret_cast<const unsigned*>(src + 4 * q));
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (n + 4 * q + e < N)
+                w[q] |= (unsigned)(uint8_t)src[4 * q + e] << (8 * e);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<unsigned*>(&tile[rk][cn + 4 * q]) = w[q];
+  }
+  __syncthreads();
+  const int rn = tid / 4, ck = (tid % 4) * 16;
+  const int n = n0 + rn, k = k0 + ck;
+  if (n < N && k < K) {
+    unsigned w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      w[q] = (unsigned)tile[ck + 4 * q][rn] |
+             (unsigned)tile[ck + 4 * q + 1][rn] << 8 |
+             (unsigned)tile[ck + 4 * q + 2][rn] << 16 |
+             (unsigned)tile[ck + 4 * q + 3][rn] << 24;
+    *reinterpret_cast<uint4*>(bt + (size_t)n * K + k) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+static int launch_repack(const void* b, void* bt, int K, int N,
+                         cudaStream_t stream) {
+  const uintptr_t pb = (uintptr_t)b;
+  const int vec = pb % 16 == 0 && N % 16 == 0 ? 16
+                  : pb % 4 == 0 && N % 4 == 0 ? 4
+                                              : 1;
+  const long long gy = (K + TP - 1) / TP;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + TP - 1) / TP, (unsigned)gy);
+  repack_i8_kernel<<<grid, 256, 0, stream>>>(
+      static_cast<const int8_t*>(b), static_cast<int8_t*>(bt), K, N, vec);
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a 2D row-major tensor (outer rows of `inner` elements, `row_bytes`
+// apart) read in boxes of box_inner x box_outer, 128-byte swizzle, zero
+// fill outside
+static int tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* ptr, int inner, int outer,
+                      uint64_t row_bytes, int box_inner, int box_outer) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <bool INT8>
+static int launch_wgmma(const void* a, const void* b, void* c, int M, int N,
+                        int K, cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  int err;
+  if constexpr (INT8) {
+    err = tensor_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, K, M, K, 128,
+                     WG_BM);
+    if (!err)   // b is the repacked (N, K)
+      err = tensor_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, K, N, K,
+                       128, WG_BN);
+  } else {
+    err = tensor_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, K, M,
+                     2ull * K, 64, WG_BM);
+    if (!err)   // b as it is, (K, N): 64 columns by 64 k rows per box
+      err = tensor_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, N, K,
+                       2ull * N, 64, 64);
+  }
+  if (err) return err;
+  auto kernel = wgmma_gemm_kernel<INT8>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  WgArgs g;
+  g.c = c;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  const long long tiles =
+      (long long)((M + WG_BM - 1) / WG_BM) * ((N + WG_BN - 1) / WG_BN);
+  int sms = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = (int)(tiles < sms ? tiles : (sms > 0 ? sms : 1));
+  kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(map_a, map_b, g);
+  return (int)cudaGetLastError();
+}
+
+// ===========================================================================
+// Plain C entry points (bound with ctypes)
+
+// 1 where the wgmma route takes the shape: TMA needs 16-byte-aligned base
+// pointers and row strides (bf16: K and N multiples of 8; int8: K a
+// multiple of 16, B being repacked to (N, K))
+extern "C" int mma_gemm_wgmma_ok(const void* a, const void* b,
+                                 const void* c, int M, int N, int K,
+                                 int int8) {
+  if (M < 1 || N < 1 || K < 1) return 0;
+  const bool aligned = (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
+                       (uintptr_t)c % 16 == 0;
+  if (!aligned) return 0;
+  return int8 ? K % 16 == 0 : K % 8 == 0 && N % 8 == 0;
+}
+
+// int8 B (K, N) -> bt (N, K), the wgmma route's repack (K a multiple of
+// 16, bt 16-byte aligned)
+extern "C" int mma_gemm_repack_launch(const void* b, void* bt, int K, int N,
+                                      void* stream) {
+  if (K < 1 || N < 1 || K % 16 || b == nullptr || bt == nullptr ||
+      (uintptr_t)bt % 16)
+    return (int)cudaErrorInvalidValue;
+  return launch_repack(b, bt, K, N, static_cast<cudaStream_t>(stream));
+}
+
+// c (M, N) = a (M, K) @ b (K, N), all row-major and contiguous; int8 != 0:
+// int8 inputs, int32 c; else bf16 inputs, float32 c. wgmma != 0: the wgmma
+// route, which refuses a shape mma_gemm_wgmma_ok does not take; for int8
+// it needs `scratch`, N * K bytes, for the repacked B. wgmma == 0: the
+// mma.sync kernel at any shape. Returns a cudaError_t: the configuration
+// check, the tensor maps, cudaFuncSetAttribute, or cudaGetLastError()
+// after each launch. Launches on `stream`; does not synchronise.
 extern "C" int mma_gemm_launch(const void* a, const void* b, void* c, int M,
-                               int N, int K, int int8, void* stream) {
+                               int N, int K, int int8, int wgmma,
+                               void* scratch, void* stream) {
   if (M < 1 || N < 1 || K < 1 || a == nullptr || b == nullptr ||
       c == nullptr)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma) {
+    if (!mma_gemm_wgmma_ok(a, b, c, M, N, K, int8))
+      return (int)cudaErrorInvalidValue;
+    if (!int8) return launch_wgmma<false>(a, b, c, M, N, K, s);
+    if (scratch == nullptr || (uintptr_t)scratch % 16)
+      return (int)cudaErrorInvalidValue;
+    const int err = launch_repack(b, scratch, K, N, s);
+    if (err) return err;
+    return launch_wgmma<true>(a, scratch, c, M, N, K, s);
+  }
   GemmArgs g;
   g.a = a;
   g.b = b;
@@ -371,7 +840,6 @@ extern "C" int mma_gemm_launch(const void* a, const void* b, void* c, int M,
   g.N = N;
   g.K = K;
   const uintptr_t pa = (uintptr_t)a, pb = (uintptr_t)b;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (int8) {
     g.vec_a = pa % 16 == 0 && K % 16 == 0;
     g.vec_b = pb % 4 == 0 && N % 4 == 0;

@@ -38,8 +38,23 @@
 //    through shared memory and leave in 16-byte stores.
 //  * downlink: one thread per output voxel and 8 channels (16-byte loads of
 //    every window position), or per channel where rows are not aligned.
-//  * downlink_bwd: one thread per output voxel and channel, each keeping
-//    one channel's g(mult), g(off) sums; scalar loads (simple first).
+//  * downlink_bwd (redesigned for this card): bound by its bytes, which the
+//    first design moved as 2-byte requests (one thread per output voxel
+//    and channel, 8 scalar loads and stores, a per-thread address array,
+//    one statistics atomic pair per thread). Now one thread per output
+//    voxel and 8-channel unit of a 2 x 2 x 2 window: 8 x 16-byte loads of
+//    x, one of gy and 8 x 16-byte stores of gx, lanes of a warp on
+//    consecutive units and voxels so a request covers whole 32-byte
+//    sectors; the float32 chain per element in registers, in the first
+//    design's order and rounding (gx equal to the bit); g(mult), g(off)
+//    summed in registers over the voxels a thread visits (its unit fixed),
+//    added by channel in shared memory, one atomic pair per channel and
+//    block. Other windows, C % 8 != 0 or unaligned rows keep the scalar
+//    kernel (chosen by shape). What still holds it back: it reaches about
+//    80 % of a plain copy of x (the same bytes) on this card; each thread
+//    runs its ~500-instruction chain between its loads and its stores,
+//    with 8 warps per SM (159 registers), and neither more warps (128
+//    registers) nor the next voxel's loads in flight measured faster.
 //  * seghead: blocks of 256 voxels; the normalised tile is staged in shared
 //    memory (16-byte loads), then one thread per voxel computes its K
 //    logits on the CUDA cores from shared-memory weights (transposed, four
@@ -489,6 +504,130 @@ downlink_bwd_kernel(const DownBwdParams p) {
   atomicAdd(&p.gaff[((size_t)n * p.C + c) * 2 + 1], so);
 }
 
+// ---- the 16-byte route: one thread per (output voxel, 8-channel unit) of
+// a 2 x 2 x 2 window. Thread t keeps unit t % U (U = C / 8) over the voxels
+// v0 + t / U + k * (threads / U) of its block's range, so its g(mult),
+// g(off) sums are 8 channels' in registers; the block adds them by channel
+// in shared memory and issues one atomic pair per channel. Each voxel
+// reads its 8 window positions and gy as 16-byte units and writes gx the
+// same way; addresses come from one base and the constant strides, the
+// window in the reference's order (a * 2 + b) * 2 + c. The float32 steps
+// are the scalar kernel's, in the same order, so gx is equal to the bit.
+#define DBV_THREADS 256
+
+// 16-byte load through the read-only path and 16-byte store (streaming
+// hints, L1::no_allocate loads and .cs stores, measured slower)
+__device__ __forceinline__ uint4 ld16(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ void st16(bf16* p, unsigned w0, unsigned w1,
+                                     unsigned w2, unsigned w3) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(w0, w1, w2, w3);
+}
+// element e (0-7) of 8 packed bf16 as float
+__device__ __forceinline__ float bf16_at(const uint4& v, int e) {
+  const unsigned w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
+  return __uint_as_float(e % 2 ? w & 0xFFFF0000u : w << 16);
+}
+__device__ __forceinline__ unsigned bf16_bits(float f) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(f));
+}
+
+__global__ void __launch_bounds__(DBV_THREADS, 1)
+downlink_bwd_vec_kernel(const DownBwdParams p) {
+  __shared__ float s_part[DBV_THREADS][17];   // 8 g(mult), 8 g(off), pad
+  const int tid = threadIdx.x;
+  const int n = blockIdx.y;
+  const int U = p.C / 8;
+  const int vpi = DBV_THREADS / U;            // voxels per iteration
+  const int u = tid % U, c0 = 8 * u;
+  float m[8], o[8], sm[8], so[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    m[e] = p.mult[(size_t)n * p.C + c0 + e];
+    o[e] = p.off[(size_t)n * p.C + c0 + e];
+    sm[e] = 0.0f;
+    so[e] = 0.0f;
+  }
+  const int nvox = p.Do * p.Ho * p.Wo;
+  const int v0 = blockIdx.x * p.vox_per_block;
+  const int v1 = min(v0 + p.vox_per_block, nvox);
+  const size_t sW = p.C, sH = (size_t)p.W * p.C, sD = (size_t)p.H * sH;
+  const int v_first = tid < vpi * U ? v0 + tid / U : v1;
+  for (int v = v_first; v < v1; v += vpi) {
+    const int wo = v % p.Wo, ho = (v / p.Wo) % p.Ho, dout = v / (p.Wo * p.Ho);
+    const size_t base =
+        ((((size_t)n * p.D + 2 * dout) * p.H + 2 * ho) * p.W + 2 * wo) *
+            p.C + c0;
+    const bf16* xb = p.x + base;
+    uint4 raw[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      raw[k] = ld16(xb + (k / 4) * sD + ((k / 2) % 2) * sH + (k % 2) * sW);
+    const uint4 gyv = ld16(
+        p.gy + ((((size_t)n * p.Do + dout) * p.Ho + ho) * p.Wo + wo) * p.C +
+        c0);
+    unsigned out[8][4];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) out[k][q] = 0u;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool use_max = m[e] > 0.0f;
+      float xs[8], run[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        xs[k] = bf16_at(raw[k], e);
+        run[k] = k == 0 ? xs[0]
+                        : (use_max ? fmaxf(run[k - 1], xs[k])
+                                   : fminf(run[k - 1], xs[k]));
+      }
+      const float pick = run[7];
+      const float a = __fadd_rn(__fmul_rn(pick, m[e]), o[e]);
+      float ga = bf16_at(gyv, e);
+      if (!(a >= 0.0f)) ga = __fmul_rn(ga, 0.01f);
+      sm[e] += ga * pick;
+      so[e] += ga;
+      float g = __fmul_rn(ga, m[e]);
+#pragma unroll
+      for (int j = 7; j >= 1; --j) {
+        const float prev = run[j - 1];
+        const bool beats = use_max ? xs[j] > prev : xs[j] < prev;
+        const float w = beats ? 1.0f : (xs[j] == prev ? 0.5f : 0.0f);
+        out[j][e / 2] |= bf16_bits(g * w) << (16 * (e % 2));
+        g = g * (1.0f - w);
+      }
+      out[0][e / 2] |= bf16_bits(g) << (16 * (e % 2));
+    }
+    bf16* gb = p.gx + base;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      st16(gb + (k / 4) * sD + ((k / 2) % 2) * sH + (k % 2) * sW,
+              out[k][0], out[k][1], out[k][2], out[k][3]);
+  }
+  // ---- the block's sums by channel, one atomic pair per channel
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    s_part[tid][e] = sm[e];
+    s_part[tid][8 + e] = so[e];
+  }
+  __syncthreads();
+  for (int ch = tid; ch < p.C; ch += DBV_THREADS) {
+    const int uu = ch / 8, e = ch % 8;
+    float gm = 0.0f, go = 0.0f;
+    for (int j = 0; j < vpi; ++j) {
+      gm += s_part[j * U + uu][e];
+      go += s_part[j * U + uu][8 + e];
+    }
+    atomicAdd(&p.gaff[((size_t)n * p.C + ch) * 2], gm);
+    atomicAdd(&p.gaff[((size_t)n * p.C + ch) * 2 + 1], go);
+  }
+}
+
+// The route is chosen by shape: the 16-byte kernel where C is a multiple
+// of 8, x, gy and gx are 16-byte aligned and the window is 2 x 2 x 2; the
+// scalar kernel otherwise.
 extern "C" int downlink_bwd_launch(const void* x, const void* gy,
                                    const void* mult, const void* off,
                                    void* gx, void* gaff, int N, int D, int H,
@@ -508,13 +647,23 @@ extern "C" int downlink_bwd_launch(const void* x, const void* gy,
   p.wd = wd; p.wh = wh; p.ww = ww;
   p.Do = D / wd; p.Ho = H / wh; p.Wo = W / ww;
   const long long nvox = (long long)p.Do * p.Ho * p.Wo;
-  const long long per_n = (8LL * num_sms() + N - 1) / N;
+  if (nvox > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = C % 8 == 0 && wd == 2 && wh == 2 && ww == 2 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(gy) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(gx) % 16 == 0;
+  // blocks per sample: 4 (16-byte route, one block per SM; 2-32 measured
+  // within 1 % of each other) or 8 per SM's worth across the samples
+  const long long per_n = ((vec ? 4LL : 8LL) * num_sms() + N - 1) / N;
   long long vpb = (nvox + per_n - 1) / per_n;
   if (vpb < 1) vpb = 1;
   p.vox_per_block = (int)vpb;
   dim3 grid((unsigned)((nvox + vpb - 1) / vpb), (unsigned)N);
-  downlink_bwd_kernel<<<grid, NTHREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+  if (vec)
+    downlink_bwd_vec_kernel<<<grid, DBV_THREADS, 0, s>>>(p);
+  else
+    downlink_bwd_kernel<<<grid, NTHREADS, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,13 @@ experiments/exp_int8_mxu.py.
     mma_gemm(a, b)   a (M, K) @ b (K, N), row-major: bf16 x bf16 -> float32,
                      int8 x int8 -> int32
 
-On CUDA tensors csrc/mma_gemm.cu (mma.sync bf16 and s8); on CPU tensors the
-plain version: a.float() @ b.float() for bf16, and for int8 the product in
-float64, exact while |sum| <= K * 128^2 < 2^53, cast to int32.
+On CUDA tensors csrc/mma_gemm.cu, by shape: wgmma fed by TMA where TMA can
+describe the operands (16-byte-aligned pointers; bf16 K and N multiples of
+8, int8 K a multiple of 16), else mma.sync; `wgmma=False` takes mma.sync
+at any shape (the control). Each route counts its launches in
+`mma_gemm.routes`. On CPU tensors the plain version: a.float() @ b.float()
+for bf16, and for int8 the product in float64, exact while
+|sum| <= K * 128^2 < 2^53, cast to int32.
 
     python -m e2enet_tpu_torch.experiments.exp_int8_mma [--reps N]
 
@@ -44,8 +48,11 @@ def mma_gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def mma_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b by the tensor-core kernel (CUDA) or the plain version (CPU)."""
+def mma_gemm(a: torch.Tensor, b: torch.Tensor,
+             wgmma: bool = True) -> torch.Tensor:
+    """a @ b by the tensor-core kernel (CUDA) or the plain version (CPU).
+    On the card the route follows the shape (wgmma where TMA takes it);
+    wgmma=False runs the mma.sync kernel (the control)."""
     _check(a, b)
     if a.device.type == "cpu":
         return mma_gemm_ref(a, b)
@@ -53,12 +60,16 @@ def mma_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     from ..ops import _native
     out = torch.int32 if a.dtype == torch.int8 else torch.float32
     c = torch.empty((a.shape[0], b.shape[1]), dtype=out, device=dev)
-    _native.launch_mma_gemm(a.contiguous(), b.contiguous(), c)
+    a, b = a.contiguous(), b.contiguous()
+    wg = wgmma and _native.mma_gemm_wgmma_ok(a, b, c)
+    _native.launch_mma_gemm(a, b, c, wg)
     mma_gemm.launches += 1
+    mma_gemm.routes["wgmma" if wg else "mma_sync"] += 1
     return c
 
 
 mma_gemm.launches = 0
+mma_gemm.routes = {"wgmma": 0, "mma_sync": 0}
 
 
 def main(argv=None) -> None:

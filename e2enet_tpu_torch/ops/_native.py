@@ -84,8 +84,12 @@ SIGNATURES = {
         # stream
         "cf_fused_launch": [vp] * 7 + [PI, i32] + [i32] * 6 + [vp]},
     "mma_gemm": {
-        # a, b, c, M, N, K, int8, stream
-        "mma_gemm_launch": [vp] * 3 + [i32] * 4 + [vp]},
+        # a, b, c, M, N, K, int8, wgmma, the repacked-B scratch, stream
+        "mma_gemm_launch": [vp] * 3 + [i32] * 5 + [vp] * 2,
+        # a, b, c, M, N, K, int8
+        "mma_gemm_wgmma_ok": [vp] * 3 + [i32] * 4,
+        # b, bt, K, N, stream
+        "mma_gemm_repack_launch": [vp] * 2 + [i32] * 2 + [vp]},
 }
 
 
@@ -414,14 +418,42 @@ def launch_cf_fused(x, w2, b, mult, off, y, stats, groups, H, W) -> None:
     _check(err, f"cf_fused (N={N} D={D} H={H} W={W} C={C} CO={CO})")
 
 
-def launch_mma_gemm(a, b, c) -> None:
+def mma_gemm_wgmma_ok(a, b, c) -> bool:
+    """Whether csrc/mma_gemm.cu's wgmma route takes c = a @ b: TMA needs
+    16-byte-aligned pointers and row strides (bf16: K and N multiples of 8;
+    int8: K a multiple of 16). The rule lives in the library."""
+    M, K = (int(s) for s in a.shape)
+    N = int(b.shape[1])
+    return bool(library("mma_gemm").mma_gemm_wgmma_ok(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
+        int(a.dtype == torch.int8)))
+
+
+def launch_mma_gemm(a, b, c, wgmma: bool) -> None:
     """Launch csrc/mma_gemm.cu: c (M, N) = a (M, K) @ b (K, N), all
     contiguous; bf16 inputs and a float32 c, or int8 inputs and an int32
-    c."""
+    c. wgmma: the wgmma route, for shapes mma_gemm_wgmma_ok takes (int8
+    first repacks b to (N, K) into a scratch tensor allocated here); else
+    the mma.sync kernel. Raises on a refused launch."""
     fn = library("mma_gemm").mma_gemm_launch
     M, K = (int(s) for s in a.shape)
     N = int(b.shape[1])
+    int8 = a.dtype == torch.int8
+    scratch = (torch.empty((N, K), dtype=torch.int8, device=c.device)
+               if wgmma and int8 else None)
     with torch.cuda.device(c.device):
         err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
-                 int(a.dtype == torch.int8), _stream(c))
-    _check(err, f"mma_gemm (M={M} N={N} K={K} {a.dtype})")
+                 int(int8), int(wgmma),
+                 None if scratch is None else scratch.data_ptr(), _stream(c))
+    route = "wgmma" if wgmma else "mma.sync"
+    _check(err, f"mma_gemm {route} (M={M} N={N} K={K} {a.dtype})")
+
+
+def launch_mma_gemm_repack(b, bt) -> None:
+    """Launch the wgmma route's int8 repack alone: b (K, N) contiguous int8
+    -> bt (N, K), K a multiple of 16."""
+    fn = library("mma_gemm").mma_gemm_repack_launch
+    K, N = (int(s) for s in b.shape)
+    with torch.cuda.device(bt.device):
+        err = fn(b.data_ptr(), bt.data_ptr(), K, N, _stream(bt))
+    _check(err, f"mma_gemm repack (K={K} N={N})")

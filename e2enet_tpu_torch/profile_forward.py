@@ -37,8 +37,9 @@ PORT_KERNELS = ("fused_chunked_kernel", "pack_weights_kernel",
                 "uplink_kernel", "downlink_kernel", "seghead_kernel",
                 # the block backward (csrc/fused_block_bwd.cu: the dgrad
                 # with the shift's adjoint, the wgrad with geff and gb) and
-                # the down-link backward
-                "dgrad_kernel", "wgrad_kernel", "downlink_bwd_kernel")
+                # the down-link backward (16-byte and scalar routes)
+                "dgrad_kernel", "wgrad_kernel", "downlink_bwd_vec_kernel",
+                "downlink_bwd_kernel")
 GROUPS = (("copy / layout", ("copy", "cat", "flip", "permute", "transpose")),
           ("reduction", ("reduce", "sum", "amax", "amin", "max", "norm")),
           ("conv / gemm", ("conv", "gemm", "cutlass", "sm90", "xmma", "cudnn",

@@ -7,15 +7,16 @@ than one K chunk, no read of the up weights past cin, its taps on mma.sync
 as the control), the strided transition (ragged and all mirrors, N = 2
 with a block's tiles straddling the samples), the
 up-link, the down-link and the seg head; the block backward and the
-down-link backward (main-path, ragged and N = 2 shapes, ties), and a
-small train step's launches; the block backward's parts wanted or not and
+down-link backward (main-path, ragged and N = 2 shapes, ties, C = 96; its
+16-byte and scalar routes by kernel name), and a small train step's
+launches; the block backward's parts wanted or not and
 its two device kernels per call; the experiment kernels (#11 the ring shift +
 conv and the ring shift with its backward, #12 the relayout probe and the
 channels-first block with and without affine and statistics, #13 the
 pipelined block against #1, #1's mma.sync control and its own control,
-#14 the bf16 and int8
-products). Imports no jax (the machine with the card has none); run there
-with
+#14 the bf16 and int8 products on the route each shape takes, counted per
+route, beside the mma.sync control, and the int8 repack of B). Imports no
+jax (the machine with the card has none); run there with
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
@@ -688,6 +689,9 @@ DOWN_BWD = {
     "ties": (2, 6, 8, 32, 48, (2, 2, 2), True),
     "ragged": (2, 7, 6, 26, 8, (2, 2, 2), True),
     "c5": (1, 4, 4, 6, 5, (2, 2, 2), False),
+    # 16-byte units: aligned rows with exact ties, and twelve units
+    "ties_aligned": (2, 16, 32, 64, 48, (2, 2, 2), True),
+    "c96": (2, 8, 16, 32, 96, (2, 2, 2), False),
 }
 
 
@@ -716,6 +720,26 @@ def test_downlink_bwd_matches_plain(case):
     assert qlink.downlink_bwd.launches == before + 1
     assert gx.dtype == torch.bfloat16 and torch.equal(gx, rx)
     assert _close_max(gm, rm, 1e-4) and _close_max(go, ro, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,kernel", [(48, "downlink_bwd_vec_kernel"),
+                                      (8, "downlink_bwd_vec_kernel"),
+                                      (12, "downlink_bwd_kernel"),
+                                      (5, "downlink_bwd_kernel")])
+def test_downlink_bwd_route(C, kernel):
+    """Kernel #8's route follows the shape: 16-byte units where C is a
+    multiple of 8 (aligned rows, a 2 x 2 x 2 window), scalar otherwise."""
+    from e2enet_tpu_torch.ops import qlink
+    dev = _card()
+    rng = np.random.RandomState(C)
+    x = _rand(rng, dev, 1, 4, 4, 8, C).bfloat16()
+    m, o = _rand(rng, dev, 1, C), _rand(rng, dev, 1, C)
+    gy = _rand(rng, dev, 1, 2, 2, 4, C).bfloat16()
+    qlink.downlink_bwd(x, m, o, gy)                 # builds, warms up
+    names = _device_kernels(lambda: qlink.downlink_bwd(x, m, o, gy))
+    kinds = [n.split("(")[0].split()[-1] for n in names]
+    assert kernel in kinds and len([k for k in kinds if "downlink" in k]) == 1
 
 
 @pytest.mark.cuda
@@ -868,11 +892,23 @@ def test_pipelined_block_matches_kernel1(case):
                                atol=1e-4 * float(s1.abs().max()))
 
 
+def _gemm_route(M, N, K, dtype):
+    """The route #14 takes by shape (contiguous, aligned operands)."""
+    if dtype == torch.int8:
+        return "wgmma" if K % 16 == 0 else "mma_sync"
+    return "wgmma" if K % 8 == 0 and N % 8 == 0 else "mma_sync"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mnk", [(256, 128, 64), (200, 136, 272),
-                                 (33, 50, 100), (7, 9, 3)])
+                                 (33, 50, 100), (7, 9, 3), (512, 1024, 768),
+                                 (300, 264, 208)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
 def test_mma_gemm_matches_plain(mnk, dtype):
+    """#14 against its plain version on the route its shape takes (wgmma
+    fed by TMA where TMA describes the operands, counted per route), and
+    its mma.sync control: int8 equal to the bit, bf16 within 1e-3 of the
+    largest |value| (float32 sums in another order)."""
     dev = _card()
     M, N, K = mnk
     gen = torch.Generator(device=dev).manual_seed(M + N + K)
@@ -885,15 +921,41 @@ def test_mma_gemm_matches_plain(mnk, dtype):
         a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
         b = torch.randn((K, N), generator=gen, device=dev).to(dtype)
     before = tim.mma_gemm.launches
+    routes = dict(tim.mma_gemm.routes)
+    route = _gemm_route(M, N, K, dtype)
     c = tim.mma_gemm(a, b)
     ref = tim.mma_gemm_ref(a, b)
     torch.cuda.synchronize()
     assert tim.mma_gemm.launches == before + 1
-    if dtype == torch.int8:
-        assert c.dtype == torch.int32 and torch.equal(c, ref)
-    else:
-        assert c.dtype == torch.float32
-        assert float((c - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    assert tim.mma_gemm.routes[route] == routes[route] + 1
+    c_ctl = tim.mma_gemm(a, b, wgmma=False)
+    torch.cuda.synchronize()
+    assert tim.mma_gemm.routes["mma_sync"] == routes["mma_sync"] + 1 + (
+        route == "mma_sync")
+    for out in (c, c_ctl):
+        if dtype == torch.int8:
+            assert out.dtype == torch.int32 and torch.equal(out, ref)
+        else:
+            assert out.dtype == torch.float32
+            assert float((out - ref).abs().max()) <= 1e-3 * float(
+                ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kn", [(64, 64), (208, 264), (4096, 4096),
+                                (32, 9)])
+def test_mma_gemm_repack(kn):
+    """The wgmma route's int8 repack alone: b (K, N) -> its transpose."""
+    from e2enet_tpu_torch.ops import _native
+    dev = _card()
+    K, N = kn
+    gen = torch.Generator(device=dev).manual_seed(K + N)
+    b = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    bt = torch.empty((N, K), dtype=torch.int8, device=dev)
+    _native.launch_mma_gemm_repack(b, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(bt, b.t().contiguous())
 
 
 @pytest.mark.cuda

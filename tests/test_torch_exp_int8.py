@@ -20,7 +20,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from e2enet_tpu_torch.experiments import exp_int8_mma as tim  # noqa: E402
 
-SHAPES = [(64, 48, 32), (33, 50, 100), (7, 9, 3), (1, 1, 1), (130, 129, 65)]
+# (128, 256, 64): one tile of the card's wgmma route, which TMA describes
+SHAPES = [(64, 48, 32), (33, 50, 100), (7, 9, 3), (1, 1, 1), (130, 129, 65),
+          (128, 256, 64)]
 
 
 @pytest.mark.parametrize("M,N,K", SHAPES)
