@@ -2,6 +2,9 @@
 """Run the e2enet_tpu_torch port once on one CUDA card and check it.
 
     python3 chip_smoke.py          # from the root of the repository
+    python3 chip_smoke.py --host-ms
+                                   # only the host's time per call of the
+                                   # up-link and the seg head (see host_only)
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -18,7 +21,13 @@ Phases (any failure ends the run with a non-zero exit):
               its wgmma loop) and the host's time per call (host_ms); the
               strided transition also at N = 2 with a block's
               tiles straddling the samples, its bound counting the bytes a
-              strided pass reads (half of x). Per call: kernel ms, plain ms,
+              strided pass reads (half of x). The up-link and the seg head
+              on the route each shape must take (checked by their route
+              counters: the bulk route at the bench's shapes, the first
+              design where only it fits), with the host's time per call
+              (host_ms): the up-link also at N = 2 mirrored, the seg head
+              also at 2 x 64^3 x 96 (logits), with tiles straddling two
+              samples and a ragged last tile. Per call: kernel ms, plain ms,
               the bound (bytes or operations over the card's peak) and the
               share of it reached, and the time of one PyTorch call
               computing the core op, for context; for the lazy block also
@@ -65,8 +74,9 @@ Phases (any failure ends the run with a non-zero exit):
               then the row-masked DSFF trainer of
               training/train_bench_masks.py at the bench width (batch 2 of
               128^3, 16 classes, density 0.2, seed 0): 8 steps on one
-              synthetic batch with a mask update after steps 4 and 8. Per
-              step: launches equal kernel_launches_per_train_step, a finite
+              synthetic batch with a mask update after steps 4 and 8 (over
+              the serving and train phases every up-link and seg-head call
+              on the bulk route). Per step: launches equal kernel_launches_per_train_step, a finite
               loss, dead rows zero in the parameters and the momentum; the
               row counts hold over each update; the loss falls; ms per step
               (CUDA events) and the peak memory. On a 2 x 64^3 batch, one
@@ -490,34 +500,47 @@ def strided_case(name, N, D, H, W, C, CO, rnd, reps, flips=(False,) * 3):
     return res
 
 
-def uplink_case(name, N, D, H, W, C, cout, rnd, reps):
-    """Kernel #6 vs plain."""
+def uplink_case(name, N, D, H, W, C, cout, rnd, reps, flips=(False,) * 3,
+                route="bulk"):
+    """Kernel #6 vs plain, on the route its shape must take (checked by the
+    route counter); with reps, also the host's time per call (host_ms)."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.ops import qlink
     x = rnd(N, D, H, W, C).to(torch.bfloat16)
     m, o = rnd.affine(N, C)
     k = rnd(C, cout, 2, 2, 2, scale=(1.0 / C) ** 0.5)
-    y_k = qlink.uplink(x, m, o, k)
-    y_p = qlink.uplink_ref(x, m, o, k)
+    before = dict(qlink.uplink.routes)
+    y_k = qlink.uplink(x, m, o, k, flips)
+    check(qlink.uplink.routes[route] == before[route] + 1,
+          f"{name}: not on the {route} route ({before} -> "
+          f"{qlink.uplink.routes})")
+    y_p = qlink.uplink_ref(x, m, o, k, flips)
     torch.cuda.synchronize()
     check(y_k.shape == y_p.shape, f"{name}: shape {tuple(y_k.shape)}")
     ok, err = y_err(y_k, y_p, Y_ULPS)
     check(ok, f"{name}: y differs by more than {Y_ULPS} bf16 ulps")
     if reps == 0:
-        return dict(max_abs_err=err)
+        print(f"  {name} N={N} D={D} H={H} W={W} Cin={C} Cout={cout} "
+              f"flips={list(flips)}: route {route}, max abs err {err:.3e}",
+              flush=True)
+        return dict(max_abs_err=err, kernel_route=route)
     # the library's transposed conv of the normalised input, channels-last
     x3 = x.permute(0, 4, 1, 2, 3)
     k3 = k.to(torch.bfloat16)
     b_ms, b_by = bound(nbytes(x, y_k) + C * 8 * cout * 2,
                        2.0 * N * D * H * W * C * 8 * cout, PEAK_BF16)
-    res = dict(max_abs_err=err,
-               ms=cuda_ms(lambda: qlink.uplink(x, m, o, k), reps),
-               plain_ms=cuda_ms(lambda: qlink.uplink_ref(x, m, o, k), reps),
+    res = dict(max_abs_err=err, kernel_route=route,
+               ms=cuda_ms(lambda: qlink.uplink(x, m, o, k, flips), reps),
+               host_ms=host_ms(lambda: qlink.uplink(x, m, o, k, flips)),
+               plain_ms=cuda_ms(lambda: qlink.uplink_ref(x, m, o, k, flips),
+                                reps),
                library_ms=cuda_ms(lambda: F.conv_transpose3d(x3, k3,
                                                              stride=2), reps),
                bound_ms=b_ms, bound_by=b_by)
-    report(name, f"N={N} D={D} H={H} W={W} Cin={C} Cout={cout}", res)
+    report(name, f"N={N} D={D} H={H} W={W} Cin={C} Cout={cout} "
+           f"flips={list(flips)}", res,
+           f" (route {route}; host {res['host_ms']:.4f} ms per call)")
     return res
 
 
@@ -549,8 +572,10 @@ def downlink_case(name, N, D, H, W, C, rnd, reps):
     return res
 
 
-def seghead_case(name, N, D, H, W, C, K, probs, rnd, reps):
-    """Kernel #10 (probs) or its logits mode #9 vs plain."""
+def seghead_case(name, N, D, H, W, C, K, probs, rnd, reps, route="bulk"):
+    """Kernel #10 (probs) or its logits mode #9 vs plain, on the route its
+    shape must take (checked by the route counter); with reps, also the
+    host's time per call (host_ms)."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.ops import qlink
@@ -558,7 +583,11 @@ def seghead_case(name, N, D, H, W, C, K, probs, rnd, reps):
     m, o = rnd.affine(N, C)
     w = rnd(K, C, scale=(2.0 / C) ** 0.5)
     pd = torch.bfloat16 if probs else None
+    before = dict(qlink.seghead.routes)
     y_k = qlink.seghead(x, m, o, w, pd)
+    check(qlink.seghead.routes[route] == before[route] + 1,
+          f"{name}: not on the {route} route ({before} -> "
+          f"{qlink.seghead.routes})")
     y_p = qlink.seghead_ref(x, m, o, w, pd)
     torch.cuda.synchronize()
     check(y_k.shape == y_p.shape and y_k.dtype == y_p.dtype,
@@ -569,25 +598,31 @@ def seghead_case(name, N, D, H, W, C, K, probs, rnd, reps):
         s_dev = float((y_k.float().sum(-1) - 1.0).abs().max())
         check(err <= PROB_ATOL, f"{name}: probs differ by {err}")
         check(s_dev <= PROB_SUM_ATOL, f"{name}: probs sum off by {s_dev}")
-        extra = f" (max |sum p - 1| {s_dev:.2e})"
+        extra = f" (max |sum p - 1| {s_dev:.2e}"
     else:
         tol = LOGIT_RTOL * float(y_p.abs().max())
         check(err <= tol, f"{name}: logits differ by {err} > {tol}")
-        extra = ""
+        extra = f" (logits within {err / tol:.3f} of the limit"
+    extra += f"; route {route}"
     if reps == 0:
-        return dict(max_abs_err=err)
+        print(f"  {name} N={N} D={D} H={H} W={W} C={C} K={K} "
+              f"{'probs' if probs else 'logits'}: max abs err {err:.3e}"
+              f"{extra})", flush=True)
+        return dict(max_abs_err=err, kernel_route=route)
     wb = w.to(torch.bfloat16)
     n_vox = N * D * H * W
     # 1x1 products and sums, plus the softmax's ~4 operations per class
     b_ms, b_by = bound(nbytes(x, y_k, m, o, wb),
                        n_vox * (2.0 * C * K + 4.0 * K), PEAK_F32)
-    res = dict(max_abs_err=err,
+    res = dict(max_abs_err=err, kernel_route=route,
                ms=cuda_ms(lambda: qlink.seghead(x, m, o, w, pd), reps),
+               host_ms=host_ms(lambda: qlink.seghead(x, m, o, w, pd)),
                plain_ms=cuda_ms(lambda: qlink.seghead_ref(x, m, o, w, pd),
                                 reps),
                library_ms=cuda_ms(lambda: F.linear(x, wb), reps),
                bound_ms=b_ms, bound_by=b_by)
-    report(name, f"N={N} D={D} H={H} W={W} C={C} K={K}", res, extra)
+    report(name, f"N={N} D={D} H={H} W={W} C={C} K={K}", res,
+           extra + f"; host {res['host_ms']:.4f} ms per call)")
     return res
 
 
@@ -1235,10 +1270,54 @@ def experiments_phase(rnd, R, reset_counts, counts, smi):
     return {"launches": got, "kernels": out}
 
 
+HOST_READINGS = 21
+
+
+def host_only() -> None:
+    """--host-ms: the host's time per call (host_ms) of the up-link (#6)
+    and the seg head (#10 probs, #9 logits) wrappers at the bench's shapes
+    with the model's bf16 weights, HOST_READINGS readings of HOST_CALLS
+    calls each, the cases in turns; prints their median and quartiles. It
+    imports e2enet_tpu_torch from the directory it runs in, so a copy of
+    this script run in another checkout reads that checkout's wrappers
+    (the same measurement for a commit and its parent)."""
+    import torch
+    from e2enet_tpu_torch.ops import _native, qlink
+    _native.build_all()
+    rnd = Rnd(0)
+    bf = torch.bfloat16
+    x6 = rnd(1, 64, 64, 64, 96).to(bf)
+    m6, o6 = rnd.affine(1, 96)
+    k6 = rnd(96, 48, 2, 2, 2, scale=96 ** -0.5).to(bf)
+    x10 = rnd(1, 128, 128, 128, 48).to(bf)
+    m10, o10 = rnd.affine(1, 48)
+    w10 = rnd(16, 48, scale=(2.0 / 48) ** 0.5).to(bf)
+    cases = {
+        "uplink": lambda: qlink.uplink(x6, m6, o6, k6),
+        "uplink_flips": lambda: qlink.uplink(x6, m6, o6, k6,
+                                             (True, False, True)),
+        "seghead_probs": lambda: qlink.seghead(x10, m10, o10, w10, bf),
+        "seghead_logits": lambda: qlink.seghead(x10, m10, o10, w10)}
+    got = {k: [] for k in cases}
+    with torch.inference_mode():
+        for _ in range(HOST_READINGS):
+            for k, fn in cases.items():
+                got[k].append(host_ms(fn))
+    out = {k: dict(zip(("q1", "median", "q3"),
+                       (float(v) for v in np.percentile(r, (25, 50, 75)))))
+           for k, r in got.items()}
+    print(json.dumps({"host_ms": out, "calls": HOST_CALLS,
+                      "readings": HOST_READINGS, "card": nvidia_smi_line()}),
+          flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the card only")
+    if sys.argv[1:] == ["--host-ms"]:
+        host_only()
+        return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
                                                   exp_pipeline_fwd,
@@ -1248,7 +1327,7 @@ def main() -> None:
         from e2enet_tpu_torch.models.sparse_plan import plan_density
         from e2enet_tpu_torch.models.unetpp import (
             ShiftUNetPlusPlus, kernel_launches_per_forward)
-        from e2enet_tpu_torch.ops import _native, blocks
+        from e2enet_tpu_torch.ops import _native, blocks, qlink
         from e2enet_tpu_torch.ops.sliding import (flip_combinations,
                                                   head_probs,
                                                   predict_volume_tiled)
@@ -1417,9 +1496,18 @@ def main() -> None:
         print("[kernel] uplink (#6) vs plain; 'library' is cuDNN's bf16 "
               "transposed conv of the unnormalised input", flush=True)
         main6 = uplink_case("l1_to_l0_96_to48", 1, 64, 64, 64, 96, 48, rnd, R)
-        rag6 = uplink_case("ragged_d3_w13_c8", 2, 3, 5, 13, 8, 12, rnd, 0)
-        res["uplink"] = dict(main6, max_abs_err=max(main6["max_abs_err"],
-                                                    rag6["max_abs_err"]))
+        # the train step's batch of two, mirrored as on the data-flip path
+        n2_6 = uplink_case("l1_to_l0_n2_flips", 2, 64, 64, 64, 96, 48, rnd, R,
+                           (True, False, True))
+        errs6 = [uplink_case("ragged_d3_w13_c8", 2, 3, 5, 13, 8, 12, rnd,
+                             0)["max_abs_err"],
+                 uplink_case("ldg_c12_w70", 1, 3, 4, 70, 12, 8, rnd, 0,
+                             (False, True, True), "ldg")["max_abs_err"]]
+        keys6 = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "host_ms", "kernel_route")
+        res["uplink"] = dict(main6, max_abs_err=max(
+            [main6["max_abs_err"], n2_6["max_abs_err"]] + errs6),
+            shapes={"l1_to_l0_n2_flips": {k: n2_6[k] for k in keys6}})
 
         print("[kernel] downlink (#7) vs plain; 'library' is max_pool3d of "
               "the unnormalised input", flush=True)
@@ -1434,10 +1522,24 @@ def main() -> None:
                               True, rnd, R)
         log9 = seghead_case("l0_logits_48_to16", 1, 128, 128, 128, 48, 16,
                             False, rnd, R)
-        rag10 = [seghead_case("ragged_d3_w13_c8", 2, 3, 5, 13, 8, 3, p, rnd,
-                              0)["max_abs_err"] for p in (True, False)]
+        # the train step's level-1 head
+        l1_9 = seghead_case("l1_logits_n2_96_to16", 2, 64, 64, 64, 96, 16,
+                            False, rnd, R)
+        # tiles straddling two samples (195 voxels each), a ragged last
+        # tile stored element by element (K = 5), and the first design
+        rag10 = [seghead_case(*c, p, rnd, 0, r)["max_abs_err"]
+                 for c, r in ((("n2_straddle", 2, 3, 5, 13, 48, 16), "bulk"),
+                              (("k5_tail", 1, 3, 5, 7, 16, 5), "bulk"),
+                              (("ragged_d3_w13_c8", 2, 3, 5, 13, 8, 3),
+                               "ldg"))
+                 for p in (True, False)]
+        keys10 = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "host_ms", "kernel_route")
         res["seghead"] = dict(main10, max_abs_err=max(
-            [main10["max_abs_err"]] + rag10))
+            [main10["max_abs_err"], log9["max_abs_err"],
+             l1_9["max_abs_err"]] + rag10),
+            shapes={n: {k: r[k] for k in keys10} for n, r in (
+                ("l0_logits_48_to16", log9), ("l1_logits_n2_96_to16", l1_9))})
         res["seghead"]["logits_mode_ms"] = log9["ms"]
 
     # ---- the paths' shared parts
@@ -1562,6 +1664,10 @@ def main() -> None:
               f"plain path's")
 
     launches = {}
+    # the up-link's and the seg head's routes from here on: the paths run
+    # the bench's shapes, which the bulk routes must take
+    routes_before = {k: dict(op.routes) for k, op in (
+        ("uplink", qlink.uplink), ("seghead", qlink.seghead))}
 
     # ---- 4. sparse: the bench's default serving path
     model = bench_model()
@@ -1688,6 +1794,13 @@ def main() -> None:
     # ---- 7. train: the backward kernels, then the row-masked trainer
     train = train_phase(rnd, R, ops, reset_counts, counts, smi)
     launches["train"] = train["launches"]
+    routes = {k: {r: op.routes[r] - routes_before[k][r] for r in op.routes}
+              for k, op in (("uplink", qlink.uplink),
+                            ("seghead", qlink.seghead))}
+    print(f"[paths] up-link and seg-head calls by route over the sparse, "
+          f"dense, data-flip and train phases: {routes}", flush=True)
+    check(all(r["ldg"] == 0 and r["bulk"] > 0 for r in routes.values()),
+          f"a path's up-link or seg head left the bulk route: {routes}")
     res.update(train["kernels"])
 
     # ---- 8. experiments: the experiment kernels, then their mains
@@ -1727,12 +1840,15 @@ def main() -> None:
           "the dense main-path shape (fused block: l0_48+48_to48, every "
           "on-path shape under 'shapes'; lazy "
           "block: l0_48+up96to48_to48, its first sparse level-0 shape under "
-          "'sparse_shape'; seg head: probs mode; block backward: the level-0 "
+          "'sparse_shape'; seg head: probs mode, logits under 'shapes'; "
+          "up-link: N = 1, N = 2 mirrored under 'shapes'; block backward: "
+          "the level-0 "
           "lazy node's, batch 2, other shapes under 'shapes'; down-link "
           "backward: batch 2 at 128^3; experiment kernels: 1 x 128^3 x 48 "
           "-> 48 bf16, the pipelined block at l0_48+48_to48 with both "
           "affines, the product at 4096^3 in bf16, int8 under 'int8'); "
-          "max_abs_err over every case; launches from the sparse path's two "
+          "kernel_route: the route the up-link's and the seg head's "
+          "shape took (bulk or ldg); max_abs_err over every case; launches from the sparse path's two "
           "volumes, the up-link's from the data-flip path's volume, the "
           "backward kernels' from the train path's steps, the experiment "
           "kernels' from the experiments' mains (launches_by_path: all "
@@ -1758,7 +1874,7 @@ def main() -> None:
             line["also_replaces"] = also[name]
         for extra in ("shapes", "int8", "kernel1_ms", "mma_ms", "serial_ms",
                       "turns_ms", "affine_stats_ms", "gemm_route",
-                      "copy_ms"):
+                      "copy_ms", "kernel_route", "host_ms", "logits_mode_ms"):
             if extra in res[name]:
                 line[extra] = res[name][extra]
         lines.append(line)

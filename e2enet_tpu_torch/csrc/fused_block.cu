@@ -60,6 +60,7 @@
 //    with one K chunk it adds in the order of the first design's mma_tap
 //    loop (tap by tap, 16 channels at a time), which #13 still runs.
 
+#include "bulk_copy.cuh"
 #include "shift_conv_block.cuh"
 
 #define KC_MAX 48          // widest staged K chunk
@@ -110,37 +111,6 @@ __global__ void pack_weights_kernel(const Params p, const Chunks ck,
     for (int e = 0; e < 8; ++e)
       dst[e] = n < ncol && k + e < p.C ? src[e] : __float2bfloat16(0.0f);
   }
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return (unsigned)__cvta_generic_to_shared(ptr);
-}
-// the calling thread arrives at the mbarrier (arrival count 1), which then
-// waits for `bytes` more of bulk copies
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// one bulk copy of `bytes` (a multiple of 16) into shared memory, counted
-// on the mbarrier
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
 }
 
 // a block tile: (n, d, rows h0 .., columns w0 ..) and output channels

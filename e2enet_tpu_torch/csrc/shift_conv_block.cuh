@@ -48,6 +48,8 @@
 
 #include <initializer_list>
 
+#include "bulk_copy.cuh"     // fence_proxy_async
+
 typedef __nv_bfloat16 bf16;
 
 #define MAX_PARTS 4
@@ -582,12 +584,6 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// shared memory written by threads (st.shared, cp.async) made visible to
-// wgmma's reads, which go through the async proxy: by every writer after
-// its writes have landed, before the barrier
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // holds A registers that an issued wgmma still reads until this point (the
 // compiler sees the wgmma's use end with the asm statement)

@@ -59,14 +59,20 @@ SIGNATURES = {
         "qstride_launch": [vp] * 3 + [PI, i32] + [vp] * 4 + [i32] * 15
         + [vp]},
     "qlink": {
-        # x, mult, off, wt, y, N, D, H, W, Cin, Cout, sd, sh, sw, stream
-        "uplink_launch": [vp] * 5 + [i32] * 9 + [vp],
+        # x, mult, off, k, the image scratch, y, N, D, H, W, Cin, Cout, sd,
+        # sh, sw, the route taken, stream
+        "uplink_launch": [vp] * 6 + [i32] * 9 + [PI, vp],
+        # Cin, Cout, sd, sh, sw
+        "uplink_image_bytes": [i32] * 5,
+        # k, img, Cin, Cout, sd, sh, sw, stream
+        "uplink_image_launch": [vp] * 2 + [i32] * 5 + [vp],
         # x, mult, off, y, N, D, H, W, C, wd, wh, ww, stream
         "downlink_launch": [vp] * 4 + [i32] * 8 + [vp],
         # x, gy, mult, off, gx, gaff, N, D, H, W, C, wd, wh, ww, stream
         "downlink_bwd_launch": [vp] * 6 + [i32] * 8 + [vp],
-        # x, mult, off, w, y, N, voxels per sample, C, K, probs, stream
-        "seghead_launch": [vp] * 5 + [i32] * 5 + [vp]},
+        # x, mult, off, w, y, N, voxels per sample, C, K, probs, the route
+        # taken, stream
+        "seghead_launch": [vp] * 5 + [i32] * 5 + [PI, vp]},
     # the experiment kernels (e2enet_tpu_torch/experiments)
     "fused_block_pipe": {
         # the fused block's arguments up to the stream, overlap, stream
@@ -155,6 +161,10 @@ def library(name: str) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+# the routes of the up-link and the seg head, by the library's code
+ROUTES = {0: "ldg", 1: "bulk"}
 
 
 def _stream(t: torch.Tensor):
@@ -313,18 +323,37 @@ def launch_strided(x, mult, off, groups, w9, b, y, stats, stride, parity,
     _check(err, f"qstride (N={N} D={D} H={H} W={W} C={C} CO={CO})")
 
 
-def launch_uplink(x, mult, off, wt, y, stride) -> None:
+def launch_uplink(x, mult, off, k, y, stride) -> str:
     """Launch csrc/qlink.cu's up-link: x contiguous bf16 (N, D, H, W, Cin);
-    mult/off float32 (N, Cin); wt (sd*sh, sw*Cout, Cin) bf16; output y
-    (N, D*sd, H*sh, W*sw, Cout) bf16."""
-    fn = library("qlink").uplink_launch
+    mult/off float32 (N, Cin); k (Cin, Cout, sd, sh, sw) contiguous bf16,
+    the kernel already mirrored; output y (N, D*sd, H*sh, W*sw, Cout)
+    bf16. The library first packs k into the weights' image, a scratch
+    allocated here (uplink_image_bytes), then runs the route its rule
+    (uplink_route) gives. Returns the route: "bulk" or "ldg"."""
+    lib = library("qlink")
     N, D, H, W, C = (int(s) for s in x.shape)
     cout = int(y.shape[-1])
+    img = torch.empty(lib.uplink_image_bytes(C, cout, *stride),
+                      dtype=torch.uint8, device=y.device)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(y.device):
-        err = fn(x.data_ptr(), mult.data_ptr(), off.data_ptr(),
-                 wt.data_ptr(), y.data_ptr(), N, D, H, W, C, cout, *stride,
-                 _stream(y))
+        err = lib.uplink_launch(x.data_ptr(), mult.data_ptr(), off.data_ptr(),
+                                k.data_ptr(), img.data_ptr(), y.data_ptr(), N,
+                                D, H, W, C, cout, *stride, ctypes.byref(route),
+                                _stream(y))
     _check(err, f"uplink (N={N} D={D} H={H} W={W} Cin={C} Cout={cout})")
+    return ROUTES[route.value]
+
+
+def launch_uplink_image(k, img) -> None:
+    """The up-link's weight packing alone: k (Cin, Cout, sd, sh, sw)
+    contiguous bf16 -> img, a contiguous tensor of uplink_image_bytes(...)
+    bytes (the image launch_uplink's products read)."""
+    C, cout, sd, sh, sw = (int(s) for s in k.shape)
+    with torch.cuda.device(img.device):
+        err = library("qlink").uplink_image_launch(
+            k.data_ptr(), img.data_ptr(), C, cout, sd, sh, sw, _stream(img))
+    _check(err, f"uplink image (Cin={C} Cout={cout})")
 
 
 def launch_downlink(x, mult, off, y, window) -> None:
@@ -338,17 +367,21 @@ def launch_downlink(x, mult, off, y, window) -> None:
     _check(err, f"downlink (N={N} D={D} H={H} W={W} C={C})")
 
 
-def launch_seghead(x, mult, off, w, y, probs: bool) -> None:
+def launch_seghead(x, mult, off, w, y, probs: bool) -> str:
     """Launch csrc/qlink.cu's seg head: x contiguous bf16 (N, D, H, W, C);
     mult/off float32 (N, C); w (K, C) bf16; output y (N, D, H, W, K): bf16
-    probs when `probs`, else float32 logits."""
+    probs when `probs`, else float32 logits. Runs the route the library's
+    rule (seghead_route) gives and returns it: "bulk" or "ldg"."""
     fn = library("qlink").seghead_launch
     N, D, H, W, C = (int(s) for s in x.shape)
     K = int(w.shape[0])
+    route = ctypes.c_int(-1)
     with torch.cuda.device(y.device):
         err = fn(x.data_ptr(), mult.data_ptr(), off.data_ptr(), w.data_ptr(),
-                 y.data_ptr(), N, D * H * W, C, K, int(probs), _stream(y))
+                 y.data_ptr(), N, D * H * W, C, K, int(probs),
+                 ctypes.byref(route), _stream(y))
     _check(err, f"seghead (N={N} D={D} H={H} W={W} C={C} K={K})")
+    return ROUTES[route.value]
 
 
 def launch_fused_block_pipe(parts, affines, groups, w9, b, y, stats,

@@ -89,7 +89,12 @@ def block_groups(C: int, flips: Flips, groups_override=None):
 
 
 def affine_nc(a: torch.Tensor, N: int, ci: int) -> torch.Tensor:
-    """mult/off given as (Ci,) or (N, Ci) -> contiguous float32 (N, Ci)."""
+    """mult/off given as (Ci,) or (N, Ci) -> contiguous float32 (N, Ci).
+    One already in that form is returned as it is, with no torch op: the
+    kernel wrappers call this on every launch, and the serving paths are
+    bound by the host."""
+    if a.dtype == torch.float32 and a.shape == (N, ci) and a.is_contiguous():
+        return a
     return a.float().reshape(-1, ci).expand(N, ci).contiguous()
 
 

@@ -27,7 +27,12 @@ the up-link's mirrored op reverses its kernel along the mirrored axes
 (reference blocks.flip_transp_kernel).
 
 Each op runs its CUDA kernel (csrc/qlink.cu) for CUDA tensors and its plain
-torch version (`*_ref`) for CPU tensors. Where a gradient is wanted each is
+torch version (`*_ref`) for CPU tensors. The up-link and the seg head each
+have two routes, chosen by the library's rule from the shapes and the
+alignment (`uplink.routes`, `seghead.routes` count them): "bulk", the
+design for this card (bulk copies in and out with the next tile in flight,
+the products on tensor cores), and "ldg", the first design, for the shapes
+the bulk copies do not take. Where a gradient is wanted each is
 an autograd op. The down-link's backward is TPU kernel #8
 (e2enet_tpu/ops/qlink.py:_downlink_bwd_kernel), `downlink_bwd`: the CUDA
 kernel for CUDA tensors, `downlink_bwd_ref` for CPU tensors; it recomputes
@@ -85,6 +90,24 @@ def uplink_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
     return y.reshape(N, D * sd, H * sh, W * sw, cout)
 
 
+def uplink_image_ref(kernel: torch.Tensor,
+                     flips: Flips = NO_FLIPS) -> torch.Tensor:
+    """Plain version of the weights' image the CUDA up-link packs once per
+    call (csrc/qlink.cu: uplink_image_kernel) and its products read: a
+    (Cin, Cout, sd, sh, sw) kernel -> (sd*sh, NWs, Cs + 8) in its dtype,
+    [bd*sh + bh, bw*Cout + co, c] = k[c, co, bd, bh, bw] of the mirrored
+    kernel: chunk (bd, bh) holds the NW = sw*Cout columns of one finer row
+    per coarse voxel (uplink_ref's columns, ch*NW + col). Zero past NW (NWs
+    rounds it up to 16) and past Cin (Cs rounds it up to 16; 8 more values
+    pad each row)."""
+    k = flip_transp_kernel(kernel, flips)
+    C, cout, sd, sh, sw = (int(v) for v in k.shape)
+    nw = sw * cout
+    img = k.new_zeros((sd * sh, -(-nw // 16) * 16, -(-C // 16) * 16 + 8))
+    img[:, :nw, :C] = k.permute(2, 3, 4, 1, 0).reshape(sd * sh, nw, C)
+    return img
+
+
 def uplink(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
            kernel: torch.Tensor, flips: Flips = NO_FLIPS) -> torch.Tensor:
     """The up-link: plain version for CPU tensors, the CUDA kernel for CUDA
@@ -107,19 +130,23 @@ def _uplink_forward(x, mult, off, kernel, flips):
     cout = int(kernel.shape[1])
     sd, sh, sw = (int(v) for v in kernel.shape[2:])
     from . import _native
-    # (sd*sh chunks, sw*Cout columns, Cin): chunk (bd, bh) is one finer row
-    # of sw*Cout contiguous values per coarse voxel
-    k = flip_transp_kernel(kernel, flips).to(x.dtype)
-    wt = k.permute(2, 3, 4, 1, 0).reshape(sd * sh, sw * cout, C).contiguous()
+    # the library packs the (mirrored) kernel into the image its products
+    # read: chunk (bd, bh) is one finer row of sw*Cout contiguous values per
+    # coarse voxel
+    k = flip_transp_kernel(kernel, flips).to(x.dtype).contiguous()
     y = torch.empty((N, D * sd, H * sh, W * sw, cout), dtype=x.dtype,
                     device=dev)
-    _native.launch_uplink(x.contiguous(), affine_nc(mult, N, C),
-                          affine_nc(off, N, C), wt, y, (sd, sh, sw))
+    route = _native.launch_uplink(x.contiguous(), affine_nc(mult, N, C),
+                                  affine_nc(off, N, C), k, y, (sd, sh, sw))
     uplink.launches += 1
+    uplink.routes[route] += 1
     return y
 
 
 uplink.launches = 0
+# per route (csrc/qlink.cu: uplink_route): "bulk" uplink_kernel, "ldg" the
+# first design uplink_ldg_kernel
+uplink.routes = {"bulk": 0, "ldg": 0}
 
 
 # --------------------------------------------------------------------------
@@ -313,12 +340,16 @@ def _seghead_forward(x, mult, off, weight, probs_dtype):
     from . import _native
     y = torch.empty((N, D, H, W, K), device=dev,
                     dtype=probs_dtype or torch.float32)
-    _native.launch_seghead(x.contiguous(), affine_nc(mult, N, C),
-                           affine_nc(off, N, C),
-                           weight.to(x.dtype).contiguous(), y,
-                           probs_dtype is not None)
+    route = _native.launch_seghead(x.contiguous(), affine_nc(mult, N, C),
+                                   affine_nc(off, N, C),
+                                   weight.to(x.dtype).contiguous(), y,
+                                   probs_dtype is not None)
     seghead.launches += 1
+    seghead.routes[route] += 1
     return y
 
 
 seghead.launches = 0
+# per route (csrc/qlink.cu: seghead_route): "bulk" seghead_kernel, "ldg" the
+# first design seghead_ldg_kernel
+seghead.routes = {"bulk": 0, "ldg": 0}

@@ -34,7 +34,8 @@ from .models.unetpp import ShiftUNetPlusPlus
 
 PORT_KERNELS = ("fused_chunked_kernel", "pack_weights_kernel",
                 "qfused_lazy_kernel", "qstride_kernel",
-                "uplink_kernel", "downlink_kernel", "seghead_kernel",
+                "uplink_kernel", "uplink_image_kernel", "uplink_ldg_kernel",
+                "downlink_kernel", "seghead_kernel", "seghead_ldg_kernel",
                 # the block backward (csrc/fused_block_bwd.cu: the dgrad
                 # with the shift's adjoint, the wgrad with geff and gb) and
                 # the down-link backward (16-byte and scalar routes)

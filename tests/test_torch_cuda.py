@@ -6,7 +6,10 @@ on mma.sync as the control), the fused block with a lazy up-link part
 than one K chunk, no read of the up weights past cin, its taps on mma.sync
 as the control), the strided transition (ragged and all mirrors, N = 2
 with a block's tiles straddling the samples), the
-up-link, the down-link and the seg head; the block backward and the
+up-link (N = 1 and 2, mirrored, ragged; its weights' packing) and the seg
+head (C 48 and 96, tiles straddling two samples, a ragged last tile), each
+on both routes and with the route each shape takes asserted by kernel name,
+the down-link; the block backward and the
 down-link backward (main-path, ragged and N = 2 shapes, ties, C = 96; its
 16-byte and scalar routes by kernel name), and a small train step's
 launches; the block backward's parts wanted or not and
@@ -217,6 +220,8 @@ def test_strided_matches_plain(case, flips):
 # (N, D, H, W, Cin, Cout, stride)
 UPLINKS = {
     "bench_width": (1, 4, 8, 64, 96, 48, (2, 2, 2)),
+    # the train step's batch of two
+    "bench_width_n2": (2, 4, 8, 64, 96, 48, (2, 2, 2)),
     # odd D, W = 13, a part of width 8, a tile past W = 64
     "ragged": (2, 3, 5, 13, 8, 12, (2, 2, 2)),
     "wide": (1, 2, 2, 70, 24, 16, (1, 2, 2)),
@@ -276,6 +281,13 @@ def test_downlink_matches_plain(case):
 # (N, D, H, W, C, K)
 HEADS = {
     "bench_width": (1, 4, 16, 64, 48, 16),
+    # the train step's level-1 head
+    "c96": (1, 4, 8, 64, 96, 16),
+    # 195 voxels per sample: tiles of 128 voxels straddle the two samples
+    "n2_straddle": (2, 3, 5, 13, 48, 16),
+    # the bulk route with K = 5: one tile of 105 voxels whose outputs are
+    # not a multiple of 16 bytes (stored element by element)
+    "k5_tail": (1, 3, 5, 7, 16, 5),
     "ragged": (2, 3, 5, 13, 8, 3),
     "c6": (1, 2, 3, 7, 6, 5),
 }
@@ -740,6 +752,106 @@ def test_downlink_bwd_route(C, kernel):
     names = _device_kernels(lambda: qlink.downlink_bwd(x, m, o, gy))
     kinds = [n.split("(")[0].split()[-1] for n in names]
     assert kernel in kinds and len([k for k in kinds if "downlink" in k]) == 1
+
+
+def _unaligned(rng, dev, *shape):
+    """A contiguous bf16 tensor whose data is 2 bytes off a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    base = _rand(rng, dev, n + 1).bfloat16()
+    return base[1:].view(*shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K,aligned,kernel", [
+    (48, 16, True, "seghead_kernel"), (96, 16, True, "seghead_kernel"),
+    (32, 3, True, "seghead_kernel"), (8, 3, True, "seghead_ldg_kernel"),
+    (48, 20, True, "seghead_ldg_kernel"), (112, 16, True, "seghead_ldg_kernel"),
+    (48, 16, False, "seghead_ldg_kernel")])
+def test_seghead_route(C, K, aligned, kernel):
+    """#10/#9's route follows the library's rule: the bulk route where C is
+    a multiple of 16 up to 96, K <= 16, N * C <= 2048 and x and y are
+    16-byte aligned; the first design otherwise. One kernel per call, counted per route, both
+    modes within the tolerances."""
+    from e2enet_tpu_torch.ops import qlink
+    dev = _card()
+    rng = np.random.RandomState(C + K)
+    shape = (2, 3, 4, 24, C)
+    x = (_rand(rng, dev, *shape).bfloat16() if aligned
+         else _unaligned(rng, dev, *shape))
+    m, o = _rand(rng, dev, 2, C, scale=0.3, shift=1.0), _rand(
+        rng, dev, 2, C, scale=0.2)
+    w = _rand(rng, dev, K, C, scale=(2.0 / C) ** 0.5).bfloat16()
+    route = "bulk" if kernel == "seghead_kernel" else "ldg"
+    for pd in (torch.bfloat16, None):
+        before = dict(qlink.seghead.routes)
+        names = _device_kernels(lambda: qlink.seghead(x, m, o, w, pd))
+        kinds = [n.split("(")[0].split("<")[0].split()[-1] for n in names]
+        assert [k for k in kinds if "seghead" in k] == [kernel], names
+        assert qlink.seghead.routes[route] == before[route] + 1
+        y = qlink.seghead(x, m, o, w, pd)
+        y_p = qlink.seghead_ref(x, m, o, w, pd)
+        if pd is not None:
+            assert float((y.float() - y_p.float()).abs().max()) <= 2.0 ** -8
+        else:
+            torch.testing.assert_close(y, y_p, rtol=1e-4,
+                                       atol=1e-4 * float(y_p.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,cout,stride,aligned,kernel", [
+    (96, 48, (2, 2, 2), True, "uplink_kernel"),
+    (8, 12, (2, 2, 2), True, "uplink_kernel"),
+    (24, 16, (1, 2, 2), True, "uplink_kernel"),
+    (12, 8, (2, 2, 2), True, "uplink_ldg_kernel"),
+    (16, 5, (2, 2, 2), True, "uplink_ldg_kernel"),
+    (96, 48, (2, 2, 2), False, "uplink_ldg_kernel")])
+def test_uplink_route(C, cout, stride, aligned, kernel):
+    """#6's route follows the library's rule: the bulk route where Cin is a
+    multiple of 8 up to 96, sw*Cout a multiple of 8 (at most 24 weight row
+    fragments) and x, y, mult and off are 16-byte aligned; the first design
+    otherwise. Each call packs the weights' image first
+    (uplink_image_kernel), then runs one kernel, counted per route; y within
+    2 bf16 ulps of the plain version."""
+    from e2enet_tpu_torch.ops import qlink
+    dev = _card()
+    rng = np.random.RandomState(C + cout)
+    shape = (1, 2, 3, 70, C)
+    x = (_rand(rng, dev, *shape).bfloat16() if aligned
+         else _unaligned(rng, dev, *shape))
+    m, o = _rand(rng, dev, 1, C, scale=0.3, shift=1.0), _rand(
+        rng, dev, 1, C, scale=0.2)
+    k = _rand(rng, dev, C, cout, *stride, scale=(1.0 / C) ** 0.5)
+    route = "bulk" if kernel == "uplink_kernel" else "ldg"
+    before = dict(qlink.uplink.routes)
+    with torch.no_grad():
+        names = _device_kernels(lambda: qlink.uplink(x, m, o, k))
+    kinds = [n.split("(")[0].split()[-1] for n in names]
+    assert [n for n in kinds if "uplink" in n] == ["uplink_image_kernel",
+                                                   kernel], names
+    assert qlink.uplink.routes[route] == before[route] + 1
+    with torch.no_grad():
+        y = qlink.uplink(x, m, o, k)
+        y_p = qlink.uplink_ref(x, m, o, k)
+    assert _within_ulps(y, y_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,cout,stride", [(96, 48, (2, 2, 2)),
+                                           (8, 12, (2, 2, 2)),
+                                           (24, 16, (1, 2, 2))])
+def test_uplink_image_matches_plain(C, cout, stride):
+    """The weights' packing kernel against uplink_image_ref, to the bit."""
+    from e2enet_tpu_torch.ops import _native, qlink
+    dev = _card()
+    rng = np.random.RandomState(C)
+    k = _rand(rng, dev, C, cout, *stride).bfloat16()
+    ref = qlink.uplink_image_ref(k)
+    img = torch.full((ref.numel(),), float("nan"), dtype=torch.bfloat16,
+                     device=dev)
+    _native.launch_uplink_image(k, img)
+    torch.cuda.synchronize()
+    assert torch.equal(img.view(ref.shape), ref)
 
 
 @pytest.mark.cuda

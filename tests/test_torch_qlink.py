@@ -25,6 +25,7 @@ from e2enet_tpu.ops.qfused import from_quadrant_cf, to_quadrant_cf  # noqa
 from e2enet_tpu.ops.qlink import (downlink_block_max,  # noqa: E402
                                   seghead_probs_quadrant, seghead_quadrant,
                                   uplink_from_cf)
+from e2enet_tpu_torch.ops import fused_block as tfb  # noqa: E402
 from e2enet_tpu_torch.ops import qlink as tql  # noqa: E402
 
 Q = (2, 2, 2)
@@ -66,6 +67,70 @@ def test_uplink_matches_reference_kernel(flips):
                                           .copy()), flips)
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == ref.shape
     _one_ulp_of_max(out.float().numpy(), ref)
+
+
+# (Cin, Cout, stride): the bench's level 1 -> 0 up-link, a ragged one, a
+# (1, 2, 2) stride
+IMAGES = {"bench_width": (96, 48, (2, 2, 2)), "ragged": (8, 12, (2, 2, 2)),
+          "stride_122": (24, 16, (1, 2, 2))}
+
+
+@pytest.mark.parametrize("case", sorted(IMAGES))
+@pytest.mark.parametrize("flips", [(False, False, False), (True, False, True)])
+def test_uplink_image_is_ref_layout(case, flips):
+    """The weights' image the CUDA up-link packs (uplink_image_ref, its
+    plain version) holds uplink_ref's (Cin, sd*sh*sw*Cout) product columns
+    k.permute(0, 2, 3, 4, 1) of the mirrored kernel, chunk (bd, bh) by
+    chunk, zero past NW and Cin."""
+    C, cout, (sd, sh, sw) = IMAGES[case]
+    rng = np.random.RandomState(C + cout)
+    k = torch.from_numpy(rng.randn(C, cout, sd, sh, sw).astype(np.float32))
+    img = tql.uplink_image_ref(k.bfloat16(), flips)
+    nw = sw * cout
+    assert tuple(img.shape) == (sd * sh, -(-nw // 16) * 16,
+                                -(-C // 16) * 16 + 8)
+    assert img.dtype == torch.bfloat16
+    w2 = tql.flip_transp_kernel(k.bfloat16(), flips).permute(
+        0, 2, 3, 4, 1).reshape(C, sd * sh * nw)
+    assert torch.equal(img[:, :nw, :C], w2.t().reshape(sd * sh, nw, C))
+    pad = img.clone()
+    pad[:, :nw, :C] = 0
+    assert not bool(pad.float().abs().sum())
+
+
+@pytest.mark.parametrize("flips", [(False, False, False), (False, True, True)])
+def test_uplink_through_image_matches_reference_kernel(flips):
+    """The up-link computed the way the CUDA kernel reads the image (per
+    chunk (bd, bh), u times the chunk's NW columns, each coarse voxel's
+    sw*Cout values one contiguous piece of the finer row) against the
+    reference kernel in interpret mode: within one bf16 step of the
+    largest value, as test_uplink_matches_reference_kernel."""
+    rng = np.random.RandomState(4)
+    N, Dq, Cin, Cout = 2, 3, 16, 8
+    x = _bf16(rng.randn(N, Dq, HQ, WQ, Cin))
+    mult = (rng.rand(N, Cin) + 0.5).astype(np.float32)
+    off = rng.randn(N, Cin).astype(np.float32)
+    kern = (rng.randn(2, 2, 2, Cin, Cout) * 0.3).astype(np.float32)
+    raw = to_quadrant_cf(jnp.asarray(x, jnp.bfloat16), (1, 1, 1), WQP)
+    ref = uplink_from_cf(raw, jnp.asarray(mult), jnp.asarray(off),
+                         flip_transp_kernel(jnp.asarray(kern), flips), Q, HQ,
+                         WQ, _twin, interpret=True)
+    ref = np.asarray(from_quadrant_cf(ref, Q, HQ, WQ, Cout), np.float32)
+    k = torch.from_numpy(kern.transpose(3, 4, 0, 1, 2).copy()).bfloat16()
+    img = tql.uplink_image_ref(k, flips).float()
+    xt = torch.from_numpy(x).bfloat16()
+    shape = (N, 1, 1, 1, Cin)
+    m = torch.from_numpy(mult).bfloat16().reshape(shape)
+    o = torch.from_numpy(off).bfloat16().reshape(shape)
+    u = tfb.lrelu_max(xt * m + o).float()           # bf16 arithmetic
+    D, H, W = x.shape[1:4]
+    nw = 2 * Cout
+    y = torch.empty(N, 2 * D, 2 * H, 2 * W, Cout)
+    for ch in range(4):
+        bd, bh = divmod(ch, 2)
+        seg = (u @ img[ch, :nw, :Cin].t()).reshape(N, D, H, 2 * W, Cout)
+        y[:, bd::2, bh::2] = seg
+    _one_ulp_of_max(y.bfloat16().float().numpy(), ref)
 
 
 def test_downlink_matches_reference_kernel():
