@@ -85,16 +85,20 @@ Phases (any failure ends the run with a non-zero exit):
   8. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the pipelined block at l0_48+48_to48 with both
-              affines, also against kernel #1 itself; the products at 4096^3
+              affines, also against kernel #1 itself, equal to the bit, and
+              the ring's depth it took; the channels-first block on its TMA
+              route, checked by its route counter; the products at 4096^3
               on the wgmma route, checked by its route counter, beside their
               mma.sync control and the int8 repack of B alone) and at ragged
-              ones (D = 3, W = 13, C in {1, 8, 24}, N = 2; M, N, K off the
-              tile on both routes), the channels-first block with the affine
-              and the statistics each on and off, the ring shift's backward;
-              times, bounds and the library call (cuDNN's conv of the
-              pre-shifted operand, #1 beside the pipelined block,
-              torch.matmul / torch._int_mm; none for the shift and the
-              relayout's copy);
+              ones (D = 3, W = 13, C in {1, 8, 24}, N = 2, the channels-first
+              block there on its ldg route and at W = 72, H = 7 on its TMA
+              route; M, N, K off the tile on both routes), the
+              channels-first block with the affine and the statistics each
+              on and off, the ring shift's backward; times, bounds and the
+              library call (cuDNN's conv of the pre-shifted operand, #1
+              beside the pipelined block, torch.matmul / torch._int_mm; none
+              for the shift and the relayout's copy); the pipelined block
+              also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
   9. report   one JSON line with every kernel's launches, error, times and
@@ -984,9 +988,11 @@ def ring_case(name, N, D, H, W, C, CO, rnd, reps):
     return fused, shift
 
 
-def cf_case(name, N, D, H, W, C, CO, rnd, reps):
+def cf_case(name, N, D, H, W, C, CO, rnd, reps, route):
     """#12: the channels-first block, the affine and the statistics each on
-    and off, vs plain; with reps the times without and with both."""
+    and off, vs plain, on the route the shape must take (checked by the
+    route counter: TMA where tensor maps describe x and y); with reps the
+    times without and with both."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.experiments import exp_cf_fused as cf
@@ -1000,7 +1006,11 @@ def cf_case(name, N, D, H, W, C, CO, rnd, reps):
         for aff in (False, True):
             for st in (False, True):
                 a = (m, o) if aff else (None, None)
+                before = cf.cf_fused_shift_conv.routes[route]
                 y_k, s_k = cf.cf_fused_shift_conv(x, k, b, H, W, *a, st)
+                check(cf.cf_fused_shift_conv.routes[route] == before + 1,
+                      f"{name}: the channels-first block did not take the "
+                      f"{route} route ({cf.cf_fused_shift_conv.routes})")
                 y_p, s_p = cf.cf_fused_shift_conv_ref(x, k, b, H, W, *a, st)
                 torch.cuda.synchronize()
                 ok, e = y_err(y_k.transpose(2, 3), y_p.transpose(2, 3),
@@ -1013,7 +1023,7 @@ def cf_case(name, N, D, H, W, C, CO, rnd, reps):
                           f"stats rel err {rel}")
                 err = max(err, e)
         if reps == 0:
-            return dict(max_abs_err=err)
+            return dict(max_abs_err=err, kernel_route=route)
         x_cl = x.reshape(N, D, C, H, W).permute(0, 1, 3, 4, 2).contiguous()
         s2 = depth_shift(x_cl, 5).reshape(N * D, H, W, C).permute(0, 3, 1, 2)
         w2 = k.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -1026,8 +1036,9 @@ def cf_case(name, N, D, H, W, C, CO, rnd, reps):
                    2.0 * N * D * H * W * 9 * C * CO, PEAK_BF16), reps)
         res["affine_stats_ms"] = cuda_ms(lambda: cf.cf_fused_shift_conv(
             x, k, b, H, W, m, o, True), reps)
-    print(f"  cf_fused_shift_conv with the affine and the statistics on: "
-          f"{res['affine_stats_ms']:.4f} ms", flush=True)
+    res["kernel_route"] = route
+    print(f"  cf_fused_shift_conv ({route} route) with the affine and the "
+          f"statistics on: {res['affine_stats_ms']:.4f} ms", flush=True)
     return res
 
 
@@ -1052,9 +1063,10 @@ def reshape_case(name, H, W, C, dtype, rnd, reps):
 
 
 def pipe_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
-    """#13 vs plain and vs kernel #1 (y within ORDER_ULPS: #1 adds the same
-    products on wgmma over K chunks, in another order), and #13 without its
-    overlap (y equal to the bit)."""
+    """#13 vs plain and vs kernel #1 (y within ORDER_ULPS, and equal to the
+    bit: at these shapes both run the same wgmma body on the same K
+    chunks), and #13 without its overlap, a ring of one stage (y equal to
+    the bit); the ring's depth each took."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.experiments import exp_pipeline_fwd as pf
@@ -1068,6 +1080,7 @@ def pipe_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
     args = (parts, kernel, bias, affines)
     with torch.inference_mode():
         y_k, s_k = pf.pipelined_fused_block(*args)
+        stages = pf.pipelined_fused_block.stages
         y_p, s_p = pf.pipelined_fused_block_ref(*args)
         y_1, s_1 = fb.fused_shift_conv_block(*args)
         torch.cuda.synchronize()
@@ -1078,13 +1091,17 @@ def pipe_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
         check(y_err(y_k, y_1, ORDER_ULPS)[0], f"{name}: y differs from "
                                               f"kernel #1's by more than "
                                               f"{ORDER_ULPS} ulp")
+        check(torch.equal(y_k, y_1), f"{name}: y not equal to kernel #1's")
+        check(stages >= 2, f"{name}: a ring of {stages} stages")
         y_s, _ = pf.pipelined_fused_block(*args, overlap=False)
+        check(pf.pipelined_fused_block.stages == 1,
+              f"{name}: the control's ring is not one stage")
         check(torch.equal(y_s, y_k), f"{name}: y without the overlap not "
                                      f"equal to the pipelined kernel's")
         rel1 = close_max(s_k, s_1)
         check(rel1 <= EXP_STATS_RTOL, f"{name}: stats vs #1 rel err {rel1}")
         if reps == 0:
-            return dict(max_abs_err=err)
+            return dict(max_abs_err=err, stages=stages)
         x2 = torch.cat(parts, -1).reshape(N * D, H, W, C).permute(0, 3, 1, 2)
         w2 = kernel.to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
@@ -1096,8 +1113,8 @@ def pipe_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
             lambda: F.conv2d(x2, w2, padding=1),
             *bound(nbytes(*parts, y_k) + 9 * C * CO * 2,
                    2.0 * N * D * H * W * 9 * C * CO, PEAK_BF16), reps,
-            f" (y within {ORDER_ULPS} ulp of #1's; stats vs #1 rel "
-            f"{rel1:.2e})")
+            f" (y equal to #1's; stats vs #1 rel {rel1:.2e}; a ring of "
+            f"{stages} stages)")
         # #1, the pipelined kernel and the same kernel without the overlap
         # (the experiment's control), in turns on the same inputs
         runs = {"kernel1": lambda: fb.fused_shift_conv_block(*args),
@@ -1111,8 +1128,12 @@ def pipe_case(name, N, D, H, W, part_c, affine, CO, rnd, reps):
     res["kernel1_ms"] = sum(turns["kernel1"]) / 2
     res["serial_ms"] = sum(turns["serial"]) / 2
     res["turns_ms"] = turns
+    res["stages"] = stages
     print(f"  in turns (#1, pipelined, serial, serial, pipelined, #1): "
-          f"{turns}", flush=True)
+          f"{turns}; serial / pipelined "
+          f"{res['serial_ms'] / (sum(turns['pipelined']) / 2):.3f}x, #1 / "
+          f"pipelined {res['kernel1_ms'] / (sum(turns['pipelined']) / 2):.3f}"
+          f"x", flush=True)
     return res
 
 
@@ -1203,11 +1224,16 @@ def experiments_phase(rnd, R, reset_counts, counts, smi):
         [fused["max_abs_err"]] + errs))
     out["depth_shift_ring"] = shift
     print("[kernel] cf_fused_shift_conv (#12) vs plain, affine and stats "
-          "each on and off; 'library' is cuDNN's bf16 conv of the "
-          "pre-shifted channels-last operand", flush=True)
-    main12 = cf_case("l0_48_to48", 1, 128, 128, 128, 48, 48, rnd, R)
-    errs = [cf_case(f"ragged_{c}", 2, 3, 6, 13, c, co, rnd, 0)[
+          "each on and off, on the route each shape takes (TMA at the main "
+          "shape); 'library' is cuDNN's bf16 conv of the pre-shifted "
+          "channels-last operand", flush=True)
+    main12 = cf_case("l0_48_to48", 1, 128, 128, 128, 48, 48, rnd, R, "tma")
+    errs = [cf_case(f"ragged_{c}", 2, 3, 6, 13, c, co, rnd, 0, "ldg")[
         "max_abs_err"] for c, co in ((1, 8), (8, 8), (24, 40))]
+    # the TMA route at ragged tiles: two column tiles of 64, the last of
+    # 8; rows not a multiple of the tile's; N = 2; C = 1 and 24
+    errs += [cf_case(f"tma_{c}", 2, 3, 7, 72, c, co, rnd, 0, "tma")[
+        "max_abs_err"] for c, co in ((1, 8), (24, 40), (48, 48))]
     out["cf_fused_shift_conv"] = dict(main12, max_abs_err=max(
         [main12["max_abs_err"]] + errs))
     print("[kernel] reshape_hwc (#12, E1) vs plain; 'library' is the copy "

@@ -24,25 +24,67 @@
 // 87 GFLOP; the affine and the statistics add nothing that counts.
 //
 // The question (exp_cf_fused.py:1-23): can a channels-first layout carry
-// the fused block? On the card the GEMM is (CO x 9C) . (9C x H*W): the
-// weights, row-major with k = tap * Cs + channel, are the A operand of
-// mma.sync.m16n8k16 (bf16, f32 accumulate) through ldmatrix; the operand,
-// H*W-contiguous per channel, is its B operand through ldmatrix.trans,
-// which hands mma.sync the k-major fragment. An ldmatrix row must start on
-// 16 bytes, so a tap's one-pixel shift along W cannot be an address offset
-// of one staged copy (it is in the channels-last layout, where a pixel is a
-// whole row): the block stages three copies of its (TH + 2) x WT window,
-// one per tap column dw, each already shifted by dw and zero outside the
-// image; the three tap rows dh are whole-row offsets into them. A block
-// owns (n, 8 image rows x 16 columns, up to 48 output channels) and walks a
-// chunk of depths; its weights stay in shared memory. Warp r computes image
-// row r: 3 CO fragments x 2 n8 pixel fragments. Staging reads each
-// element once with a scalar load, applies the affine in float32 and
-// writes it into the copies that hold it. The statistics gather in
-// registers over the block's depths and reach device memory by one atomic
-// per channel and block.
+// the fused block? In it a shift group is a range of channel planes, so
+// the Tensor Memory Accelerator can stage a group's window as one box,
+// where channels-last staging breaks into 16- and 4-byte requests at the
+// groups' edges. Two routes, chosen by one rule (cf_route):
+//
+//  * TMA (cf_fused_tma_kernel), where a tensor map can describe x and y
+//    (16-byte-aligned tensors, W % 8 == 0), CO <= 48, C <= 80, the shift
+//    groups cut to at most CF_SLOTS slots of 16 channels and the stages fit
+//    shared memory. Persistent blocks of three warpgroups walk tiles of TH
+//    rows x 64 columns (the m64 of one wgmma per row), all output
+//    channels, one tile per stage of the ring: per tile one TMA box per
+//    slot (each group of 10 at C = 48), (88 columns from w0 - 8, the widest
+//    slot's channels, TH + 2 rows) at the slot's source depth d - shift,
+//    into shared memory [slot][row][channel][88]. A tensor map of x over
+//    (W, C, H, D, N) gives that order; its zero fill outside [0, D) x
+//    [0, H) x [0, W) x [0, C) replaces every bounds test. TMA takes a box's
+//    first column only on 16 bytes, so a tap column's one-pixel shift can
+//    be neither a box nor a wgmma descriptor offset: the consumers build
+//    each step's A fragment in registers from 16-bit loads at the shifted
+//    column (the 176-byte rows put the four channel rows of a load in
+//    distinct banks). That also frees the K order: K is the channels in
+//    order, each lane reading its channel from its slot's box, so a group
+//    of 10 costs no padding to 16 (K = 48 per tap at C = 48, the weights
+//    packed on the host for wgmma's B as #1's). Warp 0 keeps the stages
+//    full (one thread; full and empty mbarriers per stage). With the affine
+//    on, warps 1-3 apply it in place between a box's arrival and the
+//    products (the zero fill left at zero: TMA's zeros would otherwise
+//    become lrelu(off)) and arrive on the stage's ready mbarrier; their
+//    warpgroup gives registers to the consumers (setmaxnreg). Two
+//    consumer warpgroups each own rows of the tile and run 9 taps x
+//    ceil(C / 16) steps of wgmma.m64n48k16 per row, A from registers, B
+//    the packed weights (resident, one bulk copy per block), straight-line,
+//    the next step's A loaded while two groups may be in flight. The
+//    epilogue adds the bias, gathers the statistics in registers (one
+//    atomic pair per channel and block, or per sample the block's tiles
+//    cover), writes each row's (48 x 64) tile swizzled into shared memory
+//    and sends it by a TMA store over y's tensor map (W, H, CO, D, N),
+//    which drops what lies outside y.
+//  * ldg (cf_fused_ldg_kernel), the first design, for every other shape: a
+//    block stages three dw-shifted copies of an 8 x 16 window by scalar
+//    loads, then runs mma.sync through ldmatrix(.trans), depth by depth.
 
 #include "shift_conv_block.cuh"
+#include "tma.cuh"
+
+// ===========================================================================
+// The ldg route: the weights, row-major with k = tap * Cs + channel, are the
+// A operand of mma.sync.m16n8k16 (bf16, f32 accumulate) through ldmatrix;
+// the operand, H*W-contiguous per channel, is its B operand through
+// ldmatrix.trans, which hands mma.sync the k-major fragment. An ldmatrix
+// row must start on 16 bytes, so a tap's one-pixel shift along W cannot be
+// an address offset of one staged copy: the block stages three copies of
+// its (TH + 2) x WT window, one per tap column dw, each already shifted by
+// dw and zero outside the image; the three tap rows dh are whole-row
+// offsets into them. A block owns (n, 8 image rows x 16 columns, up to 48
+// output channels) and walks a chunk of depths; its weights stay in shared
+// memory. Warp r computes image row r: 3 CO fragments x 2 n8 pixel
+// fragments. Staging reads each element once with a scalar load, applies
+// the affine in float32 and writes it into the copies that hold it. The
+// statistics gather in registers over the block's depths and reach device
+// memory by one atomic per channel and block.
 
 #define CF_THREADS 256                 // 8 warps, one image row each
 #define CF_TH 8
@@ -67,7 +109,7 @@ struct CfParams {
 };
 
 __global__ void __launch_bounds__(CF_THREADS)
-cf_fused_kernel(const CfParams p) {
+cf_fused_ldg_kernel(const CfParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int HW = p.H * p.W;
@@ -248,6 +290,491 @@ cf_fused_kernel(const CfParams p) {
   }
 }
 
+// ===========================================================================
+// The TMA route
+
+#define CF_SLOTS 5                     // boxes per tile: shift groups
+                                       // cut to 16 channels
+#define CF_KSMAX 5                     // 16-channel K steps per tap: C <= 80
+#define CF_CMAX (16 * CF_KSMAX)
+#define CF_TW 64                       // tile columns: one wgmma's m64
+#define CF_BOXW 88                     // staged columns: w0 - 8 .. w0 + 79
+#define CF_LINE (CF_BOXW * 2)          // bytes of one staged channel row
+#define CF_NCO 48                      // output channels: n48
+#define CF_N8 (CF_NCO / 8)
+#define CF_TMA_THREADS 384             // loader warpgroup, two consumers
+#define CF_OUT_BYTES (CF_NCO * 128)    // one output row tile, 48 x 64
+#define CF_MAX_STAGES 3
+// setmaxnreg: 128 * 64 + 256 * 216 <= 384 * 168, the block's registers
+#define CF_LOADER_REGS 64
+#define CF_CONSUMER_REGS 216
+
+struct CfTmaParams {
+  const bf16* b;                       // (CO)
+  const float* mult;                   // (C) or null: no affine
+  const float* off;
+  float* stats;                        // (N, CO, 2), zeroed, or null
+  const bf16* wpk;                     // packed weights, w_bytes
+  int N, D, H, W, C, CO;
+  int KS;                              // 16-channel K steps per tap
+  int w_bytes;                         // 9 * KS * CF_N8 * 256
+  int nslots;                          // slots, <= CF_SLOTS
+  int s_c0[CF_SLOTS], s_n[CF_SLOTS], s_sh[CF_SLOTS];  // first channel,
+                                       // channels, shift of each slot
+  int bw;                              // channels per box: the widest slot
+  int TH;                              // rows per tile, 2 * MPW
+  int stages;
+  int n_ht, n_wt, ntiles;
+  int slot_bytes;                      // one slot's box, to 128 bytes
+  int stage_bytes;                     // nslots slots, and a zero slot
+                                       // where C % 16 != 0
+  int off_out, off_w, off_tab, off_red, off_bar;
+};
+
+__device__ __forceinline__ unsigned lds16(unsigned addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+// a tile u: (n, depth, row tile, column tile), column tiles innermost
+struct CfTile {
+  int n, d, h0, w0;
+  __device__ CfTile(const CfTmaParams& p, int u) {
+    w0 = (u % p.n_wt) * CF_TW;
+    int rest = u / p.n_wt;
+    h0 = (rest % p.n_ht) * p.TH;
+    rest /= p.n_ht;
+    d = rest % p.D;
+    n = rest / p.D;
+  }
+};
+
+// MPW: rows of a tile per consumer warpgroup (TH = 2 * MPW); KS: 16-channel
+// K steps per tap (p.KS)
+template <int MPW, int KS>
+__global__ void __launch_bounds__(CF_TMA_THREADS, 1)
+cf_fused_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap ymap,
+                    const CfTmaParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzled output tiles want 1024-byte alignment
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int S = p.stages, R = p.TH + 2, bw = p.bw;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.off_bar);
+  uint64_t* ready = full + S;
+  uint64_t* empty = ready + S;
+  uint64_t* wbar = empty + S;
+  float* s_m = reinterpret_cast<float*>(smem + p.off_tab);  // per channel
+  float* s_o = s_m + CF_CMAX;
+  const bool affine = p.mult != nullptr;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(ready + s, 96);        // the transform warps' threads
+      mbar_init(empty + s, 8);         // the consumer warps
+    }
+    mbar_init(wbar, 1);
+    mbar_init_fence();
+  }
+  for (int c = tid; c < p.C; c += CF_TMA_THREADS) {
+    s_m[c] = affine ? p.mult[c] : 1.0f;
+    s_o[c] = affine ? p.off[c] : 0.0f;
+  }
+  // the zero slot of each stage (K rows past C read it), never loaded
+  {
+    const int zero16 = (p.stage_bytes - p.nslots * p.slot_bytes) / 16;
+    for (int i = tid; i < S * zero16; i += CF_TMA_THREADS)
+      reinterpret_cast<uint4*>(smem + (i / zero16) * p.stage_bytes +
+                               p.nslots * p.slot_bytes)[i % zero16] =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  // this block's tiles: a contiguous range
+  const int u0 = (int)((long long)blockIdx.x * p.ntiles / gridDim.x);
+  const int u1 = (int)((long long)(blockIdx.x + 1) * p.ntiles / gridDim.x);
+
+  if (warp < 4) {
+    // the loader and transform warps give registers away; every path of
+    // theirs ends here
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        CF_LOADER_REGS));
+    if (warp == 0) {
+      // ---- the loader: one thread issues every copy
+      if (lane != 0) return;
+      mbar_expect(wbar, p.w_bytes);
+      bulk_load(smem + p.off_w, p.wpk, p.w_bytes, wbar);
+      const unsigned bytes = p.nslots * bw * R * CF_LINE;
+      int s = 0;
+      unsigned ph = 0;
+      for (int u = u0; u < u1; ++u) {
+        const CfTile a(p, u);
+        mbar_wait(empty + s, ph ^ 1);    // the stage's last use released
+        mbar_expect(full + s, bytes);
+        unsigned char* st = smem + s * p.stage_bytes;
+        // one box per slot, its first column (w0 - 8) on 16 bytes as TMA
+        // requires
+        for (int g = 0; g < p.nslots; ++g)
+          tma_load_5d(st + g * p.slot_bytes, &xmap, a.w0 - 8, p.s_c0[g],
+                      a.h0 - 1, a.d - p.s_sh[g], a.n, full + s);
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      return;
+    }
+    {
+      // ---- the transform warps: the affine in place, where the source lies
+      // inside the volume (TMA's zeros stay zero)
+      if (!affine) return;
+      const int twarp = warp - 1;
+      int s = 0;
+      unsigned ph = 0;
+      for (int u = u0; u < u1; ++u) {
+        const CfTile a(p, u);
+        mbar_wait(full + s, ph);
+        unsigned char* st = smem + s * p.stage_bytes;
+        // rows of the slots' boxes across the 3 warps, a row's 16-byte
+        // chunks (11 per channel row) across the lanes; rows and slots whose
+        // source lies outside the volume stay TMA's zeros
+        for (int g = 0; g < p.nslots; ++g) {
+          const int ds = a.d - p.s_sh[g];
+          if (ds < 0 || ds >= p.D) continue;
+          for (int r = twarp; r < R; r += 3) {
+            const int h = a.h0 - 1 + r;
+            if (h < 0 || h >= p.H) continue;
+            unsigned char* row = st + g * p.slot_bytes + r * bw * CF_LINE;
+            for (int i = lane; i < p.s_n[g] * (CF_LINE / 16); i += 32) {
+              const int k = i / (CF_LINE / 16), pc = i - k * (CF_LINE / 16);
+              const int w = a.w0 - 8 + 8 * pc;
+              uint4* ptr =
+                  reinterpret_cast<uint4*>(row + k * CF_LINE + pc * 16);
+              uint4 v = *ptr;
+              __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
+              const float m = s_m[p.s_c0[g] + k], o = s_o[p.s_c0[g] + k];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float2 f = __bfloat1622float2(h2[e]);
+                const bool in0 = w + 2 * e >= 0 && w + 2 * e < p.W;
+                const bool in1 = w + 2 * e + 1 >= 0 && w + 2 * e + 1 < p.W;
+                h2[e] = __floats2bfloat162_rn(
+                    in0 ? norm_lrelu(f.x, m, o) : f.x,
+                    in1 ? norm_lrelu(f.y, m, o) : f.y);
+              }
+              *ptr = v;
+            }
+          }
+        }
+        mbar_arrive(ready + s);
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      return;
+    }
+  }
+
+  // ---- the two consumer warpgroups: warpgroup wg owns rows wg + 2f
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      CF_CONSUMER_REGS));
+  const int ctid = tid - 128, wg = ctid / 128, wq = (ctid / 32) % 4;
+  const int q = lane % 4;
+  uint64_t* arrived = affine ? ready : full;
+  float bias[2 * CF_N8], s1[2 * CF_N8], s2[2 * CF_N8];
+#pragma unroll
+  for (int i = 0; i < 2 * CF_N8; ++i) {
+    const int co = 8 * (i / 2) + 2 * q + i % 2;
+    bias[i] = co < p.CO ? __bfloat162float(p.b[co]) : 0.0f;
+    s1[i] = s2[i] = 0.0f;
+  }
+  float* red = reinterpret_cast<float*>(smem + p.off_red);
+  // the statistics of sample N_ so far: over the lanes of a column, then
+  // the 8 warps, one atomic pair per channel
+#define CF_FLUSH(N_)                                                        \
+  {                                                                         \
+    _Pragma("unroll") for (int i = 0; i < 2 * CF_N8; ++i)                   \
+    _Pragma("unroll") for (int m = 4; m < 32; m *= 2) {                     \
+      s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], m);                      \
+      s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], m);                      \
+    }                                                                       \
+    if (lane < 4)                                                           \
+      _Pragma("unroll") for (int i = 0; i < 2 * CF_N8; ++i) {               \
+        const int co = 8 * (i / 2) + 2 * lane + i % 2;                      \
+        red[((ctid / 32) * CF_NCO + co) * 2] = s1[i];                       \
+        red[((ctid / 32) * CF_NCO + co) * 2 + 1] = s2[i];                   \
+      }                                                                     \
+    NamedSync<3, 256>::sync();                                              \
+    if (ctid < 2 * p.CO) {                                                  \
+      const int co = ctid / 2, k = ctid % 2;                                \
+      float v = 0.0f;                                                       \
+      for (int w = 0; w < 8; ++w) v += red[(w * CF_NCO + co) * 2 + k];      \
+      atomicAdd(&p.stats[((size_t)(N_) * p.CO + co) * 2 + k], v);           \
+    }                                                                       \
+    NamedSync<3, 256>::sync();                                              \
+    _Pragma("unroll") for (int i = 0; i < 2 * CF_N8; ++i) s1[i] = s2[i] =   \
+        0.0f;                                                               \
+  }
+  // A of one (row, tap, K step), this warp's 16 columns x 16 channels in
+  // mma.m16n8k16's A layout: (column m, channels 2q, 2q + 1) in a[0], m +
+  // 8 in a[1], channels + 8 in a[2], a[3]; column m of tap column dw is
+  // staged column m + 7 + dw. K is the channels in order: each lane's
+  // channel sits in its slot's box (coff: slot and row of the box);
+  // channels past C read the zero slot (against zero weights).
+  unsigned coff[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int c = 16 * ks + 2 * q + 8 * (v / 2) + v % 2;
+      int off = p.nslots * p.slot_bytes;
+      for (int g = 0; g < p.nslots; ++g)
+        if (c >= p.s_c0[g] && c < p.s_c0[g] + p.s_n[g])
+          off = g * p.slot_bytes + (c - p.s_c0[g]) * CF_LINE;
+      coff[ks][v] = off;
+    }
+  const unsigned col = (16 * wq + lane / 4 + 7) * 2;
+// A of step K_ (tap t, channel step ks) of every row into ab[B_]
+#define CF_LOAD_A(B_, K_)                                                   \
+  {                                                                         \
+    const int t_ = (K_) / KS, ks_ = (K_) % KS;                              \
+    _Pragma("unroll") for (int f = 0; f < MPW; ++f) {                       \
+      const unsigned row = st + ((wg + 2 * f + t_ / 3) * bw) * CF_LINE +     \
+                           col + (t_ % 3) * 2;                              \
+      _Pragma("unroll") for (int h = 0; h < 2; ++h)                         \
+      _Pragma("unroll") for (int i = 0; i < 2; ++i) {                       \
+        const unsigned at = row + 16 * i;                                   \
+        ab[B_][f][2 * h + i] = lds16(at + coff[ks_][2 * h]) |               \
+                               lds16(at + coff[ks_][2 * h + 1]) << 16;      \
+      }                                                                     \
+    }                                                                       \
+  }
+  unsigned char* out = smem + p.off_out + wg * MPW * CF_OUT_BYTES;
+  mbar_wait(wbar, 0);
+  const unsigned char* wsm = smem + p.off_w;
+  int s = 0;
+  unsigned ph = 0;
+  int cur_n = -1;
+  for (int u = u0; u < u1; ++u) {
+    const CfTile a(p, u);
+    if (p.stats && a.n != cur_n) {
+      if (cur_n >= 0) CF_FLUSH(cur_n);
+      cur_n = a.n;
+    }
+    mbar_wait(arrived + s, ph);
+    const unsigned st = smem_u32(smem + s * p.stage_bytes);
+    float acc[MPW][4 * CF_N8];
+#pragma unroll
+    for (int f = 0; f < MPW; ++f)
+#pragma unroll
+      for (int i = 0; i < 4 * CF_N8; ++i) acc[f][i] = 0.0f;
+    // 9 taps x KS steps of one m64n48k16 per row, straight-line; A in
+    // three register buffers: the next step's loads while two groups may
+    // be in flight
+    unsigned ab[3][MPW][4];
+    CF_LOAD_A(0, 0);
+#pragma unroll
+    for (int f = 0; f < MPW; ++f)
+#pragma unroll
+      for (int i = 0; i < 4 * CF_N8; ++i)
+        asm volatile("" : "+f"(acc[f][i])::"memory");
+#pragma unroll
+    for (int k = 0; k < 9 * KS; ++k) {
+      wgmma_fence();
+      const uint64_t desc = wgmma_desc(wsm + k * CF_N8 * 256);
+#pragma unroll
+      for (int f = 0; f < MPW; ++f)
+        WgmmaRS<CF_N8>::mma(acc[f], ab[k % 3][f], desc);
+      wgmma_commit();
+      if (k + 1 < 9 * KS) CF_LOAD_A((k + 1) % 3, k + 1);
+      wgmma_wait<1>();                 // step k - 1 done: its A free
+#pragma unroll
+      for (int f = 0; f < MPW; ++f) keep_live(ab[(k + 2) % 3][f]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+#pragma unroll
+      for (int f = 0; f < MPW; ++f) keep_live(ab[b][f]);
+#pragma unroll
+    for (int f = 0; f < MPW; ++f)
+#pragma unroll
+      for (int i = 0; i < 4 * CF_N8; ++i)
+        asm volatile("" : "+f"(acc[f][i])::"memory");
+    if (lane == 0) mbar_arrive(empty + s);   // this warp's reads done
+    if (++s == S) {
+      s = 0;
+      ph ^= 1;
+    }
+
+    // ---- epilogue: bias, statistics, the swizzled (48 x 64) row tiles,
+    // one TMA store per row inside H
+    if (ctid % 128 == 0) bulk_wait_read<0>();  // the last stores read
+    if (wg == 0) NamedSync<1, 128>::sync(); else NamedSync<2, 128>::sync();
+#pragma unroll
+    for (int f = 0; f < MPW; ++f) {
+      const bool row_in = a.h0 + wg + 2 * f < p.H;
+      unsigned char* o = out + f * CF_OUT_BYTES;
+#pragma unroll
+      for (int i = 0; i < 4 * CF_N8; ++i) {
+        const int j = i / 4, hh = (i / 2) % 2, e = i % 2;
+        const int m = 16 * wq + lane / 4 + 8 * hh;   // column in the tile
+        const int co = 8 * j + 2 * q + e;
+        const float v = acc[f][i] + bias[2 * j + e];
+        if (row_in && a.w0 + m < p.W && co < p.CO) {
+          s1[2 * j + e] += v;
+          s2[2 * j + e] += v * v;
+        }
+        *reinterpret_cast<bf16*>(o + co * 128 +
+                                 (((m >> 3) ^ (co & 7)) << 4) +
+                                 (m & 7) * 2) = __float2bfloat16(v);
+      }
+    }
+    fence_proxy_async();               // for the TMA store
+    if (wg == 0) NamedSync<1, 128>::sync(); else NamedSync<2, 128>::sync();
+    if (ctid % 128 == 0) {
+      for (int f = 0; f < MPW; ++f)
+        if (a.h0 + wg + 2 * f < p.H)
+          tma_store_5d(&ymap, out + f * CF_OUT_BYTES, a.w0,
+                       a.h0 + wg + 2 * f, 0, a.d, a.n);
+      bulk_commit();
+    }
+  }
+  if (p.stats && cur_n >= 0) CF_FLUSH(cur_n);
+  if (ctid % 128 == 0) bulk_wait_all();  // the stores done before exit
+#undef CF_LOAD_A
+#undef CF_FLUSH
+}
+
+// The TMA route's tile rows, ring and shared-memory layout for nslots
+// boxes of bw channels and KS K steps, or false where they do not fit: 4
+// rows (two m64 tiles per consumer warpgroup), else 2, on the most stages
+// (3, else 2)
+static bool cf_tma_layout(CfTmaParams& p) {
+  p.w_bytes = 9 * p.KS * CF_N8 * 256;
+  for (int th : {4, 2}) {
+    for (int st = CF_MAX_STAGES; st >= 2; --st) {
+      const int slot = (p.bw * (th + 2) * CF_LINE + 127) / 128 * 128;
+      const int stage = (p.nslots + (p.C % 16 ? 1 : 0)) * slot;
+      const size_t out = (size_t)th * CF_OUT_BYTES;
+      const size_t tab = 2 * CF_CMAX * sizeof(float);
+      const size_t red = (size_t)8 * CF_NCO * 2 * sizeof(float);
+      const size_t off_out = ((size_t)st * stage + 1023) / 1024 * 1024;
+      const size_t total = 1024 + off_out + out + p.w_bytes + tab + red +
+                           8 * (3 * st + 1);
+      if (total > SMEM_LIMIT) continue;
+      p.TH = th;
+      p.stages = st;
+      p.slot_bytes = slot;
+      p.stage_bytes = stage;
+      p.off_out = (int)off_out;
+      p.off_w = p.off_out + (int)out;
+      p.off_tab = p.off_w + p.w_bytes;
+      p.off_red = p.off_tab + (int)tab;
+      p.off_bar = p.off_red + (int)red;
+      return true;
+    }
+  }
+  return false;
+}
+
+// x (N, D, C, H, W) over (W, C, H, D, N) in boxes of (88, bw, TH + 2, 1,
+// 1): a box lands as [row][channel][88]. No swizzle: the consumers read
+// single values at any column.
+static int cf_x_map(CUtensorMap* map, const void* x, const CfTmaParams& p) {
+  const uint64_t HW2 = 2ull * p.H * p.W;
+  const uint64_t dims[5] = {(uint64_t)p.W, (uint64_t)p.C, (uint64_t)p.H,
+                            (uint64_t)p.D, (uint64_t)p.N};
+  const uint64_t strides[4] = {HW2, 2ull * p.W, HW2 * p.C, HW2 * p.C * p.D};
+  const int box[5] = {CF_BOXW, p.bw, p.TH + 2, 1, 1};
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, x, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// y (N, D, CO, H, W) over (W, H, CO, D, N) in boxes of one row of 64
+// columns and 48 output channels, 128-byte swizzle
+static int cf_y_map(CUtensorMap* map, void* y, const CfTmaParams& p) {
+  const uint64_t HW2 = 2ull * p.H * p.W;
+  const uint64_t dims[5] = {(uint64_t)p.W, (uint64_t)p.H, (uint64_t)p.CO,
+                            (uint64_t)p.D, (uint64_t)p.N};
+  const uint64_t strides[4] = {2ull * p.W, HW2, HW2 * p.CO,
+                               HW2 * p.CO * p.D};
+  const int box[5] = {CF_TW, 1, CF_NCO, 1, 1};
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, y, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the widest of nslots slots, or 0 where a slot is not 1 .. 16 channels
+static int cf_box_channels(const int* slots, int nslots) {
+  int bw = 0;
+  for (int g = 0; g < nslots; ++g) {
+    const int n = slots[3 * g + 1];
+    if (n < 1 || n > 16) return 0;
+    bw = n > bw ? n : bw;
+  }
+  return bw;
+}
+
+static int launch_cf_tma(const void* x, const void* wpk, const void* b,
+                         const void* mult, const void* off, void* y,
+                         void* stats, const int* slots, int nslots, int N,
+                         int D, int H, int W, int C, int CO,
+                         cudaStream_t stream) {
+  CfTmaParams p;
+  p.b = static_cast<const bf16*>(b);
+  p.mult = static_cast<const float*>(mult);
+  p.off = static_cast<const float*>(off);
+  p.stats = static_cast<float*>(stats);
+  p.wpk = static_cast<const bf16*>(wpk);
+  p.N = N; p.D = D; p.H = H; p.W = W; p.C = C; p.CO = CO;
+  p.nslots = nslots;
+  p.KS = (C + 15) / 16;
+  for (int g = 0; g < CF_SLOTS; ++g) {
+    const bool on = g < nslots;
+    p.s_c0[g] = on ? slots[3 * g] : 0;
+    p.s_n[g] = on ? slots[3 * g + 1] : 0;
+    p.s_sh[g] = on ? slots[3 * g + 2] : 0;
+    if (on && (p.s_c0[g] < 0 || p.s_c0[g] + p.s_n[g] > C))
+      return (int)cudaErrorInvalidValue;
+  }
+  p.bw = cf_box_channels(slots, nslots);
+  if (p.bw == 0 || p.KS > CF_KSMAX || nslots > CF_SLOTS || wpk == nullptr ||
+      (uintptr_t)wpk % 16 || !cf_tma_layout(p))
+    return (int)cudaErrorInvalidValue;
+  p.n_ht = (H + p.TH - 1) / p.TH;
+  p.n_wt = (W + CF_TW - 1) / CF_TW;
+  const long long ntiles = (long long)N * D * p.n_ht * p.n_wt;
+  if (ntiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  p.ntiles = (int)ntiles;
+  CUtensorMap xmap, ymap;
+  int err = cf_x_map(&xmap, x, p);
+  if (!err) err = cf_y_map(&ymap, y, p);
+  if (err) return err;
+  const size_t smem = 1024 + (size_t)p.off_bar + 8 * (3 * p.stages + 1);
+  typedef void (*Kernel)(const CUtensorMap, const CUtensorMap,
+                         const CfTmaParams);
+  static const Kernel kernels[2][CF_KSMAX] = {
+      {cf_fused_tma_kernel<1, 1>, cf_fused_tma_kernel<1, 2>,
+       cf_fused_tma_kernel<1, 3>, cf_fused_tma_kernel<1, 4>,
+       cf_fused_tma_kernel<1, 5>},
+      {cf_fused_tma_kernel<2, 1>, cf_fused_tma_kernel<2, 2>,
+       cf_fused_tma_kernel<2, 3>, cf_fused_tma_kernel<2, 4>,
+       cf_fused_tma_kernel<2, 5>}};
+  const Kernel kernel = kernels[p.TH / 2 - 1][p.KS - 1];
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = p.ntiles < sms ? p.ntiles : sms;
+  kernel<<<grid, CF_TMA_THREADS, smem, stream>>>(xmap, ymap, p);
+  return (int)cudaGetLastError();
+}
+
 // one image row (W*C values of `esize` bytes) per block, through shared
 // memory: read as the row, written as W rows of C (the same bytes)
 __global__ void reshape_hwc_kernel(const unsigned char* x, unsigned char* y,
@@ -276,9 +803,11 @@ __global__ void reshape_hwc_kernel(const unsigned char* x, unsigned char* y,
   }
 }
 
-// Plain C entry points (bound with ctypes). Each returns a cudaError_t: the
-// configuration check, cudaFuncSetAttribute, or cudaGetLastError() after
-// the launch. Launches on `stream`; does not synchronise.
+// ===========================================================================
+// Plain C entry points (bound with ctypes). The launches return a
+// cudaError_t: the configuration check, the tensor maps,
+// cudaFuncSetAttribute, or cudaGetLastError() after the launch. They launch
+// on `stream` and do not synchronise.
 
 // y (H*W, C) = x (H, W*C), elements of `esize` bytes
 extern "C" int reshape_hwc_launch(const void* x, void* y, int H, int W,
@@ -297,18 +826,51 @@ extern "C" int reshape_hwc_launch(const void* x, void* y, int H, int W,
   return (int)cudaGetLastError();
 }
 
+// The route of the channels-first block, the one place the rule lives: 1
+// (TMA) where tensor maps describe x (N, D, C, H*W) and y (N, D, CO, H*W)
+// (16-byte-aligned tensors, W % 8 == 0 for 16-byte row strides), CO <= 48
+// (one n48 tile), C <= 80, the shift groups fall in 1 .. CF_SLOTS slots of
+// 1 .. 16 channels (slots: (first channel, channels, shift) triples, the
+// host's cut) and the stages fit shared memory; else 0 (ldg)
+extern "C" int cf_route(const void* x, const void* y, int N, int D, int H,
+                        int W, int C, int CO, const int* slots, int nslots) {
+  if (N < 1 || D < 1 || H < 1 || W < 1 || C < 1 || CO < 1) return 0;
+  if ((uintptr_t)x % 16 || (uintptr_t)y % 16 || W % 8) return 0;
+  if (CO > CF_NCO || C > CF_CMAX || nslots < 1 || nslots > CF_SLOTS)
+    return 0;
+  CfTmaParams p;
+  p.C = C;
+  p.KS = (C + 15) / 16;
+  p.nslots = nslots;
+  p.bw = cf_box_channels(slots, nslots);
+  return p.bw > 0 && cf_tma_layout(p) ? 1 : 0;
+}
+
 // x (N, D, C, H*W) bf16; w (CO, 9*C) bf16, k = tap * C + channel, tap =
-// 3*(dh+1) + (dw+1); b (CO) bf16; mult/off (C) float32 or both null; y
-// (N, D, CO, H*W) bf16; stats (N, CO, 2) float32 zeroed, or null; groups
-// (c0, c1, shift) triples
-extern "C" int cf_fused_launch(const void* x, const void* w, const void* b,
-                               const void* mult, const void* off, void* y,
-                               void* stats, const int* groups, int ngroups,
-                               int N, int D, int H, int W, int C, int CO,
+// 3*(dh+1) + (dw+1) (the ldg route); wpk the packed weights of the TMA
+// route (9 * ceil(C / 16) * CF_N8 * 256 bytes: per tap the channels in
+// 16-channel steps by wgmma_b_index over CF_N8 groups of 8 output
+// channels, zero past CO and C); b (CO) bf16; mult/off (C) float32 or
+// both null; y (N, D, CO, H*W) bf16; stats (N, CO, 2) float32 zeroed, or
+// null; groups (c0, c1, shift) triples (the ldg route), slots (first
+// channel, channels, shift) triples (the TMA route). Runs the route
+// cf_route gives, which then needs its weights (the other pointer may be
+// null), and stores it in *route.
+extern "C" int cf_fused_launch(const void* x, const void* w, const void* wpk,
+                               const void* b, const void* mult,
+                               const void* off, void* y, void* stats,
+                               const int* groups, int ngroups,
+                               const int* slots, int nslots, int N, int D,
+                               int H, int W, int C, int CO, int* route,
                                void* stream) {
   if (N < 1 || D < 1 || H < 1 || W < 1 || C < 1 || CO < 1 || ngroups < 1 ||
       ngroups > MAX_GROUPS || (mult == nullptr) != (off == nullptr))
     return (int)cudaErrorInvalidValue;
+  *route = cf_route(x, y, N, D, H, W, C, CO, slots, nslots);
+  if (*route)
+    return launch_cf_tma(x, wpk, b, mult, off, y, stats, slots, nslots, N, D,
+                         H, W, C, CO, static_cast<cudaStream_t>(stream));
+  if (w == nullptr) return (int)cudaErrorInvalidValue;
   CfParams p;
   p.x = static_cast<const bf16*>(x);
   p.w = static_cast<const bf16*>(w);
@@ -339,7 +901,7 @@ extern "C" int cf_fused_launch(const void* x, const void* w, const void* b,
                       (size_t)(CF_THREADS / 32) * BM * 2 * 4;
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      cf_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cf_fused_ldg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   // depth chunks: at least ~4 blocks per SM of a 132-SM card in all
@@ -353,7 +915,7 @@ extern "C" int cf_fused_launch(const void* x, const void* w, const void* b,
   const long long n_blocks = tiles * n_dc;
   if (n_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)n_blocks, (CO + BM - 1) / BM);
-  cf_fused_kernel<<<grid, CF_THREADS, smem,
-                    static_cast<cudaStream_t>(stream)>>>(p);
+  cf_fused_ldg_kernel<<<grid, CF_THREADS, smem,
+                        static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

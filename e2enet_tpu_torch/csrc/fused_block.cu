@@ -56,9 +56,9 @@
 //    shuffles and shared memory, one atomic pair per output channel and
 //    tile; it runs while the next tile's copies land.
 //  * The same kernel with its taps on mma.sync (mma_taps_packed over the
-//    same packed weights) is the control that measures the wgmma loop;
-//    with one K chunk it adds in the order of the first design's mma_tap
-//    loop (tap by tap, 16 channels at a time), which #13 still runs.
+//    same packed weights) is the control that measures the wgmma loop.
+//    The pipelined block (#13, fused_block_pipe.cu) runs this body's taps
+//    and epilogue in warp-specialised persistent blocks.
 
 #include "bulk_copy.cuh"
 #include "shift_conv_block.cuh"
@@ -80,38 +80,6 @@ struct Chunks {
                     // output-channel tile ct at (ct * nch + ch) * w_bytes
   int off_bar;      // two mbarriers, one per weight buffer
 };
-
-// The weights of every (output-channel tile, K chunk) packed for wgmma
-// (wgmma_b_index), each chunk contiguous, zero past CO and C: one bulk copy
-// (cp.async.bulk, the Tensor Memory Accelerator) brings a chunk into
-// shared memory, where 16-byte copies would take thousands of requests
-template <int NFW>
-__global__ void pack_weights_kernel(const Params p, const Chunks ck,
-                                    bf16* wpk) {
-  const int KS = p.Cs / 16, KC8 = p.Cs / 8, rows = NFW * 16;
-  const int total = ck.n_co * ck.nch * 9 * rows * KC8;
-  for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < total;
-       u += gridDim.x * blockDim.x) {
-    int rest = u;
-    const int k8 = rest % KC8;
-    rest /= KC8;
-    const int n = rest % rows;
-    rest /= rows;
-    const int t = rest % 9;
-    rest /= 9;
-    const int ch = rest % ck.nch, ct = rest / ck.nch;
-    const int co0 = ct * rows;
-    const int ncol = min(rows, p.CO - co0), N8 = (ncol + 7) / 8;
-    if (n >= N8 * 8) continue;
-    bf16* dst = wpk + (size_t)(ct * ck.nch + ch) * (ck.w_bytes / 2) +
-                wgmma_b_index(t, n, k8 * 8, KS, N8);
-    const int k = ch * p.Cs + k8 * 8;
-    const bf16* src = p.w + ((size_t)t * p.CO + co0 + n) * p.C + k;
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      dst[e] = n < ncol && k + e < p.C ? src[e] : __float2bfloat16(0.0f);
-  }
-}
 
 // a block tile: (n, d, rows h0 .., columns w0 ..) and output channels
 // co0 .. co0 + ncol; output-channel tiles innermost
@@ -296,7 +264,8 @@ static int launch_chunked(Params& p, bf16* wpk, int wpk_bytes, bool wgmma,
       (long long)p.N * p.D * ck.n_ht * p.n_wt * ck.n_co;
   if (ntiles > 2147483647LL) return (int)cudaErrorInvalidValue;
   ck.ntiles = (int)ntiles;
-  pack_weights_kernel<NFW><<<64, 256, 0, stream>>>(p, ck, wpk);
+  pack_weights_kernel<NFW><<<64, 256, 0, stream>>>(p, ck.n_co, ck.nch,
+                                                  ck.w_bytes, wpk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   void (*kernel)(const Params, const Chunks) =

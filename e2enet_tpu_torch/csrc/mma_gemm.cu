@@ -48,12 +48,13 @@
 // same warpgroups' next products, and the int8 route also pays the repack
 // of B.
 
-#include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tma.cuh"         // tensor maps, TMA loads, desc_sw128; mbarriers
 
 #define GEMM_BM 128
 #define GEMM_BN 128
@@ -387,60 +388,6 @@ static int launch_gemm(const GemmArgs& g, cudaStream_t stream) {
 // mbarriers
 #define WG_SMEM (1024 + WG_STAGES * WG_STAGE_BYTES + 2 * WG_STAGES * 8)
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-// the calling thread arrives (count 1 of the full barrier's one) and the
-// barrier then waits for `bytes` more of TMA copies
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-// one TMA box (inner coordinate c0, outer c1) into shared memory, counted
-// on the mbarrier
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma matrix descriptor of a 128-byte-swizzled tile at shared address
-// `addr` (the swizzle atom, 8 rows of 128 bytes, 1024-byte aligned): LBO
-// and SBO in bytes. K-major (A; s8 B): SBO 1024 from one 8-row group to
-// the next, LBO unused; a k step moves the start by its 32 bytes.
-// MN-major (bf16 B): SBO 1024 from 8 k rows to the next 8, LBO 8192 from
-// one 64-column box to the next; a k16 step moves the start 2048 bytes.
-__device__ __forceinline__ uint64_t desc_sw128(unsigned addr, unsigned lbo,
-                                               unsigned sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -698,69 +645,23 @@ static int launch_repack(const void* b, void* bt, int K, int N,
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// a 2D row-major tensor (outer rows of `inner` elements, `row_bytes`
-// apart) read in boxes of box_inner x box_outer, 128-byte swizzle, zero
-// fill outside
-static int tensor_map(CUtensorMap* map, CUtensorMapDataType type,
-                      const void* ptr, int inner, int outer,
-                      uint64_t row_bytes, int box_inner, int box_outer) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides,
-                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <bool INT8>
 static int launch_wgmma(const void* a, const void* b, void* c, int M, int N,
                         int K, cudaStream_t stream) {
   CUtensorMap map_a, map_b;
   int err;
   if constexpr (INT8) {
-    err = tensor_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, K, M, K, 128,
-                     WG_BM);
+    err = tensor_map_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, K, M, K,
+                        128, WG_BM);
     if (!err)   // b is the repacked (N, K)
-      err = tensor_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, K, N, K,
-                       128, WG_BN);
+      err = tensor_map_2d(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, K, N, K,
+                          128, WG_BN);
   } else {
-    err = tensor_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, K, M,
-                     2ull * K, 64, WG_BM);
+    err = tensor_map_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, K, M,
+                        2ull * K, 64, WG_BM);
     if (!err)   // b as it is, (K, N): 64 columns by 64 k rows per box
-      err = tensor_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, N, K,
-                       2ull * N, 64, 64);
+      err = tensor_map_2d(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, N, K,
+                          2ull * N, 64, 64);
   }
   if (err) return err;
   auto kernel = wgmma_gemm_kernel<INT8>;

@@ -2,16 +2,20 @@
 // fused_block.cu), the fused block with a lazy up-link part (#3,
 // qfused.cu), the block's backward (fused_block_bwd.cu: its dgrad runs
 // the whole body with its own hook and epilogue, its wgrad stage_operand
-// alone) and the software-pipelined block (fused_block_pipe.cu:
-// stage_operand_issue / stage_operand_finish, mma_tap and store_tile around
-// its own depth loop), for NVIDIA Hopper (sm_90a), bfloat16.
+// alone) and the warp-specialised pipelined block (#13,
+// fused_block_pipe.cu: the staging in its producer warpgroups, the
+// K-chunked wgmma taps and the register epilogue in its consumer
+// warpgroups), for NVIDIA Hopper (sm_90a), bfloat16.
 //
 // Staging (all of them): stage_operand_issue builds a per-channel table
 // (source pointer of the shifted depth, pending norm) and issues the
 // operand tile's copies by cp.async, 16 or 4 bytes per 8-channel unit where
 // its channels share a source row, channel by channel otherwise, zeros
 // where the shift or the halo leaves the volume; stage_operand_finish waits
-// and applies the pending norms in place to the copied units only.
+// and applies the pending norms in place to the copied units only. Both run
+// on the whole block; stage_operand_issue also, with a NamedSync, on one
+// warpgroup (each of #13's producers, which run their own norm pass); the
+// register epilogue likewise on the block or on #13's consumers.
 //
 // Two bodies run on it:
 //  * shift_conv_block_body: the first design, kept for the dgrad, whose
@@ -24,19 +28,20 @@
 //      { shift_conv_block_body<NG, NFW, MPW>(p, ops, ops); }
 //    and the hook adds a staging pass after the norms (hook.stage(),
 //    shared memory at p.off_hook; a part with a null source pointer is
-//    staged as zeros for the hook to fill). #13 runs the same pieces
-//    (stage_operand_issue / stage_operand_finish, mma_tap, and store_tile
-//    through shared memory) around its own depth loop.
-//  * The K-chunked wgmma body of #1 and #3 (chunk_step,
-//    materialised_chunks): the operand in K chunks of at most 48 channels,
-//    each chunk's 9 taps on wgmma_taps (wgmma.mma_async with A from
-//    registers by mma_tap's ldmatrix addressing, B by descriptor from
-//    weights packed by wgmma_b_index, straight-line code per chunk width
-//    and output width, n <= 48 with two m64 tiles per warpgroup or n <= 96
-//    with one), the next chunk's copies in flight during this chunk's
-//    wgmmas (across tiles too, in #1's persistent blocks), and one epilogue
-//    from the registers (store_tile_regs: y stored as bf16 pairs, the
-//    statistics summed over the block). mma_taps_packed runs the same
+//    staged as zeros for the hook to fill).
+//  * The K-chunked wgmma body of #1, #3 and #13 (#1 and #3: chunk_step,
+//    materialised_chunks; #13: chunk_taps between its mbarriers; the
+//    weights of #1 and #13 packed by pack_weights_kernel): the operand in
+//    K chunks of at most 48 channels, each chunk's 9 taps on wgmma_taps
+//    (wgmma.mma_async with A from registers by mma_tap's ldmatrix
+//    addressing, B by descriptor from weights packed by wgmma_b_index,
+//    straight-line code per chunk width and output width, n <= 48 with two
+//    m64 tiles per warpgroup or n <= 96 with one), the next chunk's copies
+//    in flight during this chunk's
+//    wgmmas (across tiles too, in #1's persistent blocks; in #13 staged by
+//    its producer warpgroups beside the consumers' wgmmas), and one
+//    epilogue from the registers (store_tile_regs: y stored as bf16 pairs,
+//    the statistics summed over the block). mma_taps_packed runs the same
 //    products on mma.sync: the control that measures the wgmma loop.
 // Both leave the sums in the same registers (acc[f][j][h][e]: row
 // fragment f, 16 output channels j, 8-channel half h).
@@ -98,6 +103,21 @@ struct NoHook {
   size_t fit(const Params&, size_t) { return 0; }
   __device__ void stage(const Params&, bf16*, unsigned char*, int, int, int,
                         int, int) const {}
+};
+
+// Who meets at a barrier: the whole block (the default of the staging and
+// the epilogue), or one role of a warp-specialised block at a named barrier
+// (#13: each producer warpgroup, the consumer warpgroups)
+struct BlockSync {
+  static constexpr int threads = NTHREADS;
+  __device__ __forceinline__ static void sync() { __syncthreads(); }
+};
+template <int ID, int THREADS>
+struct NamedSync {
+  static constexpr int threads = THREADS;
+  __device__ __forceinline__ static void sync() {
+    asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
+  }
 };
 
 __device__ __forceinline__ float norm_lrelu(float x, float m, float o) {
@@ -189,17 +209,17 @@ __device__ __forceinline__ void stage_weights(const Params& p, bf16* s_w,
   }
 }
 
-// visits the staged units (cell, 8-channel chunk k) of this thread in
-// order, stepping (k, col, row) without divisions
+// visits the staged units (cell, 8-channel chunk k) of this thread of
+// `nthreads` in order, stepping (k, col, row) without divisions
 struct UnitWalk {
   int k, col, row, step_k, step_cell;
-  __device__ UnitWalk(int tid, int KC8, int Ws) {
+  __device__ UnitWalk(int tid, int KC8, int Ws, int nthreads = NTHREADS) {
     k = tid % KC8;
     const int cell = tid / KC8;
     col = cell % Ws;
     row = cell / Ws;
-    step_k = NTHREADS % KC8;
-    step_cell = NTHREADS / KC8;
+    step_k = nthreads % KC8;
+    step_cell = nthreads / KC8;
   }
   __device__ void next(int KC8, int Ws) {
     k += step_k;
@@ -232,7 +252,10 @@ struct StageTable {
 // First half of stage_operand: builds the per-channel table at `tab` and
 // issues the staging of the operand into s_in as one committed cp.async
 // group (units staged channel by channel, and zeros, are stored at once).
-// Does not wait for the copies: stage_operand_finish does.
+// Does not wait for the copies: stage_operand_finish (#13: producer_norms)
+// does. Run by the threads of Sync (tid their index among them), which meet
+// at its barrier.
+template <class Sync = BlockSync>
 __device__ __forceinline__ void stage_operand_issue(const Params& p,
                                                     bf16* s_in,
                                                     unsigned char* tab,
@@ -255,7 +278,7 @@ __device__ __forceinline__ void stage_operand_issue(const Params& p,
   // hook's); else bit 0 no 16-byte copy, bit 1 no 4-byte copy, bit 2
   // pending norm, bits 3-4 part, bits 5.. channels of the part (the pixel
   // stride); s_src: the channel's element at pixel (0, 0) of depth d - shift
-  for (int c = tid; c < Cs; c += NTHREADS) {
+  for (int c = tid; c < Cs; c += Sync::threads) {
     int info = -1;
     float m = 1.0f, o = 0.0f;
     const bf16* src = p.x[0];
@@ -287,8 +310,8 @@ __device__ __forceinline__ void stage_operand_issue(const Params& p,
     s_m[c] = m;
     s_o[c] = o;
   }
-  __syncthreads();
-  for (int k = tid; k < KC8; k += NTHREADS) {
+  Sync::sync();
+  for (int k = tid; k < KC8; k += Sync::threads) {
     const int c0 = k * 8;
     const int i0 = s_info[c0];
     bool zero = true, one = i0 >= 0 && !(i0 & 1), pairs = true, aff = false;
@@ -310,7 +333,7 @@ __device__ __forceinline__ void stage_operand_issue(const Params& p,
     s_unit[k] = (zero ? UNIT_ZERO : one ? UNIT_16
                  : pairs ? UNIT_PAIRS : UNIT_SCALAR) | (aff ? UNIT_AFF : 0);
   }
-  __syncthreads();
+  Sync::sync();
   if (tid == 0) {
     int naff = 0;
     for (int k = 0; k < KC8; ++k) {
@@ -323,7 +346,7 @@ __device__ __forceinline__ void stage_operand_issue(const Params& p,
 
   // ---- stage the operand: rows h0-1 .. h0+TH, columns w0-1 .. w0+16*WF
   const int rows = p.TH + 2;
-  UnitWalk it(tid, KC8, Ws);
+  UnitWalk it(tid, KC8, Ws, Sync::threads);
   for (; it.row < rows; it.next(KC8, Ws)) {
     const int hh = h0 - 1 + it.row;
     const int ww = w0 - 1 + it.col;
@@ -456,12 +479,13 @@ __device__ __forceinline__ void stage_operand(const Params& p,
                        tid);
 }
 
-// The warp's share of a block tile: row fragments wm + f*WPM (f < MPW) of
-// the TH x WF grid of 16-pixel fragments, CO fragments ng*NFW + j (j < NFW)
-// of the nf in the tile
-template <int NG, int NFW, int MPW>
+// The warp's share of a block tile computed by NW warps (tid / 32 the
+// warp's index among them): row fragments wm + f*WPM (f < MPW) of the TH x
+// WF grid of 16-pixel fragments, CO fragments ng*NFW + j (j < NFW) of the
+// nf in the tile
+template <int NG, int NFW, int MPW, int NW = NWARPS>
 struct WarpTile {
-  static constexpr int WPM = NWARPS / NG;  // warps along M
+  static constexpr int WPM = NW / NG;  // warps along M
   int ng, wm, lane;
   int th[MPW], w[MPW];
   bool on[MPW], nf_on[NFW], active;
@@ -566,6 +590,40 @@ __host__ __device__ inline int wgmma_b_index(int t, int n, int k, int KS,
                                              int N8) {
   return ((((t * KS + k / 16) * N8 + n / 8) * 2 + (k % 16) / 8) * 8 + n % 8) *
              8 + k % 8;
+}
+
+// The weights p.w of every (output-channel tile of 16 * NFW, K chunk of
+// p.Cs channels) packed for wgmma (wgmma_b_index), each chunk contiguous at
+// wpk + (ct * nch + ch) * w_bytes bytes, zero past CO and C: one bulk copy
+// (cp.async.bulk, the Tensor Memory Accelerator) brings a chunk into
+// shared memory, where 16-byte copies would take thousands of requests.
+// Run before #1's and #13's kernels.
+template <int NFW>
+__global__ void pack_weights_kernel(const Params p, int n_co, int nch,
+                                    int w_bytes, bf16* wpk) {
+  const int KS = p.Cs / 16, KC8 = p.Cs / 8, rows = NFW * 16;
+  const int total = n_co * nch * 9 * rows * KC8;
+  for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < total;
+       u += gridDim.x * blockDim.x) {
+    int rest = u;
+    const int k8 = rest % KC8;
+    rest /= KC8;
+    const int n = rest % rows;
+    rest /= rows;
+    const int t = rest % 9;
+    rest /= 9;
+    const int ch = rest % nch, ct = rest / nch;
+    const int co0 = ct * rows;
+    const int ncol = min(rows, p.CO - co0), N8 = (ncol + 7) / 8;
+    if (n >= N8 * 8) continue;
+    bf16* dst = wpk + (size_t)(ct * nch + ch) * (w_bytes / 2) +
+                wgmma_b_index(t, n, k8 * 8, KS, N8);
+    const int k = ch * p.Cs + k8 * 8;
+    const bf16* src = p.w + ((size_t)t * p.CO + co0 + n) * p.C + k;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      dst[e] = n < ncol && k + e < p.C ? src[e] : __float2bfloat16(0.0f);
+  }
 }
 
 // descriptor of a packed B step at `smem`: start address, LBO 128 bytes,
@@ -896,9 +954,9 @@ __device__ __forceinline__ void wgmma_step(float acc[MPW][NFW][2][4],
 // issued while it runs: the 9 * KS steps are straight-line code, with no
 // branch or loop edge while a group is in flight, which ptxas would
 // serialise. Returns with every product done.
-template <int MPW, int NFW, int N8, int KS>
+template <int MPW, int NFW, int N8, int KS, int NW>
 __device__ __forceinline__ void wgmma_taps(const Params& p,
-                                           const WarpTile<1, NFW, MPW>& wt,
+                                           const WarpTile<1, NFW, MPW, NW>& wt,
                                            float acc[MPW][NFW][2][4],
                                            const bf16* s_in,
                                            const bf16* s_w) {
@@ -941,9 +999,9 @@ __device__ __forceinline__ void wgmma_taps(const Params& p,
 // four 8 x 8 core matrices of two consecutive groups of 8 output channels
 // in a step (both K halves) are 512 contiguous bytes, so one ldmatrix_x4
 // at 16 bytes per lane gives two groups' B fragments.
-template <int MPW, int NFW>
+template <int MPW, int NFW, int NW>
 __device__ __forceinline__ void mma_taps_packed(
-    const Params& p, const WarpTile<1, NFW, MPW>& wt,
+    const Params& p, const WarpTile<1, NFW, MPW, NW>& wt,
     float acc[MPW][NFW][2][4], const bf16* s_in, const bf16* s_w, int KS,
     int N8) {
   const int Cp = p.Cp, Ws = p.Ws;
@@ -1026,68 +1084,6 @@ struct TilePixel {
   }
 };
 
-// The epilogue of one block tile through shared memory at s_acc (TH*WF*16
-// x BN floats; the caller has synchronised the block since the last read of
-// what it aliases): bias, the bf16 store of y and the per-channel
-// statistics (atomics).
-template <int NG, int NFW, int MPW>
-__device__ __forceinline__ void store_tile(const Params& p,
-                                           const WarpTile<NG, NFW, MPW>& wt,
-                                           float acc[MPW][NFW][2][4],
-                                           float* s_acc, int n, int d,
-                                           int h0, int w0, int co0, int BN,
-                                           int ncol, int tid) {
-  acc_to_smem(wt, acc, s_acc, BN);
-  const int BM = p.TH * p.WF * 16;
-  const TilePixel pixel(p, h0, w0);
-  bf16* y_slice = p.y + (size_t)(n * p.D + d) * p.H * p.W * p.CO + co0;
-  if (p.CO % 8 == 0) {
-    const int per_row = ncol / 8;
-    for (UnitWalk iy(tid, per_row, BM); iy.row == 0; iy.next(per_row, BM)) {
-      const int px = pixel(iy.col);
-      if (px < 0) continue;
-      const int j = iy.k * 8;
-      uint4 o;
-      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&o);
-      const float* a = s_acc + (size_t)iy.col * BN + j;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        h2[e] = __floats2bfloat162_rn(
-            a[2 * e] + __bfloat162float(p.b[co0 + j + 2 * e]),
-            a[2 * e + 1] + __bfloat162float(p.b[co0 + j + 2 * e + 1]));
-      *reinterpret_cast<uint4*>(y_slice + (size_t)px * p.CO + j) = o;
-    }
-  } else {
-    for (int idx = tid; idx < BM * BN; idx += NTHREADS) {
-      const int j = idx % BN;
-      const int px = pixel(idx / BN);
-      if (px >= 0 && j < ncol)
-        y_slice[(size_t)px * p.CO + j] =
-            __float2bfloat16(s_acc[idx] + __bfloat162float(p.b[co0 + j]));
-    }
-  }
-
-  const int G = NTHREADS / BN;          // threads per output channel
-  if (tid < G * BN) {
-    const int j = tid % BN;
-    if (j < ncol) {
-      const int co = co0 + j;
-      const float bias = __bfloat162float(p.b[co]);
-      float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll 4
-      for (int lp = tid / BN; lp < BM; lp += G) {
-        if (pixel(lp) >= 0) {
-          const float v = s_acc[lp * BN + j] + bias;
-          s1 += v;
-          s2 += v * v;
-        }
-      }
-      atomicAdd(&p.stats[((size_t)n * p.CO + co) * 2], s1);
-      atomicAdd(&p.stats[((size_t)n * p.CO + co) * 2 + 1], s2);
-    }
-  }
-}
-
 // ---- The K-chunked wgmma body of the fused block (#1, fused_block.cu) and
 // the lazy up-link block (#3, qfused.cu). A block tile's operand is staged
 // in K chunks of p.Cs <= 48 channels, each chunk's 9 taps accumulating into
@@ -1101,12 +1097,10 @@ __device__ __forceinline__ void store_tile(const Params& p,
 
 // wgmma_taps for the chunk's KS steps and the tile's n8 groups of 8 output
 // channels (n8 <= 2 * NFW): one straight-line instantiation each
-template <int MPW, int NFW, int KS>
-__device__ __forceinline__ void wgmma_taps_n8(const Params& p,
-                                              const WarpTile<1, NFW, MPW>& wt,
-                                              float acc[MPW][NFW][2][4],
-                                              const bf16* s_op,
-                                              const bf16* s_w, int n8) {
+template <int MPW, int NFW, int KS, int NW>
+__device__ __forceinline__ void wgmma_taps_n8(
+    const Params& p, const WarpTile<1, NFW, MPW, NW>& wt,
+    float acc[MPW][NFW][2][4], const bf16* s_op, const bf16* s_w, int n8) {
   switch (n8) {
     case 1: wgmma_taps<MPW, NFW, 1, KS>(p, wt, acc, s_op, s_w); break;
     case 2: wgmma_taps<MPW, NFW, 2, KS>(p, wt, acc, s_op, s_w); break;
@@ -1132,9 +1126,9 @@ __device__ __forceinline__ void wgmma_taps_n8(const Params& p,
 
 // the 9 taps over the staged chunk at s_op: on wgmma (WGMMA), else on
 // mma.sync over the same packed weights (mma_taps_packed, the control)
-template <int MPW, int NFW, bool WGMMA>
+template <int MPW, int NFW, bool WGMMA, int NW>
 __device__ __forceinline__ void chunk_taps(const Params& p,
-                                           const WarpTile<1, NFW, MPW>& wt,
+                                           const WarpTile<1, NFW, MPW, NW>& wt,
                                            float acc[MPW][NFW][2][4],
                                            const bf16* s_op, const bf16* s_w,
                                            int N8) {
@@ -1204,12 +1198,13 @@ __device__ __forceinline__ void materialised_chunks(
 // The epilogue of one block tile from the registers, with no tile in shared
 // memory (so it runs while the next tile's copies land): the bias (bf16),
 // y stored as bf16 pairs, and the statistics of the f32 values summed
-// over each warp's pixels by shuffles, then over the warps in `red`
-// (2 * NWARPS * BN floats), before one atomic pair per output channel and
-// block.
-template <int MPW, int NFW>
+// over each warp's pixels by shuffles, then over the NW warps in `red`
+// (2 * NW * BN floats), before one atomic pair per output channel and
+// block. Run by the threads of Sync (tid their index among them), the NW
+// warps of the tile.
+template <int MPW, int NFW, class Sync = BlockSync, int NW = NWARPS>
 __device__ __forceinline__ void store_tile_regs(
-    const Params& p, const WarpTile<1, NFW, MPW>& wt,
+    const Params& p, const WarpTile<1, NFW, MPW, NW>& wt,
     float acc[MPW][NFW][2][4], int n, int d, int h0, int w0, int co0,
     int BN, int ncol, int tid, float* red) {
   const int lane = wt.lane;
@@ -1264,17 +1259,17 @@ __device__ __forceinline__ void store_tile_regs(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           red[wt.wm * BN + col + e] = s1[e];
-          red[(NWARPS + wt.wm) * BN + col + e] = s2[e];
+          red[(NW + wt.wm) * BN + col + e] = s2[e];
         }
       }
     }
   }
-  __syncthreads();
+  Sync::sync();
   if (tid < ncol) {
     float s1 = 0.0f, s2 = 0.0f;
-    for (int m = 0; m < WarpTile<1, NFW, MPW>::WPM; ++m) {
+    for (int m = 0; m < WarpTile<1, NFW, MPW, NW>::WPM; ++m) {
       s1 += red[m * BN + tid];
-      s2 += red[(NWARPS + m) * BN + tid];
+      s2 += red[(NW + m) * BN + tid];
     }
     atomicAdd(&p.stats[((size_t)n * p.CO + co0 + tid) * 2], s1);
     atomicAdd(&p.stats[((size_t)n * p.CO + co0 + tid) * 2 + 1], s2);

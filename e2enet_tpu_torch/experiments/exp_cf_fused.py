@@ -19,7 +19,16 @@ sums, bias included, over d and H*W. The kernel is (CO, C, 3, 3). Any W (the
 reference's HALO limits W to 255).
 
 On CUDA tensors (bfloat16) csrc/cf_fused.cu; on CPU tensors the plain
-versions.
+versions. The channels-first block has two routes, chosen by the library's
+rule (`_native.cf_route`): "tma" where tensor maps describe x and y (W % 8
+== 0, 16-byte-aligned tensors), CO <= 48, C <= 80 and the shift groups fit
+CF_SLOTS boxes of at most 16 channels; "ldg", the first design, otherwise.
+For the TMA route the host computes, once per call, the boxes (each shift
+group cut to slots of at most 16 channels, cf_slots: one TMA box each, at
+the group's source depth) and the K order of the products (the channels in
+order, padded with zero rows to a multiple of 16; the weights laid out for
+wgmma's B by cf_pack_weights). `cf_fused_shift_conv.routes` counts the
+launches per route.
 
     python -m e2enet_tpu_torch.experiments.exp_cf_fused [--v2] [--reps N]
 
@@ -42,6 +51,10 @@ from .shift_conv import bf16_close
 
 SHIFT_SIZE = 5
 LRELU_SLOPE = 0.01
+# the TMA route's boxes per tile and its output channels (csrc/cf_fused.cu
+# CF_SLOTS, CF_NCO)
+CF_SLOTS = 5
+CF_NCO = 48
 
 
 # ------------------------------------------------------------ E1: relayout
@@ -105,12 +118,44 @@ def cf_fused_shift_conv_ref(x_cf, kernel, bias, H, W, mult=None, off=None,
     return y, stats
 
 
+def cf_slots(C: int, shift_size: int = SHIFT_SIZE):
+    """The TMA route's boxes: [(first channel, channels, shift)] per slot,
+    each shift group of group_shifts(C, shift_size) cut into slots of at
+    most 16 channels. A slot is staged as one box of the widest slot's
+    channel planes from its first channel (TMA reads the neighbours, or
+    zeros past C), at source depth d - shift; the products read only the
+    slot's own channels."""
+    return [(c, min(16, c1 - c), sh) for c0, c1, sh in
+            group_shifts(C, shift_size) for c in range(c0, c1, 16)]
+
+
+def cf_pack_weights(kernel):
+    """The TMA route's weights: kernel (CO <= 48, C, 3, 3) -> a flat
+    tensor of 9 taps x KS = ceil(C / 16) steps of 16 K rows (the channels
+    in order, zero past C) x 48 output channels (zero past CO), laid out
+    for wgmma's B operand (csrc/shift_conv_block.cuh wgmma_b_index: per
+    (tap, step) six groups of 8 output channels, each two 8 x 8 core
+    matrices, K halves 128 bytes apart), in the kernel's dtype."""
+    CO, C = (int(s) for s in kernel.shape[:2])
+    if CO > CF_NCO:
+        raise ValueError(f"CO = {CO} exceeds the TMA route's {CF_NCO}")
+    KS = -(-C // 16)
+    pad = kernel.new_zeros((9, CF_NCO, KS * 16))
+    # (tap, co, c) with tap = 3 * kh + kw
+    pad[:, :CO, :C] = kernel.permute(2, 3, 0, 1).reshape(9, CO, C)
+    # [t][co = 8 * n8 + nr][k = 16 * ks + 8 * kh + kr] ->
+    # [t][ks][n8][kh][nr][kr]
+    return (pad.reshape(9, CF_NCO // 8, 8, KS, 2, 8)
+            .permute(0, 3, 1, 4, 2, 5).contiguous().reshape(-1))
+
+
 def cf_fused_shift_conv(x_cf, kernel, bias, H, W, mult=None, off=None,
                         do_stats=False, shift_size=SHIFT_SIZE):
     """The channels-first fused block: csrc/cf_fused.cu for CUDA tensors
-    (bfloat16; the affine and the statistics are run-time switches of one
-    kernel), the plain version for CPU tensors. Returns (y, stats or
-    None)."""
+    (bfloat16; the affine and the statistics are run-time switches of each
+    route's kernel; the route by the library's rule, counted in
+    cf_fused_shift_conv.routes), the plain version for CPU tensors. Returns
+    (y, stats or None)."""
     if x_cf.device.type == "cpu":
         return cf_fused_shift_conv_ref(x_cf, kernel, bias, H, W, mult, off,
                                        do_stats, shift_size)
@@ -121,21 +166,29 @@ def cf_fused_shift_conv(x_cf, kernel, bias, H, W, mult=None, off=None,
     if x_cf.dtype != bf:
         raise TypeError("the CUDA cf_fused_shift_conv takes bfloat16")
     from ..ops import _native
-    # (CO, 9*C): k = (3*kh + kw) * C + channel
-    w2 = kernel.to(bf).permute(0, 2, 3, 1).reshape(CO, 9 * C).contiguous()
+    x_cf = x_cf.contiguous()
     aff = (None, None) if mult is None else (
         mult.float().reshape(C).contiguous(), off.float().reshape(C)
         .contiguous())
     y = torch.empty((N, D, CO, H * W), dtype=bf, device=dev)
     stats = (torch.zeros((N, CO, 2), dtype=torch.float32, device=dev)
              if do_stats else None)
-    _native.launch_cf_fused(x_cf.contiguous(), w2, bias.to(bf).contiguous(),
-                            *aff, y, stats, group_shifts(C, shift_size), H, W)
+    slots = cf_slots(C, shift_size)
+    w2 = wpk = None
+    if _native.cf_route(x_cf, y, H, W, slots) == "tma":
+        wpk = cf_pack_weights(kernel.to(bf))
+    else:           # (CO, 9*C): k = (3*kh + kw) * C + channel
+        w2 = kernel.to(bf).permute(0, 2, 3, 1).reshape(CO, 9 * C).contiguous()
+    route = _native.launch_cf_fused(
+        x_cf, w2, wpk, bias.to(bf).contiguous(), *aff, y, stats,
+        group_shifts(C, shift_size), slots, H, W)
     cf_fused_shift_conv.launches += 1
+    cf_fused_shift_conv.routes[route] += 1
     return y, stats
 
 
 cf_fused_shift_conv.launches = 0
+cf_fused_shift_conv.routes = {"tma": 0, "ldg": 0}
 
 
 # ---------------------------------------------------------------- main

@@ -75,9 +75,13 @@ SIGNATURES = {
         "seghead_launch": [vp] * 5 + [i32] * 5 + [PI, vp]},
     # the experiment kernels (e2enet_tpu_torch/experiments)
     "fused_block_pipe": {
-        # the fused block's arguments up to the stream, overlap, stream
+        # the fused block's arguments up to CO, the packed-weights scratch
+        # and its bytes, overlap, the ring's depth taken, stream
         "fused_block_pipe_launch": [ctypes.POINTER(vp)] * 3
-        + [PI, PI, i32, PI, i32] + [vp] * 4 + [i32] * 6 + [vp]},
+        + [PI, PI, i32, PI, i32] + [vp] * 4 + [i32] * 5 + [vp, i32, i32, PI,
+                                                            vp],
+        # C, CO
+        "fused_block_pipe_scratch_bytes": [i32, i32]},
     "shift_conv_ring": {
         # x, w, b, y, groups, ngroups, N, D, H, W, C, CO, stream
         "shift_conv_ring_launch": [vp] * 4 + [PI, i32] + [i32] * 6 + [vp],
@@ -86,9 +90,12 @@ SIGNATURES = {
     "cf_fused": {
         # x, y, H, W, C, element size, stream
         "reshape_hwc_launch": [vp] * 2 + [i32] * 4 + [vp],
-        # x, w, b, mult, off, y, stats, groups, ngroups, N, D, H, W, C, CO,
-        # stream
-        "cf_fused_launch": [vp] * 7 + [PI, i32] + [i32] * 6 + [vp]},
+        # x, w, the packed weights, b, mult, off, y, stats, groups, ngroups,
+        # slots, nslots, N, D, H, W, C, CO, the route taken, stream
+        "cf_fused_launch": [vp] * 8 + [PI, i32, PI, i32] + [i32] * 6
+        + [PI, vp],
+        # x, y, N, D, H, W, C, CO, slots, nslots
+        "cf_route": [vp] * 2 + [i32] * 6 + [PI, i32]},
     "mma_gemm": {
         # a, b, c, M, N, K, int8, wgmma, the repacked-B scratch, stream
         "mma_gemm_launch": [vp] * 3 + [i32] * 5 + [vp] * 2,
@@ -163,8 +170,10 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-# the routes of the up-link and the seg head, by the library's code
+# the routes of the up-link and the seg head, and of the channels-first
+# block, by the library's code
 ROUTES = {0: "ldg", 1: "bulk"}
+CF_ROUTES = {0: "ldg", 1: "tma"}
 
 
 def _stream(t: torch.Tensor):
@@ -385,17 +394,25 @@ def launch_seghead(x, mult, off, w, y, probs: bool) -> str:
 
 
 def launch_fused_block_pipe(parts, affines, groups, w9, b, y, stats,
-                            overlap: bool = True) -> None:
-    """Launch csrc/fused_block_pipe.cu, the software-pipelined fused block:
-    the arguments and outputs of launch_fused_block; overlap False issues
-    the next depth's staging after this depth's products. Raises on a
+                            overlap: bool = True) -> int:
+    """Launch csrc/fused_block_pipe.cu, the warp-specialised pipelined fused
+    block: the arguments and outputs of launch_fused_block. The kernel first
+    packs the weights into a scratch tensor of the size the library gives
+    (fused_block_pipe_scratch_bytes). overlap False runs its operand ring
+    with one stage (the control). Returns the ring's depth; raises on a
     refused launch."""
-    fn = library("fused_block_pipe").fused_block_pipe_launch
+    lib = library("fused_block_pipe")
     args = _block_args(parts, affines, groups, w9, b, y, stats)
+    C, CO = sum(args[3]), int(y.shape[-1])
+    nbytes = lib.fused_block_pipe_scratch_bytes(C, CO)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=y.device)
+    stages = ctypes.c_int(0)
     with torch.cuda.device(y.device):
-        err = fn(*args, int(overlap), _stream(y))
-    _check(err, f"fused_block_pipe (shape {tuple(y.shape)}, "
-                f"C={sum(args[3])})")
+        err = lib.fused_block_pipe_launch(*args, scratch.data_ptr(), nbytes,
+                                          int(overlap), ctypes.byref(stages),
+                                          _stream(y))
+    _check(err, f"fused_block_pipe (shape {tuple(y.shape)}, C={C})")
+    return stages.value
 
 
 def launch_shift_conv_ring(x, w9, b, y, groups) -> None:
@@ -435,20 +452,39 @@ def launch_reshape_hwc(x, y, H, W, C) -> None:
     _check(err, f"reshape_hwc (H={H} W={W} C={C})")
 
 
-def launch_cf_fused(x, w2, b, mult, off, y, stats, groups, H, W) -> None:
+def cf_route(x, y, H, W, slots) -> str:
+    """The route csrc/cf_fused.cu takes for x (N, D, C, H*W) -> y (N, D, CO,
+    H*W) with the channels in `slots` [(first channel, channels, shift)]:
+    "tma" or "ldg". The rule lives in the library (cf_route)."""
+    N, D, C = (int(s) for s in x.shape[:3])
+    sl, ns = _groups_arr(slots)
+    return CF_ROUTES[library("cf_fused").cf_route(
+        x.data_ptr(), y.data_ptr(), N, D, H, W, C, int(y.shape[2]), sl, ns)]
+
+
+def launch_cf_fused(x, w2, wpk, b, mult, off, y, stats, groups, slots, H,
+                    W) -> str:
     """Launch csrc/cf_fused.cu's channels-first block: x contiguous bf16
-    (N, D, C, H*W); w2 (CO, 9*C) bf16 (k = tap * C + channel); b (CO,)
-    bf16; mult/off float32 (C,) or both None; y (N, D, CO, H*W) bf16;
-    stats float32 (N, CO, 2) zeroed, or None."""
+    (N, D, C, H*W); the ldg route's weights w2 (CO, 9*C) bf16 (k = tap * C
+    + channel) or the TMA route's packed weights wpk (exp_cf_fused's
+    cf_pack_weights), one of them None; b (CO,) bf16; mult/off float32 (C,)
+    or both None; y (N, D, CO, H*W) bf16; stats float32 (N, CO, 2) zeroed,
+    or None; groups [(c0, c1, shift)]; slots [(c0, channels, shift)].
+    Runs the route the library's rule gives (cf_route) and returns it."""
     fn = library("cf_fused").cf_fused_launch
     gr, ng = _groups_arr(groups)
+    sl, ns = _groups_arr(slots)
     N, D, C = (int(s) for s in x.shape[:3])
     CO = int(y.shape[2])
-    opt = [None if t is None else t.data_ptr() for t in (mult, off, stats)]
+    opt = [None if t is None else t.data_ptr()
+           for t in (w2, wpk, mult, off, stats)]
+    route = ctypes.c_int(-1)
     with torch.cuda.device(y.device):
-        err = fn(x.data_ptr(), w2.data_ptr(), b.data_ptr(), opt[0], opt[1],
-                 y.data_ptr(), opt[2], gr, ng, N, D, H, W, C, CO, _stream(y))
+        err = fn(x.data_ptr(), opt[0], opt[1], b.data_ptr(), opt[2], opt[3],
+                 y.data_ptr(), opt[4], gr, ng, sl, ns, N, D, H, W, C, CO,
+                 ctypes.byref(route), _stream(y))
     _check(err, f"cf_fused (N={N} D={D} H={H} W={W} C={C} CO={CO})")
+    return CF_ROUTES[route.value]
 
 
 def mma_gemm_wgmma_ok(a, b, c) -> bool:
