@@ -84,13 +84,18 @@ Phases (any failure ends the run with a non-zero exit):
               path and through a float32 plain run
   8. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
-              x 48 -> 48 bf16; the pipelined block at l0_48+48_to48 with both
+              x 48 -> 48 bf16; the ring shift + conv on its TMA route,
+              checked by its route counter, beside its first design (the
+              control, also in turns) and #1 on the same input; the
+              pipelined block at l0_48+48_to48 with both
               affines, also against kernel #1 itself, equal to the bit, and
               the ring's depth it took; the channels-first block on its TMA
               route, checked by its route counter; the products at 4096^3
               on the wgmma route, checked by its route counter, beside their
               mma.sync control and the int8 repack of B alone) and at ragged
-              ones (D = 3, W = 13, C in {1, 8, 24}, N = 2, the channels-first
+              ones (D = 3, W = 13, C in {1, 8, 24}, N = 2, the ring shift +
+              conv there on the route its rule gives, also at CO = 56, D = 1
+              and 2 and H, W off its tile; the channels-first
               block there on its ldg route and at W = 72, H = 7 on its TMA
               route; M, N, K off the tile on both routes), the
               channels-first block with the affine and the statistics each
@@ -935,10 +940,14 @@ def exp_result(name, shape, err, kernel, plain, library, b_ms, b_by, reps,
     return res
 
 
-def ring_case(name, N, D, H, W, C, CO, rnd, reps):
-    """#11: the ring shift + conv and the ring shift alone vs plain; the
-    shift's backward (the ring kernel, shifts negated) vs the plain shift
-    with the shifts negated."""
+def ring_case(name, N, D, H, W, C, CO, rnd, reps, route):
+    """#11: the ring shift + conv on the route the shape must take (checked
+    by the route counter; on the TMA route also its first design, the
+    control) and the ring shift alone vs plain; the shift's backward (the
+    ring kernel, shifts negated) vs the plain shift with the shifts
+    negated. With reps, the times of the route taken, the control, cuDNN's
+    conv and #1 on the same input, and the route and the control in
+    turns."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.experiments import shift_conv as sc
@@ -948,12 +957,22 @@ def ring_case(name, N, D, H, W, C, CO, rnd, reps):
     k = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
     b = rnd(CO, scale=0.1)
     with torch.inference_mode():
+        before = sc.fused_shift_conv.routes[route]
         y_k, s_k = sc.fused_shift_conv(x, k, b), sc.depth_shift_ring(x)
+        check(sc.fused_shift_conv.routes[route] == before + 1,
+              f"{name}: the ring shift + conv did not take the {route} route "
+              f"({sc.fused_shift_conv.routes})")
         y_p, s_p = sc.fused_shift_conv_ref(x, k, b), sc.depth_shift_ring_ref(x)
+        y_c = (sc.fused_shift_conv(x, k, b, route="cp_async")
+               if route == "tma" else y_k)
     torch.cuda.synchronize()
     ok, err = y_err(y_k, y_p, Y_ULPS)
-    check(ok, f"{name}: ring shift + conv differs by more than {Y_ULPS} bf16 "
-              f"ulps")
+    check(ok, f"{name}: ring shift + conv ({route}) differs by more than "
+              f"{Y_ULPS} bf16 ulps")
+    ok, err_c = y_err(y_c, y_p, Y_ULPS)
+    check(ok, f"{name}: the ring shift + conv's first design differs by more "
+              f"than {Y_ULPS} bf16 ulps")
+    err = max(err, err_c)
     check(torch.equal(s_k, s_p), f"{name}: ring shift not equal to the plain "
                                  f"shift")
     xg = x.clone().requires_grad_()
@@ -964,7 +983,7 @@ def ring_case(name, N, D, H, W, C, CO, rnd, reps):
         g, mirror_groups(sc.ring_groups(C, 5)))),
         f"{name}: the ring shift's backward differs from the plain one")
     if reps == 0:
-        return dict(max_abs_err=err), dict(max_abs_err=0.0)
+        return dict(max_abs_err=err, kernel_route=route), dict(max_abs_err=0.0)
     s2 = s_p.reshape(N * D, H, W, C).permute(0, 3, 1, 2)
     w2 = k.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     shape = f"N={N} D={D} H={H} W={W} C={C} CO={CO}"
@@ -980,11 +999,23 @@ def ring_case(name, N, D, H, W, C, CO, rnd, reps):
             lambda: sc.depth_shift_ring(x), lambda: sc.depth_shift_ring_ref(x),
             None, *bound(nbytes(x, s_k), 0.0, PEAK_BF16), reps)
         # the question of the ring: against #1, which restages the operand
-        # from device memory for every depth, on the same input
+        # from device memory for every depth, on the same input; the first
+        # design (cp.async staging, mma.sync) as the control; the route
+        # taken and the control in turns
+        runs = {route: lambda: sc.fused_shift_conv(x, k, b),
+                "control": lambda: sc.fused_shift_conv(x, k, b,
+                                                       route="cp_async")}
+        fused["control_ms"] = cuda_ms(runs["control"], reps)
         fused["kernel1_ms"] = cuda_ms(
             lambda: fb.fused_shift_conv_block([x], k, b, [None]), reps)
-    print(f"  kernel #1 (restaging) on the same input: "
-          f"{fused['kernel1_ms']:.4f} ms", flush=True)
+        fused["turns_ms"] = {r: [] for r in runs}
+        for r in list(runs) + list(runs)[::-1]:
+            fused["turns_ms"][r].append(cuda_ms(runs[r], reps))
+    fused["kernel_route"] = route
+    print(f"  the route taken: {route}; the first design (cp.async, "
+          f"mma.sync) {fused['control_ms']:.4f} ms; kernel #1 (restaging) "
+          f"on the same input {fused['kernel1_ms']:.4f} ms; in turns "
+          f"{fused['turns_ms']}", flush=True)
     return fused, shift
 
 
@@ -1214,12 +1245,22 @@ def experiments_phase(rnd, R, reset_counts, counts, smi):
     out = {}
     print(f"[experiments] the experiment kernels (#11-#14) vs their plain "
           f"versions  [{smi}]", flush=True)
-    print("[kernel] fused_shift_conv / depth_shift_ring (#11) vs plain; "
-          "'library' is cuDNN's bf16 conv of the pre-shifted operand; the "
-          "shift has no library call", flush=True)
-    fused, shift = ring_case("l0_48_to48", 1, 128, 128, 128, 48, 48, rnd, R)
-    errs = [ring_case(f"ragged_{c}", 2, 3, 6, 13, c, co, rnd, 0)[0][
-        "max_abs_err"] for c, co in ((1, 8), (8, 8), (24, 40))]
+    print("[kernel] fused_shift_conv / depth_shift_ring (#11) vs plain, on "
+          "the route each shape takes (TMA at the main shape) and the first "
+          "design; 'library' is cuDNN's bf16 conv of the pre-shifted "
+          "operand; the shift has no library call", flush=True)
+    fused, shift = ring_case("l0_48_to48", 1, 128, 128, 128, 48, 48, rnd, R,
+                             "tma")
+    # the first design where the rule refuses the TMA route (C = 1, groups
+    # of 5 at C = 24, CO = 56); the TMA route at D = 1 and 2, H and W off
+    # its 8 x 16 tile, C = 8 and 40 (K rows past C), CO = 24
+    errs = [ring_case(f"ragged_{c}_{co}_d{d}", n, d, h, w, c, co, rnd, 0,
+                      route)[0]["max_abs_err"]
+            for n, d, h, w, c, co, route in (
+                (2, 3, 6, 13, 1, 8, "cp_async"), (2, 3, 6, 13, 8, 8, "tma"),
+                (2, 3, 6, 13, 24, 40, "cp_async"),
+                (1, 3, 6, 13, 48, 56, "cp_async"),
+                (2, 1, 9, 20, 48, 48, "tma"), (1, 2, 13, 37, 40, 24, "tma"))]
     out["fused_shift_conv"] = dict(fused, max_abs_err=max(
         [fused["max_abs_err"]] + errs))
     out["depth_shift_ring"] = shift
@@ -1898,7 +1939,8 @@ def main() -> None:
                                             "mma_ms", "host_ms")}
         if name in also:
             line["also_replaces"] = also[name]
-        for extra in ("shapes", "int8", "kernel1_ms", "mma_ms", "serial_ms",
+        for extra in ("shapes", "int8", "kernel1_ms", "mma_ms", "control_ms",
+                      "serial_ms",
                       "turns_ms", "affine_stats_ms", "gemm_route",
                       "copy_ms", "kernel_route", "host_ms", "logits_mode_ms"):
             if extra in res[name]:

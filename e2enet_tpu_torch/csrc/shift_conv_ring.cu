@@ -5,8 +5,8 @@
 //   shift_conv_ring_launch   `_kernel` / `_kernel_v2` (fused_shift_conv,
 //                            fused_shift_conv_v2):
 //                              y = conv_(1,3,3)(depth_shift(x)) + b
-//                            x (N, D, H, W, C), kernel (9, CO, C) tap-major,
-//                            f32 sums of bf16 products, y rounded once
+//                            x (N, D, H, W, C), f32 sums of bf16 products,
+//                            the bias added in f32, y rounded once
 //   depth_shift_ring_launch  `_kernel_shift_ring` (pallas_depth_shift):
 //                            y = depth_shift(x), exact; its backward is the
 //                            same kernel with the groups' shifts negated
@@ -15,26 +15,51 @@
 //
 // What bounds them: bytes. At 1 x 128^3 x 48 -> 48 the fused kernel moves
 // 201 MB in and 201 MB out (0.120 ms at 3.35 TB/s) against 87 GFLOP
-// (0.088 ms at 989 TFLOP/s); the shift alone moves the same bytes.
+// (0.088 ms at 989 TFLOP/s): nearly balanced, so the halo's re-reads and
+// the operand's assembly count; the shift alone moves the same bytes.
 //
 // The question these kernels answer (shift_conv_pallas.py:24-47): does a
 // depth ring, which reads each input row from device memory once, beat
 // restaging the operand from device memory for every output depth (#1's
 // way)?
 //
-// Design of the fused kernel: a block owns an (n, 8-row x 16-column tile of
-// H x W, CO tile of up to 48) and walks depth. It keeps a 5-slot ring of the
-// input depth slices of its tile plus a 1-pixel halo in shared memory (raw,
-// C channels a pixel), and copies slice d+3 with cp.async into the slot of
-// d-2 while the tensor cores work on d: each input value is read from device
-// memory once per tile (the halo aside). The shift groups need not fall on
-// 8-channel boundaries (10, 10, 10, 10, 8 at C = 48), so the operand of
-// depth d is assembled from the ring into a zero-haloed (TH+2) x 18 x Cs
-// tile (8-channel units of one shift move as one 16-byte word, mixed units
-// channel by channel); all 9 taps' weights stay in shared memory. Each warp
-// computes one image row of 16 pixels against the CO tile with ldmatrix +
-// mma.sync.m16n8k16 (bf16, f32 accumulators) and stores y straight from
-// its registers with the bias added in float32.
+// The fused kernel has two routes, chosen by one rule by shape
+// (shift_conv_ring_route, the one place it lives):
+//
+//  * TMA (shift_conv_tma_kernel) where C % 8 == 0 (a tensor map's strides
+//    and inner box bytes are multiples of 16), every group edge is even,
+//    CO <= 48 and CO % 8 == 0 (one n48 tile; y's strides), C <= 64, x and
+//    y are 16-byte aligned and the ring fits shared memory. Persistent
+//    blocks, one per SM, each take a contiguous range of the (n, 8 x 16
+//    tile of H x W, depth) items, cut into runs of consecutive depths of
+//    one tile. A loader warp starts one cp.async.bulk.tensor per depth
+//    slice and run: the box (16 KS + 8 channels, 18 columns, 10 rows) from
+//    (0, w0 - 1, h0 - 1, r, n), into a ring of 6-8 slots handed over on
+//    full/empty mbarriers. TMA's zero fill gives the H/W halo, the depth
+//    rows r < 0 and r >= D and the channels from C to 16 KS + 8, with no
+//    branch; the 8 channels past the K steps pad the pixel pitch to 4 mod
+//    8 words, so the 8 pixels of an A load fall in distinct banks. Two
+//    consumer warpgroups each own one m64 tile (4 rows x 16 columns) and
+//    run 9 taps x KS steps of wgmma.m64n48k16 per depth, straight-line, one
+//    commit group per tap, B the packed weights (resident, one bulk copy
+//    per block), A built in registers: each 32-bit A register is one
+//    channel pair of one pixel, and with every group edge even a pair lies
+//    in one group, so the shift only picks the ring slot it is read from,
+//    by one 32-bit shared load at a tap offset of whole pixels. The pairs'
+//    slot offsets depend on the K step and lane % 4 only, and rotate by
+//    one slot per depth in registers. The epilogue adds the bias in
+//    float32, rounds once, and each warp stages its image row and writes
+//    it by one TMA store, which clips the ragged H/W edges (a warp's own
+//    row: no barrier beyond the warp).
+//  * cp.async (shift_conv_ring_kernel), the first design, for every other
+//    shape: a block owns an (n, 8-row x 16-column tile of H x W, CO tile of
+//    up to 48) and walks depth with a 5-slot ring of the tile's input
+//    slices plus halo, copying slice d+3 with cp.async while the tensor
+//    cores work on d; per depth it assembles the shifted, zero-haloed
+//    operand from the ring (8-channel units of one shift as 16-byte words,
+//    mixed units channel by channel), then each warp computes one image
+//    row of 16 pixels with ldmatrix + mma.sync.m16n8k16 and stores y
+//    straight from its registers.
 //
 // The shift alone: a block owns 64 consecutive pixels of the H x W plane of
 // one n and walks depth with an 8-slot ring, three slices in flight ahead of
@@ -42,6 +67,7 @@
 // words.
 
 #include "shift_conv_block.cuh"
+#include "tma.cuh"
 
 #define RING_THREADS 256               // 8 warps, one image row each
 #define RING_SLOTS 5
@@ -343,6 +369,328 @@ depth_shift_ring_kernel(const RingParams p) {
   }
 }
 
+// ---------------------------------------------------------------- TMA route
+#define TR_TH 8                        // tile rows: two m64 tiles of 4 x 16
+#define TR_TW 16                       // tile columns
+#define TR_RW (TR_TW + 2)              // staged columns, the halo included
+#define TR_PIX ((TR_TH + 2) * TR_RW)   // staged pixels of one depth slice
+#define TR_NCO 48                      // output channels: one n48 tile
+#define TR_N8 (TR_NCO / 8)
+#define TR_KSMAX 4                     // 16-channel K steps: C <= 64
+#define TR_THREADS 288                 // two consumer warpgroups, a loader
+#define TR_SLOTS_MIN 6                 // the 5-slice window, one in flight
+#define TR_SLOTS_MAX 8
+
+struct TmaRingParams {
+  const bf16* b;                       // (CO)
+  const bf16* wpk;                     // packed weights, w_bytes
+  int D, H, C, CO;
+  int g0[MAX_GROUPS], g1[MAX_GROUPS], gs[MAX_GROUPS];
+  int ngroups;
+  int n_ht, n_wt;
+  int total;                           // (n, tile, depth) items
+  int slots, slot_bytes, w_bytes;
+  int off_w, off_out, off_bar;         // shared-memory offsets (bytes)
+};
+
+// one 32-bit shared-memory load (a channel pair of one pixel)
+__device__ __forceinline__ unsigned lds32(const unsigned char* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// a run of consecutive depths [d0, d1) of one tile, from item u of a
+// block's range [u, u1) (items: depth innermost, then column tiles, row
+// tiles, n)
+struct TrRun {
+  int n, h0, w0, d0, d1;
+  __device__ TrRun(const TmaRingParams& p, int u, int u1) {
+    const int tile = u / p.D;
+    d0 = u - tile * p.D;
+    d1 = min(p.D, d0 + (u1 - u));
+    w0 = (tile % p.n_wt) * TR_TW;
+    const int rest = tile / p.n_wt;
+    h0 = (rest % p.n_ht) * TR_TH;
+    n = rest / p.n_ht;
+  }
+};
+
+// KS: 16-channel K steps (C <= 16 KS); a staged pixel holds 16 KS + 8
+// channels
+template <int KS>
+__global__ void __launch_bounds__(TR_THREADS, 1)
+shift_conv_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap ymap,
+                      const TmaRingParams p) {
+  constexpr int PITCH = 2 * (16 * KS + 8);   // bytes of a staged pixel
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const unsigned S = p.slots;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.off_bar);
+  uint64_t* empty = full + S;
+  uint64_t* wbar = empty + S;
+  if (tid == 0) {
+    for (unsigned s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);         // the consumer warps
+    }
+    mbar_init(wbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // this block's items: a contiguous range
+  const int u0 = (int)((long long)blockIdx.x * p.total / gridDim.x);
+  const int u1 = (int)((long long)(blockIdx.x + 1) * p.total / gridDim.x);
+
+  if (warp == 8) {
+    // ---- the loader: one thread starts every copy. Copy L of the block
+    // (its runs in order, each the depth rows d0 - 2 .. d1 + 1) goes to
+    // slot L % S.
+    if (lane != 0) return;
+    mbar_expect(wbar, p.w_bytes);
+    bulk_load(smem + p.off_w, p.wpk, p.w_bytes, wbar);
+    unsigned L = 0;
+    for (int u = u0; u < u1;) {
+      const TrRun a(p, u, u1);
+      for (int r = a.d0 - 2; r < a.d1 + 2; ++r, ++L) {
+        const unsigned s = L % S;
+        mbar_wait(empty + s, ((L / S) & 1) ^ 1);   // the slot released
+        mbar_expect(full + s, TR_PIX * PITCH);
+        tma_load_5d(smem + s * p.slot_bytes, &xmap, 0, a.w0 - 1, a.h0 - 1, r,
+                    a.n, full + s);
+      }
+      u += a.d1 - a.d0;
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: warpgroup w / 4 runs the m64 tile of
+  // rows 4 (w / 4) .. 4 (w / 4) + 3 of the tile, warp w its row w; lane
+  // (g, q) holds the A rows of pixels g and g + 8 and channel pairs 2q
+  // (+ 8) of each K step, and the sums of output channels 8 j + 2 q, + 1
+  const int row = warp, q = lane % 4, g = lane / 4;
+  const unsigned char* pix =
+      smem + ((row + 1) * TR_RW + g + 1) * PITCH + 4 * q;
+  // the shift of each of the thread's pairs (channels 16 ks + 8 h + 2 q,
+  // + 1): every group edge is even, so a pair lies in one group; pairs
+  // past C read TMA's zero fill, in any slot
+  int psh[KS][2];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 16 * ks + 8 * h + 2 * q;
+      int s = 0;
+      for (int gi = 0; gi < p.ngroups; ++gi)
+        if (c >= p.g0[gi] && c < p.g1[gi]) s = p.gs[gi];
+      psh[ks][h] = s;
+    }
+  float bias[2 * TR_N8];
+#pragma unroll
+  for (int i = 0; i < 2 * TR_N8; ++i) {
+    const int co = 8 * (i / 2) + 2 * q + i % 2;
+    bias[i] = co < p.CO ? __bfloat162float(p.b[co]) : 0.0f;
+  }
+  unsigned char* out = smem + p.off_out + row * TR_TW * p.CO * 2;
+  const unsigned char* wsm = smem + p.off_w;
+  const unsigned ring_bytes = S * p.slot_bytes;
+  mbar_wait(wbar, 0);
+  unsigned L0 = 0;                     // the run's first copy
+  for (int u = u0; u < u1;) {
+    const TrRun a(p, u, u1);
+    const int nd = a.d1 - a.d0;
+    // depth d0 + i reads window position 2 - shift, copy L0 + i + 2 -
+    // shift: each pair's slot offset, rotated by one slot per depth
+    unsigned sl[KS][2];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        sl[ks][h] = ((L0 + 2 - psh[ks][h]) % S) * p.slot_bytes;
+    for (unsigned j = L0; j < L0 + 4; ++j)
+      mbar_wait(full + j % S, (j / S) & 1);
+    for (int i = 0; i < nd; ++i) {
+      const unsigned lw = L0 + i + 4;  // the window's newest slice
+      mbar_wait(full + lw % S, (lw / S) & 1);
+      const unsigned char* at[KS][2];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          at[ks][h] = pix + sl[ks][h] + 32 * ks + 16 * h;
+      float acc[4 * TR_N8];
+#pragma unroll
+      for (int e = 0; e < 4 * TR_N8; ++e) acc[e] = 0.0f;
+// A of tap T_ into ab[B_]: for each K step, pixels g, g + 8 at the tap's
+// offset of whole pixels, pairs 2q and 2q + 8 of the step
+#define TR_LOAD_A(B_, T_)                                                   \
+  {                                                                         \
+    const int off_ = (((T_) / 3 - 1) * TR_RW + (T_) % 3 - 1) * PITCH;       \
+    _Pragma("unroll") for (int ks = 0; ks < KS; ++ks) {                     \
+      ab[B_][ks][0] = lds32(at[ks][0] + off_);                              \
+      ab[B_][ks][1] = lds32(at[ks][0] + off_ + 8 * PITCH);                  \
+      ab[B_][ks][2] = lds32(at[ks][1] + off_);                              \
+      ab[B_][ks][3] = lds32(at[ks][1] + off_ + 8 * PITCH);                  \
+    }                                                                       \
+  }
+      // 9 taps of KS m64n48k16 steps each, straight-line, one commit group
+      // per tap; A in three register buffers of a tap: the next tap's loads
+      // while two taps may be in flight
+      unsigned ab[3][KS][4];
+      TR_LOAD_A(0, 0);
+#pragma unroll
+      for (int e = 0; e < 4 * TR_N8; ++e)
+        asm volatile("" : "+f"(acc[e])::"memory");
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          WgmmaRS<TR_N8>::mma(acc, ab[t % 3][ks],
+                              wgmma_desc(wsm + (t * KS + ks) * TR_N8 * 256));
+        wgmma_commit();
+        if (t + 1 < 9) TR_LOAD_A((t + 1) % 3, t + 1);
+        wgmma_wait<1>();               // tap t - 1 done: its A free
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) keep_live(ab[(t + 2) % 3][ks]);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) keep_live(ab[b][ks]);
+#pragma unroll
+      for (int e = 0; e < 4 * TR_N8; ++e)
+        asm volatile("" : "+f"(acc[e])::"memory");
+#undef TR_LOAD_A
+      // the window's oldest slice is read for the last time
+      if (lane == 0) mbar_arrive(empty + (L0 + i) % S);
+
+      // ---- epilogue: bias, one rounding, the warp's image row (16 x CO)
+      // staged and sent by one TMA store, which drops what lies outside y;
+      // the warp's own row, so no barrier beyond the warp
+      if (lane == 0) bulk_wait_read<0>();    // the last store read the row
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < TR_N8; ++j) {
+        const int co = 8 * j + 2 * q;
+        if (co < p.CO) {               // CO % 8 == 0: co + 1 too
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<__nv_bfloat162*>(
+                out + ((g + 8 * hh) * p.CO + co) * 2) =
+                __floats2bfloat162_rn(
+                    acc[4 * j + 2 * hh] + bias[2 * j],
+                    acc[4 * j + 2 * hh + 1] + bias[2 * j + 1]);
+        }
+      }
+      fence_proxy_async();             // for the TMA store
+      __syncwarp();
+      if (lane == 0 && row < p.H - a.h0) {
+        tma_store_5d(&ymap, out, 0, a.w0, a.h0 + row, a.d0 + i, a.n);
+        bulk_commit();
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sl[ks][h] += p.slot_bytes;
+          if (sl[ks][h] >= ring_bytes) sl[ks][h] -= ring_bytes;
+        }
+    }
+    // the run's last four slices
+    if (lane == 0)
+      for (unsigned j = L0 + nd; j < L0 + nd + 4; ++j)
+        mbar_arrive(empty + j % S);
+    L0 += nd + 4;
+    u += nd;
+  }
+  if (lane == 0) bulk_wait_all();      // the stores done before exit
+}
+
+// The TMA route's ring (the most slots from TR_SLOTS_MAX down to
+// TR_SLOTS_MIN that fit) and shared-memory layout for p.C and p.CO, or
+// false where TR_SLOTS_MIN do not fit
+static bool tr_layout(TmaRingParams& p) {
+  const int KS = (p.C + 15) / 16;
+  p.slot_bytes = (TR_PIX * 2 * (16 * KS + 8) + 127) / 128 * 128;
+  p.w_bytes = 9 * KS * TR_N8 * 256;
+  const int out = TR_TH * TR_TW * p.CO * 2;   // one row per warp
+  for (int s = TR_SLOTS_MAX; s >= TR_SLOTS_MIN; --s) {
+    const size_t total = 128 + (size_t)s * p.slot_bytes + p.w_bytes + out +
+                         8 * (2 * s + 1);
+    if (total > SMEM_LIMIT) continue;
+    p.slots = s;
+    p.off_w = s * p.slot_bytes;
+    p.off_out = p.off_w + p.w_bytes;
+    p.off_bar = p.off_out + out;
+    return true;
+  }
+  return false;
+}
+
+static int launch_shift_conv_tma(const void* x, const void* wpk,
+                                 const void* b, void* y, const int* groups,
+                                 int ngroups, int N, int D, int H, int W,
+                                 int C, int CO, cudaStream_t stream) {
+  if (wpk == nullptr || (uintptr_t)wpk % 16)
+    return (int)cudaErrorInvalidValue;
+  TmaRingParams p;
+  p.b = static_cast<const bf16*>(b);
+  p.wpk = static_cast<const bf16*>(wpk);
+  p.D = D; p.H = H; p.C = C; p.CO = CO;
+  for (int g = 0; g < MAX_GROUPS; ++g) {
+    const bool on = g < ngroups;
+    p.g0[g] = on ? groups[3 * g] : 0;
+    p.g1[g] = on ? groups[3 * g + 1] : 0;
+    p.gs[g] = on ? groups[3 * g + 2] : 0;
+  }
+  p.ngroups = ngroups;
+  p.n_ht = (H + TR_TH - 1) / TR_TH;
+  p.n_wt = (W + TR_TW - 1) / TR_TW;
+  p.total = (int)((long long)N * p.n_ht * p.n_wt * D);
+  if (!tr_layout(p)) return (int)cudaErrorInvalidValue;
+  const int KS = (C + 15) / 16;
+  // x over (C, W, H, D, N) in boxes of (16 KS + 8, 18, 10, 1, 1): a box
+  // lands as [row][column][channel], zero outside x
+  CUtensorMap xmap, ymap;
+  const uint64_t px = 2ull * C, py = 2ull * CO;
+  const uint64_t xdims[5] = {(uint64_t)C, (uint64_t)W, (uint64_t)H,
+                             (uint64_t)D, (uint64_t)N};
+  const uint64_t xstr[4] = {px, px * W, px * W * H, px * W * H * D};
+  const int xbox[5] = {16 * KS + 8, TR_RW, TR_TH + 2, 1, 1};
+  int err = tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, x, xdims,
+                       xstr, xbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err) return err;
+  // y over (CO, W, H, D, N) in boxes of one warp's row of 16 pixels
+  const uint64_t ydims[5] = {(uint64_t)CO, (uint64_t)W, (uint64_t)H,
+                             (uint64_t)D, (uint64_t)N};
+  const uint64_t ystr[4] = {py, py * W, py * W * H, py * W * H * D};
+  const int ybox[5] = {CO, TR_TW, 1, 1, 1};
+  err = tensor_map(&ymap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, y, ydims, ystr,
+                   ybox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err) return err;
+  typedef void (*Kernel)(const CUtensorMap, const CUtensorMap,
+                         const TmaRingParams);
+  static const Kernel kernels[TR_KSMAX] = {
+      shift_conv_tma_kernel<1>, shift_conv_tma_kernel<2>,
+      shift_conv_tma_kernel<3>, shift_conv_tma_kernel<4>};
+  const Kernel kernel = kernels[KS - 1];
+  const size_t smem = 128 + (size_t)p.off_bar + 8 * (2 * p.slots + 1);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = p.total < sms ? p.total : sms;
+  kernel<<<grid, TR_THREADS, smem, stream>>>(xmap, ymap, p);
+  return (int)cudaGetLastError();
+}
+
 static bool ring_params(RingParams& p, const void* x, const void* y,
                         const int* groups, int ngroups, int N, int D, int H,
                         int W, int C) {
@@ -371,15 +719,55 @@ static bool ring_params(RingParams& p, const void* x, const void* y,
 // check, cudaFuncSetAttribute, or cudaGetLastError() after the launch.
 // Launches on `stream`; does not synchronise.
 
-// y (N, D, H, W, CO) = conv_(1,3,3)(depth_shift(x)) + b; w (9, CO, C)
+// The route of the fused kernel, the one place the rule lives: 1 (TMA)
+// where tensor maps describe x (N, D, H, W, C) and y (N, D, H, W, CO)
+// (16-byte-aligned tensors, C % 8 == 0 and CO % 8 == 0 for 16-byte
+// strides), every group edge is even (a channel pair lies in one group),
+// CO <= 48 (one n48 tile), C <= 64 and the ring fits shared memory; else 0
+// (cp.async, the first design)
+extern "C" int shift_conv_ring_route(const void* x, const void* y,
+                                     const int* groups, int ngroups, int N,
+                                     int D, int H, int W, int C, int CO) {
+  if (N < 1 || D < 1 || H < 1 || W < 1 || C < 1 || CO < 1 || ngroups < 1 ||
+      ngroups > MAX_GROUPS)
+    return 0;
+  if ((uintptr_t)x % 16 || (uintptr_t)y % 16 || C % 8 || CO % 8 ||
+      CO > TR_NCO || C > 16 * TR_KSMAX)
+    return 0;
+  for (int g = 0; g < ngroups; ++g)
+    if (groups[3 * g] % 2 || groups[3 * g + 1] % 2) return 0;
+  const long long total = (long long)N * ((H + TR_TH - 1) / TR_TH) *
+                          ((W + TR_TW - 1) / TR_TW) * D;
+  if (total > 2147483647LL) return 0;
+  TmaRingParams p;
+  p.C = C;
+  p.CO = CO;
+  return tr_layout(p) ? 1 : 0;
+}
+
+// y (N, D, H, W, CO) = conv_(1,3,3)(depth_shift(x)) + b; w (9, CO, C) for
+// the cp.async route, wpk the packed weights of the TMA route (9 *
+// ceil(C / 16) * 6 * 256 bytes: per tap the channels in 16-channel steps
+// by wgmma_b_index over 6 groups of 8 output channels, zero past CO and
+// C); the other pointer may be null. tma: the TMA route, refused (an
+// error) where shift_conv_ring_route gives 0; else the cp.async route,
+// any shape.
 extern "C" int shift_conv_ring_launch(const void* x, const void* w,
-                                      const void* b, void* y,
-                                      const int* groups, int ngroups, int N,
-                                      int D, int H, int W, int C, int CO,
+                                      const void* wpk, const void* b,
+                                      void* y, const int* groups,
+                                      int ngroups, int N, int D, int H,
+                                      int W, int C, int CO, int tma,
                                       void* stream) {
   RingParams p;
   if (!ring_params(p, x, y, groups, ngroups, N, D, H, W, C) || CO < 1)
     return (int)cudaErrorInvalidValue;
+  if (tma) {
+    if (!shift_conv_ring_route(x, y, groups, ngroups, N, D, H, W, C, CO))
+      return (int)cudaErrorInvalidValue;
+    return launch_shift_conv_tma(x, wpk, b, y, groups, ngroups, N, D, H, W,
+                                 C, CO, static_cast<cudaStream_t>(stream));
+  }
+  if (w == nullptr) return (int)cudaErrorInvalidValue;
   p.w = static_cast<const bf16*>(w);
   p.b = static_cast<const bf16*>(b);
   p.CO = CO;

@@ -5,6 +5,7 @@ ops/_native.py) with its plain torch version beside it, and `main(argv)`,
 which repeats the experiment on the card:
 
     python -m e2enet_tpu_torch.experiments.shift_conv        # #11
+    python -m e2enet_tpu_torch.experiments.ring_phases       # #11's phases
     python -m e2enet_tpu_torch.experiments.exp_cf_fused [--v2]  # #12
     python -m e2enet_tpu_torch.experiments.exp_pipeline_fwd  # #13
     python -m e2enet_tpu_torch.experiments.exp_int8_mma      # #14

@@ -27,7 +27,8 @@ For the TMA route the host computes, once per call, the boxes (each shift
 group cut to slots of at most 16 channels, cf_slots: one TMA box each, at
 the group's source depth) and the K order of the products (the channels in
 order, padded with zero rows to a multiple of 16; the weights laid out for
-wgmma's B by cf_pack_weights). `cf_fused_shift_conv.routes` counts the
+wgmma's B by shift_conv.pack_weights_n48, as #11's TMA route lays them
+out). `cf_fused_shift_conv.routes` counts the
 launches per route.
 
     python -m e2enet_tpu_torch.experiments.exp_cf_fused [--v2] [--reps N]
@@ -47,14 +48,12 @@ from ..ops.blocks import conv3d_as_2d
 from ..ops.fused_block import fused_shift_conv_block
 from ..ops.shift import depth_shift_groups, group_shifts
 from . import card_line, cuda_ms, require_cuda
-from .shift_conv import bf16_close
+from .shift_conv import bf16_close, pack_weights_n48
 
 SHIFT_SIZE = 5
 LRELU_SLOPE = 0.01
-# the TMA route's boxes per tile and its output channels (csrc/cf_fused.cu
-# CF_SLOTS, CF_NCO)
+# the TMA route's boxes per tile (csrc/cf_fused.cu CF_SLOTS)
 CF_SLOTS = 5
-CF_NCO = 48
 
 
 # ------------------------------------------------------------ E1: relayout
@@ -129,26 +128,6 @@ def cf_slots(C: int, shift_size: int = SHIFT_SIZE):
             group_shifts(C, shift_size) for c in range(c0, c1, 16)]
 
 
-def cf_pack_weights(kernel):
-    """The TMA route's weights: kernel (CO <= 48, C, 3, 3) -> a flat
-    tensor of 9 taps x KS = ceil(C / 16) steps of 16 K rows (the channels
-    in order, zero past C) x 48 output channels (zero past CO), laid out
-    for wgmma's B operand (csrc/shift_conv_block.cuh wgmma_b_index: per
-    (tap, step) six groups of 8 output channels, each two 8 x 8 core
-    matrices, K halves 128 bytes apart), in the kernel's dtype."""
-    CO, C = (int(s) for s in kernel.shape[:2])
-    if CO > CF_NCO:
-        raise ValueError(f"CO = {CO} exceeds the TMA route's {CF_NCO}")
-    KS = -(-C // 16)
-    pad = kernel.new_zeros((9, CF_NCO, KS * 16))
-    # (tap, co, c) with tap = 3 * kh + kw
-    pad[:, :CO, :C] = kernel.permute(2, 3, 0, 1).reshape(9, CO, C)
-    # [t][co = 8 * n8 + nr][k = 16 * ks + 8 * kh + kr] ->
-    # [t][ks][n8][kh][nr][kr]
-    return (pad.reshape(9, CF_NCO // 8, 8, KS, 2, 8)
-            .permute(0, 3, 1, 4, 2, 5).contiguous().reshape(-1))
-
-
 def cf_fused_shift_conv(x_cf, kernel, bias, H, W, mult=None, off=None,
                         do_stats=False, shift_size=SHIFT_SIZE):
     """The channels-first fused block: csrc/cf_fused.cu for CUDA tensors
@@ -176,7 +155,7 @@ def cf_fused_shift_conv(x_cf, kernel, bias, H, W, mult=None, off=None,
     slots = cf_slots(C, shift_size)
     w2 = wpk = None
     if _native.cf_route(x_cf, y, H, W, slots) == "tma":
-        wpk = cf_pack_weights(kernel.to(bf))
+        wpk = pack_weights_n48(kernel.to(bf))
     else:           # (CO, 9*C): k = (3*kh + kw) * C + channel
         w2 = kernel.to(bf).permute(0, 2, 3, 1).reshape(CO, 9 * C).contiguous()
     route = _native.launch_cf_fused(

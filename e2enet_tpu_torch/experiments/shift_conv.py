@@ -16,7 +16,15 @@ W * C % 128 == 0 for its DMA, the function does not.
 On CUDA tensors (bfloat16 only) both run csrc/shift_conv_ring.cu, whose
 blocks walk depth with a ring of input slices in shared memory, so that each
 input value is read from device memory once per tile; on CPU tensors their
-plain versions. Gradients: fused_shift_conv's is the autograd of its plain
+plain versions. The fused kernel has two routes, chosen by the library's
+rule by shape (`_native.shift_conv_ring_route`): "tma" (whole depth slices
+by TMA into the ring, wgmma with A built in registers, its weights packed
+once per call by pack_weights_n48) where C % 8 == 0, every shift group's
+edges are even, CO <= 48 and CO % 8 == 0, C <= 64 and x and y are 16-byte
+aligned; "cp_async", the first design, otherwise.
+`fused_shift_conv.routes` counts the launches per route; `route=` runs one
+route (the first design as a control; "tma" raises where the rule refuses
+the shape). Gradients: fused_shift_conv's is the autograd of its plain
 version (the reference's is XLA's autodiff of its `_reference`, not a
 kernel); depth_shift_ring's is the ring kernel itself with the shifts
 negated (the reference's `_bwd_shift_ring`).
@@ -41,6 +49,10 @@ from ..ops.shift import (depth_shift, depth_shift_groups, group_shifts,
 from . import card_line, cuda_ms, require_cuda
 
 SHIFT_SIZE = 5
+# the output channels of the TMA routes of #11 and #12: one wgmma n48 tile
+# (csrc/shift_conv_ring.cu TR_NCO, csrc/cf_fused.cu CF_NCO)
+N48 = 48
+ROUTES = ("tma", "cp_async")
 
 
 def ring_groups(C: int, shift_size: int):
@@ -123,43 +135,77 @@ def fused_shift_conv_ref(x: torch.Tensor, kernel: torch.Tensor,
     return (acc + bias.to(dtype).float()).to(dtype)
 
 
-def _fused_forward(x, kernel, bias, shift_size):
+def pack_weights_n48(kernel: torch.Tensor) -> torch.Tensor:
+    """The TMA routes' weights (#11 and #12): kernel (CO <= 48, C, 3, 3)
+    -> a flat tensor of 9 taps x KS = ceil(C / 16) steps of 16 K rows (the
+    channels in order, zero past C) x 48 output channels (zero past CO),
+    laid out for wgmma's B operand (csrc/shift_conv_block.cuh
+    wgmma_b_index: per (tap, step) six groups of 8 output channels, each
+    two 8 x 8 core matrices, K halves 128 bytes apart), in the kernel's
+    dtype."""
+    CO, C = (int(s) for s in kernel.shape[:2])
+    if CO > N48:
+        raise ValueError(f"CO = {CO} exceeds the TMA routes' {N48}")
+    KS = -(-C // 16)
+    pad = kernel.new_zeros((9, N48, KS * 16))
+    # (tap, co, c) with tap = 3 * kh + kw
+    pad[:, :CO, :C] = kernel.permute(2, 3, 0, 1).reshape(9, CO, C)
+    # [t][co = 8 * n8 + nr][k = 16 * ks + 8 * kh + kr] ->
+    # [t][ks][n8][kh][nr][kr]
+    return (pad.reshape(9, N48 // 8, 8, KS, 2, 8)
+            .permute(0, 3, 1, 4, 2, 5).contiguous().reshape(-1))
+
+
+def _fused_forward(x, kernel, bias, shift_size, route):
     _check_x("fused_shift_conv", x)
     N, D, H, W, C = (int(s) for s in x.shape)
     CO = int(kernel.shape[0])
     if tuple(kernel.shape) != (CO, C, 3, 3) or tuple(bias.shape) != (CO,):
         raise ValueError(f"kernel {tuple(kernel.shape)} / bias "
                          f"{tuple(bias.shape)} do not fit C={C}")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route {route!r}: one of {ROUTES} or None")
     if x.device.type == "cpu":
         return fused_shift_conv_ref(x, kernel, bias, shift_size)
     check_device("fused_shift_conv", [x, kernel, bias])
     from ..ops import _native
     bf = torch.bfloat16
-    w9 = kernel.to(bf).permute(2, 3, 0, 1).reshape(9, CO, C).contiguous()
+    x = x.contiguous()
+    groups = ring_groups(C, shift_size)
     y = torch.empty((N, D, H, W, CO), dtype=bf, device=x.device)
-    _native.launch_shift_conv_ring(x.contiguous(), w9, bias.to(bf)
-                                   .contiguous(), y,
-                                   ring_groups(C, shift_size))
+    if route is None:
+        route = _native.shift_conv_ring_route(x, y, groups)
+    kb = kernel.to(bf)
+    if route == "tma":
+        w9, wpk = None, pack_weights_n48(kb)
+    else:
+        w9 = kb.permute(2, 3, 0, 1).reshape(9, CO, C).contiguous()
+        wpk = None
+    _native.launch_shift_conv_ring(x, w9, wpk, bias.to(bf).contiguous(), y,
+                                   groups, route)
     fused_shift_conv.launches += 1
+    fused_shift_conv.routes[route] += 1
     return y
 
 
 def fused_shift_conv(x: torch.Tensor, kernel: torch.Tensor,
-                     bias: torch.Tensor, shift_size: int = SHIFT_SIZE
-                     ) -> torch.Tensor:
-    """conv_(1,3,3)(depth_shift(x)) + bias by the ring kernel (CUDA, bf16)
-    or its plain version (CPU); x (N, D, H, W, C), kernel (CO, C, 3, 3),
-    bias (CO,) -> (N, D, H, W, CO) in x's dtype. With a gradient wanted,
-    its backward is the autograd of fused_shift_conv_ref."""
+                     bias: torch.Tensor, shift_size: int = SHIFT_SIZE,
+                     route=None) -> torch.Tensor:
+    """conv_(1,3,3)(depth_shift(x)) + bias by the ring kernel (CUDA, bf16;
+    on the route the library's rule gives, or on `route`) or its plain
+    version (CPU); x (N, D, H, W, C), kernel (CO, C, 3, 3), bias (CO,) ->
+    (N, D, H, W, CO) in x's dtype. With a gradient wanted, its backward is
+    the autograd of fused_shift_conv_ref."""
     if needs_grad([x, kernel, bias]):
         return plain_vjp(
-            lambda a, k, b: _fused_forward(a, k, b, shift_size),
+            lambda a, k, b: _fused_forward(a, k, b, shift_size, route),
             lambda a, k, b: fused_shift_conv_ref(a, k, b, shift_size),
             (x, kernel, bias))
-    return _fused_forward(x, kernel, bias, shift_size)
+    return _fused_forward(x, kernel, bias, shift_size, route)
 
 
 fused_shift_conv.launches = 0
+fused_shift_conv.routes = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------- main
@@ -187,13 +233,16 @@ def main(argv=None) -> None:
     print(f"[shift_conv] {torch.cuda.get_device_name(0)} [{card_line()}]; "
           f"x 1 x {S}^3 x {C} -> {CO} bf16", flush=True)
     with torch.inference_mode():
+        routes = dict(fused_shift_conv.routes)
         y = fused_shift_conv(x, kernel, bias)
+        route = next(r for r in ROUTES
+                     if fused_shift_conv.routes[r] > routes[r])
         ok_y = bf16_close(y, fused_shift_conv_ref(x, kernel, bias))
         s = depth_shift_ring(x)
         ok_s = torch.equal(s, depth_shift(x, SHIFT_SIZE))
-        print(f"  ring shift + conv vs its plain version: within 2 bf16 "
-              f"steps {ok_y}; ring shift vs depth_shift: equal {ok_s}",
-              flush=True)
+        print(f"  ring shift + conv ({route} route) vs its plain version: "
+              f"within 2 bf16 steps {ok_y}; ring shift vs depth_shift: "
+              f"equal {ok_s}", flush=True)
         if not (ok_y and ok_s):
             raise SystemExit("shift_conv: the kernels disagree with their "
                              "plain versions")

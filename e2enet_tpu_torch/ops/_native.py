@@ -83,8 +83,11 @@ SIGNATURES = {
         # C, CO
         "fused_block_pipe_scratch_bytes": [i32, i32]},
     "shift_conv_ring": {
-        # x, w, b, y, groups, ngroups, N, D, H, W, C, CO, stream
-        "shift_conv_ring_launch": [vp] * 4 + [PI, i32] + [i32] * 6 + [vp],
+        # x, w, the packed weights, b, y, groups, ngroups, N, D, H, W, C,
+        # CO, tma, stream
+        "shift_conv_ring_launch": [vp] * 5 + [PI, i32] + [i32] * 7 + [vp],
+        # x, y, groups, ngroups, N, D, H, W, C, CO
+        "shift_conv_ring_route": [vp] * 2 + [PI, i32] + [i32] * 6,
         # x, y, groups, ngroups, N, D, H, W, C, stream
         "depth_shift_ring_launch": [vp] * 2 + [PI, i32] + [i32] * 5 + [vp]},
     "cf_fused": {
@@ -170,10 +173,11 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-# the routes of the up-link and the seg head, and of the channels-first
-# block, by the library's code
+# the routes of the up-link and the seg head, of the channels-first block
+# and of the ring shift + conv, by the library's code
 ROUTES = {0: "ldg", 1: "bulk"}
 CF_ROUTES = {0: "ldg", 1: "tma"}
+RING_ROUTES = {0: "cp_async", 1: "tma"}
 
 
 def _stream(t: torch.Tensor):
@@ -415,18 +419,35 @@ def launch_fused_block_pipe(parts, affines, groups, w9, b, y, stats,
     return stages.value
 
 
-def launch_shift_conv_ring(x, w9, b, y, groups) -> None:
-    """Launch csrc/shift_conv_ring.cu's fused kernel: x contiguous bf16
-    (N, D, H, W, C); groups [(c0, c1, shift)], shifts in [-2, 2]; w9
-    (9, CO, C) bf16; b (CO,) bf16; output y (N, D, H, W, CO) bf16."""
+def shift_conv_ring_route(x, y, groups) -> str:
+    """The route csrc/shift_conv_ring.cu's fused kernel takes for x
+    (N, D, H, W, C) -> y (N, D, H, W, CO) with the shift groups `groups`:
+    "tma" or "cp_async". The rule lives in the library
+    (shift_conv_ring_route)."""
+    gr, ng = _groups_arr(groups)
+    N, D, H, W, C = (int(s) for s in x.shape)
+    return RING_ROUTES[library("shift_conv_ring").shift_conv_ring_route(
+        x.data_ptr(), y.data_ptr(), gr, ng, N, D, H, W, C,
+        int(y.shape[-1]))]
+
+
+def launch_shift_conv_ring(x, w9, wpk, b, y, groups, route: str) -> None:
+    """Launch csrc/shift_conv_ring.cu's fused kernel on `route`: x
+    contiguous bf16 (N, D, H, W, C); groups [(c0, c1, shift)], shifts in
+    [-2, 2]; the cp.async route's weights w9 (9, CO, C) bf16 or the TMA
+    route's packed weights wpk (shift_conv.pack_weights_n48), the other
+    None; b (CO,) bf16; output y (N, D, H, W, CO) bf16. The library refuses
+    "tma" (an error) for a shape its rule gives to "cp_async"."""
     fn = library("shift_conv_ring").shift_conv_ring_launch
     gr, ng = _groups_arr(groups)
     N, D, H, W, C = (int(s) for s in x.shape)
     CO = int(y.shape[-1])
+    opt = [None if t is None else t.data_ptr() for t in (w9, wpk)]
     with torch.cuda.device(y.device):
-        err = fn(x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(), gr,
-                 ng, N, D, H, W, C, CO, _stream(y))
-    _check(err, f"shift_conv_ring (N={N} D={D} H={H} W={W} C={C} CO={CO})")
+        err = fn(x.data_ptr(), opt[0], opt[1], b.data_ptr(), y.data_ptr(),
+                 gr, ng, N, D, H, W, C, CO, int(route == "tma"), _stream(y))
+    _check(err, f"shift_conv_ring {route} (N={N} D={D} H={H} W={W} C={C} "
+                f"CO={CO})")
 
 
 def launch_depth_shift_ring(x, y, groups) -> None:
@@ -466,10 +487,10 @@ def launch_cf_fused(x, w2, wpk, b, mult, off, y, stats, groups, slots, H,
                     W) -> str:
     """Launch csrc/cf_fused.cu's channels-first block: x contiguous bf16
     (N, D, C, H*W); the ldg route's weights w2 (CO, 9*C) bf16 (k = tap * C
-    + channel) or the TMA route's packed weights wpk (exp_cf_fused's
-    cf_pack_weights), one of them None; b (CO,) bf16; mult/off float32 (C,)
-    or both None; y (N, D, CO, H*W) bf16; stats float32 (N, CO, 2) zeroed,
-    or None; groups [(c0, c1, shift)]; slots [(c0, channels, shift)].
+    + channel) or the TMA route's packed weights wpk
+    (shift_conv.pack_weights_n48), one of them None; b (CO,) bf16;
+    mult/off float32 (C,) or both None; y (N, D, CO, H*W) bf16; stats
+    float32 (N, CO, 2) zeroed, or None; groups [(c0, c1, shift)]; slots [(c0, channels, shift)].
     Runs the route the library's rule gives (cf_route) and returns it."""
     fn = library("cf_fused").cf_fused_launch
     gr, ng = _groups_arr(groups)

@@ -16,7 +16,8 @@ launches; the block backward's parts wanted or not and
 its two device kernels per call; the experiment kernels (#11 the ring shift +
 conv and the ring shift with its backward, #12 the relayout probe and the
 channels-first block with and without affine and statistics on both of
-its routes (the route each shape takes asserted), #13 the pipelined block
+its routes (the route each shape takes asserted; the ring shift + conv
+on both of its routes likewise), #13 the pipelined block
 against #1 (equal to the bit) and its own control,
 #14 the bf16 and int8 products on the route each shape takes, counted per
 route, beside the mma.sync control, and the int8 repack of B). Imports no
@@ -922,6 +923,58 @@ def test_ring_shift_conv_matches_plain(case):
     from e2enet_tpu_torch.ops.shift import depth_shift_groups, mirror_groups
     assert torch.equal(xg.grad, depth_shift_groups(
         g, mirror_groups(tsc.ring_groups(C, 5))))
+
+
+# the ring shift + conv's routes: (N, D, H, W, C, CO, the route the rule
+# gives). TMA: the main shape, N = 2, D of 1-3 (depth rows outside the
+# volume from TMA's zero fill), H and W off the 8 x 16 tile, C = 8 and 40
+# (K rows past C zero in A and B), CO < 48; the first design (cp.async):
+# C = 1 and 24 (groups of 5: odd edges), CO = 56 and 12 (not one n48 tile)
+RING_ROUTE = {
+    "main": (1, 128, 128, 128, 48, 48, "tma"),
+    "n2": (2, 5, 16, 32, 48, 48, "tma"),
+    "d1": (1, 1, 8, 16, 48, 48, "tma"),
+    "d2_co40": (2, 2, 9, 20, 48, 40, "tma"),
+    "d3_h13_w37": (1, 3, 13, 37, 48, 48, "tma"),
+    "h21_w45_c40_co24": (1, 6, 21, 45, 40, 24, "tma"),
+    "c8": (2, 4, 8, 16, 8, 8, "tma"),
+    "c16_w9": (1, 4, 7, 9, 16, 16, "tma"),
+    "c1": (2, 4, 8, 16, 1, 5, "cp_async"),
+    "c24": (1, 5, 9, 20, 24, 40, "cp_async"),
+    "co56": (1, 3, 8, 16, 48, 56, "cp_async"),
+    "co12": (1, 3, 8, 16, 48, 12, "cp_async"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RING_ROUTE))
+def test_ring_shift_conv_route(case):
+    """The route the rule gives, counted, within 2 bf16 steps of the plain
+    version; on the TMA route's shapes also the first design (the control,
+    route="cp_async")."""
+    dev = _card()
+    N, D, H, W, C, CO, route = RING_ROUTE[case]
+    rng = np.random.RandomState(13)
+    x = _rand(rng, dev, N, D, H, W, C).bfloat16()
+    k = _rand(rng, dev, CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    b = _rand(rng, dev, CO, scale=0.1)
+    routes = dict(tsc.fused_shift_conv.routes)
+    with torch.no_grad():
+        y = tsc.fused_shift_conv(x, k, b)
+        y_p = tsc.fused_shift_conv_ref(x, k, b)
+        torch.cuda.synchronize()
+        routes[route] += 1
+        assert tsc.fused_shift_conv.routes == routes
+        assert _within_ulps(y, y_p)
+        if route == "tma":
+            y_c = tsc.fused_shift_conv(x, k, b, route="cp_async")
+            torch.cuda.synchronize()
+            routes["cp_async"] += 1
+            assert tsc.fused_shift_conv.routes == routes
+            assert _within_ulps(y_c, y_p)
+        else:                           # the TMA route refuses the shape
+            with pytest.raises((RuntimeError, ValueError)):
+                tsc.fused_shift_conv(x, k, b, route="tma")
 
 
 # the channels-first block's cases: the ring's, and two column tiles of 64

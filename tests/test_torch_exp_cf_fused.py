@@ -5,7 +5,7 @@ mode: make_cf_call (`_cf_kernel`), make_cf_call_v2 (`_cf_kernel_v2`) with
 each of the affine and the statistics on and off, and try_reshape_hwc.
 Also the host side of the TMA route's staging: the boxes (each shift group
 cut to slots of at most 16 channels, cf_slots) gathered plainly with TMA's
-zero fill, against the wgmma-packed weights (cf_pack_weights, zero-padded
+zero fill, against the wgmma-packed weights (pack_weights_n48, zero-padded
 K, unpacked by the packing's index formula), reproduce the plain version
 and the reference's kernels.
 
@@ -33,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
 from e2enet_tpu_torch.experiments import exp_cf_fused as tcf  # noqa: E402
+from e2enet_tpu_torch.experiments import shift_conv as tsc  # noqa: E402
 from e2enet_tpu_torch.ops.shift import group_shifts  # noqa: E402
 
 CACHE_OPTIONS = ("jax_compilation_cache_dir",
@@ -158,7 +159,7 @@ def _unpack(wpk, C):
     rows), by the index formula of csrc/shift_conv_block.cuh wgmma_b_index
     (KS = ceil(C / 16) steps of 16 channels, N8 = 6 groups of 8 output
     channels)."""
-    KS, N8 = -(-C // 16), tcf.CF_NCO // 8
+    KS, N8 = -(-C // 16), tsc.N48 // 8
     t, n, k = np.meshgrid(np.arange(9), np.arange(8 * N8),
                           np.arange(16 * KS), indexing="ij")
     idx = (((((t * KS + k // 16) * N8 + n // 8) * 2 + (k % 16) // 8) * 8
@@ -175,7 +176,7 @@ def _boxes_conv(x, kernel, bias, H, W, mult=None, off=None, do_stats=False):
     dtype."""
     N, D, C, _ = x.shape
     CO = kernel.shape[0]
-    w_pad = torch.from_numpy(_unpack(tcf.cf_pack_weights(
+    w_pad = torch.from_numpy(_unpack(tsc.pack_weights_n48(
         kernel.to(x.dtype)), C))
     xa = x.reshape(N, D, C, H, W).float()
     if mult is not None:
@@ -184,7 +185,7 @@ def _boxes_conv(x, kernel, bias, H, W, mult=None, off=None, do_stats=False):
     # index i of a padded axis is source depth i - 2, row i - 1, column
     # i - 1
     xp = torch.nn.functional.pad(xa, (1, 1, 1, 1, 0, 0, 2, 2))
-    acc = torch.zeros(N, D, tcf.CF_NCO, H, W)
+    acc = torch.zeros(N, D, tsc.N48, H, W)
     for (c0, n, sh), dh, dw in itertools.product(tcf.cf_slots(C), range(3),
                                                  range(3)):
         box = xp[:, 2 - sh:2 - sh + D, c0:c0 + n, dh:dh + H, dw:dw + W]
@@ -212,12 +213,12 @@ def test_cf_slots_and_packing():
     rng = np.random.RandomState(0)
     for C, CO in ((48, 40), (20, 48), (1, 5)):
         k = rng.randn(CO, C, 3, 3).astype(np.float32)
-        w = _unpack(tcf.cf_pack_weights(torch.from_numpy(k)), C)
+        w = _unpack(tsc.pack_weights_n48(torch.from_numpy(k)), C)
         want = np.zeros((9, 48, w.shape[2]), np.float32)
         want[:, :CO, :C] = k.transpose(2, 3, 0, 1).reshape(9, CO, C)
         np.testing.assert_array_equal(w, want)
     with pytest.raises(ValueError):
-        tcf.cf_pack_weights(torch.zeros(56, 48, 3, 3))
+        tsc.pack_weights_n48(torch.zeros(56, 48, 3, 3))
 
 
 @pytest.mark.parametrize("N,D,H,W,C,CO", [

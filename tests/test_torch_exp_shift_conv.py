@@ -160,3 +160,122 @@ def test_depth_shift_ring_gradient(ref, dtype):
 def test_shift_size_beyond_the_ring_raises():
     with pytest.raises(ValueError):
         tsc.depth_shift_ring(torch.zeros(1, 3, 2, 2, 14), shift_size=7)
+
+
+# ------------------------- the TMA route's weights and staging, on the host
+def _packed_by_index(k):
+    """kernel (CO, C, 3, 3) -> the packed flat weights, element by element
+    at the index of csrc/shift_conv_block.cuh wgmma_b_index (KS =
+    ceil(C / 16) steps of 16 K rows, 6 groups of 8 output channels), zero
+    elsewhere."""
+    CO, C = k.shape[:2]
+    KS = -(-C // 16)
+    out = np.zeros(9 * KS * 16 * tsc.N48, np.float32)
+    for t in range(9):
+        for co in range(CO):
+            for c in range(C):
+                idx = (((((t * KS + c // 16) * 6 + co // 8) * 2
+                         + (c % 16) // 8) * 8 + co % 8) * 8 + c % 8)
+                out[idx] = k[co, c, t // 3, t % 3]
+    return out
+
+
+@pytest.mark.parametrize("C,CO", [(48, 48), (40, 24), (8, 8), (20, 5)])
+def test_pack_weights_n48_index_formula(C, CO):
+    """Weight (co, c, kh, kw) at K row c of tap 3 kh + kw and output
+    channel co, zero past CO and C (C = 48: the main shape; 40 and 20: K
+    rows past C in the last step)."""
+    k = np.random.RandomState(C + CO).randn(CO, C, 3, 3).astype(np.float32)
+    wpk = tsc.pack_weights_n48(torch.from_numpy(k))
+    assert wpk.dtype == torch.float32
+    np.testing.assert_array_equal(wpk.numpy(), _packed_by_index(k))
+    with pytest.raises(ValueError):
+        tsc.pack_weights_n48(torch.zeros(56, C, 3, 3))
+
+
+def _ring_pairs_conv(x, kernel, bias):
+    """The TMA route's dataflow in plain torch: per depth d the ring's
+    window of the 5 slices d - 2 .. d + 2, each a box of 16 KS + 8 channels
+    with TMA's zero fill (outside the volume, past C); A's K row c read
+    from window position 2 - shift of its channel pair (c // 2); the 9
+    taps' products against the packed weights, unpacked by the index
+    formula; float32 sums, the bias in float32, y rounded once."""
+    N, D, H, W, C = x.shape
+    CO = kernel.shape[0]
+    KS = -(-C // 16)
+    groups = tsc.ring_groups(C, tsc.SHIFT_SIZE)
+    shift = np.zeros(16 * KS, np.int64)           # past C: shift 0
+    for c0, c1, s in groups:
+        shift[c0:c1] = s
+    # every group edge even: the two channels of a pair share a shift
+    assert all(c0 % 2 == 0 and c1 % 2 == 0 for c0, c1, _ in groups)
+    pair_shift = shift[0::2]
+    wpk = tsc.pack_weights_n48(kernel.to(x.dtype)).float().numpy()
+    w = np.zeros((9, tsc.N48, 16 * KS), np.float32)
+    t, n, k = np.meshgrid(np.arange(9), np.arange(tsc.N48),
+                          np.arange(16 * KS), indexing="ij")
+    w[t, n, k] = wpk[(((((t * KS + k // 16) * 6 + n // 8) * 2
+                        + (k % 16) // 8) * 8 + n % 8) * 8 + k % 8)]
+    # index i of the padded depth axis is source depth i - 2, of the rows
+    # and columns i - 1
+    xp = torch.nn.functional.pad(x.float(), (0, 16 * KS + 8 - C, 1, 1, 1, 1,
+                                             2, 2))
+    acc = torch.zeros(N, D, H, W, tsc.N48)
+    for d in range(D):
+        window = xp[:, d:d + 5]                    # positions 0 .. 4
+        a = torch.stack([window[:, 2 - int(pair_shift[c // 2]), :, :, c]
+                         for c in range(16 * KS)], dim=-1)
+        for tap in range(9):
+            dh, dw = divmod(tap, 3)
+            acc[:, d] += a[:, dh:dh + H, dw:dw + W] @ torch.from_numpy(
+                w[tap]).T
+    y = acc[..., :CO] + bias.to(x.dtype).float()
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("shape,CO", [
+    ((2, 3, 5, 13, 8), 8),            # four groups of 2, W = 13
+    ((1, 1, 4, 9, 16), 8),            # D = 1: four of the 5 slices zero
+    ((1, 4, 6, 20, 48), 48),          # the main shape's channels
+    ((1, 2, 3, 17, 40), 24),          # K rows 40-47 from the zero fill
+])
+def test_tma_ring_dataflow_matches_plain_and_reference(ref, shape, CO):
+    """The ring's window, the pair's slot chosen by its group's shift, TMA's
+    zero fill and the packed K order give the plain version's y and the
+    reference's fused_shift_conv (within 2 bf16 steps of each channel's
+    largest |y|: float32 sums of exact products in another order)."""
+    x, k, b = _inputs(shape[-1] + CO, shape, CO, jnp.bfloat16)
+    t = torch.from_numpy
+    xt, kt = t(x).to(torch.bfloat16), t(k.transpose(3, 2, 0, 1).copy())
+    y = _ring_pairs_conv(xt, kt, t(b))
+    _assert_close(y.float().numpy(),
+                  tsc.fused_shift_conv_ref(xt, kt, t(b)).float().numpy(),
+                  "bfloat16")
+    y_ref = ref.fused_shift_conv(jnp.asarray(x, jnp.bfloat16),
+                                 jnp.asarray(k, jnp.bfloat16),
+                                 jnp.asarray(b, jnp.bfloat16))
+    _assert_close(y.float().numpy(), y_ref, "bfloat16")
+
+
+def test_route_argument():
+    """On CPU tensors every route is the plain version and counts no
+    launch; an unknown route raises."""
+    x, k, b = _inputs(4, (1, 3, 4, 8, 16), 8, jnp.float32)
+    t = torch.from_numpy
+    args = (t(x), t(k.transpose(3, 2, 0, 1).copy()), t(b))
+    y = tsc.fused_shift_conv_ref(*args)
+    routes = dict(tsc.fused_shift_conv.routes)
+    for route in (None,) + tsc.ROUTES:
+        assert torch.equal(tsc.fused_shift_conv(*args, route=route), y)
+    assert tsc.fused_shift_conv.routes == routes
+    with pytest.raises(ValueError):
+        tsc.fused_shift_conv(*args, route="ldg")
+
+
+def test_ring_phase_cuts_match_the_source():
+    """Each of ring_phases' cuts edits lines that occur exactly once in
+    csrc/shift_conv_ring.cu, and changes the source."""
+    from e2enet_tpu_torch.experiments import ring_phases
+    src = (ring_phases._native.CSRC / "shift_conv_ring.cu").read_text()
+    for edits in ring_phases.CUTS.values():
+        assert ring_phases.cut_source(edits) != src
