@@ -61,7 +61,28 @@ Phases (any failure ends the run with a non-zero exit):
   6. data-flip the data-flip TTA path with the float32 logits head (the
               seg-head kernel's logits mode) and the materialised up-link
               route (the up-link kernel), one volume
-  7. train    the backward kernels (the block backward, serving TPU kernels
+  7. predict  the users' entry point: a model folder at the bench geometry
+              (one-stage plans: 128^3 patches, 5 x (2,2,2) pools, one CT
+              modality, 15 foreground classes, 1 mm) whose fold 0 the
+              port's save_checkpoint writes (bench width, seed 0, the
+              trained masks), and an input folder of two seeded cases (192^3
+              at 1 mm; 160 x 144 x 96 at (2.0, 0.8, 0.8) mm, which resamples
+              under a patch on one axis); cli/predict.main twice: (A)
+              --all_in_gpu True -z, the fast mode on the sparse plan, (B)
+              the exact mode with --mode fastest. Per case: each output's
+              shape, spacing, origin, direction and labels; its kernel
+              launches (tiles x passes x kernel_launches_per_forward); the
+              seconds in preprocessing (the background thread), in
+              predict_case inside the folder run and alone on the same data,
+              and in export. In A, case 1's npz probabilities against the
+              plain path's and a float32 plain run's, exported alike: the
+              kernel path within 1.25x the plain path's error, argmax
+              agreement within 0.5 points
+  8. bench    python -m e2enet_tpu_torch.bench in a subprocess: exit 0 and
+              the one JSON line (the reference bench.py's keys); echoes it
+              and the stderr summary (ms/volume, the exact-f32 companion,
+              the host's enqueue vs the device's time per forward)
+  9. train    the backward kernels (the block backward, serving TPU kernels
               #2 and #4, and the down-link backward #8) against their plain
               versions at the train step's shapes (batch 2) and ragged ones
               (the block backward also at D = 1, with no part wanted and
@@ -82,7 +103,7 @@ Phases (any failure ends the run with a non-zero exit):
               (CUDA events) and the peak memory. On a 2 x 64^3 batch, one
               step's gradients through the kernels, through the bf16 plain
               path and through a float32 plain run
-  8. experiments  the experiment kernels (TPU kernels #11-#14) against
+  10. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -106,7 +127,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  9. report   one JSON line with every kernel's launches, error, times and
+  11. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -1340,6 +1361,282 @@ def experiments_phase(rnd, R, reset_counts, counts, smi):
 HOST_READINGS = 21
 
 
+# the [predict] phase: a model folder at the bench geometry, two cases
+PRED_TASK = "Task500_ChipSmoke"
+PRED_INTENSITY = {0: {"mean": 40.0, "sd": 120.0, "percentile_00_5": -500.0,
+                      "percentile_99_5": 600.0}}
+# (z, y, x) arrays and ITK (x, y, z) spacings: case 0 is the bench's volume
+# at the plan's spacing (no resampling); case 1 resamples to (128, 115,
+# 192), under a patch on y, so padding and both resamplings run
+PRED_CASES = {"case_000": ((192, 192, 192), (1.0, 1.0, 1.0)),
+              "case_001": ((160, 144, 96), (2.0, 0.8, 0.8))}
+PRED_GEOM = dict(origin=(-120.5, 33.0, 410.25),
+                 direction=(1.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0, 0.0, 1.0))
+PRED_DEVICE = "cuda"
+
+
+def write_predict_inputs(base, model):
+    """The model folder (one-stage plans, fold 0 written by the port's
+    save_checkpoint from `model`'s weights and the trained masks) and the
+    input folder; returns (results dir, input dir, model folder)."""
+    import os
+    from e2enet_tpu_torch.io.nifti import NiftiImage, write_nifti
+    from e2enet_tpu_torch.models import masks as masks_mod
+    from e2enet_tpu_torch.models.weights import to_jax_params
+    from e2enet_tpu_torch.plans import Plans, StagePlan
+    from e2enet_tpu_torch.training.checkpoint import save_checkpoint
+    stage = StagePlan(
+        batch_size=2, num_pool_per_axis=[5, 5, 5], patch_size=list(PATCH),
+        median_patient_size_in_voxels=list(VOLUME),
+        current_spacing=[1.0, 1.0, 1.0], original_spacing=[1.0, 1.0, 1.0],
+        do_dummy_2D_data_aug=False, pool_op_kernel_sizes=[[2, 2, 2]] * 5,
+        conv_kernel_sizes=[[1, 3, 3]] * 6)
+    plans = Plans(
+        num_stages=1, num_modalities=1, modalities={0: "CT"},
+        normalization_schemes={0: "CT"}, dataset_properties={},
+        list_of_npz_files=[], original_spacings=[[1.0, 1.0, 1.0]],
+        original_sizes=[list(VOLUME)], preprocessed_data_folder=None,
+        num_classes=NUM_CLASSES - 1, all_classes=list(range(1, NUM_CLASSES)),
+        base_num_features=model.enc[0], use_mask_for_norm={0: False},
+        keep_only_largest_region=None, min_region_size_per_class=None,
+        min_size_per_class=None, transpose_forward=[0, 1, 2],
+        transpose_backward=[0, 1, 2], data_identifier="nnUNetData_plans_v2.1",
+        plans_per_stage={0: stage}, intensity_properties=PRED_INTENSITY)
+    results = os.path.join(base, "results")
+    folder = os.path.join(results, "nnUNet", "3d_fullres", PRED_TASK,
+                          "TPUTrainer__nnUNetPlansv2.1")
+    os.makedirs(os.path.join(folder, "fold_0"))
+    with np.load(masks_mod.BENCH_MASKS) as z:
+        masks = {k: z[k] for k in z.files}
+    save_checkpoint(
+        os.path.join(folder, "fold_0",
+                     "shiftConvPP_model_final_checkpoint.model"),
+        to_jax_params(model.state_dict()), 1000, masks=masks,
+        sidecar={"init": {"fold": 0, "stage": 0, "tconv": "shiftConvPP",
+                          "base_num_features": model.enc[0],
+                          "cascade": False},
+                 "name": "TPUTrainer", "class": "TPUTrainer",
+                 "plans": plans.to_dict()})
+    inputs = os.path.join(base, "input")
+    os.makedirs(inputs)
+    for i, (name, (shape, spacing)) in enumerate(PRED_CASES.items()):
+        rng = np.random.RandomState(10 + i)
+        vol = 40.0 + 120.0 * rng.randn(*shape).astype(np.float32)
+        write_nifti(os.path.join(inputs, f"{name}_0000.nii.gz"),
+                    NiftiImage(vol, spacing, **PRED_GEOM))
+    return results, inputs, folder
+
+
+def predict_phase(make_model, reset_counts, counts, smi):
+    """[predict] the users' entry point, cli/predict.main, twice on the
+    same model folder and input folder: (A) --all_in_gpu True -z (the fast
+    mode on the sparse plan) and (B) the exact mode with --mode fastest.
+    Per case: the output's geometry and labels, the kernel launches of its
+    predict_case (reset just before, read just after) against tiles x
+    passes x kernel_launches_per_forward, and the seconds in preprocessing
+    (the background thread), in predict_case inside the folder run, in
+    predict_case alone on the same data, and in export. In run A, case 1's
+    npz probabilities against predict_case's through the plain path and a
+    float32 plain run, exported alike (the rule of the patch checks).
+    Returns the launches over run A."""
+    import copy
+    import functools
+    import os
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.cli import predict as cli
+    from e2enet_tpu_torch.inference import predictor
+    from e2enet_tpu_torch.inference.export import \
+        save_segmentation_nifti_from_softmax
+    from e2enet_tpu_torch.io.nifti import read_nifti
+    from e2enet_tpu_torch.models.unetpp import kernel_launches_per_forward
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.ops.sliding import (
+        compute_steps_for_sliding_window, pad_volume_to_patch)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_predict_")
+    base = tmp.name
+    model = make_model()
+    per_fwd = kernel_launches_per_forward(model)
+    results, inputs, folder = write_predict_inputs(base, model)
+    del model
+    os.environ["RESULTS_FOLDER"] = results
+    print(f"[predict] model folder {folder}: fold_0 written by the port's "
+          f"save_checkpoint (bench width, seed 0, trained masks); cases "
+          f"{ {k: v for k, v in PRED_CASES.items()} } ((z, y, x), spacing "
+          f"(x, y, z) mm)", flush=True)
+
+    real_case, real_pff = predictor.predict_case, cli.predict_from_folder
+    per_case = []
+
+    def spy(bundle, data, *a, **k):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_case(bundle, data, *a, **k)
+        torch.cuda.synchronize()
+        padded, _ = pad_volume_to_patch(data, bundle.patch_size)
+        steps = compute_steps_for_sliding_window(
+            bundle.patch_size, padded.shape[1:], 0.5)
+        per_case.append({"launches": counts(),
+                         "tiles": int(np.prod([len(s) for s in steps])),
+                         "passes": TTA if k.get("do_tta", True) else 1,
+                         "shape": tuple(data.shape[1:]),
+                         "s": time.perf_counter() - t0})
+        return out
+
+    def run(tag, args):
+        per_case.clear()
+        timings = []
+        predictor.predict_case = spy
+        cli.predict_from_folder = functools.partial(real_pff,
+                                                    timings=timings)
+        try:
+            out = os.path.join(base, f"out_{tag}")
+            t0 = time.perf_counter()
+            cli.main(["-i", inputs, "-o", out, "-t", PRED_TASK] + args)
+            wall = time.perf_counter() - t0
+        finally:
+            predictor.predict_case = real_case
+            cli.predict_from_folder = real_pff
+        check(len(per_case) == len(timings) == len(PRED_CASES),
+              f"[predict {tag}] {len(per_case)} cases predicted")
+        total = {}
+        for (name, (shape, spacing)), c, t in zip(PRED_CASES.items(),
+                                                  per_case, timings):
+            img = read_nifti(os.path.join(out, f"{name}.nii.gz"))
+            check(img.array.shape == shape, f"[predict {tag}] {name}: "
+                  f"shape {img.array.shape}")
+            check(np.allclose(img.spacing, spacing)
+                  and np.allclose(img.origin, PRED_GEOM["origin"])
+                  and np.allclose(img.direction, PRED_GEOM["direction"]),
+                  f"[predict {tag}] {name}: geometry {img.geometry}")
+            labels = np.unique(img.array)
+            check(int(labels.min()) >= 0
+                  and int(labels.max()) < NUM_CLASSES,
+                  f"[predict {tag}] {name}: labels {labels}")
+            want = {n: c["tiles"] * c["passes"] * v
+                    for n, v in per_fwd.items()}
+            got = {n: c["launches"][n] for n in per_fwd}
+            check(got == want, f"[predict {tag}] {name}: launches {got} != "
+                  f"{want}")
+            check(all(c["launches"][n] == 0 for n in c["launches"]
+                      if n not in per_fwd), f"[predict {tag}] {name}: a "
+                  f"kernel off the path launched")
+            for n, v in c["launches"].items():
+                total[n] = total.get(n, 0) + v
+            print(f"[predict {tag}] {name}: network shape {c['shape']}, "
+                  f"{c['tiles']} tiles x {c['passes']} passes, launches "
+                  f"{got}; labels {labels.tolist()[:4]}...{int(labels.max())}"
+                  f"; s: preprocessing {t['preprocess_s']:.3f} (thread), "
+                  f"predict_case {t['predict_s']:.3f}, export "
+                  f"{t['export_s']:.3f}", flush=True)
+        print(f"[predict {tag}] cli.main wall {wall:.2f} s (model load, "
+              f"both cases)  [{smi}]", flush=True)
+        return out, timings, total
+
+    with torch.inference_mode():
+        out_a, times_a, total_a = run("A", ["--all_in_gpu", "True", "-z",
+                                            "--device", PRED_DEVICE])
+        run("B", ["--mode", "fastest", "--device", PRED_DEVICE])
+        for name in PRED_CASES:
+            z = np.load(os.path.join(out_a, f"{name}.npz"))["softmax"]
+            check(z.dtype == np.float16 and bool(np.isfinite(z).all()),
+                  f"[predict A] {name}: npz {z.dtype}, finite "
+                  f"{bool(np.isfinite(z).all())}")
+        # predict_case alone on each case's data, beside its time inside
+        # the folder run (the background thread's share of the host)
+        bundle = predictor.ModelBundle(folder, None, "shiftConvPP",
+                                       device=PRED_DEVICE)
+        check(bundle.sparse_plan is not None, "the bundle runs dense")
+        prep = bundle.make_preprocessor()
+        cases = {}
+        for name, ta in zip(PRED_CASES, times_a):
+            f = [os.path.join(inputs, f"{name}_0000.nii.gz")]
+            data, _s, props = prep.preprocess_test_case(
+                f, bundle.stage_plan.current_spacing)
+            cases[name] = (data, props)
+            alone = []
+            for _ in range(2):          # this bundle's first call, then warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                real_case(bundle, data, all_in_gpu=True)
+                torch.cuda.synchronize()
+                alone.append(time.perf_counter() - t0)
+            print(f"[predict A] {name}: predict_case {ta['predict_s']:.3f} s "
+                  f"in the folder run; alone on the same data "
+                  f"{alone[0]:.3f} s (first call) and {alone[1]:.3f} s "
+                  f"(preprocessing {ta['preprocess_s']:.3f} s on the "
+                  f"thread, export {ta['export_s']:.3f} s)  [{smi}]",
+                  flush=True)
+        # case 1: the kernel path's npz against the plain path's and a
+        # float32 plain run's, through the same export
+        data, props = cases["case_001"]
+        bundle32 = predictor.ModelBundle(folder, None, "shiftConvPP",
+                                         compute_dtype=torch.float32,
+                                         device=PRED_DEVICE)
+        with blocks.plain_ops():
+            refs = {"plain": real_case(bundle, data, all_in_gpu=True),
+                    "float32": real_case(bundle32, data)}
+        del bundle32
+        npz = {"kernel": np.load(os.path.join(out_a, "case_001.npz"))[
+            "softmax"].astype(np.float32)}
+        for tag, p in refs.items():
+            f = os.path.join(base, f"ref_{tag}")
+            save_segmentation_nifti_from_softmax(
+                p, f + ".nii.gz", copy.deepcopy(props), 1, None, None, None,
+                f + ".npz")
+            npz[tag] = np.load(f + ".npz")["softmax"].astype(np.float32)
+        errs = {}
+        for tag in ("kernel", "plain"):
+            e = np.abs(npz[tag] - npz["float32"])
+            agree = float((npz[tag].argmax(0) == npz["float32"].argmax(0))
+                          .mean())
+            errs[tag] = (float(e.mean()), agree)
+            print(f"[predict A] case_001 npz, {tag} path vs float32 plain "
+                  f"run: max |dp| {float(e.max()):.4e}, mean "
+                  f"{float(e.mean()):.4e}, argmax agreement {agree:.6f}",
+                  flush=True)
+        check(errs["kernel"][0] <= ERR_RATIO * errs["plain"][0],
+              "[predict A] the kernel path's probabilities further from the "
+              "float32 run than the plain path's")
+        check(errs["kernel"][1] >= errs["plain"][1] - AGREE_SLACK,
+              "[predict A] the kernel path's argmax agreement below the "
+              "plain path's")
+    del bundle
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return total_a
+
+
+def bench_phase(smi):
+    """[bench] python -m e2enet_tpu_torch.bench at its defaults (the sparse
+    model, fast mode) in a subprocess: exit 0 and a last stdout line with
+    the reference's four keys. Echoes that line and the stderr summary."""
+    from pathlib import Path
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "e2enet_tpu_torch.bench"],
+                       cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True, timeout=900)
+    for line in r.stderr.splitlines():
+        if any(k in line for k in ("group:", "sliding-window:", "exact-f32",
+                                   "per forward:", "masks from", "plan:",
+                                   "Error", "error")):
+            print(f"[bench] {line.strip()}", flush=True)
+    check(r.returncode == 0, f"[bench] exit {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    lines = r.stdout.strip().splitlines()
+    check(len(lines) == 1, f"[bench] {len(lines)} stdout lines")
+    out = json.loads(lines[-1])
+    check(list(out) == ["metric", "value", "unit", "vs_baseline"]
+          and out["unit"].startswith("128^3_patches_per_sec_per_chip_tta8"
+                                     "_rowsparse") and out["value"] > 0,
+          f"[bench] line {out}")
+    print(f"[bench] {lines[-1]}  ({time.time() - t0:.1f} s)  [{smi}]",
+          flush=True)
+    return out
+
+
 def host_only() -> None:
     """--host-ms: the host's time per call (host_ms) of the up-link (#6)
     and the seg head (#10 probs, #9 logits) wrappers at the bench's shapes
@@ -1858,7 +2155,14 @@ def main() -> None:
     del model, fns
     torch.cuda.empty_cache()
 
-    # ---- 7. train: the backward kernels, then the row-masked trainer
+    # ---- 7. predict: the users' entry point on a model folder
+    launches["predict"] = predict_phase(bench_model, reset_counts, counts,
+                                        smi)
+
+    # ---- 8. bench: the port's own bench in a subprocess
+    bench_phase(smi)
+
+    # ---- 9. train: the backward kernels, then the row-masked trainer
     train = train_phase(rnd, R, ops, reset_counts, counts, smi)
     launches["train"] = train["launches"]
     routes = {k: {r: op.routes[r] - routes_before[k][r] for r in op.routes}
@@ -1870,12 +2174,12 @@ def main() -> None:
           f"a path's up-link or seg head left the bulk route: {routes}")
     res.update(train["kernels"])
 
-    # ---- 8. experiments: the experiment kernels, then their mains
+    # ---- 10. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    # ---- 9. report
+    # ---- 11. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -1919,7 +2223,7 @@ def main() -> None:
           "volumes, the up-link's from the data-flip path's volume, the "
           "backward kernels' from the train path's steps, the experiment "
           "kernels' from the experiments' mains (launches_by_path: all "
-          "five)", flush=True)
+          "six, 'predict' over the folder run A's two cases)", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
     for name, (src, rep) in sources.items():

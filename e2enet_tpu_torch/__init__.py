@@ -9,4 +9,12 @@ and training paths are hand-written CUDA kernels here (`csrc/`, bound in
 (`ops/fused_block.py`), the lazy up-link block (`ops/qfused.py`), the
 strided transition (`ops/qstride.py`), and the level links, the down-link's
 backward and the seg head (`ops/qlink.py`); everything else is plain torch.
+
+Users' entry points: folder prediction (`python -m
+e2enet_tpu_torch.cli.predict`, `inference/predictor.py`) on checkpoints in
+the JAX package's format (`training/checkpoint.py`), with the port's own
+copies of the host modules it needs (`plans.py`, `paths.py`, `io/`,
+`preprocessing/`, `inference/export.py`, `postprocessing/`, `utils/`), and
+the bench (`python -m e2enet_tpu_torch.bench`). Each runs on the card and
+takes `--device cpu` (or `device="cpu"`) to run the plain versions here.
 """

@@ -87,14 +87,23 @@ def load_mask_artifact(path, model: nn.Module) -> Dict[str, np.ndarray]:
     """The masks of a masks-only .npz keyed by '|'-joined flax paths, as
     {port name: (in, out) float32}. Refuses a missing or an extra key and a
     mask whose shape is not its kernel's (in, out)."""
-    params = masked_params(model)
     with np.load(path) as z:
-        masks = {k.replace("|", "."): np.asarray(z[k], np.float32)
-                 for k in z.files}
+        flax_masks = {k: z[k] for k in z.files}
+    return masks_for_model(flax_masks, model, f"mask artifact {path}")
+
+
+def masks_for_model(flax_masks, model: nn.Module, what: str = "masks"
+                    ) -> Dict[str, np.ndarray]:
+    """{'|'-joined flax path: (in, out) mask} (a checkpoint's or an
+    artifact's) as {port name: (in, out) float32}, checked against the
+    model: no missing or extra key, every mask its kernel's (in, out)."""
+    params = masked_params(model)
+    masks = {k.replace("|", "."): np.asarray(v, np.float32)
+             for k, v in flax_masks.items()}
     missing = sorted(set(params) - set(masks))
     extra = sorted(set(masks) - set(params))
     if missing or extra:
-        raise ValueError(f"mask artifact does not fit the model: missing "
+        raise ValueError(f"{what} does not fit the model: missing "
                          f"{missing[:4]}, extra {extra[:4]}")
     for name, m in masks.items():
         if m.shape != mask_shape(params[name]):
@@ -129,14 +138,21 @@ BENCH_MASKS = (Path(__file__).resolve().parents[2] / "experiments" / "logs"
                / "bench_masks_trained.npz")
 
 
+def bake_masks(model: nn.Module, masks):
+    """The masks baked into the model's weights (w * mask) and the
+    row-sparse plan built from them, returned and not attached (None when
+    the masks are not row-structured)."""
+    from .sparse_plan import build_sparse_plan
+    apply_masks(model, masks)
+    return build_sparse_plan(masks)
+
+
 def attach_masks(model: nn.Module, path=BENCH_MASKS):
     """The bench's sparse serving configuration on `model` (weights already
     loaded): the artifact's masks baked into the weights (w * mask) and the
     row-sparse plan built from them and attached. Returns (masks, plan)."""
-    from .sparse_plan import build_sparse_plan
     masks = load_mask_artifact(path, model)
-    apply_masks(model, masks)
-    plan = build_sparse_plan(masks)
+    plan = bake_masks(model, masks)
     if plan is None:
         raise ValueError(f"{path}: the masks are not row-structured")
     model.set_sparse_plan(plan)

@@ -53,6 +53,10 @@ the kernels of one step, ds_loss_weights and deep_supervision_scales give
 the deep-supervision loss its weights and target scales. A model with a
 sparse plan attached refuses a gradient (training is dense-masked).
 
+build_network(plans_stage, ...) builds the model of a plan's stage by
+Tconv name, as the reference's factory does (shiftConvPP on 3D plans; the
+rest raise NotImplementedError naming their ROADMAP item).
+
 Parameter names follow the reference's flax tree (`context{d}.block{b}`,
 `context{P}a/b`, `up{z}_{k}`, `loc{z}_{k}`, `loc{z}_{k}_final`,
 `seg_head{i}`; leaves `kernel`, `bias`, `norm_scale`, `norm_bias`); see
@@ -158,6 +162,12 @@ class ShiftUNetPlusPlus(nn.Module):
     def num_ds_outputs(self) -> int:
         return min(4, self.num_pool)
 
+    @property
+    def input_shape_must_be_divisible_by(self) -> np.ndarray:
+        """What each spatial input dim must be a multiple of: the product
+        of the pool kernels per axis."""
+        return np.prod(np.array(self.pools), 0)
+
     def lazy_up_route(self) -> bool:
         """Whether the level-0 nest nodes read their up-link lazily: the
         lazy kernel computes bfloat16 stride-(2, 2, 2) up-links from a
@@ -211,7 +221,7 @@ class ShiftUNetPlusPlus(nn.Module):
             raise RuntimeError("a model with a sparse plan attached takes no "
                                "gradient: training is dense-masked "
                                "(set_sparse_plan(None))")
-        div = [math.prod(p[a] for p in pools) for a in range(3)]
+        div = [int(d) for d in self.input_shape_must_be_divisible_by]
         if any(int(s) % d for s, d in zip(x.shape[1:4], div)):
             raise ValueError(f"input spatial shape {tuple(x.shape[1:4])} "
                              f"must be divisible by {tuple(div)}")
@@ -313,6 +323,46 @@ class ShiftUNetPlusPlus(nn.Module):
         if not do_ds:
             return head(0, self.head_probs_dtype)
         return [head(i) for i in range(self.num_ds_outputs())]
+
+
+# the reference's Tconvs this port does not build yet, and the ROADMAP item
+# (Queue 1) that ports each
+_NOT_PORTED = {
+    "shiftConvPP_noshift": "Queue 1 item 3c (the do_shift switch)",
+    "ori": "Queue 1 item 6 (models/unet.py)",
+    "shiftConvPP_nodff": "Queue 1 item 6 (models/unet.py)",
+    "shiftConvPP_313": "Queue 1 item 6 (the _313/_331 kernels)",
+    "shiftConvPP_331": "Queue 1 item 6 (the _313/_331 kernels)",
+    "resenc": "Queue 1 item 6 (models/resenc.py)",
+}
+
+
+def build_network(plans_stage, num_modalities: int, num_classes_incl_bg: int,
+                  tconv: str = "shiftConvPP", base_num_features: int = 48,
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  device=None) -> ShiftUNetPlusPlus:
+    """The network of a plan's stage by Tconv name (reference
+    models/unetpp.build_network, e2enet_tpu/models/unetpp.py:769-860).
+    Builds shiftConvPP on 3D plans with the plan's pool kernels; its
+    weights are not initialised (load a state_dict or reset_parameters).
+    2D plans (patch depth 1, which the reference runs without the depth
+    shift) and the other Tconvs raise NotImplementedError naming the
+    ROADMAP item that ports them; an unknown name raises KeyError."""
+    if tconv not in _NOT_PORTED and tconv != "shiftConvPP":
+        raise KeyError(f"Unknown Tconv '{tconv}'")
+    if int(plans_stage.patch_size[0]) == 1:
+        raise NotImplementedError(
+            f"2D plans (patch {list(plans_stage.patch_size)}) run without "
+            f"the depth shift: ROADMAP {_NOT_PORTED['shiftConvPP_noshift']}")
+    if tconv in _NOT_PORTED:
+        raise NotImplementedError(f"Tconv '{tconv}': ROADMAP "
+                                  f"{_NOT_PORTED[tconv]}")
+    pools = tuple(tuple(int(k) for k in p)
+                  for p in plans_stage.pool_op_kernel_sizes)
+    return ShiftUNetPlusPlus(
+        num_modalities, num_classes_incl_bg, pools,
+        base_num_features=base_num_features, compute_dtype=compute_dtype,
+        device=device)
 
 
 def _lazy_calls(model: ShiftUNetPlusPlus) -> int:

@@ -7,6 +7,7 @@ probabilities) and flip-free (one statically mirrored forward per pass on
 the unflipped tile, inference/predictor.mirror_apply_fns_for).
 """
 import functools
+import warnings
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,6 +70,17 @@ def head_probs(out: torch.Tensor) -> torch.Tensor:
                     f"logits or bfloat16 probabilities")
 
 
+def check_prob_dtype(prob_dtype, mirror_apply_fns):
+    """prob_dtype acts only on the data-flip branch's unflips: under
+    flip-free TTA there are none, so it is ignored there with a warning
+    (reference _check_prob_dtype)."""
+    if prob_dtype is not None and mirror_apply_fns is not None:
+        warnings.warn("prob_dtype is a no-op under flip-free TTA "
+                      "(mirror_apply_fns); ignoring it", stacklevel=3)
+        return None
+    return prob_dtype
+
+
 def pad_volume_to_patch(data: np.ndarray, patch_size: Sequence[int]):
     """Pad (C, X, Y, Z) with centred zeros so every spatial dim >= patch.
     Returns (padded, slicer that undoes it)."""
@@ -92,32 +104,35 @@ def bucket_num_tiles(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512,
     return int(2 ** np.ceil(np.log2(n)))
 
 
-def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
-                         data: np.ndarray, patch_size: Sequence[int],
-                         num_classes: int, *, device,
-                         step_size: float = 0.5,
-                         mirror_axes: Tuple[int, ...] = (0, 1, 2),
-                         do_mirroring: bool = True,
-                         accum_dtype: torch.dtype = torch.float32,
-                         mirror_apply_fns: Optional[
-                             Sequence[Callable[[torch.Tensor],
-                                               torch.Tensor]]] = None
-                         ) -> np.ndarray:
-    """data: (C, X, Y, Z) float32 -> class probabilities (num_classes, X,
-    Y, Z) as numpy in accum_dtype.
+def tiled_accumulate(apply_fn: Callable[[torch.Tensor], torch.Tensor],
+                     vol: torch.Tensor, patch_size: Sequence[int],
+                     num_classes: int, step_size: float = 0.5,
+                     mirror_axes: Tuple[int, ...] = (0, 1, 2),
+                     do_mirroring: bool = True,
+                     accum_dtype: torch.dtype = torch.float32,
+                     mirror_apply_fns: Optional[
+                         Sequence[Callable[[torch.Tensor],
+                                           torch.Tensor]]] = None,
+                     prob_dtype: Optional[torch.dtype] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tile loop on the device (the reference's make_tiled_predictor
+    program): vol (X, Y, Z, C) float32 on the device, each dim at least
+    the patch's -> the accumulators (acc (X, Y, Z, num_classes), weights
+    (X, Y, Z)) in accum_dtype, on vol's device.
 
-    apply_fn(x (1, pd, ph, pw, C) on `device`) -> float32 logits or
-    bfloat16 probabilities (1, pd, ph, pw, num_classes) (head_probs). Per
-    tile: every mirror pass flips the patch, takes the head's probabilities
-    in float32 and unflips them. With mirror_apply_fns (one per
+    apply_fn(x (1, pd, ph, pw, C)) -> float32 logits or bfloat16
+    probabilities (1, pd, ph, pw, num_classes) (head_probs). Per tile:
+    every mirror pass flips the patch, takes the head's probabilities in
+    float32 and unflips them. With mirror_apply_fns (one per
     flip_combinations pass, fns[m](x) == flip_m(net(flip_m(x)))) pass m
     runs fns[m] on the unflipped patch instead, and apply_fn is not used.
-    The float32 mean over passes is weighted by the Gaussian, cast to
-    accum_dtype and added to the accumulators, as are the weights. The
-    result is acc / weights computed in accum_dtype."""
-    padded, slicer = pad_volume_to_patch(data, patch_size)
-    vol = torch.from_numpy(np.ascontiguousarray(
-        np.moveaxis(padded, 0, -1), dtype=np.float32)).to(device)
+    prob_dtype (data-flip branch only; reference make_tiled_predictor):
+    each pass's probabilities are rounded to it before the unflip, as the
+    reference stores them in its fast mode (bfloat16). The float32 mean
+    over passes is weighted by the Gaussian, cast to accum_dtype and added
+    to the accumulators, as are the weights."""
+    prob_dtype = check_prob_dtype(prob_dtype, mirror_apply_fns)
+    device = vol.device
     X, Y, Z, _ = vol.shape
     pd, ph, pw = patch_size
     steps = compute_steps_for_sliding_window(patch_size, (X, Y, Z),
@@ -147,10 +162,40 @@ def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                     for combo in combos:
                         xin = patch.flip(combo) if combo else patch
                         p = head_probs(apply_fn(xin[None])[0])
+                        if prob_dtype is not None:
+                            p = p.to(prob_dtype)
                         prob_sum += p.flip(combo) if combo else p
                 mean = prob_sum / len(combos)
                 acc[sl] += (mean * gmap[..., None]).to(accum_dtype)
                 wacc[sl] += gmap_acc
+    return acc, wacc
+
+
+def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
+                         data: np.ndarray, patch_size: Sequence[int],
+                         num_classes: int, *, device,
+                         step_size: float = 0.5,
+                         mirror_axes: Tuple[int, ...] = (0, 1, 2),
+                         do_mirroring: bool = True,
+                         accum_dtype: torch.dtype = torch.float32,
+                         mirror_apply_fns: Optional[
+                             Sequence[Callable[[torch.Tensor],
+                                               torch.Tensor]]] = None,
+                         prob_dtype: Optional[torch.dtype] = None
+                         ) -> np.ndarray:
+    """data: (C, X, Y, Z) float32 -> class probabilities (num_classes, X,
+    Y, Z) as numpy in accum_dtype: the volume padded to the patch and moved
+    to `device`, tiled_accumulate (which says what the arguments do), then
+    acc / weights computed in accum_dtype (a zero weight taken as 1, as the
+    reference does) and the padding cropped."""
+    padded, slicer = pad_volume_to_patch(data, patch_size)
+    vol = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(padded, 0, -1), dtype=np.float32)).to(device)
+    acc, wacc = tiled_accumulate(
+        apply_fn, vol, patch_size, num_classes, step_size=step_size,
+        mirror_axes=mirror_axes, do_mirroring=do_mirroring,
+        accum_dtype=accum_dtype, mirror_apply_fns=mirror_apply_fns,
+        prob_dtype=prob_dtype)
     wacc = torch.where(wacc == 0, torch.ones_like(wacc), wacc)
     probs = (acc / wacc[..., None]).cpu().numpy()
     probs = np.moveaxis(probs, -1, 0)

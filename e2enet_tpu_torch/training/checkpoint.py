@@ -1,0 +1,151 @@
+"""Checkpoints in the JAX package's format, read and written with numpy.
+
+The format (e2enet_tpu/training/checkpoint.py:30-80): `{Tconv}_model_
+{latest,best,final_checkpoint}.model` is a pickle (protocol 4) of
+
+  {"epoch": int,
+   "state": {"params": nested dicts of numpy arrays (the flax tree),
+             "momentum": the optimizer's tree, same layout,
+             "masks": {'|'-joined flax path: (in, out) array} or None,
+             "rng": numpy array, "step": int},
+   "metadata": dict}
+
+with a `.pkl` sidecar {init, name, class, plans} beside it. Nothing in it
+needs jax to unpickle as long as the writer stored numpy and Python
+objects. load_checkpoint refuses a payload that holds anything of jax,
+flax or e2enet_tpu and names the key, instead of importing them.
+
+load_checkpoint returns the trees as numpy and the masks as a dict; the
+model's weights come from params through models/weights.from_jax_params.
+save_checkpoint writes the same format from numpy trees (a model's
+through models/weights.to_jax_params), which the JAX package loads.
+"""
+import os
+import pickle
+from collections.abc import Mapping
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from ..utils.files import save_pickle
+
+_REFUSED_MODULES = ("jax", "jaxlib", "flax", "e2enet_tpu")
+
+
+class _Refused:
+    """Stands in for a class or function the payload names from a refused
+    module, so that the whole pickle loads and the refusal can name its
+    key."""
+    qualname = ""
+
+    def __new__(cls, *args, **kwargs):
+        return object.__new__(cls)
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".")[0] in _REFUSED_MODULES:
+            return type("Refused", (_Refused,),
+                        {"qualname": f"{module}.{name}"})
+        return super().find_class(module, name)
+
+
+def _find_refused(tree, path=()):
+    """(key path, refused name) of the first stand-in in the tree, or
+    None."""
+    if isinstance(tree, _Refused):
+        return path, tree.qualname
+    if isinstance(tree, type) and issubclass(tree, _Refused):
+        return path, tree.qualname
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return None
+    for k, v in items:
+        hit = _find_refused(v, path + (str(k),))
+        if hit is not None:
+            return hit
+    return None
+
+
+def _read_payload(path: str) -> Dict[str, Any]:
+    """The unpickled checkpoint; raises ValueError naming the key whose
+    value would need jax, flax or e2enet_tpu to unpickle."""
+    with open(path, "rb") as f:
+        payload = _Unpickler(f).load()
+    hit = _find_refused(payload)
+    if hit is not None:
+        key, name = hit
+        raise ValueError(f"{path}: key {'/'.join(key) or '(top)'} holds a "
+                         f"{name} object, which needs that package to "
+                         f"unpickle; store it as numpy or Python values")
+    return payload
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, Any], int, dict]:
+    """(state, epoch, metadata) of a checkpoint: state holds "params" and
+    "momentum" as nested dicts of numpy arrays, "masks" as {'|'-joined
+    flax path: (in, out) float32 array} or None, "rng" and "step"."""
+    payload = _read_payload(path)
+    d = payload["state"]
+    masks = d.get("masks")
+    if masks is not None:
+        masks = {str(k): np.asarray(v, np.float32) for k, v in masks.items()}
+    state = {
+        "params": _to_numpy(d["params"]),
+        "momentum": _to_numpy(d.get("momentum")),
+        "masks": masks,
+        "rng": np.asarray(d["rng"]) if d.get("rng") is not None else None,
+        "step": int(d.get("step", 0)),
+    }
+    return state, payload["epoch"], payload.get("metadata", {})
+
+
+def save_checkpoint(path: str, params, epoch: int, masks=None,
+                    momentum=None, rng=None, step: int = 0,
+                    metadata: Optional[dict] = None,
+                    sidecar: Optional[dict] = None) -> None:
+    """Write the JAX package's checkpoint from numpy trees: params (and
+    momentum, zeros of params' shapes when None) as nested dicts in the
+    flax layout, masks as {'|'-joined flax path: (in, out)} or None, rng a
+    uint32 key array (that of PRNGKey(0) when None)."""
+    params = _to_numpy(params)
+    if momentum is None:
+        momentum = _map(np.zeros_like, params)
+    if rng is None:
+        rng = np.zeros(2, np.uint32)
+    if masks is not None:
+        masks = {str(k): np.asarray(v) for k, v in masks.items()}
+    payload = {
+        "epoch": epoch,
+        "state": {"params": params, "momentum": _to_numpy(momentum),
+                  "masks": masks, "rng": np.asarray(rng),
+                  "step": int(step)},
+        "metadata": metadata or {},
+    }
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=4)
+    os.replace(tmp, path)
+    if sidecar is not None:
+        save_pickle(sidecar, path + ".pkl")
+
+
+def _map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _to_numpy(tree):
+    if tree is None:
+        return None
+    return _map(np.asarray, tree)

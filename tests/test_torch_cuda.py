@@ -6,10 +6,11 @@ on mma.sync as the control), the fused block with a lazy up-link part
 than one K chunk, no read of the up weights past cin, its taps on mma.sync
 as the control), the strided transition (ragged and all mirrors, N = 2
 with a block's tiles straddling the samples), the
-up-link (N = 1 and 2, mirrored, ragged; its weights' packing) and the seg
+up-link (N = 1 and 2, mirrored, ragged, the (1, 2, 2) stride of an
+anisotropic plan's first pool; its weights' packing) and the seg
 head (C 48 and 96, tiles straddling two samples, a ragged last tile), each
 on both routes and with the route each shape takes asserted by kernel name,
-the down-link; the block backward and the
+the down-link (also at the (1, 2, 2) window); the block backward and the
 down-link backward (main-path, ragged and N = 2 shapes, ties, C = 96; its
 16-byte and scalar routes by kernel name), and a small train step's
 launches; the block backward's parts wanted or not and
@@ -227,6 +228,10 @@ UPLINKS = {
     # odd D, W = 13, a part of width 8, a tile past W = 64
     "ragged": (2, 3, 5, 13, 8, 12, (2, 2, 2)),
     "wide": (1, 2, 2, 70, 24, 16, (1, 2, 2)),
+    # an anisotropic plan's level-0 up-link (first pool (1, 2, 2)) at the
+    # bench width: the materialised route's #6
+    "aniso_bench_width": (1, 4, 16, 64, 96, 48, (1, 2, 2)),
+    "aniso_ragged": (2, 3, 5, 13, 16, 8, (1, 2, 2)),
 }
 
 
@@ -258,6 +263,10 @@ DOWNLINKS = {
     # odd D (a ragged edge), W = 26, C = 8 and C = 5 (channel by channel)
     "ragged": (2, 7, 6, 26, 8, (2, 2, 2)),
     "c5": (1, 4, 4, 6, 5, (2, 2, 2)),
+    # the window of an anisotropic plan's first pool, (1, 2, 2), at the
+    # bench width and ragged
+    "aniso_bench_width": (1, 4, 32, 128, 48, (1, 2, 2)),
+    "aniso_ragged": (2, 3, 7, 26, 8, (1, 2, 2)),
 }
 
 
@@ -1149,3 +1158,49 @@ def test_experiment_wrappers_raise():
     with pytest.raises(TypeError):
         tim.mma_gemm(torch.randn(4, 4, device=dev),
                      torch.randn(4, 4, device=dev))
+
+
+@pytest.mark.cuda
+def test_anisotropic_plan_forward_launches_and_matches_plain():
+    """models/unetpp.build_network on an anisotropic plan (pools (1, 2, 2),
+    (2, 2, 2), (2, 2, 2)), as folder prediction builds it: the level-0
+    up-links take the materialised route (#6 at stride (1, 2, 2), then #1),
+    the level-1 nodes' down-links #7 the (1, 2, 2) window. One mirrored
+    forward launches each kernel as kernel_launches_per_forward counts, and
+    its logits are as close to a float32 plain run as the bf16 plain path's
+    (mean |dlogit| within 1.25x, chip_smoke.py's rule for one patch)."""
+    from e2enet_tpu_torch import plans
+    from e2enet_tpu_torch.models import unetpp
+    from e2enet_tpu_torch.ops import blocks
+    dev = _card()
+    stage = plans.StagePlan(
+        batch_size=2, num_pool_per_axis=[2, 3, 3], patch_size=[16, 64, 64],
+        median_patient_size_in_voxels=[16, 64, 64],
+        current_spacing=[2.5, 0.8, 0.8], original_spacing=[2.5, 0.8, 0.8],
+        do_dummy_2D_data_aug=False,
+        pool_op_kernel_sizes=[[1, 2, 2], [2, 2, 2], [2, 2, 2]],
+        conv_kernel_sizes=[[1, 3, 3]] * 4)
+    net = unetpp.build_network(stage, 1, 5, base_num_features=16,
+                               device=dev)
+    net.reset_parameters(seed=3)
+    net32 = unetpp.build_network(stage, 1, 5, base_num_features=16,
+                                 compute_dtype=torch.float32, device=dev)
+    net32.load_state_dict(net.state_dict())
+    assert not net.lazy_up_route()
+    want = unetpp.kernel_launches_per_forward(net)
+    assert want["uplink"] == 3 and want["downlink"] == 2
+    x = _rand(np.random.RandomState(4), dev, 1, 16, 64, 64, 1)
+    ops = {name: op for name, (op, _) in blocks.KERNEL_OPS.items()}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        before = {n: op.launches for n, op in ops.items()}
+        k = net(x, do_ds=False, flips=(True, False, True)).float()
+        got = {n: op.launches - before[n] for n, op in ops.items()}
+        with blocks.plain_ops():
+            p = net(x, do_ds=False, flips=(True, False, True)).float()
+            f = net32(x, do_ds=False, flips=(True, False, True))
+    assert got == want
+    assert bool(torch.isfinite(k).all())
+    e_k, e_p = (k - f).abs().mean(), (p - f).abs().mean()
+    assert float(e_k) <= 1.25 * float(e_p)

@@ -198,3 +198,56 @@ def test_mirror_apply_fns_for_the_model():
             want = want.flip(ax) if ax else want
             np.testing.assert_allclose(fn(x).numpy(), want.numpy(),
                                        rtol=1e-4, atol=1e-4)
+
+
+def _quadrant_toy(jax_apply, q=(2, 2, 2)):
+    """The toy's logits in the reference's quadrant layout, so the
+    reference runs the data-flip branch where prob_dtype acts
+    (e2enet_tpu/ops/sliding.py:366-374)."""
+    from e2enet_tpu.ops.qfused import choose_wqp, to_quadrant_cf
+    hq, wq = PATCH[1] // q[1], PATCH[2] // q[2]
+    wqp = choose_wqp(hq, wq)
+
+    def jq(params, x):
+        if x.ndim != 5:
+            raise ValueError("rank-5 input only")
+        return to_quadrant_cf(jax_apply(params, x), q, wqp)
+
+    return jq, (q, hq, wq)
+
+
+@pytest.mark.parametrize("prob_dtype,tol", [(None, 1e-4),
+                                            ("bf16", 2 ** -8)])
+def test_prob_dtype_on_data_flips_matches(prob_dtype, tol):
+    """prob_dtype on the data-flip branch: each pass's probabilities are
+    rounded to bfloat16 before the unflip, as the reference's fast mode
+    stores them; float32 accumulators."""
+    data = np.random.RandomState(7).randn(1, 24, 20, 20).astype(np.float32)
+    jax_apply, torch_apply = _toy_models()
+    jq, qmeta = _quadrant_toy(jax_apply)
+    jdt = None if prob_dtype is None else jnp.bfloat16
+    tdt = None if prob_dtype is None else torch.bfloat16
+    pred = js.make_tiled_predictor(jq, PATCH, K, quadrant_meta=qmeta,
+                                   prob_dtype=jdt)
+    ref = js.predict_volume_tiled(jq, {}, data, PATCH, K, predictor=pred)
+    out = ts.predict_volume_tiled(torch_apply, data, PATCH, K, device="cpu",
+                                  prob_dtype=tdt)
+    assert out.shape == ref.shape == (K, 24, 20, 20)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
+    exact = ts.predict_volume_tiled(torch_apply, data, PATCH, K,
+                                    device="cpu")
+    assert (prob_dtype is None) == np.array_equal(out, exact)
+
+
+def test_prob_dtype_is_ignored_under_flip_free():
+    """As the reference: a warning, and the flip-free result unchanged."""
+    data = np.random.RandomState(8).randn(1, 16, 16, 16).astype(np.float32)
+    jax_apply, torch_apply = _toy_models()
+    _, tfns = _mirror_fns(jax_apply, torch_apply)
+    plain = ts.predict_volume_tiled(None, data, PATCH, K, device="cpu",
+                                    mirror_apply_fns=tfns)
+    with pytest.warns(UserWarning, match="no-op under flip-free"):
+        out = ts.predict_volume_tiled(None, data, PATCH, K, device="cpu",
+                                      mirror_apply_fns=tfns,
+                                      prob_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(out, plain)

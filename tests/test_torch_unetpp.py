@@ -259,3 +259,60 @@ def test_device_is_explicit_and_input_checked():
                                     device="cpu")
     with pytest.raises(ValueError):
         net(torch.zeros(1, 12, 16, 16, 1))
+
+
+def _stage(plans_mod, pools, patch):
+    return plans_mod.StagePlan(
+        batch_size=2, num_pool_per_axis=[2, 2, 2], patch_size=list(patch),
+        median_patient_size_in_voxels=[64, 64, 64],
+        current_spacing=[1.0, 1.0, 1.0], original_spacing=[1.0, 1.0, 1.0],
+        do_dummy_2D_data_aug=False,
+        pool_op_kernel_sizes=[list(p) for p in pools],
+        conv_kernel_sizes=[[1, 3, 3]] * (len(pools) + 1))
+
+
+@pytest.mark.parametrize("pools,patch,lazy", [
+    (((2, 2, 2), (2, 2, 2)), (32, 32, 32), True),
+    (((1, 2, 2), (2, 2, 2)), (16, 32, 32), False)])
+def test_build_network_matches_reference(pools, patch, lazy):
+    """models/unetpp.build_network on a plan's stage: the reference's
+    parameter names and shapes through from_jax_params, its divisibility,
+    and the up-link route the pools allow (a first pool of (1, 2, 2) takes
+    the materialised route)."""
+    import e2enet_tpu.plans as jplans
+    import e2enet_tpu_torch.plans as tplans
+    from e2enet_tpu.models.unetpp import build_network as jbuild
+    jnet = jbuild(_stage(jplans, pools, patch), 2, 4, base_num_features=8,
+                  compute_dtype=jnp.float32)
+    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, *patch, 2)))["params"]
+    want = from_jax_params(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), shapes))
+    net = tunetpp.build_network(_stage(tplans, pools, patch), 2, 4,
+                                base_num_features=8, device="cpu")
+    got = net.state_dict()
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: tuple(v.shape) for k, v in want.items()}
+    net.load_state_dict(want, strict=True)
+    assert net.compute_dtype == torch.bfloat16 and net.pools == list(pools)
+    np.testing.assert_array_equal(net.input_shape_must_be_divisible_by,
+                                  jnet.input_shape_must_be_divisible_by)
+    assert net.lazy_up_route() == lazy
+    with pytest.raises(ValueError, match="divisible"):
+        net(torch.zeros(1, patch[0], patch[1], patch[2] + 2, 2))
+
+
+def test_build_network_refuses_what_is_not_ported():
+    import e2enet_tpu_torch.plans as tplans
+    stage = _stage(tplans, ((2, 2, 2),) * 2, (32, 32, 32))
+    for tconv in ("shiftConvPP_noshift", "ori", "shiftConvPP_nodff",
+                  "shiftConvPP_313", "shiftConvPP_331", "resenc"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            tunetpp.build_network(stage, 1, 3, tconv=tconv, device="cpu")
+    flat = _stage(tplans, ((1, 2, 2),) * 2, (1, 32, 32))
+    with pytest.raises(NotImplementedError, match="2D plans"):
+        tunetpp.build_network(flat, 1, 3, device="cpu")
+    with pytest.raises(KeyError):
+        tunetpp.build_network(stage, 1, 3, tconv="unet9", device="cpu")
+    with pytest.raises(ValueError, match="device"):
+        tunetpp.build_network(stage, 1, 3)
