@@ -5,6 +5,8 @@
     python3 chip_smoke.py --host-ms
                                    # only the host's time per call of the
                                    # up-link and the seg head (see host_only)
+    python3 chip_smoke.py --trainer
+                                   # only the build and the [trainer] phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -103,7 +105,29 @@ Phases (any failure ends the run with a non-zero exit):
               (CUDA events) and the peak memory. On a 2 x 64^3 batch, one
               step's gradients through the kernels, through the bf16 plain
               path and through a float32 plain run
-  10. experiments  the experiment kernels (TPU kernels #11-#14) against
+  10. trainer the users' training path (cli/train.main, then
+              cli/predict.main): a seeded preprocessed task in the JAX
+              package's format (write_train_task: six cases of about 160^3,
+              16 classes with class-specific intensities, 4 train and 2
+              validation in splits_final.pkl, gt_segmentations/), the
+              trainer at the bench width (48 base features, 128^3 patches,
+              batch 2, bf16) with kernel-granular DSFF (density 0.2, a mask
+              update every 4 steps): 2 epochs of 6 batches (2 validation
+              batches each), then -c --epochs 3 from 'latest', each run
+              ending in the fold's validation (summary.json,
+              postprocessing.json); cli.predict with the trained fold on
+              one validation case. Checks: every loss finite, the first
+              epoch's train loss above the last, launches per step equal to
+              kernel_launches_per_train_step, after each mask update the
+              parameters and momentum zero where the masks are and every
+              kernel's alive count held, the state -c loads equal to the
+              'latest' file to the bit and the epoch at 2, a finite Dice
+              for every foreground label, the predicted labels in [0, 16),
+              the augmentation on the C++ warp, no jax. Prints ms per step
+              (CUDA events), the host's wait per batch in next(tr_gen), s
+              per epoch, s per validation case (prediction, export), the
+              peak memory
+  11. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -127,7 +151,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  11. report  one JSON line with every kernel's launches, error, times and
+  12. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -1427,6 +1451,125 @@ def write_predict_inputs(base, model):
     return results, inputs, folder
 
 
+# the [trainer] phase: a preprocessed task at the bench geometry
+TRAIN_TASK = "Task501_ChipSmokeTrain"
+TRAIN_CASES = {"case_000": (160, 160, 160), "case_001": (168, 152, 160),
+               "case_002": (152, 160, 168), "case_003": (160, 168, 152),
+               "case_004": (160, 160, 160), "case_005": (164, 156, 160)}
+TRAIN_VAL = ("case_004", "case_005")
+# identity CT normalisation: the raw intensities are the preprocessed data
+TRAIN_INTENSITY = {0: {"mean": 0.0, "sd": 1.0, "percentile_00_5": -1e4,
+                       "percentile_99_5": 1e4}}
+
+
+def synthetic_case(rng, shape, num_classes):
+    """A noisy body and one random ellipsoid per foreground class at a
+    class-specific intensity (as training/train_bench_masks.make_batch
+    draws them). Returns (volume (z, y, x) float32, labels uint8)."""
+    D, H, W = shape
+    vol = rng.randn(D, H, W).astype(np.float32) * 0.3
+    seg = np.zeros(shape, np.uint8)
+    zz, yy, xx = np.ogrid[:D, :H, :W]
+    for cls in range(1, num_classes):
+        c = rng.rand(3) * np.array(shape)
+        r = 4 + rng.rand(3) * np.array(shape) * 0.12
+        m = (((zz - c[0]) / r[0]) ** 2 + ((yy - c[1]) / r[1]) ** 2
+             + ((xx - c[2]) / r[2]) ** 2) < 1
+        vol[m] = (0.15 * cls - 1.2
+                  + 0.4 * rng.randn(int(m.sum())).astype(np.float32))
+        seg[m] = cls
+    return vol, seg
+
+
+def write_train_task(base, task, cases, patch, pools, num_classes,
+                     batch_size=2, val=None, seed=0):
+    """A preprocessed task in the JAX package's on-disk format, from numpy
+    and the port's plans.py: under `base`, preprocessed/<task>/ with a
+    one-stage plans file (one CT modality, identity normalisation, 1 mm,
+    `patch`, `pools`), the stage folder (<case>.npz, data and labels
+    stacked, and <case>.pkl, the preprocessor's properties with class
+    locations), gt_segmentations/<case>.nii.gz and, when `val` names the
+    validation cases, splits_final.pkl with fold 0 (otherwise the trainer
+    makes the seeded 5-fold split); raw/<case>_0000.nii.gz, the input a
+    predictor reads; results/. cases: {name: (z, y, x) shape}. Returns
+    {"preprocessed", "results", "raw", "task"} paths."""
+    import os
+    import pickle
+    from collections import OrderedDict
+    from e2enet_tpu_torch.io.nifti import NiftiImage, write_nifti
+    from e2enet_tpu_torch.plans import Plans, StagePlan
+    rng = np.random.RandomState(seed)
+    pre = os.path.join(base, "preprocessed", task)
+    stage_dir = os.path.join(pre, "nnUNetData_plans_v2.1_stage0")
+    gt = os.path.join(pre, "gt_segmentations")
+    raw = os.path.join(base, "raw")
+    results = os.path.join(base, "results")
+    for d in (stage_dir, gt, raw, results):
+        os.makedirs(d, exist_ok=True)
+    n_pool = len(pools)
+    median = [int(np.median([s[i] for s in cases.values()]))
+              for i in range(3)]
+    stage = StagePlan(
+        batch_size=batch_size, num_pool_per_axis=[n_pool] * 3,
+        patch_size=list(patch), median_patient_size_in_voxels=median,
+        current_spacing=[1.0, 1.0, 1.0], original_spacing=[1.0, 1.0, 1.0],
+        do_dummy_2D_data_aug=False,
+        pool_op_kernel_sizes=[list(p) for p in pools],
+        conv_kernel_sizes=[[1, 3, 3]] * (n_pool + 1))
+    plans = Plans(
+        num_stages=1, num_modalities=1, modalities={0: "CT"},
+        normalization_schemes={0: "CT"}, dataset_properties={},
+        list_of_npz_files=[], original_spacings=[[1.0, 1.0, 1.0]] * len(
+            cases), original_sizes=[list(s) for s in cases.values()],
+        preprocessed_data_folder=pre, num_classes=num_classes - 1,
+        all_classes=list(range(1, num_classes)), base_num_features=48,
+        use_mask_for_norm={0: False}, keep_only_largest_region=None,
+        min_region_size_per_class=None, min_size_per_class=None,
+        transpose_forward=[0, 1, 2], transpose_backward=[0, 1, 2],
+        data_identifier="nnUNetData_plans_v2.1", plans_per_stage={0: stage},
+        intensity_properties=TRAIN_INTENSITY)
+    plans.save(os.path.join(pre, "nnUNetPlansv2.1_plans_3D.json"))
+    geom = dict(origin=(0.0, 0.0, 0.0),
+                direction=(1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0))
+    for name, shape in cases.items():
+        vol, seg = synthetic_case(rng, shape, num_classes)
+        np.savez(os.path.join(stage_dir, f"{name}.npz"),
+                 data=np.stack([vol, seg.astype(np.float32)]))
+        locs_rng = np.random.RandomState(1234)
+        locs = {}
+        for c in range(1, num_classes):
+            where = np.argwhere(seg == c)
+            n = min(10000, len(where))
+            locs[c] = (where[locs_rng.choice(len(where), n, replace=False)]
+                       if n else [])
+        raw_file = os.path.join(raw, f"{name}_0000.nii.gz")
+        props = {
+            "original_size_of_raw_data": np.array(shape),
+            "original_spacing": np.array([1.0, 1.0, 1.0]),
+            "list_of_data_files": [raw_file], "seg_file": None,
+            "itk_origin": geom["origin"], "itk_spacing": (1.0, 1.0, 1.0),
+            "itk_direction": geom["direction"],
+            "crop_bbox": [[0, s] for s in shape],
+            "classes": np.unique(seg).astype(np.float32),
+            "size_after_cropping": tuple(shape),
+            "size_after_resampling": tuple(shape),
+            "spacing_after_resampling": np.array([1.0, 1.0, 1.0]),
+            "class_locations": locs}
+        with open(os.path.join(stage_dir, f"{name}.pkl"), "wb") as f:
+            pickle.dump(props, f)
+        write_nifti(raw_file, NiftiImage(vol, (1.0, 1.0, 1.0), **geom))
+        write_nifti(os.path.join(gt, f"{name}.nii.gz"),
+                    NiftiImage(seg, (1.0, 1.0, 1.0), **geom))
+    if val is not None:
+        keys = np.sort(list(cases))
+        split = OrderedDict(train=keys[~np.isin(keys, val)],
+                            val=keys[np.isin(keys, val)])
+        with open(os.path.join(pre, "splits_final.pkl"), "wb") as f:
+            pickle.dump([split], f)
+    return {"preprocessed": os.path.join(base, "preprocessed"),
+            "results": results, "raw": raw, "task": pre}
+
+
 def predict_phase(make_model, reset_counts, counts, smi):
     """[predict] the users' entry point, cli/predict.main, twice on the
     same model folder and input folder: (A) --all_in_gpu True -z (the fast
@@ -1609,6 +1752,252 @@ def predict_phase(make_model, reset_counts, counts, smi):
     return total_a
 
 
+class _TimedGen:
+    """A batch generator whose next() adds the seconds it blocked to
+    `waits`."""
+
+    def __init__(self, gen, waits):
+        self.gen, self.waits = gen, waits
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        batch = next(self.gen)
+        self.waits.append(time.perf_counter() - t0)
+        return batch
+
+    def stop(self):
+        self.gen.stop()
+
+
+def trainer_phase(ops, reset_counts, counts, smi):
+    """[trainer] the users' training path at the bench width: a seeded
+    preprocessed task (write_train_task: TRAIN_CASES, 16 classes, 128^3
+    patches, batch 2, 5 pools), cli/train.main on the card at bf16 with
+    kernel-granular DSFF (density 0.2, an update every 4 steps), 2 epochs
+    of 6 batches (2 validation batches each), then -c to a third epoch
+    from 'latest', each run ending in the fold's validation; then
+    cli/predict.main with the trained fold on one validation case. Spies
+    on each Trainer: the launches of every train step (equal to
+    kernel_launches_per_train_step), its time by CUDA events, the host's
+    wait in next(tr_gen), each mask update (params and momentum zero where
+    the masks are zero, every kernel's alive count held), the state -c
+    loads against the 'latest' file, the epochs' seconds. Returns the
+    launches over the whole phase."""
+    import os
+    import tempfile
+    import torch
+    from e2enet_tpu_torch import native
+    from e2enet_tpu_torch.cli import predict as pcli
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.io.nifti import read_nifti
+    from e2enet_tpu_torch.models.masks import broadcast_mask
+    from e2enet_tpu_torch.models.unetpp import kernel_launches_per_train_step
+    from e2enet_tpu_torch.models.weights import from_jax_params
+    from e2enet_tpu_torch.training import checkpoint as ckpt
+    from e2enet_tpu_torch.training.trainer import Trainer
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
+    t0 = time.perf_counter()
+    paths = write_train_task(tmp.name, TRAIN_TASK, TRAIN_CASES, PATCH,
+                             [[2, 2, 2]] * 5, NUM_CLASSES, val=TRAIN_VAL)
+    route = native.route()
+    print(f"[trainer] task {TRAIN_TASK}: {len(TRAIN_CASES)} cases "
+          f"{sorted(set(TRAIN_CASES.values()))}, validation {TRAIN_VAL}, "
+          f"written in {time.perf_counter() - t0:.1f} s; augmentation warp "
+          f"route: {route} ({native.library_path().name})", flush=True)
+    check(route == "native", "[trainer] the C++ warp did not build")
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    os.environ["RESULTS_FOLDER"] = paths["results"]
+
+    runs = []
+    real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
+
+    def d_counts(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    def init_spy(self, training=True):
+        real_init(self, training)
+        self.save_every = 1   # 'latest' after each epoch, for -c
+        run = {"events": [], "losses": [], "waits": [], "updates": 0,
+               "epochs": [], "trainer": self, "loaded": None}
+        runs.append(run)
+        per_step = kernel_launches_per_train_step(self.network)
+        want = {k: per_step["forward"].get(k, 0)
+                + per_step["backward"].get(k, 0) for k in ops}
+        run["want"] = want
+        step_fn = self.train_step
+        update_fn = getattr(self, "mask_update", None)
+        lr_fn, ma_fn = self.maybe_update_lr, self.update_eval_criterion_MA
+        validate_fn = self.validate
+
+        def step(state, data, targets, lr):
+            before = counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = step_fn(state, data, targets, lr)
+            ev[1].record()
+            got = d_counts(before)
+            check(got == want, f"[trainer] step {state.step}: launches "
+                  f"{got} != {want}")
+            run["events"].append(ev)
+            run["losses"].append(out[1]["loss"])
+            return out
+
+        def update(state, death_rate, scores=None):
+            alive = {n: float(m.sum()) for n, m in state.masks.items()}
+            out = update_fn(state, death_rate, scores)
+            for n, m in out.masks.items():
+                check(float(m.sum()) == alive[n], f"[trainer] step "
+                      f"{out.step}: {n} alive {float(m.sum())} != "
+                      f"{alive[n]}")
+                dead = broadcast_mask(1.0 - m, out.params[n])
+                for t in (out.params[n].detach(), out.momentum[n]):
+                    check(bool((t * dead == 0).all()), f"[trainer] step "
+                          f"{out.step}: {n} nonzero where its mask is 0")
+            run["updates"] += 1
+            return out
+
+        def epoch_start(epoch=None):
+            run["epochs"].append([time.perf_counter(), None])
+            return lr_fn(epoch)
+
+        def epoch_end():
+            run["epochs"][-1][1] = time.perf_counter()
+            return ma_fn()
+
+        def validate(*a, **k):
+            t0 = time.perf_counter()
+            out = validate_fn(*a, **k)
+            run["validate_s"] = time.perf_counter() - t0
+            return out
+        self.train_step = step
+        if update_fn is not None:
+            self.mask_update = update
+        self.maybe_update_lr, self.update_eval_criterion_MA = \
+            epoch_start, epoch_end
+        self.validate = validate
+        if training:
+            self.tr_gen = _TimedGen(self.tr_gen, run["waits"])
+
+    def load_spy(self, which, train=True):
+        real_load(self, which, train)
+        st = self.state
+        runs[-1]["loaded"] = (which, self.epoch, st.step, {
+            "params": {n: p.detach().cpu() for n, p in st.params.items()},
+            "momentum": {n: m.cpu() for n, m in st.momentum.items()},
+            "masks": {n: m.cpu() for n, m in st.masks.items()}})
+
+    args = ["--task", TRAIN_TASK, "--fold", "0", "--batches", "6",
+            "--val_batches", "2", "--sparse", "True", "--density", "0.2",
+            "--update_frequency", "4"]
+    Trainer.initialize, Trainer.load_checkpoint_file = init_spy, load_spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls = []
+    try:
+        for extra in (["--epochs", "2"], ["--epochs", "3", "-c"]):
+            if extra[-1] == "-c":
+                fold = runs[-1]["trainer"].output_folder
+                latest = ckpt.load_checkpoint(os.path.join(
+                    fold, "shiftConvPP_model_latest.model"))
+            t0 = time.perf_counter()
+            tcli.main(args + extra)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        Trainer.initialize, Trainer.load_checkpoint_file = \
+            real_init, real_load
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(runs) == 2, f"[trainer] {len(runs)} trainers")
+
+    # -c: the state loaded equals the 'latest' file to the bit
+    which, epoch, step, loaded = runs[1]["loaded"]
+    state, l_epoch, _ = latest
+    check(which == "latest" and epoch == l_epoch == 2 and step == 12
+          == state["step"], f"[trainer] -c loaded {which} at epoch {epoch}, "
+          f"step {step}")
+    for what in ("params", "momentum"):
+        want_t = from_jax_params(state[what])
+        for n, t in loaded[what].items():
+            check(torch.equal(t, want_t[n]), f"[trainer] -c: {what} {n} "
+                  f"differs from the 'latest' file")
+    for n, m in loaded["masks"].items():
+        check(np.array_equal(m.numpy(), state["masks"][n.replace(".", "|")]),
+              f"[trainer] -c: mask {n} differs from the 'latest' file")
+
+    second = runs[1]["trainer"]
+    for i, run in enumerate(runs):
+        tr = run["trainer"]
+        losses = [float(v) for v in run["losses"]]
+        ms = [a.elapsed_time(b) for a, b in run["events"]]
+        check(all(np.isfinite(losses)) and all(
+            np.isfinite(tr.all_tr_losses + tr.all_val_losses)),
+            f"[trainer] run {i + 1}: a loss is not finite")
+        check(run["updates"] == len(losses) // 4, f"[trainer] run {i + 1}: "
+              f"{run['updates']} mask updates in {len(losses)} steps")
+        waits, epochs = run["waits"], [b - a for a, b in run["epochs"]]
+        print(f"[trainer] run {i + 1}: {len(losses)} steps, losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}; epoch train / "
+              f"validation loss {tr.all_tr_losses} / {tr.all_val_losses}; "
+              f"online Dice {tr.all_val_eval_metrics}; {run['updates']} "
+              f"mask updates", flush=True)
+        print(f"[trainer] run {i + 1}: ms per step (CUDA events) "
+              f"{' '.join(f'{v:.1f}' for v in ms)}; steps after the first: "
+              f"mean {float(np.mean(ms[1:])):.1f}, median "
+              f"{float(np.median(ms[1:])):.1f}; host wait per batch in "
+              f"next(tr_gen) (s) {' '.join(f'{v:.3f}' for v in waits)}, "
+              f"after the first: mean {float(np.mean(waits[1:])):.3f}; s per "
+              f"epoch {' '.join(f'{v:.2f}' for v in epochs)}; validation "
+              f"per case (s): " + ", ".join(
+                  f"{t['case']} predict {t['predict_s']:.2f} export "
+                  f"{t['export_s']:.2f}" for t in tr.validation_timings)
+              + f"; the fold's validation {run['validate_s']:.1f} s (all "
+              f"cases, scoring and postprocessing included); cli.main "
+              f"{walls[i]:.1f} s  [{smi}]", flush=True)
+    check(second.epoch == 3 and second.all_tr_losses[0]
+          > second.all_tr_losses[-1], f"[trainer] epoch train losses "
+          f"{second.all_tr_losses}: the first not above the last")
+    fold = second.output_folder
+    summary = json.load(open(os.path.join(fold, "validation_raw",
+                                          "summary.json")))
+    dice = {int(k): v["Dice"] for k, v in summary["results"]["mean"].items()}
+    check(all(np.isfinite(dice.get(c, np.nan))
+              for c in range(1, NUM_CLASSES)), f"[trainer] summary Dice "
+          f"{dice}")
+    check(os.path.isfile(os.path.join(fold, "postprocessing.json")),
+          "[trainer] no postprocessing.json")
+    print(f"[trainer] validation_raw/summary.json mean Dice per label "
+          f"{ {k: round(v, 4) for k, v in dice.items()} }; "
+          f"postprocessing.json "
+          f"{json.load(open(os.path.join(fold, 'postprocessing.json')))['for_which_classes']}; "
+          f"peak memory allocated {peak:.2f} GiB", flush=True)
+    del runs, second
+    torch.cuda.empty_cache()
+
+    # the port's predict CLI with the trained fold, one validation case
+    inp = os.path.join(tmp.name, "predict_in")
+    os.makedirs(inp)
+    case = TRAIN_VAL[0]
+    os.symlink(os.path.join(paths["raw"], f"{case}_0000.nii.gz"),
+               os.path.join(inp, f"{case}_0000.nii.gz"))
+    out = os.path.join(tmp.name, "predict_out")
+    t0 = time.perf_counter()
+    pcli.main(["-i", inp, "-o", out, "-t", TRAIN_TASK, "-f", "0"])
+    seg = read_nifti(os.path.join(out, f"{case}.nii.gz")).array
+    labels = np.unique(seg)
+    check(seg.shape == TRAIN_CASES[case] and int(labels.min()) >= 0
+          and int(labels.max()) < NUM_CLASSES, f"[trainer] predict: shape "
+          f"{seg.shape}, labels {labels}")
+    print(f"[trainer] cli.predict with the trained fold on {case}: shape "
+          f"{seg.shape}, labels {labels.tolist()}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check("jax" not in sys.modules, "[trainer] jax was imported")
+    total = counts()
+    tmp.cleanup()
+    return total
+
+
 def bench_phase(smi):
     """[bench] python -m e2enet_tpu_torch.bench at its defaults (the sparse
     model, fast mode) in a subprocess: exit 0 and a last stdout line with
@@ -1675,12 +2064,38 @@ def host_only() -> None:
           flush=True)
 
 
+def trainer_only() -> None:
+    """--trainer: the build and the [trainer] phase alone (its launches
+    printed as JSON), to iterate on the training path."""
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+
+    def reset_counts():
+        for op in ops.values():
+            op.launches = 0
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    total = trainer_phase(ops, reset_counts,
+                          lambda: {n: op.launches for n, op in ops.items()},
+                          smi)
+    print(json.dumps({"trainer_launches": total}), flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the card only")
     if sys.argv[1:] == ["--host-ms"]:
         host_only()
+        return
+    if sys.argv[1:] == ["--trainer"]:
+        trainer_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -2174,12 +2589,15 @@ def main() -> None:
           f"a path's up-link or seg head left the bulk route: {routes}")
     res.update(train["kernels"])
 
-    # ---- 10. experiments: the experiment kernels, then their mains
+    # ---- 10. trainer: the users' training path, train CLI to predict CLI
+    launches["trainer"] = trainer_phase(ops, reset_counts, counts, smi)
+
+    # ---- 11. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    # ---- 11. report
+    # ---- 12. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -2223,7 +2641,9 @@ def main() -> None:
           "volumes, the up-link's from the data-flip path's volume, the "
           "backward kernels' from the train path's steps, the experiment "
           "kernels' from the experiments' mains (launches_by_path: all "
-          "six, 'predict' over the folder run A's two cases)", flush=True)
+          "seven, 'predict' over the folder run A's two cases, 'trainer' "
+          "over the [trainer] phase: train steps, validation batches, the "
+          "validations and the predict CLI)", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
     for name, (src, rep) in sources.items():

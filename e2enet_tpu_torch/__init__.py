@@ -1,5 +1,5 @@
 """PyTorch/CUDA port of e2enet_tpu's ShiftUNet++ sliding-window inference
-and its row-masked DSFF training step, for NVIDIA Hopper.
+and its DSFF training, for NVIDIA Hopper.
 
 The JAX package `e2enet_tpu` is the reference; this package imports torch
 and never jax. It computes channels-last (N, D, H, W, C) throughout, with
@@ -12,9 +12,14 @@ backward and the seg head (`ops/qlink.py`); everything else is plain torch.
 
 Users' entry points: folder prediction (`python -m
 e2enet_tpu_torch.cli.predict`, `inference/predictor.py`) on checkpoints in
-the JAX package's format (`training/checkpoint.py`), with the port's own
-copies of the host modules it needs (`plans.py`, `paths.py`, `io/`,
-`preprocessing/`, `inference/export.py`, `postprocessing/`, `utils/`), and
-the bench (`python -m e2enet_tpu_torch.bench`). Each runs on the card and
-takes `--device cpu` (or `device="cpu"`) to run the plain versions here.
+the JAX package's format (`training/checkpoint.py`); training (`python -m
+e2enet_tpu_torch.cli.train`, `training/trainer.py`, with its data pipeline
+in `data/` and the augmentation's C++ warp in `native/`) on a preprocessed
+task in the JAX package's format, writing checkpoints both packages load;
+`python -m e2enet_tpu_torch.cli.evaluate`; and the bench (`python -m
+e2enet_tpu_torch.bench`). The port keeps its own copies of the host
+modules it needs (`plans.py`, `paths.py`, `io/`, `preprocessing/`,
+`inference/export.py`, `postprocessing/`, `evaluation/`, `data/`,
+`utils/`). Each entry point runs on the card and takes `--device cpu` (or
+`device="cpu"`) to run the plain versions here.
 """

@@ -1,0 +1,196 @@
+"""Train CLI, the port's counterpart of e2enet_tpu/cli/train.py: the same
+flags, with --device.
+
+Parity: reference simple_main.py (:33-220): resolves the task/plans,
+instantiates the trainer (Tconv dispatch), optional DSFF sparse config
+(sparselearning add_sparse_args flags, core_channel.py:17-31), runs training
+(+ optional validation only / continue), then validates the fold.
+
+Usage:
+  python -m e2enet_tpu_torch.cli.train --task 4 --fold 0 \
+      --Tconv shiftConvPP --sparse True --density 0.2 \
+      --update_frequency 1200 --epochs 1000 --batches 250 \
+      [--device cuda|cpu] [-c]
+
+Reads $nnUNet_preprocessed/<task>/ (the plans file, the stage folder,
+splits_final.pkl, gt_segmentations/) and writes the fold under
+$RESULTS_FOLDER/nnUNet/3d_fullres/<task>/TPUTrainer__<plans>/, in the JAX
+package's checkpoint format: either package continues the other's run and
+predicts with its folds. --device defaults to the card (`cuda`), which
+must be present; `--device cpu` trains the plain torch versions of every
+kernel. Refused, each naming the ROADMAP item that ports it: --network
+2d (Queue 1 item 3c), 3d_lowres and 3d_cascade_fullres (item 4e), a -tr
+other than TPUTrainer (item 4e), --num_devices above 1 and
+--spatial_parallel (item 7), --device_augment (item 8), and the DSFF
+settings of item 4c. --fused, --no_fused and --remat choose between XLA
+programs of the JAX package and are rejected.
+"""
+import argparse
+
+from .. import paths
+from ..inference.predictor import require_device
+from ..plans import Plans
+from ..training.dsff import DSFFConfig
+from ..training.trainer import Trainer
+from ..utils.files import isfile, join
+from ..utils.task_names import convert_id_to_task_name
+
+NETWORK_ITEMS = {"2d": "ROADMAP Queue 1 item 3c (2D plans)",
+                 "3d_lowres": "ROADMAP Queue 1 item 4e (cascade)",
+                 "3d_cascade_fullres": "ROADMAP Queue 1 item 4e (cascade)"}
+
+
+def str2bool(v):
+    return str(v).lower() in ("yes", "true", "t", "1")
+
+
+def get_default_configuration(network: str, task: str,
+                              plans_identifier: str = "nnUNetPlansv2.1"):
+    """Resolve plans file / output dir / stage for a task (parity:
+    run/default_configuration.py:34-80)."""
+    preproc_dir = join(paths.require(paths.get_preprocessing_output_dir(),
+                                     "preprocessed dir"), task)
+    suffix = "_plans_2D" if network == "2d" else "_plans_3D"
+    plans_json = join(preproc_dir, plans_identifier + suffix + ".json")
+    plans_pkl = join(preproc_dir, plans_identifier + suffix + ".pkl")
+    plans_file = plans_json if isfile(plans_json) else plans_pkl
+    plans = Plans.load(plans_file)
+    possible_stages = sorted(plans.plans_per_stage.keys())
+    if network in ("3d_lowres",) and len(possible_stages) == 1:
+        raise RuntimeError("3d_lowres only applies to multi-stage plans")
+    if network in ("3d_cascade_fullres",) and len(possible_stages) == 1:
+        raise RuntimeError(
+            "3d_cascade_fullres requires multi-stage plans (3d_lowres)")
+    stage = (possible_stages[0] if network == "3d_lowres"
+             else possible_stages[-1])
+    results_dir = paths.require(paths.get_results_dir(), "RESULTS_FOLDER")
+    output_folder = join(results_dir, network, task,
+                         "TPUTrainer__" + plans_identifier)
+    batch_dice = network != "2d"
+    return plans, output_folder, preproc_dir, stage, batch_dice
+
+
+def main(args=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--network", type=str, default="3d_fullres")
+    parser.add_argument("--task", type=str, required=True)
+    parser.add_argument("--fold", type=str, default="0",
+                        help="0..4 or 'all'")
+    parser.add_argument("--Tconv", type=str, default="shiftConvPP")
+    parser.add_argument("--epochs", type=int, default=200)
+    parser.add_argument("--batches", type=int, default=250,
+                        help="batches per epoch")
+    parser.add_argument("--val_batches", type=int, default=50)
+    parser.add_argument("--base_features", type=int, default=48)
+    parser.add_argument("-c", "--continue_training", action="store_true")
+    parser.add_argument("--validation_only", action="store_true")
+    parser.add_argument("--valbest", action="store_true")
+    parser.add_argument("--fp32", action="store_true",
+                        help="the plain float32 model (default: bf16 on "
+                             "the kernels)")
+    parser.add_argument("--fused", action="store_true",
+                        help="rejected: chooses an XLA program of the JAX "
+                             "package")
+    parser.add_argument("--remat", default=None,
+                        help="rejected: chooses an XLA program of the JAX "
+                             "package")
+    parser.add_argument("--no_fused", action="store_true",
+                        help="rejected: chooses an XLA program of the JAX "
+                             "package")
+    parser.add_argument("-p", "--plans_identifier", type=str,
+                        default="nnUNetPlansv2.1")
+    parser.add_argument("-tr", "--trainer_variant", type=str,
+                        default="TPUTrainer",
+                        help="only TPUTrainer is ported (ROADMAP Queue 1 "
+                             "item 4e)")
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="only 1 is ported (ROADMAP Queue 1 item 7)")
+    parser.add_argument("--spatial_parallel", type=int, default=1)
+    parser.add_argument("--device_augment", action="store_true",
+                        help="not ported (ROADMAP Queue 1 item 8)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--da_threads", type=int, default=1)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device: cuda (default; the card must "
+                             "be present) or cpu")
+    # DSFF flags (parity: add_sparse_args)
+    parser.add_argument("--sparse", type=str2bool, default=False)
+    parser.add_argument("--sparse_init", type=str, default="uniform")
+    parser.add_argument("--growth", type=str, default="random")
+    parser.add_argument("--death", type=str, default="magnitude")
+    parser.add_argument("--death-rate", dest="death_rate", type=float,
+                        default=0.5)
+    parser.add_argument("--density", type=float, default=0.3)
+    parser.add_argument("--final_density", type=float, default=0.05)
+    parser.add_argument("--update_frequency", type=int, default=1200)
+    parser.add_argument("--fix", type=str2bool, default=False)
+    parser.add_argument("--prune_mode", type=str, default="local",
+                        choices=("local", "global"))
+    parser.add_argument("--init-prune-epoch", dest="init_prune_epoch",
+                        type=int, default=0)
+    parser.add_argument("--final-prune-epoch", dest="final_prune_epoch",
+                        type=int, default=1000)
+    parser.add_argument("--multiplier", type=int, default=1,
+                        help="GMP epoch-window multiplier")
+    parser.add_argument("--granularity", type=str, default="auto",
+                        choices=("auto", "kernel", "element", "row"))
+    a = parser.parse_args(args)
+
+    for flag, given in (("--fused", a.fused), ("--no_fused", a.no_fused),
+                        ("--remat", a.remat is not None)):
+        if given:
+            parser.error(f"{flag} chooses between XLA programs of the JAX "
+                         f"package and has no meaning in the port (one "
+                         f"path: the CUDA kernels at bf16, or --fp32)")
+    device = require_device(a.device)
+    if a.network in NETWORK_ITEMS:
+        raise NotImplementedError(f"--network {a.network}: "
+                                  f"{NETWORK_ITEMS[a.network]}")
+    if a.trainer_variant != "TPUTrainer":
+        raise NotImplementedError(
+            f"-tr {a.trainer_variant}: ROADMAP Queue 1 item 4e "
+            f"(training/variants.py)")
+
+    task = a.task
+    if not task.startswith("Task"):
+        task = convert_id_to_task_name(int(task))
+    fold = a.fold if a.fold == "all" else int(a.fold)
+
+    plans, output_folder, preproc_dir, stage, batch_dice = \
+        get_default_configuration(a.network, task, a.plans_identifier)
+
+    dsff_cfg = None
+    if a.sparse:
+        dsff_cfg = DSFFConfig(
+            sparse=True, sparse_init=a.sparse_init, growth=a.growth,
+            death=a.death, death_rate=a.death_rate, density=a.density,
+            final_density=a.final_density,
+            update_frequency=a.update_frequency, fix=a.fix,
+            prune_mode=a.prune_mode, init_prune_epoch=a.init_prune_epoch,
+            final_prune_epoch=a.final_prune_epoch, multiplier=a.multiplier,
+            granularity=a.granularity)
+
+    trainer = Trainer(
+        plans, fold, output_folder, dataset_directory=preproc_dir,
+        stage=stage, batch_dice=batch_dice, tconv=a.Tconv,
+        max_num_epochs=a.epochs, num_batches_per_epoch=a.batches,
+        num_val_batches_per_epoch=a.val_batches, fp16=not a.fp32,
+        dsff_config=dsff_cfg, seed=a.seed, num_da_threads=a.da_threads,
+        base_num_features=a.base_features, num_devices=a.num_devices,
+        spatial_parallel=a.spatial_parallel,
+        device_augment=a.device_augment, device=device)
+    trainer.initialize(not a.validation_only)
+
+    if not a.validation_only:
+        if a.continue_training and isfile(trainer.checkpoint_path("latest")):
+            trainer.load_checkpoint_file("latest")
+        trainer.run_training()
+    else:
+        which = "best" if a.valbest else "final_checkpoint"
+        trainer.load_checkpoint_file(which, train=False)
+    trainer.validate()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,10 @@
-"""Segmentation losses: soft Dice + cross-entropy with deep supervision, the
-`dc_ce` subset of e2enet_tpu/ops/losses.py (reference
+"""Segmentation losses: soft Dice + cross-entropy with deep supervision and
+the online evaluation's hard counts, the `dc_ce` subset of
+e2enet_tpu/ops/losses.py with hard_tp_fp_fn (reference
 e2enet/training/loss_functions/dice_loss.py get_tp_fp_fn_tn, SoftDiceLoss,
 DC_and_CE_loss; crossentropy.py RobustCrossEntropyLoss;
-deep_supervision.py MultipleOutputLoss2).
+deep_supervision.py MultipleOutputLoss2; nnUNetTrainer_simple.
+run_online_evaluation).
 
 Layout: logits (N, D, H, W, C), float32 as the heads return them; targets
 (N, D, H, W) integer labels. All loss math in float32.
@@ -95,6 +97,24 @@ def deep_supervision_loss(outputs: Sequence[torch.Tensor],
             continue
         total = total + float(w) * dc_and_ce_loss(o, t, batch_dice=batch_dice)
     return total
+
+
+def hard_tp_fp_fn(logits: torch.Tensor, target: torch.Tensor):
+    """Per-class hard counts for the online foreground-Dice estimate
+    (reference losses.py:311-326): the argmax of logits (N, ..., C) against
+    integer targets (N, ...), summed over the batch and the spatial axes.
+    Returns (tp, fp, fn), each (C - 1,) float32 over the foreground
+    classes, on the logits' device."""
+    num_classes = logits.shape[-1]
+    seg = logits.argmax(dim=-1)
+    classes = torch.arange(1, num_classes, device=logits.device)
+    pred = seg[..., None] == classes
+    tgt = target.long()[..., None] == classes
+    axes = tuple(range(pred.dim() - 1))
+    tp = (pred & tgt).sum(dim=axes)
+    fp = (pred & ~tgt).sum(dim=axes)
+    fn = (~pred & tgt).sum(dim=axes)
+    return tp.float(), fp.float(), fn.float()
 
 
 def downsample_seg_for_ds(seg: torch.Tensor,

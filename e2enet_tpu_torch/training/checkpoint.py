@@ -19,6 +19,17 @@ load_checkpoint returns the trees as numpy and the masks as a dict; the
 model's weights come from params through models/weights.from_jax_params.
 save_checkpoint writes the same format from numpy trees (a model's
 through models/weights.to_jax_params), which the JAX package loads.
+
+A trainer's whole state (training/train_state.TrainState; reference
+state_to_numpy :30, save_checkpoint :60) goes through state_to_numpy and
+save_train_state: params and momentum in the flax layout by the same
+mapping (to_jax_params, transposes included), the masks by '|'-joined
+flax path, the step, and the reference's uint32[2] PRNG key. The port's
+own draws come from a torch.Generator: its state goes into the metadata
+under GENERATOR_KEY as a uint8 array, which the JAX loader ignores (a JAX
+trainer's save does not keep it; the port then seeds its generator from
+the key). load_train_state puts a checkpoint of either package back into
+a TrainState in place, the masks checked against the model.
 """
 import os
 import pickle
@@ -26,8 +37,13 @@ from collections.abc import Mapping
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..models.masks import masks_for_model
+from ..models.weights import from_jax_params, to_jax_params
 from ..utils.files import save_pickle
+
+GENERATOR_KEY = "torch_generator_state"
 
 _REFUSED_MODULES = ("jax", "jaxlib", "flax", "e2enet_tpu")
 
@@ -149,3 +165,68 @@ def _to_numpy(tree):
     if tree is None:
         return None
     return _map(np.asarray, tree)
+
+
+def state_to_numpy(state) -> Dict[str, Any]:
+    """A TrainState as the JAX package stores one (reference
+    state_to_numpy, checkpoint.py:30-42): params and momentum as the flax
+    trees, masks by '|'-joined flax path (None without masks), rng the
+    uint32[2] key, step an int."""
+    masks = None
+    if state.masks is not None:
+        masks = {name.replace(".", "|"): m.detach().cpu().float().numpy()
+                 for name, m in state.masks.items()}
+    rng = (np.zeros(2, np.uint32) if state.rng is None
+           else np.asarray(state.rng, np.uint32))
+    return {"params": to_jax_params(state.params),
+            "momentum": to_jax_params(state.momentum),
+            "masks": masks, "rng": rng, "step": int(state.step)}
+
+
+def save_train_state(path: str, state, epoch: int,
+                     metadata: Optional[dict] = None,
+                     sidecar: Optional[dict] = None) -> None:
+    """Write a TrainState as the JAX package's checkpoint (reference
+    save_checkpoint, checkpoint.py:60-73); the generator's state goes into
+    the metadata under GENERATOR_KEY."""
+    d = state_to_numpy(state)
+    metadata = dict(metadata or {})
+    metadata[GENERATOR_KEY] = state.generator.get_state().numpy().copy()
+    save_checkpoint(path, d["params"], epoch, masks=d["masks"],
+                    momentum=d["momentum"], rng=d["rng"], step=d["step"],
+                    metadata=metadata, sidecar=sidecar)
+
+
+def load_train_state(path: str, state, model) -> Tuple[int, dict]:
+    """Load a checkpoint of either package into `state` (and `model`,
+    whose parameters state.params are) in place: the parameters, the
+    momentum, the masks (refused unless they fit the model; None stays
+    None), the step and the rng key; the generator from the metadata's
+    GENERATOR_KEY, or seeded from the key where a JAX run wrote it.
+    Returns (epoch, metadata)."""
+    d, epoch, metadata = load_checkpoint(path)
+    model.load_state_dict(from_jax_params(d["params"]), strict=True)
+    momentum = from_jax_params(d["momentum"])
+    if set(momentum) != set(state.momentum):
+        raise ValueError(f"{path}: the momentum's leaves are not the "
+                         f"model's parameters")
+    with torch.no_grad():
+        for name, buf in state.momentum.items():
+            buf.copy_(momentum[name])
+    state.masks = None
+    if d["masks"] is not None:
+        dev = next(iter(state.params.values())).device
+        state.masks = {n: torch.from_numpy(m).to(dev) for n, m in
+                       masks_for_model(d["masks"], model,
+                                       f"the masks of {path}").items()}
+    state.step = d["step"]
+    state.rng = (None if d["rng"] is None
+                 else np.asarray(d["rng"], np.uint32))
+    gen = metadata.get(GENERATOR_KEY)
+    if gen is not None:
+        state.generator.set_state(torch.from_numpy(
+            np.asarray(gen, np.uint8).copy()))
+    elif state.rng is not None:
+        state.generator.manual_seed(int(state.rng.astype(np.uint64)[0]) << 32
+                                    | int(state.rng[1]))
+    return epoch, metadata

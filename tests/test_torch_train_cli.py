@@ -1,0 +1,244 @@
+"""The port's train CLI (e2enet_tpu_torch/cli/train.py) end to end on the
+CPU, on a tiny preprocessed task (chip_smoke.write_train_task: six 20 x 24
+x 22 cases, 3 classes, 16^3 patches, batch 2) in a temporary results
+folder: training with kernel-granular DSFF (width 8, --fp32), the fold's
+validation and postprocessing, the files tests/test_end_to_end.py asks of
+the JAX CLI, a continued run (-c) from 'latest', and the port's predict
+CLI reading the trained fold (the JAX package's ModelBundle reads it too).
+Also the refusals: no card without --device cpu, and every option the
+port does not train, each naming its ROADMAP item; and that no module of
+the port imports jax or e2enet_tpu (a subprocess in which both are
+blocked imports every module of the package and chip_smoke.py)."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from e2enet_tpu_torch.cli import predict as tpredict  # noqa: E402
+from e2enet_tpu_torch.cli import train as ttrain  # noqa: E402
+from e2enet_tpu_torch.io.nifti import read_nifti  # noqa: E402
+from e2enet_tpu_torch.training import checkpoint as tckpt  # noqa: E402
+from e2enet_tpu_torch.training.trainer import Trainer  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+TASK = "Task778_TinyCli"
+CASES = {f"case_{i:03d}": (20, 24, 22) for i in range(6)}
+ARGS = ["--task", TASK, "--fold", "0", "--Tconv", "shiftConvPP",
+        "--batches", "2", "--val_batches", "1", "--base_features", "8",
+        "--fp32", "--sparse", "true", "--density", "0.3",
+        "--update_frequency", "2"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def env(tmp_path_factory):
+    base = str(tmp_path_factory.mktemp("train_cli"))
+    paths = chip_smoke.write_train_task(base, TASK, CASES, (16, 16, 16),
+                                        [[2, 2, 2]] * 2, 3)
+    return paths
+
+
+@pytest.fixture
+def environ(env, monkeypatch):
+    monkeypatch.setenv("nnUNet_preprocessed", env["preprocessed"])
+    monkeypatch.setenv("RESULTS_FOLDER", env["results"])
+    return env
+
+
+def _fold(env):
+    return Path(env["results"]) / "nnUNet" / "3d_fullres" / TASK / \
+        "TPUTrainer__nnUNetPlansv2.1" / "fold_0"
+
+
+@pytest.fixture(scope="module")
+def trained(env):
+    """Two epochs, then -c to a third, through cli.train.main."""
+    old = {k: os.environ.get(k) for k in ("nnUNet_preprocessed",
+                                          "RESULTS_FOLDER")}
+    os.environ["nnUNet_preprocessed"] = env["preprocessed"]
+    os.environ["RESULTS_FOLDER"] = env["results"]
+    real_init = Trainer.initialize
+
+    def every_epoch(self, training=True):
+        real_init(self, training)
+        self.save_every = 1   # 'latest' after each epoch, for -c
+    Trainer.initialize = every_epoch
+    try:
+        first = ttrain.main(ARGS + ["--epochs", "2", "--device", "cpu"])
+        latest = tckpt.load_checkpoint(first.checkpoint_path("latest"))
+        loaded = []
+        real = Trainer.load_checkpoint_file
+
+        def spy(self, which, train=True):
+            real(self, which, train)
+            loaded.append((which, self.epoch, int(self.state.step),
+                           {n: p.detach().clone()
+                            for n, p in self.state.params.items()},
+                           {n: m.clone()
+                            for n, m in self.state.momentum.items()},
+                           {n: m.clone()
+                            for n, m in self.state.masks.items()}))
+        Trainer.load_checkpoint_file = spy
+        try:
+            second = ttrain.main(ARGS + ["--epochs", "3", "-c",
+                                         "--device", "cpu"])
+        finally:
+            Trainer.load_checkpoint_file = real
+    finally:
+        Trainer.initialize = real_init
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return first, latest, loaded, second
+
+
+def test_train_writes_the_fold(trained, env):
+    """The files test_end_to_end.py asks of the JAX CLI, a finite Dice
+    for every foreground label, progress.png where matplotlib imports."""
+    first, _, _, second = trained
+    fold = _fold(env)
+    for name in ("shiftConvPP_model_final_checkpoint.model",
+                 "shiftConvPP_model_final_checkpoint.model.pkl",
+                 "shiftConvPP_model_latest.model",
+                 "shiftConvPP_model_best.model", "postprocessing.json",
+                 "debug.json"):
+        assert (fold / name).is_file(), name
+    summary = json.load(open(fold / "validation_raw" / "summary.json"))
+    for label in ("1", "2"):
+        assert np.isfinite(summary["results"]["mean"][label]["Dice"])
+    assert len(summary["results"]["all"]) == 2
+    try:
+        import matplotlib  # noqa: F401
+        assert (fold / "progress.png").is_file()
+    except ImportError:
+        pass
+    assert any(f.startswith("training_log_") for f in os.listdir(fold))
+    assert first.epoch == 2 and int(first.state.step) == 4
+    assert all(np.isfinite(first.all_tr_losses + second.all_tr_losses))
+    assert len(first.validation_timings) == 2
+
+
+def test_continue_from_latest(trained):
+    """-c loads 'latest' (epoch 2, step 4) with the parameters, momentum
+    and masks equal to the bit, and the epoch counter goes on from 2."""
+    first, latest, loaded, second = trained
+    assert len(loaded) == 1
+    which, epoch, step, params, momentum, masks = loaded[0]
+    assert which == "latest" and epoch == 2 and step == 4
+    state, ep, meta = latest
+    assert ep == 2 and state["step"] == 4
+    from e2enet_tpu_torch.models.weights import from_jax_params
+    for what, got, want in (("params", params, from_jax_params(
+            state["params"])), ("momentum", momentum,
+                               from_jax_params(state["momentum"]))):
+        for n, t in got.items():
+            assert torch.equal(t, want[n]), f"{what} {n}"
+    for n, m in masks.items():
+        np.testing.assert_array_equal(m.numpy(),
+                                      state["masks"][n.replace(".", "|")])
+    assert second.epoch == 3 and int(second.state.step) == 6
+    assert second.all_tr_losses[:2] == first.all_tr_losses
+    assert len(second.all_tr_losses) == 3
+
+
+def test_predict_cli_reads_the_trained_fold(trained, environ, tmp_path):
+    """The port's predict CLI on one validation case with the trained
+    fold (the continued run's); the JAX package's ModelBundle restores
+    the same weights."""
+    _, _, _, second = trained
+    inp = tmp_path / "in"
+    inp.mkdir()
+    case = list(second.dataset_val)[0]
+    os.symlink(os.path.join(environ["raw"], f"{case}_0000.nii.gz"),
+               inp / f"{case}_0000.nii.gz")
+    out = tmp_path / "out"
+    tpredict.main(["-i", str(inp), "-o", str(out), "-t", TASK, "-f", "0",
+                   "--device", "cpu"])
+    seg = read_nifti(str(out / f"{case}.nii.gz")).array
+    assert seg.shape == CASES[case]
+    assert int(seg.min()) >= 0 and int(seg.max()) < 3
+    from e2enet_tpu.inference.predictor import ModelBundle
+    from e2enet_tpu_torch.models.weights import to_jax_params
+    bundle = ModelBundle(str(_fold(environ).parent), [0], "shiftConvPP")
+    want = to_jax_params(second.state.params)
+
+    def leaves(tree, prefix=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + (k,))
+            else:
+                yield prefix + (k,), v
+    got = dict(leaves(bundle.fold_params[0]))
+    for path, v in leaves(want):
+        np.testing.assert_array_equal(np.asarray(got[path]), v)
+
+
+def test_refuses_without_a_card(environ, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(ARGS + ["--epochs", "1"])
+
+
+@pytest.mark.parametrize("extra, item", [
+    (["--network", "2d"], "item 3c"),
+    (["--network", "3d_lowres"], "item 4e"),
+    (["--network", "3d_cascade_fullres"], "item 4e"),
+    (["-tr", "nnUNetTrainerV2_Adam"], "item 4e"),
+    (["--num_devices", "2"], "item 7"),
+    (["--spatial_parallel", "2"], "item 7"),
+    (["--device_augment"], "item 8"),
+    (["--growth", "gradient"], "item 4c"),
+    (["--prune_mode", "global"], "item 4c"),
+    (["--sparse_init", "GMP"], "item 4c"),
+    (["--granularity", "element"], "item 4c")])
+def test_unported_options_raise(environ, extra, item):
+    with pytest.raises(NotImplementedError, match=item):
+        ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("flag", [["--fused"], ["--no_fused"],
+                                  ["--remat", "off"]])
+def test_xla_flags_rejected(environ, flag, capsys):
+    with pytest.raises(SystemExit):
+        ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu"] + flag)
+    assert "XLA programs" in capsys.readouterr().err
+
+
+def test_no_module_imports_jax():
+    """Every module of e2enet_tpu_torch, and chip_smoke.py, imports in a
+    process where jax, jaxlib, flax and e2enet_tpu cannot be imported."""
+    code = """
+import sys, pkgutil, importlib
+for m in ("jax", "jaxlib", "flax", "e2enet_tpu"):
+    sys.modules[m] = None
+import e2enet_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(e2enet_tpu_torch.__path__,
+                                                "e2enet_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+assert not any(k.split(".")[0] in ("jax", "jaxlib", "flax", "e2enet_tpu")
+               and sys.modules[k] is not None for k in sys.modules)
+print(len(names))
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert int(r.stdout.split()[-1]) > 40
