@@ -105,28 +105,34 @@ Phases (any failure ends the run with a non-zero exit):
               (CUDA events) and the peak memory. On a 2 x 64^3 batch, one
               step's gradients through the kernels, through the bf16 plain
               path and through a float32 plain run
-  10. trainer the users' training path (cli/train.main, then
-              cli/predict.main): a seeded preprocessed task in the JAX
-              package's format (write_train_task: six cases of about 160^3,
-              16 classes with class-specific intensities, 4 train and 2
-              validation in splits_final.pkl, gt_segmentations/), the
-              trainer at the bench width (48 base features, 128^3 patches,
-              batch 2, bf16) with kernel-granular DSFF (density 0.2, a mask
-              update every 4 steps): 2 epochs of 6 batches (2 validation
-              batches each), then -c --epochs 3 from 'latest', each run
-              ending in the fold's validation (summary.json,
-              postprocessing.json); cli.predict with the trained fold on
-              one validation case. Checks: every loss finite, the first
-              epoch's train loss above the last, launches per step equal to
+  10. trainer the users' chain from raw data (the plan CLI, cli/train.main,
+              then cli/predict.main): a seeded raw task (write_raw_task: six
+              cases of about 160^3 at 1 mm, one CT modality, 16 classes with
+              class-specific intensities) that `python -m
+              e2enet_tpu_torch.cli.plan_and_preprocess -t 501
+              --verify_dataset_integrity` crops, fingerprints, plans and
+              preprocesses in a fresh process (its exit code and wall
+              seconds), and again in a spawned child with a spy on each step
+              (the seconds of each), the two runs' plans and stage files
+              equal; the plan asserted to be one stage, 128^3, 5 x (2, 2, 2)
+              pools, batch 2, CT normalisation from the analyser's statistics;
+              4 train and 2 validation cases in splits_final.pkl; the trainer
+              at the bench width (48 base features, 128^3 patches, batch 2,
+              bf16) with kernel-granular DSFF (density 0.2, a mask update
+              every 4 steps): 2 epochs of 6 batches (2 validation batches
+              each), then -c --epochs 3 from 'latest', each run ending in the
+              fold's validation (summary.json, postprocessing.json);
+              cli.predict with the trained fold on one validation case.
+              Checks: every loss finite, the first epoch's train loss above
+              the last, launches per step equal to
               kernel_launches_per_train_step, after each mask update the
               parameters and momentum zero where the masks are and every
               kernel's alive count held, the state -c loads equal to the
-              'latest' file to the bit and the epoch at 2, a finite Dice
-              for every foreground label, the predicted labels in [0, 16),
-              the augmentation on the C++ warp, no jax. Prints ms per step
-              (CUDA events), the host's wait per batch in next(tr_gen), s
-              per epoch, s per validation case (prediction, export), the
-              peak memory
+              'latest' file to the bit and the epoch at 2, a finite Dice for
+              every foreground label, the predicted labels in [0, 16), the
+              augmentation on the C++ warp, no jax. Prints ms per step (CUDA
+              events), the host's wait per batch in next(tr_gen), s per epoch,
+              s per validation case (prediction, export), the peak memory
   11. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
@@ -1451,7 +1457,9 @@ def write_predict_inputs(base, model):
     return results, inputs, folder
 
 
-# the [trainer] phase: a preprocessed task at the bench geometry
+# the [trainer] phase: a raw task that the port's plan CLI plans at the
+# bench geometry (write_train_task, the preprocessed task the CPU tests
+# train on, keeps the same cases)
 TRAIN_TASK = "Task501_ChipSmokeTrain"
 TRAIN_CASES = {"case_000": (160, 160, 160), "case_001": (168, 152, 160),
                "case_002": (152, 160, 168), "case_003": (160, 168, 152),
@@ -1495,7 +1503,6 @@ def write_train_task(base, task, cases, patch, pools, num_classes,
     {"preprocessed", "results", "raw", "task"} paths."""
     import os
     import pickle
-    from collections import OrderedDict
     from e2enet_tpu_torch.io.nifti import NiftiImage, write_nifti
     from e2enet_tpu_torch.plans import Plans, StagePlan
     rng = np.random.RandomState(seed)
@@ -1561,14 +1568,214 @@ def write_train_task(base, task, cases, patch, pools, num_classes,
         write_nifti(os.path.join(gt, f"{name}.nii.gz"),
                     NiftiImage(seg, (1.0, 1.0, 1.0), **geom))
     if val is not None:
-        keys = np.sort(list(cases))
-        split = OrderedDict(train=keys[~np.isin(keys, val)],
-                            val=keys[np.isin(keys, val)])
-        with open(os.path.join(pre, "splits_final.pkl"), "wb") as f:
-            pickle.dump([split], f)
+        write_split(pre, cases, val)
     return {"preprocessed": os.path.join(base, "preprocessed"),
             "results": results, "raw": raw, "task": pre}
 
+
+def write_split(pre, cases, val):
+    """splits_final.pkl in the preprocessed task folder `pre`: fold 0
+    validates on the cases named in `val` and trains on the rest."""
+    import os
+    import pickle
+    from collections import OrderedDict
+    keys = np.sort(list(cases))
+    split = OrderedDict(train=keys[~np.isin(keys, val)],
+                        val=keys[np.isin(keys, val)])
+    with open(os.path.join(pre, "splits_final.pkl"), "wb") as f:
+        pickle.dump([split], f)
+
+
+def write_raw_task(base, task, cases, num_classes, seed=0):
+    """A raw task in the layout the plan CLI reads, the same seeded
+    synthetic_case volumes write_train_task draws: under `base`,
+    nnUNet_raw_data/<task>/ with imagesTr/<case>_0000.nii.gz (one CT
+    modality, 1 mm), labelsTr/<case>.nii.gz and dataset.json (the port's
+    generate_dataset_json; labels 0 to num_classes - 1). cases: {name:
+    (z, y, x) shape}. Returns the task folder."""
+    import os
+    from e2enet_tpu_torch.dataset_conversion.utils import \
+        generate_dataset_json
+    from e2enet_tpu_torch.io.nifti import NiftiImage, write_nifti
+    rng = np.random.RandomState(seed)
+    folder = os.path.join(base, "nnUNet_raw_data", task)
+    for sub in ("imagesTr", "labelsTr"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    for name, shape in cases.items():
+        vol, seg = synthetic_case(rng, shape, num_classes)
+        write_nifti(os.path.join(folder, "imagesTr", f"{name}_0000.nii.gz"),
+                    NiftiImage(vol, (1.0, 1.0, 1.0)))
+        write_nifti(os.path.join(folder, "labelsTr", f"{name}.nii.gz"),
+                    NiftiImage(seg, (1.0, 1.0, 1.0)))
+    generate_dataset_json(
+        os.path.join(folder, "dataset.json"),
+        os.path.join(folder, "imagesTr"), None, ("CT",),
+        {c: "background" if c == 0 else f"class_{c}"
+         for c in range(num_classes)}, task.split("_", 1)[1])
+    return folder
+
+
+# the plan CLI's steps that plan_child times: (name, module, class or None
+# for a function, attribute)
+PLAN_STEPS = (
+    ("integrity", "e2enet_tpu_torch.planning.sanity", None,
+     "verify_dataset_integrity"),
+    ("cropping", "e2enet_tpu_torch.preprocessing.cropping", "ImageCropper",
+     "run_cropping"),
+    ("analysis", "e2enet_tpu_torch.planning.analyzer", "DatasetAnalyzer",
+     "analyze_dataset"),
+    ("planning", "e2enet_tpu_torch.planning.planner",
+     "ExperimentPlanner3D_v21", "plan_experiment"),
+    ("preprocessing", "e2enet_tpu_torch.planning.planner",
+     "ExperimentPlanner3D_v21", "run_preprocessing"))
+
+
+def plan_child(argv, out):
+    """The plan CLI's main(argv) with a spy on each of PLAN_STEPS; writes
+    {step: seconds, "main": seconds} to `out` as JSON. Run in a spawned
+    process (it takes the environment's data folders)."""
+    import importlib
+    seconds = {}
+    for step, module, cls, attr in PLAN_STEPS:
+        owner = importlib.import_module(module)
+        owner = owner if cls is None else getattr(owner, cls)
+        real = getattr(owner, attr)
+
+        def spy(*a, _real=real, _step=step, **k):
+            t0 = time.perf_counter()
+            try:
+                return _real(*a, **k)
+            finally:
+                seconds[_step] = (seconds.get(_step, 0.0)
+                                  + time.perf_counter() - t0)
+        setattr(owner, attr, spy)
+    from e2enet_tpu_torch.cli import plan_and_preprocess
+    t0 = time.perf_counter()
+    plan_and_preprocess.main(argv)
+    seconds["main"] = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump(seconds, f)
+
+
+
+def plan_train_task(base, smi):
+    """[trainer]'s task: TRAIN_CASES written as a raw task (write_raw_task
+    under `base`/raw), then planned and preprocessed by the port's CLI
+    twice, each in a fresh process: `python -m
+    e2enet_tpu_torch.cli.plan_and_preprocess -t 501
+    --verify_dataset_integrity` (its exit code and wall seconds; the task
+    the phase trains on), then plan_child in a spawned process into
+    folders of its own (the seconds of each step). Checks that both runs
+    wrote the same plans and stage files, and that the plan is the one the
+    phase trains: one stage, PATCH, 5 x (2, 2, 2) pools, batch 2, one CT
+    modality normalised by the analyser's statistics. Writes
+    splits_final.pkl (TRAIN_VAL as fold 0). Returns {"preprocessed",
+    "results", "images"} paths."""
+    import multiprocessing
+    import os
+    import shutil
+    from pathlib import Path
+    from e2enet_tpu_torch.plans import Plans
+    from e2enet_tpu_torch.utils.files import load_pickle
+    t0 = time.perf_counter()
+    task_dir = write_raw_task(os.path.join(base, "raw"), TRAIN_TASK,
+                              TRAIN_CASES, NUM_CLASSES)
+    written = time.perf_counter() - t0
+    argv = ["-t", str(int(TRAIN_TASK[4:7])), "--verify_dataset_integrity"]
+    env = dict(os.environ, nnUNet_raw_data_base=os.path.join(base, "raw"),
+               nnUNet_preprocessed=os.path.join(base, "preprocessed"))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "e2enet_tpu_torch.cli.plan_and_preprocess"]
+        + argv, cwd=Path(__file__).resolve().parent, env=env,
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"[trainer] the plan CLI exited "
+          f"{r.returncode}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+
+    # the same CLI's main in a spawned child with spies on its steps, into
+    # folders of its own (the raw task linked in)
+    timed = os.path.join(base, "timed")
+    os.makedirs(os.path.join(timed, "raw", "nnUNet_raw_data"))
+    os.symlink(task_dir, os.path.join(timed, "raw", "nnUNet_raw_data",
+                                      TRAIN_TASK))
+    out = os.path.join(timed, "seconds.json")
+    saved = {k: os.environ.get(k) for k in ("nnUNet_raw_data_base",
+                                            "nnUNet_preprocessed")}
+    os.environ.update(nnUNet_raw_data_base=os.path.join(timed, "raw"),
+                      nnUNet_preprocessed=os.path.join(timed,
+                                                       "preprocessed"))
+    try:
+        child = multiprocessing.get_context("spawn").Process(
+            target=plan_child, args=(argv, out))
+        child.start()
+        child.join(900)
+        if child.is_alive():
+            child.kill()
+            child.join()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(child.exitcode == 0, f"[trainer] the timed plan run exited "
+          f"{child.exitcode}")
+    with open(out) as f:
+        seconds = json.load(f)
+
+    pre = os.path.join(base, "preprocessed", TRAIN_TASK)
+    pre_t = os.path.join(timed, "preprocessed", TRAIN_TASK)
+    name = "nnUNetPlansv2.1_plans_3D.json"
+    with open(os.path.join(pre, name)) as f, \
+            open(os.path.join(pre_t, name)) as g:
+        check(f.read().replace(base, "<base>")
+              == g.read().replace(timed, "<base>"),
+              "[trainer] the two plan runs wrote different plans")
+    stage = "nnUNetData_plans_v2.1_stage0"
+    for case in TRAIN_CASES:
+        a, b = (np.load(os.path.join(d, stage, f"{case}.npz"))["data"]
+                for d in (pre, pre_t))
+        la, lb = (load_pickle(os.path.join(d, stage, f"{case}.pkl"))[
+            "class_locations"] for d in (pre, pre_t))
+        check(a.dtype == b.dtype and np.array_equal(a, b) and list(la)
+              == list(lb) and all(np.array_equal(la[c], lb[c]) for c in la),
+              f"[trainer] the two plan runs wrote different stage files "
+              f"for {case}")
+    shutil.rmtree(timed)
+
+    plans = Plans.load(os.path.join(pre, name))
+    st = plans.plans_per_stage[0]
+    got = dict(stages=plans.num_stages, patch=st.patch_size,
+               pools=st.pool_op_kernel_sizes, batch=st.batch_size,
+               schemes=plans.normalization_schemes,
+               mask=plans.use_mask_for_norm)
+    want = dict(stages=1, patch=list(PATCH), pools=[[2, 2, 2]] * 5,
+                batch=2, schemes={0: "CT"}, mask={0: False})
+    check(got == want, f"[trainer] the port's plan CLI planned {got}, not "
+          f"the plan this phase trains, {want}: the cropped cases' medians "
+          f"changed the plan")
+    stats = load_pickle(os.path.join(base, "raw", "nnUNet_cropped_data",
+                                     TRAIN_TASK, "intensityproperties.pkl"))[0]
+    keys = ("mean", "sd", "percentile_00_5", "percentile_99_5")
+    norm = {k: plans.intensity_properties[0][k] for k in keys}
+    check(norm == {k: float(stats[k]) for k in keys} and norm["sd"] > 0
+          and norm["percentile_00_5"] < norm["percentile_99_5"],
+          f"[trainer] the plan's CT normalisation {norm} is not the "
+          f"analyser's")
+    write_split(pre, TRAIN_CASES, TRAIN_VAL)
+    os.makedirs(os.path.join(base, "results"))
+    steps = ", ".join(f"{k} {seconds[k]:.2f}" for k, *_ in PLAN_STEPS)
+    print(f"[trainer] raw task {TRAIN_TASK}: {len(TRAIN_CASES)} cases "
+          f"{sorted(set(TRAIN_CASES.values()))} written in {written:.1f} s; "
+          f"python -m e2enet_tpu_torch.cli.plan_and_preprocess "
+          f"{' '.join(argv)}: exit 0, {wall:.2f} s wall; its main in a "
+          f"spawned child (s): {steps}, main {seconds['main']:.2f}; the two "
+          f"runs' plans and stage files equal; plan: {got}, CT "
+          f"normalisation {norm}  [{smi}]", flush=True)
+    return {"preprocessed": os.path.join(base, "preprocessed"),
+            "results": os.path.join(base, "results"),
+            "images": os.path.join(task_dir, "imagesTr")}
 
 def predict_phase(make_model, reset_counts, counts, smi):
     """[predict] the users' entry point, cli/predict.main, twice on the
@@ -1771,8 +1978,10 @@ class _TimedGen:
 
 def trainer_phase(ops, reset_counts, counts, smi):
     """[trainer] the users' training path at the bench width: a seeded
-    preprocessed task (write_train_task: TRAIN_CASES, 16 classes, 128^3
-    patches, batch 2, 5 pools), cli/train.main on the card at bf16 with
+    raw task that the port's plan CLI plans and preprocesses in a fresh
+    process (plan_train_task: TRAIN_CASES, 16 classes; the plan asserted
+    to be one stage of 128^3 patches, batch 2, 5 pools), cli/train.main
+    on the card at bf16 with
     kernel-granular DSFF (density 0.2, an update every 4 steps), 2 epochs
     of 6 batches (2 validation batches each), then -c to a third epoch
     from 'latest', each run ending in the fold's validation; then
@@ -1797,14 +2006,10 @@ def trainer_phase(ops, reset_counts, counts, smi):
     from e2enet_tpu_torch.training.trainer import Trainer
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
-    t0 = time.perf_counter()
-    paths = write_train_task(tmp.name, TRAIN_TASK, TRAIN_CASES, PATCH,
-                             [[2, 2, 2]] * 5, NUM_CLASSES, val=TRAIN_VAL)
+    paths = plan_train_task(tmp.name, smi)
     route = native.route()
-    print(f"[trainer] task {TRAIN_TASK}: {len(TRAIN_CASES)} cases "
-          f"{sorted(set(TRAIN_CASES.values()))}, validation {TRAIN_VAL}, "
-          f"written in {time.perf_counter() - t0:.1f} s; augmentation warp "
-          f"route: {route} ({native.library_path().name})", flush=True)
+    print(f"[trainer] validation {TRAIN_VAL}; augmentation warp route: "
+          f"{route} ({native.library_path().name})", flush=True)
     check(route == "native", "[trainer] the C++ warp did not build")
     os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
     os.environ["RESULTS_FOLDER"] = paths["results"]
@@ -1979,7 +2184,7 @@ def trainer_phase(ops, reset_counts, counts, smi):
     inp = os.path.join(tmp.name, "predict_in")
     os.makedirs(inp)
     case = TRAIN_VAL[0]
-    os.symlink(os.path.join(paths["raw"], f"{case}_0000.nii.gz"),
+    os.symlink(os.path.join(paths["images"], f"{case}_0000.nii.gz"),
                os.path.join(inp, f"{case}_0000.nii.gz"))
     out = os.path.join(tmp.name, "predict_out")
     t0 = time.perf_counter()

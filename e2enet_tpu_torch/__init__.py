@@ -16,10 +16,14 @@ the JAX package's format (`training/checkpoint.py`); training (`python -m
 e2enet_tpu_torch.cli.train`, `training/trainer.py`, with its data pipeline
 in `data/` and the augmentation's C++ warp in `native/`) on a preprocessed
 task in the JAX package's format, writing checkpoints both packages load;
-`python -m e2enet_tpu_torch.cli.evaluate`; and the bench (`python -m
-e2enet_tpu_torch.bench`). The port keeps its own copies of the host
-modules it needs (`plans.py`, `paths.py`, `io/`, `preprocessing/`,
+`python -m e2enet_tpu_torch.cli.evaluate`; the bench (`python -m
+e2enet_tpu_torch.bench`); and planning and preprocessing a raw task for
+training (`python -m e2enet_tpu_torch.cli.plan_and_preprocess`,
+`planning/`), with the decathlon conversion in `dataset_conversion/`. The
+port keeps its own copies of the host modules it needs (`plans.py`,
+`paths.py`, `io/`, `preprocessing/`, `planning/`, `models/vram.py`,
 `inference/export.py`, `postprocessing/`, `evaluation/`, `data/`,
-`utils/`). Each entry point runs on the card and takes `--device cpu` (or
-`device="cpu"`) to run the plain versions here.
+`utils/`). Each entry point that computes on the card runs there and takes
+`--device cpu` (or `device="cpu"`) to run the plain versions here; the
+plan CLI and the evaluation are host work and need no card.
 """

@@ -13,7 +13,9 @@ Usage:
       [--device cuda|cpu] [-c]
 
 Reads $nnUNet_preprocessed/<task>/ (the plans file, the stage folder,
-splits_final.pkl, gt_segmentations/) and writes the fold under
+splits_final.pkl, gt_segmentations/), the folder that `python -m
+e2enet_tpu_torch.cli.plan_and_preprocess -t <id>` writes from the raw
+task, and writes the fold under
 $RESULTS_FOLDER/nnUNet/3d_fullres/<task>/TPUTrainer__<plans>/, in the JAX
 package's checkpoint format: either package continues the other's run and
 predicts with its folds. --device defaults to the card (`cuda`), which

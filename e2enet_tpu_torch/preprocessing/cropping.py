@@ -5,9 +5,13 @@ Parity: reference e2enet/preprocessing/cropping.py (create_nonzero_mask
 :33-48, get_bbox_from_mask :51-57, crop_to_nonzero :84-116,
 load_case_from_list_of_files :60-82, ImageCropper :123-217).
 
-The port's own copy of e2enet_tpu/preprocessing/cropping.py, unchanged but for this note:
-the port imports nothing of the JAX package.
+The port's own copy of e2enet_tpu/preprocessing/cropping.py (the port
+imports nothing of the JAX package), with one change: run_cropping's worker
+processes are spawned, not forked, so that no worker inherits the threads
+or a CUDA context of the process that calls it. Every case is written by
+one worker from its own inputs, so the files are the same either way.
 """
+import multiprocessing
 import os
 from collections import OrderedDict
 from concurrent.futures import ProcessPoolExecutor
@@ -155,7 +159,9 @@ class ImageCropper:
 
         # process pool only helps with >1 CPU; sequential otherwise
         if self.num_threads > 1 and os.cpu_count() and os.cpu_count() > 1:
-            with ProcessPoolExecutor(max_workers=self.num_threads) as pool:
+            with ProcessPoolExecutor(
+                    max_workers=self.num_threads,
+                    mp_context=multiprocessing.get_context("spawn")) as pool:
                 futures = [
                     pool.submit(self.load_crop_save, case,
                                 get_case_identifier(case),
