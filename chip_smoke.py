@@ -7,6 +7,9 @@
                                    # up-link and the seg head (see host_only)
     python3 chip_smoke.py --trainer
                                    # only the build and the [trainer] phase
+    python3 chip_smoke.py --options
+                                   # only the build, [trainer]'s planned
+                                   # task and the [options] phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -133,7 +136,28 @@ Phases (any failure ends the run with a non-zero exit):
               augmentation on the C++ warp, no jax. Prints ms per step (CUDA
               events), the host's wait per batch in next(tr_gen), s per epoch,
               s per validation case (prediction, export), the peak memory
-  11. experiments  the experiment kernels (TPU kernels #11-#14) against
+  11. options the trainer's options at the bench width (48 base features,
+              16 classes, bf16, row masks at density 0.2, seed 0, the train
+              phase's batch of 2 x 128^3): SGD, Ranger and Adam 8 steps each
+              with gradient-growth mask updates (make_grad_step on the
+              step's batch) after steps 4 and 8. Per step launches equal
+              kernel_launches_per_train_step, a finite loss, dead rows zero
+              in the parameters and every optimizer buffer; per update the
+              gradient step's launches the same and the row counts held;
+              the loss falling; ms per step, ms per update and the peak
+              memory per optimizer. One step of each of the 12 losses of
+              LOSS_REGISTRY (the region losses on one-hot targets from the
+              labels): finite loss and gradient norm, launches as counted.
+              make_grad_step on 2 x 64^3 against the bf16 plain path and a
+              float32 plain run (the 1.25x rule) and its ms at 2 x 128^3.
+              cli/train.main for one epoch on [trainer]'s task with -tr
+              nnUNetTrainerV2_Ranger_lr3en4 --growth gradient --granularity
+              kernel (4 batches, an update every 2 steps; the fold's
+              validation, which [trainer] checks, left out): finite
+              losses, launches per step and per gradient step, alive
+              counts held, the 'latest' checkpoint's Ranger state loading
+              back equal to the bit. Prints the phase's seconds
+  12. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -157,7 +181,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  12. report  one JSON line with every kernel's launches, error, times and
+  13. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -1976,7 +2000,7 @@ class _TimedGen:
         self.gen.stop()
 
 
-def trainer_phase(ops, reset_counts, counts, smi):
+def trainer_phase(ops, reset_counts, counts, smi, then=None):
     """[trainer] the users' training path at the bench width: a seeded
     raw task that the port's plan CLI plans and preprocesses in a fresh
     process (plan_train_task: TRAIN_CASES, 16 classes; the plan asserted
@@ -1991,7 +2015,8 @@ def trainer_phase(ops, reset_counts, counts, smi):
     wait in next(tr_gen), each mask update (params and momentum zero where
     the masks are zero, every kernel's alive count held), the state -c
     loads against the 'latest' file, the epochs' seconds. Returns the
-    launches over the whole phase."""
+    launches over the whole phase; then(paths) runs on the planned task
+    before its folder is removed."""
     import os
     import tempfile
     import torch
@@ -2048,9 +2073,9 @@ def trainer_phase(ops, reset_counts, counts, smi):
             run["losses"].append(out[1]["loss"])
             return out
 
-        def update(state, death_rate, scores=None):
+        def update(state, death_rate, grads=None):
             alive = {n: float(m.sum()) for n, m in state.masks.items()}
-            out = update_fn(state, death_rate, scores)
+            out = update_fn(state, death_rate, grads)
             for n, m in out.masks.items():
                 check(float(m.sum()) == alive[n], f"[trainer] step "
                       f"{out.step}: {n} alive {float(m.sum())} != "
@@ -2199,8 +2224,303 @@ def trainer_phase(ops, reset_counts, counts, smi):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check("jax" not in sys.modules, "[trainer] jax was imported")
     total = counts()
+    if then is not None:
+        then(paths)
     tmp.cleanup()
     return total
+
+
+# the [options] phase: the trainer's optimizers, losses and gradient
+# growth at the bench width
+OPTION_STEPS = 8
+OPTION_UPDATE_EVERY = 4
+OPTIMIZERS = ("sgd", "ranger", "adam")
+
+
+def _opt_buffers(momentum):
+    """{field: {name: tensor}} of an optimizer state: SGD's momentum, or
+    every dict field of a RangerState / AdamState."""
+    if isinstance(momentum, dict):
+        return {"momentum": momentum}
+    return {f: v for f, v in zip(momentum._fields, momentum)
+            if isinstance(v, dict)}
+
+
+def options_phase(ops, counts, smi, paths):
+    """[options] the trainer's options on the card at the bench width
+    (training/train_bench_masks.build: 48 base features, 16 classes, bf16,
+    row masks at density 0.2, seed 0; the train phase's synthetic batch of
+    2 x 128^3): SGD, Ranger and Adam 8 steps each with a gradient-growth
+    mask update (make_grad_step on the step's batch) after steps 4 and 8
+    (Ranger's Lookahead fires at step 6); per step the launches equal
+    kernel_launches_per_train_step, a finite loss, dead rows zero in the
+    parameters and in every buffer of the optimizer's state; per update
+    the gradient step's launches the same count and the row counts held;
+    the loss falling; ms per step (CUDA events), ms per update and the peak
+    memory per optimizer. Then one step of each loss of LOSS_REGISTRY (the
+    region losses on one-hot targets made from the labels): a finite loss
+    and gradient norm, launches as counted. Then make_grad_step on 2 x
+    64^3 against the bf16 plain path and a float32 plain run (ERR_RATIO),
+    and its ms per call at 2 x 128^3. Then cli/train.main for one epoch on
+    [trainer]'s planned task (`paths`) with -tr
+    nnUNetTrainerV2_Ranger_lr3en4 --sparse True --growth gradient
+    --granularity kernel, 4 batches, an update every 2 steps (its fold's
+    validation, which [trainer] checks, left out): finite losses, launches
+    per step and per gradient step, the kernels' alive counts held, the
+    'latest' checkpoint's Ranger state loading back equal to the bit.
+    Prints the phase's seconds."""
+    import os
+    import torch
+    import torch.nn.functional as F
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.models.masks import broadcast_mask
+    from e2enet_tpu_torch.models.unetpp import (
+        ShiftUNetPlusPlus, kernel_launches_per_train_step)
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.ops.losses import LOSS_REGISTRY
+    from e2enet_tpu_torch.training import train_bench_masks as tbm
+    from e2enet_tpu_torch.training.train_state import (make_grad_step,
+                                                       make_train_step)
+    from e2enet_tpu_torch.training.trainer import Trainer
+    t_phase = time.perf_counter()
+
+    def d_counts(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    def rows_alive(masks):
+        return {n: int(m[:, 0].sum()) for n, m in masks.items()}
+
+    def assert_dead_zero(tag, st):
+        bufs = _opt_buffers(st.momentum)
+        for n, m in st.masks.items():
+            dead = (m == 0).float()
+            for what, t in [("param", st.params[n].detach())] + [
+                    (f, b[n]) for f, b in bufs.items()]:
+                check(bool((t * broadcast_mask(dead, t) == 0).all()),
+                      f"{tag}: {n} {what} nonzero where its mask is 0")
+
+    batch = want = None
+    for opt in OPTIMIZERS:
+        model, state, step_fn, update, weights = tbm.build(
+            "cuda", optimizer=opt, growth="gradient")
+        if want is None:
+            per = kernel_launches_per_train_step(model)
+            want = {k: per["forward"].get(k, 0) + per["backward"].get(k, 0)
+                    for k in ops}
+            batch = tbm.device_batches(np.random.RandomState(3), 1, 2,
+                                       PATCH, model.num_ds_outputs(), "cuda")
+        rows0 = rows_alive(state.masks)
+        log = dict(losses=[], ms=[], update_ms=[])
+
+        def step(st, data, targets, lr, opt=opt):
+            before = counts()
+            res = step_fn(st, data, targets, lr)
+            got = d_counts(before)
+            check(got == want, f"[options] {opt} step {st.step}: launches "
+                  f"{got} != {want}")
+            return res
+
+        def mask_update(st, death_rate, data, targets, opt=opt, log=log):
+            before = counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            st = update(st, death_rate, data, targets)
+            ev[1].record()
+            ev[1].synchronize()
+            log["update_ms"].append(ev[0].elapsed_time(ev[1]))
+            got = d_counts(before)
+            check(got == want, f"[options] {opt} update at step {st.step}: "
+                  f"the gradient step's launches {got} != {want}")
+            check(rows_alive(st.masks) == rows0, f"[options] {opt} update "
+                  f"at step {st.step} moved the row counts")
+            return st
+
+        def on_step(i, st, metrics, ms, updated, opt=opt, log=log):
+            loss = float(metrics["loss"])
+            check(np.isfinite(loss) and np.isfinite(float(
+                metrics["grad_norm"])), f"[options] {opt} step {i + 1}: "
+                f"loss {loss}")
+            assert_dead_zero(f"[options] {opt} step {i + 1}", st)
+            log["losses"].append(loss)
+            log["ms"].append(ms)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tbm.train(model, state, step, mask_update, batch, OPTION_STEPS,
+                  OPTION_STEPS, OPTION_UPDATE_EVERY, on_step=on_step)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses, ms = log["losses"], log["ms"][1:]
+        check(len(log["update_ms"]) == OPTION_STEPS // OPTION_UPDATE_EVERY,
+              f"[options] {opt}: {len(log['update_ms'])} mask updates")
+        check(losses[-1] < losses[0], f"[options] {opt}: the loss did not "
+              f"fall: {losses}")
+        if opt != "sgd":
+            check(state.momentum.step == OPTION_STEPS, f"[options] {opt}: "
+                  f"optimizer step {state.momentum.step}")
+        print(f"[options] {opt}: {OPTION_STEPS} steps, loss "
+              f"{losses[0]:.5f} -> {losses[-1]:.5f}; ms per step (CUDA "
+              f"events) {' '.join(f'{v:.1f}' for v in log['ms'])}, steps "
+              f"2..{OPTION_STEPS} mean {np.mean(ms):.1f}; gradient-growth "
+              f"updates (gradient step included) "
+              f"{' '.join(f'{v:.1f}' for v in log['update_ms'])} ms; peak "
+              f"memory allocated {peak:.2f} GiB  [{smi}]", flush=True)
+        if opt == "sgd":
+            keep = model, state, weights
+        del model, state, step_fn, update
+        torch.cuda.empty_cache()
+
+    # ---- one step of each loss
+    model, state, weights = keep
+    data, targets = batch[0]
+    onehot = tuple(F.one_hot(t, NUM_CLASSES).float() for t in targets)
+    for name in LOSS_REGISTRY:
+        region = name in ("dc_bce", "dice_regions")
+        fn = make_train_step(model, weights, loss_name=name)
+        before = counts()
+        state, m = fn(state, data, onehot if region else targets, 1e-3)
+        got = d_counts(before)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        check(got == want, f"[options] loss {name}: launches {got}")
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"[options] loss {name}: loss {loss}, gradient norm {gnorm}")
+        kind = " (one-hot region targets)" if region else ""
+        print(f"[options] loss {name}{kind}: one step, loss {loss:.5f}, "
+              f"gradient norm {gnorm:.4f}", flush=True)
+    del onehot
+
+    # ---- make_grad_step: kernels against the bf16 plain path and float32
+    grad_step = make_grad_step(model, weights)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    grad_step(data, targets)
+    ev[0].record()
+    for _ in range(3):
+        grad_step(data, targets)
+    ev[1].record()
+    ev[1].synchronize()
+    grad_ms = ev[0].elapsed_time(ev[1]) / 3
+    small, small_t = tbm.device_batches(np.random.RandomState(5), 1, 2,
+                                        GRAD_PATCH, model.num_ds_outputs(),
+                                        "cuda")[0]
+    names = [n for n, _ in model.named_parameters()]
+
+    def flat(g):
+        return torch.cat([g[n].float().flatten() for n in names])
+    before = counts()
+    g_k = flat(grad_step(small, small_t))
+    check(d_counts(before) == want, "[options] make_grad_step: launches "
+          f"{d_counts(before)} != {want}")
+    with blocks.plain_ops():
+        g_p = flat(grad_step(small, small_t))
+        model32 = ShiftUNetPlusPlus(1, tbm.NUM_CLASSES, tbm.POOLS,
+                                    compute_dtype=torch.float32,
+                                    device="cuda")
+        model32.load_state_dict(model.state_dict())
+        g_32 = flat(make_grad_step(model32, weights)(small, small_t))
+    del model32
+    e_k = float((g_k - g_32).norm() / g_32.norm())
+    e_p = float((g_p - g_32).norm() / g_32.norm())
+    print(f"[options] make_grad_step on 2 x 64^3 against a float32 plain "
+          f"run: kernel path rel L2 err {e_k:.4e}, bf16 plain path "
+          f"{e_p:.4e}; {grad_ms:.1f} ms per call at 2 x 128^3 (CUDA "
+          f"events, mean of 3)", flush=True)
+    check(e_k <= ERR_RATIO * e_p, "[options] make_grad_step: kernel-path "
+          "gradients further from the float32 run than the bf16 plain "
+          "path's")
+    del model, state, keep, batch, g_k, g_p, g_32
+    torch.cuda.empty_cache()
+
+    # ---- the train CLI with a Ranger preset and gradient growth
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    os.environ["RESULTS_FOLDER"] = paths["results"] + "_options"
+    run = {"losses": [], "grad_steps": 0, "updates": 0}
+    real_init, real_validate = Trainer.initialize, Trainer.validate
+
+    def init_spy(self, training=True):
+        real_init(self, training)
+        self.save_every = 1            # 'latest' at the epoch's end
+        step_fn, grad_fn = self.train_step, self._dsff_grad_step
+        update_fn = self.mask_update
+
+        def step(st, data, targets, lr, *extras):
+            before = counts()
+            res = step_fn(st, data, targets, lr, *extras)
+            check(d_counts(before) == want, f"[options] cli step "
+                  f"{st.step}: launches {d_counts(before)}")
+            run["losses"].append(res[1]["loss"])
+            return res
+
+        def grad(data, targets):
+            before = counts()
+            g = grad_fn(data, targets)
+            check(d_counts(before) == want, f"[options] cli gradient "
+                  f"step: launches {d_counts(before)}")
+            run["grad_steps"] += 1
+            return g
+
+        def update(st, death_rate, grads=None):
+            alive = {n: float(m.sum()) for n, m in st.masks.items()}
+            st = update_fn(st, death_rate, grads)
+            for n, m in st.masks.items():
+                check(float(m.sum()) == alive[n], f"[options] cli update: "
+                      f"{n} alive {float(m.sum())} != {alive[n]}")
+            assert_dead_zero("[options] cli update", st)
+            run["updates"] += 1
+            return st
+        self.train_step, self._dsff_grad_step = step, grad
+        self.mask_update = update
+
+    Trainer.initialize = init_spy
+    Trainer.validate = lambda self, *a, **k: None
+    t0 = time.perf_counter()
+    try:
+        tr = tcli.main(["--task", TRAIN_TASK, "--fold", "0", "--epochs",
+                        "1", "--batches", "4", "--val_batches", "1",
+                        "-tr", "nnUNetTrainerV2_Ranger_lr3en4", "--sparse",
+                        "True", "--growth", "gradient", "--granularity",
+                        "kernel", "--density", "0.2", "--update_frequency",
+                        "2"])
+    finally:
+        Trainer.initialize, Trainer.validate = real_init, real_validate
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in run["losses"]]
+    check(len(losses) == 4 and all(np.isfinite(losses + tr.all_tr_losses
+                                               + tr.all_val_losses)),
+          f"[options] cli: losses {losses}")
+    check(run["grad_steps"] == run["updates"] == 2, f"[options] cli: "
+          f"{run['grad_steps']} gradient steps, {run['updates']} updates")
+    st = tr.state
+    check(type(st.momentum).__name__ == "RangerState" and tr.optimizer
+          == "ranger" and tr.initial_lr == 3e-4, "[options] cli: not Ranger")
+    snap = {"params": {n: p.detach().cpu().clone()
+                       for n, p in st.params.items()},
+            "masks": {n: m.cpu().clone() for n, m in st.masks.items()},
+            **{f: {n: t.cpu().clone() for n, t in b.items()}
+               for f, b in _opt_buffers(st.momentum).items()}}
+    step, opt_step = st.step, st.momentum.step
+    tr.load_checkpoint_file("latest")
+    st = tr.state
+    check(st.step == step and st.momentum.step == opt_step == 4,
+          f"[options] cli: 'latest' at step {st.step}, Ranger step "
+          f"{st.momentum.step}")
+    loaded = {"params": {n: p.detach().cpu() for n, p in st.params.items()},
+              "masks": {n: m.cpu() for n, m in st.masks.items()},
+              **{f: {n: t.cpu() for n, t in b.items()}
+                 for f, b in _opt_buffers(st.momentum).items()}}
+    for what, tensors in snap.items():
+        for n, t in tensors.items():
+            check(torch.equal(loaded[what][n], t), f"[options] cli: "
+                  f"'latest' {what} {n} differs from the trained state")
+    print(f"[options] cli.train -tr nnUNetTrainerV2_Ranger_lr3en4 --growth "
+          f"gradient --granularity kernel: 4 steps, losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}, {run['updates']} "
+          f"gradient-growth updates, alive counts held; 'latest' loads back "
+          f"equal to the bit (params, masks, "
+          f"{', '.join(k for k in snap if k not in ('params', 'masks'))}); "
+          f"{wall:.1f} s", flush=True)
+    del tr, st, snap, loaded
+    torch.cuda.empty_cache()
+    print(f"[options] the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def bench_phase(smi):
@@ -2292,6 +2612,31 @@ def trainer_only() -> None:
     print(json.dumps({"trainer_launches": total}), flush=True)
 
 
+def options_only() -> None:
+    """--options: the build, [trainer]'s planned task and the [options]
+    phase alone (its launches printed as JSON)."""
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    for op in ops.values():
+        op.launches = 0
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as tmp:
+        paths = plan_train_task(tmp, smi)
+        options_phase(ops, lambda: {n: op.launches for n, op in ops.items()},
+                      smi, paths)
+    print(json.dumps({"options_launches": {n: op.launches
+                                           for n, op in ops.items()}}),
+          flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2301,6 +2646,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--trainer"]:
         trainer_only()
+        return
+    if sys.argv[1:] == ["--options"]:
+        options_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -2794,15 +3142,21 @@ def main() -> None:
           f"a path's up-link or seg head left the bulk route: {routes}")
     res.update(train["kernels"])
 
-    # ---- 10. trainer: the users' training path, train CLI to predict CLI
-    launches["trainer"] = trainer_phase(ops, reset_counts, counts, smi)
+    # ---- 10. trainer: the users' training path, train CLI to predict CLI;
+    # ---- 11. options: the trainer's options, on the task [trainer] planned
+    def options(paths):
+        reset_counts()
+        options_phase(ops, counts, smi, paths)
+        launches["options"] = counts()
+    launches["trainer"] = trainer_phase(ops, reset_counts, counts, smi,
+                                        then=options)
 
-    # ---- 11. experiments: the experiment kernels, then their mains
+    # ---- 12. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    # ---- 12. report
+    # ---- 13. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -2846,9 +3200,11 @@ def main() -> None:
           "volumes, the up-link's from the data-flip path's volume, the "
           "backward kernels' from the train path's steps, the experiment "
           "kernels' from the experiments' mains (launches_by_path: all "
-          "seven, 'predict' over the folder run A's two cases, 'trainer' "
+          "eight, 'predict' over the folder run A's two cases, 'trainer' "
           "over the [trainer] phase: train steps, validation batches, the "
-          "validations and the predict CLI)", flush=True)
+          "validations and the predict CLI; 'options' over the [options] "
+          "phase: train, gradient and loss steps, the CLI run's "
+          "validation batches)", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
     for name, (src, rep) in sources.items():

@@ -10,6 +10,7 @@ Usage:
   python -m e2enet_tpu_torch.cli.train --task 4 --fold 0 \
       --Tconv shiftConvPP --sparse True --density 0.2 \
       --update_frequency 1200 --epochs 1000 --batches 250 \
+      [-tr nnUNetTrainerV2_Ranger_lr3en4] [--growth gradient] \
       [--device cuda|cpu] [-c]
 
 Reads $nnUNet_preprocessed/<task>/ (the plans file, the stage folder,
@@ -20,9 +21,14 @@ $RESULTS_FOLDER/nnUNet/3d_fullres/<task>/TPUTrainer__<plans>/, in the JAX
 package's checkpoint format: either package continues the other's run and
 predicts with its folds. --device defaults to the card (`cuda`), which
 must be present; `--device cpu` trains the plain torch versions of every
-kernel. Refused, each naming the ROADMAP item that ports it: --network
-2d (Queue 1 item 3c), 3d_lowres and 3d_cascade_fullres (item 4e), a -tr
-other than TPUTrainer (item 4e), --num_devices above 1 and
+kernel. -tr names a preset of training/variants.py whose keys go to the
+trainer as the JAX CLI maps them (variant_kwargs): optimizers, learning
+rates and their schedules, momentum, losses, epochs, precision, batch
+dice. Refused, each naming the ROADMAP item that ports it: --network 2d
+(Queue 1 item 3c), 3d_lowres and 3d_cascade_fullres (item 4e), a preset
+that sets an augmentation level, the cascade, regions, the
+deep-supervision mode, per-epoch validation or export options (item 4e)
+or an architecture switch (item 6), --num_devices above 1 and
 --spatial_parallel (item 7), --device_augment (item 8), and the DSFF
 settings of item 4c. --fused, --no_fused and --remat choose between XLA
 programs of the JAX package and are rejected.
@@ -34,6 +40,7 @@ from ..inference.predictor import require_device
 from ..plans import Plans
 from ..training.dsff import DSFFConfig
 from ..training.trainer import Trainer
+from ..training.variants import resolve_variant
 from ..utils.files import isfile, join
 from ..utils.task_names import convert_id_to_task_name
 
@@ -42,8 +49,32 @@ NETWORK_ITEMS = {"2d": "ROADMAP Queue 1 item 3c (2D plans)",
                  "3d_cascade_fullres": "ROADMAP Queue 1 item 4e (cascade)"}
 
 
+# the preset keys that reach the trainer under their own names (reference
+# cli/train.py:159-168)
+PRESET_KEYS = ("max_num_epochs", "loss_name", "momentum", "initial_lr",
+               "da_level", "dummy_load", "fp16", "cascade", "optimizer",
+               "norm_op", "nonlin", "lr_schedule", "momentum_schedule",
+               "loss_kwargs", "loss_schedule", "num_conv_per_stage",
+               "seg_bias", "nonlin_before_norm", "batch_dice",
+               "base_num_features", "regions", "ds_mode", "validate_every",
+               "export_kwargs", "conv_kernel")
+
+
 def str2bool(v):
     return str(v).lower() in ("yes", "true", "t", "1")
+
+
+def variant_kwargs(name: str) -> dict:
+    """The trainer arguments of the -tr preset `name` as the JAX CLI maps
+    them (reference cli/train.py:156-173): its PRESET_KEYS as they are,
+    tconv, `da` as da_level and `loss` as loss_name."""
+    preset = resolve_variant(name)
+    kwargs = {k: v for k, v in preset.items() if k in PRESET_KEYS}
+    for key, arg in (("tconv", "tconv"), ("da", "da_level"),
+                     ("loss", "loss_name")):
+        if key in preset:
+            kwargs[arg] = preset[key]
+    return kwargs
 
 
 def get_default_configuration(network: str, task: str,
@@ -103,8 +134,7 @@ def main(args=None):
                         default="nnUNetPlansv2.1")
     parser.add_argument("-tr", "--trainer_variant", type=str,
                         default="TPUTrainer",
-                        help="only TPUTrainer is ported (ROADMAP Queue 1 "
-                             "item 4e)")
+                        help="a preset of training/variants.py")
     parser.add_argument("--num_devices", type=int, default=None,
                         help="only 1 is ported (ROADMAP Queue 1 item 7)")
     parser.add_argument("--spatial_parallel", type=int, default=1)
@@ -148,10 +178,7 @@ def main(args=None):
     if a.network in NETWORK_ITEMS:
         raise NotImplementedError(f"--network {a.network}: "
                                   f"{NETWORK_ITEMS[a.network]}")
-    if a.trainer_variant != "TPUTrainer":
-        raise NotImplementedError(
-            f"-tr {a.trainer_variant}: ROADMAP Queue 1 item 4e "
-            f"(training/variants.py)")
+    preset = variant_kwargs(a.trainer_variant)
 
     task = a.task
     if not task.startswith("Task"):
@@ -172,8 +199,7 @@ def main(args=None):
             final_prune_epoch=a.final_prune_epoch, multiplier=a.multiplier,
             granularity=a.granularity)
 
-    trainer = Trainer(
-        plans, fold, output_folder, dataset_directory=preproc_dir,
+    kwargs = dict(
         stage=stage, batch_dice=batch_dice, tconv=a.Tconv,
         max_num_epochs=a.epochs, num_batches_per_epoch=a.batches,
         num_val_batches_per_epoch=a.val_batches, fp16=not a.fp32,
@@ -181,6 +207,9 @@ def main(args=None):
         base_num_features=a.base_features, num_devices=a.num_devices,
         spatial_parallel=a.spatial_parallel,
         device_augment=a.device_augment, device=device)
+    kwargs.update(preset)
+    trainer = Trainer(plans, fold, output_folder,
+                      dataset_directory=preproc_dir, **kwargs)
     trainer.initialize(not a.validation_only)
 
     if not a.validation_only:

@@ -1,16 +1,19 @@
-"""Segmentation losses: soft Dice + cross-entropy with deep supervision and
-the online evaluation's hard counts, the `dc_ce` subset of
-e2enet_tpu/ops/losses.py with hard_tp_fp_fn (reference
-e2enet/training/loss_functions/dice_loss.py get_tp_fp_fn_tn, SoftDiceLoss,
-DC_and_CE_loss; crossentropy.py RobustCrossEntropyLoss;
+"""Segmentation losses with deep supervision and the online evaluation's
+hard counts: the port of e2enet_tpu/ops/losses.py, every loss of its
+LOSS_REGISTRY (reference e2enet/training/loss_functions/dice_loss.py
+get_tp_fp_fn_tn, SoftDiceLoss, GDL, SoftDiceLossSquared, DC_and_CE_loss,
+DC_and_BCE_loss, GDL_and_CE_loss, DC_and_topk_loss, MCCLoss;
+crossentropy.py RobustCrossEntropyLoss; TopK_loss.py; focal_loss.py;
 deep_supervision.py MultipleOutputLoss2; nnUNetTrainer_simple.
 run_online_evaluation).
 
 Layout: logits (N, D, H, W, C), float32 as the heads return them; targets
-(N, D, H, W) integer labels. All loss math in float32.
+(N, D, H, W) integer labels, or (N, D, H, W, R) 0/1 region channels for
+dc_bce and dice_regions. All loss math in float32.
 """
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -85,18 +88,203 @@ def dc_and_ce_loss(logits: torch.Tensor, target: torch.Tensor,
     return weight_ce * ce + weight_dice * dc
 
 
+def topk_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
+                       k_percent: float = 10.0) -> torch.Tensor:
+    """The mean cross-entropy of the k% voxels of highest cross-entropy
+    (reference losses.py:99-108)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, target.long()[..., None])[..., 0].reshape(-1)
+    num = int(nll.shape[0] * k_percent / 100.0)
+    return torch.topk(nll, max(num, 1), sorted=False).values.mean()
+
+
+# the losses that take the batch-dice flag (reference losses.py:116-118)
+_TAKES_BATCH_DICE = ("dc_ce", "dice", "dice_squared", "gdl", "gdl_ce",
+                     "dc_topk", "dc_bce", "dice_regions")
+
+
+def make_loss(name: str, batch_dice: bool = True, **loss_kwargs):
+    """fn(logits, target) of the loss registered as `name`, with the
+    batch-dice flag where it takes one and loss_kwargs (e.g. smooth=0, or
+    weight_ce / weight_dice) forwarded (reference losses.py:111-124)."""
+    fn = LOSS_REGISTRY[name]
+    if name in _TAKES_BATCH_DICE:
+        return lambda o, t: fn(o, t, batch_dice=batch_dice, **loss_kwargs)
+    if loss_kwargs:
+        return lambda o, t: fn(o, t, **loss_kwargs)
+    return fn
+
+
 def deep_supervision_loss(outputs: Sequence[torch.Tensor],
                           targets: Sequence[torch.Tensor],
                           weights: Sequence[float],
-                          batch_dice: bool = True) -> torch.Tensor:
-    """Weighted sum of dc_and_ce_loss over the deep-supervision heads,
-    zero-weight heads skipped (reference losses.py:127-140)."""
+                          batch_dice: bool = True,
+                          loss_name: str = "dc_ce",
+                          loss_kwargs=None) -> torch.Tensor:
+    """Weighted sum of the loss `loss_name` over the deep-supervision
+    heads, zero-weight heads skipped (reference losses.py:127-140)."""
+    loss_fn = make_loss(loss_name, batch_dice, **(loss_kwargs or {}))
     total = torch.zeros((), dtype=torch.float32, device=outputs[0].device)
     for o, t, w in zip(outputs, targets, weights):
         if float(w) == 0.0:
             continue
-        total = total + float(w) * dc_and_ce_loss(o, t, batch_dice=batch_dice)
+        total = total + float(w) * loss_fn(o, t)
     return total
+
+
+def generalized_dice_loss(logits: torch.Tensor, target: torch.Tensor,
+                          batch_dice: bool = False, do_bg: bool = True,
+                          smooth: float = 1.0,
+                          square_volumes: bool = False) -> torch.Tensor:
+    """GDL: per-class tp, fp, fn weighted by 1 / volume and summed over the
+    classes before the Dice ratio (reference losses.py:144-169)."""
+    probs = softmax_helper(logits.float())
+    y = one_hot(target, probs.shape[-1])
+    if not do_bg:
+        probs, y = probs[..., 1:], y[..., 1:]
+    axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
+    tp = (probs * y).sum(dim=axes)
+    fp = (probs * (1.0 - y)).sum(dim=axes)
+    fn = ((1.0 - probs) * y).sum(dim=axes)
+    volumes = y.sum(dim=axes) + 1e-6
+    if square_volumes:
+        volumes = volumes ** 2
+    tp, fp, fn = tp / volumes, fp / volumes, fn / volumes
+    axis = 0 if batch_dice else 1
+    tp, fp, fn = tp.sum(dim=axis), fp.sum(dim=axis), fn.sum(dim=axis)
+    dc = (2 * tp + smooth) / (2 * tp + fp + fn + smooth)
+    return -dc.mean()
+
+
+def soft_dice_loss_squared(logits: torch.Tensor, target: torch.Tensor,
+                           batch_dice: bool = False, do_bg: bool = True,
+                           smooth: float = 1.0) -> torch.Tensor:
+    """Soft Dice with probs^2 + onehot^2 in the denominator (reference
+    losses.py:172-186)."""
+    probs = softmax_helper(logits.float())
+    y = one_hot(target, probs.shape[-1])
+    axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
+    intersect = (probs * y).sum(dim=axes) + smooth
+    denominator = (probs ** 2 + y ** 2).sum(dim=axes) + smooth
+    dc = 2 * intersect / denominator
+    if not do_bg:
+        dc = dc[1:] if batch_dice else dc[:, 1:]
+    return -dc.mean()
+
+
+def _sigmoid_dice(probs: torch.Tensor, t: torch.Tensor, batch_dice: bool,
+                  smooth: float) -> torch.Tensor:
+    """The soft Dice per region channel of sigmoid probabilities against
+    0/1 targets."""
+    axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
+    tp = (probs * t).sum(dim=axes)
+    fp = (probs * (1 - t)).sum(dim=axes)
+    fn = ((1 - probs) * t).sum(dim=axes)
+    return (2 * tp + smooth) / (2 * tp + fp + fn + smooth + 1e-8)
+
+
+def dc_and_bce_loss(logits: torch.Tensor, target_onehot: torch.Tensor,
+                    batch_dice: bool = False,
+                    smooth: float = 1.0) -> torch.Tensor:
+    """Binary cross-entropy plus sigmoid soft Dice over region channels
+    (reference losses.py:189-203); target_onehot (..., R) 0/1."""
+    logits = logits.float()
+    t = target_onehot.float()
+    bce = (logits.clamp_min(0) - logits * t
+           + torch.log1p(torch.exp(-logits.abs()))).mean()
+    dc = _sigmoid_dice(torch.sigmoid(logits), t, batch_dice, smooth)
+    return bce - dc.mean()
+
+
+def gdl_and_ce_loss(logits, target, **gdl_kwargs):
+    """GDL plus cross-entropy (reference losses.py:206-209)."""
+    return (generalized_dice_loss(logits, target, **gdl_kwargs)
+            + robust_cross_entropy(logits, target))
+
+
+def dc_and_topk_loss(logits, target, batch_dice: bool = True,
+                     k_percent: float = 10.0, smooth: float = 1e-5):
+    """Soft Dice plus the top-k cross-entropy (reference
+    losses.py:212-217)."""
+    return (soft_dice_loss(logits, target, batch_dice=batch_dice,
+                           do_bg=False, smooth=smooth)
+            + topk_cross_entropy(logits, target, k_percent))
+
+
+def focal_loss(logits: torch.Tensor, target: torch.Tensor,
+               gamma: float = 2.0, alpha: float = 0.25,
+               smooth: float = 1e-5) -> torch.Tensor:
+    """Per-voxel cross-entropy scaled by alpha_t (1 - p_t)^gamma, p_t
+    clipped to [smooth, 1 - smooth], alpha for class 0 and 1 - alpha for
+    the rest (reference losses.py:220-236)."""
+    logits = logits.float()
+    num_classes = logits.shape[-1]
+    probs = softmax_helper(logits).reshape(-1, num_classes)
+    t = target.reshape(-1).long()
+    pt = probs.gather(-1, t[:, None])[:, 0]
+    if smooth:
+        pt = pt.clamp(smooth, 1.0 - smooth)
+    alpha_t = torch.where(t == 0, torch.full_like(pt, alpha),
+                          torch.full_like(pt, 1.0 - alpha))
+    return (-alpha_t * torch.pow(1.0 - pt, gamma) * torch.log(pt)).mean()
+
+
+def mcc_loss(logits: torch.Tensor, target: torch.Tensor,
+             batch_dice: bool = True, do_bg: bool = True,
+             smooth: float = 0.0,
+             loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Minus the mean Matthews correlation coefficient of the soft counts,
+    normalised by the voxels per sample (reference losses.py:239-263).
+    Where a class is absent from the targets the gradient is finite (the
+    reference's is NaN)."""
+    probs = softmax_helper(logits.float())
+    voxels = float(np.prod(logits.shape[1:-1]))
+    tp, fp, fn = get_tp_fp_fn_tn(probs, target, batch_dice, loss_mask)
+    if loss_mask is None:
+        total = voxels * (logits.shape[0] if batch_dice else 1)
+    else:
+        axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
+        total = loss_mask.float().sum(dim=axes)[..., None]
+    tn = total - tp - fp - fn
+    tp, fp, fn, tn = (v / voxels for v in (tp, fp, fn, tn))
+    nominator = tp * tn - fp * fn + smooth
+    # sqrt's derivative is infinite at 0, where a class is absent from the
+    # targets: the reference's gradient is NaN there, this one that of the
+    # zero held constant (the values are the reference's)
+    prod = (tp + fp) * (tp + fn) * (tn + fp) * (tn + fn)
+    pos = prod > 0
+    denominator = torch.where(pos, prod, torch.ones_like(prod)).sqrt() \
+        * pos + smooth
+    mcc = nominator / (denominator + 1e-8)
+    if not do_bg:
+        mcc = mcc[1:] if batch_dice else mcc[:, 1:]
+    return -mcc.mean()
+
+
+def soft_dice_regions(logits: torch.Tensor, target_onehot: torch.Tensor,
+                      batch_dice: bool = False,
+                      smooth: float = 0.0) -> torch.Tensor:
+    """Sigmoid soft Dice over region channels, background included
+    (reference losses.py:266-279); target_onehot (..., R) 0/1."""
+    probs = torch.sigmoid(logits.float())
+    return -_sigmoid_dice(probs, target_onehot.float(), batch_dice,
+                          smooth).mean()
+
+
+LOSS_REGISTRY = {
+    "dc_ce": dc_and_ce_loss,
+    "mcc": mcc_loss,
+    "dice": soft_dice_loss,
+    "dice_squared": soft_dice_loss_squared,
+    "gdl": generalized_dice_loss,
+    "gdl_ce": gdl_and_ce_loss,
+    "dc_topk": dc_and_topk_loss,
+    "topk": topk_cross_entropy,
+    "ce": robust_cross_entropy,
+    "focal": focal_loss,
+    "dc_bce": dc_and_bce_loss,
+    "dice_regions": soft_dice_regions,
+}
 
 
 def hard_tp_fp_fn(logits: torch.Tensor, target: torch.Tensor):

@@ -5,15 +5,25 @@ The format (e2enet_tpu/training/checkpoint.py:30-80): `{Tconv}_model_
 
   {"epoch": int,
    "state": {"params": nested dicts of numpy arrays (the flax tree),
-             "momentum": the optimizer's tree, same layout,
+             "momentum": SGD's momentum tree, same layout, or the
+                         optimizer's state: a RangerState or AdamState of
+                         such trees and an int32 step,
              "masks": {'|'-joined flax path: (in, out) array} or None,
              "rng": numpy array, "step": int},
    "metadata": dict}
 
 with a `.pkl` sidecar {init, name, class, plans} beside it. Nothing in it
 needs jax to unpickle as long as the writer stored numpy and Python
-objects. load_checkpoint refuses a payload that holds anything of jax,
-flax or e2enet_tpu and names the key, instead of importing them.
+objects, but for Ranger's and Adam's states, which the pickle names by the
+JAX package's classes (e2enet_tpu.training.ranger.RangerState,
+e2enet_tpu.training.train_state.AdamState, NamedTuples). The port reads
+those two names as its own NamedTuples of the same fields in the same
+order (training/ranger.RangerState, training/train_state.AdamState)
+without importing anything, and writes its own under the JAX names
+through pickle's Python pickler (the C pickler imports a class's module
+to check it), so that either package loads the other's file.
+load_checkpoint refuses a payload that holds anything else of jax, flax
+or e2enet_tpu and names the key, instead of importing them.
 
 load_checkpoint returns the trees as numpy and the masks as a dict; the
 model's weights come from params through models/weights.from_jax_params.
@@ -22,14 +32,15 @@ through models/weights.to_jax_params), which the JAX package loads.
 
 A trainer's whole state (training/train_state.TrainState; reference
 state_to_numpy :30, save_checkpoint :60) goes through state_to_numpy and
-save_train_state: params and momentum in the flax layout by the same
-mapping (to_jax_params, transposes included), the masks by '|'-joined
-flax path, the step, and the reference's uint32[2] PRNG key. The port's
-own draws come from a torch.Generator: its state goes into the metadata
-under GENERATOR_KEY as a uint8 array, which the JAX loader ignores (a JAX
-trainer's save does not keep it; the port then seeds its generator from
-the key). load_train_state puts a checkpoint of either package back into
-a TrainState in place, the masks checked against the model.
+save_train_state: params and the optimizer's buffers in the flax layout
+by the same mapping (to_jax_params, transposes included), the masks by
+'|'-joined flax path, the step, and the reference's uint32[2] PRNG key.
+The port's own draws come from a torch.Generator: its state goes into the
+metadata under GENERATOR_KEY as a uint8 array, which the JAX loader
+ignores (a JAX trainer's save does not keep it; the port then seeds its
+generator from the key). load_train_state puts a checkpoint of either
+package back into a TrainState in place, the masks checked against the
+model.
 """
 import os
 import pickle
@@ -42,10 +53,18 @@ import torch
 from ..models.masks import masks_for_model
 from ..models.weights import from_jax_params, to_jax_params
 from ..utils.files import save_pickle
+from .ranger import RangerState
+from .train_state import AdamState
 
 GENERATOR_KEY = "torch_generator_state"
 
 _REFUSED_MODULES = ("jax", "jaxlib", "flax", "e2enet_tpu")
+# the JAX package's optimizer states, by the (module, name) its pickles
+# give them, and the port's NamedTuples of the same fields
+_JAX_OPT_STATES = {
+    ("e2enet_tpu.training.ranger", "RangerState"): RangerState,
+    ("e2enet_tpu.training.train_state", "AdamState"): AdamState}
+_JAX_NAME_OF = {cls: key for key, cls in _JAX_OPT_STATES.items()}
 
 
 class _Refused:
@@ -66,10 +85,26 @@ class _Refused:
 
 class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
+        if (module, name) in _JAX_OPT_STATES:
+            return _JAX_OPT_STATES[module, name]
         if module.split(".")[0] in _REFUSED_MODULES:
             return type("Refused", (_Refused,),
                         {"qualname": f"{module}.{name}"})
         return super().find_class(module, name)
+
+
+class _Pickler(pickle._Pickler):
+    """pickle's Python pickler, writing the port's optimizer states under
+    the JAX package's class names, without importing that package."""
+
+    def save_global(self, obj, name=None):
+        key = _JAX_NAME_OF.get(obj)
+        if key is None:
+            return super().save_global(obj, name)
+        self.save(key[0])
+        self.save(key[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
 
 
 def _find_refused(tree, path=()):
@@ -107,9 +142,11 @@ def _read_payload(path: str) -> Dict[str, Any]:
 
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, Any], int, dict]:
-    """(state, epoch, metadata) of a checkpoint: state holds "params" and
-    "momentum" as nested dicts of numpy arrays, "masks" as {'|'-joined
-    flax path: (in, out) float32 array} or None, "rng" and "step"."""
+    """(state, epoch, metadata) of a checkpoint: state holds "params" as
+    nested dicts of numpy arrays, "momentum" as such a tree (SGD's) or a
+    RangerState / AdamState of such trees and a numpy step, "masks" as
+    {'|'-joined flax path: (in, out) float32 array} or None, "rng" and
+    "step"."""
     payload = _read_payload(path)
     d = payload["state"]
     masks = d.get("masks")
@@ -117,7 +154,7 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], int, dict]:
         masks = {str(k): np.asarray(v, np.float32) for k, v in masks.items()}
     state = {
         "params": _to_numpy(d["params"]),
-        "momentum": _to_numpy(d.get("momentum")),
+        "momentum": _opt_to_numpy(d.get("momentum")),
         "masks": masks,
         "rng": np.asarray(d["rng"]) if d.get("rng") is not None else None,
         "step": int(d.get("step", 0)),
@@ -130,8 +167,9 @@ def save_checkpoint(path: str, params, epoch: int, masks=None,
                     metadata: Optional[dict] = None,
                     sidecar: Optional[dict] = None) -> None:
     """Write the JAX package's checkpoint from numpy trees: params (and
-    momentum, zeros of params' shapes when None) as nested dicts in the
-    flax layout, masks as {'|'-joined flax path: (in, out)} or None, rng a
+    momentum, zeros of params' shapes when None; or a RangerState /
+    AdamState of such trees and a step) as nested dicts in the flax
+    layout, masks as {'|'-joined flax path: (in, out)} or None, rng a
     uint32 key array (that of PRNGKey(0) when None)."""
     params = _to_numpy(params)
     if momentum is None:
@@ -142,14 +180,14 @@ def save_checkpoint(path: str, params, epoch: int, masks=None,
         masks = {str(k): np.asarray(v) for k, v in masks.items()}
     payload = {
         "epoch": epoch,
-        "state": {"params": params, "momentum": _to_numpy(momentum),
+        "state": {"params": params, "momentum": _opt_to_numpy(momentum),
                   "masks": masks, "rng": np.asarray(rng),
                   "step": int(step)},
         "metadata": metadata or {},
     }
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        pickle.dump(payload, f, protocol=4)
+        _Pickler(f, protocol=4).dump(payload)
     os.replace(tmp, path)
     if sidecar is not None:
         save_pickle(sidecar, path + ".pkl")
@@ -167,6 +205,24 @@ def _to_numpy(tree):
     return _map(np.asarray, tree)
 
 
+def _map_opt(fn, opt):
+    """fn of SGD's momentum tree, or a RangerState / AdamState with fn of
+    each of its trees and its step an int32 scalar array, as the JAX
+    package stores them."""
+    if not isinstance(opt, tuple):
+        return fn(opt)
+    return type(opt)(*(np.asarray(v, np.int32) if f == "step" else fn(v)
+                       for f, v in zip(opt._fields, opt)))
+
+
+def _opt_to_numpy(opt):
+    return _map_opt(_to_numpy, opt)
+
+
+def _opt_kind(opt) -> str:
+    return type(opt).__name__ if isinstance(opt, tuple) else "SGD momentum"
+
+
 def state_to_numpy(state) -> Dict[str, Any]:
     """A TrainState as the JAX package stores one (reference
     state_to_numpy, checkpoint.py:30-42): params and momentum as the flax
@@ -179,7 +235,7 @@ def state_to_numpy(state) -> Dict[str, Any]:
     rng = (np.zeros(2, np.uint32) if state.rng is None
            else np.asarray(state.rng, np.uint32))
     return {"params": to_jax_params(state.params),
-            "momentum": to_jax_params(state.momentum),
+            "momentum": _map_opt(to_jax_params, state.momentum),
             "masks": masks, "rng": rng, "step": int(state.step)}
 
 
@@ -200,19 +256,31 @@ def save_train_state(path: str, state, epoch: int,
 def load_train_state(path: str, state, model) -> Tuple[int, dict]:
     """Load a checkpoint of either package into `state` (and `model`,
     whose parameters state.params are) in place: the parameters, the
-    momentum, the masks (refused unless they fit the model; None stays
+    optimizer's state (refused unless it is of the state's optimizer), the
+    masks (refused unless they fit the model; None stays
     None), the step and the rng key; the generator from the metadata's
     GENERATOR_KEY, or seeded from the key where a JAX run wrote it.
     Returns (epoch, metadata)."""
     d, epoch, metadata = load_checkpoint(path)
     model.load_state_dict(from_jax_params(d["params"]), strict=True)
-    momentum = from_jax_params(d["momentum"])
-    if set(momentum) != set(state.momentum):
-        raise ValueError(f"{path}: the momentum's leaves are not the "
-                         f"model's parameters")
-    with torch.no_grad():
-        for name, buf in state.momentum.items():
-            buf.copy_(momentum[name])
+    opt = d["momentum"]
+    if _opt_kind(opt) != _opt_kind(state.momentum):
+        raise ValueError(f"{path}: the optimizer state is a "
+                         f"{_opt_kind(opt)}, this trainer's optimizer keeps "
+                         f"a {_opt_kind(state.momentum)}")
+    pairs = ([(opt, state.momentum)] if not isinstance(opt, tuple) else
+             [(a, b) for f, a, b in zip(opt._fields, opt, state.momentum)
+              if f != "step"])
+    for tree, bufs in pairs:
+        got = from_jax_params(tree)
+        if set(got) != set(bufs):
+            raise ValueError(f"{path}: the optimizer state's leaves are "
+                             f"not the model's parameters")
+        with torch.no_grad():
+            for name, buf in bufs.items():
+                buf.copy_(got[name])
+    if isinstance(opt, tuple):
+        state.momentum = state.momentum._replace(step=int(opt.step))
     state.masks = None
     if d["masks"] is not None:
         dev = next(iter(state.params.values())).device

@@ -1,8 +1,8 @@
 """Dynamic Sparse Feature Fusion (DSFF): the training subset of
 e2enet_tpu/training/dsff.py that the port's trainers take, at kernel
 granularity (the reference engine, core_channel.py: init_masks,
-kernel_death_survive, _layer_death_growth with random growth) and at row
-granularity (init_masks_row, _layer_death_growth_row), with
+kernel_death_survive, _layer_death_growth with random or gradient growth)
+and at row granularity (init_masks_row, _layer_death_growth_row), with
 death_growth_update, cosine_death_rate, mask_granularity, update_fired,
 fired_ratio and DSFFConfig.
 
@@ -11,13 +11,15 @@ port's parameter names: one entry per (input, output) kernel pair of a
 fusion conv ("loc") or nest transposed conv ("up"); a row mask has
 constant rows (one input channel alive or dead for every output). Which
 kernels carry one, applying them and the density (masks_density) are
-models/masks.py's. Random draws come from an explicit torch.Generator (on
-the CPU); the growth takes its scores as an argument where a test feeds
-the reference's draw.
+models/masks.py's. Random growth draws its scores from an explicit
+torch.Generator (on the CPU), or takes them as an argument where a test
+feeds the reference's draw; gradient growth scores each dead kernel pair
+(or row) by the L1 of the loss's gradient over it (kernel_grad_growth,
+core_channel.py:771-790).
 
 Not ported (ROADMAP Queue 1 item 4c; each raises, naming it): element
 granularity and its inits, GMP, lottery ticket, GraSP, the global prune
-and its grow schedule, gradient growth.
+and its grow schedule.
 """
 import math
 from dataclasses import dataclass
@@ -89,12 +91,12 @@ def layer_death_growth_row(w: torch.Tensor, mask: torch.Tensor,
                            generator: Optional[torch.Generator] = None,
                            scores: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, int]:
-    """One kernel's row death and random regrowth (reference
-    dsff.py:415-452): kill the ceil(death_rate * alive) alive rows of
-    smallest L1 (ties can kill more), then revive as many dead rows, those
-    of the highest scores (uniform draws from `generator`, or `scores`
-    (in,); _grow_top). Returns (new mask (in, out), kernel pairs
-    killed)."""
+    """One kernel's row death and regrowth (reference dsff.py:415-452):
+    kill the ceil(death_rate * alive) alive rows of smallest L1 (ties can
+    kill more), then revive as many dead rows, those of the highest scores
+    (uniform draws from `generator`, or `scores` (in,): the reference's
+    draws, or the gradient's row L1 for gradient growth; _grow_top).
+    Returns (new mask (in, out), kernel pairs killed)."""
     cin, cout = mask.shape
     rows = mask[:, 0].float()
     l1 = _row_l1(w) * rows
@@ -181,11 +183,13 @@ def layer_death_growth(w: torch.Tensor, mask: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
                        scores: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, int]:
-    """One kernel's death and random regrowth at kernel granularity
-    (reference dsff.py:273-302, kernel_growth of core_channel.py:721-739):
-    kernel_death_survive, then revive as many dead pairs, those of the
-    highest scores (uniform draws (in, out) from `generator`, or
-    `scores`; _grow_top). Returns (new mask (in, out), pairs killed)."""
+    """One kernel's death and regrowth at kernel granularity (reference
+    dsff.py:273-302, kernel_growth / kernel_grad_growth of
+    core_channel.py:721-790): kernel_death_survive, then revive as many
+    dead pairs, those of the highest scores (uniform draws (in, out) from
+    `generator`, or `scores`: the reference's draws, or the gradient's L1
+    per pair for gradient growth; _grow_top). Returns (new mask (in, out),
+    pairs killed)."""
     cin, cout = mask.shape
     survived, num_death = kernel_death_survive(w, mask, death_rate)
     dead = 1.0 - survived
@@ -208,19 +212,39 @@ def mask_granularity(masks: Dict[str, torch.Tensor], model: nn.Module) -> str:
     return kinds.pop() if kinds else "kernel"
 
 
+def gradient_scores(grads: Dict[str, torch.Tensor], granularity: str
+                    ) -> Dict[str, torch.Tensor]:
+    """Gradient growth's score of every masked kernel by name: the L1 of
+    |grad| per (in, out) kernel pair over the spatial taps ("kernel"), or
+    per input row over the taps and the outputs ("row"); reference
+    dsff.py:278-280, :435-437."""
+    l1 = {"row": _row_l1, "kernel": _kernel_l1}[granularity]
+    return {n: l1(g) for n, g in grads.items()}
+
+
 def death_growth_update(model: nn.Module, masks: Dict[str, torch.Tensor],
                         death_rate: float,
                         generator: Optional[torch.Generator] = None,
                         scores: Optional[Dict[str, torch.Tensor]] = None,
-                        granularity: str = "row"):
-    """truncate_weights with random growth (reference dsff.py:318-345):
-    every masked kernel's death and growth in the reference's order, at
-    granularity "row" or "kernel" ("element" raises). Returns (new masks,
-    {"total_death": kernel pairs killed})."""
+                        granularity: str = "row", growth: str = "random",
+                        grads: Optional[Dict[str, torch.Tensor]] = None):
+    """truncate_weights (reference dsff.py:318-345): every masked kernel's
+    death and growth in the reference's order, at granularity "row" or
+    "kernel" ("element" raises). growth "random" revives dead entries by
+    uniform draws from `generator` (or `scores`); "gradient" by the
+    gradients' L1 (gradient_scores of `grads`, {name: gradient} of at
+    least every masked kernel). Returns (new masks, {"total_death": kernel
+    pairs killed})."""
     fns = {"row": layer_death_growth_row, "kernel": layer_death_growth}
     if granularity not in fns:
         raise NotImplementedError(f"{granularity!r} granularity: "
                                   f"{NOT_PORTED_ITEM}")
+    if growth == "gradient":
+        if grads is None:
+            raise ValueError("gradient growth needs the gradients")
+        scores = gradient_scores({n: grads[n] for n in masks}, granularity)
+    elif growth != "random":
+        raise NotImplementedError(f"--growth {growth}: {NOT_PORTED_ITEM}")
     params = masked_params(model)
     new, total = {}, 0
     for name in _sorted_names(masks):
@@ -256,9 +280,9 @@ def fired_ratio(fired: Dict[str, torch.Tensor]) -> float:
 class DSFFConfig:
     """The DSFF flags (reference DSFFConfig, dsff.py:630-658; add_sparse_args
     of core_channel.py:17-31). The port trains prune_mode 'local' with
-    random growth at kernel granularity ('auto' on kernel masks) or row
-    granularity; the rest raises in the trainer, naming ROADMAP Queue 1
-    item 4c."""
+    random or gradient growth at kernel granularity ('auto' on kernel
+    masks) or row granularity; the rest raises in the trainer, naming
+    ROADMAP Queue 1 item 4c."""
     sparse: bool = True
     sparse_init: str = "uniform"
     growth: str = "random"
@@ -288,7 +312,7 @@ class DSFFConfig:
                            f"{self.sparse_init}")
         if self.prune_mode != "local":
             refused.append(f"--prune_mode {self.prune_mode}")
-        if self.growth != "random":
+        if self.growth not in ("random", "gradient"):
             refused.append(f"--growth {self.growth}")
         if refused:
             raise NotImplementedError(f"{', '.join(refused)}: "

@@ -1,30 +1,33 @@
-"""The train state, the train step and the eval step, SGD only: the port of
-e2enet_tpu/training/train_state.py (TrainState, create_train_state,
-global_norm, clip_by_global_norm, sgd_nesterov_update, mask_opt_state,
-make_train_step, make_eval_step, make_mask_update_step).
+"""The train state, the train and eval steps and the DSFF steps: the port
+of e2enet_tpu/training/train_state.py (TrainState, create_train_state,
+global_norm, clip_by_global_norm, sgd_nesterov_update, AdamState,
+adam_init, adam_update, mask_opt_state, make_train_step, make_eval_step,
+make_mask_update_step, make_grad_step), with Ranger from ranger.py.
 
 One step is the reference trainer's inner loop (nnUNetTrainer_simple.
-run_iteration): forward with deep supervision, DC+CE loss (batch dice or
-per-sample dice), backward, gradient clipping at global norm 12, SGD with
-nesterov momentum 0.99 and weight decay 3e-5 (torch.optim.SGD semantics:
-decay added to the gradient, b = m b + g, update g + m b), then the DSFF
-masks re-applied to the parameters and the momentum. The eval step is the
-validation iteration: the loss and the hard tp/fp/fn of the full-resolution
-head (run_online_evaluation), without a gradient.
+run_iteration): forward with deep supervision, the configured loss (DC+CE
+by default; batch dice or per-sample dice), backward, gradient clipping at
+global norm 12, the optimizer, then the DSFF masks re-applied to the
+parameters and to every buffer of the optimizer's state. The optimizers:
+SGD with nesterov momentum 0.99 (torch.optim.SGD semantics: decay added
+to the gradient, b = m b + g, update g + m b), Ranger (the
+nnUNetTrainerV2_Ranger_* variants) and Adam with amsgrad (the
+nnUNetTrainerV2_Adam* variants), each with weight decay 3e-5 as the
+reference's step passes it. The eval step is the validation iteration:
+the loss and the hard tp/fp/fn of the full-resolution head
+(run_online_evaluation), without a gradient. The grad step is the plain
+gradient of the deep-supervision loss that gradient-fed DSFF growth reads.
 
-The parameters live in the model (float32); the momentum is a dict of
-tensors by parameter name. Both are updated in place, which keeps one copy
-of each on the card; the returned state holds the same tensors. Gradients
-are the full gradients, dead kernels included (the masks are applied after
-the update), as the reference's. Every result stays on the device: nothing
-here waits for the card.
-
-Not ported (ROADMAP Queue 1 item 4b): Ranger and Adam, the other losses,
-dynamic loss weights and momentum (the trainer refuses each, naming the
-item), and make_grad_step (gradient-fed DSFF updates), which raises.
+The parameters live in the model (float32); the optimizer's state is a
+dict of tensors by parameter name (SGD's momentum) or a RangerState /
+AdamState of such dicts and a step count. Both are updated in place,
+which keeps one copy of each on the card; the returned state holds the
+same tensors. Gradients are the full gradients, dead kernels included
+(the masks are applied after the update), as the reference's. Every
+result stays on the device: nothing here waits for the card.
 """
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 
@@ -34,17 +37,19 @@ from torch import nn
 from ..models.masks import apply_masks_to
 from ..ops.losses import deep_supervision_loss, hard_tp_fp_fn
 from . import dsff
+from .ranger import RangerState, ranger_init, ranger_update
 
 GRAD_CLIP_NORM = 12.0
 MOMENTUM = 0.99
 WEIGHT_DECAY = 3e-5
-NOT_PORTED_ITEM = "ROADMAP Queue 1 item 4b (train_state, the rest)"
+OPTIMIZERS = ("sgd", "ranger", "adam")
 
 
 @dataclass
 class TrainState:
     params: Dict[str, nn.Parameter]       # the model's, by name
-    momentum: Dict[str, torch.Tensor]
+    # SGD's momentum by name, or a RangerState / AdamState
+    momentum: Union[Dict[str, torch.Tensor], RangerState, "AdamState"]
     masks: Optional[Dict[str, torch.Tensor]]   # (in, out) per masked kernel
     generator: torch.Generator            # the mask updates' draws (CPU)
     step: int = 0
@@ -53,14 +58,22 @@ class TrainState:
     rng: Optional[np.ndarray] = None
 
 
-def create_train_state(model: nn.Module, masks=None,
-                       seed: int = 0) -> TrainState:
-    """The model's parameters (masked in place when masks are given), zero
-    momentum, a generator seeded with `seed`."""
+def create_train_state(model: nn.Module, masks=None, seed: int = 0,
+                       optimizer: str = "sgd") -> TrainState:
+    """The model's parameters (masked in place when masks are given), the
+    optimizer's initial state ('sgd': zero momentum; 'ranger'; 'adam'), a
+    generator seeded with `seed`."""
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer '{optimizer}'")
     params = dict(model.named_parameters())
     if masks is not None:
         apply_masks_to(params, masks)
-    momentum = {n: torch.zeros_like(p) for n, p in params.items()}
+    if optimizer == "ranger":
+        momentum = ranger_init(params)
+    elif optimizer == "adam":
+        momentum = adam_init(params)
+    else:
+        momentum = {n: torch.zeros_like(p) for n, p in params.items()}
     return TrainState(params=params, momentum=momentum, masks=masks,
                       generator=torch.Generator().manual_seed(seed),
                       rng=np.array([0, seed], np.uint32))
@@ -79,42 +92,155 @@ def clip_by_global_norm(tree: Dict[str, torch.Tensor], max_norm: float):
     return {n: g * scale for n, g in tree.items()}, norm
 
 
-def sgd_nesterov_update(params, momentum, grads, lr: float) -> None:
-    """torch.optim.SGD(momentum=0.99, nesterov=True, weight_decay=3e-5) on
-    the tensors, in place."""
+def sgd_nesterov_update(params, momentum, grads, lr: float,
+                        weight_decay: float = WEIGHT_DECAY,
+                        mom: float = MOMENTUM) -> None:
+    """torch.optim.SGD(momentum=mom, nesterov=True, weight_decay) on the
+    tensors, in place."""
     with torch.no_grad():
         for n, p in params.items():
-            g = grads[n].float() + WEIGHT_DECAY * p
+            g = grads[n].float() + weight_decay * p
             b = momentum[n]
-            b.mul_(MOMENTUM).add_(g)
-            p.sub_(lr * (g + MOMENTUM * b))
+            b.mul_(mom).add_(g)
+            p.sub_(lr * (g + mom * b))
 
 
-def mask_opt_state(momentum, masks) -> None:
-    """The masks applied to the momentum, in place (reference's
-    momentum-buffer zeroing)."""
+class AdamState(NamedTuple):
+    step: int
+    exp_avg: Dict[str, torch.Tensor]
+    exp_avg_sq: Dict[str, torch.Tensor]
+    max_exp_avg_sq: Dict[str, torch.Tensor]
+
+
+def adam_init(params: Dict[str, torch.Tensor]) -> AdamState:
+    def zeros():
+        return {n: torch.zeros_like(p, dtype=torch.float32)
+                for n, p in params.items()}
+    return AdamState(step=0, exp_avg=zeros(), exp_avg_sq=zeros(),
+                     max_exp_avg_sq=zeros())
+
+
+def adam_update(params, state: AdamState, grads, lr: float,
+                betas=(0.9, 0.999), eps: float = 1e-8,
+                weight_decay: float = 0.0):
+    """torch.optim.Adam(amsgrad=True) semantics, the L2 decay added to the
+    gradient (reference train_state.py:96-117), on params in place in
+    float32 in the reference's order of operations; returns (params, the
+    new state, whose tensors are the old state's, updated in place)."""
+    f = np.float32
+    b1, b2 = betas
+    step = state.step + 1
+    bc1 = f(1) - f(b1) ** f(step)
+    bc2 = f(1) - f(b2) ** f(step)
+    names = list(params)
+    p = [params[n] for n in names]
+    m = [state.exp_avg[n] for n in names]
+    v = [state.exp_avg_sq[n] for n in names]
+    vmax = [state.max_exp_avg_sq[n] for n in names]
+    with torch.no_grad():
+        g = torch._foreach_mul(p, float(f(weight_decay)))
+        torch._foreach_add_(g, [grads[n].float() for n in names])
+        torch._foreach_mul_(m, float(f(b1)))
+        torch._foreach_add_(m, torch._foreach_mul(g, float(f(1 - b1))))
+        gg = torch._foreach_mul(g, float(f(1 - b2)))
+        torch._foreach_mul_(gg, g)
+        del g
+        torch._foreach_mul_(v, float(f(b2)))
+        torch._foreach_add_(v, gg)
+        del gg
+        torch._foreach_maximum_(vmax, v)
+        denom = torch._foreach_div(vmax, float(bc2))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, float(f(eps)))
+        upd = torch._foreach_mul(m, float(f(lr) / bc1))
+        torch._foreach_div_(upd, denom)
+        del denom
+        torch._foreach_sub_(p, upd)
+    return params, state._replace(step=step)
+
+
+def _state_dicts(opt_state):
+    """The dicts of tensors by parameter name that an optimizer's state
+    holds (every field but the step)."""
+    if isinstance(opt_state, tuple):
+        return [v for v in opt_state if isinstance(v, dict)]
+    return [opt_state]
+
+
+def mask_opt_state(opt_state, masks) -> None:
+    """The masks applied in place to every buffer of an optimizer's state
+    (SGD's momentum; Ranger's exp_avg, exp_avg_sq, slow; Adam's exp_avg,
+    exp_avg_sq, max_exp_avg_sq), never to the step (reference
+    train_state.py:120-131, the momentum-buffer zeroing of
+    core_channel.py:427-434)."""
     if masks is not None:
-        apply_masks_to(momentum, masks)
+        for d in _state_dicts(opt_state):
+            apply_masks_to(d, masks)
 
 
-def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True):
-    """step(state, data, targets, lr) -> (state, {"loss", "grad_norm"}):
-    data (B, D, H, W, C) float32, targets one integer tensor per
-    deep-supervision output, finest first; batch dice unless batch_dice
-    is False."""
+def _loss_fn(ds_weights, batch_dice, loss_name, loss_kwargs):
     weights = [float(w) for w in ds_weights]
 
-    def train_step(state: TrainState, data, targets, lr: float):
-        names = list(state.params)
-        outs = model(data, do_ds=True)
-        loss = deep_supervision_loss(outs, targets, weights,
-                                     batch_dice=batch_dice)
-        got = torch.autograd.grad(loss, [state.params[n] for n in names],
-                                  allow_unused=True)
-        grads = {n: torch.zeros_like(state.params[n]) if g is None else g
-                 for n, g in zip(names, got)}
-        grads, gnorm = clip_by_global_norm(grads, GRAD_CLIP_NORM)
-        sgd_nesterov_update(state.params, state.momentum, grads, lr)
+    def loss(outs, targets, extra_kw=None):
+        return deep_supervision_loss(
+            outs, targets, weights, batch_dice=batch_dice,
+            loss_name=loss_name,
+            loss_kwargs={**(loss_kwargs or {}), **(extra_kw or {})})
+    return loss
+
+
+def _full_grads(loss, params: Dict[str, torch.Tensor]):
+    """{name: d loss / d param}, zeros where a parameter has no path to
+    the loss."""
+    names = list(params)
+    got = torch.autograd.grad(loss, [params[n] for n in names],
+                              allow_unused=True)
+    return {n: torch.zeros_like(params[n]) if g is None else g
+            for n, g in zip(names, got)}
+
+
+def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
+                    loss_name: str = "dc_ce", momentum: float = MOMENTUM,
+                    weight_decay: float = WEIGHT_DECAY,
+                    optimizer: str = "sgd", loss_kwargs=None,
+                    dynamic_loss_weights: bool = False,
+                    dynamic_momentum: bool = False):
+    """step(state, data, targets, lr, *extras) -> (state, {"loss",
+    "grad_norm"}): data (B, D, H, W, C) float32, targets one tensor per
+    deep-supervision output, finest first; batch dice unless batch_dice
+    is False. optimizer 'sgd' | 'ranger' | 'adam' (state.momentum made by
+    create_train_state with the same one); loss_name a LOSS_REGISTRY name
+    with loss_kwargs. extras, floats: (weight_ce, weight_dice) when
+    dynamic_loss_weights (the CE -> Dice transition), then the momentum
+    when dynamic_momentum (SGD only; the momentum reduction); reference
+    make_train_step, train_state.py:133-208."""
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer '{optimizer}'")
+    if dynamic_momentum and optimizer != "sgd":
+        raise ValueError("dynamic momentum is an SGD-only variant")
+    loss_fn = _loss_fn(ds_weights, batch_dice, loss_name, loss_kwargs)
+
+    def train_step(state: TrainState, data, targets, lr: float, *extras):
+        extras = list(extras)
+        extra_kw = {}
+        if dynamic_loss_weights:
+            extra_kw["weight_ce"] = extras.pop(0)
+            extra_kw["weight_dice"] = extras.pop(0)
+        mom = extras.pop(0) if dynamic_momentum else momentum
+        loss = loss_fn(model(data, do_ds=True), targets, extra_kw)
+        grads, gnorm = clip_by_global_norm(_full_grads(loss, state.params),
+                                           GRAD_CLIP_NORM)
+        if optimizer == "sgd":
+            sgd_nesterov_update(state.params, state.momentum, grads, lr,
+                                weight_decay=weight_decay, mom=mom)
+        elif optimizer == "ranger":
+            _, state.momentum = ranger_update(
+                state.params, state.momentum, grads, lr,
+                weight_decay=weight_decay)
+        else:
+            _, state.momentum = adam_update(
+                state.params, state.momentum, grads, lr,
+                weight_decay=weight_decay)
         if state.masks is not None:
             apply_masks_to(state.params, state.masks)
             mask_opt_state(state.momentum, state.masks)
@@ -124,18 +250,22 @@ def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True):
     return train_step
 
 
-def make_eval_step(model: nn.Module, ds_weights, batch_dice: bool = True):
-    """step(data, targets) -> {"loss", "tp", "fp", "fn"} on the device:
-    the deep-supervision loss and the hard counts of the full-resolution
-    head (reference make_eval_step, train_state.py:211-238), no
-    gradient."""
-    weights = [float(w) for w in ds_weights]
+def make_eval_step(model: nn.Module, ds_weights, batch_dice: bool = True,
+                   loss_name: str = "dc_ce", loss_kwargs=None,
+                   dynamic_loss_weights: bool = False):
+    """step(data, targets, *extras) -> {"loss", "tp", "fp", "fn"} on the
+    device: the deep-supervision loss and the hard counts of the
+    full-resolution head (reference make_eval_step, train_state.py:
+    211-238), no gradient; extras (weight_ce, weight_dice) when
+    dynamic_loss_weights."""
+    loss_fn = _loss_fn(ds_weights, batch_dice, loss_name, loss_kwargs)
 
-    def eval_step(data, targets):
+    def eval_step(data, targets, *extras):
+        extra_kw = ({"weight_ce": extras[0], "weight_dice": extras[1]}
+                    if dynamic_loss_weights else {})
         with torch.no_grad():
             outs = model(data, do_ds=True)
-            loss = deep_supervision_loss(outs, targets, weights,
-                                         batch_dice=batch_dice)
+            loss = loss_fn(outs, targets, extra_kw)
             tp, fp, fn = hard_tp_fp_fn(outs[0], targets[0])
         return {"loss": loss, "tp": tp, "fp": fp, "fn": fn}
 
@@ -144,19 +274,22 @@ def make_eval_step(model: nn.Module, ds_weights, batch_dice: bool = True):
 
 def make_mask_update_step(model: nn.Module, growth: str = "random",
                           granularity: str = "row"):
-    """update(state, death_rate, scores=None) -> state with new masks, the
-    parameters and the momentum masked by them (reference
-    make_mask_update_step, train_state.py:241-267, local prune): random
-    growth at row or kernel granularity."""
-    if growth != "random" or granularity not in ("row", "kernel"):
+    """update(state, death_rate, grads=None) -> state with new masks, the
+    parameters and every buffer of the optimizer's state masked by them
+    (reference make_mask_update_step, train_state.py:241-267, the local
+    prune): row or kernel granularity, random growth (draws from
+    state.generator) or gradient growth (grads: {name: gradient}, as
+    make_grad_step returns them)."""
+    if growth not in ("random", "gradient") or \
+            granularity not in ("row", "kernel"):
         raise NotImplementedError(f"{granularity!r} granularity with "
                                   f"{growth!r} growth: "
                                   f"{dsff.NOT_PORTED_ITEM}")
 
-    def update(state: TrainState, death_rate: float, scores=None):
+    def update(state: TrainState, death_rate: float, grads=None):
         new_masks, _ = dsff.death_growth_update(
-            model, state.masks, death_rate, state.generator, scores,
-            granularity=granularity)
+            model, state.masks, death_rate, state.generator,
+            granularity=granularity, growth=growth, grads=grads)
         apply_masks_to(state.params, new_masks)
         mask_opt_state(state.momentum, new_masks)
         state.masks = new_masks
@@ -165,7 +298,17 @@ def make_mask_update_step(model: nn.Module, growth: str = "random",
     return update
 
 
-def make_grad_step(*args, **kwargs):
-    """The reference's plain gradient for gradient-fed DSFF updates
-    (train_state.py:270-287): not ported."""
-    raise NotImplementedError(f"make_grad_step: {NOT_PORTED_ITEM}")
+def make_grad_step(model: nn.Module, ds_weights, batch_dice: bool = True,
+                   loss_name: str = "dc_ce"):
+    """grad_step(data, targets) -> {name: gradient} of the plain
+    deep-supervision loss with respect to every parameter of the model,
+    through the same kernels as the train step (reference make_grad_step,
+    train_state.py:270-287: the weight.grad that kernel_grad_growth
+    reads). The trainer feeds it to gradient-fed DSFF updates."""
+    loss_fn = _loss_fn(ds_weights, batch_dice, loss_name, None)
+
+    def grad_step(data, targets):
+        params = dict(model.named_parameters())
+        return _full_grads(loss_fn(model(data, do_ds=True), targets), params)
+
+    return grad_step

@@ -26,13 +26,21 @@ other's. Validation predicts every validation case by the sliding window
 (inference/export.py), scores it (evaluation/) and decides the
 postprocessing (postprocessing/connected_components.py).
 
+The variants' options (training/variants.py, the train CLI's -tr): the
+optimizer (SGD, Ranger, Adam), the learning-rate schedule (poly, warmup,
+fixed, fixed2, cycle, plateau: ReduceLROnPlateau stepped on
+train_loss_MA), the momentum and its reduction, the loss (any name of
+ops/losses.LOSS_REGISTRY with its kwargs) and the CE -> Dice transition.
+DSFF grows by random draws or by gradient (a plain gradient of the loss on
+the update step's batch, make_grad_step).
+
 Not ported, each raising NotImplementedError that names its ROADMAP item:
-the cascade and region trainers and the variants' knobs (Queue 1 item 4e),
-the other optimizers, losses and schedules (item 4b), DSFF beyond the
-local prune with random growth at kernel or row granularity (item 4c),
-the architecture switches (item 6), several devices (item 7) and device
-augmentation (item 8). `fused` and `remat` choose between XLA programs of
-the reference and have no meaning here.
+the cascade and region trainers and the variants' augmentation levels,
+deep-supervision mode, per-epoch validation and export options (Queue 1
+item 4e), DSFF beyond the local prune at kernel or row granularity (item
+4c), the architecture switches (item 6), several devices (item 7) and
+device augmentation (item 8). `fused` and `remat` choose between XLA
+programs of the reference and have no meaning here.
 """
 import json
 import os
@@ -57,9 +65,11 @@ from ..utils.logger import RunLogger
 from ..utils.registry import TRAINERS
 from . import dsff
 from .checkpoint import load_train_state, save_train_state
-from .lr import poly_lr
-from .train_state import (NOT_PORTED_ITEM, create_train_state,
-                          make_eval_step, make_mask_update_step,
+from .lr import (ReduceLROnPlateau, ce_to_dice_weights, cycle_at_end_lr,
+                 fixed_schedule2_lr, fixed_schedule_lr, poly_lr,
+                 reduce_momentum, warmup_poly_lr)
+from .train_state import (create_train_state, make_eval_step,
+                          make_grad_step, make_mask_update_step,
                           make_train_step)
 
 VARIANTS_ITEM = "ROADMAP Queue 1 item 4e (variants, cascade, regions)"
@@ -74,13 +84,6 @@ _REFUSED = (
     ("export_kwargs", None, VARIANTS_ITEM),
     ("profile_dir", None, "not ported (a step's device time by kernel: "
      "python -m e2enet_tpu_torch.profile_forward --train)"),
-    ("loss_name", "dc_ce", NOT_PORTED_ITEM),
-    ("loss_kwargs", None, NOT_PORTED_ITEM),
-    ("loss_schedule", None, NOT_PORTED_ITEM),
-    ("optimizer", "sgd", NOT_PORTED_ITEM),
-    ("lr_schedule", "poly", NOT_PORTED_ITEM),
-    ("momentum_schedule", None, NOT_PORTED_ITEM),
-    ("momentum", 0.99, NOT_PORTED_ITEM),
     ("norm_op", "instance", ARCH_ITEM), ("nonlin", "lrelu", ARCH_ITEM),
     ("num_conv_per_stage", None, ARCH_ITEM), ("seg_bias", False, ARCH_ITEM),
     ("nonlin_before_norm", False, ARCH_ITEM), ("conv_kernel", None, ARCH_ITEM),
@@ -122,11 +125,19 @@ class Trainer:
                  dsff_config: Optional[dsff.DSFFConfig] = None,
                  seed: int = 0, num_da_threads: int = 1,
                  base_num_features: int = 48, initial_lr: float = 1e-2,
-                 dummy_load: bool = False, device="cuda", **options):
+                 dummy_load: bool = False, loss_name: str = "dc_ce",
+                 momentum: float = 0.99, optimizer: str = "sgd",
+                 lr_schedule: str = "poly",
+                 momentum_schedule: Optional[str] = None,
+                 loss_kwargs: Optional[dict] = None,
+                 loss_schedule: Optional[str] = None,
+                 device="cuda", **options):
         """The reference's arguments (TPUTrainer.__init__, trainer.py:47-76)
         with `device`; any of the reference's other options (its variants'
-        knobs, profile_dir) away from its default raises
-        (refuse_unported)."""
+        other knobs, profile_dir) away from its default raises
+        (refuse_unported). lr_schedule: poly | warmup | fixed | fixed2 |
+        cycle | plateau; momentum_schedule: None | 'reduce'; loss_schedule:
+        None | 'ce_to_dice'."""
         refuse_unported(**options)
         if dsff_config is not None and dsff_config.sparse:
             dsff_config.check_ported()
@@ -157,9 +168,20 @@ class Trainer:
         self.logger = RunLogger(self.output_folder)
         self.initial_lr = initial_lr
         self.dummy_load = dummy_load
+        self.loss_name = loss_name
+        self.momentum = momentum
+        self.optimizer = optimizer
+        self.lr_schedule = lr_schedule
+        self.momentum_schedule = momentum_schedule
+        self.loss_kwargs = dict(loss_kwargs) if loss_kwargs else None
+        self.loss_schedule = loss_schedule
         self.oversample_foreground_percent = 0.33
         self.train_loss_MA = None            # network_trainer.py:95-105
         self.train_loss_MA_alpha = 0.93
+        self._plateau = None
+        if lr_schedule == "plateau":
+            self._plateau = ReduceLROnPlateau(initial_lr, factor=0.2,
+                                              patience=30, threshold=1e-3)
 
         self.stage_plan = plans.plans_per_stage[stage]
         self.patch_size = np.array(self.stage_plan.patch_size)
@@ -218,18 +240,33 @@ class Trainer:
             # ITOP fired-mask bookkeeping (core_channel.py:861-876)
             self.fired_masks = {k: v.clone() for k, v in masks.items()}
             self.t_max = self.max_num_epochs * self.num_batches_per_epoch
-        self.state = create_train_state(self.network, masks, seed=self.seed)
-        self.train_step = make_train_step(self.network, self.ds_weights,
-                                          self.batch_dice)
-        self.eval_step = make_eval_step(self.network, self.ds_weights,
-                                        self.batch_dice)
+        self.state = create_train_state(self.network, masks, seed=self.seed,
+                                        optimizer=self.optimizer)
+        ce_to_dice = self.loss_schedule == "ce_to_dice"
+        self.train_step = make_train_step(
+            self.network, self.ds_weights, self.batch_dice,
+            loss_name=self.loss_name, momentum=self.momentum,
+            optimizer=self.optimizer, loss_kwargs=self.loss_kwargs,
+            dynamic_loss_weights=ce_to_dice,
+            dynamic_momentum=self.momentum_schedule == "reduce")
+        self.eval_step = make_eval_step(
+            self.network, self.ds_weights, self.batch_dice,
+            loss_name=self.loss_name, loss_kwargs=self.loss_kwargs,
+            dynamic_loss_weights=ce_to_dice)
         if masks is not None:
             cfg = self.dsff_config
             self.mask_granularity = (
                 cfg.granularity if cfg.granularity != "auto"
                 else dsff.mask_granularity(masks, self.network))
             self.mask_update = make_mask_update_step(
-                self.network, granularity=self.mask_granularity)
+                self.network, cfg.growth, granularity=self.mask_granularity)
+            # gradient growth reads the gradient of the loss on the
+            # update step's batch (the reference's weight.grad)
+            self._dsff_grad_step = None
+            if cfg.growth == "gradient":
+                self._dsff_grad_step = make_grad_step(
+                    self.network, self.ds_weights, self.batch_dice,
+                    loss_name=self.loss_name)
 
         if training:
             self._setup_generators()
@@ -338,21 +375,24 @@ class Trainer:
                       run_online_evaluation=False):
         batch = next(gen)
         data, targets = self._to_device(batch)
+        extras = self._step_extras()
         if do_backprop:
-            self.state, metrics = self.train_step(self.state, data, targets,
-                                                  lr)
-            self._maybe_dsff_step()
+            self.state, metrics = self.train_step(
+                self.state, data, targets, lr,
+                *(extras + self._momentum_extra()))
+            self._maybe_dsff_step(data, targets)
             return metrics["loss"]
-        m = self.eval_step(data, targets)
+        m = self.eval_step(data, targets, *extras)
         if run_online_evaluation:
             self._online_tp.append(m["tp"])
             self._online_fp.append(m["fp"])
             self._online_fn.append(m["fn"])
         return m["loss"]
 
-    def _maybe_dsff_step(self):
-        """The local prune with random growth every update_frequency steps
-        (reference _maybe_dsff_step, trainer.py:484-524)."""
+    def _maybe_dsff_step(self, data=None, targets=None):
+        """The local prune every update_frequency steps, growth by random
+        draws or by the gradient on this step's batch (reference
+        _maybe_dsff_step, trainer.py:484-524)."""
         cfg = self.dsff_config
         if self.state.masks is None or cfg is None or cfg.fix:
             return
@@ -360,7 +400,10 @@ class Trainer:
         freq = cfg.update_frequency
         if freq and step % freq == 0:
             dr = dsff.cosine_death_rate(step, cfg.death_rate, self.t_max)
-            self.state = self.mask_update(self.state, dr)
+            grads = None
+            if self._dsff_grad_step is not None and data is not None:
+                grads = self._dsff_grad_step(data, targets)
+            self.state = self.mask_update(self.state, dr, grads)
             self.fired_masks = dsff.update_fired(self.fired_masks,
                                                  self.state.masks)
             itop = dsff.fired_ratio(self.fired_masks)
@@ -381,19 +424,51 @@ class Trainer:
                         [np.round(i, 4) for i in dc_per_class])
         return mean_dc
 
+    def _step_extras(self):
+        """The epoch's (weight_ce, weight_dice) of the CE -> Dice
+        transition, else ()."""
+        if self.loss_schedule != "ce_to_dice":
+            return ()
+        return ce_to_dice_weights(self.epoch, self.max_num_epochs)
+
+    def _momentum_extra(self):
+        """The epoch's momentum of the momentum reduction, else ()."""
+        if self.momentum_schedule != "reduce":
+            return ()
+        return (reduce_momentum(self.epoch, self.momentum),)
+
     def maybe_update_lr(self, epoch=None):
+        """The epoch's learning rate by lr_schedule (reference
+        trainer.py:575-598); 'plateau' reads the scheduler, which
+        update_train_loss_MA steps."""
         ep = self.epoch + 1 if epoch is None else epoch
-        self.lr = poly_lr(ep, self.max_num_epochs, self.initial_lr, 0.9)
+        if self.lr_schedule == "plateau":
+            self.lr = self._plateau.lr
+        elif self.lr_schedule == "warmup":
+            self.lr = warmup_poly_lr(ep, self.max_num_epochs,
+                                     self.initial_lr)
+        elif self.lr_schedule == "fixed":
+            self.lr = fixed_schedule_lr(ep, self.initial_lr)
+        elif self.lr_schedule == "fixed2":
+            self.lr = fixed_schedule2_lr(ep, self.max_num_epochs,
+                                         self.initial_lr)
+        elif self.lr_schedule == "cycle":
+            self.lr = cycle_at_end_lr(ep, self.initial_lr)
+        else:
+            self.lr = poly_lr(ep, self.max_num_epochs, self.initial_lr, 0.9)
         self.logger.log("lr:", np.round(self.lr, decimals=6))
 
     def update_train_loss_MA(self):
-        """network_trainer.update_train_loss_MA (:626-631)."""
+        """network_trainer.update_train_loss_MA (:626-631); steps the
+        plateau scheduler on it."""
         if self.train_loss_MA is None:
             self.train_loss_MA = self.all_tr_losses[-1]
         else:
             a = self.train_loss_MA_alpha
             self.train_loss_MA = (a * self.train_loss_MA
                                   + (1 - a) * self.all_tr_losses[-1])
+        if self._plateau is not None:
+            self._plateau.step(self.train_loss_MA)
 
     @staticmethod
     def _epoch_mean(losses) -> float:
@@ -610,7 +685,8 @@ class Trainer:
         for k, v in self.__dict__.items():
             if k in ("plans", "state", "network", "logger", "tr_gen",
                      "val_gen", "dataset_tr", "dataset_val", "train_step",
-                     "eval_step", "mask_update", "da_params"):
+                     "eval_step", "mask_update", "da_params",
+                     "_dsff_grad_step", "_plateau"):
                 continue
             try:
                 json.dumps(v)

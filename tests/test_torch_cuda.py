@@ -891,6 +891,48 @@ def test_train_step_launches():
         torch.isfinite(metrics["grad_norm"]))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["sgd", "ranger", "adam"])
+def test_options_step_and_gradient_growth_launches(opt):
+    """A train step of each optimizer and a gradient-growth mask update
+    (make_grad_step on the batch) on a small bf16 model on the card: each
+    launches the kernels as kernel_launches_per_train_step counts, the
+    loss is finite, dead rows stay zero in the parameters and in every
+    buffer of the optimizer's state, the row counts hold."""
+    from e2enet_tpu_torch.models.masks import broadcast_mask
+    from e2enet_tpu_torch.models.unetpp import kernel_launches_per_train_step
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.training import train_bench_masks as tb
+    dev = _card()
+    model, state, step_fn, update, _ = tb.build(
+        dev, base_features=8, optimizer=opt, growth="gradient")
+    data, targets = tb.device_batches(np.random.RandomState(0), 1, 2,
+                                      (32, 32, 32), model.num_ds_outputs(),
+                                      dev)[0]
+    ops = {**{k: v[0] for k, v in blocks.KERNEL_OPS.items()},
+           **{k: v[0] for k, v in blocks.BACKWARD_OPS.items()}}
+    want = kernel_launches_per_train_step(model)
+    total = {k: want["forward"].get(k, 0) + want["backward"].get(k, 0)
+             for k in ops}
+    rows = {n: int(m[:, 0].sum()) for n, m in state.masks.items()}
+    for op in ops.values():
+        op.launches = 0
+    state, metrics = step_fn(state, data, targets, 0.01)
+    assert {k: op.launches for k, op in ops.items()} == total
+    for op in ops.values():
+        op.launches = 0
+    state = update(state, 0.5, data, targets)
+    assert {k: op.launches for k, op in ops.items()} == total
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert {n: int(m[:, 0].sum()) for n, m in state.masks.items()} == rows
+    bufs = ([state.momentum] if isinstance(state.momentum, dict) else
+            [v for v in state.momentum if isinstance(v, dict)])
+    for n, m in state.masks.items():
+        dead = broadcast_mask(1.0 - m, state.params[n])
+        for t in [state.params[n].detach()] + [b[n] for b in bufs]:
+            assert float((t * dead).abs().max()) == 0.0, n
+
+
 # ------------------------------------------------- the experiment kernels
 from e2enet_tpu_torch.experiments import exp_cf_fused as tcf  # noqa: E402
 from e2enet_tpu_torch.experiments import exp_int8_mma as tim  # noqa: E402

@@ -5,7 +5,9 @@ folder: training with kernel-granular DSFF (width 8, --fp32), the fold's
 validation and postprocessing, the files tests/test_end_to_end.py asks of
 the JAX CLI, a continued run (-c) from 'latest', and the port's predict
 CLI reading the trained fold (the JAX package's ModelBundle reads it too).
-Also the refusals: no card without --device cpu, and every option the
+Also the variants' options: Ranger and Adam presets (-tr) with DSFF grown
+by gradient train a fold, their optimizer state kept in the checkpoint.
+And the refusals: no card without --device cpu, and every option the
 port does not train, each naming its ROADMAP item; and that no module of
 the port imports jax or e2enet_tpu (a subprocess in which both are
 blocked imports every module of the package and chip_smoke.py)."""
@@ -24,6 +26,7 @@ import chip_smoke  # noqa: E402
 from e2enet_tpu_torch.cli import predict as tpredict  # noqa: E402
 from e2enet_tpu_torch.cli import train as ttrain  # noqa: E402
 from e2enet_tpu_torch.io.nifti import read_nifti  # noqa: E402
+from e2enet_tpu_torch.models.weights import from_jax_params  # noqa: E402
 from e2enet_tpu_torch.training import checkpoint as tckpt  # noqa: E402
 from e2enet_tpu_torch.training.trainer import Trainer  # noqa: E402
 
@@ -199,17 +202,47 @@ def test_refuses_without_a_card(environ, monkeypatch):
     (["--network", "2d"], "item 3c"),
     (["--network", "3d_lowres"], "item 4e"),
     (["--network", "3d_cascade_fullres"], "item 4e"),
-    (["-tr", "nnUNetTrainerV2_Adam"], "item 4e"),
+    (["-tr", "nnUNetTrainerV2_noDA"], "item 4e"),
+    (["-tr", "nnUNetTrainerV2_BN"], "item 6"),
     (["--num_devices", "2"], "item 7"),
     (["--spatial_parallel", "2"], "item 7"),
     (["--device_augment"], "item 8"),
-    (["--growth", "gradient"], "item 4c"),
+    (["--sparse_init", "ERK"], "item 4c"),
     (["--prune_mode", "global"], "item 4c"),
     (["--sparse_init", "GMP"], "item 4c"),
     (["--granularity", "element"], "item 4c")])
 def test_unported_options_raise(environ, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("extra", [
+    ["-tr", "nnUNetTrainerV2_Ranger_lr3en4", "--growth", "gradient",
+     "--granularity", "kernel"],
+    ["-tr", "nnUNetTrainerV2_Adam", "--growth", "gradient",
+     "--granularity", "row"]])
+def test_ported_options_train(environ, extra):
+    """-tr with Ranger and Adam and --growth gradient, refused before they
+    were ported, train a fold (validation included); the 'latest'
+    checkpoint's optimizer state loads back equal to the bit."""
+    tr = ttrain.main(ARGS + ["--epochs", "1", "--fold", "2", "--device",
+                             "cpu"] + extra)
+    assert tr.optimizer == {"nnUNetTrainerV2_Ranger_lr3en4": "ranger",
+                            "nnUNetTrainerV2_Adam": "adam"}[extra[1]]
+    assert tr.dsff_config.growth == "gradient"
+    assert tr._dsff_grad_step is not None
+    assert all(np.isfinite(tr.all_tr_losses + tr.all_val_losses))
+    state, _, _ = tckpt.load_checkpoint(tr.checkpoint_path(
+        "final_checkpoint"))
+    mom = state["momentum"]
+    assert type(mom) is type(tr.state.momentum)
+    assert int(mom.step) == tr.state.momentum.step == 2
+    for f in mom._fields[1:]:
+        want = getattr(tr.state.momentum, f)
+        for n, t in from_jax_params(getattr(mom, f)).items():
+            assert torch.equal(t, want[n]), (f, n)
+    assert os.path.isfile(os.path.join(tr.output_folder, "validation_raw",
+                                       "summary.json"))
 
 
 @pytest.mark.parametrize("flag", [["--fused"], ["--no_fused"],

@@ -341,20 +341,48 @@ def test_unported_options_raise(task):
     base, task_dir = task
     out = os.path.join(base, "refused")
     for kw, item in ((dict(cascade=True), "item 4e"),
-                     (dict(optimizer="ranger"), "item 4b"),
-                     (dict(lr_schedule="warmup"), "item 4b"),
+                     (dict(da_level="none"), "item 4e"),
+                     (dict(nonlin="relu"), "item 6"),
                      (dict(num_devices=2), "item 7"),
                      (dict(device_augment=True), "item 8"),
                      (dict(norm_op="batch"), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             _port_trainer(task_dir, out, **kw)
     for kw in (dict(sparse_init="GMP"), dict(prune_mode="global"),
-               dict(growth="gradient"), dict(granularity="element")):
+               dict(sparse_init="ERK"), dict(granularity="element")):
         with pytest.raises(NotImplementedError, match="item 4c"):
             _port_trainer(task_dir, out,
                           dsff_config=td.DSFFConfig(sparse=True, **kw))
     with pytest.raises(ValueError, match="XLA programs"):
         _port_trainer(task_dir, out, fused=True)
+
+
+@pytest.mark.parametrize("kw, dsff_kw", [
+    (dict(optimizer="ranger"), None),
+    (dict(optimizer="adam", lr_schedule="plateau"), None),
+    (dict(lr_schedule="warmup", momentum_schedule="reduce",
+          loss_schedule="ce_to_dice"), None),
+    (dict(loss_name="gdl_ce", loss_kwargs={"smooth": 1e-5}),
+     dict(growth="gradient", granularity="kernel")),
+    (dict(optimizer="ranger"), dict(growth="gradient", granularity="row"))])
+def test_ported_options_run(task, kw, dsff_kw):
+    """The options that raised before they were ported (the optimizers,
+    schedules, losses and gradient growth) now build and take a step."""
+    base, task_dir = task
+    cfg = None if dsff_kw is None else td.DSFFConfig(
+        sparse=True, density=0.3, update_frequency=1, **dsff_kw)
+    tt = _port_trainer(task_dir, os.path.join(base, "options"),
+                       dsff_config=cfg, **kw)
+    tt.initialize(True)
+    tt.maybe_update_lr(0)
+    loss = tt.run_iteration(tt.tr_gen, tt.lr, True)
+    tt.tr_gen.stop()
+    tt.val_gen.stop()
+    assert np.isfinite(float(loss)) and tt.state.step == 1
+    if cfg is not None:
+        assert tt._dsff_grad_step is not None
+    if kw.get("optimizer", "sgd") != "sgd":
+        assert tt.state.momentum.step == 1
 
 
 @pytest.mark.parametrize("granularity", ["kernel", "row"])
