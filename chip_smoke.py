@@ -10,6 +10,9 @@
     python3 chip_smoke.py --options
                                    # only the build, [trainer]'s planned
                                    # task and the [options] phase
+    python3 chip_smoke.py --dsff
+                                   # only the build, [trainer]'s planned
+                                   # task and the [dsff] phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -157,7 +160,35 @@ Phases (any failure ends the run with a non-zero exit):
               losses, launches per step and per gradient step, alive
               counts held, the 'latest' checkpoint's Ranger state loading
               back equal to the bit. Prints the phase's seconds
-  12. experiments  the experiment kernels (TPU kernels #11-#14) against
+  12. dsff    every DSFF engine of the trainer at the bench width (48 base
+              features, 16 classes, bf16, SGD, seed 0, the train phase's
+              batch of 2 x 128^3): the local element prune (uniform_ori at
+              0.3, 8 steps, random growth after step 4, gradient growth
+              after step 8) beside 4 row-mask steps; the global prune (ERK
+              at 0.3, gradient growth, the grow schedule's ratio, updates
+              after steps 4 and 8); GMP from dense at three epochs of its
+              ramp; the lottery ticket, snip from make_grad_step's
+              gradients and GraSP on 1 x 64^3 (the plain path). Per step
+              launches equal kernel_launches_per_train_step, a finite
+              loss, dead elements zero in the parameters and momentum;
+              per update every kernel's alive count held (local), the
+              pruned count the host's global threshold's and the grown
+              count within 5 sigma of the Bernoulli budget (global), each
+              kernel's pruned count int(rate * size) plus ties (GMP), the
+              densities of the lottery ticket, snip and GraSP within 1e-3
+              of the target plus ties, GraSP launching no kernel. Then on
+              [trainer]'s task cli/train.main with --sparse_init ERK
+              --prune_mode global --growth gradient --update_frequency 2
+              (one epoch of 4 batches, then -c for a second; every logged
+              regrow_ratio the host's grow_schedule_ratio, the 'latest'
+              element masks and fired masks in the flax layout loading
+              back equal to the bit), --sparse_init GMP for 2 epochs (a
+              GMP line per epoch, the density falling), and cli/predict.
+              main on one case with the global run's fold (dense masked,
+              no plan; launches tiles x passes x per forward; labels in
+              [0, 16)). Prints ms per step, ms per mask update per mode,
+              GraSP's seconds and peak memory, the phase's seconds
+  13. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -181,7 +212,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  13. report  one JSON line with every kernel's launches, error, times and
+  14. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -2523,6 +2554,552 @@ def options_phase(ops, counts, smi, paths):
           flush=True)
 
 
+# the [dsff] phase: every DSFF engine of the trainer at the bench width
+DSFF_STEPS = 8
+DSFF_UPDATE_AT = (4, 8)
+DSFF_DENSITY = 0.3
+DSFF_FINAL_DENSITY = 0.2
+# the death rate's cosine as over a run of 16 steps, the global schedule's
+# ramp as over epochs 0-4 of 8 steps each: both updates prune by a rate
+# above 0.25 and the first grows by a ratio below 1
+DSFF_T_MAX = 16
+DSFF_ITERS_PER_EPOCH = 8
+DSFF_FINAL_PRUNE_EPOCH = 4
+GMP_EPOCHS = (1, 2, 3)            # of a ramp over epochs 0-4
+GRASP_PATCH = (64, 64, 64)
+# a global threshold, a lottery ticket, snip or GraSP keep every entry tied
+# at their threshold: the densities are held to the target within this,
+# plus the ties
+DSFF_DENSITY_ATOL = 1e-3
+
+
+def dsff_phase(ops, counts, smi, paths):
+    """[dsff] every DSFF engine of the trainer on the card at the bench
+    width (48 base features, 16 classes, bf16, SGD, seed 0; the train
+    phase's synthetic batch of 2 x 128^3):
+    - the local element prune: uniform_ori at DSFF_DENSITY, 8 steps, a
+      mask update after step 4 (random growth) and after step 8 (gradient
+      growth, make_grad_step on the step's batch); per step launches equal
+      to kernel_launches_per_train_step, a finite loss, dead elements zero
+      in the parameters and the momentum; per update every kernel's alive
+      count held; ms per step beside 4 steps of the same model with row
+      masks at 0.2 (the train phase's);
+    - the global prune: ERK at DSFF_DENSITY, gradient growth, updates after
+      steps 4 and 8 with the regrow ratio of grow_schedule_ratio: the
+      pruned count that of the global threshold recomputed on the host,
+      the grown count within 5 sigma of the Bernoulli budget;
+    - GMP from dense: gmp_prune_masks at GMP_EPOCHS of a ramp over epochs
+      0-4, each kernel's pruned count int(rate * size) plus the ties at
+      its threshold;
+    - the lottery ticket and snip (from make_grad_step's gradients), and
+      GraSP on 1 x 64^3 (the plain path: no kernel launches), each density
+      within DSFF_DENSITY_ATOL of the target plus the ties; GraSP's
+      seconds and peak memory;
+    - cli/train.main on [trainer]'s task (`paths`) with --sparse_init ERK
+      --prune_mode global --growth gradient --update_frequency 2 for one
+      epoch of 4 batches, then -c for a second (the validations left out):
+      launches per step and per gradient step, each logged regrow_ratio
+      equal to grow_schedule_ratio recomputed on the host, the 'latest'
+      element masks and fired masks in the flax layout loading back equal
+      to the bit; then --sparse_init GMP --init-prune-epoch 0
+      --final-prune-epoch 2 for 2 epochs (a GMP line after each, the
+      density falling); then cli/predict.main on one case with the global
+      run's fold: dense masked (no plan), launches tiles x passes x the
+      per-forward counts, labels in [0, 16).
+    Prints ms per step, ms per mask update per mode, the peak memory and
+    the phase's seconds."""
+    import os
+    import re
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.cli import predict as pcli
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.inference import predictor
+    from e2enet_tpu_torch.io.nifti import read_nifti
+    from e2enet_tpu_torch.models.masks import (masked_params, masks_density,
+                                               masks_for_model)
+    from e2enet_tpu_torch.models.unetpp import (
+        ShiftUNetPlusPlus, ds_loss_weights, kernel_launches_per_forward,
+        kernel_launches_per_train_step)
+    from e2enet_tpu_torch.ops.losses import dc_and_ce_loss
+    from e2enet_tpu_torch.ops.sliding import (
+        compute_steps_for_sliding_window, pad_volume_to_patch)
+    from e2enet_tpu_torch.training import checkpoint as ckpt
+    from e2enet_tpu_torch.training import dsff
+    from e2enet_tpu_torch.training import train_bench_masks as tbm
+    from e2enet_tpu_torch.training.train_state import (
+        apply_new_masks, create_train_state, make_grad_step,
+        make_mask_update_step, make_train_step)
+    from e2enet_tpu_torch.training.trainer import Trainer
+    t_phase = time.perf_counter()
+    dev = "cuda"
+
+    def d_counts(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    def timed(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        ev[1].synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    def alive(masks):
+        return {n: int(m.sum()) for n, m in masks.items()}
+
+    def assert_dead_zero(tag, st):
+        for n, m in st.masks.items():
+            for what, t in (("param", st.params[n].detach()),
+                            ("momentum", st.momentum[n])):
+                check(bool((t * (m == 0) == 0).all()),
+                      f"{tag}: {n} {what} nonzero where its mask is 0")
+
+    model = ShiftUNetPlusPlus(1, NUM_CLASSES, tbm.POOLS,
+                              compute_dtype=torch.bfloat16, device=dev)
+    weights = ds_loss_weights(len(tbm.POOLS), model.num_ds_outputs())
+    per = kernel_launches_per_train_step(model)
+    want = {k: per["forward"].get(k, 0) + per["backward"].get(k, 0)
+            for k in ops}
+    batch = tbm.device_batches(np.random.RandomState(3), 1, 2, PATCH,
+                               model.num_ds_outputs(), dev)
+    data, targets = batch[0]
+    step_fn = make_train_step(model, weights)
+    grad_step = make_grad_step(model, weights)
+    names = sorted(masked_params(model))
+    n_elems = sum(masked_params(model)[n].numel() for n in names)
+    print(f"[dsff] ShiftUNet++ bench width, batch 2 x 128^3, bf16, SGD; "
+          f"{len(names)} masked kernels, {n_elems} elements", flush=True)
+    update_ms = {}
+
+    def fresh(masks_fn):
+        model.reset_parameters(seed=tbm.SEED)
+        return create_train_state(model, masks_fn(), seed=tbm.SEED)
+
+    def run_steps(tag, st, n, on_update=None):
+        ms, losses = [], []
+        for i in range(n):
+            before = counts()
+            (st, metrics), t = timed(lambda: step_fn(st, data, targets,
+                                                     tbm.INITIAL_LR))
+            got = d_counts(before)
+            check(got == want, f"{tag} step {i + 1}: launches {got} != "
+                  f"{want}")
+            loss = float(metrics["loss"])
+            check(np.isfinite(loss), f"{tag} step {i + 1}: loss {loss}")
+            if st.masks is not None and st.masks[names[0]].dim() > 2:
+                assert_dead_zero(f"{tag} step {i + 1}", st)
+            ms.append(t)
+            losses.append(loss)
+            if on_update is not None and i + 1 in DSFF_UPDATE_AT:
+                st = on_update(i + 1, st)
+        return st, ms, losses
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the row-mask step of the train phase, for comparison
+    st = fresh(lambda: dsff.init_masks_row(
+        model, 0.2, torch.Generator().manual_seed(tbm.SEED + 1),
+        density_48_override=0.2))
+    _, row_ms, _ = run_steps("[dsff] row masks", st, 4)
+    del st
+
+    # ---- the local element prune: random, then gradient growth
+    gen = torch.Generator().manual_seed(tbm.SEED + 1)
+    st = fresh(lambda: dsff.init_masks_element(model, DSFF_DENSITY, gen,
+                                               "uniform_ori"))
+    d0 = masks_density(st.masks, model)
+    updates = {"random": make_mask_update_step(model, "random", "local",
+                                               "element"),
+               "gradient": make_mask_update_step(model, "gradient",
+                                                 "local", "element")}
+
+    def local_update(step, st):
+        growth = "random" if step == DSFF_UPDATE_AT[0] else "gradient"
+        before_alive = alive(st.masks)
+        dr = dsff.cosine_death_rate(step, 0.5, DSFF_T_MAX)
+        before = counts()
+
+        def go():
+            grads = grad_step(data, targets) if growth == "gradient" \
+                else None
+            return updates[growth](st, dr, grads)
+        st2, t = timed(go)
+        got = d_counts(before)
+        check(got == (want if growth == "gradient" else
+                      {k: 0 for k in want}), f"[dsff] local {growth} "
+              f"update: launches {got}")
+        check(alive(st2.masks) == before_alive, f"[dsff] local {growth} "
+              f"update at step {step} moved an alive count")
+        assert_dead_zero(f"[dsff] local {growth} update", st2)
+        update_ms[f"local element {growth}"] = t
+        return st2
+    st, el_ms, el_losses = run_steps("[dsff] uniform_ori", st, DSFF_STEPS,
+                                     local_update)
+    check(el_losses[-1] < el_losses[0], f"[dsff] uniform_ori: the loss did "
+          f"not fall: {el_losses}")
+    print(f"[dsff] local element prune, uniform_ori at {DSFF_DENSITY} "
+          f"(density {d0:.4f} -> {masks_density(st.masks, model):.4f}): "
+          f"loss {el_losses[0]:.5f} -> {el_losses[-1]:.5f}; ms per step "
+          f"(CUDA events) {' '.join(f'{v:.1f}' for v in el_ms)}, steps "
+          f"2..{DSFF_STEPS} mean {np.mean(el_ms[1:]):.1f}; the same model "
+          f"with row masks at 0.2: {' '.join(f'{v:.1f}' for v in row_ms)}, "
+          f"steps 2..4 mean {np.mean(row_ms[1:]):.1f}", flush=True)
+    del st
+
+    # ---- the global prune, ERK, its grow schedule
+    gen = torch.Generator().manual_seed(tbm.SEED + 1)
+    st = fresh(lambda: dsff.init_masks_element(model, DSFF_DENSITY, gen,
+                                               "ERK"))
+    g_update = make_mask_update_step(model, "gradient", "global", "element")
+    ratio = [1.01]
+
+    def global_update(step, st):
+        m0 = {n: m.clone() for n, m in st.masks.items()}
+        tw = float(n_elems)
+        tn = float(sum(int(m.sum()) for m in m0.values()))
+        dr = dsff.cosine_death_rate(step, 0.5, DSFF_T_MAX)
+        ratio[0] = dsff.grow_schedule_ratio(
+            step, DSFF_UPDATE_AT[0], DSFF_ITERS_PER_EPOCH, DSFF_DENSITY,
+            DSFF_FINAL_DENSITY, dr, tw, tn, tn / tw, ratio[0], 0,
+            DSFF_FINAL_PRUNE_EPOCH)
+        # the host's global threshold over every |w|
+        absw = torch.cat([st.params[n].detach().float().abs().cpu()
+                          .reshape(-1) for n in names])
+        keep = int(np.float32(tn) * (np.float32(1) - np.float32(dr)))
+        thr = torch.sort(absw, descending=True).values[keep - 1]
+        kept = int((absw >= thr).sum())
+        st2, t = timed(lambda: g_update(st, dr, grad_step(data, targets),
+                                        ratio[0]))
+        pruned = int(tn) - sum(int((st2.masks[n] * m0[n]).sum())
+                               for n in names)
+        grown = sum(int((st2.masks[n] * (1 - m0[n])).sum()) for n in names)
+        n_dead = tw - tn
+        budget = ratio[0] * tn * dr
+        p = budget / n_dead
+        sigma = float(np.sqrt(n_dead * p * (1 - p)))
+        check(pruned == int(tn) - kept, f"[dsff] global update at step "
+              f"{step}: pruned {pruned}, the host's threshold "
+              f"{int(tn) - kept}")
+        check(abs(grown - budget) <= 5 * sigma, f"[dsff] global update at "
+              f"step {step}: grew {grown}, budget {budget:.1f} +- "
+              f"{sigma:.1f}")
+        assert_dead_zero(f"[dsff] global update at step {step}", st2)
+        update_ms["global"] = t
+        print(f"[dsff] global update at step {step}: death rate {dr:.4f}, "
+              f"regrow_ratio {ratio[0]:.4f}, alive {int(tn)}: pruned "
+              f"{pruned} (the host's threshold {thr.item():.6g}), grew "
+              f"{grown} (budget {budget:.1f} +- {sigma:.1f}); density "
+              f"{masks_density(st2.masks, model):.4f}; {t:.1f} ms "
+              f"(gradient step included)", flush=True)
+        return st2
+    st, gl_ms, gl_losses = run_steps("[dsff] ERK global", st, DSFF_STEPS,
+                                     global_update)
+    print(f"[dsff] global prune, ERK at {DSFF_DENSITY}: loss "
+          f"{gl_losses[0]:.5f} -> {gl_losses[-1]:.5f}; ms per step "
+          f"{' '.join(f'{v:.1f}' for v in gl_ms)}", flush=True)
+    del st
+
+    # ---- GMP from dense
+    st = fresh(lambda: dsff.init_masks_gmp(model))
+    gmp = []
+    for epoch in GMP_EPOCHS:
+        lo, hi = 0, 4
+        decay = (1.0 - (epoch - lo) / (hi - lo + 1)) ** 3
+        rate = (1.0 - DSFF_DENSITY) - (1.0 - DSFF_DENSITY) * decay
+        new, t = timed(lambda: dsff.gmp_prune_masks(
+            model, st.masks, epoch, DSFF_DENSITY, lo, hi))
+        for n in names:
+            a = st.params[n].detach().float().abs()
+            p_n = int(rate * a.numel())
+            check(p_n > 0, f"[dsff] GMP epoch {epoch}: {n} prunes nothing")
+            thr = torch.sort(a.reshape(-1)).values[p_n - 1]
+            zeros = int((new[n] == 0).sum())
+            ties = int((a == thr).sum())
+            check(p_n <= zeros <= p_n + ties - 1, f"[dsff] GMP epoch "
+                  f"{epoch}: {n} pruned {zeros}, int(rate * size) {p_n}, "
+                  f"{ties} tied")
+        st = apply_new_masks(st, new)
+        assert_dead_zero(f"[dsff] GMP epoch {epoch}", st)
+        gmp.append((epoch, rate, masks_density(st.masks, model), t))
+    update_ms["GMP prune"] = gmp[-1][3]
+    print(f"[dsff] GMP from dense, ramp over epochs 0-4: " + "; ".join(
+        f"epoch {e} rate {r:.4f} density {d:.4f} ({t:.1f} ms)"
+        for e, r, d, t in gmp), flush=True)
+
+    def ties_share(masks, scores):
+        """The share of entries tied at the smallest kept score."""
+        thr = min(float(s[m > 0].min()) for s, m in
+                  ((scores[n], masks[n]) for n in names) if m.any())
+        return sum(int((scores[n] == thr).sum()) for n in names) / n_elems
+
+    # ---- the lottery ticket and snip
+    model.reset_parameters(seed=tbm.SEED)
+    params = masked_params(model)
+    lt = dsff.init_masks_lottery(model, DSFF_DENSITY)
+    d_lt = masks_density(lt, model)
+    share = ties_share(lt, {n: params[n].detach().float().abs()
+                            for n in names})
+    check(0 <= d_lt - DSFF_DENSITY <= DSFF_DENSITY_ATOL + share,
+          f"[dsff] lottery ticket density {d_lt}")
+    before = counts()
+    grads = grad_step(data, targets)
+    check(d_counts(before) == want, "[dsff] snip: the gradient step's "
+          f"launches {d_counts(before)}")
+    sn = dsff.init_masks_element(model, DSFF_DENSITY, mode="snip",
+                                 grads=grads)
+    d_sn = masks_density(sn, model)
+    share_sn = ties_share(sn, {n: (params[n].detach().float()
+                                   * grads[n].float()).abs() for n in names})
+    check(0 <= d_sn - DSFF_DENSITY <= DSFF_DENSITY_ATOL + share_sn,
+          f"[dsff] snip density {d_sn}")
+    del grads, lt, sn
+    print(f"[dsff] lottery ticket density {d_lt:.6f} (ties {share:.2e}); "
+          f"snip from make_grad_step's gradients {d_sn:.6f} (ties "
+          f"{share_sn:.2e})", flush=True)
+
+    steps_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # ---- GraSP on the plain path
+    small, small_t = tbm.device_batches(np.random.RandomState(5), 1, 1,
+                                        GRASP_PATCH, model.num_ds_outputs(),
+                                        dev)[0]
+
+    def grasp_loss(m, d, t):
+        return dc_and_ce_loss(m(d, do_ds=False), t[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    t0 = time.perf_counter()
+    scores = dsff.grasp_scores(grasp_loss, model, small, small_t)
+    gr = dsff.init_masks_grasp(grasp_loss, model, DSFF_DENSITY, small,
+                               small_t)
+    torch.cuda.synchronize()
+    grasp_s = time.perf_counter() - t0
+    grasp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(v == 0 for v in d_counts(before).values()), "[dsff] GraSP "
+          f"launched kernels {d_counts(before)}: not the plain path")
+    d_gr = masks_density(gr, model)
+    kept = {n: scores[n][gr[n] > 0] for n in names}
+    thr = max(float(k.max()) for k in kept.values() if k.numel())
+    share_gr = sum(int((scores[n] == thr).sum()) for n in names) / n_elems
+    check(abs(d_gr - DSFF_DENSITY) <= DSFF_DENSITY_ATOL + share_gr,
+          f"[dsff] GraSP density {d_gr}")
+    print(f"[dsff] GraSP on 1 x 64^3 (the plain path, no kernel launched; "
+          f"scores and masks, two passes): density {d_gr:.6f} (ties "
+          f"{share_gr:.2e}); {grasp_s:.1f} s; peak memory allocated "
+          f"{grasp_peak:.2f} GiB", flush=True)
+    del scores, gr, small, small_t, model, batch, data, targets
+    torch.cuda.empty_cache()
+
+    # ---- the train CLI: global, -c, GMP; then predict
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    results = {"global": paths["results"] + "_dsff_global",
+               "gmp": paths["results"] + "_dsff_gmp"}
+    runs = []
+    real_init, real_validate = Trainer.initialize, Trainer.validate
+    real_load = Trainer.load_checkpoint_file
+
+    def init_spy(self, training=True):
+        real_init(self, training)
+        self.save_every = 1
+        run = {"trainer": self, "grad_steps": 0, "ratios": [],
+               "loaded": None, "steps": 0}
+        runs.append(run)
+        per_t = kernel_launches_per_train_step(self.network)
+        want_t = {k: per_t["forward"].get(k, 0)
+                  + per_t["backward"].get(k, 0) for k in ops}
+        step_fn_t, grad_fn = self.train_step, self._dsff_grad_step
+        update_fn = self.mask_update
+        cfg = self.dsff_config
+        prev = [1.01]
+
+        def step(st, d, t, lr, *extras):
+            before = counts()
+            res = step_fn_t(st, d, t, lr, *extras)
+            check(d_counts(before) == want_t, f"[dsff] cli step "
+                  f"{st.step}: launches {d_counts(before)}")
+            run["steps"] += 1
+            return res
+
+        def grad(d, t):
+            before = counts()
+            g = grad_fn(d, t)
+            check(d_counts(before) == want_t, f"[dsff] cli gradient "
+                  f"step: launches {d_counts(before)}")
+            run["grad_steps"] += 1
+            return g
+
+        def update(st, death_rate, grads=None, regrow_ratio=1.0):
+            tw = float(sum(m.numel() for m in st.masks.values()))
+            tn = float(sum(int(m.sum()) for m in st.masks.values()))
+            host = dsff.grow_schedule_ratio(
+                st.step, cfg.update_frequency, self.num_batches_per_epoch,
+                cfg.density, cfg.final_density, death_rate, tw, tn, tn / tw,
+                prev[0], cfg.init_prune_epoch, cfg.final_prune_epoch)
+            check(host == regrow_ratio, f"[dsff] cli update at step "
+                  f"{st.step}: regrow_ratio {regrow_ratio} != the host's "
+                  f"{host}")
+            prev[0] = host
+            run["ratios"].append(host)
+            st = update_fn(st, death_rate, grads, regrow_ratio)
+            assert_dead_zero("[dsff] cli update", st)
+            return st
+        self.train_step = step
+        if grad_fn is not None:
+            self._dsff_grad_step = grad
+        if cfg.prune_mode == "global":
+            self.mask_update = update
+
+    def load_spy(self, which, train=True):
+        real_load(self, which, train)
+        runs[-1]["loaded"] = (
+            {n: m.cpu().clone() for n, m in self.state.masks.items()},
+            {n: m.cpu().clone() for n, m in self.fired_masks.items()})
+
+    base_args = ["--task", TRAIN_TASK, "--fold", "0", "--batches", "4",
+                 "--val_batches", "1", "--sparse", "True", "--density",
+                 str(DSFF_DENSITY)]
+    global_args = base_args + ["--sparse_init", "ERK", "--prune_mode",
+                               "global", "--growth", "gradient",
+                               "--update_frequency", "2", "--final_density",
+                               str(DSFF_FINAL_DENSITY),
+                               "--final-prune-epoch", "2"]
+    Trainer.initialize, Trainer.validate = init_spy, lambda s, *a, **k: None
+    Trainer.load_checkpoint_file = load_spy
+    walls = []
+    try:
+        os.environ["RESULTS_FOLDER"] = results["global"]
+        for extra in (["--epochs", "1"], ["--epochs", "2", "-c"]):
+            t0 = time.perf_counter()
+            tcli.main(global_args + extra)
+            walls.append(time.perf_counter() - t0)
+            if extra[-1] != "-c":
+                first = runs[-1]["trainer"]
+                latest = ckpt.load_checkpoint(first.checkpoint_path("latest"))
+                live = ({n: m.cpu() for n, m in first.state.masks.items()},
+                        {n: m.cpu() for n, m in first.fired_masks.items()})
+        os.environ["RESULTS_FOLDER"] = results["gmp"]
+        t0 = time.perf_counter()
+        tcli.main(base_args + ["--epochs", "2", "--sparse_init", "GMP",
+                               "--init-prune-epoch", "0",
+                               "--final-prune-epoch", "2"])
+        walls.append(time.perf_counter() - t0)
+    finally:
+        Trainer.initialize, Trainer.validate = real_init, real_validate
+        Trainer.load_checkpoint_file = real_load
+    check(len(runs) == 3, f"[dsff] cli: {len(runs)} trainers")
+    g1, g2, gm = (r["trainer"] for r in runs)
+    check(runs[0]["steps"] == 4 and runs[1]["steps"] == 4
+          and runs[0]["grad_steps"] == runs[1]["grad_steps"] == 2,
+          f"[dsff] cli: steps / gradient steps "
+          f"{[(r['steps'], r['grad_steps']) for r in runs]}")
+    # the logged ratios are the host's
+    for run in runs[:2]:
+        log = open(run["trainer"].logger.log_file).read()
+        logged = [float(v) for v in re.findall(r"regrow_ratio=(-?[0-9.]+)",
+                                               log)]
+        check(logged == [round(r, 4) for r in run["ratios"]]
+              and len(logged) == 2, f"[dsff] cli: logged regrow_ratio "
+              f"{logged}, the host's {run['ratios']}")
+    # 'latest' in the flax layout, back equal to the bit
+    state, _, meta = latest
+    model_t = g1.network
+    params_t = dict(model_t.named_parameters())
+    for what, saved, sep, got in (
+            ("masks", state["masks"], "|", live[0]),
+            ("fired masks", meta["fired_masks"], "/", live[1])):
+        for n, m in got.items():
+            flax = saved[n.replace(".", sep)]
+            check(flax.ndim == params_t[n].dim() and flax.shape == tuple(
+                params_t[n].shape[i] for i in {4: (2, 3, 1, 0),
+                                               5: (2, 3, 4, 0, 1)}[flax.ndim]),
+                f"[dsff] cli: 'latest' {what} {n} of shape {flax.shape}")
+        back = masks_for_model(saved, model_t, what, sep=sep)
+        for n, m in got.items():
+            check(np.array_equal(back[n], m.numpy()), f"[dsff] cli: "
+                  f"'latest' {what} {n} differs from the run's")
+    loaded_m, loaded_f = runs[1]["loaded"]
+    for n in live[0]:
+        check(torch.equal(loaded_m[n], live[0][n]) and torch.equal(
+            loaded_f[n], live[1][n]), f"[dsff] cli -c: {n} differs from "
+            f"'latest'")
+    gmp_log = open(gm.logger.log_file).read()
+    gmp_dens = [float(v) for v in re.findall(
+        r"GMP prune at epoch \d+: density=([0-9.]+)", gmp_log)]
+    check(len(gmp_dens) == 2 and gmp_dens[1] < gmp_dens[0],
+          f"[dsff] cli GMP: densities {gmp_dens}")
+    check("DSFF update" not in gmp_log, "[dsff] cli GMP: a DSFF update ran")
+    losses = g1.all_tr_losses + g2.all_tr_losses + gm.all_tr_losses
+    check(all(np.isfinite(losses)), f"[dsff] cli: epoch losses {losses}")
+    print(f"[dsff] cli.train --sparse_init ERK --prune_mode global --growth "
+          f"gradient --update_frequency 2: 4 steps, then -c 4 more; "
+          f"regrow_ratio {runs[0]['ratios']} then {runs[1]['ratios']} (the "
+          f"latch restarts at 1.01 on -c, as the reference's), each equal "
+          f"to the host's and to the log; density "
+          f"{masks_density(g2.state.masks, g2.network):.4f}; 'latest' "
+          f"element masks and fired masks in the flax layout, back equal "
+          f"to the bit; {walls[0]:.1f} s + {walls[1]:.1f} s", flush=True)
+    print(f"[dsff] cli.train --sparse_init GMP --init-prune-epoch 0 "
+          f"--final-prune-epoch 2: 2 epochs, GMP densities {gmp_dens}, "
+          f"epoch losses {gm.all_tr_losses}; {walls[2]:.1f} s", flush=True)
+    del runs, g1, g2, gm, model_t, params_t, latest, live
+    torch.cuda.empty_cache()
+
+    # ---- cli.predict with the global run's fold: dense masked
+    os.environ["RESULTS_FOLDER"] = results["global"]
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dsff_")
+    inp = os.path.join(tmp.name, "in")
+    os.makedirs(inp)
+    case = TRAIN_VAL[0]
+    os.symlink(os.path.join(paths["images"], f"{case}_0000.nii.gz"),
+               os.path.join(inp, f"{case}_0000.nii.gz"))
+    seen = []
+    real_case = predictor.predict_case
+
+    def spy(bundle, d, *a, **k):
+        before = counts()
+        out = real_case(bundle, d, *a, **k)
+        padded, _ = pad_volume_to_patch(d, bundle.patch_size)
+        steps = compute_steps_for_sliding_window(bundle.patch_size,
+                                                 padded.shape[1:], 0.5)
+        seen.append((bundle.sparse_plan, d_counts(before),
+                     int(np.prod([len(s) for s in steps])),
+                     TTA if k.get("do_tta", True) else 1,
+                     kernel_launches_per_forward(bundle.fold_models[0])))
+        return out
+    predictor.predict_case = spy
+    t0 = time.perf_counter()
+    try:
+        pcli.main(["-i", inp, "-o", os.path.join(tmp.name, "out"), "-t",
+                   TRAIN_TASK, "-f", "0"])
+    finally:
+        predictor.predict_case = real_case
+    check(len(seen) == 1, f"[dsff] predict: {len(seen)} cases")
+    plan, got, tiles, passes, per_fwd = seen[0]
+    want_p = {n: tiles * passes * per_fwd.get(n, 0) for n in got}
+    check(plan is None, "[dsff] predict: element masks took the row plan")
+    check(got == want_p, f"[dsff] predict: launches {got} != {want_p}")
+    seg = read_nifti(os.path.join(tmp.name, "out", f"{case}.nii.gz")).array
+    labels = np.unique(seg)
+    check(seg.shape == TRAIN_CASES[case] and int(labels.min()) >= 0
+          and int(labels.max()) < NUM_CLASSES, f"[dsff] predict: shape "
+          f"{seg.shape}, labels {labels}")
+    print(f"[dsff] cli.predict with the global run's fold on {case}: dense "
+          f"masked (no plan), {tiles} tiles x {passes} passes, launches "
+          f"{ {n: v for n, v in got.items() if v} }; labels "
+          f"{labels.tolist()}; {time.perf_counter() - t0:.1f} s", flush=True)
+    tmp.cleanup()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[dsff] ms per mask update (CUDA events; the gradient step "
+          f"included where one runs): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in update_ms.items())
+          + f"; peak memory allocated: the steps and updates "
+          f"{steps_peak:.2f} GiB, GraSP and the CLI {peak:.2f} GiB; the phase "
+          f"took {time.perf_counter() - t_phase:.1f} s  [{smi}]", flush=True)
+    check("jax" not in sys.modules, "[dsff] jax was imported")
+
+
 def bench_phase(smi):
     """[bench] python -m e2enet_tpu_torch.bench at its defaults (the sparse
     model, fast mode) in a subprocess: exit 0 and a last stdout line with
@@ -2637,6 +3214,31 @@ def options_only() -> None:
           flush=True)
 
 
+def dsff_only() -> None:
+    """--dsff: the build, [trainer]'s planned task and the [dsff] phase
+    alone (its launches printed as JSON)."""
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    for op in ops.values():
+        op.launches = 0
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dsff_") as tmp:
+        paths = plan_train_task(tmp, smi)
+        dsff_phase(ops, lambda: {n: op.launches for n, op in ops.items()},
+                   smi, paths)
+    print(json.dumps({"dsff_launches": {n: op.launches
+                                        for n, op in ops.items()}}),
+          flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2649,6 +3251,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--options"]:
         options_only()
+        return
+    if sys.argv[1:] == ["--dsff"]:
+        dsff_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -3144,19 +3749,23 @@ def main() -> None:
 
     # ---- 10. trainer: the users' training path, train CLI to predict CLI;
     # ---- 11. options: the trainer's options, on the task [trainer] planned
+    # ---- 12. dsff: every DSFF engine, on the same task
     def options(paths):
         reset_counts()
         options_phase(ops, counts, smi, paths)
         launches["options"] = counts()
+        reset_counts()
+        dsff_phase(ops, counts, smi, paths)
+        launches["dsff"] = counts()
     launches["trainer"] = trainer_phase(ops, reset_counts, counts, smi,
                                         then=options)
 
-    # ---- 12. experiments: the experiment kernels, then their mains
+    # ---- 13. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    # ---- 13. report
+    # ---- 14. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -3200,11 +3809,13 @@ def main() -> None:
           "volumes, the up-link's from the data-flip path's volume, the "
           "backward kernels' from the train path's steps, the experiment "
           "kernels' from the experiments' mains (launches_by_path: all "
-          "eight, 'predict' over the folder run A's two cases, 'trainer' "
+          "nine, 'predict' over the folder run A's two cases, 'trainer' "
           "over the [trainer] phase: train steps, validation batches, the "
           "validations and the predict CLI; 'options' over the [options] "
           "phase: train, gradient and loss steps, the CLI run's "
-          "validation batches)", flush=True)
+          "validation batches; 'dsff' over the [dsff] phase: train and "
+          "gradient steps of every DSFF engine, the CLI runs' validation "
+          "batches and one predicted case)", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
     for name, (src, rep) in sources.items():

@@ -24,14 +24,19 @@ must be present; `--device cpu` trains the plain torch versions of every
 kernel. -tr names a preset of training/variants.py whose keys go to the
 trainer as the JAX CLI maps them (variant_kwargs): optimizers, learning
 rates and their schedules, momentum, losses, epochs, precision, batch
-dice. Refused, each naming the ROADMAP item that ports it: --network 2d
-(Queue 1 item 3c), 3d_lowres and 3d_cascade_fullres (item 4e), a preset
-that sets an augmentation level, the cascade, regions, the
-deep-supervision mode, per-epoch validation or export options (item 4e)
-or an architecture switch (item 6), --num_devices above 1 and
---spatial_parallel (item 7), --device_augment (item 8), and the DSFF
-settings of item 4c. --fused, --no_fused and --remat choose between XLA
-programs of the JAX package and are rejected.
+dice. Every DSFF setting of the JAX trainer trains: --sparse_init
+uniform|dense|uniform_ori|ERK|GMP|lottery_ticket, --prune_mode
+local|global (global on element masks), --granularity
+auto|kernel|element|row (row with uniform), --growth random|gradient,
+--final_density with --init-prune-epoch / --final-prune-epoch (the global
+prune's schedule, GMP's window) and --multiplier (GMP). Refused, each
+naming the ROADMAP item that ports it: --network 2d (Queue 1 item 3c),
+3d_lowres and 3d_cascade_fullres (item 4e), a preset that sets an
+augmentation level, the cascade, regions, the deep-supervision mode,
+per-epoch validation or export options (item 4e) or an architecture switch
+(item 6), --num_devices above 1 and --spatial_parallel (item 7),
+--device_augment (item 8). --fused, --no_fused and --remat choose between
+XLA programs of the JAX package and are rejected.
 """
 import argparse
 

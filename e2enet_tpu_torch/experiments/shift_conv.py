@@ -41,7 +41,8 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from ..ops.autograd import check_device, needs_grad, plain_vjp
+from ..ops.autograd import (check_device, first_order_only, needs_grad,
+                             plain_vjp)
 from ..ops.blocks import conv3d_as_2d
 from ..ops.fused_block import fused_shift_conv_block
 from ..ops.shift import (depth_shift, depth_shift_groups, group_shifts,
@@ -105,6 +106,7 @@ class _RingShiftFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        first_order_only("depth_shift_ring")
         return _shift_forward(g, mirror_groups(ctx.groups)), None
 
 

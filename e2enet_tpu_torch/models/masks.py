@@ -4,10 +4,16 @@ density. Counterpart of the inference subset of e2enet_tpu/training/dsff.py
 (is_masked_path, apply_masks, masks_density) and of bench.py's artifact
 load, in the port's layouts. numpy and torch only.
 
-A mask is stored (in, out), as the reference stores it, and broadcast over
-the spatial kernel dims:
+A mask has one of two granularities (reference mask_granularity,
+dsff.py:305-315). A kernel-pair (or row) mask is stored (in, out), as the
+reference stores it, and broadcast over the spatial kernel dims:
   conv kernel        (CO, C, kh, kw)           * mask.T[:, :, None, None]
   transp-conv kernel (Cin, Cout, sd, sh, sw)   * mask[:, :, None, None, None]
+An element mask has its kernel's full shape, in the port's layout on the
+port's side and in the flax layout ((kh, kw, in, out), (kd, kh, kw, in,
+out)) in checkpoints and artifacts; it crosses between the two by the
+weights' own permutations (models/weights.py). The rank tells the two
+apart: 2 is (in, out), 4 or 5 is element.
 
 The artifact (experiments/logs/bench_masks_trained.npz) keys its masks by
 the flax path joined with '|' ('loc0_0|block0|kernel'); the port's name is
@@ -19,6 +25,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from .weights import _KERNEL_PERM, _KERNEL_UNPERM
 
 MASKED_TOKENS = ("loc", "up")
 EXCLUDED_TOKENS = ("context",)
@@ -55,8 +63,28 @@ def mask_shape(param: torch.Tensor) -> Tuple[int, int]:
     raise ValueError(f"no mask layout for a kernel of rank {param.dim()}")
 
 
+def is_element_mask(mask) -> bool:
+    """Whether a mask is element-granular (its kernel's full shape, rank 4
+    or 5) rather than (in, out)."""
+    return len(mask.shape) != 2
+
+
+def check_mask(name: str, mask, param: torch.Tensor) -> None:
+    """Raise unless the mask is the kernel's (in, out) or, element-
+    granular, its full shape in the port's layout."""
+    want = (tuple(param.shape) if is_element_mask(mask)
+            else mask_shape(param))
+    if tuple(mask.shape) != want:
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} for a kernel of "
+                         f"shape {tuple(param.shape)} (in, out) "
+                         f"{mask_shape(param)}")
+
+
 def broadcast_mask(mask: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
-    """An (in, out) mask shaped to broadcast over the kernel's layout."""
+    """A mask shaped to broadcast over the kernel's layout: an (in, out)
+    mask over the spatial dims, an element mask as it is."""
+    if is_element_mask(mask):
+        return mask
     if param.dim() == 4:
         return mask.t()[:, :, None, None]
     return mask[:, :, None, None, None]
@@ -64,14 +92,13 @@ def broadcast_mask(mask: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
 
 def apply_masks_to(tensors: Dict[str, torch.Tensor], masks) -> None:
     """t *= mask in place for every named tensor with a mask (a kernel or
-    its optimizer state, in the kernel's layout); masks are (in, out)
-    numpy arrays or tensors, checked against each tensor's (in, out)."""
+    its optimizer state, in the kernel's layout); masks are numpy arrays or
+    tensors, (in, out) or element-granular, checked against each tensor
+    (check_mask)."""
     with torch.no_grad():
         for name, m in masks.items():
             t = tensors[name]
-            if tuple(m.shape) != mask_shape(t):
-                raise ValueError(f"{name}: mask {tuple(m.shape)} for a "
-                                 f"kernel of (in, out) {mask_shape(t)}")
+            check_mask(name, m, t)
             mt = torch.as_tensor(m, dtype=t.dtype, device=t.device)
             t.mul_(broadcast_mask(mt, t))
 
@@ -79,56 +106,71 @@ def apply_masks_to(tensors: Dict[str, torch.Tensor], masks) -> None:
 def apply_masks(model: nn.Module, masks) -> None:
     """w *= mask on every masked kernel, in place (reference apply_masks:
     the reference's inference semantics). Each mask must have its
-    kernel's (in, out) shape."""
+    kernel's (in, out) shape or its full shape."""
     apply_masks_to(masked_params(model), masks)
 
 
 def load_mask_artifact(path, model: nn.Module) -> Dict[str, np.ndarray]:
     """The masks of a masks-only .npz keyed by '|'-joined flax paths, as
-    {port name: (in, out) float32}. Refuses a missing or an extra key and a
-    mask whose shape is not its kernel's (in, out)."""
+    {port name: float32 mask in the port's layout} (masks_for_model)."""
     with np.load(path) as z:
         flax_masks = {k: z[k] for k in z.files}
     return masks_for_model(flax_masks, model, f"mask artifact {path}")
 
 
-def masks_for_model(flax_masks, model: nn.Module, what: str = "masks"
-                    ) -> Dict[str, np.ndarray]:
-    """{'|'-joined flax path: (in, out) mask} (a checkpoint's or an
-    artifact's) as {port name: (in, out) float32}, checked against the
-    model: no missing or extra key, every mask its kernel's (in, out)."""
+def masks_for_model(flax_masks, model: nn.Module, what: str = "masks",
+                    sep: str = "|") -> Dict[str, np.ndarray]:
+    """{sep-joined flax path: mask in the flax layout} (a checkpoint's, its
+    fired masks' or an artifact's) as {port name: float32 mask in the
+    port's layout}, checked against the model: no missing or extra key,
+    every mask its kernel's (in, out) or its full shape (check_mask)."""
     params = masked_params(model)
-    masks = {k.replace("|", "."): np.asarray(v, np.float32)
-             for k, v in flax_masks.items()}
+    masks = {}
+    for k, v in flax_masks.items():
+        m = np.asarray(v, np.float32)
+        if is_element_mask(m):
+            m = np.ascontiguousarray(m.transpose(_KERNEL_PERM[m.ndim]))
+        masks[k.replace(sep, ".")] = m
     missing = sorted(set(params) - set(masks))
     extra = sorted(set(masks) - set(params))
     if missing or extra:
         raise ValueError(f"{what} does not fit the model: missing "
                          f"{missing[:4]}, extra {extra[:4]}")
     for name, m in masks.items():
-        if m.shape != mask_shape(params[name]):
-            raise ValueError(f"{name}: mask {m.shape} for a kernel of "
-                             f"(in, out) {mask_shape(params[name])}")
+        check_mask(name, m, params[name])
     return masks
 
 
+def masks_to_flax(masks, sep: str = "|") -> Dict[str, np.ndarray]:
+    """masks_for_model's inverse: {port name: mask} as {sep-joined flax
+    path: float32 numpy mask in the flax layout}."""
+    out = {}
+    for name, m in masks.items():
+        a = np.asarray(m.detach().cpu().float() if isinstance(
+            m, torch.Tensor) else m, np.float32)
+        if is_element_mask(a):
+            a = np.ascontiguousarray(a.transpose(_KERNEL_UNPERM[a.ndim]))
+        out[name.replace(".", sep)] = a
+    return out
+
+
 def save_mask_artifact(path, masks) -> None:
-    """Write {port name: (in, out) mask} as the masks-only .npz that
-    load_mask_artifact reads: keys the '|'-joined paths, values float32."""
-    arrays = {name.replace(".", "|"): np.asarray(
-        m.detach().cpu() if isinstance(m, torch.Tensor) else m, np.float32)
-        for name, m in masks.items()}
+    """Write {port name: mask} as the masks-only .npz that
+    load_mask_artifact reads: keys the '|'-joined paths, values float32 in
+    the flax layout."""
     with open(path, "wb") as f:
-        np.savez_compressed(f, **arrays)
+        np.savez_compressed(f, **masks_to_flax(masks))
 
 
 def masks_density(masks, model: nn.Module) -> float:
-    """Element density over the masked kernels (reference masks_density):
-    each (in, out) entry counts its kernel's spatial taps."""
+    """Element density over the masked kernels (reference masks_density,
+    dsff.py:348-359): each (in, out) entry counts its kernel's spatial
+    taps, each entry of an element mask once."""
     params = masked_params(model)
     nz = tot = 0.0
     for name, m in masks.items():
-        taps = int(np.prod(params[name].shape[2:]))
+        taps = (1 if is_element_mask(m)
+                else int(np.prod(params[name].shape[2:])))
         nz += float(m.sum()) * taps
         tot += int(np.prod(m.shape)) * taps
     return nz / tot

@@ -1,7 +1,17 @@
 """What the ops' autograd functions share: whether a gradient is wanted,
 the device check of a kernel launch, the flat (parts..., kernel, bias,
-affines...) layout of a block op's tensors, and the op whose backward is
-torch's autograd of its plain version."""
+affines...) layout of a block op's tensors, the op whose backward is
+torch's autograd of its plain version, and the refusal of a double
+backward.
+
+Every kernel op's backward is first order: the backward kernels compute
+first derivatives, and _PlainVJP takes torch's autograd of the plain
+version without building a graph of it. A double backward through any of
+them (torch.autograd.grad(..., create_graph=True), a Hessian-vector
+product) would drop terms of the second derivative without a word, so
+each backward raises instead (first_order_only). Second derivatives run
+the model under ops.blocks.plain_ops(), whose plain versions torch
+differentiates twice (training/dsff.init_masks_grasp)."""
 import torch
 
 
@@ -80,6 +90,19 @@ def wanted_parts(needs, n_parts, has_affine):
     return want
 
 
+def first_order_only(name: str) -> None:
+    """Raise inside a kernel op's backward when autograd is building a
+    graph of it (create_graph=True: grad mode is on in the backward only
+    then)."""
+    if torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name}: a double backward (create_graph=True) through a "
+            f"hand-written kernel's op; its backward is first order and "
+            f"would drop terms. Run the model under "
+            f"e2enet_tpu_torch.ops.blocks.plain_ops() for second "
+            f"derivatives")
+
+
 class _PlainVJP(torch.autograd.Function):
     """An op whose backward is torch's autograd of its plain version
     recomputed on the saved inputs, as the reference's custom VJPs delegate
@@ -94,6 +117,7 @@ class _PlainVJP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gouts):
+        first_order_only("plain_vjp")
         need = ctx.needs_input_grad[1:]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n)

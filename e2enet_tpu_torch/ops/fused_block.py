@@ -54,8 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from .autograd import (affine_grads, affine_tensors, block_cotangents,
-                       check_device, grad_like, needs_grad, unflatten_affines,
-                       wanted_parts)
+                       check_device, first_order_only, grad_like, needs_grad,
+                       unflatten_affines, wanted_parts)
 from .shift import depth_shift_groups, group_shifts, mirror_groups
 
 LRELU_SLOPE = 0.01
@@ -347,6 +347,7 @@ class _FusedBlockFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gstats):
+        first_order_only("fused_shift_conv_block")
         flips, groups, P, has_affine = ctx.meta
         *tensors, y = ctx.saved_tensors
         parts, (kernel, bias) = list(tensors[:P]), tensors[P:P + 2]

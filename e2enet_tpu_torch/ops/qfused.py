@@ -39,7 +39,8 @@ from typing import NamedTuple, Sequence
 import torch
 
 from .autograd import (affine_grads, affine_tensors, block_cotangents,
-                       grad_like, needs_grad, unflatten_affines, wanted_parts)
+                       first_order_only, grad_like, needs_grad,
+                       unflatten_affines, wanted_parts)
 from .fused_block import (NO_FLIPS, Affine, Flips, affine_nc, block_groups,
                           fused_shift_conv_block_bwd,
                           fused_shift_conv_block_ref, mirror_conv_kernel)
@@ -169,6 +170,7 @@ class _LazyBlockFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gstats):
+        first_order_only("lazy_up_fused_block")
         flips, groups, P, has_affine = ctx.meta
         *tensors, y = ctx.saved_tensors
         need = ctx.needs_input_grad[1:]

@@ -47,7 +47,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .autograd import check_device, grad_like, needs_grad, plain_vjp
+from .autograd import (check_device, first_order_only, grad_like, needs_grad,
+                       plain_vjp)
 from .fused_block import LRELU_SLOPE, NO_FLIPS, Flips, affine_nc, lrelu_max
 
 
@@ -286,6 +287,7 @@ class _DownlinkFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
+        first_order_only("downlink")
         x, mult, off = ctx.saved_tensors
         gx, gm, go = downlink_bwd(x, mult, off, gy, ctx.window)
         return (None, grad_like(gx, x), grad_like(gm, mult),

@@ -8,7 +8,8 @@ The format (e2enet_tpu/training/checkpoint.py:30-80): `{Tconv}_model_
              "momentum": SGD's momentum tree, same layout, or the
                          optimizer's state: a RangerState or AdamState of
                          such trees and an int32 step,
-             "masks": {'|'-joined flax path: (in, out) array} or None,
+             "masks": {'|'-joined flax path: (in, out) array, or an
+                       element mask of its kernel's flax shape} or None,
              "rng": numpy array, "step": int},
    "metadata": dict}
 
@@ -34,7 +35,8 @@ A trainer's whole state (training/train_state.TrainState; reference
 state_to_numpy :30, save_checkpoint :60) goes through state_to_numpy and
 save_train_state: params and the optimizer's buffers in the flax layout
 by the same mapping (to_jax_params, transposes included), the masks by
-'|'-joined flax path, the step, and the reference's uint32[2] PRNG key.
+'|'-joined flax path (an element mask transposed as its kernel,
+models/masks.masks_to_flax), the step, and the reference's uint32[2] PRNG key.
 The port's own draws come from a torch.Generator: its state goes into the
 metadata under GENERATOR_KEY as a uint8 array, which the JAX loader
 ignores (a JAX trainer's save does not keep it; the port then seeds its
@@ -50,7 +52,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.masks import masks_for_model
+from ..models.masks import masks_for_model, masks_to_flax
 from ..models.weights import from_jax_params, to_jax_params
 from ..utils.files import save_pickle
 from .ranger import RangerState
@@ -145,8 +147,8 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], int, dict]:
     """(state, epoch, metadata) of a checkpoint: state holds "params" as
     nested dicts of numpy arrays, "momentum" as such a tree (SGD's) or a
     RangerState / AdamState of such trees and a numpy step, "masks" as
-    {'|'-joined flax path: (in, out) float32 array} or None, "rng" and
-    "step"."""
+    {'|'-joined flax path: float32 array in the flax layout, (in, out) or
+    element-granular} or None, "rng" and "step"."""
     payload = _read_payload(path)
     d = payload["state"]
     masks = d.get("masks")
@@ -169,7 +171,8 @@ def save_checkpoint(path: str, params, epoch: int, masks=None,
     """Write the JAX package's checkpoint from numpy trees: params (and
     momentum, zeros of params' shapes when None; or a RangerState /
     AdamState of such trees and a step) as nested dicts in the flax
-    layout, masks as {'|'-joined flax path: (in, out)} or None, rng a
+    layout, masks as {'|'-joined flax path: (in, out) or an element mask
+    in the flax layout} or None, rng a
     uint32 key array (that of PRNGKey(0) when None)."""
     params = _to_numpy(params)
     if momentum is None:
@@ -226,12 +229,9 @@ def _opt_kind(opt) -> str:
 def state_to_numpy(state) -> Dict[str, Any]:
     """A TrainState as the JAX package stores one (reference
     state_to_numpy, checkpoint.py:30-42): params and momentum as the flax
-    trees, masks by '|'-joined flax path (None without masks), rng the
-    uint32[2] key, step an int."""
-    masks = None
-    if state.masks is not None:
-        masks = {name.replace(".", "|"): m.detach().cpu().float().numpy()
-                 for name, m in state.masks.items()}
+    trees, masks by '|'-joined flax path in the flax layout (None without
+    masks), rng the uint32[2] key, step an int."""
+    masks = None if state.masks is None else masks_to_flax(state.masks)
     rng = (np.zeros(2, np.uint32) if state.rng is None
            else np.asarray(state.rng, np.uint32))
     return {"params": to_jax_params(state.params),

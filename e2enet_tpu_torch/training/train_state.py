@@ -50,7 +50,8 @@ class TrainState:
     params: Dict[str, nn.Parameter]       # the model's, by name
     # SGD's momentum by name, or a RangerState / AdamState
     momentum: Union[Dict[str, torch.Tensor], RangerState, "AdamState"]
-    masks: Optional[Dict[str, torch.Tensor]]   # (in, out) per masked kernel
+    # per masked kernel, (in, out) or element-granular
+    masks: Optional[Dict[str, torch.Tensor]]
     generator: torch.Generator            # the mask updates' draws (CPU)
     step: int = 0
     # the reference's PRNG key (uint32[2]) as a checkpoint stores it: that
@@ -272,28 +273,51 @@ def make_eval_step(model: nn.Module, ds_weights, batch_dice: bool = True,
     return eval_step
 
 
-def make_mask_update_step(model: nn.Module, growth: str = "random",
-                          granularity: str = "row"):
-    """update(state, death_rate, grads=None) -> state with new masks, the
-    parameters and every buffer of the optimizer's state masked by them
-    (reference make_mask_update_step, train_state.py:241-267, the local
-    prune): row or kernel granularity, random growth (draws from
-    state.generator) or gradient growth (grads: {name: gradient}, as
-    make_grad_step returns them)."""
-    if growth not in ("random", "gradient") or \
-            granularity not in ("row", "kernel"):
-        raise NotImplementedError(f"{granularity!r} granularity with "
-                                  f"{growth!r} growth: "
-                                  f"{dsff.NOT_PORTED_ITEM}")
+def apply_new_masks(state: TrainState, masks) -> TrainState:
+    """state.masks = masks, applied in place to the parameters and to every
+    buffer of the optimizer's state (SGD, Ranger and Adam alike)."""
+    apply_masks_to(state.params, masks)
+    mask_opt_state(state.momentum, masks)
+    state.masks = masks
+    return state
 
-    def update(state: TrainState, death_rate: float, grads=None):
-        new_masks, _ = dsff.death_growth_update(
-            model, state.masks, death_rate, state.generator,
-            granularity=granularity, growth=growth, grads=grads)
-        apply_masks_to(state.params, new_masks)
-        mask_opt_state(state.momentum, new_masks)
-        state.masks = new_masks
-        return state
+
+def make_mask_update_step(model: nn.Module, growth: str = "random",
+                          prune_mode: str = "local",
+                          granularity: str = "row"):
+    """update(state, death_rate, grads=None, regrow_ratio=1.0) -> state with
+    new masks, the parameters and every buffer of the optimizer's state
+    masked by them (reference make_mask_update_step, train_state.py:
+    241-267). prune_mode 'local': the per-layer death and growth at row,
+    kernel or element granularity, growth by random draws (from
+    state.generator) or by gradient (grads: {name: gradient}, as
+    make_grad_step returns them); 'global': truncate_weights_global on
+    element masks, the regrow budget scaled by regrow_ratio (the
+    gradual-density schedule's), growth by gradient."""
+    dsff.check_growth(growth)
+    if prune_mode not in ("local", "global"):
+        raise ValueError(f"unknown prune_mode {prune_mode!r}: 'local' or "
+                         f"'global'")
+    if granularity not in ("row", "kernel", "element"):
+        raise ValueError(f"unknown granularity {granularity!r}")
+    if prune_mode == "global" and granularity != "element":
+        raise ValueError("global prune/grow runs on element-granular "
+                         "(full-shape) masks")
+
+    def update(state: TrainState, death_rate: float, grads=None,
+               regrow_ratio: float = 1.0):
+        if prune_mode == "global":
+            if grads is None:
+                raise ValueError("the global prune grows by gradient and "
+                                 "needs the gradients")
+            new_masks, _ = dsff.truncate_weights_global(
+                model, state.masks, death_rate, regrow_ratio, grads,
+                state.generator)
+        else:
+            new_masks, _ = dsff.death_growth_update(
+                model, state.masks, death_rate, state.generator,
+                granularity=granularity, growth=growth, grads=grads)
+        return apply_new_masks(state, new_masks)
 
     return update
 

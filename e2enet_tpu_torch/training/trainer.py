@@ -31,14 +31,19 @@ optimizer (SGD, Ranger, Adam), the learning-rate schedule (poly, warmup,
 fixed, fixed2, cycle, plateau: ReduceLROnPlateau stepped on
 train_loss_MA), the momentum and its reduction, the loss (any name of
 ops/losses.LOSS_REGISTRY with its kwargs) and the CE -> Dice transition.
-DSFF grows by random draws or by gradient (a plain gradient of the loss on
-the update step's batch, make_grad_step).
+DSFF (training/dsff.py), every setting of the reference trainer: the
+kernel-pair, row and element inits (uniform, dense, uniform_ori, ERK),
+GMP with its per-epoch prune, the lottery ticket; the local prune at row,
+kernel or element granularity, grown by random draws or by gradient (a
+plain gradient of the loss on the update step's batch, make_grad_step);
+the global prune with its gradual-density schedule. snip and GraSP need a
+data batch and are library functions (dsff.init_masks_element,
+dsff.init_masks_grasp), as in the reference.
 
 Not ported, each raising NotImplementedError that names its ROADMAP item:
 the cascade and region trainers and the variants' augmentation levels,
 deep-supervision mode, per-epoch validation and export options (Queue 1
-item 4e), DSFF beyond the local prune at kernel or row granularity (item
-4c), the architecture switches (item 6), several devices (item 7) and
+item 4e), the architecture switches (item 6), several devices (item 7) and
 device augmentation (item 8). `fused` and `remat` choose between XLA
 programs of the reference and have no meaning here.
 """
@@ -56,7 +61,7 @@ from ..data.dataset import do_split, load_case, load_dataset, unpack_dataset
 from ..data.pipeline import BatchPipeline
 from ..data.sampler import PatchSampler3D
 from ..inference.predictor import mirror_apply_fns_for, require_device
-from ..models.masks import masks_density
+from ..models.masks import masks_density, masks_for_model, masks_to_flax
 from ..models.unetpp import (build_network, deep_supervision_scales,
                              ds_loss_weights)
 from ..plans import Plans
@@ -68,7 +73,7 @@ from .checkpoint import load_train_state, save_train_state
 from .lr import (ReduceLROnPlateau, ce_to_dice_weights, cycle_at_end_lr,
                  fixed_schedule2_lr, fixed_schedule_lr, poly_lr,
                  reduce_momentum, warmup_poly_lr)
-from .train_state import (create_train_state, make_eval_step,
+from .train_state import (apply_new_masks, create_train_state, make_eval_step,
                           make_grad_step, make_mask_update_step,
                           make_train_step)
 
@@ -139,8 +144,6 @@ class Trainer:
         cycle | plateau; momentum_schedule: None | 'reduce'; loss_schedule:
         None | 'ce_to_dice'."""
         refuse_unported(**options)
-        if dsff_config is not None and dsff_config.sparse:
-            dsff_config.check_ported()
         self.device = require_device(device)
         self.plans = plans
         self.fold = fold
@@ -225,20 +228,10 @@ class Trainer:
         masks = None
         self.fired_masks = None
         if self.dsff_config is not None and self.dsff_config.sparse:
-            cfg = self.dsff_config
-            gen = torch.Generator().manual_seed(self.seed + 1)
-            if cfg.granularity == "row":
-                masks = dsff.init_masks_row(self.network, cfg.density, gen)
-            else:
-                masks = dsff.init_masks(self.network, cfg.density, gen,
-                                        mode=cfg.sparse_init)
-            if cfg.final_density != cfg.density:
-                self.logger.log(
-                    "NOTE: final_density has no effect with "
-                    "prune_mode='local' (the per-layer engine is density-"
-                    "preserving, as in the reference)")
+            masks = self._init_masks(self.dsff_config)
             # ITOP fired-mask bookkeeping (core_channel.py:861-876)
             self.fired_masks = {k: v.clone() for k, v in masks.items()}
+            self._regrow_ratio = 1.01   # reference initial (:97)
             self.t_max = self.max_num_epochs * self.num_batches_per_epoch
         self.state = create_train_state(self.network, masks, seed=self.seed,
                                         optimizer=self.optimizer)
@@ -255,15 +248,28 @@ class Trainer:
             dynamic_loss_weights=ce_to_dice)
         if masks is not None:
             cfg = self.dsff_config
-            self.mask_granularity = (
-                cfg.granularity if cfg.granularity != "auto"
-                else dsff.mask_granularity(masks, self.network))
+            made = dsff.mask_granularity(masks, self.network)
+            self.mask_granularity = (cfg.granularity
+                                     if cfg.granularity != "auto" else made)
+            if cfg.granularity not in ("auto", "row", made):
+                raise ValueError(f"--granularity {cfg.granularity}: "
+                                 f"sparse_init {cfg.sparse_init!r} makes "
+                                 f"{made} masks")
+            if (cfg.prune_mode == "global"
+                    and self.mask_granularity != "element"):
+                raise ValueError(
+                    f"--prune_mode global: global prune/grow runs on "
+                    f"element-granular (full-shape) masks; sparse_init "
+                    f"{cfg.sparse_init!r} at granularity "
+                    f"{self.mask_granularity!r} does not make them "
+                    f"(uniform_ori, ERK, GMP or lottery_ticket do)")
             self.mask_update = make_mask_update_step(
-                self.network, cfg.growth, granularity=self.mask_granularity)
-            # gradient growth reads the gradient of the loss on the
-            # update step's batch (the reference's weight.grad)
+                self.network, cfg.growth, prune_mode=cfg.prune_mode,
+                granularity=self.mask_granularity)
+            # gradient growth and the global grow read the gradient of the
+            # loss on the update step's batch (the reference's weight.grad)
             self._dsff_grad_step = None
-            if cfg.growth == "gradient":
+            if cfg.growth == "gradient" or cfg.prune_mode == "global":
                 self._dsff_grad_step = make_grad_step(
                     self.network, self.ds_weights, self.batch_dice,
                     loss_name=self.loss_name)
@@ -276,6 +282,44 @@ class Trainer:
                         f"batch={self.batch_size} classes={self.num_classes} "
                         f"device={self.device} "
                         f"{'bf16' if self.fp16 else 'float32'}")
+
+    def _init_masks(self, cfg: dsff.DSFFConfig):
+        """The initial masks of cfg.sparse_init, drawn from a generator
+        seeded with seed + 1, with the reference trainer's refusals and
+        note (trainer.py:231-262)."""
+        mode = cfg.sparse_init
+        gen = torch.Generator().manual_seed(self.seed + 1)
+        if cfg.granularity == "row":
+            if mode != "uniform":
+                raise ValueError("row granularity supports "
+                                 "sparse_init='uniform'")
+            masks = dsff.init_masks_row(self.network, cfg.density, gen)
+        elif mode in ("uniform", "dense"):
+            # kernel-granular engine (core_channel.py)
+            masks = dsff.init_masks(self.network, cfg.density, gen,
+                                    mode=mode)
+        elif mode in ("uniform_ori", "ERK"):
+            # element-granular engine (core.py)
+            masks = dsff.init_masks_element(self.network, cfg.density, gen,
+                                            mode=mode)
+        elif mode == "GMP":
+            masks = dsff.init_masks_gmp(self.network)
+        elif mode == "lottery_ticket":
+            masks = dsff.init_masks_lottery(self.network, cfg.density)
+        else:
+            raise ValueError(
+                f"sparse_init '{mode}' not supported from the trainer "
+                "(uniform/dense/uniform_ori/ERK/GMP/lottery_ticket; "
+                "snip and GraSP need a data batch — use "
+                "dsff.init_masks_element / init_masks_grasp directly)")
+        if (cfg.prune_mode == "local" and mode != "GMP"
+                and cfg.final_density != cfg.density):
+            self.logger.log(
+                "NOTE: final_density has no effect with "
+                "prune_mode='local' (the per-layer engine is density-"
+                "preserving, as in the reference); use "
+                "--prune_mode global for the gradual-density schedule")
+        return masks
 
     def setup_da_params(self):
         rot = (-30.0 / 360 * 2 * np.pi, 30.0 / 360 * 2 * np.pi)
@@ -390,12 +434,16 @@ class Trainer:
         return m["loss"]
 
     def _maybe_dsff_step(self, data=None, targets=None):
-        """The local prune every update_frequency steps, growth by random
-        draws or by the gradient on this step's batch (reference
-        _maybe_dsff_step, trainer.py:484-524)."""
+        """The mask update every update_frequency steps (reference
+        _maybe_dsff_step, trainer.py:484-524): the local prune, growth by
+        random draws or by the gradient on this step's batch, or the global
+        prune with the regrow ratio of the gradual-density schedule from
+        the live counts. GMP prunes per epoch instead."""
         cfg = self.dsff_config
         if self.state.masks is None or cfg is None or cfg.fix:
             return
+        if cfg.sparse_init == "GMP":
+            return  # GMP prunes per epoch (_maybe_gmp_epoch_prune)
         step = int(self.state.step)
         freq = cfg.update_frequency
         if freq and step % freq == 0:
@@ -403,14 +451,48 @@ class Trainer:
             grads = None
             if self._dsff_grad_step is not None and data is not None:
                 grads = self._dsff_grad_step(data, targets)
-            self.state = self.mask_update(self.state, dr, grads)
+            if cfg.prune_mode == "global":
+                masks = self.state.masks
+                tw = float(sum(m.numel() for m in masks.values()))
+                tn = float(sum(float(m.sum()) for m in masks.values()))
+                self._regrow_ratio = dsff.grow_schedule_ratio(
+                    step, freq, self.num_batches_per_epoch, cfg.density,
+                    cfg.final_density, dr, tw, tn, tn / tw,
+                    self._regrow_ratio, cfg.init_prune_epoch,
+                    cfg.final_prune_epoch)
+                self.state = self.mask_update(self.state, dr, grads,
+                                              self._regrow_ratio)
+            else:
+                self.state = self.mask_update(self.state, dr, grads)
             self.fired_masks = dsff.update_fired(self.fired_masks,
                                                  self.state.masks)
             itop = dsff.fired_ratio(self.fired_masks)
             dens = masks_density(self.state.masks, self.network)
+            extra = (f" regrow_ratio={self._regrow_ratio:.4f}"
+                     if cfg.prune_mode == "global" else "")
             self.logger.log(f"DSFF update at step {step}: death_rate="
                             f"{dr:.4f} density={dens:.4f} "
-                            f"itop_rate={itop:.4f}")
+                            f"itop_rate={itop:.4f}{extra}")
+
+    def _maybe_gmp_epoch_prune(self):
+        """GMP's prune after each epoch's train losses (reference
+        trainer.py:526-547, truncate_weights_GMP of core_channel.py:
+        436-467): the cubic magnitude-prune ramp toward 1 - density, no
+        regrow; the parameters and the optimizer's state masked."""
+        cfg = self.dsff_config
+        if self.state.masks is None or cfg is None or not cfg.sparse:
+            return
+        if cfg.sparse_init != "GMP" or cfg.fix:
+            return
+        new_masks = dsff.gmp_prune_masks(
+            self.network, self.state.masks, self.epoch, cfg.density,
+            cfg.init_prune_epoch, cfg.final_prune_epoch, cfg.multiplier)
+        self.state = apply_new_masks(self.state, new_masks)
+        self.fired_masks = dsff.update_fired(self.fired_masks,
+                                             self.state.masks)
+        dens = masks_density(self.state.masks, self.network)
+        self.logger.log(f"GMP prune at epoch {self.epoch}: "
+                        f"density={dens:.4f}")
 
     def finish_online_evaluation(self):
         tp = np.sum([t.cpu().numpy() for t in self._online_tp], 0)
@@ -492,6 +574,7 @@ class Trainer:
             self.all_tr_losses.append(tr_loss)
             self.logger.log("train loss : %.4f" % tr_loss)
             self.update_train_loss_MA()
+            self._maybe_gmp_epoch_prune()
 
             self._online_tp, self._online_fp, self._online_fn = [], [], []
             val_losses = []
@@ -552,9 +635,9 @@ class Trainer:
             "val_eval_criterion_MA": self.val_eval_criterion_MA,
         }
         if self.fired_masks is not None:
-            metadata["fired_masks"] = {
-                k.replace(".", "/"): v.detach().cpu().numpy()
-                for k, v in self.fired_masks.items()}
+            # '/'-joined flax paths, element masks in the flax layout, as
+            # the reference's trainer writes them
+            metadata["fired_masks"] = masks_to_flax(self.fired_masks, "/")
         save_train_state(self.checkpoint_path(which), self.state, self.epoch,
                          metadata, sidecar)
         self.logger.log(f"saved checkpoint {which}")
@@ -574,9 +657,11 @@ class Trainer:
         self.val_eval_criterion_MA = metadata.get("val_eval_criterion_MA")
         dev = self.device
         if metadata.get("fired_masks") is not None:
-            self.fired_masks = {k.replace("/", "."): torch.from_numpy(
-                np.asarray(v, np.float32)).to(dev)
-                for k, v in metadata["fired_masks"].items()}
+            self.fired_masks = {n: torch.from_numpy(m).to(dev) for n, m in
+                                masks_for_model(
+                                    metadata["fired_masks"], self.network,
+                                    f"the fired masks of {path}",
+                                    sep="/").items()}
         elif self.state.masks is not None:
             self.fired_masks = {k: v.clone()
                                 for k, v in self.state.masks.items()}

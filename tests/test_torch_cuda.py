@@ -21,8 +21,10 @@ its routes (the route each shape takes asserted; the ring shift + conv
 on both of its routes likewise), #13 the pipelined block
 against #1 (equal to the bit) and its own control,
 #14 the bf16 and int8 products on the route each shape takes, counted per
-route, beside the mma.sync control, and the int8 repack of B). Imports no
-jax (the machine with the card has none); run there with
+route, beside the mma.sync control, and the int8 repack of B); a double
+backward through the kernel model refusing, and GraSP on the card (the
+plain path) against its CPU run. Imports no jax (the machine with the card
+has none); run there with
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
@@ -1246,3 +1248,69 @@ def test_anisotropic_plan_forward_launches_and_matches_plain():
     assert bool(torch.isfinite(k).all())
     e_k, e_p = (k - f).abs().mean(), (p - f).abs().mean()
     assert float(e_k) <= 1.25 * float(e_p)
+
+
+def _grasp_setup(dev, dtype):
+    from e2enet_tpu_torch.models.unetpp import ShiftUNetPlusPlus
+    net = ShiftUNetPlusPlus(1, 3, ((2, 2, 2),) * 3, base_num_features=8,
+                            compute_dtype=dtype, device=dev)
+    net.reset_parameters(seed=7)
+    rng = np.random.RandomState(8)
+    x = _rand(rng, dev, 1, 16, 16, 16, 1)
+    t = torch.from_numpy(rng.randint(0, 3, (1, 16, 16, 16))).long().to(dev)
+    return net, x, t
+
+
+def _grasp_loss(model, x, t):
+    from e2enet_tpu_torch.ops.losses import dc_and_ce_loss
+    return dc_and_ce_loss(model(x, do_ds=False), t)
+
+
+@pytest.mark.cuda
+def test_double_backward_through_the_kernels_refuses():
+    """The bf16 model on its kernels (the lazy up-link route, the block
+    and down-link backward kernels): a first-order gradient runs, a double
+    backward (create_graph=True) raises instead of dropping terms."""
+    from e2enet_tpu_torch.models.masks import masked_params
+    net, x, t = _grasp_setup(_card(), torch.bfloat16)
+    assert net.lazy_up_route()
+    ws = list(masked_params(net).values())
+    loss = _grasp_loss(net, x, t)
+    g = torch.autograd.grad(loss, ws, retain_graph=True)
+    assert all(bool(torch.isfinite(v).all()) for v in g)
+    with pytest.raises(RuntimeError, match="double backward"):
+        torch.autograd.grad(loss, ws, create_graph=True)
+
+
+@pytest.mark.cuda
+def test_grasp_on_the_card_matches_the_cpu():
+    """init_masks_grasp on the card takes the plain path (no kernel
+    launched) and gives the CPU run's scores within 1e-4 of the largest
+    |score| (float32, no TF32), its masks equal but where a score lies
+    within that tolerance of the threshold."""
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.training import dsff
+    dev = _card()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net, x, t = _grasp_setup(dev, torch.float32)
+    cpu, xc, tc = _grasp_setup("cpu", torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    xc, tc = x.cpu(), t.cpu()
+    ops = {n: op for n, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    before = {n: op.launches for n, op in ops.items()}
+    s_card = dsff.grasp_scores(_grasp_loss, net, x, t)
+    m_card = dsff.init_masks_grasp(_grasp_loss, net, 0.3, x, t)
+    assert all(op.launches == before[n] for n, op in ops.items())
+    s_cpu = dsff.grasp_scores(_grasp_loss, cpu, xc, tc)
+    m_cpu = dsff.init_masks_grasp(_grasp_loss, cpu, 0.3, xc, tc)
+    scale = max(float(s.abs().max()) for s in s_cpu.values())
+    flat = torch.cat([s.reshape(-1) for _, s in sorted(s_cpu.items())])
+    thr = torch.sort(flat, descending=True).values[
+        int(flat.numel() * 0.7) - 1]
+    for n, s in s_cpu.items():
+        assert float((s_card[n].cpu() - s).abs().max()) <= 1e-4 * scale, n
+        diff = m_card[n].cpu() != m_cpu[n]
+        near = (s - thr).abs() <= 1e-4 * scale
+        assert not bool((diff & ~near).any()), n

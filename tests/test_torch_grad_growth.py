@@ -95,7 +95,8 @@ def test_gradient_growth_matches_reference(granularity, rate):
         for d in (state.momentum.exp_avg, state.momentum.exp_avg_sq):
             for t in d.values():
                 t.add_(1.0)
-    update = tts.make_mask_update_step(net, "gradient", granularity)
+    update = tts.make_mask_update_step(net, "gradient",
+                                       granularity=granularity)
     state = update(state, rate, tgrads)
     for k, m in want.items():
         n = ".".join(k)
@@ -113,7 +114,7 @@ def test_gradient_growth_needs_the_gradients():
               for k, m in masks.items()}
     with pytest.raises(ValueError, match="needs the gradients"):
         td.death_growth_update(net, tmasks, 0.5, growth="gradient")
-    with pytest.raises(NotImplementedError, match="item 4c"):
+    with pytest.raises(ValueError, match="unknown growth 'momentum'"):
         td.death_growth_update(net, tmasks, 0.5, growth="momentum")
 
 

@@ -269,7 +269,7 @@ def test_masked_step_zeroes_every_buffer(opt):
     assert np.isfinite(float(metrics["loss"]))
     _assert_masked(state, masks)
     grads = tts.make_grad_step(net, [1.0, 0.0, 0.0])(data, targets)
-    update = tts.make_mask_update_step(net, "gradient", "kernel")
+    update = tts.make_mask_update_step(net, "gradient", granularity="kernel")
     state = update(state, 0.5, grads)
     assert any(not torch.equal(masks[n], state.masks[n]) for n in masks)
     _assert_masked(state, state.masks)

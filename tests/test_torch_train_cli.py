@@ -7,10 +7,13 @@ the JAX CLI, a continued run (-c) from 'latest', and the port's predict
 CLI reading the trained fold (the JAX package's ModelBundle reads it too).
 Also the variants' options: Ranger and Adam presets (-tr) with DSFF grown
 by gradient train a fold, their optimizer state kept in the checkpoint.
-And the refusals: no card without --device cpu, and every option the
-port does not train, each naming its ROADMAP item; and that no module of
-the port imports jax or e2enet_tpu (a subprocess in which both are
-blocked imports every module of the package and chip_smoke.py)."""
+The element DSFF settings (ERK, the global prune, GMP, the lottery
+ticket at element granularity) train a fold, their masks and fired masks
+written in the flax layout. And the refusals: no card without --device
+cpu, and every option the port does not train, each naming its ROADMAP
+item; and that no module of the port imports jax or e2enet_tpu (a
+subprocess in which both are blocked imports every module of the package
+and chip_smoke.py)."""
 import json
 import os
 import subprocess
@@ -206,14 +209,61 @@ def test_refuses_without_a_card(environ, monkeypatch):
     (["-tr", "nnUNetTrainerV2_BN"], "item 6"),
     (["--num_devices", "2"], "item 7"),
     (["--spatial_parallel", "2"], "item 7"),
-    (["--device_augment"], "item 8"),
-    (["--sparse_init", "ERK"], "item 4c"),
-    (["--prune_mode", "global"], "item 4c"),
-    (["--sparse_init", "GMP"], "item 4c"),
-    (["--granularity", "element"], "item 4c")])
+    (["--device_augment"], "item 8")])
 def test_unported_options_raise(environ, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--sparse_init", "ERK"],
+    ["--prune_mode", "global", "--sparse_init", "uniform_ori",
+     "--final_density", "0.2", "--final-prune-epoch", "1"],
+    ["--sparse_init", "GMP", "--init-prune-epoch", "0",
+     "--final-prune-epoch", "1"],
+    ["--granularity", "element", "--sparse_init", "lottery_ticket",
+     "--growth", "gradient"]])
+def test_element_dsff_options_train(environ, extra, monkeypatch):
+    """The DSFF settings of the element engine, refused before they were
+    ported, train a fold for one epoch (validation included); the
+    'latest' checkpoint holds element masks and fired masks in the flax
+    layout, which load back equal to the bit."""
+    real_init = Trainer.initialize
+
+    def every_epoch(self, training=True):
+        real_init(self, training)
+        self.save_every = 1
+    monkeypatch.setattr(Trainer, "initialize", every_epoch)
+    tr = ttrain.main(ARGS + ["--epochs", "1", "--fold", "3", "--device",
+                             "cpu"] + extra)
+    assert tr.mask_granularity == "element"
+    assert all(np.isfinite(tr.all_tr_losses + tr.all_val_losses))
+    state, _, meta = tckpt.load_checkpoint(tr.checkpoint_path("latest"))
+    params = dict(tr.network.named_parameters())
+    for what, saved, sep, live in (
+            ("masks", state["masks"], "|", tr.state.masks),
+            ("fired", meta["fired_masks"], "/", tr.fired_masks)):
+        assert set(saved) == {n.replace(".", sep) for n in live}, what
+        for n, m in live.items():
+            flax = saved[n.replace(".", sep)]
+            assert flax.ndim == params[n].dim() and m.shape == params[n].shape
+            np.testing.assert_array_equal(
+                flax, np.transpose(m.numpy(), {4: (2, 3, 1, 0),
+                                               5: (2, 3, 4, 0, 1)}[m.dim()]))
+    log = open(tr.logger.log_file).read()
+    if "GMP" in extra:
+        assert "GMP prune at epoch 0" in log
+    else:
+        assert "DSFF update at step 2" in log
+        assert ("regrow_ratio=" in log) == ("global" in extra)
+    tr2 = ttrain.Trainer(tr.plans, 3, tr.output_folder_base,
+                         dataset_directory=tr.dataset_directory,
+                         device="cpu", base_num_features=8, fp16=False,
+                         dsff_config=tr.dsff_config)
+    tr2.load_checkpoint_file("latest", train=False)
+    for n, m in tr.state.masks.items():
+        assert torch.equal(tr2.state.masks[n], m), n
+        assert torch.equal(tr2.fired_masks[n], tr.fired_masks[n]), n
 
 
 @pytest.mark.parametrize("extra", [

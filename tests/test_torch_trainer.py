@@ -348,11 +348,15 @@ def test_unported_options_raise(task):
                      (dict(norm_op="batch"), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             _port_trainer(task_dir, out, **kw)
-    for kw in (dict(sparse_init="GMP"), dict(prune_mode="global"),
-               dict(sparse_init="ERK"), dict(granularity="element")):
-        with pytest.raises(NotImplementedError, match="item 4c"):
-            _port_trainer(task_dir, out,
-                          dsff_config=td.DSFFConfig(sparse=True, **kw))
+    # the DSFF settings the reference trainer refuses, at initialize
+    for kw, match in ((dict(sparse_init="snip"), "need a data batch"),
+                      (dict(sparse_init="GraSP"), "need a data batch"),
+                      (dict(prune_mode="global"), "element-granular"),
+                      (dict(growth="momentum"), "unknown growth")):
+        tt = _port_trainer(task_dir, out,
+                           dsff_config=td.DSFFConfig(sparse=True, **kw))
+        with pytest.raises(ValueError, match=match):
+            tt.initialize(False)
     with pytest.raises(ValueError, match="XLA programs"):
         _port_trainer(task_dir, out, fused=True)
 
