@@ -13,6 +13,9 @@
     python3 chip_smoke.py --dsff
                                    # only the build, [trainer]'s planned
                                    # task and the [dsff] phase
+    python3 chip_smoke.py --2d
+                                   # only the build, [trainer]'s planned
+                                   # task and the [2d] phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -188,7 +191,31 @@ Phases (any failure ends the run with a non-zero exit):
               no plan; launches tiles x passes x per forward; labels in
               [0, 16)). Prints ms per step, ms per mask update per mode,
               GraSP's seconds and peak memory, the phase's seconds
-  13. experiments  the experiment kernels (TPU kernels #11-#14) against
+  13. 2d      2D plans and shiftConvPP_noshift at the bench width (48 base
+              features, 16 classes, bf16, one group of shift 0 at every
+              kernel site): the plan CLI with -pl3d None -pl2d
+              ExperimentPlanner2D_v21 on [trainer]'s raw task in a fresh
+              process (the plan asserted to be depth 1 with five (1, 2, 2)
+              pools); every kernel of the 2D path against its plain version
+              at the plan's shapes (batch B of 1 x H x W slices: #1 at each
+              level-0 and level-1 block and in all 8 mirror passes, #2 at
+              the nest nodes, #5 at stride (1, 2, 2) in all 8 passes, #6 at
+              stride (1, 2, 2), #7 and #8 at window (1, 2, 2), #9 at the
+              batch, #10 at one slice; the routes #6, #8, #9 and #10 took),
+              #3 and #4 with the one-group table at the main path's shapes;
+              one step's gradients of the 2D model against a float32 plain
+              run (the 1.25x rule); cli/train.main --network 2d with
+              kernel DSFF at 0.2 (one epoch of 6 + 2 batches at the planned
+              batch, then -c to a second; launches per step, the loss
+              falling, dead entries zero, each run's validation on one
+              case),
+              --Tconv shiftConvPP_noshift on the 3D plan for 4 steps (the
+              lazy route); cli/predict.main -m 2d --mode fastest on one
+              case (launches tiles x passes x per forward, labels in
+              [0, 16), probabilities summing to 1) and one slice of it
+              against float32. Prints ms per step, the host's wait per
+              batch, s per epoch and per validation case, the peak memory
+  14. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -212,7 +239,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  14. report  one JSON line with every kernel's launches, error, times and
+  15. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -417,11 +444,11 @@ def report(name, shape, res, extra=""):
 
 
 def fused_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
-               flips=(False, False, False)):
-    """Kernel #1 vs plain on random bf16 inputs; with reps, also the same
-    kernel with its taps on mma.sync (the control for its wgmma loop:
-    mma_ms, y within ORDER_ULPS of the kernel's) and the host's time per
-    call (host_ms)."""
+               flips=(False, False, False), groups=None):
+    """Kernel #1 vs plain on random bf16 inputs (groups: the shift groups,
+    default shiftConvPP's); with reps, also the same kernel with its taps
+    on mma.sync (the control for its wgmma loop: mma_ms, y within
+    ORDER_ULPS of the kernel's) and the host's time per call (host_ms)."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.ops import fused_block as fb
@@ -431,9 +458,10 @@ def fused_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
     C = sum(part_c)
     kernel = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
     bias = rnd(CO, scale=0.1)
-    y_k, s_k = fb.fused_shift_conv_block(parts, kernel, bias, affines, flips)
+    y_k, s_k = fb.fused_shift_conv_block(parts, kernel, bias, affines, flips,
+                                         groups)
     y_p, s_p = fb.fused_shift_conv_block_ref(parts, kernel, bias, affines,
-                                             flips)
+                                             flips, groups)
     torch.cuda.synchronize()
     ok, err = y_err(y_k, y_p, Y_ULPS)
     srel = stats_err(s_k, s_p, y_p)
@@ -449,19 +477,18 @@ def fused_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
     b_ms, b_by = bound(nbytes(*parts, y_k) + 9 * C * CO * 2,
                        2.0 * N * D * H * W * 9 * C * CO, PEAK_BF16)
     y_m, _ = fb.fused_shift_conv_block(parts, kernel, bias, affines, flips,
-                                       wgmma=False)
+                                       groups, wgmma=False)
     check(y_err(y_m, y_k, ORDER_ULPS)[0], f"{name}: the mma.sync control's "
                                           f"y differs by more than "
                                           f"{ORDER_ULPS} ulp")
+    args = (parts, kernel, bias, affines, flips, groups)
     res = dict(max_abs_err=err, stats_rel=srel,
-               ms=cuda_ms(lambda: fb.fused_shift_conv_block(
-                   parts, kernel, bias, affines), reps),
+               ms=cuda_ms(lambda: fb.fused_shift_conv_block(*args), reps),
                mma_ms=cuda_ms(lambda: fb.fused_shift_conv_block(
-                   parts, kernel, bias, affines, wgmma=False), reps),
-               host_ms=host_ms(lambda: fb.fused_shift_conv_block(
-                   parts, kernel, bias, affines)),
-               plain_ms=cuda_ms(lambda: fb.fused_shift_conv_block_ref(
-                   parts, kernel, bias, affines), reps),
+                   *args, wgmma=False), reps),
+               host_ms=host_ms(lambda: fb.fused_shift_conv_block(*args)),
+               plain_ms=cuda_ms(lambda: fb.fused_shift_conv_block_ref(*args),
+                                reps),
                library_ms=cuda_ms(lambda: F.conv2d(x2, w2, padding=1), reps),
                bound_ms=b_ms, bound_by=b_by)
     report(name, f"N={N} D={D} H={H} W={W} C={list(part_c)} "
@@ -560,24 +587,26 @@ def lazy_case(name, N, Dc, Hc, Wc, part_c, affine, cin, cout, CO, rnd, reps,
                       flips, groups, reps)
 
 
-def strided_read_bytes(x, Do, flips):
+def strided_read_bytes(x, Do, flips, sd=2, groups=None):
     """The bytes of x a strided pass must read: output depth do of a
-    channel group with shift s reads source depth 2*do + parity - s, so each
-    channel reads the source depths of one parity class (about half of x),
-    each once."""
-    from e2enet_tpu_torch.ops.fused_block import SHIFT_SIZE
-    from e2enet_tpu_torch.ops.shift import group_shifts, strided_depth_source
+    channel group with shift s reads source depth sd*do + parity - s, so at
+    a depth stride of 2 each channel reads the source depths of one parity
+    class (about half of x), each once."""
+    from e2enet_tpu_torch.ops.fused_block import shift_groups
+    from e2enet_tpu_torch.ops.shift import strided_depth_source
     N, D, H, W, C = x.shape
-    groups, parity = strided_depth_source(group_shifts(C, SHIFT_SIZE), 2,
+    groups, parity = strided_depth_source(groups or shift_groups(C), sd,
                                           flips[0])
-    rows = sum((c1 - c0) * len({2 * do + parity - sh for do in range(Do)}
+    rows = sum((c1 - c0) * len({sd * do + parity - sh for do in range(Do)}
                                & set(range(D)))
                for c0, c1, sh in groups)
     return N * rows * H * W * x.element_size()
 
 
-def strided_case(name, N, D, H, W, C, CO, rnd, reps, flips=(False,) * 3):
-    """Kernel #5 vs plain."""
+def strided_case(name, N, D, H, W, C, CO, rnd, reps, flips=(False,) * 3,
+                 stride=(2, 2, 2), groups=None):
+    """Kernel #5 vs plain (groups: the shift groups, default
+    shiftConvPP's)."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.ops import qstride
@@ -585,7 +614,7 @@ def strided_case(name, N, D, H, W, C, CO, rnd, reps, flips=(False,) * 3):
     m, o = rnd.affine(N, C)
     k = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
     b = rnd(CO, scale=0.1)
-    args = (x, m, o, k, b, (2, 2, 2), flips)
+    args = (x, m, o, k, b, stride, flips, groups)
     y_k, s_k = qstride.strided_fused(*args)
     y_p, s_p = qstride.strided_fused_ref(*args)
     torch.cuda.synchronize()
@@ -600,15 +629,16 @@ def strided_case(name, N, D, H, W, C, CO, rnd, reps, flips=(False,) * 3):
     x2 = x.reshape(N * D, H, W, C).permute(0, 3, 1, 2)
     w2 = k.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     _, Do, Ho, Wo, _ = y_k.shape
-    b_ms, b_by = bound(strided_read_bytes(x, Do, flips) + nbytes(y_k)
-                       + 9 * C * CO * 2,
+    b_ms, b_by = bound(strided_read_bytes(x, Do, flips, stride[0], groups)
+                       + nbytes(y_k) + 9 * C * CO * 2,
                        2.0 * N * Do * Ho * Wo * 9 * C * CO, PEAK_BF16)
+    # (a depth stride of 2 slices the folded batch: one sample)
     res = dict(max_abs_err=err, stats_rel=srel,
                ms=cuda_ms(lambda: qstride.strided_fused(*args), reps),
                plain_ms=cuda_ms(lambda: qstride.strided_fused_ref(*args),
                                 reps),
-               library_ms=cuda_ms(lambda: F.conv2d(x2[::2], w2, stride=2,
-                                                   padding=1), reps),
+               library_ms=cuda_ms(lambda: F.conv2d(
+                   x2[::stride[0]], w2, stride=stride[1:], padding=1), reps),
                bound_ms=b_ms, bound_by=b_by)
     report(name, f"N={N} D={D} H={H} W={W} C={C} CO={CO}", res,
            f" (stats rel {srel:.2e})")
@@ -616,17 +646,22 @@ def strided_case(name, N, D, H, W, C, CO, rnd, reps, flips=(False,) * 3):
 
 
 def uplink_case(name, N, D, H, W, C, cout, rnd, reps, flips=(False,) * 3,
-                route="bulk"):
+                route="bulk", stride=(2, 2, 2)):
     """Kernel #6 vs plain, on the route its shape must take (checked by the
-    route counter); with reps, also the host's time per call (host_ms)."""
+    route counter; route None: the route it took, recorded); with reps,
+    also the host's time per call (host_ms)."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.ops import qlink
     x = rnd(N, D, H, W, C).to(torch.bfloat16)
     m, o = rnd.affine(N, C)
-    k = rnd(C, cout, 2, 2, 2, scale=(1.0 / C) ** 0.5)
+    k = rnd(C, cout, *stride, scale=(1.0 / C) ** 0.5)
     before = dict(qlink.uplink.routes)
     y_k = qlink.uplink(x, m, o, k, flips)
+    if route is None:
+        route = next((r for r, n in qlink.uplink.routes.items()
+                      if n != before[r]), None)
+        check(route is not None, f"{name}: no route counted")
     check(qlink.uplink.routes[route] == before[route] + 1,
           f"{name}: not on the {route} route ({before} -> "
           f"{qlink.uplink.routes})")
@@ -643,15 +678,16 @@ def uplink_case(name, N, D, H, W, C, cout, rnd, reps, flips=(False,) * 3,
     # the library's transposed conv of the normalised input, channels-last
     x3 = x.permute(0, 4, 1, 2, 3)
     k3 = k.to(torch.bfloat16)
-    b_ms, b_by = bound(nbytes(x, y_k) + C * 8 * cout * 2,
-                       2.0 * N * D * H * W * C * 8 * cout, PEAK_BF16)
+    kv = int(np.prod(stride))
+    b_ms, b_by = bound(nbytes(x, y_k) + C * kv * cout * 2,
+                       2.0 * N * D * H * W * C * kv * cout, PEAK_BF16)
     res = dict(max_abs_err=err, kernel_route=route,
                ms=cuda_ms(lambda: qlink.uplink(x, m, o, k, flips), reps),
                host_ms=host_ms(lambda: qlink.uplink(x, m, o, k, flips)),
                plain_ms=cuda_ms(lambda: qlink.uplink_ref(x, m, o, k, flips),
                                 reps),
-               library_ms=cuda_ms(lambda: F.conv_transpose3d(x3, k3,
-                                                             stride=2), reps),
+               library_ms=cuda_ms(lambda: F.conv_transpose3d(
+                   x3, k3, stride=stride), reps),
                bound_ms=b_ms, bound_by=b_by)
     report(name, f"N={N} D={D} H={H} W={W} Cin={C} Cout={cout} "
            f"flips={list(flips)}", res,
@@ -659,15 +695,15 @@ def uplink_case(name, N, D, H, W, C, cout, rnd, reps, flips=(False,) * 3,
     return res
 
 
-def downlink_case(name, N, D, H, W, C, rnd, reps):
+def downlink_case(name, N, D, H, W, C, rnd, reps, window=(2, 2, 2)):
     """Kernel #7 vs plain."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.ops import qlink
     x = rnd(N, D, H, W, C).to(torch.bfloat16)
     m, o = rnd(N, C), rnd(N, C, scale=0.2)          # both signs of mult
-    y_k = qlink.downlink(x, m, o)
-    y_p = qlink.downlink_ref(x, m, o)
+    y_k = qlink.downlink(x, m, o, window)
+    y_p = qlink.downlink_ref(x, m, o, window)
     torch.cuda.synchronize()
     check(y_k.shape == y_p.shape, f"{name}: shape {tuple(y_k.shape)}")
     ok, err = y_err(y_k, y_p, 1.0)
@@ -679,9 +715,10 @@ def downlink_case(name, N, D, H, W, C, rnd, reps):
     b_ms, b_by = bound(nbytes(x, y_k, m, o),
                        2.0 * x.numel() + 4.0 * y_k.numel(), PEAK_F32)
     res = dict(max_abs_err=err,
-               ms=cuda_ms(lambda: qlink.downlink(x, m, o), reps),
-               plain_ms=cuda_ms(lambda: qlink.downlink_ref(x, m, o), reps),
-               library_ms=cuda_ms(lambda: F.max_pool3d(x3, 2), reps),
+               ms=cuda_ms(lambda: qlink.downlink(x, m, o, window), reps),
+               plain_ms=cuda_ms(lambda: qlink.downlink_ref(x, m, o, window),
+                                reps),
+               library_ms=cuda_ms(lambda: F.max_pool3d(x3, window), reps),
                bound_ms=b_ms, bound_by=b_by)
     report(name, f"N={N} D={D} H={H} W={W} C={C}", res)
     return res
@@ -689,8 +726,9 @@ def downlink_case(name, N, D, H, W, C, rnd, reps):
 
 def seghead_case(name, N, D, H, W, C, K, probs, rnd, reps, route="bulk"):
     """Kernel #10 (probs) or its logits mode #9 vs plain, on the route its
-    shape must take (checked by the route counter); with reps, also the
-    host's time per call (host_ms)."""
+    shape must take (checked by the route counter; route None: the route
+    it took, recorded); with reps, also the host's time per call
+    (host_ms)."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.ops import qlink
@@ -700,6 +738,10 @@ def seghead_case(name, N, D, H, W, C, K, probs, rnd, reps, route="bulk"):
     pd = torch.bfloat16 if probs else None
     before = dict(qlink.seghead.routes)
     y_k = qlink.seghead(x, m, o, w, pd)
+    if route is None:
+        route = next((r for r, n in qlink.seghead.routes.items()
+                      if n != before[r]), None)
+        check(route is not None, f"{name}: no route counted")
     check(qlink.seghead.routes[route] == before[route] + 1,
           f"{name}: not on the {route} route ({before} -> "
           f"{qlink.seghead.routes})")
@@ -748,10 +790,11 @@ def close_max(a, b):
 
 
 def block_bwd_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
-                   want=None):
+                   want=None, groups=None):
     """The block backward kernels (#2 / #4) vs their plain version on random
     bf16 inputs, y from the forward kernel; want: per part whether its
-    gradient is wanted (default all)."""
+    gradient is wanted (default all); groups: the shift groups (default
+    shiftConvPP's)."""
     import torch
     from e2enet_tpu_torch.ops import fused_block as fb
     bf = torch.bfloat16
@@ -761,10 +804,12 @@ def block_bwd_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
     C = sum(part_c)
     kernel = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
     bias = rnd(CO, scale=0.1)
-    y, _ = fb.fused_shift_conv_block(parts, kernel, bias, affines)
+    y, _ = fb.fused_shift_conv_block(parts, kernel, bias, affines,
+                                     groups_override=groups)
     gy = rnd(N, D, H, W, CO, scale=1e-3).to(bf)
     gstats = rnd(N, CO, 2, scale=1e-4)
-    args = (parts, kernel, bias, affines, y, gy, gstats)
+    args = (parts, kernel, bias, affines, y, gy, gstats, (False,) * 3,
+            groups)
     want = [True] * len(parts) if want is None else list(want)
     gp, gk, gb, ga = fb.fused_shift_conv_block_bwd(*args, want=want)
     rp, rk, rb, ra = fb.fused_shift_conv_block_bwd_ref(*args)
@@ -813,8 +858,10 @@ def block_bwd_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
     return res
 
 
-def downlink_bwd_case(name, N, D, H, W, C, rnd, reps, ties=False):
-    """The down-link backward kernel (#8) vs its plain version."""
+def downlink_bwd_case(name, N, D, H, W, C, rnd, reps, ties=False,
+                      window=(2, 2, 2)):
+    """The down-link backward kernel (#8) vs its plain version; with reps,
+    also the kernel it ran (kernel_route: vec or scalar)."""
     import torch
     import torch.nn.functional as F
     from e2enet_tpu_torch.ops import qlink
@@ -823,9 +870,10 @@ def downlink_bwd_case(name, N, D, H, W, C, rnd, reps, ties=False):
         x = torch.round(2 * x)
     x = x.to(torch.bfloat16)
     m, o = rnd(N, C), rnd(N, C, scale=0.2)
-    gy = rnd(N, D // 2, H // 2, W // 2, C).to(torch.bfloat16)
-    gx, gm, go = qlink.downlink_bwd(x, m, o, gy)
-    rx, rm, ro = qlink.downlink_bwd_ref(x, m, o, gy)
+    gy = rnd(N, D // window[0], H // window[1], W // window[2], C).to(
+        torch.bfloat16)
+    gx, gm, go = qlink.downlink_bwd(x, m, o, gy, window)
+    rx, rm, ro = qlink.downlink_bwd_ref(x, m, o, gy, window)
     torch.cuda.synchronize()
     err = float((gx.float() - rx.float()).abs().max())
     check(err == 0.0, f"{name}: gx differs from the plain version by {err}")
@@ -834,24 +882,56 @@ def downlink_bwd_case(name, N, D, H, W, C, rnd, reps, ties=False):
     if reps == 0:
         return dict(max_abs_err=err, rel_err=rel)
     x3 = x.permute(0, 4, 1, 2, 3)
-    y3, idx = F.max_pool3d(x3, 2, return_indices=True)
+    y3, idx = F.max_pool3d(x3, window, return_indices=True)
     g3 = gy.permute(0, 4, 1, 2, 3)
     # read x and gy, write gx; 8 compares and the routing per input value
     b_ms, b_by = bound(2 * nbytes(x) + nbytes(gy, m, o),
                        4.0 * x.numel(), PEAK_F32)
     res = dict(max_abs_err=err, rel_err=rel,
-               ms=cuda_ms(lambda: qlink.downlink_bwd(x, m, o, gy), reps),
-               plain_ms=cuda_ms(lambda: qlink.downlink_bwd_ref(x, m, o, gy),
-                                max(1, reps // 4)),
+               ms=cuda_ms(lambda: qlink.downlink_bwd(x, m, o, gy, window),
+                          reps),
+               plain_ms=cuda_ms(lambda: qlink.downlink_bwd_ref(
+                   x, m, o, gy, window), max(1, reps // 4)),
                library_ms=cuda_ms(
                    lambda: torch.ops.aten.max_pool3d_with_indices_backward(
-                       g3, x3, [2, 2, 2], [2, 2, 2], [0, 0, 0], [1, 1, 1],
-                       False, idx), reps),
+                       g3, x3, list(window), list(window), [0, 0, 0],
+                       [1, 1, 1], False, idx), reps),
                bound_ms=b_ms, bound_by=b_by,
                copy_ms=cuda_ms(lambda: x.clone(), reps))
-    report(name, f"N={N} D={D} H={H} W={W} C={C}", res,
-           f" (a copy of x, the same bytes: {res['copy_ms']:.4f} ms)")
+    names = device_kernel_names(lambda: qlink.downlink_bwd(x, m, o, gy,
+                                                           window))
+    res["kernel_route"] = (
+        "vec" if any("downlink_bwd_vec_kernel" in n for n in names) else
+        "scalar" if any("downlink_bwd_kernel" in n for n in names) else
+        "not seen by the profiler")
+    report(name, f"N={N} D={D} H={H} W={W} C={C} window={list(window)}", res,
+           f" (route {res['kernel_route']}; a copy of x, the same bytes: "
+           f"{res['copy_ms']:.4f} ms)")
     return res
+
+
+def device_kernel_names(fn):
+    """Names of the device kernels fn() launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def loss_grads(net, data, targets, weights, batch_dice=True):
+    """The gradient of the deep-supervision loss on (data, targets), every
+    parameter's flattened into one float32 vector (zeros where unused)."""
+    import torch
+    from e2enet_tpu_torch.ops.losses import deep_supervision_loss
+    loss = deep_supervision_loss(net(data, do_ds=True), targets, weights,
+                                 batch_dice=batch_dice)
+    g = torch.autograd.grad(loss, list(net.parameters()), allow_unused=True)
+    return torch.cat([(torch.zeros_like(p) if x is None else x).float()
+                      .flatten() for x, p in zip(g, net.parameters())])
 
 
 def train_phase(rnd, R, ops, reset_counts, counts, smi):
@@ -865,7 +945,6 @@ def train_phase(rnd, R, ops, reset_counts, counts, smi):
     from e2enet_tpu_torch.models.unetpp import (
         ShiftUNetPlusPlus, kernel_launches_per_train_step)
     from e2enet_tpu_torch.ops import blocks
-    from e2enet_tpu_torch.ops.losses import deep_supervision_loss
     from e2enet_tpu_torch.training import train_bench_masks as tbm
     out = {}
     print("[kernel] fused_shift_conv_block_bwd (#2 and #4) vs plain, bf16; "
@@ -1002,20 +1081,14 @@ def train_phase(rnd, R, ops, reset_counts, counts, smi):
                                        GRAD_PATCH, model.num_ds_outputs(),
                                        "cuda")[0]
 
-    def grads(net):
-        loss = deep_supervision_loss(net(data, do_ds=True), targets, weights)
-        g = torch.autograd.grad(loss, list(net.parameters()),
-                                allow_unused=True)
-        return torch.cat([(torch.zeros_like(p) if x is None else x).float()
-                          .flatten() for x, p in zip(g, net.parameters())])
-    g_k = grads(model)
+    g_k = loss_grads(model, data, targets, weights)
     with blocks.plain_ops():
-        g_p = grads(model)
+        g_p = loss_grads(model, data, targets, weights)
         model32 = ShiftUNetPlusPlus(1, tbm.NUM_CLASSES, tbm.POOLS,
                                     compute_dtype=torch.float32,
                                     device="cuda")
         model32.load_state_dict(model.state_dict())
-        g_32 = grads(model32)
+        g_32 = loss_grads(model32, data, targets, weights)
     del model32
     e_k = float((g_k - g_32).norm() / g_32.norm())
     e_p = float((g_p - g_32).norm() / g_32.norm())
@@ -1725,7 +1798,7 @@ def plan_train_task(base, smi):
     phase trains: one stage, PATCH, 5 x (2, 2, 2) pools, batch 2, one CT
     modality normalised by the analyser's statistics. Writes
     splits_final.pkl (TRAIN_VAL as fold 0). Returns {"preprocessed",
-    "results", "images"} paths."""
+    "results", "images", "raw"} paths."""
     import multiprocessing
     import os
     import shutil
@@ -1830,7 +1903,8 @@ def plan_train_task(base, smi):
           f"normalisation {norm}  [{smi}]", flush=True)
     return {"preprocessed": os.path.join(base, "preprocessed"),
             "results": os.path.join(base, "results"),
-            "images": os.path.join(task_dir, "imagesTr")}
+            "images": os.path.join(task_dir, "imagesTr"),
+            "raw": os.path.join(base, "raw")}
 
 def predict_phase(make_model, reset_counts, counts, smi):
     """[predict] the users' entry point, cli/predict.main, twice on the
@@ -2031,46 +2105,18 @@ class _TimedGen:
         self.gen.stop()
 
 
-def trainer_phase(ops, reset_counts, counts, smi, then=None):
-    """[trainer] the users' training path at the bench width: a seeded
-    raw task that the port's plan CLI plans and preprocesses in a fresh
-    process (plan_train_task: TRAIN_CASES, 16 classes; the plan asserted
-    to be one stage of 128^3 patches, batch 2, 5 pools), cli/train.main
-    on the card at bf16 with
-    kernel-granular DSFF (density 0.2, an update every 4 steps), 2 epochs
-    of 6 batches (2 validation batches each), then -c to a third epoch
-    from 'latest', each run ending in the fold's validation; then
-    cli/predict.main with the trained fold on one validation case. Spies
-    on each Trainer: the launches of every train step (equal to
-    kernel_launches_per_train_step), its time by CUDA events, the host's
-    wait in next(tr_gen), each mask update (params and momentum zero where
-    the masks are zero, every kernel's alive count held), the state -c
-    loads against the 'latest' file, the epochs' seconds. Returns the
-    launches over the whole phase; then(paths) runs on the planned task
-    before its folder is removed."""
-    import os
-    import tempfile
+def trainer_spies(tag, ops, counts, runs):
+    """(initialize, load_checkpoint_file) replacements for Trainer that
+    record each run into `runs`: its train steps' launches (checked equal
+    to kernel_launches_per_train_step), losses and times by CUDA events,
+    the host's wait in next(tr_gen), each mask update (every kernel's
+    alive count held, params and momentum zero where the masks are zero),
+    the epochs' and the validation's seconds, the state a checkpoint load
+    gives. Each run saves 'latest' after every epoch, for -c."""
     import torch
-    from e2enet_tpu_torch import native
-    from e2enet_tpu_torch.cli import predict as pcli
-    from e2enet_tpu_torch.cli import train as tcli
-    from e2enet_tpu_torch.io.nifti import read_nifti
     from e2enet_tpu_torch.models.masks import broadcast_mask
     from e2enet_tpu_torch.models.unetpp import kernel_launches_per_train_step
-    from e2enet_tpu_torch.models.weights import from_jax_params
-    from e2enet_tpu_torch.training import checkpoint as ckpt
     from e2enet_tpu_torch.training.trainer import Trainer
-
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
-    paths = plan_train_task(tmp.name, smi)
-    route = native.route()
-    print(f"[trainer] validation {TRAIN_VAL}; augmentation warp route: "
-          f"{route} ({native.library_path().name})", flush=True)
-    check(route == "native", "[trainer] the C++ warp did not build")
-    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
-    os.environ["RESULTS_FOLDER"] = paths["results"]
-
-    runs = []
     real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
 
     def d_counts(before):
@@ -2098,7 +2144,7 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
             out = step_fn(state, data, targets, lr)
             ev[1].record()
             got = d_counts(before)
-            check(got == want, f"[trainer] step {state.step}: launches "
+            check(got == want, f"[{tag}] step {state.step}: launches "
                   f"{got} != {want}")
             run["events"].append(ev)
             run["losses"].append(out[1]["loss"])
@@ -2108,12 +2154,12 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
             alive = {n: float(m.sum()) for n, m in state.masks.items()}
             out = update_fn(state, death_rate, grads)
             for n, m in out.masks.items():
-                check(float(m.sum()) == alive[n], f"[trainer] step "
+                check(float(m.sum()) == alive[n], f"[{tag}] step "
                       f"{out.step}: {n} alive {float(m.sum())} != "
                       f"{alive[n]}")
                 dead = broadcast_mask(1.0 - m, out.params[n])
                 for t in (out.params[n].detach(), out.momentum[n]):
-                    check(bool((t * dead == 0).all()), f"[trainer] step "
+                    check(bool((t * dead == 0).all()), f"[{tag}] step "
                           f"{out.step}: {n} nonzero where its mask is 0")
             run["updates"] += 1
             return out
@@ -2147,6 +2193,50 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
             "params": {n: p.detach().cpu() for n, p in st.params.items()},
             "momentum": {n: m.cpu() for n, m in st.momentum.items()},
             "masks": {n: m.cpu() for n, m in st.masks.items()}})
+
+    return init_spy, load_spy
+
+
+def trainer_phase(ops, reset_counts, counts, smi, then=None):
+    """[trainer] the users' training path at the bench width: a seeded
+    raw task that the port's plan CLI plans and preprocesses in a fresh
+    process (plan_train_task: TRAIN_CASES, 16 classes; the plan asserted
+    to be one stage of 128^3 patches, batch 2, 5 pools), cli/train.main
+    on the card at bf16 with
+    kernel-granular DSFF (density 0.2, an update every 4 steps), 2 epochs
+    of 6 batches (2 validation batches each), then -c to a third epoch
+    from 'latest', each run ending in the fold's validation; then
+    cli/predict.main with the trained fold on one validation case. Spies
+    on each Trainer: the launches of every train step (equal to
+    kernel_launches_per_train_step), its time by CUDA events, the host's
+    wait in next(tr_gen), each mask update (params and momentum zero where
+    the masks are zero, every kernel's alive count held), the state -c
+    loads against the 'latest' file, the epochs' seconds. Returns the
+    launches over the whole phase; then(paths) runs on the planned task
+    before its folder is removed."""
+    import os
+    import tempfile
+    import torch
+    from e2enet_tpu_torch import native
+    from e2enet_tpu_torch.cli import predict as pcli
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.io.nifti import read_nifti
+    from e2enet_tpu_torch.models.weights import from_jax_params
+    from e2enet_tpu_torch.training import checkpoint as ckpt
+    from e2enet_tpu_torch.training.trainer import Trainer
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
+    paths = plan_train_task(tmp.name, smi)
+    route = native.route()
+    print(f"[trainer] validation {TRAIN_VAL}; augmentation warp route: "
+          f"{route} ({native.library_path().name})", flush=True)
+    check(route == "native", "[trainer] the C++ warp did not build")
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    os.environ["RESULTS_FOLDER"] = paths["results"]
+
+    runs = []
+    real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
+    init_spy, load_spy = trainer_spies("trainer", ops, counts, runs)
 
     args = ["--task", TRAIN_TASK, "--fold", "0", "--batches", "6",
             "--val_batches", "2", "--sparse", "True", "--density", "0.2",
@@ -3100,6 +3190,357 @@ def dsff_phase(ops, counts, smi, paths):
     check("jax" not in sys.modules, "[dsff] jax was imported")
 
 
+# the [2d] phase: a 2D plan of [trainer]'s raw task and shiftConvPP_noshift
+TWOD_PLANNER = "ExperimentPlanner2D_v21"
+TWOD_GRAD_BATCH = 8            # slices of the gradient check's batch
+TWOD_VAL = TRAIN_VAL[:1]       # the 2D runs' validation case
+
+
+def twod_phase(rnd, R, ops, counts, smi, paths):
+    """[2d] 2D plans and the shift off at the bench width (48 base
+    features, 16 classes, bf16, one group of shift 0 at every kernel site):
+    `python -m e2enet_tpu_torch.cli.plan_and_preprocess -t 501 -pl3d None
+    -pl2d ExperimentPlanner2D_v21` on [trainer]'s raw task in a fresh
+    process (exit code, wall seconds; the plan asserted to be depth 1 with
+    (1, a, b) pools); the kernels against their plain versions at the
+    plan's shapes (batch B of (1, H, W) slices): #1 at every level-0 and
+    level-1 block (also all 8 mirror passes), #2 at the level-0 nest node
+    and the level-1 one, #5 at stride (1, 2, 2) (also all 8 mirror
+    passes), #6 at stride (1, 2, 2), #7 and #8 at window (1, 2, 2), #9 at
+    the train batch, #10 at one slice, with the route each took; #3 and #4
+    with the one-group table at the main path's shapes. One step's
+    gradients of the 2D model on TWOD_GRAD_BATCH slices: the kernel path
+    within 1.25x the bf16 plain path's error from a float32 plain run.
+    cli/train.main --network 2d (kernel DSFF at 0.2, an update every 4
+    steps, one epoch of 6 + 2 batches at the planned batch, then -c to a
+    second), its launches per step, the loss falling, dead entries zero;
+    cli/train.main --Tconv shiftConvPP_noshift on the 3D plan for 4 steps
+    (the lazy route, #3 with the one-group table); these runs validate on
+    TWOD_VAL alone (fold 0 of a split the phase writes and restores);
+    cli/predict.main -m 2d on one validation case in --mode fastest (launches tiles x passes x
+    per forward, labels in [0, 16), the probabilities summing to 1) and
+    one slice through the kernel path against float32. Prints ms per step,
+    the host's wait per batch, s per epoch, validation per case, the peak
+    memory, the phase's seconds; returns the kernels' 2D results."""
+    import os
+    from pathlib import Path
+    import torch
+    from e2enet_tpu_torch.cli import predict as pcli
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.inference import predictor
+    from e2enet_tpu_torch.io.nifti import read_nifti
+    from e2enet_tpu_torch.models.unetpp import (
+        ShiftUNetPlusPlus, ds_loss_weights, kernel_launches_per_forward)
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.ops.fused_block import shift_groups
+    from e2enet_tpu_torch.ops.sliding import (
+        compute_steps_for_sliding_window, pad_volume_to_patch)
+    from e2enet_tpu_torch.plans import Plans
+    from e2enet_tpu_torch.training import train_bench_masks as tbm
+    from e2enet_tpu_torch.training.trainer import Trainer
+    t_phase = time.perf_counter()
+
+    # ---- the 2D plan of the raw task, in a fresh process
+    argv = ["-t", str(int(TRAIN_TASK[4:7])), "-pl3d", "None", "-pl2d",
+            TWOD_PLANNER]
+    env = dict(os.environ, nnUNet_raw_data_base=paths["raw"],
+               nnUNet_preprocessed=paths["preprocessed"])
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "e2enet_tpu_torch.cli.plan_and_preprocess"]
+        + argv, cwd=Path(__file__).resolve().parent, env=env,
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"[2d] the plan CLI exited {r.returncode}: "
+          f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
+    pre = os.path.join(paths["preprocessed"], TRAIN_TASK)
+    plans = Plans.load(os.path.join(pre, "nnUNetPlansv2.1_plans_2D.json"))
+    st = plans.plans_per_stage[0]
+    pools = [tuple(int(k) for k in p) for p in st.pool_op_kernel_sizes]
+    B, (D1, H, W) = int(st.batch_size), (int(v) for v in st.patch_size)
+    check(plans.num_stages == 1 and D1 == 1 and all(p[0] == 1 for p in pools)
+          and pools[0] == (1, 2, 2) and len(pools) == 5,
+          f"[2d] the 2D plan is patch {st.patch_size}, pools {pools}")
+    print(f"[2d] python -m e2enet_tpu_torch.cli.plan_and_preprocess "
+          f"{' '.join(argv)}: exit 0, {wall:.2f} s wall; plan: patch "
+          f"{st.patch_size}, pools {pools}, batch {B}  [{smi}]", flush=True)
+
+    # ---- the kernels at the 2D plan's shapes, one group of shift 0
+    out = {}
+    H1, W1 = H // 2, W // 2
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    with torch.inference_mode():
+        print(f"[2d] kernels vs plain at the 2D plan's shapes (N = {B} "
+              f"slices of 1 x {H} x {W}), one group of shift 0", flush=True)
+        fused = [("2d_l0_c1_to48", B, 1, H, W, [1], [False], 48),
+                 ("2d_l0_48_to48", B, 1, H, W, [48], [True], 48),
+                 ("2d_l0_48+48_to48", B, 1, H, W, [48, 48], [True, False],
+                  48),
+                 ("2d_l1_96_to96", B, 1, H1, W1, [96], [True], 96),
+                 ("2d_l1_96+96+48_to96", B, 1, H1, W1, [96, 96, 48],
+                  [True, False, False], 96)]
+        r1 = {c[0]: fused_case(*c, rnd=rnd, reps=R,
+                               groups=shift_groups(sum(c[5]), False))
+              for c in fused}
+        errs = [fused_case("2d_flips", B, 1, H, W, [48, 48], [True, False],
+                           48, rnd=rnd, reps=0, flips=f,
+                           groups=shift_groups(96, False))["max_abs_err"]
+                for f in FLIPS]
+        out["fused_shift_conv_block"] = dict(
+            max_abs_err=max([r["max_abs_err"] for r in r1.values()] + errs),
+            shapes={n: {k: r[k] for k in keys} for n, r in r1.items()})
+        r5 = strided_case("2d_l0_to_l1_48_to96", B, 1, H, W, 48, 96, rnd, R,
+                          stride=(1, 2, 2), groups=shift_groups(48, False))
+        errs = [strided_case("2d_flips", B, 1, H, W, 48, 96, rnd, 0, f,
+                             (1, 2, 2), shift_groups(48, False))[
+                                 "max_abs_err"] for f in FLIPS]
+        out["strided_fused"] = dict(
+            {k: r5[k] for k in keys},
+            max_abs_err=max([r5["max_abs_err"]] + errs))
+        r6 = uplink_case("2d_l1_to_l0_96_to48", B, 1, H1, W1, 96, 48, rnd,
+                         R, route=None, stride=(1, 2, 2))
+        out["uplink"] = {k: r6[k] for k in keys + ("max_abs_err",
+                                                   "kernel_route")}
+        r7 = downlink_case("2d_l0_to_l1_48", B, 1, H, W, 48, rnd, R,
+                           window=(1, 2, 2))
+        out["downlink"] = {k: r7[k] for k in keys + ("max_abs_err",)}
+        r9 = seghead_case("2d_l0_logits_48_to16", B, 1, H, W, 48, 16, False,
+                          rnd, R, route=None)
+        r10 = seghead_case("2d_l0_probs_48_to16", 1, 1, H, W, 48, 16, True,
+                           rnd, R, route=None)
+        out["seghead"] = dict(
+            {k: r10[k] for k in keys + ("kernel_route",)},
+            max_abs_err=max(r9["max_abs_err"], r10["max_abs_err"]),
+            logits={k: r9[k] for k in keys + ("kernel_route",)})
+        print("[2d] the lazy up-link block (#3) with the one-group table at "
+              "the main path's shapes", flush=True)
+        r3 = lazy_case("l0_48+up96to48_to48_one_group", 1, 64, 64, 64, [48],
+                       [True], 96, 48, 48, rnd, R,
+                       groups=shift_groups(96, False))
+        out["lazy_up_fused_block"] = {k: r3[k] for k in
+                                      keys + ("max_abs_err",)}
+    print("[2d] the block backward (#2 at the 2D shapes, #4 with the "
+          "one-group table at the main path's) and #8 at window (1, 2, 2)",
+          flush=True)
+    r2 = {c[0]: block_bwd_case(*c, rnd=rnd, reps=R,
+                               groups=shift_groups(sum(c[5]), False))
+          for c in [("2d_l0_48+u48_to48", B, 1, H, W, [48, 48],
+                     [True, False], 48),
+                    ("2d_l1_96+96+48_to96", B, 1, H1, W1, [96, 96, 48],
+                     [True, False, False], 96),
+                    ("l0_48+u48_to48_one_group", 2, 128, 128, 128, [48, 48],
+                     [True, False], 48)]}
+    out["fused_shift_conv_block_bwd"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in r2.values()),
+        shapes={n: {k: r[k] for k in keys} for n, r in r2.items()})
+    r8 = downlink_bwd_case("2d_l0_to_l1_48", B, 1, H, W, 48, rnd, R,
+                           window=(1, 2, 2))
+    out["downlink_bwd"] = {k: r8[k] for k in keys + ("max_abs_err",
+                                                     "kernel_route")}
+    print(f"[2d] routes: up-link {r6['kernel_route']}, seg head logits "
+          f"(N = {B}) {r9['kernel_route']}, probs (N = 1) "
+          f"{r10['kernel_route']}, down-link backward {r8['kernel_route']}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- one step's gradients of the 2D model: kernel path, bf16 plain
+    # path, float32 plain run
+    def model_2d(dtype):
+        m = ShiftUNetPlusPlus(1, NUM_CLASSES, pools, base_num_features=48,
+                              compute_dtype=dtype, do_shift=False,
+                              device="cuda")
+        m.reset_parameters(seed=0)
+        return m
+    model = model_2d(torch.bfloat16)
+    n_out = model.num_ds_outputs()
+    v, ts = tbm.make_batch(np.random.RandomState(6), TWOD_GRAD_BATCH,
+                           (1, H, W), NUM_CLASSES,
+                           tbm.ds_factors(pools, n_out))
+    data = torch.from_numpy(v).cuda()
+    targets = [torch.from_numpy(t).cuda() for t in ts]
+    weights = ds_loss_weights(len(pools), n_out)
+
+    g_k = loss_grads(model, data, targets, weights, batch_dice=False)
+    with blocks.plain_ops():
+        g_p = loss_grads(model, data, targets, weights, batch_dice=False)
+        g_32 = loss_grads(model_2d(torch.float32), data, targets, weights,
+                          batch_dice=False)
+    e_k = float((g_k - g_32).norm() / g_32.norm())
+    e_p = float((g_p - g_32).norm() / g_32.norm())
+    print(f"[2d] one step's gradients on {TWOD_GRAD_BATCH} x 1 x {H} x {W}, "
+          f"against a float32 plain run: kernel path rel L2 err {e_k:.4e}, "
+          f"bf16 plain path {e_p:.4e}", flush=True)
+    check(e_k <= ERR_RATIO * e_p, "[2d] kernel-path gradients further from "
+          "the float32 run than the bf16 plain path's")
+    del model, g_k, g_p, g_32
+    torch.cuda.empty_cache()
+
+    # ---- cli.train --network 2d, then -c; then --Tconv
+    # shiftConvPP_noshift on the 3D plan. One validation case (TWOD_VAL):
+    # a 2D validation predicts each case slice by slice, 319 tiles x 8
+    # passes of ~160^3 (~70 s on the card), and every run validates
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    os.environ["RESULTS_FOLDER"] = paths["results"]
+    write_split(pre, TRAIN_CASES, TWOD_VAL)
+    runs = []
+    real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
+    Trainer.initialize, Trainer.load_checkpoint_file = trainer_spies(
+        "2d", ops, counts, runs)
+    args = ["--task", TRAIN_TASK, "--fold", "0", "--network", "2d",
+            "--batches", "6", "--val_batches", "2", "--sparse", "True",
+            "--density", "0.2", "--update_frequency", "4"]
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for extra in (["--epochs", "1"], ["--epochs", "2", "-c"]):
+            t0 = time.perf_counter()
+            tcli.main(args + extra)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        tcli.main(["--task", TRAIN_TASK, "--fold", "0", "--Tconv",
+                   "shiftConvPP_noshift", "--epochs", "1", "--batches", "4",
+                   "--val_batches", "1"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    finally:
+        Trainer.initialize, Trainer.load_checkpoint_file = \
+            real_init, real_load
+        write_split(pre, TRAIN_CASES, TRAIN_VAL)
+    check(len(runs) == 3, f"[2d] {len(runs)} trainers")
+    check(runs[1]["loaded"] is not None and runs[1]["loaded"][0] == "latest"
+          and runs[1]["loaded"][1] == 1, "[2d] -c did not load 'latest' of "
+          "epoch 1")
+    for i, run in enumerate(runs):
+        tr = run["trainer"]
+        check(not tr.network.do_shift, f"[2d] run {i + 1} shifts")
+        losses = [float(v) for v in run["losses"]]
+        ms = [a.elapsed_time(b) for a, b in run["events"]]
+        check(all(np.isfinite(losses)) and all(
+            np.isfinite(tr.all_tr_losses + tr.all_val_losses)),
+            f"[2d] run {i + 1}: a loss is not finite")
+        waits, epochs = run["waits"], [b - a for a, b in run["epochs"]]
+        print(f"[2d] run {i + 1} ({tr.tconv}, patch "
+              f"{[int(v) for v in tr.patch_size]}, batch {tr.batch_size}, "
+              f"batch dice {tr.batch_dice}): {len(losses)} steps, losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}; {run['updates']} "
+              f"mask updates; launches per step {run['want']}", flush=True)
+        print(f"[2d] run {i + 1}: ms per step (CUDA events) "
+              f"{' '.join(f'{v:.1f}' for v in ms)}; steps after the first: "
+              f"median {float(np.median(ms[1:])):.1f}; host wait per batch "
+              f"in next(tr_gen) (s) {' '.join(f'{v:.3f}' for v in waits)}; "
+              f"s per epoch {' '.join(f'{v:.2f}' for v in epochs)}; "
+              f"validation per case (s): " + ", ".join(
+                  f"{t['case']} predict {t['predict_s']:.2f} export "
+                  f"{t['export_s']:.2f}" for t in tr.validation_timings)
+              + f"; the fold's validation {run['validate_s']:.1f} s; "
+              f"cli.main {walls[i]:.1f} s  [{smi}]", flush=True)
+    second = runs[1]["trainer"]
+    check(runs[0]["updates"] + runs[1]["updates"] == 3, "[2d] "
+          f"{runs[0]['updates']} + {runs[1]['updates']} mask updates in 12 "
+          f"steps")
+    check(second.epoch == 2 and second.all_tr_losses[0]
+          > second.all_tr_losses[-1], f"[2d] epoch train losses "
+          f"{second.all_tr_losses}: the first not above the last")
+    check(runs[2]["trainer"].network.lazy_up_route(),
+          "[2d] shiftConvPP_noshift on the 3D plan left the lazy route")
+    print(f"[2d] peak memory allocated over the 2D runs {peak:.2f} GiB",
+          flush=True)
+    fold = second.output_folder
+    check(os.path.basename(os.path.dirname(os.path.dirname(os.path.dirname(
+        fold)))) == "2d", f"[2d] the fold is under {fold}")
+    per_fwd = kernel_launches_per_forward(second.network)
+    del runs, second
+    torch.cuda.empty_cache()
+
+    # ---- cli.predict -m 2d, one validation case, fastest mode
+    inp = os.path.join(paths["results"], "2d_predict_in")
+    os.makedirs(inp)
+    case = TRAIN_VAL[0]
+    os.symlink(os.path.join(paths["images"], f"{case}_0000.nii.gz"),
+               os.path.join(inp, f"{case}_0000.nii.gz"))
+    real_case = predictor.predict_case
+    got = {}
+
+    def spy(bundle, d, *a, **k):
+        before = counts()
+        p = real_case(bundle, d, *a, **k)
+        torch.cuda.synchronize()
+        padded, _ = pad_volume_to_patch(d, bundle.patch_size)
+        steps = compute_steps_for_sliding_window(bundle.patch_size,
+                                                 padded.shape[1:], 0.5)
+        got.update(launches={n: v - before[n] for n, v in counts().items()},
+                   tiles=int(np.prod([len(s) for s in steps])),
+                   passes=TTA if k.get("do_tta", True) else 1,
+                   sums=np.asarray(p, np.float32).sum(0), bundle=bundle,
+                   data=d)
+        return p
+    predictor.predict_case = spy
+    t0 = time.perf_counter()
+    try:
+        pcli.main(["-i", inp, "-o", os.path.join(paths["results"],
+                                                 "2d_predict_out"),
+                   "-t", TRAIN_TASK, "-m", "2d", "-f", "0", "--mode",
+                   "fastest"])
+    finally:
+        predictor.predict_case = real_case
+    pred_s = time.perf_counter() - t0
+    seg = read_nifti(os.path.join(paths["results"], "2d_predict_out",
+                                  f"{case}.nii.gz")).array
+    labels = np.unique(seg)
+    check(seg.shape == TRAIN_CASES[case] and int(labels.min()) >= 0
+          and int(labels.max()) < NUM_CLASSES, f"[2d] predict: shape "
+          f"{seg.shape}, labels {labels}")
+    want = {n: got["tiles"] * got["passes"] * v for n, v in per_fwd.items()}
+    have = {n: got["launches"][n] for n in per_fwd}
+    check(have == want and all(got["launches"][n] == 0 for n in
+                               got["launches"] if n not in per_fwd),
+          f"[2d] predict: launches {got['launches']} != {want}")
+    s_dev = float(np.abs(got["sums"] - 1.0).max())
+    check(s_dev <= PROB_SUM_ATOL, f"[2d] predict: probs sum off by {s_dev}")
+    print(f"[2d] cli.predict -m 2d --mode fastest on {case}: shape "
+          f"{seg.shape}, labels {labels.tolist()[:4]}...{int(labels.max())}, "
+          f"{got['tiles']} tiles x {got['passes']} pass, launches {have}, "
+          f"max |sum_k p - 1| {s_dev:.2e}, {pred_s:.1f} s", flush=True)
+
+    # one slice of the case through the trained fold: kernel path and bf16
+    # plain path against a float32 plain run
+    net = got["bundle"].fold_models[0]
+    net.head_probs_dtype = None
+    z = got["data"].shape[1] // 2
+    x = torch.from_numpy(np.ascontiguousarray(np.moveaxis(
+        got["data"][:, z:z + 1, :H, :W], 0, -1)))[None].float().cuda()
+    net32 = ShiftUNetPlusPlus(1, NUM_CLASSES, pools, base_num_features=48,
+                              compute_dtype=torch.float32, do_shift=False,
+                              device="cuda")
+    net32.load_state_dict(net.state_dict())
+    with torch.inference_mode():
+        lk = net(x, do_ds=False).float()
+        with blocks.plain_ops():
+            lp = net(x, do_ds=False).float()
+            l32 = net32(x, do_ds=False)
+    check(bool(torch.isfinite(lk).all()), "[2d] non-finite logits")
+    e = {n: (float((lg - l32).abs().mean()),
+             float((lg.argmax(-1) == l32.argmax(-1)).float().mean()))
+         for n, lg in (("kernel", lk), ("plain", lp))}
+    print(f"[2d] one 1 x {H} x {W} slice of {case} through the trained fold, "
+          f"against float32: kernel path mean |dlogit| {e['kernel'][0]:.4e}, "
+          f"argmax agreement {e['kernel'][1]:.6f}; bf16 plain path "
+          f"{e['plain'][0]:.4e}, {e['plain'][1]:.6f}", flush=True)
+    check(e["kernel"][0] <= ERR_RATIO * e["plain"][0]
+          and e["kernel"][1] >= e["plain"][1] - AGREE_SLACK,
+          "[2d] the kernel path's slice further from float32 than the "
+          "plain path's")
+    del net, net32, got
+    torch.cuda.empty_cache()
+    check("jax" not in sys.modules, "[2d] jax was imported")
+    print(f"[2d] phase {time.perf_counter() - t_phase:.1f} s  [{smi}]",
+          flush=True)
+    return out
+
+
 def bench_phase(smi):
     """[bench] python -m e2enet_tpu_torch.bench at its defaults (the sparse
     model, fast mode) in a subprocess: exit 0 and a last stdout line with
@@ -3239,6 +3680,34 @@ def dsff_only() -> None:
           flush=True)
 
 
+def twod_only() -> None:
+    """--2d: the build, [trainer]'s planned task and the [2d] phase alone
+    (its launches printed as JSON)."""
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    for op in ops.values():
+        op.launches = 0
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_2d_") as tmp:
+        paths = plan_train_task(tmp, smi)
+        for op in ops.values():
+            op.launches = 0
+        twod_phase(Rnd(0), 20, ops,
+                   lambda: {n: op.launches for n, op in ops.items()}, smi,
+                   paths)
+    print(json.dumps({"2d_launches": {n: op.launches
+                                      for n, op in ops.items()}}),
+          flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3254,6 +3723,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--dsff"]:
         dsff_only()
+        return
+    if sys.argv[1:] == ["--2d"]:
+        twod_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -3749,7 +4221,8 @@ def main() -> None:
 
     # ---- 10. trainer: the users' training path, train CLI to predict CLI;
     # ---- 11. options: the trainer's options, on the task [trainer] planned
-    # ---- 12. dsff: every DSFF engine, on the same task
+    # ---- 12. dsff: every DSFF engine, on the same task;
+    # ---- 13. 2d: its 2D plan, and the shift off
     def options(paths):
         reset_counts()
         options_phase(ops, counts, smi, paths)
@@ -3757,15 +4230,19 @@ def main() -> None:
         reset_counts()
         dsff_phase(ops, counts, smi, paths)
         launches["dsff"] = counts()
+        reset_counts()
+        res2d.update(twod_phase(rnd, R, ops, counts, smi, paths))
+        launches["2d"] = counts()
+    res2d = {}
     launches["trainer"] = trainer_phase(ops, reset_counts, counts, smi,
                                         then=options)
 
-    # ---- 13. experiments: the experiment kernels, then their mains
+    # ---- 14. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    # ---- 14. report
+    # ---- 15. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -3815,7 +4292,12 @@ def main() -> None:
           "phase: train, gradient and loss steps, the CLI run's "
           "validation batches; 'dsff' over the [dsff] phase: train and "
           "gradient steps of every DSFF engine, the CLI runs' validation "
-          "batches and one predicted case)", flush=True)
+          "batches and one predicted case; '2d' over the [2d] phase: the "
+          "2D CLI runs' and the shiftConvPP_noshift run's train steps, "
+          "validation batches and validations, one predicted case; the "
+          "'2d' entry: the kernel at the 2D plan's shapes with one group "
+          "of shift 0, #3 and #4 with that group at the main path's)",
+          flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
     for name, (src, rep) in sources.items():
@@ -3835,6 +4317,8 @@ def main() -> None:
                                             "mma_ms", "host_ms")}
         if name in also:
             line["also_replaces"] = also[name]
+        if name in res2d:
+            line["2d"] = res2d[name]
         for extra in ("shapes", "int8", "kernel1_ms", "mma_ms", "control_ms",
                       "serial_ms",
                       "turns_ms", "affine_stats_ms", "gemm_route",

@@ -10,19 +10,23 @@ Usage:
   python -m e2enet_tpu_torch.cli.train --task 4 --fold 0 \
       --Tconv shiftConvPP --sparse True --density 0.2 \
       --update_frequency 1200 --epochs 1000 --batches 250 \
-      [-tr nnUNetTrainerV2_Ranger_lr3en4] [--growth gradient] \
-      [--device cuda|cpu] [-c]
+      [--network 3d_fullres|2d] [-tr nnUNetTrainerV2_Ranger_lr3en4] \
+      [--growth gradient] [--device cuda|cpu] [-c]
 
 Reads $nnUNet_preprocessed/<task>/ (the plans file, the stage folder,
 splits_final.pkl, gt_segmentations/), the folder that `python -m
 e2enet_tpu_torch.cli.plan_and_preprocess -t <id>` writes from the raw
 task, and writes the fold under
-$RESULTS_FOLDER/nnUNet/3d_fullres/<task>/TPUTrainer__<plans>/, in the JAX
+$RESULTS_FOLDER/nnUNet/<network>/<task>/TPUTrainer__<plans>/, in the JAX
 package's checkpoint format: either package continues the other's run and
 predicts with its folds. --device defaults to the card (`cuda`), which
 must be present; `--device cpu` trains the plain torch versions of every
-kernel. -tr names a preset of training/variants.py whose keys go to the
-trainer as the JAX CLI maps them (variant_kwargs): optimizers, learning
+kernel. --network 2d trains the task's 2D plan (nnUNetPlansv2.1_plans_2D,
+patch depth 1, which `-pl2d ExperimentPlanner2D_v21` writes) without the
+depth shift (shiftConvPP_noshift) and without batch dice; --Tconv
+shiftConvPP_noshift turns the shift off on a 3D plan. -tr names a
+preset of training/variants.py whose keys go to the trainer as the JAX
+CLI maps them (variant_kwargs): optimizers, learning
 rates and their schedules, momentum, losses, epochs, precision, batch
 dice. Every DSFF setting of the JAX trainer trains: --sparse_init
 uniform|dense|uniform_ori|ERK|GMP|lottery_ticket, --prune_mode
@@ -30,8 +34,8 @@ local|global (global on element masks), --granularity
 auto|kernel|element|row (row with uniform), --growth random|gradient,
 --final_density with --init-prune-epoch / --final-prune-epoch (the global
 prune's schedule, GMP's window) and --multiplier (GMP). Refused, each
-naming the ROADMAP item that ports it: --network 2d (Queue 1 item 3c),
-3d_lowres and 3d_cascade_fullres (item 4e), a preset that sets an
+naming the ROADMAP item that ports it: --network 3d_lowres and
+3d_cascade_fullres (Queue 1 item 4e), a preset that sets an
 augmentation level, the cascade, regions, the deep-supervision mode,
 per-epoch validation or export options (item 4e) or an architecture switch
 (item 6), --num_devices above 1 and --spatial_parallel (item 7),
@@ -49,8 +53,7 @@ from ..training.variants import resolve_variant
 from ..utils.files import isfile, join
 from ..utils.task_names import convert_id_to_task_name
 
-NETWORK_ITEMS = {"2d": "ROADMAP Queue 1 item 3c (2D plans)",
-                 "3d_lowres": "ROADMAP Queue 1 item 4e (cascade)",
+NETWORK_ITEMS = {"3d_lowres": "ROADMAP Queue 1 item 4e (cascade)",
                  "3d_cascade_fullres": "ROADMAP Queue 1 item 4e (cascade)"}
 
 

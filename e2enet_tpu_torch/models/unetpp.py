@@ -53,9 +53,15 @@ the kernels of one step, ds_loss_weights and deep_supervision_scales give
 the deep-supervision loss its weights and target scales. A model with a
 sparse plan attached refuses a gradient (training is dense-masked).
 
+do_shift=False (the reference's field) drops the depth shift: every block
+takes one channel group of shift 0, the table every kernel site takes as
+it takes shiftConvPP's five (shiftConvPP_noshift; 2D plans, patch depth 1,
+whose first pool (1, 2, 2) takes the materialised up-link route).
+
 build_network(plans_stage, ...) builds the model of a plan's stage by
-Tconv name, as the reference's factory does (shiftConvPP on 3D plans; the
-rest raise NotImplementedError naming their ROADMAP item).
+Tconv name, as the reference's factory does (shiftConvPP and
+shiftConvPP_noshift, 2D plans without the shift; the rest raise
+NotImplementedError naming their ROADMAP item).
 
 Parameter names follow the reference's flax tree (`context{d}.block{b}`,
 `context{P}a/b`, `up{z}_{k}`, `loc{z}_{k}`, `loc{z}_{k}_final`,
@@ -106,7 +112,7 @@ class ShiftUNetPlusPlus(nn.Module):
     level-0 head returns its class softmax in that dtype instead of
     logits. lazy_up: level-0 nest nodes read their up-link lazily where the
     lazy route applies (lazy_up_route); False keeps the materialised
-    route."""
+    route. do_shift=False: no depth shift (shiftConvPP_noshift)."""
 
     def __init__(self, input_channels: int, num_classes: int,
                  pool_op_kernel_sizes: Sequence[Tuple[int, int, int]],
@@ -115,7 +121,7 @@ class ShiftUNetPlusPlus(nn.Module):
                  num_conv_per_stage: int = 2,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  head_probs_dtype: Optional[torch.dtype] = None,
-                 lazy_up: bool = True, device=None):
+                 lazy_up: bool = True, do_shift: bool = True, device=None):
         super().__init__()
         if device is None:
             raise ValueError("pass the device explicitly")
@@ -126,10 +132,12 @@ class ShiftUNetPlusPlus(nn.Module):
         self.compute_dtype = compute_dtype
         self.head_probs_dtype = head_probs_dtype
         self.lazy_up = lazy_up
+        self.do_shift = do_shift
         self.sparse_plan: Optional[Plan] = None
         enc = self.enc = encoder_channels(base_num_features, P,
                                           max_num_features)
-        kw = dict(compute_dtype=compute_dtype, device=device)
+        kw = dict(compute_dtype=compute_dtype, do_shift=do_shift,
+                  device=device)
 
         for d in range(P):
             self.add_module(f"context{d}", StackedConvBlocks(
@@ -328,7 +336,6 @@ class ShiftUNetPlusPlus(nn.Module):
 # the reference's Tconvs this port does not build yet, and the ROADMAP item
 # (Queue 1) that ports each
 _NOT_PORTED = {
-    "shiftConvPP_noshift": "Queue 1 item 3c (the do_shift switch)",
     "ori": "Queue 1 item 6 (models/unet.py)",
     "shiftConvPP_nodff": "Queue 1 item 6 (models/unet.py)",
     "shiftConvPP_313": "Queue 1 item 6 (the _313/_331 kernels)",
@@ -342,18 +349,19 @@ def build_network(plans_stage, num_modalities: int, num_classes_incl_bg: int,
                   compute_dtype: torch.dtype = torch.bfloat16,
                   device=None) -> ShiftUNetPlusPlus:
     """The network of a plan's stage by Tconv name (reference
-    models/unetpp.build_network, e2enet_tpu/models/unetpp.py:769-860).
-    Builds shiftConvPP on 3D plans with the plan's pool kernels; its
-    weights are not initialised (load a state_dict or reset_parameters).
-    2D plans (patch depth 1, which the reference runs without the depth
-    shift) and the other Tconvs raise NotImplementedError naming the
-    ROADMAP item that ports them; an unknown name raises KeyError."""
-    if tconv not in _NOT_PORTED and tconv != "shiftConvPP":
+    models/unetpp.build_network, e2enet_tpu/models/unetpp.py:769-860),
+    with the plan's pool kernels; its weights are not initialised (load a
+    state_dict or reset_parameters). Builds shiftConvPP and
+    shiftConvPP_noshift (do_shift=False) on any plan; on a 2D plan (patch
+    depth 1) shiftConvPP builds shiftConvPP_noshift, as the reference
+    never shifts in 2D. The other Tconvs raise NotImplementedError naming
+    the ROADMAP item that ports them (ori also on 2D plans); an unknown
+    name raises KeyError."""
+    built = ("shiftConvPP", "shiftConvPP_noshift")
+    if tconv not in _NOT_PORTED and tconv not in built:
         raise KeyError(f"Unknown Tconv '{tconv}'")
-    if int(plans_stage.patch_size[0]) == 1:
-        raise NotImplementedError(
-            f"2D plans (patch {list(plans_stage.patch_size)}) run without "
-            f"the depth shift: ROADMAP {_NOT_PORTED['shiftConvPP_noshift']}")
+    if int(plans_stage.patch_size[0]) == 1 and tconv == "shiftConvPP":
+        tconv = "shiftConvPP_noshift"
     if tconv in _NOT_PORTED:
         raise NotImplementedError(f"Tconv '{tconv}': ROADMAP "
                                   f"{_NOT_PORTED[tconv]}")
@@ -362,7 +370,7 @@ def build_network(plans_stage, num_modalities: int, num_classes_incl_bg: int,
     return ShiftUNetPlusPlus(
         num_modalities, num_classes_incl_bg, pools,
         base_num_features=base_num_features, compute_dtype=compute_dtype,
-        device=device)
+        do_shift=tconv == "shiftConvPP", device=device)
 
 
 def _lazy_calls(model: ShiftUNetPlusPlus) -> int:

@@ -47,19 +47,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from .autograd import needs_grad
-from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, NO_FLIPS, SHIFT_SIZE,
-                          Flips, block_groups, fused_shift_conv_block,
+from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, NO_FLIPS, Flips,
+                          block_groups, fused_shift_conv_block,
                           fused_shift_conv_block_bwd,
                           fused_shift_conv_block_bwd_ref,
                           fused_shift_conv_block_ref, lrelu_where,
-                          mirror_conv_kernel, norm_affine_from_stats)
+                          mirror_conv_kernel, norm_affine_from_stats,
+                          shift_groups)
 from .qfused import LazyUp, lazy_up_fused_block, lazy_up_fused_block_ref
 from .qlink import (downlink, downlink_bwd, downlink_bwd_ref, downlink_ref,
                     flip_transp_kernel, seghead, seghead_ref, uplink,
                     uplink_ref)
 from .qstride import strided_fused, strided_fused_ref
-from .shift import (compact_groups, depth_shift_groups, group_shifts,
-                    restrict_groups)
+from .shift import compact_groups, depth_shift_groups, restrict_groups
 
 # kernel site name -> (kernel wrapper, plain version)
 KERNEL_OPS = {
@@ -227,7 +227,9 @@ def _gather_index(alive, full: int, compact: bool, device):
 
 class ShiftConvBlock(nn.Module):
     """shift -> conv(1,3,3) -> instance norm -> leaky relu (reference
-    ShiftConvBlock, (1,3,3) list-of-parts branch).
+    ShiftConvBlock, (1,3,3) list-of-parts branch). do_shift=False drops the
+    shift (shiftConvPP_noshift, 2D plans): every kernel site then takes one
+    group of shift 0 (fused_block.shift_groups).
 
     forward(parts, flips): plain torch; x may be a tensor or a list of parts
     of an implicit channel concat, conv(shift(cat)) == sum_p
@@ -243,11 +245,12 @@ class ShiftConvBlock(nn.Module):
     def __init__(self, in_channels: int, features: int,
                  stride: Tuple[int, int, int] = (1, 1, 1),
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 do_shift: bool = True, device=None):
         super().__init__()
         self.in_channels = in_channels
         self.features = features
         self.stride = tuple(stride)
+        self.do_shift = do_shift
         self.compute_dtype = compute_dtype
         f32 = dict(dtype=torch.float32, device=device)
         self.kernel = nn.Parameter(
@@ -271,9 +274,12 @@ class ShiftConvBlock(nn.Module):
         (sparse_in_full); sparse_compact: the part tensor already holds
         exactly those channels; sparse_out: emit only these output
         channels. The kernel rows of the full concat are gathered to the
-        alive channels, whose shifts follow their original positions."""
+        alive channels, whose shifts follow their original positions.
+        Without the shift every site takes the one-group table."""
         dev = self.kernel.device
-        rows, self._groups, self._gathers = None, None, None
+        rows, self._gathers = None, None
+        self._groups = (None if self.do_shift
+                        else shift_groups(self.in_channels, False))
         if sparse_in is not None:
             full = tuple(int(f) for f in sparse_in_full)
             compact = tuple(sparse_compact or (False,) * len(full))
@@ -281,8 +287,8 @@ class ShiftConvBlock(nn.Module):
             galive = [off[p] + int(c) for p, a in enumerate(sparse_in)
                       for c in a]
             rows = _index(galive, dev)
-            self._groups = compact_groups(group_shifts(sum(full), SHIFT_SIZE),
-                                          galive)
+            self._groups = compact_groups(
+                shift_groups(sum(full), self.do_shift), galive)
             self._gathers = [_gather_index(a, f, c, dev) for a, f, c
                              in zip(sparse_in, full, compact)]
         cols = _index(sparse_out, dev)
@@ -365,7 +371,7 @@ class ShiftConvBlock(nn.Module):
             (x,), ((mult, off),) = parts, affines
             # the strided transition adds its bias in float32
             y, stats = strided_fused(x, mult, off, kernel.to(cd), bias,
-                                     self.stride, flips)
+                                     self.stride, flips, self._groups)
         return y, stats, scale, nbias
 
 
@@ -375,7 +381,8 @@ class StackedConvBlocks(nn.Module):
 
     def __init__(self, in_channels: int, features: int, num_convs: int,
                  first_stride: Tuple[int, int, int] = (1, 1, 1),
-                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 do_shift: bool = True, device=None):
         super().__init__()
         self.num_convs = num_convs
         self.features = features
@@ -383,7 +390,8 @@ class StackedConvBlocks(nn.Module):
             self.add_module(f"block{i}", ShiftConvBlock(
                 in_channels if i == 0 else features, features,
                 stride=first_stride if i == 0 else (1, 1, 1),
-                compute_dtype=compute_dtype, device=device))
+                compute_dtype=compute_dtype, do_shift=do_shift,
+                device=device))
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.num_convs)]

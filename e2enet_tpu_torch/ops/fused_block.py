@@ -74,13 +74,21 @@ def mirror_conv_kernel(kernel: torch.Tensor, flips: Flips) -> torch.Tensor:
     return kernel.flip(dims) if dims else kernel
 
 
+def shift_groups(C: int, do_shift: bool = True):
+    """The shift groups of a block over C channels: shiftConvPP's five, or
+    with the shift off one group of shift 0 (shiftConvPP_noshift and 2D
+    plans; reference fused_block.py:997-998, qfused.py:1541-1542)."""
+    return tuple(group_shifts(C, SHIFT_SIZE)) if do_shift else ((0, C, 0),)
+
+
 def block_groups(C: int, flips: Flips, groups_override=None):
     """Shift groups of a stride-1 block over C concat channels, mirrored
     when the depth axis is. groups_override: explicit groups over the
     (compact) channel space instead (the sparse plan's gathered channels
-    keep the shifts of their original positions, shift.compact_groups)."""
+    keep the shifts of their original positions, shift.compact_groups; a
+    block without the shift passes shift_groups(C, False))."""
     if groups_override is None:
-        groups = group_shifts(C, SHIFT_SIZE)
+        groups = shift_groups(C)
     else:
         groups = tuple(groups_override)
         if groups[0][0] != 0 or groups[-1][1] != C:

@@ -40,9 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from .autograd import needs_grad, plain_vjp
-from .fused_block import (NO_FLIPS, SHIFT_SIZE, Flips, affine_nc, lrelu_max,
-                          mirror_conv_kernel)
-from .shift import depth_shift_groups, group_shifts, strided_depth_source
+from .fused_block import (NO_FLIPS, Flips, affine_nc, lrelu_max,
+                          mirror_conv_kernel, shift_groups)
+from .shift import depth_shift_groups, strided_depth_source
 
 
 def _out_extent(L: int, s: int, flipped: bool) -> int:
@@ -59,10 +59,12 @@ def _tap_origin(s: int, flipped: bool) -> int:
 def strided_fused_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
                       kernel: torch.Tensor, bias: torch.Tensor,
                       stride: Tuple[int, int, int] = (2, 2, 2),
-                      flips: Flips = NO_FLIPS):
+                      flips: Flips = NO_FLIPS, groups_override=None):
     """Plain torch version. x (N, D, H, W, C), mult/off (C,) or (N, C),
-    kernel (CO, C, 3, 3), bias (CO,); returns (y (N, Do, Ho, Wo, CO) in x's
-    dtype, stats (N, CO, 2) float32)."""
+    kernel (CO, C, 3, 3), bias (CO,); groups_override: the shift groups of
+    C (default shiftConvPP's, fused_block.shift_groups; one group of shift
+    0 with the shift off). Returns (y (N, Do, Ho, Wo, CO) in x's dtype,
+    stats (N, CO, 2) float32)."""
     dtype = x.dtype
     N, D, H, W, C = x.shape
     CO = kernel.shape[0]
@@ -70,8 +72,8 @@ def strided_fused_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
     m = affine_nc(mult, N, C)[:, None, None, None, :]
     o = affine_nc(off, N, C)[:, None, None, None, :]
     u = lrelu_max(x.float() * m + o).to(dtype)
-    groups, parity = strided_depth_source(group_shifts(C, SHIFT_SIZE), sd,
-                                          flips[0])
+    groups, parity = strided_depth_source(
+        groups_override or shift_groups(C), sd, flips[0])
     s = depth_shift_groups(u, groups)[:, parity::sd]
     Do = s.shape[1]
     # zero halo: `origin` rows before, the rest after
@@ -94,23 +96,27 @@ def strided_fused_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
 def strided_fused(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
                   kernel: torch.Tensor, bias: torch.Tensor,
                   stride: Tuple[int, int, int] = (2, 2, 2),
-                  flips: Flips = NO_FLIPS):
+                  flips: Flips = NO_FLIPS, groups_override=None):
     """The strided transition: plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (bfloat16, strides of 1 or 2; raises on what the
     kernel does not take). Same arguments and results as
     strided_fused_ref; with a gradient wanted, an autograd op whose
     backward is strided_fused_ref's."""
     if needs_grad((x, mult, off, kernel, bias)):
-        return plain_vjp(lambda *t: _strided_forward(*t, stride, flips),
-                         lambda *t: strided_fused_ref(*t, stride, flips),
-                         (x, mult, off, kernel, bias))
-    return _strided_forward(x, mult, off, kernel, bias, stride, flips)
+        return plain_vjp(
+            lambda *t: _strided_forward(*t, stride, flips, groups_override),
+            lambda *t: strided_fused_ref(*t, stride, flips, groups_override),
+            (x, mult, off, kernel, bias))
+    return _strided_forward(x, mult, off, kernel, bias, stride, flips,
+                            groups_override)
 
 
-def _strided_forward(x, mult, off, kernel, bias, stride, flips):
+def _strided_forward(x, mult, off, kernel, bias, stride, flips,
+                     groups_override=None):
     dev = x.device
     if dev.type == "cpu":
-        return strided_fused_ref(x, mult, off, kernel, bias, stride, flips)
+        return strided_fused_ref(x, mult, off, kernel, bias, stride, flips,
+                                 groups_override)
     if dev.type != "cuda":
         raise ValueError(f"strided_fused: unsupported device {dev}")
     tensors = (x, mult, off, kernel, bias)
@@ -129,8 +135,8 @@ def _strided_forward(x, mult, off, kernel, bias, stride, flips):
                          f"{tuple(bias.shape)} do not fit C={C}")
     from . import _native
     sd, sh, sw = stride
-    groups, parity = strided_depth_source(group_shifts(C, SHIFT_SIZE), sd,
-                                          flips[0])
+    groups, parity = strided_depth_source(
+        groups_override or shift_groups(C), sd, flips[0])
     w9 = mirror_conv_kernel(kernel.to(x.dtype), flips).permute(2, 3, 0, 1) \
         .reshape(9, CO, C).contiguous()
     out = (_out_extent(D, sd, flips[0]), _out_extent(H, sh, flips[1]),

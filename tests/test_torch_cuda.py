@@ -234,6 +234,8 @@ UPLINKS = {
     # bench width: the materialised route's #6
     "aniso_bench_width": (1, 4, 16, 64, 96, 48, (1, 2, 2)),
     "aniso_ragged": (2, 3, 5, 13, 16, 8, (1, 2, 2)),
+    # a 2D plan's level-1 -> 0 up-link: depth 1, a batch of slices
+    "2d_batch": (8, 1, 16, 16, 96, 48, (1, 2, 2)),
 }
 
 
@@ -269,6 +271,8 @@ DOWNLINKS = {
     # bench width and ragged
     "aniso_bench_width": (1, 4, 32, 128, 48, (1, 2, 2)),
     "aniso_ragged": (2, 3, 7, 26, 8, (1, 2, 2)),
+    # a 2D plan's level-0 -> 1 down-link: depth 1, a batch of slices
+    "2d_batch": (8, 1, 32, 32, 48, (1, 2, 2)),
 }
 
 
@@ -303,6 +307,8 @@ HEADS = {
     "k5_tail": (1, 3, 5, 7, 16, 5),
     "ragged": (2, 3, 5, 13, 8, 3),
     "c6": (1, 2, 3, 7, 6, 5),
+    # a 2D plan's level-0 head: depth 1, a batch of slices
+    "2d_batch": (8, 1, 32, 32, 48, 16),
 }
 
 
@@ -717,6 +723,8 @@ DOWN_BWD = {
     # 16-byte units: aligned rows with exact ties, and twelve units
     "ties_aligned": (2, 16, 32, 64, 48, (2, 2, 2), True),
     "c96": (2, 8, 16, 32, 96, (2, 2, 2), False),
+    # a 2D plan's window (1, 2, 2) at depth 1 (the scalar route)
+    "2d_window": (8, 1, 32, 32, 48, (1, 2, 2), True),
 }
 
 
@@ -737,7 +745,8 @@ def test_downlink_bwd_matches_plain(case):
     m, o = _rand(rng, dev, N, C), _rand(rng, dev, N, C, scale=0.2)
     m[:, 0] = 0.0                           # the min chain at mult == 0
     o[:, 1] = 0.0
-    gy = _rand(rng, dev, N, D // 2, H // 2, W // 2, C).bfloat16()
+    gy = _rand(rng, dev, N, D // window[0], H // window[1], W // window[2],
+               C).bfloat16()
     before = qlink.downlink_bwd.launches
     gx, gm, go = qlink.downlink_bwd(x, m, o, gy, window)
     rx, rm, ro = qlink.downlink_bwd_ref(x, m, o, gy, window)
@@ -933,6 +942,195 @@ def test_options_step_and_gradient_growth_launches(opt):
         dead = broadcast_mask(1.0 - m, state.params[n])
         for t in [state.params[n].detach()] + [b[n] for b in bufs]:
             assert float((t * dead).abs().max()) == 0.0, n
+
+
+# ------------------------------------------- the shift off and 2D plans
+ONE_GROUP_FLIPS = [(False, False, False), (True, True, False),
+                   (True, False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 3])
+def test_one_group_block_and_backward_match_plain(D):
+    """The fused block (#1) and its backward (#2/#4) with the shift off,
+    one group of shift 0, at depth 1 (a 2D plan's slices) and 3, against
+    their plain versions (the tolerances of test_kernel_matches_plain and
+    test_block_bwd_matches_plain)."""
+    dev = _card()
+    parts, affs, kernel, bias = _make(D, 6, D, 16, 32, (48, 48),
+                                      (True, False), 48, dev)
+    groups = tfb.shift_groups(96, False)
+    rng = np.random.RandomState(D)
+    for flips in ONE_GROUP_FLIPS:
+        before = tfb.fused_shift_conv_block.launches
+        with torch.no_grad():
+            y, s = tfb.fused_shift_conv_block(parts, kernel, bias, affs,
+                                              flips, groups)
+            y_p, s_p = tfb.fused_shift_conv_block_ref(parts, kernel, bias,
+                                                      affs, flips, groups)
+        torch.cuda.synchronize()
+        assert tfb.fused_shift_conv_block.launches == before + 1
+        assert _within_ulps(y, y_p)
+        torch.testing.assert_close(s, s_p, rtol=1e-3,
+                                   atol=1e-3 * float(y_p.float().abs().sum()))
+        gy = _rand(rng, dev, *y_p.shape, scale=0.1).bfloat16()
+        gstats = _rand(rng, dev, 6, 48, 2, scale=1e-4)
+        args = (parts, kernel, bias, affs, y_p, gy, gstats, flips, groups)
+        gp, gk, gb, ga = tfb.fused_shift_conv_block_bwd(*args)
+        rp, rk, rb, ra = tfb.fused_shift_conv_block_bwd_ref(*args)
+        torch.cuda.synchronize()
+        for g, r in zip(gp, rp):
+            assert _within_ulps(g, r)
+        assert _close_max(gk, rk, 2e-3) and _close_max(gb, rb, 2e-3)
+        assert _close_max(ga[0][0], ra[0][0], 2e-3)
+        assert _close_max(ga[0][1], ra[0][1], 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 3])
+def test_one_group_strided_matches_plain(D):
+    """The strided transition (#5) at a 2D plan's stride (1, 2, 2) with
+    the shift off, at depth 1 and 3, every flip of test_strided's."""
+    from e2enet_tpu_torch.ops import qstride
+    dev = _card()
+    N, H, W, C, CO = 6, 32, 32, 48, 96
+    rng = np.random.RandomState(D + C)
+    x = _rand(rng, dev, N, D, H, W, C).bfloat16()
+    m, o = _rand(rng, dev, N, C, scale=0.3, shift=1.0), _rand(rng, dev, N, C,
+                                                              scale=0.2)
+    k = _rand(rng, dev, CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    b = _rand(rng, dev, CO, scale=0.1)
+    groups = ((0, C, 0),)
+    for flips in FLIPS:
+        before = qstride.strided_fused.launches
+        with torch.no_grad():
+            y, s = qstride.strided_fused(x, m, o, k, b, (1, 2, 2), flips,
+                                         groups)
+            y_p, s_p = qstride.strided_fused_ref(x, m, o, k, b, (1, 2, 2),
+                                                 flips, groups)
+        torch.cuda.synchronize()
+        assert qstride.strided_fused.launches == before + 1
+        assert y.shape == y_p.shape == (N, D, H // 2, W // 2, CO)
+        assert _within_ulps(y, y_p)
+        torch.testing.assert_close(s, s_p, rtol=1e-3,
+                                   atol=1e-3 * float(y_p.float().abs().sum()))
+
+
+@pytest.mark.cuda
+def test_one_group_lazy_block_matches_plain():
+    """The lazy up-link block (#3) with the one-group table:
+    shiftConvPP_noshift on a 3D plan's level-0 nest node."""
+    from e2enet_tpu_torch.ops import qfused
+    dev = _card()
+    rng = np.random.RandomState(3)
+    N, Dc, Hc, Wc, cin, cout, CO = 2, 3, 4, 16, 96, 48, 48
+    parts = [_rand(rng, dev, N, 2 * Dc, 2 * Hc, 2 * Wc, 48).bfloat16()]
+    affs = [(_rand(rng, dev, N, 48, scale=0.3, shift=1.0),
+             _rand(rng, dev, N, 48, scale=0.2))]
+    up = qfused.LazyUp(_rand(rng, dev, N, Dc, Hc, Wc, cin).bfloat16(),
+                       _rand(rng, dev, N, cin, scale=0.3, shift=1.0),
+                       _rand(rng, dev, N, cin, scale=0.2),
+                       _rand(rng, dev, cin, cout, 2, 2, 2,
+                             scale=(1.0 / cin) ** 0.5))
+    kernel = _rand(rng, dev, CO, 96, 3, 3, scale=(2.0 / 864) ** 0.5)
+    bias = _rand(rng, dev, CO, scale=0.1)
+    for flips in ONE_GROUP_FLIPS:
+        with torch.no_grad():
+            y, s = qfused.lazy_up_fused_block(parts, up, kernel, bias, affs,
+                                              flips, ((0, 96, 0),))
+            y_p, s_p = qfused.lazy_up_fused_block_ref(
+                parts, up, kernel, bias, affs, flips, ((0, 96, 0),))
+        torch.cuda.synchronize()
+        assert _within_ulps(y, y_p)
+        torch.testing.assert_close(s, s_p, rtol=1e-3,
+                                   atol=1e-3 * float(y_p.float().abs().sum()))
+
+
+@pytest.mark.cuda
+def test_downlink_bwd_2d_window_takes_the_scalar_route():
+    """#8 at a 2D plan's window (1, 2, 2) runs its scalar kernel."""
+    from e2enet_tpu_torch.ops import qlink
+    dev = _card()
+    rng = np.random.RandomState(12)
+    x = _rand(rng, dev, 8, 1, 32, 32, 48).bfloat16()
+    m, o = _rand(rng, dev, 8, 48), _rand(rng, dev, 8, 48, scale=0.2)
+    gy = _rand(rng, dev, 8, 1, 16, 16, 48).bfloat16()
+    qlink.downlink_bwd(x, m, o, gy, (1, 2, 2))
+    names = _device_kernels(lambda: qlink.downlink_bwd(x, m, o, gy,
+                                                       (1, 2, 2)))
+    assert any("downlink_bwd_kernel" in n for n in names), names
+    assert not any("downlink_bwd_vec_kernel" in n for n in names), names
+
+
+def _model_2d(dev, dtype):
+    from e2enet_tpu_torch.models.unetpp import ShiftUNetPlusPlus
+    m = ShiftUNetPlusPlus(1, 4, ((1, 2, 2),) * 3, base_num_features=16,
+                          compute_dtype=dtype, do_shift=False, device=dev)
+    m.reset_parameters(seed=0)
+    return m
+
+
+@pytest.mark.cuda
+def test_2d_model_kernel_path_matches_plain():
+    """A small 2D model (depth 1, three (1, 2, 2) pools, no shift, bf16) on
+    the card: a forward launches each kernel as
+    kernel_launches_per_forward counts (the materialised route) and its
+    logits are no further from a float32 plain run than 1.25x the bf16
+    plain path's; one train step launches as
+    kernel_launches_per_train_step counts, and its gradients are no
+    further from the float32 plain run's than 1.25x the plain path's."""
+    from e2enet_tpu_torch.models.unetpp import (
+        ds_loss_weights, kernel_launches_per_forward,
+        kernel_launches_per_train_step)
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.ops.losses import deep_supervision_loss
+    from e2enet_tpu_torch.training import train_bench_masks as tb
+    dev = _card()
+    model, model32 = _model_2d(dev, torch.bfloat16), _model_2d(
+        dev, torch.float32)
+    assert not model.lazy_up_route()
+    n_out = model.num_ds_outputs()
+    v, ts = tb.make_batch(np.random.RandomState(0), 8, (1, 64, 64), 4,
+                          tb.ds_factors(model.pools, n_out))
+    data = torch.from_numpy(v).to(dev)
+    targets = [torch.from_numpy(t).to(dev) for t in ts]
+    ops = {**{k: v[0] for k, v in blocks.KERNEL_OPS.items()},
+           **{k: v[0] for k, v in blocks.BACKWARD_OPS.items()}}
+    for op in ops.values():
+        op.launches = 0
+    with torch.no_grad():
+        lk = model(data, do_ds=False)
+        assert {k: ops[k].launches for k in blocks.KERNEL_OPS} == \
+            kernel_launches_per_forward(model)
+        with blocks.plain_ops():
+            lp = model(data, do_ds=False)
+            l32 = model32(data, do_ds=False)
+    e_k = float((lk - l32).abs().mean())
+    e_p = float((lp - l32).abs().mean())
+    assert e_k <= 1.25 * e_p, (e_k, e_p)
+    weights = ds_loss_weights(3, n_out)
+
+    def grads(net):
+        loss = deep_supervision_loss(net(data, do_ds=True), targets, weights,
+                                     batch_dice=False)
+        g = torch.autograd.grad(loss, list(net.parameters()),
+                                allow_unused=True)
+        return torch.cat([(torch.zeros_like(p) if x is None else x).float()
+                          .flatten() for x, p in zip(g, net.parameters())])
+    for op in ops.values():
+        op.launches = 0
+    g_k = grads(model)
+    want = kernel_launches_per_train_step(model)
+    assert {k: op.launches for k, op in ops.items()} == {
+        k: want["forward"].get(k, 0) + want["backward"].get(k, 0)
+        for k in ops}
+    with blocks.plain_ops():
+        g_p = grads(model)
+        g_32 = grads(model32)
+    assert bool(torch.isfinite(g_k).all())
+    e_k = float((g_k - g_32).norm() / g_32.norm())
+    e_p = float((g_p - g_32).norm() / g_32.norm())
+    assert e_k <= 1.25 * e_p, (e_k, e_p)
 
 
 # ------------------------------------------------- the experiment kernels

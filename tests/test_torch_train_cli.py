@@ -202,7 +202,6 @@ def test_refuses_without_a_card(environ, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--network", "2d"], "item 3c"),
     (["--network", "3d_lowres"], "item 4e"),
     (["--network", "3d_cascade_fullres"], "item 4e"),
     (["-tr", "nnUNetTrainerV2_noDA"], "item 4e"),
@@ -213,6 +212,41 @@ def test_refuses_without_a_card(environ, monkeypatch):
 def test_unported_options_raise(environ, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu"] + extra)
+
+
+def test_network_2d_trains(environ, tmp_path):
+    """--network 2d, refused before it was ported, trains one epoch of 2
+    batches (width 8, --fp32, kernel DSFF) on the task's 2D plan (the
+    stage data of its 3D plan at patch (1, 16, 16) with two (1, 2, 2)
+    pools) without the shift or batch dice, and writes the fold under
+    2d/; the predict CLI's -m 2d serves the fold with its masks."""
+    from e2enet_tpu_torch.plans import Plans
+    pre = os.path.join(environ["preprocessed"], TASK)
+    plans = Plans.load(os.path.join(pre, "nnUNetPlansv2.1_plans_3D.json"))
+    st = plans.plans_per_stage[0]
+    st.patch_size, st.pool_op_kernel_sizes = [1, 16, 16], [[1, 2, 2]] * 2
+    plans.save(os.path.join(pre, "nnUNetPlansv2.1_plans_2D.json"))
+    tr = ttrain.main(ARGS + ["--epochs", "1", "--network", "2d", "--fold",
+                             "2", "--device", "cpu"])
+    assert not tr.network.do_shift and not tr.batch_dice
+    assert [int(i) for i in tr.patch_size] == [1, 16, 16]
+    assert all(np.isfinite(tr.all_tr_losses + tr.all_val_losses))
+    fold = (Path(environ["results"]) / "nnUNet" / "2d" / TASK
+            / "TPUTrainer__nnUNetPlansv2.1" / "fold_2")
+    assert (fold / "shiftConvPP_model_final_checkpoint.model").exists()
+    assert (fold / "validation_raw" / "summary.json").exists()
+    assert tr.state.masks is not None
+    inp = tmp_path / "in"
+    inp.mkdir()
+    case = list(tr.dataset_val)[0]
+    os.symlink(os.path.join(environ["raw"], f"{case}_0000.nii.gz"),
+               inp / f"{case}_0000.nii.gz")
+    out = tmp_path / "out"
+    tpredict.main(["-i", str(inp), "-o", str(out), "-t", TASK, "-m", "2d",
+                   "-f", "2", "--device", "cpu"])
+    seg = read_nifti(str(out / f"{case}.nii.gz")).array
+    assert seg.shape == CASES[case]
+    assert int(seg.min()) >= 0 and int(seg.max()) < 3
 
 
 @pytest.mark.parametrize("extra", [

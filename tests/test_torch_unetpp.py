@@ -271,30 +271,37 @@ def _stage(plans_mod, pools, patch):
         conv_kernel_sizes=[[1, 3, 3]] * (len(pools) + 1))
 
 
-@pytest.mark.parametrize("pools,patch,lazy", [
-    (((2, 2, 2), (2, 2, 2)), (32, 32, 32), True),
-    (((1, 2, 2), (2, 2, 2)), (16, 32, 32), False)])
-def test_build_network_matches_reference(pools, patch, lazy):
+@pytest.mark.parametrize("pools,patch,lazy,tconv", [
+    (((2, 2, 2), (2, 2, 2)), (32, 32, 32), True, "shiftConvPP"),
+    (((1, 2, 2), (2, 2, 2)), (16, 32, 32), False, "shiftConvPP"),
+    # a 2D plan builds shiftConvPP_noshift, on the materialised route
+    (((1, 2, 2), (1, 2, 2)), (1, 32, 32), False, "shiftConvPP"),
+    (((2, 2, 2), (2, 2, 2)), (32, 32, 32), True, "shiftConvPP_noshift")],
+    ids=["pools0-patch0-True", "pools1-patch1-False", "2d_plan",
+         "noshift"])
+def test_build_network_matches_reference(pools, patch, lazy, tconv):
     """models/unetpp.build_network on a plan's stage: the reference's
     parameter names and shapes through from_jax_params, its divisibility,
-    and the up-link route the pools allow (a first pool of (1, 2, 2) takes
-    the materialised route)."""
+    whether it shifts, and the up-link route the pools allow (a first
+    pool of (1, 2, 2) takes the materialised route)."""
     import e2enet_tpu.plans as jplans
     import e2enet_tpu_torch.plans as tplans
     from e2enet_tpu.models.unetpp import build_network as jbuild
-    jnet = jbuild(_stage(jplans, pools, patch), 2, 4, base_num_features=8,
-                  compute_dtype=jnp.float32)
+    jnet = jbuild(_stage(jplans, pools, patch), 2, 4, tconv=tconv,
+                  base_num_features=8, compute_dtype=jnp.float32)
     shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0),
                             jnp.zeros((1, *patch, 2)))["params"]
     want = from_jax_params(jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, np.float32), shapes))
     net = tunetpp.build_network(_stage(tplans, pools, patch), 2, 4,
-                                base_num_features=8, device="cpu")
+                                tconv=tconv, base_num_features=8,
+                                device="cpu")
     got = net.state_dict()
     assert {k: tuple(v.shape) for k, v in got.items()} == \
         {k: tuple(v.shape) for k, v in want.items()}
     net.load_state_dict(want, strict=True)
     assert net.compute_dtype == torch.bfloat16 and net.pools == list(pools)
+    assert net.do_shift == jnet.do_shift
     np.testing.assert_array_equal(net.input_shape_must_be_divisible_by,
                                   jnet.input_shape_must_be_divisible_by)
     assert net.lazy_up_route() == lazy
@@ -305,13 +312,14 @@ def test_build_network_matches_reference(pools, patch, lazy):
 def test_build_network_refuses_what_is_not_ported():
     import e2enet_tpu_torch.plans as tplans
     stage = _stage(tplans, ((2, 2, 2),) * 2, (32, 32, 32))
-    for tconv in ("shiftConvPP_noshift", "ori", "shiftConvPP_nodff",
-                  "shiftConvPP_313", "shiftConvPP_331", "resenc"):
+    for tconv in ("ori", "shiftConvPP_nodff", "shiftConvPP_313",
+                  "shiftConvPP_331", "resenc"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             tunetpp.build_network(stage, 1, 3, tconv=tconv, device="cpu")
+    # the reference's 2D ori (ShiftUNet without the shift) is item 6
     flat = _stage(tplans, ((1, 2, 2),) * 2, (1, 32, 32))
-    with pytest.raises(NotImplementedError, match="2D plans"):
-        tunetpp.build_network(flat, 1, 3, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tunetpp.build_network(flat, 1, 3, tconv="ori", device="cpu")
     with pytest.raises(KeyError):
         tunetpp.build_network(stage, 1, 3, tconv="unet9", device="cpu")
     with pytest.raises(ValueError, match="device"):
