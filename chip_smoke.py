@@ -16,6 +16,9 @@
     python3 chip_smoke.py --2d
                                    # only the build, [trainer]'s planned
                                    # task and the [2d] phase
+    python3 chip_smoke.py --cascade
+                                   # only the build, [trainer]'s planned
+                                   # task and the [cascade] phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -129,8 +132,9 @@ Phases (any failure ends the run with a non-zero exit):
               at the bench width (48 base features, 128^3 patches, batch 2,
               bf16) with kernel-granular DSFF (density 0.2, a mask update
               every 4 steps): 2 epochs of 6 batches (2 validation batches
-              each), then -c --epochs 3 from 'latest', each run ending in the
-              fold's validation (summary.json, postprocessing.json);
+              each), then -c --epochs 3 from 'latest', which ends in the
+              fold's validation (summary.json, postprocessing.json; the
+              first run leaves its validation to it);
               cli.predict with the trained fold on one validation case.
               Checks: every loss finite, the first epoch's train loss above
               the last, launches per step equal to
@@ -205,17 +209,42 @@ Phases (any failure ends the run with a non-zero exit):
               #3 and #4 with the one-group table at the main path's shapes;
               one step's gradients of the 2D model against a float32 plain
               run (the 1.25x rule); cli/train.main --network 2d with
-              kernel DSFF at 0.2 (one epoch of 6 + 2 batches at the planned
+              kernel DSFF at 0.2 (one epoch of 4 + 1 batches at the planned
               batch, then -c to a second; launches per step, the loss
-              falling, dead entries zero, each run's validation on one
-              case),
+              falling, dead entries zero; no run validates, the tile loop
+              of a 2D plan runs in the predict CLI below),
               --Tconv shiftConvPP_noshift on the 3D plan for 4 steps (the
               lazy route); cli/predict.main -m 2d --mode fastest on one
               case (launches tiles x passes x per forward, labels in
               [0, 16), probabilities summing to 1) and one slice of it
               against float32. Prints ms per step, the host's wait per
-              batch, s per epoch and per validation case, the peak memory
-  14. experiments  the experiment kernels (TPU kernels #11-#14) against
+              batch, s per epoch, the peak memory
+  14. cascade the 3d_lowres -> 3d_cascade_fullres cascade at the bench
+              width (48 base features, 16 classes, bf16, kernel DSFF at
+              0.2): #1 at the cascade's first block (one modality and the
+              one-hot labels: 16 input channels, and 3 at 3 classes) and
+              the block backward there (wgrad only, as the train step
+              runs it, and with its input's gradient), #9 and #10 at 3
+              classes, against their plain versions and timed; a task
+              whose stage 1 is [trainer]'s plan and files and whose stage
+              0 (1.25 mm, 128^3 median, 128^3 patches, 5 pools, batch 2)
+              the port's get_properties_for_stage plans and its
+              preprocessor writes; cli/train.main --network 3d_lowres
+              --fold all (3 epochs of 6 + 1 batches; its validation left
+              out) and its predict_next_stage over all six cases (a uint8
+              segFromPrevStage file per case at the stage-1 shape, its
+              launches tiles x passes x per forward); cli/train.main
+              --network 3d_cascade_fullres --fold all (one epoch of 4 + 1
+              batches, the validation over all six cases; 16 input
+              channels, launches per step the 3D step's, a validation
+              batch's one-hot channels 0/1 and at most one per voxel); one step's gradients of the trained
+              cascade model against a float32 plain run (the 1.25x rule);
+              cli/predict.main -m 3d_cascade_fullres --mode fastest on one
+              raw case (the _lowres folder, shape and labels, launches per
+              stage). Prints ms per step, the host's wait per batch (the
+              cascade's one-hot augmentation runs on it), s per validation
+              case, the peak memory, the phase's seconds
+  15. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -239,7 +268,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  15. report  one JSON line with every kernel's launches, error, times and
+  16. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -250,6 +279,14 @@ import sys
 import time
 
 import numpy as np
+
+T_START = time.perf_counter()
+
+
+def stamp(done: str) -> None:
+    """Print the seconds since the script started, after `done`."""
+    print(f"[time] {done} done at {time.perf_counter() - T_START:.1f} s",
+          flush=True)
 
 PATCH = (128, 128, 128)
 VOLUME = (192, 192, 192)
@@ -828,8 +865,8 @@ def block_bwd_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
     check(rel <= BWD_RTOL, f"{name}: gW/gb/g(affine) rel err {rel}")
     if reps == 0:
         return dict(max_abs_err=err, rel_err=rel)
-    # cuDNN's dgrad + wgrad of the bf16 conv on the already shifted,
-    # normalised operand, one call
+    # cuDNN's dgrad (where a part is wanted) + wgrad of the bf16 conv on the
+    # already shifted, normalised operand, one call
     x2 = torch.cat(parts, -1).reshape(N * D, H, W, C).permute(0, 3, 1, 2)
     w2 = kernel.to(bf)
     g2 = gy.reshape(N * D, H, W, CO).permute(0, 3, 1, 2)
@@ -837,13 +874,18 @@ def block_bwd_case(name, N, D, H, W, part_c, affine, CO, rnd, reps,
     def library():
         return torch.ops.aten.convolution_backward(
             g2, x2, w2, None, (1, 1), (1, 1), (1, 1), False, (0, 0), 1,
-            (True, True, False))
-    # read parts, y and gy, write gx, gW and gb; dgrad and wgrad GEMMs
-    b_ms, b_by = bound(2 * nbytes(*parts) + nbytes(y, gy)
+            (any(want), True, False))
+    # read parts, y and gy, write the wanted parts' gx, gW and gb; the
+    # wgrad GEMM and the wanted parts' dgrad
+    c_wanted = sum(c for c, w in zip(part_c, want) if w)
+    b_ms, b_by = bound(nbytes(*parts) + nbytes(*[p for p, w in zip(parts, want)
+                                                if w]) + nbytes(y, gy)
                        + 9 * C * CO * (2 + 4) + CO * 4,
-                       2 * 2.0 * N * D * H * W * 9 * C * CO, PEAK_BF16)
+                       2.0 * N * D * H * W * 9 * CO * (C + c_wanted),
+                       PEAK_BF16)
     res = dict(max_abs_err=err, rel_err=rel,
-               ms=cuda_ms(lambda: fb.fused_shift_conv_block_bwd(*args), reps),
+               ms=cuda_ms(lambda: fb.fused_shift_conv_block_bwd(
+                   *args, want=want), reps),
                plain_ms=cuda_ms(lambda: fb.fused_shift_conv_block_bwd_ref(
                    *args), max(1, reps // 4)),
                library_ms=cuda_ms(library, reps),
@@ -2105,14 +2147,30 @@ class _TimedGen:
         self.gen.stop()
 
 
-def trainer_spies(tag, ops, counts, runs):
+def validation_text(tr, run):
+    """A run's validation per case and the fold's whole validation, or that
+    it was left out (trainer_spies' validate_runs)."""
+    if run["validate_s"] is None:
+        return "its validation left out"
+    return ("validation per case (s): " + ", ".join(
+        f"{t['case']} predict {t['predict_s']:.2f} export "
+        f"{t['export_s']:.2f}" for t in tr.validation_timings)
+        + f"; the fold's validation {run['validate_s']:.1f} s (scoring and "
+        f"postprocessing included)")
+
+
+def trainer_spies(tag, ops, counts, runs, validate_runs=None):
     """(initialize, load_checkpoint_file) replacements for Trainer that
     record each run into `runs`: its train steps' launches (checked equal
     to kernel_launches_per_train_step), losses and times by CUDA events,
     the host's wait in next(tr_gen), each mask update (every kernel's
     alive count held, params and momentum zero where the masks are zero),
     the epochs' and the validation's seconds, the state a checkpoint load
-    gives. Each run saves 'latest' after every epoch, for -c."""
+    gives. Each run saves 'latest' after every epoch, for -c. With
+    validate_runs, only the runs of those indices (0 the first) validate;
+    another run's validate() returns at once (validate_s None): a fold's
+    validation is most of a phase's seconds, and another run or phase
+    validates on the same path."""
     import torch
     from e2enet_tpu_torch.models.masks import broadcast_mask
     from e2enet_tpu_torch.models.unetpp import kernel_launches_per_train_step
@@ -2128,6 +2186,7 @@ def trainer_spies(tag, ops, counts, runs):
         run = {"events": [], "losses": [], "waits": [], "updates": 0,
                "epochs": [], "trainer": self, "loaded": None}
         runs.append(run)
+        index = len(runs) - 1
         per_step = kernel_launches_per_train_step(self.network)
         want = {k: per_step["forward"].get(k, 0)
                 + per_step["backward"].get(k, 0) for k in ops}
@@ -2173,6 +2232,9 @@ def trainer_spies(tag, ops, counts, runs):
             return ma_fn()
 
         def validate(*a, **k):
+            if validate_runs is not None and index not in validate_runs:
+                run["validate_s"] = None
+                return None
             t0 = time.perf_counter()
             out = validate_fn(*a, **k)
             run["validate_s"] = time.perf_counter() - t0
@@ -2205,7 +2267,8 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
     on the card at bf16 with
     kernel-granular DSFF (density 0.2, an update every 4 steps), 2 epochs
     of 6 batches (2 validation batches each), then -c to a third epoch
-    from 'latest', each run ending in the fold's validation; then
+    from 'latest', which ends in the fold's validation (the first run's
+    validation is left to it); then
     cli/predict.main with the trained fold on one validation case. Spies
     on each Trainer: the launches of every train step (equal to
     kernel_launches_per_train_step), its time by CUDA events, the host's
@@ -2236,7 +2299,9 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
 
     runs = []
     real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
-    init_spy, load_spy = trainer_spies("trainer", ops, counts, runs)
+    # the first run's validation is left to the -c run (the same fold)
+    init_spy, load_spy = trainer_spies("trainer", ops, counts, runs,
+                                       validate_runs={1})
 
     args = ["--task", TRAIN_TASK, "--fold", "0", "--batches", "6",
             "--val_batches", "2", "--sparse", "True", "--density", "0.2",
@@ -2299,13 +2364,9 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
               f"{float(np.median(ms[1:])):.1f}; host wait per batch in "
               f"next(tr_gen) (s) {' '.join(f'{v:.3f}' for v in waits)}, "
               f"after the first: mean {float(np.mean(waits[1:])):.3f}; s per "
-              f"epoch {' '.join(f'{v:.2f}' for v in epochs)}; validation "
-              f"per case (s): " + ", ".join(
-                  f"{t['case']} predict {t['predict_s']:.2f} export "
-                  f"{t['export_s']:.2f}" for t in tr.validation_timings)
-              + f"; the fold's validation {run['validate_s']:.1f} s (all "
-              f"cases, scoring and postprocessing included); cli.main "
-              f"{walls[i]:.1f} s  [{smi}]", flush=True)
+              f"epoch {' '.join(f'{v:.2f}' for v in epochs)}; "
+              f"{validation_text(tr, run)}; cli.main {walls[i]:.1f} s  "
+              f"[{smi}]", flush=True)
     check(second.epoch == 3 and second.all_tr_losses[0]
           > second.all_tr_losses[-1], f"[trainer] epoch train losses "
           f"{second.all_tr_losses}: the first not above the last")
@@ -3193,7 +3254,6 @@ def dsff_phase(ops, counts, smi, paths):
 # the [2d] phase: a 2D plan of [trainer]'s raw task and shiftConvPP_noshift
 TWOD_PLANNER = "ExperimentPlanner2D_v21"
 TWOD_GRAD_BATCH = 8            # slices of the gradient check's batch
-TWOD_VAL = TRAIN_VAL[:1]       # the 2D runs' validation case
 
 
 def twod_phase(rnd, R, ops, counts, smi, paths):
@@ -3212,15 +3272,15 @@ def twod_phase(rnd, R, ops, counts, smi, paths):
     gradients of the 2D model on TWOD_GRAD_BATCH slices: the kernel path
     within 1.25x the bf16 plain path's error from a float32 plain run.
     cli/train.main --network 2d (kernel DSFF at 0.2, an update every 4
-    steps, one epoch of 6 + 2 batches at the planned batch, then -c to a
+    steps, one epoch of 4 + 1 batches at the planned batch, then -c to a
     second), its launches per step, the loss falling, dead entries zero;
     cli/train.main --Tconv shiftConvPP_noshift on the 3D plan for 4 steps
-    (the lazy route, #3 with the one-group table); these runs validate on
-    TWOD_VAL alone (fold 0 of a split the phase writes and restores);
-    cli/predict.main -m 2d on one validation case in --mode fastest (launches tiles x passes x
-    per forward, labels in [0, 16), the probabilities summing to 1) and
+    (the lazy route, #3 with the one-group table), none of them
+    validating (fold 0 of [trainer]'s split); cli/predict.main -m 2d on
+    one validation case in --mode fastest (launches tiles x passes x per
+    forward, labels in [0, 16), the probabilities summing to 1) and
     one slice through the kernel path against float32. Prints ms per step,
-    the host's wait per batch, s per epoch, validation per case, the peak
+    the host's wait per batch, s per epoch, the peak
     memory, the phase's seconds; returns the kernels' 2D results."""
     import os
     from pathlib import Path
@@ -3376,18 +3436,18 @@ def twod_phase(rnd, R, ops, counts, smi, paths):
     torch.cuda.empty_cache()
 
     # ---- cli.train --network 2d, then -c; then --Tconv
-    # shiftConvPP_noshift on the 3D plan. One validation case (TWOD_VAL):
-    # a 2D validation predicts each case slice by slice, 319 tiles x 8
-    # passes of ~160^3 (~70 s on the card), and every run validates
+    # shiftConvPP_noshift on the 3D plan. No run validates: a 2D validation
+    # predicts each case slice by slice, 319 tiles x 8 passes of ~160^3
+    # (70-120 s on the card), its export, scoring and postprocessing are
+    # [trainer]'s, and cli.predict -m 2d below runs the 2D tile loop
     os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
     os.environ["RESULTS_FOLDER"] = paths["results"]
-    write_split(pre, TRAIN_CASES, TWOD_VAL)
     runs = []
     real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
     Trainer.initialize, Trainer.load_checkpoint_file = trainer_spies(
-        "2d", ops, counts, runs)
+        "2d", ops, counts, runs, validate_runs=())
     args = ["--task", TRAIN_TASK, "--fold", "0", "--network", "2d",
-            "--batches", "6", "--val_batches", "2", "--sparse", "True",
+            "--batches", "4", "--val_batches", "1", "--sparse", "True",
             "--density", "0.2", "--update_frequency", "4"]
     walls = []
     torch.cuda.synchronize()
@@ -3408,7 +3468,6 @@ def twod_phase(rnd, R, ops, counts, smi, paths):
     finally:
         Trainer.initialize, Trainer.load_checkpoint_file = \
             real_init, real_load
-        write_split(pre, TRAIN_CASES, TRAIN_VAL)
     check(len(runs) == 3, f"[2d] {len(runs)} trainers")
     check(runs[1]["loaded"] is not None and runs[1]["loaded"][0] == "latest"
           and runs[1]["loaded"][1] == 1, "[2d] -c did not load 'latest' of "
@@ -3432,15 +3491,13 @@ def twod_phase(rnd, R, ops, counts, smi, paths):
               f"median {float(np.median(ms[1:])):.1f}; host wait per batch "
               f"in next(tr_gen) (s) {' '.join(f'{v:.3f}' for v in waits)}; "
               f"s per epoch {' '.join(f'{v:.2f}' for v in epochs)}; "
-              f"validation per case (s): " + ", ".join(
-                  f"{t['case']} predict {t['predict_s']:.2f} export "
-                  f"{t['export_s']:.2f}" for t in tr.validation_timings)
-              + f"; the fold's validation {run['validate_s']:.1f} s; "
-              f"cli.main {walls[i]:.1f} s  [{smi}]", flush=True)
+              f"{validation_text(tr, run)}; cli.main {walls[i]:.1f} s  "
+              f"[{smi}]", flush=True)
     second = runs[1]["trainer"]
-    check(runs[0]["updates"] + runs[1]["updates"] == 3, "[2d] "
-          f"{runs[0]['updates']} + {runs[1]['updates']} mask updates in 12 "
-          f"steps")
+    n_steps = len(runs[0]["losses"]) + len(runs[1]["losses"])
+    check(runs[0]["updates"] + runs[1]["updates"] == n_steps // 4, "[2d] "
+          f"{runs[0]['updates']} + {runs[1]['updates']} mask updates in "
+          f"{n_steps} steps")
     check(second.epoch == 2 and second.all_tr_losses[0]
           > second.all_tr_losses[-1], f"[2d] epoch train losses "
           f"{second.all_tr_losses}: the first not above the last")
@@ -3537,6 +3594,419 @@ def twod_phase(rnd, R, ops, counts, smi, paths):
     torch.cuda.empty_cache()
     check("jax" not in sys.modules, "[2d] jax was imported")
     print(f"[2d] phase {time.perf_counter() - t_phase:.1f} s  [{smi}]",
+          flush=True)
+    return out
+
+
+# the [cascade] phase: 3d_lowres -> 3d_cascade_fullres on [trainer]'s cases
+CASCADE_TASK = "Task502_ChipSmokeCascade"
+CASCADE_LOWRES_SPACING = 1.25
+CASCADE_DEVICE = "cuda"
+CASCADE_PP_WORKERS = 6
+# the lowres run takes [trainer]'s 18 steps (3 epochs of 6 batches): after
+# 4 its argmax is speckle, thousands of components per label, and the
+# cascade's augmentation (a connected-component removal that counts each
+# component over the patch) then kept the card waiting 1.2-74 s per batch
+CASCADE_LOWRES_RUN = ["--epochs", "3", "--batches", "6"]
+CASCADE_FULLRES_RUN = ["--epochs", "1", "--batches", "4"]
+
+
+def cascade_task(paths, smi):
+    """[cascade]'s task: [trainer]'s 3D plan as stage 1, its preprocessed
+    files linked in (the same spacing: the preprocessor would write them
+    again), and a stage 0 at CASCADE_LOWRES_SPACING from the port's
+    ExperimentPlanner3D_v21.get_properties_for_stage over [trainer]'s
+    median, preprocessed from [trainer]'s cropped cases by the port's
+    preprocessor (tests/test_cascade.py's way of building a second
+    stage). Checks the two stages' geometries. Returns the task folder."""
+    import os
+    from e2enet_tpu_torch.planning.planner import ExperimentPlanner3D_v21
+    from e2enet_tpu_torch.plans import Plans
+    from e2enet_tpu_torch.utils.registry import PREPROCESSORS
+    t0 = time.perf_counter()
+    src = os.path.join(paths["preprocessed"], TRAIN_TASK)
+    pre = os.path.join(paths["preprocessed"], CASCADE_TASK)
+    cropped = os.path.join(paths["raw"], "nnUNet_cropped_data", TRAIN_TASK)
+    name = "nnUNetPlansv2.1_plans_3D.json"
+    plans = Plans.load(os.path.join(src, name))
+    full = plans.plans_per_stage[0]
+    low = ExperimentPlanner3D_v21(cropped, pre).get_properties_for_stage(
+        np.array([CASCADE_LOWRES_SPACING] * 3),
+        np.array(full.current_spacing, float),
+        np.array(full.median_patient_size_in_voxels), len(TRAIN_CASES),
+        plans.num_modalities, NUM_CLASSES)
+    plans.plans_per_stage = {0: low, 1: full}
+    plans.num_stages = 2
+    plans.preprocessed_data_folder = pre
+    stage = {i: os.path.join(pre, f"{plans.data_identifier}_stage{i}")
+             for i in (0, 1)}
+    os.makedirs(stage[1])
+    plans.save(os.path.join(pre, name))
+    src_stage = os.path.join(src, f"{plans.data_identifier}_stage0")
+    for f in os.listdir(src_stage):
+        os.link(os.path.join(src_stage, f), os.path.join(stage[1], f))
+    for f in ("gt_segmentations", "dataset.json", "dataset_properties.pkl"):
+        if os.path.exists(os.path.join(src, f)):
+            os.symlink(os.path.join(src, f), os.path.join(pre, f))
+    t1 = time.perf_counter()
+    pp = PREPROCESSORS.get(plans.preprocessor_name)(
+        plans.normalization_schemes, plans.use_mask_for_norm,
+        plans.transpose_forward, plans.intensity_properties)
+    pp.run([low.current_spacing], cropped, pre, plans.data_identifier,
+           CASCADE_PP_WORKERS)
+    t2 = time.perf_counter()
+    got = dict(stages=plans.num_stages,
+               spacing=[list(map(float, s.current_spacing))
+                        for s in (low, full)],
+               median=[list(map(int, s.median_patient_size_in_voxels))
+                       for s in (low, full)],
+               patch=[list(map(int, s.patch_size)) for s in (low, full)],
+               pools=[s.pool_op_kernel_sizes for s in (low, full)],
+               batch=[int(s.batch_size) for s in (low, full)])
+    want = dict(stages=2, spacing=[[CASCADE_LOWRES_SPACING] * 3,
+                                   [1.0] * 3],
+                median=[[128] * 3, got["median"][1]],
+                patch=[list(PATCH)] * 2, pools=[[[2, 2, 2]] * 5] * 2,
+                batch=[2, 2])
+    check(got == want, f"[cascade] the two-stage plan {got}, not {want}")
+    for case in TRAIN_CASES:
+        d = np.load(os.path.join(stage[0], f"{case}.npz"))["data"]
+        f = np.load(os.path.join(stage[1], f"{case}.npz"))["data"]
+        check(all(round(b / CASCADE_LOWRES_SPACING) == a
+                  for a, b in zip(d.shape[1:], f.shape[1:])),
+              f"[cascade] {case}: stage 0 {d.shape} against stage 1 "
+              f"{f.shape}")
+    print(f"[cascade] task {CASCADE_TASK}: stage 1 [trainer]'s plan and "
+          f"files (linked, {t1 - t0:.2f} s), stage 0 from "
+          f"get_properties_for_stage at {CASCADE_LOWRES_SPACING} mm, "
+          f"preprocessed by the port's preprocessor in {t2 - t1:.2f} s "
+          f"({CASCADE_PP_WORKERS} workers); plan {got}  [{smi}]", flush=True)
+    return pre
+
+
+class _FirstBatches:
+    """A batch generator that keeps its first batch's data in `seen`."""
+
+    def __init__(self, gen, seen):
+        self.gen, self.seen = gen, seen
+
+    def __next__(self):
+        batch = next(self.gen)
+        if not self.seen:
+            self.seen.append(np.array(batch["data"]))
+        return batch
+
+    def stop(self):
+        self.gen.stop()
+
+
+def cascade_phase(rnd, R, ops, counts, smi, paths):
+    """[cascade] the 3d_lowres -> 3d_cascade_fullres cascade at the bench
+    width (48 base features, 16 classes, bf16, kernel DSFF at 0.2): the
+    cascade's level-0 kernel shapes against their plain versions (#1 at 16
+    and 3 input channels, one modality and the one-hot labels of 16 and 3
+    classes; the block backward there with no part wanted, the train
+    step's, and with its part wanted; #9 and #10 at 3 classes), timed as
+    the other rows; cascade_task; cli/train.main --network 3d_lowres
+    --fold all (CASCADE_LOWRES_RUN, one validation batch an epoch, its
+    fold's validation left out), its predict_next_stage writing a uint8
+    segFromPrevStage file of the stage-1 shape with labels in [0, 16) for
+    each of the six cases; cli/train.main --network 3d_cascade_fullres
+    --fold all (CASCADE_FULLRES_RUN, the validation over all six cases):
+    16 input channels, launches per step those of the 3D step, a
+    validation batch's one-hot channels 0/1 and at most one per voxel;
+    one step's gradients of the trained cascade model on a 2 x 64^3 batch
+    with one-hot channels against a float32 plain run (the 1.25x rule);
+    cli/predict.main -m 3d_cascade_fullres -f all --mode fastest on one
+    raw case (the _lowres folder written, the output's shape and labels,
+    launches tiles x passes x per forward for each stage). Prints ms per
+    step, the host's wait per batch, s per validation case, the peak
+    memory, the phase's seconds; returns the kernels' cascade results."""
+    import os
+    import torch
+    from e2enet_tpu_torch.cli import predict as pcli
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.inference import predictor
+    from e2enet_tpu_torch.io.nifti import read_nifti
+    from e2enet_tpu_torch.models.unetpp import (
+        ShiftUNetPlusPlus, ds_loss_weights, kernel_launches_per_forward,
+        kernel_launches_per_train_step)
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.ops.sliding import (
+        compute_steps_for_sliding_window, pad_volume_to_patch)
+    from e2enet_tpu_torch.training import train_bench_masks as tbm
+    from e2enet_tpu_torch.training.trainer import Trainer
+    t_phase = time.perf_counter()
+    dev = CASCADE_DEVICE
+
+    # ---- the kernels at the cascade's level-0 shapes
+    out = {}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    D, H, W = PATCH
+    print("[cascade] kernels vs plain at the cascade's level-0 shapes: the "
+          "first block over one modality and the one-hot labels of 16 and 3 "
+          "classes", flush=True)
+    with torch.inference_mode():
+        r1 = {c[0]: fused_case(*c, rnd=rnd, reps=R) for c in
+              [("cascade_l0_c16_to48", 1, D, H, W, [16], [False], 48),
+               ("cascade_l0_c3_to48", 1, D, H, W, [3], [False], 48)]}
+        errs = [fused_case(n, 2, D, H, W, [c], [False], 48, rnd=rnd,
+                           reps=0)["max_abs_err"]
+                for n, c in (("cascade_l0_c16_to48_n2", 16),
+                             ("cascade_l0_c3_to48_n2", 3))]
+        out["fused_shift_conv_block"] = dict(
+            max_abs_err=max([r["max_abs_err"] for r in r1.values()] + errs),
+            shapes={n: {k: r[k] for k in keys + ("mma_ms", "host_ms")}
+                    for n, r in r1.items()})
+        r9 = seghead_case("cascade_l0_logits_48_to3", 2, D, H, W, 48, 3,
+                          False, rnd, R, route=None)
+        r10 = seghead_case("cascade_l0_probs_48_to3", 1, D, H, W, 48, 3,
+                           True, rnd, R, route=None)
+        out["seghead"] = dict(
+            {k: r10[k] for k in keys + ("kernel_route",)},
+            max_abs_err=max(r9["max_abs_err"], r10["max_abs_err"]),
+            logits={k: r9[k] for k in keys + ("kernel_route",)})
+    r2 = {c[0]: block_bwd_case(*c, rnd=rnd, reps=R, want=[False]) for c in
+          [("cascade_l0_c16_to48", 2, D, H, W, [16], [False], 48),
+           ("cascade_l0_c3_to48", 2, D, H, W, [3], [False], 48)]}
+    errs = [block_bwd_case(n, 2, D // 4, H, W, [c], [False], 48, rnd=rnd,
+                           reps=0)["max_abs_err"]
+            for n, c in (("cascade_l0_c16_to48_dgrad", 16),
+                         ("cascade_l0_c3_to48_dgrad", 3))]
+    out["fused_shift_conv_block_bwd"] = dict(
+        max_abs_err=max([r["max_abs_err"] for r in r2.values()] + errs),
+        shapes={n: {k: r[k] for k in keys} for n, r in r2.items()})
+    print(f"[cascade] seg head at K = 3: logits (N = 2) route "
+          f"{r9['kernel_route']}, probs (N = 1) {r10['kernel_route']}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- the task, the lowres run, its predictions for stage 1
+    pre = cascade_task(paths, smi)
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    os.environ["RESULTS_FOLDER"] = paths["results"]
+    runs, seen, nxt = [], [], {}
+    real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
+    # the lowres run's validation is left out (predict_next_stage predicts
+    # every case through the same tile loop, and [trainer] validates a 3D
+    # fold); the cascade run validates all six cases
+    init_spy, load_spy = trainer_spies("cascade", ops, counts, runs,
+                                       validate_runs={1})
+
+    def init(self, training=True):
+        init_spy(self, training)
+        if training and self.cascade:
+            self.val_gen = _FirstBatches(self.val_gen, seen)
+    real_next = tcli.predict_next_stage
+
+    def next_stage(trainer, folder, *a, **k):
+        before = counts()
+        t0 = time.perf_counter()
+        real_next(trainer, folder, *a, **k)
+        torch.cuda.synchronize()
+        nxt.update(s=time.perf_counter() - t0, folder=folder,
+                   launches={n: v - before[n] for n, v in counts().items()})
+    args = ["--task", CASCADE_TASK, "--fold", "all", "--sparse", "True",
+            "--density", "0.2", "--update_frequency", "4", "--val_batches",
+            "1", "--device", dev]
+    Trainer.initialize, Trainer.load_checkpoint_file = init, load_spy
+    tcli.predict_next_stage = next_stage
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for extra in (["--network", "3d_lowres"] + CASCADE_LOWRES_RUN,
+                      ["--network", "3d_cascade_fullres"]
+                      + CASCADE_FULLRES_RUN):
+            t0 = time.perf_counter()
+            tcli.main(args + extra)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        Trainer.initialize, Trainer.load_checkpoint_file = \
+            real_init, real_load
+        tcli.predict_next_stage = real_next
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(runs) == 2, f"[cascade] {len(runs)} trainers")
+    low, casc = runs[0]["trainer"], runs[1]["trainer"]
+    check(low.stage == 0 and not low.cascade and casc.stage == 1
+          and casc.cascade, "[cascade] the stages or the cascade flags")
+    check(len(casc.validation_timings) == len(TRAIN_CASES), "[cascade] the "
+          "cascade run's validation did not cover every case")
+    cin = [int(t.network.context0.block0.kernel.shape[1]) for t in (low,
+                                                                   casc)]
+    check(cin == [1, NUM_CLASSES], f"[cascade] input channels {cin}")
+    # the cascade's step launches what the 3D step does: its input width
+    # changes no kernel count
+    ref = ShiftUNetPlusPlus(1, NUM_CLASSES, casc.network.pools,
+                            base_num_features=48, device=dev)
+    per_3d = kernel_launches_per_train_step(ref)
+    del ref
+    want3d = {k: per_3d["forward"].get(k, 0) + per_3d["backward"].get(k, 0)
+              for k in ops}
+    check(runs[1]["want"] == want3d, f"[cascade] launches per step "
+          f"{runs[1]['want']}, the 3D step's {want3d}")
+    for i, run in enumerate(runs):
+        tr = run["trainer"]
+        losses = [float(v) for v in run["losses"]]
+        ms = [a.elapsed_time(b) for a, b in run["events"]]
+        check(all(np.isfinite(losses)) and all(
+            np.isfinite(tr.all_tr_losses + tr.all_val_losses)),
+            f"[cascade] run {i + 1}: a loss is not finite")
+        check(run["updates"] == len(losses) // 4, f"[cascade] run {i + 1}: "
+              f"{run['updates']} mask updates in {len(losses)} steps")
+        waits = run["waits"]
+        print(f"[cascade] run {i + 1} (--network "
+              f"{'3d_cascade_fullres' if tr.cascade else '3d_lowres'}, "
+              f"stage {tr.stage}, patch {[int(v) for v in tr.patch_size]}, "
+              f"{cin[i]} input channels): {len(losses)} steps, losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}; {run['updates']} "
+              f"mask updates; launches per step {run['want']}", flush=True)
+        print(f"[cascade] run {i + 1}: ms per step (CUDA events) "
+              f"{' '.join(f'{v:.1f}' for v in ms)}; steps after the first: "
+              f"median {float(np.median(ms[1:])):.1f}; host wait per batch "
+              f"in next(tr_gen) (s) {' '.join(f'{v:.3f}' for v in waits)}, "
+              f"after the first: median {float(np.median(waits[1:])):.3f}, "
+              f"mean {float(np.mean(waits[1:])):.3f}; "
+              f"{validation_text(tr, run)}; cli.main {walls[i]:.1f} s  "
+              f"[{smi}]", flush=True)
+
+    # predict_next_stage: one file per case, at stage 1's shape
+    stage1 = os.path.join(pre, "nnUNetData_plans_v2.1_stage1")
+    check(os.path.realpath(nxt.get("folder", "")) == os.path.realpath(
+        stage1), f"[cascade] predict_next_stage wrote to {nxt.get('folder')}")
+    hist = np.zeros(NUM_CLASSES, np.int64)
+    for case in TRAIN_CASES:
+        seg = np.load(os.path.join(stage1, f"{case}_segFromPrevStage.npz"))[
+            "data"]
+        shape = np.load(os.path.join(stage1, f"{case}.npz"))["data"].shape
+        check(seg.dtype == np.uint8 and seg.shape == shape[1:]
+              and int(seg.max()) < NUM_CLASSES, f"[cascade] {case}: "
+              f"segFromPrevStage {seg.dtype} {seg.shape} max {seg.max()}, "
+              f"the stage-1 data {shape}")
+        hist += np.bincount(seg.ravel(), minlength=NUM_CLASSES)
+    per_fwd = kernel_launches_per_forward(low.network)
+    tiles = 0
+    for case in TRAIN_CASES:
+        d = np.load(os.path.join(pre, "nnUNetData_plans_v2.1_stage0",
+                                 f"{case}.npz"))["data"][:-1]
+        padded, _ = pad_volume_to_patch(d, low.patch_size)
+        tiles += int(np.prod([len(s) for s in compute_steps_for_sliding_window(
+            low.patch_size, padded.shape[1:], 0.5)]))
+    want = {n: tiles * TTA * v for n, v in per_fwd.items()}
+    check({n: nxt["launches"][n] for n in per_fwd} == want,
+          f"[cascade] predict_next_stage launches {nxt['launches']} != "
+          f"{want}")
+    print(f"[cascade] predict_next_stage: {len(TRAIN_CASES)} "
+          f"segFromPrevStage files in stage 1 (uint8, the stage-1 shapes) in "
+          f"{nxt['s']:.1f} s, {tiles} tiles x {TTA} passes, launches "
+          f"{want}; label voxel shares "
+          f"{np.round(hist / hist.sum(), 4).tolist()}", flush=True)
+
+    # a validation batch's one-hot channels
+    check(len(seen) == 1, "[cascade] no validation batch seen")
+    oh = seen[0][:, 1:]
+    check(oh.shape[1] == NUM_CLASSES - 1 and bool(np.isin(oh, (0.0, 1.0))
+                                                  .all())
+          and float(oh.sum(1).max()) <= 1.0, f"[cascade] the validation "
+          f"batch's one-hot channels: shape {oh.shape}, values "
+          f"{np.unique(oh)[:4]}, max sum {float(oh.sum(1).max())}")
+    print(f"[cascade] a validation batch {seen[0].shape}: its "
+          f"{oh.shape[1]} one-hot channels 0/1, at most one per voxel "
+          f"(share labelled {float(oh.sum(1).mean()):.4f}); peak memory "
+          f"allocated over both runs {peak:.2f} GiB", flush=True)
+
+    # ---- one step's gradients of the trained cascade model
+    net = casc.network
+    pools = net.pools
+    n_out = net.num_ds_outputs()
+    v, ts = tbm.make_batch(np.random.RandomState(8), 2, GRAD_PATCH,
+                           NUM_CLASSES, tbm.ds_factors(pools, n_out))
+    # the previous stage's labels: the target, one voxel off on each axis
+    prev = np.roll(ts[0], 1, axis=(1, 2, 3))
+    onehot = (prev[..., None] == np.arange(1, NUM_CLASSES)).astype(np.float32)
+    data = torch.from_numpy(np.concatenate([v, onehot], -1)).to(dev)
+    targets = [torch.from_numpy(t).to(dev) for t in ts]
+    weights = ds_loss_weights(len(pools), n_out)
+    g_k = loss_grads(net, data, targets, weights)
+    with blocks.plain_ops():
+        g_p = loss_grads(net, data, targets, weights)
+        net32 = ShiftUNetPlusPlus(NUM_CLASSES, NUM_CLASSES, pools,
+                                  base_num_features=48,
+                                  compute_dtype=torch.float32, device=dev)
+        net32.load_state_dict(net.state_dict())
+        g_32 = loss_grads(net32, data, targets, weights)
+    e_k = float((g_k - g_32).norm() / g_32.norm())
+    e_p = float((g_p - g_32).norm() / g_32.norm())
+    print(f"[cascade] one step's gradients of the trained cascade model on 2 "
+          f"x {GRAD_PATCH[0]}^3 x {NUM_CLASSES} channels, against a float32 "
+          f"plain run: kernel path rel L2 err {e_k:.4e}, bf16 plain path "
+          f"{e_p:.4e}", flush=True)
+    check(e_k <= ERR_RATIO * e_p, "[cascade] kernel-path gradients further "
+          "from the float32 run than the bf16 plain path's")
+    del runs, low, casc, net, net32, g_k, g_p, g_32, data, targets
+    torch.cuda.empty_cache()
+
+    # ---- cli.predict -m 3d_cascade_fullres, one raw case, fastest mode
+    inp = os.path.join(paths["results"], "cascade_predict_in")
+    os.makedirs(inp)
+    case = TRAIN_VAL[0]
+    os.symlink(os.path.join(paths["images"], f"{case}_0000.nii.gz"),
+               os.path.join(inp, f"{case}_0000.nii.gz"))
+    out_dir = os.path.join(paths["results"], "cascade_predict_out")
+    real_case = predictor.predict_case
+    calls = []
+
+    def spy(bundle, d, *a, **k):
+        before = counts()
+        p = real_case(bundle, d, *a, **k)
+        torch.cuda.synchronize()
+        padded, _ = pad_volume_to_patch(d, bundle.patch_size)
+        steps = compute_steps_for_sliding_window(bundle.patch_size,
+                                                 padded.shape[1:], 0.5)
+        calls.append(dict(
+            launches={n: v - before[n] for n, v in counts().items()},
+            tiles=int(np.prod([len(s) for s in steps])),
+            passes=TTA if k.get("do_tta", True) else 1, shape=d.shape,
+            per_fwd=kernel_launches_per_forward(bundle.fold_models[0])))
+        return p
+    predictor.predict_case = spy
+    t0 = time.perf_counter()
+    try:
+        pcli.main(["-i", inp, "-o", out_dir, "-t", CASCADE_TASK, "-m",
+                   "3d_cascade_fullres", "-f", "all", "--mode", "fastest",
+                   "--device", dev])
+    finally:
+        predictor.predict_case = real_case
+    pred_s = time.perf_counter() - t0
+    check(len(calls) == 2, f"[cascade] predict: {len(calls)} predict_case "
+          f"calls, not the lowres stage's and the cascade's")
+    for tag, c in zip(("lowres", "cascade"), calls):
+        want = {n: c["tiles"] * c["passes"] * v
+                for n, v in c["per_fwd"].items()}
+        have = {n: c["launches"][n] for n in want}
+        check(have == want and all(c["launches"][n] == 0 for n in
+                                   c["launches"] if n not in want),
+              f"[cascade] predict, {tag} stage: launches {c['launches']} "
+              f"!= {want}")
+        print(f"[cascade] predict, {tag} stage: network input "
+              f"{tuple(c['shape'])}, {c['tiles']} tiles x {c['passes']} "
+              f"passes, launches {have}", flush=True)
+    check(calls[1]["shape"][0] == NUM_CLASSES, "[cascade] predict: the "
+          "cascade stage's input is not 16 channels")
+    for folder in (out_dir + "_lowres", out_dir):
+        seg = read_nifti(os.path.join(folder, f"{case}.nii.gz")).array
+        labels = np.unique(seg)
+        check(seg.shape == TRAIN_CASES[case] and int(labels.min()) >= 0
+              and int(labels.max()) < NUM_CLASSES, f"[cascade] predict: "
+              f"{folder}: shape {seg.shape}, labels {labels}")
+    print(f"[cascade] cli.predict -m 3d_cascade_fullres -f all --mode "
+          f"fastest (the lowres stage in the fast mode, as the CLI runs it) "
+          f"on {case}: the _lowres folder and the output of shape "
+          f"{seg.shape}, labels {labels.tolist()[:4]}...{int(labels.max())}; "
+          f"{pred_s:.1f} s", flush=True)
+    check("jax" not in sys.modules, "[cascade] jax was imported")
+    print(f"[cascade] phase {time.perf_counter() - t_phase:.1f} s  [{smi}]",
           flush=True)
     return out
 
@@ -3708,6 +4178,32 @@ def twod_only() -> None:
           flush=True)
 
 
+def cascade_only() -> None:
+    """--cascade: the build, [trainer]'s planned task and the [cascade]
+    phase alone (its launches printed as JSON)."""
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cascade_") as tmp:
+        paths = plan_train_task(tmp, smi)
+        for op in ops.values():
+            op.launches = 0
+        cascade_phase(Rnd(0), 20, ops,
+                      lambda: {n: op.launches for n, op in ops.items()}, smi,
+                      paths)
+    print(json.dumps({"cascade_launches": {n: op.launches
+                                           for n, op in ops.items()}}),
+          flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3726,6 +4222,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--2d"]:
         twod_only()
+        return
+    if sys.argv[1:] == ["--cascade"]:
+        cascade_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -3786,6 +4285,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    stamp("2. build")
     # ---- 3. kernels vs plain
     rnd = Rnd(0)
     R = 20                     # timed calls per kernel, after one warm-up
@@ -4078,6 +4578,7 @@ def main() -> None:
     routes_before = {k: dict(op.routes) for k, op in (
         ("uplink", qlink.uplink), ("seghead", qlink.seghead))}
 
+    stamp("3. kernels")
     # ---- 4. sparse: the bench's default serving path
     model = bench_model()
     masks, plan = attach_masks(model)
@@ -4129,6 +4630,7 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
 
+    stamp("4. sparse")
     # ---- 5. dense: the bench's --dense path, lazy up-links
     model = bench_model()
     print(f"[dense] kernel launches per forward "
@@ -4179,6 +4681,7 @@ def main() -> None:
         check(a_ff >= a_df - AGREE_SLACK, "flip-free TTA argmax agreement "
               "below data-flip TTA's")
 
+    stamp("5. dense")
     # ---- 6. data-flip TTA, float32 logits head, materialised up-links
     model.head_probs_dtype = None
     model.lazy_up = False
@@ -4200,13 +4703,16 @@ def main() -> None:
     del model, fns
     torch.cuda.empty_cache()
 
+    stamp("6. data-flip")
     # ---- 7. predict: the users' entry point on a model folder
     launches["predict"] = predict_phase(bench_model, reset_counts, counts,
                                         smi)
 
+    stamp("7. predict")
     # ---- 8. bench: the port's own bench in a subprocess
     bench_phase(smi)
 
+    stamp("8. bench")
     # ---- 9. train: the backward kernels, then the row-masked trainer
     train = train_phase(rnd, R, ops, reset_counts, counts, smi)
     launches["train"] = train["launches"]
@@ -4219,30 +4725,41 @@ def main() -> None:
           f"a path's up-link or seg head left the bulk route: {routes}")
     res.update(train["kernels"])
 
+    stamp("9. train")
     # ---- 10. trainer: the users' training path, train CLI to predict CLI;
     # ---- 11. options: the trainer's options, on the task [trainer] planned
     # ---- 12. dsff: every DSFF engine, on the same task;
-    # ---- 13. 2d: its 2D plan, and the shift off
+    # ---- 13. 2d: its 2D plan, and the shift off;
+    # ---- 14. cascade: 3d_lowres -> 3d_cascade_fullres on its cases
     def options(paths):
+        stamp("10. trainer")
         reset_counts()
         options_phase(ops, counts, smi, paths)
         launches["options"] = counts()
+        stamp("11. options")
         reset_counts()
         dsff_phase(ops, counts, smi, paths)
         launches["dsff"] = counts()
+        stamp("12. dsff")
         reset_counts()
         res2d.update(twod_phase(rnd, R, ops, counts, smi, paths))
         launches["2d"] = counts()
-    res2d = {}
+        stamp("13. 2d")
+        reset_counts()
+        res_cascade.update(cascade_phase(rnd, R, ops, counts, smi, paths))
+        launches["cascade"] = counts()
+    res2d, res_cascade = {}, {}
     launches["trainer"] = trainer_phase(ops, reset_counts, counts, smi,
                                         then=options)
 
-    # ---- 14. experiments: the experiment kernels, then their mains
+    stamp("10-14. trainer, options, dsff, 2d, cascade")
+    # ---- 15. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    # ---- 15. report
+    stamp("15. experiments")
+    # ---- 16. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -4286,7 +4803,7 @@ def main() -> None:
           "volumes, the up-link's from the data-flip path's volume, the "
           "backward kernels' from the train path's steps, the experiment "
           "kernels' from the experiments' mains (launches_by_path: all "
-          "nine, 'predict' over the folder run A's two cases, 'trainer' "
+          "eleven, 'predict' over the folder run A's two cases, 'trainer' "
           "over the [trainer] phase: train steps, validation batches, the "
           "validations and the predict CLI; 'options' over the [options] "
           "phase: train, gradient and loss steps, the CLI run's "
@@ -4296,7 +4813,13 @@ def main() -> None:
           "2D CLI runs' and the shiftConvPP_noshift run's train steps, "
           "validation batches and validations, one predicted case; the "
           "'2d' entry: the kernel at the 2D plan's shapes with one group "
-          "of shift 0, #3 and #4 with that group at the main path's)",
+          "of shift 0, #3 and #4 with that group at the main path's; "
+          "'cascade' over the [cascade] phase: both CLI runs' train steps, "
+          "validation batches and validations, predict_next_stage, the "
+          "gradient check and one predicted case through both stages; the "
+          "'cascade' entry: #1 and the block backward at the cascade's "
+          "first block (16 and 3 input channels), the seg head at 3 "
+          "classes)",
           flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
@@ -4319,6 +4842,8 @@ def main() -> None:
             line["also_replaces"] = also[name]
         if name in res2d:
             line["2d"] = res2d[name]
+        if name in res_cascade:
+            line["cascade"] = res_cascade[name]
         for extra in ("shapes", "int8", "kernel1_ms", "mma_ms", "control_ms",
                       "serial_ms",
                       "turns_ms", "affine_stats_ms", "gemm_route",
@@ -4326,6 +4851,7 @@ def main() -> None:
             if extra in res[name]:
                 line[extra] = res[name][extra]
         lines.append(line)
+    stamp("16. report: the script")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

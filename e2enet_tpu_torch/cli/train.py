@@ -10,8 +10,9 @@ Usage:
   python -m e2enet_tpu_torch.cli.train --task 4 --fold 0 \
       --Tconv shiftConvPP --sparse True --density 0.2 \
       --update_frequency 1200 --epochs 1000 --batches 250 \
-      [--network 3d_fullres|2d] [-tr nnUNetTrainerV2_Ranger_lr3en4] \
-      [--growth gradient] [--device cuda|cpu] [-c]
+      [--network 3d_fullres|2d|3d_lowres|3d_cascade_fullres] \
+      [-tr nnUNetTrainerV2_Ranger_lr3en4] [--growth gradient] \
+      [--device cuda|cpu] [-c]
 
 Reads $nnUNet_preprocessed/<task>/ (the plans file, the stage folder,
 splits_final.pkl, gt_segmentations/), the folder that `python -m
@@ -24,7 +25,14 @@ must be present; `--device cpu` trains the plain torch versions of every
 kernel. --network 2d trains the task's 2D plan (nnUNetPlansv2.1_plans_2D,
 patch depth 1, which `-pl2d ExperimentPlanner2D_v21` writes) without the
 depth shift (shiftConvPP_noshift) and without batch dice; --Tconv
-shiftConvPP_noshift turns the shift off on a 3D plan. -tr names a
+shiftConvPP_noshift turns the shift off on a 3D plan. On a two-stage
+plan, --network 3d_lowres trains the first stage and then writes each
+validation case's prediction, resampled to the last stage's geometry, as
+<case>_segFromPrevStage.npz into the last stage's folder
+(training/cascade.predict_next_stage; with --fold all it covers every
+case), and --network 3d_cascade_fullres trains the last stage with those
+segmentations as one-hot input channels (the cascade); both raise on a
+one-stage plan, as the JAX CLI does. -tr names a
 preset of training/variants.py whose keys go to the trainer as the JAX
 CLI maps them (variant_kwargs): optimizers, learning
 rates and their schedules, momentum, losses, epochs, precision, batch
@@ -34,9 +42,8 @@ local|global (global on element masks), --granularity
 auto|kernel|element|row (row with uniform), --growth random|gradient,
 --final_density with --init-prune-epoch / --final-prune-epoch (the global
 prune's schedule, GMP's window) and --multiplier (GMP). Refused, each
-naming the ROADMAP item that ports it: --network 3d_lowres and
-3d_cascade_fullres (Queue 1 item 4e), a preset that sets an
-augmentation level, the cascade, regions, the deep-supervision mode,
+naming the ROADMAP item that ports it: a preset that sets an
+augmentation level, regions, the deep-supervision mode,
 per-epoch validation or export options (item 4e) or an architecture switch
 (item 6), --num_devices above 1 and --spatial_parallel (item 7),
 --device_augment (item 8). --fused, --no_fused and --remat choose between
@@ -47,15 +54,12 @@ import argparse
 from .. import paths
 from ..inference.predictor import require_device
 from ..plans import Plans
+from ..training.cascade import predict_next_stage
 from ..training.dsff import DSFFConfig
 from ..training.trainer import Trainer
 from ..training.variants import resolve_variant
 from ..utils.files import isfile, join
 from ..utils.task_names import convert_id_to_task_name
-
-NETWORK_ITEMS = {"3d_lowres": "ROADMAP Queue 1 item 4e (cascade)",
-                 "3d_cascade_fullres": "ROADMAP Queue 1 item 4e (cascade)"}
-
 
 # the preset keys that reach the trainer under their own names (reference
 # cli/train.py:159-168)
@@ -183,9 +187,6 @@ def main(args=None):
                          f"package and has no meaning in the port (one "
                          f"path: the CUDA kernels at bf16, or --fp32)")
     device = require_device(a.device)
-    if a.network in NETWORK_ITEMS:
-        raise NotImplementedError(f"--network {a.network}: "
-                                  f"{NETWORK_ITEMS[a.network]}")
     preset = variant_kwargs(a.trainer_variant)
 
     task = a.task
@@ -209,6 +210,7 @@ def main(args=None):
 
     kwargs = dict(
         stage=stage, batch_dice=batch_dice, tconv=a.Tconv,
+        cascade=a.network == "3d_cascade_fullres",
         max_num_epochs=a.epochs, num_batches_per_epoch=a.batches,
         num_val_batches_per_epoch=a.val_batches, fp16=not a.fp32,
         dsff_config=dsff_cfg, seed=a.seed, num_da_threads=a.da_threads,
@@ -228,6 +230,14 @@ def main(args=None):
         which = "best" if a.valbest else "final_checkpoint"
         trainer.load_checkpoint_file(which, train=False)
     trainer.validate()
+
+    if a.network == "3d_lowres" and not a.validation_only:
+        # cascade: predict this fold's validation cases at the fullres
+        # stage geometry (simple_main.py:213-215 / run_training.py)
+        next_stage_folder = join(
+            preproc_dir, plans.data_identifier
+            + "_stage%d" % sorted(plans.plans_per_stage.keys())[-1])
+        predict_next_stage(trainer, next_stage_folder)
     return trainer
 
 

@@ -17,9 +17,11 @@ background thread pipeline (data/pipeline.py) hides it behind device compute.
 The port's own copy of e2enet_tpu/data/augment.py: the same draws in the
 same order, so that one RandomState gives both packages the same batch.
 Two changes: the symmetry-only import of ops.shift is gone, and the
-cascade's and the region trainers' targets (move_last_seg_channel_to_data,
-regions) raise, naming ROADMAP Queue 1 item 4e, which ports them. The
-port imports nothing of the JAX package.
+region trainers' targets (regions) raise, naming ROADMAP Queue 1 item 4e,
+which ports them. The cascade's step (move_last_seg_channel_to_data: the
+previous stage's seg as one-hot data channels, corrupted on training
+batches by training/cascade.cascade_augment_onehot) is the JAX package's.
+The port imports nothing of the JAX package.
 """
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -27,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from scipy.ndimage import affine_transform, gaussian_filter
 
-NOT_PORTED_ITEM = "ROADMAP Queue 1 item 4e (cascade and region trainers)"
+NOT_PORTED_ITEM = "ROADMAP Queue 1 item 4e (region trainers)"
 
 
 @dataclass
@@ -392,7 +394,23 @@ def augment_batch(batch: dict, params: AugmentParams,
                                        params.mask_was_used_for_normalization)
 
     if params.move_last_seg_channel_to_data:
-        raise NotImplementedError(f"cascade augmentation: {NOT_PORTED_ITEM}")
+        # cascade: prev-stage seg (seg channel 1) -> one-hot data channels
+        # (MoveSegAsOneHotToData, custom_transforms.py)
+        from ..training.cascade import (cascade_augment_onehot,
+                                        move_seg_as_onehot_to_data)
+        labels = params.all_segmentation_labels
+        data = move_seg_as_onehot_to_data(data, seg[:, -1], labels)
+        if params.cascade_do_cascade_augmentations and not validation:
+            data[:, -len(labels):] = cascade_augment_onehot(
+                data[:, -len(labels):], rng,
+                p_binary_op=params.cascade_random_binary_transform_p,
+                p_per_label=(
+                    params.cascade_random_binary_transform_p_per_label),
+                strel_size=params.cascade_random_binary_transform_size,
+                p_remove_component=params.cascade_remove_conn_comp_p,
+                max_size_percent=(
+                    params.cascade_remove_conn_comp_max_size_percent_threshold))
+        seg = seg[:, :1]
 
     seg = np.where(seg == -1, 0, seg)
     targets = downsample_targets(seg[:, 0].astype(np.int32),

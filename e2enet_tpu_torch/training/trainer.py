@@ -40,8 +40,14 @@ the global prune with its gradual-density schedule. snip and GraSP need a
 data batch and are library functions (dsff.init_masks_element,
 dsff.init_masks_grasp), as in the reference.
 
+The cascade (cascade=True, the 3d_cascade_fullres stage): the previous
+stage's segmentation (<case>_segFromPrevStage.npz beside each case, which
+training/cascade.predict_next_stage writes from a 3d_lowres trainer)
+enters as num_classes - 1 one-hot input channels, in training (corrupted
+by the cascade augmentation of data/augment.py) and in validation.
+
 Not ported, each raising NotImplementedError that names its ROADMAP item:
-the cascade and region trainers and the variants' augmentation levels,
+the region trainers and the variants' augmentation levels,
 deep-supervision mode, per-epoch validation and export options (Queue 1
 item 4e), the architecture switches (item 6), several devices (item 7) and
 device augmentation (item 8). `fused` and `remat` choose between XLA
@@ -65,10 +71,12 @@ from ..models.masks import masks_density, masks_for_model, masks_to_flax
 from ..models.unetpp import (build_network, deep_supervision_scales,
                              ds_loss_weights)
 from ..plans import Plans
-from ..utils.files import join, load_pickle, maybe_mkdir_p, save_json
+from ..utils.files import (isfile, join, load_pickle, maybe_mkdir_p,
+                           save_json)
 from ..utils.logger import RunLogger
 from ..utils.registry import TRAINERS
 from . import dsff
+from .cascade import move_seg_as_onehot_to_data
 from .checkpoint import load_train_state, save_train_state
 from .lr import (ReduceLROnPlateau, ce_to_dice_weights, cycle_at_end_lr,
                  fixed_schedule2_lr, fixed_schedule_lr, poly_lr,
@@ -77,13 +85,13 @@ from .train_state import (apply_new_masks, create_train_state, make_eval_step,
                           make_grad_step, make_mask_update_step,
                           make_train_step)
 
-VARIANTS_ITEM = "ROADMAP Queue 1 item 4e (variants, cascade, regions)"
+VARIANTS_ITEM = "ROADMAP Queue 1 item 4e (variants, regions)"
 ARCH_ITEM = "ROADMAP Queue 1 item 6 (architecture switches)"
 MULTI_DEVICE_ITEM = "ROADMAP Queue 1 item 7 (multi-GPU)"
 DEVICE_AUGMENT_ITEM = "ROADMAP Queue 1 item 8 (ops/device_augment.py)"
 # the reference's defaults of the options the port refuses otherwise
 _REFUSED = (
-    ("cascade", False, VARIANTS_ITEM), ("regions", None, VARIANTS_ITEM),
+    ("regions", None, VARIANTS_ITEM),
     ("da_level", None, VARIANTS_ITEM), ("ds_mode", "standard", VARIANTS_ITEM),
     ("validate_every", None, VARIANTS_ITEM),
     ("export_kwargs", None, VARIANTS_ITEM),
@@ -136,13 +144,14 @@ class Trainer:
                  momentum_schedule: Optional[str] = None,
                  loss_kwargs: Optional[dict] = None,
                  loss_schedule: Optional[str] = None,
-                 device="cuda", **options):
+                 cascade: bool = False, device="cuda", **options):
         """The reference's arguments (TPUTrainer.__init__, trainer.py:47-76)
-        with `device`; any of the reference's other options (its variants'
-        other knobs, profile_dir) away from its default raises
-        (refuse_unported). lr_schedule: poly | warmup | fixed | fixed2 |
-        cycle | plateau; momentum_schedule: None | 'reduce'; loss_schedule:
-        None | 'ce_to_dice'."""
+        with `device`; cascade=True trains the 3d_cascade_fullres stage on
+        the previous stage's one-hot segmentation; any of the reference's
+        other options (its variants' other knobs, profile_dir) away from
+        its default raises (refuse_unported). lr_schedule: poly | warmup |
+        fixed | fixed2 | cycle | plateau; momentum_schedule: None |
+        'reduce'; loss_schedule: None | 'ce_to_dice'."""
         refuse_unported(**options)
         self.device = require_device(device)
         self.plans = plans
@@ -159,7 +168,7 @@ class Trainer:
         self.seed = seed
         self.num_da_threads = num_da_threads
         self.base_num_features = base_num_features
-        self.cascade = False
+        self.cascade = cascade
 
         self.output_folder_base = output_folder
         self.output_folder = join(output_folder, f"fold_{fold}")
@@ -210,6 +219,9 @@ class Trainer:
         if self.was_initialized:
             return
         num_in = self.num_modalities
+        if self.cascade:
+            # prev-stage seg arrives as one-hot fg-class channels
+            num_in += self.num_classes - 1
         self.net_num_classes = self.num_classes
         self.network = build_network(
             self.stage_plan, num_in, self.net_num_classes, tconv=self.tconv,
@@ -338,7 +350,15 @@ class Trainer:
             patch_size=tuple(int(i) for i in self.patch_size),
             rotation_x=rot, do_dummy_2D=do_dummy_2d,
             mask_was_used_for_normalization=self.plans.use_mask_for_norm,
+            move_last_seg_channel_to_data=self.cascade,
+            all_segmentation_labels=self._cascade_labels(),
+            cascade_do_cascade_augmentations=self.cascade,
             deep_supervision_scales=self.ds_scales)
+
+    def _cascade_labels(self):
+        """The foreground labels of the cascade's one-hot channels, else
+        None."""
+        return list(range(1, self.num_classes)) if self.cascade else None
 
     def _setup_generators(self):
         if self.dummy_load:
@@ -360,14 +380,23 @@ class Trainer:
         self.dataset_val = OrderedDict((k, dataset[k]) for k in val_keys)
         self.logger.log(f"fold {self.fold}: {len(tr_keys)} train / "
                         f"{len(val_keys)} val cases")
+
+        if self.cascade:
+            missing = [k for k in dataset
+                       if not isfile(dataset[k]["data_file"][:-4]
+                                     + "_segFromPrevStage.npz")]
+            assert len(missing) == 0, (
+                "cascade requires segFromPrevStage files for all cases; run "
+                "predict_next_stage for every 3d_lowres fold first. Missing: "
+                f"{missing[:5]}...")
         sampler_tr = PatchSampler3D(
             self.dataset_tr, self.basic_generator_patch_size,
-            self.patch_size, self.batch_size,
+            self.patch_size, self.batch_size, has_prev_stage=self.cascade,
             oversample_foreground_percent=self.oversample_foreground_percent,
             seed=self.seed)
         sampler_val = PatchSampler3D(
             self.dataset_val, self.patch_size, self.patch_size,
-            self.batch_size,
+            self.batch_size, has_prev_stage=self.cascade,
             oversample_foreground_percent=self.oversample_foreground_percent,
             seed=self.seed + 100)
         self.tr_gen = BatchPipeline(sampler_tr, self.da_params,
@@ -377,6 +406,8 @@ class Trainer:
         val_params = AugmentParams(
             patch_size=tuple(int(i) for i in self.patch_size),
             mask_was_used_for_normalization=self.plans.use_mask_for_norm,
+            move_last_seg_channel_to_data=self.cascade,
+            all_segmentation_labels=self._cascade_labels(),
             deep_supervision_scales=self.ds_scales)
         self.val_gen = BatchPipeline(sampler_val, val_params,
                                      validation=True, num_threads=1,
@@ -384,8 +415,9 @@ class Trainer:
 
     def _dummy_generator(self):
         rng = np.random.RandomState(0)
-        shape = (self.batch_size, self.num_modalities,
-                 *[int(i) for i in self.patch_size])
+        num_in = self.num_modalities + (self.num_classes - 1
+                                        if self.cascade else 0)
+        shape = (self.batch_size, num_in, *[int(i) for i in self.patch_size])
         factors = [[int(round(1 / s)) for s in sc] for sc in self.ds_scales]
 
         class _Gen:
@@ -728,6 +760,11 @@ class Trainer:
             props = load_pickle(self.dataset_val[k]["properties_file"])
             fname = props["list_of_data_files"][0].split(os.sep)[-1][:-12]
             data = np.asarray(load_case(self.dataset_val[k]))[:-1]
+            if self.cascade:
+                prev = np.load(self.dataset_val[k]["data_file"][:-4]
+                               + "_segFromPrevStage.npz")["data"]
+                data = move_seg_as_onehot_to_data(
+                    data[None], prev[None], self._cascade_labels())[0]
             t0 = time.perf_counter()
             with torch.no_grad():
                 softmax = predict_volume_tiled(

@@ -1,6 +1,6 @@
 """The CUDA kernels on the card, against their plain torch versions: the
-fused block (the main path's level-0 and level-1 calls, K of one to five
-chunks, CO 96 in one tile, W tiles, all mirrors at CO 24 and 96; its taps
+fused block (the main path's level-0 and level-1 calls, the cascade's
+first block at 16 and 3 input channels, K of one to five chunks, CO 96 in one tile, W tiles, all mirrors at CO 24 and 96; its taps
 on mma.sync as the control), the fused block with a lazy up-link part
 (ragged, compact groups, all mirrors, its tile's edges, up parts wider
 than one K chunk, no read of the up weights past cin, its taps on mma.sync
@@ -8,10 +8,12 @@ as the control), the strided transition (ragged and all mirrors, N = 2
 with a block's tiles straddling the samples), the
 up-link (N = 1 and 2, mirrored, ragged, the (1, 2, 2) stride of an
 anisotropic plan's first pool; its weights' packing) and the seg
-head (C 48 and 96, tiles straddling two samples, a ragged last tile), each
+head (C 48 and 96, K 16 and 3, tiles straddling two samples, a ragged
+last tile), each
 on both routes and with the route each shape takes asserted by kernel name,
 the down-link (also at the (1, 2, 2) window); the block backward and the
-down-link backward (main-path, ragged and N = 2 shapes, ties, C = 96; its
+down-link backward (main-path, ragged and N = 2 shapes, the cascade's
+first block with and without its input's gradient, ties, C = 96; its
 16-byte and scalar routes by kernel name), and a small train step's
 launches; the block backward's parts wanted or not and
 its two device kernels per call; the experiment kernels (#11 the ring shift +
@@ -65,6 +67,12 @@ CASES = {
     "l1_96_to96": (1, 3, 64, 64, (96,), (True,), 96),
     "l1_96+96+48_to96": (1, 3, 64, 64, (96, 96, 48), (True, False, False),
                          96),
+    # the cascade's first block: one modality and the previous stage's
+    # one-hot labels, 16 channels at the bench's 16 classes (shift groups
+    # of 4, 32-byte rows), 3 at 3 classes (three 1-channel groups, 6-byte
+    # rows)
+    "l0_c16_to48": (1, 2, 128, 128, (16,), (False,), 48),
+    "l0_c3_to48": (1, 2, 128, 128, (3,), (False,), 48),
     # K of 1 to 5 chunks at CO 48 (200: parts and groups meeting mid-unit),
     # W = 144 at CO 96
     "k200_co40": (1, 3, 16, 40, (100, 100), (True, False), 40),
@@ -309,6 +317,9 @@ HEADS = {
     "c6": (1, 2, 3, 7, 6, 5),
     # a 2D plan's level-0 head: depth 1, a batch of slices
     "2d_batch": (8, 1, 32, 32, 48, 16),
+    # three labels (the cascade's CPU-size task): K < 16
+    "k3": (1, 4, 16, 64, 48, 3),
+    "k3_n2": (2, 4, 16, 64, 48, 3),
 }
 
 
@@ -617,6 +628,9 @@ BWD = {
     "co112": (1, 3, 4, 32, (16, 24), (False, True), 112),
     "c1": (2, 4, 8, 16, (1,), (False,), 48),
     "c48_straddle": (2, 5, 8, 32, (48,), (True,), 48),
+    # the cascade's first block at level 0 (16 and 3 input channels)
+    "l0_c16": (2, 4, 32, 64, (16,), (False,), 48),
+    "l0_c3": (2, 4, 32, 64, (3,), (False,), 48),
 }
 
 
@@ -661,6 +675,21 @@ def test_block_bwd_flips_match_plain(flips):
     assert all(_within_ulps(g, r) for g, r in zip(gp, rp))
     assert _close_max(gk, rk, 2e-3) and _close_max(gb, rb, 2e-3)
     assert _close_max(ga[0][0], ra[0][0], 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [16, 3])
+def test_block_bwd_cascade_first_block_wgrad(cin):
+    """The cascade's first block as the train step runs it: the image and
+    its one-hot labels want no gradient, so the backward is the wgrad
+    alone; gW and gb against the plain version."""
+    dev = _card()
+    args = _bwd_inputs(cin, 2, 4, 32, 64, (cin,), (False,), 48, dev)
+    gp, gk, gb, ga = tfb.fused_shift_conv_block_bwd(*args, want=[False])
+    rp, rk, rb, ra = tfb.fused_shift_conv_block_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert gp[0] is None and ga[0] is None
+    assert _close_max(gk, rk, 2e-3) and _close_max(gb, rb, 2e-3)
 
 
 @pytest.mark.cuda

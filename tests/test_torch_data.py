@@ -165,12 +165,22 @@ def test_augment_batch_equal(task, monkeypatch, route, always_warp):
 
 
 def test_unported_targets_raise():
-    params = taug.AugmentParams(patch_size=PATCH,
-                                move_last_seg_channel_to_data=True)
+    """The region trainers' targets raise, naming item 4e; the cascade's
+    one-hot move, ported, does not (tests/test_torch_cascade.py holds it
+    to the JAX package's)."""
     batch = {"data": np.zeros((1, 1, *PATCH), np.float32),
              "seg": np.zeros((1, 2, *PATCH), np.float32)}
+    params = taug.AugmentParams(patch_size=PATCH,
+                                move_last_seg_channel_to_data=True,
+                                all_segmentation_labels=[1, 2])
+    out = taug.augment_batch(dict(batch), params, np.random.RandomState(0),
+                             True)
+    assert out["data"].shape == (1, 3, *PATCH)
+    params = taug.AugmentParams(patch_size=PATCH, regions=((1, 2), (2,)))
     with pytest.raises(NotImplementedError, match="item 4e"):
-        taug.augment_batch(batch, params, np.random.RandomState(0), True)
+        taug.augment_batch({"data": batch["data"],
+                            "seg": batch["seg"][:, :1]}, params,
+                           np.random.RandomState(0), True)
 
 
 def test_pipeline_first_batches_equal(task):

@@ -9,9 +9,10 @@ Also the variants' options: Ranger and Adam presets (-tr) with DSFF grown
 by gradient train a fold, their optimizer state kept in the checkpoint.
 The element DSFF settings (ERK, the global prune, GMP, the lottery
 ticket at element granularity) train a fold, their masks and fired masks
-written in the flax layout. And the refusals: no card without --device
-cpu, and every option the port does not train, each naming its ROADMAP
-item; and that no module of the port imports jax or e2enet_tpu (a
+written in the flax layout. The cascade's two networks train on a
+two-stage plan, and raise the JAX CLI's message on a one-stage one. And
+the refusals: no card without --device cpu, and every option the port
+does not train, each naming its ROADMAP item; and that no module of the port imports jax or e2enet_tpu (a
 subprocess in which both are blocked imports every module of the package
 and chip_smoke.py)."""
 import json
@@ -202,8 +203,8 @@ def test_refuses_without_a_card(environ, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--network", "3d_lowres"], "item 4e"),
-    (["--network", "3d_cascade_fullres"], "item 4e"),
+    (["-tr", "nnUNetTrainerV2CascadeFullRes_noConnComp"], "item 4e"),
+    (["-tr", "nnUNetTrainerV2BraTSRegions"], "item 4e"),
     (["-tr", "nnUNetTrainerV2_noDA"], "item 4e"),
     (["-tr", "nnUNetTrainerV2_BN"], "item 6"),
     (["--num_devices", "2"], "item 7"),
@@ -212,6 +213,67 @@ def test_refuses_without_a_card(environ, monkeypatch):
 def test_unported_options_raise(environ, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("network, message", [
+    ("3d_lowres", "3d_lowres only applies to multi-stage plans"),
+    ("3d_cascade_fullres", "3d_cascade_fullres requires multi-stage plans")])
+def test_cascade_networks_need_two_stages(environ, network, message):
+    """On the task's one-stage plan both cascade networks raise the JAX
+    CLI's message."""
+    with pytest.raises(RuntimeError, match=message):
+        ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu", "--network",
+                            network])
+
+
+def test_cascade_networks_train(tmp_path, monkeypatch):
+    """--network 3d_lowres and 3d_cascade_fullres, refused before they
+    were ported, train on a two-stage plan (both stages the task's 16^3
+    plan on its data): the lowres run (--fold all) writes a uint8
+    <case>_segFromPrevStage.npz of the last stage's shape for every case
+    into the last stage's folder, and the cascade run (kernel DSFF) trains
+    a model with one-hot input channels for the two foreground labels,
+    validates and records cascade in its checkpoint's sidecar."""
+    import shutil
+    from e2enet_tpu_torch.plans import Plans
+    from e2enet_tpu_torch.utils.files import load_pickle
+    task = "Task770_TinyCascadeCli"
+    paths = chip_smoke.write_train_task(str(tmp_path), task, CASES,
+                                        (16, 16, 16), [[2, 2, 2]] * 2, 3)
+    pre = paths["task"]
+    plans_file = os.path.join(pre, "nnUNetPlansv2.1_plans_3D.json")
+    plans = Plans.load(plans_file)
+    plans.plans_per_stage = {0: plans.plans_per_stage[0],
+                             1: plans.plans_per_stage[0]}
+    plans.num_stages = 2
+    plans.save(plans_file)
+    stage1 = os.path.join(pre, "nnUNetData_plans_v2.1_stage1")
+    shutil.copytree(os.path.join(pre, "nnUNetData_plans_v2.1_stage0"),
+                    stage1)
+    monkeypatch.setenv("nnUNet_preprocessed", paths["preprocessed"])
+    monkeypatch.setenv("RESULTS_FOLDER", paths["results"])
+    args = ["--task", task, "--fold", "all", "--epochs", "1", "--batches",
+            "2", "--val_batches", "1", "--base_features", "8", "--fp32",
+            "--device", "cpu"]
+    low = ttrain.main(args + ["--network", "3d_lowres"])
+    assert low.stage == 0 and not low.cascade
+    for case, shape in CASES.items():
+        seg = np.load(os.path.join(stage1, f"{case}_segFromPrevStage.npz"))[
+            "data"]
+        assert seg.dtype == np.uint8 and seg.shape == shape
+        assert int(seg.max()) < 3
+    tr = ttrain.main(args + ["--network", "3d_cascade_fullres", "--sparse",
+                             "true", "--density", "0.3"])
+    assert tr.stage == 1 and tr.cascade
+    assert tr.network.context0.block0.kernel.shape[1] == 3
+    assert all(np.isfinite(tr.all_tr_losses + tr.all_val_losses))
+    fold = (Path(paths["results"]) / "nnUNet" / "3d_cascade_fullres" / task
+            / "TPUTrainer__nnUNetPlansv2.1" / "fold_all")
+    assert (fold / "validation_raw" / "summary.json").exists()
+    sidecar = load_pickle(str(fold / "shiftConvPP_model_final_checkpoint"
+                                     ".model.pkl"))
+    assert sidecar["init"]["cascade"] is True and sidecar["init"][
+        "stage"] == 1
 
 
 def test_network_2d_trains(environ, tmp_path):

@@ -340,7 +340,7 @@ def test_kernel_granular_death_and_growth_match(task):
 def test_unported_options_raise(task):
     base, task_dir = task
     out = os.path.join(base, "refused")
-    for kw, item in ((dict(cascade=True), "item 4e"),
+    for kw, item in ((dict(regions="brats"), "item 4e"),
                      (dict(da_level="none"), "item 4e"),
                      (dict(nonlin="relu"), "item 6"),
                      (dict(num_devices=2), "item 7"),
@@ -359,6 +359,15 @@ def test_unported_options_raise(task):
             tt.initialize(False)
     with pytest.raises(ValueError, match="XLA programs"):
         _port_trainer(task_dir, out, fused=True)
+    # the cascade builds its trainer: one-hot input channels for the two
+    # foreground labels; training asks for the previous stage's files
+    tt = _port_trainer(task_dir, out, cascade=True)
+    tt.initialize(False)
+    assert tt.network.context0.block0.kernel.shape[1] == 3
+    assert tt.da_params.move_last_seg_channel_to_data
+    assert tt.da_params.all_segmentation_labels == [1, 2]
+    with pytest.raises(AssertionError, match="segFromPrevStage"):
+        _port_trainer(task_dir, out, cascade=True).initialize(True)
 
 
 @pytest.mark.parametrize("kw, dsff_kw", [
