@@ -19,6 +19,9 @@
     python3 chip_smoke.py --cascade
                                    # only the build, [trainer]'s planned
                                    # task and the [cascade] phase
+    python3 chip_smoke.py --variants
+                                   # only the build, [trainer]'s planned
+                                   # task and the [variants] phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -244,7 +247,33 @@ Phases (any failure ends the run with a non-zero exit):
               stage). Prints ms per step, the host's wait per batch (the
               cascade's one-hot augmentation runs on it), s per validation
               case, the peak memory, the phase's seconds
-  15. experiments  the experiment kernels (TPU kernels #11-#14) against
+  15. variants the variants' knobs and the region trainers at the bench
+              width (48 base features, bf16, kernel DSFF at 0.2) through
+              cli/train.main: #1 at the region model's first block (four
+              modalities: 4 -> 48, the 4-byte row route) and the block
+              backward's wgrad there, #9 at 48 -> 3 regions, against their
+              plain versions and timed; -tr
+              nnUNetTrainerV2_noDeepSupervision and -tr
+              nnUNetTrainerV2_DA5 on [trainer]'s task (4 + 1 batches each,
+              no validation: launches per step with the seg head once, ms
+              per step beside the deep-supervision step's; the trainer's
+              AugmentParams apply_da_level's, the host's wait per batch);
+              a BraTS-like raw task (four seeded ~136 x 160 x 136 cases at
+              1 mm, four MR modalities, labels 0-3) planned by the plan
+              CLI, then -tr nnUNetTrainerV2_fullEvals (regions, DC + BCE,
+              a validation every epoch; 3 train and 1 validation case, 2
+              epochs of 3 + 1 batches): validation_ep001/, _ep002/ (one
+              pass) and validation_raw/ (8 passes) each with a summary.csv
+              of the three regions and no postprocessing, the exported
+              region probabilities finite in [0, 1], the labels in {0, 1,
+              2, 3} at the case's geometry, every validation forward on #9
+              and never #10; one step's gradients of the region model on 2
+              x 64^3 x 4 channels against a float32 plain run (the 1.25x
+              rule); load_pretrained_weights of [trainer]'s fold checkpoint
+              into the region model (the count of the host's rule, the
+              first block kept). Prints ms per step, the host's wait per
+              batch, s per validation case, the phase's seconds
+  16. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -268,7 +297,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  16. report  one JSON line with every kernel's launches, error, times and
+  17. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -964,13 +993,16 @@ def device_kernel_names(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def loss_grads(net, data, targets, weights, batch_dice=True):
-    """The gradient of the deep-supervision loss on (data, targets), every
-    parameter's flattened into one float32 vector (zeros where unused)."""
+def loss_grads(net, data, targets, weights, batch_dice=True,
+               loss_name="dc_ce", loss_kwargs=None):
+    """The gradient of the deep-supervision loss (loss_name with
+    loss_kwargs) on (data, targets), every parameter's flattened into one
+    float32 vector (zeros where unused)."""
     import torch
     from e2enet_tpu_torch.ops.losses import deep_supervision_loss
     loss = deep_supervision_loss(net(data, do_ds=True), targets, weights,
-                                 batch_dice=batch_dice)
+                                 batch_dice=batch_dice, loss_name=loss_name,
+                                 loss_kwargs=loss_kwargs)
     g = torch.autograd.grad(loss, list(net.parameters()), allow_unused=True)
     return torch.cat([(torch.zeros_like(p) if x is None else x).float()
                       .flatten() for x, p in zip(g, net.parameters())])
@@ -1756,30 +1788,49 @@ def write_split(pre, cases, val):
         pickle.dump([split], f)
 
 
-def write_raw_task(base, task, cases, num_classes, seed=0):
+def write_raw_task(base, task, cases, num_classes, seed=0,
+                   modalities=("CT",)):
     """A raw task in the layout the plan CLI reads, the same seeded
     synthetic_case volumes write_train_task draws: under `base`,
-    nnUNet_raw_data/<task>/ with imagesTr/<case>_0000.nii.gz (one CT
-    modality, 1 mm), labelsTr/<case>.nii.gz and dataset.json (the port's
-    generate_dataset_json; labels 0 to num_classes - 1). cases: {name:
-    (z, y, x) shape}. Returns the task folder."""
+    nnUNet_raw_data/<task>/ with imagesTr/<case>_<m:04d>.nii.gz (one file
+    per modality, 1 mm), labelsTr/<case>.nii.gz and dataset.json (the
+    port's generate_dataset_json; labels 0 to num_classes - 1). cases:
+    {name: (z, y, x) shape}. The first modality is synthetic_case's
+    volume; each further one (e.g. the four MR modalities of a BraTS-like
+    task: modalities=("t1", "t1ce", "t2", "flair")) the same labels
+    through its own seeded intensity per label, offset and noise, drawn
+    after the case, so that a one-modality task is unchanged. Returns the
+    task folder."""
     import os
     from e2enet_tpu_torch.dataset_conversion.utils import \
         generate_dataset_json
     from e2enet_tpu_torch.io.nifti import NiftiImage, write_nifti
+    from concurrent.futures import ThreadPoolExecutor
     rng = np.random.RandomState(seed)
     folder = os.path.join(base, "nnUNet_raw_data", task)
     for sub in ("imagesTr", "labelsTr"):
         os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    # the volumes drawn in order, then written on threads (gzip's deflate
+    # releases the GIL)
+    files = []
     for name, shape in cases.items():
         vol, seg = synthetic_case(rng, shape, num_classes)
-        write_nifti(os.path.join(folder, "imagesTr", f"{name}_0000.nii.gz"),
-                    NiftiImage(vol, (1.0, 1.0, 1.0)))
-        write_nifti(os.path.join(folder, "labelsTr", f"{name}.nii.gz"),
-                    NiftiImage(seg, (1.0, 1.0, 1.0)))
+        vols = [vol]
+        for _ in modalities[1:]:
+            level = rng.randn(num_classes).astype(np.float32)
+            vols.append(level[seg] + 0.5 * vol
+                        + 0.3 * rng.randn(*shape).astype(np.float32))
+        files += [(os.path.join(folder, "imagesTr", f"{name}_{m:04d}.nii.gz"),
+                   v) for m, v in enumerate(vols)]
+        files.append((os.path.join(folder, "labelsTr", f"{name}.nii.gz"),
+                      seg))
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(write_nifti, path, NiftiImage(a, (1.0,) * 3))
+                  for path, a in files]:
+            f.result()
     generate_dataset_json(
         os.path.join(folder, "dataset.json"),
-        os.path.join(folder, "imagesTr"), None, ("CT",),
+        os.path.join(folder, "imagesTr"), None, tuple(modalities),
         {c: "background" if c == 0 else f"class_{c}"
          for c in range(num_classes)}, task.split("_", 1)[1])
     return folder
@@ -2187,7 +2238,8 @@ def trainer_spies(tag, ops, counts, runs, validate_runs=None):
                "epochs": [], "trainer": self, "loaded": None}
         runs.append(run)
         index = len(runs) - 1
-        per_step = kernel_launches_per_train_step(self.network)
+        per_step = kernel_launches_per_train_step(
+            self.network, do_ds=self.ds_mode != "none")
         want = {k: per_step["forward"].get(k, 0)
                 + per_step["backward"].get(k, 0) for k in ops}
         run["want"] = want
@@ -2275,8 +2327,9 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
     wait in next(tr_gen), each mask update (params and momentum zero where
     the masks are zero, every kernel's alive count held), the state -c
     loads against the 'latest' file, the epochs' seconds. Returns the
-    launches over the whole phase; then(paths) runs on the planned task
-    before its folder is removed."""
+    launches over the whole phase; then(paths, medians) runs on the
+    planned task before its folder is removed, with each run's median ms
+    per step after the first."""
     import os
     import tempfile
     import torch
@@ -2343,6 +2396,7 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
               f"[trainer] -c: mask {n} differs from the 'latest' file")
 
     second = runs[1]["trainer"]
+    medians = []
     for i, run in enumerate(runs):
         tr = run["trainer"]
         losses = [float(v) for v in run["losses"]]
@@ -2353,6 +2407,7 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
         check(run["updates"] == len(losses) // 4, f"[trainer] run {i + 1}: "
               f"{run['updates']} mask updates in {len(losses)} steps")
         waits, epochs = run["waits"], [b - a for a, b in run["epochs"]]
+        medians.append(float(np.median(ms[1:])))
         print(f"[trainer] run {i + 1}: {len(losses)} steps, losses "
               f"{' '.join(f'{v:.4f}' for v in losses)}; epoch train / "
               f"validation loss {tr.all_tr_losses} / {tr.all_val_losses}; "
@@ -2407,7 +2462,7 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
     check("jax" not in sys.modules, "[trainer] jax was imported")
     total = counts()
     if then is not None:
-        then(paths)
+        then(paths, medians)
     tmp.cleanup()
     return total
 
@@ -4011,6 +4066,433 @@ def cascade_phase(rnd, R, ops, counts, smi, paths):
     return out
 
 
+REGIONS_TASK = "Task503_ChipSmokeRegions"
+REGIONS_CASES = {"case_000": (136, 160, 136), "case_001": (140, 156, 136),
+                 "case_002": (132, 164, 140), "case_003": (136, 160, 132)}
+REGIONS_VAL = ("case_003",)
+REGIONS_MODALITIES = ("t1", "t1ce", "t2", "flair")
+# the BraTS labels: background, then three nested tumour labels
+REGIONS_LABELS = 4
+BRATS = ((1, 2, 3), (2, 3), (3,))
+VARIANTS_DEVICE = "cuda"
+VARIANTS_REGION_RUN = ["--epochs", "2", "--batches", "3"]
+VARIANTS_STEP_RUN = ["--epochs", "1", "--batches", "4"]
+
+
+def regions_task(paths, smi):
+    """[variants]' BraTS-like task: REGIONS_CASES written as a raw task
+    (write_raw_task: four MR modalities, labels 0-3, 1 mm) beside
+    [trainer]'s and planned by `python -m
+    e2enet_tpu_torch.cli.plan_and_preprocess -t 503` in a fresh process;
+    the plan asserted to be one stage of PATCH, 5 x (2, 2, 2) pools, batch
+    2, four modalities z-scored (nonCT); splits_final.pkl with
+    REGIONS_VAL as fold 0's validation. Returns the preprocessed task
+    folder."""
+    import os
+    from pathlib import Path
+    from e2enet_tpu_torch.plans import Plans
+    t0 = time.perf_counter()
+    write_raw_task(paths["raw"], REGIONS_TASK, REGIONS_CASES,
+                   REGIONS_LABELS, seed=3, modalities=REGIONS_MODALITIES)
+    t1 = time.perf_counter()
+    env = dict(os.environ, nnUNet_raw_data_base=paths["raw"],
+               nnUNet_preprocessed=paths["preprocessed"])
+    r = subprocess.run(
+        [sys.executable, "-m", "e2enet_tpu_torch.cli.plan_and_preprocess",
+         "-t", str(int(REGIONS_TASK[4:7]))],
+        cwd=Path(__file__).resolve().parent, env=env, capture_output=True,
+        text=True, timeout=600)
+    t2 = time.perf_counter()
+    check(r.returncode == 0, f"[variants] the plan CLI exited "
+          f"{r.returncode}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+    pre = os.path.join(paths["preprocessed"], REGIONS_TASK)
+    plans = Plans.load(os.path.join(pre, "nnUNetPlansv2.1_plans_3D.json"))
+    st = plans.plans_per_stage[0]
+    got = dict(stages=plans.num_stages, patch=st.patch_size,
+               pools=st.pool_op_kernel_sizes, batch=st.batch_size,
+               modalities=plans.num_modalities,
+               schemes=sorted(set(plans.normalization_schemes.values())))
+    want = dict(stages=1, patch=list(PATCH), pools=[[2, 2, 2]] * 5, batch=2,
+                modalities=4, schemes=["nonCT"])
+    check(got == want, f"[variants] the region task's plan {got}, not "
+          f"{want}")
+    write_split(pre, REGIONS_CASES, REGIONS_VAL)
+    print(f"[variants] raw task {REGIONS_TASK}: {len(REGIONS_CASES)} cases "
+          f"{sorted(set(REGIONS_CASES.values()))}, modalities "
+          f"{REGIONS_MODALITIES}, labels 0-3, written in {t1 - t0:.1f} s; "
+          f"the plan CLI (-t 503): exit 0, {t2 - t1:.2f} s wall; plan {got}"
+          f"  [{smi}]", flush=True)
+    return pre
+
+
+def variants_phase(rnd, R, ops, counts, smi, paths, trainer_ms=None):
+    """[variants] the variants' knobs and the region trainers at the bench
+    width (48 base features, bf16, kernel DSFF at 0.2), through
+    cli/train.main on the card:
+    (a) regions_task, then -tr nnUNetTrainerV2_fullEvals (regions 'brats',
+    DC + BCE, per-sample Dice, validate_every 1; 3 train cases and 1
+    validation case, 2 epochs of 3 + 1 batches): the model 4 -> 3
+    channels; validation_ep001/, validation_ep002/ (one pass) and the
+    fold's validation_raw/ (8 passes), each with a summary.csv of the three
+    regions and no postprocessing; every exported probability finite in
+    [0, 1] (no sum-to-1 rule: the regions overlap), the labels in {0, 1,
+    2, 3} at the case's geometry; each validation's forwards launching the
+    seg head's logits mode (#9) tiles x passes times and its probs mode
+    (#10) never; launches per step the 3D step's. Kernel #1 at the first
+    block (4 -> 48, the 4-byte row route) and the block backward's wgrad
+    there against their plain versions, #9 at 48 -> 3; one step's
+    gradients of the trained region model on 2 x 64^3 x 4 channels
+    against a float32 plain run (the 1.25x rule); load_pretrained_weights
+    of [trainer]'s fold checkpoint (or, run alone, (b)'s) into the region
+    model: the count the host's rule gives on the two checkpoints' trees,
+    the first block (1 against 4 input channels) left as it was.
+    (b) -tr nnUNetTrainerV2_noDeepSupervision on [trainer]'s task, 4 + 1
+    batches, its validation left out: launches per step
+    kernel_launches_per_train_step(do_ds=False), the seg head once.
+    (c) -tr nnUNetTrainerV2_DA5 on the same task, 4 + 1 batches, no
+    validation: the trainer's AugmentParams those apply_da_level('da5')
+    makes of (b)'s. Prints ms per step of (b) beside (c)'s (the
+    deep-supervision step) and trainer_ms ([trainer]'s runs' medians, None
+    when run alone), the host's wait per batch, the phase's seconds;
+    returns the kernels' variants results."""
+    import dataclasses
+    import glob
+    import os
+    import torch
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.inference import export
+    from e2enet_tpu_torch.io.nifti import read_nifti
+    from e2enet_tpu_torch.models.unetpp import (
+        ShiftUNetPlusPlus, ds_loss_weights, kernel_launches_per_forward,
+        kernel_launches_per_train_step)
+    from e2enet_tpu_torch.models.weights import (from_jax_params,
+                                                 to_jax_params)
+    from e2enet_tpu_torch.ops import _native, blocks
+    from e2enet_tpu_torch.ops.sliding import (
+        compute_steps_for_sliding_window, pad_volume_to_patch)
+    from e2enet_tpu_torch.training import train_bench_masks as tbm
+    from e2enet_tpu_torch.training.checkpoint import load_checkpoint
+    from e2enet_tpu_torch.training.pretrained import load_pretrained_weights
+    from e2enet_tpu_torch.training.regions import convert_seg_to_regions
+    from e2enet_tpu_torch.training.trainer import Trainer
+    from e2enet_tpu_torch.training.variants import apply_da_level
+    t_phase = time.perf_counter()
+    dev = VARIANTS_DEVICE
+
+    # ---- the kernels at the region model's first block and head
+    out = {}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    D, H, W = PATCH
+    print("[variants] kernels vs plain at the region model's shapes: the "
+          "first block over four modalities, the head over three regions",
+          flush=True)
+    with torch.inference_mode():
+        r1 = fused_case("regions_l0_c4_to48", 1, D, H, W, [4], [False], 48,
+                        rnd=rnd, reps=R)
+        e1 = fused_case("regions_l0_c4_to48_n2", 2, D, H, W, [4], [False], 48,
+                        rnd=rnd, reps=0)["max_abs_err"]
+        out["fused_shift_conv_block"] = dict(
+            max_abs_err=max(r1["max_abs_err"], e1),
+            shapes={"regions_l0_c4_to48": {
+                k: r1[k] for k in keys + ("mma_ms", "host_ms")}})
+        r9 = seghead_case("regions_l0_logits_48_to3", 2, D, H, W, 48, 3,
+                          False, rnd, R, route=None)
+        out["seghead"] = dict(
+            max_abs_err=r9["max_abs_err"],
+            logits={k: r9[k] for k in keys + ("kernel_route",)})
+    r2 = block_bwd_case("regions_l0_c4_to48", 2, D, H, W, [4], [False], 48,
+                        rnd=rnd, reps=R, want=[False])
+    e2 = block_bwd_case("regions_l0_c4_to48_dgrad", 2, D // 4, H, W, [4],
+                        [False], 48, rnd=rnd, reps=0)["max_abs_err"]
+    out["fused_shift_conv_block_bwd"] = dict(
+        max_abs_err=max(r2["max_abs_err"], e2),
+        shapes={"regions_l0_c4_to48": {k: r2[k] for k in keys}})
+    torch.cuda.empty_cache()
+
+    # ---- (b) noDeepSupervision and (c) DA5 on [trainer]'s task
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    runs, walls = [], []
+    real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
+    # (b) and (c) leave their validation out; (a) validates
+    init_spy, load_spy = trainer_spies("variants", ops, counts, runs,
+                                       validate_runs={2})
+    Trainer.initialize, Trainer.load_checkpoint_file = init_spy, load_spy
+    step_args = ["--task", TRAIN_TASK, "--fold", "0", "--val_batches", "1",
+                 "--sparse", "True", "--density", "0.2",
+                 "--update_frequency", "4", "--device", dev]
+    try:
+        for preset in ("nnUNetTrainerV2_noDeepSupervision",
+                       "nnUNetTrainerV2_DA5"):
+            os.environ["RESULTS_FOLDER"] = (paths["results"] + "_variants_"
+                                            + preset.split("_")[-1])
+            t0 = time.perf_counter()
+            tcli.main(step_args + VARIANTS_STEP_RUN + ["-tr", preset])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        # (a) the region trainer on its BraTS-like task
+        pre = regions_task(paths, smi)
+        os.environ["RESULTS_FOLDER"] = paths["results"] + "_variants"
+        val_runs = []
+        region_init = Trainer.initialize
+
+        def init(self, training=True):
+            region_init(self, training)
+            validate = self.validate
+
+            def spied(*a, **k):
+                flags, real = [], _native.launch_seghead
+
+                def launch(*la, **lk):
+                    flags.append(bool(la[-1]))
+                    return real(*la, **lk)
+                before = counts()
+                _native.launch_seghead = launch
+                try:
+                    validate(*a, **k)
+                finally:
+                    _native.launch_seghead = real
+                torch.cuda.synchronize()
+                val_runs.append(dict(
+                    folder=k.get("validation_folder_name", "validation_raw"),
+                    mirror=k.get("do_mirroring", True), probs=flags,
+                    launches={n: v - before[n] for n, v in counts().items()}))
+            self.validate = spied
+        Trainer.initialize = init
+        exported = []
+        real_save = export.save_segmentation_nifti_from_softmax
+
+        def save(softmax, out_fname, props, *a, **k):
+            p = np.asarray(softmax)
+            exported.append(dict(
+                file=out_fname, shape=p.shape, finite=bool(
+                    np.isfinite(p).all()), lo=float(p.min()),
+                hi=float(p.max()), sum_dev=float(np.abs(p.sum(0) - 1).max()),
+                order=a[1] if len(a) > 1 else None))
+            return real_save(softmax, out_fname, props, *a, **k)
+        export.save_segmentation_nifti_from_softmax = save
+        try:
+            t0 = time.perf_counter()
+            tcli.main(["--task", REGIONS_TASK, "--fold", "0",
+                       "--val_batches", "1", "--sparse", "True",
+                       "--density", "0.2", "--update_frequency", "4",
+                       "--device", dev, "-tr", "nnUNetTrainerV2_fullEvals"]
+                      + VARIANTS_REGION_RUN)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        finally:
+            export.save_segmentation_nifti_from_softmax = real_save
+    finally:
+        Trainer.initialize, Trainer.load_checkpoint_file = \
+            real_init, real_load
+    check(len(runs) == 3, f"[variants] {len(runs)} trainers")
+    nods, da5, reg = (r["trainer"] for r in runs)
+
+    # (b): one head per step
+    per = kernel_launches_per_train_step(nods.network, do_ds=False)
+    check(nods.ds_mode == "none" and nods.ds_weights == [1.0]
+          and nods.ds_scales is None and per["forward"]["seghead"] == 1
+          and runs[0]["want"]["seghead"] == 1
+          and kernel_launches_per_train_step(nods.network)["forward"][
+              "seghead"] == 2, f"[variants] noDeepSupervision: ds_mode "
+          f"{nods.ds_mode}, weights {nods.ds_weights}, launches {per}")
+    # (c): the level's parameters
+    want = apply_da_level(dataclasses.replace(
+        nods.da_params, deep_supervision_scales=da5.ds_scales), "da5")
+    check(dataclasses.asdict(da5.da_params) == dataclasses.asdict(want),
+          f"[variants] DA5's AugmentParams {da5.da_params} are not "
+          f"apply_da_level's {want}")
+    check(da5.da_params.independent_scale_per_axis
+          and da5.da_params.do_additive_brightness
+          and tuple(da5.da_params.gamma_range) == (0.5, 1.6),
+          "[variants] DA5's level not applied")
+    for i, (tag, run) in enumerate(zip(("(b) noDeepSupervision",
+                                        "(c) DA5", "(a) fullEvals"),
+                                       runs)):
+        tr = run["trainer"]
+        losses = [float(v) for v in run["losses"]]
+        ms = [a.elapsed_time(b) for a, b in run["events"]]
+        waits = run["waits"]
+        check(all(np.isfinite(losses)) and all(
+            np.isfinite(tr.all_tr_losses + tr.all_val_losses)),
+            f"[variants] {tag}: a loss is not finite")
+        check(run["updates"] == len(losses) // 4, f"[variants] {tag}: "
+              f"{run['updates']} mask updates in {len(losses)} steps")
+        run["median_ms"] = float(np.median(ms[1:]))
+        print(f"[variants] {tag}: {len(losses)} steps, losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}; online Dice "
+              f"{tr.all_val_eval_metrics}; launches per step {run['want']}; "
+              f"ms per step (CUDA events) {' '.join(f'{v:.1f}' for v in ms)}"
+              f", after the first: median {run['median_ms']:.1f}; host wait "
+              f"per batch in next(tr_gen) (s) "
+              f"{' '.join(f'{v:.3f}' for v in waits)}, after the first: "
+              f"median {float(np.median(waits[1:])):.3f}, mean "
+              f"{float(np.mean(waits[1:])):.3f}; cli.main {walls[i]:.1f} s"
+              f"  [{smi}]", flush=True)
+    print(f"[variants] the noDeepSupervision step: median "
+          f"{runs[0]['median_ms']:.1f} ms (one seg head) beside the "
+          f"deep-supervision step's {runs[1]['median_ms']:.1f} ms (DA5 on "
+          f"the same task) and [trainer]'s runs' "
+          + (" / ".join(f"{v:.1f}" for v in trainer_ms) + " ms"
+             if trainer_ms else "(not run: --variants alone)")
+          + f" in this run  [{smi}]", flush=True)
+
+    # (a): the region trainer
+    check(list(reg.regions.values()) == list(BRATS)
+          and reg.regions_class_order == (1, 2, 3)
+          and reg.loss_name == "dc_bce" and not reg.batch_dice
+          and reg.validate_every == 1, "[variants] fullEvals' options")
+    cin = int(reg.network.context0.block0.kernel.shape[1])
+    cout = int(reg.network.seg_head0.kernel.shape[0])
+    check((cin, cout) == (4, 3), f"[variants] the region model {cin} -> "
+          f"{cout} channels")
+    ref = ShiftUNetPlusPlus(1, NUM_CLASSES, reg.network.pools,
+                            base_num_features=48, device=dev)
+    per_3d = kernel_launches_per_train_step(ref)
+    del ref
+    want3d = {k: per_3d["forward"].get(k, 0) + per_3d["backward"].get(k, 0)
+              for k in ops}
+    check(runs[2]["want"] == want3d and runs[1]["want"] == want3d,
+          f"[variants] launches per step {runs[2]['want']}, the 3D step's "
+          f"{want3d}")
+    fold = reg.output_folder
+    folders = ["validation_ep001", "validation_ep002", "validation_raw"]
+    check([v["folder"] for v in val_runs] == folders
+          and [v["mirror"] for v in val_runs] == [False, False, True],
+          f"[variants] validations {[(v['folder'], v['mirror']) for v in val_runs]}")
+    case = REGIONS_VAL[0]
+    d = np.load(os.path.join(pre, "nnUNetData_plans_v2.1_stage0",
+                             f"{case}.npz"))["data"][:-1]
+    padded, _ = pad_volume_to_patch(d, reg.patch_size)
+    tiles = int(np.prod([len(s) for s in compute_steps_for_sliding_window(
+        reg.patch_size, padded.shape[1:], 0.5)]))
+    per_fwd = kernel_launches_per_forward(reg.network)
+    raw_img = read_nifti(os.path.join(paths["raw"], "nnUNet_raw_data",
+                                      REGIONS_TASK, "imagesTr",
+                                      f"{case}_0000.nii.gz"))
+    for v in val_runs:
+        passes = TTA if v["mirror"] else 1
+        want = {n: tiles * passes * c for n, c in per_fwd.items()}
+        check({n: v["launches"][n] for n in want} == want
+              and all(v["launches"][n] == 0 for n in v["launches"]
+                      if n not in want), f"[variants] {v['folder']}: "
+              f"launches {v['launches']} != {want}")
+        check(len(v["probs"]) == want["seghead"] and not any(v["probs"]),
+              f"[variants] {v['folder']}: {sum(v['probs'])} of "
+              f"{len(v['probs'])} seg-head launches in the probs mode (#10)")
+        with open(os.path.join(fold, v["folder"], "summary.csv")) as f:
+            rows = [r.split(",") for r in f.read().splitlines()]
+        check(rows[0] == ["casename", "whole tumor", "tumor core",
+                          "enhancing tumor"] and [r[0] for r in rows[1:]]
+              == [case, "mean", "median"], f"[variants] {v['folder']}/"
+              f"summary.csv: {rows}")
+        seg = read_nifti(os.path.join(fold, v["folder"], f"{case}.nii.gz"))
+        labels = set(np.unique(seg.array).tolist())
+        check(seg.array.shape == REGIONS_CASES[case] and labels <= {0, 1, 2, 3}
+              and np.allclose(seg.spacing, raw_img.spacing)
+              and np.allclose(seg.origin, raw_img.origin),
+              f"[variants] {v['folder']}: labels {labels}, shape "
+              f"{seg.array.shape}, spacing {seg.spacing}")
+        v["dice"] = rows[1][1:]
+        v["labels"] = sorted(labels)
+    check(len(exported) == 3 and all(
+        e["finite"] and e["lo"] >= 0.0 and e["hi"] <= 1.0
+        and e["shape"][0] == 3 and e["order"] == (1, 2, 3)
+        for e in exported), f"[variants] the exported region "
+        f"probabilities {exported}")
+    check(not os.path.exists(os.path.join(fold, "postprocessing.json")),
+          "[variants] the region fold was postprocessed")
+    print(f"[variants] (a) fullEvals on {case}: {tiles} tiles; "
+          + "; ".join(f"{v['folder']} ({TTA if v['mirror'] else 1} passes): "
+                      f"region Dice {v['dice']}, labels {v['labels']}, "
+                      f"#9 launches {len(v['probs'])}, #10 0"
+                      for v in val_runs)
+          + f"; exported probabilities in [{min(e['lo'] for e in exported):.4f}"
+          f", {max(e['hi'] for e in exported):.4f}], max |sum - 1| "
+          f"{max(e['sum_dev'] for e in exported):.3f} (regions overlap); "
+          f"{validation_text(reg, runs[2])}", flush=True)
+
+    # ---- one step's gradients of the trained region model
+    net = reg.network
+    pools = net.pools
+    n_out = net.num_ds_outputs()
+    rng = np.random.RandomState(9)
+    v, ts = tbm.make_batch(rng, 2, GRAD_PATCH, REGIONS_LABELS,
+                           tbm.ds_factors(pools, n_out))
+    lv = rng.randn(3, REGIONS_LABELS).astype(np.float32)
+    chans = [v] + [lv[i][ts[0]][..., None] + 0.5 * v for i in range(3)]
+    data = torch.from_numpy(np.concatenate(chans, -1)).to(dev)
+    targets = [torch.from_numpy(convert_seg_to_regions(t, BRATS)).to(dev)
+               for t in ts]
+    weights = ds_loss_weights(len(pools), n_out)
+    lk = dict(loss_name="dc_bce", loss_kwargs={"smooth": 0.0},
+              batch_dice=False)
+    g_k = loss_grads(net, data, targets, weights, **lk)
+    with blocks.plain_ops():
+        g_p = loss_grads(net, data, targets, weights, **lk)
+        net32 = ShiftUNetPlusPlus(4, 3, pools,
+                                  base_num_features=reg.base_num_features,
+                                  compute_dtype=torch.float32, device=dev)
+        net32.load_state_dict(net.state_dict())
+        g_32 = loss_grads(net32, data, targets, weights, **lk)
+    e_k = float((g_k - g_32).norm() / g_32.norm())
+    e_p = float((g_p - g_32).norm() / g_32.norm())
+    print(f"[variants] one step's gradients of the trained region model on "
+          f"2 x {GRAD_PATCH[0]}^3 x 4 channels (DC + BCE on 3 regions), "
+          f"against a float32 plain run: kernel path rel L2 err {e_k:.4e}, "
+          f"bf16 plain path {e_p:.4e}", flush=True)
+    check(e_k <= ERR_RATIO * e_p, "[variants] kernel-path gradients further "
+          "from the float32 run than the bf16 plain path's")
+    del net32, g_k, g_p, g_32, data, targets
+
+    # ---- the pretrained transfer into the region model
+    found = sorted(glob.glob(os.path.join(
+        paths["results"], "**", TRAIN_TASK, "*", "fold_0",
+        "shiftConvPP_model_final_checkpoint.model"), recursive=True))
+    src = found[0] if found else nods.checkpoint_path("final_checkpoint")
+    target = dict(net.state_dict())
+    before = {k: t.detach().clone() for k, t in target.items()}
+    t0 = time.perf_counter()
+    new = load_pretrained_weights(target, src, verbose=False)
+    t_tr = time.perf_counter() - t0
+    net.load_state_dict(new)
+    # the host's rule on the two checkpoints' flax trees
+    s_tree = load_checkpoint(src)[0]["params"]
+
+    def leaves(tree, prefix=()):
+        for k, val in tree.items():
+            if isinstance(val, dict):
+                yield from leaves(val, prefix + (k,))
+            else:
+                yield prefix + (k,), val
+    s_flat = dict(leaves(s_tree))
+    rule = {".".join(p) for p, val in leaves(to_jax_params(before))
+            if p[0].startswith("context") and p in s_flat
+            and s_flat[p].shape == val.shape}
+    moved = {k for k in new if new[k] is not target[k]}
+    source = from_jax_params(s_tree)
+    check(moved == rule and len(rule) > 0
+          and "context0.block0.kernel" not in moved,
+          f"[variants] transferred {sorted(moved)[:4]}... ({len(moved)}), "
+          f"the rule's {len(rule)}")
+    after = net.state_dict()
+    check(all(torch.equal(after[k].cpu(), source[k]) for k in moved)
+          and all(torch.equal(after[k], before[k]) for k in after
+                  if k not in moved), "[variants] the transferred model's "
+          "tensors are not the checkpoint's where moved and its own "
+          "elsewhere")
+    print(f"[variants] load_pretrained_weights from "
+          f"{'[trainer]' if found else '(b)'}'s fold checkpoint (1 -> 16 "
+          f"channels) into the region model (4 -> 3): {len(moved)} tensors, "
+          f"the host's rule {len(rule)}; context0.block0.kernel (1 against 4 "
+          f"input channels) kept; {t_tr:.2f} s", flush=True)
+    del runs, nods, da5, reg, net
+    torch.cuda.empty_cache()
+    check("jax" not in sys.modules, "[variants] jax was imported")
+    print(f"[variants] phase {time.perf_counter() - t_phase:.1f} s  [{smi}]",
+          flush=True)
+    return out
+
+
 def bench_phase(smi):
     """[bench] python -m e2enet_tpu_torch.bench at its defaults (the sparse
     model, fast mode) in a subprocess: exit 0 and a last stdout line with
@@ -4204,6 +4686,34 @@ def cascade_only() -> None:
           flush=True)
 
 
+def variants_only() -> None:
+    """--variants: the build, [trainer]'s planned task and the [variants]
+    phase alone (its launches printed as JSON)."""
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as tmp:
+        paths = plan_train_task(tmp, smi)
+        for op in ops.values():
+            op.launches = 0
+        stamp("[trainer]'s planned task")
+        variants_phase(Rnd(0), 20, ops,
+                       lambda: {n: op.launches for n, op in ops.items()},
+                       smi, paths)
+        stamp("[variants]")
+    print(json.dumps({"variants_launches": {n: op.launches
+                                            for n, op in ops.items()}}),
+          flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4225,6 +4735,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--cascade"]:
         cascade_only()
+        return
+    if sys.argv[1:] == ["--variants"]:
+        variants_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -4730,8 +5243,9 @@ def main() -> None:
     # ---- 11. options: the trainer's options, on the task [trainer] planned
     # ---- 12. dsff: every DSFF engine, on the same task;
     # ---- 13. 2d: its 2D plan, and the shift off;
-    # ---- 14. cascade: 3d_lowres -> 3d_cascade_fullres on its cases
-    def options(paths):
+    # ---- 14. cascade: 3d_lowres -> 3d_cascade_fullres on its cases;
+    # ---- 15. variants: the variants' knobs and the region trainers
+    def options(paths, trainer_ms):
         stamp("10. trainer")
         reset_counts()
         options_phase(ops, counts, smi, paths)
@@ -4748,18 +5262,23 @@ def main() -> None:
         reset_counts()
         res_cascade.update(cascade_phase(rnd, R, ops, counts, smi, paths))
         launches["cascade"] = counts()
-    res2d, res_cascade = {}, {}
+        stamp("14. cascade")
+        reset_counts()
+        res_variants.update(variants_phase(rnd, R, ops, counts, smi, paths,
+                                           trainer_ms))
+        launches["variants"] = counts()
+    res2d, res_cascade, res_variants = {}, {}, {}
     launches["trainer"] = trainer_phase(ops, reset_counts, counts, smi,
                                         then=options)
 
-    stamp("10-14. trainer, options, dsff, 2d, cascade")
-    # ---- 15. experiments: the experiment kernels, then their mains
+    stamp("10-15. trainer, options, dsff, 2d, cascade, variants")
+    # ---- 16. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    stamp("15. experiments")
-    # ---- 16. report
+    stamp("16. experiments")
+    # ---- 17. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -4803,7 +5322,7 @@ def main() -> None:
           "volumes, the up-link's from the data-flip path's volume, the "
           "backward kernels' from the train path's steps, the experiment "
           "kernels' from the experiments' mains (launches_by_path: all "
-          "eleven, 'predict' over the folder run A's two cases, 'trainer' "
+          "twelve, 'predict' over the folder run A's two cases, 'trainer' "
           "over the [trainer] phase: train steps, validation batches, the "
           "validations and the predict CLI; 'options' over the [options] "
           "phase: train, gradient and loss steps, the CLI run's "
@@ -4819,7 +5338,12 @@ def main() -> None:
           "gradient check and one predicted case through both stages; the "
           "'cascade' entry: #1 and the block backward at the cascade's "
           "first block (16 and 3 input channels), the seg head at 3 "
-          "classes)",
+          "classes; 'variants' over the [variants] phase: the "
+          "noDeepSupervision, DA5 and fullEvals runs' train steps and "
+          "validation batches, the region fold's three validations and "
+          "the gradient check; the 'variants' entry: #1 and the block "
+          "backward's wgrad at the region model's first block (4 input "
+          "channels), #9 at 3 regions)",
           flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
@@ -4844,6 +5368,8 @@ def main() -> None:
             line["2d"] = res2d[name]
         if name in res_cascade:
             line["cascade"] = res_cascade[name]
+        if name in res_variants:
+            line["variants"] = res_variants[name]
         for extra in ("shapes", "int8", "kernel1_ms", "mma_ms", "control_ms",
                       "serial_ms",
                       "turns_ms", "affine_stats_ms", "gemm_route",
@@ -4851,7 +5377,7 @@ def main() -> None:
             if extra in res[name]:
                 line[extra] = res[name][extra]
         lines.append(line)
-    stamp("16. report: the script")
+    stamp("17. report: the script")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

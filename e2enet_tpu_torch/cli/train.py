@@ -36,17 +36,18 @@ one-stage plan, as the JAX CLI does. -tr names a
 preset of training/variants.py whose keys go to the trainer as the JAX
 CLI maps them (variant_kwargs): optimizers, learning
 rates and their schedules, momentum, losses, epochs, precision, batch
-dice. Every DSFF setting of the JAX trainer trains: --sparse_init
+dice, augmentation levels, the deep-supervision mode, per-epoch
+validation, export options and regions (the BraTS region trainers:
+sigmoid heads, region targets, summary.csv by region). Every DSFF
+setting of the JAX trainer trains: --sparse_init
 uniform|dense|uniform_ori|ERK|GMP|lottery_ticket, --prune_mode
 local|global (global on element masks), --granularity
 auto|kernel|element|row (row with uniform), --growth random|gradient,
 --final_density with --init-prune-epoch / --final-prune-epoch (the global
 prune's schedule, GMP's window) and --multiplier (GMP). Refused, each
 naming the ROADMAP item that ports it: a preset that sets an
-augmentation level, regions, the deep-supervision mode,
-per-epoch validation or export options (item 4e) or an architecture switch
-(item 6), --num_devices above 1 and --spatial_parallel (item 7),
---device_augment (item 8). --fused, --no_fused and --remat choose between
+architecture switch (item 6), --num_devices above 1 and
+--spatial_parallel (item 7), --device_augment (item 8). --fused, --no_fused and --remat choose between
 XLA programs of the JAX package and are rejected.
 """
 import argparse

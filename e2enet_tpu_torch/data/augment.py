@@ -16,20 +16,19 @@ background thread pipeline (data/pipeline.py) hides it behind device compute.
 
 The port's own copy of e2enet_tpu/data/augment.py: the same draws in the
 same order, so that one RandomState gives both packages the same batch.
-Two changes: the symmetry-only import of ops.shift is gone, and the
-region trainers' targets (regions) raise, naming ROADMAP Queue 1 item 4e,
-which ports them. The cascade's step (move_last_seg_channel_to_data: the
-previous stage's seg as one-hot data channels, corrupted on training
-batches by training/cascade.cascade_augment_onehot) is the JAX package's.
-The port imports nothing of the JAX package.
+One change: the symmetry-only import of ops.shift is gone. The cascade's
+step (move_last_seg_channel_to_data: the previous stage's seg as one-hot
+data channels, corrupted on training batches by
+training/cascade.cascade_augment_onehot) and the region trainers' targets
+(regions: every deep-supervision target one float32 channel per region,
+channels-last, training/regions.convert_seg_to_regions) are the JAX
+package's. The port imports nothing of the JAX package.
 """
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 from scipy.ndimage import affine_transform, gaussian_filter
-
-NOT_PORTED_ITEM = "ROADMAP Queue 1 item 4e (region trainers)"
 
 
 @dataclass
@@ -416,6 +415,8 @@ def augment_batch(batch: dict, params: AugmentParams,
     targets = downsample_targets(seg[:, 0].astype(np.int32),
                                  params.deep_supervision_scales)
     if params.regions is not None:
-        raise NotImplementedError(f"region targets: {NOT_PORTED_ITEM}")
+        from ..training.regions import convert_seg_to_regions
+        targets = [convert_seg_to_regions(t, params.regions)
+                   for t in targets]
     return {"data": np.ascontiguousarray(data, np.float32),
             "target": [np.ascontiguousarray(t) for t in targets]}

@@ -418,16 +418,19 @@ def kernel_launches_per_forward(model: ShiftUNetPlusPlus,
     }
 
 
-def kernel_launches_per_train_step(model: ShiftUNetPlusPlus
+def kernel_launches_per_train_step(model: ShiftUNetPlusPlus,
+                                   do_ds: bool = True
                                    ) -> Dict[str, Dict[str, int]]:
-    """Kernel calls of one train step (a forward with do_ds=True and its
-    backward): {"forward": kernel_launches_per_forward(model, True),
-    "backward": ...}. The backward launches the block backward once per
-    fused or lazy block call, the down-link backward once per down-link
-    call, and the up-link kernel once per lazy call (the lazy block's
-    backward materialises u); the strided transition, the materialised
-    up-links and the seg heads differentiate their plain versions."""
-    fwd = kernel_launches_per_forward(model, do_ds=True)
+    """Kernel calls of one train step (a forward with do_ds, True unless
+    the noDeepSupervision variant's step runs the full-resolution head
+    alone, and its backward): {"forward": kernel_launches_per_forward(
+    model, do_ds), "backward": ...}. The backward launches the block
+    backward once per fused or lazy block call, the down-link backward
+    once per down-link call, and the up-link kernel once per lazy call
+    (the lazy block's backward materialises u); the strided transition,
+    the materialised up-links and the seg heads differentiate their plain
+    versions."""
+    fwd = kernel_launches_per_forward(model, do_ds=do_ds)
     bwd = {name: 0 for name in fwd}
     bwd["fused_shift_conv_block_bwd"] = (fwd["fused_shift_conv_block"]
                                          + fwd["lazy_up_fused_block"])

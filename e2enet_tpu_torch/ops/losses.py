@@ -305,6 +305,23 @@ def hard_tp_fp_fn(logits: torch.Tensor, target: torch.Tensor):
     return tp.float(), fp.float(), fn.float()
 
 
+def hard_tp_fp_fn_regions(logits: torch.Tensor,
+                          target_onehot: torch.Tensor):
+    """Per-region hard counts for the online evaluation of the region
+    trainers (reference losses.py:282-300,
+    nnUNetTrainerV2BraTSRegions.run_online_evaluation): sigmoid(logits) >
+    0.5 on each region channel of (N, ..., R) against the 0/1 targets of
+    the same shape. Returns (tp, fp, fn), each (R,) float32, on the
+    logits' device."""
+    pred = torch.sigmoid(logits.float()) > 0.5
+    t = target_onehot > 0.5
+    axes = tuple(range(pred.dim() - 1))
+    tp = (pred & t).sum(dim=axes)
+    fp = (pred & ~t).sum(dim=axes)
+    fn = (~pred & t).sum(dim=axes)
+    return tp.float(), fp.float(), fn.float()
+
+
 def downsample_seg_for_ds(seg: torch.Tensor,
                           scales: Sequence[Sequence[float]]
                           ) -> List[torch.Tensor]:

@@ -4,7 +4,10 @@ plain channels-last branches of _tiled_accumulate and
 predict_volume_tiled), as a Python loop over tiles and mirror passes on
 the device. Two kinds of mirror TTA: data flips (flip the tile, unflip the
 probabilities) and flip-free (one statically mirrored forward per pass on
-the unflipped tile, inference/predictor.mirror_apply_fns_for).
+the unflipped tile, inference/predictor.mirror_apply_fns_for). The
+probabilities are the class softmax, or with nonlin="sigmoid" one sigmoid
+per channel (the region trainers' heads, reference make_tiled_predictor's
+nonlin).
 """
 import functools
 import warnings
@@ -58,16 +61,28 @@ def flip_combinations(mirror_axes: Sequence[int]) -> List[Tuple[int, ...]]:
     return combos
 
 
-def head_probs(out: torch.Tensor) -> torch.Tensor:
-    """Class probabilities of a head's output, in float32: float32 logits
-    are softmaxed, bfloat16 probabilities (a probs head) taken as they are.
-    Anything else is refused, so no head's output is softmaxed twice."""
+NONLINS = ("softmax", "sigmoid")
+
+
+def head_probs(out: torch.Tensor, nonlin: str = "softmax") -> torch.Tensor:
+    """Probabilities of a head's output, in float32: float32 logits through
+    the class softmax (nonlin="softmax") or a sigmoid per channel
+    ("sigmoid", the region trainers'); bfloat16 probabilities (a probs
+    head's softmax) taken as they are under "softmax". Anything else is
+    refused, sigmoid over a probs head included, so no head's output goes
+    through a second nonlinearity."""
+    if nonlin not in NONLINS:
+        raise ValueError(f"nonlin {nonlin!r}: one of {NONLINS}")
     if out.dtype == torch.float32:
+        if nonlin == "sigmoid":
+            return torch.sigmoid(out)
         return torch.softmax(out, dim=-1)
-    if out.dtype == torch.bfloat16:
+    if out.dtype == torch.bfloat16 and nonlin == "softmax":
         return out.float()
-    raise TypeError(f"head output of dtype {out.dtype}: expected float32 "
-                    f"logits or bfloat16 probabilities")
+    raise TypeError(f"head output of dtype {out.dtype} under {nonlin}: "
+                    f"expected float32 logits"
+                    + (" or bfloat16 probabilities" if nonlin == "softmax"
+                       else " (a bfloat16 output is a probs head's softmax)"))
 
 
 def check_prob_dtype(prob_dtype, mirror_apply_fns):
@@ -113,7 +128,8 @@ def tiled_accumulate(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                      mirror_apply_fns: Optional[
                          Sequence[Callable[[torch.Tensor],
                                            torch.Tensor]]] = None,
-                     prob_dtype: Optional[torch.dtype] = None
+                     prob_dtype: Optional[torch.dtype] = None,
+                     nonlin: str = "softmax"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tile loop on the device (the reference's make_tiled_predictor
     program): vol (X, Y, Z, C) float32 on the device, each dim at least
@@ -121,9 +137,10 @@ def tiled_accumulate(apply_fn: Callable[[torch.Tensor], torch.Tensor],
     (X, Y, Z)) in accum_dtype, on vol's device.
 
     apply_fn(x (1, pd, ph, pw, C)) -> float32 logits or bfloat16
-    probabilities (1, pd, ph, pw, num_classes) (head_probs). Per tile:
-    every mirror pass flips the patch, takes the head's probabilities in
-    float32 and unflips them. With mirror_apply_fns (one per
+    probabilities (1, pd, ph, pw, num_classes) (head_probs; under
+    nonlin="sigmoid" float32 logits only). Per tile: every mirror pass
+    flips the patch, takes the head's probabilities (head_probs(.,
+    nonlin)) in float32 and unflips them. With mirror_apply_fns (one per
     flip_combinations pass, fns[m](x) == flip_m(net(flip_m(x)))) pass m
     runs fns[m] on the unflipped patch instead, and apply_fn is not used.
     prob_dtype (data-flip branch only; reference make_tiled_predictor):
@@ -157,11 +174,12 @@ def tiled_accumulate(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                                        dtype=torch.float32, device=device)
                 if mirror_apply_fns is not None:
                     for fn in mirror_apply_fns:
-                        prob_sum += head_probs(fn(patch[None])[0])
+                        prob_sum += head_probs(fn(patch[None])[0],
+                                               nonlin)
                 else:
                     for combo in combos:
                         xin = patch.flip(combo) if combo else patch
-                        p = head_probs(apply_fn(xin[None])[0])
+                        p = head_probs(apply_fn(xin[None])[0], nonlin)
                         if prob_dtype is not None:
                             p = p.to(prob_dtype)
                         prob_sum += p.flip(combo) if combo else p
@@ -181,10 +199,11 @@ def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                          mirror_apply_fns: Optional[
                              Sequence[Callable[[torch.Tensor],
                                                torch.Tensor]]] = None,
-                         prob_dtype: Optional[torch.dtype] = None
-                         ) -> np.ndarray:
+                         prob_dtype: Optional[torch.dtype] = None,
+                         nonlin: str = "softmax") -> np.ndarray:
     """data: (C, X, Y, Z) float32 -> class probabilities (num_classes, X,
-    Y, Z) as numpy in accum_dtype: the volume padded to the patch and moved
+    Y, Z), per-channel sigmoid probabilities under nonlin="sigmoid", as
+    numpy in accum_dtype: the volume padded to the patch and moved
     to `device`, tiled_accumulate (which says what the arguments do), then
     acc / weights computed in accum_dtype (a zero weight taken as 1, as the
     reference does) and the padding cropped."""
@@ -195,7 +214,7 @@ def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
         apply_fn, vol, patch_size, num_classes, step_size=step_size,
         mirror_axes=mirror_axes, do_mirroring=do_mirroring,
         accum_dtype=accum_dtype, mirror_apply_fns=mirror_apply_fns,
-        prob_dtype=prob_dtype)
+        prob_dtype=prob_dtype, nonlin=nonlin)
     wacc = torch.where(wacc == 0, torch.ones_like(wacc), wacc)
     probs = (acc / wacc[..., None]).cpu().numpy()
     probs = np.moveaxis(probs, -1, 0)

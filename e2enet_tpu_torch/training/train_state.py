@@ -15,8 +15,12 @@ nnUNetTrainerV2_Ranger_* variants) and Adam with amsgrad (the
 nnUNetTrainerV2_Adam* variants), each with weight decay 3e-5 as the
 reference's step passes it. The eval step is the validation iteration:
 the loss and the hard tp/fp/fn of the full-resolution head
-(run_online_evaluation), without a gradient. The grad step is the plain
-gradient of the deep-supervision loss that gradient-fed DSFF growth reads.
+(run_online_evaluation; per region channel for the region trainers),
+without a gradient. The grad step is the plain gradient of the
+deep-supervision loss that gradient-fed DSFF growth reads. With
+do_ds=False (the noDeepSupervision variant) each step runs the model's
+full-resolution head alone and its loss on the one target; the step
+takes that head's float32 logits and refuses a probabilities head.
 
 The parameters live in the model (float32); the optimizer's state is a
 dict of tensors by parameter name (SGD's momentum) or a RangerState /
@@ -35,7 +39,8 @@ import torch
 from torch import nn
 
 from ..models.masks import apply_masks_to
-from ..ops.losses import deep_supervision_loss, hard_tp_fp_fn
+from ..ops.losses import (deep_supervision_loss, hard_tp_fp_fn,
+                          hard_tp_fp_fn_regions)
 from . import dsff
 from .ranger import RangerState, ranger_init, ranger_update
 
@@ -190,6 +195,22 @@ def _loss_fn(ds_weights, batch_dice, loss_name, loss_kwargs):
     return loss
 
 
+def _outputs(model: nn.Module, data: torch.Tensor, do_ds: bool):
+    """The model's deep-supervision logits (finest first), or with do_ds
+    False its full-resolution head's logits as a one-element list. A head
+    that returns probabilities (the model's head_probs_dtype) is refused:
+    the losses take logits, and no head's output is taken twice through a
+    nonlinearity."""
+    if do_ds:
+        return model(data, do_ds=True)
+    out = model(data, do_ds=False)
+    if out.dtype != torch.float32:
+        raise TypeError(f"do_ds=False head output of dtype {out.dtype}: "
+                        f"the step takes float32 logits (set the model's "
+                        f"head_probs_dtype to None)")
+    return [out]
+
+
 def _full_grads(loss, params: Dict[str, torch.Tensor]):
     """{name: d loss / d param}, zeros where a parameter has no path to
     the loss."""
@@ -205,10 +226,11 @@ def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
                     weight_decay: float = WEIGHT_DECAY,
                     optimizer: str = "sgd", loss_kwargs=None,
                     dynamic_loss_weights: bool = False,
-                    dynamic_momentum: bool = False):
+                    dynamic_momentum: bool = False, do_ds: bool = True):
     """step(state, data, targets, lr, *extras) -> (state, {"loss",
     "grad_norm"}): data (B, D, H, W, C) float32, targets one tensor per
-    deep-supervision output, finest first; batch dice unless batch_dice
+    deep-supervision output, finest first (do_ds=False: the
+    full-resolution head alone, one target); batch dice unless batch_dice
     is False. optimizer 'sgd' | 'ranger' | 'adam' (state.momentum made by
     create_train_state with the same one); loss_name a LOSS_REGISTRY name
     with loss_kwargs. extras, floats: (weight_ce, weight_dice) when
@@ -228,7 +250,7 @@ def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
             extra_kw["weight_ce"] = extras.pop(0)
             extra_kw["weight_dice"] = extras.pop(0)
         mom = extras.pop(0) if dynamic_momentum else momentum
-        loss = loss_fn(model(data, do_ds=True), targets, extra_kw)
+        loss = loss_fn(_outputs(model, data, do_ds), targets, extra_kw)
         grads, gnorm = clip_by_global_norm(_full_grads(loss, state.params),
                                            GRAD_CLIP_NORM)
         if optimizer == "sgd":
@@ -253,10 +275,13 @@ def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
 
 def make_eval_step(model: nn.Module, ds_weights, batch_dice: bool = True,
                    loss_name: str = "dc_ce", loss_kwargs=None,
-                   dynamic_loss_weights: bool = False):
+                   dynamic_loss_weights: bool = False, do_ds: bool = True,
+                   regions: bool = False):
     """step(data, targets, *extras) -> {"loss", "tp", "fp", "fn"} on the
-    device: the deep-supervision loss and the hard counts of the
-    full-resolution head (reference make_eval_step, train_state.py:
+    device: the deep-supervision loss (do_ds=False: the full-resolution
+    head's alone) and the hard counts of the full-resolution head, per
+    foreground class, or with regions per region channel of sigmoid > 0.5
+    against region targets (reference make_eval_step, train_state.py:
     211-238), no gradient; extras (weight_ce, weight_dice) when
     dynamic_loss_weights."""
     loss_fn = _loss_fn(ds_weights, batch_dice, loss_name, loss_kwargs)
@@ -265,9 +290,10 @@ def make_eval_step(model: nn.Module, ds_weights, batch_dice: bool = True,
         extra_kw = ({"weight_ce": extras[0], "weight_dice": extras[1]}
                     if dynamic_loss_weights else {})
         with torch.no_grad():
-            outs = model(data, do_ds=True)
+            outs = _outputs(model, data, do_ds)
             loss = loss_fn(outs, targets, extra_kw)
-            tp, fp, fn = hard_tp_fp_fn(outs[0], targets[0])
+            counts = hard_tp_fp_fn_regions if regions else hard_tp_fp_fn
+            tp, fp, fn = counts(outs[0], targets[0])
         return {"loss": loss, "tp": tp, "fp": fp, "fn": fn}
 
     return eval_step
@@ -323,16 +349,20 @@ def make_mask_update_step(model: nn.Module, growth: str = "random",
 
 
 def make_grad_step(model: nn.Module, ds_weights, batch_dice: bool = True,
-                   loss_name: str = "dc_ce"):
+                   loss_name: str = "dc_ce", do_ds: bool = True):
     """grad_step(data, targets) -> {name: gradient} of the plain
     deep-supervision loss with respect to every parameter of the model,
     through the same kernels as the train step (reference make_grad_step,
     train_state.py:270-287: the weight.grad that kernel_grad_growth
-    reads). The trainer feeds it to gradient-fed DSFF updates."""
+    reads); do_ds=False as make_train_step's (the reference runs every
+    head and weighs the first alone: the same loss, zero gradients for
+    the other heads). The trainer feeds it to gradient-fed DSFF
+    updates."""
     loss_fn = _loss_fn(ds_weights, batch_dice, loss_name, None)
 
     def grad_step(data, targets):
         params = dict(model.named_parameters())
-        return _full_grads(loss_fn(model(data, do_ds=True), targets), params)
+        return _full_grads(loss_fn(_outputs(model, data, do_ds), targets),
+                           params)
 
     return grad_step

@@ -46,12 +46,25 @@ training/cascade.predict_next_stage writes from a 3d_lowres trainer)
 enters as num_classes - 1 one-hot input channels, in training (corrupted
 by the cascade augmentation of data/augment.py) and in validation.
 
+The variants' other knobs: da_level (training/variants.apply_da_level on
+the training batches' AugmentParams; validation's mirroring does not read
+it), ds_mode "none" (the full-resolution head alone: one loss weight, one
+target, each step's forward with do_ds=False), validate_every (a
+validation without mirroring or postprocessing into
+validation_ep{epoch:03d} after every such epoch) and export_kwargs (the
+export's interpolation orders and separate-z switch). The region trainers
+(regions: "brats" or {name: labels}): one sigmoid head per region
+(training/regions.py), targets one 0/1 channel per region, the online
+counts per region, validation's tile loop under the sigmoid, the export
+by regions_class_order and evaluate_regions' summary.csv in place of the
+label-wise scores and the postprocessing. The validation batches get the
+region targets too: the reference gives them the labels, on which its
+region losses cannot run (ROADMAP Queue 3).
+
 Not ported, each raising NotImplementedError that names its ROADMAP item:
-the region trainers and the variants' augmentation levels,
-deep-supervision mode, per-epoch validation and export options (Queue 1
-item 4e), the architecture switches (item 6), several devices (item 7) and
-device augmentation (item 8). `fused` and `remat` choose between XLA
-programs of the reference and have no meaning here.
+the architecture switches (item 6), several devices (item 7) and device
+augmentation (item 8). `fused` and `remat` choose between XLA programs of
+the reference and have no meaning here.
 """
 import json
 import os
@@ -81,20 +94,17 @@ from .checkpoint import load_train_state, save_train_state
 from .lr import (ReduceLROnPlateau, ce_to_dice_weights, cycle_at_end_lr,
                  fixed_schedule2_lr, fixed_schedule_lr, poly_lr,
                  reduce_momentum, warmup_poly_lr)
+from .regions import resolve_regions
 from .train_state import (apply_new_masks, create_train_state, make_eval_step,
                           make_grad_step, make_mask_update_step,
                           make_train_step)
+from .variants import apply_da_level
 
-VARIANTS_ITEM = "ROADMAP Queue 1 item 4e (variants, regions)"
 ARCH_ITEM = "ROADMAP Queue 1 item 6 (architecture switches)"
 MULTI_DEVICE_ITEM = "ROADMAP Queue 1 item 7 (multi-GPU)"
 DEVICE_AUGMENT_ITEM = "ROADMAP Queue 1 item 8 (ops/device_augment.py)"
 # the reference's defaults of the options the port refuses otherwise
 _REFUSED = (
-    ("regions", None, VARIANTS_ITEM),
-    ("da_level", None, VARIANTS_ITEM), ("ds_mode", "standard", VARIANTS_ITEM),
-    ("validate_every", None, VARIANTS_ITEM),
-    ("export_kwargs", None, VARIANTS_ITEM),
     ("profile_dir", None, "not ported (a step's device time by kernel: "
      "python -m e2enet_tpu_torch.profile_forward --train)"),
     ("norm_op", "instance", ARCH_ITEM), ("nonlin", "lrelu", ARCH_ITEM),
@@ -144,15 +154,25 @@ class Trainer:
                  momentum_schedule: Optional[str] = None,
                  loss_kwargs: Optional[dict] = None,
                  loss_schedule: Optional[str] = None,
-                 cascade: bool = False, device="cuda", **options):
+                 cascade: bool = False, da_level: Optional[str] = None,
+                 regions=None, ds_mode: str = "standard",
+                 validate_every: Optional[int] = None,
+                 export_kwargs: Optional[dict] = None, device="cuda",
+                 **options):
         """The reference's arguments (TPUTrainer.__init__, trainer.py:47-76)
         with `device`; cascade=True trains the 3d_cascade_fullres stage on
         the previous stage's one-hot segmentation; any of the reference's
-        other options (its variants' other knobs, profile_dir) away from
+        other options (its architecture switches, profile_dir) away from
         its default raises (refuse_unported). lr_schedule: poly | warmup |
         fixed | fixed2 | cycle | plateau; momentum_schedule: None |
-        'reduce'; loss_schedule: None | 'ce_to_dice'."""
+        'reduce'; loss_schedule: None | 'ce_to_dice'; da_level: a level of
+        training/variants.apply_da_level; regions: 'brats' or {name:
+        labels}; ds_mode: 'standard' | 'none'; validate_every: epochs
+        between validations without mirroring; export_kwargs:
+        interpolation_order, interpolation_order_z, force_separate_z."""
         refuse_unported(**options)
+        if ds_mode not in ("standard", "none"):
+            raise ValueError(f"ds_mode {ds_mode!r}: 'standard' or 'none'")
         self.device = require_device(device)
         self.plans = plans
         self.fold = fold
@@ -187,6 +207,18 @@ class Trainer:
         self.momentum_schedule = momentum_schedule
         self.loss_kwargs = dict(loss_kwargs) if loss_kwargs else None
         self.loss_schedule = loss_schedule
+        self.da_level = da_level
+        # region-based training (BraTS competition trainers): sigmoid
+        # heads over label-union regions (training/regions.py)
+        self.regions = None
+        self.regions_class_order = None
+        if regions is not None:
+            self.regions = resolve_regions(regions)
+            self.regions_class_order = tuple(
+                range(1, len(self.regions) + 1))
+        self.ds_mode = ds_mode
+        self.validate_every = validate_every
+        self.export_kwargs = dict(export_kwargs) if export_kwargs else None
         self.oversample_foreground_percent = 0.33
         self.train_loss_MA = None            # network_trainer.py:95-105
         self.train_loss_MA_alpha = 0.93
@@ -222,7 +254,10 @@ class Trainer:
         if self.cascade:
             # prev-stage seg arrives as one-hot fg-class channels
             num_in += self.num_classes - 1
-        self.net_num_classes = self.num_classes
+        # region-based trainers: one sigmoid head channel per region
+        # (nnUNetTrainerV2BraTSRegions.process_plans :78-80)
+        self.net_num_classes = (len(self.regions) if self.regions
+                                else self.num_classes)
         self.network = build_network(
             self.stage_plan, num_in, self.net_num_classes, tconv=self.tconv,
             base_num_features=self.base_num_features,
@@ -234,6 +269,12 @@ class Trainer:
         self.ds_weights = ds_loss_weights(self.num_pool, n_out)
         self.ds_scales = deep_supervision_scales(
             self.stage_plan.pool_op_kernel_sizes, n_out)
+        do_ds = self.ds_mode != "none"
+        if not do_ds:
+            # nnUNetTrainerV2_noDeepSupervision: the full-resolution head
+            # alone, its loss unweighted
+            self.ds_weights = [1.0]
+            self.ds_scales = None
 
         self.setup_da_params()
 
@@ -253,11 +294,13 @@ class Trainer:
             loss_name=self.loss_name, momentum=self.momentum,
             optimizer=self.optimizer, loss_kwargs=self.loss_kwargs,
             dynamic_loss_weights=ce_to_dice,
-            dynamic_momentum=self.momentum_schedule == "reduce")
+            dynamic_momentum=self.momentum_schedule == "reduce",
+            do_ds=do_ds)
         self.eval_step = make_eval_step(
             self.network, self.ds_weights, self.batch_dice,
             loss_name=self.loss_name, loss_kwargs=self.loss_kwargs,
-            dynamic_loss_weights=ce_to_dice)
+            dynamic_loss_weights=ce_to_dice, do_ds=do_ds,
+            regions=self.regions is not None)
         if masks is not None:
             cfg = self.dsff_config
             made = dsff.mask_granularity(masks, self.network)
@@ -284,7 +327,7 @@ class Trainer:
             if cfg.growth == "gradient" or cfg.prune_mode == "global":
                 self._dsff_grad_step = make_grad_step(
                     self.network, self.ds_weights, self.batch_dice,
-                    loss_name=self.loss_name)
+                    loss_name=self.loss_name, do_ds=do_ds)
 
         if training:
             self._setup_generators()
@@ -353,7 +396,14 @@ class Trainer:
             move_last_seg_channel_to_data=self.cascade,
             all_segmentation_labels=self._cascade_labels(),
             cascade_do_cascade_augmentations=self.cascade,
-            deep_supervision_scales=self.ds_scales)
+            deep_supervision_scales=self.ds_scales,
+            regions=self._region_labels())
+        if self.da_level is not None:
+            apply_da_level(self.da_params, self.da_level)
+
+    def _region_labels(self):
+        """The regions' label tuples, in order, else None."""
+        return tuple(self.regions.values()) if self.regions else None
 
     def _cascade_labels(self):
         """The foreground labels of the cascade's one-hot channels, else
@@ -408,7 +458,8 @@ class Trainer:
             mask_was_used_for_normalization=self.plans.use_mask_for_norm,
             move_last_seg_channel_to_data=self.cascade,
             all_segmentation_labels=self._cascade_labels(),
-            deep_supervision_scales=self.ds_scales)
+            deep_supervision_scales=self.ds_scales,
+            regions=self._region_labels())
         self.val_gen = BatchPipeline(sampler_val, val_params,
                                      validation=True, num_threads=1,
                                      seed=self.seed + 1)
@@ -622,6 +673,14 @@ class Trainer:
             self.epoch += 1
             self.logger.log("This epoch took %f s" % (time.time() - t0))
 
+            if (self.validate_every
+                    and self.epoch % self.validate_every == 0
+                    and not self.dummy_load):
+                # nnUNetTrainerV2_fullEvals: a validation every epoch
+                self.validate(
+                    do_mirroring=False,
+                    validation_folder_name=f"validation_ep{self.epoch:03d}",
+                    run_postprocessing_on_folds=False)
             if self.save_every and (self.epoch % self.save_every == 0):
                 self.save_checkpoint("latest")
             if (self.best_val_eval_criterion_MA is None
@@ -728,7 +787,10 @@ class Trainer:
                  run_postprocessing_on_folds: bool = True):
         """Sliding-window predict every val case -> export -> evaluate ->
         determine postprocessing. Parity: nnUNetTrainer_simple.validate
-        (:1309-1479). Each case's seconds in prediction and export go to
+        (:1309-1479). The region trainers: sigmoid probabilities, labels
+        by regions_class_order, evaluate_regions' summary.csv and no
+        postprocessing (nnUNetTrainerV2BraTSRegions.validate :160-166).
+        Each case's seconds in prediction and export go to
         self.validation_timings."""
         from ..evaluation.evaluator import aggregate_scores
         from ..inference.export import save_segmentation_nifti_from_softmax
@@ -771,16 +833,21 @@ class Trainer:
                     lambda x: net(x, do_ds=False), data, patch,
                     self.net_num_classes, device=self.device,
                     step_size=step_size, do_mirroring=do_mirroring,
-                    mirror_apply_fns=fns)
+                    mirror_apply_fns=fns,
+                    nonlin="sigmoid" if self.regions else "softmax")
             t1 = time.perf_counter()
             transpose_backward = self.plans.transpose_backward
             softmax = softmax.transpose(
                 [0] + [int(i) + 1 for i in transpose_backward])
             softmax_fname = (join(output_folder, fname + ".npz")
                              if save_softmax else None)
+            ek = self.export_kwargs or {}
             save_segmentation_nifti_from_softmax(
-                softmax, join(output_folder, fname + ".nii.gz"), props, 1,
-                None, None, None, softmax_fname, None)
+                softmax, join(output_folder, fname + ".nii.gz"), props,
+                ek.get("interpolation_order", 1), self.regions_class_order,
+                None, None, softmax_fname, None,
+                force_separate_z=ek.get("force_separate_z", None),
+                interpolation_order_z=ek.get("interpolation_order_z", 0))
             self.validation_timings.append(
                 {"case": fname, "predict_s": t1 - t0,
                  "export_s": time.perf_counter() - t1})
@@ -788,6 +855,13 @@ class Trainer:
                 [join(output_folder, fname + ".nii.gz"),
                  join(self.gt_niftis_folder, fname + ".nii.gz")])
 
+        if self.regions:
+            from ..evaluation.region_based_evaluation import \
+                evaluate_regions
+            evaluate_regions(output_folder, self.gt_niftis_folder,
+                             self.regions)
+            self.logger.log("validation (regions) done ->", output_folder)
+            return
         aggregate_scores(
             pred_gt_tuples, labels=list(range(self.num_classes)),
             json_output_file=join(output_folder, "summary.json"),

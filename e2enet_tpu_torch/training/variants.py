@@ -1,15 +1,16 @@
 """Named trainer variants: the reference's ablation-trainer zoo as
 configuration presets, the port of e2enet_tpu/training/variants.py
-(VARIANTS and resolve_variant).
+(VARIANTS, apply_da_level and resolve_variant).
 
 Reference training/network_training/nnUNet_variants/ (~60 subclasses):
 each reference variant subclasses nnUNetTrainerV2 and overrides one knob
 (loss, optimizer, DA level, momentum, epochs...). Here they are
 declarative presets that the train CLI's -tr maps onto the trainer's
 arguments (cli/train.variant_kwargs); the same names resolve as in the
-JAX package. A preset whose knob the port does not train raises in the
-trainer, naming its ROADMAP item (training/trainer.refuse_unported); the
-augmentation levels (`da`, the JAX package's apply_da_level) are item 4e.
+JAX package. The trainer applies a preset's augmentation level (`da`) to
+its AugmentParams with apply_da_level. A preset whose knob the port does
+not train (an architecture switch) raises in the trainer, naming its
+ROADMAP item (training/trainer.refuse_unported).
 """
 from typing import Any, Dict
 
@@ -205,6 +206,60 @@ VARIANTS: Dict[str, Dict[str, Any]] = {
         "interpolation_order": 3, "interpolation_order_z": 3,
         "force_separate_z": None}},
 }
+
+
+def apply_da_level(da_params, level: str):
+    """Mutate AugmentParams according to the named DA level (reference
+    variants.py:206-263)."""
+    if level == "none":
+        da_params.do_rotation = False
+        da_params.do_scaling = False
+        da_params.do_mirror = False
+        da_params.do_gamma = False
+    elif level == "no_mirror":
+        da_params.do_mirror = False
+    elif level == "insane":
+        da_params.p_rot = 0.7
+        da_params.p_scale = 0.7
+        da_params.scale_range = (0.5, 1.6)
+    elif level == "da2":
+        da_params.scale_range = (0.65, 1.6)
+    elif level in ("da3", "da5"):
+        # nnUNetTrainerV2_DA3.py:72-90; DA5 extends it with an elastic
+        # deformation, which the reference leaves out too (its affine,
+        # brightness and gamma parts are here)
+        da_params.p_rot = 0.3
+        da_params.scale_range = (0.65, 1.6)
+        da_params.p_scale = 0.3
+        da_params.independent_scale_per_axis = True
+        da_params.p_independent_scale_per_axis = 0.3
+        da_params.do_additive_brightness = True
+        da_params.additive_brightness_mu = 0.0
+        da_params.additive_brightness_sigma = 0.2
+        da_params.additive_brightness_p_per_sample = 0.3
+        da_params.additive_brightness_p_per_channel = 1.0
+        if level == "da5":
+            da_params.gamma_range = (0.5, 1.6)
+    elif level == "independent_scale":
+        # nnUNetTrainerV2_independentScalePerAxis.py:22
+        da_params.independent_scale_per_axis = True
+    elif level.startswith("cascade_"):
+        # nnUNetTrainerV2CascadeFullRes_DAVariants.py:19-87
+        da_params.cascade_do_cascade_augmentations = True
+        knobs = {
+            "cascade_noconncomp": (0.4, 1.0, (1, 8), 0.0, 0.15),
+            "cascade_smallstrel": (0.4, 1.0, (1, 5), 0.2, 0.15),
+            "cascade_eg": (0.5, 0.5, (1, 5), 0.2, 0.10),
+            "cascade_eg2": (0.5, 0.5, (1, 5), 0.0, 0.10),
+            "cascade_eg3": (1.0, 0.33, (1, 5), 0.0, 0.10),
+        }[level]
+        (da_params.cascade_random_binary_transform_p,
+         da_params.cascade_random_binary_transform_p_per_label,
+         da_params.cascade_random_binary_transform_size,
+         da_params.cascade_remove_conn_comp_p,
+         da_params.cascade_remove_conn_comp_max_size_percent_threshold) = \
+            knobs
+    return da_params
 
 
 def resolve_variant(name: str) -> Dict[str, Any]:

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card, against their plain torch versions: the
 fused block (the main path's level-0 and level-1 calls, the cascade's
-first block at 16 and 3 input channels, K of one to five chunks, CO 96 in one tile, W tiles, all mirrors at CO 24 and 96; its taps
+first block at 16 and 3 input channels, the region trainers' at 4, K of
+one to five chunks, CO 96 in one tile, W tiles, all mirrors at CO 24 and 96; its taps
 on mma.sync as the control), the fused block with a lazy up-link part
 (ragged, compact groups, all mirrors, its tile's edges, up parts wider
 than one K chunk, no read of the up weights past cin, its taps on mma.sync
@@ -13,7 +14,8 @@ last tile), each
 on both routes and with the route each shape takes asserted by kernel name,
 the down-link (also at the (1, 2, 2) window); the block backward and the
 down-link backward (main-path, ragged and N = 2 shapes, the cascade's
-first block with and without its input's gradient, ties, C = 96; its
+first block with and without its input's gradient, the region trainers'
+wgrad at 4 channels, ties, C = 96; its
 16-byte and scalar routes by kernel name), and a small train step's
 launches; the block backward's parts wanted or not and
 its two device kernels per call; the experiment kernels (#11 the ring shift +
@@ -73,6 +75,9 @@ CASES = {
     # rows)
     "l0_c16_to48": (1, 2, 128, 128, (16,), (False,), 48),
     "l0_c3_to48": (1, 2, 128, 128, (3,), (False,), 48),
+    # the region trainers' first block: four MR modalities (four 1-channel
+    # shift groups, 8-byte rows)
+    "l0_c4_to48": (1, 2, 128, 128, (4,), (False,), 48),
     # K of 1 to 5 chunks at CO 48 (200: parts and groups meeting mid-unit),
     # W = 144 at CO 96
     "k200_co40": (1, 3, 16, 40, (100, 100), (True, False), 40),
@@ -631,6 +636,8 @@ BWD = {
     # the cascade's first block at level 0 (16 and 3 input channels)
     "l0_c16": (2, 4, 32, 64, (16,), (False,), 48),
     "l0_c3": (2, 4, 32, 64, (3,), (False,), 48),
+    # the region trainers' first block (four modalities)
+    "l0_c4": (2, 4, 32, 64, (4,), (False,), 48),
 }
 
 
@@ -678,11 +685,12 @@ def test_block_bwd_flips_match_plain(flips):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin", [16, 3])
+@pytest.mark.parametrize("cin", [16, 3, 4])
 def test_block_bwd_cascade_first_block_wgrad(cin):
-    """The cascade's first block as the train step runs it: the image and
-    its one-hot labels want no gradient, so the backward is the wgrad
-    alone; gW and gb against the plain version."""
+    """The cascade's first block (16 or 3 channels) and the region
+    trainers' (4 modalities) as the train step runs them: the input wants
+    no gradient, so the backward is the wgrad alone; gW and gb against
+    the plain version."""
     dev = _card()
     args = _bwd_inputs(cin, 2, 4, 32, 64, (cin,), (False,), 48, dev)
     gp, gk, gb, ga = tfb.fused_shift_conv_block_bwd(*args, want=[False])

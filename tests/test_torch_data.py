@@ -165,22 +165,35 @@ def test_augment_batch_equal(task, monkeypatch, route, always_warp):
 
 
 def test_unported_targets_raise():
-    """The region trainers' targets raise, naming item 4e; the cascade's
-    one-hot move, ported, does not (tests/test_torch_cascade.py holds it
-    to the JAX package's)."""
-    batch = {"data": np.zeros((1, 1, *PATCH), np.float32),
-             "seg": np.zeros((1, 2, *PATCH), np.float32)}
-    params = taug.AugmentParams(patch_size=PATCH,
-                                move_last_seg_channel_to_data=True,
-                                all_segmentation_labels=[1, 2])
-    out = taug.augment_batch(dict(batch), params, np.random.RandomState(0),
-                             True)
-    assert out["data"].shape == (1, 3, *PATCH)
-    params = taug.AugmentParams(patch_size=PATCH, regions=((1, 2), (2,)))
-    with pytest.raises(NotImplementedError, match="item 4e"):
-        taug.augment_batch({"data": batch["data"],
-                            "seg": batch["seg"][:, :1]}, params,
-                           np.random.RandomState(0), True)
+    """The region trainers' targets, which raised before they were ported,
+    and the cascade's one-hot move: both equal to the JAX package's (the
+    region targets one float32 channel per region, channels-last, at every
+    deep-supervision scale; tests/test_torch_cascade.py holds the
+    cascade's augmentation)."""
+    rng = np.random.RandomState(5)
+    seg = rng.randint(0, 4, (2, 2, *PATCH)).astype(np.float32)
+    batch = {"data": rng.randn(2, 1, *PATCH).astype(np.float32),
+             "seg": seg}
+    kw = dict(patch_size=PATCH, move_last_seg_channel_to_data=True,
+              all_segmentation_labels=[1, 2, 3])
+    out = taug.augment_batch(dict(batch), taug.AugmentParams(**kw),
+                             np.random.RandomState(0), True)
+    assert out["data"].shape == (2, 4, *PATCH)
+    _assert_batches_equal(out, jaug.augment_batch(
+        dict(batch), jaug.AugmentParams(**kw), np.random.RandomState(0),
+        True))
+    kw = dict(patch_size=PATCH, regions=((1, 2, 3), (2, 3), (3,)),
+              deep_supervision_scales=SCALES)
+    one = {"data": batch["data"], "seg": seg[:, :1]}
+    out = taug.augment_batch(dict(one), taug.AugmentParams(**kw),
+                             np.random.RandomState(0), True)
+    assert [t.shape for t in out["target"]] == [
+        (2, *PATCH, 3), (2, *[p // 2 for p in PATCH], 3)]
+    assert all(t.dtype == np.float32 and set(np.unique(t)) == {0.0, 1.0}
+               for t in out["target"])
+    _assert_batches_equal(out, jaug.augment_batch(
+        dict(one), jaug.AugmentParams(**kw), np.random.RandomState(0),
+        True))
 
 
 def test_pipeline_first_batches_equal(task):

@@ -203,9 +203,9 @@ def test_refuses_without_a_card(environ, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["-tr", "nnUNetTrainerV2CascadeFullRes_noConnComp"], "item 4e"),
-    (["-tr", "nnUNetTrainerV2BraTSRegions"], "item 4e"),
-    (["-tr", "nnUNetTrainerV2_noDA"], "item 4e"),
+    (["-tr", "nnUNetTrainerV2_ResencUNet_DA3"], "item 6"),
+    (["-tr", "nnUNetTrainerV2BraTSRegions_BN"], "item 6"),
+    (["-tr", "nnUNetTrainerV2_MMS"], "item 6"),
     (["-tr", "nnUNetTrainerV2_BN"], "item 6"),
     (["--num_devices", "2"], "item 7"),
     (["--spatial_parallel", "2"], "item 7"),

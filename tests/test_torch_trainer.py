@@ -340,8 +340,8 @@ def test_kernel_granular_death_and_growth_match(task):
 def test_unported_options_raise(task):
     base, task_dir = task
     out = os.path.join(base, "refused")
-    for kw, item in ((dict(regions="brats"), "item 4e"),
-                     (dict(da_level="none"), "item 4e"),
+    for kw, item in ((dict(seg_bias=True), "item 6"),
+                     (dict(conv_kernel=(3, 3, 3)), "item 6"),
                      (dict(nonlin="relu"), "item 6"),
                      (dict(num_devices=2), "item 7"),
                      (dict(device_augment=True), "item 8"),
