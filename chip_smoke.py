@@ -22,6 +22,10 @@
     python3 chip_smoke.py --variants
                                    # only the build, [trainer]'s planned
                                    # task and the [variants] phase
+    python3 chip_smoke.py --ensembles
+                                   # only the build, [trainer]'s planned
+                                   # task, a short 3d_fullres and 2d fold
+                                   # and the [ensembles] phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -273,7 +277,29 @@ Phases (any failure ends the run with a non-zero exit):
               into the region model (the count of the host's rule, the
               first block kept). Prints ms per step, the host's wait per
               batch, s per validation case, the phase's seconds
-  16. experiments  the experiment kernels (TPU kernels #11-#14) against
+  16. ensembles the last step of the nnU-Net workflow on [trainer]'s
+              task, with the 3d_fullres fold 0 of [trainer] and the 2d
+              fold 0 of [2d]: cli/train.main --validation_only on each
+              with validate(save_softmax=True, do_mirroring=False) on one
+              validation case into a folder of its own (float16 softmax
+              and its pkl; launches tiles x 1 pass x per forward);
+              figure_out_what_to_submit over both networks
+              (the pairwise ensemble built, scored and its postprocessing
+              determined, the ranking of all three candidates, summary.csv
+              a row per candidate); consolidate_folds on the 3d_fullres
+              folder; cli/predict.main -z -m 3d_fullres (TTA) on that
+              case (launches tiles x passes x per forward), merged with the 2d fold's saved softmax of it and the
+              ensemble's postprocessing.json (labels, the input's
+              geometry, the plain merge's labels under the decision);
+              predict_from_folder_amos2022 with TTA on a 128^3 crop of
+              that case written at (1.25, 0.8, 1.0) mm (its launches tiles
+              x passes x per forward, the card's trilinear resample's
+              labels equal to the CPU resample's of the same softmax where
+              its top two differ by more than 1e-4, the input's geometry).
+              Prints the seconds of each step, of
+              resample_softmax_on_device (the softmax's upload and the
+              resize alone by CUDA events beside it) and of the phase
+  17. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -297,7 +323,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  17. report  one JSON line with every kernel's launches, error, times and
+  18. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -4493,6 +4519,439 @@ def variants_phase(rnd, R, ops, counts, smi, paths, trainer_ms=None):
     return out
 
 
+# the [ensembles] phase: validation with saved softmax, model selection,
+# consolidation, the merge of two models' softmax and the AMOS2022
+# predictor, on [trainer]'s task
+ENSEMBLE_NETWORKS = ("3d_fullres", "2d")
+# one validated case per fold, into a folder of its own (not [trainer]'s
+# validation_raw): each case costs about 10 scoring passes and 15 label
+# map writes over the phase (the validations, the ensemble's and the
+# consolidation's postprocessing searches, the merges)
+ENSEMBLE_VAL = TRAIN_VAL[:1]
+ENSEMBLE_VAL_FOLDER = "validation_ensembles"
+ENSEMBLE_FOLD_ARGS = ["--task", TRAIN_TASK, "--fold", "0", "--sparse",
+                      "True", "--density", "0.2", "--update_frequency", "4"]
+ENSEMBLE_DEVICE = "cuda"
+# the AMOS2022 case: the central 128^3 of the first validation case's
+# image at ITK (x, y, z) spacing (1.25, 0.8, 1.0) mm; at the plan's 1 mm
+# the network sees (z, y, x) = (128, 102, 160), and the resample back
+# keeps z, grows y and shrinks x (jax's antialiased filter)
+AMOS_CROP = 128
+AMOS_SPACING = (1.25, 0.8, 1.0)
+AMOS_MARGIN = 1e-4
+
+
+def ensemble_folds(paths, ops, counts, smi):
+    """--ensembles alone: the folds [ensembles] reads, as [trainer] and
+    [2d] train them but shorter: the 2D plan by the plan CLI in a fresh
+    process, then cli/train.main for one epoch of 4 + 1 batches on the 3D
+    and on the 2D plan (kernel DSFF at 0.2), neither validating."""
+    import os
+    from pathlib import Path
+    import torch
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.training.trainer import Trainer
+    env = dict(os.environ, nnUNet_raw_data_base=paths["raw"],
+               nnUNet_preprocessed=paths["preprocessed"])
+    r = subprocess.run(
+        [sys.executable, "-m", "e2enet_tpu_torch.cli.plan_and_preprocess",
+         "-t", str(int(TRAIN_TASK[4:7])), "-pl3d", "None", "-pl2d",
+         TWOD_PLANNER], cwd=Path(__file__).resolve().parent, env=env,
+        capture_output=True, text=True, timeout=900)
+    check(r.returncode == 0, f"[ensembles] the 2D plan CLI exited "
+          f"{r.returncode}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    os.environ["RESULTS_FOLDER"] = paths["results"]
+    runs = []
+    real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
+    Trainer.initialize, Trainer.load_checkpoint_file = trainer_spies(
+        "ensembles", ops, counts, runs, validate_runs=())
+    try:
+        for net in ENSEMBLE_NETWORKS:
+            t0 = time.perf_counter()
+            tcli.main(ENSEMBLE_FOLD_ARGS + ["--network", net, "--epochs",
+                                            "1", "--batches", "4",
+                                            "--val_batches", "1"])
+            torch.cuda.synchronize()
+            print(f"[ensembles] cli.train --network {net}, one epoch of 4 "
+                  f"+ 1 batches: {time.perf_counter() - t0:.1f} s  [{smi}]",
+                  flush=True)
+    finally:
+        Trainer.initialize, Trainer.load_checkpoint_file = \
+            real_init, real_load
+    check(len(runs) == 2, f"[ensembles] {len(runs)} trainers")
+
+
+def ensembles_phase(ops, counts, smi, paths):
+    """[ensembles] the last step of the nnU-Net workflow on [trainer]'s
+    task, with the 3d_fullres and the 2d fold 0 that [trainer] and [2d]
+    trained: (1) each fold validated by cli/train.main --validation_only
+    with validate(save_softmax=True, do_mirroring=False) on ENSEMBLE_VAL
+    into ENSEMBLE_VAL_FOLDER, its postprocessing left to (3); (2)
+    figure_out_what_to_submit over both networks: the pairwise ensemble
+    built, scored and its postprocessing determined, the ranking holding
+    all three candidates, summary.csv a row per candidate; (3)
+    consolidate_folds on the 3d_fullres folder (fold 0); (4) cli/predict
+    -z of the validated case with -m 3d_fullres (TTA), merged with the 2d
+    fold's saved validation softmax of the same case (the same files a
+    -z run writes; a 2D -z run is left out for time) and the ensemble's
+    postprocessing.json: the labels, the input's geometry, the labels the
+    plain merge's under the decision (as they are under an empty one);
+    the launches of each validation and of the -z run tiles x passes x
+    kernel_launches_per_forward; (5) predict_from_folder_amos2022
+    with TTA on one case at the bench width (AMOS_CROP^3 at
+    AMOS_SPACING): its launches tiles x passes x
+    kernel_launches_per_forward, the labels of the card's resample equal
+    to the CPU resample's of the same softmax where its top two differ by
+    more than AMOS_MARGIN, the input's geometry. Prints the seconds of
+    each step, of resample_softmax_on_device and of the phase."""
+    import os
+    from collections import OrderedDict
+    import torch
+    from e2enet_tpu_torch.cli import predict as pcli
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.evaluation.model_selection import (
+        figure_out_what_to_submit)
+    from e2enet_tpu_torch.inference import amos2022, predictor
+    from e2enet_tpu_torch.inference.ensemble_predictions import merge
+    from e2enet_tpu_torch.io.nifti import NiftiImage, read_nifti, write_nifti
+    from e2enet_tpu_torch.models.unetpp import kernel_launches_per_forward
+    from e2enet_tpu_torch.ops.sliding import (
+        compute_steps_for_sliding_window, pad_volume_to_patch)
+    from e2enet_tpu_torch.postprocessing.connected_components import (
+        load_postprocessing, remove_all_but_the_largest_connected_component)
+    from e2enet_tpu_torch.postprocessing.consolidate import consolidate_folds
+    from e2enet_tpu_torch.training import trainer as trainer_mod
+    from e2enet_tpu_torch.utils.files import join, load_json
+    t_phase = time.perf_counter()
+    secs = OrderedDict()
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    os.environ["RESULTS_FOLDER"] = paths["results"]
+    gt = os.path.join(paths["preprocessed"], TRAIN_TASK, "gt_segmentations")
+    trainer_plan = "TPUTrainer__nnUNetPlansv2.1"
+    folders = {net: os.path.join(paths["results"], "nnUNet", net,
+                                 TRAIN_TASK, trainer_plan)
+               for net in ENSEMBLE_NETWORKS}
+
+    # ---- (1) each fold validated with its softmax saved, no mirroring
+    real_validate = trainer_mod.Trainer.validate
+    validated = []
+
+    def validate(self, *a, **k):
+        folder = join(self.dataset_directory, self.plans.data_identifier
+                      + "_stage%d" % self.stage)
+        dataset = trainer_mod.load_dataset(folder)
+        _, val = trainer_mod.do_split(dataset, self.fold, join(
+            self.dataset_directory, "splits_final.pkl"))
+        self.dataset_val = OrderedDict((c, dataset[c]) for c in val
+                                       if c in ENSEMBLE_VAL)
+        patch = tuple(int(i) for i in self.patch_size)
+        tiles = 0
+        for c in self.dataset_val:
+            shape = trainer_mod.load_case(self.dataset_val[c]).shape[1:]
+            tiles += int(np.prod([len(s) for s in
+                                  compute_steps_for_sliding_window(
+                                      patch, [max(i, p) for i, p in
+                                              zip(shape, patch)], 0.5)]))
+        before = counts()
+        t0 = time.perf_counter()
+        real_validate(self, save_softmax=True, do_mirroring=False,
+                      validation_folder_name=ENSEMBLE_VAL_FOLDER,
+                      run_postprocessing_on_folds=False)
+        torch.cuda.synchronize()
+        validated.append((self, time.perf_counter() - t0, tiles,
+                          {n: v - before[n] for n, v in counts().items()}))
+    trainer_mod.Trainer.validate = validate
+    try:
+        for net in ENSEMBLE_NETWORKS:
+            t0 = time.perf_counter()
+            tcli.main(ENSEMBLE_FOLD_ARGS + ["--network", net,
+                                            "--validation_only"])
+            torch.cuda.synchronize()
+            secs[f"validate {net}"] = time.perf_counter() - t0
+    finally:
+        trainer_mod.Trainer.validate = real_validate
+    check(len(validated) == 2, f"[ensembles] {len(validated)} validations")
+    for (tr, sec, tiles, launched), net in zip(validated,
+                                               ENSEMBLE_NETWORKS):
+        val = os.path.join(tr.output_folder, ENSEMBLE_VAL_FOLDER)
+        # one pass per tile (no mirroring), every forward on the kernels
+        want = {n: tiles * v for n, v in
+                kernel_launches_per_forward(tr.network).items()}
+        check({n: launched[n] for n in want} == want
+              and all(launched[n] == 0 for n in launched if n not in want),
+              f"[ensembles] {net} validation: launches {launched} != "
+              f"{want} ({tiles} tiles x 1 pass)")
+        check(os.path.dirname(os.path.dirname(tr.output_folder))
+              == os.path.dirname(folders[net]), f"[ensembles] {net} "
+              f"validated {tr.output_folder}")
+        for c in ENSEMBLE_VAL:
+            with np.load(os.path.join(val, c + ".npz")) as z:
+                p = z["softmax"]
+            check(p.dtype == np.float16 and p.shape == (NUM_CLASSES,
+                                                        *TRAIN_CASES[c])
+                  and bool(np.isfinite(p).all()), f"[ensembles] {net} {c}: "
+                  f"softmax {p.dtype} {p.shape}")
+            check(os.path.isfile(os.path.join(val, c + ".pkl")),
+                  f"[ensembles] {net} {c}: no .pkl beside the softmax")
+        print(f"[ensembles] {net} fold 0 validate(save_softmax=True, "
+              f"do_mirroring=False) on {ENSEMBLE_VAL}: "
+              + ", ".join(f"{t['case']} predict {t['predict_s']:.2f} "
+                          f"export {t['export_s']:.2f}"
+                          for t in tr.validation_timings)
+              + f"; {tiles} tiles x 1 pass, launches "
+              f"{ {n: c for n, c in launched.items() if c} }; {sec:.1f} s "
+              f"(scoring included)  [{smi}]", flush=True)
+    del validated
+    torch.cuda.empty_cache()
+
+    # ---- (2) model selection: both networks and their ensemble
+    t0 = time.perf_counter()
+    report = figure_out_what_to_submit(
+        TRAIN_TASK, networks=ENSEMBLE_NETWORKS, trainer_plan=trainer_plan,
+        validation_folder_name=ENSEMBLE_VAL_FOLDER, folds=(0,),
+        gt_folder=gt)
+    secs["figure_out_what_to_submit"] = time.perf_counter() - t0
+    ens_name = (f"ensemble_2d__{trainer_plan}--3d_fullres__{trainer_plan}")
+    ens = os.path.join(paths["results"], "nnUNet", "ensembles", TRAIN_TASK)
+    ens_pp = os.path.join(ens, ens_name, "postprocessing.json")
+    check(ens_name in report["candidates"] and os.path.isfile(ens_pp)
+          and os.path.isfile(os.path.join(ens, ens_name, "ensembled_raw",
+                                          "summary.json")),
+          f"[ensembles] the ensemble was not built: candidates "
+          f"{list(report['candidates'])}")
+    check(sorted(report["ranking"]) == sorted(ENSEMBLE_NETWORKS
+                                              + (ens_name,)),
+          f"[ensembles] ranking {report['ranking']}")
+    with open(os.path.join(ens, "summary.csv")) as f:
+        rows = f.read().splitlines()
+    check(len(rows) == 4 and sorted(r.split(",")[0] for r in rows[1:])
+          == sorted(report["ranking"]), f"[ensembles] summary.csv {rows}")
+    with open(os.path.join(ens, "prediction_commands.txt")) as f:
+        commands = f.read()
+    print(f"[ensembles] figure_out_what_to_submit: mean foreground Dice "
+          + ", ".join(f"{k} {report['candidates'][k]['mean_fg_dice']:.4f}"
+                      for k in report["ranking"])
+          + f"; best {report['best']}; the ensemble's postprocessing "
+          f"{load_json(ens_pp)['for_which_classes']}; prediction_commands"
+          f".txt {len(commands.splitlines())} lines; "
+          f"{secs['figure_out_what_to_submit']:.1f} s", flush=True)
+
+    # ---- (3) the 3d_fullres folds consolidated
+    t0 = time.perf_counter()
+    pp = consolidate_folds(folders["3d_fullres"], gt,
+                           validation_folder_name=ENSEMBLE_VAL_FOLDER,
+                           folds=(0,))
+    secs["consolidate_folds"] = time.perf_counter() - t0
+    for f in ("postprocessing.json", "cv_niftis_raw/summary.json",
+              "cv_niftis_postprocessed/summary.json"):
+        check(os.path.isfile(os.path.join(folders["3d_fullres"], f)),
+              f"[ensembles] consolidate_folds wrote no {f}")
+    pooled = len(os.listdir(os.path.join(folders["3d_fullres"],
+                                         "cv_niftis_raw"))) - 1
+    print(f"[ensembles] consolidate_folds(3d_fullres, folds=(0,)): {pooled} "
+          f"cases pooled, postprocessing {pp['for_which_classes']}; "
+          f"{secs['consolidate_folds']:.1f} s", flush=True)
+
+    # ---- (4) a -z prediction merged with the 2d fold's saved softmax of
+    # the same case and the ensemble's postprocessing
+    case = ENSEMBLE_VAL[0]
+    base = os.path.join(paths["results"], "ensembles_predict")
+    inp = os.path.join(base, "in")
+    os.makedirs(inp)
+    image = os.path.join(paths["images"], f"{case}_0000.nii.gz")
+    os.symlink(image, os.path.join(inp, f"{case}_0000.nii.gz"))
+    out3d = os.path.join(base, "3d_fullres")
+    got = {}
+
+    def spy_case(real):
+        """predict_case recording its launches, tiles and passes in got."""
+        def spy(bundle, d, *a, **k):
+            before = counts()
+            p = real(bundle, d, *a, **k)
+            torch.cuda.synchronize()
+            padded, _ = pad_volume_to_patch(d, bundle.patch_size)
+            steps = compute_steps_for_sliding_window(bundle.patch_size,
+                                                     padded.shape[1:], 0.5)
+            got.update(
+                launches={n: v - before[n] for n, v in counts().items()},
+                tiles=int(np.prod([len(s) for s in steps])),
+                passes=TTA if k.get("do_tta", True) else 1,
+                per_fwd=kernel_launches_per_forward(bundle.fold_models[0]),
+                shape=d.shape[1:])
+            return p
+        return spy
+    real_case = predictor.predict_case
+    predictor.predict_case = spy_case(real_case)
+    t0 = time.perf_counter()
+    try:
+        pcli.main(["-i", inp, "-o", out3d, "-t", TRAIN_TASK, "-m",
+                   "3d_fullres", "-f", "0", "-z"])
+    finally:
+        predictor.predict_case = real_case
+    secs["predict -z 3d_fullres"] = time.perf_counter() - t0
+    want = {n: got["tiles"] * got["passes"] * v
+            for n, v in got["per_fwd"].items()}
+    z_launches = {n: got["launches"][n] for n in want}
+    check(z_launches == want and all(got["launches"][n] == 0 for n in
+                                     got["launches"] if n not in want),
+          f"[ensembles] predict -z: launches {got['launches']} != {want}")
+    z_tiles = f"{got['tiles']} tiles x {got['passes']} passes"
+    with np.load(os.path.join(out3d, case + ".npz")) as z:
+        p = z["softmax"].astype(np.float32)
+    dev = float(np.abs(p.sum(0) - 1.0).max())
+    check(p.shape == (NUM_CLASSES, *TRAIN_CASES[case])
+          and dev <= PROB_SUM_ATOL, f"[ensembles] predict -z 3d_fullres: "
+          f"softmax {p.shape}, sums off by {dev}")
+    del p
+    sources = [out3d, os.path.join(folders["2d"], "fold_0",
+                                   ENSEMBLE_VAL_FOLDER)]
+    merged, plain = os.path.join(base, "merged"), os.path.join(base, "plain")
+    t0 = time.perf_counter()
+    merge(sources, merged, postprocessing_file=ens_pp)
+    secs["merge"] = time.perf_counter() - t0
+    merge(sources, plain)
+    src = read_nifti(image)
+    seg = read_nifti(os.path.join(merged, case + ".nii.gz"))
+    raw = read_nifti(os.path.join(plain, case + ".nii.gz")).array
+    labels = np.unique(seg.array)
+    check(seg.array.shape == src.array.shape == TRAIN_CASES[case]
+          and int(labels.min()) >= 0 and int(labels.max()) < NUM_CLASSES,
+          f"[ensembles] merge: shape {seg.array.shape}, labels {labels}")
+    for k in ("spacing", "origin", "direction"):
+        check(np.allclose(getattr(seg, k), getattr(src, k)),
+              f"[ensembles] merge: {k} {getattr(seg, k)} is not the "
+              f"input's {getattr(src, k)}")
+    fwc, mvos = load_postprocessing(ens_pp)
+    check(load_json(os.path.join(merged, "postprocessing.json"))
+          == load_json(ens_pp), "[ensembles] merge: postprocessing.json "
+          "not copied")
+    # the plain merge under the decision (an empty decision leaves it as
+    # it is; ties of the largest size all stay)
+    want_seg = (remove_all_but_the_largest_connected_component(
+        raw.copy(), fwc, float(np.prod(seg.spacing)), mvos)[0] if fwc
+        else raw)
+    check(np.array_equal(seg.array, want_seg), "[ensembles] merge: the "
+          "labels are not the plain merge's under the ensemble's "
+          "postprocessing")
+    removed = int((seg.array != raw).sum())
+    print(f"[ensembles] cli.predict -z -m 3d_fullres (TTA) on {case}: "
+          f"{z_tiles}, launches {z_launches}; "
+          f"{secs['predict -z 3d_fullres']:.1f} s; merge with the 2d fold's "
+          f"validation softmax and the ensemble's postprocessing {fwc}: "
+          f"labels {labels.tolist()[:4]}...{int(labels.max())}, the "
+          f"input's geometry, {removed} voxels removed; "
+          f"{secs['merge']:.1f} s", flush=True)
+
+    # ---- (5) the AMOS2022 predictor, one case, TTA
+    amos_in, amos_out = (os.path.join(base, "amos_in"),
+                         os.path.join(base, "amos_out"))
+    os.makedirs(amos_in)
+    lo = [(s - AMOS_CROP) // 2 for s in src.array.shape]
+    crop = np.ascontiguousarray(src.array[lo[0]:lo[0] + AMOS_CROP,
+                                          lo[1]:lo[1] + AMOS_CROP,
+                                          lo[2]:lo[2] + AMOS_CROP])
+    amos_img = NiftiImage(crop, AMOS_SPACING, src.origin, src.direction)
+    write_nifti(os.path.join(amos_in, f"{case}_0000.nii.gz"), amos_img)
+    real_case = amos2022.predict_case
+    real_resample = amos2022.resample_softmax_on_device
+    got.clear()
+    resampled = []
+
+    def resample_spy(softmax, target, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg = real_resample(softmax, target, *a, **k)
+        dt = time.perf_counter() - t0
+        check(isinstance(softmax, torch.Tensor) and softmax.is_cuda,
+              "[ensembles] amos2022: the softmax reached the resample "
+              "off the card")
+        resampled.append((softmax.cpu().numpy(), tuple(target), seg, dt))
+        return seg
+    amos2022.predict_case = spy_case(real_case)
+    amos2022.resample_softmax_on_device = resample_spy
+    t0 = time.perf_counter()
+    try:
+        amos2022.predict_from_folder_amos2022(
+            folders["3d_fullres"], amos_in, amos_out, (0,), do_tta=True,
+            device=ENSEMBLE_DEVICE)
+    finally:
+        amos2022.predict_case = real_case
+        amos2022.resample_softmax_on_device = real_resample
+    secs["predict_from_folder_amos2022"] = time.perf_counter() - t0
+    check(len(resampled) == 1, f"[ensembles] amos2022: {len(resampled)} "
+          f"resamples")
+    softmax, target, seg_card, t_resample = resampled[0]
+    want = {n: got["tiles"] * got["passes"] * v
+            for n, v in got["per_fwd"].items()}
+    have = {n: got["launches"][n] for n in want}
+    check(have == want and all(got["launches"][n] == 0 for n in
+                               got["launches"] if n not in want),
+          f"[ensembles] amos2022: launches {got['launches']} != {want}")
+    # again on the same softmax, by parts: the upload of the contiguous
+    # softmax from pageable memory (predict_from_folder_amos2022's, outside
+    # the timed call above), the resize alone by CUDA events, the whole
+    # call on the card's copy (resize, argmax, the labels to the host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_dev = torch.from_numpy(softmax).to(ENSEMBLE_DEVICE)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    amos2022.resize_softmax(x_dev, target, device=ENSEMBLE_DEVICE)
+    ev[1].record()
+    torch.cuda.synchronize()
+    t_resize = ev[0].elapsed_time(ev[1]) / 1e3
+    t0 = time.perf_counter()
+    again = amos2022.resample_softmax_on_device(x_dev, target,
+                                                device=ENSEMBLE_DEVICE)
+    t_again = time.perf_counter() - t0
+    del x_dev
+    check(np.array_equal(again, seg_card), "[ensembles] amos2022: a second "
+          "resample of the same softmax gave other labels")
+    t0 = time.perf_counter()
+    cpu = amos2022.resize_softmax(softmax, target, device="cpu")
+    seg_cpu = torch.argmax(cpu, 0).to(torch.uint8).numpy()
+    t_cpu = time.perf_counter() - t0
+    top2 = torch.topk(cpu, 2, dim=0).values
+    sure = ((top2[0] - top2[1]) > AMOS_MARGIN).numpy()
+    n_diff = int((seg_card != seg_cpu).sum())
+    check(bool((seg_card == seg_cpu)[sure].all()), f"[ensembles] amos2022: "
+          f"the card's labels differ from the CPU resample's where the "
+          f"margin exceeds {AMOS_MARGIN}")
+    out = read_nifti(os.path.join(amos_out, case + ".nii.gz"))
+    labels = np.unique(out.array)
+    check(out.array.shape == crop.shape and int(labels.max()) < NUM_CLASSES,
+          f"[ensembles] amos2022: shape {out.array.shape}, labels {labels}")
+    for k in ("spacing", "origin", "direction"):
+        check(np.allclose(getattr(out, k), getattr(amos_img, k)),
+              f"[ensembles] amos2022: {k} {getattr(out, k)} is not the "
+              f"input's {getattr(amos_img, k)}")
+    check(np.array_equal(out.array, seg_card), "[ensembles] amos2022: the "
+          "written labels are not the card's resample")
+    print(f"[ensembles] predict_from_folder_amos2022 on a {AMOS_CROP}^3 "
+          f"crop of {case} at {AMOS_SPACING} mm: network shape "
+          f"{tuple(got['shape'])} -> {target}, {got['tiles']} tiles x "
+          f"{got['passes']} passes, launches {have}; "
+          f"resample_softmax_on_device {t_resample * 1e3:.1f} ms, again "
+          f"{t_again * 1e3:.1f} ms, of it the resize {t_resize * 1e3:.2f} "
+          f"ms (CUDA events); the upload of the {softmax.nbytes / 2 ** 20:.0f}"
+          f" MiB softmax before it {t_upload * 1e3:.1f} ms; the CPU resize "
+          f"{t_cpu:.2f} s; labels equal where the top two differ by "
+          f"more than {AMOS_MARGIN} ({float(sure.mean()):.6f} of voxels; "
+          f"{n_diff} differ in all); labels {labels.tolist()[:4]}..."
+          f"{int(labels.max())}; {secs['predict_from_folder_amos2022']:.1f} "
+          f"s  [{smi}]", flush=True)
+    del got, resampled, softmax, cpu
+    torch.cuda.empty_cache()
+    check("jax" not in sys.modules, "[ensembles] jax was imported")
+    print("[ensembles] seconds by step: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s  [{smi}]",
+        flush=True)
+
+
 def bench_phase(smi):
     """[bench] python -m e2enet_tpu_torch.bench at its defaults (the sparse
     model, fast mode) in a subprocess: exit 0 and a last stdout line with
@@ -4714,6 +5173,35 @@ def variants_only() -> None:
           flush=True)
 
 
+def ensembles_only() -> None:
+    """--ensembles: the build, [trainer]'s planned task, the two folds
+    (ensemble_folds) and the [ensembles] phase alone (its launches printed
+    as JSON)."""
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+
+    def counts():
+        return {n: op.launches for n, op in ops.items()}
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ensembles_") as tmp:
+        paths = plan_train_task(tmp, smi)
+        ensemble_folds(paths, ops, counts, smi)
+        stamp("[trainer]'s planned task and the two folds")
+        for op in ops.values():
+            op.launches = 0
+        ensembles_phase(ops, counts, smi, paths)
+        stamp("[ensembles]")
+    print(json.dumps({"ensembles_launches": counts()}), flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4738,6 +5226,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--variants"]:
         variants_only()
+        return
+    if sys.argv[1:] == ["--ensembles"]:
+        ensembles_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -5244,7 +5735,8 @@ def main() -> None:
     # ---- 12. dsff: every DSFF engine, on the same task;
     # ---- 13. 2d: its 2D plan, and the shift off;
     # ---- 14. cascade: 3d_lowres -> 3d_cascade_fullres on its cases;
-    # ---- 15. variants: the variants' knobs and the region trainers
+    # ---- 15. variants: the variants' knobs and the region trainers;
+    # ---- 16. ensembles: model selection, ensembles, consolidation, amos2022
     def options(paths, trainer_ms):
         stamp("10. trainer")
         reset_counts()
@@ -5267,18 +5759,23 @@ def main() -> None:
         res_variants.update(variants_phase(rnd, R, ops, counts, smi, paths,
                                            trainer_ms))
         launches["variants"] = counts()
+        stamp("15. variants")
+        reset_counts()
+        ensembles_phase(ops, counts, smi, paths)
+        launches["ensembles"] = counts()
     res2d, res_cascade, res_variants = {}, {}, {}
     launches["trainer"] = trainer_phase(ops, reset_counts, counts, smi,
                                         then=options)
 
-    stamp("10-15. trainer, options, dsff, 2d, cascade, variants")
-    # ---- 16. experiments: the experiment kernels, then their mains
+    stamp("10-16. trainer, options, dsff, 2d, cascade, variants, "
+          "ensembles")
+    # ---- 17. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    stamp("16. experiments")
-    # ---- 17. report
+    stamp("17. experiments")
+    # ---- 18. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -5322,7 +5819,7 @@ def main() -> None:
           "volumes, the up-link's from the data-flip path's volume, the "
           "backward kernels' from the train path's steps, the experiment "
           "kernels' from the experiments' mains (launches_by_path: all "
-          "twelve, 'predict' over the folder run A's two cases, 'trainer' "
+          "thirteen, 'predict' over the folder run A's two cases, 'trainer' "
           "over the [trainer] phase: train steps, validation batches, the "
           "validations and the predict CLI; 'options' over the [options] "
           "phase: train, gradient and loss steps, the CLI run's "
@@ -5343,7 +5840,9 @@ def main() -> None:
           "validation batches, the region fold's three validations and "
           "the gradient check; the 'variants' entry: #1 and the block "
           "backward's wgrad at the region model's first block (4 input "
-          "channels), #9 at 3 regions)",
+          "channels), #9 at 3 regions; 'ensembles' over the [ensembles] "
+          "phase: the two folds' validations, the one predict -z run and "
+          "the amos2022 case)",
           flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
@@ -5377,7 +5876,7 @@ def main() -> None:
             if extra in res[name]:
                 line[extra] = res[name][extra]
         lines.append(line)
-    stamp("17. report: the script")
+    stamp("18. report: the script")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,9 @@ pairs on a pool of threads, each with its own copy of the evaluator, not
 on a pool of forked processes (the trainer calls it from a process that
 holds the card and its threads), and Evaluator.evaluate scores the labels
 on a pool of threads, each with its own confusion matrix (numpy, scipy's
-erosion and distance transform and zlib release the GIL in the heavy
-parts; the surface Dice's two distance transforms per label dominate a
-case's time). The port imports nothing of the JAX package.
+erosion, dilation and distance transform and zlib release the GIL in the
+heavy parts; the surface Dice's border work per label dominates a case's
+time, see metrics.py). The port imports nothing of the JAX package.
 """
 import collections
 import copy

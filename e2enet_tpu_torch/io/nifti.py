@@ -14,8 +14,12 @@ pipeline logic is 1:1:
 Supports .nii and .nii.gz, the standard scalar dtypes, scl_slope/scl_inter
 rescaling, and sform/qform affines (sform preferred).
 
-The port's own copy of e2enet_tpu/io/nifti.py, unchanged but for this note:
-the port imports nothing of the JAX package.
+The port's own copy of e2enet_tpu/io/nifti.py, with one change: a .nii.gz
+is written at gzip level 1, not at gzip's default 9 as the JAX package
+writes it. The image read back is the same and the file a little larger;
+level 9 spends seconds on a barely trained model's speckled label map,
+which every export, merge and postprocessing step writes. The port
+imports nothing of the JAX package.
 """
 import gzip
 import struct
@@ -161,8 +165,11 @@ def write_nifti(path: str, image: NiftiImage):
 
     payload = bytes(hdr) + b"\0\0\0\0" + np.asfortranarray(
         data.transpose(2, 1, 0)).tobytes(order="F")
-    opener = gzip.open if str(path).endswith(".gz") else open
-    with opener(path, "wb") as f:
+    if str(path).endswith(".gz"):
+        f = gzip.open(path, "wb", compresslevel=1)
+    else:
+        f = open(path, "wb")
+    with f:
         f.write(payload)
 
 

@@ -11,13 +11,17 @@ postprocessing.json. Prediction reads the decisions back
 (load_postprocessing_fn).
 
 The port's own copy of e2enet_tpu/postprocessing/connected_components.py,
-with one change: remove_all_but_the_largest_connected_component sizes and
+with two changes. remove_all_but_the_largest_connected_component sizes and
 removes the objects in one pass over the image each (np.bincount of the
 label map), not one pass per object; the result is the same. On a barely
 trained model's noisy 160³ prediction with thousands of specks per class
-the reference's loop takes minutes. The port imports nothing of the JAX
-package.
+the reference's loop takes minutes. And determine_postprocessing's final
+folder holds the raw predictions where the decision is empty, as
+prediction and the ensembles' merge skip an empty decision; the JAX
+package hands the empty list to load_remove_save, which reads it as every
+class present. The port imports nothing of the JAX package.
 """
+import shutil
 from typing import List, Optional
 
 import numpy as np
@@ -178,8 +182,11 @@ def determine_postprocessing(base: str, gt_labels_folder: str,
     maybe_mkdir_p(final)
     pred_gt_tuples = []
     for f in fnames:
-        load_remove_save(join(raw, f), join(final, f),
-                         pp_results["for_which_classes"])
+        if pp_results["for_which_classes"]:
+            load_remove_save(join(raw, f), join(final, f),
+                             pp_results["for_which_classes"])
+        else:
+            shutil.copy(join(raw, f), join(final, f))
         pred_gt_tuples.append([join(final, f), join(gt_labels_folder, f)])
     res_final = aggregate_scores(pred_gt_tuples, labels=classes,
                                  json_output_file=join(final,

@@ -1549,3 +1549,39 @@ def test_grasp_on_the_card_matches_the_cpu():
         diff = m_card[n].cpu() != m_cpu[n]
         near = (s - thr).abs() <= 1e-4 * scale
         assert not bool((diff & ~near).any()), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", [(40, 48, 32), (10, 12, 8), (27, 17, 21),
+                                    (20, 24, 16)])
+def test_amos2022_resample_on_the_card_matches_the_cpu(target):
+    """inference/amos2022's resize on the card (a 2x upsample, a 2x
+    downsample, a mixed target, the identity) within 1e-5 of its CPU run,
+    float32 with TF32 on outside the call (the resize turns it off while
+    it runs); the labels equal where the CPU run's top two differ by more
+    than 1e-4; "nearest" equal to the bit."""
+    from e2enet_tpu_torch.inference import amos2022
+    dev = _card()
+    rng = np.random.RandomState(0)
+    logits = 2.0 * rng.randn(16, 20, 24, 16).astype(np.float32)
+    x = np.exp(logits - logits.max(0))
+    x /= x.sum(0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = amos2022.resize_softmax(x, target, device=dev)
+        seg = amos2022.resample_softmax_on_device(x, target, device=dev)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = amos2022.resize_softmax(x, target, device="cpu")
+    assert card.device.type == "cuda" and card.dtype == torch.float32
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-5
+    top2 = torch.topk(cpu, 2, dim=0).values
+    sure = (top2[0] - top2[1]) > 1e-4
+    want = amos2022.resample_softmax_on_device(x, target, device="cpu")
+    assert seg.dtype == np.uint8 and seg.shape == tuple(target)
+    assert (seg == want)[sure.numpy()].all()
+    near = amos2022.resize_softmax(x, target, "nearest", device=dev)
+    assert torch.equal(near.cpu(), amos2022.resize_softmax(
+        x, target, "nearest", device="cpu"))

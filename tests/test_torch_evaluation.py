@@ -126,6 +126,76 @@ def test_determine_postprocessing_equal(folders, tmp_path):
                           / "summary.json")
 
 
+@pytest.mark.parametrize("spacing,tol,ball", [
+    (None, 1.0, True), ((1.0, 1.0, 1.0), 2.0, True),
+    ((1.5, 0.8, 0.8), 1.0, True), ((1.0, 0.78125, 0.78125), 1.5, True),
+    ((0.6, 0.8, 1.0), 1.0, False), ((0.3, 0.3, 0.3), 1.0, False)])
+def test_surface_dice_equal(spacing, tol, ball):
+    """The port's surface Dice (a dilation by the ball of offsets within
+    the tolerance, where it is exact) equals the JAX package's (a distance
+    transform) to the bit on seeded specks and blobs, at spacings with
+    offsets exactly at the tolerance (1 mm), and falls back to the
+    transform where an offset is within rounding of it (0.6 x 0.8 mm: 1.0
+    mm by float arithmetic only) or the ball is wide."""
+    from scipy.ndimage import binary_dilation
+    from e2enet_tpu.evaluation import metrics as jm
+    from e2enet_tpu_torch.evaluation import metrics as tm
+    assert (tm._tolerance_ball(spacing, tol, 3) is not None) == ball
+    rng = np.random.RandomState(2)
+    values = []
+    for i in range(8):
+        a = rng.rand(*SHAPE) < (0.02, 0.3)[i % 2]
+        b = rng.rand(*SHAPE) < (0.05, 0.2)[i // 4]
+        if i % 4 >= 2:
+            a, b = binary_dilation(a), binary_dilation(b, iterations=2)
+        got = tm.surface_dice_at_tolerance(a, b, voxel_spacing=spacing,
+                                           tolerance_mm=tol)
+        want = jm.surface_dice_at_tolerance(a, b, voxel_spacing=spacing,
+                                            tolerance_mm=tol)
+        assert got == want, (i, got, want)
+        values.append(got)
+    assert 0 < min(values) < 1
+
+
+def test_determine_postprocessing_empty_decision(tmp_path):
+    """Predictions equal to a ground truth of two objects per class: every
+    removal lowers the Dice, so the decision is empty, and the final
+    folder holds the raw predictions with their raw scores (the JAX
+    package applies the empty list as every class present, which keeps
+    one object of each class and reports its lower Dice as the
+    postprocessed one)."""
+    from e2enet_tpu_torch.io.nifti import read_nifti
+    base, gt = tmp_path / "fold", tmp_path / "gt"
+    (base / "validation_raw").mkdir(parents=True)
+    gt.mkdir()
+    rng = np.random.RandomState(1)
+    pairs = []
+    for c in CASES:
+        seg = np.zeros(SHAPE, np.uint8)
+        seg[2:6, 2:6, 2:6] = 1
+        seg[10:15, 12:17, 14:19] = 1
+        seg[2:5, 12:16, 2:6] = 2
+        seg[12:16, 2:5, 14:18] = 2
+        seg[rng.rand(*SHAPE) < 0.002] = 0
+        for d in (base / "validation_raw", gt):
+            write_nifti(str(d / f"{c}.nii.gz"), NiftiImage(seg, (1., 1., 1.)))
+        pairs.append([str(base / "validation_raw" / f"{c}.nii.gz"),
+                      str(gt / f"{c}.nii.gz")])
+    tev.aggregate_scores(pairs, labels=[0, 1, 2], num_threads=1,
+                         json_output_file=str(base / "validation_raw"
+                                              / "summary.json"))
+    got = tcc.determine_postprocessing(str(base), str(gt), processes=1)
+    assert got["for_which_classes"] == []
+    assert got["dc_per_class_pp"] == got["dc_per_class_raw"] == \
+        {"1": 1.0, "2": 1.0}
+    for c in CASES:
+        np.testing.assert_array_equal(
+            read_nifti(str(base / "validation_final" / f"{c}.nii.gz")).array,
+            read_nifti(str(base / "validation_raw" / f"{c}.nii.gz")).array)
+    assert tcc.load_postprocessing_fn(str(base / "postprocessing.json")) \
+        is None
+
+
 @pytest.mark.parametrize("min_sizes", [None, {1: 3.0, 2: 40.0, (1, 2): 5.0}])
 def test_largest_component_removal_equal(min_sizes):
     """The port's one-pass removal against the reference's per-object loop
