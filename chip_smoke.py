@@ -26,6 +26,9 @@
                                    # only the build, [trainer]'s planned
                                    # task, a short 3d_fullres and 2d fold
                                    # and the [ensembles] phase
+    python3 chip_smoke.py --models
+                                   # only the build, [trainer]'s planned
+                                   # task and the [models] phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -232,17 +235,18 @@ Phases (any failure ends the run with a non-zero exit):
               one-hot labels: 16 input channels, and 3 at 3 classes) and
               the block backward there (wgrad only, as the train step
               runs it, and with its input's gradient), #9 and #10 at 3
-              classes, against their plain versions and timed; a task
-              whose stage 1 is [trainer]'s plan and files and whose stage
+              classes, against their plain versions and timed; a task of
+              four of [trainer]'s cases whose stage 1 is [trainer]'s plan
+              and files and whose stage
               0 (1.25 mm, 128^3 median, 128^3 patches, 5 pools, batch 2)
               the port's get_properties_for_stage plans and its
               preprocessor writes; cli/train.main --network 3d_lowres
               --fold all (3 epochs of 6 + 1 batches; its validation left
-              out) and its predict_next_stage over all six cases (a uint8
+              out) and its predict_next_stage over the four cases (a uint8
               segFromPrevStage file per case at the stage-1 shape, its
               launches tiles x passes x per forward); cli/train.main
               --network 3d_cascade_fullres --fold all (one epoch of 4 + 1
-              batches, the validation over all six cases; 16 input
+              batches, the validation over the four cases; 16 input
               channels, launches per step the 3D step's, a validation
               batch's one-hot channels 0/1 and at most one per voxel); one step's gradients of the trained
               cascade model against a float32 plain run (the 1.25x rule);
@@ -299,7 +303,30 @@ Phases (any failure ends the run with a non-zero exit):
               Prints the seconds of each step, of
               resample_softmax_on_device (the softmax's upload and the
               resize alone by CUDA events beside it) and of the phase
-  17. experiments  the experiment kernels (TPU kernels #11-#14) against
+  17. models the architecture switches and the remaining networks (Queue 1
+              item 6): kernels #1-#10 at base 24 (nnUNetTrainerV2_
+              3ConvPerStage's width: #1 at 1 -> 24, 24 -> 24, 24 + 24 -> 24,
+              48 -> 48 and 48 + 48 + 24 -> 48, #3 at 24 + up 48 -> 24, #5 at
+              24 -> 48, #6 at 48 -> 24, #7 and #10/#9 at C = 24, #2/#4 and #8
+              at batch 2) against their plain versions, timed with bounds
+              and library calls; one bf16 forward per new network (the
+              norms, the nonlinearities, nonlin_before_norm, 3 convs per
+              stage, seg_bias, allConv3x3, _313, _331, ori, nodff, resenc)
+              at its preset's width on a 1 x 128^3 patch against a float32
+              forward of the same weights (the kernel route by the 1.25x
+              rule, its launches as counted; the materialised route
+              launching nothing); cli/train.main on [trainer]'s task with -tr
+              nnUNetTrainerV2_3ConvPerStage, _BN_ReLU and _ResencUNet (2
+              epochs of 3 + 1 batches, no validation; finite and falling
+              losses, launches per step as counted); cli/predict.main with
+              TTA on one case with the resenc fold (data flips) and the
+              BN_ReLU fold (flip-free, its network from the sidecar's
+              switches); a reference-format .model of the 3-conv fold's
+              weights (export_unetpp_state_dict) converted by
+              convert_reference_model_to_native: its parameters the fold's,
+              its labels the native checkpoint's. Prints the seconds of
+              each step
+  18. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -323,7 +350,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  18. report  one JSON line with every kernel's launches, error, times and
+  19. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -3684,6 +3711,10 @@ CASCADE_TASK = "Task502_ChipSmokeCascade"
 CASCADE_LOWRES_SPACING = 1.25
 CASCADE_DEVICE = "cuda"
 CASCADE_PP_WORKERS = 6
+# four of [trainer]'s six cases (the planned predict case among them):
+# predict_next_stage and the cascade fold's validation cost ~10 and ~15 s
+# per case, most of it on the host
+CASCADE_CASES = ("case_000", "case_001", "case_002", TRAIN_VAL[0])
 # the lowres run takes [trainer]'s 18 steps (3 epochs of 6 batches): after
 # 4 its argmax is speckle, thousands of components per label, and the
 # cascade's augmentation (a connected-component removal that counts each
@@ -3693,13 +3724,15 @@ CASCADE_FULLRES_RUN = ["--epochs", "1", "--batches", "4"]
 
 
 def cascade_task(paths, smi):
-    """[cascade]'s task: [trainer]'s 3D plan as stage 1, its preprocessed
-    files linked in (the same spacing: the preprocessor would write them
-    again), and a stage 0 at CASCADE_LOWRES_SPACING from the port's
+    """[cascade]'s task on CASCADE_CASES: [trainer]'s 3D plan as stage 1,
+    those cases' preprocessed files linked in (the same spacing: the
+    preprocessor would write them again), and a stage 0 at
+    CASCADE_LOWRES_SPACING from the port's
     ExperimentPlanner3D_v21.get_properties_for_stage over [trainer]'s
-    median, preprocessed from [trainer]'s cropped cases by the port's
-    preprocessor (tests/test_cascade.py's way of building a second
-    stage). Checks the two stages' geometries. Returns the task folder."""
+    median (of its six cases), preprocessed from those cases' cropped
+    files by the port's preprocessor (tests/test_cascade.py's way of
+    building a second stage). Checks the two stages' geometries. Returns
+    the task folder."""
     import os
     from e2enet_tpu_torch.planning.planner import ExperimentPlanner3D_v21
     from e2enet_tpu_torch.plans import Plans
@@ -3725,7 +3758,14 @@ def cascade_task(paths, smi):
     plans.save(os.path.join(pre, name))
     src_stage = os.path.join(src, f"{plans.data_identifier}_stage0")
     for f in os.listdir(src_stage):
-        os.link(os.path.join(src_stage, f), os.path.join(stage[1], f))
+        if f.split(".")[0] in CASCADE_CASES:
+            os.link(os.path.join(src_stage, f), os.path.join(stage[1], f))
+    # the cropped cases of the task, beside the cropping's other files
+    cropped_sub = os.path.join(pre, "cropped")
+    os.makedirs(cropped_sub)
+    for f in os.listdir(cropped):
+        if not f.startswith("case_") or f.split(".")[0] in CASCADE_CASES:
+            os.symlink(os.path.join(cropped, f), os.path.join(cropped_sub, f))
     for f in ("gt_segmentations", "dataset.json", "dataset_properties.pkl"):
         if os.path.exists(os.path.join(src, f)):
             os.symlink(os.path.join(src, f), os.path.join(pre, f))
@@ -3733,7 +3773,7 @@ def cascade_task(paths, smi):
     pp = PREPROCESSORS.get(plans.preprocessor_name)(
         plans.normalization_schemes, plans.use_mask_for_norm,
         plans.transpose_forward, plans.intensity_properties)
-    pp.run([low.current_spacing], cropped, pre, plans.data_identifier,
+    pp.run([low.current_spacing], cropped_sub, pre, plans.data_identifier,
            CASCADE_PP_WORKERS)
     t2 = time.perf_counter()
     got = dict(stages=plans.num_stages,
@@ -3750,14 +3790,18 @@ def cascade_task(paths, smi):
                 patch=[list(PATCH)] * 2, pools=[[[2, 2, 2]] * 5] * 2,
                 batch=[2, 2])
     check(got == want, f"[cascade] the two-stage plan {got}, not {want}")
-    for case in TRAIN_CASES:
+    check(sorted(f[:-4] for f in os.listdir(stage[0]) if f.endswith(".npz"))
+          == sorted(CASCADE_CASES), f"[cascade] stage 0 cases "
+          f"{sorted(os.listdir(stage[0]))}")
+    for case in CASCADE_CASES:
         d = np.load(os.path.join(stage[0], f"{case}.npz"))["data"]
         f = np.load(os.path.join(stage[1], f"{case}.npz"))["data"]
         check(all(round(b / CASCADE_LOWRES_SPACING) == a
                   for a, b in zip(d.shape[1:], f.shape[1:])),
               f"[cascade] {case}: stage 0 {d.shape} against stage 1 "
               f"{f.shape}")
-    print(f"[cascade] task {CASCADE_TASK}: stage 1 [trainer]'s plan and "
+    print(f"[cascade] task {CASCADE_TASK} on {len(CASCADE_CASES)} of "
+          f"[trainer]'s cases: stage 1 [trainer]'s plan and "
           f"files (linked, {t1 - t0:.2f} s), stage 0 from "
           f"get_properties_for_stage at {CASCADE_LOWRES_SPACING} mm, "
           f"preprocessed by the port's preprocessor in {t2 - t1:.2f} s "
@@ -3792,8 +3836,8 @@ def cascade_phase(rnd, R, ops, counts, smi, paths):
     --fold all (CASCADE_LOWRES_RUN, one validation batch an epoch, its
     fold's validation left out), its predict_next_stage writing a uint8
     segFromPrevStage file of the stage-1 shape with labels in [0, 16) for
-    each of the six cases; cli/train.main --network 3d_cascade_fullres
-    --fold all (CASCADE_FULLRES_RUN, the validation over all six cases):
+    each of the task's cases; cli/train.main --network 3d_cascade_fullres
+    --fold all (CASCADE_FULLRES_RUN, the validation over all its cases):
     16 input channels, launches per step those of the 3D step, a
     validation batch's one-hot channels 0/1 and at most one per voxel;
     one step's gradients of the trained cascade model on a 2 x 64^3 batch
@@ -3870,7 +3914,7 @@ def cascade_phase(rnd, R, ops, counts, smi, paths):
     real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
     # the lowres run's validation is left out (predict_next_stage predicts
     # every case through the same tile loop, and [trainer] validates a 3D
-    # fold); the cascade run validates all six cases
+    # fold); the cascade run validates all the task's cases
     init_spy, load_spy = trainer_spies("cascade", ops, counts, runs,
                                        validate_runs={1})
 
@@ -3912,8 +3956,8 @@ def cascade_phase(rnd, R, ops, counts, smi, paths):
     low, casc = runs[0]["trainer"], runs[1]["trainer"]
     check(low.stage == 0 and not low.cascade and casc.stage == 1
           and casc.cascade, "[cascade] the stages or the cascade flags")
-    check(len(casc.validation_timings) == len(TRAIN_CASES), "[cascade] the "
-          "cascade run's validation did not cover every case")
+    check(len(casc.validation_timings) == len(CASCADE_CASES), "[cascade] "
+          "the cascade run's validation did not cover every case")
     cin = [int(t.network.context0.block0.kernel.shape[1]) for t in (low,
                                                                    casc)]
     check(cin == [1, NUM_CLASSES], f"[cascade] input channels {cin}")
@@ -3957,7 +4001,7 @@ def cascade_phase(rnd, R, ops, counts, smi, paths):
     check(os.path.realpath(nxt.get("folder", "")) == os.path.realpath(
         stage1), f"[cascade] predict_next_stage wrote to {nxt.get('folder')}")
     hist = np.zeros(NUM_CLASSES, np.int64)
-    for case in TRAIN_CASES:
+    for case in CASCADE_CASES:
         seg = np.load(os.path.join(stage1, f"{case}_segFromPrevStage.npz"))[
             "data"]
         shape = np.load(os.path.join(stage1, f"{case}.npz"))["data"].shape
@@ -3968,7 +4012,7 @@ def cascade_phase(rnd, R, ops, counts, smi, paths):
         hist += np.bincount(seg.ravel(), minlength=NUM_CLASSES)
     per_fwd = kernel_launches_per_forward(low.network)
     tiles = 0
-    for case in TRAIN_CASES:
+    for case in CASCADE_CASES:
         d = np.load(os.path.join(pre, "nnUNetData_plans_v2.1_stage0",
                                  f"{case}.npz"))["data"][:-1]
         padded, _ = pad_volume_to_patch(d, low.patch_size)
@@ -3978,7 +4022,7 @@ def cascade_phase(rnd, R, ops, counts, smi, paths):
     check({n: nxt["launches"][n] for n in per_fwd} == want,
           f"[cascade] predict_next_stage launches {nxt['launches']} != "
           f"{want}")
-    print(f"[cascade] predict_next_stage: {len(TRAIN_CASES)} "
+    print(f"[cascade] predict_next_stage: {len(CASCADE_CASES)} "
           f"segFromPrevStage files in stage 1 (uint8, the stage-1 shapes) in "
           f"{nxt['s']:.1f} s, {tiles} tiles x {TTA} passes, launches "
           f"{want}; label voxel shares "
@@ -4952,6 +4996,442 @@ def ensembles_phase(ops, counts, smi, paths):
         flush=True)
 
 
+# the [models] phase: the architecture switches, ShiftUNet, _313/_331, the
+# residual-encoder UNet and reference checkpoints (Queue 1 item 6)
+MODELS_DEVICE = "cuda"
+MODELS_R = 10                   # timed calls per base-24 kernel case
+MODELS_RUN = ["--epochs", "2", "--batches", "3"]
+MODELS_PRESETS = ("nnUNetTrainerV2_3ConvPerStage", "nnUNetTrainerV2_BN_ReLU",
+                  "nnUNetTrainerV2_ResencUNet")
+# (tag, Tconv, build_network switches, base features): every new network
+# once, at the width its preset trains
+MODELS_NETS = [
+    ("3ConvPerStage", "shiftConvPP", dict(num_conv_per_stage=3), 24),
+    ("biasInSegOutput", "shiftConvPP", dict(seg_bias=True), 48),
+    ("BN", "shiftConvPP", dict(norm_op="batch"), 48),
+    ("GN", "shiftConvPP", dict(norm_op="group"), 48),
+    ("FRN", "shiftConvPP", dict(norm_op="frn"), 48),
+    ("NoNormalization", "shiftConvPP", dict(norm_op="none"), 48),
+    ("ReLU", "shiftConvPP", dict(nonlin="relu"), 48),
+    ("GeLU", "shiftConvPP", dict(nonlin="gelu"), 48),
+    ("Mish", "shiftConvPP", dict(nonlin="mish"), 48),
+    ("LReLU_slope_2en1", "shiftConvPP", dict(nonlin="lrelu2e1"), 48),
+    ("BN_ReLU", "shiftConvPP", dict(norm_op="batch", nonlin="relu"), 48),
+    ("ReLU_convReLUIN", "shiftConvPP",
+     dict(nonlin="relu", nonlin_before_norm=True), 48),
+    ("allConv3x3", "shiftConvPP", dict(conv_kernel=(3, 3, 3)), 48),
+    ("313", "shiftConvPP_313", {}, 48),
+    ("331", "shiftConvPP_331", {}, 48),
+    ("ori", "ori", {}, 48),
+    ("nodff", "shiftConvPP_nodff", {}, 48),
+    ("resenc", "resenc", {}, 24),
+]
+# a materialised network's bf16 forward against float32 (no kernel: the
+# 1.25x rule has no plain path to hold it to): mean |dlogit| within this
+# share of mean |logit|, argmax agreement at least MODELS_AGREE
+MODELS_BF16_RTOL = 0.1
+MODELS_AGREE = 0.9
+
+
+def models_phase(rnd, R, ops, counts, smi, paths):
+    """[models] Queue 1 item 6 on the card: (a) kernels #1-#10 at base 24
+    (nnUNetTrainerV2_3ConvPerStage's width: level 0 1 -> 24, 24 -> 24, 24
+    + 24 -> 24, the lazy node 24 + up 48 -> 24; level 1 48 -> 48, 48 + 48
+    + 24 -> 48; the transition 24 -> 48, the up-link 48 -> 24, the
+    down-link and the seg head at C = 24; the backward at batch 2)
+    against their plain versions, timed with their bounds and library
+    calls. (b) one bf16 forward per new network (MODELS_NETS) at its
+    preset's width on a 1 x 128^3 patch (5 pools, 16 classes), against a
+    float32 forward of the same weights: the kernel-route networks (3
+    convs per stage, seg_bias) by the 1.25x rule against their plain
+    path, their launches kernel_launches_per_forward; the materialised
+    ones within MODELS_BF16_RTOL with no kernel launched. (c)
+    cli/train.main on [trainer]'s task with MODELS_PRESETS (2 epochs of 3
+    + 1 batches, no DSFF, validation left out): finite losses, the second
+    epoch's mean below the first's, launches per step
+    kernel_launches_per_train_step (0 off the kernel route). (d)
+    cli/predict.main with TTA on one case with the resenc fold (data-flip
+    TTA) and the BN_ReLU fold (flip-free; its network built from the
+    sidecar's switches): labels, shape, no kernel launched. (e) a
+    reference-format .model written from the 3-conv fold's weights by
+    export_unetpp_state_dict, converted by
+    convert_reference_model_to_native: its parameters equal the fold's,
+    and in float32 (the plain path) it predicts the fold's own labels
+    wherever the top two classes differ by more than 1e-4; the bf16
+    kernel path's agreement printed beside a second run of the native
+    checkpoint's (the statistics' atomics make runs differ). Returns the
+    kernels' base-24 results."""
+    import os
+    import tempfile
+    import torch
+    from e2enet_tpu_torch import plans as tplans
+    from e2enet_tpu_torch.cli import predict as pcli
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.inference import predictor as tpred
+    from e2enet_tpu_torch.io.nifti import read_nifti
+    from e2enet_tpu_torch.models.torch_checkpoint import \
+        convert_reference_model_to_native
+    from e2enet_tpu_torch.models.torch_import import \
+        export_unetpp_state_dict
+    from e2enet_tpu_torch.models.unetpp import (build_network,
+                                                kernel_launches_per_forward)
+    from e2enet_tpu_torch.models.weights import to_jax_params
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.training.trainer import Trainer
+    from e2enet_tpu_torch.utils.files import save_pickle
+    t_phase = time.perf_counter()
+    steps = {}
+    dev = MODELS_DEVICE
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    D, H, W = PATCH
+    Dc, Hc, Wc = D // 2, H // 2, W // 2
+
+    # ---- (a) kernels #1-#10 at base 24
+    t0 = time.perf_counter()
+    out, shapes = {}, {}
+    print("[models] kernels vs plain at base 24 (3 convs per stage)",
+          flush=True)
+
+    def add(name, tag, r):
+        shapes.setdefault(name, {})[tag] = {k: r[k] for k in keys if k in r}
+        if "kernel_route" in r:
+            shapes[name][tag]["kernel_route"] = r["kernel_route"]
+        e = out.setdefault(name, dict(max_abs_err=0.0))
+        e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
+    with torch.inference_mode():
+        for c in (("b24_l0_c1_to24", 1, D, H, W, [1], [False], 24),
+                  ("b24_l0_24_to24", 1, D, H, W, [24], [True], 24),
+                  ("b24_l0_24+24_to24", 1, D, H, W, [24, 24], [True, False],
+                   24),
+                  ("b24_l1_48_to48", 1, Dc, Hc, Wc, [48], [True], 48),
+                  ("b24_l1_48+48+24_to48", 1, Dc, Hc, Wc, [48, 48, 24],
+                   [True, False, False], 48)):
+            add("fused_shift_conv_block", c[0],
+                fused_case(*c, rnd=rnd, reps=R))
+        add("lazy_up_fused_block", "b24_l0_24+up48to24_to24",
+            lazy_case("b24_l0_24+up48to24_to24", 1, Dc, Hc, Wc, [24],
+                      [True], 48, 24, 24, rnd, R))
+        add("strided_fused", "b24_l0_to_l1_24_to48",
+            strided_case("b24_l0_to_l1_24_to48", 1, D, H, W, 24, 48, rnd, R))
+        add("uplink", "b24_l1_to_l0_48_to24",
+            uplink_case("b24_l1_to_l0_48_to24", 1, Dc, Hc, Wc, 48, 24, rnd,
+                        R, route=None))
+        add("downlink", "b24_l0_to_l1_24",
+            downlink_case("b24_l0_to_l1_24", 1, D, H, W, 24, rnd, R))
+        for probs, tag in ((True, "b24_l0_probs_24_to16"),
+                           (False, "b24_l0_logits_24_to16")):
+            add("seghead", tag, seghead_case(tag, 1, D, H, W, 24, 16, probs,
+                                             rnd, R, route=None))
+    add("fused_shift_conv_block_bwd", "b24_l0_24+24_to24_n2",
+        block_bwd_case("b24_l0_24+24_to24_n2", 2, D, H, W, [24, 24],
+                       [True, False], 24, rnd=rnd, reps=R))
+    add("fused_shift_conv_block_bwd", "b24_l1_48+48+24_to48_n2",
+        block_bwd_case("b24_l1_48+48+24_to48_n2", 2, Dc, Hc, Wc,
+                       [48, 48, 24], [True, False, False], 48, rnd=rnd,
+                       reps=R))
+    add("downlink_bwd", "b24_l0_to_l1_24_n2",
+        downlink_bwd_case("b24_l0_to_l1_24_n2", 2, D, H, W, 24, rnd, R))
+    for name in out:
+        out[name]["shapes"] = shapes[name]
+    torch.cuda.empty_cache()
+    steps["(a) kernels at base 24"] = time.perf_counter() - t0
+
+    # ---- (b) one forward per new network at full width
+    t0 = time.perf_counter()
+    stage = tplans.StagePlan(
+        batch_size=2, num_pool_per_axis=[5, 5, 5], patch_size=list(PATCH),
+        median_patient_size_in_voxels=list(PATCH),
+        current_spacing=[1.0] * 3, original_spacing=[1.0] * 3,
+        do_dummy_2D_data_aug=False, pool_op_kernel_sizes=[[2, 2, 2]] * 5,
+        conv_kernel_sizes=[[1, 3, 3]] * 6)
+    x = rnd(1, D, H, W, 1)
+    rows = []
+    for tag, tconv, sw, base in MODELS_NETS:
+        kw = dict(tconv=tconv, base_num_features=base, device=dev, **sw)
+        net = build_network(stage, 1, NUM_CLASSES, **kw)
+        net.reset_parameters(len(rows))
+        net32 = build_network(stage, 1, NUM_CLASSES,
+                              compute_dtype=torch.float32, **kw)
+        net32.load_state_dict(net.state_dict())
+        per = kernel_launches_per_forward(net)
+        with torch.inference_mode():
+            net(x, do_ds=False)             # cuDNN's first call
+            before = counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            k = net(x, do_ds=False).float()
+            ev[1].record()
+            torch.cuda.synchronize()
+            got = {n: v - before[n] for n, v in counts().items()}
+            ms = ev[0].elapsed_time(ev[1])
+            p = None
+            # the float32 network takes the plain versions (the kernels
+            # take bfloat16)
+            with blocks.plain_ops():
+                f = net32(x, do_ds=False)
+                if net.kernel_route():
+                    p = net(x, do_ds=False).float()
+        want = {n: per.get(n, 0) for n in got}
+        check(got == want, f"[models] {tag}: launches {got} != {want}")
+        check(bool(torch.isfinite(k).all()), f"[models] {tag}: non-finite")
+        e_k = float((k - f).abs().mean())
+        rel = e_k / float(f.abs().mean())
+        agree = float((k.argmax(-1) == f.argmax(-1)).float().mean())
+        row = dict(tag=tag, route="kernel" if net.kernel_route()
+                   else "materialised", ms=ms, rel=rel, agree=agree,
+                   launches=sum(got.values()))
+        if p is not None:
+            e_p = float((p - f).abs().mean())
+            check(e_k <= ERR_RATIO * e_p, f"[models] {tag}: kernel path "
+                  f"further from float32 ({e_k:.4e}) than the plain path "
+                  f"({e_p:.4e})")
+            check(row["launches"] > 0, f"[models] {tag}: no kernel launched")
+            row["plain_rel"] = e_p / float(f.abs().mean())
+        else:
+            check(rel <= MODELS_BF16_RTOL and agree >= MODELS_AGREE,
+                  f"[models] {tag}: bf16 against float32: mean |dlogit| "
+                  f"{rel:.4f} of mean |logit|, argmax agreement {agree:.4f}")
+        rows.append(row)
+        print(f"[models] {tag} ({tconv}, base {base}, {row['route']} "
+              f"route): bf16 forward {ms:.1f} ms, launches "
+              f"{row['launches']} (kernel_launches_per_forward "
+              f"{sum(per.values())}); against float32: mean |dlogit| "
+              f"{rel:.4f} of mean |logit|"
+              + (f" (plain bf16 path {row['plain_rel']:.4f})"
+                 if p is not None else "")
+              + f", argmax agreement {agree:.4f}", flush=True)
+        del net, net32, k, f, p
+        torch.cuda.empty_cache()
+    steps["(b) forwards"] = time.perf_counter() - t0
+
+    # ---- (c) three presets through the train CLI
+    t0 = time.perf_counter()
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    runs, results, peaks = [], {}, {}
+    real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
+    init_spy, load_spy = trainer_spies("models", ops, counts, runs,
+                                       validate_runs=set())
+    Trainer.initialize, Trainer.load_checkpoint_file = init_spy, load_spy
+    try:
+        for preset in MODELS_PRESETS:
+            results[preset] = (paths["results"] + "_models_"
+                               + preset.split("_", 1)[1])
+            os.environ["RESULTS_FOLDER"] = results[preset]
+            torch.cuda.reset_peak_memory_stats()
+            tcli.main(["--task", TRAIN_TASK, "--fold", "0", "--val_batches",
+                       "1", "--device", dev, "-tr", preset] + MODELS_RUN)
+            torch.cuda.synchronize()
+            peaks[preset] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        Trainer.initialize, Trainer.load_checkpoint_file = \
+            real_init, real_load
+    check(len(runs) == len(MODELS_PRESETS), f"[models] {len(runs)} trainers")
+    for preset, run in zip(MODELS_PRESETS, runs):
+        tr = run["trainer"]
+        losses = [float(v) for v in run["losses"]]
+        ms = [a.elapsed_time(b) for a, b in run["events"]]
+        check(all(np.isfinite(losses)) and all(np.isfinite(
+            tr.all_tr_losses + tr.all_val_losses)),
+            f"[models] {preset}: a loss is not finite")
+        check(tr.all_tr_losses[-1] < tr.all_tr_losses[0],
+              f"[models] {preset}: the train loss did not fall "
+              f"({tr.all_tr_losses})")
+        per_step = sum(run["want"].values())
+        check((per_step > 0) == tr.network.kernel_route(),
+              f"[models] {preset}: {per_step} launches per step")
+        print(f"[models] {preset}: {type(tr.network).__name__} base "
+              f"{tr.base_num_features}, switches "
+              f"{ {k: v for k, v in tr.arch.items() if v is not None} }, "
+              f"{len(losses)} steps, losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)} (epoch means "
+              f"{' '.join(f'{v:.4f}' for v in tr.all_tr_losses)}); launches "
+              f"per step {per_step}; ms per step (CUDA events) "
+              f"{' '.join(f'{v:.1f}' for v in ms)}, after the first: median "
+              f"{float(np.median(ms[1:])):.1f}; peak memory "
+              f"{peaks[preset]:.1f} GiB  [{smi}]", flush=True)
+    three, bn_relu, resenc = (r["trainer"] for r in runs)
+    check(three.network.kernel_route()
+          and three.network.num_conv_per_stage == 3
+          and three.base_num_features == 24
+          and not bn_relu.network.kernel_route()
+          and type(resenc.network).__name__ == "ResidualUNet",
+          "[models] the presets' networks")
+    del runs
+    torch.cuda.empty_cache()
+    steps["(c) train CLI"] = time.perf_counter() - t0
+
+    # ---- (d) the predict CLI with TTA: resenc (data flips), BN_ReLU
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_models_")
+    inp = os.path.join(tmp.name, "predict_in")
+    os.makedirs(inp)
+    case = TRAIN_VAL[0]
+    os.symlink(os.path.join(paths["images"], f"{case}_0000.nii.gz"),
+               os.path.join(inp, f"{case}_0000.nii.gz"))
+    seen = []
+    real_tiled, real_build = tpred.predict_volume_tiled, tpred.build_network
+
+    def tiled(*a, **k):
+        seen.append(("tiles", k.get("mirror_apply_fns") is not None))
+        return real_tiled(*a, **k)
+
+    def build(*a, **k):
+        net = real_build(*a, **k)
+        seen.append(("net", net))
+        return net
+    tpred.predict_volume_tiled, tpred.build_network = tiled, build
+    try:
+        for preset, tconv, trainer in (
+                ("nnUNetTrainerV2_ResencUNet", "resenc", resenc),
+                ("nnUNetTrainerV2_BN_ReLU", "shiftConvPP", bn_relu)):
+            os.environ["RESULTS_FOLDER"] = results[preset]
+            out_dir = os.path.join(tmp.name, f"predict_{tconv}")
+            seen.clear()
+            before = counts()
+            t1 = time.perf_counter()
+            pcli.main(["-i", inp, "-o", out_dir, "-t", TRAIN_TASK, "-f", "0",
+                       "--Tconv", tconv])
+            wall = time.perf_counter() - t1
+            got = {n: v - before[n] for n, v in counts().items()}
+            seg = read_nifti(os.path.join(out_dir, f"{case}.nii.gz")).array
+            labels = np.unique(seg)
+            nets = [v for kind, v in seen if kind == "net"]
+            flip_free = [v for kind, v in seen if kind == "tiles"]
+            net = nets[0] if nets else None
+            check(len(nets) == 1 and type(net) is type(trainer.network),
+                  f"[models] {preset}: the predictor built {nets}")
+            if tconv == "shiftConvPP":
+                check(net.norm_op == "batch" and net.nonlin == "relu"
+                      and not net.kernel_route(), f"[models] {preset}: the "
+                      f"predictor's network {net.norm_op}/{net.nonlin}, not "
+                      f"the sidecar's batch/relu")
+            check(flip_free == [tconv != "resenc"], f"[models] {preset}: "
+                  f"flip-free TTA {flip_free}")
+            check(sum(got.values()) == 0, f"[models] {preset}: the "
+                  f"materialised network launched {got}")
+            check(seg.shape == TRAIN_CASES[case] and int(labels.min()) >= 0
+                  and int(labels.max()) < NUM_CLASSES, f"[models] {preset} "
+                  f"predict: shape {seg.shape}, labels {labels}")
+            print(f"[models] cli.predict with TTA, the {preset} fold on "
+                  f"{case}: {type(net).__name__} "
+                  f"({'flip-free' if flip_free[0] else 'data-flip'} TTA), "
+                  f"no kernel launched, shape {seg.shape}, labels "
+                  f"{labels.tolist()}, {wall:.1f} s", flush=True)
+    finally:
+        tpred.predict_volume_tiled, tpred.build_network = \
+            real_tiled, real_build
+    del bn_relu, resenc
+    torch.cuda.empty_cache()
+    steps["(d) predict CLI"] = time.perf_counter() - t0
+
+    # ---- (e) a reference-format checkpoint of the 3-conv fold's weights
+    t0 = time.perf_counter()
+    params = to_jax_params(three.network.state_dict())
+    P = len(three.stage_plan.pool_op_kernel_sizes)
+    sd = export_unetpp_state_dict(params, P, num_conv_per_stage=3)
+    ref = os.path.join(tmp.name, "shiftConvPP_model_final_checkpoint.model")
+    torch.save({"epoch": three.epoch, "state_dict": {
+        k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()},
+        "optimizer_state_dict": None}, ref)
+    raw = three.plans.to_dict()
+    raw["conv_per_stage"] = 3
+    raw["dataset_properties"] = dict(
+        raw.get("dataset_properties") or {},
+        intensityproperties=three.plans.intensity_properties)
+    save_pickle({"init": (None,) * 9, "name": "nnUNetTrainerV2_3ConvPerStage",
+                 "class": "nnUNetTrainerV2_3ConvPerStage", "plans": raw},
+                ref + ".pkl")
+    conv_dir = os.path.join(tmp.name, "converted", "fold_0")
+    os.makedirs(conv_dir)
+    convert_reference_model_to_native(
+        ref, os.path.join(conv_dir,
+                          "shiftConvPP_model_final_checkpoint.model"),
+        base_num_features=24)
+    data = np.load(os.path.join(
+        paths["preprocessed"], TRAIN_TASK, "nnUNetData_plans_v2.1_stage0",
+        f"{case}.npz"))["data"][:-1]
+    folders = (os.path.dirname(conv_dir),
+               os.path.dirname(three.output_folder))
+    bundles = [tpred.ModelBundle(f, [0], "shiftConvPP", device=dev)
+               for f in folders]
+    sd_c, sd_n = (b.fold_models[0].state_dict() for b in bundles)
+    check(set(sd_c) == set(sd_n) and all(torch.equal(sd_c[k], sd_n[k])
+                                         for k in sd_n),
+          "[models] the converted reference checkpoint's parameters differ "
+          "from the fold's")
+    # the kernel path (bf16; its float32 statistics sum by atomics, so two
+    # runs of one checkpoint may differ where classes nearly tie), and
+    # the float32 plain path, where the same weights give the same labels
+    p_k = [tpred.predict_case(b, data, do_tta=False, step_size=0.5)
+           for b in bundles + bundles[1:]]
+    with blocks.plain_ops():
+        p_f = [tpred.predict_case(tpred.ModelBundle(
+            f, [0], "shiftConvPP", compute_dtype=torch.float32,
+            device=dev), data, do_tta=False, step_size=0.5)
+            for f in folders]
+    top2 = np.sort(p_f[1], axis=0)[-2:]
+    clear = (top2[1] - top2[0]) > 1e-4
+    same = p_f[0].argmax(0) == p_f[1].argmax(0)
+    agree_k, again_k = (float((p_k[i].argmax(0) == p_k[1].argmax(0))
+                              .mean()) for i in (0, 2))
+    check(bool(same[clear].all()), f"[models] the converted checkpoint's "
+          f"float32 labels differ from the native fold's on "
+          f"{int((~same & clear).sum())} voxels whose top two classes "
+          f"differ by more than 1e-4")
+    print(f"[models] reference checkpoint: export_unetpp_state_dict of the "
+          f"3-conv fold ({len(sd)} tensors), convert_reference_model_to_"
+          f"native: parameters equal to the fold's; on {case} the float32 "
+          f"labels equal the native checkpoint's on {int(same.sum())} of "
+          f"{same.size} voxels ({int(clear.sum())} with a top-two margin "
+          f"above 1e-4, all equal; max |dp| "
+          f"{float(np.abs(p_f[0] - p_f[1]).max()):.2e}); the bf16 kernel "
+          f"path's labels agree on {agree_k:.6f} (max |dp| "
+          f"{float(np.abs(p_k[0] - p_k[1]).max()):.2e}), and the native "
+          f"checkpoint's run again with its first run on {again_k:.6f} "
+          f"(max |dp| {float(np.abs(p_k[2] - p_k[1]).max()):.2e})",
+          flush=True)
+    del bundles, p_k, p_f, three
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    steps["(e) reference checkpoint"] = time.perf_counter() - t0
+    check("jax" not in sys.modules, "[models] jax was imported")
+    print("[models] seconds by step: " + "; ".join(
+        f"{k} {v:.1f}" for k, v in steps.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s  [{smi}]",
+        flush=True)
+    return out
+
+
+def models_only() -> None:
+    """--models: the build, [trainer]'s planned task and the [models]
+    phase alone (its launches printed as JSON)."""
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_models_") as tmp:
+        paths = plan_train_task(tmp, smi)
+        for op in ops.values():
+            op.launches = 0
+        stamp("[trainer]'s planned task")
+        models_phase(Rnd(0), MODELS_R, ops,
+                     lambda: {n: op.launches for n, op in ops.items()},
+                     smi, paths)
+        stamp("[models]")
+    print(json.dumps({"models_launches": {n: op.launches
+                                          for n, op in ops.items()}}),
+          flush=True)
+
+
 def bench_phase(smi):
     """[bench] python -m e2enet_tpu_torch.bench at its defaults (the sparse
     model, fast mode) in a subprocess: exit 0 and a last stdout line with
@@ -5229,6 +5709,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--ensembles"]:
         ensembles_only()
+        return
+    if sys.argv[1:] == ["--models"]:
+        models_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -5737,6 +6220,7 @@ def main() -> None:
     # ---- 14. cascade: 3d_lowres -> 3d_cascade_fullres on its cases;
     # ---- 15. variants: the variants' knobs and the region trainers;
     # ---- 16. ensembles: model selection, ensembles, consolidation, amos2022
+    # ---- 17. models: the architecture switches and the remaining networks
     def options(paths, trainer_ms):
         stamp("10. trainer")
         reset_counts()
@@ -5763,19 +6247,24 @@ def main() -> None:
         reset_counts()
         ensembles_phase(ops, counts, smi, paths)
         launches["ensembles"] = counts()
-    res2d, res_cascade, res_variants = {}, {}, {}
+        stamp("16. ensembles")
+        reset_counts()
+        res_models.update(models_phase(rnd, MODELS_R, ops, counts, smi,
+                                       paths))
+        launches["models"] = counts()
+    res2d, res_cascade, res_variants, res_models = {}, {}, {}, {}
     launches["trainer"] = trainer_phase(ops, reset_counts, counts, smi,
                                         then=options)
 
-    stamp("10-16. trainer, options, dsff, 2d, cascade, variants, "
-          "ensembles")
-    # ---- 17. experiments: the experiment kernels, then their mains
+    stamp("10-17. trainer, options, dsff, 2d, cascade, variants, "
+          "ensembles, models")
+    # ---- 18. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    stamp("17. experiments")
-    # ---- 18. report
+    stamp("18. experiments")
+    # ---- 19. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -5842,7 +6331,12 @@ def main() -> None:
           "backward's wgrad at the region model's first block (4 input "
           "channels), #9 at 3 regions; 'ensembles' over the [ensembles] "
           "phase: the two folds' validations, the one predict -z run and "
-          "the amos2022 case)",
+          "the amos2022 case; 'models' over the [models] phase, its "
+          "base-24 kernel checks included: the kernel-route networks' "
+          "forwards, the three presets' train steps (none off the kernel "
+          "route) and the reference checkpoint's kernel-path predictions; "
+          "the 'models' entry: #1-#10 at base 24, every shape under "
+          "'shapes')",
           flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
@@ -5869,6 +6363,8 @@ def main() -> None:
             line["cascade"] = res_cascade[name]
         if name in res_variants:
             line["variants"] = res_variants[name]
+        if name in res_models:
+            line["models"] = res_models[name]
         for extra in ("shapes", "int8", "kernel1_ms", "mma_ms", "control_ms",
                       "serial_ms",
                       "turns_ms", "affine_stats_ms", "gemm_route",
@@ -5876,7 +6372,7 @@ def main() -> None:
             if extra in res[name]:
                 line[extra] = res[name][extra]
         lines.append(line)
-    stamp("18. report: the script")
+    stamp("19. report: the script")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,12 @@ Usage:
       [--step_size .5] [--device cuda|cpu]
 
 Models are read from $RESULTS_FOLDER/<model>/<task>/<trainer>__<plans>, in
-the JAX package's checkpoint format. --device defaults to the card
+the JAX package's checkpoint format: --Tconv names the network (every Tconv
+of the train CLI) and the checkpoint's sidecar its architecture switches.
+TTA is flip-free (mirrored operators) except for networks without them
+(resenc, a full 3D kernel), whose TTA flips the data. A reference-trained
+PyTorch .model converts first (models/torch_checkpoint.
+convert_reference_model_to_native). --device defaults to the card
 (`cuda`), which must be present; `--device cpu` runs the plain torch
 versions of every kernel. --num_devices above 1 raises (ROADMAP Queue 1
 item 7).

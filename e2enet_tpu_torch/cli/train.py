@@ -25,7 +25,10 @@ must be present; `--device cpu` trains the plain torch versions of every
 kernel. --network 2d trains the task's 2D plan (nnUNetPlansv2.1_plans_2D,
 patch depth 1, which `-pl2d ExperimentPlanner2D_v21` writes) without the
 depth shift (shiftConvPP_noshift) and without batch dice; --Tconv
-shiftConvPP_noshift turns the shift off on a 3D plan. On a two-stage
+shiftConvPP_noshift turns the shift off on a 3D plan, and every other
+Tconv of the JAX CLI trains: shiftConvPP_313 / shiftConvPP_331 (the (3,1,3)
+/ (3,3,1) kernels), ori and shiftConvPP_nodff (models/unet.ShiftUNet),
+resenc (models/resenc.ResidualUNet). On a two-stage
 plan, --network 3d_lowres trains the first stage and then writes each
 validation case's prediction, resampled to the last stage's geometry, as
 <case>_segFromPrevStage.npz into the last stage's folder
@@ -37,16 +40,17 @@ preset of training/variants.py whose keys go to the trainer as the JAX
 CLI maps them (variant_kwargs): optimizers, learning
 rates and their schedules, momentum, losses, epochs, precision, batch
 dice, augmentation levels, the deep-supervision mode, per-epoch
-validation, export options and regions (the BraTS region trainers:
-sigmoid heads, region targets, summary.csv by region). Every DSFF
+validation, export options, regions (the BraTS region trainers:
+sigmoid heads, region targets, summary.csv by region), the Tconv and the
+architecture switches (norm_op, nonlin, nonlin_before_norm,
+num_conv_per_stage, seg_bias, conv_kernel): all 95 presets train. Every DSFF
 setting of the JAX trainer trains: --sparse_init
 uniform|dense|uniform_ori|ERK|GMP|lottery_ticket, --prune_mode
 local|global (global on element masks), --granularity
 auto|kernel|element|row (row with uniform), --growth random|gradient,
 --final_density with --init-prune-epoch / --final-prune-epoch (the global
 prune's schedule, GMP's window) and --multiplier (GMP). Refused, each
-naming the ROADMAP item that ports it: a preset that sets an
-architecture switch (item 6), --num_devices above 1 and
+naming the ROADMAP item that ports it: --num_devices above 1 and
 --spatial_parallel (item 7), --device_augment (item 8). --fused, --no_fused and --remat choose between
 XLA programs of the JAX package and are rejected.
 """

@@ -11,10 +11,15 @@ checkpoint name :144-148).
 
 Every fold's checkpoint (training/checkpoint.py, the JAX package's format)
 becomes one model on the device with its DSFF masks baked into the weights;
-the row-sparse plan is attached when every fold shares it, as the JAX
-package does. Per tile the mirror passes run as flip-free forwards
-(mirror_apply_fns_for) whenever TTA runs; the fold average is taken on the
-host. A background thread preprocesses the next case while the device
+the network is the one the fold was trained with: the Tconv, and the
+architecture switches of the sidecar's `init` (models/unetpp.
+ARCH_DEFAULTS; a switch the sidecar lacks, as the JAX package writes it,
+takes its default). The row-sparse plan of a shiftConvPP network is
+attached when every fold shares it, as the JAX package does. Per tile the
+mirror passes run as flip-free forwards (mirror_apply_fns_for) whenever
+TTA runs and the network has mirrored operators; a network without them
+(resenc, full 3D kernels) flips the data. The fold average is taken on
+the host. A background thread preprocesses the next case while the device
 predicts the current one (the reference's Queue(1) pipeline, :93-128).
 
 Accumulators follow the reference: float16 only with all_in_gpu (its fast
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 from ..models.masks import bake_masks, masks_for_model
-from ..models.unetpp import build_network
+from ..models.unetpp import ARCH_DEFAULTS, build_network
 from ..models.weights import from_jax_params
 from ..ops.sliding import flip_combinations, predict_volume_tiled
 from ..plans import Plans
@@ -78,7 +83,8 @@ def check_input_folder_and_return_caseIDs(input_folder: str,
 
 class ModelBundle:
     """All folds of one trained model, restored from checkpoints: one model
-    per fold on `device`, its masks baked into its weights."""
+    per fold on `device`, the network of the sidecar's Tconv and switches,
+    its masks baked into its weights."""
 
     def __init__(self, model_folder: str, folds: Sequence, tconv: str,
                  checkpoint_name: Optional[str] = None,
@@ -117,6 +123,9 @@ class ModelBundle:
         if sidecar["init"].get("cascade", False):
             num_in += self.num_classes - 1
         self.patch_size = tuple(int(i) for i in self.stage_plan.patch_size)
+        init = sidecar["init"]
+        self.arch = {k: init[k] for k, v in ARCH_DEFAULTS.items()
+                     if init.get(k, v) != v}
 
         self.fold_models = []
         fold_plans = []
@@ -125,7 +134,7 @@ class ModelBundle:
                 self.stage_plan, num_in, self.num_classes, tconv=tconv,
                 base_num_features=sidecar["init"].get("base_num_features",
                                                       48),
-                compute_dtype=compute_dtype, device=self.device)
+                compute_dtype=compute_dtype, device=self.device, **self.arch)
             net.load_state_dict(from_jax_params(state["params"]),
                                 strict=True)
             net.eval()
@@ -140,7 +149,8 @@ class ModelBundle:
         # single fold, or identically-structured masks); otherwise dense
         # masked, as the JAX package runs them
         self.sparse_plan = (fold_plans[0]
-                            if fold_plans[0] is not None
+                            if tconv in ("shiftConvPP", "shiftConvPP_noshift")
+                            and fold_plans[0] is not None
                             and all(p == fold_plans[0] for p in fold_plans)
                             else None)
         if self.sparse_plan is not None:
@@ -206,12 +216,14 @@ def predict_case(bundle: ModelBundle, data: np.ndarray,
     float16 accumulators, and for a bfloat16 model the bfloat16 probs head
     under flip-free TTA or bfloat16 per-pass probabilities under data-flip
     TTA. Otherwise float32 logits and float32 accumulators. TTA runs
-    flip-free (the reference's default). Each fold model's head is set for
-    the mode."""
+    flip-free (the reference's default) where the network has mirrored
+    operators, and flips the data otherwise (resenc, full 3D kernels: the
+    reference's predictor asserts there). Each fold model's head is set for
+    the mode (a network without a probs head keeps its logits)."""
     if num_devices > 1:
         raise NotImplementedError(f"num_devices={num_devices}: "
                                   f"{MULTI_DEVICE_ITEM}")
-    flip_free = do_tta
+    flip_free = do_tta and bundle.fold_models[0].mirrored_operators()
     bf16 = bundle.compute_dtype == torch.bfloat16
     head = torch.bfloat16 if all_in_gpu and flip_free and bf16 else None
     accum = torch.float16 if all_in_gpu else torch.float32
@@ -220,7 +232,8 @@ def predict_case(bundle: ModelBundle, data: np.ndarray,
     softmax_sum = None
     with torch.no_grad():
         for net in bundle.fold_models:
-            net.head_probs_dtype = head
+            if hasattr(net, "head_probs_dtype"):
+                net.head_probs_dtype = head
             probs = predict_volume_tiled(
                 lambda x, _n=net: _n(x, do_ds=False), data,
                 bundle.patch_size, bundle.num_classes,

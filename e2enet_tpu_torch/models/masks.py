@@ -8,7 +8,12 @@ A mask has one of two granularities (reference mask_granularity,
 dsff.py:305-315). A kernel-pair (or row) mask is stored (in, out), as the
 reference stores it, and broadcast over the spatial kernel dims:
   conv kernel        (CO, C, kh, kw)           * mask.T[:, :, None, None]
+                     (CO, C, kd, kh, kw)       * mask.T[:, :, None, None, None]
   transp-conv kernel (Cin, Cout, sd, sh, sw)   * mask[:, :, None, None, None]
+A kernel's name tells a transposed conv's from a full 3D conv's (both rank
+5; models/weights.is_transposed); the helpers here take `transposed` and,
+without it, take rank 5 as a transposed conv's (every masked rank-5 kernel
+but those of allConv3x3's nest).
 An element mask has its kernel's full shape, in the port's layout on the
 port's side and in the flax layout ((kh, kw, in, out), (kd, kh, kw, in,
 out)) in checkpoints and artifacts; it crosses between the two by the
@@ -20,13 +25,13 @@ the flax path joined with '|' ('loc0_0|block0|kernel'); the port's name is
 the same path joined with '.'.
 """
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from .weights import _KERNEL_PERM, _KERNEL_UNPERM
+from .weights import is_transposed, kernel_perm, kernel_unperm
 
 MASKED_TOKENS = ("loc", "up")
 EXCLUDED_TOKENS = ("context",)
@@ -53,14 +58,25 @@ def masked_params(model: nn.Module) -> Dict[str, torch.nn.Parameter]:
     return out
 
 
-def mask_shape(param: torch.Tensor) -> Tuple[int, int]:
-    """(in, out) of a conv (CO, C, kh, kw) or transp-conv (Cin, Cout, ...)
+def transposed_name(name: str) -> bool:
+    """Whether the port parameter `name` is a transposed conv's kernel."""
+    return is_transposed(name.split("."))
+
+
+def _transposed(param: torch.Tensor, transposed: Optional[bool]) -> bool:
+    if param.dim() not in (4, 5):
+        raise ValueError(f"no mask layout for a kernel of rank "
+                         f"{param.dim()}")
+    return param.dim() == 5 if transposed is None else transposed
+
+
+def mask_shape(param: torch.Tensor, transposed: Optional[bool] = None
+               ) -> Tuple[int, int]:
+    """(in, out) of a conv (CO, C, ...) or transp-conv (Cin, Cout, ...)
     kernel."""
-    if param.dim() == 4:
-        return int(param.shape[1]), int(param.shape[0])
-    if param.dim() == 5:
+    if _transposed(param, transposed):
         return int(param.shape[0]), int(param.shape[1])
-    raise ValueError(f"no mask layout for a kernel of rank {param.dim()}")
+    return int(param.shape[1]), int(param.shape[0])
 
 
 def is_element_mask(mask) -> bool:
@@ -72,22 +88,23 @@ def is_element_mask(mask) -> bool:
 def check_mask(name: str, mask, param: torch.Tensor) -> None:
     """Raise unless the mask is the kernel's (in, out) or, element-
     granular, its full shape in the port's layout."""
-    want = (tuple(param.shape) if is_element_mask(mask)
-            else mask_shape(param))
+    io = mask_shape(param, transposed_name(name))
+    want = tuple(param.shape) if is_element_mask(mask) else io
     if tuple(mask.shape) != want:
         raise ValueError(f"{name}: mask {tuple(mask.shape)} for a kernel of "
-                         f"shape {tuple(param.shape)} (in, out) "
-                         f"{mask_shape(param)}")
+                         f"shape {tuple(param.shape)} (in, out) {io}")
 
 
-def broadcast_mask(mask: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+def broadcast_mask(mask: torch.Tensor, param: torch.Tensor,
+                   transposed: Optional[bool] = None) -> torch.Tensor:
     """A mask shaped to broadcast over the kernel's layout: an (in, out)
     mask over the spatial dims, an element mask as it is."""
     if is_element_mask(mask):
         return mask
-    if param.dim() == 4:
-        return mask.t()[:, :, None, None]
-    return mask[:, :, None, None, None]
+    taps = (None,) * (param.dim() - 2)
+    if _transposed(param, transposed):
+        return mask[(slice(None), slice(None)) + taps]
+    return mask.t()[(slice(None), slice(None)) + taps]
 
 
 def apply_masks_to(tensors: Dict[str, torch.Tensor], masks) -> None:
@@ -100,7 +117,7 @@ def apply_masks_to(tensors: Dict[str, torch.Tensor], masks) -> None:
             t = tensors[name]
             check_mask(name, m, t)
             mt = torch.as_tensor(m, dtype=t.dtype, device=t.device)
-            t.mul_(broadcast_mask(mt, t))
+            t.mul_(broadcast_mask(mt, t, transposed_name(name)))
 
 
 def apply_masks(model: nn.Module, masks) -> None:
@@ -129,7 +146,8 @@ def masks_for_model(flax_masks, model: nn.Module, what: str = "masks",
     for k, v in flax_masks.items():
         m = np.asarray(v, np.float32)
         if is_element_mask(m):
-            m = np.ascontiguousarray(m.transpose(_KERNEL_PERM[m.ndim]))
+            m = np.ascontiguousarray(m.transpose(
+                kernel_perm(k.split(sep), m.ndim)))
         masks[k.replace(sep, ".")] = m
     missing = sorted(set(params) - set(masks))
     extra = sorted(set(masks) - set(params))
@@ -149,7 +167,8 @@ def masks_to_flax(masks, sep: str = "|") -> Dict[str, np.ndarray]:
         a = np.asarray(m.detach().cpu().float() if isinstance(
             m, torch.Tensor) else m, np.float32)
         if is_element_mask(a):
-            a = np.ascontiguousarray(a.transpose(_KERNEL_UNPERM[a.ndim]))
+            a = np.ascontiguousarray(a.transpose(
+                kernel_unperm(name.split("."), a.ndim)))
         out[name.replace(".", sep)] = a
     return out
 

@@ -9,9 +9,12 @@ concat[x(i, j-1), up(x(i+1, j-1)), maxpool(x(i-1, j-1))] (the pooled part
 only for i > 0); reference names x(i, j) = loc{P-i-j}_{j-1}, with a
 `_final` stack on the diagonal nodes (z == 0).
 
-Levels <= FUSED_MAX_LEVEL keep their outputs Pending (raw conv output plus
-instance-norm statistics; consumers apply norm + leaky relu on load), as
-the reference's quadrant path does (models/unetpp.py, quadrant=True):
+On the kernel route (kernel_route(): the reference's fused_ok / use_quad
+test, models/unetpp.py:218-245: instance norm, leaky relu after it, a
+(1,3,3) kernel) levels <= FUSED_MAX_LEVEL keep their outputs Pending (raw
+conv output plus instance-norm statistics; consumers apply norm + leaky
+relu on load), as the reference's quadrant path does (models/unetpp.py,
+quadrant=True):
   * every stride-1 stack there runs the fused block op (ops/fused_block);
   * context1's strided first block is the strided transition
     (ops/qstride) on context0's pending output, its other blocks fused;
@@ -32,7 +35,13 @@ the fused block), which the reference takes only where it refuses the lazy
 one. The choice is made up front from the dtype and the pool. Counts:
 kernel_launches_per_forward. Everything else is plain torch. The kernel
 sites go through the names of ops/blocks.py, so ops.blocks.plain_ops()
-swaps in the plain versions.
+swaps in the plain versions. Off the kernel route (the architecture
+switches norm_op, nonlin, nonlin_before_norm and conv_kernel away from the
+defaults) every level materialises, as the reference's XLA path does: plain
+torch (cuDNN convs on the card) and no kernel launch. The route is chosen
+up front from the architecture, never by a failure. num_conv_per_stage and
+seg_bias keep the kernel route; a seg head with a bias (seg_bias) never
+returns probabilities, as the reference drops its probs head there.
 
 set_sparse_plan(plan) wires the DSFF row-sparse plan (models/sparse_plan,
 the reference's `sparse_plan` field and unetpp.py:434-575): nest convs
@@ -59,14 +68,15 @@ it takes shiftConvPP's five (shiftConvPP_noshift; 2D plans, patch depth 1,
 whose first pool (1, 2, 2) takes the materialised up-link route).
 
 build_network(plans_stage, ...) builds the model of a plan's stage by
-Tconv name, as the reference's factory does (shiftConvPP and
-shiftConvPP_noshift, 2D plans without the shift; the rest raise
-NotImplementedError naming their ROADMAP item).
+Tconv name and architecture switches, as the reference's factory does:
+shiftConvPP, shiftConvPP_noshift, shiftConvPP_313 / _331 (this model with
+(3,1,3) / (3,3,1) kernels and no shift), ori and shiftConvPP_nodff
+(models/unet.ShiftUNet) and resenc (models/resenc.ResidualUNet).
 
 Parameter names follow the reference's flax tree (`context{d}.block{b}`,
 `context{P}a/b`, `up{z}_{k}`, `loc{z}_{k}`, `loc{z}_{k}_final`,
-`seg_head{i}`; leaves `kernel`, `bias`, `norm_scale`, `norm_bias`); see
-models/weights.py for the layouts.
+`seg_head{i}`; leaves `kernel`, `bias`, `norm_scale`, `norm_bias`,
+`frn_tau`); see models/weights.py for the layouts.
 """
 import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -112,7 +122,9 @@ class ShiftUNetPlusPlus(nn.Module):
     level-0 head returns its class softmax in that dtype instead of
     logits. lazy_up: level-0 nest nodes read their up-link lazily where the
     lazy route applies (lazy_up_route); False keeps the materialised
-    route. do_shift=False: no depth shift (shiftConvPP_noshift)."""
+    route. do_shift=False: no depth shift (shiftConvPP_noshift).
+    norm_op, nonlin, nonlin_before_norm, conv_kernel: the blocks'
+    (ops/blocks.ShiftConvBlock); seg_bias: the heads' bias."""
 
     def __init__(self, input_channels: int, num_classes: int,
                  pool_op_kernel_sizes: Sequence[Tuple[int, int, int]],
@@ -121,7 +133,11 @@ class ShiftUNetPlusPlus(nn.Module):
                  num_conv_per_stage: int = 2,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  head_probs_dtype: Optional[torch.dtype] = None,
-                 lazy_up: bool = True, do_shift: bool = True, device=None):
+                 lazy_up: bool = True, do_shift: bool = True,
+                 norm_op: str = "instance", nonlin: str = "lrelu",
+                 nonlin_before_norm: bool = False, seg_bias: bool = False,
+                 conv_kernel: Tuple[int, int, int] = (1, 3, 3),
+                 device=None):
         super().__init__()
         if device is None:
             raise ValueError("pass the device explicitly")
@@ -133,11 +149,17 @@ class ShiftUNetPlusPlus(nn.Module):
         self.head_probs_dtype = head_probs_dtype
         self.lazy_up = lazy_up
         self.do_shift = do_shift
+        self.norm_op, self.nonlin = norm_op, nonlin
+        self.nonlin_before_norm = nonlin_before_norm
+        self.seg_bias = seg_bias
+        self.conv_kernel = tuple(int(k) for k in conv_kernel)
         self.sparse_plan: Optional[Plan] = None
         enc = self.enc = encoder_channels(base_num_features, P,
                                           max_num_features)
         kw = dict(compute_dtype=compute_dtype, do_shift=do_shift,
-                  device=device)
+                  device=device, kernel=self.conv_kernel,
+                  norm_op=norm_op, nonlin=nonlin,
+                  nonlin_before_norm=nonlin_before_norm)
 
         for d in range(P):
             self.add_module(f"context{d}", StackedConvBlocks(
@@ -165,7 +187,7 @@ class ShiftUNetPlusPlus(nn.Module):
         for i in range(self.num_ds_outputs()):
             self.add_module(f"seg_head{i}", SegHead(
                 enc[i], num_classes, compute_dtype=compute_dtype,
-                device=device))
+                device=device, use_bias=seg_bias))
 
     def num_ds_outputs(self) -> int:
         return min(4, self.num_pool)
@@ -176,12 +198,33 @@ class ShiftUNetPlusPlus(nn.Module):
         of the pool kernels per axis."""
         return np.prod(np.array(self.pools), 0)
 
+    def kernel_route(self) -> bool:
+        """Whether levels <= FUSED_MAX_LEVEL run the kernels: the blocks
+        the kernels bake (instance norm, then leaky relu; a (1,3,3)
+        kernel), the reference's fused_ok / use_quad test
+        (models/unetpp.py:218-245). Otherwise every level materialises."""
+        return (self.norm_op == "instance" and self.nonlin == "lrelu"
+                and not self.nonlin_before_norm
+                and self.conv_kernel == (1, 3, 3))
+
+    def fused_levels(self) -> int:
+        """How many levels, from level 0, keep their outputs pending."""
+        return (min(self.num_pool, FUSED_MAX_LEVEL + 1)
+                if self.kernel_route() else 0)
+
+    def mirrored_operators(self) -> bool:
+        """Whether forward(..., flips) computes the mirrored model: every
+        kernel but a full 3D one (allConv3x3) has a flat axis to mirror
+        (flip-free TTA); otherwise TTA flips the data."""
+        return 1 in self.conv_kernel
+
     def lazy_up_route(self) -> bool:
         """Whether the level-0 nest nodes read their up-link lazily: the
         lazy kernel computes bfloat16 stride-(2, 2, 2) up-links from a
         pending level 1."""
         return (self.lazy_up and self.compute_dtype == torch.bfloat16
-                and self.num_pool > 1 and self.pools[0] == LAZY_STRIDE)
+                and self.fused_levels() > 1
+                and self.pools[0] == LAZY_STRIDE)
 
     def set_sparse_plan(self, plan: Optional[Plan]) -> None:
         """Wire the row-sparse plan (None: dense) into every nest stack and
@@ -264,12 +307,13 @@ class ShiftUNetPlusPlus(nn.Module):
             return Pending(*stack.forward_fused(parts, affines, flips))
 
         # ---- encoder
+        fl = self.fused_levels()
         lazy = self.lazy_up_route()
         nodes: Dict[Tuple[int, int], object] = {}
         h = x
         for d in range(P):
             stack = getattr(self, f"context{d}")
-            if d <= FUSED_MAX_LEVEL:
+            if d < fl:
                 # context0 from the input; context1's strided first block
                 # reads context0's pending output
                 h = fused(stack, [as_part(h, max(d - 1, 0))])
@@ -303,7 +347,7 @@ class ShiftUNetPlusPlus(nn.Module):
                 else:
                     down = max_pool(above, pools[i - 1])
                 loc = getattr(self, f"loc{z}_{k}")
-                if i <= FUSED_MAX_LEVEL:
+                if i < fl:
                     part_list = [as_part(same, i), (up, None)]
                     if down is not None:
                         part_list.append((down, None))
@@ -329,48 +373,83 @@ class ShiftUNetPlusPlus(nn.Module):
             return mod(v, probs_dtype)
 
         if not do_ds:
-            return head(0, self.head_probs_dtype)
+            return head(0, None if self.seg_bias else self.head_probs_dtype)
         return [head(i) for i in range(self.num_ds_outputs())]
 
 
-# the reference's Tconvs this port does not build yet, and the ROADMAP item
-# (Queue 1) that ports each
-_NOT_PORTED = {
-    "ori": "Queue 1 item 6 (models/unet.py)",
-    "shiftConvPP_nodff": "Queue 1 item 6 (models/unet.py)",
-    "shiftConvPP_313": "Queue 1 item 6 (the _313/_331 kernels)",
-    "shiftConvPP_331": "Queue 1 item 6 (the _313/_331 kernels)",
-    "resenc": "Queue 1 item 6 (models/resenc.py)",
-}
+# build_network's architecture switches and their defaults (the JAX
+# trainer's argument names); a checkpoint sidecar records those away from
+# their default, and a sidecar without one means its default
+ARCH_DEFAULTS = {"norm_op": "instance", "nonlin": "lrelu",
+                 "num_conv_per_stage": None, "seg_bias": False,
+                 "nonlin_before_norm": False, "conv_kernel": None}
+TCONVS = ("shiftConvPP", "shiftConvPP_noshift", "shiftConvPP_313",
+          "shiftConvPP_331", "resenc", "ori", "shiftConvPP_nodff")
 
 
 def build_network(plans_stage, num_modalities: int, num_classes_incl_bg: int,
                   tconv: str = "shiftConvPP", base_num_features: int = 48,
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  device=None) -> ShiftUNetPlusPlus:
-    """The network of a plan's stage by Tconv name (reference
-    models/unetpp.build_network, e2enet_tpu/models/unetpp.py:769-860),
-    with the plan's pool kernels; its weights are not initialised (load a
-    state_dict or reset_parameters). Builds shiftConvPP and
-    shiftConvPP_noshift (do_shift=False) on any plan; on a 2D plan (patch
-    depth 1) shiftConvPP builds shiftConvPP_noshift, as the reference
-    never shifts in 2D. The other Tconvs raise NotImplementedError naming
-    the ROADMAP item that ports them (ori also on 2D plans); an unknown
+                  norm_op: str = "instance", nonlin: str = "lrelu",
+                  num_conv_per_stage=None, seg_bias: bool = False,
+                  nonlin_before_norm: bool = False, conv_kernel=None,
+                  device=None) -> nn.Module:
+    """The network of a plan's stage by Tconv name and architecture
+    switches (reference models/unetpp.build_network,
+    e2enet_tpu/models/unetpp.py:769-860), with the plan's pool kernels; its
+    weights are not initialised (load a state_dict or reset_parameters).
+    On a 2D plan (patch depth 1) shiftConvPP builds shiftConvPP_noshift and
+    ori a ShiftUNet without the shift and max_num_features 480, as the
+    reference never shifts in 2D. shiftConvPP_313 / _331 take (3,1,3) /
+    (3,3,1) kernels without the shift; conv_kernel (allConv3x3: (3,3,3))
+    sets every kernel of the nest. The switches a network does not take
+    raise TypeError, as the reference's dataclass fields do; an unknown
     name raises KeyError."""
-    built = ("shiftConvPP", "shiftConvPP_noshift")
-    if tconv not in _NOT_PORTED and tconv not in built:
+    if tconv not in TCONVS:
         raise KeyError(f"Unknown Tconv '{tconv}'")
-    if int(plans_stage.patch_size[0]) == 1 and tconv == "shiftConvPP":
-        tconv = "shiftConvPP_noshift"
-    if tconv in _NOT_PORTED:
-        raise NotImplementedError(f"Tconv '{tconv}': ROADMAP "
-                                  f"{_NOT_PORTED[tconv]}")
+    arch = dict(norm_op=norm_op, nonlin=nonlin)
+    if num_conv_per_stage is not None:
+        # nnUNetTrainerV2_3ConvPerStage[_samefilters]
+        arch["num_conv_per_stage"] = int(num_conv_per_stage)
+    if seg_bias:
+        arch["seg_bias"] = True
+    if nonlin_before_norm:
+        arch["nonlin_before_norm"] = True
+    if conv_kernel is not None:
+        arch["conv_kernel"] = tuple(int(k) for k in conv_kernel)
     pools = tuple(tuple(int(k) for k in p)
                   for p in plans_stage.pool_op_kernel_sizes)
-    return ShiftUNetPlusPlus(
-        num_modalities, num_classes_incl_bg, pools,
-        base_num_features=base_num_features, compute_dtype=compute_dtype,
-        do_shift=tconv == "shiftConvPP", device=device)
+    common = dict(base_num_features=base_num_features,
+                  compute_dtype=compute_dtype, device=device)
+    if int(plans_stage.patch_size[0]) == 1:
+        if tconv == "shiftConvPP":
+            tconv = "shiftConvPP_noshift"
+        elif tconv == "ori":
+            from .unet import ShiftUNet
+            return ShiftUNet(num_modalities, num_classes_incl_bg, pools,
+                             do_shift=False, max_num_features=480,
+                             **common, **arch)
+    if tconv in ("shiftConvPP", "shiftConvPP_noshift"):
+        return ShiftUNetPlusPlus(
+            num_modalities, num_classes_incl_bg, pools,
+            do_shift=tconv == "shiftConvPP", **common, **arch)
+    if tconv in ("shiftConvPP_313", "shiftConvPP_331"):
+        # the reference disables the shift for these ablations
+        # (unetpp_d_313.py:102 'and False')
+        arch["conv_kernel"] = ((3, 1, 3) if tconv.endswith("313")
+                               else (3, 3, 1))
+        return ShiftUNetPlusPlus(num_modalities, num_classes_incl_bg, pools,
+                                 do_shift=False, **common, **arch)
+    if tconv == "resenc":
+        from .resenc import ResidualUNet
+        arch.pop("conv_kernel", None)
+        arch.pop("nonlin_before_norm", None)
+        return ResidualUNet(num_modalities, num_classes_incl_bg, pools,
+                            **common, **arch)
+    from .unet import ShiftUNet
+    return ShiftUNet(num_modalities, num_classes_incl_bg, pools,
+                     shift_size=3 if tconv == "ori" else 5, **common,
+                     **arch)
 
 
 def _lazy_calls(model: ShiftUNetPlusPlus) -> int:
@@ -385,27 +464,30 @@ def fused_launches_per_forward(model: ShiftUNetPlusPlus) -> int:
     transition), every nest stack at a fused level and the finals of the
     fused diagonal nodes, less the level-0 nest stacks' first blocks on the
     lazy route."""
-    P = model.num_pool
+    P, fl = model.num_pool, model.fused_levels()
     n = sum(model.num_conv_per_stage - (1 if d > 0 else 0)
-            for d in range(min(P, FUSED_MAX_LEVEL + 1)))
+            for d in range(fl))
     for j in range(1, P + 1):
         for i in range(P - j, -1, -1):
-            if i <= FUSED_MAX_LEVEL:
+            if i < fl:
                 n += model.num_conv_per_stage - 1 + (1 if P - i - j == 0
                                                      else 0)
     return n - _lazy_calls(model)
 
 
-def kernel_launches_per_forward(model: ShiftUNetPlusPlus,
+def kernel_launches_per_forward(model: nn.Module,
                                 do_ds: bool = False) -> Dict[str, int]:
     """Calls per forward of each kernel site (ops/blocks.KERNEL_OPS): the
     fused block, the lazy up-link block (level-0 nest nodes on the lazy
     route), the strided transition (context1), the materialised up-links
     into level 0 (the other route), the level-0 -> 1 down-links (one per
     level-1 nest node) and the seg heads of pending nodes. The sparse plan
-    changes no count."""
+    changes no count. A model off the kernel route (kernel_route() False:
+    the architecture switches, ShiftUNet, ResidualUNet) launches none."""
+    if not model.kernel_route():
+        return {name: 0 for name in blocks.KERNEL_OPS}
     P = model.num_pool
-    fused_levels = min(P, FUSED_MAX_LEVEL + 1)
+    fused_levels = model.fused_levels()
     n_heads = model.num_ds_outputs() if do_ds else 1
     lazy = _lazy_calls(model)
     return {
@@ -418,7 +500,7 @@ def kernel_launches_per_forward(model: ShiftUNetPlusPlus,
     }
 
 
-def kernel_launches_per_train_step(model: ShiftUNetPlusPlus,
+def kernel_launches_per_train_step(model: nn.Module,
                                    do_ds: bool = True
                                    ) -> Dict[str, Dict[str, int]]:
     """Kernel calls of one train step (a forward with do_ds, True unless

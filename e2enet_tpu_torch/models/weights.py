@@ -1,30 +1,64 @@
 """Reference parameters -> port state_dict (numpy only; no jax needed).
 
-`from_jax_params` takes the reference ShiftUNetPlusPlus `params` pytree as
-nested dicts of numpy arrays (optionally under a top-level "params" key)
-and returns a state_dict for models/unetpp.ShiftUNetPlusPlus, to be loaded
-with strict=True. The port key is the flax path joined with '.'. Layouts:
+`from_jax_params` takes a reference network's `params` pytree
+(ShiftUNetPlusPlus, ShiftUNet or ResidualUNet) as nested dicts of numpy
+arrays (optionally under a top-level "params" key) and returns a
+state_dict for the port's network, to be loaded with strict=True. The port
+key is the flax path joined with '.'. The layout follows the module and
+the leaf name, not the rank alone (a full 3D conv kernel and a transposed
+conv kernel are both rank 5):
 
   conv kernel        (kh, kw, Cin, Cout)      -> (Cout, Cin, kh, kw)
-                                                 transpose (3, 2, 0, 1)
+                     (kd, kh, kw, Cin, Cout)  -> (Cout, Cin, kd, kh, kw)
   transp-conv kernel (sd, sh, sw, Cin, Cout)  -> (Cin, Cout, sd, sh, sw)
-                                                 transpose (3, 4, 0, 1, 2)
-  seg-head kernel    (Cin, K)                 -> (K, Cin), transpose (1, 0)
-  bias, norm_scale, norm_bias (C,)            -> unchanged
+    (the `kernel` of a module named up*: up{z}_{k}, up_{u}, up{i})
+  seg-head kernel    (Cin, K)                 -> (K, Cin)
+  ResidualUNet's conv1, conv2, skip_conv, initial_conv: conv kernels
+  bias, norm_scale, norm_bias, frn_tau and ResidualUNet's vectors (C,)
+                                              -> unchanged
 
 `to_jax_params` is its inverse: a port state_dict (tensors or numpy) back
 to the reference's nested params tree of float32 numpy arrays, which the
 JAX package's checkpoint loader reads.
 """
 from collections.abc import Mapping
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
 
-_KERNEL_PERM = {4: (3, 2, 0, 1), 5: (3, 4, 0, 1, 2), 2: (1, 0)}
-_KERNEL_UNPERM = {n: tuple(int(i) for i in np.argsort(p))
-                  for n, p in _KERNEL_PERM.items()}
+CONV_LEAVES = ("kernel", "conv1", "conv2", "skip_conv", "initial_conv")
+VECTOR_LEAVES = ("bias", "norm_scale", "norm_bias", "frn_tau",
+                 "bias1", "scale1", "nbias1", "bias2", "scale2", "nbias2",
+                 "skip_scale", "skip_nbias", "initial_bias",
+                 "initial_scale", "initial_nbias")
+_CONV_PERM = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2), 2: (1, 0)}
+_TRANSP_PERM = (3, 4, 0, 1, 2)
+
+
+def is_transposed(path: Sequence[str]) -> bool:
+    """Whether the kernel at `path` (module names, then the leaf) is a
+    transposed conv's: the reference names every up-link module up*."""
+    return (len(path) >= 2 and path[-1] == "kernel"
+            and str(path[-2]).startswith("up"))
+
+
+def kernel_perm(path: Sequence[str], ndim: int) -> Tuple[int, ...]:
+    """The transpose taking the flax layout of the kernel at `path` (rank
+    ndim) to the port's."""
+    if is_transposed(path):
+        if ndim != 5:
+            raise ValueError(f"{'/'.join(path)}: a transposed conv kernel "
+                             f"of rank {ndim}")
+        return _TRANSP_PERM
+    if ndim not in _CONV_PERM:
+        raise ValueError(f"{'/'.join(path)}: unexpected kernel rank {ndim}")
+    return _CONV_PERM[ndim]
+
+
+def kernel_unperm(path: Sequence[str], ndim: int) -> Tuple[int, ...]:
+    """kernel_perm's inverse: the port's layout back to the flax one."""
+    return tuple(int(i) for i in np.argsort(kernel_perm(path, ndim)))
 
 
 def _leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -36,20 +70,21 @@ def _leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
             yield prefix + (str(key),), v
 
 
+def _check_leaf(path: Sequence[str]) -> None:
+    if path[-1] not in CONV_LEAVES + VECTOR_LEAVES:
+        raise ValueError(f"{'/'.join(path)}: unknown parameter")
+
+
 def from_jax_params(params) -> Dict[str, torch.Tensor]:
     tree = params
     if set(tree) == {"params"}:
         tree = tree["params"]
     sd = {}
     for path, leaf in _leaves(tree):
+        _check_leaf(path)
         a = np.asarray(leaf, dtype=np.float32)
-        if path[-1] == "kernel":
-            if a.ndim not in _KERNEL_PERM:
-                raise ValueError(f"{'/'.join(path)}: unexpected kernel rank "
-                                 f"{a.ndim}")
-            a = np.transpose(a, _KERNEL_PERM[a.ndim])
-        elif path[-1] not in ("bias", "norm_scale", "norm_bias"):
-            raise ValueError(f"{'/'.join(path)}: unknown parameter")
+        if path[-1] in CONV_LEAVES:
+            a = np.transpose(a, kernel_perm(path, a.ndim))
         key = ".".join(path)
         assert key not in sd, key
         sd[key] = torch.from_numpy(np.ascontiguousarray(a))
@@ -63,16 +98,13 @@ def to_jax_params(state_dict) -> dict:
     for key, t in state_dict.items():
         a = (t.detach().cpu().float().numpy() if isinstance(t, torch.Tensor)
              else np.asarray(t, np.float32))
-        *path, leaf = key.split(".")
-        if leaf == "kernel":
-            if a.ndim not in _KERNEL_UNPERM:
-                raise ValueError(f"{key}: unexpected kernel rank {a.ndim}")
-            a = np.transpose(a, _KERNEL_UNPERM[a.ndim])
-        elif leaf not in ("bias", "norm_scale", "norm_bias"):
-            raise ValueError(f"{key}: unknown parameter")
+        path = key.split(".")
+        _check_leaf(path)
+        if path[-1] in CONV_LEAVES:
+            a = np.transpose(a, kernel_unperm(path, a.ndim))
         node = tree
-        for p in path:
+        for p in path[:-1]:
             node = node.setdefault(p, {})
-        assert leaf not in node, key
-        node[leaf] = np.ascontiguousarray(a, np.float32)
+        assert path[-1] not in node, key
+        node[path[-1]] = np.ascontiguousarray(a, np.float32)
     return tree

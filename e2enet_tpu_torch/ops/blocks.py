@@ -1,17 +1,21 @@
 """Network building blocks in channels-last (N, D, H, W, C) torch ops: the
-subset of e2enet_tpu/ops/blocks.py the ShiftUNet++ forward and its
-gradient take. The port has no quadrant or
-padded channels-first layout.
+counterpart of e2enet_tpu/ops/blocks.py without its quadrant or padded
+channels-first layouts.
 
-Every conv of the model has a (1,3,3) kernel, so a 3D conv is a batched 2D
-conv with D folded into the batch; a depth stride is a slice of D before
-the fold. Transposed convs have kernel == stride and are one matmul followed
-by a depth-to-space reshape.
+A conv whose kernel is 1 along one axis ((1,3,3), and the (3,1,3) / (3,3,1)
+ablations) is a batched 2D conv with that axis folded into the batch
+(conv3d_one_flat); a stride along it is a slice before the fold. A full 3D
+kernel ((3,3,3): allConv3x3, the residual-encoder UNet) is cuDNN's 3D conv
+(conv3d_full), with no depth shift and no mirrored operator. Transposed
+convs have kernel == stride and are one matmul followed by a
+depth-to-space reshape. The norms (NORM_OPS) and nonlinearities (NONLINS)
+of the reference's architectural variants are plain torch.
 
-Parameter layouts are PyTorch's: conv kernels (Cout, Cin, kh, kw), transposed
-conv kernels (Cin, Cout, sd, sh, sw), seg-head kernels (K, Cin). Parameters
-are stored in float32 and cast to the compute dtype at use, as the reference
-casts its float32 params.
+Parameter layouts are PyTorch's: conv kernels (Cout, Cin, k, k) with the
+flat axis dropped or (Cout, Cin, kd, kh, kw), transposed conv kernels (Cin,
+Cout, sd, sh, sw), seg-head kernels (K, Cin). Parameters are stored in
+float32 and cast to the compute dtype at use, as the reference casts its
+float32 params.
 
 Every op takes `flips` (fd, fh, fw) and then computes its mirrored variant,
 op(x, flips=c) == flip_c(op(flip_c(x))), with the same parameters
@@ -47,8 +51,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .autograd import needs_grad
-from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, NO_FLIPS, Flips,
-                          block_groups, fused_shift_conv_block,
+from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, NO_FLIPS, SHIFT_SIZE,
+                          Flips, block_groups, fused_shift_conv_block,
                           fused_shift_conv_block_bwd,
                           fused_shift_conv_block_bwd_ref,
                           fused_shift_conv_block_ref, lrelu_where,
@@ -59,7 +63,8 @@ from .qlink import (downlink, downlink_bwd, downlink_bwd_ref, downlink_ref,
                     flip_transp_kernel, seghead, seghead_ref, uplink,
                     uplink_ref)
 from .qstride import strided_fused, strided_fused_ref
-from .shift import compact_groups, depth_shift_groups, restrict_groups
+from .shift import (compact_groups, depth_shift_groups, group_shifts,
+                    restrict_groups)
 
 # kernel site name -> (kernel wrapper, plain version)
 KERNEL_OPS = {
@@ -118,8 +123,73 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale.float() + bias.float()).to(dtype)
 
 
-def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return lrelu_where(x)
+def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
+    """jnp.where(x >= 0, x, x * slope) with the slope rounded to x's dtype
+    (derivative 1 at 0), as the reference's blocks.leaky_relu."""
+    if slope == LRELU_SLOPE:
+        return lrelu_where(x)
+    return torch.where(x >= 0, x, x * float(torch.tensor(slope,
+                                                         dtype=x.dtype)))
+
+
+def _affine_f32(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = INSTNORM_EPS) -> torch.Tensor:
+    """Per-channel normalization over (N, D, H, W) with batch statistics,
+    in training and at inference alike (reference blocks.batch_norm: the
+    functional trainer keeps no running averages)."""
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    mean = xf.mean(axes, keepdim=True)
+    var = (xf - mean).square().mean(axes, keepdim=True)
+    return _affine_f32((xf - mean) * torch.rsqrt(var + eps), scale, bias,
+                       x.dtype)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int = 8, eps: float = INSTNORM_EPS
+               ) -> torch.Tensor:
+    """GroupNorm over 8 channel groups, or one group where C % 8 != 0
+    (reference blocks.group_norm)."""
+    N, C = x.shape[0], x.shape[-1]
+    g = num_groups if C % num_groups == 0 else 1
+    xf = x.float().reshape(N, -1, g, C // g)
+    mean = xf.mean((1, 3), keepdim=True)
+    var = (xf - mean).square().mean((1, 3), keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return _affine_f32(y, scale, bias, x.dtype)
+
+
+def frn(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+        eps: float = 1e-6) -> torch.Tensor:
+    """Filter response normalization, x / sqrt(mean(x^2) + eps) over D, H,
+    W, then the affine (reference blocks.frn); a block pairs it with the
+    thresholded linear unit max(y, tau)."""
+    xf = x.float()
+    nu2 = (xf * xf).mean(tuple(range(1, x.dim() - 1)), keepdim=True)
+    return _affine_f32(xf * torch.rsqrt(nu2 + eps), scale, bias, x.dtype)
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """x * tanh(softplus(x)) in float32 (reference blocks.mish)."""
+    xf = x.float()
+    return (xf * torch.tanh(F.softplus(xf))).to(x.dtype)
+
+
+NORM_OPS = {"instance": instance_norm, "batch": batch_norm,
+            "group": group_norm, "frn": frn,
+            "none": lambda x, scale, bias: x}
+
+# jax.nn.gelu is the tanh approximation by default (approximate=True)
+NONLINS = {"lrelu": leaky_relu, "relu": torch.relu,
+           "gelu": lambda x: F.gelu(x, approximate="tanh"), "mish": mish,
+           "none": lambda x: x,
+           # nnUNetTrainerV2_LReLU_slope_2en1
+           "lrelu2e1": lambda x: leaky_relu(x, 0.2)}
 
 
 def conv3d_as_2d(x: torch.Tensor, kernel: torch.Tensor,
@@ -150,6 +220,43 @@ def conv3d_as_2d(x: torch.Tensor, kernel: torch.Tensor,
         y = F.conv2d(F.pad(x2, pads), k2, None, stride=(sh, sw))
     Ho, Wo = y.shape[2], y.shape[3]
     y = y.permute(0, 2, 3, 1).reshape(N, D, Ho, Wo, cout)
+    if bias is not None:
+        y = y + bias.to(compute_dtype)
+    return y
+
+
+def conv3d_one_flat(x: torch.Tensor, kernel: torch.Tensor,
+                    bias: Optional[torch.Tensor],
+                    stride: Tuple[int, int, int], flat_axis: int,
+                    compute_dtype: torch.dtype,
+                    flips: Flips = NO_FLIPS) -> torch.Tensor:
+    """A 3D conv whose kernel is 1 along `flat_axis` (0 = D, 1 = H, 2 = W):
+    that axis moved into the depth slot of conv3d_as_2d, kernel (Cout, Cin,
+    ka, kb) over the other two axes in order. Covers the _313 / _331
+    ablations; flips as conv3d_as_2d's, per true axis (reference
+    conv3d_one_flat)."""
+    if flat_axis == 0:
+        return conv3d_as_2d(x, kernel, bias, stride, compute_dtype, flips)
+    perm = {1: (0, 2, 1, 3, 4), 2: (0, 3, 1, 2, 4)}[flat_axis]
+    inv = {1: (0, 2, 1, 3, 4), 2: (0, 2, 3, 1, 4)}[flat_axis]
+    order = {1: (1, 0, 2), 2: (2, 0, 1)}[flat_axis]
+    y = conv3d_as_2d(x.permute(perm), kernel, bias,
+                     tuple(stride[a] for a in order), compute_dtype,
+                     tuple(flips[a] for a in order))
+    return y.permute(inv)
+
+
+def conv3d_full(x: torch.Tensor, kernel: torch.Tensor,
+                bias: Optional[torch.Tensor], stride: Tuple[int, int, int],
+                compute_dtype: torch.dtype) -> torch.Tensor:
+    """cuDNN's 3D conv of x (N, D, H, W, Cin) with kernel (Cout, Cin, kd,
+    kh, kw), padding k//2 per side, the bias added in the compute dtype
+    (reference conv3d_full). It has no mirrored variant: networks built
+    from it take data-flip TTA."""
+    pad = tuple(int(k) // 2 for k in kernel.shape[2:])
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3).to(compute_dtype),
+                 kernel.to(compute_dtype), None, stride=tuple(stride),
+                 padding=pad).permute(0, 2, 3, 4, 1)
     if bias is not None:
         y = y + bias.to(compute_dtype)
     return y
@@ -225,11 +332,30 @@ def _gather_index(alive, full: int, compact: bool, device):
     return _index(alive, device)
 
 
+def _he_shape(kernel: Tuple[int, int, int]) -> Tuple[int, ...]:
+    """The spatial dims of a conv parameter of kernel (kd, kh, kw): the two
+    that are not 1 when one is (the batched-2D layout), all three
+    otherwise."""
+    flat = [i for i, k in enumerate(kernel) if k == 1]
+    if not flat:
+        return tuple(kernel)
+    spatial = tuple(k for k in kernel if k != 1) or (1, 1)
+    return spatial if len(spatial) == 2 else (spatial[0], 1)
+
+
 class ShiftConvBlock(nn.Module):
-    """shift -> conv(1,3,3) -> instance norm -> leaky relu (reference
-    ShiftConvBlock, (1,3,3) list-of-parts branch). do_shift=False drops the
-    shift (shiftConvPP_noshift, 2D plans): every kernel site then takes one
-    group of shift 0 (fused_block.shift_groups).
+    """shift -> conv -> norm -> nonlinearity (reference ShiftConvBlock,
+    list-of-parts branch). The defaults are shiftConvPP's: a (1,3,3)
+    kernel, shift size 5, instance norm, leaky relu. do_shift=False drops
+    the shift (shiftConvPP_noshift, 2D plans): every kernel site then
+    takes one group of shift 0 (fused_block.shift_groups). The shift
+    applies only to a (1,3,3) kernel, in groups of shift_size (3 for ori).
+    kernel (3,1,3) / (3,3,1) runs the batched-2D conv over the other flat
+    axis, (3,3,3) cuDNN's 3D conv (no shift, no mirrored operator).
+    norm_op (NORM_OPS) and nonlin (NONLINS) as the reference's; with
+    nonlin_before_norm the block is conv -> nonlin -> norm; otherwise
+    norm_op "frn" adds the parameter frn_tau and ends in max(y, frn_tau)
+    (the TLU) instead of the nonlinearity.
 
     forward(parts, flips): plain torch; x may be a tensor or a list of parts
     of an implicit channel concat, conv(shift(cat)) == sum_p
@@ -239,33 +365,70 @@ class ShiftConvBlock(nn.Module):
     forward_fused(parts, affines, flips): runs the fused block op (stride
     1; the lazy up-link op when the last part is a LazyUp) or the strided
     transition (one part with a pending affine) and returns (raw, stats,
-    norm_scale, norm_bias) with the norm pending.
+    norm_scale, norm_bias) with the norm pending. Only the default block
+    (kernel_block()) has that route.
     """
 
     def __init__(self, in_channels: int, features: int,
                  stride: Tuple[int, int, int] = (1, 1, 1),
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 do_shift: bool = True, device=None):
+                 do_shift: bool = True, device=None,
+                 kernel: Tuple[int, int, int] = (1, 3, 3),
+                 shift_size: int = SHIFT_SIZE, norm_op: str = "instance",
+                 nonlin: str = "lrelu", nonlin_before_norm: bool = False):
         super().__init__()
+        if norm_op not in NORM_OPS or nonlin not in NONLINS:
+            raise ValueError(f"norm_op {norm_op!r} / nonlin {nonlin!r}: "
+                             f"one of {sorted(NORM_OPS)} / "
+                             f"{sorted(NONLINS)}")
         self.in_channels = in_channels
         self.features = features
         self.stride = tuple(stride)
         self.do_shift = do_shift
         self.compute_dtype = compute_dtype
+        self.kernel_size = tuple(int(k) for k in kernel)
+        flat = [i for i, k in enumerate(self.kernel_size) if k == 1]
+        self.flat_axis = flat[0] if flat else None
+        self.shift_size = shift_size
+        self.shifting = do_shift and self.kernel_size == (1, 3, 3)
+        self.norm_op, self.nonlin = norm_op, nonlin
+        self.nonlin_before_norm = nonlin_before_norm
         f32 = dict(dtype=torch.float32, device=device)
-        self.kernel = nn.Parameter(
-            torch.empty(features, in_channels, 3, 3, **f32))
+        self.kernel = nn.Parameter(torch.empty(
+            features, in_channels, *_he_shape(self.kernel_size), **f32))
         self.bias = nn.Parameter(torch.zeros(features, **f32))
         self.norm_scale = nn.Parameter(torch.ones(features, **f32))
         self.norm_bias = nn.Parameter(torch.zeros(features, **f32))
+        # the TLU's threshold: FRN's, unless the nonlinearity comes first
+        self.tlu = norm_op == "frn" and not nonlin_before_norm
+        if self.tlu:
+            self.frn_tau = nn.Parameter(torch.zeros(features, **f32))
         self.set_sparse()
 
+    def kernel_block(self) -> bool:
+        """Whether the block is the one the kernels bake: (1,3,3), shift
+        size 5 or none, instance norm, then leaky relu."""
+        return (self.kernel_size == (1, 3, 3)
+                and (self.shift_size == SHIFT_SIZE or not self.do_shift)
+                and self.norm_op == "instance" and self.nonlin == "lrelu"
+                and not self.nonlin_before_norm)
+
     def reset_parameters(self, generator: torch.Generator) -> None:
-        _he_normal_(self.kernel, 9 * self.in_channels, generator)
+        _he_normal_(self.kernel, math.prod(self.kernel.shape[1:]),
+                    generator)
         with torch.no_grad():
             self.bias.zero_()
             self.norm_scale.fill_(1.0)
             self.norm_bias.zero_()
+            if self.tlu:
+                self.frn_tau.zero_()
+
+    def _full_groups(self, C: int):
+        """The shift groups over C concat channels: shift_size groups, or
+        one group of shift 0 without the shift."""
+        if not self.shifting:
+            return shift_groups(C, False)
+        return tuple(group_shifts(C, self.shift_size))
 
     def set_sparse(self, sparse_in=None, sparse_in_full=None,
                    sparse_compact=None, sparse_out=None) -> None:
@@ -278,8 +441,9 @@ class ShiftConvBlock(nn.Module):
         Without the shift every site takes the one-group table."""
         dev = self.kernel.device
         rows, self._gathers = None, None
-        self._groups = (None if self.do_shift
-                        else shift_groups(self.in_channels, False))
+        self._groups = (None if self.shifting
+                        and self.shift_size == SHIFT_SIZE
+                        else self._full_groups(self.in_channels))
         if sparse_in is not None:
             full = tuple(int(f) for f in sparse_in_full)
             compact = tuple(sparse_compact or (False,) * len(full))
@@ -287,11 +451,11 @@ class ShiftConvBlock(nn.Module):
             galive = [off[p] + int(c) for p, a in enumerate(sparse_in)
                       for c in a]
             rows = _index(galive, dev)
-            self._groups = compact_groups(
-                shift_groups(sum(full), self.do_shift), galive)
+            self._groups = compact_groups(self._full_groups(sum(full)),
+                                          galive)
             self._gathers = [_gather_index(a, f, c, dev) for a, f, c
                              in zip(sparse_in, full, compact)]
-        cols = _index(sparse_out, dev)
+        cols = self._cols = _index(sparse_out, dev)
         self._derived = None
         if rows is not None or cols is not None:
             def derive():
@@ -331,30 +495,57 @@ class ShiftConvBlock(nn.Module):
             affs.append(a)
         return out, affs
 
+    def norm_nonlin(self, y: torch.Tensor, scale: torch.Tensor,
+                    nbias: torch.Tensor) -> torch.Tensor:
+        """The block's tail on its conv output y (reference
+        ShiftConvBlock)."""
+        norm, act = NORM_OPS[self.norm_op], NONLINS[self.nonlin]
+        if self.nonlin_before_norm:
+            return norm(act(y), scale, nbias)
+        y = norm(y, scale, nbias)
+        if self.tlu:
+            tau = (self.frn_tau if self._cols is None
+                   else self.frn_tau.index_select(0, self._cols))
+            return torch.maximum(y, tau.to(y.dtype))
+        return act(y)
+
     def forward(self, x, flips: Flips = NO_FLIPS) -> torch.Tensor:
         parts = list(x) if isinstance(x, (list, tuple)) else [x]
         kernel, bias, scale, nbias = self.weights()
         parts, _ = self._gather_parts(parts)
         cin = sum(int(p.shape[-1]) for p in parts)
         assert cin == kernel.shape[1], (cin, tuple(kernel.shape))
+        if self.flat_axis is None and any(flips):
+            raise ValueError("a full 3D kernel has no mirrored operator: "
+                             "its network takes data-flip TTA")
         # a mirrored depth negates the shifts; conv3d_as_2d re-anchors the
         # depth stride
-        groups = block_groups(cin, flips, self._groups)
+        groups = (block_groups(cin, flips, self._groups) if self.shifting
+                  else None)
         y = None
         off = 0
         for part in parts:
             pc = int(part.shape[-1])
-            part = depth_shift_groups(part,
-                                      restrict_groups(groups, off, off + pc))
-            contrib = conv3d_as_2d(part, kernel[:, off:off + pc],
-                                   bias if y is None else None,
-                                   self.stride, self.compute_dtype, flips)
+            if groups is not None:
+                part = depth_shift_groups(
+                    part, restrict_groups(groups, off, off + pc))
+            k = kernel[:, off:off + pc]
+            b = bias if y is None else None
+            contrib = (conv3d_full(part, k, b, self.stride,
+                                   self.compute_dtype)
+                       if self.flat_axis is None else
+                       conv3d_one_flat(part, k, b, self.stride,
+                                       self.flat_axis, self.compute_dtype,
+                                       flips))
             y = contrib if y is None else y + contrib
             off += pc
-        return leaky_relu(instance_norm(y, scale, nbias))
+        return self.norm_nonlin(y, scale, nbias)
 
     def forward_fused(self, parts: Sequence, affines,
                       flips: Flips = NO_FLIPS):
+        if not self.kernel_block():
+            raise ValueError("the kernels bake a (1,3,3) block with instance "
+                             "norm and leaky relu; this block materialises")
         cd = self.compute_dtype
         kernel, bias, scale, nbias = self.weights()
         if self.stride == (1, 1, 1):
@@ -382,7 +573,9 @@ class StackedConvBlocks(nn.Module):
     def __init__(self, in_channels: int, features: int, num_convs: int,
                  first_stride: Tuple[int, int, int] = (1, 1, 1),
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 do_shift: bool = True, device=None):
+                 do_shift: bool = True, device=None, **block_kw):
+        """block_kw: ShiftConvBlock's kernel, shift_size, norm_op, nonlin,
+        nonlin_before_norm, the same for every block."""
         super().__init__()
         self.num_convs = num_convs
         self.features = features
@@ -391,7 +584,7 @@ class StackedConvBlocks(nn.Module):
                 in_channels if i == 0 else features, features,
                 stride=first_stride if i == 0 else (1, 1, 1),
                 compute_dtype=compute_dtype, do_shift=do_shift,
-                device=device))
+                device=device, **block_kw))
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.num_convs)]
@@ -507,26 +700,45 @@ class TranspConv(nn.Module):
 
 
 class SegHead(nn.Module):
-    """1x1x1 conv without bias; float32 logits from compute-dtype operands
-    (products exact, float32 sums, as the reference's
-    preferred_element_type=float32). With probs_dtype, the float32 class
-    softmax of the logits stored in that dtype instead (the probs head).
-    forward_pending reads a pending input through the seg-head op."""
+    """1x1x1 conv, with a bias only when use_bias (the *_biasInSegOutput
+    variants); float32 logits from compute-dtype operands (products exact,
+    float32 sums, as the reference's preferred_element_type=float32), the
+    bias added to them in float32. With probs_dtype, the float32 class
+    softmax of the logits stored in that dtype instead (the probs head,
+    refused with a bias as in the reference). forward_pending reads a
+    pending input through the seg-head op."""
 
     def __init__(self, in_channels: int, num_classes: int,
-                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 use_bias: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.use_bias = use_bias
         self.kernel = nn.Parameter(torch.empty(
             num_classes, in_channels, dtype=torch.float32, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(
+                num_classes, dtype=torch.float32, device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _he_normal_(self.kernel, self.kernel.shape[1], generator)
+        if self.use_bias:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def _check_probs(self, probs_dtype) -> None:
+        if probs_dtype is not None and self.use_bias:
+            raise ValueError("a seg head with a bias has no probs head "
+                             "(reference SegHead: emit_probs_dtype asserts "
+                             "not use_bias)")
 
     def forward(self, x: torch.Tensor,
                 probs_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        self._check_probs(probs_dtype)
         cd = self.compute_dtype
         logits = x.to(cd).float() @ self.kernel.to(cd).float().t()
+        if self.use_bias:
+            logits = logits + self.bias
         if probs_dtype is None:
             return logits
         return torch.softmax(logits, dim=-1).to(probs_dtype)
@@ -535,5 +747,7 @@ class SegHead(nn.Module):
                         off: torch.Tensor,
                         probs_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
-        return seghead(raw.to(self.compute_dtype), mult, off,
-                       self.kernel.to(self.compute_dtype), probs_dtype)
+        self._check_probs(probs_dtype)
+        out = seghead(raw.to(self.compute_dtype), mult, off,
+                      self.kernel.to(self.compute_dtype), probs_dtype)
+        return out + self.bias if self.use_bias else out

@@ -53,7 +53,9 @@ def predict_next_stage(trainer, stage_to_be_predicted_folder: str,
     maybe_mkdir_p(stage_to_be_predicted_folder)
     net = trainer.network
     patch = tuple(int(i) for i in trainer.patch_size)
-    fns = mirror_apply_fns_for(net) if do_mirroring else None
+    # flip-free TTA where the network has mirrored operators
+    fns = (mirror_apply_fns_for(net)
+           if do_mirroring and net.mirrored_operators() else None)
     for pat in trainer.dataset_val.keys():
         print("pred_next_stage:", pat)
         data = np.asarray(load_case(trainer.dataset_val[pat]))[:-1]

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.masks import mask_shape, masked_params
+from ..models.masks import mask_shape, masked_params, transposed_name
 
 GROWTH_MODES = ("random", "gradient")
 F32 = np.float32
@@ -70,7 +70,7 @@ def init_masks_row(model: nn.Module, density: float,
     params = masked_params(model)
     for name in _sorted_names(params):
         w = params[name]
-        cin, cout = mask_shape(w)
+        cin, cout = mask_shape(w, transposed_name(name))
         d = density_48_override if int(w.shape[0]) == 48 else density
         n_alive = max(1, min(int(round(cin * d)), cin))
         perm = torch.randperm(cin, generator=generator)
@@ -81,14 +81,22 @@ def init_masks_row(model: nn.Module, density: float,
     return masks
 
 
-def _row_l1(w: torch.Tensor) -> torch.Tensor:
-    """L1 of each input row (the in axis of the (in, out) mask) over the
-    spatial taps and the outputs: conv (CO, C, kh, kw) or transposed conv
-    (Cin, Cout, sd, sh, sw)."""
+def _io(w: torch.Tensor, transposed: Optional[bool]) -> torch.Tensor:
+    """|w| in float32 as (in, out, taps...): a conv (CO, C, ...) kernel's
+    first two dims swapped, a transposed conv's (Cin, Cout, ...) as it is
+    (models/masks.mask_shape's rule)."""
     a = w.detach().float().abs()
-    if w.dim() == 4:
-        return a.sum(dim=(0, 2, 3))
-    return a.sum(dim=(1, 2, 3, 4))
+    tr = w.dim() == 5 if transposed is None else transposed
+    return a if tr else a.transpose(0, 1)
+
+
+def _row_l1(w: torch.Tensor, transposed: Optional[bool] = None
+            ) -> torch.Tensor:
+    """L1 of each input row (the in axis of the (in, out) mask) over the
+    spatial taps and the outputs: conv (CO, C, ...) or transposed conv
+    (Cin, Cout, sd, sh, sw)."""
+    a = _io(w, transposed)
+    return a.sum(dim=tuple(range(1, a.dim())))
 
 
 def _grow_top(score: torch.Tensor, num_death: int) -> torch.Tensor:
@@ -117,7 +125,8 @@ def _scored(dead: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
 def layer_death_growth_row(w: torch.Tensor, mask: torch.Tensor,
                            death_rate: float,
                            generator: Optional[torch.Generator] = None,
-                           scores: Optional[torch.Tensor] = None
+                           scores: Optional[torch.Tensor] = None,
+                           transposed: Optional[bool] = None
                            ) -> Tuple[torch.Tensor, int]:
     """One kernel's row death and regrowth (reference dsff.py:415-452):
     kill the ceil(death_rate * alive) alive rows of smallest L1 (ties can
@@ -127,7 +136,7 @@ def layer_death_growth_row(w: torch.Tensor, mask: torch.Tensor,
     Returns (new mask (in, out), kernel pairs killed)."""
     cin, cout = mask.shape
     rows = mask[:, 0].float()
-    l1 = _row_l1(w) * rows
+    l1 = _row_l1(w, transposed) * rows
     nonzeros = rows.sum()
     zeros = cin - nonzeros
     prune_num = torch.ceil(torch.tensor(death_rate, dtype=torch.float32)
@@ -144,13 +153,12 @@ def layer_death_growth_row(w: torch.Tensor, mask: torch.Tensor,
     return new_rows[:, None].expand(cin, cout).contiguous(), num_death * cout
 
 
-def _kernel_l1(w: torch.Tensor) -> torch.Tensor:
+def _kernel_l1(w: torch.Tensor, transposed: Optional[bool] = None
+               ) -> torch.Tensor:
     """L1 of each kernel pair over its spatial taps, as (in, out): conv
-    (CO, C, kh, kw) or transposed conv (Cin, Cout, sd, sh, sw)."""
-    a = w.detach().float().abs()
-    if w.dim() == 4:
-        return a.sum(dim=(2, 3)).t()
-    return a.sum(dim=(2, 3, 4))
+    (CO, C, ...) or transposed conv (Cin, Cout, sd, sh, sw)."""
+    a = _io(w, transposed)
+    return a.sum(dim=tuple(range(2, a.dim())))
 
 
 def init_masks(model: nn.Module, density: float, generator: torch.Generator,
@@ -166,7 +174,7 @@ def init_masks(model: nn.Module, density: float, generator: torch.Generator,
     params = masked_params(model)
     for name in _sorted_names(params):
         w = params[name]
-        cin, cout = mask_shape(w)
+        cin, cout = mask_shape(w, transposed_name(name))
         if mode == "dense":
             masks[name] = torch.ones((cin, cout), dtype=torch.float32,
                                      device=w.device)
@@ -271,7 +279,9 @@ def layer_death_growth_element(w: torch.Tensor, mask: torch.Tensor,
 
 
 def kernel_death_survive(w: torch.Tensor, mask: torch.Tensor,
-                         death_rate: float) -> Tuple[torch.Tensor, int]:
+                         death_rate: float,
+                         transposed: Optional[bool] = None
+                         ) -> Tuple[torch.Tensor, int]:
     """The death half of one kernel's update (reference dsff.py:244-270,
     kernel_death of core_channel.py:647-666): kill the (dead pairs +
     ceil(death_rate * alive)) pairs of smallest L1, already-dead pairs
@@ -282,7 +292,7 @@ def kernel_death_survive(w: torch.Tensor, mask: torch.Tensor,
     k_size = int(np.prod(w.shape[2:]))
     n_pairs = cin * cout
     m = mask.float()
-    l1 = _kernel_l1(w) * m
+    l1 = _kernel_l1(w, transposed) * m
     f32 = dict(dtype=torch.float32)
     nonzeros_el = m.sum().cpu() * k_size
     zeros_el = torch.tensor(float(n_pairs * k_size), **f32) - nonzeros_el
@@ -298,7 +308,8 @@ def kernel_death_survive(w: torch.Tensor, mask: torch.Tensor,
 def layer_death_growth(w: torch.Tensor, mask: torch.Tensor,
                        death_rate: float,
                        generator: Optional[torch.Generator] = None,
-                       scores: Optional[torch.Tensor] = None
+                       scores: Optional[torch.Tensor] = None,
+                       transposed: Optional[bool] = None
                        ) -> Tuple[torch.Tensor, int]:
     """One kernel's death and regrowth at kernel granularity (reference
     dsff.py:273-302, kernel_growth / kernel_grad_growth of
@@ -308,7 +319,8 @@ def layer_death_growth(w: torch.Tensor, mask: torch.Tensor,
     per pair for gradient growth; _grow_top). Returns (new mask (in, out),
     pairs killed)."""
     cin, cout = mask.shape
-    survived, num_death = kernel_death_survive(w, mask, death_rate)
+    survived, num_death = kernel_death_survive(w, mask, death_rate,
+                                               transposed)
     if scores is None:
         scores = torch.rand((cin, cout), generator=generator)
     grow = _grow_top(_scored(1.0 - survived, scores), num_death)
@@ -334,8 +346,8 @@ def gradient_scores(grads: Dict[str, torch.Tensor], granularity: str
     taps ("kernel"), or per input row over the taps and the outputs
     ("row"); reference dsff.py:224, :278-280, :435-437."""
     l1 = {"row": _row_l1, "kernel": _kernel_l1,
-          "element": lambda g: g.detach().float().abs()}[granularity]
-    return {n: l1(g) for n, g in grads.items()}
+          "element": lambda g, _: g.detach().float().abs()}[granularity]
+    return {n: l1(g, transposed_name(n)) for n, g in grads.items()}
 
 
 def check_growth(growth: str) -> None:
@@ -372,9 +384,11 @@ def death_growth_update(model: nn.Module, masks: Dict[str, torch.Tensor],
     params = masked_params(model)
     new, total = {}, 0
     for name in _sorted_names(masks):
+        kw = ({} if granularity == "element"
+              else dict(transposed=transposed_name(name)))
         nm, nd = fns[granularity](
             params[name], masks[name], death_rate, generator,
-            None if scores is None else scores[name])
+            None if scores is None else scores[name], **kw)
         new[name] = nm
         total += nd
     return new, {"total_death": total}

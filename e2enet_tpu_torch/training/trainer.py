@@ -22,7 +22,8 @@ device until the epoch ends, so no step waits for the card. Checkpoints
 are the JAX package's format, the whole train state
 (training/checkpoint.save_train_state): either package continues the
 other's. Validation predicts every validation case by the sliding window
-(ops/sliding.predict_volume_tiled, flip-free mirror TTA), exports it
+(ops/sliding.predict_volume_tiled, flip-free mirror TTA where the network
+has mirrored operators, data flips otherwise), exports it
 (inference/export.py), scores it (evaluation/) and decides the
 postprocessing (postprocessing/connected_components.py).
 
@@ -61,10 +62,18 @@ label-wise scores and the postprocessing. The validation batches get the
 region targets too: the reference gives them the labels, on which its
 region losses cannot run (ROADMAP Queue 3).
 
+The architecture switches (norm_op, nonlin, num_conv_per_stage, seg_bias,
+nonlin_before_norm, conv_kernel) and every Tconv of models/unetpp.
+build_network train; the checkpoint sidecar's `init` records those away
+from their default under these names (a default network's sidecar is the
+JAX trainer's), so the predictor builds the network the fold was trained
+with. A network with mirrored operators validates with flip-free TTA, one
+without (resenc, a full 3D kernel) with data flips.
+
 Not ported, each raising NotImplementedError that names its ROADMAP item:
-the architecture switches (item 6), several devices (item 7) and device
-augmentation (item 8). `fused` and `remat` choose between XLA programs of
-the reference and have no meaning here.
+several devices (item 7) and device augmentation (item 8). `fused` and
+`remat` choose between XLA programs of the reference and have no meaning
+here.
 """
 import json
 import os
@@ -81,8 +90,8 @@ from ..data.pipeline import BatchPipeline
 from ..data.sampler import PatchSampler3D
 from ..inference.predictor import mirror_apply_fns_for, require_device
 from ..models.masks import masks_density, masks_for_model, masks_to_flax
-from ..models.unetpp import (build_network, deep_supervision_scales,
-                             ds_loss_weights)
+from ..models.unetpp import (ARCH_DEFAULTS, build_network,
+                             deep_supervision_scales, ds_loss_weights)
 from ..plans import Plans
 from ..utils.files import (isfile, join, load_pickle, maybe_mkdir_p,
                            save_json)
@@ -100,16 +109,12 @@ from .train_state import (apply_new_masks, create_train_state, make_eval_step,
                           make_train_step)
 from .variants import apply_da_level
 
-ARCH_ITEM = "ROADMAP Queue 1 item 6 (architecture switches)"
 MULTI_DEVICE_ITEM = "ROADMAP Queue 1 item 7 (multi-GPU)"
 DEVICE_AUGMENT_ITEM = "ROADMAP Queue 1 item 8 (ops/device_augment.py)"
 # the reference's defaults of the options the port refuses otherwise
 _REFUSED = (
     ("profile_dir", None, "not ported (a step's device time by kernel: "
      "python -m e2enet_tpu_torch.profile_forward --train)"),
-    ("norm_op", "instance", ARCH_ITEM), ("nonlin", "lrelu", ARCH_ITEM),
-    ("num_conv_per_stage", None, ARCH_ITEM), ("seg_bias", False, ARCH_ITEM),
-    ("nonlin_before_norm", False, ARCH_ITEM), ("conv_kernel", None, ARCH_ITEM),
     ("num_devices", None, MULTI_DEVICE_ITEM),
     ("spatial_parallel", 1, MULTI_DEVICE_ITEM),
     ("device_augment", False, DEVICE_AUGMENT_ITEM))
@@ -157,8 +162,11 @@ class Trainer:
                  cascade: bool = False, da_level: Optional[str] = None,
                  regions=None, ds_mode: str = "standard",
                  validate_every: Optional[int] = None,
-                 export_kwargs: Optional[dict] = None, device="cuda",
-                 **options):
+                 export_kwargs: Optional[dict] = None,
+                 norm_op: str = "instance", nonlin: str = "lrelu",
+                 num_conv_per_stage: Optional[int] = None,
+                 seg_bias: bool = False, nonlin_before_norm: bool = False,
+                 conv_kernel=None, device="cuda", **options):
         """The reference's arguments (TPUTrainer.__init__, trainer.py:47-76)
         with `device`; cascade=True trains the 3d_cascade_fullres stage on
         the previous stage's one-hot segmentation; any of the reference's
@@ -169,7 +177,9 @@ class Trainer:
         training/variants.apply_da_level; regions: 'brats' or {name:
         labels}; ds_mode: 'standard' | 'none'; validate_every: epochs
         between validations without mirroring; export_kwargs:
-        interpolation_order, interpolation_order_z, force_separate_z."""
+        interpolation_order, interpolation_order_z, force_separate_z;
+        norm_op, nonlin, num_conv_per_stage, seg_bias, nonlin_before_norm,
+        conv_kernel: the architecture switches of build_network."""
         refuse_unported(**options)
         if ds_mode not in ("standard", "none"):
             raise ValueError(f"ds_mode {ds_mode!r}: 'standard' or 'none'")
@@ -189,6 +199,12 @@ class Trainer:
         self.num_da_threads = num_da_threads
         self.base_num_features = base_num_features
         self.cascade = cascade
+        self.arch = dict(norm_op=norm_op, nonlin=nonlin,
+                         num_conv_per_stage=num_conv_per_stage,
+                         seg_bias=seg_bias,
+                         nonlin_before_norm=nonlin_before_norm,
+                         conv_kernel=(tuple(int(k) for k in conv_kernel)
+                                      if conv_kernel else None))
 
         self.output_folder_base = output_folder
         self.output_folder = join(output_folder, f"fold_{fold}")
@@ -262,7 +278,7 @@ class Trainer:
             self.stage_plan, num_in, self.net_num_classes, tconv=self.tconv,
             base_num_features=self.base_num_features,
             compute_dtype=torch.bfloat16 if self.fp16 else torch.float32,
-            device=self.device)
+            device=self.device, **self.arch)
         self.network.reset_parameters(self.seed)
         self.num_pool = len(self.stage_plan.pool_op_kernel_sizes)
         n_out = self.network.num_ds_outputs()
@@ -712,7 +728,9 @@ class Trainer:
             "init": {"fold": self.fold, "stage": self.stage,
                      "tconv": self.tconv, "batch_dice": self.batch_dice,
                      "base_num_features": self.base_num_features,
-                     "cascade": self.cascade},
+                     "cascade": self.cascade,
+                     **{k: v for k, v in self.arch.items()
+                        if v != ARCH_DEFAULTS[k]}},
             "name": "TPUTrainer",
             "class": f"{self.__class__.__module__}."
                      f"{self.__class__.__name__}",
@@ -816,7 +834,10 @@ class Trainer:
 
         net = self.network
         patch = tuple(int(i) for i in self.patch_size)
-        fns = mirror_apply_fns_for(net) if do_mirroring else None
+        # flip-free TTA where the network has mirrored operators, data
+        # flips otherwise (resenc, full 3D kernels)
+        fns = (mirror_apply_fns_for(net)
+               if do_mirroring and net.mirrored_operators() else None)
         pred_gt_tuples = []
         for k in self.dataset_val.keys():
             props = load_pickle(self.dataset_val[k]["properties_file"])

@@ -160,3 +160,173 @@ def test_jax_objects_are_refused_by_key(tmp_path):
                           {"val_eval_criterion_MA": jnp.float32(0.5)})
     with pytest.raises(ValueError, match="metadata/val_eval_criterion_MA"):
         tckpt.load_checkpoint(path)
+
+
+def _raw_plans(pools, patch, conv_per_stage=2):
+    """A reference plans.pkl dict of one stage (the fields
+    Plans.from_reference_pickle reads)."""
+    return {
+        "num_modalities": 2, "modalities": {0: "MR", 1: "MR"},
+        "normalization_schemes": {0: "nonCT", 1: "nonCT"},
+        "dataset_properties": {}, "num_classes": 2, "all_classes": [1, 2],
+        "base_num_features": 4, "use_mask_for_norm": {0: False, 1: False},
+        "transpose_forward": [0, 1, 2], "transpose_backward": [0, 1, 2],
+        "data_identifier": "nnUNetData_plans_v2.1",
+        "conv_per_stage": conv_per_stage,
+        "plans_per_stage": {0: {
+            "batch_size": 2, "num_pool_per_axis": [2, 2, 2],
+            "patch_size": list(patch),
+            "median_patient_size_in_voxels": list(patch),
+            "current_spacing": [1, 1, 1], "original_spacing": [1, 1, 1],
+            "do_dummy_2D_data_aug": False,
+            "pool_op_kernel_sizes": [list(p) for p in pools],
+            "conv_kernel_sizes": [[1, 3, 3]] * (len(pools) + 1)}}}
+
+
+def _sidecar(tconv, plans, switches=None):
+    init = {"fold": 0, "stage": 0, "tconv": tconv, "batch_dice": True,
+            "base_num_features": 4, "cascade": False}
+    init.update(switches or {})
+    return {"init": init, "name": "TPUTrainer", "class": "t",
+            "plans": plans.to_dict()}
+
+
+ARCHS = [("ori", {}), ("resenc", {}),
+         ("shiftConvPP", dict(conv_kernel=(3, 3, 3))),
+         ("shiftConvPP", dict(norm_op="frn"))]
+
+
+@pytest.mark.parametrize("tconv, switches", ARCHS,
+                         ids=["ori", "resenc", "allConv3x3", "frn"])
+def test_arch_checkpoints_cross_packages(tconv, switches, tmp_path):
+    """A checkpoint of ori, resenc, allConv3x3 or FRN that the port writes
+    loads in the JAX package with every parameter equal (the JAX
+    package's ModelBundle reads the sidecar's init with .get, the
+    switches in it unread), and the port's ModelBundle builds the
+    switches' network from it; one the JAX package writes loads in the
+    port into that network with every parameter equal."""
+    from e2enet_tpu.inference.predictor import ModelBundle as JBundle
+    from e2enet_tpu_torch.inference.predictor import ModelBundle
+    from e2enet_tpu_torch.plans import Plans
+    from test_torch_arch_switches import POOLS, PATCH, pair
+    _, params, tnet, _ = pair(tconv, **switches)
+    plans = Plans.from_reference_pickle(_raw_plans(POOLS, PATCH))
+    ckpt_name = f"{tconv}_model_final_checkpoint.model"
+    port_dir = tmp_path / "port" / "fold_0"
+    port_dir.mkdir(parents=True)
+    tckpt.save_checkpoint(str(port_dir / ckpt_name),
+                          to_jax_params(tnet.state_dict()), 3,
+                          sidecar=_sidecar(tconv, plans, switches))
+    state, epoch, _ = jckpt.load_checkpoint(str(port_dir / ckpt_name))
+    assert epoch == 3
+    got = dict(jax.tree_util.tree_flatten_with_path(state.params)[0])
+    want = jax.tree_util.tree_flatten_with_path(params)[0]
+    assert set(got) == {p for p, _ in want}
+    for p, v in want:
+        np.testing.assert_array_equal(np.asarray(got[p]), v)
+    jb = JBundle(str(tmp_path / "port"), [0], tconv,
+                 compute_dtype=jnp.float32)
+    assert jb.sidecar_init["tconv"] == tconv
+    bundle = ModelBundle(str(tmp_path / "port"), [0], tconv,
+                         compute_dtype=torch.float32, device="cpu")
+    net = bundle.fold_models[0]
+    assert bundle.arch == switches
+    for n, v in tnet.state_dict().items():
+        torch.testing.assert_close(net.state_dict()[n], v, rtol=0, atol=0)
+    # the other way round
+    jax_dir = tmp_path / "jax" / "fold_0"
+    jax_dir.mkdir(parents=True)
+    jckpt.save_checkpoint(str(jax_dir / ckpt_name),
+                          create_train_state(jax.tree_util.tree_map(
+                              jnp.asarray, params)), 5,
+                          sidecar=_sidecar(tconv, plans, switches))
+    state, epoch, _ = tckpt.load_checkpoint(str(jax_dir / ckpt_name))
+    fresh = type(tnet)  # the same network, built again from the switches
+    net2 = ModelBundle(str(tmp_path / "jax"), [0], tconv,
+                       compute_dtype=torch.float32,
+                       device="cpu").fold_models[0]
+    assert isinstance(net2, fresh) and epoch == 5
+    for n, v in from_jax_params(state["params"]).items():
+        torch.testing.assert_close(net2.state_dict()[n], v, rtol=0, atol=0)
+
+
+def test_jax_sidecar_gives_the_default_network(tmp_path):
+    """A sidecar without the switches (the JAX trainer writes none) gives
+    the default network, on the kernel route, as the JAX package builds
+    it."""
+    from e2enet_tpu.training.trainer import TPUTrainer
+    from e2enet_tpu_torch.inference.predictor import ModelBundle
+    from e2enet_tpu_torch.plans import Plans
+    from test_torch_arch_switches import POOLS, PATCH, pair
+    _, params, tnet, _ = pair()
+    plans = Plans.from_reference_pickle(_raw_plans(POOLS, PATCH))
+    sidecar = _sidecar("shiftConvPP", plans)
+    fields = set(sidecar["init"])
+    # the JAX trainer's own sidecar holds exactly these fields
+    src = Path(TPUTrainer.save_checkpoint.__code__.co_filename).read_text()
+    for f in fields:
+        assert f'"{f}"' in src
+    d = tmp_path / "fold_0"
+    d.mkdir()
+    jckpt.save_checkpoint(str(d / "shiftConvPP_model_final_checkpoint.model"),
+                          create_train_state(jax.tree_util.tree_map(
+                              jnp.asarray, params)), 1, sidecar=sidecar)
+    bundle = ModelBundle(str(tmp_path), [0], "shiftConvPP",
+                         compute_dtype=torch.float32, device="cpu")
+    net = bundle.fold_models[0]
+    assert bundle.arch == {} and net.kernel_route()
+    assert (net.norm_op, net.nonlin, net.conv_kernel, net.seg_bias,
+            net.num_conv_per_stage) == ("instance", "lrelu", (1, 3, 3),
+                                        False, 2)
+
+
+def test_jax_bundle_loses_the_architecture(tmp_path):
+    """A reference fault the port does not copy: the JAX trainer's sidecar
+    records no architecture switch, so the JAX package's ModelBundle builds
+    a fold's default network. A BN + ReLU fold's parameters (the same tree
+    as instance norm's) then run under instance norm and leaky relu
+    without an error; a 3-conv fold runs as 2 convs per stage, its third
+    convs unread; an allConv3x3 fold fails at its first conv. The port's
+    sidecar records the switches and its ModelBundle builds the trained
+    network."""
+    from e2enet_tpu.inference.predictor import ModelBundle as JBundle
+    from e2enet_tpu_torch.inference.predictor import ModelBundle
+    from e2enet_tpu_torch.plans import Plans
+    from test_torch_arch_switches import POOLS, PATCH, pair
+    plans = Plans.from_reference_pickle(_raw_plans(POOLS, PATCH))
+    x = jnp.asarray(np.random.RandomState(0).randn(1, *PATCH, 2),
+                    jnp.float32)
+    for tag, switches in (("bn_relu", dict(norm_op="batch", nonlin="relu")),
+                          ("3conv", dict(num_conv_per_stage=3)),
+                          ("allConv3x3", dict(conv_kernel=(3, 3, 3)))):
+        jnet, params, tnet, _ = pair(**switches)
+        d = tmp_path / tag / "fold_0"
+        d.mkdir(parents=True)
+        f = str(d / "shiftConvPP_model_final_checkpoint.model")
+        jckpt.save_checkpoint(f, create_train_state(jax.tree_util.tree_map(
+            jnp.asarray, params)), 1, sidecar=_sidecar("shiftConvPP", plans))
+        jb = JBundle(str(tmp_path / tag), [0], "shiftConvPP",
+                     compute_dtype=jnp.float32)
+        net = jb.network.clone(quadrant_logits=False, quadrant_input=None)
+        assert (net.norm_op, net.nonlin, net.num_conv_per_stage,
+                net.conv_kernel) == ("instance", "lrelu", 2, (1, 3, 3))
+        if tag == "allConv3x3":
+            with pytest.raises(Exception):
+                net.apply({"params": jb.fold_params[0]}, x, do_ds=False)
+        else:
+            got = net.apply({"params": jb.fold_params[0]}, x, do_ds=False)
+            want = jnet.apply({"params": params}, x, do_ds=False)
+            assert np.isfinite(np.asarray(got)).all()
+            assert float(jnp.abs(got - want).max()) > 1e-3
+        # the port's sidecar of the same fold holds the switches
+        tckpt.save_checkpoint(f, params, 1, sidecar=_sidecar(
+            "shiftConvPP", plans, switches))
+        port = ModelBundle(str(tmp_path / tag), [0], "shiftConvPP",
+                           compute_dtype=torch.float32,
+                           device="cpu").fold_models[0]
+        assert (port.norm_op, port.nonlin, port.num_conv_per_stage,
+                port.conv_kernel) == (
+            switches.get("norm_op", "instance"),
+            switches.get("nonlin", "lrelu"),
+            switches.get("num_conv_per_stage", 2),
+            switches.get("conv_kernel", (1, 3, 3)))

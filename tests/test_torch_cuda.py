@@ -83,6 +83,15 @@ CASES = {
     "k200_co40": (1, 3, 16, 40, (100, 100), (True, False), 40),
     "k240_co48": (1, 3, 16, 32, (96, 96, 48), (True, False, True), 48),
     "w144_co96": (1, 2, 8, 144, (96,), (True,), 96),
+    # base 24 (nnUNetTrainerV2_3ConvPerStage's width): level 0 at 128^2,
+    # 1 -> 24, 24 -> 24 (the third conv of a stack too), 24 + 24 -> 24;
+    # level 1 at 64^2, 48 -> 48 and 48 + 48 + 24 -> 48
+    "b24_l0_c1_to24": (1, 2, 128, 128, (1,), (False,), 24),
+    "b24_l0_24_to24": (1, 2, 128, 128, (24,), (True,), 24),
+    "b24_l0_24+24_to24": (1, 2, 128, 128, (24, 24), (True, False), 24),
+    "b24_l1_48_to48": (1, 3, 64, 64, (48,), (True,), 48),
+    "b24_l1_48+48+24_to48": (1, 3, 64, 64, (48, 48, 24),
+                             (True, False, False), 48),
 }
 
 
@@ -204,6 +213,8 @@ STRIDED = {
     # weights too large for two operand buffers beside them: one buffer,
     # the next tile's copies after the products
     "one_buffer": (1, 4, 8, 128, 96, 64, (2, 2, 2)),
+    # base 24: context1's strided first block, 24 -> 48
+    "b24": (1, 8, 32, 64, 24, 48, (2, 2, 2)),
 }
 
 
@@ -249,6 +260,8 @@ UPLINKS = {
     "aniso_ragged": (2, 3, 5, 13, 16, 8, (1, 2, 2)),
     # a 2D plan's level-1 -> 0 up-link: depth 1, a batch of slices
     "2d_batch": (8, 1, 16, 16, 96, 48, (1, 2, 2)),
+    # base 24: level 1 -> 0, 48 -> 24
+    "b24": (1, 4, 16, 64, 48, 24, (2, 2, 2)),
 }
 
 
@@ -286,6 +299,8 @@ DOWNLINKS = {
     "aniso_ragged": (2, 3, 7, 26, 8, (1, 2, 2)),
     # a 2D plan's level-0 -> 1 down-link: depth 1, a batch of slices
     "2d_batch": (8, 1, 32, 32, 48, (1, 2, 2)),
+    # base 24: level 0 -> 1 at C = 24
+    "b24": (1, 8, 32, 128, 24, (2, 2, 2)),
 }
 
 
@@ -325,6 +340,9 @@ HEADS = {
     # three labels (the cascade's CPU-size task): K < 16
     "k3": (1, 4, 16, 64, 48, 3),
     "k3_n2": (2, 4, 16, 64, 48, 3),
+    # base 24: the level-0 head at C = 24 (the ldg route: C % 16 != 0)
+    "b24": (1, 4, 32, 128, 24, 16),
+    "b24_k3_n2": (2, 4, 16, 64, 24, 3),
 }
 
 
@@ -429,6 +447,8 @@ LAZY = {
     # up parts of more than one staged chunk beside a part: 64 + up
     # 128 -> 64 (a model of 64 base features), 8 + up 24 -> 56
     "wide_up64": (1, 2, 4, 16, (64,), (True,), 128, 64, 48, None),
+    # base 24: a level-0 nest node, 24 + up 48 -> 24, CO 24
+    "b24": (1, 4, 16, 64, (24,), (True,), 48, 24, 24, None),
     "wide_up56": (1, 3, 4, 9, (8,), (False,), 24, 56, 24, None),
     # compact groups whose up columns read both depth parities at one
     # output depth (shifts 1, -1, 2, 0 side by side)
@@ -638,6 +658,10 @@ BWD = {
     "l0_c3": (2, 4, 32, 64, (3,), (False,), 48),
     # the region trainers' first block (four modalities)
     "l0_c4": (2, 4, 32, 64, (4,), (False,), 48),
+    # base 24 at batch 2: level 0 (24 + 24 -> 24), level 1 (48 + 48 + 24
+    # -> 48)
+    "b24_l0": (2, 6, 16, 64, (24, 24), (True, False), 24),
+    "b24_l1": (2, 4, 8, 32, (48, 48, 24), (True, False, False), 48),
 }
 
 
@@ -762,6 +786,8 @@ DOWN_BWD = {
     "c96": (2, 8, 16, 32, 96, (2, 2, 2), False),
     # a 2D plan's window (1, 2, 2) at depth 1 (the scalar route)
     "2d_window": (8, 1, 32, 32, 48, (1, 2, 2), True),
+    # base 24 at batch 2
+    "b24": (2, 8, 16, 64, 24, (2, 2, 2), False),
 }
 
 
@@ -1480,6 +1506,64 @@ def test_anisotropic_plan_forward_launches_and_matches_plain():
             p = net(x, do_ds=False, flips=(True, False, True)).float()
             f = net32(x, do_ds=False, flips=(True, False, True))
     assert got == want
+    assert bool(torch.isfinite(k).all())
+    e_k, e_p = (k - f).abs().mean(), (p - f).abs().mean()
+    assert float(e_k) <= 1.25 * float(e_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tconv, switches", [
+    ("shiftConvPP", dict(num_conv_per_stage=3, seg_bias=True,
+                         base_num_features=24)),
+    ("shiftConvPP", dict(norm_op="batch", nonlin="relu")),
+    ("shiftConvPP", dict(conv_kernel=(3, 3, 3))),
+    ("ori", {}), ("resenc", dict(base_num_features=24))],
+    ids=["3conv_seg_bias_b24", "bn_relu", "allConv3x3", "ori", "resenc"])
+def test_arch_networks_launch_as_counted(tconv, switches):
+    """The networks of the architecture switches on the card: one bf16
+    forward and backward (do_ds) launch each kernel as
+    kernel_launches_per_train_step counts (every count 0 off the kernel
+    route: the materialised networks launch nothing), with finite logits
+    and gradients; the bf16 forward as close to a float32 run of the same
+    weights as the plain bf16 run is (mean |dlogit| within 1.25x)."""
+    from e2enet_tpu_torch import plans
+    from e2enet_tpu_torch.models import unetpp
+    from e2enet_tpu_torch.ops import blocks
+    dev = _card()
+    stage = plans.StagePlan(
+        batch_size=2, num_pool_per_axis=[3, 3, 3], patch_size=[32, 32, 32],
+        median_patient_size_in_voxels=[32, 32, 32],
+        current_spacing=[1.0] * 3, original_spacing=[1.0] * 3,
+        do_dummy_2D_data_aug=False, pool_op_kernel_sizes=[[2, 2, 2]] * 3,
+        conv_kernel_sizes=[[1, 3, 3]] * 4)
+    kw = {"base_num_features": 8, **switches}
+    net = unetpp.build_network(stage, 1, 3, tconv=tconv, device=dev, **kw)
+    net.reset_parameters(3)
+    net32 = unetpp.build_network(stage, 1, 3, tconv=tconv, device=dev,
+                                 compute_dtype=torch.float32, **kw)
+    net32.load_state_dict(net.state_dict())
+    ops = {**{k: v[0] for k, v in blocks.KERNEL_OPS.items()},
+           **{k: v[0] for k, v in blocks.BACKWARD_OPS.items()}}
+    x = _rand(np.random.RandomState(4), dev, 2, 32, 32, 32, 1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for op in ops.values():
+        op.launches = 0
+    outs = net(x, do_ds=True)
+    sum(o.float().square().mean() for o in outs).backward()
+    torch.cuda.synchronize()
+    want = unetpp.kernel_launches_per_train_step(net)
+    total = {k: want["forward"].get(k, 0) + want["backward"].get(k, 0)
+             for k in ops}
+    assert {k: op.launches for k, op in ops.items()} == total
+    assert (sum(total.values()) > 0) == net.kernel_route()
+    assert all(bool(torch.isfinite(p.grad).all()) for p in net.parameters()
+               if p.grad is not None)
+    with torch.no_grad():
+        k = net(x, do_ds=False).float()
+        with blocks.plain_ops():
+            p = net(x, do_ds=False).float()
+            f = net32(x, do_ds=False)
     assert bool(torch.isfinite(k).all())
     e_k, e_p = (k - f).abs().mean(), (p - f).abs().mean()
     assert float(e_k) <= 1.25 * float(e_p)

@@ -30,9 +30,11 @@ import chip_smoke  # noqa: E402
 from e2enet_tpu_torch.cli import predict as tpredict  # noqa: E402
 from e2enet_tpu_torch.cli import train as ttrain  # noqa: E402
 from e2enet_tpu_torch.io.nifti import read_nifti  # noqa: E402
+from e2enet_tpu_torch.models.unetpp import ARCH_DEFAULTS  # noqa: E402
 from e2enet_tpu_torch.models.weights import from_jax_params  # noqa: E402
 from e2enet_tpu_torch.training import checkpoint as tckpt  # noqa: E402
 from e2enet_tpu_torch.training.trainer import Trainer  # noqa: E402
+from e2enet_tpu_torch.utils.files import load_pickle  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 TASK = "Task778_TinyCli"
@@ -203,16 +205,67 @@ def test_refuses_without_a_card(environ, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["-tr", "nnUNetTrainerV2_ResencUNet_DA3"], "item 6"),
-    (["-tr", "nnUNetTrainerV2BraTSRegions_BN"], "item 6"),
-    (["-tr", "nnUNetTrainerV2_MMS"], "item 6"),
-    (["-tr", "nnUNetTrainerV2_BN"], "item 6"),
     (["--num_devices", "2"], "item 7"),
     (["--spatial_parallel", "2"], "item 7"),
     (["--device_augment"], "item 8")])
 def test_unported_options_raise(environ, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("extra, tconv", [
+    (["-tr", "nnUNetTrainerV2_ResencUNet_DA3"], "resenc"),
+    (["-tr", "nnUNetTrainerV2BraTSRegions_BN"], "shiftConvPP"),
+    (["-tr", "nnUNetTrainerV2_MMS"], "shiftConvPP"),
+    (["-tr", "nnUNetTrainerV2_BN"], "shiftConvPP"),
+    (["--Tconv", "ori"], "ori"), (["--Tconv", "shiftConvPP_nodff"],
+                                  "shiftConvPP_nodff"),
+    (["--Tconv", "shiftConvPP_313"], "shiftConvPP_313"),
+    (["--Tconv", "shiftConvPP_331"], "shiftConvPP_331")])
+def test_architecture_presets_and_tconvs_train(environ, monkeypatch, extra,
+                                               tconv):
+    """The presets once refused for Queue 1 item 6, and every Tconv, train
+    a fold through the CLI (one epoch; the fold's validation is the
+    default network's, above), their checkpoint named by the Tconv, its
+    sidecar holding the preset's switches; the port's predict CLI serves
+    the fold with the network of its sidecar (TTA on: flip-free, or data
+    flips for resenc)."""
+    monkeypatch.setattr(Trainer, "validate", lambda self, *a, **k: None)
+    tr = ttrain.main(["--task", TASK, "--fold", "4", "--epochs", "1",
+                      "--batches", "1", "--val_batches", "1",
+                      "--base_features", "8", "--fp32", "--device", "cpu"]
+                     + extra)
+    assert tr.tconv == tconv and tr.epoch == 1
+    assert all(np.isfinite(tr.all_tr_losses))
+    ckpt = Path(tr.checkpoint_path("final_checkpoint"))
+    assert ckpt.name == f"{tconv}_model_final_checkpoint.model"
+    init = load_pickle(str(ckpt) + ".pkl")["init"]
+    assert init["tconv"] == tconv
+    for k, v in tr.arch.items():     # a default switch is not written
+        assert init.get(k, ARCH_DEFAULTS[k]) == v
+    if "BraTS" in " ".join(extra):
+        return          # a region fold: predicted by its own chain test
+    model_folder = ckpt.parent.parent
+    calls = []
+    import e2enet_tpu_torch.inference.predictor as tpred
+    real = tpred.predict_volume_tiled
+
+    def spy(*a, **k):
+        calls.append(k.get("mirror_apply_fns") is not None)
+        return real(*a, **k)
+    monkeypatch.setattr(tpred, "predict_volume_tiled", spy)
+    from e2enet_tpu_torch.inference.predictor import ModelBundle
+    bundle = ModelBundle(str(model_folder), [4], tconv, device="cpu",
+                         compute_dtype=torch.float32)
+    net = bundle.fold_models[0]
+    for n, p in tr.network.state_dict().items():
+        torch.testing.assert_close(net.state_dict()[n], p.cpu(), rtol=0,
+                                   atol=0)
+    data = np.random.RandomState(0).standard_normal(
+        (1, 16, 16, 16)).astype(np.float32)
+    probs = tpred.predict_case(bundle, data, do_tta=True, step_size=1.0)
+    assert probs.shape == (3, 16, 16, 16) and np.all(np.isfinite(probs))
+    assert calls == [tconv != "resenc"]
 
 
 @pytest.mark.parametrize("network, message", [

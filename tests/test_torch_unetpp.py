@@ -310,16 +310,29 @@ def test_build_network_matches_reference(pools, patch, lazy, tconv):
 
 
 def test_build_network_refuses_what_is_not_ported():
+    """Every Tconv of the reference's factory builds (Queue 1 item 6, once
+    refused, is ported), each the reference's class; what the reference
+    refuses the port refuses: an unknown name, a switch the network has no
+    field for, no device."""
     import e2enet_tpu_torch.plans as tplans
+    from e2enet_tpu.models.unetpp import build_network as jbuild
     stage = _stage(tplans, ((2, 2, 2),) * 2, (32, 32, 32))
-    for tconv in ("ori", "shiftConvPP_nodff", "shiftConvPP_313",
-                  "shiftConvPP_331", "resenc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            tunetpp.build_network(stage, 1, 3, tconv=tconv, device="cpu")
-    # the reference's 2D ori (ShiftUNet without the shift) is item 6
     flat = _stage(tplans, ((1, 2, 2),) * 2, (1, 32, 32))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tunetpp.build_network(flat, 1, 3, tconv="ori", device="cpu")
+    for st, tconv in [(stage, t) for t in tunetpp.TCONVS] + [(flat, "ori")]:
+        net = tunetpp.build_network(st, 1, 3, tconv=tconv, device="cpu")
+        want = jbuild(st, 1, 3, tconv=tconv, fused=False)
+        assert type(net).__name__ == type(want).__name__, tconv
+        assert net.kernel_route() == (tconv in ("shiftConvPP",
+                                                "shiftConvPP_noshift")), tconv
+    # 2D ori: no shift, max_num_features 480 (the reference's 2D rule)
+    assert net.context0.block0.shifting is False
+    for tconv, kw in (("ori", dict(conv_kernel=(3, 3, 3))),
+                      ("resenc", dict(num_conv_per_stage=3))):
+        with pytest.raises(TypeError):
+            jbuild(stage, 1, 3, tconv=tconv, fused=False, **kw)
+        with pytest.raises(TypeError):
+            tunetpp.build_network(stage, 1, 3, tconv=tconv, device="cpu",
+                                  **kw)
     with pytest.raises(KeyError):
         tunetpp.build_network(stage, 1, 3, tconv="unet9", device="cpu")
     with pytest.raises(ValueError, match="device"):

@@ -5,11 +5,13 @@ train CLI's mapping, cli/train.variant_kwargs) against the JAX package's
 - the table equal, and for every preset the trainer arguments each CLI
   builds from it equal (both CLIs run with the trainer replaced by a stub
   that records its arguments);
-- each of the 72 presets that set only knobs the port trains (losses,
-  optimizers, learning rates and their schedules, momentum and its
-  reduction, epochs, precision, batch dice, dummy_load, the cascade,
-  augmentation levels, the deep-supervision mode, per-epoch validation,
-  export options, regions) runs through the port's CLI on the CPU on a
+- each of the 95 presets (losses, optimizers, learning rates and their
+  schedules, momentum and its reduction, epochs, precision, batch dice,
+  dummy_load, the cascade, augmentation levels, the deep-supervision
+  mode, per-epoch validation, export options, regions, and the
+  architecture switches and Tconvs of Queue 1 item 6: norms,
+  nonlinearities, nonlin_before_norm, seg_bias, 3 convs per stage,
+  allConv3x3, resenc) runs through the port's CLI on the CPU on a
   tiny task (chip_smoke.write_train_task, labels 0-3 for the region
   presets, width 8, one batch and one validation batch an epoch, at most
   two epochs: the warmup and cycle presets' 1050 and 1100 and the cascade
@@ -17,11 +19,11 @@ train CLI's mapping, cli/train.variant_kwargs) against the JAX package's
   the cascade presets), each trainer holding the preset's options, its
   augmentation parameters those the JAX package's apply_da_level makes
   of the trainer's own, a finite loss, an optimizer state of the preset's
-  optimizer and a final checkpoint; the fold's validation is left to
-  tests/test_torch_train_cli.py and, for the region trainers, to
-  tests/test_torch_regions_chain.py;
-- each of the other 23 raises NotImplementedError naming ROADMAP item 6
-  (an architecture switch);
+  optimizer, its network built with the preset's Tconv and switches
+  (recorded in the checkpoint sidecar's init) and a final checkpoint; the
+  fold's validation is left to tests/test_torch_train_cli.py and, for the
+  region trainers, to tests/test_torch_regions_chain.py; no preset is
+  refused;
 - apply_da_level equal to the JAX package's on every field for every
   level, and seeded batches at da3, da5, insane and cascade_eg equal to
   the JAX pipeline's;
@@ -52,15 +54,18 @@ from e2enet_tpu_torch.training import trainer as ttrainer  # noqa: E402
 from e2enet_tpu_torch.training.trainer import Trainer  # noqa: E402
 from e2enet_tpu_torch.training.variants import VARIANTS  # noqa: E402
 from e2enet_tpu_torch.training.variants import apply_da_level  # noqa: E402
+from e2enet_tpu_torch.utils.files import load_pickle  # noqa: E402
 
 TASK = "Task776_Variants"
 CASES = {f"case_{i:03d}": (20, 24, 22) for i in range(6)}
 # the preset keys the port trains
+ARCH = ("norm_op", "nonlin", "num_conv_per_stage", "seg_bias",
+        "nonlin_before_norm", "conv_kernel")
 PORTED = {"loss", "optimizer", "initial_lr", "lr_schedule",
           "momentum_schedule", "momentum", "max_num_epochs", "fp16",
           "batch_dice", "dummy_load", "loss_kwargs", "loss_schedule",
           "cascade", "da", "ds_mode", "validate_every", "export_kwargs",
-          "regions"}
+          "regions", "tconv", "base_num_features", *ARCH}
 # labels 0-3: the BraTS regions' labels
 NUM_CLASSES = 4
 LEVELS = sorted({v["da"] for v in VARIANTS.values() if "da" in v})
@@ -91,7 +96,7 @@ def _capture(module, monkeypatch, name, argv):
 
 def test_table_equals_the_reference():
     assert VARIANTS == JVARIANTS
-    assert len(RUNS) == 72 and len(REFUSED) == 23
+    assert len(RUNS) == 95 and len(REFUSED) == 0
 
 
 @pytest.mark.parametrize("name", sorted(VARIANTS))
@@ -165,8 +170,18 @@ def test_ported_preset_trains(name, environ, monkeypatch):
     assert tr.initial_lr == preset.get("initial_lr", 1e-2)
     assert tr.batch_dice == preset.get("batch_dice", True)
     assert tr.cascade == preset.get("cascade", False)
-    assert tr.network.context0.block0.kernel.shape[1] == (
-        NUM_CLASSES if tr.cascade else 1)
+    first = (tr.network.initial_conv if preset.get("tconv") == "resenc"
+             else tr.network.context0.block0.kernel)
+    assert first.shape[1] == (NUM_CLASSES if tr.cascade else 1)
+    assert type(tr.network).__name__ == {
+        "resenc": "ResidualUNet"}.get(preset.get("tconv"),
+                                      "ShiftUNetPlusPlus")
+    arch = {k: preset[k] for k in ARCH if k in preset}
+    assert {k: tr.arch[k] for k in arch} == arch
+    assert tr.base_num_features == preset.get("base_num_features", 8)
+    init = load_pickle(tr.checkpoint_path("final_checkpoint")
+                       + ".pkl")["init"]
+    assert {k: init[k] for k in arch} == arch
     assert tr.da_level == preset.get("da")
     assert tr.ds_mode == preset.get("ds_mode", "standard")
     assert tr.validate_every == preset.get("validate_every")
@@ -227,12 +242,6 @@ def test_cascade_presets_split():
                    p.cascade_remove_conn_comp_p,
                    p.cascade_remove_conn_comp_max_size_percent_threshold))
     assert len(knobs) == 5
-
-
-@pytest.mark.parametrize("name", REFUSED)
-def test_unported_preset_names_its_item(name, environ):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcli.main(_args(name, 0))
 
 
 def test_no_message_names_item_4e():
