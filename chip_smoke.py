@@ -29,6 +29,9 @@
     python3 chip_smoke.py --models
                                    # only the build, [trainer]'s planned
                                    # task and the [models] phase
+    python3 chip_smoke.py --device_augment
+                                   # only the build, [trainer]'s planned
+                                   # task and the [device_augment] phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -326,7 +329,18 @@ Phases (any failure ends the run with a non-zero exit):
               convert_reference_model_to_native: its parameters the fold's,
               its labels the native checkpoint's. Prints the seconds of
               each step
-  18. experiments  the experiment kernels (TPU kernels #11-#14) against
+  18. device_augment  the training batches augmented on the card
+              (ops/device_augment.py): cli/train.main --device_augment on
+              [trainer]'s task (2 epochs of 3 + 1 batches, no validation;
+              finite losses, launches per step [trainer]'s, the training
+              pipeline raw), the host's wait per batch beside [trainer]'s
+              and the augmentation's device and host ms per batch in the
+              loop; the augmenter at the generator patch -> 128^3, batch 2,
+              on the card against the CPU with every transform on (data
+              within 1e-4, targets equal but at .5 ties), its ms per batch
+              warped, cropped, with every transform and with fresh draws,
+              beside the host's augment_batch per batch
+  19. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -350,7 +364,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  19. report  one JSON line with every kernel's launches, error, times and
+  20. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -2380,9 +2394,10 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
     wait in next(tr_gen), each mask update (params and momentum zero where
     the masks are zero, every kernel's alive count held), the state -c
     loads against the 'latest' file, the epochs' seconds. Returns the
-    launches over the whole phase; then(paths, medians) runs on the
+    launches over the whole phase; then(paths, medians, info) runs on the
     planned task before its folder is removed, with each run's median ms
-    per step after the first."""
+    per step after the first and info: {"want": the launches per step,
+    "waits": each run's mean wait per batch after the first}."""
     import os
     import tempfile
     import torch
@@ -2492,6 +2507,8 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
           f"postprocessing.json "
           f"{json.load(open(os.path.join(fold, 'postprocessing.json')))['for_which_classes']}; "
           f"peak memory allocated {peak:.2f} GiB", flush=True)
+    info = {"want": runs[0]["want"],
+            "waits": [float(np.mean(r["waits"][1:])) for r in runs]}
     del runs, second
     torch.cuda.empty_cache()
 
@@ -2515,7 +2532,7 @@ def trainer_phase(ops, reset_counts, counts, smi, then=None):
     check("jax" not in sys.modules, "[trainer] jax was imported")
     total = counts()
     if then is not None:
-        then(paths, medians)
+        then(paths, medians, info)
     tmp.cleanup()
     return total
 
@@ -5432,6 +5449,212 @@ def models_only() -> None:
           flush=True)
 
 
+# the [device_augment] phase: the training batches augmented on the card
+DEVAUG_DEVICE = "cuda"
+DEVAUG_RUN = ["--epochs", "2", "--batches", "3", "--val_batches", "1"]
+DEVAUG_R = 20                   # timed calls per augmentation case
+DEVAUG_HOST_BATCHES = 3
+DEVAUG_ATOL = 1e-4
+DEVAUG_TIE = 1e-4
+
+
+def device_augment_phase(ops, counts, smi, paths, trainer=None):
+    """[device_augment] the trainer's device_augment mode on [trainer]'s
+    planned task, bf16, kernel DSFF at 0.2 as [trainer]:
+    (b) cli/train.main --device_augment, 2 epochs of 3 + 1 batches, its
+    validation left out: every loss finite, each step's launches
+    kernel_launches_per_train_step (and, after [trainer], [trainer]'s per
+    step), the training pipeline raw and the validation pipeline not; the
+    host's wait per batch in next(tr_gen) beside [trainer]'s (trainer:
+    its runs' mean waits after the first and per-step launches, None when
+    run alone), the ms between CUDA events around _augment_on_device per
+    batch in the loop and its host ms (the pinning, the upload and the
+    enqueue).
+    (a) ops/device_augment.py at (b)'s trainer's generator patch -> 128^3,
+    batch 2, on raw batches of its sampler: one set of sampled params with
+    rotation and scaling forced on and every other transform on, applied
+    on the card and on the CPU with the same noise: data within
+    DEVAUG_ATOL, targets equal but where a source coordinate lies within
+    DEVAUG_TIE of a .5 (the count printed); ms per batch by CUDA events
+    (mean of DEVAUG_R after a warm-up) of apply warped (both samples, no
+    other transform), cropped, every transform on, and of the trainer's
+    augmenter with fresh draws; beside it the host's augment_batch wall
+    per batch of the same raw batches with the trainer's AugmentParams."""
+    import dataclasses
+    import os
+    import torch
+    from e2enet_tpu_torch import native
+    from e2enet_tpu_torch.cli import train as tcli
+    from e2enet_tpu_torch.data.augment import augment_batch
+    from e2enet_tpu_torch.data.sampler import PatchSampler3D
+    from e2enet_tpu_torch.ops import device_augment as da
+    from e2enet_tpu_torch.training.trainer import Trainer
+    t_phase = time.perf_counter()
+    dev = DEVAUG_DEVICE
+
+    # ---- (b) cli.train --device_augment
+    os.environ["nnUNet_preprocessed"] = paths["preprocessed"]
+    os.environ["RESULTS_FOLDER"] = paths["results"] + "_device_augment"
+    runs, aug = [], {"events": [], "host": []}
+    real_init, real_load = Trainer.initialize, Trainer.load_checkpoint_file
+    real_aug = Trainer._augment_on_device
+    init_spy, load_spy = trainer_spies("device_augment", ops, counts, runs,
+                                       validate_runs=set())
+
+    def aug_spy(self, batch):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = real_aug(self, batch)
+        ev[1].record()
+        aug["host"].append(time.perf_counter() - t0)
+        aug["events"].append(ev)
+        return out
+    Trainer.initialize, Trainer.load_checkpoint_file = init_spy, load_spy
+    Trainer._augment_on_device = aug_spy
+    try:
+        t0 = time.perf_counter()
+        tcli.main(["--task", TRAIN_TASK, "--fold", "0", "--sparse", "True",
+                   "--density", "0.2", "--update_frequency", "4",
+                   "--device_augment", "--device", dev] + DEVAUG_RUN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.initialize, Trainer.load_checkpoint_file = \
+            real_init, real_load
+        Trainer._augment_on_device = real_aug
+    check(len(runs) == 1, f"[device_augment] {len(runs)} trainers")
+    run = runs[0]
+    tr = run["trainer"]
+    losses = [float(v) for v in run["losses"]]
+    check(tr.device_augment and tr.tr_gen.gen.raw and not tr.val_gen.raw,
+          "[device_augment] the training pipeline is not raw, or the "
+          "validation pipeline is")
+    check(len(losses) == 6 and len(aug["events"]) == 6 and all(
+        np.isfinite(losses)) and all(
+        np.isfinite(tr.all_tr_losses + tr.all_val_losses)),
+        f"[device_augment] losses {losses}, epochs {tr.all_tr_losses} / "
+        f"{tr.all_val_losses}, {len(aug['events'])} augmented batches")
+    if trainer is not None:
+        check(run["want"] == trainer["want"], f"[device_augment] launches "
+              f"per step {run['want']} != [trainer]'s {trainer['want']}")
+    ms = [a.elapsed_time(b) for a, b in run["events"]]
+    aug_ms = [a.elapsed_time(b) for a, b in aug["events"]]
+    waits = run["waits"]
+    beside = ("[trainer] not run" if trainer is None else "[trainer]'s "
+              f"runs {' '.join(f'{w:.3f}' for w in trainer['waits'])}")
+    print(f"[device_augment] (b) cli.train --device_augment: {len(losses)} "
+          f"steps, losses {' '.join(f'{v:.4f}' for v in losses)}; epoch "
+          f"train / validation loss {tr.all_tr_losses} / "
+          f"{tr.all_val_losses}; launches per step as [trainer]'s "
+          f"({sum(run['want'].values())}); ms per step (CUDA events) "
+          f"{' '.join(f'{v:.1f}' for v in ms)}, median after the first "
+          f"{float(np.median(ms[1:])):.1f}; the augmentation per batch in "
+          f"the loop: ms between CUDA events around it "
+          f"{' '.join(f'{v:.2f}' for v in aug_ms)}, host ms (pinning, "
+          f"upload and enqueue) "
+          f"{' '.join(f'{1e3 * v:.2f}' for v in aug['host'])}; host wait "
+          f"per batch in next(tr_gen) (s) "
+          f"{' '.join(f'{v:.3f}' for v in waits)}, after the first: mean "
+          f"{float(np.mean(waits[1:])):.3f} (host augmentation, mean after "
+          f"the first: {beside}); {run['updates']} mask updates; cli.main "
+          f"{wall:.1f} s  [{smi}]", flush=True)
+
+    # ---- (a) the augmenter at the generator patch, batch 2
+    patch = tuple(int(i) for i in tr.patch_size)
+    in_patch = tuple(int(i) for i in tr.basic_generator_patch_size)
+    sampler = PatchSampler3D(tr.dataset_tr, in_patch, patch, 2,
+                             oversample_foreground_percent=0.33, seed=11)
+    raws = [sampler.generate_train_batch()
+            for _ in range(DEVAUG_HOST_BATCHES)]
+    rng = np.random.RandomState(0)
+    host_s = []
+    for b in raws:
+        t0 = time.perf_counter()
+        augment_batch({"data": b["data"], "seg": b["seg"]}, tr.da_params,
+                      rng)
+        host_s.append(time.perf_counter() - t0)
+    data = torch.from_numpy(raws[0]["data"])
+    seg = torch.from_numpy(raws[0]["seg"][:, 0].astype(np.int8))
+    B, C = data.shape[:2]
+    on = np.ones(B, bool)
+    p = da.sample_params(torch.Generator().manual_seed(0), B, C, patch,
+                         p_rot=1.0, p_scale=1.0)
+    p_all = dataclasses.replace(p, noise=on, blur=np.ones((B, C), bool),
+                                bright=on, contrast=on, gamma_inv=on,
+                                gamma=on)
+    off = dict(noise=~on, blur=np.zeros((B, C), bool), bright=~on,
+               contrast=~on, gamma_inv=~on, gamma=~on)
+    p_warp = dataclasses.replace(p, **off)
+    p_crop = dataclasses.replace(p_warp, warp=~on)
+    noise = torch.randn((B, C) + patch,
+                        generator=torch.Generator().manual_seed(1))
+    d_cpu, s_cpu = da.apply(p_all, data, seg, noise)
+    gd, gs, gn = data.to(dev), seg.to(dev), noise.to(dev)
+    d_dev, s_dev = da.apply(p_all, gd, gs, gn)
+    err = float((d_dev.cpu() - d_cpu).abs().max())
+    near = np.zeros((B,) + patch, bool)
+    for b in range(B):
+        m, offset = da.affine(p.angles[b], p.scale[b], patch, in_patch)
+        src = da.affine_coords(m, offset, patch).numpy()
+        nb = (np.abs(src - np.floor(src) - 0.5) < DEVAUG_TIE).any(0)
+        near[b] = np.flip(nb, [a for a in range(3) if p.flips[b, a]])
+    differ = (s_dev.cpu() != s_cpu).numpy()
+    check(err <= DEVAUG_ATOL and np.isfinite(d_cpu.numpy()).all(),
+          f"[device_augment] data on the card vs the CPU: max abs err "
+          f"{err:.3e}")
+    check(not (differ & ~near).any(), f"[device_augment] {int(differ.sum())}"
+          f" target voxels differ, {int((differ & ~near).sum())} away from "
+          f".5 ties")
+    times = {name: cuda_ms(lambda q=q: da.apply(q, gd, gs, gn), DEVAUG_R)
+             for name, q in (("warped", p_warp), ("cropped", p_crop),
+                             ("all on", p_all))}
+    gen, noise_gen = (torch.Generator().manual_seed(2),
+                      torch.Generator(device=dev).manual_seed(2))
+    times["drawn"] = cuda_ms(lambda: tr.device_aug(gen, noise_gen, gd, gs),
+                             DEVAUG_R)
+    print(f"[device_augment] (a) apply at {B} x {in_patch} -> {patch}, "
+          f"rotation and scaling forced on and every transform on: card vs "
+          f"CPU max abs err {err:.3e} (limit {DEVAUG_ATOL:g}); target "
+          f"voxels differing {int(differ.sum())} of {differ.size}, "
+          f"{int(near.sum())} within {DEVAUG_TIE:g} of a .5; ms per batch "
+          f"(CUDA events, mean of {DEVAUG_R}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; the host's augment_batch on the same raw batches (s per "
+          f"batch, the warp's route {native.route()}) "
+          f"{' '.join(f'{v:.3f}' for v in host_s)}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s  [{smi}]", flush=True)
+    check("jax" not in sys.modules, "[device_augment] jax was imported")
+    del gd, gs, gn, d_dev, s_dev, tr, runs
+    torch.cuda.empty_cache()
+
+def device_augment_only() -> None:
+    """--device_augment: the build, [trainer]'s planned task and the
+    [device_augment] phase alone (its launches printed as JSON)."""
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_devaug_") as tmp:
+        paths = plan_train_task(tmp, smi)
+        for op in ops.values():
+            op.launches = 0
+        stamp("[trainer]'s planned task")
+        device_augment_phase(ops, lambda: {n: op.launches
+                                           for n, op in ops.items()},
+                             smi, paths)
+        stamp("[device_augment]")
+    print(json.dumps({"device_augment_launches": {
+        n: op.launches for n, op in ops.items()}}), flush=True)
+
+
 def bench_phase(smi):
     """[bench] python -m e2enet_tpu_torch.bench at its defaults (the sparse
     model, fast mode) in a subprocess: exit 0 and a last stdout line with
@@ -5712,6 +5935,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--models"]:
         models_only()
+        return
+    if sys.argv[1:] == ["--device_augment"]:
+        device_augment_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -6221,7 +6447,8 @@ def main() -> None:
     # ---- 15. variants: the variants' knobs and the region trainers;
     # ---- 16. ensembles: model selection, ensembles, consolidation, amos2022
     # ---- 17. models: the architecture switches and the remaining networks
-    def options(paths, trainer_ms):
+    # ---- 18. device_augment: the training batches augmented on the card
+    def options(paths, trainer_ms, trainer_info):
         stamp("10. trainer")
         reset_counts()
         options_phase(ops, counts, smi, paths)
@@ -6252,19 +6479,23 @@ def main() -> None:
         res_models.update(models_phase(rnd, MODELS_R, ops, counts, smi,
                                        paths))
         launches["models"] = counts()
+        stamp("17. models")
+        reset_counts()
+        device_augment_phase(ops, counts, smi, paths, trainer_info)
+        launches["device_augment"] = counts()
     res2d, res_cascade, res_variants, res_models = {}, {}, {}, {}
     launches["trainer"] = trainer_phase(ops, reset_counts, counts, smi,
                                         then=options)
 
-    stamp("10-17. trainer, options, dsff, 2d, cascade, variants, "
-          "ensembles, models")
-    # ---- 18. experiments: the experiment kernels, then their mains
+    stamp("10-18. trainer, options, dsff, 2d, cascade, variants, "
+          "ensembles, models, device_augment")
+    # ---- 19. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    stamp("18. experiments")
-    # ---- 19. report
+    stamp("19. experiments")
+    # ---- 20. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -6335,6 +6566,8 @@ def main() -> None:
           "base-24 kernel checks included: the kernel-route networks' "
           "forwards, the three presets' train steps (none off the kernel "
           "route) and the reference checkpoint's kernel-path predictions; "
+          "'device_augment' over the [device_augment] phase: the "
+          "--device_augment CLI run's train steps and validation batches; "
           "the 'models' entry: #1-#10 at base 24, every shape under "
           "'shapes')",
           flush=True)
@@ -6372,7 +6605,7 @@ def main() -> None:
             if extra in res[name]:
                 line[extra] = res[name][extra]
         lines.append(line)
-    stamp("19. report: the script")
+    stamp("20. report: the script")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

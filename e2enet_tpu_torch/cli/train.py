@@ -49,10 +49,15 @@ uniform|dense|uniform_ori|ERK|GMP|lottery_ticket, --prune_mode
 local|global (global on element masks), --granularity
 auto|kernel|element|row (row with uniform), --growth random|gradient,
 --final_density with --init-prune-epoch / --final-prune-epoch (the global
-prune's schedule, GMP's window) and --multiplier (GMP). Refused, each
-naming the ROADMAP item that ports it: --num_devices above 1 and
---spatial_parallel (item 7), --device_augment (item 8). --fused, --no_fused and --remat choose between
-XLA programs of the JAX package and are rejected.
+prune's schedule, GMP's window) and --multiplier (GMP).
+--device_augment augments the training batches on the card
+(ops/device_augment.py: the pipeline queues raw crops, the card warps them
+trilinear and nearest and runs the JAX chain's intensity transforms);
+with the cascade, regions, ds_mode none or dummy_load it is refused, as
+the JAX trainer cannot train those so. Refused, naming the ROADMAP item
+that ports it: --num_devices above 1 and --spatial_parallel (item 7).
+--fused, --no_fused and --remat choose between XLA programs of the JAX
+package and are rejected.
 """
 import argparse
 
@@ -156,7 +161,9 @@ def main(args=None):
                         help="only 1 is ported (ROADMAP Queue 1 item 7)")
     parser.add_argument("--spatial_parallel", type=int, default=1)
     parser.add_argument("--device_augment", action="store_true",
-                        help="not ported (ROADMAP Queue 1 item 8)")
+                        help="augment the training batches on the device "
+                             "(trilinear spatial; see ops/device_augment.py "
+                             "for where it differs from the host chain)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--da_threads", type=int, default=1)
     parser.add_argument("--device", default="cuda",

@@ -70,10 +70,18 @@ JAX trainer's), so the predictor builds the network the fold was trained
 with. A network with mirrored operators validates with flip-free TTA, one
 without (resenc, a full 3D kernel) with data flips.
 
-Not ported, each raising NotImplementedError that names its ROADMAP item:
-several devices (item 7) and device augmentation (item 8). `fused` and
-`remat` choose between XLA programs of the reference and have no meaning
-here.
+device_augment=True: the training pipeline queues raw crops at the
+generator patch (data/pipeline.BatchPipeline(raw=True)), which go to the
+device through pinned memory without waiting (the segmentation as int8)
+and are augmented there by ops/device_augment.py, with the JAX trainer's
+arguments (its defaults but do_mirror, do_rotation, do_scaling and
+do_gamma, read from the augmentation parameters after the da_level);
+validation keeps the host pipeline. The modes in which the JAX trainer
+cannot train so are refused at initialize (_DEVICE_AUGMENT_REFUSED).
+
+Not ported, raising NotImplementedError that names its ROADMAP item:
+several devices (item 7). `fused` and `remat` choose between XLA
+programs of the reference and have no meaning here.
 """
 import json
 import os
@@ -92,6 +100,7 @@ from ..inference.predictor import mirror_apply_fns_for, require_device
 from ..models.masks import masks_density, masks_for_model, masks_to_flax
 from ..models.unetpp import (ARCH_DEFAULTS, build_network,
                              deep_supervision_scales, ds_loss_weights)
+from ..ops.device_augment import make_device_augmenter
 from ..plans import Plans
 from ..utils.files import (isfile, join, load_pickle, maybe_mkdir_p,
                            save_json)
@@ -110,14 +119,25 @@ from .train_state import (apply_new_masks, create_train_state, make_eval_step,
 from .variants import apply_da_level
 
 MULTI_DEVICE_ITEM = "ROADMAP Queue 1 item 7 (multi-GPU)"
-DEVICE_AUGMENT_ITEM = "ROADMAP Queue 1 item 8 (ops/device_augment.py)"
 # the reference's defaults of the options the port refuses otherwise
 _REFUSED = (
     ("profile_dir", None, "not ported (a step's device time by kernel: "
      "python -m e2enet_tpu_torch.profile_forward --train)"),
     ("num_devices", None, MULTI_DEVICE_ITEM),
-    ("spatial_parallel", 1, MULTI_DEVICE_ITEM),
-    ("device_augment", False, DEVICE_AUGMENT_ITEM))
+    ("spatial_parallel", 1, MULTI_DEVICE_ITEM))
+# the modes the JAX trainer cannot train with device_augment (ROADMAP
+# Queue 3), each with what goes wrong there
+_DEVICE_AUGMENT_REFUSED = {
+    "cascade": "its device augmentation feeds the network the data "
+               "channels alone, without the previous stage's one-hot "
+               "channels, and its first train step raises",
+    "regions": "its device augmentation gives the region losses the "
+               "labels, not the region targets, and their first train "
+               "step raises",
+    "ds_mode none": "it builds no device augmenter without "
+                    "deep-supervision scales (TypeError at initialize)",
+    "dummy_load": "its random batches carry no 'seg' for the device "
+                  "augmentation (KeyError at the first train step)"}
 
 
 def refuse_unported(**options) -> None:
@@ -166,7 +186,8 @@ class Trainer:
                  norm_op: str = "instance", nonlin: str = "lrelu",
                  num_conv_per_stage: Optional[int] = None,
                  seg_bias: bool = False, nonlin_before_norm: bool = False,
-                 conv_kernel=None, device="cuda", **options):
+                 conv_kernel=None, device_augment: bool = False,
+                 device="cuda", **options):
         """The reference's arguments (TPUTrainer.__init__, trainer.py:47-76)
         with `device`; cascade=True trains the 3d_cascade_fullres stage on
         the previous stage's one-hot segmentation; any of the reference's
@@ -179,7 +200,9 @@ class Trainer:
         between validations without mirroring; export_kwargs:
         interpolation_order, interpolation_order_z, force_separate_z;
         norm_op, nonlin, num_conv_per_stage, seg_bias, nonlin_before_norm,
-        conv_kernel: the architecture switches of build_network."""
+        conv_kernel: the architecture switches of build_network;
+        device_augment: the training batches augmented on the device
+        (ops/device_augment.py)."""
         refuse_unported(**options)
         if ds_mode not in ("standard", "none"):
             raise ValueError(f"ds_mode {ds_mode!r}: 'standard' or 'none'")
@@ -199,6 +222,7 @@ class Trainer:
         self.num_da_threads = num_da_threads
         self.base_num_features = base_num_features
         self.cascade = cascade
+        self.device_augment = device_augment
         self.arch = dict(norm_op=norm_op, nonlin=nonlin,
                          num_conv_per_stage=num_conv_per_stage,
                          seg_bias=seg_bias,
@@ -266,6 +290,15 @@ class Trainer:
     def initialize(self, training: bool = True):
         if self.was_initialized:
             return
+        if self.device_augment:
+            for mode, on in (("cascade", self.cascade),
+                             ("regions", self.regions is not None),
+                             ("ds_mode none", self.ds_mode == "none"),
+                             ("dummy_load", self.dummy_load)):
+                if on:
+                    raise ValueError(
+                        f"device_augment with {mode}: the JAX trainer "
+                        f"cannot train so ({_DEVICE_AUGMENT_REFUSED[mode]})")
         num_in = self.num_modalities
         if self.cascade:
             # prev-stage seg arrives as one-hot fg-class channels
@@ -344,6 +377,22 @@ class Trainer:
                 self._dsff_grad_step = make_grad_step(
                     self.network, self.ds_weights, self.batch_dice,
                     loss_name=self.loss_name, do_ds=do_ds)
+
+        if self.device_augment:
+            self.device_aug = make_device_augmenter(
+                tuple(int(i) for i in self.patch_size),
+                tuple(int(i) for i in self.basic_generator_patch_size),
+                self.num_classes, self.ds_scales,
+                do_mirror=self.da_params.do_mirror,
+                do_rotation=self.da_params.do_rotation,
+                do_scaling=self.da_params.do_scaling,
+                do_gamma=self.da_params.do_gamma)
+            # the draws (host) and the noise (device); like the JAX
+            # trainer's _aug_key they are not in the checkpoints, so a
+            # resumed run starts them again from the seed
+            self._aug_gen = torch.Generator().manual_seed(self.seed + 7)
+            self._aug_noise_gen = torch.Generator(
+                device=self.device).manual_seed(self.seed + 7)
 
         if training:
             self._setup_generators()
@@ -468,7 +517,7 @@ class Trainer:
         self.tr_gen = BatchPipeline(sampler_tr, self.da_params,
                                     validation=False,
                                     num_threads=self.num_da_threads,
-                                    seed=self.seed)
+                                    seed=self.seed, raw=self.device_augment)
         val_params = AugmentParams(
             patch_size=tuple(int(i) for i in self.patch_size),
             mask_was_used_for_normalization=self.plans.use_mask_for_norm,
@@ -502,22 +551,36 @@ class Trainer:
         return _Gen()
 
     # ------------------------------------------------------------ loops
+    def _put(self, a):
+        """An array on the device. To the card through pinned memory,
+        without waiting: a copy from pageable memory would wait for the
+        steps already queued."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _to_device(self, batch):
-        """The batch channels-last on the device. To the card through
-        pinned memory, without waiting: a copy from pageable memory would
-        wait for the steps already queued."""
-        def put(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if self.device.type != "cuda":
-                return t
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return (put(np.moveaxis(batch["data"], 1, -1)),
-                tuple(put(t) for t in batch["target"]))
+        """The augmented batch channels-last on the device."""
+        return (self._put(np.moveaxis(batch["data"], 1, -1)),
+                tuple(self._put(t) for t in batch["target"]))
+
+    def _augment_on_device(self, batch):
+        """A raw batch on the device (the segmentation's first channel as
+        int8 labels, int16 past 127 classes; -1 outside the case),
+        augmented there: (data channels-last, targets)."""
+        seg = batch["seg"][:, 0].astype(
+            np.int8 if self.num_classes <= 127 else np.int16)
+        return self.device_aug(self._aug_gen, self._aug_noise_gen,
+                               self._put(batch["data"]), self._put(seg))
 
     def run_iteration(self, gen, lr, do_backprop=True,
                       run_online_evaluation=False):
         batch = next(gen)
-        data, targets = self._to_device(batch)
+        if do_backprop and self.device_augment:
+            data, targets = self._augment_on_device(batch)
+        else:
+            data, targets = self._to_device(batch)
         extras = self._step_extras()
         if do_backprop:
             self.state, metrics = self.train_step(
@@ -903,7 +966,8 @@ class Trainer:
             if k in ("plans", "state", "network", "logger", "tr_gen",
                      "val_gen", "dataset_tr", "dataset_val", "train_step",
                      "eval_step", "mask_update", "da_params",
-                     "_dsff_grad_step", "_plateau"):
+                     "_dsff_grad_step", "_plateau", "device_aug",
+                     "_aug_gen", "_aug_noise_gen"):
                 continue
             try:
                 json.dumps(v)

@@ -26,8 +26,10 @@ on both of its routes likewise), #13 the pipelined block
 against #1 (equal to the bit) and its own control,
 #14 the bf16 and int8 products on the route each shape takes, counted per
 route, beside the mma.sync control, and the int8 repack of B); a double
-backward through the kernel model refusing, and GraSP on the card (the
-plain path) against its CPU run. Imports no jax (the machine with the card
+backward through the kernel model refusing, GraSP on the card (the
+plain path) against its CPU run, and the on-device augmentation
+(ops/device_augment.apply, every transform on) against its CPU run.
+Imports no jax (the machine with the card
 has none); run there with
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
@@ -1669,3 +1671,47 @@ def test_amos2022_resample_on_the_card_matches_the_cpu(target):
     near = amos2022.resize_softmax(x, target, "nearest", device=dev)
     assert torch.equal(near.cpu(), amos2022.resize_softmax(
         x, target, "nearest", device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C, in_patch, patch", [
+    (1, (40, 44, 48), (32, 32, 32)), (2, (40, 44, 48), (32, 32, 32)),
+    (1, (30, 52, 61), (1, 40, 40))])
+def test_device_augment_on_the_card_matches_the_cpu(C, in_patch, patch):
+    """ops/device_augment.apply on the card against its CPU run on the same
+    params (rotation and scaling forced on, every other transform on) and
+    noise: data within 1e-5 (the coordinates and the warp are the same
+    float32 arithmetic; the contrast's and the gamma's reductions sum in
+    another order), the labels equal; make_device_augmenter's function on
+    the card: channels-last data and int64 targets there."""
+    import dataclasses
+    from e2enet_tpu_torch.ops import device_augment as da
+    dev = _card()
+    B = 2
+    rng = np.random.RandomState(C)
+    data = torch.from_numpy(rng.randn(B, C, *in_patch).astype(np.float32))
+    seg = torch.from_numpy(rng.randint(-1, 4, (B,) + in_patch)
+                           .astype(np.int8))
+    p = da.sample_params(torch.Generator().manual_seed(0), B, C, patch,
+                         p_rot=1.0, p_scale=1.0)
+    on = np.ones(B, bool)
+    p = dataclasses.replace(p, noise=on, blur=np.ones((B, C), bool),
+                            bright=on, contrast=on, gamma_inv=on, gamma=on)
+    noise = torch.randn((B, C) + patch,
+                        generator=torch.Generator().manual_seed(1))
+    d_cpu, s_cpu = da.apply(p, data, seg, noise)
+    d_card, s_card = da.apply(p, data.to(dev), seg.to(dev), noise.to(dev))
+    assert d_card.device.type == "cuda" and s_card.dtype == torch.int8
+    assert float((d_card.cpu() - d_cpu).abs().max()) <= 1e-5
+    assert torch.equal(s_card.cpu(), s_cpu)
+    ds = [[1, 1, 1], [0.5, 0.5, 0.5]]
+    aug = da.make_device_augmenter(patch, in_patch, 4, ds)
+    d, targets = aug(torch.Generator().manual_seed(2),
+                     torch.Generator(device=dev).manual_seed(2),
+                     data.to(dev), seg.to(dev))
+    assert d.device.type == "cuda" and d.shape == (B,) + patch + (C,)
+    assert bool(torch.isfinite(d).all())
+    assert [tuple(t.shape) for t in targets] == [
+        (B,) + patch, (B,) + tuple((x + 1) // 2 for x in patch)]
+    assert all(t.dtype == torch.int64 and t.device.type == "cuda"
+               for t in targets)

@@ -11,8 +11,10 @@ The element DSFF settings (ERK, the global prune, GMP, the lottery
 ticket at element granularity) train a fold, their masks and fired masks
 written in the flax layout. The cascade's two networks train on a
 two-stage plan, and raise the JAX CLI's message on a one-stage one. And
-the refusals: no card without --device cpu, and every option the port
-does not train, each naming its ROADMAP item; and that no module of the port imports jax or e2enet_tpu (a
+--device_augment trains a fold, and is refused with the presets the JAX
+trainer cannot train so. And the refusals: no card without --device cpu,
+and every option the port does not train, each naming its ROADMAP item;
+and that no module of the port imports jax or e2enet_tpu (a
 subprocess in which both are blocked imports every module of the package
 and chip_smoke.py)."""
 import json
@@ -206,11 +208,51 @@ def test_refuses_without_a_card(environ, monkeypatch):
 
 @pytest.mark.parametrize("extra, item", [
     (["--num_devices", "2"], "item 7"),
-    (["--spatial_parallel", "2"], "item 7"),
-    (["--device_augment"], "item 8")])
+    (["--spatial_parallel", "2"], "item 7")])
 def test_unported_options_raise(environ, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu"] + extra)
+
+
+def test_device_augment_trains(environ, monkeypatch):
+    """--device_augment, refused before it was ported, trains a fold (kernel
+    DSFF, one epoch of 2 batches, validation included) with its training
+    batches augmented by ops/device_augment.py from a raw pipeline; the
+    validation pipeline augments on the host."""
+    calls = []
+    real = Trainer._augment_on_device
+
+    def spy(self, batch):
+        out = real(self, batch)
+        calls.append((tuple(batch["data"].shape), out))
+        return out
+    monkeypatch.setattr(Trainer, "_augment_on_device", spy)
+    tr = ttrain.main(ARGS + ["--epochs", "1", "--fold", "4", "--device",
+                             "cpu", "--device_augment"])
+    assert tr.device_augment and tr.tr_gen.raw and not tr.val_gen.raw
+    assert len(calls) == 2
+    big = tuple(int(i) for i in tr.basic_generator_patch_size)
+    for shape, (data, targets) in calls:
+        assert shape == (2, 1) + big
+        assert data.shape == (2, 16, 16, 16, 1)
+        assert [tuple(t.shape) for t in targets] == [(2, 16, 16, 16),
+                                                     (2, 8, 8, 8)]
+    assert all(np.isfinite(tr.all_tr_losses + tr.all_val_losses))
+    assert os.path.isfile(os.path.join(tr.output_folder, "validation_raw",
+                                       "summary.json"))
+
+
+@pytest.mark.parametrize("extra, mode", [
+    (["-tr", "nnUNetTrainerV2BraTSRegions"], "regions"),
+    (["-tr", "nnUNetTrainerV2_noDeepSupervision"], "ds_mode none"),
+    (["-tr", "nnUNetTrainerV2_dummyLoad"], "dummy_load")])
+def test_device_augment_refused_modes(environ, extra, mode):
+    """--device_augment with a preset the JAX trainer cannot train so
+    raises at initialize, naming the mode (the cascade:
+    tests/test_torch_device_augment_modes.py)."""
+    with pytest.raises(ValueError, match=f"device_augment with {mode}"):
+        ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu",
+                            "--device_augment"] + extra)
 
 
 @pytest.mark.parametrize("extra, tconv", [

@@ -341,10 +341,8 @@ def test_kernel_granular_death_and_growth_match(task):
 def test_unported_options_raise(task):
     base, task_dir = task
     out = os.path.join(base, "refused")
-    for kw, item in ((dict(num_devices=2), "item 7"),
-                     (dict(device_augment=True), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            _port_trainer(task_dir, out, **kw)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        _port_trainer(task_dir, out, num_devices=2)
     # the DSFF settings the reference trainer refuses, at initialize
     for kw, match in ((dict(sparse_init="snip"), "need a data batch"),
                       (dict(sparse_init="GraSP"), "need a data batch"),
@@ -393,6 +391,49 @@ def test_ported_options_run(task, kw, dsff_kw):
         assert tt._dsff_grad_step is not None
     if kw.get("optimizer", "sgd") != "sgd":
         assert tt.state.momentum.step == 1
+
+
+def test_device_augment_trains(task):
+    """device_augment=True, refused before it was ported: 2 epochs of 2
+    steps on the CPU from raw batches (the training pipeline raw at the
+    generator patch, the validation pipeline augmented on the host), each
+    augmented by ops/device_augment.py into channels-last data at the
+    patch and int64 targets at the deep-supervision shapes; finite
+    losses; the DSFF update reads the augmented batch."""
+    base, task_dir = task
+    cfg = td.DSFFConfig(sparse=True, density=0.3, update_frequency=2,
+                        growth="gradient", granularity="kernel")
+    tt = _port_trainer(task_dir, os.path.join(base, "device_augment"),
+                       device_augment=True, dsff_config=cfg)
+    tt.initialize(True)
+    assert tt.tr_gen.raw and not tt.val_gen.raw
+    raw = next(tt.tr_gen)
+    assert set(raw) == {"data", "seg"}
+    assert raw["data"].shape == (2, 1) + tuple(
+        int(i) for i in tt.basic_generator_patch_size)
+    seen, dsff_batches = [], []
+    real_aug, real_grad = tt.device_aug, tt._dsff_grad_step
+
+    def aug(gen, noise_gen, data, seg):
+        out = real_aug(gen, noise_gen, data, seg)
+        seen.append((data.dtype, seg.dtype, out))
+        return out
+
+    def grad(data, targets):
+        dsff_batches.append((data, targets))
+        return real_grad(data, targets)
+    tt.device_aug, tt._dsff_grad_step = aug, grad
+    tt.run_training()
+    assert len(seen) == 4
+    for dtype, seg_dtype, (data, targets) in seen:
+        assert (dtype, seg_dtype) == (torch.float32, torch.int8)
+        assert data.shape == (2, 16, 16, 16, 1)
+        assert [tuple(t.shape) for t in targets] == [
+            (2, 16, 16, 16), (2, 8, 8, 8)]
+        assert all(t.dtype == torch.int64 for t in targets)
+    assert [id(b[0]) for b in dsff_batches] == [id(seen[1][2][0]),
+                                                id(seen[3][2][0])]
+    assert np.all(np.isfinite(tt.all_tr_losses + tt.all_val_losses))
 
 
 @pytest.mark.parametrize("granularity", ["kernel", "row"])
