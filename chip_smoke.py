@@ -32,6 +32,9 @@
     python3 chip_smoke.py --device_augment
                                    # only the build, [trainer]'s planned
                                    # task and the [device_augment] phase
+    python3 chip_smoke.py --formats
+                                   # only the [formats] phase (it builds
+                                   # and launches no kernel)
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -340,7 +343,23 @@ Phases (any failure ends the run with a non-zero exit):
               within 1e-4, targets equal but at .5 ties), its ms per batch
               warped, cropped, with every transform and with fresh draws,
               beside the host's augment_batch per batch
-  19. experiments  the experiment kernels (TPU kernels #11-#14) against
+  19. formats challenge downloads in the other formats, on the host
+              with numpy and the standard library (formats_phase): a
+              PROMISE12 tree of .mhd files (two training MR cases of 20 x
+              256^2 and 24 x 320^2, one with zlib, and a test case)
+              through convert_promise2012; a DICOM series of 24 x 256^2
+              (implicit VR, out of order, files without an extension)
+              through read_dicom_series, and its volume through NRRD
+              (gzip and raw); a PIR VerSe2019 tree (96 x 160 x 128)
+              through convert_verse2019, which reorients it to RAS, then
+              reverted; every voxel checked against its source. The plan
+              CLI (-t 24 --verify_dataset_integrity) on the converted task
+              in a fresh process; a base-8 fold at its plan written by
+              save_checkpoint, packed by export_pretrained_model and
+              installed into a fresh RESULTS_FOLDER (the installed files
+              the packed ones, the weights restored by ModelBundle on the
+              CPU). No kernel launches. Prints each step's seconds
+  20. experiments  the experiment kernels (TPU kernels #11-#14) against
               their plain versions at the experiments' main shapes (1 x 128^3
               x 48 -> 48 bf16; the ring shift + conv on its TMA route,
               checked by its route counter, beside its first design (the
@@ -364,7 +383,7 @@ Phases (any failure ends the run with a non-zero exit):
               also in turns with #1 and its one-stage control;
               then each experiment's `main` once with few repetitions, its
               launches counted as the "experiments" path
-  20. report  one JSON line with every kernel's launches, error, times and
+  21. report  one JSON line with every kernel's launches, error, times and
               bound, the nvidia-smi line, and last {"ok": true, ...}
 
 Needs torch built for CUDA and nvcc; never imports jax.
@@ -5655,6 +5674,420 @@ def device_augment_only() -> None:
         n: op.launches for n, op in ops.items()}}), flush=True)
 
 
+# the [formats] phase: challenge downloads in the other formats converted
+# to the raw layout, a VerSe tree reoriented to RAS and back, the converted
+# task planned, and a fold packed and installed; host work with numpy and
+# the standard library only (the card's machine has no PIL, h5py, pandas
+# or matplotlib)
+FORMATS_TASK = "Task024_Promise"
+# PROMISE12 training MR volumes: (slices, rows, cols) and (x, y, z) mm
+FORMATS_PROMISE = {"Case00": ((20, 256, 256), (0.625, 0.625, 3.6)),
+                   "Case01": ((24, 320, 320), (0.5, 0.5, 3.0))}
+FORMATS_DICOM = (24, 256, 256)  # one MR series: slices, rows, cols
+FORMATS_VERSE = (96, 160, 128)  # one VerSe CT, PIR: (z, y, x) array
+FORMATS_BASE = 8                # the packed fold's base width
+# a PIR volume: data x runs to P, y to I, z to R (LPS direction columns)
+PIR = (0.0, 0.0, -1.0, 1.0, 0.0, 0.0, 0.0, -1.0, 0.0)
+
+
+def write_dicom_slice(path, pix, position, instance, spacing=(1.2, 0.8),
+                      orientation=(1, 0, 0, 0, 1, 0), slope=1.0,
+                      intercept=0.0, explicit=True, part10=True):
+    """One uncompressed DICOM slice of int16 pixels `pix` (rows, cols):
+    with part10 a Part-10 file (128-byte preamble, 'DICM', the explicit-VR
+    file meta group naming the transfer syntax) of explicit or implicit VR
+    little endian; without, the bare implicit-VR dataset. The dataset
+    opens with an undefined-length sequence of one item, which a reader
+    skips. spacing is (row spacing, column spacing) in mm, position the
+    first pixel's LPS position, orientation the row and column cosines."""
+    import struct
+
+    def elem(group, el, vr, value, expl=explicit):
+        if len(value) % 2:
+            value += b"\0" if vr == b"UI" else b" "
+        head = struct.pack("<HH", group, el)
+        if not expl:
+            return head + struct.pack("<I", len(value)) + value
+        if vr in (b"OB", b"OW", b"SQ", b"UN", b"UT"):
+            return head + vr + b"\0\0" + struct.pack("<I", len(value)) + value
+        return head + vr + struct.pack("<H", len(value)) + value
+
+    def ds(*vals):
+        return "\\".join(f"{float(v):.10g}" for v in vals).encode()
+
+    def us(v):
+        return struct.pack("<H", v)
+
+    item = elem(0x0008, 0x1150, b"UI", b"1.2.840.10008.5.1.4.1.1.4")
+    seq = (struct.pack("<HH", 0x0008, 0x1140)
+           + (b"SQ\0\0" if explicit else b"")
+           + struct.pack("<I", 0xFFFFFFFF)
+           + struct.pack("<HHI", 0xFFFE, 0xE000, len(item)) + item
+           + struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
+    rows, cols = pix.shape
+    body = b"".join([
+        seq,
+        elem(0x0018, 0x0050, b"DS", ds(spacing[0])),
+        elem(0x0020, 0x0013, b"IS", str(instance).encode()),
+        elem(0x0020, 0x0032, b"DS", ds(*position)),
+        elem(0x0020, 0x0037, b"DS", ds(*orientation)),
+        elem(0x0028, 0x0010, b"US", us(rows)),
+        elem(0x0028, 0x0011, b"US", us(cols)),
+        elem(0x0028, 0x0030, b"DS", ds(*spacing)),
+        elem(0x0028, 0x0100, b"US", us(16)),
+        elem(0x0028, 0x0103, b"US", us(1)),
+        elem(0x0028, 0x1052, b"DS", ds(intercept)),
+        elem(0x0028, 0x1053, b"DS", ds(slope)),
+        elem(0x7FE0, 0x0010, b"OW", np.asarray(pix, "<i2").tobytes()),
+    ])
+    if part10:
+        ts = b"1.2.840.10008.1.2.1" if explicit else b"1.2.840.10008.1.2"
+        meta = elem(0x0002, 0x0010, b"UI", ts, True)
+        meta = elem(0x0002, 0x0000, b"UL", struct.pack("<I", len(meta)),
+                    True) + meta
+        body = b"\0" * 128 + b"DICM" + meta + body
+    else:
+        assert not explicit, "a bare dataset is implicit VR"
+    with open(path, "wb") as f:
+        f.write(body)
+
+
+def _mr_case(rng, shape):
+    """A seeded MR-like volume (float32, a bright ellipsoid on a noisy
+    body) and its label map (uint8, the ellipsoid), as PROMISE12's."""
+    z, y, x = (np.linspace(-1, 1, s)[:, None, None] for s in shape)
+    y, x = y.reshape(1, -1, 1), x.reshape(1, 1, -1)
+    body = (y ** 2 + x ** 2) < 0.8
+    gland = (z ** 2 / 0.5 + (y - 0.1) ** 2 / 0.08 + x ** 2 / 0.1) < 1
+    vol = (300.0 * body + 250.0 * gland
+           + 40.0 * rng.randn(*shape)).astype(np.float32)
+    return vol, gland.astype(np.uint8)
+
+
+def _ras_world_check(tag, new, src):
+    """Every voxel of `new` equals the voxel of `src` at the same world
+    position (both NiftiImages, their RAS affines a permutation with
+    signs of each other)."""
+    from e2enet_tpu_torch.preprocessing.reorientation import ras_affine
+    a_new, a_src = ras_affine(new), ras_affine(src)
+    # new (x, y, z) index -> world -> src (x, y, z) index
+    T = np.linalg.solve(a_src, a_new)
+    R = np.rint(T[:3, :3]).astype(int)
+    t = np.rint(T[:3, 3]).astype(int)
+    check(np.allclose(T[:3, :3], R, atol=1e-6)
+          and np.allclose(T[:3, 3], t, atol=1e-4),
+          f"[formats] {tag}: the voxel grids are not a permutation")
+    idx = np.indices(new.array.shape[::-1]).reshape(3, -1)
+    src_idx = R @ idx + t[:, None]
+    got = new.array.transpose(2, 1, 0).reshape(-1)
+    want = src.array.transpose(2, 1, 0)[tuple(src_idx)]
+    check(np.array_equal(got, want), f"[formats] {tag}: a voxel moved")
+
+
+def formats_phase(base, smi):
+    """[formats] host work with numpy and the standard library, in
+    folders under `base`:
+    (a) a PROMISE12 download (train/ Case00 .mhd + .raw, Case01 .mhd +
+        zlib .zraw, each with its _segmentation.mhd; test/ one case)
+        converted by convert_promise2012; every voxel and the geometry of
+        each converted image and label against its source;
+    (b) a DICOM series (FORMATS_DICOM, implicit VR, written out of order,
+        half of the files without an extension, one text file beside
+        them) read by read_dicom_series: every voxel the rescaled source
+        in position order, the spacing and origin the series';
+    (c) that volume written as NRRD (gzip and raw) and read back equal;
+    (d) a VerSe2019 download (one PIR CT with its labels for training,
+        one for testing) converted by convert_verse2019, which reorients
+        each to RAS (its axis codes, every voxel at its world position),
+        then reverted: every voxel and the geometry the source's;
+    (e) `python -m e2enet_tpu_torch.cli.plan_and_preprocess -t 24
+        --verify_dataset_integrity` on the converted task in a fresh
+        process: exit 0, a plan and both cases' stage files;
+    (f) a fold at that plan (ShiftUNet++, FORMATS_BASE base features,
+        random weights from seed 0) written by save_checkpoint, packed by
+        export_pretrained_model, installed by install_model_from_zip_file
+        into a fresh RESULTS_FOLDER: the installed files equal the packed
+        ones, and ModelBundle restores the fold's weights on the CPU.
+    Prints each step's seconds; checks that jax was not imported.
+    Returns the phase's seconds."""
+    import os
+    import zipfile
+    from unittest import mock
+    import torch
+    from e2enet_tpu_torch.dataset_conversion.tasks_extra import (
+        convert_promise2012, convert_verse2019)
+    from e2enet_tpu_torch.inference.predictor import ModelBundle
+    from e2enet_tpu_torch.inference.pretrained_models import (
+        export_pretrained_model, install_model_from_zip_file)
+    from e2enet_tpu_torch.io.dicom import read_dicom_series
+    from e2enet_tpu_torch.io.metaimage import read_mhd, write_mhd
+    from e2enet_tpu_torch.io.nifti import NiftiImage, read_nifti, write_nifti
+    from e2enet_tpu_torch.io.nrrd import read_nrrd, write_nrrd
+    from e2enet_tpu_torch.models.unetpp import build_network
+    from e2enet_tpu_torch.models.weights import to_jax_params
+    from e2enet_tpu_torch.plans import Plans
+    from e2enet_tpu_torch.preprocessing.reorientation import (
+        aff2axcodes, ras_affine, revert_orientation_on_all_images_in_folder)
+    from e2enet_tpu_torch.training.checkpoint import save_checkpoint
+    from e2enet_tpu_torch.utils.files import load_json
+    t_phase = time.perf_counter()
+    seconds = {}
+    rng = np.random.RandomState(24)
+    raw = os.path.join(base, "raw")
+    os.makedirs(os.path.join(raw, "nnUNet_raw_data"))
+
+    def same_geometry(a, b):
+        return all(np.allclose(getattr(a, k), getattr(b, k), atol=1e-6)
+                   for k in ("spacing", "origin", "direction"))
+
+    # ---- (a) PROMISE12, MetaImage
+    t0 = time.perf_counter()
+    src = os.path.join(base, "promise")
+    for sub in ("train", "test"):
+        os.makedirs(os.path.join(src, sub))
+    sources = {}
+    for i, (case, (shape, spacing)) in enumerate(FORMATS_PROMISE.items()):
+        vol, seg = _mr_case(rng, shape)
+        geom = dict(spacing=spacing, origin=(-80.5 - i, -92.25, -30.0 * i))
+        sources[case] = (vol, seg, geom)
+        write_mhd(os.path.join(src, "train", f"{case}.mhd"),
+                  NiftiImage(vol, **geom), compressed=i == 1)
+        write_mhd(os.path.join(src, "train", f"{case}_segmentation.mhd"),
+                  NiftiImage(seg, **geom), compressed=i == 1)
+    test_vol = _mr_case(rng, FORMATS_PROMISE["Case00"][0])[0]
+    write_mhd(os.path.join(src, "test", "Case10.mhd"),
+              NiftiImage(test_vol, (0.625, 0.625, 3.6)))
+    seconds["promise_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, nnUNet_raw_data_base=raw):
+        out = convert_promise2012(src)
+    seconds["promise_convert"] = time.perf_counter() - t0
+    check(os.path.basename(out) == FORMATS_TASK,
+          f"[formats] PROMISE12 converted to {out}")
+    for case, (vol, seg, geom) in sources.items():
+        img = read_nifti(os.path.join(out, "imagesTr", f"{case}_0000.nii.gz"))
+        lab = read_nifti(os.path.join(out, "labelsTr", f"{case}.nii.gz"))
+        want = NiftiImage(vol, **geom)
+        check(img.array.dtype == np.float32 and np.array_equal(img.array, vol)
+              and lab.array.dtype == np.uint8 and np.array_equal(lab.array,
+                                                                  seg),
+              f"[formats] PROMISE12 {case}: a voxel differs from its .mhd")
+        check(same_geometry(img, want) and same_geometry(lab, want),
+              f"[formats] PROMISE12 {case}: geometry {img.geometry}")
+    test = read_nifti(os.path.join(out, "imagesTs", "Case10_0000.nii.gz"))
+    check(np.array_equal(test.array, test_vol), "[formats] PROMISE12 Case10")
+    ds = load_json(os.path.join(out, "dataset.json"))
+    check(ds["numTraining"] == 2 and ds["numTest"] == 1
+          and ds["labels"] == {"0": "background", "1": "prostate"},
+          f"[formats] PROMISE12 dataset.json {ds}")
+    n_vox = sum(int(np.prod(s)) for s, _ in FORMATS_PROMISE.values())
+    print(f"[formats] (a) PROMISE12 .mhd/.raw and .mhd/.zraw -> "
+          f"{FORMATS_TASK}: {len(sources)} training cases "
+          f"{[s for s, _ in FORMATS_PROMISE.values()]} + 1 test, {n_vox} "
+          f"training voxels each equal to its source, geometry held; "
+          f"written in {seconds['promise_write']:.2f} s, converted in "
+          f"{seconds['promise_convert']:.2f} s", flush=True)
+
+    # ---- (b) a DICOM series, (c) the same volume as NRRD
+    t0 = time.perf_counter()
+    series = os.path.join(base, "dicom")
+    os.makedirs(series)
+    n, rows, cols = FORMATS_DICOM
+    pix = (rng.randint(0, 1600, (n, rows, cols))).astype(np.int16)
+    origin, dz, slope, intercept = (-120.0, -135.5, 40.0), 3.3, 1.0, -20.0
+    for z in rng.permutation(n):
+        name = f"IM{z:04d}" + (".dcm" if z % 2 else "")
+        write_dicom_slice(os.path.join(series, name), pix[z],
+                          (origin[0], origin[1], origin[2] + dz * z),
+                          int(z) + 1, spacing=(0.9, 0.8), slope=slope,
+                          intercept=intercept, explicit=False)
+    with open(os.path.join(series, "notes.txt"), "w") as f:
+        f.write("not a slice\n")
+    seconds["dicom_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vol = read_dicom_series(series)
+    seconds["dicom_read"] = time.perf_counter() - t0
+    want = pix.astype(np.float32) * slope + intercept
+    check(vol.array.dtype == np.float32 and np.array_equal(vol.array, want),
+          "[formats] DICOM: a voxel differs from its slice")
+    check(np.allclose(vol.spacing, (0.8, 0.9, dz))
+          and np.allclose(vol.origin, origin)
+          and np.allclose(vol.direction, np.eye(3).reshape(-1)),
+          f"[formats] DICOM geometry {vol.geometry}")
+    t0 = time.perf_counter()
+    for compressed in (True, False):
+        p = os.path.join(base, f"dicom_{compressed}.nrrd")
+        write_nrrd(p, vol, compressed=compressed)
+        back = read_nrrd(p)
+        check(back.array.dtype == np.float32
+              and np.array_equal(back.array, vol.array)
+              and same_geometry(back, vol),
+              f"[formats] NRRD (gzip {compressed}) differs from its source")
+    seconds["nrrd"] = time.perf_counter() - t0
+    print(f"[formats] (b) DICOM series {FORMATS_DICOM}, implicit VR, "
+          f"written out of order, half without an extension: every voxel "
+          f"the rescaled slice, spacing {tuple(vol.spacing)}; written in "
+          f"{seconds['dicom_write']:.2f} s, read in "
+          f"{seconds['dicom_read']:.2f} s; (c) NRRD gzip and raw written "
+          f"and read back equal in {seconds['nrrd']:.2f} s", flush=True)
+
+    # ---- (d) VerSe2019: reoriented to RAS, then back
+    t0 = time.perf_counter()
+    verse = os.path.join(base, "verse")
+    for sub in ("train", "test"):
+        os.makedirs(os.path.join(verse, sub))
+    ct = (rng.randn(*FORMATS_VERSE) * 300.0 + 100.0).astype(np.float32)
+    labels = rng.randint(0, 26, FORMATS_VERSE).astype(np.uint8)
+    ct_test = (rng.randn(*FORMATS_VERSE) * 300.0).astype(np.float32)
+    geom = dict(spacing=(1.0, 1.25, 0.8), origin=(40.0, -60.5, 210.0),
+                direction=PIR)
+    originals = {("imagesTr", "verse004_0000"): NiftiImage(ct, **geom),
+                 ("labelsTr", "verse004"): NiftiImage(labels, **geom),
+                 ("imagesTs", "verse005_0000"): NiftiImage(ct_test, **geom)}
+    write_nifti(os.path.join(verse, "train", "verse004.nii.gz"),
+                originals[("imagesTr", "verse004_0000")])
+    write_nifti(os.path.join(verse, "train", "verse004_seg.nii.gz"),
+                originals[("labelsTr", "verse004")])
+    write_nifti(os.path.join(verse, "test", "verse005.nii.gz"),
+                originals[("imagesTs", "verse005_0000")])
+    seconds["verse_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, nnUNet_raw_data_base=raw):
+        vout = convert_verse2019(verse)
+    seconds["verse_convert"] = time.perf_counter() - t0
+    codes = set()
+    for (sub, name), src_img in originals.items():
+        p = os.path.join(vout, sub, name + ".nii.gz")
+        img = read_nifti(p)
+        codes.add(aff2axcodes(ras_affine(img)))
+        check(os.path.isfile(p[:-7] + "_originalAffine.pkl"),
+              f"[formats] VerSe {name}: no sidecar")
+        _ras_world_check(f"VerSe {name}", img, src_img)
+    check(codes == {("R", "A", "S")}, f"[formats] VerSe axis codes {codes}")
+    t0 = time.perf_counter()
+    for sub in ("imagesTr", "labelsTr", "imagesTs"):
+        revert_orientation_on_all_images_in_folder(os.path.join(vout, sub))
+    seconds["verse_revert"] = time.perf_counter() - t0
+    for (sub, name), src_img in originals.items():
+        p = os.path.join(vout, sub, name + ".nii.gz")
+        img = read_nifti(p)
+        check(img.array.dtype == src_img.array.dtype
+              and np.array_equal(img.array, src_img.array)
+              and same_geometry(img, src_img)
+              and not os.path.isfile(p[:-7] + "_originalAffine.pkl"),
+              f"[formats] VerSe {name}: the reverted image is not its "
+              f"source")
+    print(f"[formats] (d) VerSe2019 PIR {FORMATS_VERSE} -> RAS, every "
+          f"voxel at its world position, then reverted equal to the source "
+          f"(3 images); written in {seconds['verse_write']:.2f} s, converted "
+          f"and reoriented in {seconds['verse_convert']:.2f} s, reverted in "
+          f"{seconds['verse_revert']:.2f} s", flush=True)
+
+    # ---- (e) the plan CLI on the converted PROMISE12 task
+    pre = os.path.join(base, "preprocessed")
+    argv = ["-t", "24", "--verify_dataset_integrity"]
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "e2enet_tpu_torch.cli.plan_and_preprocess"]
+        + argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, nnUNet_raw_data_base=raw,
+                 nnUNet_preprocessed=pre),
+        capture_output=True, text=True, timeout=600)
+    seconds["plan_cli"] = time.perf_counter() - t0
+    check(r.returncode == 0, f"[formats] the plan CLI exited "
+          f"{r.returncode}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+    plans = Plans.load(os.path.join(pre, FORMATS_TASK,
+                                    "nnUNetPlansv2.1_plans_3D.json"))
+    stage = plans.plans_per_stage[plans.num_stages - 1]
+    stage_dir = os.path.join(pre, FORMATS_TASK, plans.data_identifier
+                             + f"_stage{plans.num_stages - 1}")
+    check(all(os.path.isfile(os.path.join(stage_dir, f"{c}.npz"))
+              for c in FORMATS_PROMISE),
+          f"[formats] the plan CLI wrote no stage files in {stage_dir}")
+    print(f"[formats] (e) python -m e2enet_tpu_torch.cli.plan_and_preprocess "
+          f"{' '.join(argv)}: exit 0 in {seconds['plan_cli']:.2f} s; "
+          f"{plans.num_stages} stage(s), patch {stage.patch_size}, pools "
+          f"{stage.pool_op_kernel_sizes}, normalisation "
+          f"{plans.normalization_schemes}", flush=True)
+
+    # ---- (f) a fold packed into a zip and installed
+    t0 = time.perf_counter()
+    results = os.path.join(base, "results")
+    folder = os.path.join(results, "nnUNet", "3d_fullres", FORMATS_TASK,
+                          "TPUTrainer__nnUNetPlansv2.1")
+    os.makedirs(os.path.join(folder, "fold_0"))
+    net = build_network(stage, 1, plans.num_classes + 1,
+                        base_num_features=FORMATS_BASE,
+                        compute_dtype=torch.float32, device="cpu")
+    net.reset_parameters(seed=0)
+    params = to_jax_params(net.state_dict())
+    save_checkpoint(
+        os.path.join(folder, "fold_0",
+                     "shiftConvPP_model_final_checkpoint.model"),
+        params, 1000,
+        sidecar={"init": {"fold": 0, "stage": plans.num_stages - 1,
+                          "tconv": "shiftConvPP",
+                          "base_num_features": FORMATS_BASE,
+                          "cascade": False},
+                 "name": "TPUTrainer", "class": "TPUTrainer",
+                 "plans": plans.to_dict()})
+    plans.save(os.path.join(folder, "plans.json"))
+    zip_file = os.path.join(base, f"{FORMATS_TASK}.zip")
+    with mock.patch.dict(os.environ, RESULTS_FOLDER=results):
+        export_pretrained_model(FORMATS_TASK, zip_file, folds=(0,))
+    installed = os.path.join(base, "installed")
+    with mock.patch.dict(os.environ, RESULTS_FOLDER=installed):
+        install_model_from_zip_file(zip_file)
+    with zipfile.ZipFile(zip_file) as zf:
+        members = zf.namelist()
+        for m in members:
+            with open(os.path.join(installed, "nnUNet", m), "rb") as f, \
+                    open(os.path.join(results, "nnUNet", m), "rb") as g:
+                packed = zf.read(m)
+                check(f.read() == packed == g.read(),
+                      f"[formats] {m}: installed bytes differ")
+    check(len(members) == 3, f"[formats] zip members {members}")
+    bundle = ModelBundle(folder.replace(results, installed), [0],
+                         "shiftConvPP", compute_dtype=torch.float32,
+                         device="cpu")
+    got = to_jax_params(bundle.fold_models[0].state_dict())
+
+    def leaves(tree, prefix=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + (k,))
+            else:
+                yield prefix + (k,), np.asarray(v)
+    got = dict(leaves(got))
+    check(all(np.array_equal(got[k], v) for k, v in leaves(params)),
+          "[formats] the installed fold's weights differ")
+    seconds["pack_install"] = time.perf_counter() - t0
+    print(f"[formats] (f) a base-{FORMATS_BASE} fold at that plan packed by "
+          f"export_pretrained_model ({len(members)} members, "
+          f"{os.path.getsize(zip_file)} bytes), installed by "
+          f"install_model_from_zip_file: the installed files equal the "
+          f"packed ones; ModelBundle restored its weights on the CPU; "
+          f"{seconds['pack_install']:.2f} s", flush=True)
+    check("jax" not in sys.modules, "[formats] jax was imported")
+    total = time.perf_counter() - t_phase
+    print(f"[formats] the phase took {total:.1f} s (host only, no kernel "
+          f"launched)  [{smi}]", flush=True)
+    return total
+
+
+def formats_only() -> None:
+    """--formats: the [formats] phase alone (no kernel is built: the phase
+    launches none)."""
+    import tempfile
+    import torch
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as tmp:
+        seconds = formats_phase(tmp, smi)
+    print(json.dumps({"formats_seconds": seconds}), flush=True)
+
+
 def bench_phase(smi):
     """[bench] python -m e2enet_tpu_torch.bench at its defaults (the sparse
     model, fast mode) in a subprocess: exit 0 and a last stdout line with
@@ -5938,6 +6371,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--device_augment"]:
         device_augment_only()
+        return
+    if sys.argv[1:] == ["--formats"]:
+        formats_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -6489,13 +6925,21 @@ def main() -> None:
 
     stamp("10-18. trainer, options, dsff, 2d, cascade, variants, "
           "ensembles, models, device_augment")
-    # ---- 19. experiments: the experiment kernels, then their mains
+    # ---- 19. formats: conversion, reorientation, packaging; host only
+    import tempfile
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as tmp:
+        formats_phase(tmp, smi)
+    check(not any(counts().values()), "[formats] a kernel launched")
+
+    stamp("19. formats")
+    # ---- 20. experiments: the experiment kernels, then their mains
     exp = experiments_phase(rnd, R, reset_counts, counts, smi)
     launches["experiments"] = exp["launches"]
     res.update(exp["kernels"])
 
-    stamp("19. experiments")
-    # ---- 20. report
+    stamp("20. experiments")
+    # ---- 21. report
     sources = {"fused_shift_conv_block": ("fused_block.cu",
                                           "e2enet_tpu/ops/fused_block.py:85"),
                "fused_shift_conv_block_bwd": (
@@ -6605,7 +7049,7 @@ def main() -> None:
             if extra in res[name]:
                 line[extra] = res[name][extra]
         lines.append(line)
-    stamp("20. report: the script")
+    stamp("21. report: the script")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

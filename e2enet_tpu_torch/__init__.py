@@ -19,7 +19,11 @@ task in the JAX package's format, writing checkpoints both packages load;
 `python -m e2enet_tpu_torch.cli.evaluate`; the bench (`python -m
 e2enet_tpu_torch.bench`); and planning and preprocessing a raw task for
 training (`python -m e2enet_tpu_torch.cli.plan_and_preprocess`,
-`planning/`), with the decathlon conversion in `dataset_conversion/`. The
+`planning/`), with every dataset converter of the JAX package in
+`dataset_conversion/` (NIfTI, MetaImage, NRRD, DICOM, PNG/TIFF and HDF5
+sources, RAS reorientation in `preprocessing/reorientation.py`), overlay
+PNGs (`utils/overlay_plots.py`), and trained folds packed into and
+installed from a zip (`inference/pretrained_models.py`). The
 port keeps its own copies of the host modules it needs (`plans.py`,
 `paths.py`, `io/`, `preprocessing/`, `planning/`, `models/vram.py`,
 `inference/export.py`, `postprocessing/`, `evaluation/`, `data/`,
