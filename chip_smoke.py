@@ -35,6 +35,9 @@
     python3 chip_smoke.py --formats
                                    # only the [formats] phase (it builds
                                    # and launches no kernel)
+    python3 chip_smoke.py --parallel
+                                   # only the build and the [parallel]
+                                   # phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -133,6 +136,33 @@ Phases (any failure ends the run with a non-zero exit):
               (CUDA events) and the peak memory. On a 2 x 64^3 batch, one
               step's gradients through the kernels, through the bf16 plain
               path and through a float32 plain run
+  9b. parallel data-parallel training and tile-sharded prediction
+              (parallel/mesh.py) at the bench width (batch 2 x 128^3,
+              kernel DSFF masks at 0.2, bf16), through the users' entry
+              points: (a) a world of one NCCL rank, three sharded steps
+              against the single-device steps (losses within 1e-3,
+              launches per step); two gloo ranks over CUDA tensors on the
+              one card (NCCL refuses two ranks on one device, so
+              parallel.launch(..., backend="gloo", _shared_device=True)):
+              (b) make_grad_step over the ranks, a row each of 2 x 64^3,
+              within 1.25x one device's error against a float32 plain run,
+              and Trainer(num_devices=2, dummy_load=True) at the bench plan
+              (its state broadcast by replicate_state, its rows through
+              pinned memory, a mask update at step 2): two steps' losses
+              within 1e-3 of Trainer on one device, the same state on both
+              ranks, launches per step and rank; (c) predict_case(
+              num_devices=2) on a ModelBundle of the bench model folder
+              (the sparse plan, fast mode) on a 128 x 128 x 256 volume (3
+              tiles x 8 passes) against one device's: on the plain path the
+              probabilities within 1e-3; on the kernel path, whose
+              statistics' atomics make two runs of one device differ
+              (printed beside it), the mean |dp| within 1e-3 and argmax
+              agreement >= 99.5 %, the launches summed over the ranks; and
+              predict_from_folder(num_devices=2) on one case of that size
+              (rank 0 preprocesses, broadcasts and exports): its labels
+              agree with one device's on >= 99.5 % of voxels, the launches
+              summed over the ranks; (d) cli.predict --num_devices 2
+              raising "only 1 present"
   10. trainer the users' chain from raw data (the plan CLI, cli/train.main,
               then cli/predict.main): a seeded raw task (write_raw_task: six
               cases of about 160^3 at 1 mm, one CT modality, 16 classes with
@@ -242,17 +272,17 @@ Phases (any failure ends the run with a non-zero exit):
               the block backward there (wgrad only, as the train step
               runs it, and with its input's gradient), #9 and #10 at 3
               classes, against their plain versions and timed; a task of
-              four of [trainer]'s cases whose stage 1 is [trainer]'s plan
+              three of [trainer]'s cases whose stage 1 is [trainer]'s plan
               and files and whose stage
               0 (1.25 mm, 128^3 median, 128^3 patches, 5 pools, batch 2)
               the port's get_properties_for_stage plans and its
               preprocessor writes; cli/train.main --network 3d_lowres
               --fold all (3 epochs of 6 + 1 batches; its validation left
-              out) and its predict_next_stage over the four cases (a uint8
+              out) and its predict_next_stage over the three cases (a uint8
               segFromPrevStage file per case at the stage-1 shape, its
               launches tiles x passes x per forward); cli/train.main
               --network 3d_cascade_fullres --fold all (one epoch of 4 + 1
-              batches, the validation over the four cases; 16 input
+              batches, the validation over the three cases; 16 input
               channels, launches per step the 3D step's, a validation
               batch's one-hot channels 0/1 and at most one per voxel); one step's gradients of the trained
               cascade model against a float32 plain run (the 1.25x rule);
@@ -1693,33 +1723,40 @@ PRED_GEOM = dict(origin=(-120.5, 33.0, 410.25),
 PRED_DEVICE = "cuda"
 
 
-def write_predict_inputs(base, model):
-    """The model folder (one-stage plans, fold 0 written by the port's
-    save_checkpoint from `model`'s weights and the trained masks) and the
-    input folder; returns (results dir, input dir, model folder)."""
-    import os
-    from e2enet_tpu_torch.io.nifti import NiftiImage, write_nifti
-    from e2enet_tpu_torch.models import masks as masks_mod
-    from e2enet_tpu_torch.models.weights import to_jax_params
+def predict_plans(base_num_features):
+    """The bench plan of one CT modality at 1 mm: one stage of 128^3
+    patches, batch 2, five (2, 2, 2) pools, 16 classes."""
     from e2enet_tpu_torch.plans import Plans, StagePlan
-    from e2enet_tpu_torch.training.checkpoint import save_checkpoint
     stage = StagePlan(
         batch_size=2, num_pool_per_axis=[5, 5, 5], patch_size=list(PATCH),
         median_patient_size_in_voxels=list(VOLUME),
         current_spacing=[1.0, 1.0, 1.0], original_spacing=[1.0, 1.0, 1.0],
         do_dummy_2D_data_aug=False, pool_op_kernel_sizes=[[2, 2, 2]] * 5,
         conv_kernel_sizes=[[1, 3, 3]] * 6)
-    plans = Plans(
+    return Plans(
         num_stages=1, num_modalities=1, modalities={0: "CT"},
         normalization_schemes={0: "CT"}, dataset_properties={},
         list_of_npz_files=[], original_spacings=[[1.0, 1.0, 1.0]],
         original_sizes=[list(VOLUME)], preprocessed_data_folder=None,
         num_classes=NUM_CLASSES - 1, all_classes=list(range(1, NUM_CLASSES)),
-        base_num_features=model.enc[0], use_mask_for_norm={0: False},
+        base_num_features=base_num_features, use_mask_for_norm={0: False},
         keep_only_largest_region=None, min_region_size_per_class=None,
         min_size_per_class=None, transpose_forward=[0, 1, 2],
         transpose_backward=[0, 1, 2], data_identifier="nnUNetData_plans_v2.1",
         plans_per_stage={0: stage}, intensity_properties=PRED_INTENSITY)
+
+
+def write_predict_inputs(base, model, cases=None):
+    """The model folder (predict_plans, fold 0 written by the port's
+    save_checkpoint from `model`'s weights and the trained masks) and the
+    input folder of `cases` (default PRED_CASES); returns (results dir,
+    input dir, model folder)."""
+    import os
+    from e2enet_tpu_torch.io.nifti import NiftiImage, write_nifti
+    from e2enet_tpu_torch.models import masks as masks_mod
+    from e2enet_tpu_torch.models.weights import to_jax_params
+    from e2enet_tpu_torch.training.checkpoint import save_checkpoint
+    plans = predict_plans(model.enc[0])
     results = os.path.join(base, "results")
     folder = os.path.join(results, "nnUNet", "3d_fullres", PRED_TASK,
                           "TPUTrainer__nnUNetPlansv2.1")
@@ -1737,7 +1774,8 @@ def write_predict_inputs(base, model):
                  "plans": plans.to_dict()})
     inputs = os.path.join(base, "input")
     os.makedirs(inputs)
-    for i, (name, (shape, spacing)) in enumerate(PRED_CASES.items()):
+    for i, (name, (shape, spacing)) in enumerate(
+            (cases or PRED_CASES).items()):
         rng = np.random.RandomState(10 + i)
         vol = 40.0 + 120.0 * rng.randn(*shape).astype(np.float32)
         write_nifti(os.path.join(inputs, f"{name}_0000.nii.gz"),
@@ -3747,10 +3785,11 @@ CASCADE_TASK = "Task502_ChipSmokeCascade"
 CASCADE_LOWRES_SPACING = 1.25
 CASCADE_DEVICE = "cuda"
 CASCADE_PP_WORKERS = 6
-# four of [trainer]'s six cases (the planned predict case among them):
+# three of [trainer]'s six cases (the planned predict case among them):
 # predict_next_stage and the cascade fold's validation cost ~10 and ~15 s
-# per case, most of it on the host
-CASCADE_CASES = ("case_000", "case_001", "case_002", TRAIN_VAL[0])
+# per case, most of it on the host (its softmax resampled to stage 1's
+# shape); a fourth case took the whole script past 1090 s on a slow host
+CASCADE_CASES = ("case_000", "case_001", TRAIN_VAL[0])
 # the lowres run takes [trainer]'s 18 steps (3 epochs of 6 batches): after
 # 4 its argmax is speckle, thousands of components per label, and the
 # cascade's augmentation (a connected-component removal that counts each
@@ -6338,6 +6377,478 @@ def ensembles_only() -> None:
     print(json.dumps({"ensembles_launches": counts()}), flush=True)
 
 
+# the [parallel] phase: data-parallel training and tile-sharded prediction
+# (parallel/mesh.py) at the bench width, through the users' entry points;
+# this host has one card, so (a) runs a world of one NCCL rank and (b), (c)
+# two gloo ranks on cuda:0
+PARALLEL_DENSITY = 0.2           # kernel-granular DSFF masks
+PARALLEL_STEPS = 3               # (a)'s steps each way; the first warms up
+# (b)'s Trainer steps; the second ends in a mask update (update_frequency)
+PARALLEL_TRAINER_STEPS = 2
+PARALLEL_LOSS_RTOL = 1e-3
+# 128 x 128 x 256: tiles at depths 0, 64 and 128 of the last axis, so the
+# ranks take two tiles and one
+PARALLEL_VOLUME = (128, 128, 256)
+# predict_from_folder's input: one case of that size, (z, y, x), at the
+# plan's spacing (no resampling)
+PARALLEL_CASE = {"case_000": ((256, 128, 128), (1.0, 1.0, 1.0))}
+# the plain path's max |dp|, the kernel path's mean |dp| (two runs of the
+# kernel path on one device differ: its statistics sum by atomics)
+PARALLEL_PROB_ATOL = 1e-3
+PARALLEL_AGREE = 0.995
+
+
+def parallel_model(dtype=None):
+    """The bench-width train model with kernel masks at PARALLEL_DENSITY:
+    (model, train state, ds weights), all from seeds."""
+    import torch
+    from e2enet_tpu_torch.models.unetpp import ShiftUNetPlusPlus
+    from e2enet_tpu_torch.training import dsff
+    from e2enet_tpu_torch.training import train_bench_masks as tbm
+    from e2enet_tpu_torch.models.unetpp import ds_loss_weights
+    from e2enet_tpu_torch.training.train_state import create_train_state
+    model = ShiftUNetPlusPlus(1, tbm.NUM_CLASSES, tbm.POOLS,
+                              compute_dtype=dtype or torch.bfloat16,
+                              device="cuda")
+    model.reset_parameters(seed=tbm.SEED)
+    masks = dsff.init_masks(model, PARALLEL_DENSITY,
+                            torch.Generator().manual_seed(tbm.SEED + 1))
+    masks = {k: v.cuda() for k, v in masks.items()}
+    state = create_train_state(model, masks, seed=tbm.SEED)
+    return model, state, ds_loss_weights(len(tbm.POOLS),
+                                         model.num_ds_outputs())
+
+
+def parallel_batch(patch, n_out, seed=3):
+    """One seeded synthetic batch of two at `patch`, on the card."""
+    from e2enet_tpu_torch.training import train_bench_masks as tbm
+    return tbm.device_batches(np.random.RandomState(seed), 1, 2, patch,
+                              n_out, "cuda")[0]
+
+
+def parallel_volume():
+    return np.random.RandomState(11).randn(1, *PARALLEL_VOLUME).astype(
+        np.float32)
+
+
+def parallel_launches(ops, fn, *a, **k):
+    """(fn(*a, **k), the kernel launches it made in this process)."""
+    import torch
+    before = {n: op.launches for n, op in ops.items()}
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, {n: op.launches - before[n] for n, op in ops.items()}
+
+
+def parallel_trainer(out_dir, num_devices, ops):
+    """Trainer(num_devices=...) at the bench plan (one stage of 128^3
+    patches, batch 2, five pools, 16 classes, 48 features, bf16), dummy
+    batches, kernel DSFF at PARALLEL_DENSITY updated every 2 steps:
+    initialize, then PARALLEL_TRAINER_STEPS run_iteration calls. Returns
+    each step's loss and launches, the launches a step should make, and
+    the masks and parameters after the steps (on the CPU)."""
+    import torch
+    from e2enet_tpu_torch.models.unetpp import kernel_launches_per_train_step
+    from e2enet_tpu_torch.training.dsff import DSFFConfig
+    from e2enet_tpu_torch.training.trainer import Trainer
+    tr = Trainer(predict_plans(48), 0, out_dir, dummy_load=True,
+                 device="cuda", num_devices=num_devices, max_num_epochs=10,
+                 num_batches_per_epoch=2, num_val_batches_per_epoch=1,
+                 dsff_config=DSFFConfig(sparse=True,
+                                        density=PARALLEL_DENSITY,
+                                        update_frequency=2))
+    tr.initialize(True)
+    per = kernel_launches_per_train_step(tr.network)
+    out = {"want": {k: per["forward"].get(k, 0) + per["backward"].get(k, 0)
+                    for k in ops}, "losses": [], "launches": []}
+    for _ in range(PARALLEL_TRAINER_STEPS):
+        loss, got = parallel_launches(ops, tr.run_iteration, tr.tr_gen,
+                                      tr.initial_lr, True)
+        out["losses"].append(float(loss))
+        out["launches"].append(got)
+    out["masks"] = torch.cat([m.flatten().float()
+                              for m in tr.state.masks.values()]).cpu()
+    out["params"] = torch.cat([p.detach().flatten().float()
+                               for p in tr.state.params.values()]).cpu()
+    out["step"] = int(tr.state.step)
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def probs_gap(a, b):
+    """(max |dp|, mean |dp|, argmax agreement) of two probability
+    volumes."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    d = np.abs(a - b)
+    return (float(d.max()), float(d.mean()),
+            float((a.argmax(0) == b.argmax(0)).mean()))
+
+
+def parallel_predictions(ops, folder, inputs, out, num_devices,
+                         shapes=None):
+    """The entry points of prediction on the model folder, num_devices
+    ranks (1: this device): predict_case on the seeded volume in the fast
+    mode (all_in_gpu, the sparse plan) on the kernel path and on every
+    kernel site's plain version, and predict_from_folder on the input
+    folder (labels written; the padded network shape of each volume its
+    predict_case takes appended to `shapes`). Returns (kernel probs, plain
+    probs, launches of the kernel predict_case, launches of
+    predict_from_folder, written files)."""
+    import torch
+    from e2enet_tpu_torch.inference import predictor
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.ops.sliding import pad_volume_to_patch
+    bundle = predictor.ModelBundle(folder, None, "shiftConvPP",
+                                   device="cuda")
+    vol = parallel_volume()
+    with torch.inference_mode():
+        probs, launches = parallel_launches(
+            ops, predictor.predict_case, bundle, vol, all_in_gpu=True,
+            num_devices=num_devices)
+        with blocks.plain_ops():
+            plain = predictor.predict_case(bundle, vol, all_in_gpu=True,
+                                           num_devices=num_devices)
+        del bundle
+        real_case = predictor.predict_case
+
+        def spy(bundle, data, *a, **k):
+            if shapes is not None:
+                shapes.append(pad_volume_to_patch(
+                    data, bundle.patch_size)[0].shape[1:])
+            return real_case(bundle, data, *a, **k)
+        predictor.predict_case = spy
+        try:
+            files, folder_launches = parallel_launches(
+                ops, predictor.predict_from_folder, folder, inputs, out,
+                None, False, all_in_gpu=True, num_devices=num_devices,
+                device="cuda")
+        finally:
+            predictor.predict_case = real_case
+    torch.cuda.empty_cache()
+    return probs, plain, launches, folder_launches, files
+
+
+def parallel_rank(folder, inputs, out):
+    """One of two gloo ranks on cuda:0: (b) the sharded gradient on
+    2 x 64^3 (make_grad_step, as the trainer's gradient growth takes it),
+    then Trainer(num_devices=2) on its rows of the dummy batches; (c)
+    predict_case(num_devices=2) and predict_from_folder(num_devices=2)."""
+    import os
+    import torch
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.parallel import mesh
+    from e2enet_tpu_torch.training.train_state import make_grad_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    group = mesh.data_group(2)
+    main = mesh.rank() == 0
+    res = {"backend": torch.distributed.get_backend(group), "s": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        torch.cuda.synchronize()
+        res["s"][name] = round(time.perf_counter() - t0 - sum(
+            res["s"].values()), 2)
+    model, state, weights = parallel_model()
+    data, targets = mesh.shard_batch(*parallel_batch(
+        GRAD_PATCH, model.num_ds_outputs(), seed=5))
+    g = make_grad_step(model, weights, group=group)(data, targets)
+    res["grads"] = torch.cat([v.float().flatten() for v in g.values()]
+                             ).cpu() if main else None
+    del g, model, state, data, targets
+    torch.cuda.empty_cache()
+    lap("gradient")
+    res["trainer"] = parallel_trainer(os.path.join(out, "trainer_two"), 2,
+                                      ops)
+    lap("trainer")
+    probs, plain, res["predict_launches"], res["folder_launches"], \
+        res["files"] = parallel_predictions(
+            ops, folder, inputs, os.path.join(out, "out_two"), 2)
+    res["probs"] = (probs, plain) if main else None
+    lap("prediction")
+    return res
+
+
+def parallel_phase(ops, counts, smi):
+    """[parallel]: (a) a world of one NCCL rank, sharded train steps
+    against the single-device steps; two gloo ranks on the one card: (b)
+    the sharded gradient against one device's and a float32 plain run, and
+    Trainer(num_devices=2) against Trainer on one device; (c)
+    predict_case(num_devices=2) and predict_from_folder(num_devices=2)
+    against one device's; (d) the predict CLI asking for two cards.
+    Returns the kernel launches of the sharded runs (both ranks summed)."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from e2enet_tpu_torch.cli import predict as cli_predict
+    from e2enet_tpu_torch.inference import predictor
+    from e2enet_tpu_torch.io.nifti import read_nifti
+    from e2enet_tpu_torch.models.unetpp import (
+        ShiftUNetPlusPlus, kernel_launches_per_forward,
+        kernel_launches_per_train_step)
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.ops.sliding import compute_steps_for_sliding_window
+    from e2enet_tpu_torch.parallel import mesh
+    from e2enet_tpu_torch.training import train_bench_masks as tbm
+    from e2enet_tpu_torch.training.train_state import (
+        create_train_state, make_sharded_train_step, make_train_step)
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in ops}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    # ---- (a) NCCL, world size 1
+    model, state, weights = parallel_model()
+    per = kernel_launches_per_train_step(model)
+    want = {k: per["forward"].get(k, 0) + per["backward"].get(k, 0)
+            for k in ops}
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_out = model.num_ds_outputs()
+    batches = [parallel_batch(PATCH, n_out, seed=s)
+               for s in range(3, 3 + PARALLEL_STEPS)]
+
+    def steps(step_fn, st):
+        losses, ms = [], []
+        for i, (data, targets) in enumerate(batches):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            before = counts()
+            start.record()
+            st, metrics = step_fn(st, data, targets, 0.01)
+            end.record()
+            torch.cuda.synchronize()
+            got = {k: counts()[k] - before[k] for k in ops}
+            check(got == want, f"[parallel] step {i + 1}: launches {got} "
+                  f"!= {want}")
+            losses.append(float(metrics["loss"]))
+            ms.append(start.elapsed_time(end))
+        return losses, ms
+
+    single, ms_single = steps(make_train_step(model, weights), state)
+    model.load_state_dict(init)
+    state = create_train_state(model, state.masks, seed=tbm.SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        mesh.init_group(0, 1, "nccl", "file://" + tmp + "/rendezvous")
+        try:
+            backend = dist.get_backend()
+            before = counts()
+            sharded, ms_sharded = steps(make_sharded_train_step(
+                model, weights), state)
+            add({k: counts()[k] - before[k] for k in ops})
+        finally:
+            mesh.destroy_group()
+    err = max(abs(a - b) / abs(b) for a, b in zip(sharded, single))
+    print(f"[parallel] (a) {backend}, world size 1: {PARALLEL_STEPS} "
+          f"sharded steps at 2 x {PATCH[0]}^3 (kernel DSFF "
+          f"{PARALLEL_DENSITY}), "
+          f"losses {[round(v, 6) for v in sharded]} against the "
+          f"single-device steps' {[round(v, 6) for v in single]} (max rel "
+          f"{err:.2e}); ms per step {[round(v, 2) for v in ms_sharded]} "
+          f"(steps 2-{PARALLEL_STEPS}: {np.mean(ms_sharded[1:]):.2f}) "
+          f"against {[round(v, 2) for v in ms_single]} "
+          f"({np.mean(ms_single[1:]):.2f}); launches per step {want}  "
+          f"[{smi}]", flush=True)
+    check(backend == "nccl", f"[parallel] (a) backend {backend}")
+    check(err <= PARALLEL_LOSS_RTOL, f"[parallel] (a) losses {sharded} vs "
+          f"{single}")
+
+    # (b)'s gradient references on 2 x 64^3: the kernel path on the whole
+    # batch and a float32 plain run
+    model.load_state_dict(init)
+    data, targets = parallel_batch(GRAD_PATCH, n_out, seed=5)
+    g_one = loss_grads(model, data, targets, weights)
+    with blocks.plain_ops():
+        model32 = ShiftUNetPlusPlus(1, tbm.NUM_CLASSES, tbm.POOLS,
+                                    compute_dtype=torch.float32,
+                                    device="cuda")
+        model32.load_state_dict(model.state_dict())
+        g_32 = loss_grads(model32, data, targets, weights)
+    del model, model32, state, batches, data, targets
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_")
+    # (b)'s Trainer reference: the same trainer on one device
+    one = parallel_trainer(os.path.join(tmp.name, "trainer_one"), None, ops)
+    for i, got in enumerate(one["launches"]):
+        check(got == one["want"], f"[parallel] (b) one device's step "
+              f"{i + 1}: launches {got} != {one['want']}")
+    # (c)'s references: one device's predictions, through the same
+    # entry points, on a model folder of the bench model (seed 0, the
+    # trained masks)
+    bench = ShiftUNetPlusPlus(
+        input_channels=1, num_classes=NUM_CLASSES,
+        pool_op_kernel_sizes=((2, 2, 2),) * 5, base_num_features=48,
+        compute_dtype=torch.bfloat16, head_probs_dtype=torch.bfloat16,
+        device="cuda")
+    bench.reset_parameters(seed=0)
+    _, inputs, folder = write_predict_inputs(tmp.name, bench.eval(),
+                                             PARALLEL_CASE)
+    per_fwd = kernel_launches_per_forward(bench)
+    del bench
+    shapes = []
+    probs_one, plain_one, _, _, files_one = parallel_predictions(
+        ops, folder, inputs, os.path.join(tmp.name, "out_one"), 1, shapes)
+    bundle = predictor.ModelBundle(folder, None, "shiftConvPP",
+                                   device="cuda")
+    with torch.inference_mode():
+        probs_again = predictor.predict_case(bundle, parallel_volume(),
+                                             all_in_gpu=True)
+    del bundle
+    torch.cuda.empty_cache()
+
+    # ---- (b), (c): two gloo ranks on cuda:0
+    t0 = time.perf_counter()
+    ranks = mesh.launch(parallel_rank, 2, "cuda", folder, inputs, tmp.name,
+                        backend="gloo", _shared_device=True)
+    t_ranks = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"[parallel] (b) two ranks on {r0['backend']} over CUDA tensors "
+          f"on cuda:0 (spawned, started and joined in {t_ranks:.1f} s; s by "
+          f"part in each rank {[r['s'] for r in ranks]})", flush=True)
+    check(all(r["backend"] == "gloo" for r in ranks), "[parallel] (b) "
+          "backend")
+    g_two = r0["grads"].cuda()
+    e_two = float((g_two - g_32).norm() / g_32.norm())
+    e_one = float((g_one - g_32).norm() / g_32.norm())
+    print(f"[parallel] (b) make_grad_step over the two ranks, rows 1 + 1 "
+          f"on 2 x {GRAD_PATCH[0]}^3, against a float32 plain run: two "
+          f"ranks rel L2 err {e_two:.4e}, one device {e_one:.4e}",
+          flush=True)
+    check(e_two <= ERR_RATIO * e_one, "[parallel] (b) two ranks' gradient "
+          "further from the float32 run than one device's")
+    t0_, t1_ = (r["trainer"] for r in ranks)
+    lerr = max(abs(a - b) / abs(b)
+               for a, b in zip(t0_["losses"], one["losses"]))
+    perr = float((t0_["params"] - one["params"]).norm()
+                 / one["params"].norm())
+    print(f"[parallel] (b) Trainer(num_devices=2, dummy_load) at the bench "
+          f"plan ({PATCH[0]}^3, batch 2, kernel DSFF {PARALLEL_DENSITY} "
+          f"updated at step 2), one row per rank: losses "
+          f"{[round(v, 6) for v in t0_['losses']]} against Trainer on one "
+          f"device {[round(v, 6) for v in one['losses']]} (max rel "
+          f"{lerr:.2e}); parameters after {PARALLEL_TRAINER_STEPS} steps rel "
+          f"L2 {perr:.2e} from one device's; masks and parameters equal "
+          f"on both ranks {torch.equal(t0_['masks'], t1_['masks'])} / "
+          f"{torch.equal(t0_['params'], t1_['params'])}; launches per step "
+          f"and rank {t0_['launches'][0]}", flush=True)
+    check(t0_["losses"] == t1_["losses"], "[parallel] (b) the ranks' "
+          "losses differ")
+    check(torch.equal(t0_["masks"], t1_["masks"])
+          and torch.equal(t0_["params"], t1_["params"]),
+          "[parallel] (b) the ranks' states differ")
+    check(t0_["step"] == one["step"] == PARALLEL_TRAINER_STEPS,
+          f"[parallel] (b) steps {t0_['step']}")
+    check(lerr <= PARALLEL_LOSS_RTOL, "[parallel] (b) Trainer losses")
+    for r in ranks:
+        # a rank counts the serving and train kernels (blocks' ops)
+        for i, got in enumerate(r["trainer"]["launches"]):
+            want_r = {k: one["want"].get(k, 0) for k in got}
+            check(got == want_r and sum(one["want"].values())
+                  == sum(want_r.values()), f"[parallel] (b) a rank's step "
+                  f"{i + 1}: launches {got} != {one['want']}")
+            add(got)
+
+    steps_c = compute_steps_for_sliding_window(PATCH, PARALLEL_VOLUME, 0.5)
+    n_tiles = int(np.prod([len(s) for s in steps_c]))
+    got = {k: sum(r["predict_launches"].get(k, 0) for r in ranks)
+           for k in ops}
+    expect = {k: n_tiles * TTA * per_fwd.get(k, 0) for k in ops}
+    add(got)
+    probs_two, plain_two = r0["probs"]
+    kernel = probs_gap(probs_two, probs_one)
+    again = probs_gap(probs_again, probs_one)
+    plain = probs_gap(plain_two, plain_one)
+    print(f"[parallel] (c) predict_case(num_devices=2), {n_tiles} tiles x "
+          f"{TTA} passes of {PARALLEL_VOLUME} (fast mode, sparse plan), "
+          f"against one device's (max |dp|, mean |dp|, argmax agreement): "
+          f"kernel path {kernel}, one device's kernel path run twice "
+          f"{again}, plain path {plain}; launches summed over the ranks "
+          f"{got} (expected {expect})", flush=True)
+    check(np.shape(probs_two) == np.shape(probs_one)
+          == (NUM_CLASSES, *PARALLEL_VOLUME),
+          f"[parallel] (c) shape {np.shape(probs_two)}")
+    check(bool(np.isfinite(probs_two).all()), "[parallel] (c) non-finite")
+    check(plain[0] <= PARALLEL_PROB_ATOL, "[parallel] (c) plain path's "
+          "probabilities")
+    check(kernel[1] <= PARALLEL_PROB_ATOL, "[parallel] (c) kernel path's "
+          "mean probabilities")
+    check(kernel[2] >= PARALLEL_AGREE, "[parallel] (c) argmax agreement")
+    check(got == expect, "[parallel] (c) launches")
+
+    # predict_from_folder: rank 0 preprocessed, broadcast and exported
+    check(len(shapes) == 1, f"[parallel] (c) {len(shapes)} volumes")
+    folder_tiles = int(np.prod([
+        len(s) for s in compute_steps_for_sliding_window(PATCH, shapes[0],
+                                                         0.5)]))
+    got = {k: sum(r["folder_launches"].get(k, 0) for r in ranks)
+           for k in ops}
+    expect = {k: folder_tiles * TTA * per_fwd.get(k, 0) for k in ops}
+    add(got)
+    check(got == expect, f"[parallel] (c) predict_from_folder launches "
+          f"{got} != {expect}")
+    check(len(files_one) == len(r0["files"]) == 1
+          and ranks[1]["files"] == [],
+          f"[parallel] (c) files {[r['files'] for r in ranks]}")
+    name = next(iter(PARALLEL_CASE))
+    segs = [read_nifti(os.path.join(tmp.name, d, name + ".nii.gz")).array
+            for d in ("out_one", "out_two")]
+    seg_agree = float((segs[0] == segs[1]).mean())
+    print(f"[parallel] (c) predict_from_folder(num_devices=2) on "
+          f"{PARALLEL_CASE}: network shape {tuple(shapes[0])}, "
+          f"{folder_tiles} tiles x {TTA} passes, launches summed over the "
+          f"ranks {got}; its labels {segs[1].shape} against one device's: "
+          f"agreement {seg_agree:.6f}", flush=True)
+    check(segs[1].shape == segs[0].shape == PARALLEL_CASE[name][0],
+          f"[parallel] (c) labels {segs[1].shape}")
+    check(seg_agree >= PARALLEL_AGREE,
+          "[parallel] (c) predict_from_folder's labels")
+    tmp.cleanup()
+
+    # ---- (d) the predict CLI asking for more cards than there are
+    try:
+        cli_predict.main(["-i", "in", "-o", "out", "-t", "500",
+                          "--num_devices", "2"])
+        fail("[parallel] (d) --num_devices 2 ran on one card")
+    except RuntimeError as e:
+        check(f"only {torch.cuda.device_count()} present" in str(e),
+              f"[parallel] (d) raised {e}")
+        print(f"[parallel] (d) cli.predict --num_devices 2: {e}",
+              flush=True)
+    print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s  "
+          f"[{smi}]", flush=True)
+    return total
+
+
+def parallel_only() -> None:
+    """--parallel: the build and the [parallel] phase alone (its launches
+    printed as JSON)."""
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    for op in ops.values():
+        op.launches = 0
+    got = parallel_phase(ops, lambda: {n: op.launches
+                                       for n, op in ops.items()}, smi)
+    stamp("[parallel]")
+    print(json.dumps({"parallel_launches": got}), flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6374,6 +6885,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--formats"]:
         formats_only()
+        return
+    if sys.argv[1:] == ["--parallel"]:
+        parallel_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -6875,6 +7389,12 @@ def main() -> None:
     res.update(train["kernels"])
 
     stamp("9. train")
+    # ---- 9b. parallel: data-parallel training and tile-sharded prediction
+    reset_counts()
+    launches["parallel"] = parallel_phase(ops, counts, smi)
+    reset_counts()
+
+    stamp("9b. parallel")
     # ---- 10. trainer: the users' training path, train CLI to predict CLI;
     # ---- 11. options: the trainer's options, on the task [trainer] planned
     # ---- 12. dsff: every DSFF engine, on the same task;
@@ -7012,6 +7532,9 @@ def main() -> None:
           "route) and the reference checkpoint's kernel-path predictions; "
           "'device_augment' over the [device_augment] phase: the "
           "--device_augment CLI run's train steps and validation batches; "
+          "'parallel' over the [parallel] phase: the one-rank NCCL "
+          "world's sharded steps and both gloo ranks' Trainer steps, "
+          "predict_case and predict_from_folder, summed over the ranks; "
           "the 'models' entry: #1-#10 at base 24, every shape under "
           "'shapes')",
           flush=True)

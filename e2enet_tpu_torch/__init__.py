@@ -29,5 +29,7 @@ port keeps its own copies of the host modules it needs (`plans.py`,
 `inference/export.py`, `postprocessing/`, `evaluation/`, `data/`,
 `utils/`). Each entry point that computes on the card runs there and takes
 `--device cpu` (or `device="cpu"`) to run the plain versions here; the
-plan CLI and the evaluation are host work and need no card.
+plan CLI and the evaluation are host work and need no card. Training and
+prediction take `--num_devices N`: N ranks of a torch.distributed process
+group, data parallel (`parallel/`: NCCL on the cards, gloo on the CPU).
 """

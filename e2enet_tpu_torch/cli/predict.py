@@ -19,13 +19,17 @@ TTA is flip-free (mirrored operators) except for networks without them
 PyTorch .model converts first (models/torch_checkpoint.
 convert_reference_model_to_native). --device defaults to the card
 (`cuda`), which must be present; `--device cpu` runs the plain torch
-versions of every kernel. --num_devices above 1 raises (ROADMAP Queue 1
-item 7).
+versions of every kernel. --num_devices n above 1 shards every volume's
+tiles over n ranks that the CLI spawns (parallel/mesh.launch: NCCL, one
+card each, on cuda; gloo on the CPU); rank 0 reads, preprocesses and
+exports. More ranks than cards raises.
 """
 import argparse
+import sys
 
 from .. import paths
 from ..inference.predictor import predict_from_folder
+from ..parallel import mesh
 from ..utils.files import join
 from ..utils.task_names import convert_id_to_task_name
 
@@ -60,12 +64,17 @@ def main(args=None):
     parser.add_argument("--mode", default="normal",
                         choices=["normal", "fast", "fastest"])
     parser.add_argument("--num_devices", type=int, default=1,
-                        help="devices to shard each volume's tiles over; "
-                             "only 1 is ported (ROADMAP Queue 1 item 7)")
+                        help="devices to shard each volume's tiles over, "
+                             "one rank each (spawned by this CLI)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default; the card must "
                              "be present) or cpu")
     a = parser.parse_args(args)
+    if a.num_devices > 1 and not mesh.is_initialized():
+        mesh.check_num_devices(a.num_devices, a.device)
+        mesh.launch(_rank_main, a.num_devices, a.device,
+                    list(sys.argv[1:] if args is None else args))
+        return None
 
     task = a.task_name
     if not task.startswith("Task"):
@@ -108,6 +117,11 @@ def main(args=None):
         disable_postprocessing=a.disable_postprocessing, mode=a.mode,
         segs_from_prev_stage_folder=segs_prev, all_in_gpu=all_in_gpu,
         num_devices=a.num_devices, device=a.device)
+
+
+def _rank_main(argv):
+    """One rank of --num_devices: this CLI inside the process group."""
+    main(argv)
 
 
 if __name__ == "__main__":

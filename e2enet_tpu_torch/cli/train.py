@@ -54,19 +54,28 @@ prune's schedule, GMP's window) and --multiplier (GMP).
 (ops/device_augment.py: the pipeline queues raw crops, the card warps them
 trilinear and nearest and runs the JAX chain's intensity transforms);
 with the cascade, regions, ds_mode none or dummy_load it is refused, as
-the JAX trainer cannot train those so. Refused, naming the ROADMAP item
-that ports it: --num_devices above 1 and --spatial_parallel (item 7).
---fused, --no_fused and --remat choose between XLA programs of the JAX
-package and are rejected.
+the JAX trainer cannot train those so. --num_devices n above 1 trains
+data parallel: the CLI spawns n ranks (parallel/mesh.launch: NCCL, one
+card each, on cuda; gloo on the CPU), each runs this CLI inside the
+process group (Trainer(num_devices=n): every rank augments the whole batch
+and keeps its rows, the losses and gradients are reduced over the ranks),
+and rank 0 alone writes the fold and validates it. More ranks than cards
+raises, and so does --da_threads above 1 with it (only one augmentation
+thread gives every rank the same batches). Refused, naming the ROADMAP item that ports it: --spatial_parallel
+above 1 (item 7 (ii)). --fused, --no_fused and --remat choose between XLA
+programs of the JAX package and are rejected.
 """
 import argparse
+import sys
 
 from .. import paths
 from ..inference.predictor import require_device
+from ..parallel import mesh
 from ..plans import Plans
 from ..training.cascade import predict_next_stage
 from ..training.dsff import DSFFConfig
-from ..training.trainer import Trainer
+from ..training.trainer import (SPATIAL_PARALLEL_ITEM, Trainer,
+                                refuse_unported)
 from ..training.variants import resolve_variant
 from ..utils.files import isfile, join
 from ..utils.task_names import convert_id_to_task_name
@@ -158,8 +167,10 @@ def main(args=None):
                         default="TPUTrainer",
                         help="a preset of training/variants.py")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="only 1 is ported (ROADMAP Queue 1 item 7)")
-    parser.add_argument("--spatial_parallel", type=int, default=1)
+                        help="data-parallel ranks, one per device (spawned "
+                             "by this CLI)")
+    parser.add_argument("--spatial_parallel", type=int, default=1,
+                        help=f"only 1 is ported ({SPATIAL_PARALLEL_ITEM})")
     parser.add_argument("--device_augment", action="store_true",
                         help="augment the training batches on the device "
                              "(trilinear spatial; see ops/device_augment.py "
@@ -198,6 +209,15 @@ def main(args=None):
             parser.error(f"{flag} chooses between XLA programs of the JAX "
                          f"package and has no meaning in the port (one "
                          f"path: the CUDA kernels at bf16, or --fp32)")
+    refuse_unported(spatial_parallel=a.spatial_parallel)
+    if (a.num_devices or 1) > 1 and a.da_threads > 1:
+        parser.error("--num_devices above 1 takes one --da_threads: every "
+                     "rank must see the same seeded batches")
+    if (a.num_devices or 1) > 1 and not mesh.is_initialized():
+        mesh.check_num_devices(a.num_devices, a.device)
+        mesh.launch(_rank_main, a.num_devices, a.device,
+                    list(sys.argv[1:] if args is None else args))
+        return None
     device = require_device(a.device)
     preset = variant_kwargs(a.trainer_variant)
 
@@ -245,12 +265,20 @@ def main(args=None):
 
     if a.network == "3d_lowres" and not a.validation_only:
         # cascade: predict this fold's validation cases at the fullres
-        # stage geometry (simple_main.py:213-215 / run_training.py)
+        # stage geometry (simple_main.py:213-215 / run_training.py); rank 0
+        # alone, as it validates
         next_stage_folder = join(
             preproc_dir, plans.data_identifier
             + "_stage%d" % sorted(plans.plans_per_stage.keys())[-1])
-        predict_next_stage(trainer, next_stage_folder)
+        if trainer.is_main:
+            predict_next_stage(trainer, next_stage_folder)
+        mesh.barrier()
     return trainer
+
+
+def _rank_main(argv):
+    """One rank of --num_devices: this CLI inside the process group."""
+    main(argv)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,14 @@ mode, which also takes the bfloat16 probs head, and bfloat16 per-pass
 probabilities on the data-flip path), float32 otherwise. Every entry point
 takes `device`; "cuda" without a card raises, and nothing falls back to
 the CPU unless device="cpu" is asked for.
+
+num_devices above 1 runs inside a process group of that many ranks
+(parallel/mesh.launch; the predict CLI's --num_devices spawns them): every
+volume's tiles are sharded over the ranks and the accumulators summed
+(ops/sliding.tiled_accumulate's group), the reference's
+make_tiled_predictor_sharded. In predict_from_folder rank 0 alone reads,
+preprocesses and exports; each preprocessed volume is broadcast to the
+other ranks.
 """
 import os
 import queue
@@ -41,6 +49,7 @@ from ..models.masks import bake_masks, masks_for_model
 from ..models.unetpp import ARCH_DEFAULTS, build_network
 from ..models.weights import from_jax_params
 from ..ops.sliding import flip_combinations, predict_volume_tiled
+from ..parallel import mesh
 from ..plans import Plans
 from ..preprocessing.preprocessor import GenericPreprocessor
 from ..training.checkpoint import load_checkpoint
@@ -48,8 +57,6 @@ from ..utils.files import (isdir, isfile, join, load_pickle, maybe_mkdir_p,
                            subfiles)
 from .export import save_segmentation_nifti, \
     save_segmentation_nifti_from_softmax
-
-MULTI_DEVICE_ITEM = "ROADMAP Queue 1 item 7 (multi-GPU)"
 
 
 def require_device(device) -> torch.device:
@@ -219,10 +226,11 @@ def predict_case(bundle: ModelBundle, data: np.ndarray,
     flip-free (the reference's default) where the network has mirrored
     operators, and flips the data otherwise (resenc, full 3D kernels: the
     reference's predictor asserts there). Each fold model's head is set for
-    the mode (a network without a probs head keeps its logits)."""
-    if num_devices > 1:
-        raise NotImplementedError(f"num_devices={num_devices}: "
-                                  f"{MULTI_DEVICE_ITEM}")
+    the mode (a network without a probs head keeps its logits).
+    num_devices above 1: inside a process group of that many ranks, each
+    passing the same data, the tiles sharded over them; every rank gets
+    the probabilities."""
+    group = mesh.data_group(num_devices) if num_devices > 1 else None
     flip_free = do_tta and bundle.fold_models[0].mirrored_operators()
     bf16 = bundle.compute_dtype == torch.bfloat16
     head = torch.bfloat16 if all_in_gpu and flip_free and bf16 else None
@@ -241,7 +249,7 @@ def predict_case(bundle: ModelBundle, data: np.ndarray,
                 do_mirroring=do_tta, accum_dtype=accum,
                 mirror_apply_fns=(mirror_apply_fns_for(net) if flip_free
                                   else None),
-                prob_dtype=prob_dtype)
+                prob_dtype=prob_dtype, group=group)
             softmax_sum = probs if softmax_sum is None else softmax_sum + probs
     return softmax_sum / len(bundle.fold_models)
 
@@ -267,16 +275,25 @@ def predict_from_folder(model_folder: str, input_folder: str,
       fastest: like fast, and TTA disabled
     Returns the written segmentation files. timings, when a list, gets one
     dict per case: its seconds in preprocessing (on the background thread),
-    in predict_case and in export."""
+    in predict_case and in export. num_devices above 1: inside a process
+    group of that many ranks, every rank calling with the same arguments;
+    rank 0 reads, preprocesses and exports and returns the files, the
+    other ranks take each volume by broadcast, predict their tiles and
+    return []."""
     assert mode in ("normal", "fast", "fastest")
-    if num_devices > 1:
-        raise NotImplementedError(f"num_devices={num_devices}: "
-                                  f"{MULTI_DEVICE_ITEM}")
+    group = mesh.data_group(num_devices) if num_devices > 1 else None
     if mode == "fastest":
         do_tta = False
-    maybe_mkdir_p(output_folder)
     bundle = ModelBundle(model_folder, folds, tconv, checkpoint_name,
                          compute_dtype=compute_dtype, device=device)
+    if group is not None and mesh.rank() != 0:
+        while True:
+            data = mesh.broadcast_array(None, bundle.device, group)
+            if data is None:
+                return []
+            predict_case(bundle, data, do_tta=do_tta, all_in_gpu=all_in_gpu,
+                         step_size=step_size, num_devices=num_devices)
+    maybe_mkdir_p(output_folder)
     expected_num_modalities = bundle.plans.num_modalities
     case_ids = check_input_folder_and_return_caseIDs(
         input_folder, expected_num_modalities)
@@ -339,6 +356,8 @@ def predict_from_folder(model_folder: str, input_folder: str,
     while True:
         item = q.get()
         if item is None:
+            if group is not None:
+                mesh.broadcast_array(None, bundle.device, group)
             break
         if isinstance(item, Exception):
             t.join()
@@ -346,6 +365,8 @@ def predict_from_folder(model_folder: str, input_folder: str,
         data, props, ofile, prep_s = item
         print("predicting", os.path.basename(ofile))
         t0 = time.perf_counter()
+        if group is not None:
+            mesh.broadcast_array(data, bundle.device, group)
         softmax = predict_case(bundle, data, do_tta=do_tta,
                                all_in_gpu=all_in_gpu, step_size=step_size,
                                num_devices=num_devices)

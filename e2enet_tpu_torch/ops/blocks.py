@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import active_group, batch_count, sync_sum
 from .autograd import needs_grad
 from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, NO_FLIPS, SHIFT_SIZE,
                           Flips, block_groups, fused_shift_conv_block,
@@ -141,11 +142,19 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = INSTNORM_EPS) -> torch.Tensor:
     """Per-channel normalization over (N, D, H, W) with batch statistics,
     in training and at inference alike (reference blocks.batch_norm: the
-    functional trainer keeps no running averages)."""
+    functional trainer keeps no running averages). Inside a data-parallel
+    step (parallel/collectives.reducing) the statistics are the global
+    batch's, as GSPMD computes them: Σx and then Σ(x - mean)² summed over
+    the ranks, their gradients summed too (collectives.sync_sum)."""
     xf = x.float()
     axes = tuple(range(x.dim() - 1))
-    mean = xf.mean(axes, keepdim=True)
-    var = (xf - mean).square().mean(axes, keepdim=True)
+    if active_group() is None:
+        mean = xf.mean(axes, keepdim=True)
+        var = (xf - mean).square().mean(axes, keepdim=True)
+    else:
+        n = float(batch_count(math.prod(x.shape[:-1])))
+        mean = sync_sum(xf.sum(axes, keepdim=True)) / n
+        var = sync_sum((xf - mean).square().sum(axes, keepdim=True)) / n
     return _affine_f32((xf - mean) * torch.rsqrt(var + eps), scale, bias,
                        x.dtype)
 

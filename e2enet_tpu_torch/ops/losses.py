@@ -10,12 +10,24 @@ run_online_evaluation).
 Layout: logits (N, D, H, W, C), float32 as the heads return them; targets
 (N, D, H, W) integer labels, or (N, D, H, W, R) 0/1 region channels for
 dc_bce and dice_regions. All loss math in float32.
+
+Inside a data-parallel step (parallel/collectives.reducing) each rank
+holds its rows of the batch and every loss is the whole batch's, on every
+rank: the sums over the batch axis (batch dice's tp/fp/fn, GDL's volumes,
+MCC's totals, the ignore-label mask's counts) and the means over it (the
+voxel means of CE, BCE and focal, per-sample Dice) are summed over the
+ranks by collectives.all_sum, and the top-k cross-entropy takes its k% of
+the global batch's voxels from their gathered values. Outside one each
+reduction is this rank's own.
 """
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import (all_sum, batch_count, batch_mean,
+                                   gather_rows)
 
 
 def softmax_helper(x: torch.Tensor) -> torch.Tensor:
@@ -40,9 +52,16 @@ def get_tp_fp_fn_tn(probs: torch.Tensor, target: torch.Tensor,
         y = y * m
     axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
     tp = (probs * y).sum(dim=axes)
-    fp = probs.sum(dim=axes) - tp
-    fn = y.sum(dim=axes) - tp
-    return tp, fp, fn
+    ps, ys = probs.sum(dim=axes), y.sum(dim=axes)
+    if batch_dice:
+        tp, ps, ys = all_sum(torch.stack([tp, ps, ys]))
+    return tp, ps - tp, ys - tp
+
+
+def _dice_mean(dc: torch.Tensor, batch_dice: bool) -> torch.Tensor:
+    """The mean of per-class (batch dice) or per-sample-and-class
+    scores over the global batch."""
+    return dc.mean() if batch_dice else batch_mean(dc)
 
 
 def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -56,7 +75,7 @@ def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor,
     dc = (2.0 * tp + smooth) / (2.0 * tp + fp + fn + smooth + 1e-8)
     if not do_bg:
         dc = dc[1:] if batch_dice else dc[:, 1:]
-    return -dc.mean()
+    return -_dice_mean(dc, batch_dice)
 
 
 def robust_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
@@ -68,8 +87,9 @@ def robust_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     nll = -(logp * one_hot(target, logits.shape[-1])).sum(dim=-1)
     if loss_mask is not None:
         m = loss_mask.float()
-        return (nll * m).sum() / m.sum().clamp_min(1.0)
-    return nll.mean()
+        num, den = all_sum(torch.stack([(nll * m).sum(), m.sum()]))
+        return num / den.clamp_min(1.0)
+    return batch_mean(nll)
 
 
 def dc_and_ce_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -93,7 +113,8 @@ def topk_cross_entropy(logits: torch.Tensor, target: torch.Tensor,
     """The mean cross-entropy of the k% voxels of highest cross-entropy
     (reference losses.py:99-108)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, target.long()[..., None])[..., 0].reshape(-1)
+    nll = gather_rows(-logp.gather(-1, target.long()[..., None])[..., 0])
+    nll = nll.reshape(-1)
     num = int(nll.shape[0] * k_percent / 100.0)
     return torch.topk(nll, max(num, 1), sorted=False).values.mean()
 
@@ -146,14 +167,17 @@ def generalized_dice_loss(logits: torch.Tensor, target: torch.Tensor,
     tp = (probs * y).sum(dim=axes)
     fp = (probs * (1.0 - y)).sum(dim=axes)
     fn = ((1.0 - probs) * y).sum(dim=axes)
-    volumes = y.sum(dim=axes) + 1e-6
+    volumes = y.sum(dim=axes)
+    if batch_dice:
+        tp, fp, fn, volumes = all_sum(torch.stack([tp, fp, fn, volumes]))
+    volumes = volumes + 1e-6
     if square_volumes:
         volumes = volumes ** 2
     tp, fp, fn = tp / volumes, fp / volumes, fn / volumes
     axis = 0 if batch_dice else 1
     tp, fp, fn = tp.sum(dim=axis), fp.sum(dim=axis), fn.sum(dim=axis)
     dc = (2 * tp + smooth) / (2 * tp + fp + fn + smooth)
-    return -dc.mean()
+    return -_dice_mean(dc, batch_dice)
 
 
 def soft_dice_loss_squared(logits: torch.Tensor, target: torch.Tensor,
@@ -164,23 +188,30 @@ def soft_dice_loss_squared(logits: torch.Tensor, target: torch.Tensor,
     probs = softmax_helper(logits.float())
     y = one_hot(target, probs.shape[-1])
     axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
-    intersect = (probs * y).sum(dim=axes) + smooth
-    denominator = (probs ** 2 + y ** 2).sum(dim=axes) + smooth
-    dc = 2 * intersect / denominator
+    intersect = (probs * y).sum(dim=axes)
+    denominator = (probs ** 2 + y ** 2).sum(dim=axes)
+    if batch_dice:
+        intersect, denominator = all_sum(torch.stack([intersect,
+                                                      denominator]))
+    dc = 2 * (intersect + smooth) / (denominator + smooth)
     if not do_bg:
         dc = dc[1:] if batch_dice else dc[:, 1:]
-    return -dc.mean()
+    return -_dice_mean(dc, batch_dice)
 
 
 def _sigmoid_dice(probs: torch.Tensor, t: torch.Tensor, batch_dice: bool,
                   smooth: float) -> torch.Tensor:
-    """The soft Dice per region channel of sigmoid probabilities against
-    0/1 targets."""
+    """The mean soft Dice over the region channels of sigmoid
+    probabilities against 0/1 targets (and over the samples without batch
+    dice)."""
     axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
     tp = (probs * t).sum(dim=axes)
     fp = (probs * (1 - t)).sum(dim=axes)
     fn = ((1 - probs) * t).sum(dim=axes)
-    return (2 * tp + smooth) / (2 * tp + fp + fn + smooth + 1e-8)
+    if batch_dice:
+        tp, fp, fn = all_sum(torch.stack([tp, fp, fn]))
+    return _dice_mean((2 * tp + smooth) / (2 * tp + fp + fn + smooth + 1e-8),
+                      batch_dice)
 
 
 def dc_and_bce_loss(logits: torch.Tensor, target_onehot: torch.Tensor,
@@ -190,10 +221,9 @@ def dc_and_bce_loss(logits: torch.Tensor, target_onehot: torch.Tensor,
     (reference losses.py:189-203); target_onehot (..., R) 0/1."""
     logits = logits.float()
     t = target_onehot.float()
-    bce = (logits.clamp_min(0) - logits * t
-           + torch.log1p(torch.exp(-logits.abs()))).mean()
-    dc = _sigmoid_dice(torch.sigmoid(logits), t, batch_dice, smooth)
-    return bce - dc.mean()
+    bce = batch_mean(logits.clamp_min(0) - logits * t
+                     + torch.log1p(torch.exp(-logits.abs())))
+    return bce - _sigmoid_dice(torch.sigmoid(logits), t, batch_dice, smooth)
 
 
 def gdl_and_ce_loss(logits, target, **gdl_kwargs):
@@ -226,7 +256,7 @@ def focal_loss(logits: torch.Tensor, target: torch.Tensor,
         pt = pt.clamp(smooth, 1.0 - smooth)
     alpha_t = torch.where(t == 0, torch.full_like(pt, alpha),
                           torch.full_like(pt, 1.0 - alpha))
-    return (-alpha_t * torch.pow(1.0 - pt, gamma) * torch.log(pt)).mean()
+    return batch_mean(-alpha_t * torch.pow(1.0 - pt, gamma) * torch.log(pt))
 
 
 def mcc_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -241,10 +271,12 @@ def mcc_loss(logits: torch.Tensor, target: torch.Tensor,
     voxels = float(np.prod(logits.shape[1:-1]))
     tp, fp, fn = get_tp_fp_fn_tn(probs, target, batch_dice, loss_mask)
     if loss_mask is None:
-        total = voxels * (logits.shape[0] if batch_dice else 1)
+        total = voxels * (batch_count(logits.shape[0]) if batch_dice else 1)
     else:
         axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
         total = loss_mask.float().sum(dim=axes)[..., None]
+        if batch_dice:
+            total = all_sum(total)
     tn = total - tp - fp - fn
     tp, fp, fn, tn = (v / voxels for v in (tp, fp, fn, tn))
     nominator = tp * tn - fp * fn + smooth
@@ -258,7 +290,7 @@ def mcc_loss(logits: torch.Tensor, target: torch.Tensor,
     mcc = nominator / (denominator + 1e-8)
     if not do_bg:
         mcc = mcc[1:] if batch_dice else mcc[:, 1:]
-    return -mcc.mean()
+    return -_dice_mean(mcc, batch_dice)
 
 
 def soft_dice_regions(logits: torch.Tensor, target_onehot: torch.Tensor,
@@ -267,8 +299,7 @@ def soft_dice_regions(logits: torch.Tensor, target_onehot: torch.Tensor,
     """Sigmoid soft Dice over region channels, background included
     (reference losses.py:266-279); target_onehot (..., R) 0/1."""
     probs = torch.sigmoid(logits.float())
-    return -_sigmoid_dice(probs, target_onehot.float(), batch_dice,
-                          smooth).mean()
+    return -_sigmoid_dice(probs, target_onehot.float(), batch_dice, smooth)
 
 
 LOSS_REGISTRY = {

@@ -7,7 +7,10 @@ probabilities) and flip-free (one statically mirrored forward per pass on
 the unflipped tile, inference/predictor.mirror_apply_fns_for). The
 probabilities are the class softmax, or with nonlin="sigmoid" one sigmoid
 per channel (the region trainers' heads, reference make_tiled_predictor's
-nonlin).
+nonlin). With a process group (`group`) the tiles are sharded over its
+ranks, as the reference's make_tiled_predictor_sharded shards them: rank r
+runs tiles [r::n] of the loop's order into its own accumulators, which are
+then summed over the ranks in the accumulators' dtype.
 """
 import functools
 import warnings
@@ -15,6 +18,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.ndimage import gaussian_filter
 
 
@@ -129,7 +133,7 @@ def tiled_accumulate(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                          Sequence[Callable[[torch.Tensor],
                                            torch.Tensor]]] = None,
                      prob_dtype: Optional[torch.dtype] = None,
-                     nonlin: str = "softmax"
+                     nonlin: str = "softmax", group=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tile loop on the device (the reference's make_tiled_predictor
     program): vol (X, Y, Z, C) float32 on the device, each dim at least
@@ -147,7 +151,9 @@ def tiled_accumulate(apply_fn: Callable[[torch.Tensor], torch.Tensor],
     each pass's probabilities are rounded to it before the unflip, as the
     reference stores them in its fast mode (bfloat16). The float32 mean
     over passes is weighted by the Gaussian, cast to accum_dtype and added
-    to the accumulators, as are the weights."""
+    to the accumulators, as are the weights. group: the tiles sharded over
+    its ranks ([rank::n] of the loop's order), the accumulators summed
+    over them in accum_dtype; every rank passes the same volume."""
     prob_dtype = check_prob_dtype(prob_dtype, mirror_apply_fns)
     device = vol.device
     X, Y, Z, _ = vol.shape
@@ -164,28 +170,31 @@ def tiled_accumulate(apply_fn: Callable[[torch.Tensor], torch.Tensor],
     acc = torch.zeros((X, Y, Z, num_classes), dtype=accum_dtype,
                       device=device)
     wacc = torch.zeros((X, Y, Z), dtype=accum_dtype, device=device)
-    for x0 in steps[0]:
-        for y0 in steps[1]:
-            for z0 in steps[2]:
-                sl = (slice(x0, x0 + pd), slice(y0, y0 + ph),
-                      slice(z0, z0 + pw))
-                patch = vol[sl]
-                prob_sum = torch.zeros((pd, ph, pw, num_classes),
-                                       dtype=torch.float32, device=device)
-                if mirror_apply_fns is not None:
-                    for fn in mirror_apply_fns:
-                        prob_sum += head_probs(fn(patch[None])[0],
-                                               nonlin)
-                else:
-                    for combo in combos:
-                        xin = patch.flip(combo) if combo else patch
-                        p = head_probs(apply_fn(xin[None])[0], nonlin)
-                        if prob_dtype is not None:
-                            p = p.to(prob_dtype)
-                        prob_sum += p.flip(combo) if combo else p
-                mean = prob_sum / len(combos)
-                acc[sl] += (mean * gmap[..., None]).to(accum_dtype)
-                wacc[sl] += gmap_acc
+    tiles = [(x0, y0, z0) for x0 in steps[0] for y0 in steps[1]
+             for z0 in steps[2]]
+    if group is not None:
+        tiles = tiles[dist.get_rank(group)::dist.get_world_size(group)]
+    for x0, y0, z0 in tiles:
+        sl = (slice(x0, x0 + pd), slice(y0, y0 + ph), slice(z0, z0 + pw))
+        patch = vol[sl]
+        prob_sum = torch.zeros((pd, ph, pw, num_classes),
+                               dtype=torch.float32, device=device)
+        if mirror_apply_fns is not None:
+            for fn in mirror_apply_fns:
+                prob_sum += head_probs(fn(patch[None])[0], nonlin)
+        else:
+            for combo in combos:
+                xin = patch.flip(combo) if combo else patch
+                p = head_probs(apply_fn(xin[None])[0], nonlin)
+                if prob_dtype is not None:
+                    p = p.to(prob_dtype)
+                prob_sum += p.flip(combo) if combo else p
+        mean = prob_sum / len(combos)
+        acc[sl] += (mean * gmap[..., None]).to(accum_dtype)
+        wacc[sl] += gmap_acc
+    if group is not None:
+        dist.all_reduce(acc, group=group)
+        dist.all_reduce(wacc, group=group)
     return acc, wacc
 
 
@@ -200,7 +209,7 @@ def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                              Sequence[Callable[[torch.Tensor],
                                                torch.Tensor]]] = None,
                          prob_dtype: Optional[torch.dtype] = None,
-                         nonlin: str = "softmax") -> np.ndarray:
+                         nonlin: str = "softmax", group=None) -> np.ndarray:
     """data: (C, X, Y, Z) float32 -> class probabilities (num_classes, X,
     Y, Z), per-channel sigmoid probabilities under nonlin="sigmoid", as
     numpy in accum_dtype: the volume padded to the patch and moved
@@ -214,7 +223,7 @@ def predict_volume_tiled(apply_fn: Callable[[torch.Tensor], torch.Tensor],
         apply_fn, vol, patch_size, num_classes, step_size=step_size,
         mirror_axes=mirror_axes, do_mirroring=do_mirroring,
         accum_dtype=accum_dtype, mirror_apply_fns=mirror_apply_fns,
-        prob_dtype=prob_dtype, nonlin=nonlin)
+        prob_dtype=prob_dtype, nonlin=nonlin, group=group)
     wacc = torch.where(wacc == 0, torch.ones_like(wacc), wacc)
     probs = (acc / wacc[..., None]).cpu().numpy()
     probs = np.moveaxis(probs, -1, 0)

@@ -29,6 +29,18 @@ which keeps one copy of each on the card; the returned state holds the
 same tensors. Gradients are the full gradients, dead kernels included
 (the masks are applied after the update), as the reference's. Every
 result stays on the device: nothing here waits for the card.
+
+Data parallel (group, a torch.distributed process group;
+make_sharded_train_step): each rank passes its rows of the batch and the
+same state (replicate_state). The loss runs under parallel/collectives.
+reducing(group), so it is the whole
+batch's on every rank and each rank's backward carries its own share; the
+parameter gradients are then summed over the ranks, clipped at global
+norm 12 and fed to the optimizer, so every rank makes the same update.
+The grad step's gradients are summed alike; the eval step's loss is the
+whole batch's and its tp/fp/fn are summed. The mask update needs no
+communication: every rank draws from the same seeded state.generator on
+the same parameters (and gradients) and reaches the same masks.
 """
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Union
@@ -41,6 +53,8 @@ from torch import nn
 from ..models.masks import apply_masks_to
 from ..ops.losses import (deep_supervision_loss, hard_tp_fp_fn,
                           hard_tp_fp_fn_regions)
+from ..parallel import mesh
+from ..parallel.collectives import all_reduce_sum_, all_sum, reducing
 from . import dsff
 from .ranger import RangerState, ranger_init, ranger_update
 
@@ -83,6 +97,18 @@ def create_train_state(model: nn.Module, masks=None, seed: int = 0,
     return TrainState(params=params, momentum=momentum, masks=masks,
                       generator=torch.Generator().manual_seed(seed),
                       rng=np.array([0, seed], np.uint32))
+
+
+def replicate_state(state: TrainState, group=None) -> TrainState:
+    """The state's parameters, optimizer buffers and masks broadcast from
+    rank 0 of the process group, in place (the JAX package's
+    replicate_state)."""
+    tensors = [p.data for p in state.params.values()]
+    for d in _state_dicts(state.momentum) + [state.masks or {}]:
+        tensors += list(d.values())
+    for t in tensors:
+        torch.distributed.broadcast(t, src=0, group=group)
+    return state
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -211,14 +237,17 @@ def _outputs(model: nn.Module, data: torch.Tensor, do_ds: bool):
     return [out]
 
 
-def _full_grads(loss, params: Dict[str, torch.Tensor]):
+def _full_grads(loss, params: Dict[str, torch.Tensor], group=None):
     """{name: d loss / d param}, zeros where a parameter has no path to
-    the loss."""
+    the loss; with a group, summed over its ranks."""
     names = list(params)
     got = torch.autograd.grad(loss, [params[n] for n in names],
                               allow_unused=True)
-    return {n: torch.zeros_like(params[n]) if g is None else g
-            for n, g in zip(names, got)}
+    grads = {n: torch.zeros_like(params[n]) if g is None else g
+             for n, g in zip(names, got)}
+    if group is not None:
+        all_reduce_sum_(list(grads.values()), group)
+    return grads
 
 
 def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
@@ -226,7 +255,8 @@ def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
                     weight_decay: float = WEIGHT_DECAY,
                     optimizer: str = "sgd", loss_kwargs=None,
                     dynamic_loss_weights: bool = False,
-                    dynamic_momentum: bool = False, do_ds: bool = True):
+                    dynamic_momentum: bool = False, do_ds: bool = True,
+                    group=None):
     """step(state, data, targets, lr, *extras) -> (state, {"loss",
     "grad_norm"}): data (B, D, H, W, C) float32, targets one tensor per
     deep-supervision output, finest first (do_ds=False: the
@@ -236,7 +266,9 @@ def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
     with loss_kwargs. extras, floats: (weight_ce, weight_dice) when
     dynamic_loss_weights (the CE -> Dice transition), then the momentum
     when dynamic_momentum (SGD only; the momentum reduction); reference
-    make_train_step, train_state.py:133-208."""
+    make_train_step, train_state.py:133-208. group: data parallel over
+    its ranks, data and targets this rank's rows (the module's
+    docstring)."""
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer '{optimizer}'")
     if dynamic_momentum and optimizer != "sgd":
@@ -250,9 +282,10 @@ def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
             extra_kw["weight_ce"] = extras.pop(0)
             extra_kw["weight_dice"] = extras.pop(0)
         mom = extras.pop(0) if dynamic_momentum else momentum
-        loss = loss_fn(_outputs(model, data, do_ds), targets, extra_kw)
-        grads, gnorm = clip_by_global_norm(_full_grads(loss, state.params),
-                                           GRAD_CLIP_NORM)
+        with reducing(group):
+            loss = loss_fn(_outputs(model, data, do_ds), targets, extra_kw)
+        grads, gnorm = clip_by_global_norm(
+            _full_grads(loss, state.params, group), GRAD_CLIP_NORM)
         if optimizer == "sgd":
             sgd_nesterov_update(state.params, state.momentum, grads, lr,
                                 weight_decay=weight_decay, mom=mom)
@@ -273,27 +306,40 @@ def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
     return train_step
 
 
+def make_sharded_train_step(model: nn.Module, ds_weights,
+                            batch_dice: bool = True, **step_kwargs):
+    """make_train_step over the process group this process runs in (the
+    JAX package's make_sharded_train_step on a "data" mesh): each rank
+    passes its rows (parallel.shard_batch) and the replicated state; raises
+    outside a group."""
+    return make_train_step(model, ds_weights, batch_dice,
+                           group=mesh.world_group(), **step_kwargs)
+
+
 def make_eval_step(model: nn.Module, ds_weights, batch_dice: bool = True,
                    loss_name: str = "dc_ce", loss_kwargs=None,
                    dynamic_loss_weights: bool = False, do_ds: bool = True,
-                   regions: bool = False):
+                   regions: bool = False, group=None):
     """step(data, targets, *extras) -> {"loss", "tp", "fp", "fn"} on the
     device: the deep-supervision loss (do_ds=False: the full-resolution
     head's alone) and the hard counts of the full-resolution head, per
     foreground class, or with regions per region channel of sigmoid > 0.5
     against region targets (reference make_eval_step, train_state.py:
     211-238), no gradient; extras (weight_ce, weight_dice) when
-    dynamic_loss_weights."""
+    dynamic_loss_weights. group: data parallel, the loss and the counts
+    the whole batch's."""
     loss_fn = _loss_fn(ds_weights, batch_dice, loss_name, loss_kwargs)
 
     def eval_step(data, targets, *extras):
         extra_kw = ({"weight_ce": extras[0], "weight_dice": extras[1]}
                     if dynamic_loss_weights else {})
-        with torch.no_grad():
+        with torch.no_grad(), reducing(group):
             outs = _outputs(model, data, do_ds)
             loss = loss_fn(outs, targets, extra_kw)
             counts = hard_tp_fp_fn_regions if regions else hard_tp_fp_fn
             tp, fp, fn = counts(outs[0], targets[0])
+            if group is not None:
+                tp, fp, fn = all_sum(torch.stack([tp, fp, fn]))
         return {"loss": loss, "tp": tp, "fp": fp, "fn": fn}
 
     return eval_step
@@ -349,7 +395,8 @@ def make_mask_update_step(model: nn.Module, growth: str = "random",
 
 
 def make_grad_step(model: nn.Module, ds_weights, batch_dice: bool = True,
-                   loss_name: str = "dc_ce", do_ds: bool = True):
+                   loss_name: str = "dc_ce", do_ds: bool = True,
+                   group=None):
     """grad_step(data, targets) -> {name: gradient} of the plain
     deep-supervision loss with respect to every parameter of the model,
     through the same kernels as the train step (reference make_grad_step,
@@ -357,12 +404,13 @@ def make_grad_step(model: nn.Module, ds_weights, batch_dice: bool = True,
     reads); do_ds=False as make_train_step's (the reference runs every
     head and weighs the first alone: the same loss, zero gradients for
     the other heads). The trainer feeds it to gradient-fed DSFF
-    updates."""
+    updates. group: data parallel, the gradients summed over its ranks."""
     loss_fn = _loss_fn(ds_weights, batch_dice, loss_name, None)
 
     def grad_step(data, targets):
         params = dict(model.named_parameters())
-        return _full_grads(loss_fn(_outputs(model, data, do_ds), targets),
-                           params)
+        with reducing(group):
+            loss = loss_fn(_outputs(model, data, do_ds), targets)
+        return _full_grads(loss, params, group)
 
     return grad_step

@@ -79,9 +79,23 @@ do_gamma, read from the augmentation parameters after the da_level);
 validation keeps the host pipeline. The modes in which the JAX trainer
 cannot train so are refused at initialize (_DEVICE_AUGMENT_REFUSED).
 
+num_devices=n above 1 trains data parallel inside a process group of n
+ranks (parallel/mesh.launch; the train CLI's --num_devices spawns them),
+the JAX trainer's "data" mesh: every rank runs the same seeded pipeline
+(host or device augmentation) on the whole batch and keeps its rows
+(mesh.shard_batch), the state is broadcast from rank 0 at start, and the
+steps reduce their losses, counts and gradients over the ranks
+(training/train_state.py), so every rank holds the same state. Rank 0
+alone writes checkpoints, logs, plots, debug.json and the validations;
+the other ranks wait at a barrier while it validates. A checkpoint
+continued with -c is loaded by every rank from the same file. The same
+batches on every rank need one augmentation thread (data/pipeline.py:
+only one gives a fixed order), so num_da_threads above 1 with num_devices
+above 1 raises.
+
 Not ported, raising NotImplementedError that names its ROADMAP item:
-several devices (item 7). `fused` and `remat` choose between XLA
-programs of the reference and have no meaning here.
+spatial_parallel above 1 (item 7 (ii)). `fused` and `remat` choose
+between XLA programs of the reference and have no meaning here.
 """
 import json
 import os
@@ -101,6 +115,7 @@ from ..models.masks import masks_density, masks_for_model, masks_to_flax
 from ..models.unetpp import (ARCH_DEFAULTS, build_network,
                              deep_supervision_scales, ds_loss_weights)
 from ..ops.device_augment import make_device_augmenter
+from ..parallel import mesh
 from ..plans import Plans
 from ..utils.files import (isfile, join, load_pickle, maybe_mkdir_p,
                            save_json)
@@ -115,16 +130,15 @@ from .lr import (ReduceLROnPlateau, ce_to_dice_weights, cycle_at_end_lr,
 from .regions import resolve_regions
 from .train_state import (apply_new_masks, create_train_state, make_eval_step,
                           make_grad_step, make_mask_update_step,
-                          make_train_step)
+                          make_train_step, replicate_state)
 from .variants import apply_da_level
 
-MULTI_DEVICE_ITEM = "ROADMAP Queue 1 item 7 (multi-GPU)"
+SPATIAL_PARALLEL_ITEM = "ROADMAP Queue 1 item 7 (ii) (spatial parallel)"
 # the reference's defaults of the options the port refuses otherwise
 _REFUSED = (
     ("profile_dir", None, "not ported (a step's device time by kernel: "
      "python -m e2enet_tpu_torch.profile_forward --train)"),
-    ("num_devices", None, MULTI_DEVICE_ITEM),
-    ("spatial_parallel", 1, MULTI_DEVICE_ITEM))
+    ("spatial_parallel", 1, SPATIAL_PARALLEL_ITEM))
 # the modes the JAX trainer cannot train with device_augment (ROADMAP
 # Queue 3), each with what goes wrong there
 _DEVICE_AUGMENT_REFUSED = {
@@ -142,16 +156,14 @@ _DEVICE_AUGMENT_REFUSED = {
 
 def refuse_unported(**options) -> None:
     """Raise for the first option (by the reference trainer's name) that is
-    not the reference's default, naming the ROADMAP item that ports it;
-    num_devices 1 counts as the default. fused and remat are refused with
-    the reason they have no meaning here; an unknown name is a TypeError."""
+    not the reference's default, naming the ROADMAP item that ports it.
+    fused and remat are refused with the reason they have no meaning here;
+    an unknown name is a TypeError."""
     unknown = set(options) - {n for n, _, _ in _REFUSED} - {"fused", "remat"}
     if unknown:
         raise TypeError(f"unexpected trainer options {sorted(unknown)}")
     for name, default, item in _REFUSED:
         v = options.get(name, default)
-        if name == "num_devices" and v == 1:
-            continue
         if v != default:
             raise NotImplementedError(f"{name}={v!r}: {item}")
     for name in ("fused", "remat"):
@@ -187,6 +199,7 @@ class Trainer:
                  num_conv_per_stage: Optional[int] = None,
                  seg_bias: bool = False, nonlin_before_norm: bool = False,
                  conv_kernel=None, device_augment: bool = False,
+                 num_devices: Optional[int] = None,
                  device="cuda", **options):
         """The reference's arguments (TPUTrainer.__init__, trainer.py:47-76)
         with `device`; cascade=True trains the 3d_cascade_fullres stage on
@@ -202,11 +215,22 @@ class Trainer:
         norm_op, nonlin, num_conv_per_stage, seg_bias, nonlin_before_norm,
         conv_kernel: the architecture switches of build_network;
         device_augment: the training batches augmented on the device
-        (ops/device_augment.py)."""
+        (ops/device_augment.py); num_devices: data parallel over a process
+        group of that many ranks (None or 1: this device alone)."""
         refuse_unported(**options)
         if ds_mode not in ("standard", "none"):
             raise ValueError(f"ds_mode {ds_mode!r}: 'standard' or 'none'")
         self.device = require_device(device)
+        self.num_devices = num_devices or 1
+        if self.num_devices > 1 and num_da_threads > 1:
+            raise ValueError(
+                f"num_devices={self.num_devices} with num_da_threads="
+                f"{num_da_threads}: every rank must see the same seeded "
+                f"batches, and only one augmentation thread gives a fixed "
+                f"order (data/pipeline.py)")
+        self.group = (mesh.data_group(self.num_devices)
+                      if self.num_devices > 1 else None)
+        self.is_main = self.group is None or mesh.rank() == 0
         self.plans = plans
         self.fold = fold
         self.stage = stage
@@ -237,7 +261,8 @@ class Trainer:
         self.gt_niftis_folder = (join(dataset_directory, "gt_segmentations")
                                  if dataset_directory else None)
 
-        self.logger = RunLogger(self.output_folder)
+        self.logger = (RunLogger(self.output_folder) if self.is_main
+                       else RunLogger(None, also_print=False))
         self.initial_lr = initial_lr
         self.dummy_load = dummy_load
         self.loss_name = loss_name
@@ -270,6 +295,9 @@ class Trainer:
         self.stage_plan = plans.plans_per_stage[stage]
         self.patch_size = np.array(self.stage_plan.patch_size)
         self.batch_size = int(self.stage_plan.batch_size)
+        assert self.batch_size % self.num_devices == 0, (
+            f"batch {self.batch_size} not divisible by data-parallel size "
+            f"{self.num_devices}")
         self.num_classes = plans.num_classes + 1  # incl. background
         self.num_modalities = plans.num_modalities
 
@@ -337,6 +365,10 @@ class Trainer:
             self.t_max = self.max_num_epochs * self.num_batches_per_epoch
         self.state = create_train_state(self.network, masks, seed=self.seed,
                                         optimizer=self.optimizer)
+        if self.group is not None:
+            replicate_state(self.state, self.group)
+            self.logger.log(f"data parallel over {self.num_devices} ranks "
+                            f"({torch.distributed.get_backend(self.group)})")
         ce_to_dice = self.loss_schedule == "ce_to_dice"
         self.train_step = make_train_step(
             self.network, self.ds_weights, self.batch_dice,
@@ -344,12 +376,12 @@ class Trainer:
             optimizer=self.optimizer, loss_kwargs=self.loss_kwargs,
             dynamic_loss_weights=ce_to_dice,
             dynamic_momentum=self.momentum_schedule == "reduce",
-            do_ds=do_ds)
+            do_ds=do_ds, group=self.group)
         self.eval_step = make_eval_step(
             self.network, self.ds_weights, self.batch_dice,
             loss_name=self.loss_name, loss_kwargs=self.loss_kwargs,
             dynamic_loss_weights=ce_to_dice, do_ds=do_ds,
-            regions=self.regions is not None)
+            regions=self.regions is not None, group=self.group)
         if masks is not None:
             cfg = self.dsff_config
             made = dsff.mask_granularity(masks, self.network)
@@ -376,7 +408,7 @@ class Trainer:
             if cfg.growth == "gradient" or cfg.prune_mode == "global":
                 self._dsff_grad_step = make_grad_step(
                     self.network, self.ds_weights, self.batch_dice,
-                    loss_name=self.loss_name, do_ds=do_ds)
+                    loss_name=self.loss_name, do_ds=do_ds, group=self.group)
 
         if self.device_augment:
             self.device_aug = make_device_augmenter(
@@ -560,19 +592,29 @@ class Trainer:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _rows(self, data, targets):
+        """This rank's rows of the batch (all of it on one device)."""
+        if self.group is None:
+            return data, targets
+        return mesh.shard_batch(data, targets, self.group)
+
     def _to_device(self, batch):
-        """The augmented batch channels-last on the device."""
-        return (self._put(np.moveaxis(batch["data"], 1, -1)),
-                tuple(self._put(t) for t in batch["target"]))
+        """The augmented batch (this rank's rows) channels-last on the
+        device."""
+        data, targets = self._rows(batch["data"], tuple(batch["target"]))
+        return (self._put(np.moveaxis(data, 1, -1)),
+                tuple(self._put(t) for t in targets))
 
     def _augment_on_device(self, batch):
         """A raw batch on the device (the segmentation's first channel as
         int8 labels, int16 past 127 classes; -1 outside the case),
-        augmented there: (data channels-last, targets)."""
+        augmented there: (data channels-last, targets), this rank's rows
+        of the whole batch's augmentation."""
         seg = batch["seg"][:, 0].astype(
             np.int8 if self.num_classes <= 127 else np.int16)
-        return self.device_aug(self._aug_gen, self._aug_noise_gen,
-                               self._put(batch["data"]), self._put(seg))
+        return self._rows(*self.device_aug(
+            self._aug_gen, self._aug_noise_gen, self._put(batch["data"]),
+            self._put(seg)))
 
     def run_iteration(self, gen, lr, do_backprop=True,
                       run_online_evaluation=False):
@@ -787,6 +829,10 @@ class Trainer:
         return join(self.output_folder, f"{self.tconv}_model_{which}.model")
 
     def save_checkpoint(self, which: str):
+        """Rank 0 writes the checkpoint (the other ranks hold the same
+        state)."""
+        if not self.is_main:
+            return
         sidecar = {
             "init": {"fold": self.fold, "stage": self.stage,
                      "tconv": self.tconv, "batch_dice": self.batch_dice,
@@ -840,6 +886,8 @@ class Trainer:
         self.logger.log(f"restored checkpoint {path} at epoch {epoch}")
 
     def plot_progress(self):
+        if not self.is_main:
+            return
         try:
             import matplotlib
             matplotlib.use("agg")
@@ -862,17 +910,25 @@ class Trainer:
             self.logger.log("failed to plot:", e)
 
     # ----------------------------------------------------- validation set
-    def validate(self, do_mirroring: bool = True, step_size: float = 0.5,
-                 save_softmax: bool = False,
-                 validation_folder_name: str = "validation_raw",
-                 run_postprocessing_on_folds: bool = True):
+    def validate(self, *args, **kwargs):
         """Sliding-window predict every val case -> export -> evaluate ->
         determine postprocessing. Parity: nnUNetTrainer_simple.validate
         (:1309-1479). The region trainers: sigmoid probabilities, labels
         by regions_class_order, evaluate_regions' summary.csv and no
         postprocessing (nnUNetTrainerV2BraTSRegions.validate :160-166).
         Each case's seconds in prediction and export go to
-        self.validation_timings."""
+        self.validation_timings. Arguments: _validate's. Data parallel:
+        rank 0 validates on its device, as the JAX trainer validates on
+        one, while the other ranks wait at a barrier."""
+        if self.is_main:
+            self._validate(*args, **kwargs)
+        if self.group is not None:
+            mesh.barrier()
+
+    def _validate(self, do_mirroring: bool = True, step_size: float = 0.5,
+                  save_softmax: bool = False,
+                  validation_folder_name: str = "validation_raw",
+                  run_postprocessing_on_folds: bool = True):
         from ..evaluation.evaluator import aggregate_scores
         from ..inference.export import save_segmentation_nifti_from_softmax
         from ..ops.sliding import predict_volume_tiled
@@ -961,6 +1017,8 @@ class Trainer:
         self.logger.log("validation done ->", output_folder)
 
     def save_debug_information(self):
+        if not self.is_main:
+            return
         dct = {}
         for k, v in self.__dict__.items():
             if k in ("plans", "state", "network", "logger", "tr_gen",

@@ -444,8 +444,9 @@ def test_part_sharding_and_overwrite(env, monkeypatch):
 
 
 def test_refusals(env, monkeypatch, tmp_path):
-    """A missing modality file, more than one device, and the card asked
-    for where there is none."""
+    """A missing modality file, more cards than there are, more than one
+    device outside a process group, and the card asked for where there is
+    none."""
     model_env(env, monkeypatch, "A", False)
     base = ["-o", str(tmp_path / "out"), "-t", TASK, "--device", "cpu"]
     folder = tmp_path / "in"
@@ -454,15 +455,39 @@ def test_refusals(env, monkeypatch, tmp_path):
                 NiftiImage(np.zeros((4, 4, 4), np.float32), (1, 1, 1)))
     with pytest.raises(AssertionError, match="missing modality"):
         tcli.main(base + ["-i", str(folder)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tcli.main(base + ["-i", str(env / "in"), "--num_devices", "2"])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="only .* present"):
+            tcli.main(base + ["-i", str(env / "in"), "--num_devices", "2",
+                              "--device", "cuda"])
     bundle = tpred.ModelBundle(
         model_folder(os.environ["RESULTS_FOLDER"]), None, "shiftConvPP",
         device="cpu")
     data = np.zeros((1, 32, 32, 32), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(RuntimeError, match="launch"):
         tpred.predict_case(bundle, data, num_devices=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tcli.main(["-i", str(env / "in"), "-o", str(tmp_path / "o2"),
                        "-t", TASK])
+
+
+def test_cli_num_devices_two_ranks(env, monkeypatch, tmp_path):
+    """--num_devices 2 --device cpu: two gloo ranks share every volume's
+    tiles, rank 0 preprocesses and exports. The outputs equal one rank's:
+    the npz probabilities within 1e-5 plus one float16 rounding (rtol
+    2^-10), the label maps equal."""
+    model_env(env, monkeypatch, "A", True)
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    outs = {}
+    for n in (1, 2):
+        outs[n] = str(tmp_path / f"out{n}")
+        done = tcli.main(["-i", str(env / "in"), "-o", outs[n], "-t", TASK,
+                          "-z", "--device", "cpu", "--num_devices", str(n)])
+        assert (done is None) == (n == 2)
+    for case in CASES:
+        p1, p2 = (np.load(os.path.join(outs[n], case + ".npz"))["softmax"]
+                  .astype(np.float32) for n in (1, 2))
+        np.testing.assert_allclose(p2, p1, rtol=2.0 ** -10, atol=1e-5)
+        s1, s2 = (read_nifti(os.path.join(outs[n], case + ".nii.gz")).array
+                  for n in (1, 2))
+        np.testing.assert_array_equal(s2, s1)

@@ -207,11 +207,49 @@ def test_refuses_without_a_card(environ, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--num_devices", "2"], "item 7"),
-    (["--spatial_parallel", "2"], "item 7")])
+    (["--num_devices", "2", "--device", "cuda"], "only .* present"),
+    (["--spatial_parallel", "2"], r"item 7 \(ii\)")])
 def test_unported_options_raise(environ, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """--spatial_parallel raises naming its item; --num_devices asks for
+    no more cards than there are (it trains: test_num_devices_trains)."""
+    if "--num_devices" in extra and torch.cuda.device_count() >= 2:
+        pytest.skip("two cards present: --num_devices 2 trains there")
+    exc = RuntimeError if "--num_devices" in extra else NotImplementedError
+    with pytest.raises(exc, match=item):
         ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu"] + extra)
+
+
+def test_num_devices_takes_one_da_thread(environ):
+    """--num_devices 2 with --da_threads 2 is refused before any rank
+    starts: only one augmentation thread gives every rank the same
+    batches."""
+    with pytest.raises(SystemExit):
+        ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu",
+                            "--num_devices", "2", "--da_threads", "2"])
+
+
+def test_num_devices_trains(environ, monkeypatch):
+    """--num_devices 2 --device cpu spawns two gloo ranks that train one
+    short epoch of a fold; rank 0 alone writes its checkpoints, its log
+    and its validation, and the final checkpoint loads back."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    assert ttrain.main(ARGS + ["--epochs", "1", "--fold", "1", "--device",
+                               "cpu", "--num_devices", "2"]) is None
+    fold = _fold(environ).parent / "fold_1"
+    logs = [f for f in os.listdir(fold) if f.startswith("training_log_")]
+    assert len(logs) == 1
+    log = open(fold / logs[0]).read()
+    assert "data parallel over 2 ranks (gloo)" in log
+    assert (fold / "validation_raw" / "summary.json").is_file()
+    tr = Trainer(ttrain.Plans.load(str(Path(environ["preprocessed"]) / TASK
+                                       / "nnUNetPlansv2.1_plans_3D.json")),
+                 1, str(fold.parent),
+                 dataset_directory=str(Path(environ["preprocessed"]) / TASK),
+                 device="cpu", base_num_features=8, fp16=False,
+                 dsff_config=ttrain.DSFFConfig(sparse=True, density=0.3))
+    tr.load_checkpoint_file("final_checkpoint", train=False)
+    assert tr.epoch == 1 and int(tr.state.step) == 2
+    assert np.all(np.isfinite(tr.all_tr_losses + tr.all_val_losses))
 
 
 def test_device_augment_trains(environ, monkeypatch):

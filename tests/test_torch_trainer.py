@@ -341,8 +341,12 @@ def test_kernel_granular_death_and_growth_match(task):
 def test_unported_options_raise(task):
     base, task_dir = task
     out = os.path.join(base, "refused")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # data parallel runs inside a process group (test_num_devices_two_
+    # ranks); outside one it says how to launch; spatial parallel raises
+    with pytest.raises(RuntimeError, match="launch"):
         _port_trainer(task_dir, out, num_devices=2)
+    with pytest.raises(NotImplementedError, match=r"item 7 \(ii\)"):
+        _port_trainer(task_dir, out, spatial_parallel=2)
     # the DSFF settings the reference trainer refuses, at initialize
     for kw, match in ((dict(sparse_init="snip"), "need a data batch"),
                       (dict(sparse_init="GraSP"), "need a data batch"),
@@ -363,6 +367,51 @@ def test_unported_options_raise(task):
     assert tt.da_params.all_segmentation_labels == [1, 2]
     with pytest.raises(AssertionError, match="segFromPrevStage"):
         _port_trainer(task_dir, out, cascade=True).initialize(True)
+
+
+def _dummy_losses(task_dir, out, num_devices):
+    """Two train iterations and one validation iteration of a dummy-load
+    trainer: (train losses, validation loss, online tp/fp/fn)."""
+    tr = _port_trainer(task_dir, out, dummy_load=True,
+                       num_devices=num_devices)
+    tr.initialize(True)
+    losses = [float(tr.run_iteration(tr.tr_gen, 1e-2, True))
+              for _ in range(2)]
+    tr._online_tp, tr._online_fp, tr._online_fn = [], [], []
+    val = float(tr.run_iteration(tr.val_gen, 1e-2, False, True))
+    counts = [float(t.sum()) for t in (tr._online_tp[0], tr._online_fp[0],
+                                       tr._online_fn[0])]
+    return losses, val, counts
+
+
+def _rank_dummy_losses(task_dir, out):
+    torch.set_num_threads(2)
+    return _dummy_losses(task_dir, out, 2)
+
+
+def test_num_devices_two_ranks(task):
+    """Trainer(num_devices=2) on two gloo ranks of one row each (dummy
+    load: each rank draws the whole batch from the same seed and keeps its
+    row): the same losses and online counts on both ranks, and as one
+    device's on the whole batch, within 1e-5."""
+    from e2enet_tpu_torch.parallel import mesh
+    base, task_dir = task
+    got = mesh.launch(_rank_dummy_losses, 2, "cpu", task_dir,
+                      os.path.join(base, "two_ranks"))
+    assert got[0] == got[1]
+    want = _dummy_losses(task_dir, os.path.join(base, "one_rank"), None)
+    np.testing.assert_allclose(got[0][0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[0][1], want[1], rtol=1e-5)
+    assert got[0][2] == want[2]
+
+
+def test_num_devices_takes_one_da_thread(task):
+    """Data parallel needs the same seeded batches on every rank, which
+    only one augmentation thread gives: several raise."""
+    base, task_dir = task
+    with pytest.raises(ValueError, match="num_da_threads=2"):
+        _port_trainer(task_dir, os.path.join(base, "threads"),
+                      num_devices=2, num_da_threads=2)
 
 
 @pytest.mark.parametrize("kw, dsff_kw", [
