@@ -38,6 +38,9 @@
     python3 chip_smoke.py --parallel
                                    # only the build and the [parallel]
                                    # phase
+    python3 chip_smoke.py --spatial
+                                   # only the build and the [spatial]
+                                   # phase
 
 Phases (any failure ends the run with a non-zero exit):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
@@ -163,6 +166,26 @@ Phases (any failure ends the run with a non-zero exit):
               agree with one device's on >= 99.5 % of voxels, the launches
               summed over the ranks; (d) cli.predict --num_devices 2
               raising "only 1 present"
+  9c. spatial H-sharded training over a (data x space) grid
+              (parallel/halo.py, mesh.make_grid): (1) kernels #1, #2/#4
+              and #5 in halo mode on H slabs of the bench shapes (1 x 128
+              x 64 x 128: 48 -> 48 with the top row, the bottom row and
+              both, 48 + 48 -> 48 with both, #5 48 -> 96 with its top row;
+              1 x 64 x 32 x 64: 96 + 96 + 48 -> 96; the backward at batch
+              2) against their plain versions with the same rows and
+              against the rows of the whole-H kernel's output (halo ms
+              beside the slab alone and the whole H); two gloo ranks on
+              cuda:0 as a 1 x 2 grid: (2) make_sharded_train_step at the
+              bench width (batch 2 x 128^3, each rank 2 x 128 x 64 x 128,
+              kernel DSFF at 0.2; each after a first step from the same
+              state) against one device's step run twice
+              (the loss within 1e-3, the parameters within 4x the two
+              runs' spread, the ranks' states equal to the bit, launches
+              per step and rank kernel_launches_per_train_step(...,
+              spatial=2), each rank's peak memory at most 0.7 of one
+              device's); (3) Trainer(num_devices=2, spatial_parallel=2,
+              dummy_load=True) against Trainer on one device; (4)
+              dryrun._rank_run('cuda') on the two ranks
   10. trainer the users' chain from raw data (the plan CLI, cli/train.main,
               then cli/predict.main): a seeded raw task (write_raw_task: six
               cases of about 160^3 at 1 mm, one CT modality, 16 classes with
@@ -6440,25 +6463,28 @@ def parallel_launches(ops, fn, *a, **k):
     return out, {n: op.launches - before[n] for n, op in ops.items()}
 
 
-def parallel_trainer(out_dir, num_devices, ops):
-    """Trainer(num_devices=...) at the bench plan (one stage of 128^3
-    patches, batch 2, five pools, 16 classes, 48 features, bf16), dummy
-    batches, kernel DSFF at PARALLEL_DENSITY updated every 2 steps:
-    initialize, then PARALLEL_TRAINER_STEPS run_iteration calls. Returns
-    each step's loss and launches, the launches a step should make, and
-    the masks and parameters after the steps (on the CPU)."""
+def parallel_trainer(out_dir, num_devices, ops, spatial_parallel=1):
+    """Trainer(num_devices=..., spatial_parallel=...) at the bench plan
+    (one stage of 128^3 patches, batch 2, five pools, 16 classes, 48
+    features, bf16), dummy batches, kernel DSFF at PARALLEL_DENSITY
+    updated every 2 steps: initialize, then PARALLEL_TRAINER_STEPS
+    run_iteration calls. Returns each step's loss and launches, the
+    launches a step should make, and the masks and parameters after the
+    steps (on the CPU)."""
     import torch
     from e2enet_tpu_torch.models.unetpp import kernel_launches_per_train_step
     from e2enet_tpu_torch.training.dsff import DSFFConfig
     from e2enet_tpu_torch.training.trainer import Trainer
     tr = Trainer(predict_plans(48), 0, out_dir, dummy_load=True,
-                 device="cuda", num_devices=num_devices, max_num_epochs=10,
+                 device="cuda", num_devices=num_devices,
+                 spatial_parallel=spatial_parallel, max_num_epochs=10,
                  num_batches_per_epoch=2, num_val_batches_per_epoch=1,
                  dsff_config=DSFFConfig(sparse=True,
                                         density=PARALLEL_DENSITY,
                                         update_frequency=2))
     tr.initialize(True)
-    per = kernel_launches_per_train_step(tr.network)
+    per = kernel_launches_per_train_step(tr.network,
+                                         spatial=tr.spatial_parallel)
     out = {"want": {k: per["forward"].get(k, 0) + per["backward"].get(k, 0)
                     for k in ops}, "losses": [], "launches": []}
     for _ in range(PARALLEL_TRAINER_STEPS):
@@ -6849,6 +6875,492 @@ def parallel_only() -> None:
     print(json.dumps({"parallel_launches": got}), flush=True)
 
 
+# the [spatial] phase: H-sharded training over a (data x space) grid
+# (parallel/halo.py, mesh.make_grid) at the bench width; this host has one
+# card, so the 1 x 2 grid is two gloo ranks on cuda:0
+SPATIAL = 2                      # the ranks that split H
+SPATIAL_SIDES = ("top", "bottom", "both")
+# the grid's step against one device's: the loss within PARALLEL_LOSS_RTOL;
+# the parameters after one step no further from one device's than
+# SPATIAL_SPREAD_X times two runs of one device are from each other (the
+# statistics' and the weight gradients' atomics vary run to run), and at
+# least SPATIAL_STEP_FLOOR of the step's change
+SPATIAL_SPREAD_X = 4.0
+SPATIAL_STEP_FLOOR = 1e-3
+# each rank's peak memory in the step at most this share of one device's
+SPATIAL_MEMORY_SHARE = 0.7
+
+
+def halo_split(whole, top: bool, bottom: bool, extra: int = 0):
+    """A slab of `whole` (..., H on axis 2) and its halo rows: the first
+    `extra` rows are outside both (a volume's rows further up), then the
+    row above (top), the slab, the row below (bottom). Returns (slab, top
+    row or None, bottom row or None, the slab's first row in whole)."""
+    t0 = extra + (1 if top else 0)
+    H = whole.shape[2] - t0 - (1 if bottom else 0)
+    slab = whole[:, :, t0:t0 + H].contiguous()
+    up = whole[:, :, t0 - 1:t0].contiguous() if top else None
+    down = whole[:, :, t0 + H:t0 + H + 1].contiguous() if bottom else None
+    return slab, up, down, t0
+
+
+def spatial_fused_case(name, N, D, Hs, W, part_c, affine, CO, rnd, reps,
+                       side):
+    """Kernel #1 in halo mode on an H slab of Hs rows (side: which of its
+    neighbour rows exist; the others are the volume's edge) against its
+    plain version with the same rows, and its y against the rows of the
+    whole-H kernel's output on the slab and its rows; with reps, ms in halo
+    mode beside the same kernel on the slab alone and on the volume of
+    SPATIAL slabs (one device's call)."""
+    import torch
+    from e2enet_tpu_torch.ops import fused_block as fb
+    top, bottom = side in ("top", "both"), side in ("bottom", "both")
+    wholes = [rnd(N, D, Hs + top + bottom, W, c).to(torch.bfloat16)
+              for c in part_c]
+    split = [halo_split(w, top, bottom) for w in wholes]
+    parts = [s[0] for s in split]
+    halos = ([s[1] for s in split], [s[2] for s in split])
+    t0 = split[0][3]
+    affines = [rnd.affine(N, c) if a else None
+               for c, a in zip(part_c, affine)]
+    C = sum(part_c)
+    kernel = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    bias = rnd(CO, scale=0.1)
+    args = (parts, kernel, bias, affines, (False,) * 3, None, halos)
+    y_k, s_k = fb.fused_shift_conv_block(*args)
+    y_p, s_p = fb.fused_shift_conv_block_ref(*args)
+    y_w, _ = fb.fused_shift_conv_block(wholes, kernel, bias, affines)
+    torch.cuda.synchronize()
+    ok, err = y_err(y_k, y_p, Y_ULPS)
+    srel = stats_err(s_k, s_p, y_p)
+    check(ok, f"[spatial] {name} {side}: y differs from the plain version "
+              f"by more than {Y_ULPS} bf16 ulps")
+    check(srel <= STATS_RTOL, f"[spatial] {name} {side}: stats rel err "
+                              f"{srel}")
+    ok_w, err_w = y_err(y_k, y_w[:, :, t0:t0 + Hs], ORDER_ULPS)
+    check(ok_w, f"[spatial] {name} {side}: y differs from the whole-H "
+                f"kernel's rows by more than {ORDER_ULPS} ulp")
+    res = dict(max_abs_err=err, stats_rel=srel, whole_err=err_w)
+    if reps:
+        volume = [rnd(N, D, SPATIAL * Hs, W, c).to(torch.bfloat16)
+                  for c in part_c]
+        rows = sum(nbytes(r) for h in halos for r in h if r is not None)
+        b_ms, b_by = bound(nbytes(*parts, y_k) + rows + 9 * C * CO * 2,
+                           2.0 * N * D * Hs * W * 9 * C * CO, PEAK_BF16)
+        res.update(
+            ms=cuda_ms(lambda: fb.fused_shift_conv_block(*args), reps),
+            plain_ms=cuda_ms(lambda: fb.fused_shift_conv_block_ref(*args),
+                             reps),
+            slab_ms=cuda_ms(lambda: fb.fused_shift_conv_block(
+                parts, kernel, bias, affines), reps),
+            whole_h_ms=cuda_ms(lambda: fb.fused_shift_conv_block(
+                volume, kernel, bias, affines), reps),
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"  {name} {side} halo rows, slab N={N} D={D} H={Hs} W={W} "
+              f"C={list(part_c)} CO={CO}: max abs err {err:.3e} (whole-H "
+              f"rows {err_w:.3e}, stats rel {srel:.2e})  halo mode "
+              f"{res['ms']:.4f} ms  the slab without rows "
+              f"{res['slab_ms']:.4f} ms  whole H ({SPATIAL * Hs} rows) "
+              f"{res['whole_h_ms']:.4f} ms  plain {res['plain_ms']:.4f} ms  "
+              f"bound {b_ms:.4f} ms by {b_by} "
+              f"({100 * b_ms / res['ms']:.1f} % of it)", flush=True)
+    return res
+
+
+def spatial_bwd_case(name, N, D, Hs, W, part_c, affine, CO, rnd, reps,
+                     side):
+    """Kernels #2/#4 in halo mode on an H slab: the forward's halo rows
+    and the neighbours' y and gy rows, against the plain version with the
+    same rows (gx, gW, gb, g(affine)), and gx against the rows of the
+    whole-H backward (the volume of the slab and its neighbour rows,
+    whose gradient of the slab's rows is the slab's whole gradient)."""
+    import torch
+    from e2enet_tpu_torch.ops import fused_block as fb
+    bf = torch.bfloat16
+    top, bottom = side in ("top", "both"), side in ("bottom", "both")
+    Hw = Hs + top + bottom
+    wholes = [rnd(N, D, Hw, W, c).to(bf) for c in part_c]
+    split = [halo_split(w, top, bottom) for w in wholes]
+    parts = [s[0] for s in split]
+    halos = ([s[1] for s in split], [s[2] for s in split])
+    t0 = split[0][3]
+    affines = [rnd.affine(N, c) if a else None
+               for c, a in zip(part_c, affine)]
+    C = sum(part_c)
+    kernel = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    bias = rnd(CO, scale=0.1)
+    y_w, _ = fb.fused_shift_conv_block(wholes, kernel, bias, affines)
+    gy_w = rnd(N, D, Hw, W, CO, scale=1e-3).to(bf)
+    gstats = rnd(N, CO, 2, scale=1e-4)
+    y, gy = (t[:, :, t0:t0 + Hs].contiguous() for t in (y_w, gy_w))
+    edge = ((y_w[:, :, :1].contiguous(), gy_w[:, :, :1].contiguous())
+            if top else None,
+            (y_w[:, :, -1:].contiguous(), gy_w[:, :, -1:].contiguous())
+            if bottom else None)
+    args = (parts, kernel, bias, affines, y, gy, gstats, (False,) * 3, None)
+    gp, gk, gb, ga = fb.fused_shift_conv_block_bwd(*args, halos=halos,
+                                                   edge_rows=edge)
+    rp, rk, rb, ra = fb.fused_shift_conv_block_bwd_ref(*args, halos=halos,
+                                                       edge_rows=edge)
+    wp, _, _, _ = fb.fused_shift_conv_block_bwd(
+        wholes, kernel, bias, affines, y_w, gy_w, gstats)
+    torch.cuda.synchronize()
+    err = err_w = 0.0
+    for g, r, w in zip(gp, rp, wp):
+        ok, e = y_err(g, r, Y_ULPS)
+        check(ok, f"[spatial] {name} {side}: gx differs from the plain "
+                  f"version by more than {Y_ULPS} bf16 ulps")
+        ok_w, e_w = y_err(g, w[:, :, t0:t0 + Hs], ORDER_ULPS)
+        check(ok_w, f"[spatial] {name} {side}: gx differs from the whole-H "
+                    f"backward's rows by more than {ORDER_ULPS} ulp")
+        err, err_w = max(err, e), max(err_w, e_w)
+    rel = max([close_max(gk, rk), close_max(gb, rb)]
+              + [close_max(g[i], r[i]) for g, r in zip(ga, ra)
+                 if g is not None for i in (0, 1)])
+    check(rel <= BWD_RTOL, f"[spatial] {name} {side}: gW/gb/g(affine) rel "
+                           f"err {rel}")
+    res = dict(max_abs_err=err, rel_err=rel, whole_err=err_w)
+    if reps:
+        vol = [rnd(N, D, SPATIAL * Hs, W, c).to(bf) for c in part_c]
+        vy, _ = fb.fused_shift_conv_block(vol, kernel, bias, affines)
+        vgy = rnd(N, D, SPATIAL * Hs, W, CO, scale=1e-3).to(bf)
+        rows = sum(nbytes(r) for h in halos for r in h if r is not None)
+        rows += sum(nbytes(*p) for p in edge if p is not None)
+        b_ms, b_by = bound(2 * nbytes(*parts) + nbytes(y, gy) + rows
+                           + 9 * C * CO * (2 + 4) + CO * 4,
+                           2.0 * N * D * Hs * W * 9 * CO * 2 * C, PEAK_BF16)
+        res.update(
+            ms=cuda_ms(lambda: fb.fused_shift_conv_block_bwd(
+                *args, halos=halos, edge_rows=edge), reps),
+            plain_ms=cuda_ms(lambda: fb.fused_shift_conv_block_bwd_ref(
+                *args, halos=halos, edge_rows=edge), max(1, reps // 4)),
+            slab_ms=cuda_ms(lambda: fb.fused_shift_conv_block_bwd(*args),
+                            reps),
+            whole_h_ms=cuda_ms(lambda: fb.fused_shift_conv_block_bwd(
+                vol, kernel, bias, affines, vy, vgy, gstats), reps),
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"  {name} {side} halo rows, slab N={N} D={D} H={Hs} W={W} "
+              f"C={list(part_c)} CO={CO}: gx max abs err {err:.3e} "
+              f"(whole-H rows {err_w:.3e}), gW/gb/g(affine) rel {rel:.2e}  "
+              f"halo mode {res['ms']:.4f} ms  the slab without rows "
+              f"{res['slab_ms']:.4f} ms  whole H ({SPATIAL * Hs} rows) "
+              f"{res['whole_h_ms']:.4f} ms  plain {res['plain_ms']:.4f} ms  "
+              f"bound {b_ms:.4f} ms by {b_by} "
+              f"({100 * b_ms / res['ms']:.1f} % of it)", flush=True)
+    return res
+
+
+def spatial_strided_case(name, N, D, Hs, W, C, CO, rnd, reps):
+    """Kernel #5 in halo mode on an H slab below another (its top row; the
+    slab starts on an even row of the volume) against its plain version
+    with the same row and against the rows of the whole-H kernel's output
+    on the volume of a row pair and the slab."""
+    import torch
+    from e2enet_tpu_torch.ops import qstride
+    whole = rnd(N, D, Hs + 2, W, C).to(torch.bfloat16)
+    x, up, _, t0 = halo_split(whole, True, False, extra=1)
+    m, o = rnd.affine(N, C)
+    k = rnd(CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    b = rnd(CO, scale=0.1)
+    args = (x, m, o, k, b, (2, 2, 2), (False,) * 3, None, (up, None))
+    y_k, s_k = qstride.strided_fused(*args)
+    y_p, s_p = qstride.strided_fused_ref(*args)
+    y_w, _ = qstride.strided_fused(whole, m, o, k, b)
+    torch.cuda.synchronize()
+    ok, err = y_err(y_k, y_p, Y_ULPS)
+    srel = stats_err(s_k, s_p, y_p)
+    check(ok, f"[spatial] {name}: y differs from the plain version by more "
+              f"than {Y_ULPS} bf16 ulps")
+    check(srel <= STATS_RTOL, f"[spatial] {name}: stats rel err {srel}")
+    ok_w, err_w = y_err(y_k, y_w[:, :, t0 // 2:], ORDER_ULPS)
+    check(ok_w, f"[spatial] {name}: y differs from the whole-H kernel's "
+                f"rows by more than {ORDER_ULPS} ulp")
+    res = dict(max_abs_err=err, stats_rel=srel, whole_err=err_w)
+    if reps:
+        vol = rnd(N, D, SPATIAL * Hs, W, C).to(torch.bfloat16)
+        _, Do, Ho, Wo, _ = y_k.shape
+        b_ms, b_by = bound(strided_read_bytes(x, Do, (False,) * 3)
+                           + strided_read_bytes(up, Do, (False,) * 3)
+                           + nbytes(y_k) + 9 * C * CO * 2,
+                           2.0 * N * Do * Ho * Wo * 9 * C * CO, PEAK_BF16)
+        res.update(
+            ms=cuda_ms(lambda: qstride.strided_fused(*args), reps),
+            plain_ms=cuda_ms(lambda: qstride.strided_fused_ref(*args), reps),
+            slab_ms=cuda_ms(lambda: qstride.strided_fused(x, m, o, k, b),
+                            reps),
+            whole_h_ms=cuda_ms(lambda: qstride.strided_fused(vol, m, o, k,
+                                                             b), reps),
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"  {name} top halo row, slab N={N} D={D} H={Hs} W={W} C={C} "
+              f"CO={CO}: max abs err {err:.3e} (whole-H rows {err_w:.3e}, "
+              f"stats rel {srel:.2e})  halo mode {res['ms']:.4f} ms  the "
+              f"slab without its row {res['slab_ms']:.4f} ms  whole H "
+              f"({SPATIAL * Hs} rows) {res['whole_h_ms']:.4f} ms  plain "
+              f"{res['plain_ms']:.4f} ms  bound {b_ms:.4f} ms by {b_by} "
+              f"({100 * b_ms / res['ms']:.1f} % of it)", flush=True)
+    return res
+
+
+def spatial_kernels(rnd, reps):
+    """(1) of [spatial]: #1, #2/#4 and #5 in halo mode at the bench
+    shapes' slabs. Returns {kernel: its row's 'spatial' entry}."""
+    import torch
+    out = {}
+    N, D, H, W = 1, PATCH[0], PATCH[1] // SPATIAL, PATCH[2]
+    l1 = (1, PATCH[0] // 2, PATCH[1] // 2 // SPATIAL, PATCH[2] // 2)
+    with torch.inference_mode():
+        print(f"[spatial] (1) kernels in halo mode on H slabs of the bench "
+              f"shapes (1 x {D} x {H} x {W} and 1 x {l1[1]} x {l1[2]} x "
+              f"{l1[3]}), bf16, against their plain versions with the same "
+              f"rows and the whole-H kernels' rows", flush=True)
+        fwd = {}
+        for side in SPATIAL_SIDES:
+            fwd[f"l0_48_to48 {side}"] = spatial_fused_case(
+                "l0_48_to48", N, D, H, W, [48], [True], 48, rnd,
+                reps if side == "both" else 0, side)
+        fwd["l0_48+48_to48 both"] = spatial_fused_case(
+            "l0_48+48_to48", N, D, H, W, [48, 48], [True, False], 48, rnd,
+            reps, "both")
+        fwd["l1_96+96+48_to96 both"] = spatial_fused_case(
+            "l1_96+96+48_to96", *l1, [96, 96, 48], [True, False, False], 96,
+            rnd, reps, "both")
+        strided = spatial_strided_case("l0_to_l1_48_to96", N, D, H, W, 48,
+                                       96, rnd, reps)
+    bwd = {}
+    for side in SPATIAL_SIDES:
+        bwd[f"l0_48+48_to48 {side}"] = spatial_bwd_case(
+            "l0_48+48_to48", 2, D, H, W, [48, 48], [True, False], 48, rnd,
+            reps if side == "both" else 0, side)
+    bwd["l1_96+96+48_to96 both"] = spatial_bwd_case(
+        "l1_96+96+48_to96", 2, *l1[1:], [96, 96, 48], [True, False, False],
+        96, rnd, reps, "both")
+
+    def entry(cases, main):
+        keys = ("ms", "plain_ms", "slab_ms", "whole_h_ms", "bound_ms",
+                "bound_by")
+        return dict({k: cases[main][k] for k in keys}, shape=main,
+                    max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+                    whole_err=max(c["whole_err"] for c in cases.values()),
+                    shapes={n: {k: c[k] for k in keys} for n, c in
+                            cases.items() if "ms" in c})
+    out["fused_shift_conv_block"] = entry(fwd, "l0_48+48_to48 both")
+    out["fused_shift_conv_block_bwd"] = entry(bwd, "l0_48+48_to48 both")
+    out["strided_fused"] = entry({"l0_to_l1_48_to96 top": strided},
+                                 "l0_to_l1_48_to96 top")
+    return out
+
+
+def spatial_step(model, state, weights, batch, ops, grid=None):
+    """One train step of model (bench width) from `state` on `batch` (this
+    rank's rows and slab with a grid): (loss, params after, kernel
+    launches, peak memory in bytes, ms)."""
+    import torch
+    from e2enet_tpu_torch.training.train_state import (make_sharded_train_step,
+                                                       make_train_step)
+    step = (make_train_step(model, weights) if grid is None else
+            make_sharded_train_step(model, weights, grid=grid))
+    data, targets = batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    before = {n: op.launches for n, op in ops.items()}
+    start.record()
+    state, metrics = step(state, data, targets, 0.01)
+    end.record()
+    torch.cuda.synchronize()
+    got = {n: op.launches - before[n] for n, op in ops.items()}
+    params = torch.cat([p.detach().flatten().float()
+                        for p in state.params.values()]).cpu()
+    return (float(metrics["loss"]), params, got,
+            torch.cuda.max_memory_allocated(), start.elapsed_time(end))
+
+
+def spatial_rank(out):
+    """One of the 1 x 2 grid's two gloo ranks on cuda:0: (2) one sharded
+    train step at the bench width on its slab, (3) Trainer(num_devices=2,
+    spatial_parallel=2) on dummy batches, (4) the dry run's rank."""
+    import os
+    import torch
+    from e2enet_tpu_torch.ops import blocks
+    from e2enet_tpu_torch.parallel import dryrun, mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    grid = mesh.make_grid(SPATIAL, SPATIAL)
+    res = {"backend": torch.distributed.get_backend(grid.world), "s": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        torch.cuda.synchronize()
+        res["s"][name] = round(time.perf_counter() - t0 - sum(
+            res["s"].values()), 2)
+    # a first step pays the first calls' costs (cuDNN's choices, the
+    # group's buffers); the second, from the same initial state, is held
+    for i in range(2):
+        model, state, weights = parallel_model()
+        data, targets = mesh.shard_batch(*parallel_batch(
+            PATCH, model.num_ds_outputs()), grid)
+        batch = (data.contiguous(), tuple(t.contiguous() for t in targets))
+        res["step"] = spatial_step(model, state, weights, batch, ops, grid)
+        res["slab"] = tuple(data.shape)
+        del model, state, batch, data, targets
+        torch.cuda.empty_cache()
+        lap(f"step {i + 1}")
+    res["trainer"] = parallel_trainer(os.path.join(out, "trainer_grid"),
+                                      SPATIAL, ops, SPATIAL)
+    lap("trainer")
+    before = {n: op.launches for n, op in ops.items()}
+    res["dryrun"] = dryrun._rank_run("cuda")
+    torch.cuda.synchronize()
+    res["dryrun_launches"] = {n: op.launches - before[n]
+                              for n, op in ops.items()}
+    lap("dryrun")
+    return res
+
+
+def spatial_phase(rnd, reps, ops, counts, smi):
+    """[spatial]: (1) the halo-mode kernels; on a 1 x 2 grid of two gloo
+    ranks on cuda:0 against one device: (2) make_sharded_train_step at the
+    bench width, (3) Trainer(num_devices=2, spatial_parallel=2), (4) the
+    dry run. Returns (the kernels' 'spatial' entries, the grid's launches
+    summed over the ranks)."""
+    import os
+    import tempfile
+    import torch
+    from e2enet_tpu_torch.models.unetpp import kernel_launches_per_train_step
+    from e2enet_tpu_torch.parallel import mesh
+    t_phase = time.perf_counter()
+    kernels = spatial_kernels(rnd, reps)
+    t_kernels = time.perf_counter() - t_phase
+    total = {k: 0 for k in ops}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    # (2)'s reference: one device's step from the same state three times
+    # (the last two: the spread of its atomics), and its peak memory
+    def per_step(model, spatial):
+        per = kernel_launches_per_train_step(model, spatial=spatial)
+        return {k: per["forward"].get(k, 0) + per["backward"].get(k, 0)
+                for k in ops}
+    one = []
+    for _ in range(3):
+        model, state, weights = parallel_model()
+        want, want_one = per_step(model, SPATIAL), per_step(model, 1)
+        p0 = torch.cat([v.detach().flatten().float()
+                        for v in state.params.values()]).cpu()
+        batch = parallel_batch(PATCH, model.num_ds_outputs())
+        one.append(spatial_step(model, state, weights, batch, ops))
+        del model, state, batch
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as tmp:
+        # (3)'s reference: the trainer on one device
+        ref = parallel_trainer(os.path.join(tmp, "trainer_one"), None, ops)
+        t0 = time.perf_counter()
+        ranks = mesh.launch(spatial_rank, SPATIAL, "cuda", tmp,
+                            backend="gloo", _shared_device=True)
+        t_ranks = time.perf_counter() - t0
+    r0, r1 = ranks
+    check(all(r["backend"] == "gloo" for r in ranks), "[spatial] backend")
+    # the first of one device's three runs pays the first calls' costs
+    (l_a, p_a, got_a, mem_one, ms_one), (l_b, p_b, _, _, ms_b) = one[1:]
+    change = float((p_a - p0).norm())
+    spread = float((p_a - p_b).norm()) / change
+    l_g, p_g, _, mem_g, ms_g = r0["step"]
+    dist_g = float((p_g - p_a).norm()) / change
+    lerr = abs(l_g - l_a) / abs(l_a)
+    tol = max(SPATIAL_SPREAD_X * spread, SPATIAL_STEP_FLOOR)
+    mems = [r["step"][3] for r in ranks]
+    print(f"[spatial] (2) make_sharded_train_step on a 1 x {SPATIAL} grid "
+          f"of gloo ranks on cuda:0 (spawned, run and joined in "
+          f"{t_ranks:.1f} s; s by part per rank "
+          f"{[r['s'] for r in ranks]}), bench width, kernel DSFF "
+          f"{PARALLEL_DENSITY}, batch 2 x {PATCH[0]}^3, each rank's slab "
+          f"{r0['slab']}: loss {l_g:.6f} against one device's {l_a:.6f} "
+          f"(rel {lerr:.2e}); parameters after the step {dist_g:.3e} of "
+          f"the step's change from one device's, two runs of one device "
+          f"{spread:.3e} apart (tolerance {tol:.3e}); ms per step per rank "
+          f"{[round(r['step'][4], 1) for r in ranks]} (two ranks sharing "
+          f"the card) against one device's {ms_one:.1f} / {ms_b:.1f}; peak "
+          f"memory per rank {[round(m / 2 ** 30, 3) for m in mems]} GiB "
+          f"against one device's {mem_one / 2 ** 30:.3f} GiB (share "
+          f"{max(mems) / mem_one:.3f}); launches per step and rank "
+          f"{r0['step'][2]}  [{smi}]", flush=True)
+    check(lerr <= PARALLEL_LOSS_RTOL, "[spatial] (2) the grid's loss")
+    check(dist_g <= tol, "[spatial] (2) the grid's parameters")
+    check(r0["step"][0] == r1["step"][0]
+          and torch.equal(r0["step"][1], r1["step"][1]),
+          "[spatial] (2) the ranks' states differ")
+    check(max(mems) <= SPATIAL_MEMORY_SHARE * mem_one,
+          f"[spatial] (2) per-rank peak memory above "
+          f"{SPATIAL_MEMORY_SHARE} of one device's")
+    check(got_a == want_one, f"[spatial] (2) one device's launches "
+                             f"{got_a} != {want_one}")
+    for r in ranks:
+        # a rank counts the serving and train kernels (blocks' ops)
+        got = r["step"][2]
+        want_r = {k: want.get(k, 0) for k in got}
+        check(got == want_r and sum(want.values()) == sum(want_r.values()),
+              f"[spatial] (2) a rank's launches {got} != {want}")
+        add(got)
+    t0_, t1_ = (r["trainer"] for r in ranks)
+    terr = max(abs(a - b) / abs(b)
+               for a, b in zip(t0_["losses"], ref["losses"]))
+    print(f"[spatial] (3) Trainer(num_devices={SPATIAL}, spatial_parallel="
+          f"{SPATIAL}, dummy_load) at the bench plan: losses "
+          f"{[round(v, 6) for v in t0_['losses']]} against one device's "
+          f"{[round(v, 6) for v in ref['losses']]} (max rel {terr:.2e}); "
+          f"masks and parameters equal on both ranks "
+          f"{torch.equal(t0_['masks'], t1_['masks'])} / "
+          f"{torch.equal(t0_['params'], t1_['params'])}; launches per step "
+          f"and rank {t0_['launches'][0]}", flush=True)
+    check(terr <= PARALLEL_LOSS_RTOL, "[spatial] (3) Trainer losses")
+    check(t0_["losses"] == t1_["losses"]
+          and torch.equal(t0_["masks"], t1_["masks"])
+          and torch.equal(t0_["params"], t1_["params"]),
+          "[spatial] (3) the ranks' states differ")
+    for r in ranks:
+        for i, got in enumerate(r["trainer"]["launches"]):
+            check(got == r["trainer"]["want"], f"[spatial] (3) a rank's "
+                  f"step {i + 1}: launches {got} != {r['trainer']['want']}")
+            add(got)
+    losses = [r["dryrun"] for r in ranks]
+    print(f"[spatial] (4) dryrun._rank_run('cuda') on the two ranks: loss "
+          f"{losses}", flush=True)
+    check(bool(np.isfinite(losses[0])) and losses[0] == losses[1],
+          "[spatial] (4) the dry run's losses")
+    t_all = time.perf_counter() - t_phase
+    print(f"[spatial] phase {t_all:.1f} s (kernels {t_kernels:.1f} s, the "
+          f"grid {t_ranks:.1f} s)  [{smi}]", flush=True)
+    return kernels, total
+
+
+def spatial_only() -> None:
+    """--spatial: the build and the [spatial] phase alone (its kernel rows
+    and launches printed as JSON)."""
+    import torch
+    from e2enet_tpu_torch.ops import _native, blocks
+    t0 = time.time()
+    _native.build_all()
+    print(f"[build] ready in {time.time() - t0:.1f} s", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = {name: op for name, (op, _) in list(blocks.KERNEL_OPS.items())
+           + list(blocks.BACKWARD_OPS.items())}
+    smi = nvidia_smi_line()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
+          flush=True)
+    for op in ops.values():
+        op.launches = 0
+    kernels, got = spatial_phase(Rnd(0), 10, ops, lambda: {
+        n: op.launches for n, op in ops.items()}, smi)
+    stamp("[spatial]")
+    print(json.dumps({"spatial": kernels, "spatial_launches": got}),
+          flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6888,6 +7400,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--parallel"]:
         parallel_only()
+        return
+    if sys.argv[1:] == ["--spatial"]:
+        spatial_only()
         return
     try:
         from e2enet_tpu_torch.experiments import (exp_cf_fused, exp_int8_mma,
@@ -7395,6 +7910,12 @@ def main() -> None:
     reset_counts()
 
     stamp("9b. parallel")
+    # ---- 9c. spatial: H-sharded training over a (data x space) grid
+    res_spatial, launches["spatial"] = spatial_phase(rnd, 10, ops, counts,
+                                                     smi)
+    reset_counts()
+
+    stamp("9c. spatial")
     # ---- 10. trainer: the users' training path, train CLI to predict CLI;
     # ---- 11. options: the trainer's options, on the task [trainer] planned
     # ---- 12. dsff: every DSFF engine, on the same task;
@@ -7535,6 +8056,11 @@ def main() -> None:
           "'parallel' over the [parallel] phase: the one-rank NCCL "
           "world's sharded steps and both gloo ranks' Trainer steps, "
           "predict_case and predict_from_folder, summed over the ranks; "
+          "'spatial' over the [spatial] phase: the 1 x 2 grid's train "
+          "step, Trainer steps and dry run, summed over the ranks; the "
+          "'spatial' entry: the kernel in halo mode on an H slab (ms) "
+          "beside the same kernel on the slab alone (slab_ms) and on the "
+          "whole H of two slabs (whole_h_ms), every shape under 'shapes'; "
           "the 'models' entry: #1-#10 at base 24, every shape under "
           "'shapes')",
           flush=True)
@@ -7565,6 +8091,8 @@ def main() -> None:
             line["variants"] = res_variants[name]
         if name in res_models:
             line["models"] = res_models[name]
+        if name in res_spatial:
+            line["spatial"] = res_spatial[name]
         for extra in ("shapes", "int8", "kernel1_ms", "mma_ms", "control_ms",
                       "serial_ms",
                       "turns_ms", "affine_stats_ms", "gemm_route",

@@ -55,15 +55,18 @@ prune's schedule, GMP's window) and --multiplier (GMP).
 trilinear and nearest and runs the JAX chain's intensity transforms);
 with the cascade, regions, ds_mode none or dummy_load it is refused, as
 the JAX trainer cannot train those so. --num_devices n above 1 trains
-data parallel: the CLI spawns n ranks (parallel/mesh.launch: NCCL, one
-card each, on cuda; gloo on the CPU), each runs this CLI inside the
-process group (Trainer(num_devices=n): every rank augments the whole batch
-and keeps its rows, the losses and gradients are reduced over the ranks),
-and rank 0 alone writes the fold and validates it. More ranks than cards
-raises, and so does --da_threads above 1 with it (only one augmentation
-thread gives every rank the same batches). Refused, naming the ROADMAP item that ports it: --spatial_parallel
-above 1 (item 7 (ii)). --fused, --no_fused and --remat choose between XLA
-programs of the JAX package and are rejected.
+over n ranks: the CLI spawns them (parallel/mesh.launch: NCCL, one card
+each, on cuda; gloo on the CPU), each runs this CLI inside the process
+group (Trainer(num_devices=n): every rank augments the whole batch and
+keeps its rows, the losses and gradients are reduced over the ranks), and
+rank 0 alone writes the fold and validates it. --spatial_parallel S puts
+S of the n ranks on each data row, each holding an H slab of the row's
+samples (halo rows exchanged, the norms' statistics summed over the
+slabs); n must be a multiple of S, the batch of n / S and the patch's H of
+S slabs the H pools divide. More ranks than cards raises, and so does
+--da_threads above 1 with it (only one augmentation thread gives every
+rank the same batches). --fused, --no_fused and --remat choose between
+XLA programs of the JAX package and are rejected.
 """
 import argparse
 import sys
@@ -74,8 +77,7 @@ from ..parallel import mesh
 from ..plans import Plans
 from ..training.cascade import predict_next_stage
 from ..training.dsff import DSFFConfig
-from ..training.trainer import (SPATIAL_PARALLEL_ITEM, Trainer,
-                                refuse_unported)
+from ..training.trainer import Trainer
 from ..training.variants import resolve_variant
 from ..utils.files import isfile, join
 from ..utils.task_names import convert_id_to_task_name
@@ -167,10 +169,10 @@ def main(args=None):
                         default="TPUTrainer",
                         help="a preset of training/variants.py")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="data-parallel ranks, one per device (spawned "
-                             "by this CLI)")
+                        help="ranks, one per device (spawned by this CLI)")
     parser.add_argument("--spatial_parallel", type=int, default=1,
-                        help=f"only 1 is ported ({SPATIAL_PARALLEL_ITEM})")
+                        help="ranks of each data row, each an H slab of its "
+                             "samples (a divisor of --num_devices)")
     parser.add_argument("--device_augment", action="store_true",
                         help="augment the training batches on the device "
                              "(trilinear spatial; see ops/device_augment.py "
@@ -209,7 +211,8 @@ def main(args=None):
             parser.error(f"{flag} chooses between XLA programs of the JAX "
                          f"package and has no meaning in the port (one "
                          f"path: the CUDA kernels at bf16, or --fp32)")
-    refuse_unported(spatial_parallel=a.spatial_parallel)
+    if (a.num_devices or 1) > 1:
+        mesh.check_grid(a.num_devices, a.spatial_parallel)
     if (a.num_devices or 1) > 1 and a.da_threads > 1:
         parser.error("--num_devices above 1 takes one --da_threads: every "
                      "rank must see the same seeded batches")

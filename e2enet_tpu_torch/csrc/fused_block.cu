@@ -295,7 +295,10 @@ extern "C" int fused_block_scratch_bytes(int C, int CO) {
 // (16, 4 or 2 bytes) that every pixel row of a part is aligned for; w is
 // (9, CO, C) bf16, 16-byte aligned; w_packed is scratch of
 // fused_block_scratch_bytes(C, CO) bytes for the packed weights. wgmma: 1
-// runs the taps on wgmma, 0 on mma.sync (the control). Returns a
+// runs the taps on wgmma, 0 on mma.sync (the control). xts / xbs: per part
+// the halo row above row 0 / below row H - 1 of an H slab, (N, D, 1, W,
+// pc) bf16 raw under the part's pending norm, or null (arrays or entries):
+// zero fill there, as without them. Returns a
 // cudaError_t: the configuration check, cudaFuncSetAttribute, or
 // cudaGetLastError() after a launch. Launches on `stream`; does not
 // synchronise.
@@ -307,11 +310,13 @@ extern "C" int fused_block_launch(const void* const* xs,
                                   const void* w, const void* b, void* y,
                                   void* stats, int N, int D, int H, int W,
                                   int CO, void* w_packed, int w_packed_bytes,
-                                  int wgmma, void* stream) {
+                                  int wgmma, const void* const* xts,
+                                  const void* const* xbs, void* stream) {
   Params p;
   if (!make_params(p, xs, mults, offs, part_c, part_vec, nparts, groups,
                    ngroups, w, b, y, stats, N, D, H, W, CO))
     return (int)cudaErrorInvalidValue;
+  set_halo(p, xts, xbs);
   for (int i = 0; i < nparts; ++i)
     if (p.x[i] == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

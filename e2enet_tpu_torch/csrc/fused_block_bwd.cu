@@ -126,6 +126,9 @@ struct DgradOps {
   // the staging hook: geff from gy and y
   const bf16* gy;               // (N, D, H, W, CO)
   const bf16* y;
+  // an H slab's neighbour rows of gy and y, (N, D, 1, W, CO): above row 0
+  // (gy_t, y_t) and below row H - 1 (gy_b, y_b), or null (zero geff there)
+  const bf16 *gy_t, *y_t, *gy_b, *y_b;
   const float* gstats;          // (N, CO, 2)
   int vec16;                    // gy and y rows take 16-byte copies
   // the epilogue: the forward's parts, their shift groups and outputs
@@ -149,8 +152,9 @@ struct DgradOps {
   size_t fit(const Params&, size_t) { return 0; }
 
   // geff into the operand tile (staged as zeros: the part's pointer is
-  // null), zero outside the image; p.C is the forward's CO. Two units of
-  // gy and y in flight per thread, geff formed in registers.
+  // null), zero outside the image but for the slab's neighbour rows; p.C
+  // is the forward's CO. Two units of gy and y in flight per thread, geff
+  // formed in registers.
   __device__ void stage(const Params& p, bf16* s_in, unsigned char* region,
                         int n, int d, int h0, int w0, int tid) const {
     const int CO = p.C, Cp = p.Cp, Ws = p.Ws, rows = p.TH + 2;
@@ -165,12 +169,14 @@ struct DgradOps {
     const size_t slice = (size_t)(n * p.D + d) * p.H * p.W * CO;
     const bf16* gy_d = gy + slice;
     const bf16* y_d = y + slice;
+    const size_t hslice = (size_t)(n * p.D + d) * p.W * CO;
     __syncthreads();                   // s1, s2
     const int units = rows * Ws * KC8;
     for (int u0 = tid; u0 < units; u0 += 2 * NTHREADS) {
       uint4 g4[2], y4[2];
       int si[2], cc[2];
-      size_t gi[2];
+      const bf16* gsrc[2];
+      const bf16* ysrc[2];
       bool ok[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -179,12 +185,23 @@ struct DgradOps {
         cc[e] = (u - cell * KC8) * 8;
         const int row = cell / Ws, col = cell - row * Ws;
         const int hh = h0 - 1 + row, ww = w0 - 1 + col;
-        ok[e] = u < units && hh >= 0 && hh < p.H && ww >= 0 && ww < p.W;
+        const bool top = hh == -1 && gy_t != nullptr;
+        const bool bot = hh == p.H && gy_b != nullptr;
+        ok[e] = u < units && ((hh >= 0 && hh < p.H) || top || bot) &&
+                ww >= 0 && ww < p.W;
         si[e] = cell * Cp + cc[e];
-        gi[e] = ((size_t)hh * p.W + ww) * CO + cc[e];
+        if (top || bot) {              // a neighbour's row
+          const size_t i = hslice + (size_t)ww * CO + cc[e];
+          gsrc[e] = (top ? gy_t : gy_b) + i;
+          ysrc[e] = (top ? y_t : y_b) + i;
+        } else {
+          const size_t i = ((size_t)hh * p.W + ww) * CO + cc[e];
+          gsrc[e] = gy_d + i;
+          ysrc[e] = y_d + i;
+        }
         if (ok[e] && vec16) {
-          g4[e] = __ldg(reinterpret_cast<const uint4*>(gy_d + gi[e]));
-          y4[e] = __ldg(reinterpret_cast<const uint4*>(y_d + gi[e]));
+          g4[e] = __ldg(reinterpret_cast<const uint4*>(gsrc[e]));
+          y4[e] = __ldg(reinterpret_cast<const uint4*>(ysrc[e]));
         }
       }
 #pragma unroll
@@ -198,8 +215,8 @@ struct DgradOps {
         } else {
           for (int k = 0; k < 8 && c0 + k < CO; ++k)
             dst[k] = __float2bfloat16(geff_value(
-                __bfloat162float(gy_d[gi[e] + k]),
-                __bfloat162float(y_d[gi[e] + k]), s1[c0 + k], s2[c0 + k]));
+                __bfloat162float(gsrc[e][k]), __bfloat162float(ysrc[e][k]),
+                s1[c0 + k], s2[c0 + k]));
         }
       }
     }
@@ -627,7 +644,12 @@ static int launch_wgrad(Params p, WgradArgs a, cudaStream_t stream) {
 // wanted), every element written; gaffs: per part a zeroed f32 (N, ci, 2)
 // output (g(m), g(o)) or null; y, gy (N, D, H, W, CO) bf16; gstats
 // (N, CO, 2) f32; w9t (9, C, CO) bf16, the forward's taps reversed and
-// transposed; gw (9, CO, C) f32 and gb (CO) f32, zeroed. Returns a
+// transposed; gw (9, CO, C) f32 and gb (CO) f32, zeroed. An H slab of
+// spatial parallelism: xts / xbs the forward's halo rows per part (as
+// fused_block_launch takes them), read where the wgrad's staged S would
+// zero-fill; y_t, gy_t / y_b, gy_b (N, D, 1, W, CO) bf16 the neighbours' y
+// and gy rows above row 0 / below row H - 1, whose geff the dgrad reads
+// where it would zero-fill (null: none, the volume's edge). Returns a
 // cudaError_t; launches on `stream` (the dgrad only when some part is
 // wanted, then the wgrad); does not synchronise.
 extern "C" int fused_block_bwd_launch(
@@ -635,7 +657,9 @@ extern "C" int fused_block_bwd_launch(
     const int* part_c, const int* part_vec, int nparts, const int* groups,
     int ngroups, void* const* gxs, void* const* gaffs, const void* y,
     const void* gy, const void* gstats, const void* w9t, void* gw, void* gb,
-    int N, int D, int H, int W, int CO, void* stream) {
+    int N, int D, int H, int W, int CO, const void* const* xts,
+    const void* const* xbs, const void* y_t, const void* gy_t,
+    const void* y_b, const void* gy_b, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p;
   if (!make_params(p, xs, mults, offs, part_c, part_vec, nparts, groups,
@@ -645,6 +669,7 @@ extern "C" int fused_block_bwd_launch(
   for (int i = 0; i < nparts; ++i)
     if (p.x[i] == nullptr) return (int)cudaErrorInvalidValue;
   if (p.C > 2147483647 / 9) return (int)cudaErrorInvalidValue;
+  set_halo(p, xts, xbs);
   const int C = p.C;
   const bf16* gy16 = static_cast<const bf16*>(gy);
   const bf16* y16 = static_cast<const bf16*>(y);
@@ -658,8 +683,17 @@ extern "C" int fused_block_bwd_launch(
     DgradOps ops;
     ops.gy = gy16;
     ops.y = y16;
+    ops.gy_t = static_cast<const bf16*>(gy_t);
+    ops.y_t = static_cast<const bf16*>(y_t);
+    ops.gy_b = static_cast<const bf16*>(gy_b);
+    ops.y_b = static_cast<const bf16*>(y_b);
+    if ((ops.gy_t == nullptr) != (ops.y_t == nullptr) ||
+        (ops.gy_b == nullptr) != (ops.y_b == nullptr))
+      return (int)cudaErrorInvalidValue;
     ops.gstats = gst;
-    ops.vec16 = CO % 8 == 0 && aligned16(gy) && aligned16(y);
+    ops.vec16 = CO % 8 == 0 && aligned16(gy) && aligned16(y) &&
+                aligned16(gy_t) && aligned16(y_t) && aligned16(gy_b) &&
+                aligned16(y_b);
     for (int i = 0; i < MAX_PARTS; ++i) {
       ops.x[i] = p.x[i];
       ops.mult[i] = p.mult[i];

@@ -82,6 +82,11 @@ typedef __nv_bfloat16 bf16;
 
 struct Params {
   const bf16* x;                      // (N, D, H, W, C)
+  // an H slab's halo rows (N, D, 1, W, C), raw: above row 0 (xt) and
+  // below row H - 1 (xb), read through the norm where the staging would
+  // zero-fill row -1 / row H; null: zero fill (the volume's edge)
+  const bf16* xt;
+  const bf16* xb;
   const float* mult;                  // (N, C)
   const float* off;
   int g0[MAX_GROUPS], g1[MAX_GROUPS], gs[MAX_GROUPS];
@@ -244,16 +249,21 @@ __device__ __forceinline__ void issue(const Params& p, const Table& tb,
                                       int lane) {
   const int KC8 = p.Cs / 8, Cp = p.Cp;
   const int lines = p.SR * p.sw;       // (row, plane) pairs
-  const size_t dstride = (size_t)p.H * p.W * p.C;
+  const size_t dimage = (size_t)p.H * p.W * p.C;
   for (int l = warp; l < KC8 * lines; l += NWARPS) {
     const int k = l / lines, rp = l - k * lines;
     const int row = rp / p.sw, plane = rp - row * p.sw;
     const int hi = p.sh * tl.h0 + p.org_h + row;
     const int c0 = k * 8;
-    const int kind = hi < 0 || hi >= p.H ? UNIT_ZERO : tb.unit[k];
+    const bf16* halo = hi == -1 ? p.xt : hi == p.H ? p.xb : nullptr;
+    const bool inside = hi >= 0 && hi < p.H;
+    const int kind = inside || halo ? tb.unit[k] : UNIT_ZERO;
     bf16* dst0 = s_in + (size_t)rp * p.PL * Cp + c0;
+    // a halo row's depths lie W * C apart
+    const size_t dstride = inside ? dimage : (size_t)p.W * p.C;
     const bf16* src0 =
-        p.x + (((size_t)tl.n * p.D * p.H + hi) * p.W) * p.C + c0;
+        inside ? p.x + (((size_t)tl.n * p.D * p.H + hi) * p.W) * p.C + c0
+               : halo + (size_t)tl.n * p.D * p.W * p.C + c0;
     const int wf = p.sw * tl.w0 + p.org_w + plane;
     int de[8];
 #pragma unroll
@@ -317,7 +327,9 @@ __device__ __forceinline__ void normalise(const Params& p, const Table& tb,
     const int j = l / lines, rp = l - j * lines;
     const int row = rp / p.sw, plane = rp - row * p.sw;
     const int hi = p.sh * tl.h0 + p.org_h + row;
-    if (hi < 0 || hi >= p.H) continue;  // zeros
+    if ((hi < 0 || hi >= p.H) && !(hi == -1 && p.xt) &&
+        !(hi == p.H && p.xb))
+      continue;                         // zeros
     const int c0 = tb.normk[j] * 8;
     float m[8], o[8];
     bool on[8];
@@ -553,14 +565,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) qstride_kernel(const Params p) {
 // triples; w is (9, CO, C) bf16 with the taps already mirrored; b is f32.
 // Returns a cudaError_t: the configuration check, cudaFuncSetAttribute, or
 // cudaGetLastError() after the launch. Launches on `stream`; does not
-// synchronise.
+// synchronise. xt / xb: an H slab's halo rows (Params), or null.
 extern "C" int qstride_launch(const void* x, const void* mult,
                               const void* off, const int* groups,
                               int ngroups, const void* w, const void* b,
                               void* y, void* stats, int N, int D, int H,
                               int W, int C, int CO, int Do, int Ho, int Wo,
                               int sd, int sh, int sw, int parity, int org_h,
-                              int org_w, void* stream) {
+                              int org_w, const void* xt, const void* xb,
+                              void* stream) {
   if (ngroups < 1 || ngroups > MAX_GROUPS || N < 1 || D < 1 || H < 1 ||
       W < 1 || C < 1 || CO < 1 || CO > 4 * WARPS_N * 16 || Do < 1 ||
       Ho < 1 || Wo < 1 || sd < 1 || sd > 2 || sh < 1 || sh > 2 || sw < 1 ||
@@ -568,6 +581,8 @@ extern "C" int qstride_launch(const void* x, const void* mult,
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = static_cast<const bf16*>(x);
+  p.xt = static_cast<const bf16*>(xt);
+  p.xb = static_cast<const bf16*>(xb);
   p.mult = static_cast<const float*>(mult);
   p.off = static_cast<const float*>(off);
   for (int g = 0; g < MAX_GROUPS; ++g) {
@@ -591,8 +606,10 @@ extern "C" int qstride_launch(const void* x, const void* mult,
   p.KS = p.Cs / 16;
   p.N8 = p.BN / 8;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
-  p.vec16 = (xa % 16 == 0 && C % 8 == 0);
-  p.vec4 = (xa % 4 == 0 && C % 2 == 0);
+  const uintptr_t ha = reinterpret_cast<uintptr_t>(xt) |
+                       reinterpret_cast<uintptr_t>(xb);
+  p.vec16 = ((xa | ha) % 16 == 0 && C % 8 == 0);
+  p.vec4 = ((xa | ha) % 4 == 0 && C % 2 == 0);
   // output tile: equal W tiles of at most 4 row fragments, then rows up to
   // WARPS_M * MPW fragments in all, as many as two operand buffers allow
   // (else one buffer)

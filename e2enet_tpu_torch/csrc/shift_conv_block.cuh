@@ -75,6 +75,13 @@ struct Params {
                                       // the hook stages
   const float* mult[MAX_PARTS];       // (N, pc) or null: no pending norm
   const float* off[MAX_PARTS];
+  // halo rows of an H slab (spatial parallel): (N, D, 1, W, pc) raw rows
+  // of the part just above row 0 (xt) and just below row H - 1 (xb), read
+  // through the part's pending norm where the staging would zero-fill
+  // row -1 / row H; null: zero fill (the volume's edge)
+  const bf16* xt[MAX_PARTS];
+  const bf16* xb[MAX_PARTS];
+  int halo;                           // bit 0: some xt, bit 1: some xb
   int pc[MAX_PARTS];                  // channels of each part
   int pc0[MAX_PARTS];                 // first concat channel of each part
   int vec[MAX_PARTS];                 // widest aligned copy of a part's
@@ -249,6 +256,37 @@ struct StageTable {
   }
 };
 
+// One 8-channel unit of a halo row (row -1 from xt, row H from xb) at
+// column ww, channel by channel, its pending norms applied: each channel's
+// (sample, source depth) and local channel come from its table entry (its
+// offset from its part's base), the element from the halo row of that
+// part, zero where the channel is zero or its part has no halo row there.
+__device__ __forceinline__ uint4 halo_unit(const Params& p,
+                                           const bf16* const* src,
+                                           const int* info, const float* m,
+                                           const float* o, bool top,
+                                           int ww) {
+  uint4 out;
+  bf16* vals = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int ie = info[e];
+    const int q = (ie >> 3) & 3;
+    const bf16* row = ie < 0 ? nullptr : top ? p.xt[q] : p.xb[q];
+    vals[e] = __float2bfloat16(0.0f);
+    if (row == nullptr) continue;
+    const size_t ci = (size_t)(ie >> 5);
+    const size_t rel = (size_t)(src[e] - p.x[q]);
+    const size_t plane = (size_t)p.H * p.W * ci;
+    const size_t nd = rel / plane;     // n * D + source depth
+    const bf16 v = row[(nd * p.W + ww) * ci + (rel - nd * plane)];
+    vals[e] = (ie & 4) ? __float2bfloat16(norm_lrelu(__bfloat162float(v),
+                                                     m[e], o[e]))
+                       : v;
+  }
+  return out;
+}
+
 // First half of stage_operand: builds the per-channel table at `tab` and
 // issues the staging of the operand into s_in as one committed cp.async
 // group (units staged channel by channel, and zeros, are stored at once).
@@ -356,6 +394,13 @@ __device__ __forceinline__ void stage_operand_issue(const Params& p,
     bf16* dst = s_in + (size_t)(it.row * Ws + it.col) * Cp + c0;
     const int unit = s_unit[it.k];
     const int kind = unit & 3;
+    if (p.halo && kind != UNIT_ZERO && ww >= 0 && ww < p.W &&
+        ((hh == -1 && (p.halo & 1)) || (hh == p.H && (p.halo & 2)))) {
+      *reinterpret_cast<uint4*>(dst) =
+          halo_unit(p, s_src + c0, s_info + c0, s_m + c0, s_o + c0, hh < 0,
+                    ww);
+      continue;
+    }
     if (kind == UNIT_ZERO || !pix_ok) {
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
       continue;
@@ -1404,6 +1449,17 @@ static int launch(Params& p, const Hook& hook,
 // Params from the C entry points' arrays (one entry per part; groups as
 // (c0, c1, shift) triples); a null part pointer marks a part the hook
 // stages. Returns false on an invalid configuration.
+// The halo rows of each part (null arrays or entries: none), after
+// make_params
+static void set_halo(Params& p, const void* const* xts,
+                     const void* const* xbs) {
+  for (int i = 0; i < p.nparts; ++i) {
+    p.xt[i] = xts ? static_cast<const bf16*>(xts[i]) : nullptr;
+    p.xb[i] = xbs ? static_cast<const bf16*>(xbs[i]) : nullptr;
+    p.halo |= (p.xt[i] != nullptr ? 1 : 0) | (p.xb[i] != nullptr ? 2 : 0);
+  }
+}
+
 static bool make_params(Params& p, const void* const* xs,
                         const void* const* mults, const void* const* offs,
                         const int* part_c, const int* part_vec, int nparts,
@@ -1419,12 +1475,15 @@ static bool make_params(Params& p, const void* const* xs,
     p.x[i] = on ? static_cast<const bf16*>(xs[i]) : nullptr;
     p.mult[i] = on ? static_cast<const float*>(mults[i]) : nullptr;
     p.off[i] = on ? static_cast<const float*>(offs[i]) : nullptr;
+    p.xt[i] = nullptr;
+    p.xb[i] = nullptr;
     p.pc[i] = on ? part_c[i] : 0;
     p.vec[i] = on ? part_vec[i] : 0;
     p.pc0[i] = C;
     C += p.pc[i];
   }
   p.nparts = nparts;
+  p.halo = 0;
   for (int g = 0; g < MAX_GROUPS; ++g) {
     const bool on = g < ngroups;
     p.g0[g] = on ? groups[3 * g] : 0;

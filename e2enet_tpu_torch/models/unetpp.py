@@ -91,6 +91,7 @@ from ..ops.autograd import needs_grad
 from ..ops.fused_block import (NO_FLIPS, Flips, apply_norm_lrelu,
                                norm_affine_from_stats, pooled_part)
 from ..ops.qfused import LAZY_STRIDE
+from ..parallel.collectives import count, space_size
 from .sparse_plan import Plan
 
 MAX_NUM_FILTERS_3D = 320
@@ -218,13 +219,17 @@ class ShiftUNetPlusPlus(nn.Module):
         (flip-free TTA); otherwise TTA flips the data."""
         return 1 in self.conv_kernel
 
-    def lazy_up_route(self) -> bool:
+    def lazy_up_route(self, spatial: Optional[int] = None) -> bool:
         """Whether the level-0 nest nodes read their up-link lazily: the
         lazy kernel computes bfloat16 stride-(2, 2, 2) up-links from a
-        pending level 1."""
+        pending level 1, on whole volumes only (spatial: the ranks that
+        split H, by default the active grid's; the lazy block takes no halo
+        rows yet, ROADMAP)."""
+        if spatial is None:
+            spatial = space_size()
         return (self.lazy_up and self.compute_dtype == torch.bfloat16
                 and self.fused_levels() > 1
-                and self.pools[0] == LAZY_STRIDE)
+                and self.pools[0] == LAZY_STRIDE and spatial == 1)
 
     def set_sparse_plan(self, plan: Optional[Plan]) -> None:
         """Wire the row-sparse plan (None: dense) into every nest stack and
@@ -283,7 +288,8 @@ class ShiftUNetPlusPlus(nn.Module):
                                     zip(level_size[-1], p)))
 
         def n_vox(i):
-            return math.prod(level_size[i])
+            # the whole level's: under a space group x is an H slab
+            return count(math.prod(level_size[i]), "space")
 
         def affine_of(v: Pending, i):
             return norm_affine_from_stats(v.stats, n_vox(i), v.scale,
@@ -452,13 +458,14 @@ def build_network(plans_stage, num_modalities: int, num_classes_incl_bg: int,
                      **arch)
 
 
-def _lazy_calls(model: ShiftUNetPlusPlus) -> int:
+def _lazy_calls(model: ShiftUNetPlusPlus, spatial: int = 1) -> int:
     """Lazy up-link calls per forward: one per level-0 nest node on the
     lazy route."""
-    return model.num_pool if model.lazy_up_route() else 0
+    return model.num_pool if model.lazy_up_route(spatial) else 0
 
 
-def fused_launches_per_forward(model: ShiftUNetPlusPlus) -> int:
+def fused_launches_per_forward(model: ShiftUNetPlusPlus,
+                               spatial: int = 1) -> int:
     """Fused block calls in one forward: the stride-1 blocks of the
     encoder stacks at fused levels (context1's first block is the strided
     transition), every nest stack at a fused level and the finals of the
@@ -472,26 +479,27 @@ def fused_launches_per_forward(model: ShiftUNetPlusPlus) -> int:
             if i < fl:
                 n += model.num_conv_per_stage - 1 + (1 if P - i - j == 0
                                                      else 0)
-    return n - _lazy_calls(model)
+    return n - _lazy_calls(model, spatial)
 
 
-def kernel_launches_per_forward(model: nn.Module,
-                                do_ds: bool = False) -> Dict[str, int]:
+def kernel_launches_per_forward(model: nn.Module, do_ds: bool = False,
+                                spatial: int = 1) -> Dict[str, int]:
     """Calls per forward of each kernel site (ops/blocks.KERNEL_OPS): the
     fused block, the lazy up-link block (level-0 nest nodes on the lazy
     route), the strided transition (context1), the materialised up-links
     into level 0 (the other route), the level-0 -> 1 down-links (one per
     level-1 nest node) and the seg heads of pending nodes. The sparse plan
     changes no count. A model off the kernel route (kernel_route() False:
-    the architecture switches, ShiftUNet, ResidualUNet) launches none."""
+    the architecture switches, ShiftUNet, ResidualUNet) launches none.
+    spatial: the ranks that split H (no lazy route above 1)."""
     if not model.kernel_route():
         return {name: 0 for name in blocks.KERNEL_OPS}
     P = model.num_pool
     fused_levels = model.fused_levels()
     n_heads = model.num_ds_outputs() if do_ds else 1
-    lazy = _lazy_calls(model)
+    lazy = _lazy_calls(model, spatial)
     return {
-        "fused_shift_conv_block": fused_launches_per_forward(model),
+        "fused_shift_conv_block": fused_launches_per_forward(model, spatial),
         "lazy_up_fused_block": lazy,
         "strided_fused": 1 if fused_levels > 1 else 0,
         "uplink": P - lazy if fused_levels > 1 else 0,
@@ -501,7 +509,7 @@ def kernel_launches_per_forward(model: nn.Module,
 
 
 def kernel_launches_per_train_step(model: nn.Module,
-                                   do_ds: bool = True
+                                   do_ds: bool = True, spatial: int = 1
                                    ) -> Dict[str, Dict[str, int]]:
     """Kernel calls of one train step (a forward with do_ds, True unless
     the noDeepSupervision variant's step runs the full-resolution head
@@ -511,8 +519,9 @@ def kernel_launches_per_train_step(model: nn.Module,
     once per down-link call, and the up-link kernel once per lazy call
     (the lazy block's backward materialises u); the strided transition,
     the materialised up-links and the seg heads differentiate their plain
-    versions."""
-    fwd = kernel_launches_per_forward(model, do_ds=do_ds)
+    versions. spatial: per rank of an H-sharded step of that many slabs
+    (the materialised up-links in place of the lazy block)."""
+    fwd = kernel_launches_per_forward(model, do_ds=do_ds, spatial=spatial)
     bwd = {name: 0 for name in fwd}
     bwd["fused_shift_conv_block_bwd"] = (fwd["fused_shift_conv_block"]
                                          + fwd["lazy_up_fused_block"])

@@ -34,10 +34,11 @@ SIGNATURES = {
     "fused_block": {
         # parts, affines, part_c, part_vec, nparts, groups, ngroups, w9, b,
         # y, stats, N, D, H, W, CO, the packed-weights scratch and its
-        # bytes, wgmma, stream
+        # bytes, wgmma, the halo rows above and below (arrays or null),
+        # stream
         "fused_block_launch": [ctypes.POINTER(vp)] * 3 + [PI, PI, i32, PI,
                                                           i32] + [vp] * 4
-        + [i32] * 5 + [vp, i32, i32, vp],
+        + [i32] * 5 + [vp, i32, i32] + [ctypes.POINTER(vp)] * 2 + [vp],
         # C, CO
         "fused_block_scratch_bytes": [i32, i32]},
     "qfused": {
@@ -48,16 +49,18 @@ SIGNATURES = {
         + [i32] * 5 + [vp] * 4 + [i32, i32, vp]},
     "fused_block_bwd": {
         # the forward's parts, affines, part_c, part_vec, nparts, groups,
-        # ngroups; gxs, gaffs; y, gy, gstats, w9t, gw, gb; N, D, H, W, CO,
-        # stream
+        # ngroups; gxs, gaffs; y, gy, gstats, w9t, gw, gb; N, D, H, W, CO;
+        # the forward's halo rows above and below (arrays or null); the
+        # neighbours' y, gy rows above, y, gy rows below (or null); stream
         "fused_block_bwd_launch": [ctypes.POINTER(vp)] * 3
         + [PI, PI, i32, PI, i32] + [ctypes.POINTER(vp)] * 2 + [vp] * 6
-        + [i32] * 5 + [vp]},
+        + [i32] * 5 + [ctypes.POINTER(vp)] * 2 + [vp] * 5},
     "qstride": {
         # x, mult, off, groups, ngroups, w9, b, y, stats, N, D, H, W, C, CO,
-        # Do, Ho, Wo, sd, sh, sw, parity, origin_h, origin_w, stream
+        # Do, Ho, Wo, sd, sh, sw, parity, origin_h, origin_w, the halo rows
+        # above and below (or null), stream
         "qstride_launch": [vp] * 3 + [PI, i32] + [vp] * 4 + [i32] * 15
-        + [vp]},
+        + [vp] * 3},
     "qlink": {
         # x, mult, off, k, the image scratch, y, N, D, H, W, Cin, Cout, sd,
         # sh, sw, the route taken, stream
@@ -223,6 +226,31 @@ def _part_args(parts, affines, groups, up_channels=None):
             (ctypes.c_int * P)(*vecs), P, gr, ng)
 
 
+def _halo_ptr(t):
+    """A halo row's pointer (None: none), its tensor contiguous and
+    16-byte aligned as the kernels' row copies want it."""
+    if t is None:
+        return None, None
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        t = t.clone(memory_format=torch.contiguous_format)
+    return t.data_ptr(), t
+
+
+def _halo_arrays(halos, P):
+    """Per part the halo rows above and below as two C pointer arrays,
+    or (None, None, []) without halos; keep the returned tensors alive
+    until the launch."""
+    if halos is None:
+        return None, None, []
+    arr = ctypes.c_void_p * P
+    out, keep = [], []
+    for rows in halos:
+        got = [_halo_ptr(t) for t in rows]
+        keep += [t for _, t in got if t is not None]
+        out.append(arr(*[ptr for ptr, _ in got]))
+    return out[0], out[1], keep
+
+
 def _block_args(parts, affines, groups, w9, b, y, stats, up_channels=None):
     """The fused block's C arguments up to the stream (_part_args, then the
     weights, bias, outputs and sizes)."""
@@ -235,7 +263,7 @@ def _block_args(parts, affines, groups, w9, b, y, stats, up_channels=None):
 
 
 def launch_fused_block(parts, affines, groups, w9, b, y, stats,
-                       wgmma: bool = True) -> None:
+                       wgmma: bool = True, halos=None) -> None:
     """Launch csrc/fused_block.cu on the current stream. parts: contiguous
     bf16 (N, D, H, W, Ci); affines: per part None or contiguous float32
     (mult, off) of shape (N, Ci); groups: [(c0, c1, shift)]; w9 (9, CO, C)
@@ -243,15 +271,20 @@ def launch_fused_block(parts, affines, groups, w9, b, y, stats,
     float32 (zeroed). The kernel first packs the weights for its bulk
     copies into a scratch tensor of the size the library gives
     (fused_block_scratch_bytes). The conv's taps on wgmma, or with
-    wgmma=False on mma.sync (the control). Raises on a refused launch."""
+    wgmma=False on mma.sync (the control). halos: (tops, bottoms), per
+    part bf16 (N, D, 1, W, Ci) raw rows above row 0 / below row H - 1 of
+    an H slab, or None (zero fill); None: no halo rows, today's launch.
+    Raises on a refused launch."""
     lib = library("fused_block")
     args = _block_args(parts, affines, groups, w9, b, y, stats)
     C, CO = sum(args[3]), int(y.shape[-1])
     nbytes = lib.fused_block_scratch_bytes(C, CO)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=y.device)
+    xts, xbs, keep = _halo_arrays(halos, len(parts))
     with torch.cuda.device(y.device):
         err = lib.fused_block_launch(*args, scratch.data_ptr(), nbytes,
-                                     int(wgmma), _stream(y))
+                                     int(wgmma), xts, xbs, _stream(y))
+    del keep
     _check(err, f"fused_block (shape {tuple(y.shape)}, C={C})")
 
 
@@ -275,7 +308,7 @@ def launch_lazy_up(parts, affines, groups, w9, b, raw, umult, uoff, wu, y,
 
 
 def launch_fused_block_bwd(parts, affines, groups, gxs, gaffs, y, gy, gstats,
-                           w9t, gw, gb) -> None:
+                           w9t, gw, gb, halos=None, edge_rows=None) -> None:
     """Launch csrc/fused_block_bwd.cu: the fused block's backward, two
     kernels (the dgrad with the shift's adjoint, only when some part is
     wanted; the wgrad with gb). parts, affines, groups as for
@@ -284,7 +317,10 @@ def launch_fused_block_bwd(parts, affines, groups, gxs, gaffs, y, gy, gstats,
     written) / a zeroed float32 (N, Ci, 2) output, or None where not
     wanted; y, gy bf16 (N, D, H, W, CO); gstats float32 (N, CO, 2); w9t
     (9, C, CO) bf16 (taps reversed, transposed); outputs gw float32
-    (9, CO, C) and gb float32 (CO,), zeroed. Raises on a refused launch."""
+    (9, CO, C) and gb float32 (CO,), zeroed. halos: the forward's halo
+    rows (launch_fused_block's); edge_rows: ((y, gy) above, (y, gy)
+    below), each pair bf16 (N, D, 1, W, CO) rows of the neighbours or
+    None. Raises on a refused launch."""
     if w9t.data_ptr() % 16 or not w9t.is_contiguous():
         raise ValueError("weights must be contiguous and 16-byte aligned")
     fn = library("fused_block_bwd").fused_block_bwd_launch
@@ -294,10 +330,18 @@ def launch_fused_block_bwd(parts, affines, groups, gxs, gaffs, y, gy, gstats,
     gx_ptrs = arr(*[None if g is None else g.data_ptr() for g in gxs])
     ga_ptrs = arr(*[None if g is None else g.data_ptr() for g in gaffs])
     N, D, H, W, CO = (int(s) for s in y.shape)
+    xts, xbs, keep = _halo_arrays(halos, P)
+    edges = []
+    for pair in edge_rows or (None, None):
+        got = [_halo_ptr(t) for t in (pair or (None, None))]
+        keep += [t for _, t in got if t is not None]
+        edges += [ptr for ptr, _ in got]
     with torch.cuda.device(y.device):
         err = fn(*args, gx_ptrs, ga_ptrs, y.data_ptr(), gy.data_ptr(),
                  gstats.data_ptr(), w9t.data_ptr(), gw.data_ptr(),
-                 gb.data_ptr(), N, D, H, W, CO, _stream(y))
+                 gb.data_ptr(), N, D, H, W, CO, xts, xbs, *edges,
+                 _stream(y))
+    del keep
     _check(err, f"fused_block_bwd (shape {tuple(y.shape)}, "
                 f"C={sum(args[3])})")
 
@@ -317,22 +361,25 @@ def launch_downlink_bwd(x, gy, mult, off, gx, gaff, window) -> None:
 
 
 def launch_strided(x, mult, off, groups, w9, b, y, stats, stride, parity,
-                   origins) -> None:
+                   origins, halo=(None, None)) -> None:
     """Launch csrc/qstride.cu: x contiguous bf16 (N, D, H, W, C); mult/off
     float32 (N, C); groups [(c0, c1, shift)] of C with the input depth row
     stride_d * do + parity - shift; w9 (9, CO, C) bf16 with the taps
     already mirrored; b (CO,) float32; origins (H, W) position of tap 0
     relative to stride * o; outputs y (N, Do, Ho, Wo, CO) bf16 and stats
-    (N, CO, 2) float32 (zeroed)."""
+    (N, CO, 2) float32 (zeroed); halo: bf16 (N, D, 1, W, C) raw rows above
+    row 0 and below row H - 1 of an H slab, or None (zero fill)."""
     fn = library("qstride").qstride_launch
     gr, ng = _groups_arr(groups)
     N, D, H, W, C = (int(s) for s in x.shape)
     _, Do, Ho, Wo, CO = (int(s) for s in y.shape)
+    (top, keep_t), (bottom, keep_b) = (_halo_ptr(t) for t in halo)
     with torch.cuda.device(y.device):
         err = fn(x.data_ptr(), mult.data_ptr(), off.data_ptr(), gr, ng,
                  w9.data_ptr(), b.data_ptr(), y.data_ptr(),
                  stats.data_ptr(), N, D, H, W, C, CO, Do, Ho, Wo,
-                 *stride, parity, *origins, _stream(y))
+                 *stride, parity, *origins, top, bottom, _stream(y))
+    del keep_t, keep_b
     _check(err, f"qstride (N={N} D={D} H={H} W={W} C={C} CO={CO})")
 
 

@@ -50,7 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.collectives import active_group, batch_count, sync_sum
+from ..parallel.collectives import axis_group, count, sync_sum
+from ..parallel.halo import at_edge, halo_rows, halo_rows_grad
 from .autograd import needs_grad
 from .fused_block import (INSTNORM_EPS, LRELU_SLOPE, NO_FLIPS, SHIFT_SIZE,
                           Flips, block_groups, fused_shift_conv_block,
@@ -63,6 +64,7 @@ from .qfused import LazyUp, lazy_up_fused_block, lazy_up_fused_block_ref
 from .qlink import (downlink, downlink_bwd, downlink_bwd_ref, downlink_ref,
                     flip_transp_kernel, seghead, seghead_ref, uplink,
                     uplink_ref)
+from .qstride import halo_extent as strided_halo_extent
 from .qstride import strided_fused, strided_fused_ref
 from .shift import (compact_groups, depth_shift_groups, group_shifts,
                     restrict_groups)
@@ -100,26 +102,43 @@ def plain_ops():
             g[name] = op
 
 
+def _spatial_mean(v: torch.Tensor, axes) -> torch.Tensor:
+    """The mean of v over `axes`, which hold this rank's H slab: under a
+    space group (parallel/collectives) the sum over every slab of the
+    sample, the gradient summed too, over the global count."""
+    if axis_group("space") is None:
+        return v.mean(axes, keepdim=True)
+    n = count(math.prod(v.shape[a] for a in axes), "space")
+    return sync_sum(v.sum(axes, keepdim=True), "space") / float(n)
+
+
 def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   eps: float = INSTNORM_EPS) -> torch.Tensor:
     """Per-(sample, channel) normalization over D, H, W with float32
     statistics. bfloat16 input: one-pass E[x^2] - E[x]^2 and the affine
     applied with bfloat16-rounded scalars; float32 input: two-pass variance
-    and a float32 apply (reference blocks.py:47-71)."""
+    and a float32 apply (reference blocks.py:47-71). Under a space group
+    the statistics are the whole sample's (_spatial_mean)."""
     dtype = x.dtype
     axes = tuple(range(1, x.dim() - 1))
     xf = x.float()
     if dtype == torch.bfloat16:
-        n = float(math.prod(x.shape[a] for a in axes))
-        s1 = xf.sum(axes, keepdim=True)
-        s2 = (xf * xf).sum(axes, keepdim=True)
+        if axis_group("space") is None:
+            n = float(math.prod(x.shape[a] for a in axes))
+            s1 = xf.sum(axes, keepdim=True)
+            s2 = (xf * xf).sum(axes, keepdim=True)
+        else:
+            n = float(count(math.prod(x.shape[a] for a in axes), "space"))
+            s1, s2 = sync_sum(torch.stack([xf.sum(axes, keepdim=True),
+                                           (xf * xf).sum(axes, keepdim=True)
+                                           ]), "space")
         mean = s1 / n
         var = s2 / n - mean * mean
         mult = torch.rsqrt(var + eps) * scale.float()
         off = bias.float() - mean * mult
         return x * mult.to(dtype) + off.to(dtype)
-    mean = xf.mean(axes, keepdim=True)
-    var = (xf - mean).square().mean(axes, keepdim=True)
+    mean = _spatial_mean(xf, axes)
+    var = _spatial_mean((xf - mean).square(), axes)
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(dtype)
 
@@ -145,14 +164,15 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     functional trainer keeps no running averages). Inside a data-parallel
     step (parallel/collectives.reducing) the statistics are the global
     batch's, as GSPMD computes them: Σx and then Σ(x - mean)² summed over
-    the ranks, their gradients summed too (collectives.sync_sum)."""
+    every rank of the grid (rows and slabs), their gradients summed too
+    (collectives.sync_sum)."""
     xf = x.float()
     axes = tuple(range(x.dim() - 1))
-    if active_group() is None:
+    if axis_group("world") is None:
         mean = xf.mean(axes, keepdim=True)
         var = (xf - mean).square().mean(axes, keepdim=True)
     else:
-        n = float(batch_count(math.prod(x.shape[:-1])))
+        n = float(count(math.prod(x.shape[:-1]), "world"))
         mean = sync_sum(xf.sum(axes, keepdim=True)) / n
         var = sync_sum((xf - mean).square().sum(axes, keepdim=True)) / n
     return _affine_f32((xf - mean) * torch.rsqrt(var + eps), scale, bias,
@@ -163,12 +183,13 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 8, eps: float = INSTNORM_EPS
                ) -> torch.Tensor:
     """GroupNorm over 8 channel groups, or one group where C % 8 != 0
-    (reference blocks.group_norm)."""
+    (reference blocks.group_norm); under a space group over the whole
+    sample."""
     N, C = x.shape[0], x.shape[-1]
     g = num_groups if C % num_groups == 0 else 1
     xf = x.float().reshape(N, -1, g, C // g)
-    mean = xf.mean((1, 3), keepdim=True)
-    var = (xf - mean).square().mean((1, 3), keepdim=True)
+    mean = _spatial_mean(xf, (1, 3))
+    var = _spatial_mean((xf - mean).square(), (1, 3))
     y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     return _affine_f32(y, scale, bias, x.dtype)
 
@@ -177,9 +198,10 @@ def frn(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         eps: float = 1e-6) -> torch.Tensor:
     """Filter response normalization, x / sqrt(mean(x^2) + eps) over D, H,
     W, then the affine (reference blocks.frn); a block pairs it with the
-    thresholded linear unit max(y, tau)."""
+    thresholded linear unit max(y, tau); under a space group over the whole
+    sample."""
     xf = x.float()
-    nu2 = (xf * xf).mean(tuple(range(1, x.dim() - 1)), keepdim=True)
+    nu2 = _spatial_mean(xf * xf, tuple(range(1, x.dim() - 1)))
     return _affine_f32(xf * torch.rsqrt(nu2 + eps), scale, bias, x.dtype)
 
 
@@ -201,25 +223,60 @@ NONLINS = {"lrelu": leaky_relu, "relu": torch.relu,
            "lrelu2e1": lambda x: leaky_relu(x, 0.2)}
 
 
+def halo_pad(x: torch.Tensor, axis: int, k: int, s: int, lo: int,
+             hi: int) -> Tuple[torch.Tensor, int, int]:
+    """Under a space group (parallel/collectives), x with the rows that a
+    window of k at stride s, padded (lo, hi), reads beyond this rank's H
+    slab along `axis` taken from the neighbouring slabs (zeros at the
+    volume's edge), and the padding (0, 0) left for that axis; else
+    (x, lo, hi). The rows carry their gradient back to their owners
+    (halo.halo_rows_grad)."""
+    group = axis_group("space")
+    if group is None or axis is None:
+        return x, lo, hi
+    L = int(x.shape[axis])
+    out = (L + lo + hi - k) // s + 1
+    after = max(0, (out - 1) * s + k - lo - L)
+    top, bottom = halo_rows_grad(x, group, axis, lo, after)
+
+    def rows(t, n):
+        if t is not None or n == 0:
+            return t
+        shape = list(x.shape)
+        shape[axis] = n
+        return x.new_zeros(shape)
+    cat = [t for t in (rows(top, lo), x, rows(bottom, after)) if t is not None]
+    return torch.cat(cat, dim=axis), 0, 0
+
+
 def conv3d_as_2d(x: torch.Tensor, kernel: torch.Tensor,
                  bias: Optional[torch.Tensor], stride: Tuple[int, int, int],
                  compute_dtype: torch.dtype,
-                 flips: Flips = NO_FLIPS) -> torch.Tensor:
+                 flips: Flips = NO_FLIPS, halo_axis: Optional[int] = 2
+                 ) -> torch.Tensor:
     """(1, kh, kw) conv of x (N, D, H, W, Cin) with kernel (Cout, Cin, kh,
     kw); padding kh//2, kw//2; the depth stride slices D.
 
     flips: the mirrored conv. A mirrored H/W axis reverses the kernel along
     it; a mirrored stride-s axis re-anchors the window grid: padding
     (k//2, k//2) -> (k - s - k//2, k//2), and the depth slice starts at
-    sd - 1 (reference conv3d_as_2d)."""
+    sd - 1 (reference conv3d_as_2d).
+
+    halo_axis: the axis of x (2 or 3) that holds the volume's H, split
+    into slabs under a space group: its padding becomes the neighbouring
+    slabs' rows (halo_pad); None where H is the flat axis."""
     sd, sh, sw = stride
     if sd > 1:
         x = x[:, sd - 1::sd] if flips[0] else x[:, ::sd]
-    N, D, H, W, C = x.shape
     cout, _, kh, kw = kernel.shape
     pads = []
     for k, s, f in ((kw, sw, flips[2]), (kh, sh, flips[1])):
         pads += [k - s - k // 2, k // 2] if f else [k // 2, k // 2]
+    if halo_axis == 2:
+        x, pads[2], pads[3] = halo_pad(x, 2, kh, sh, pads[2], pads[3])
+    elif halo_axis == 3:
+        x, pads[0], pads[1] = halo_pad(x, 3, kw, sw, pads[0], pads[1])
+    N, D, H, W, C = x.shape
     x2 = x.reshape(N * D, H, W, C).permute(0, 3, 1, 2).to(compute_dtype)
     k2 = mirror_conv_kernel(kernel, flips).to(compute_dtype)
     if pads[0] == pads[1] and pads[2] == pads[3]:
@@ -249,9 +306,11 @@ def conv3d_one_flat(x: torch.Tensor, kernel: torch.Tensor,
     perm = {1: (0, 2, 1, 3, 4), 2: (0, 3, 1, 2, 4)}[flat_axis]
     inv = {1: (0, 2, 1, 3, 4), 2: (0, 2, 3, 1, 4)}[flat_axis]
     order = {1: (1, 0, 2), 2: (2, 0, 1)}[flat_axis]
+    # where the volume's H lands: the flat slot (no window) or axis 3
     y = conv3d_as_2d(x.permute(perm), kernel, bias,
                      tuple(stride[a] for a in order), compute_dtype,
-                     tuple(flips[a] for a in order))
+                     tuple(flips[a] for a in order),
+                     halo_axis={1: None, 2: 3}[flat_axis])
     return y.permute(inv)
 
 
@@ -261,11 +320,14 @@ def conv3d_full(x: torch.Tensor, kernel: torch.Tensor,
     """cuDNN's 3D conv of x (N, D, H, W, Cin) with kernel (Cout, Cin, kd,
     kh, kw), padding k//2 per side, the bias added in the compute dtype
     (reference conv3d_full). It has no mirrored variant: networks built
-    from it take data-flip TTA."""
-    pad = tuple(int(k) // 2 for k in kernel.shape[2:])
+    from it take data-flip TTA. Under a space group its H padding is the
+    neighbouring slabs' rows (halo_pad)."""
+    pad = [int(k) // 2 for k in kernel.shape[2:]]
+    kh = int(kernel.shape[3])
+    x, pad[1], _ = halo_pad(x, 2, kh, int(stride[1]), pad[1], pad[1])
     y = F.conv3d(x.permute(0, 4, 1, 2, 3).to(compute_dtype),
                  kernel.to(compute_dtype), None, stride=tuple(stride),
-                 padding=pad).permute(0, 2, 3, 4, 1)
+                 padding=tuple(pad)).permute(0, 2, 3, 4, 1)
     if bias is not None:
         y = y + bias.to(compute_dtype)
     return y
@@ -557,22 +619,47 @@ class ShiftConvBlock(nn.Module):
                              "norm and leaky relu; this block materialises")
         cd = self.compute_dtype
         kernel, bias, scale, nbias = self.weights()
+        space = axis_group("space")
         if self.stride == (1, 1, 1):
             parts, affines = self._gather_parts(parts, affines)
             if isinstance(parts[-1], LazyUp):
+                if space is not None:
+                    raise NotImplementedError(
+                        "the lazy up-link block takes no halo rows "
+                        "(ROADMAP: #3 with halo rows); a model under a "
+                        "space group takes the materialised up-link")
                 y, stats = lazy_up_fused_block(
                     parts[:-1], parts[-1], kernel.to(cd), bias.to(cd),
                     affines[:-1], flips, self._groups)
-            else:
+            elif space is None:
                 y, stats = fused_shift_conv_block(
                     parts, kernel.to(cd), bias.to(cd), affines, flips,
                     self._groups)
+            else:
+                # the kernel op's backward exchanges y and gy rows and
+                # sends no gradient back for the halo rows; its plain
+                # version (plain_ops) returns them through the exchange
+                plain = fused_shift_conv_block is fused_shift_conv_block_ref
+                fetch = halo_rows_grad if plain else halo_rows
+                rows = [fetch(p, space, 2, 1, 1) for p in parts]
+                halos = tuple([r[i] for r in rows] for i in (0, 1))
+                kw = {} if plain else {"space": space}
+                y, stats = fused_shift_conv_block(
+                    parts, kernel.to(cd), bias.to(cd), affines, flips,
+                    self._groups, halos, at_edge(space), **kw)
         else:
             (x,), ((mult, off),) = parts, affines
+            halo, edge = (None, None), (True, True)
+            if space is not None:
+                halo = halo_rows_grad(x, space, 2, *strided_halo_extent(
+                    int(x.shape[2]), self.stride[1], flips[1]))
+                edge = at_edge(space)
             # the strided transition adds its bias in float32
             y, stats = strided_fused(x, mult, off, kernel.to(cd), bias,
-                                     self.stride, flips, self._groups)
-        return y, stats, scale, nbias
+                                     self.stride, flips, self._groups,
+                                     halo, edge)
+        # the instance norm's statistics of the whole sample
+        return y, sync_sum(stats, "space"), scale, nbias
 
 
 class StackedConvBlocks(nn.Module):
@@ -633,7 +720,7 @@ class StackedConvBlocks(nn.Module):
         for blk in self.blocks():
             if out is not None:
                 raw, stats, scale, nbias = out
-                n_vox = math.prod(raw.shape[1:4])
+                n_vox = count(math.prod(raw.shape[1:4]), "space")
                 parts = [raw]
                 affines = [norm_affine_from_stats(stats, n_vox, scale, nbias)]
             out = blk.forward_fused(parts, affines, flips)

@@ -47,6 +47,20 @@ tensors. Given (y, gy, gstats) it returns
 (reference fused_block.py:331-346 and `_fused_bwd_xla`). The plain forward
 writes its leaky relu with the same derivative, so torch's autograd of it
 (the comparison path, ops.blocks.plain_ops) agrees with this backward.
+
+Spatial parallelism (an H slab per rank of a space group): `halos`
+(tops, bottoms) give per part the raw row above row 0 and below row H - 1,
+(N, D, 1, W, Ci), under the part's pending affine, or None at the
+volume's edge. The forward reads them through the norm where it would
+zero-fill; y and the statistics stay the slab's own (summed over the
+space group by the caller). The backward takes the recommended route:
+with `edge_rows` ((y, gy) of the neighbour row above, of the row below)
+the dgrad forms geff on those rows too and reads it where it would
+zero-fill, so each rank computes the whole gradient of its own rows and
+no gradient is sent back for the halo rows; the wgrad's staged S reads
+the forward's halo rows. The autograd op exchanges the y and gy rows
+itself (parallel/halo.halo_rows over `space`) and saves the two halo
+rows, not a padded copy.
 """
 from typing import Optional, Sequence, Tuple
 
@@ -56,6 +70,7 @@ import torch.nn.functional as F
 from .autograd import (affine_grads, affine_tensors, block_cotangents,
                        check_device, first_order_only, grad_like, needs_grad,
                        unflatten_affines, wanted_parts)
+from ..parallel.halo import halo_rows
 from .shift import depth_shift_groups, group_shifts, mirror_groups
 
 LRELU_SLOPE = 0.01
@@ -106,15 +121,9 @@ def affine_nc(a: torch.Tensor, N: int, ci: int) -> torch.Tensor:
     return a.float().reshape(-1, ci).expand(N, ci).contiguous()
 
 
-def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
-                               kernel: torch.Tensor, bias: torch.Tensor,
-                               affines: Sequence[Affine],
-                               flips: Flips = NO_FLIPS,
-                               groups_override=None):
-    """Plain torch version. kernel (CO, C, 3, 3), bias (CO,); returns
-    (y (N, D, H, W, CO) in the parts' dtype, stats (N, CO, 2) float32)."""
-    dtype = parts[0].dtype
-    N = parts[0].shape[0]
+def _normed(parts, affines, dtype, N):
+    """Each part through its pending norm (lrelu(x m + o), rounded to
+    dtype), concatenated over the channels."""
     normed = []
     for x, a in zip(parts, affines):
         if a is not None:
@@ -123,14 +132,65 @@ def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
             o = affine_nc(a[1], N, ci)[:, None, None, None, :]
             x = lrelu_where(x.float() * m + o).to(dtype)
         normed.append(x)
-    x = torch.cat(normed, dim=-1)
-    N, D, H, W, C = x.shape
+    return torch.cat(normed, dim=-1)
+
+
+def _halo_normed(parts, affines, halos, dtype, N, edge=(False, False)):
+    """The normalised operand with its H halo rows, (N, D, H + 2, W, C):
+    row -1 and row H from the halo rows through each part's norm, zeros
+    (after the norm) where a part has none or the side is the volume's
+    edge (edge: rows given there pass through the same ops, then zero)."""
+    ext = []
+    for rows, at_edge in zip(halos, edge):
+        present = [r for r in rows if r is not None]
+        if not present:
+            ext.append(None)
+            continue
+        like = present[0]
+        full = [r if r is not None else like.new_zeros(
+            tuple(like.shape[:4]) + (int(p.shape[-1]),))
+            for r, p in zip(rows, parts)]
+        u = _normed(full, affines, dtype, N)
+        # a part without a row there stays zero after its norm
+        keep = torch.cat([torch.full((int(p.shape[-1]),),
+                                     r is not None and not at_edge,
+                                     device=u.device)
+                          for r, p in zip(rows, parts)])
+        ext.append(torch.where(keep, u, torch.zeros((), dtype=u.dtype,
+                                                    device=u.device)))
+    x = _normed(parts, affines, dtype, N)
+    zero = x.new_zeros(x.shape[:2] + (1,) + x.shape[3:])
+    return torch.cat([zero if ext[0] is None else ext[0], x,
+                      zero if ext[1] is None else ext[1]], dim=2)
+
+
+def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
+                               kernel: torch.Tensor, bias: torch.Tensor,
+                               affines: Sequence[Affine],
+                               flips: Flips = NO_FLIPS,
+                               groups_override=None, halos=None,
+                               halo_edge=(False, False)):
+    """Plain torch version. kernel (CO, C, 3, 3), bias (CO,); halos
+    (module docstring) or None; halo_edge: per side whether the slab is
+    at the volume's edge there (rows given there read as zeros after the
+    norm). Returns (y (N, D, H, W, CO) in the parts' dtype, stats
+    (N, CO, 2) float32)."""
+    dtype = parts[0].dtype
+    N = parts[0].shape[0]
+    if halos is None:
+        x = _normed(parts, affines, dtype, N)
+        pad = 1
+    else:
+        x = _halo_normed(parts, affines, halos, dtype, N, halo_edge)
+        pad = (0, 1)
+    N, D, He, W, C = x.shape
+    H = He if halos is None else He - 2
     CO = kernel.shape[0]
     s = depth_shift_groups(x, block_groups(C, flips, groups_override))
     # operands rounded to the compute dtype, products and sums in float32
-    x2 = s.reshape(N * D, H, W, C).permute(0, 3, 1, 2).float()
+    x2 = s.reshape(N * D, He, W, C).permute(0, 3, 1, 2).float()
     acc = F.conv2d(x2, mirror_conv_kernel(kernel.to(dtype), flips).float(),
-                   None, padding=1)
+                   None, padding=pad)
     acc = acc + bias.to(dtype).float()[None, :, None, None]
     acc = acc.permute(0, 2, 3, 1).reshape(N, D, H, W, CO)
     stats = torch.stack([acc.sum(dim=(1, 2, 3)),
@@ -141,26 +201,70 @@ def fused_shift_conv_block_ref(parts: Sequence[torch.Tensor],
 def fused_shift_conv_block(parts: Sequence[torch.Tensor],
                            kernel: torch.Tensor, bias: torch.Tensor,
                            affines: Sequence[Affine],
-                           flips: Flips = NO_FLIPS, groups_override=None, *,
-                           wgmma: bool = True):
+                           flips: Flips = NO_FLIPS, groups_override=None,
+                           halos=None, halo_edge=(False, False), *,
+                           wgmma: bool = True, space=None):
     """The fused block: plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (bfloat16 only; raises on what the kernel does not take).
     Same arguments and results as fused_shift_conv_block_ref. With a
     gradient wanted, an autograd op whose backward is
-    fused_shift_conv_block_bwd. wgmma=False runs the kernel's taps on
-    mma.sync instead, a control for measuring the wgmma tap loop (forward
-    only)."""
+    fused_shift_conv_block_bwd; with halos, `space` is the process group
+    of the slabs, over which the backward exchanges its y and gy edge rows
+    (module docstring); halo_edge as the plain version's. wgmma=False runs the kernel's taps on mma.sync
+    instead, a control for measuring the wgmma tap loop (forward only)."""
     if len(parts) != len(affines):
         raise ValueError("one affine (or None) per part")
     if needs_grad(list(parts) + [kernel, bias] + affine_tensors(affines)):
         if not wgmma:
             raise ValueError("the mma.sync control has no backward")
+        if halos is not None and space is None:
+            raise ValueError("halo rows with a gradient need the space "
+                             "group their backward exchanges over")
+        has_halo = (None if halos is None else
+                    tuple(tuple(r is not None for r in rows)
+                          for rows in halos))
         return _FusedBlockFn.apply(
             (tuple(flips), groups_override, len(parts),
-             tuple(a is not None for a in affines)),
-            *parts, kernel, bias, *affine_tensors(affines))
+             tuple(a is not None for a in affines), has_halo,
+             tuple(halo_edge), space),
+            *parts, kernel, bias, *affine_tensors(affines),
+            *_halo_tensors(halos))
     return _fused_forward(parts, kernel, bias, affines, flips,
-                          groups_override, wgmma)
+                          groups_override, wgmma, halos, halo_edge)
+
+
+def _drop_edges(halos, edge):
+    """halos with the rows on a volume's-edge side made None."""
+    if halos is None:
+        return None
+    return tuple([None] * len(rows) if e else list(rows)
+                 for rows, e in zip(halos, edge))
+
+
+def _halo_tensors(halos) -> list:
+    """The flat list of the halo rows that are not None (tops, then
+    bottoms)."""
+    return [] if halos is None else [
+        r for rows in halos for r in rows if r is not None]
+
+
+def _unflatten_halos(has_halo, tensors):
+    """_halo_tensors' inverse."""
+    if has_halo is None:
+        return None
+    it = iter(tensors)
+    return tuple([next(it) if h else None for h in rows]
+                 for rows in has_halo)
+
+
+def _check_halos(halos, parts):
+    """Halo rows (N, D, 1, W, Ci) of each part in its dtype, or None."""
+    for rows in halos:
+        for r, p in zip(rows, parts):
+            if r is not None and (tuple(r.shape) != tuple(p.shape[:2]) + (
+                    1,) + tuple(p.shape[3:]) or r.dtype != p.dtype):
+                raise ValueError(f"halo row {tuple(r.shape)} {r.dtype} "
+                                 f"does not fit part {tuple(p.shape)}")
 
 
 def _check_block(parts, kernel, bias):
@@ -182,13 +286,17 @@ def _check_block(parts, kernel, bias):
 
 
 def _fused_forward(parts, kernel, bias, affines, flips, groups_override,
-                   wgmma=True):
+                   wgmma=True, halos=None, halo_edge=(False, False)):
+    if halos is not None:
+        _check_halos(halos, parts)
     dev = parts[0].device
     if dev.type == "cpu":
         return fused_shift_conv_block_ref(parts, kernel, bias, affines,
-                                          flips, groups_override)
+                                          flips, groups_override, halos,
+                                          halo_edge)
+    halos = _drop_edges(halos, halo_edge)
     check_device("fused_shift_conv_block", list(parts) + [kernel, bias]
-                  + affine_tensors(affines))
+                  + affine_tensors(affines) + _halo_tensors(halos))
     N = parts[0].shape[0]
     dtype = parts[0].dtype
     part_c, C, CO = _check_block(parts, kernel, bias)
@@ -207,7 +315,7 @@ def _fused_forward(parts, kernel, bias, affines, flips, groups_override,
     stats = torch.zeros((N, CO, 2), dtype=torch.float32, device=dev)
     _native.launch_fused_block(parts, aff,
                                block_groups(C, flips, groups_override), w9,
-                               b, y, stats, wgmma)
+                               b, y, stats, wgmma, halos)
     fused_shift_conv_block.launches += 1
     return y, stats
 
@@ -221,13 +329,14 @@ def fused_shift_conv_block_bwd_ref(parts: Sequence[torch.Tensor],
                                    y: torch.Tensor, gy: torch.Tensor,
                                    gstats: torch.Tensor,
                                    flips: Flips = NO_FLIPS,
-                                   groups_override=None):
+                                   groups_override=None, halos=None,
+                                   edge_rows=None):
     """Plain torch version of the block's backward (reference
     `_fused_bwd_xla`, rounding where the kernels round): y the forward's
-    output, gy its cotangent, gstats (N, CO, 2) the statistics' cotangent.
-    Returns (gparts in the parts' dtype, gkernel (CO, C, 3, 3) float32,
-    gbias (CO,) float32, per part None or (g mult, g off) each (N, Ci)
-    float32)."""
+    output, gy its cotangent, gstats (N, CO, 2) the statistics' cotangent;
+    halos, edge_rows: an H slab's (module docstring). Returns (gparts in
+    the parts' dtype, gkernel (CO, C, 3, 3) float32, gbias (CO,) float32,
+    per part None or (g mult, g off) each (N, Ci) float32)."""
     dtype = parts[0].dtype
     N, D, H, W = parts[0].shape[:4]
     CO = kernel.shape[0]
@@ -235,28 +344,38 @@ def fused_shift_conv_block_bwd_ref(parts: Sequence[torch.Tensor],
     # the kernels' bf16 steps (reference fused_block.py:482-487)
     gs1 = gstats[..., 0].to(dtype).reshape(bshape)
     gs2 = (2.0 * gstats[..., 1]).to(dtype).reshape(bshape)
-    geff = (gy.to(dtype) + gs1) + y.to(dtype) * gs2
+
+    def geff_of(g, yv):
+        return (g.to(dtype) + gs1) + yv.to(dtype) * gs2
+    geff = geff_of(gy, y)
     gb = geff.float().sum(dim=(0, 1, 2, 3))
-    normed = []
-    for x, a in zip(parts, affines):
-        if a is not None:
-            ci = x.shape[-1]
-            m = affine_nc(a[0], N, ci)[:, None, None, None, :]
-            o = affine_nc(a[1], N, ci)[:, None, None, None, :]
-            x = lrelu_where(x.float() * m + o).to(dtype)
-        normed.append(x)
-    xcat = torch.cat(normed, dim=-1)
+    slab = halos is not None or edge_rows is not None
+    xcat = (_halo_normed(parts, affines, halos or ((None,) * len(parts),) * 2,
+                         dtype, N) if slab
+            else _normed(parts, affines, dtype, N))
     C = xcat.shape[-1]
     groups = block_groups(C, flips, groups_override)
-    s2 = depth_shift_groups(xcat, groups).reshape(N * D, H, W, C) \
+    s2 = depth_shift_groups(xcat, groups).reshape(N * D, -1, W, C) \
         .permute(0, 3, 1, 2).float()
     k = mirror_conv_kernel(kernel.to(dtype), flips).float()
     g2 = geff.reshape(N * D, H, W, CO).permute(0, 3, 1, 2).float()
     # dgrad rounded to the dtype before the shift's adjoint (:525), wgrad
     # from the same bf16 operands, both with float32 sums
-    ct = torch.nn.grad.conv2d_input(s2.shape, k, g2, padding=1).to(dtype)
-    gw = torch.nn.grad.conv2d_weight(s2, k.shape, g2, padding=1)
-    ct = ct.permute(0, 2, 3, 1).reshape(N, D, H, W, C)
+    if not slab:
+        ct = torch.nn.grad.conv2d_input(s2.shape, k, g2, padding=1)
+        gw = torch.nn.grad.conv2d_weight(s2, k.shape, g2, padding=1)
+    else:
+        # geff on the neighbours' rows (zero at the volume's edge), then
+        # the dgrad of this slab's rows from all of them
+        zero = geff.new_zeros((N, D, 1, W, CO))
+        ext = [zero if pair is None else geff_of(pair[1], pair[0])
+               for pair in (edge_rows or (None, None))]
+        gext = torch.cat([ext[0], geff, ext[1]], dim=2)
+        ge2 = gext.reshape(N * D, H + 2, W, CO).permute(0, 3, 1, 2).float()
+        ct = F.conv2d(ge2, k.flip(2, 3).transpose(0, 1), None,
+                      padding=(0, 1))
+        gw = torch.nn.grad.conv2d_weight(s2, k.shape, g2, padding=(0, 1))
+    ct = ct.to(dtype).permute(0, 2, 3, 1).reshape(N, D, H, W, C)
     gu_all = depth_shift_groups(ct, mirror_groups(groups))
     gparts, gaffs = [], []
     off = 0
@@ -284,7 +403,7 @@ def fused_shift_conv_block_bwd(parts: Sequence[torch.Tensor],
                                affines: Sequence[Affine], y: torch.Tensor,
                                gy: torch.Tensor, gstats: torch.Tensor,
                                flips: Flips = NO_FLIPS, groups_override=None,
-                               want=None):
+                               want=None, halos=None, edge_rows=None):
     """The block's backward: plain version for CPU tensors, the CUDA kernel
     (csrc/fused_block_bwd.cu) for CUDA tensors (bfloat16; raises on what
     the kernel does not take). Same arguments and results as
@@ -295,12 +414,14 @@ def fused_shift_conv_block_bwd(parts: Sequence[torch.Tensor],
     if dev.type == "cpu":
         gp, gk, gb, ga = fused_shift_conv_block_bwd_ref(
             parts, kernel, bias, affines, y, gy, gstats, flips,
-            groups_override)
+            groups_override, halos, edge_rows)
         return ([g if w else None for g, w in zip(gp, want)], gk, gb,
                 [g if w else None for g, w in zip(ga, want)])
+    edges = [t for pair in (edge_rows or ()) if pair is not None
+             for t in pair]
     check_device("fused_shift_conv_block_bwd",
                   list(parts) + [kernel, bias, y, gy, gstats]
-                  + affine_tensors(affines))
+                  + affine_tensors(affines) + _halo_tensors(halos) + edges)
     part_c, C, CO = _check_block(parts, kernel, bias)
     N, D, H, W = (int(v) for v in parts[0].shape[:4])
     dtype = torch.bfloat16
@@ -324,10 +445,14 @@ def fused_shift_conv_block_bwd(parts: Sequence[torch.Tensor],
              for ci, w, a in zip(part_c, want, aff)]
     gw = torch.zeros((9, CO, C), **f32)
     gb = torch.zeros((CO,), **f32)
+    if edge_rows is not None:
+        edge_rows = [None if pair is None else
+                     tuple(t.to(dtype).contiguous() for t in pair)
+                     for pair in edge_rows]
     _native.launch_fused_block_bwd(
         parts, aff, block_groups(C, flips, groups_override), gxs, gaffs,
         y.contiguous(), gy.to(dtype).contiguous(),
-        gstats.float().contiguous(), w9t, gw, gb)
+        gstats.float().contiguous(), w9t, gw, gb, halos, edge_rows)
     fused_shift_conv_block_bwd.launches += 1
     gk = mirror_conv_kernel(gw.reshape(3, 3, CO, C).permute(2, 3, 0, 1),
                             flips)
@@ -344,29 +469,53 @@ class _FusedBlockFn(torch.autograd.Function):
     parts, weights, affines and y, as the reference's _fused_fwd does."""
 
     @staticmethod
-    def forward(ctx, meta, *tensors):
-        flips, groups, P, has_affine = meta
+    def _unpack(meta, tensors):
+        flips, groups, P, has_affine, has_halo = meta[:5]
         parts, (kernel, bias) = list(tensors[:P]), tensors[P:P + 2]
-        affines = unflatten_affines(has_affine, tensors[P + 2:])
-        y, stats = _fused_forward(parts, kernel, bias, affines, flips, groups)
+        n_aff = 2 * sum(has_affine)
+        affines = unflatten_affines(has_affine, tensors[P + 2:P + 2 + n_aff])
+        halos = _unflatten_halos(has_halo, tensors[P + 2 + n_aff:])
+        return parts, kernel, bias, affines, halos
+
+    @staticmethod
+    def forward(ctx, meta, *tensors):
+        flips, groups = meta[:2]
+        parts, kernel, bias, affines, halos = _FusedBlockFn._unpack(
+            meta, tensors)
+        y, stats = _fused_forward(parts, kernel, bias, affines, flips, groups,
+                                  halos=halos, halo_edge=meta[5])
         ctx.meta = meta
+        ctx.n_halo = len(_halo_tensors(halos))
         ctx.save_for_backward(*tensors, y)
         return y, stats
 
     @staticmethod
     def backward(ctx, gy, gstats):
         first_order_only("fused_shift_conv_block")
-        flips, groups, P, has_affine = ctx.meta
+        flips, groups, P, has_affine, has_halo, edge, space = ctx.meta
         *tensors, y = ctx.saved_tensors
-        parts, (kernel, bias) = list(tensors[:P]), tensors[P:P + 2]
-        affines = unflatten_affines(has_affine, tensors[P + 2:])
+        parts, kernel, bias, affines, halos = _FusedBlockFn._unpack(
+            ctx.meta, tensors)
+        halos = _drop_edges(halos, edge)
         gy, gstats = block_cotangents(y, gy, gstats)
+        edge_rows = None
+        if halos is not None:
+            # the neighbours' y and gy rows next to this slab
+            CO = y.shape[-1]
+            pairs = halo_rows(torch.cat([y, gy.to(y.dtype)], dim=-1), space,
+                              2, 1, 1)
+            edge_rows = tuple(None if r is None else (r[..., :CO], r[..., CO:])
+                              for r in pairs)
         want = wanted_parts(ctx.needs_input_grad[1:], P, has_affine)
         gp, gk, gb, ga = fused_shift_conv_block_bwd(
-            parts, kernel, bias, affines, y, gy, gstats, flips, groups, want)
+            parts, kernel, bias, affines, y, gy, gstats, flips, groups, want,
+            halos, edge_rows)
         grads = [grad_like(g, t) for g, t in zip(gp, parts)]
         grads += [grad_like(gk, kernel), grad_like(gb, bias)]
-        return (None, *grads, *affine_grads(affines, ga))
+        # each rank computes its own rows' whole gradient: none for the
+        # halo rows
+        return (None, *grads, *affine_grads(affines, ga),
+                *([None] * ctx.n_halo))
 
 
 def norm_affine_from_stats(stats: torch.Tensor, n_vox: int,

@@ -11,14 +11,16 @@ Layout: logits (N, D, H, W, C), float32 as the heads return them; targets
 (N, D, H, W) integer labels, or (N, D, H, W, R) 0/1 region channels for
 dc_bce and dice_regions. All loss math in float32.
 
-Inside a data-parallel step (parallel/collectives.reducing) each rank
-holds its rows of the batch and every loss is the whole batch's, on every
-rank: the sums over the batch axis (batch dice's tp/fp/fn, GDL's volumes,
-MCC's totals, the ignore-label mask's counts) and the means over it (the
-voxel means of CE, BCE and focal, per-sample Dice) are summed over the
-ranks by collectives.all_sum, and the top-k cross-entropy takes its k% of
-the global batch's voxels from their gathered values. Outside one each
-reduction is this rank's own.
+Inside a sharded step (parallel/collectives.reducing over a grid of
+ranks) each rank holds its rows of the batch and, with spatial
+parallelism, an H slab of them; every loss is the whole batch's, on every
+rank (collectives.all_sum by axis): the sums over batch and space (batch
+dice's tp/fp/fn, GDL's volumes, MCC's totals, the ignore-label mask's
+counts, the voxel means of CE, BCE and focal) over the world, the spatial
+sums of per-sample counts (without batch dice) over the space group, and
+the mean of per-sample scores over the data group. The top-k
+cross-entropy takes its k% of the global voxels from their gathered
+values. Outside one each reduction is this rank's own.
 """
 from typing import List, Optional, Sequence
 
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collectives import (all_sum, batch_count, batch_mean,
+from ..parallel.collectives import (all_sum, batch_count, batch_mean, count,
                                    gather_rows)
 
 
@@ -53,15 +55,20 @@ def get_tp_fp_fn_tn(probs: torch.Tensor, target: torch.Tensor,
     axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
     tp = (probs * y).sum(dim=axes)
     ps, ys = probs.sum(dim=axes), y.sum(dim=axes)
-    if batch_dice:
-        tp, ps, ys = all_sum(torch.stack([tp, ps, ys]))
+    tp, ps, ys = all_sum(torch.stack([tp, ps, ys]), _over(batch_dice))
     return tp, ps - tp, ys - tp
+
+
+def _over(batch_dice: bool) -> str:
+    """The axis of the grid a loss's counts are summed over: the world
+    with batch dice, else each sample's slabs."""
+    return "world" if batch_dice else "space"
 
 
 def _dice_mean(dc: torch.Tensor, batch_dice: bool) -> torch.Tensor:
     """The mean of per-class (batch dice) or per-sample-and-class
-    scores over the global batch."""
-    return dc.mean() if batch_dice else batch_mean(dc)
+    scores over the global batch (the space ranks share each sample's)."""
+    return dc.mean() if batch_dice else batch_mean(dc, "data")
 
 
 def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -168,8 +175,8 @@ def generalized_dice_loss(logits: torch.Tensor, target: torch.Tensor,
     fp = (probs * (1.0 - y)).sum(dim=axes)
     fn = ((1.0 - probs) * y).sum(dim=axes)
     volumes = y.sum(dim=axes)
-    if batch_dice:
-        tp, fp, fn, volumes = all_sum(torch.stack([tp, fp, fn, volumes]))
+    tp, fp, fn, volumes = all_sum(torch.stack([tp, fp, fn, volumes]),
+                                  _over(batch_dice))
     volumes = volumes + 1e-6
     if square_volumes:
         volumes = volumes ** 2
@@ -190,9 +197,8 @@ def soft_dice_loss_squared(logits: torch.Tensor, target: torch.Tensor,
     axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
     intersect = (probs * y).sum(dim=axes)
     denominator = (probs ** 2 + y ** 2).sum(dim=axes)
-    if batch_dice:
-        intersect, denominator = all_sum(torch.stack([intersect,
-                                                      denominator]))
+    intersect, denominator = all_sum(torch.stack([intersect, denominator]),
+                                     _over(batch_dice))
     dc = 2 * (intersect + smooth) / (denominator + smooth)
     if not do_bg:
         dc = dc[1:] if batch_dice else dc[:, 1:]
@@ -208,8 +214,7 @@ def _sigmoid_dice(probs: torch.Tensor, t: torch.Tensor, batch_dice: bool,
     tp = (probs * t).sum(dim=axes)
     fp = (probs * (1 - t)).sum(dim=axes)
     fn = ((1 - probs) * t).sum(dim=axes)
-    if batch_dice:
-        tp, fp, fn = all_sum(torch.stack([tp, fp, fn]))
+    tp, fp, fn = all_sum(torch.stack([tp, fp, fn]), _over(batch_dice))
     return _dice_mean((2 * tp + smooth) / (2 * tp + fp + fn + smooth + 1e-8),
                       batch_dice)
 
@@ -268,15 +273,15 @@ def mcc_loss(logits: torch.Tensor, target: torch.Tensor,
     Where a class is absent from the targets the gradient is finite (the
     reference's is NaN)."""
     probs = softmax_helper(logits.float())
-    voxels = float(np.prod(logits.shape[1:-1]))
+    # a sample's voxels: its slabs' under a space group
+    voxels = float(count(np.prod(logits.shape[1:-1]), "space"))
     tp, fp, fn = get_tp_fp_fn_tn(probs, target, batch_dice, loss_mask)
     if loss_mask is None:
         total = voxels * (batch_count(logits.shape[0]) if batch_dice else 1)
     else:
         axes = tuple(range(0 if batch_dice else 1, probs.dim() - 1))
-        total = loss_mask.float().sum(dim=axes)[..., None]
-        if batch_dice:
-            total = all_sum(total)
+        total = all_sum(loss_mask.float().sum(dim=axes)[..., None],
+                        _over(batch_dice))
     tn = total - tp - fp - fn
     tp, fp, fn, tn = (v / voxels for v in (tp, fp, fn, tn))
     nominator = tp * tn - fp * fn + smooth

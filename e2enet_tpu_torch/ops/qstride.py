@@ -27,6 +27,13 @@ depth parity 1, negated shifts; reference qstride._groups/_tap_geometry).
 Output extent per axis: (L - parity + s - 1) // s, parity s - 1 on a
 mirrored axis.
 
+Spatial parallelism (an H slab per rank): `halo` (top, bottom) gives the
+raw rows (N, D, 1, W, C) next to the slab, or None at the volume's edge;
+they are read through the norm where the op would zero-fill row -1 or row
+H (unmirrored, stride 2: the top row only). Their gradients come back
+through the plain version's autograd, to be returned to their owners
+(parallel/halo.halo_rows_grad).
+
 `strided_fused` runs the CUDA kernel (csrc/qstride.cu) for CUDA tensors
 and its plain torch version for CPU tensors. Where a gradient is wanted it
 is an autograd op whose backward is torch's autograd of the plain version,
@@ -56,36 +63,64 @@ def _tap_origin(s: int, flipped: bool) -> int:
     return 0 if (flipped and s == 2) else -1
 
 
+def halo_extent(H: int, sh: int, flipped: bool) -> Tuple[int, int]:
+    """The rows above and below an H slab that the op's windows read (its
+    zero halo on the whole volume)."""
+    lo = -_tap_origin(sh, flipped)
+    hi = sh * (_out_extent(H, sh, flipped) - 1) + 2 - lo - (H - 1)
+    return lo, max(hi, 0)
+
+
 def strided_fused_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
                       kernel: torch.Tensor, bias: torch.Tensor,
                       stride: Tuple[int, int, int] = (2, 2, 2),
-                      flips: Flips = NO_FLIPS, groups_override=None):
+                      flips: Flips = NO_FLIPS, groups_override=None,
+                      halo=(None, None), edge=(False, False)):
     """Plain torch version. x (N, D, H, W, C), mult/off (C,) or (N, C),
     kernel (CO, C, 3, 3), bias (CO,); groups_override: the shift groups of
     C (default shiftConvPP's, fused_block.shift_groups; one group of shift
-    0 with the shift off). Returns (y (N, Do, Ho, Wo, CO) in x's dtype,
-    stats (N, CO, 2) float32)."""
+    0 with the shift off); halo, edge: an H slab's (module docstring,
+    strided_fused). Returns (y (N, Do, Ho, Wo, CO) in x's dtype, stats
+    (N, CO, 2) float32)."""
     dtype = x.dtype
     N, D, H, W, C = x.shape
     CO = kernel.shape[0]
     sd, sh, sw = stride
     m = affine_nc(mult, N, C)[:, None, None, None, :]
     o = affine_nc(off, N, C)[:, None, None, None, :]
-    u = lrelu_max(x.float() * m + o).to(dtype)
     groups, parity = strided_depth_source(
         groups_override or shift_groups(C), sd, flips[0])
-    s = depth_shift_groups(u, groups)[:, parity::sd]
+
+    def shifted(v):
+        u = lrelu_max(v.float() * m + o).to(dtype)
+        return depth_shift_groups(u, groups)[:, parity::sd]
+    s = shifted(x)
     Do = s.shape[1]
     # zero halo: `origin` rows before, the rest after
     pads = []
     for L, st, f in ((W, sw, flips[2]), (H, sh, flips[1])):
-        lo = -_tap_origin(st, f)
-        hi = st * (_out_extent(L, st, f) - 1) + 2 - lo - (L - 1)
-        pads += [lo, max(hi, 0)]
+        pads += list(halo_extent(L, st, f))
+    if any(r is not None for r in halo):
+        # an H slab: the neighbours' rows where the volume's H halo is
+        # not zero
+        rows = []
+        for r, n, e in zip(halo, pads[2:], edge):
+            if n > 1 or (r is not None and n == 0):
+                raise ValueError(f"a halo of {n} rows, given "
+                                 f"{'one' if r is not None else 'none'}")
+            zero = s.new_zeros(s.shape[:2] + (1,) + s.shape[3:])
+            # a row at the volume's edge passes the same ops, then zero
+            rows.append(None if n == 0 else zero if r is None else
+                        torch.where(torch.tensor(e), zero, shifted(r)))
+        s = torch.cat([t for t in (rows[0], s, rows[1]) if t is not None],
+                      dim=2)
+        H = s.shape[2]
+        pads[2:] = [0, 0]
     x2 = F.pad(s.reshape(N * Do, H, W, C).permute(0, 3, 1, 2).float(), pads)
     acc = F.conv2d(x2, mirror_conv_kernel(kernel.to(dtype), flips).float(),
                    None, stride=(sh, sw))
-    Ho, Wo = _out_extent(H, sh, flips[1]), _out_extent(W, sw, flips[2])
+    Ho = _out_extent(x.shape[2], sh, flips[1])
+    Wo = _out_extent(W, sw, flips[2])
     acc = acc[:, :, :Ho, :Wo] + bias.float()[None, :, None, None]
     acc = acc.permute(0, 2, 3, 1).reshape(N, Do, Ho, Wo, CO)
     stats = torch.stack([acc.sum(dim=(1, 2, 3)),
@@ -96,30 +131,46 @@ def strided_fused_ref(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
 def strided_fused(x: torch.Tensor, mult: torch.Tensor, off: torch.Tensor,
                   kernel: torch.Tensor, bias: torch.Tensor,
                   stride: Tuple[int, int, int] = (2, 2, 2),
-                  flips: Flips = NO_FLIPS, groups_override=None):
+                  flips: Flips = NO_FLIPS, groups_override=None,
+                  halo=(None, None), edge=(False, False)):
     """The strided transition: plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (bfloat16, strides of 1 or 2; raises on what the
     kernel does not take). Same arguments and results as
     strided_fused_ref; with a gradient wanted, an autograd op whose
-    backward is strided_fused_ref's."""
-    if needs_grad((x, mult, off, kernel, bias)):
+    backward is strided_fused_ref's (the halo rows' gradients included).
+    edge: per side, whether the slab is at the volume's edge there: a halo
+    row given on that side enters the autograd op (every rank's backward
+    then reaches its exchange, parallel/halo.py) but is read as absent."""
+    has = tuple(r is not None for r in halo)
+    rows = [r for r in halo if r is not None]
+
+    def split(t):
+        it = iter(t[5:])
+        return t[:5], tuple(next(it) if h else None for h in has)
+
+    if needs_grad((x, mult, off, kernel, bias, *rows)):
         return plain_vjp(
-            lambda *t: _strided_forward(*t, stride, flips, groups_override),
-            lambda *t: strided_fused_ref(*t, stride, flips, groups_override),
-            (x, mult, off, kernel, bias))
+            lambda *t: _strided_forward(*split(t)[0], stride, flips,
+                                        groups_override, split(t)[1], edge),
+            lambda *t: strided_fused_ref(*split(t)[0], stride, flips,
+                                         groups_override, split(t)[1], edge),
+            (x, mult, off, kernel, bias, *rows))
     return _strided_forward(x, mult, off, kernel, bias, stride, flips,
-                            groups_override)
+                            groups_override, tuple(halo), edge)
 
 
 def _strided_forward(x, mult, off, kernel, bias, stride, flips,
-                     groups_override=None):
+                     groups_override=None, halo=(None, None),
+                     edge=(False, False)):
     dev = x.device
     if dev.type == "cpu":
         return strided_fused_ref(x, mult, off, kernel, bias, stride, flips,
-                                 groups_override)
+                                 groups_override, halo, edge)
+    halo = tuple(None if e else r for r, e in zip(halo, edge))
     if dev.type != "cuda":
         raise ValueError(f"strided_fused: unsupported device {dev}")
-    tensors = (x, mult, off, kernel, bias)
+    tensors = (x, mult, off, kernel, bias) + tuple(
+        r for r in halo if r is not None)
     if any(t.device != dev for t in tensors):
         raise ValueError("strided_fused: tensors on several devices")
     if x.dtype != torch.bfloat16 or x.dim() != 5:
@@ -143,10 +194,16 @@ def _strided_forward(x, mult, off, kernel, bias, stride, flips,
            _out_extent(W, sw, flips[2]))
     y = torch.empty((N, *out, CO), dtype=x.dtype, device=dev)
     stats = torch.zeros((N, CO, 2), dtype=torch.float32, device=dev)
+    lo, hi = halo_extent(H, sh, flips[1])
+    for r, n in zip(halo, (lo, hi)):
+        if r is not None and (n != 1 or r.dtype != x.dtype or tuple(
+                r.shape) != (N, D, 1, W, C)):
+            raise ValueError(f"halo row {tuple(r.shape)} {r.dtype} where "
+                             f"the op reads {n} rows of (N, D, 1, W, C)")
     _native.launch_strided(
         x.contiguous(), affine_nc(mult, N, C), affine_nc(off, N, C),
         groups, w9, bias.float().contiguous(), y, stats, stride, parity,
-        (_tap_origin(sh, flips[1]), _tap_origin(sw, flips[2])))
+        (_tap_origin(sh, flips[1]), _tap_origin(sw, flips[2])), halo)
     strided_fused.launches += 1
     return y, stats
 

@@ -1,6 +1,6 @@
-"""Data-parallel training and tile-sharded prediction over a
+"""Data- and spatial-parallel training and tile-sharded prediction over a
 torch.distributed process group: the port of e2enet_tpu/parallel/mesh.py's
-"data" axis.
+("data", "space") mesh.
 
 The JAX package shards the batch over a mesh axis and lets GSPMD insert
 the gradient psum and the global batch-Dice reduction. Here it is
@@ -14,8 +14,14 @@ falls back from one backend to the other.
   before it touches the card), initialises the group, runs fn(*args) and
   returns every rank's result. Rendezvous goes through a file in a fresh
   temporary directory, never a fixed port.
-- `shard_batch`: rank r keeps rows [r B/n, (r+1) B/n) of the global batch,
-  as P("data") does.
+- `make_grid(num_devices, spatial_parallel)`: the (data x space) grid of
+  the world, as make_mesh's devices.reshape(dp, sp): rank r sits at data
+  index r // sp and space index r % sp. Its groups (collectives.Grid) are
+  made on every rank in one fixed order.
+- `shard_batch`: rank r keeps its data index's rows of the global batch
+  and, on a grid of sp > 1, its space index's H slab (axis 2 of the
+  channels-last batch and of each target level), as P("data", None,
+  "space") does.
 - `broadcast_array`: rank 0's preprocessed volume on every rank.
 
 The reductions inside the loss and batch norm are in collectives.py; the
@@ -31,6 +37,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from . import collectives
 
 # collectives wait this long for a slow rank (rank 0 validating alone)
 TIMEOUT = datetime.timedelta(hours=3)
@@ -95,6 +103,56 @@ def data_group(num_devices: int):
     return dist.group.WORLD
 
 
+def check_grid(num_devices: int, spatial_parallel: int,
+               batch_size: Optional[int] = None, patch_h: Optional[int] = None,
+               h_divisor: int = 1) -> int:
+    """The data-parallel size of num_devices ranks at spatial_parallel;
+    raises, naming the numbers, where the grid does not divide them: the
+    devices, the batch (the JAX trainer's assert batch % (n // sp) == 0)
+    and the patch's H into slabs whose height the model's H pools divide
+    (h_divisor)."""
+    sp = int(spatial_parallel)
+    if sp < 1 or num_devices % sp:
+        raise ValueError(f"spatial_parallel={sp} does not divide "
+                         f"num_devices={num_devices}")
+    dp = num_devices // sp
+    if batch_size is not None and batch_size % dp:
+        raise ValueError(f"batch {batch_size} not divisible by the "
+                         f"data-parallel size {dp} (num_devices="
+                         f"{num_devices} // spatial_parallel={sp})")
+    if patch_h is not None and sp > 1:
+        if patch_h % sp or (patch_h // sp) % h_divisor:
+            raise ValueError(f"patch H {patch_h} does not split into "
+                             f"{sp} slabs whose height the H pools' "
+                             f"product {h_divisor} divides")
+    return dp
+
+
+def make_grid(num_devices: int, spatial_parallel: int = 1
+              ) -> collectives.Grid:
+    """The (data x space) grid of this process group of num_devices ranks
+    (raises outside one or at another size): rank r at data index r // sp
+    and space index r % sp. Every rank makes every group, in one order
+    (dist.new_group's rule); an axis of one rank is None."""
+    world = data_group(num_devices)
+    sp = int(spatial_parallel)
+    dp = check_grid(num_devices, sp)
+    if sp == 1:
+        return collectives.Grid(data=world, space=None, world=world)
+    r = dist.get_rank()
+    space = data = None
+    for i in range(dp):
+        g = dist.new_group(list(range(i * sp, (i + 1) * sp)))
+        if r // sp == i:
+            space = g
+    if dp > 1:
+        for j in range(sp):
+            g = dist.new_group(list(range(j, num_devices, sp)))
+            if r % sp == j:
+                data = g
+    return collectives.Grid(data=data, space=space, world=world)
+
+
 def barrier() -> None:
     if is_initialized():
         dist.barrier()
@@ -144,15 +202,35 @@ def launch(fn: Callable, num_devices: int, device="cuda", *args,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def shard_batch(data, targets: Sequence, group=None):
-    """This rank's rows [r B/n, (r+1) B/n) of the global batch (arrays or
-    tensors, batch first) and of each target."""
-    n, r = world_size(group), dist.get_rank(group)
+def _slab(a, axis: int, i: int, sp: int):
+    L = int(a.shape[axis])
+    if L % sp:
+        raise ValueError(f"H extent {L} does not split into {sp} slabs")
+    index = [slice(None)] * a.ndim
+    index[axis] = slice(i * L // sp, (i + 1) * L // sp)
+    return a[tuple(index)]
+
+
+def shard_batch(data, targets: Sequence, group=None, h_axis: int = 2):
+    """This rank's part of the global batch (arrays or tensors, batch
+    first) and of each target: the rows of its data index, [i B/dp,
+    (i+1) B/dp), and on a grid (collectives.Grid) of sp > 1 the H slab of
+    its space index along h_axis (2: channels-last data and the targets;
+    the host batch (B, C, D, H, W) passes 3 for the data)."""
+    grid = collectives.as_grid(dist.group.WORLD if group is None else group)
+    dp = world_size(grid.data) if grid.data is not None else 1
+    i = dist.get_rank(grid.data) if grid.data is not None else 0
     B = int(data.shape[0])
-    assert B % n == 0, (f"batch {B} not divisible by data-parallel size "
-                        f"{n}")
-    rows = slice(r * B // n, (r + 1) * B // n)
-    return data[rows], type(targets)(t[rows] for t in targets)
+    if B % dp:
+        raise ValueError(f"batch {B} not divisible by the data-parallel "
+                         f"size {dp}")
+    rows = slice(i * B // dp, (i + 1) * B // dp)
+    data, parts = data[rows], [t[rows] for t in targets]
+    if grid.space is not None:
+        sp, j = world_size(grid.space), dist.get_rank(grid.space)
+        data = _slab(data, h_axis, j, sp)
+        parts = [_slab(t, 2, j, sp) for t in parts]
+    return data, type(targets)(parts)
 
 
 def broadcast_array(a: Optional[np.ndarray], device, group=None

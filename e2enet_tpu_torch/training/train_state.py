@@ -30,15 +30,18 @@ same tensors. Gradients are the full gradients, dead kernels included
 (the masks are applied after the update), as the reference's. Every
 result stays on the device: nothing here waits for the card.
 
-Data parallel (group, a torch.distributed process group;
-make_sharded_train_step): each rank passes its rows of the batch and the
-same state (replicate_state). The loss runs under parallel/collectives.
-reducing(group), so it is the whole
-batch's on every rank and each rank's backward carries its own share; the
-parameter gradients are then summed over the ranks, clipped at global
-norm 12 and fed to the optimizer, so every rank makes the same update.
-The grad step's gradients are summed alike; the eval step's loss is the
-whole batch's and its tp/fp/fn are summed. The mask update needs no
+Data and spatial parallel (group: a parallel/collectives.Grid of the
+(data x space) grid, or a torch.distributed process group for data
+parallel alone; make_sharded_train_step): each rank passes its rows of
+the batch, on a grid with spatial parallelism their H slab, and the same
+state (replicate_state, over the world). The model and the loss run
+under parallel/collectives.reducing(group), so the halo rows, the norms'
+statistics and the loss are the whole batch's on every rank and each
+rank's backward carries its own share; the parameter gradients are then
+summed over the world, clipped at global norm 12 and fed to the
+optimizer, so every rank makes the same update. The grad step's
+gradients are summed alike; the eval step's loss is the whole batch's
+and its hard tp/fp/fn are summed over the world (space, then data). The mask update needs no
 communication: every rank draws from the same seeded state.generator on
 the same parameters (and gradients) and reaches the same masks.
 """
@@ -54,7 +57,8 @@ from ..models.masks import apply_masks_to
 from ..ops.losses import (deep_supervision_loss, hard_tp_fp_fn,
                           hard_tp_fp_fn_regions)
 from ..parallel import mesh
-from ..parallel.collectives import all_reduce_sum_, all_sum, reducing
+from ..parallel.collectives import (all_reduce_sum_, all_sum, as_grid,
+                                   reducing)
 from . import dsff
 from .ranger import RangerState, ranger_init, ranger_update
 
@@ -99,10 +103,17 @@ def create_train_state(model: nn.Module, masks=None, seed: int = 0,
                       rng=np.array([0, seed], np.uint32))
 
 
+def _world(group):
+    """The process group over every rank of a grid or group (None: the
+    default group)."""
+    return None if group is None else as_grid(group).world
+
+
 def replicate_state(state: TrainState, group=None) -> TrainState:
     """The state's parameters, optimizer buffers and masks broadcast from
-    rank 0 of the process group, in place (the JAX package's
-    replicate_state)."""
+    rank 0 of the process group (of a grid: its world), in place (the JAX
+    package's replicate_state)."""
+    group = _world(group)
     tensors = [p.data for p in state.params.values()]
     for d in _state_dicts(state.momentum) + [state.masks or {}]:
         tensors += list(d.values())
@@ -246,7 +257,7 @@ def _full_grads(loss, params: Dict[str, torch.Tensor], group=None):
     grads = {n: torch.zeros_like(params[n]) if g is None else g
              for n, g in zip(names, got)}
     if group is not None:
-        all_reduce_sum_(list(grads.values()), group)
+        all_reduce_sum_(list(grads.values()), _world(group))
     return grads
 
 
@@ -266,9 +277,9 @@ def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
     with loss_kwargs. extras, floats: (weight_ce, weight_dice) when
     dynamic_loss_weights (the CE -> Dice transition), then the momentum
     when dynamic_momentum (SGD only; the momentum reduction); reference
-    make_train_step, train_state.py:133-208. group: data parallel over
-    its ranks, data and targets this rank's rows (the module's
-    docstring)."""
+    make_train_step, train_state.py:133-208. group: a grid of ranks (or a
+    data-parallel process group), data and targets this rank's rows and
+    slab (the module's docstring)."""
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer '{optimizer}'")
     if dynamic_momentum and optimizer != "sgd":
@@ -307,13 +318,17 @@ def make_train_step(model: nn.Module, ds_weights, batch_dice: bool = True,
 
 
 def make_sharded_train_step(model: nn.Module, ds_weights,
-                            batch_dice: bool = True, **step_kwargs):
+                            batch_dice: bool = True, grid=None,
+                            **step_kwargs):
     """make_train_step over the process group this process runs in (the
-    JAX package's make_sharded_train_step on a "data" mesh): each rank
-    passes its rows (parallel.shard_batch) and the replicated state; raises
-    outside a group."""
-    return make_train_step(model, ds_weights, batch_dice,
-                           group=mesh.world_group(), **step_kwargs)
+    JAX package's make_sharded_train_step on a ("data", "space") mesh):
+    each rank passes its rows and slab (parallel.shard_batch with the same
+    grid) and the replicated state. grid: mesh.make_grid's (default: data
+    parallel over the whole group); raises outside a group."""
+    if grid is None:
+        grid = mesh.world_group()
+    return make_train_step(model, ds_weights, batch_dice, group=grid,
+                           **step_kwargs)
 
 
 def make_eval_step(model: nn.Module, ds_weights, batch_dice: bool = True,
@@ -326,8 +341,8 @@ def make_eval_step(model: nn.Module, ds_weights, batch_dice: bool = True,
     foreground class, or with regions per region channel of sigmoid > 0.5
     against region targets (reference make_eval_step, train_state.py:
     211-238), no gradient; extras (weight_ce, weight_dice) when
-    dynamic_loss_weights. group: data parallel, the loss and the counts
-    the whole batch's."""
+    dynamic_loss_weights. group: a grid of ranks (or a data-parallel
+    process group), the loss and the counts the whole batch's."""
     loss_fn = _loss_fn(ds_weights, batch_dice, loss_name, loss_kwargs)
 
     def eval_step(data, targets, *extras):
@@ -404,7 +419,8 @@ def make_grad_step(model: nn.Module, ds_weights, batch_dice: bool = True,
     reads); do_ds=False as make_train_step's (the reference runs every
     head and weighs the first alone: the same loss, zero gradients for
     the other heads). The trainer feeds it to gradient-fed DSFF
-    updates. group: data parallel, the gradients summed over its ranks."""
+    updates. group: a grid of ranks (or a data-parallel process group),
+    the gradients summed over every rank."""
     loss_fn = _loss_fn(ds_weights, batch_dice, loss_name, None)
 
     def grad_step(data, targets):

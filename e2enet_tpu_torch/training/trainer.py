@@ -79,13 +79,17 @@ do_gamma, read from the augmentation parameters after the da_level);
 validation keeps the host pipeline. The modes in which the JAX trainer
 cannot train so are refused at initialize (_DEVICE_AUGMENT_REFUSED).
 
-num_devices=n above 1 trains data parallel inside a process group of n
-ranks (parallel/mesh.launch; the train CLI's --num_devices spawns them),
-the JAX trainer's "data" mesh: every rank runs the same seeded pipeline
-(host or device augmentation) on the whole batch and keeps its rows
-(mesh.shard_batch), the state is broadcast from rank 0 at start, and the
-steps reduce their losses, counts and gradients over the ranks
-(training/train_state.py), so every rank holds the same state. Rank 0
+num_devices=n above 1 trains inside a process group of n ranks
+(parallel/mesh.launch; the train CLI's --num_devices spawns them), on the
+JAX trainer's ("data", "space") mesh: spatial_parallel=S splits the ranks
+into a grid of n / S data rows of S ranks (mesh.make_grid), each rank one
+H slab of its row's samples. Every rank runs the same seeded pipeline
+(host or device augmentation) on the whole batch and keeps its rows and
+slab (mesh.shard_batch), the state is broadcast from rank 0 at start, and
+the steps exchange halo rows and reduce their norms' statistics, losses,
+counts and gradients over the grid (training/train_state.py), so every
+rank holds the same state. As the JAX trainer, one device ignores
+spatial_parallel (it logs so). Rank 0
 alone writes checkpoints, logs, plots, debug.json and the validations;
 the other ranks wait at a barrier while it validates. A checkpoint
 continued with -c is loaded by every rank from the same file. The same
@@ -93,9 +97,8 @@ batches on every rank need one augmentation thread (data/pipeline.py:
 only one gives a fixed order), so num_da_threads above 1 with num_devices
 above 1 raises.
 
-Not ported, raising NotImplementedError that names its ROADMAP item:
-spatial_parallel above 1 (item 7 (ii)). `fused` and `remat` choose
-between XLA programs of the reference and have no meaning here.
+`fused` and `remat` choose between XLA programs of the reference and
+have no meaning here.
 """
 import json
 import os
@@ -133,12 +136,10 @@ from .train_state import (apply_new_masks, create_train_state, make_eval_step,
                           make_train_step, replicate_state)
 from .variants import apply_da_level
 
-SPATIAL_PARALLEL_ITEM = "ROADMAP Queue 1 item 7 (ii) (spatial parallel)"
 # the reference's defaults of the options the port refuses otherwise
 _REFUSED = (
     ("profile_dir", None, "not ported (a step's device time by kernel: "
-     "python -m e2enet_tpu_torch.profile_forward --train)"),
-    ("spatial_parallel", 1, SPATIAL_PARALLEL_ITEM))
+     "python -m e2enet_tpu_torch.profile_forward --train)"),)
 # the modes the JAX trainer cannot train with device_augment (ROADMAP
 # Queue 3), each with what goes wrong there
 _DEVICE_AUGMENT_REFUSED = {
@@ -200,7 +201,7 @@ class Trainer:
                  seg_bias: bool = False, nonlin_before_norm: bool = False,
                  conv_kernel=None, device_augment: bool = False,
                  num_devices: Optional[int] = None,
-                 device="cuda", **options):
+                 spatial_parallel: int = 1, device="cuda", **options):
         """The reference's arguments (TPUTrainer.__init__, trainer.py:47-76)
         with `device`; cascade=True trains the 3d_cascade_fullres stage on
         the previous stage's one-hot segmentation; any of the reference's
@@ -215,8 +216,9 @@ class Trainer:
         norm_op, nonlin, num_conv_per_stage, seg_bias, nonlin_before_norm,
         conv_kernel: the architecture switches of build_network;
         device_augment: the training batches augmented on the device
-        (ops/device_augment.py); num_devices: data parallel over a process
-        group of that many ranks (None or 1: this device alone)."""
+        (ops/device_augment.py); num_devices: a process group of that many
+        ranks (None or 1: this device alone), spatial_parallel of them per
+        data row, each an H slab (the module's docstring)."""
         refuse_unported(**options)
         if ds_mode not in ("standard", "none"):
             raise ValueError(f"ds_mode {ds_mode!r}: 'standard' or 'none'")
@@ -228,7 +230,15 @@ class Trainer:
                 f"{num_da_threads}: every rank must see the same seeded "
                 f"batches, and only one augmentation thread gives a fixed "
                 f"order (data/pipeline.py)")
-        self.group = (mesh.data_group(self.num_devices)
+        self.spatial_parallel = int(spatial_parallel or 1)
+        self._ignored_spatial = None
+        if self.num_devices == 1 and self.spatial_parallel > 1:
+            # the JAX trainer builds no mesh on one device
+            # (trainer.py:274-275): spatial_parallel has no effect
+            self._ignored_spatial = self.spatial_parallel
+            self.spatial_parallel = 1
+        mesh.check_grid(self.num_devices, self.spatial_parallel)
+        self.group = (mesh.make_grid(self.num_devices, self.spatial_parallel)
                       if self.num_devices > 1 else None)
         self.is_main = self.group is None or mesh.rank() == 0
         self.plans = plans
@@ -295,9 +305,10 @@ class Trainer:
         self.stage_plan = plans.plans_per_stage[stage]
         self.patch_size = np.array(self.stage_plan.patch_size)
         self.batch_size = int(self.stage_plan.batch_size)
-        assert self.batch_size % self.num_devices == 0, (
-            f"batch {self.batch_size} not divisible by data-parallel size "
-            f"{self.num_devices}")
+        mesh.check_grid(
+            self.num_devices, self.spatial_parallel, self.batch_size,
+            int(self.patch_size[1]),
+            int(np.prod([p[1] for p in self.stage_plan.pool_op_kernel_sizes])))
         self.num_classes = plans.num_classes + 1  # incl. background
         self.num_modalities = plans.num_modalities
 
@@ -365,10 +376,18 @@ class Trainer:
             self.t_max = self.max_num_epochs * self.num_batches_per_epoch
         self.state = create_train_state(self.network, masks, seed=self.seed,
                                         optimizer=self.optimizer)
+        if self._ignored_spatial:
+            self.logger.log(f"spatial_parallel={self._ignored_spatial} on "
+                            f"one device: ignored, as the JAX trainer "
+                            f"builds no mesh there")
         if self.group is not None:
             replicate_state(self.state, self.group)
+            dp = self.num_devices // self.spatial_parallel
+            backend = torch.distributed.get_backend(self.group.world)
+            grid = (f", a {dp} x {self.spatial_parallel} (data x space) "
+                    f"grid" if self.spatial_parallel > 1 else "")
             self.logger.log(f"data parallel over {self.num_devices} ranks "
-                            f"({torch.distributed.get_backend(self.group)})")
+                            f"({backend}){grid}")
         ce_to_dice = self.loss_schedule == "ce_to_dice"
         self.train_step = make_train_step(
             self.network, self.ds_weights, self.batch_dice,
@@ -518,11 +537,21 @@ class Trainer:
         folder = join(self.dataset_directory,
                       self.plans.data_identifier + "_stage%d" % self.stage)
         self.folder_with_preprocessed_data = folder
-        if self.unpack_data:
-            unpack_dataset(folder)
-        dataset = load_dataset(folder)
         splits_file = join(self.dataset_directory, "splits_final.pkl")
-        tr_keys, val_keys = do_split(dataset, self.fold, splits_file)
+
+        def unpack_and_split():
+            if self.unpack_data:
+                unpack_dataset(folder)
+            dataset = load_dataset(folder)
+            return dataset, do_split(dataset, self.fold, splits_file)
+        if self.group is None or self.is_main:
+            dataset, (tr_keys, val_keys) = unpack_and_split()
+        if self.group is not None:
+            # rank 0 writes the unpacked arrays and the split once; the
+            # others read them after it (no two ranks write one file)
+            mesh.barrier()
+            if not self.is_main:
+                dataset, (tr_keys, val_keys) = unpack_and_split()
         self.dataset_tr = OrderedDict((k, dataset[k]) for k in tr_keys)
         self.dataset_val = OrderedDict((k, dataset[k]) for k in val_keys)
         self.logger.log(f"fold {self.fold}: {len(tr_keys)} train / "
@@ -592,16 +621,19 @@ class Trainer:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _rows(self, data, targets):
-        """This rank's rows of the batch (all of it on one device)."""
+    def _rows(self, data, targets, h_axis: int = 2):
+        """This rank's rows of the batch and, on a grid with spatial
+        parallelism, their H slab (all of it on one device); h_axis: the
+        data's H (3 in the host batch (B, C, D, H, W))."""
         if self.group is None:
             return data, targets
-        return mesh.shard_batch(data, targets, self.group)
+        return mesh.shard_batch(data, targets, self.group, h_axis)
 
     def _to_device(self, batch):
-        """The augmented batch (this rank's rows) channels-last on the
-        device."""
-        data, targets = self._rows(batch["data"], tuple(batch["target"]))
+        """The augmented batch (this rank's rows and slab) channels-last
+        on the device."""
+        data, targets = self._rows(batch["data"], tuple(batch["target"]),
+                                   h_axis=3)
         return (self._put(np.moveaxis(data, 1, -1)),
                 tuple(self._put(t) for t in targets))
 

@@ -1715,3 +1715,139 @@ def test_device_augment_on_the_card_matches_the_cpu(C, in_patch, patch):
         (B,) + patch, (B,) + tuple((x + 1) // 2 for x in patch)]
     assert all(t.dtype == torch.int64 and t.device.type == "cuda"
                for t in targets)
+
+
+# ---------------------------------------------------------------------------
+# halo mode (spatial parallelism): an H slab with its neighbour rows
+
+# (N, D, H of the slab, W, part channels, pending affine per part, CO): the
+# 16-byte, pair and scalar staging units, parts with and without a norm,
+# both tile sizes (CO 48 and 96), tiles that end inside the slab
+HALO = {
+    "l0_width": (1, 4, 16, 64, (48, 48), (True, False), 48),
+    "l1_width": (2, 3, 8, 32, (96, 96, 48), (True, False, False), 96),
+    "ragged": (2, 5, 6, 13, (5, 3), (True, False), 7),
+    "rows_10": (1, 3, 10, 32, (16, 8), (False, True), 24),
+}
+HALO_SIDES = ("top", "bottom", "both")
+
+
+def _slab(whole, top, bottom):
+    """(the slab of `whole` between its halo rows, the row above or None,
+    the row below or None, the slab's first row)."""
+    t0 = 1 if top else 0
+    H = whole.shape[2] - t0 - (1 if bottom else 0)
+    return (whole[:, :, t0:t0 + H].contiguous(),
+            whole[:, :, :1].contiguous() if top else None,
+            whole[:, :, -1:].contiguous() if bottom else None, t0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HALO))
+@pytest.mark.parametrize("side", HALO_SIDES)
+def test_fused_block_halo_matches_plain(case, side):
+    """#1 with halo rows (raw, read through each part's norm) against its
+    plain version with the same rows, and against the rows of the kernel
+    on the whole H (the slab and its rows): y within one bf16 step of the
+    whole-H kernel's rows, two of the plain version's; the statistics the
+    slab's own."""
+    dev = _card()
+    N, D, H, W, part_c, affine, CO = HALO[case]
+    top, bottom = side in ("top", "both"), side in ("bottom", "both")
+    wholes, affs, kernel, bias = _make(len(case), N, D, H + top + bottom, W,
+                                       part_c, affine, CO, dev)
+    split = [_slab(w, top, bottom) for w in wholes]
+    parts, t0 = [s[0] for s in split], split[0][3]
+    halos = ([s[1] for s in split], [s[2] for s in split])
+    before = tfb.fused_shift_conv_block.launches
+    with torch.no_grad():
+        y, s = tfb.fused_shift_conv_block(parts, kernel, bias, affs,
+                                          halos=halos)
+        y_p, s_p = tfb.fused_shift_conv_block_ref(parts, kernel, bias, affs,
+                                                  halos=halos)
+        y_w, _ = tfb.fused_shift_conv_block(wholes, kernel, bias, affs)
+    torch.cuda.synchronize()
+    assert tfb.fused_shift_conv_block.launches == before + 2
+    assert _within_ulps(y, y_p)
+    assert _within_ulps(y, y_w[:, :, t0:t0 + H], 1.0)
+    torch.testing.assert_close(s, s_p, rtol=1e-3,
+                               atol=1e-3 * float(y_p.float().abs().sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["l0_width", "l1_width", "ragged"])
+@pytest.mark.parametrize("side", HALO_SIDES)
+def test_block_bwd_halo_matches_plain(case, side):
+    """#2/#4 on an H slab: the forward's halo rows and the neighbours' y
+    and gy rows, against the plain version with the same rows (gx within
+    two bf16 steps, gW, gb and g(affine) within 2e-3), and gx against the
+    rows of the whole-H backward (within one step: the slab's whole
+    gradient)."""
+    dev = _card()
+    N, D, H, W, part_c, affine, CO = HALO[case]
+    top, bottom = side in ("top", "both"), side in ("bottom", "both")
+    wholes, kernel, bias, affs, y_w, gy_w, gstats = _bwd_inputs(
+        len(case), N, D, H + top + bottom, W, part_c, affine, CO, dev)
+    split = [_slab(w, top, bottom) for w in wholes]
+    parts, t0 = [s[0] for s in split], split[0][3]
+    halos = ([s[1] for s in split], [s[2] for s in split])
+    y, gy = (t[:, :, t0:t0 + H].contiguous() for t in (y_w, gy_w))
+    edge = ((y_w[:, :, :1].contiguous(), gy_w[:, :, :1].contiguous())
+            if top else None,
+            (y_w[:, :, -1:].contiguous(), gy_w[:, :, -1:].contiguous())
+            if bottom else None)
+    args = (parts, kernel, bias, affs, y, gy, gstats)
+    gp, gk, gb, ga = tfb.fused_shift_conv_block_bwd(*args, halos=halos,
+                                                    edge_rows=edge)
+    rp, rk, rb, ra = tfb.fused_shift_conv_block_bwd_ref(*args, halos=halos,
+                                                        edge_rows=edge)
+    wp, _, _, _ = tfb.fused_shift_conv_block_bwd(wholes, kernel, bias, affs,
+                                                 y_w, gy_w, gstats)
+    torch.cuda.synchronize()
+    for g, r, w in zip(gp, rp, wp):
+        assert _within_ulps(g, r)
+        assert _within_ulps(g, w[:, :, t0:t0 + H], 1.0)
+    assert _close_max(gk, rk, 2e-3) and _close_max(gb, rb, 2e-3)
+    for g, r in zip(ga, ra):
+        if g is not None:
+            assert _close_max(g[0], r[0], 2e-3)
+            assert _close_max(g[1], r[1], 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,flipped", [("even", False), ("ragged", False),
+                                          ("even", True), ("ragged", True)])
+def test_strided_halo_matches_plain(case, flipped):
+    """#5 on an H slab of even rows: its top row (its bottom row on a
+    mirrored H, whose windows reach row H) through the norm, against its
+    plain version with the same row and against the rows of the kernel on
+    the whole H."""
+    from e2enet_tpu_torch.ops import qstride
+    dev = _card()
+    N, D, H, W, C, CO, stride = STRIDED[case]
+    H = 2 * max(H // 2, 2)
+    rng = np.random.RandomState(D + C + 1)
+    whole = _rand(rng, dev, N, D, H + 2, W, C).bfloat16()
+    if flipped:        # the slab's rows 0..H, the row below, one more
+        x, up, down = (whole[:, :, :H].contiguous(), None,
+                       whole[:, :, H:H + 1].contiguous())
+        rows = slice(0, H // 2)
+    else:              # one more, the row above, the slab's rows
+        x, up, down = (whole[:, :, 2:].contiguous(),
+                       whole[:, :, 1:2].contiguous(), None)
+        rows = slice(1, None)
+    flips = (False, flipped, False)
+    m, o = _rand(rng, dev, N, C, scale=0.3, shift=1.0), _rand(rng, dev, N, C,
+                                                              scale=0.2)
+    k = _rand(rng, dev, CO, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+    b = _rand(rng, dev, CO, scale=0.1)
+    args = (x, m, o, k, b, stride, flips, None, (up, down))
+    with torch.no_grad():
+        y, s = qstride.strided_fused(*args)
+        y_p, s_p = qstride.strided_fused_ref(*args)
+        y_w, _ = qstride.strided_fused(whole, m, o, k, b, stride, flips)
+    torch.cuda.synchronize()
+    assert _within_ulps(y, y_p)
+    assert _within_ulps(y, y_w[:, :, rows], 1.0)
+    torch.testing.assert_close(s, s_p, rtol=1e-3,
+                               atol=1e-3 * float(y_p.float().abs().sum()))

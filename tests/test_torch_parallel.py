@@ -346,12 +346,14 @@ def test_two_ranks_equal_one_rank(world, one_rank, name):
 
 
 def _reference_sharded_steps(spec, params, masks, x, targets,
-                             dtype=jnp.float32, start=None):
-    """The JAX package's make_sharded_train_step on a 2-device "data"
-    mesh: [(optimizer buffers, params, loss, grad norm)] per step, in the
-    port's names and layouts. dtype: the model's and the state's (float64
-    under jax.enable_x64). start: a port state after step 1 (SGD buffers,
-    params) to take step 2 from, instead of both steps from params."""
+                             dtype=jnp.float32, start=None,
+                             n_devices=RANKS, spatial_parallel=1):
+    """The JAX package's make_sharded_train_step on a ("data", "space")
+    mesh of n_devices (default 2 x 1): [(optimizer buffers, params, loss,
+    grad norm)] per step, in the port's names and layouts. dtype: the
+    model's and the state's (float64 under jax.enable_x64). start: a port
+    state after step 1 (SGD or Adam buffers, params) to take step 2 from,
+    instead of both steps from params."""
     from e2enet_tpu.parallel.mesh import (make_mesh, make_sharded_train_step,
                                           replicate_state, shard_batch)
     from e2enet_tpu_torch.models.weights import from_jax_params, to_jax_params
@@ -364,7 +366,8 @@ def _reference_sharded_steps(spec, params, masks, x, targets,
         return jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), tree)
 
     opt = spec.get("optimizer", "sgd")
-    mesh2 = make_mesh(jax.devices()[:RANKS])
+    mesh2 = make_mesh(jax.devices()[:n_devices],
+                      spatial_parallel=spatial_parallel)
     jnet = JaxNet(**KW, norm_op=spec.get("norm_op", "instance"),
                   compute_dtype=dtype, remat=False, quadrant=False)
     step = make_sharded_train_step(
@@ -374,11 +377,17 @@ def _reference_sharded_steps(spec, params, masks, x, targets,
     state = jts.create_train_state(cast(params), masks, optimizer=opt)
     lrs = LRS
     if start is not None:
-        assert opt == "sgd" and masks is None
+        assert opt in ("sgd", "adam") and masks is None
         bufs, p1 = start
+        if opt == "sgd":
+            mom = cast(to_jax_params(bufs["momentum"]))
+        else:
+            mom = jts.AdamState(
+                step=state.momentum.step + 1,
+                **{f: cast(to_jax_params(bufs[f]))
+                   for f in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")})
         state = jts.TrainState(
-            params=cast(to_jax_params(p1)),
-            momentum=cast(to_jax_params(bufs["momentum"])), masks=None,
+            params=cast(to_jax_params(p1)), momentum=mom, masks=None,
             rng=state.rng, step=state.step + 1)
         lrs = LRS[1:]
     state = replicate_state(mesh2, state)

@@ -208,13 +208,16 @@ def test_refuses_without_a_card(environ, monkeypatch):
 
 @pytest.mark.parametrize("extra, item", [
     (["--num_devices", "2", "--device", "cuda"], "only .* present"),
-    (["--spatial_parallel", "2"], r"item 7 \(ii\)")])
+    (["--num_devices", "2", "--spatial_parallel", "3"],
+     "spatial_parallel=3 does not divide num_devices=2")])
 def test_unported_options_raise(environ, extra, item):
-    """--spatial_parallel raises naming its item; --num_devices asks for
-    no more cards than there are (it trains: test_num_devices_trains)."""
-    if "--num_devices" in extra and torch.cuda.device_count() >= 2:
+    """--spatial_parallel that does not divide --num_devices raises naming
+    both, before any rank starts (it trains: test_torch_spatial.py);
+    --num_devices asks for no more cards than there are (it trains:
+    test_num_devices_trains)."""
+    if "--device" in extra and torch.cuda.device_count() >= 2:
         pytest.skip("two cards present: --num_devices 2 trains there")
-    exc = RuntimeError if "--num_devices" in extra else NotImplementedError
+    exc = RuntimeError if "--device" in extra else ValueError
     with pytest.raises(exc, match=item):
         ttrain.main(ARGS + ["--epochs", "1", "--device", "cpu"] + extra)
 

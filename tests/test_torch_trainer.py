@@ -341,12 +341,17 @@ def test_kernel_granular_death_and_growth_match(task):
 def test_unported_options_raise(task):
     base, task_dir = task
     out = os.path.join(base, "refused")
-    # data parallel runs inside a process group (test_num_devices_two_
-    # ranks); outside one it says how to launch; spatial parallel raises
+    # data and spatial parallel run inside a process group (test_num_
+    # devices_two_ranks, test_torch_spatial.py); outside one it says how to
+    # launch; a grid that does not divide the ranks raises naming both;
+    # one device ignores spatial_parallel, as the JAX trainer does
     with pytest.raises(RuntimeError, match="launch"):
         _port_trainer(task_dir, out, num_devices=2)
-    with pytest.raises(NotImplementedError, match=r"item 7 \(ii\)"):
-        _port_trainer(task_dir, out, spatial_parallel=2)
+    with pytest.raises(ValueError, match="spatial_parallel=3 does not "
+                                         "divide num_devices=2"):
+        _port_trainer(task_dir, out, num_devices=2, spatial_parallel=3)
+    assert _port_trainer(task_dir, out,
+                         spatial_parallel=2).spatial_parallel == 1
     # the DSFF settings the reference trainer refuses, at initialize
     for kw, match in ((dict(sparse_init="snip"), "need a data batch"),
                       (dict(sparse_init="GraSP"), "need a data batch"),
